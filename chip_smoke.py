@@ -1,0 +1,352 @@
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card and
+check it. Run from the repository root with no arguments:
+
+  python3 chip_smoke.py
+
+Phases; any failure exits non-zero before the result line is printed:
+
+1. build   — compile every kernel from the repository's sources with
+             nvcc for sm_90a; print the build time and the ptxas lines.
+2. kernels — each kernel against its plain PyTorch version, on the card,
+             at the main path's shapes and at edge shapes, each against
+             its stated bound.
+3. main    — the user's entry point, ``repro_torch.launch.sample.run``:
+             the 256×256 DiT (HIGHRES_DIT, weights from a seed, zero-init
+             leaves livened), VP SDE, batch 8, eps_rel 0.05, fused solver
+             step and flash attention, fp32, at most MAIN_MAX_ITERS
+             iterations. Launch counts are set to 0 just before and read
+             just after; every kernel must have run. Then one DiT forward
+             and one Algorithm-1 iteration with the kernels, against the
+             same weights on the plain paths.
+4. check   — the main path's samples are finite and of the expected
+             shape, and a small adaptive solve on the closed-form Gaussian
+             score through the fused kernel passes the reference's
+             conformance gate (W2 to the exact marginal < 0.08).
+5. timing  — each kernel at the main path's shape, device time from a
+             replayed CUDA graph of 40 calls (and, for the host's share,
+             an eager loop), beside its bound, its plain version and, for
+             attention,
+             ``torch.nn.functional.scaled_dot_product_attention`` (a
+             yardstick only; the port never calls it).
+
+The last lines are the card's name and power limit (nvidia-smi), one
+JSON object naming each kernel, and ``{"ok": true, "device": ...}``.
+"""
+
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+#: iteration cap of the main path's solve
+MAIN_MAX_ITERS = 400
+#: published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12       # CUDA cores, no tensor cores
+#: flops per element of the fused solver step (x̃ 6, x'' 2, δ 5, r² and sum 4)
+STEP_FLOPS_PER_ELEMENT = 17
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def phase(name: str) -> None:
+    print(f"== {name}", flush=True)
+
+
+def timed_ms(fn, sets, reps: int) -> float:
+    """Mean ms per call of an eager loop of ``reps`` calls, between two
+    CUDA events: device time plus any gap the host leaves between
+    launches. Rotates through ``sets`` of inputs."""
+    for args in sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(*sets[i % len(sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, sets, reps: int = 40, replays: int = 5) -> float:
+    """Mean device ms per call: ``reps`` calls captured in one CUDA graph
+    and replayed, so no host time between launches is counted. Rotates
+    through ``sets`` of inputs, which together exceed the 50 MB L2, so
+    each call finds its inputs in device memory as the solver loop does."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("no CUDA device; chip_smoke.py runs on a machine with an NVIDIA card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.diffusion import HIGHRES_DIT
+    from repro_torch.core import analytic
+    from repro_torch.core.sampling import sample
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.kernels.solver_step import ref as step_ref
+    from repro_torch.launch import sample as launcher
+
+    dev = torch.device("cuda")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    # ------------------------------------------------------------ 1. build
+    phase("build")
+    path, seconds, log = _build.build()
+    print(f"built {os.path.relpath(path, ROOT)} in {seconds:.1f} s")
+    for line in log.splitlines():
+        if ("Compiling entry function" in line or "ptxas info    : Used" in line
+                or "spill" in line or line.startswith("==")):
+            print("  " + line.strip())
+
+    # ---------------------------------------------------------- 2. kernels
+    phase("kernels vs plain versions")
+    B, D = 8, HIGHRES_DIT.image_size ** 2 * HIGHRES_DIT.channels
+    H, S, Dh = HIGHRES_DIT.num_heads, HIGHRES_DIT.tokens, HIGHRES_DIT.head_dim
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step_err = {}
+    for dtype, xtol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for d in (D, 4_999):
+            states = [torch.randn(B, d, generator=gen, device=dev).to(dtype) for _ in range(5)]
+            coeffs = [torch.rand(B, generator=gen, device=dev) for _ in range(3)]
+            for vector in (False, True):
+                if vector:
+                    ea = torch.rand(B, generator=gen, device=dev) * 0.1 + 1e-3
+                    er = torch.rand(B, generator=gen, device=dev) * 0.5 + 0.01
+                else:
+                    ea, er = 0.0078, 0.05
+                xh, e2 = step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+                xr, e2r = step_ref.error_step(
+                    *states, *coeffs, step_ops.per_sample_tolerance(ea, B, dev),
+                    step_ops.per_sample_tolerance(er, B, dev))
+                torch.cuda.synchronize()
+                x_err = (xh.float() - xr.float()).abs().max().item()
+                x_bound = xtol * (1 + xr.float().abs().max().item())
+                e_rel = ((e2 - e2r).abs() / e2r.abs()).max().item()
+                ok = x_err <= x_bound and e_rel <= 1e-5
+                print(f"  solver_step {str(dtype)[6:]:8s} D={d:7d} "
+                      f"{'vector' if vector else 'scalar'}: max|x''-plain| {x_err:.3e} "
+                      f"(bound {x_bound:.1e}), max rel e2 {e_rel:.3e} (bound 1e-5) "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail("solver_step kernel disagrees with its plain version")
+                step_err[(dtype, d, vector)] = x_err
+    attn_err = {}
+    for (b, hq, hkv, s, dh, causal, window, dtype, tol) in (
+            (B, H, H, S, Dh, False, None, torch.float32, 3e-5),
+            (B, H, H, S, Dh, False, None, torch.bfloat16, 2e-2),
+            (2, 4, 2, 200, 32, True, 64, torch.float32, 3e-5),
+            (1, 2, 2, 25, 64, False, None, torch.float32, 3e-5)):
+        q = torch.randn(b, hq, s, dh, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        out = flash_ops.attention(q, k, v, causal=causal, window=window)
+        want = flash_ref.attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        bound = tol * (1 + want.float().abs().max().item())
+        ok = err <= bound
+        print(f"  flash_attention {(b, hq, hkv, s, dh)} causal={causal} window={window} "
+              f"{str(dtype)[6:]}: max abs err {err:.3e} (bound {bound:.1e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("flash attention kernel disagrees with its plain version")
+        attn_err[(s, dtype, causal)] = err
+
+    # ------------------------------------------------------------- 3. main
+    phase("main path: adaptive sampling from HIGHRES_DIT with both kernels")
+    step_ops.launches = 0
+    flash_ops.launches = 0
+    rec = launcher.run("highres_dit", batch=B, precision="fp32", eps_rel=0.05,
+                       max_iters=MAIN_MAX_ITERS, flash=True, fused=True, seed=0,
+                       liven_seed=0, device=dev)
+    launches = {"solver_step": step_ops.launches, "flash_attention": flash_ops.launches}
+    print(json.dumps({k: v for k, v in rec.items() if k != "result"}))
+    print(f"  launches in the main path: {launches}")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the main path was never launched: {launches}")
+    iters = rec["iterations"]
+    want_flash = 2 * HIGHRES_DIT.num_layers * iters + HIGHRES_DIT.num_layers
+    print(f"  expected per run: solver_step ≥ {iters} (one per iteration), "
+          f"flash_attention ≥ {want_flash} (24 per iteration + 12 for the denoise; "
+          f"iterations after convergence in the last sync group add more)")
+    if launches["solver_step"] < iters or launches["flash_attention"] < want_flash:
+        fail("fewer launches than the iterations need")
+
+    # the same weights on the plain paths: one forward, one iteration
+    cfg, model, score_fast = launcher.build_score(
+        "highres_dit", flash=True, precision="fp32", seed=0, liven_seed=0, device=dev)
+    sde = VPSDE()
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(B, cfg.image_size, cfg.image_size, cfg.channels, generator=g, device=dev)
+    t = torch.linspace(0.05, 1.0, B, device=dev)
+    with torch.no_grad():
+        fast = model(x, t)
+        model.cfg = dataclasses.replace(cfg, use_flash=False)
+        plain = model(x, t)
+    err = (fast - plain).abs().max().item()
+    bound = 1e-4 * (1 + plain.abs().max().item())
+    print(f"  DiT forward, flash kernel vs plain attention: max abs err {err:.3e} "
+          f"(bound {bound:.1e}), mean |out| {plain.abs().mean().item():.3e}")
+    if not err <= bound or plain.abs().mean().item() < 1e-3:
+        fail("DiT forward through the kernel disagrees with the plain path")
+    z = torch.randn(x.shape, generator=g, device=dev)
+    carry = ad.init_carry(sde, x, None, eps_rel=0.05)
+    steps = {}
+    for fused, use_flash in ((True, True), (False, False)):
+        model.cfg = dataclasses.replace(cfg, use_flash=use_flash)
+        acfg = ad.AdaptiveConfig(eps_rel=0.05, use_fused_kernel=fused)
+        body = ad._make_body(sde, score_fast, acfg, sde.abs_tolerance,
+                             ad._step_math_fused if fused else ad._step_math_jnp,
+                             noise_fn=lambda _x: z)
+        with torch.no_grad():
+            steps[fused] = body(carry)
+    a, p = steps[True], steps[False]
+    x_err = (a.x - p.x).abs().max().item()
+    same = torch.equal(a.accepted, p.accepted) and torch.equal(a.rejected, p.rejected)
+    print(f"  one Algorithm-1 iteration, kernels vs plain: accept bits equal {same}, "
+          f"max|x diff| {x_err:.3e}, max|h diff| {(a.h - p.h).abs().max().item():.3e}")
+    if not same or not x_err <= 1e-4 * (1 + p.x.abs().max().item()):
+        fail("one iteration through the kernels disagrees with the plain path")
+    model.cfg = dataclasses.replace(cfg, use_flash=True)
+    with torch.no_grad():
+        fwd_ms = timed_ms(model, [(x, t)], 10)
+    print(f"  where the time goes: one DiT forward (batch {B}, flash) {fwd_ms:.2f} ms; "
+          f"main path {rec['wall_s'] / max(iters, 1) * 1e3:.2f} ms per iteration "
+          f"(two forwards + one solver step + the host sync share)")
+    del model, score_fast
+
+    # ------------------------------------------------------------ 4. check
+    phase("checks of the output")
+    res = rec["result"]
+    want_shape = [B, HIGHRES_DIT.image_size, HIGHRES_DIT.image_size, HIGHRES_DIT.channels]
+    if not rec["finite"] or rec["shape"] != want_shape:
+        fail(f"main path output: finite={rec['finite']} shape={rec['shape']}")
+    print(f"  main path samples finite, shape {rec['shape']}, "
+          f"mean NFE {float(res.mean_nfe):.1f}, converged {rec['converged']}/{B}")
+    mu0, s0 = 0.3, 0.5
+    before = step_ops.launches
+    r = sample(sde, analytic.gaussian_score(sde, mu0, s0), (512, 8), seed=0,
+               device=dev, denoise=False, eps_rel=0.05, use_fused_kernel=True)
+    mu_a, s_a = analytic.gaussian_marginal_moments(sde, mu0, s0)
+    xs = r.x.double()
+    w2 = analytic.gaussian_w2(xs.mean().item(), xs.std(unbiased=False).item(), mu_a, s_a)
+    print(f"  analytic Gaussian, fused kernel on the card: W2 {w2:.4f} (gate 0.08), "
+          f"mean NFE {float(r.mean_nfe):.1f}, kernel launches {step_ops.launches - before}")
+    if not w2 < 0.08 or step_ops.launches == before:
+        fail("the adaptive solve on the card misses the conformance gate")
+
+    # ----------------------------------------------------------- 5. timing
+    phase("timing at the main path's shape (CUDA graphs and events)")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+
+    sets = []
+    for _ in range(4):
+        states = [torch.randn(B, D, generator=gen, device=dev) for _ in range(5)]
+        coeffs = [torch.rand(B, generator=gen, device=dev) for _ in range(3)]
+        eps = [step_ops.per_sample_tolerance(e, B, dev) for e in (0.0078, 0.05)]
+        sets.append((*states, *coeffs, *eps))
+    k1 = lambda *a: step_ops.error_step(*a[:8], eps_abs=a[8], eps_rel=a[9])
+    k1_plain_fn = lambda *a: step_ref.error_step(*a)
+    k1_ms, k1_plain = device_ms(k1, sets), device_ms(k1_plain_fn, sets)
+    k1_host, k1_plain_host = timed_ms(k1, sets, 200), timed_ms(k1_plain_fn, sets, 50)
+    k1_bytes = 6 * B * D * 4 + 5 * B * 4 + B * 4
+    k1_ops = STEP_FLOPS_PER_ELEMENT * B * D
+    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_FLOPS) * 1e3
+
+    sets = []
+    for _ in range(4):
+        sets.append(tuple(torch.randn(B, H, S, Dh, generator=gen, device=dev)
+                          for _ in range(3)))
+    k3 = lambda q, k, v: flash_ops.attention(q, k, v, causal=False)
+    k3_plain_fn = lambda q, k, v: flash_ref.attention(q, k, v, causal=False)
+    k3_lib_fn = torch.nn.functional.scaled_dot_product_attention
+    k3_ms, k3_plain, k3_lib = (device_ms(f, sets) for f in (k3, k3_plain_fn, k3_lib_fn))
+    k3_host = timed_ms(k3, sets, 200)
+    k3_bytes = 4 * B * H * S * Dh * 4
+    k3_ops = 4 * B * H * S * S * Dh
+    k3_bound = max(k3_bytes / HBM_BYTES_PER_S, k3_ops / FP32_FLOPS) * 1e3
+    print(f"  solver_step (8, {D}) fp32, per-sample eps: {k1_ms * 1e3:.1f} us on the device, "
+          f"bound {k1_bound * 1e3:.1f} us ({k1_bytes / 1e6:.1f} MB at 3.35 TB/s), "
+          f"{k1_bytes / (k1_ms * 1e-3) / 1e12:.2f} TB/s achieved; plain {k1_plain * 1e3:.1f} us; "
+          f"eager loop with host gaps: kernel {k1_host * 1e3:.1f} us, plain {k1_plain_host * 1e3:.1f} us")
+    print(f"  flash_attention {(B, H, S, Dh)} fp32: {k3_ms * 1e3:.1f} us on the device, bound "
+          f"{k3_bound * 1e3:.1f} us ({k3_ops / 1e9:.2f} GFLOP at 67 TFLOP/s fp32), "
+          f"{k3_ops / (k3_ms * 1e-3) / 1e12:.1f} TFLOP/s achieved; plain {k3_plain * 1e3:.1f} us; "
+          f"SDPA {k3_lib * 1e3:.1f} us; eager loop with host gaps: kernel {k3_host * 1e3:.1f} us")
+
+    kernels = [
+        {"name": "solver_step", "route": "cuda",
+         "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
+         "replaces": "src/repro/kernels/solver_step/kernel.py:158",
+         "also_replaces": "src/repro/kernels/solver_step/kernel.py:242",
+         "launches": launches["solver_step"],
+         "max_abs_err": step_err[(torch.float32, D, False)],
+         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
+         "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / FP32_FLOPS
+         else "operations",
+         "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:102",
+         "launches": launches["flash_attention"],
+         "max_abs_err": attn_err[(S, torch.float32, False)],
+         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
+         "bound_by": "bytes" if k3_bytes / HBM_BYTES_PER_S >= k3_ops / FP32_FLOPS
+         else "operations",
+         "library_ms": k3_lib},
+    ]
+    for k in kernels:
+        if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
+            fail(f"non-finite measurement for {k['name']}")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    t0 = time.perf_counter()
+    main()
+    print(f"chip_smoke: done in {time.perf_counter() - t0:.1f} s", file=sys.stderr)

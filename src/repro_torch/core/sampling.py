@@ -1,0 +1,68 @@
+"""Sampling entry point: prior draw → solver → denoised samples; port of
+``repro/core/sampling.py`` (``sample`` and ``solve_in_chunks``;
+``sample_chunked`` is not ported yet).
+
+``sample`` ties the pipeline together (DESIGN.md §1): one
+``torch.Generator`` on the target device, seeded by the caller, draws
+the prior and then every noise draw of the solve. ``solve_in_chunks``
+is the resumable form (DESIGN.md §7): the same adaptive solve as a
+host-driven chain of ``solve_chunk`` calls, bitwise equal to
+``sample(method="adaptive")`` for the same seed.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.core.sde import SDE
+from repro_torch.core.solvers import SolveResult, get_solver
+from repro_torch.core.solvers.adaptive import (
+    AdaptiveConfig, finalize, init_carry, resolve_config, solve_chunk,
+    sync_state,
+)
+from repro_torch.device import resolve_device
+
+
+def _generator(seed: int, dev: torch.device) -> torch.Generator:
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def sample(sde: SDE, score_fn: Callable, shape, *, seed: int = 0,
+           method: str = "adaptive", denoise: bool = True, device="cuda",
+           **solver_kwargs) -> SolveResult:
+    """Generate ``shape[0]`` samples of shape ``shape[1:]`` on ``device``
+    (``cuda`` unless the caller passes ``"cpu"``)."""
+    dev = resolve_device(device)
+    gen = _generator(seed, dev)
+    x_init = sde.prior_sample(shape, gen)
+    solver = get_solver(method)
+    return solver(sde, score_fn, x_init, gen, denoise=denoise, device=dev,
+                  **solver_kwargs)
+
+
+def solve_in_chunks(sde: SDE, score_fn: Callable, shape, *, max_sync_iters: int,
+                    seed: int = 0, config: AdaptiveConfig | None = None,
+                    denoise: bool = True, device="cuda",
+                    on_sync: Callable | None = None,
+                    noise_fn: Callable | None = None,
+                    **overrides) -> SolveResult:
+    """Adaptive solve as a chain of ``solve_chunk`` calls of at most
+    ``max_sync_iters`` iterations; ``on_sync(carry)`` sees every
+    intermediate carry. Bitwise equal to ``sample(method="adaptive")``
+    for the same seed."""
+    cfg = resolve_config(config, overrides)
+    dev = resolve_device(device)
+    gen = _generator(seed, dev)
+    carry = init_carry(sde, sde.prior_sample(shape, gen), gen, config=cfg)
+    while True:
+        done, iters = sync_state(carry)
+        if done or iters >= cfg.max_iters:
+            break
+        carry = solve_chunk(sde, score_fn, carry, max_sync_iters=max_sync_iters,
+                            config=cfg, noise_fn=noise_fn)
+        if on_sync is not None:
+            on_sync(carry)
+    return finalize(sde, score_fn, carry, denoise=denoise,
+                    precision=cfg.precision)

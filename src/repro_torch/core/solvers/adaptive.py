@@ -1,0 +1,339 @@
+"""The paper's adaptive-step reverse-SDE solver (Algorithm 1); port of
+``repro/core/solvers/adaptive.py``.
+
+Each sample has its own time t and step size h; the score network sees
+the vector of per-sample times, so samples at different t share one
+batched forward pass, and finished samples ride along with frozen state
+(paper Sec. 3.1.5).
+
+The reference keeps the whole loop on the device in a
+``lax.while_loop`` whose condition ``any(t > t_eps)`` is evaluated
+there. A plain Python loop would read that condition back to the host
+every iteration. ``solve_chunk`` instead runs ``SYNC_EVERY`` masked
+iterations between host syncs and reads one small tensor at each sync.
+An iteration after every sample has converged changes nothing
+(``iterations`` grows by ``any(active)``, so it still equals the
+reference's count within ``max_iters``), which makes chained chunks
+bitwise equal to one monolithic solve.
+
+The arithmetic after the two score evaluations has two implementations:
+``_step_math_jnp`` (plain torch; the name keeps the reference's) and
+``_step_math_fused`` (the fused kernel, ``use_fused_kernel=True``).
+
+Noise: by default z is drawn from the carry's ``torch.Generator``. An
+optional ``noise_fn(x) -> z`` replaces the draw; tests pass the
+reference's own z through it, since JAX's threefry and torch's
+generators never give the same numbers.
+
+Precision (DESIGN.md §8): x / x_prev live in the policy's state dtype;
+t, h, the tolerance, the error, the accept decision and the step-size
+update are fp32 under every preset.
+
+Not ported yet: sharding, per-slot keys, conditioners, momentum, the
+probability-flow variant, telemetry and Algorithm 2.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.precision import PrecisionPolicy, resolve_policy
+from repro_torch.core.sde import SDE, bcast
+from repro_torch.core.solvers.base import SolveResult, register_solver
+from repro_torch.core.tolerance import (
+    mixed_tolerance, next_step_size, scaled_error_l2, scaled_error_linf,
+)
+from repro_torch.device import resolve_device
+
+Tensor = torch.Tensor
+
+#: masked iterations ``solve_chunk`` runs between two host syncs. At most
+#: SYNC_EVERY − 1 of them run after the last sample converged, and those
+#: change nothing.
+SYNC_EVERY = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveConfig:
+    """Hyper-parameters of Algorithm 1 (defaults = paper defaults)."""
+
+    eps_rel: float = 0.01
+    eps_abs: Optional[float] = None  # None → sde.abs_tolerance
+    h_init: float = 0.01
+    safety: float = 0.9  # θ
+    r_exponent: float = 0.9  # r
+    error_norm: str = "l2"  # "l2" (paper) | "linf" (ablation)
+    prev_tolerance: bool = True  # δ(x', x'_prev) (Eq. 5) vs δ(x') (Eq. 4)
+    extrapolate: bool = True  # accept x'' (paper) vs x' (ablation)
+    max_iters: int = 100_000
+    use_fused_kernel: bool = False
+    #: precision preset name or PrecisionPolicy (DESIGN.md §8)
+    precision: "str | PrecisionPolicy" = "fp32"
+
+
+def resolve_config(config: Optional[AdaptiveConfig], overrides) -> AdaptiveConfig:
+    """Merge an optional AdaptiveConfig with keyword overrides."""
+    if config is None:
+        return AdaptiveConfig(**overrides)
+    return dataclasses.replace(config, **overrides) if overrides else config
+
+
+def _step_math_jnp(x, x_prime, score2, z, x_prev, e0, d1, d2, cfg,
+                   eps_abs, eps_rel):
+    """x̃, x'' and the scaled error in plain torch, fp32 throughout.
+
+    e0 = h·a(t−h); d1 = h·g(t−h)²; d2 = √h·g(t−h); all (B,).
+    x̃  = x − e0·x' + d1·score2 + d2·z;  x'' = ½ (x' + x̃).
+    ``eps_abs``/``eps_rel`` are floats or (B,) fp32 tensors. Returns
+    (x'' fp32, err fp32 (B,)).
+    """
+    x, x_prime, score2, z, x_prev = (
+        a.to(torch.float32) for a in (x, x_prime, score2, z, x_prev))
+    if isinstance(eps_abs, Tensor):
+        eps_abs = bcast(eps_abs, x)
+    if isinstance(eps_rel, Tensor):
+        eps_rel = bcast(eps_rel, x)
+    x_tilde = (x - bcast(e0, x) * x_prime + bcast(d1, x) * score2
+               + bcast(d2, x) * z)
+    x_high = 0.5 * (x_prime + x_tilde)
+    delta = mixed_tolerance(x_prime, x_prev if cfg.prev_tolerance else None,
+                            eps_abs, eps_rel)
+    if cfg.error_norm == "l2":
+        err = scaled_error_l2(x_prime, x_high, delta)
+    elif cfg.error_norm == "linf":
+        err = scaled_error_linf(x_prime, x_high, delta)
+    else:
+        raise ValueError(f"unknown error_norm {cfg.error_norm!r}")
+    return x_high, err
+
+
+def _step_math_fused(x, x_prime, score2, z, x_prev, e0, d1, d2, cfg,
+                     eps_abs, eps_rel):
+    """The fused solver-step kernel: operands stay in the state dtype, x''
+    comes back in it, the error is fp32. Scalar and per-sample (B,)
+    tolerances take the same kernel."""
+    from repro_torch.kernels.solver_step import ops as fused
+
+    if cfg.error_norm != "l2":
+        raise ValueError("the fused kernel implements the paper's ℓ2 norm only")
+    return fused.error_step(x, x_prime, score2, z, x_prev, e0, d1, d2,
+                            eps_abs=eps_abs, eps_rel=eps_rel,
+                            use_prev=cfg.prev_tolerance)
+
+
+@dataclasses.dataclass
+class SolverCarry:
+    """State of an Algorithm-1 solve between iterations.
+
+    x, x_prev: state and last accepted low-order proposal (B, ...), in
+    the policy's state dtype. t, h: per-sample time and step (B,) fp32.
+    nfe / accepted / rejected: (B,) int32. done: (B,) bool, t <= t_eps.
+    iterations: 0-d int32, iterations in which some sample was active.
+    generator: the noise source of the default draw. atol / rtol:
+    optional per-sample tolerances (B,) fp32 that replace the config's
+    (DESIGN.md §14); both or neither.
+    """
+
+    x: Tensor
+    x_prev: Tensor
+    t: Tensor
+    h: Tensor
+    nfe: Tensor
+    accepted: Tensor
+    rejected: Tensor
+    done: Tensor
+    iterations: Tensor
+    generator: Optional[torch.Generator] = None
+    atol: Optional[Tensor] = None
+    rtol: Optional[Tensor] = None
+
+    @property
+    def batch(self) -> int:
+        return self.x.shape[0]
+
+
+def _per_sample(v, batch: int, device) -> Tensor:
+    v = torch.as_tensor(v, dtype=torch.float32).to(device)
+    return v.expand(batch).contiguous()
+
+
+def init_carry(sde: SDE, x_init: Tensor, generator: Optional[torch.Generator],
+               *, config: AdaptiveConfig | None = None, atol=None, rtol=None,
+               h0=None, **overrides) -> SolverCarry:
+    """Fresh carry at t = T on ``x_init``'s device.
+
+    ``atol``/``rtol`` (scalars or (B,)) install per-sample tolerances;
+    pass both or neither. ``h0`` overrides the initial step per sample;
+    it is clamped to the t-span like ``cfg.h_init``.
+    """
+    cfg = resolve_config(config, overrides)
+    policy = resolve_policy(cfg.precision)
+    x_init = x_init.to(policy.state)
+    batch, dev = x_init.shape[0], x_init.device
+    if (atol is None) != (rtol is None):
+        raise ValueError("per-sample tolerances come in pairs: pass both "
+                         "atol and rtol, or neither")
+    if atol is not None:
+        atol, rtol = _per_sample(atol, batch, dev), _per_sample(rtol, batch, dev)
+    t0 = torch.full((batch,), sde.T, dtype=torch.float32, device=dev)
+    h_of = cfg.h_init if h0 is None else h0
+    h = torch.minimum(_per_sample(h_of, batch, dev), t0 - sde.t_eps)
+    zeros = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    return SolverCarry(
+        x=x_init, x_prev=x_init, t=t0, h=h, nfe=zeros, accepted=zeros,
+        rejected=zeros, done=torch.zeros((batch,), dtype=torch.bool, device=dev),
+        iterations=torch.zeros((), dtype=torch.int32, device=dev),
+        generator=generator, atol=atol, rtol=rtol)
+
+
+def _draw_noise(generator: torch.Generator, x: Tensor) -> Tensor:
+    """z ~ N(0, I) shaped like x, drawn in fp32 and cast to x's dtype."""
+    z = torch.randn(x.shape, generator=generator, dtype=torch.float32,
+                    device=x.device)
+    return z.to(x.dtype)
+
+
+def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
+               step_math, noise_fn=None):
+    """One Algorithm-1 iteration: SolverCarry → SolverCarry."""
+    policy = resolve_policy(cfg.precision)
+    sf = policy.wrap_score_fn(score_fn)
+    threshold = sde.t_eps + 1e-12
+
+    def body(s: SolverCarry) -> SolverCarry:
+        x, x_prev, t, h = s.x, s.x_prev, s.t, s.h
+        active = t > threshold
+        # frozen samples are fed clamped times
+        t_c = torch.clamp(t, sde.t_eps, sde.T)
+        h_c = torch.where(active, h, 0.0)
+        t2 = torch.clamp(t_c - h_c, sde.t_eps, sde.T)
+        if noise_fn is None:
+            z = _draw_noise(s.generator, x)
+        else:
+            z = noise_fn(x).to(device=x.device, dtype=x.dtype)
+
+        # low-order proposal: one reverse Euler–Maruyama step. The fp32
+        # coefficients promote the arithmetic to fp32; x' is stored back
+        # at the state dtype.
+        score1 = sf(x, t_c)
+        a, g = sde.drift_coeff(t_c), sde.diffusion(t_c)
+        c0, c1, c2 = 1.0 - h_c * a, h_c * g * g, torch.sqrt(h_c) * g
+        x_prime = (bcast(c0, x) * x + bcast(c1, x) * score1
+                   + bcast(c2, x) * z).to(x.dtype)
+
+        # high-order proposal: stochastic Improved Euler
+        score2 = sf(x_prime, t2)
+        e0 = h_c * sde.drift_coeff(t2)
+        g2 = sde.diffusion(t2)
+        d1 = h_c * g2 * g2
+        d2 = torch.sqrt(h_c) * g2
+        ea = eps_abs if s.atol is None else s.atol
+        er = cfg.eps_rel if s.rtol is None else s.rtol
+        x_high, err = step_math(x, x_prime, score2, z, x_prev, e0, d1, d2,
+                                cfg, ea, er)
+        proposal = (x_high if cfg.extrapolate else x_prime).to(x.dtype)
+
+        accept = (err <= 1.0) & active
+        acc_e = bcast(accept, x)
+        t_new = torch.where(accept, t - h, t)
+        remaining = torch.clamp(t_new - sde.t_eps, min=0.0)
+        h_new = next_step_size(h, err, remaining, safety=cfg.safety,
+                               r_exponent=cfg.r_exponent)
+        two = torch.where(active, 2, 0).to(torch.int32)
+        return SolverCarry(
+            x=torch.where(acc_e, proposal, x),
+            x_prev=torch.where(acc_e, x_prime, x_prev),
+            t=t_new,
+            h=torch.where(active, h_new, h),
+            nfe=s.nfe + two,
+            accepted=s.accepted + accept.to(torch.int32),
+            rejected=s.rejected + (~accept & active).to(torch.int32),
+            done=t_new <= threshold,
+            iterations=s.iterations + active.any().to(torch.int32),
+            generator=s.generator, atol=s.atol, rtol=s.rtol)
+
+    return body
+
+
+def sync_state(carry: SolverCarry):
+    """(every sample done, iterations) as Python values: one device→host
+    transfer."""
+    flags = torch.stack([carry.done.all().to(torch.int32), carry.iterations])
+    done, iters = flags.tolist()
+    return bool(done), int(iters)
+
+
+def solve_chunk(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
+                max_sync_iters: int, config: AdaptiveConfig | None = None,
+                noise_fn: Callable | None = None, **overrides) -> SolverCarry:
+    """Run at most ``max_sync_iters`` Algorithm-1 iterations.
+
+    Stops early when every sample has converged or the solve's
+    ``cfg.max_iters`` budget is spent. Iterations run in groups of at
+    most ``SYNC_EVERY``, sized so that neither bound can be overrun, with
+    one host sync after each group. Chaining calls until ``done.all()``
+    is bitwise equal to one call with an unbounded ``max_sync_iters``.
+    """
+    cfg = resolve_config(config, overrides)
+    eps_abs = float(sde.abs_tolerance if cfg.eps_abs is None else cfg.eps_abs)
+    step_math = _step_math_fused if cfg.use_fused_kernel else _step_math_jnp
+    body = _make_body(sde, score_fn, cfg, eps_abs, step_math, noise_fn)
+    done, iters = sync_state(carry)
+    start = iters
+    with torch.no_grad():
+        while not done and iters - start < max_sync_iters and iters < cfg.max_iters:
+            n = min(SYNC_EVERY, max_sync_iters - (iters - start),
+                    cfg.max_iters - iters)
+            for _ in range(n):
+                carry = body(carry)
+            done, iters = sync_state(carry)
+    return carry
+
+
+def finalize(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
+             denoise: bool = True, precision="fp32") -> SolveResult:
+    """SolveResult from a finished carry, plus the paper's Tweedie denoise
+    (one more score evaluation, fp32 arithmetic)."""
+    policy = resolve_policy(precision)
+    x, nfe = carry.x, carry.nfe
+    if denoise:
+        t = torch.full((carry.batch,), sde.t_eps, dtype=torch.float32,
+                       device=x.device)
+        with torch.no_grad():
+            score = score_fn(policy.to_compute(x), t).to(torch.float32)
+        x = sde.tweedie_denoise(x.to(torch.float32), score)
+        nfe = nfe + 1
+    return SolveResult(x=x, nfe=nfe, iterations=carry.iterations,
+                       accepted=carry.accepted, rejected=carry.rejected)
+
+
+@register_solver("adaptive", nfe_per_iter=2)
+def adaptive(sde: SDE, score_fn: Callable, x_init: Tensor,
+             generator: Optional[torch.Generator] = None, *,
+             config: AdaptiveConfig | None = None, denoise: bool = True,
+             atol=None, rtol=None, h0=None, noise_fn: Callable | None = None,
+             device="cuda", **overrides) -> SolveResult:
+    """Algorithm 1: solve the reverse diffusion from T to t_eps adaptively.
+
+    Runs on ``device`` (``cuda`` unless the caller passes ``"cpu"``);
+    ``x_init`` is moved there. ``generator`` (on the same device) feeds
+    the noise draws unless ``noise_fn`` is given. ``atol``/``rtol``/
+    ``h0`` install per-sample tolerances and initial steps (DESIGN.md
+    §14).
+    """
+    dev = resolve_device(device)
+    if noise_fn is None:
+        if generator is None:
+            raise ValueError("adaptive needs a generator or a noise_fn")
+        if generator.device.type != dev.type:
+            raise ValueError(f"generator on {generator.device}, solve on {dev}")
+    cfg = resolve_config(config, overrides)
+    carry = init_carry(sde, x_init.to(dev), generator, config=cfg, atol=atol,
+                       rtol=rtol, h0=h0)
+    carry = solve_chunk(sde, score_fn, carry, max_sync_iters=cfg.max_iters,
+                        config=cfg, noise_fn=noise_fn)
+    return finalize(sde, score_fn, carry, denoise=denoise,
+                    precision=cfg.precision)

@@ -1,0 +1,99 @@
+"""Wrapper of the flash-attention kernel; port of
+``repro/kernels/flash_attention/ops.py``.
+
+``attention(q, k, v)`` takes q (B, Hq, S, D) and k/v (B, Hkv, S, D) with
+any strides whose last dimension is contiguous, so a transposed view of
+the model's (B, S, H, D) projections goes in without a copy; the output
+has q's layout. The kernel masks any S itself, so unlike the reference
+wrapper nothing is padded.
+
+Dispatch is by the device of the tensors: CPU tensors take the plain
+version (``ref.attention``); CUDA tensors launch
+``csrc/flash_attention.cu`` or raise. There is no fallback from one to
+the other. ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ref
+
+Tensor = torch.Tensor
+
+#: kernel launches since the count was last set to 0
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256
+
+
+def _check(q, k, v, window, true_len):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q, k, v must be (B, H, S, D)")
+    B, Hq, S, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (S, D):
+        raise ValueError(f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    if Hq % k.shape[1]:
+        raise ValueError(f"Hq {Hq} is not a multiple of Hkv {k.shape[1]}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v dtypes must match and be one of {list(_DTYPES)}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k, v must be on one device")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if true_len is not None and not 1 <= true_len <= S:
+        raise ValueError(f"true_len {true_len} outside [1, {S}]")
+
+
+def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+              window: int | None = None, scale: float | None = None,
+              true_len: int | None = None) -> Tensor:
+    _check(q, k, v, window, true_len)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             scale=scale, true_len=true_len)
+    return _launch(q, k, v, causal=causal, window=window, scale=scale,
+                   true_len=true_len)
+
+
+def _declare(lib):
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
+                       + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
+                                               ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(q, k, v, *, causal, window, scale, true_len):
+    global launches
+    if any(a.stride(-1) != 1 for a in (q, k, v)):
+        raise ValueError("flash attention needs a contiguous last dimension")
+    B, Hq, S, D = q.shape
+    if B * Hq > 65535:
+        raise ValueError(f"B*Hq = {B * Hq} exceeds the kernel's grid limit 65535")
+    lib = _declare(_build.library())
+    out = torch.empty_like(q)  # keeps q's (b, h, s) layout
+    strides = [s for a in (q, k, v, out) for s in a.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+            B, Hq, k.shape[1], S, D, S if true_len is None else true_len,
+            int(causal), 0 if window is None else int(window), float(scale),
+            _DTYPES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out

@@ -1,0 +1,74 @@
+"""Shared layers of the score network; port of ``repro/models/layers.py``
+(the parts the DiT uses: initializer, norms, gated MLP, time embedding).
+
+Norms take their statistics in fp32 whatever the activation dtype and
+round once on return, like the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+def dense_init(shape, *, generator: torch.Generator, dtype=torch.float32,
+               fan_in: Optional[int] = None) -> Tensor:
+    """Truncated normal on [−2, 2] times 1/sqrt(fan_in) (fan_in = shape[0]
+    by default), drawn in fp32 on the generator's device."""
+    fan = fan_in if fan_in is not None else shape[0]
+    w = torch.empty(tuple(shape), dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (w * fan ** -0.5).to(dtype)
+
+
+def apply_norm(x: Tensor, norm_type: str, params: Optional[dict] = None,
+               eps: float = 1e-6) -> Tensor:
+    """``rmsnorm`` | ``layernorm`` | ``layernorm_np`` (non-parametric) over
+    the last axis, with fp32 statistics; returns x's dtype."""
+    xf = x.to(torch.float32)
+    if norm_type == "rmsnorm":
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * params["scale"].to(torch.float32)
+    elif norm_type in ("layernorm", "layernorm_np"):
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        dev = xf - mu
+        var = torch.mean(dev * dev, dim=-1, keepdim=True)
+        y = dev * torch.rsqrt(var + eps)
+        if norm_type == "layernorm":
+            y = (y * params["scale"].to(torch.float32)
+                 + params["bias"].to(torch.float32))
+    else:
+        raise ValueError(norm_type)
+    return y.to(x.dtype)
+
+
+def apply_mlp(x: Tensor, w_in: Tensor, w_out: Tensor,
+              w_gate: Optional[Tensor] = None) -> Tensor:
+    """``silu(x @ w_gate) * (x @ w_in) @ w_out`` when gated (the DiT's
+    MLP), else ``silu(x @ w_in) @ w_out``."""
+    h = x @ w_in
+    h = F.silu(x @ w_gate) * h if w_gate is not None else F.silu(h)
+    return h @ w_out
+
+
+def timestep_embedding(t: Tensor, dim: int, max_period: float = 10_000.0) -> Tensor:
+    """Sinusoidal embedding of continuous t ∈ [0, 1]; shape (B, dim), fp32.
+
+    The arguments are t·freq·1000: t lives on [0, 1], and the factor
+    spreads it over the range the frequencies were chosen for.
+    """
+    half = dim // 2
+    # log of the period in fp32, as the reference takes it
+    log_period = torch.log(torch.tensor(max_period, dtype=torch.float32,
+                                        device=t.device))
+    freqs = torch.exp(-log_period * torch.arange(
+        half, dtype=torch.float32, device=t.device) / half)
+    args = t[:, None].to(torch.float32) * freqs[None, :] * 1000.0
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb

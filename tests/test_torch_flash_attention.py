@@ -1,0 +1,120 @@
+"""Port ↔ reference parity: flash attention and the attention owner.
+
+The port's ``ops.attention`` on CPU tensors runs its plain version
+(``repro_torch/kernels/flash_attention/ref.py``); it is held against the
+reference's Pallas kernel (interpret mode) and its ``ref.py`` on the same
+numpy inputs. Bounds: fp32 3e-5, as ``tests/test_kernels_flash_attention.py``
+holds the reference kernel to its oracle (online vs two-pass softmax,
+sums in another order); bf16 2e-2, one bf16 rounding of the output.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jops
+from repro.kernels.flash_attention import ref as jref
+from repro.models import attention as jattn
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.models import attention as tattn
+
+torch.set_num_threads(2)
+
+CASES = [
+    # B, Hq, Hkv, S, D, causal, window, dtype
+    (2, 4, 4, 25, 32, False, None, "fp32"),
+    (2, 4, 4, 64, 64, False, None, "fp32"),
+    (2, 4, 4, 64, 32, True, None, "fp32"),
+    (1, 4, 2, 96, 32, True, 16, "fp32"),
+    (2, 4, 2, 64, 32, False, None, "fp32"),
+    (1, 2, 2, 64, 64, False, None, "bf16"),
+]
+DT = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"fp32": dict(rtol=3e-5, atol=3e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _qkv(B, Hq, Hkv, S, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Hq, S, D)).astype(np.float32),
+            rng.standard_normal((B, Hkv, S, D)).astype(np.float32),
+            rng.standard_normal((B, Hkv, S, D)).astype(np.float32))
+
+
+def _f32(a):
+    return np.asarray(a.float() if isinstance(a, torch.Tensor) else a, np.float32)
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_attention_matches_reference(case):
+    B, Hq, Hkv, S, D, causal, window, dt = case
+    jdt, tdt = DT[dt]
+    arrays = _qkv(B, Hq, Hkv, S, D)
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in arrays)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in arrays)
+    got = ops.attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tdt and got.shape == (B, Hq, S, D)
+    kernel = jops.attention(jq, jk, jv, causal=causal, window=window,
+                            block_q=32, block_k=32)
+    oracle = jref.attention(jq, jk, jv, causal=causal, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(kernel), **TOL[dt])
+    np.testing.assert_allclose(_f32(got), _f32(oracle), **TOL[dt])
+
+
+def test_strided_views_match_contiguous():
+    """The wrapper takes (b, h, s) strides: a transposed view of a
+    (B, S, H, D) tensor gives the contiguous result."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 4, 4, 40, 16, seed=3))
+    views = [a.transpose(1, 2).contiguous().transpose(1, 2) for a in (q, k, v)]
+    assert not views[0].is_contiguous()
+    torch.testing.assert_close(ops.attention(*views, causal=False),
+                               ops.attention(q, k, v, causal=False),
+                               rtol=0, atol=0)
+
+
+def _model_layout(S=37, Sk=None, seed=1):
+    rng = np.random.default_rng(seed)
+    mk = lambda s: rng.standard_normal((2, s, 4, 16)).astype(np.float32)
+    return mk(S), mk(Sk or S), mk(Sk or S)
+
+
+def test_owner_flash_path_matches_reference_owner():
+    arrays = _model_layout()
+    got = tattn.attention(*map(torch.from_numpy, arrays), causal=False,
+                          use_flash=True)
+    want = jattn.attention(*map(jnp.asarray, arrays), causal=False,
+                           use_flash=True)
+    np.testing.assert_allclose(got.numpy(), _f32(want), **TOL["fp32"])
+    assert got.shape == (2, 37, 4, 16)
+
+
+@pytest.mark.parametrize("kind", ["softcap", "cross_length", "off"])
+def test_owner_fallbacks(kind):
+    """softcap > 0 and cross-length q/k take the plain path even with
+    use_flash, bitwise; use_flash=False is the plain path."""
+    arrays = _model_layout(S=8, Sk=16 if kind == "cross_length" else None)
+    softcap = 30.0 if kind == "softcap" else 0.0
+    use_flash = kind != "off"
+    tq, tk, tv = map(torch.from_numpy, arrays)
+    got = tattn.attention(tq, tk, tv, causal=False, softcap=softcap,
+                          use_flash=use_flash)
+    plain = tattn._ref_attention(tq, tk, tv, causal=False, window=None,
+                                 softcap=softcap)
+    assert torch.equal(got, plain)
+    want = jattn._ref_attention(*map(jnp.asarray, arrays), causal=False,
+                                window=None, softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), _f32(want), **TOL["fp32"])
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 3, 8, 16))
+    with pytest.raises(ValueError):  # Hq not a multiple of Hkv
+        ops.attention(q, k, v)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 8, 300))
+    with pytest.raises(ValueError):  # head dim above 256
+        ops.attention(q, k, v)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 8, 16))
+    with pytest.raises(TypeError):
+        ops.attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):
+        ops.attention(q, k, v, window=0)

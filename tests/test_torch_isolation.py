@@ -1,0 +1,110 @@
+"""The port stands alone and never falls back.
+
+* No file under ``src/repro_torch/`` and no line of ``chip_smoke.py``
+  imports ``jax`` or ``repro`` (an AST scan).
+* Entry points asked for no device run on ``cuda``: with no card they
+  raise instead of running on the CPU.
+* A kernel wrapper takes its plain version only for CPU tensors; any
+  other request goes to the kernel path, which raises where it cannot
+  build or launch.
+"""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from repro_torch.core import analytic, sampling
+from repro_torch.core.sde import VPSDE
+from repro_torch.core.solvers import adaptive as tad
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.solver_step import ops as step_ops
+from repro_torch.kernels.solver_step import ref as step_ref
+from repro_torch.launch import sample as launcher
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_without_a_card_raise(no_card):
+    sde = VPSDE()
+    score = analytic.gaussian_score(sde)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sampling.sample(sde, score, (2, 3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sampling.solve_in_chunks(sde, score, (2, 3), max_sync_iters=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tad.adaptive(sde, score, torch.zeros(2, 3), torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main(["--arch", "cifar_dit"])
+    # the same calls run when the caller asks for the CPU
+    assert sampling.sample(sde, score, (2, 3), device="cpu").x.shape == (2, 3)
+
+
+def _never(*args, **kwargs):
+    raise AssertionError("a non-CPU request reached the plain version")
+
+
+def test_wrappers_do_not_fall_back(monkeypatch):
+    monkeypatch.setattr(step_ref, "error_step", _never)
+    monkeypatch.setattr(flash_ref, "attention", _never)
+    meta = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        step_ops.error_step(*(meta(2, 8) for _ in range(5)), *(meta(2) for _ in range(3)),
+                            eps_abs=0.01, eps_rel=0.05)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_ops.attention(meta(1, 2, 8, 16), meta(1, 2, 8, 16), meta(1, 2, 8, 16))
+
+
+def test_kernel_path_raises_where_it_cannot_build(monkeypatch, tmp_path):
+    """Where the kernels cannot be built (a host without nvcc), the launch path
+    raises; it does not hand the request to the plain version."""
+    monkeypatch.setattr(step_ref, "error_step", _never)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    _build.library.cache_clear()
+    before = (step_ops.launches, flash_ops.launches)
+    try:
+        x = torch.zeros(2, 8)
+        c = torch.zeros(2)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            step_ops._launch(x, x, x, x, x, c, c, c, c, c, use_prev=True)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            flash_ops._launch(*(torch.zeros(1, 2, 8, 16) for _ in range(3)),
+                              causal=False, window=None, scale=0.25, true_len=None)
+    finally:
+        _build.library.cache_clear()
+    assert (step_ops.launches, flash_ops.launches) == before

@@ -1,0 +1,132 @@
+"""Port ↔ reference parity: the fused solver step.
+
+The port's ``ops.error_step`` on CPU tensors runs its plain version
+(``repro_torch/kernels/solver_step/ref.py``); it is held against the
+reference's ``ref.py`` on the same numpy inputs in every case, and
+against the reference's Pallas kernel (interpret mode on the CPU) with
+``use_prev`` on. The CUDA kernel itself is held
+against the plain version on the card (``tests/test_torch_gpu.py``,
+``chip_smoke.py``).
+
+Bounds: fp32 rtol 1e-5 / atol 1e-6 — same fp32 arithmetic, the row sum
+taken in another order. bf16 1e-2 on x'' — one bf16 rounding of the
+same fp32 value can land one bf16 ulp apart; e2 is fp32 from identical
+bf16 inputs, so it keeps the fp32 bound.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.solver_step import ops as jops
+from repro.kernels.solver_step import ref as jref
+from repro_torch.kernels.solver_step import ops
+
+torch.set_num_threads(2)
+
+SHAPES = [(2, 16, 16, 3), (4, 17), (4, 96), (4, 300), (4, 3072)]
+DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+X_TOL = {"fp32": dict(rtol=1e-5, atol=1e-6), "bf16": dict(rtol=1e-2, atol=1e-2)}
+E_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _inputs(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    B = shape[0]
+    states = [rng.standard_normal(shape).astype(np.float32) for _ in range(5)]
+    coeffs = [rng.uniform(0, 1, B).astype(np.float32) for _ in range(3)]
+    eps = (rng.uniform(1e-3, 0.1, B).astype(np.float32),
+           rng.uniform(0.01, 0.5, B).astype(np.float32))
+    return states, coeffs, eps
+
+
+def _reference_kernel_tiles(D: int) -> bool:
+    """Whether the reference kernel's 512-wide D blocks tile its
+    128-padded D. Where they do not (D = 768 here), its last block reads
+    past the padded array and its e2 is not defined; see
+    ``test_reference_kernel_reads_past_padded_d``."""
+    d_pad = -(-D // 128) * 128
+    return d_pad % min(512, d_pad) == 0
+
+
+def _f32(a):
+    return np.asarray(a.float() if isinstance(a, torch.Tensor) else a, np.float32)
+
+
+@pytest.mark.parametrize("use_prev", [True, False], ids=["prev", "noprev"])
+@pytest.mark.parametrize("vector", [False, True], ids=["scalar", "vector"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_error_step_matches_reference(shape, dtype, vector, use_prev):
+    jdt, tdt = DTYPES[dtype]
+    states, coeffs, (ea, er) = _inputs(shape)
+    js = [jnp.asarray(s).astype(jdt) for s in states]
+    ts = [torch.from_numpy(s).to(tdt) for s in states]
+    jc = [jnp.asarray(c) for c in coeffs]
+    tc = [torch.from_numpy(c) for c in coeffs]
+    if vector:
+        jkw = dict(eps_abs=jnp.asarray(ea), eps_rel=jnp.asarray(er))
+        tkw = dict(eps_abs=torch.from_numpy(ea), eps_rel=torch.from_numpy(er))
+    else:
+        jkw = tkw = dict(eps_abs=0.0078, eps_rel=0.05)
+    xh, e2 = ops.error_step(*ts, *tc, use_prev=use_prev, **tkw)
+    assert xh.shape == shape and xh.dtype == tdt and e2.dtype == torch.float32
+    if use_prev:  # the solver's default; the interpreted kernel is slow
+        jxh, je2 = jops.error_step(*js, *jc, use_prev=use_prev, **jkw)
+        np.testing.assert_allclose(_f32(xh), _f32(jxh), **X_TOL[dtype])
+        if _reference_kernel_tiles(int(np.prod(shape[1:]))):
+            np.testing.assert_allclose(e2.numpy(), _f32(je2), **E_TOL)
+    B = shape[0]
+    flat = [a.reshape(B, -1) for a in js]
+    rxh, re2 = jref.error_step(*flat, *jc, use_prev=use_prev, **jkw)
+    np.testing.assert_allclose(_f32(xh).reshape(B, -1), _f32(rxh), **X_TOL[dtype])
+    np.testing.assert_allclose(e2.numpy(), _f32(re2), **E_TOL)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_uniform_vector_is_scalar_bitwise(dtype):
+    """A uniform (B,) tolerance gives the scalar path's bits: the scalar
+    is broadcast into the same (B,) operand."""
+    _, tdt = DTYPES[dtype]
+    states, coeffs, _ = _inputs((8, 3072), seed=5)
+    ts = [torch.from_numpy(s).to(tdt) for s in states]
+    tc = [torch.from_numpy(c) for c in coeffs]
+    a = ops.error_step(*ts, *tc, eps_abs=0.0078, eps_rel=0.05)
+    b = ops.error_step(*ts, *tc, eps_abs=torch.full((8,), 0.0078),
+                       eps_rel=torch.full((8,), 0.05))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    states, coeffs, _ = _inputs((4, 96))
+    ts = [torch.from_numpy(s) for s in states]
+    tc = [torch.from_numpy(c) for c in coeffs]
+    kw = dict(eps_abs=0.0078, eps_rel=0.05)
+    with pytest.raises(TypeError):
+        ops.error_step(*[t.double() for t in ts], *tc, **kw)
+    with pytest.raises(ValueError):
+        ops.error_step(ts[0][:, :95].contiguous(), *ts[1:], *tc, **kw)
+    with pytest.raises(ValueError):
+        ops.error_step(*ts, tc[0].double(), *tc[1:], **kw)
+    with pytest.raises(ValueError):
+        ops.error_step(*ts, *tc, eps_abs=torch.zeros(3), eps_rel=0.05)
+
+
+def test_reference_kernel_reads_past_padded_d():
+    """A reference fault the port exposes: at D = 768 (a 16×16×3 image)
+    the reference pads D to 768 but tiles it in 512-wide blocks, so its
+    second block reads columns 768..1023, which do not exist; interpret
+    mode fills them with NaN and e2 comes back NaN. The port masks the
+    ragged tile and agrees with the reference's own ``ref.py`` there."""
+    shape = (2, 16, 16, 3)
+    states, coeffs, _ = _inputs(shape)
+    kw = dict(eps_abs=0.0078, eps_rel=0.05)
+    _, je2 = jops.error_step(*map(jnp.asarray, states), *map(jnp.asarray, coeffs), **kw)
+    assert not _reference_kernel_tiles(768)
+    assert np.isnan(np.asarray(je2)).all()
+    _, e2 = ops.error_step(*map(torch.from_numpy, states),
+                           *map(torch.from_numpy, coeffs), **kw)
+    _, re2 = jref.error_step(*(jnp.asarray(s).reshape(2, -1) for s in states),
+                             *map(jnp.asarray, coeffs), **kw)
+    np.testing.assert_allclose(e2.numpy(), np.asarray(re2), **E_TOL)
