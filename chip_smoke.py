@@ -8,9 +8,10 @@ Phases; any failure exits non-zero before the result line is printed:
 1. build   — compile every kernel from the repository's sources with
              nvcc for sm_90a; print the build time and the ptxas lines.
 2. kernels — each kernel against its plain PyTorch version, on the card,
-             at the main path's shapes and at edge shapes, each against
-             its stated bound.
-3. main    — the user's entry point, ``repro_torch.launch.sample.run``:
+             at the main paths' shapes and at edge shapes, each against
+             its stated bound (GroupNorm → SiLU at all 17 shapes of a
+             TRAJ_UNET forward, fp32 and bf16, and at x = 1e3 + N(0, 1)).
+3. main    — the first main path, ``repro_torch.launch.sample.run``:
              the 256×256 DiT (HIGHRES_DIT, weights from a seed, zero-init
              leaves livened), VP SDE, batch 8, eps_rel 0.05, fused solver
              step and flash attention, fp32, at most MAIN_MAX_ITERS
@@ -18,16 +19,28 @@ Phases; any failure exits non-zero before the result line is printed:
              just after; every kernel must have run. Then one DiT forward
              and one Algorithm-1 iteration with the kernels, against the
              same weights on the plain paths.
-4. check   — the main path's samples are finite and of the expected
+4. plan    — the second main path, ``repro_torch.planning.plan``: the
+             temporal UNet TRAJ_UNET (attention, flash, fused GroupNorm →
+             SiLU; weights from seed 0, zero-init leaves livened), VP SDE,
+             64 plans with obs (64, 17) and returns bins from seed 0,
+             returns CFG 1.5 (one forward over 128 rows), eps_rel 0.05,
+             fp32, fused solver step, at most MAIN_MAX_ITERS iterations.
+             Launch counts are set to 0 just before and read just after;
+             all three kernels must have run. The pinned coordinates must
+             equal obs exactly. Then one UNet forward and one guided,
+             projected Algorithm-1 iteration with the kernels, against
+             the same weights on the plain paths.
+5. check   — the first path's samples are finite and of the expected
              shape, and a small adaptive solve on the closed-form Gaussian
              score through the fused kernel passes the reference's
              conformance gate (W2 to the exact marginal < 0.08).
-5. timing  — each kernel at the main path's shape, device time from a
+6. timing  — each kernel at the main paths' shapes, device time from a
              replayed CUDA graph of 40 calls (and, for the host's share,
              an eager loop), beside its bound, its plain version and, for
              attention,
              ``torch.nn.functional.scaled_dot_product_attention`` (a
-             yardstick only; the port never calls it).
+             yardstick only; the port never calls it); one TRAJ_UNET
+             forward at 128 rows, eager and as a replayed graph.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object naming each kernel, and ``{"ok": true, "device": ...}``.
@@ -52,6 +65,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12       # CUDA cores, no tensor cores
 #: flops per element of the fused solver step (x̃ 6, x'' 2, δ 5, r² and sum 4)
 STEP_FLOPS_PER_ELEMENT = 17
+#: flops per element of GroupNorm → SiLU (sum 1; deviation² and sum 3;
+#: normalise, affine 4; SiLU's exp, add, divide 3)
+GN_FLOPS_PER_ELEMENT = 11
+#: the planning path: batch, observation width, returns-CFG scale
+PLAN_BATCH, PLAN_OBS, PLAN_CFG = 64, 17, 1.5
 
 
 def fail(msg: str) -> None:
@@ -109,7 +127,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device; chip_smoke.py runs on a machine with an NVIDIA card")
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.configs.diffusion import HIGHRES_DIT
+    from repro_torch.configs.diffusion import HIGHRES_DIT, TRAJ_UNET
     from repro_torch.core import analytic
     from repro_torch.core.sampling import sample
     from repro_torch.core.sde import VPSDE
@@ -117,9 +135,13 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.groupnorm_silu import ops as gn_ops
+    from repro_torch.kernels.groupnorm_silu import ref as gn_ref
     from repro_torch.kernels.solver_step import ops as step_ops
     from repro_torch.kernels.solver_step import ref as step_ref
     from repro_torch.launch import sample as launcher
+    from repro_torch.models import temporal_unet as tu
+    from repro_torch.planning import PlannerConfig, plan, plan_conditioner
 
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -187,6 +209,45 @@ def main() -> None:
         if not ok:
             fail("flash attention kernel disagrees with its plain version")
         attn_err[(s, dtype, causal)] = err
+    # GroupNorm → SiLU at the 17 (H, C) of one TRAJ_UNET forward, 2·64 rows
+    gn_shapes = ([(32, 32)] * 2 + [(16, 32), (16, 64), (8, 64)] + [(8, 128)] * 7
+                 + [(16, 128), (16, 64), (32, 64), (32, 32), (32, 32)])
+    gn_rows = 2 * PLAN_BATCH
+    gn_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = 0.0
+        for i, (h, c) in enumerate(gn_shapes):
+            x = torch.randn(gn_rows, h, c, generator=gen, device=dev).to(dtype)
+            sc = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+            bi = 0.1 * torch.randn(c, generator=gen, device=dev)
+            out = gn_ops.groupnorm_silu(x, sc, bi, groups=TRAJ_UNET.groups)
+            want = gn_ref.groupnorm_silu(x, sc, bi, groups=TRAJ_UNET.groups)
+            torch.cuda.synchronize()
+            diff = (out.float() - want.float()).abs()
+            if dtype == torch.float32:
+                bound = torch.full_like(diff, 1e-5)
+            else:  # one bf16 ulp plus the fp32 bound: both round once
+                mag = torch.maximum(out.float().abs(), want.float().abs())
+                bound = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7) + 1e-5
+            if not (diff <= bound).all():
+                fail(f"groupnorm_silu {str(dtype)[6:]} at {(gn_rows, h, c)}: "
+                     f"max abs err {diff.max().item():.3e} over its bound")
+            worst = max(worst, diff.max().item())
+            gn_err[(dtype, h, c)] = max(gn_err.get((dtype, h, c), 0.0), diff.max().item())
+        print(f"  groupnorm_silu {str(dtype)[6:]:8s} 17 TRAJ_UNET shapes at {gn_rows} rows: "
+              f"max abs err {worst:.3e} (bound {'1e-5' if dtype == torch.float32 else 'one bf16 ulp + 1e-5'}) ok")
+    x = 1e3 + torch.randn(gn_rows, 32, 64, generator=gen, device=dev)
+    ones, zeros = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    out = gn_ops.groupnorm_silu(x, ones, zeros, groups=TRAJ_UNET.groups)
+    err = (out - gn_ref.groupnorm_silu(x, ones, zeros, groups=TRAJ_UNET.groups)).abs().max().item()
+    spread = out.std().item()
+    print(f"  groupnorm_silu fp32 x = 1e3 + N(0,1) at {(gn_rows, 32, 64)}: max abs err "
+          f"{err:.3e} (bound 2e-3: sums near 1e3·n in another order), output std {spread:.3f}")
+    if not err <= 2e-3 or not 0.3 < spread < 1.2:
+        fail("groupnorm_silu loses the variance at a large offset")
+    again = gn_ops.groupnorm_silu(x, ones, zeros, groups=TRAJ_UNET.groups)
+    if not torch.equal(again, out):
+        fail("groupnorm_silu gives other bits on the same inputs")
 
     # ------------------------------------------------------------- 3. main
     phase("main path: adaptive sampling from HIGHRES_DIT with both kernels")
@@ -251,7 +312,104 @@ def main() -> None:
           f"(two forwards + one solver step + the host sync share)")
     del model, score_fast
 
-    # ------------------------------------------------------------ 4. check
+    # ------------------------------------------------------------- 4. plan
+    phase("main path: guided planning through TRAJ_UNET with all three kernels")
+    ucfg = dataclasses.replace(TRAJ_UNET, attention=True, use_flash=True,
+                               use_fused_norm=True)
+    unet = tu.init_temporal_unet(ucfg, torch.Generator(device=dev).manual_seed(0))
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the fp32 convolutions would not be fp32")
+    tu.liven_zero_init(unet, torch.Generator(device=dev).manual_seed(0))
+    plan_score = tu.make_score_fn(unet, sde)
+    pcfg = PlannerConfig(horizon=ucfg.horizon, obs_dim=PLAN_OBS,
+                         act_dim=ucfg.transition_dim - PLAN_OBS, guidance_scale=PLAN_CFG)
+    g = torch.Generator(device=dev).manual_seed(0)
+    obs = 0.5 * torch.randn(PLAN_BATCH, PLAN_OBS, generator=g, device=dev)
+    bins = torch.randint(0, ucfg.returns_bins, (PLAN_BATCH,), generator=g, device=dev)
+    plan_cfg = ad.AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True,
+                                 max_iters=MAIN_MAX_ITERS)
+    print(f"  TRAJ_UNET {tu.param_count(unet):,} parameters; plans {PLAN_BATCH} x "
+          f"{pcfg.sample_shape}, CFG {PLAN_CFG} over {2 * PLAN_BATCH} rows")
+    # a first, cold call (allocator, cuDNN's first use of each conv shape),
+    # then the measured call with the counts at 0
+    t0 = time.perf_counter()
+    cold = plan(sde, plan_score, obs, pcfg=pcfg, returns=bins, config=plan_cfg, device=dev)
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0
+    step_ops.launches = flash_ops.launches = gn_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pres = plan(sde, plan_score, obs, pcfg=pcfg, returns=bins, config=plan_cfg, device=dev)
+    torch.cuda.synchronize()
+    plan_wall = time.perf_counter() - t0
+    plan_launches = {"solver_step": step_ops.launches,
+                     "flash_attention": flash_ops.launches,
+                     "groupnorm_silu": gn_ops.launches}
+    p_iters = int(pres.iterations)
+    print(f"  iterations {p_iters}, mean NFE {float(pres.mean_nfe):.2f}, "
+          f"accepted {int(pres.accepted.sum())}, rejected {int(pres.rejected.sum())}, "
+          f"wall {plan_wall:.3f} s ({plan_wall / max(p_iters, 1) * 1e3:.2f} ms per iteration); "
+          f"the cold first call {cold_wall:.3f} s; the two calls bitwise equal: "
+          f"{torch.equal(cold.x, pres.x) and torch.equal(cold.nfe, pres.nfe)}")
+    print(f"  launches in the planning path: {plan_launches}")
+    if min(plan_launches.values()) <= 0:
+        fail(f"a kernel of the planning path was never launched: {plan_launches}")
+    n_blocks = 2 * len(ucfg.mults) + 2  # down path, two mid blocks, up path
+    per_forward = 2 * n_blocks + 1
+    if (plan_launches["solver_step"] < p_iters
+            or plan_launches["flash_attention"] < 2 * p_iters + 1
+            or plan_launches["groupnorm_silu"] != per_forward * plan_launches["flash_attention"]):
+        fail(f"launch counts do not fit {p_iters} iterations of two forwards "
+             f"({per_forward} GroupNorm → SiLU and 1 attention each) plus the denoise")
+    px = pres.x
+    if px.shape != (PLAN_BATCH,) + pcfg.sample_shape or not torch.isfinite(px).all():
+        fail(f"planning output: shape {tuple(px.shape)}, finite {bool(torch.isfinite(px).all())}")
+    if not torch.equal(px[:, 0, :PLAN_OBS], obs):
+        fail("the pinned observation coordinates differ from obs")
+    print(f"  plans finite, shape {tuple(px.shape)}, x[:, 0, :{PLAN_OBS}] == obs exactly, "
+          f"all converged before the cap: {p_iters < MAIN_MAX_ITERS}")
+
+    # the same weights on the plain paths: one forward, one iteration
+    xu = torch.randn(2 * PLAN_BATCH, *pcfg.sample_shape, generator=g, device=dev)
+    tt = torch.rand(2 * PLAN_BATCH, generator=g, device=dev) * 0.99 + 0.01
+    yy = torch.cat([bins, torch.full_like(bins, -1)])
+    with torch.no_grad():
+        unet.cfg = ucfg
+        fast = unet(xu, tt, y=yy)
+        unet.cfg = dataclasses.replace(ucfg, use_flash=False, use_fused_norm=False)
+        plain = unet(xu, tt, y=yy)
+    err = (fast - plain).abs().max().item()
+    bound = 1e-4 * (1 + plain.abs().max().item())
+    print(f"  TRAJ_UNET forward at {2 * PLAN_BATCH} rows, K6 + K3 vs plain: max abs err "
+          f"{err:.3e} (bound {bound:.1e}), mean |out| {plain.abs().mean().item():.3e}")
+    if not err <= bound or plain.abs().mean().item() < 1e-3:
+        fail("the TRAJ_UNET forward through the kernels disagrees with the plain path")
+    conditioner, cond = plan_conditioner(pcfg, state=obs, returns=bins)
+    xs = sde.prior_sample((PLAN_BATCH,) + pcfg.sample_shape, g)
+    zs = [torch.randn(xs.shape, generator=g, device=dev) for _ in range(2)]
+    steps = {}
+    for fused in (True, False):
+        unet.cfg = dataclasses.replace(ucfg, use_flash=fused, use_fused_norm=fused)
+        acfg = ad.AdaptiveConfig(eps_rel=0.05, use_fused_kernel=fused,
+                                 conditioner=conditioner)
+        carry = ad.init_carry(sde, xs, None, config=acfg, cond=cond)
+        draws = iter(zs)  # z, then the projection's draw
+        body = ad._make_body(sde, plan_score, acfg, sde.abs_tolerance,
+                             ad._step_math_fused if fused else ad._step_math_jnp,
+                             noise_fn=lambda _x: next(draws))
+        with torch.no_grad():
+            steps[fused] = body(carry)
+    a, p = steps[True], steps[False]
+    x_err = (a.x - p.x).abs().max().item()
+    same = torch.equal(a.accepted, p.accepted) and torch.equal(a.rejected, p.rejected)
+    print(f"  one guided, projected Algorithm-1 iteration, kernels vs plain: accept bits "
+          f"equal {same} ({int(a.accepted.sum())}/{PLAN_BATCH} accepted), "
+          f"max|x diff| {x_err:.3e}, max|h diff| {(a.h - p.h).abs().max().item():.3e}")
+    if not same or not x_err <= 1e-4 * (1 + p.x.abs().max().item()):
+        fail("one planning iteration through the kernels disagrees with the plain path")
+    unet.cfg = ucfg
+
+    # ------------------------------------------------------------ 5. check
     phase("checks of the output")
     res = rec["result"]
     want_shape = [B, HIGHRES_DIT.image_size, HIGHRES_DIT.image_size, HIGHRES_DIT.channels]
@@ -271,7 +429,7 @@ def main() -> None:
     if not w2 < 0.08 or step_ops.launches == before:
         fail("the adaptive solve on the card misses the conformance gate")
 
-    # ----------------------------------------------------------- 5. timing
+    # ----------------------------------------------------------- 6. timing
     phase("timing at the main path's shape (CUDA graphs and events)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -315,6 +473,95 @@ def main() -> None:
           f"{k3_ops / (k3_ms * 1e-3) / 1e12:.1f} TFLOP/s achieved; plain {k3_plain * 1e3:.1f} us; "
           f"SDPA {k3_lib * 1e3:.1f} us; eager loop with host gaps: kernel {k3_host * 1e3:.1f} us")
 
+    # the planning path's shapes
+    gn_b, gn_h, gn_c = 2 * PLAN_BATCH, 32, 64
+    sets = [(torch.randn(gn_b, gn_h, gn_c, generator=gen, device=dev),
+             1 + 0.1 * torch.randn(gn_c, generator=gen, device=dev),
+             0.1 * torch.randn(gn_c, generator=gen, device=dev)) for _ in range(4)]
+    k6 = lambda x, s, b: gn_ops.groupnorm_silu(x, s, b, groups=TRAJ_UNET.groups)
+    k6_plain_fn = lambda x, s, b: gn_ref.groupnorm_silu(x, s, b, groups=TRAJ_UNET.groups)
+    k6_ms, k6_plain = device_ms(k6, sets), device_ms(k6_plain_fn, sets)
+    k6_host = timed_ms(k6, sets, 200)
+    k6_bytes = 2 * gn_b * gn_h * gn_c * 4 + 2 * gn_c * 4
+    k6_ops = GN_FLOPS_PER_ELEMENT * gn_b * gn_h * gn_c
+    k6_bound = max(k6_bytes / HBM_BYTES_PER_S, k6_ops / FP32_FLOPS) * 1e3
+    fwd_elems = sum(2 * PLAN_BATCH * h * c for h, c in gn_shapes)
+    print(f"  groupnorm_silu ({gn_b}, {gn_h}, {gn_c}) fp32: {k6_ms * 1e3:.2f} us on the device, "
+          f"bound {k6_bound * 1e3:.2f} us ({k6_bytes / 1e6:.2f} MB at 3.35 TB/s; inputs "
+          f"L2-resident, as after the conv that makes them); plain {k6_plain * 1e3:.1f} us; "
+          f"eager loop with host gaps {k6_host * 1e3:.1f} us. One forward's 17 launches "
+          f"move {fwd_elems * 8 / 1e6:.2f} MB: bound {fwd_elems * 8 / HBM_BYTES_PER_S * 1e6:.2f} us")
+
+    D_plan = ucfg.horizon * ucfg.transition_dim
+    sets = []
+    for _ in range(4):
+        states = [torch.randn(PLAN_BATCH, D_plan, generator=gen, device=dev) for _ in range(5)]
+        coeffs = [torch.rand(PLAN_BATCH, generator=gen, device=dev) for _ in range(3)]
+        eps = [step_ops.per_sample_tolerance(e, PLAN_BATCH, dev) for e in (0.0078, 0.05)]
+        sets.append((*states, *coeffs, *eps))
+    k1p_ms, k1p_plain = device_ms(k1, sets), device_ms(k1_plain_fn, sets)
+    k1p_bytes = 6 * PLAN_BATCH * D_plan * 4 + 6 * PLAN_BATCH * 4
+    k1p_bound = max(k1p_bytes / HBM_BYTES_PER_S,
+                    STEP_FLOPS_PER_ELEMENT * PLAN_BATCH * D_plan / FP32_FLOPS) * 1e3
+    ah, ahd = ucfg.attn_heads, ucfg.base * ucfg.mults[-1] // ucfg.attn_heads
+    a_s = ucfg.horizon // 2 ** (len(ucfg.mults) - 1)
+    sets = [tuple(torch.randn(2 * PLAN_BATCH, ah, a_s, ahd, generator=gen, device=dev)
+                  for _ in range(3)) for _ in range(4)]
+    k3p_ms, k3p_plain, k3p_lib = (device_ms(f, sets) for f in (k3, k3_plain_fn, k3_lib_fn))
+    k3p_bytes = 4 * 2 * PLAN_BATCH * ah * a_s * ahd * 4
+    k3p_bound = max(k3p_bytes / HBM_BYTES_PER_S,
+                    4 * 2 * PLAN_BATCH * ah * a_s * a_s * ahd / FP32_FLOPS) * 1e3
+    print(f"  solver_step ({PLAN_BATCH}, {D_plan}) fp32: {k1p_ms * 1e3:.2f} us on the device, "
+          f"bound {k1p_bound * 1e3:.2f} us; plain {k1p_plain * 1e3:.1f} us")
+    print(f"  flash_attention {(2 * PLAN_BATCH, ah, a_s, ahd)} fp32: {k3p_ms * 1e3:.2f} us on "
+          f"the device, bound {k3p_bound * 1e3:.3f} us (bytes); plain {k3p_plain * 1e3:.1f} us; "
+          f"SDPA {k3p_lib * 1e3:.1f} us")
+
+    # one TRAJ_UNET forward at 2·64 rows: eager (host launch gaps included)
+    # and replayed from a CUDA graph (device time only)
+    fsets = [(torch.randn(2 * PLAN_BATCH, *pcfg.sample_shape, generator=gen, device=dev),
+              torch.rand(2 * PLAN_BATCH, generator=gen, device=dev) * 0.99 + 0.01, yy)
+             for _ in range(2)]
+    fwd = lambda x, t, y: unet(x, t, y=y)
+    with torch.no_grad():
+        unet_eager = timed_ms(fwd, fsets, 20)
+        unet_dev = device_ms(fwd, fsets, reps=4, replays=5)
+        unet.cfg = dataclasses.replace(ucfg, use_flash=False, use_fused_norm=False)
+        unet_plain_eager = timed_ms(fwd, fsets, 20)
+        unet_plain_dev = device_ms(fwd, fsets, reps=4, replays=5)
+        unet.cfg = ucfg
+    # the kernels of one eager forward, by name (torch.profiler, CUPTI)
+    with torch.no_grad(), torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fwd(*fsets[0])
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.device_time_total)
+    n_kern = sum(n for n, _ in by_name.values())
+    dev_us = sum(us for _, us in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"  profiled eager forward: {n_kern} device operations, {dev_us:.0f} us of device "
+          f"time; largest: " + "; ".join(f"{name[:60]} x{n} {us:.0f} us"
+                                          for name, (n, us) in top))
+    # the device's busy time over one whole planning solve (one stream, so
+    # the kernel times add up), against the unprofiled solve's wall time
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        plan(sde, plan_score, obs, pcfg=pcfg, returns=bins, config=plan_cfg, device=dev)
+        torch.cuda.synchronize()
+    busy_ms = sum(e.device_time_total for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f"  planning solve: device busy {busy_ms:.1f} ms of the {plan_wall * 1e3:.1f} ms "
+          f"unprofiled wall, idle share {1 - busy_ms / (plan_wall * 1e3):.2f}")
+    iter_ms = plan_wall / max(p_iters, 1) * 1e3
+    print(f"  TRAJ_UNET forward at {2 * PLAN_BATCH} rows: eager {unet_eager:.3f} ms, "
+          f"device (graph replay) {unet_dev:.3f} ms; all-plain forward: eager "
+          f"{unet_plain_eager:.3f} ms, device {unet_plain_dev:.3f} ms; the planning path spends "
+          f"{iter_ms:.2f} ms per iteration, of which two eager forwards are "
+          f"{2 * unet_eager:.2f} ms ({200 * unet_eager / iter_ms:.0f} %)")
+
     kernels = [
         {"name": "solver_step", "route": "cuda",
          "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
@@ -325,7 +572,9 @@ def main() -> None:
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / FP32_FLOPS
          else "operations",
-         "library_ms": None},
+         "library_ms": None,
+         "planning": {"launches": plan_launches["solver_step"], "ms": k1p_ms,
+                      "plain_ms": k1p_plain, "bound_ms": k1p_bound}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:102",
@@ -334,7 +583,18 @@ def main() -> None:
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
          "bound_by": "bytes" if k3_bytes / HBM_BYTES_PER_S >= k3_ops / FP32_FLOPS
          else "operations",
-         "library_ms": k3_lib},
+         "library_ms": k3_lib,
+         "planning": {"launches": plan_launches["flash_attention"], "ms": k3p_ms,
+                      "plain_ms": k3p_plain, "bound_ms": k3p_bound, "library_ms": k3p_lib}},
+        {"name": "groupnorm_silu", "route": "cuda",
+         "source": "src/repro_torch/kernels/groupnorm_silu/csrc/groupnorm_silu.cu",
+         "replaces": "src/repro/kernels/groupnorm_silu/kernel.py:81",
+         "launches": plan_launches["groupnorm_silu"],
+         "max_abs_err": gn_err[(torch.float32, gn_h, gn_c)],
+         "ms": k6_ms, "plain_ms": k6_plain, "bound_ms": k6_bound,
+         "bound_by": "bytes" if k6_bytes / HBM_BYTES_PER_S >= k6_ops / FP32_FLOPS
+         else "operations",
+         "library_ms": None},
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):

@@ -5,7 +5,10 @@ of the parts of ``repro/configs/diffusion.py`` this slice runs.
 scale; ``HIGHRES_DIT`` stands in for its 256×256 setting (Table 2): 256
 tokens of 16×16 patches, d_model 768, 12 layers, 12 heads of width 64,
 d_ff 3072, 159.1 M parameters. ``DIT_100M`` is the reference's
-~100 M-parameter end-to-end preset. The tolerance classes name points on
+~100 M-parameter end-to-end preset. ``TRAJ_UNET`` is the trajectory
+workload's temporal score network (DESIGN.md §10): horizon-32 plans of
+a locomotion-style transition (obs 17 + act 6 = 23) with returns-to-go
+CFG bins. The tolerance classes name points on
 the paper's Table-1 ε frontier (DESIGN.md §14).
 """
 
@@ -13,6 +16,7 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.models.dit import DiTConfig
+from repro_torch.models.temporal_unet import TemporalUNetConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,5 +57,11 @@ DIT_100M = DiTConfig(
     num_heads=12, d_ff=3072,
 )
 
+TRAJ_UNET = TemporalUNetConfig(
+    horizon=32, transition_dim=23, base=32, mults=(1, 2, 4), t_dim=64,
+    returns_bins=10,
+)
+
+#: the DiT presets the sampling launcher takes by name
 ARCHS = {"cifar_dit": CIFAR_DIT, "highres_dit": HIGHRES_DIT,
          "dit_100m": DIT_100M}

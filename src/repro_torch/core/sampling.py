@@ -7,7 +7,9 @@
 the prior and then every noise draw of the solve. ``solve_in_chunks``
 is the resumable form (DESIGN.md §7): the same adaptive solve as a
 host-driven chain of ``solve_chunk`` calls, bitwise equal to
-``sample(method="adaptive")`` for the same seed.
+``sample(method="adaptive")`` for the same seed. Both take the optional
+condition payload ``cond`` of ``AdaptiveConfig.conditioner``
+(DESIGN.md §9), which rides in the carry through every chunk.
 """
 
 from __future__ import annotations
@@ -31,20 +33,24 @@ def _generator(seed: int, dev: torch.device) -> torch.Generator:
 
 def sample(sde: SDE, score_fn: Callable, shape, *, seed: int = 0,
            method: str = "adaptive", denoise: bool = True, device="cuda",
-           **solver_kwargs) -> SolveResult:
+           cond=None, **solver_kwargs) -> SolveResult:
     """Generate ``shape[0]`` samples of shape ``shape[1:]`` on ``device``
-    (``cuda`` unless the caller passes ``"cpu"``)."""
+    (``cuda`` unless the caller passes ``"cpu"``). ``cond`` is the
+    per-sample payload of the conditioner in the solver's config (with a
+    ``ClassifierFree`` conditioner the score is ``s(x, t, y)``)."""
     dev = resolve_device(device)
     gen = _generator(seed, dev)
     x_init = sde.prior_sample(shape, gen)
     solver = get_solver(method)
+    if cond is not None:
+        solver_kwargs["cond"] = cond
     return solver(sde, score_fn, x_init, gen, denoise=denoise, device=dev,
                   **solver_kwargs)
 
 
 def solve_in_chunks(sde: SDE, score_fn: Callable, shape, *, max_sync_iters: int,
                     seed: int = 0, config: AdaptiveConfig | None = None,
-                    denoise: bool = True, device="cuda",
+                    denoise: bool = True, device="cuda", cond=None,
                     on_sync: Callable | None = None,
                     noise_fn: Callable | None = None,
                     **overrides) -> SolveResult:
@@ -55,7 +61,8 @@ def solve_in_chunks(sde: SDE, score_fn: Callable, shape, *, max_sync_iters: int,
     cfg = resolve_config(config, overrides)
     dev = resolve_device(device)
     gen = _generator(seed, dev)
-    carry = init_carry(sde, sde.prior_sample(shape, gen), gen, config=cfg)
+    carry = init_carry(sde, sde.prior_sample(shape, gen), gen, config=cfg,
+                       cond=cond)
     while True:
         done, iters = sync_state(carry)
         if done or iters >= cfg.max_iters:
@@ -65,4 +72,4 @@ def solve_in_chunks(sde: SDE, score_fn: Callable, shape, *, max_sync_iters: int,
         if on_sync is not None:
             on_sync(carry)
     return finalize(sde, score_fn, carry, denoise=denoise,
-                    precision=cfg.precision)
+                    precision=cfg.precision, conditioner=cfg.conditioner)

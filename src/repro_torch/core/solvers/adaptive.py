@@ -23,14 +23,24 @@ The arithmetic after the two score evaluations has two implementations:
 Noise: by default z is drawn from the carry's ``torch.Generator``. An
 optional ``noise_fn(x) -> z`` replaces the draw; tests pass the
 reference's own z through it, since JAX's threefry and torch's
-generators never give the same numbers.
+generators never give the same numbers. With a projecting conditioner
+the iteration draws a second time, after z, for the projection noise
+(the order in which the reference splits its key), through the same
+seam.
+
+Conditioning (DESIGN.md §9): ``AdaptiveConfig.conditioner`` is the
+static half, ``SolverCarry.cond`` the per-sample payload. The score is
+wrapped by the conditioner inside the precision wrap; a projecting
+conditioner moves accepted samples only, after the accept decision, and
+``x_prev`` stays unprojected. ``finalize`` denoises with the conditioned
+field and then applies ``finalize_project``.
 
 Precision (DESIGN.md §8): x / x_prev live in the policy's state dtype;
 t, h, the tolerance, the error, the accept decision and the step-size
 update are fp32 under every preset.
 
-Not ported yet: sharding, per-slot keys, conditioners, momentum, the
-probability-flow variant, telemetry and Algorithm 2.
+Not ported yet: sharding, per-slot keys, momentum, the probability-flow
+variant, telemetry and Algorithm 2.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core.guidance import Conditioner, cond_batch
 from repro_torch.core.precision import PrecisionPolicy, resolve_policy
 from repro_torch.core.sde import SDE, bcast
 from repro_torch.core.solvers.base import SolveResult, register_solver
@@ -72,6 +83,9 @@ class AdaptiveConfig:
     use_fused_kernel: bool = False
     #: precision preset name or PrecisionPolicy (DESIGN.md §8)
     precision: "str | PrecisionPolicy" = "fp32"
+    #: static half of a score-field conditioner (DESIGN.md §9); None is
+    #: the unconditional path
+    conditioner: Optional[Conditioner] = None
 
 
 def resolve_config(config: Optional[AdaptiveConfig], overrides) -> AdaptiveConfig:
@@ -134,7 +148,8 @@ class SolverCarry:
     iterations: 0-d int32, iterations in which some sample was active.
     generator: the noise source of the default draw. atol / rtol:
     optional per-sample tolerances (B,) fp32 that replace the config's
-    (DESIGN.md §14); both or neither.
+    (DESIGN.md §14); both or neither. cond: the conditioner's per-sample
+    payload (DESIGN.md §9), a dict of tensors leading with B, or None.
     """
 
     x: Tensor
@@ -149,6 +164,7 @@ class SolverCarry:
     generator: Optional[torch.Generator] = None
     atol: Optional[Tensor] = None
     rtol: Optional[Tensor] = None
+    cond: Optional[dict] = None
 
     @property
     def batch(self) -> int:
@@ -161,13 +177,16 @@ def _per_sample(v, batch: int, device) -> Tensor:
 
 
 def init_carry(sde: SDE, x_init: Tensor, generator: Optional[torch.Generator],
-               *, config: AdaptiveConfig | None = None, atol=None, rtol=None,
-               h0=None, **overrides) -> SolverCarry:
+               *, config: AdaptiveConfig | None = None, cond=None, atol=None,
+               rtol=None, h0=None, **overrides) -> SolverCarry:
     """Fresh carry at t = T on ``x_init``'s device.
 
-    ``atol``/``rtol`` (scalars or (B,)) install per-sample tolerances;
-    pass both or neither. ``h0`` overrides the initial step per sample;
-    it is clamped to the t-span like ``cfg.h_init``.
+    ``cond`` is the optional per-sample condition payload: every leaf
+    must lead with the batch dimension; it moves to x's device, and its
+    float leaves become fp32 (projection and guidance are control-path
+    math). ``atol``/``rtol`` (scalars or (B,)) install per-sample
+    tolerances; pass both or neither. ``h0`` overrides the initial step
+    per sample; it is clamped to the t-span like ``cfg.h_init``.
     """
     cfg = resolve_config(config, overrides)
     policy = resolve_policy(cfg.precision)
@@ -178,6 +197,13 @@ def init_carry(sde: SDE, x_init: Tensor, generator: Optional[torch.Generator],
                          "atol and rtol, or neither")
     if atol is not None:
         atol, rtol = _per_sample(atol, batch, dev), _per_sample(rtol, batch, dev)
+    if cond is not None:
+        cb = cond_batch(cond)
+        if cb is not None and cb != batch:
+            raise ValueError(f"condition payload batch {cb} != state batch {batch}")
+        cond = {k: v.to(device=dev, dtype=torch.float32)
+                if v.dtype.is_floating_point else v.to(dev)
+                for k, v in cond.items()}
     t0 = torch.full((batch,), sde.T, dtype=torch.float32, device=dev)
     h_of = cfg.h_init if h0 is None else h0
     h = torch.minimum(_per_sample(h_of, batch, dev), t0 - sde.t_eps)
@@ -186,7 +212,7 @@ def init_carry(sde: SDE, x_init: Tensor, generator: Optional[torch.Generator],
         x=x_init, x_prev=x_init, t=t0, h=h, nfe=zeros, accepted=zeros,
         rejected=zeros, done=torch.zeros((batch,), dtype=torch.bool, device=dev),
         iterations=torch.zeros((), dtype=torch.int32, device=dev),
-        generator=generator, atol=atol, rtol=rtol)
+        generator=generator, atol=atol, rtol=rtol, cond=cond)
 
 
 def _draw_noise(generator: torch.Generator, x: Tensor) -> Tensor:
@@ -198,22 +224,37 @@ def _draw_noise(generator: torch.Generator, x: Tensor) -> Tensor:
 
 def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
                step_math, noise_fn=None):
-    """One Algorithm-1 iteration: SolverCarry → SolverCarry."""
+    """One Algorithm-1 iteration: SolverCarry → SolverCarry.
+
+    The conditioner wraps the raw ``score_fn`` innermost (a label-aware
+    score sees real labels), the precision policy's casts outermost.
+    """
     policy = resolve_policy(cfg.precision)
-    sf = policy.wrap_score_fn(score_fn)
+    conditioner = cfg.conditioner
+    projecting = conditioner is not None and conditioner.has_projection
     threshold = sde.t_eps + 1e-12
+
+    def draw(s: SolverCarry, x: Tensor) -> Tensor:
+        if noise_fn is None:
+            return _draw_noise(s.generator, x)
+        return noise_fn(x).to(device=x.device, dtype=x.dtype)
 
     def body(s: SolverCarry) -> SolverCarry:
         x, x_prev, t, h = s.x, s.x_prev, s.t, s.h
+        sf = score_fn
+        if conditioner is not None:
+            sf = conditioner.wrap_score(sf, s.cond)
+        sf = policy.wrap_score_fn(sf)
         active = t > threshold
         # frozen samples are fed clamped times
         t_c = torch.clamp(t, sde.t_eps, sde.T)
         h_c = torch.where(active, h, 0.0)
         t2 = torch.clamp(t_c - h_c, sde.t_eps, sde.T)
-        if noise_fn is None:
-            z = _draw_noise(s.generator, x)
-        else:
-            z = noise_fn(x).to(device=x.device, dtype=x.dtype)
+        z = draw(s, x)
+        if projecting:
+            # the projection's own draw, after z: the unconditional
+            # noise stream is untouched by the conditioning seam
+            z_proj = draw(s, x)
 
         # low-order proposal: one reverse Euler–Maruyama step. The fp32
         # coefficients promote the arithmetic to fp32; x' is stored back
@@ -239,12 +280,18 @@ def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
         accept = (err <= 1.0) & active
         acc_e = bcast(accept, x)
         t_new = torch.where(accept, t - h, t)
+        x_new = torch.where(acc_e, proposal, x)
+        if projecting:
+            # post-accept projection at each sample's new t, fp32; only
+            # accepted samples move, and x_prev stays unprojected
+            projected = conditioner.project(sde, x_new, t_new, s.cond, z_proj)
+            x_new = torch.where(acc_e, projected.to(x.dtype), x_new)
         remaining = torch.clamp(t_new - sde.t_eps, min=0.0)
         h_new = next_step_size(h, err, remaining, safety=cfg.safety,
                                r_exponent=cfg.r_exponent)
         two = torch.where(active, 2, 0).to(torch.int32)
         return SolverCarry(
-            x=torch.where(acc_e, proposal, x),
+            x=x_new,
             x_prev=torch.where(acc_e, x_prime, x_prev),
             t=t_new,
             h=torch.where(active, h_new, h),
@@ -253,7 +300,7 @@ def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
             rejected=s.rejected + (~accept & active).to(torch.int32),
             done=t_new <= threshold,
             iterations=s.iterations + active.any().to(torch.int32),
-            generator=s.generator, atol=s.atol, rtol=s.rtol)
+            generator=s.generator, atol=s.atol, rtol=s.rtol, cond=s.cond)
 
     return body
 
@@ -294,10 +341,18 @@ def solve_chunk(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
 
 
 def finalize(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
-             denoise: bool = True, precision="fp32") -> SolveResult:
+             denoise: bool = True, precision="fp32",
+             conditioner: Optional[Conditioner] = None) -> SolveResult:
     """SolveResult from a finished carry, plus the paper's Tweedie denoise
-    (one more score evaluation, fp32 arithmetic)."""
+    (one more score evaluation, fp32 arithmetic).
+
+    With a ``conditioner`` the denoising score is the conditioned field
+    (consuming ``carry.cond``), and the delivered sample gets the exact
+    ``finalize_project`` (inpainting pins observed coordinates exactly).
+    """
     policy = resolve_policy(precision)
+    if conditioner is not None:
+        score_fn = conditioner.wrap_score(score_fn, carry.cond)
     x, nfe = carry.x, carry.nfe
     if denoise:
         t = torch.full((carry.batch,), sde.t_eps, dtype=torch.float32,
@@ -306,6 +361,8 @@ def finalize(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
             score = score_fn(policy.to_compute(x), t).to(torch.float32)
         x = sde.tweedie_denoise(x.to(torch.float32), score)
         nfe = nfe + 1
+    if conditioner is not None:
+        x = conditioner.finalize_project(x, carry.cond)
     return SolveResult(x=x, nfe=nfe, iterations=carry.iterations,
                        accepted=carry.accepted, rejected=carry.rejected)
 
@@ -314,13 +371,15 @@ def finalize(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
 def adaptive(sde: SDE, score_fn: Callable, x_init: Tensor,
              generator: Optional[torch.Generator] = None, *,
              config: AdaptiveConfig | None = None, denoise: bool = True,
-             atol=None, rtol=None, h0=None, noise_fn: Callable | None = None,
-             device="cuda", **overrides) -> SolveResult:
+             cond=None, atol=None, rtol=None, h0=None,
+             noise_fn: Callable | None = None, device="cuda",
+             **overrides) -> SolveResult:
     """Algorithm 1: solve the reverse diffusion from T to t_eps adaptively.
 
     Runs on ``device`` (``cuda`` unless the caller passes ``"cpu"``);
     ``x_init`` is moved there. ``generator`` (on the same device) feeds
-    the noise draws unless ``noise_fn`` is given. ``atol``/``rtol``/
+    the noise draws unless ``noise_fn`` is given. ``cond`` is the
+    payload of ``cfg.conditioner`` (DESIGN.md §9). ``atol``/``rtol``/
     ``h0`` install per-sample tolerances and initial steps (DESIGN.md
     §14).
     """
@@ -331,9 +390,9 @@ def adaptive(sde: SDE, score_fn: Callable, x_init: Tensor,
         if generator.device.type != dev.type:
             raise ValueError(f"generator on {generator.device}, solve on {dev}")
     cfg = resolve_config(config, overrides)
-    carry = init_carry(sde, x_init.to(dev), generator, config=cfg, atol=atol,
-                       rtol=rtol, h0=h0)
+    carry = init_carry(sde, x_init.to(dev), generator, config=cfg, cond=cond,
+                       atol=atol, rtol=rtol, h0=h0)
     carry = solve_chunk(sde, score_fn, carry, max_sync_iters=cfg.max_iters,
                         config=cfg, noise_fn=noise_fn)
     return finalize(sde, score_fn, carry, denoise=denoise,
-                    precision=cfg.precision)
+                    precision=cfg.precision, conditioner=cfg.conditioner)

@@ -36,8 +36,8 @@ def _ref_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
-    logits = torch.where(mask[None, None], logits,
-                         torch.tensor(-1e30, dtype=torch.float32, device=q.device))
+    # a fill, not a host-made constant, so a CUDA graph can capture it
+    logits = logits.masked_fill(~mask[None, None], -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, vv)
     return out.to(q.dtype)

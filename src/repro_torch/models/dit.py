@@ -25,7 +25,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -33,7 +32,7 @@ from torch import nn
 from repro_torch.core.sde import bcast
 from repro_torch.models.attention import attention
 from repro_torch.models.layers import (
-    apply_mlp, apply_norm, dense_init, timestep_embedding,
+    apply_mlp, apply_norm, dense_init, timestep_embedding, to_tensor,
 )
 
 Tensor = torch.Tensor
@@ -201,16 +200,6 @@ def liven_zero_init(model: DiT, generator: torch.Generator,
     return model
 
 
-def _to_tensor(a) -> Tensor:
-    """numpy (including ml_dtypes bfloat16) or torch → torch tensor."""
-    if isinstance(a, Tensor):
-        return a
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.array(a))  # a writable copy
-
-
 def params_from_jax(tree: Mapping[str, Any], cfg: DiTConfig,
                     device="cpu") -> DiT:
     """The reference's ``init_dit`` parameter tree (nested dict of numpy
@@ -221,7 +210,7 @@ def params_from_jax(tree: Mapping[str, Any], cfg: DiTConfig,
     kept as they are. The module takes the tree's dtype.
     """
     # the norms are parameter-free: their leaves are empty dicts
-    top = {k: _to_tensor(v) for k, v in tree.items()
+    top = {k: to_tensor(v) for k, v in tree.items()
            if k != "layers" and not isinstance(v, Mapping)}
     dtype = top["patch_in"].dtype
     model = DiT(cfg, dtype=dtype, device=device)
@@ -235,7 +224,7 @@ def params_from_jax(tree: Mapping[str, Any], cfg: DiTConfig,
     }
     with torch.no_grad():
         for name, stacked in per_layer.items():
-            stacked = _to_tensor(stacked)
+            stacked = to_tensor(stacked)
             if stacked.shape[0] != cfg.num_layers:
                 raise ValueError(f"layers/{name}: {stacked.shape[0]} layers, "
                                  f"config has {cfg.num_layers}")

@@ -1,5 +1,7 @@
 """Shared layers of the score network; port of ``repro/models/layers.py``
-(the parts the DiT uses: initializer, norms, gated MLP, time embedding).
+(the parts the DiT and the temporal UNet use: initializer, norms, gated
+MLP, time embedding), and ``to_tensor``, which carries the reference's
+parameter leaves across.
 
 Norms take their statistics in fp32 whatever the activation dtype and
 round once on return, like the reference.
@@ -9,10 +11,22 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 Tensor = torch.Tensor
+
+
+def to_tensor(a) -> Tensor:
+    """A parameter leaf from the reference (numpy, including ml_dtypes
+    bfloat16, which numpy cannot name) or torch → a torch tensor."""
+    if isinstance(a, Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a writable copy
 
 
 def dense_init(shape, *, generator: torch.Generator, dtype=torch.float32,
@@ -62,9 +76,10 @@ def timestep_embedding(t: Tensor, dim: int, max_period: float = 10_000.0) -> Ten
     spreads it over the range the frequencies were chosen for.
     """
     half = dim // 2
-    # log of the period in fp32, as the reference takes it
-    log_period = torch.log(torch.tensor(max_period, dtype=torch.float32,
-                                        device=t.device))
+    # log of the period in fp32, as the reference takes it; made by a fill
+    # on the device, not a host copy, so a CUDA graph can capture it
+    log_period = torch.log(torch.full((), max_period, dtype=torch.float32,
+                                      device=t.device))
     freqs = torch.exp(-log_period * torch.arange(
         half, dtype=torch.float32, device=t.device) / half)
     args = t[:, None].to(torch.float32) * freqs[None, :] * 1000.0

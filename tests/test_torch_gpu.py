@@ -9,7 +9,13 @@ Run them on a machine with an H100:
 Bounds: solver step fp32 1e-5 (the kernel contracts a·b + c into FMAs
 and sums the row in another order); bf16 1e-2 on x'' (one bf16 ulp)
 with e2 still fp32 1e-5; flash attention fp32 3e-5 and bf16 2e-2, as on
-the CPU side.
+the CPU side; GroupNorm → SiLU fp32 1e-5 absolute and bf16 one bf16 ulp
+plus that 1e-5 (both sides compute in fp32 and round once, so the
+rounded outputs differ by at most an ulp more than the fp32 values,
+which matters near zero, where an ulp is smaller than the fp32
+difference), 2e-3 absolute on the
+x = 1e3 + N(0, 1) slabs (the sums reach 1e3·n, where fp32 spacing is
+about 1e-4·n, added in another order).
 """
 
 import dataclasses
@@ -19,9 +25,15 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.groupnorm_silu import ops as gn_ops
+from repro_torch.kernels.groupnorm_silu import ref as gn_ref
 from repro_torch.kernels.solver_step import ops as step_ops
 from repro_torch.kernels.solver_step import ref as step_ref
+from repro_torch.core.sde import VPSDE
+from repro_torch.core.solvers.adaptive import AdaptiveConfig
 from repro_torch.models import dit as tdit
+from repro_torch.models import temporal_unet as ttu
+from repro_torch.planning import PlannerConfig, plan
 
 pytestmark = pytest.mark.gpu
 
@@ -103,3 +115,81 @@ def test_dit_forward_flash_matches_plain_on_card(cuda):
     assert flash_ops.launches == before + cfg.num_layers
     torch.testing.assert_close(fast, plain, rtol=1e-4, atol=1e-4)
     assert plain.abs().mean() > 1e-2
+
+
+#: (H, C) of TRAJ_UNET's 17 GroupNorm → SiLU launches per forward, g = 8
+TRAJ_GN_SHAPES = ([(32, 32)] * 2 + [(16, 32), (16, 64), (8, 64)] + [(8, 128)] * 7
+                  + [(16, 128), (16, 64), (32, 64), (32, 32), (32, 32)])
+
+
+def _bf16_ulp(a):
+    mag = a.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _gn_inputs(B, H, C, dev, dtype, offset=0.0, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (offset + torch.randn(B, H, C, generator=g, device=dev)).to(dtype)
+    scale = 1 + 0.1 * torch.randn(C, generator=g, device=dev)
+    bias = 0.1 * torch.randn(C, generator=g, device=dev)
+    return x, scale, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("i", range(len(TRAJ_GN_SHAPES)))
+def test_groupnorm_silu_kernel_matches_plain(cuda, i, dtype):
+    H, C = TRAJ_GN_SHAPES[i]
+    x, scale, bias = _gn_inputs(128, H, C, cuda, dtype, seed=i)
+    before = gn_ops.launches
+    out = gn_ops.groupnorm_silu(x, scale, bias, groups=8)
+    assert gn_ops.launches == before + 1
+    want = gn_ref.groupnorm_silu(x, scale, bias, groups=8)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    diff = (out.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5
+    else:
+        assert (diff <= torch.maximum(_bf16_ulp(out), _bf16_ulp(want)) + 1e-5).all()
+    again = gn_ops.groupnorm_silu(x, scale, bias, groups=8)
+    assert torch.equal(again, out)  # deterministic
+
+
+def test_groupnorm_silu_kernel_large_offset_and_edges(cuda):
+    x, _, _ = _gn_inputs(128, 32, 64, cuda, torch.float32, offset=1e3)
+    ones, zeros = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    out = gn_ops.groupnorm_silu(x, ones, zeros, groups=8)
+    torch.testing.assert_close(out, gn_ref.groupnorm_silu(x, ones, zeros, groups=8),
+                               rtol=0, atol=2e-3)
+    assert 0.3 < float(out.std()) < 1.2
+    for (B, H, C, G) in ((3, 30, 96, 6), (2, 16, 4, 8), (1, 64, 256, 8)):
+        x, s, b = _gn_inputs(B, H, C, cuda, torch.float32, seed=C)
+        torch.testing.assert_close(gn_ops.groupnorm_silu(x, s, b, groups=G),
+                                   gn_ref.groupnorm_silu(x, s, b, groups=G),
+                                   rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_ops.groupnorm_silu(x[:, ::2], s, b, groups=G)
+
+
+def test_small_plan_on_card_runs_all_three_kernels(cuda):
+    cfg = ttu.TemporalUNetConfig(horizon=16, transition_dim=6, base=16, mults=(1, 2),
+                                 t_dim=32, groups=4, returns_bins=4, attention=True,
+                                 attn_heads=2, use_flash=True, use_fused_norm=True)
+    model = ttu.init_temporal_unet(cfg, torch.Generator(device=cuda).manual_seed(0))
+    ttu.liven_zero_init(model, torch.Generator(device=cuda).manual_seed(1))
+    sde = VPSDE()
+    pcfg = PlannerConfig(horizon=16, obs_dim=4, act_dim=2, guidance_scale=1.5)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    obs = 0.3 * torch.randn(8, 4, generator=g, device=cuda)
+    bins = torch.arange(8, device=cuda) % 4
+    counts = (step_ops.launches, flash_ops.launches, gn_ops.launches)
+    res = plan(sde, ttu.make_score_fn(model, sde), obs, pcfg=pcfg, returns=bins,
+               config=AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True, max_iters=400))
+    torch.cuda.synchronize()
+    step, flash, gn = (a - b for a, b in zip(
+        (step_ops.launches, flash_ops.launches, gn_ops.launches), counts))
+    iters = int(res.iterations)
+    assert step >= iters and flash >= 2 * iters + 1
+    assert gn == 13 * flash  # 2 per residual block × 6 blocks + the output norm
+    assert torch.isfinite(res.x).all() and torch.equal(res.x[:, 0, :4], obs)
+    assert bool((res.nfe == 2 * (res.accepted + res.rejected) + 1).all())

@@ -21,9 +21,12 @@ from repro_torch.core.solvers import adaptive as tad
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.groupnorm_silu import ops as gn_ops
+from repro_torch.kernels.groupnorm_silu import ref as gn_ref
 from repro_torch.kernels.solver_step import ops as step_ops
 from repro_torch.kernels.solver_step import ref as step_ref
 from repro_torch.launch import sample as launcher
+from repro_torch.planning import PlannerConfig, plan
 
 torch.set_num_threads(2)
 
@@ -108,3 +111,39 @@ def test_kernel_path_raises_where_it_cannot_build(monkeypatch, tmp_path):
     finally:
         _build.library.cache_clear()
     assert (step_ops.launches, flash_ops.launches) == before
+
+
+def test_plan_without_a_card_raises(no_card):
+    sde = VPSDE()
+    score = analytic.class_gaussian_score(sde, [0.0, 1.0])
+    pcfg = PlannerConfig(horizon=4, obs_dim=2, act_dim=1, guidance_scale=1.5)
+    obs, bins = torch.zeros(2, 2), torch.tensor([0, 1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        plan(sde, score, obs, pcfg=pcfg, returns=bins)
+    res = plan(sde, score, obs, pcfg=pcfg, returns=bins, device="cpu")
+    assert res.x.shape == (2, 4, 3) and torch.equal(res.x[:, 0, :2], obs)
+
+
+def test_groupnorm_wrapper_does_not_fall_back(monkeypatch, tmp_path):
+    """Meta tensors are refused; where the kernels cannot be built, the
+    launch path raises and counts nothing."""
+    monkeypatch.setattr(gn_ref, "groupnorm_silu", _never)
+    meta = torch.empty(2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gn_ops.groupnorm_silu(meta, torch.empty(16, device="meta"),
+                              torch.empty(16, device="meta"), groups=4)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    _build.library.cache_clear()
+    before = gn_ops.launches
+    try:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            gn_ops._launch(torch.zeros(2, 8, 16), torch.ones(16), torch.zeros(16),
+                           groups=4, eps=1e-6)
+    finally:
+        _build.library.cache_clear()
+    assert gn_ops.launches == before
