@@ -10,7 +10,9 @@ Phases; any failure exits non-zero before the result line is printed:
 2. kernels — each kernel against its plain PyTorch version, on the card,
              at the main paths' shapes and at edge shapes, each against
              its stated bound (GroupNorm → SiLU at all 17 shapes of a
-             TRAJ_UNET forward, fp32 and bf16, and at x = 1e3 + N(0, 1)).
+             TRAJ_UNET forward, fp32 and bf16, and at x = 1e3 + N(0, 1);
+             K5 at the DiT, Table-2 and planning states and a ragged D,
+             fp32 and bf16, and a misaligned view, which must raise).
 3. main    — the first main path, ``repro_torch.launch.sample.run``:
              the 256×256 DiT (HIGHRES_DIT, weights from a seed, zero-init
              leaves livened), VP SDE, batch 8, eps_rel 0.05, fused solver
@@ -30,6 +32,19 @@ Phases; any failure exits non-zero before the result line is printed:
              equal obs exactly. Then one UNet forward and one guided,
              projected Algorithm-1 iteration with the kernels, against
              the same weights on the plain paths.
+4b. baselines — the paper's comparison on the card, every update of the
+             stochastic baselines through K5 (``em_step``): EM, DDIM and PC
+             from HIGHRES_DIT (the same livened weights, flash on, fp32,
+             batch 8) through ``repro_torch.launch.sample.run``, EM and
+             DDIM at n_steps = round(phase 3's adaptive mean NFE) and PC
+             at half that (two evaluations a step); K5 counts set to 0
+             before each solve and read after, and they must equal the
+             steps exactly. Then the Table-2 analog at its full size
+             (``repro_torch.benchmarks.table2_highdim``: D 3072, N 256, VE
+             σ_max 30, every row), and EM-1000 and PC-500 on the
+             closed-form Gaussian score, VP and VE, against the gates of
+             the reference's conformance table (W2 < 0.08 for EM, < 0.25
+             for the PC family).
 5. check   — the first path's samples are finite and of the expected
              shape, and a small adaptive solve on the closed-form Gaussian
              score through the fused kernel passes the reference's
@@ -40,7 +55,8 @@ Phases; any failure exits non-zero before the result line is printed:
              attention,
              ``torch.nn.functional.scaled_dot_product_attention`` (a
              yardstick only; the port never calls it); one TRAJ_UNET
-             forward at 128 rows, eager and as a replayed graph.
+             forward at 128 rows, eager and as a replayed graph; K5 at
+             the DiT state and the Table-2 state.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object naming each kernel, and ``{"ok": true, "device": ...}``.
@@ -68,8 +84,19 @@ STEP_FLOPS_PER_ELEMENT = 17
 #: flops per element of GroupNorm → SiLU (sum 1; deviation² and sum 3;
 #: normalise, affine 4; SiLU's exp, add, divide 3)
 GN_FLOPS_PER_ELEMENT = 11
+#: flops per element of K5, x' = c0·x + c1·s + c2·z (three products, two sums)
+EM_FLOPS_PER_ELEMENT = 5
 #: the planning path: batch, observation width, returns-CFG scale
 PLAN_BATCH, PLAN_OBS, PLAN_CFG = 64, 17, 1.5
+#: the closed-form Gaussian of the conformance gates
+MU0, S00 = 0.3, 0.5
+
+
+def ulp(dtype, mag: float) -> float:
+    """One ulp of ``dtype`` at magnitude ``mag`` (fp32: 23 fraction bits,
+    bf16: 7)."""
+    bits = 23 if dtype == torch.float32 else 7
+    return 2.0 ** (math.floor(math.log2(max(mag, 1e-30))) - bits)
 
 
 def fail(msg: str) -> None:
@@ -130,7 +157,9 @@ def main() -> None:
     from repro_torch.configs.diffusion import HIGHRES_DIT, TRAJ_UNET
     from repro_torch.core import analytic
     from repro_torch.core.sampling import sample
-    from repro_torch.core.sde import VPSDE
+    from repro_torch.benchmarks import table2_highdim
+    from repro_torch.core.sde import VESDE, VPSDE
+    from repro_torch.core.solvers import solver_nfe_per_iteration
     from repro_torch.core.solvers import adaptive as ad
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -248,6 +277,40 @@ def main() -> None:
     again = gn_ops.groupnorm_silu(x, ones, zeros, groups=TRAJ_UNET.groups)
     if not torch.equal(again, out):
         fail("groupnorm_silu gives other bits on the same inputs")
+
+    # K5 em_step at the DiT state, the Table-2 state, a plan and a ragged D
+    em_err = {}
+    em_shapes = [(B, D), (table2_highdim.N, table2_highdim.D),
+                 (PLAN_BATCH, TRAJ_UNET.horizon * TRAJ_UNET.transition_dim), (B, 1000),
+                 (3, 999)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, d in em_shapes:
+            ops_in = [torch.randn(b, d, generator=gen, device=dev).to(dtype) for _ in range(3)]
+            cs = [torch.rand(b, generator=gen, device=dev) * 2 - 0.5 for _ in range(3)]
+            before = step_ops.em_launches
+            out = step_ops.em_step(*ops_in, *cs)
+            again = step_ops.em_step(*ops_in, *cs)
+            want = step_ref.em_step(*ops_in, *cs)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            bound = 2 * ulp(dtype, want.float().abs().max().item())
+            ok = (err <= bound and torch.equal(out, again) and out.dtype == dtype
+                  and step_ops.em_launches == before + 2)
+            print(f"  em_step {str(dtype)[6:]:8s} {(b, d)}: max|x'-plain| {err:.3e} "
+                  f"(bound 2 ulp of max|x'|: {bound:.1e}), same bits twice "
+                  f"{torch.equal(out, again)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail("em_step kernel disagrees with its plain version")
+            em_err[(dtype, b, d)] = err
+    buf = torch.randn(B * 1000 + 1, generator=gen, device=dev)
+    view = buf[1:].view(B, 1000)  # contiguous, 4 bytes off a 16-byte boundary
+    cs = [torch.ones(B, device=dev)] * 3
+    try:
+        step_ops.em_step(view, view, view, *cs)
+    except ValueError as e:
+        print(f"  em_step on a misaligned view raises: {e}")
+    else:
+        fail("em_step accepted a misaligned view")
 
     # ------------------------------------------------------------- 3. main
     phase("main path: adaptive sampling from HIGHRES_DIT with both kernels")
@@ -409,6 +472,77 @@ def main() -> None:
         fail("one planning iteration through the kernels disagrees with the plain path")
     unet.cfg = ucfg
 
+    # -------------------------------------------------------- 4b. baselines
+    phase("baselines: EM, DDIM and PC from HIGHRES_DIT, Table 2, conformance (K5)")
+    n_em = round(rec["mean_nfe"])  # the paper's "EM at matched NFE"
+    adaptive_s_per_nfe = rec["wall_s"] / rec["mean_nfe"]
+    print(f"  adaptive (phase 3): {rec['iterations']} iterations, mean NFE {rec['mean_nfe']:.2f}, "
+          f"{rec['wall_s']:.3f} s, {adaptive_s_per_nfe * 1e3:.2f} ms per NFE")
+    k5_launches = {}
+    for method, kw, k5_want in (("em", dict(n_steps=n_em), n_em),
+                                ("ddim", dict(n_steps=n_em), 0),
+                                ("pc", dict(n_steps=n_em // 2), 2 * (n_em // 2))):
+        step_ops.launches = step_ops.em_launches = flash_ops.launches = 0
+        brec = launcher.run("highres_dit", batch=B, precision="fp32", flash=True, seed=0,
+                            liven_seed=0, device=dev, method=method, **kw)
+        counts = {"em_step": step_ops.em_launches, "solver_step": step_ops.launches,
+                  "flash_attention": flash_ops.launches}
+        if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+            fail("TF32 is on: the DiT's fp32 products would not be fp32")
+        res = brec["result"]
+        nfe_want = solver_nfe_per_iteration(method) * kw["n_steps"] + 1  # + the denoise
+        per_nfe = brec["wall_s"] / brec["mean_nfe"]
+        print(f"  {method:4s} n_steps {kw['n_steps']}: NFE {brec['mean_nfe']:.0f} (rule {nfe_want}), "
+              f"{brec['wall_s']:.3f} s, {per_nfe * 1e3:.2f} ms per NFE (adaptive "
+              f"{adaptive_s_per_nfe * 1e3:.2f}); launches {counts}; finite {brec['finite']}")
+        if (counts["em_step"] != k5_want or brec["launches"]["em_step"] != k5_want
+                or counts["solver_step"] != 0):
+            fail(f"{method}: {counts['em_step']} K5 launches, want exactly {k5_want}")
+        if not (res.nfe == nfe_want).all() or not brec["finite"] or brec["shape"] != rec["shape"]:
+            fail(f"{method} from HIGHRES_DIT: nfe {res.nfe.tolist()} (want {nfe_want}), "
+                 f"finite {brec['finite']}, shape {brec['shape']}")
+        k5_launches[method] = counts["em_step"]
+        del brec, res
+
+    # the Table-2 analog at its full size, every row on the card
+    step_ops.em_launches = 0
+    t0 = time.perf_counter()
+    t2_rows = table2_highdim.run(dev)
+    t2_wall = time.perf_counter() - t0
+    for r in t2_rows:
+        print("  " + table2_highdim.format_row(r) + f";iterations={r['iterations']}")
+    # 2 (the warm-up EM), PC-1000 (two per step), EM-2000, each matched EM
+    k5_t2 = 2 + 2 * 1000 + 2000 + sum(int(r["nfe"]) - 1 for r in t2_rows
+                                      if "em-match" in r["name"])
+    print(f"  Table 2 on the card: {len(t2_rows)} rows in {t2_wall:.1f} s, K5 launches "
+          f"{step_ops.em_launches} (want {k5_t2})")
+    if (not all(r["finite"] for r in t2_rows) or step_ops.em_launches != k5_t2
+            or t2_rows[0]["nfe"] != 2001 or t2_rows[1]["nfe"] != 2001):
+        fail("the Table-2 analog on the card")
+
+    # conformance through K5 on the closed-form Gaussian score, each solver
+    # against its gate in the reference's conformance table
+    # (src/repro/analysis/solver_select.py ZOO): EM 0.08; the PC family
+    # 0.25, since its Langevin corrector inflates the variance on VE at any
+    # grid (the reference's own conformance suite gives W2 0.13 there)
+    w2s = {}
+    gates = {"em": 0.08, "pc": 0.25}
+    for sde_c in (VPSDE(), VESDE(sigma_max=10.0)):
+        mu_a, s_a = analytic.gaussian_marginal_moments(sde_c, MU0, S00)
+        for method, n_steps in (("em", 1000), ("pc", 500)):
+            step_ops.em_launches = 0
+            r = sample(sde_c, analytic.gaussian_score(sde_c, MU0, S00), (512, 8), seed=0,
+                       method=method, n_steps=n_steps, denoise=False, device=dev)
+            xs = r.x.double()
+            w2 = analytic.gaussian_w2(xs.mean().item(), xs.std(unbiased=False).item(),
+                                      mu_a, s_a)
+            name = f"{type(sde_c).__name__[:2].lower()}-{method}"
+            w2s[name] = w2
+            print(f"  {name}-{n_steps}: W2 {w2:.4f} (gate {gates[method]}), K5 launches "
+                  f"{step_ops.em_launches}")
+            if not w2 < gates[method] or step_ops.em_launches != 1000:
+                fail(f"{name} through K5 misses the conformance gate")
+
     # ------------------------------------------------------------ 5. check
     phase("checks of the output")
     res = rec["result"]
@@ -472,6 +606,27 @@ def main() -> None:
           f"{k3_bound * 1e3:.1f} us ({k3_ops / 1e9:.2f} GFLOP at 67 TFLOP/s fp32), "
           f"{k3_ops / (k3_ms * 1e-3) / 1e12:.1f} TFLOP/s achieved; plain {k3_plain * 1e3:.1f} us; "
           f"SDPA {k3_lib * 1e3:.1f} us; eager loop with host gaps: kernel {k3_host * 1e3:.1f} us")
+
+    # K5 at the DiT state and the Table-2 state
+    k5 = lambda *a: step_ops.em_step(*a)
+    k5_plain_fn = lambda *a: step_ref.em_step(*a)
+    k5_t = {}
+    for b, d in ((B, D), (table2_highdim.N, table2_highdim.D)):
+        sets = [tuple([torch.randn(b, d, generator=gen, device=dev) for _ in range(3)]
+                      + [torch.rand(b, generator=gen, device=dev) for _ in range(3)])
+                for _ in range(4 if b * d * 16 * 4 > 50e6 else 8)]  # sets exceed the L2
+        ms, plain = device_ms(k5, sets), device_ms(k5_plain_fn, sets)
+        host = timed_ms(k5, sets, 200)
+        nbytes = 4 * b * d * 4 + 3 * b * 4
+        nops = EM_FLOPS_PER_ELEMENT * b * d
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / FP32_FLOPS) * 1e3
+        k5_t[(b, d)] = dict(ms=ms, plain_ms=plain, host_ms=host, bound_ms=bound,
+                            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= nops / FP32_FLOPS
+                            else "operations")
+        print(f"  em_step ({b}, {d}) fp32: {ms * 1e3:.2f} us on the device, bound "
+              f"{bound * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
+              f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s achieved; plain {plain * 1e3:.1f} us; "
+              f"eager loop with host gaps {host * 1e3:.1f} us")
 
     # the planning path's shapes
     gn_b, gn_h, gn_c = 2 * PLAN_BATCH, 32, 64
@@ -595,6 +750,18 @@ def main() -> None:
          "bound_by": "bytes" if k6_bytes / HBM_BYTES_PER_S >= k6_ops / FP32_FLOPS
          else "operations",
          "library_ms": None},
+        {"name": "em_step", "route": "cuda",
+         "source": "src/repro_torch/kernels/solver_step/csrc/em_step.cu",
+         "replaces": "src/repro/kernels/solver_step/kernel.py:92",
+         "launches": k5_launches["em"],
+         "max_abs_err": em_err[(torch.float32, B, D)],
+         "ms": k5_t[(B, D)]["ms"], "plain_ms": k5_t[(B, D)]["plain_ms"],
+         "bound_ms": k5_t[(B, D)]["bound_ms"], "bound_by": k5_t[(B, D)]["bound_by"],
+         "library_ms": None,
+         "pc_launches": k5_launches["pc"],
+         "table2": {"ms": k5_t[(table2_highdim.N, table2_highdim.D)]["ms"],
+                    "plain_ms": k5_t[(table2_highdim.N, table2_highdim.D)]["plain_ms"],
+                    "bound_ms": k5_t[(table2_highdim.N, table2_highdim.D)]["bound_ms"]}},
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):

@@ -2,9 +2,11 @@
 ``repro/core/sampling.py`` (``sample`` and ``solve_in_chunks``;
 ``sample_chunked`` is not ported yet).
 
-``sample`` ties the pipeline together (DESIGN.md §1): one
-``torch.Generator`` on the target device, seeded by the caller, draws
-the prior and then every noise draw of the solve. ``solve_in_chunks``
+``sample`` ties the pipeline together (DESIGN.md §1) for every
+registered solver (``adaptive``, ``em``, ``pc``, ``pc_hmc``, ``ddim``,
+``ode``): one ``torch.Generator`` on the target device, seeded by the
+caller, draws the prior and then every noise draw of the solve; a
+``noise_fn`` in the solver's keywords replaces those draws. ``solve_in_chunks``
 is the resumable form (DESIGN.md §7): the same adaptive solve as a
 host-driven chain of ``solve_chunk`` calls, bitwise equal to
 ``sample(method="adaptive")`` for the same seed. Both take the optional

@@ -46,6 +46,20 @@ class SDE:
         """a(t) with f(x, t) = a(t)·x (every drift here is linear)."""
         raise NotImplementedError
 
+    def drift(self, x: Tensor, t) -> Tensor:
+        """Forward drift f(x, t)."""
+        raise NotImplementedError
+
+    def reverse_drift(self, x: Tensor, t, score: Tensor) -> Tensor:
+        """Drift of the reverse SDE: f(x, t) − g(t)² · score."""
+        g = bcast(self.diffusion(t), x)
+        return self.drift(x, t) - g * g * score
+
+    def ode_drift(self, x: Tensor, t, score: Tensor) -> Tensor:
+        """Drift of the probability-flow ODE: f(x, t) − ½ g(t)² · score."""
+        g = bcast(self.diffusion(t), x)
+        return self.drift(x, t) - 0.5 * g * g * score
+
     def diffusion(self, t) -> Tensor:
         raise NotImplementedError
 
@@ -98,6 +112,9 @@ class VESDE(SDE):
     def drift_coeff(self, t) -> Tensor:
         return torch.zeros_like(_f32(t))
 
+    def drift(self, x: Tensor, t) -> Tensor:
+        return torch.zeros_like(x)
+
     def diffusion(self, t) -> Tensor:
         sig = self.sigma(t)
         # the reference takes log and sqrt of the ratio in fp32
@@ -134,6 +151,9 @@ class VPSDE(SDE):
 
     def drift_coeff(self, t) -> Tensor:
         return -0.5 * self.beta(t)
+
+    def drift(self, x: Tensor, t) -> Tensor:
+        return -0.5 * bcast(self.beta(t), x) * x
 
     def diffusion(self, t) -> Tensor:
         return torch.sqrt(self.beta(t))

@@ -53,7 +53,9 @@ import torch
 from repro_torch.core.guidance import Conditioner, cond_batch
 from repro_torch.core.precision import PrecisionPolicy, resolve_policy
 from repro_torch.core.sde import SDE, bcast
-from repro_torch.core.solvers.base import SolveResult, register_solver
+from repro_torch.core.solvers.base import (
+    SolveResult, check_noise_source, draw_noise, register_solver,
+)
 from repro_torch.core.tolerance import (
     mixed_tolerance, next_step_size, scaled_error_l2, scaled_error_linf,
 )
@@ -215,13 +217,6 @@ def init_carry(sde: SDE, x_init: Tensor, generator: Optional[torch.Generator],
         generator=generator, atol=atol, rtol=rtol, cond=cond)
 
 
-def _draw_noise(generator: torch.Generator, x: Tensor) -> Tensor:
-    """z ~ N(0, I) shaped like x, drawn in fp32 and cast to x's dtype."""
-    z = torch.randn(x.shape, generator=generator, dtype=torch.float32,
-                    device=x.device)
-    return z.to(x.dtype)
-
-
 def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
                step_math, noise_fn=None):
     """One Algorithm-1 iteration: SolverCarry → SolverCarry.
@@ -235,9 +230,7 @@ def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
     threshold = sde.t_eps + 1e-12
 
     def draw(s: SolverCarry, x: Tensor) -> Tensor:
-        if noise_fn is None:
-            return _draw_noise(s.generator, x)
-        return noise_fn(x).to(device=x.device, dtype=x.dtype)
+        return draw_noise(s.generator, noise_fn, x)
 
     def body(s: SolverCarry) -> SolverCarry:
         x, x_prev, t, h = s.x, s.x_prev, s.t, s.h
@@ -384,11 +377,7 @@ def adaptive(sde: SDE, score_fn: Callable, x_init: Tensor,
     §14).
     """
     dev = resolve_device(device)
-    if noise_fn is None:
-        if generator is None:
-            raise ValueError("adaptive needs a generator or a noise_fn")
-        if generator.device.type != dev.type:
-            raise ValueError(f"generator on {generator.device}, solve on {dev}")
+    check_noise_source(generator, noise_fn, dev, "adaptive")
     cfg = resolve_config(config, overrides)
     carry = init_carry(sde, x_init.to(dev), generator, config=cfg, cond=cond,
                        atol=atol, rtol=rtol, h0=h0)

@@ -2,8 +2,12 @@
 
 A solver consumes an SDE, a score function s(x, t) (t a per-sample
 vector), an initial state drawn from the prior and a generator, and
-returns a ``SolveResult``. Only ``adaptive`` is registered in the port
-so far.
+returns a ``SolveResult``. Every solver takes the same keywords besides
+its own: ``denoise``, ``device`` (``cuda`` unless the caller passes
+``"cpu"``) and ``noise_fn``. ``noise_fn(x) -> z`` replaces each normal
+draw from the generator; the parity tests pass the reference's own
+noise through it, since JAX's threefry and torch's generators never give
+the same numbers. Solvers that draw nothing ignore it.
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ import dataclasses
 from typing import Any, Callable, Dict
 
 import torch
+
+from repro_torch.core.sde import SDE
 
 Tensor = torch.Tensor
 
@@ -68,9 +74,61 @@ def solver_nfe_per_iteration(name: str, **solver_kwargs) -> int:
     return int(rule(**solver_kwargs)) if callable(rule) else int(rule)
 
 
+def draw_noise(generator: torch.Generator | None, noise_fn: Callable | None,
+               x: Tensor) -> Tensor:
+    """z ~ N(0, I) shaped like x: from ``noise_fn`` if given, else drawn
+    from ``generator`` in fp32; cast to x's dtype and device."""
+    if noise_fn is not None:
+        return noise_fn(x).to(device=x.device, dtype=x.dtype)
+    z = torch.randn(x.shape, generator=generator, dtype=torch.float32,
+                    device=x.device)
+    return z.to(x.dtype)
+
+
+def check_noise_source(generator: torch.Generator | None,
+                       noise_fn: Callable | None, dev: torch.device,
+                       name: str) -> None:
+    """A stochastic solver needs a generator on ``dev`` or a noise_fn."""
+    if noise_fn is None:
+        if generator is None:
+            raise ValueError(f"{name} needs a generator or a noise_fn")
+        if generator.device.type != dev.type:
+            raise ValueError(f"generator on {generator.device}, solve on {dev}")
+
+
+def fixed_grid_result(x: Tensor, n_steps: int, nfe_per_step: int) -> SolveResult:
+    """SolveResult of a fixed-grid solve: every sample spent
+    ``n_steps · nfe_per_step`` evaluations; no accept/reject counts."""
+    batch, dev = x.shape[0], x.device
+    zeros = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    return SolveResult(
+        x=x, nfe=torch.full((batch,), n_steps * nfe_per_step, dtype=torch.int32,
+                            device=dev),
+        iterations=torch.tensor(n_steps, dtype=torch.int32, device=dev),
+        accepted=zeros, rejected=zeros)
+
+
+def fma32(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
+    """fp32 a·b + c rounded once, as a fused multiply-add: the product of
+    two fp32 values is exact in fp64, and so is the sum at the grid's
+    magnitudes."""
+    f64 = torch.float64
+    return (a.to(f64) * b.to(f64) + c.to(f64)).to(torch.float32)
+
+
+def tweedie_tail(sde: SDE, score_fn: Callable, x: Tensor) -> Tensor:
+    """The paper's final denoising step at t = t_eps (one score evaluation)."""
+    t = torch.full((x.shape[0],), sde.t_eps, dtype=torch.float32, device=x.device)
+    return sde.tweedie_denoise(x, score_fn(x, t))
+
+
 def get_solver(name: str) -> Callable[..., Any]:
     try:
         return _REGISTRY[name]
     except KeyError:
         raise ValueError(
             f"unknown solver '{name}'; available: {sorted(_REGISTRY)}") from None
+
+
+def available_solvers():
+    return sorted(_REGISTRY)

@@ -1,6 +1,11 @@
-"""Wrapper of the fused solver-step kernel; port of
-``repro/kernels/solver_step/ops.py`` (``error_step``, which dispatches to
-``error_step`` or ``error_step_vec`` in the reference).
+"""Wrappers of the solver-step kernels; port of
+``repro/kernels/solver_step/ops.py`` (``em_step``, and ``error_step``,
+which dispatches to ``error_step`` or ``error_step_vec`` in the
+reference).
+
+``em_step`` (K5) takes any (B, ...) state and three (B,) fp32
+coefficients, flattens the state to (B, D) and returns
+x' = c0·x + c1·score + c2·z with x's shape and dtype.
 
 ``error_step`` takes any (B, ...) state, flattens it to (B, D) and
 returns (x'' with x's shape, e2 (B,) fp32). The tolerances may be floats
@@ -9,9 +14,10 @@ scalar and the per-sample form are one code path and a uniform vector
 gives the scalar path's bits by construction.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
-version (``ref.error_step``); CUDA tensors launch ``csrc/solver_step.cu``
-or raise. There is no fallback from one to the other. ``launches``
-counts kernel launches.
+versions (``ref.em_step``, ``ref.error_step``); CUDA tensors launch
+``csrc/em_step.cu`` or ``csrc/solver_step.cu``, or raise. There is no
+fallback from one to the other. ``em_launches`` counts K5's launches,
+``launches`` those of K1/K2.
 """
 
 from __future__ import annotations
@@ -25,8 +31,10 @@ from repro_torch.kernels.solver_step import ref
 
 Tensor = torch.Tensor
 
-#: kernel launches since the count was last set to 0
+#: error_step (K1/K2) kernel launches since the count was last set to 0
 launches = 0
+#: em_step (K5) kernel launches since the count was last set to 0
+em_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -54,6 +62,17 @@ def _check(states, coeffs):
             raise ValueError("coefficients must be (B,) float32 on the state's device")
 
 
+def em_step(x, score, z, c0, c1, c2):
+    """Fused x' = c0·x + c1·score + c2·z (fp32 math, x's dtype out)."""
+    _check((x, score, z), (c0, c1, c2))
+    B = x.shape[0]
+    if x.device.type == "cpu":
+        out = ref.em_step(*(a.reshape(B, -1) for a in (x, score, z)), c0, c1, c2)
+    else:
+        out = _launch_em(x, score, z, c0, c1, c2)
+    return out.reshape(x.shape)
+
+
 def error_step(x, x_prime, score2, z, x_prev, e0, d1, d2, *, eps_abs,
                eps_rel, use_prev: bool = True):
     """Fused x̃ / x'' / δ / scaled-ℓ2 error. Returns (x'', e2)."""
@@ -77,7 +96,33 @@ def _declare(lib):
         fn.restype = ctypes.c_int
         lib.solver_step_num_tiles.argtypes = [ctypes.c_longlong]
         lib.solver_step_num_tiles.restype = ctypes.c_int
+        lib.solver_step_em.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2
+                                       + [ctypes.c_int, ctypes.c_void_p])
+        lib.solver_step_em.restype = ctypes.c_int
     return lib
+
+
+def _launch_em(x, s, z, c0, c1, c2):
+    global em_launches
+    states = (x, s, z)
+    if not all(a.is_contiguous() for a in states + (c0, c1, c2)):
+        raise ValueError("em_step kernel operands must be contiguous")
+    if any(a.data_ptr() % 16 for a in states):
+        raise ValueError("em_step kernel state operands must be 16-byte aligned")
+    B = x.shape[0]
+    if not 0 < B <= 65535:
+        raise ValueError(f"batch {B} outside the kernel's grid limits 1..65535")
+    lib = _declare(_build.library())
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.solver_step_em(*(a.data_ptr() for a in (x, s, z, c0, c1, c2)),
+                                out.data_ptr(), B, x.numel() // B,
+                                _DTYPES[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"em_step kernel launch failed: CUDA error {rc}")
+    em_launches += 1
+    return out
 
 
 def _launch(x, xp, s2, z, xv, e0, d1, d2, ea, er, *, use_prev):

@@ -1,18 +1,24 @@
-"""Plain PyTorch version of the fused solver step; port of
+"""Plain PyTorch versions of the solver-step kernels; port of
 ``repro/kernels/solver_step/ref.py``.
 
 Shapes: state tensors are (B, D); per-sample coefficients and the
 tolerances are (B,) fp32.
+
+``em_step`` (K5), the update of every fixed-grid stochastic baseline:
+
+    x' = c0·x + c1·score + c2·z
+
+``error_step`` (K1/K2), the Algorithm-1 step after its two scores:
 
     x̃  = x − e0·x' + d1·score2 + d2·z
     x'' = ½ (x' + x̃)
     δ   = max(ε_abs, ε_rel · max(|x'|, |x'_prev|))     [or |x'| only]
     e2  = sqrt(mean(((x' − x'')/δ)²))                  per sample
 
-Returns (x'' in the operand dtype, e2 fp32). All arithmetic runs in
-fp32, whatever the operand dtype; x'' is rounded once, on return.
-This is what the CUDA kernel computes, and what the wrapper runs for
-CPU tensors.
+``error_step`` returns (x'' in the operand dtype, e2 fp32), ``em_step``
+x' in the operand dtype. All arithmetic runs in fp32, whatever the
+operand dtype, and the result is rounded once, on return. This is what
+the CUDA kernels compute, and what the wrappers run for CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +26,14 @@ from __future__ import annotations
 import torch
 
 Tensor = torch.Tensor
+
+
+def em_step(x: Tensor, score: Tensor, z: Tensor, c0: Tensor, c1: Tensor,
+            c2: Tensor) -> Tensor:
+    col = lambda v: v.to(torch.float32)[:, None]
+    out = (col(c0) * x.to(torch.float32) + col(c1) * score.to(torch.float32)
+           + col(c2) * z.to(torch.float32))
+    return out.to(x.dtype)
 
 
 def error_step(x: Tensor, x_prime: Tensor, score2: Tensor, z: Tensor,

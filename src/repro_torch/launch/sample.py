@@ -2,9 +2,11 @@
 ``repro/launch/sample.py`` (its dry-run modes lower XLA programs and have
 no counterpart here).
 
-Samples a batch from a DiT score network made from a seed, with the
-adaptive solver on the VP SDE, and prints NFE, iterations, the converged
-count, wall time and the kernels' launch counts:
+Samples a batch from a DiT score network made from a seed on the VP SDE,
+first with the adaptive solver and then with Euler–Maruyama at 100
+steps, as the reference's demo does, and prints for each the NFE,
+iterations, the converged count, wall time and the kernels' launch
+counts:
 
   PYTHONPATH=src python -m repro_torch.launch.sample --arch highres_dit --fused --flash
 
@@ -52,34 +54,43 @@ def build_score(arch: str, *, flash: bool, precision: str, seed: int,
 def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
         eps_rel: float = 0.05, max_iters: int = 100_000, flash: bool = False,
         fused: bool = False, seed: int = 0, liven_seed: int = 0,
-        device="cuda") -> dict:
-    """One adaptive sample; returns the record the launcher prints."""
+        device="cuda", method: str = "adaptive", **solver_kwargs) -> dict:
+    """One sample with ``method``; returns the record the launcher prints.
+
+    ``eps_rel``, ``max_iters``, ``fused`` and ``precision`` configure the
+    adaptive solver; ``solver_kwargs`` go to the solver as they are (for
+    example ``n_steps`` for the fixed-grid baselines).
+    """
     dev = resolve_device(device)
     cfg, model, score = build_score(arch, flash=flash, precision=precision,
                                     seed=seed, liven_seed=liven_seed, device=dev)
     shape = (batch, cfg.image_size, cfg.image_size, cfg.channels)
-    before = (step_ops.launches, flash_ops.launches)
+    if method == "adaptive":
+        solver_kwargs = dict(eps_rel=eps_rel, max_iters=max_iters,
+                             use_fused_kernel=fused, precision=precision,
+                             **solver_kwargs)
+    before = (step_ops.launches, step_ops.em_launches, flash_ops.launches)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    res = sample(VPSDE(), score, shape, seed=seed, device=dev, eps_rel=eps_rel,
-                 max_iters=max_iters, use_fused_kernel=fused,
-                 precision=precision)
+    res = sample(VPSDE(), score, shape, seed=seed, device=dev, method=method,
+                 **solver_kwargs)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     return {
-        "arch": arch, "params": param_count(model), "batch": batch,
-        "precision": precision,
+        "arch": arch, "method": method, "params": param_count(model),
+        "batch": batch, "precision": precision,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "mean_nfe": float(res.mean_nfe), "max_nfe": int(res.max_nfe),
         "iterations": int(res.iterations),
-        "converged": _converged(res, max_iters),
+        "converged": _converged(res, max_iters) if method == "adaptive" else batch,
         "wall_s": wall,
         "finite": bool(torch.isfinite(res.x).all()),
         "shape": list(res.x.shape),
         "launches": {"solver_step": step_ops.launches - before[0],
-                     "flash_attention": flash_ops.launches - before[1]},
+                     "em_step": step_ops.em_launches - before[1],
+                     "flash_attention": flash_ops.launches - before[2]},
         "result": res,
     }
 
@@ -94,7 +105,7 @@ def _converged(res, max_iters: int) -> int:
     return int((res.nfe < 2 * int(res.iterations) + 1).sum())
 
 
-def main(argv=None) -> dict:
+def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=sorted(ARCHS), default="cifar_dit")
     ap.add_argument("--batch", type=int, default=8)
@@ -110,12 +121,15 @@ def main(argv=None) -> dict:
                     help="seed for the zero-init leaves; -1 keeps them at 0")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    rec = run(args.arch, batch=args.batch, precision=args.precision,
-              eps_rel=args.eps_rel, max_iters=args.max_iters, flash=args.flash,
-              fused=args.fused, seed=args.seed, liven_seed=args.liven_seed,
-              device=args.device)
-    print(json.dumps({k: v for k, v in rec.items() if k != "result"}))
-    return rec
+    recs = []
+    for method, kw in (("adaptive", {}), ("em", dict(n_steps=100))):
+        rec = run(args.arch, batch=args.batch, precision=args.precision,
+                  eps_rel=args.eps_rel, max_iters=args.max_iters, flash=args.flash,
+                  fused=args.fused, seed=args.seed, liven_seed=args.liven_seed,
+                  device=args.device, method=method, **kw)
+        print(json.dumps({k: v for k, v in rec.items() if k != "result"}))
+        recs.append(rec)
+    return recs
 
 
 if __name__ == "__main__":

@@ -199,7 +199,7 @@ def test_registry():
     assert get_solver("adaptive") is tad.adaptive
     assert solver_nfe_per_iteration("adaptive") == 2
     with pytest.raises(ValueError):
-        get_solver("em")
+        get_solver("not_a_solver")
     ts = tsde.VPSDE()
     r = sample(ts, tan.gaussian_score(ts), (4, 3), device="cpu", eps_rel=0.05)
     assert torch.equal(r.nfe, 2 * (r.accepted + r.rejected) + 1)

@@ -15,7 +15,12 @@ rounded outputs differ by at most an ulp more than the fp32 values,
 which matters near zero, where an ulp is smaller than the fp32
 difference), 2e-3 absolute on the
 x = 1e3 + N(0, 1) slabs (the sums reach 1e3·n, where fp32 spacing is
-about 1e-4·n, added in another order).
+about 1e-4·n, added in another order). K5 ``em_step``: bitwise equal to
+its plain version (both round each product and sum once, in the same
+order, and the bf16 store once), held to two ulps of the output dtype at
+max|x'|. EM and PC on the card against the same solve on the CPU with
+the same injected noise: rtol 1e-5 with atol 1e-5·max|x| (the closed-form
+score's exp, sqrt and pow round differently on the two devices).
 """
 
 import dataclasses
@@ -29,7 +34,11 @@ from repro_torch.kernels.groupnorm_silu import ops as gn_ops
 from repro_torch.kernels.groupnorm_silu import ref as gn_ref
 from repro_torch.kernels.solver_step import ops as step_ops
 from repro_torch.kernels.solver_step import ref as step_ref
-from repro_torch.core.sde import VPSDE
+import numpy as np
+
+from repro_torch.core import analytic as tan
+from repro_torch.core.sde import VESDE, VPSDE
+from repro_torch.core.solvers import get_solver
 from repro_torch.core.solvers.adaptive import AdaptiveConfig
 from repro_torch.models import dit as tdit
 from repro_torch.models import temporal_unet as ttu
@@ -193,3 +202,74 @@ def test_small_plan_on_card_runs_all_three_kernels(cuda):
     assert gn == 13 * flash  # 2 per residual block × 6 blocks + the output norm
     assert torch.isfinite(res.x).all() and torch.equal(res.x[:, 0, :4], obs)
     assert bool((res.nfe == 2 * (res.accepted + res.rejected) + 1).all())
+
+
+EM_SHAPES = [(8, 196_608), (256, 3072), (64, 736), (8, 1000), (3, 999)]
+
+
+def _ulp(dtype, mag):
+    return 2.0 ** (np.floor(np.log2(max(mag, 1e-30))) - (23 if dtype == torch.float32 else 7))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", EM_SHAPES, ids=str)
+def test_em_step_kernel_matches_plain(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, s, z = (torch.randn(*shape, generator=g, device=cuda).to(dtype) for _ in range(3))
+    cs = [torch.rand(shape[0], generator=g, device=cuda) * 2 - 0.5 for _ in range(3)]
+    before = step_ops.em_launches
+    out = step_ops.em_step(x, s, z, *cs)
+    assert step_ops.em_launches == before + 1
+    want = step_ref.em_step(x, s, z, *cs)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == shape
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= 2 * _ulp(dtype, want.float().abs().max().item())
+    assert torch.equal(step_ops.em_step(x, s, z, *cs), out)  # deterministic
+
+
+def test_em_step_kernel_takes_image_states_and_refuses_misaligned_views(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x, s, z = (torch.randn(4, 16, 16, 3, generator=g, device=cuda) for _ in range(3))
+    cs = [torch.rand(4, generator=g, device=cuda) for _ in range(3)]
+    out = step_ops.em_step(x, s, z, *cs)
+    assert out.shape == x.shape
+    assert torch.equal(out, step_ref.em_step(x.reshape(4, -1), s.reshape(4, -1),
+                                             z.reshape(4, -1), *cs).reshape(x.shape))
+    buf = torch.randn(4 * 1000 + 1, device=cuda)
+    view = buf[1:].view(4, 1000)
+    before = step_ops.em_launches
+    with pytest.raises(ValueError, match="aligned"):
+        step_ops.em_step(view, view, view, *cs)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.randn(4, 2000, device=cuda)[:, :1000]
+        step_ops.em_step(wide, wide, wide, *cs)
+    assert step_ops.em_launches == before
+
+
+class _SeededNoise:
+    """The same sequence of normal draws on every device."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, x):
+        return torch.from_numpy(self.rng.standard_normal(tuple(x.shape)).astype(np.float32))
+
+
+@pytest.mark.parametrize("method,kw,per_step", [
+    ("em", dict(n_steps=50), 1), ("pc", dict(n_steps=25), 2),
+    ("pc_hmc", dict(n_steps=25), 1)])
+@pytest.mark.parametrize("sde", [VPSDE(), VESDE(sigma_max=10.0)], ids=["vp", "ve"])
+def test_baselines_on_card_match_cpu(cuda, sde, method, kw, per_step):
+    x0 = torch.from_numpy(np.random.default_rng(3).standard_normal((64, 24)).astype(np.float32))
+    x0 = x0 * sde.prior_std()
+    score = tan.gaussian_score(sde)
+    before = step_ops.em_launches
+    got = get_solver(method)(sde, score, x0, noise_fn=_SeededNoise(4), device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert step_ops.em_launches - before == per_step * kw["n_steps"]
+    want = get_solver(method)(sde, score, x0, noise_fn=_SeededNoise(4), device="cpu", **kw)
+    assert torch.equal(got.nfe.cpu(), want.nfe)
+    scale = max(1.0, want.x.abs().max().item())
+    torch.testing.assert_close(got.x.cpu(), want.x, rtol=1e-5, atol=1e-5 * scale)

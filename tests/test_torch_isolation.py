@@ -147,3 +147,44 @@ def test_groupnorm_wrapper_does_not_fall_back(monkeypatch, tmp_path):
     finally:
         _build.library.cache_clear()
     assert gn_ops.launches == before
+
+
+def test_baselines_without_a_card_raise(no_card):
+    from repro_torch.core.likelihood import log_likelihood
+    from repro_torch.core.solvers import get_solver
+
+    sde = VPSDE()
+    score = analytic.gaussian_score(sde)
+    for method in ("em", "pc", "pc_hmc", "ddim", "ode"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sampling.sample(sde, score, (2, 3), method=method)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_solver(method)(sde, score, torch.zeros(2, 3), torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        log_likelihood(sde, score, torch.zeros(2, 3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.run("cifar_dit", method="em", n_steps=2)
+
+
+def test_em_step_wrapper_does_not_fall_back(monkeypatch, tmp_path):
+    """K5: meta tensors are refused; where the kernels cannot be built, the
+    launch path raises and counts nothing."""
+    monkeypatch.setattr(step_ref, "em_step", _never)
+    meta = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        step_ops.em_step(*(meta(2, 8) for _ in range(3)), *(meta(2) for _ in range(3)))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    _build.library.cache_clear()
+    before = step_ops.em_launches
+    try:
+        x, c = torch.zeros(2, 8), torch.zeros(2)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            step_ops._launch_em(x, x, x, c, c, c)
+    finally:
+        _build.library.cache_clear()
+    assert step_ops.em_launches == before

@@ -3,7 +3,9 @@
 With the port's own noise stream (not the reference's), the samples at
 t_eps must match the closed-form OU marginal of Gaussian data under the
 gate of the adaptive row of ``tests/test_solver_conformance.py``: batch
-512 × dim 8, eps_rel 0.05, no denoise, W2 < 0.08.
+512 × dim 8, eps_rel 0.05, no denoise, W2 < 0.08. Every baseline solver
+meets its own row of that suite the same way (``zoo_cases``: EM-200,
+ODE, DDIM-50 and PC/PC-HMC-100 with their W2 gates; DDIM on VP only).
 """
 
 import numpy as np
@@ -49,3 +51,20 @@ def test_seed_determines_the_result():
                for s in (1, 1, 2))
     assert torch.equal(a.x, b.x) and torch.equal(a.nfe, b.nfe)
     assert not torch.equal(a.x, c.x)
+
+
+BASELINES = [(m, sn) for m in ("em", "ode", "ddim", "pc", "pc_hmc")
+             for sn in sorted(SDES) if not (m == "ddim" and sn == "ve")]
+
+
+@pytest.mark.parametrize("method,name", BASELINES, ids=[f"{m}-{s}" for m, s in BASELINES])
+def test_baseline_matches_analytic_marginal(method, name):
+    js, ts = SDES[name]
+    kw, gate = zoo_cases()[method]
+    res = sample(ts, tan.gaussian_score(ts, MU, S0), (BATCH, DIM), seed=0,
+                 method=method, device="cpu", denoise=False, **kw)
+    x = res.x.numpy().astype(np.float64)
+    assert np.isfinite(x).all() and res.x.shape == (BATCH, DIM)
+    mu_a, s_a = jan.gaussian_marginal_moments(js, MU, S0)
+    w2 = tan.gaussian_w2(float(x.mean()), float(x.std()), mu_a, s_a)
+    assert w2 < gate, (method, name, w2)

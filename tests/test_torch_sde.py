@@ -143,3 +143,32 @@ def test_analytic_oracles(name):
     np.testing.assert_allclose(tan.gaussian_marginal_moments(ts),
                                jan.gaussian_marginal_moments(js), rtol=1e-6)
     assert tan.gaussian_w2(0.1, 0.5, 0.3, 0.4) == jan.gaussian_w2(0.1, 0.5, 0.3, 0.4)
+
+
+@pytest.mark.parametrize("name", sorted(SDES))
+def test_drifts(name):
+    """f, the reverse-SDE drift f − g²·s and the probability-flow drift
+    f − ½g²·s against the reference, on (B, H, W, C) states."""
+    js, ts = SDES[name]
+    rng = np.random.default_rng(5)
+    x, s = (rng.standard_normal((6, 4, 4, 2)).astype(np.float32) for _ in range(2))
+    t = rng.uniform(js.t_eps, 1.0, 6).astype(np.float32)
+    jx, jsc, jt = jnp.asarray(x), jnp.asarray(s), jnp.asarray(t)
+    tx, tsc, tt = torch.from_numpy(x), torch.from_numpy(s), torch.from_numpy(t)
+    np.testing.assert_allclose(ts.drift(tx, tt).numpy(), _np(js.drift(jx, jt)), **TOL)
+    np.testing.assert_allclose(ts.reverse_drift(tx, tt, tsc).numpy(),
+                               _np(js.reverse_drift(jx, jt, jsc)), **TOL)
+    np.testing.assert_allclose(ts.ode_drift(tx, tt, tsc).numpy(),
+                               _np(js.ode_drift(jx, jt, jsc)), **TOL)
+
+
+@pytest.mark.parametrize("name", ["ve", "vp", "subvp"])
+def test_drift_coeff_linearity(name):
+    """Mirror of tests/test_sde.py::test_drift_coeff_linearity: every drift
+    is linear, f(x, t) = a(t)·x."""
+    sde = tsde.get_sde(name)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((4, 5)).astype(np.float32))
+    t = torch.linspace(0.1, 0.9, 4)
+    a = sde.drift_coeff(t)
+    np.testing.assert_allclose(sde.drift(x, t).numpy(), (a[:, None] * x).numpy(),
+                               rtol=1e-6, atol=1e-7)
