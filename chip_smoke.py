@@ -12,7 +12,12 @@ Phases; any failure exits non-zero before the result line is printed:
              its stated bound (GroupNorm → SiLU at all 17 shapes of a
              TRAJ_UNET forward, fp32 and bf16, and at x = 1e3 + N(0, 1);
              K5 at the DiT, Table-2 and planning states and a ragged D,
-             fp32 and bf16, and a misaligned view, which must raise).
+             fp32 and bf16, and a misaligned view, which must raise; K7,
+             the SSD scan, at mamba2-2.7b's prefill shape (4, 2048, 80,
+             64, 1, 128), a ragged S = 1000, several groups (1, 100, 8,
+             32, 2, 32) and prefill_32k's length (1, 32768, 80, 64, 1,
+             128), bitwise equal on a second call, y and the final state
+             against the sequential oracle at a small shape, and bf16).
 3. main    — the first main path, ``repro_torch.launch.sample.run``:
              the 256×256 DiT (HIGHRES_DIT, weights from a seed, zero-init
              leaves livened), VP SDE, batch 8, eps_rel 0.05, fused solver
@@ -56,7 +61,20 @@ Phases; any failure exits non-zero before the result line is printed:
              ``torch.nn.functional.scaled_dot_product_attention`` (a
              yardstick only; the port never calls it); one TRAJ_UNET
              forward at 128 rows, eager and as a replayed graph; K5 at
-             the DiT state and the Table-2 state.
+             the DiT state and the Table-2 state; K7 at the prefill shape
+             and at (1, 32768, 80, 64, 1, 128).
+7. lm      — the third main path, last, after the DiT and UNet memory is
+             freed: mamba2-2.7b at full width (2.83 B parameters, fp32,
+             weights from a generator seeded 0). ``make_prefill_step``
+             with K7 on prompts (4, 2048) from seed 0 (K7 counts set to 0
+             just before and read just after: one launch per layer), its
+             last-position logits against the plain ``ssd_chunked`` path;
+             ``launch.serve.serve_batch`` for 4 requests, prompt 16, gen
+             16, whose first tokens must equal ``make_prefill_step``'s on
+             the same prompts (the chunked scan against the recurrence),
+             logits close; prefill and decode times, the decode's device
+             idle share and K7's share of a prefill's device time
+             (torch.profiler).
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object naming each kernel, and ``{"ok": true, "device": ...}``.
@@ -90,6 +108,22 @@ EM_FLOPS_PER_ELEMENT = 5
 PLAN_BATCH, PLAN_OBS, PLAN_CFG = 64, 17, 1.5
 #: the closed-form Gaussian of the conformance gates
 MU0, S00 = 0.3, 0.5
+#: K7's shapes (B, S, H, P, G, N): mamba2-2.7b's prefill, a ragged S,
+#: several groups, and prefill_32k's sequence length
+SSD_SHAPES = [(4, 2048, 80, 64, 1, 128), (4, 1000, 80, 64, 1, 128),
+              (1, 100, 8, 32, 2, 32), (1, 32768, 80, 64, 1, 128)]
+#: K7 against its plain version: each is within the reference's 3e-4 of the
+#: sequential oracle (tests/test_kernels_ssd.py) and they chunk differently
+SSD_TOL = 6e-4
+#: the LM phase: prefill prompts, (requests, prompt, gen) of serve_batch,
+#: decode steps of the idle-share measurement
+LM_PREFILL = (4, 2048)
+LM_SERVE = (4, 16, 16)
+LM_IDLE_STEPS = 8
+#: logits of two fp32 paths through 64 layers that sum in another order
+#: (K7 against ssd_chunked; the recurrence against the chunked scan),
+#: relative to the largest logit
+LM_LOGIT_TOL = 1e-3
 
 
 def ulp(dtype, mag: float) -> float:
@@ -150,6 +184,174 @@ def device_ms(fn, sets, reps: int = 40, replays: int = 5) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
+def ssd_inputs(B, S, H, P, G, N, *, gen, dtype=torch.float32):
+    """K7's operands in the model's layout, as the reference's kernel test
+    draws them: x, B, C normal, dt = softplus(normal), A = −exp(normal)."""
+    dev = gen.device
+    x = torch.randn(B, S, H, P, generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen, device=dev))
+    A = -torch.exp(torch.randn(H, generator=gen, device=dev))
+    Bm, C = (torch.randn(B, S, G, N, generator=gen, device=dev).to(dtype) for _ in range(2))
+    return x, dt, A, Bm, C
+
+
+def excess(got, want, tol: float) -> tuple:
+    """(max |got − want|, max of |got − want| / (tol·(1 + |want|))): the
+    second is ≤ 1 when every element is within the bound."""
+    diff = (got.float() - want.float()).abs()
+    return diff.max().item(), (diff / (tol * (1 + want.float().abs()))).max().item()
+
+
+def ssd_work(B, S, H, P, G, N) -> tuple:
+    """(flops, bytes) of one SSD scan in K7's formulation at its chunk Q:
+    per chunk, C·Bᵀ once per group on the causal half (Q(Q+1)/2·N), and
+    per head the masked scores times x (Q(Q+1)/2·P), C·state and the
+    state update (Q·N·P each), two flops a multiply-add; each input read
+    once and y written once."""
+    from repro_torch.kernels.ssd.ops import KERNEL_CHUNK as Q
+
+    nc = -(-S // Q)
+    tri = Q * (Q + 1) // 2
+    fma = B * nc * (G * tri * N + H * (tri * P + 2 * Q * N * P))
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * G * N)
+    return 2 * fma, nbytes
+
+
+def profile_device(fn) -> tuple:
+    """Run ``fn`` under torch.profiler (CUDA activity): (device µs by
+    kernel name → (count, µs), total device µs)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.device_time_total)
+    return by_name, sum(us for _, us in by_name.values())
+
+
+def run_lm(dev) -> dict:
+    """Phase 7: mamba2-2.7b at full width, prefill through K7 and greedy
+    serving; returns K7's launch count on the prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import forward, init_decode_state, init_model
+    from repro_torch.models.transformer import decode_step, param_count
+
+    cfg = get_config("mamba2-2.7b")
+    t0 = time.perf_counter()
+    params = init_model(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n = param_count(params)
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.mamba.num_heads(cfg.d_model)} SSD heads of {cfg.mamba.head_dim}, d_state "
+          f"{cfg.mamba.d_state}, vocab {cfg.vocab_size}: {n:,} parameters, {n * 4 / 1e9:.2f} GB "
+          f"fp32, made in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev).manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, LM_PREFILL, generator=g, device=dev)
+    prefill = make_prefill_step(cfg, use_kernel_ssd=True, device=dev)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on: the LM's fp32 products would not be fp32")
+    prefill(params, {"tokens": prompts[:, :256]})  # cuBLAS and the allocator warm up
+    ssd_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    k7_launches = ssd_ops.launches
+    n_tok = LM_PREFILL[0] * LM_PREFILL[1]
+    print(f"  prefill {LM_PREFILL} through K7: {prefill_s:.3f} s, {n_tok / prefill_s:.0f} "
+          f"tokens/s; K7 launches {k7_launches} (want {cfg.num_layers}: one per layer); "
+          f"next tokens {nxt[:, 0].tolist()}")
+    if k7_launches != cfg.num_layers:
+        fail(f"the prefill launched K7 {k7_launches} times, not {cfg.num_layers}")
+    if nxt.shape != (LM_PREFILL[0], 1) or not bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all()):
+        fail(f"prefill tokens {nxt.tolist()} out of range")
+
+    # the same weights through the plain ssd_chunked path: last-position logits
+    with torch.no_grad():
+        fast, _ = forward(params, prompts, cfg, use_kernel_ssd=True, last_logits_only=True)
+        plain, _ = forward(params, prompts, cfg, use_kernel_ssd=False, last_logits_only=True)
+    err, scale = (fast - plain).abs().max().item(), plain.abs().max().item()
+    finite = bool(torch.isfinite(fast).all())
+    print(f"  last-position logits, K7 vs plain ssd_chunked: max abs err {err:.3e} (bound "
+          f"{LM_LOGIT_TOL}·max|logit| = {LM_LOGIT_TOL * scale:.3e}), finite {finite}, argmax "
+          f"equal {torch.equal(fast.argmax(-1), plain.argmax(-1))}")
+    if not (finite and err <= LM_LOGIT_TOL * scale):
+        fail("the prefill through K7 disagrees with the plain path")
+    # where one prefill's device time goes
+    by_name, total_us = profile_device(lambda: prefill(params, {"tokens": prompts}))
+    k7_us = sum(us for name, (_, us) in by_name.items() if "ssd_scan" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"  one prefill: {total_us / 1e3:.1f} ms of device time, K7 {k7_us / 1e3:.1f} ms "
+          f"({100 * k7_us / total_us:.1f} %); largest: " + "; ".join(
+              f"{name[:50]} x{n} {us / 1e3:.1f} ms" for name, (n, us) in top))
+    del fast, plain
+
+    # serving: 4 requests, prompt 16, gen 16 (prefill by replay, then greedy)
+    B, P, G = LM_SERVE
+    sprompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
+    serve_batch(cfg, params, sprompts[:, :2], gen_len=2, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = serve_batch(cfg, params, sprompts, gen_len=G, device=dev)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    step_ms = serve_s / (P + G - 1) * 1e3
+    first = make_prefill_step(cfg, use_kernel_ssd=True, device=dev)(params, {"tokens": sprompts})
+    print(f"  serve_batch {B} requests, prompt {P}, gen {G}: {serve_s:.3f} s, {step_ms:.2f} ms "
+          f"per decode step of {B} ({B * 1e3 / step_ms:.1f} tokens/s); tokens finite "
+          f"{toks.shape}; prefill's first tokens {first[:, 0].tolist()}, serve's "
+          f"{toks[:, 0].tolist()}")
+    if toks.shape != (B, G) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail("serve_batch tokens out of range")
+    if not torch.equal(first[:, 0], toks[:, 0]):
+        fail("the chunked prefill's first token differs from the recurrent decode's")
+    # logits: the recurrence over the prompt against the chunked prefill
+    with torch.no_grad():
+        state = init_decode_state(cfg, B, P + G, device=dev)
+        for i in range(P):
+            rec_logits, state = decode_step(params, sprompts[:, i:i + 1], state, cfg)
+        chunk_logits, _ = forward(params, sprompts, cfg, use_kernel_ssd=True,
+                                  last_logits_only=True)
+    err, scale = (rec_logits - chunk_logits).abs().max().item(), chunk_logits.abs().max().item()
+    print(f"  last prompt position: recurrent decode vs chunked prefill logits max abs err "
+          f"{err:.3e} (bound {LM_LOGIT_TOL}·max|logit| = {LM_LOGIT_TOL * scale:.3e})")
+    if not err <= LM_LOGIT_TOL * scale:
+        fail("the recurrent decode's logits disagree with the chunked prefill's")
+    # the decode's device idle share, as phase 6 measures planning's: device
+    # busy time of a profiled run against the same run's unprofiled wall
+    step = make_serve_step(cfg, device=dev)
+    state = init_decode_state(cfg, B, P + G, device=dev)
+
+    def decode_loop(n=LM_IDLE_STEPS):
+        nonlocal state
+        tok = toks[:, :1]
+        for _ in range(n):
+            tok, state = step(params, {"tokens": tok}, state)
+
+    decode_loop(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_loop()
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    by_name, busy_us = profile_device(decode_loop)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    print(f"  decode: {LM_IDLE_STEPS} steps {loop_ms:.1f} ms unprofiled wall, device busy "
+          f"{busy_us / 1e3:.1f} ms, idle share {1 - busy_us / 1e3 / loop_ms:.2f}; "
+          f"{sum(n for n, _ in by_name.values()) / LM_IDLE_STEPS:.0f} device operations a step; "
+          f"largest: " + "; ".join(f"{name[:50]} x{n} {us / 1e3:.1f} ms"
+                                   for name, (n, us) in top))
+    del params, state
+    torch.cuda.empty_cache()
+    return {"k7_launches": k7_launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device; chip_smoke.py runs on a machine with an NVIDIA card")
@@ -171,6 +373,8 @@ def main() -> None:
     from repro_torch.launch import sample as launcher
     from repro_torch.models import temporal_unet as tu
     from repro_torch.planning import PlannerConfig, plan, plan_conditioner
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
 
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -311,6 +515,47 @@ def main() -> None:
         print(f"  em_step on a misaligned view raises: {e}")
     else:
         fail("em_step accepted a misaligned view")
+
+    # K7 ssd_scan: the prefill shape, a ragged S, several groups, prefill_32k's S.
+    # Bound: each of kernel and plain version is within the reference's 3e-4
+    # of the sequential oracle, and they chunk differently (64 and 128 rows),
+    # so against each other 6e-4·(1 + |y|); against the oracle 3e-4.
+    ssd_err = {}
+    for shape in SSD_SHAPES:
+        args = ssd_inputs(*shape, gen=gen)
+        y = ssd_ops.ssd_scan(*args)
+        again = ssd_ops.ssd_scan(*args)
+        want = ssd_ref.ssd_chunked(*args)
+        torch.cuda.synchronize()
+        err, worst = excess(y, want, SSD_TOL)
+        same = torch.equal(y, again)
+        print(f"  ssd_scan {shape}: max|y-plain| {err:.3e}, max of |y-plain| / "
+              f"({SSD_TOL}·(1+|plain|)) {worst:.3f} (bound 1), same bits twice {same} "
+              f"{'ok' if worst <= 1 and same else 'FAIL'}")
+        if not (worst <= 1 and same):
+            fail("ssd_scan kernel disagrees with its plain version")
+        ssd_err[shape] = err
+        del args, y, again, want
+    x7, dt7, A7, B7, C7 = ssd_inputs(2, 150, 8, 32, 2, 32, gen=gen)
+    y7, st7 = ssd_ops.ssd_scan(x7, dt7, A7, B7, C7, return_state=True)
+    ys7, ss7 = ssd_ref.ssd_scan(x7.transpose(1, 2), dt7.transpose(1, 2), A7,
+                                B7.transpose(1, 2), C7.transpose(1, 2))
+    _, wy = excess(y7, ys7.transpose(1, 2), 3e-4)
+    _, ws = excess(st7, ss7, 3e-4)
+    print(f"  ssd_scan (2, 150, 8, 32, 2, 32) against the sequential oracle: y {wy:.3f}, "
+          f"final state {ws:.3f} of the 3e-4·(1+|.|) bound")
+    if not (wy <= 1 and ws <= 1):
+        fail("ssd_scan kernel disagrees with the sequential oracle")
+    args = ssd_inputs(2, 300, 8, 64, 1, 128, gen=gen, dtype=torch.bfloat16)
+    y, want = ssd_ops.ssd_scan(*args), ssd_ref.ssd_chunked(*args)
+    mag = torch.maximum(y.float().abs(), want.float().abs()).clamp_min(1e-30)
+    bound = torch.exp2(torch.floor(torch.log2(mag)) - 7) + SSD_TOL * (1 + want.float().abs())
+    ok = bool(((y.float() - want.float()).abs() <= bound).all()) and y.dtype == torch.bfloat16
+    print(f"  ssd_scan bf16 (2, 300, 8, 64, 1, 128): max abs err "
+          f"{(y.float() - want.float()).abs().max().item():.3e} (bound one bf16 ulp + "
+          f"{SSD_TOL}·(1+|y|)) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("ssd_scan kernel in bf16 disagrees with its plain version")
 
     # ------------------------------------------------------------- 3. main
     phase("main path: adaptive sampling from HIGHRES_DIT with both kernels")
@@ -686,28 +931,18 @@ def main() -> None:
         unet_plain_dev = device_ms(fwd, fsets, reps=4, replays=5)
         unet.cfg = ucfg
     # the kernels of one eager forward, by name (torch.profiler, CUPTI)
-    with torch.no_grad(), torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fwd(*fsets[0])
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.device_time_total)
+    with torch.no_grad():
+        by_name, dev_us = profile_device(lambda: fwd(*fsets[0]))
     n_kern = sum(n for n, _ in by_name.values())
-    dev_us = sum(us for _, us in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     print(f"  profiled eager forward: {n_kern} device operations, {dev_us:.0f} us of device "
           f"time; largest: " + "; ".join(f"{name[:60]} x{n} {us:.0f} us"
                                           for name, (n, us) in top))
     # the device's busy time over one whole planning solve (one stream, so
     # the kernel times add up), against the unprofiled solve's wall time
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        plan(sde, plan_score, obs, pcfg=pcfg, returns=bins, config=plan_cfg, device=dev)
-        torch.cuda.synchronize()
-    busy_ms = sum(e.device_time_total for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    _, busy_us = profile_device(lambda: plan(sde, plan_score, obs, pcfg=pcfg, returns=bins,
+                                             config=plan_cfg, device=dev))
+    busy_ms = busy_us / 1e3
     print(f"  planning solve: device busy {busy_ms:.1f} ms of the {plan_wall * 1e3:.1f} ms "
           f"unprofiled wall, idle share {1 - busy_ms / (plan_wall * 1e3):.2f}")
     iter_ms = plan_wall / max(p_iters, 1) * 1e3
@@ -716,6 +951,34 @@ def main() -> None:
           f"{unet_plain_eager:.3f} ms, device {unet_plain_dev:.3f} ms; the planning path spends "
           f"{iter_ms:.2f} ms per iteration, of which two eager forwards are "
           f"{2 * unet_eager:.2f} ms ({200 * unet_eager / iter_ms:.0f} %)")
+
+    # K7 at the prefill shape and at prefill_32k's length
+    k7 = lambda *a: ssd_ops.ssd_scan(*a)
+    k7_plain_fn = lambda *a: ssd_ref.ssd_chunked(*a)
+    k7_t = {}
+    for shape, n_sets, reps, plain_reps in ((SSD_SHAPES[0], 2, 20, 4),
+                                            (SSD_SHAPES[3], 1, 6, 2)):
+        sets = [ssd_inputs(*shape, gen=gen) for _ in range(n_sets)]  # each > the L2
+        ms = device_ms(k7, sets, reps=reps, replays=2)
+        plain = device_ms(k7_plain_fn, sets, reps=plain_reps, replays=2)
+        host = timed_ms(k7, sets, reps)
+        flops, nbytes = ssd_work(*shape)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+        k7_t[shape] = dict(ms=ms, plain_ms=plain, host_ms=host, bound_ms=bound,
+                           bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+                           else "operations")
+        print(f"  ssd_scan {shape} fp32: {ms:.3f} ms on the device, bound {bound:.3f} ms "
+              f"({flops / 1e9:.1f} GFLOP at 67 TFLOP/s fp32; {nbytes / 1e6:.0f} MB at 3.35 TB/s "
+              f"is {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms), {flops / (ms * 1e-3) / 1e12:.1f} "
+              f"TFLOP/s achieved; plain {plain:.3f} ms; eager loop with host gaps {host:.3f} ms")
+        del sets
+    del unet, plan_score, fsets
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 7. lm
+    phase("main path: mamba2-2.7b prefill through K7 and greedy serving")
+    del fwd
+    lm = run_lm(dev)
 
     kernels = [
         {"name": "solver_step", "route": "cuda",
@@ -762,6 +1025,16 @@ def main() -> None:
          "table2": {"ms": k5_t[(table2_highdim.N, table2_highdim.D)]["ms"],
                     "plain_ms": k5_t[(table2_highdim.N, table2_highdim.D)]["plain_ms"],
                     "bound_ms": k5_t[(table2_highdim.N, table2_highdim.D)]["bound_ms"]}},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd/kernel.py:82",
+         "launches": lm["k7_launches"],
+         "max_abs_err": ssd_err[SSD_SHAPES[0]],
+         "ms": k7_t[SSD_SHAPES[0]]["ms"], "plain_ms": k7_t[SSD_SHAPES[0]]["plain_ms"],
+         "bound_ms": k7_t[SSD_SHAPES[0]]["bound_ms"],
+         "bound_by": k7_t[SSD_SHAPES[0]]["bound_by"],
+         "library_ms": None,
+         "prefill_32k": {k: k7_t[SSD_SHAPES[3]][k] for k in ("ms", "plain_ms", "bound_ms")}},
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):

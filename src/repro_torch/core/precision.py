@@ -41,7 +41,7 @@ PRESETS: Dict[str, tuple] = {
 }
 
 
-def _pin_full_fp32_math() -> None:
+def pin_full_fp32_math() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -66,7 +66,7 @@ class PrecisionPolicy:
         object.__setattr__(self, "param", p)
         object.__setattr__(self, "state", s)
         object.__setattr__(self, "control", torch.float32)
-        _pin_full_fp32_math()
+        pin_full_fp32_math()
 
     def to_compute(self, x: Tensor) -> Tensor:
         return x.to(self.compute)

@@ -1,5 +1,5 @@
-"""Shared layers of the score network; port of ``repro/models/layers.py``
-(the parts the DiT and the temporal UNet use: initializer, norms, gated
+"""Shared layers; port of ``repro/models/layers.py`` (the parts the DiT,
+the temporal UNet and the language models use: initializer, norms, the
 MLP, time embedding), and ``to_tensor``, which carries the reference's
 parameter leaves across.
 
@@ -39,6 +39,19 @@ def dense_init(shape, *, generator: torch.Generator, dtype=torch.float32,
     return (w * fan ** -0.5).to(dtype)
 
 
+def init_norm(dim: int, norm_type: str, dtype=torch.float32, device="cpu") -> dict:
+    """The norm's parameters: ``rmsnorm`` a unit scale, ``layernorm`` a
+    unit scale and a zero bias, ``layernorm_np`` none."""
+    if norm_type == "rmsnorm":
+        return {"scale": torch.ones(dim, dtype=dtype, device=device)}
+    if norm_type == "layernorm":
+        return {"scale": torch.ones(dim, dtype=dtype, device=device),
+                "bias": torch.zeros(dim, dtype=dtype, device=device)}
+    if norm_type == "layernorm_np":
+        return {}
+    raise ValueError(norm_type)
+
+
 def apply_norm(x: Tensor, norm_type: str, params: Optional[dict] = None,
                eps: float = 1e-6) -> Tensor:
     """``rmsnorm`` | ``layernorm`` | ``layernorm_np`` (non-parametric) over
@@ -60,12 +73,32 @@ def apply_norm(x: Tensor, norm_type: str, params: Optional[dict] = None,
     return y.to(x.dtype)
 
 
+def init_mlp(d_model: int, d_ff: int, glu: bool, *, generator: torch.Generator,
+             dtype=torch.float32) -> dict:
+    """``w_in`` (E, F), ``w_out`` (F, E) and, when gated, ``w_gate`` (E, F)."""
+    p = {"w_in": dense_init((d_model, d_ff), generator=generator, dtype=dtype),
+         "w_out": dense_init((d_ff, d_model), generator=generator, dtype=dtype)}
+    if glu:
+        p["w_gate"] = dense_init((d_model, d_ff), generator=generator, dtype=dtype)
+    return p
+
+
+def _act(x: Tensor, name: str) -> Tensor:
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":  # jax.nn.gelu's default is the tanh approximation
+        return F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu(x)
+    raise ValueError(name)
+
+
 def apply_mlp(x: Tensor, w_in: Tensor, w_out: Tensor,
-              w_gate: Optional[Tensor] = None) -> Tensor:
-    """``silu(x @ w_gate) * (x @ w_in) @ w_out`` when gated (the DiT's
-    MLP), else ``silu(x @ w_in) @ w_out``."""
+              w_gate: Optional[Tensor] = None, act: str = "silu") -> Tensor:
+    """``act(x @ w_gate) * (x @ w_in) @ w_out`` when gated (the DiT's
+    MLP), else ``act(x @ w_in) @ w_out``."""
     h = x @ w_in
-    h = F.silu(x @ w_gate) * h if w_gate is not None else F.silu(h)
+    h = _act(x @ w_gate, act) * h if w_gate is not None else _act(h, act)
     return h @ w_out
 
 

@@ -21,6 +21,11 @@ order, and the bf16 store once), held to two ulps of the output dtype at
 max|x'|. EM and PC on the card against the same solve on the CPU with
 the same injected noise: rtol 1e-5 with atol 1e-5·max|x| (the closed-form
 score's exp, sqrt and pow round differently on the two devices).
+K7 ``ssd_scan``: against the sequential oracle rtol = atol = 3e-4, the
+reference's own bound of its kernel (``tests/test_kernels_ssd.py``);
+against the plain chunked version 6e-4, since each of the two is held to
+3e-4 of the oracle and they chunk differently (64 against 128 rows); bf16
+one bf16 ulp more. Bitwise equal on a second call.
 """
 
 import dataclasses
@@ -34,6 +39,8 @@ from repro_torch.kernels.groupnorm_silu import ops as gn_ops
 from repro_torch.kernels.groupnorm_silu import ref as gn_ref
 from repro_torch.kernels.solver_step import ops as step_ops
 from repro_torch.kernels.solver_step import ref as step_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 import numpy as np
 
 from repro_torch.core import analytic as tan
@@ -273,3 +280,85 @@ def test_baselines_on_card_match_cpu(cuda, sde, method, kw, per_step):
     assert torch.equal(got.nfe.cpu(), want.nfe)
     scale = max(1.0, want.x.abs().max().item())
     torch.testing.assert_close(got.x.cpu(), want.x, rtol=1e-5, atol=1e-5 * scale)
+
+
+#: (B, S, H, P, G, N): mamba2-2.7b's prefill, a ragged S, several groups,
+#: and prefill_32k's sequence length
+SSD_SHAPES = [(4, 2048, 80, 64, 1, 128), (4, 1000, 80, 64, 1, 128),
+              (1, 100, 8, 32, 2, 32), (1, 32768, 80, 64, 1, 128)]
+
+
+def _ssd_inputs(B, S, H, P, G, N, dev, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device=dev))
+    A = -torch.exp(torch.randn(H, generator=g, device=dev))
+    Bm, C = (torch.randn(B, S, G, N, generator=g, device=dev).to(dtype) for _ in range(2))
+    return x, dt, A, Bm, C
+
+
+def _within(got, want, tol):
+    return bool(((got - want).abs() <= tol * (1 + want.abs())).all())
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+def test_ssd_scan_kernel_matches_plain(cuda, shape):
+    args = _ssd_inputs(*shape, cuda)
+    before = ssd_ops.launches
+    y = ssd_ops.ssd_scan(*args)
+    assert ssd_ops.launches == before + 1
+    want = ssd_ref.ssd_chunked(*args)
+    torch.cuda.synchronize()
+    assert y.shape == want.shape and y.dtype == torch.float32
+    assert _within(y, want, 6e-4)
+    assert torch.equal(ssd_ops.ssd_scan(*args), y)  # deterministic
+
+
+def test_ssd_scan_kernel_matches_sequential_oracle(cuda):
+    """y and the final state against the exact recurrence."""
+    x, dt, A, Bm, C = _ssd_inputs(2, 150, 8, 32, 2, 32, cuda, seed=1)
+    y, state = ssd_ops.ssd_scan(x, dt, A, Bm, C, return_state=True)
+    ys, ss = ssd_ref.ssd_scan(x.transpose(1, 2), dt.transpose(1, 2), A,
+                              Bm.transpose(1, 2), C.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert _within(y, ys.transpose(1, 2), 3e-4) and _within(state, ss, 3e-4)
+
+
+def test_ssd_scan_kernel_bf16(cuda):
+    args = _ssd_inputs(2, 300, 8, 64, 1, 128, cuda, dtype=torch.bfloat16, seed=2)
+    y = ssd_ops.ssd_scan(*args)
+    want = ssd_ref.ssd_chunked(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    bound = torch.maximum(_bf16_ulp(y), _bf16_ulp(want)) + 6e-4 * (1 + want.float().abs())
+    assert ((y.float() - want.float()).abs() <= bound).all()
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, A, Bm, C = _ssd_inputs(1, 64, 4, 32, 1, 32, cuda, seed=3)
+    before = ssd_ops.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm, C)
+    x8, dt8, A8, B8, C8 = _ssd_inputs(1, 64, 2, 8, 1, 32, cuda, seed=3)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ssd_ops.ssd_scan(x8, dt8, A8, B8, C8)
+    assert ssd_ops.launches == before
+
+
+def test_prefill_on_card_launches_k7_once_per_layer(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import forward, init_model
+
+    cfg = get_config("mamba2-2.7b").scaled_down().replace(num_layers=3)
+    params = init_model(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 200),
+                         generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    before = ssd_ops.launches
+    nxt = make_prefill_step(cfg, use_kernel_ssd=True, device=cuda)(params, {"tokens": toks})
+    assert ssd_ops.launches - before == cfg.num_layers
+    with torch.no_grad():
+        fast, _ = forward(params, toks, cfg, use_kernel_ssd=True, last_logits_only=True)
+        plain, _ = forward(params, toks, cfg, use_kernel_ssd=False, last_logits_only=True)
+    torch.testing.assert_close(fast, plain, rtol=2e-4, atol=2e-4)
+    assert torch.equal(nxt, torch.argmax(plain[:, -1:], dim=-1).to(torch.int32))

@@ -188,3 +188,69 @@ def test_em_step_wrapper_does_not_fall_back(monkeypatch, tmp_path):
     finally:
         _build.library.cache_clear()
     assert step_ops.em_launches == before
+
+
+def test_lm_entry_points_without_a_card_raise(no_card):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_model
+
+    cfg = get_config("mamba2-2.7b").scaled_down()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_prefill_step(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_serve_step(cfg)
+    params = init_model(cfg, device="cpu")
+    prompts = torch.zeros(1, 3, dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.serve_batch(cfg, params, prompts, gen_len=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "mamba2-2.7b", "--reduced"])
+    # the same calls run when the caller asks for the CPU
+    assert serve.serve_batch(cfg, params, prompts, gen_len=2, device="cpu").shape == (1, 2)
+
+
+def test_ssd_wrapper_does_not_fall_back(monkeypatch, tmp_path):
+    """K7: the plain version only for CPU tensors; meta tensors are
+    refused; where the kernels cannot be built, the launch path raises and
+    counts nothing."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    def shapes(make):
+        return (make(1, 8, 2, 16), make(1, 8, 2), make(2), make(1, 8, 1, 16),
+                make(1, 8, 1, 16))
+
+    calls = []
+    plain = ssd_ref.ssd_chunked
+    monkeypatch.setattr(ssd_ref, "ssd_chunked", lambda *a, **k: calls.append(1) or plain(*a, **k))
+    ssd_ops.ssd_scan(*shapes(torch.zeros))
+    assert calls == [1]
+    monkeypatch.setattr(ssd_ref, "ssd_chunked", _never)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ssd_ops.ssd_scan(*shapes(lambda *s: torch.empty(*s, device="meta")))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    _build.library.cache_clear()
+    before = ssd_ops.launches
+    try:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            ssd_ops._launch(*shapes(torch.zeros), return_state=False)
+    finally:
+        _build.library.cache_clear()
+    assert ssd_ops.launches == before
+
+
+def test_port_scan_covers_the_lm_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ("kernels/ssd/ops.py", "kernels/ssd/ref.py", "models/mamba2.py",
+              "models/transformer.py", "models/config.py", "models/kvcache.py",
+              "configs/mamba2_2_7b.py", "launch/steps.py", "launch/serve.py"):
+        assert f"src/repro_torch/{f}" in names

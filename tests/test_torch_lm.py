@@ -1,0 +1,243 @@
+"""Port ↔ reference parity: the language-model serving path
+(``repro_torch.models.transformer``, ``launch/steps.py``,
+``launch/serve.py``, the config registry).
+
+The model is mamba2-2.7b's ``scaled_down()`` with two layers (d_model
+256, 16 SSD heads of 32, d_state 32, vocab 512). The reference's
+``init_model`` draws the weights; ``params_from_jax`` gives the port the
+same values. Prompts are numpy draws.
+
+Bounds: logits and decode states rtol = atol = 2e-4, the reference's own
+bound of decode against forward (``tests/test_kernels_ssd.py:76``): fp32
+throughout, sums in another order. Greedy tokens are equal exactly.
+Configurations are equal field for field.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+from repro.launch import serve as jserve
+from repro.launch import steps as jsteps
+from repro.models import transformer as jtr
+from repro_torch import configs
+from repro_torch.launch import serve, steps
+from repro_torch.models import MambaConfig, ModelConfig, MoEConfig
+from repro_torch.models import transformer as tr
+
+torch.set_num_threads(2)
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+#: the reference's forward and decode step, compiled once per shape
+jforward = jax.jit(jtr.forward, static_argnames=("cfg", "use_pallas_ssd", "last_logits_only"))
+jdecode = jax.jit(jtr.decode_step, static_argnames="cfg")
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = jconfigs.get_config("mamba2-2.7b").scaled_down().replace(num_layers=2)
+    cfg = configs.get_config("mamba2-2.7b").scaled_down().replace(num_layers=2)
+    jparams = jtr.init_model(jcfg, jax.random.PRNGKey(0))
+    params = tr.params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    return jcfg, cfg, jparams, params
+
+
+def _prompts(cfg, B, S, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _port_config(jcfg):
+    """The same configuration built by the port's dataclasses."""
+    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
+    if kw["moe"] is not None:
+        kw["moe"] = MoEConfig(**dataclasses.asdict(kw["moe"]))
+    if kw["mamba"] is not None:
+        kw["mamba"] = MambaConfig(**dataclasses.asdict(kw["mamba"]))
+    return ModelConfig(**kw)
+
+
+@pytest.mark.parametrize("last_only", [False, True], ids=["all", "last"])
+def test_forward_matches_reference(setup, last_only):
+    jcfg, cfg, jparams, params = setup
+    toks = _prompts(cfg, 2, 40)
+    want, _ = jforward(jparams, jnp.asarray(toks), jcfg, last_logits_only=last_only)
+    got, aux = tr.forward(params, torch.from_numpy(toks), cfg, last_logits_only=last_only)
+    assert got.shape == want.shape and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_forward_kernel_path_matches_reference_pallas(setup):
+    """``use_kernel_ssd`` against the reference's ``use_pallas_ssd`` (its
+    Pallas kernel in interpret mode on the CPU), at one small S."""
+    jcfg, cfg, jparams, params = setup
+    toks = _prompts(cfg, 2, 16, seed=1)
+    want, _ = jforward(jparams, jnp.asarray(toks), jcfg, use_pallas_ssd=True)
+    got, _ = tr.forward(params, torch.from_numpy(toks), cfg, use_kernel_ssd=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_decode_step_matches_reference(setup):
+    jcfg, cfg, jparams, params = setup
+    toks = _prompts(cfg, 3, 5, seed=2)
+    jstate = jtr.init_decode_state(jcfg, 3, 8)
+    state = tr.init_decode_state(cfg, 3, 8)
+    for i in range(toks.shape[1]):
+        want, jstate = jdecode(jparams, jnp.asarray(toks[:, i:i + 1]), jstate, jcfg)
+        got, state = tr.decode_step(params, torch.from_numpy(toks[:, i:i + 1]), state, cfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for name in ("conv", "ssm"):
+        np.testing.assert_allclose(getattr(state["p0"], name).numpy(),
+                                   np.asarray(getattr(jstate["p0"], name)), **TOL)
+
+
+def test_decode_matches_forward_in_port(setup):
+    _, cfg, _, params = setup
+    toks = torch.from_numpy(_prompts(cfg, 2, 12, seed=3))
+    full, _ = tr.forward(params, toks, cfg, use_kernel_ssd=True)
+    state = tr.init_decode_state(cfg, 2, 12)
+    outs = []
+    for i in range(12):
+        lg, state = tr.decode_step(params, toks[:, i:i + 1], state, cfg)
+        outs.append(lg)
+    np.testing.assert_allclose(torch.cat(outs, dim=1).numpy(), full.numpy(), **TOL)
+
+
+def test_prefill_step_tokens_equal_reference(setup):
+    jcfg, cfg, jparams, params = setup
+    toks = _prompts(cfg, 4, 33, seed=4)
+    want = jax.jit(jsteps.make_prefill_step(jcfg))(jparams, {"tokens": jnp.asarray(toks)})
+    for use_kernel in (False, True):
+        got = steps.make_prefill_step(cfg, use_kernel_ssd=use_kernel, device="cpu")(
+            params, {"tokens": torch.from_numpy(toks)})
+        assert got.dtype == torch.int32 and got.shape == (4, 1)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_serve_step_tokens_equal_reference(setup):
+    jcfg, cfg, jparams, params = setup
+    toks = _prompts(cfg, 2, 1, seed=5)
+    want, _ = jsteps.make_serve_step(jcfg)(jparams, {"tokens": jnp.asarray(toks)},
+                                          jtr.init_decode_state(jcfg, 2, 4))
+    got, _ = steps.make_serve_step(cfg, device="cpu")(
+        params, {"tokens": torch.from_numpy(toks)}, tr.init_decode_state(cfg, 2, 4))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_serve_batch_tokens_equal_reference(setup):
+    """Prefill by replay, then greedy decode: the same tokens, and the
+    first equals the fused prefill's next token."""
+    jcfg, cfg, jparams, params = setup
+    prompts = _prompts(cfg, 4, 10, seed=6)
+    want = jserve.serve_batch(jcfg, jparams, jnp.asarray(prompts), gen_len=8)
+    got = serve.serve_batch(cfg, params, torch.from_numpy(prompts), gen_len=8, device="cpu")
+    assert got.shape == (4, 8) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    first = steps.make_prefill_step(cfg, use_kernel_ssd=True, device="cpu")(
+        params, {"tokens": torch.from_numpy(prompts)})
+    np.testing.assert_array_equal(first.numpy(), got[:, :1].numpy())
+
+
+def test_mlp_layers_match_reference():
+    """An "M" mixer with a dense gated MLP ("D"), two repeats."""
+    common = dict(name="md", arch_type="hybrid", num_layers=2, d_model=64, num_heads=1,
+                  num_kv_heads=1, d_ff=96, vocab_size=64, mixer_pattern=("M",),
+                  mlp_pattern=("D",))
+    jcfg = jconfigs.mamba2_2_7b.CONFIG.replace(
+        **common, mamba=dataclasses.replace(jconfigs.mamba2_2_7b.CONFIG.mamba, d_state=16,
+                                            head_dim=16))
+    cfg = _port_config(jcfg)
+    jparams = jtr.init_model(jcfg, jax.random.PRNGKey(7))
+    params = tr.params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    assert "mlp" in params["blocks"]["p0"] and "w_gate" in params["blocks"]["p0"]["mlp"]
+    toks = _prompts(cfg, 2, 9, seed=7)
+    want, _ = jforward(jparams, jnp.asarray(toks), jcfg)
+    got, _ = tr.forward(params, torch.from_numpy(toks), cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    jstate, state = jtr.init_decode_state(jcfg, 2, 4), tr.init_decode_state(cfg, 2, 4)
+    want, _ = jdecode(jparams, jnp.asarray(toks[:, :1]), jstate, jcfg)
+    got, _ = tr.decode_step(params, torch.from_numpy(toks[:, :1]), state, cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_init_model_tree_matches_reference_layout(setup):
+    jcfg, cfg, jparams, _ = setup
+    ours = tr.init_model(cfg, 0, device="cpu")
+    jshapes = jax.tree.map(lambda a: (a.shape, str(a.dtype)), jparams)
+    tshapes = tr._map(lambda a: (tuple(a.shape), str(a.dtype).split(".")[1]), ours)
+    assert tshapes == jshapes
+    assert tr.param_count(ours) == sum(a.size for a in jax.tree.leaves(jparams))
+
+
+def test_params_from_jax_rejects_a_wrong_tree(setup):
+    jcfg, cfg, jparams, _ = setup
+    tree = jax.tree.map(np.asarray, jparams)
+    with pytest.raises(ValueError, match="keys"):
+        tr.params_from_jax({k: v for k, v in tree.items() if k != "lm_head"}, cfg)
+    with pytest.raises(ValueError, match="shape"):
+        tr.params_from_jax(tree, cfg.replace(vocab_size=cfg.vocab_size + 1))
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_config_fields_equal_reference(arch):
+    """Every reference architecture, built by the port's dataclasses, has
+    the same fields, num_repeats and scaled_down() as the reference's."""
+    jcfg = jconfigs.get_config(arch)
+    cfg = _port_config(jcfg)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(cfg.scaled_down()) == dataclasses.asdict(jcfg.scaled_down())
+    assert (cfg.num_repeats, cfg.uses_attention, cfg.is_subquadratic) == (
+        jcfg.num_repeats, jcfg.uses_attention, jcfg.is_subquadratic)
+    if arch in configs.ARCH_IDS:
+        assert dataclasses.asdict(configs.get_config(arch)) == dataclasses.asdict(jcfg)
+    else:
+        assert arch in configs.NOT_PORTED
+
+
+def test_registry_names_what_is_not_ported():
+    assert set(configs.ARCH_IDS) | set(configs.NOT_PORTED) == set(jconfigs.ARCH_IDS)
+    assert configs.ARCH_IDS == ("mamba2-2.7b",)
+    for arch in configs.NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            configs.get_config(arch)
+    with pytest.raises(ValueError, match="unknown arch"):
+        configs.get_config("no-such-model")
+
+
+@pytest.mark.parametrize("kinds", [(("A",), ("D",), False), (("L",), ("N",), False),
+                                   (("M",), ("E",), False), (("M",), ("N",), True)],
+                         ids=["attention", "window", "experts", "tied_head"])
+def test_unported_layer_kinds_raise(kinds):
+    mix, mlp, tied = kinds
+    cfg = ModelConfig(name="x", arch_type="dense", num_layers=1, d_model=32, num_heads=2,
+                      num_kv_heads=2, d_ff=64, vocab_size=16, mixer_pattern=mix,
+                      mlp_pattern=mlp, mamba=MambaConfig(d_state=16, head_dim=16),
+                      moe=MoEConfig(num_experts=2, top_k=1, expert_ffn=32),
+                      tie_embeddings=tied)
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        tr.init_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        tr.init_decode_state(cfg, 1, 4)
+
+
+def test_config_checks_raise():
+    with pytest.raises(ValueError, match="MambaConfig"):
+        ModelConfig(name="x", arch_type="ssm", num_layers=1, d_model=32, num_heads=1,
+                    num_kv_heads=1, d_ff=0, vocab_size=16, mixer_pattern=("M",),
+                    mlp_pattern=("N",))
+    with pytest.raises(ValueError, match="divisible"):
+        configs.get_config("mamba2-2.7b").replace(num_layers=3, mixer_pattern=("M", "M"),
+                                                  mlp_pattern=("N", "N"))
+
+
+def test_launcher_on_the_cpu(capsys):
+    rec = serve.main(["--arch", "mamba2-2.7b", "--reduced", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "5", "--gen-len", "3"])
+    assert rec["arch"] == "mamba2-2.7b" and len(rec["tokens"]) == 2
+    assert all(len(t) == 3 and all(0 <= v < 512 for v in t) for t in rec["tokens"])
+    assert "generated (2, 3)" in capsys.readouterr().out
