@@ -75,6 +75,28 @@ Phases; any failure exits non-zero before the result line is printed:
              logits close; prefill and decode times, the decode's device
              idle share and K7's share of a prefill's device time
              (torch.profiler).
+8. sharded — the fourth main path, data-parallel adaptive sampling
+             (``sample(mesh=)`` over torch.distributed). First K4, the
+             sharded solver step, in process at HIGHRES_DIT's state
+             (8, 196,608), fp32 and bf16: ``sharded_error_step`` on each
+             batch half (a one-rank mesh) bitwise equal to K1's rows, and
+             its partial mode on 1, 2 and 4 column ranges (views, in
+             place) with x'' bitwise equal to K1's columns, the sums
+             against the plain ``ref.error_step_sums`` and, added in range
+             order, e2 against K1's. Then
+             ``python -m repro_torch.launch.sharded_selftest --device cuda
+             --arch highres_dit`` as a subprocess at world 1 over NCCL (a
+             real process group on the card; the HIGHRES_DIT solve sharded
+             must equal the unsharded one bitwise; its K4 and flash launch
+             counts are set to 0 just before the sharded solve and read
+             just after) and at world 2 over gloo with both ranks on this
+             card (NCCL refuses two ranks on one GPU): the closed-form
+             checks bitwise, K4's feature combine, and the DiT solve
+             finite, converged and within 4 NFE of the unsharded one per
+             sample. Last, K4's device time at (8, 196,608) and at a
+             (8, 98,304) feature half, one NCCL all_reduce of 9 floats,
+             and the sharded solve's wall times against the unsharded
+             solve's, warm and in turns, and against phase 3's.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object naming each kernel, and ``{"ok": true, "device": ...}``.
@@ -124,6 +146,15 @@ LM_IDLE_STEPS = 8
 #: (K7 against ssd_chunked; the recurrence against the chunked scan),
 #: relative to the largest logit
 LM_LOGIT_TOL = 1e-3
+#: K4's e2 from column ranges' sums against K1's on the whole state: the
+#: same tile sums, added in another grouping
+K4_E2_RTOL = 1e-6
+#: what the solver step's plain version (K1, K4) computes: its x-tilde
+#: rounds as the kernel's fused multiply-adds, which it emulates in fp64,
+#: so its time is not comparable with an all-fp32 formulation's
+PLAIN_STEP = "ref.py, x-tilde as three fused multiply-adds emulated in fp64"
+#: seconds one run of the sharded selftest may take
+SELFTEST_TIMEOUT_S = 300
 
 
 def ulp(dtype, mag: float) -> float:
@@ -350,6 +381,131 @@ def run_lm(dev) -> dict:
     del params, state
     torch.cuda.empty_cache()
     return {"k7_launches": k7_launches}
+
+
+def run_sharded(dev, card: str, main_wall_s: float) -> dict:
+    """Phase 8: K4 against its plain version in process, then the sharded
+    selftest in subprocesses (world 1 over NCCL, world 2 over gloo on this
+    card); returns K4's numbers for the kernels line."""
+    from repro_torch.configs.diffusion import HIGHRES_DIT
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.kernels.solver_step import ref as step_ref
+
+    B, D = 8, HIGHRES_DIT.image_size ** 2 * HIGHRES_DIT.channels
+    gen = torch.Generator(device=dev).manual_seed(15)
+    err = {}
+    # Bounds: x'' bitwise equal to K1's columns (the same kernel arithmetic);
+    # against the plain version as in phase 2 (1e-5·(1+max|x''|) fp32, 1e-2 bf16);
+    # the partial sums within 1e-5 of the plain version's (as K1's e2); the
+    # ranges' sums added in range order within K4_E2_RTOL of K1's e2.
+    for dtype, xtol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        states = [torch.randn(B, D, generator=gen, device=dev).to(dtype) for _ in range(5)]
+        coeffs = [torch.rand(B, generator=gen, device=dev) for _ in range(3)]
+        ea = step_ops.per_sample_tolerance(0.0078, B, dev)
+        er = step_ops.per_sample_tolerance(0.05, B, dev)
+        xh, e2 = step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+        # batch-only K4 runs K1 on the rank's rows: a batch half must give
+        # the whole state's bits for those rows
+        for rows in (slice(0, B // 2), slice(B // 2, B)):
+            bx, be = step_ops.error_step(
+                *(t[rows] for t in states), *(c[rows] for c in coeffs), eps_abs=ea[rows],
+                eps_rel=er[rows])
+            if not (torch.equal(bx, xh[rows]) and torch.equal(be, e2[rows])):
+                fail("K1 on a batch half differs from K1 on those rows of the whole state")
+        for f in (1, 2, 4):
+            total = torch.zeros(B, device=dev)
+            x_err = s_rel = 0.0
+            for i in range(f):
+                a, b = step_ops.feature_range(D, f, i)
+                block = [t[:, a:b] for t in states]
+                bx, bs = step_ops.error_step_sums(*block, *coeffs, eps_abs=ea, eps_rel=er)
+                px, ps = step_ref.error_step_sums(*block, *coeffs, ea, er)
+                torch.cuda.synchronize()
+                if not torch.equal(bx, xh[:, a:b]):
+                    fail(f"K4's x'' on columns {a}:{b} differs from K1's")
+                x_err = max(x_err, (bx.float() - px.float()).abs().max().item())
+                s_rel = max(s_rel, ((bs - ps).abs() / ps).max().item())
+                total = total + bs
+            e_rel = ((torch.sqrt(total / D) - e2).abs() / e2).max().item()
+            x_bound = xtol * (1 + xh.float().abs().max().item())
+            ok = x_err <= x_bound and s_rel <= 1e-5 and e_rel <= K4_E2_RTOL
+            print(f"  K4 {str(dtype)[6:]:8s} (8, {D}) in {f} column range(s): x'' = K1's "
+                  f"bitwise; max|x''-plain| {x_err:.3e} (bound {x_bound:.1e}); sums vs plain "
+                  f"max rel {s_rel:.3e} (bound 1e-5); combined e2 vs K1 max rel {e_rel:.3e} "
+                  f"(bound {K4_E2_RTOL}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail("K4 disagrees with its plain version or with K1")
+            err[(dtype, f)] = x_err
+        del states, xh
+    print("  K1 on each batch half (batch-only K4; fp32, bf16): x'' and e2 bitwise equal to "
+          "the whole state's rows")
+
+    # the sharded path through torch.distributed: the library is built, each
+    # rank loads it
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = {}
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        cmd = [sys.executable, "-m", "repro_torch.launch.sharded_selftest", "--device",
+               "cuda", "--backend", backend, "--world", str(world), "--arch", "highres_dit"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                              timeout=SELFTEST_TIMEOUT_S)
+        line = (proc.stdout.strip().splitlines() or ["{}"])[-1]
+        print(f"  sharded_selftest world {world} over {backend}, exit {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s: {line}")
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            fail(f"sharded_selftest at world {world} over {backend} failed")
+        runs[world] = json.loads(line)
+    one, two = runs[1]["arch"], runs[2]["arch"]
+    launches = one["launches"]
+    print(f"  world 1 (NCCL): HIGHRES_DIT sharded = unsharded bitwise {one['bitwise_equal']}, "
+          f"{one['iterations']} iterations, mean NFE {one['mean_nfe']:.2f}; launches in the "
+          f"sharded solve: K4 {launches['sharded_solver_step']}, K1 {launches['solver_step']}, "
+          f"flash {launches['flash_attention']}")
+    if launches["sharded_solver_step"] < one["iterations"] or launches["flash_attention"] <= 0:
+        fail(f"the sharded main path did not run its kernels: {launches}")
+    print(f"  world 2 (gloo, both ranks on this card): bitwise {two['bitwise_equal']}, "
+          f"max|x diff| {two['max_abs_diff']:.3e}, max per-sample NFE diff "
+          f"{two['max_nfe_diff']} (gate 4), converged {two['converged']}/8, finite "
+          f"{two['finite']}; K4 feature combine max rel e2 "
+          f"{runs[2]['fused_kernel']['max_rel_e2_feature']:.3e}. One card: no speed-up is "
+          f"measured here.")
+
+    # timings, each beside the card's name and power limit
+    sets_full, sets_half = [], []
+    for _ in range(4):
+        states = [torch.randn(B, D, generator=gen, device=dev) for _ in range(5)]
+        coeffs = [torch.rand(B, generator=gen, device=dev) for _ in range(3)]
+        eps = [step_ops.per_sample_tolerance(e, B, dev) for e in (0.0078, 0.05)]
+        sets_full.append((*states, *coeffs, *eps))
+        sets_half.append((*(t[:, : D // 2] for t in states), *coeffs, *eps))
+    k4 = lambda *a: step_ops.error_step_sums(*a[:8], eps_abs=a[8], eps_rel=a[9])
+    k4_plain_fn = lambda *a: step_ref.error_step_sums(*a)
+    t = {}
+    for name, sets, d in (("full", sets_full, D), ("half", sets_half, D // 2)):
+        ms, plain = device_ms(k4, sets), device_ms(k4_plain_fn, sets)
+        nbytes = 6 * B * d * 4 + 6 * B * 4
+        nops = STEP_FLOPS_PER_ELEMENT * B * d
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / FP32_FLOPS) * 1e3
+        t[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                       bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= nops / FP32_FLOPS
+                       else "operations")
+        print(f"  [{card}] K4 partial mode (8, {d}) fp32: {ms * 1e3:.2f} us on the device, bound "
+              f"{bound * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s); plain "
+              f"{plain * 1e3:.1f} us")
+    ar = runs[1]["all_reduce_9"]
+    print(f"  [{card}] all_reduce of 9 fp32 (world 1, NCCL): {ar['event_us']:.1f} us between "
+          f"CUDA events, {ar['sync_wall_us']:.1f} us host wall with a synchronise each")
+    walls = lambda ts: ", ".join(f"{t:.3f}" for t in ts)
+    print(f"  [{card}] HIGHRES_DIT solve: phase 3 {main_wall_s:.3f} s; in the world-1 "
+          f"selftest the first, cold unsharded solve {one['unsharded_wall_s']:.3f} s, then in "
+          f"turns sharded (NCCL) {walls(one['sharded_walls_s'])} s and unsharded "
+          f"{walls(one['unsharded_warm_walls_s'])} s (order S U U S); world 2 on one card, "
+          f"sharded {walls(two['sharded_walls_s'])} s")
+    return {"launches": launches["sharded_solver_step"], "max_abs_err": err[(torch.float32, 2)],
+            "times": t, "all_reduce_9_us": ar["event_us"], "runs": runs}
 
 
 def main() -> None:
@@ -980,6 +1136,10 @@ def main() -> None:
     del fwd
     lm = run_lm(dev)
 
+    # ------------------------------------------------------------- 8. sharded
+    phase("sharded sampling: K4 and sample(mesh=) over torch.distributed")
+    k4 = run_sharded(dev, card, rec["wall_s"])
+
     kernels = [
         {"name": "solver_step", "route": "cuda",
          "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
@@ -991,6 +1151,7 @@ def main() -> None:
          "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / FP32_FLOPS
          else "operations",
          "library_ms": None,
+         "plain": PLAIN_STEP,
          "planning": {"launches": plan_launches["solver_step"], "ms": k1p_ms,
                       "plain_ms": k1p_plain, "bound_ms": k1p_bound}},
         {"name": "flash_attention", "route": "cuda",
@@ -1035,6 +1196,21 @@ def main() -> None:
          "bound_by": k7_t[SSD_SHAPES[0]]["bound_by"],
          "library_ms": None,
          "prefill_32k": {k: k7_t[SSD_SHAPES[3]][k] for k in ("ms", "plain_ms", "bound_ms")}},
+        {"name": "sharded_solver_step", "route": "cuda",
+         "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
+         "replaces": "src/repro/kernels/solver_step/ops.py:123",
+         "launches": k4["launches"],
+         "max_abs_err": k4["max_abs_err"],
+         "ms": k4["times"]["full"]["ms"], "plain_ms": k4["times"]["full"]["plain_ms"],
+         "bound_ms": k4["times"]["full"]["bound_ms"],
+         "bound_by": k4["times"]["full"]["bound_by"],
+         "library_ms": None,
+         "plain": PLAIN_STEP,
+         "launched_as": "batch-only sharded_error_step: the solver_step kernel's full mode "
+                        "on the rank's rows (timed in the solver_step row)",
+         "ms_of": "the partial (feature-split) mode at the full state",
+         "feature_half": {k: k4["times"]["half"][k] for k in ("ms", "plain_ms", "bound_ms")},
+         "all_reduce_9_us": k4["all_reduce_9_us"]},
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):

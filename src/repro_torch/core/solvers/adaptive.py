@@ -39,13 +39,35 @@ Precision (DESIGN.md §8): x / x_prev live in the policy's state dtype;
 t, h, the tolerance, the error, the accept decision and the step-size
 update are fp32 under every preset.
 
-Not ported yet: sharding, per-slot keys, momentum, the probability-flow
-variant, telemetry and Algorithm 2.
+Sharding (DESIGN.md §3): under a mesh the solve is data-parallel over
+``torch.distributed``. ``sharding`` is the batch sharding of the state
+(``repro_torch.parallel.sharding.sample_state_shardings``); ``init_carry``
+takes the global (B, ...) start and keeps this rank's rows, every noise
+draw is the whole batch's draw cut to those rows (the generator is
+replicated), and the fused step runs K4 (``sharded_error_step``) on
+them. Loop control stays global: at each group's sync one
+``all_reduce(MAX)`` of [any sample active, iterations] over the mesh
+gives every rank the reference's ``any(t > t_eps)`` and its iteration
+count. Because ``active`` only falls within a group, the iterations in
+which a rank had an active sample form a prefix of the group, and the
+largest such count over the ranks is the count of iterations in which
+some sample anywhere was active. A rank whose samples are all done keeps
+running masked iterations until every rank's are, as the reference's
+while loop does. One O(1) collective per group of ``SYNC_EVERY``
+iterations, no host sync per iteration. Everything but the score
+network runs row by row, so the sharded solve gives the unsharded
+solve's bits wherever the score of a row does not depend on the batch
+around it (the closed-form scores; a network on this CPU; cuBLAS may
+round a product of fewer rows otherwise).
+
+Not ported yet: per-slot keys, momentum, the probability-flow variant,
+telemetry and Algorithm 2.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -60,6 +82,7 @@ from repro_torch.core.tolerance import (
     mixed_tolerance, next_step_size, scaled_error_l2, scaled_error_linf,
 )
 from repro_torch.device import resolve_device
+from repro_torch.parallel.collectives import all_max
 
 Tensor = torch.Tensor
 
@@ -140,6 +163,20 @@ def _step_math_fused(x, x_prime, score2, z, x_prev, e0, d1, d2, cfg,
                             use_prev=cfg.prev_tolerance)
 
 
+def _step_math_fused_sharded(x, x_prime, score2, z, x_prev, e0, d1, d2, cfg,
+                             eps_abs, eps_rel, *, sharding):
+    """The fused step under a batch-sharded mesh: K4 on this rank's rows
+    (DESIGN.md §3)."""
+    from repro_torch.kernels.solver_step import ops as fused
+
+    if cfg.error_norm != "l2":
+        raise ValueError("the fused kernel implements the paper's ℓ2 norm only")
+    return fused.sharded_error_step(
+        x, x_prime, score2, z, x_prev, e0, d1, d2, eps_abs=eps_abs,
+        eps_rel=eps_rel, use_prev=cfg.prev_tolerance, mesh=sharding.mesh,
+        batch_axes=sharding.axes)
+
+
 @dataclasses.dataclass
 class SolverCarry:
     """State of an Algorithm-1 solve between iterations.
@@ -180,7 +217,7 @@ def _per_sample(v, batch: int, device) -> Tensor:
 
 def init_carry(sde: SDE, x_init: Tensor, generator: Optional[torch.Generator],
                *, config: AdaptiveConfig | None = None, cond=None, atol=None,
-               rtol=None, h0=None, **overrides) -> SolverCarry:
+               rtol=None, h0=None, sharding=None, **overrides) -> SolverCarry:
     """Fresh carry at t = T on ``x_init``'s device.
 
     ``cond`` is the optional per-sample condition payload: every leaf
@@ -189,6 +226,10 @@ def init_carry(sde: SDE, x_init: Tensor, generator: Optional[torch.Generator],
     math). ``atol``/``rtol`` (scalars or (B,)) install per-sample
     tolerances; pass both or neither. ``h0`` overrides the initial step
     per sample; it is clamped to the t-span like ``cfg.h_init``.
+
+    With ``sharding`` (the state's batch sharding under a mesh) every
+    argument is global, and the carry holds this rank's rows of each
+    per-sample leaf (``solver_carry_shardings``).
     """
     cfg = resolve_config(config, overrides)
     policy = resolve_policy(cfg.precision)
@@ -210,19 +251,41 @@ def init_carry(sde: SDE, x_init: Tensor, generator: Optional[torch.Generator],
     h_of = cfg.h_init if h0 is None else h0
     h = torch.minimum(_per_sample(h_of, batch, dev), t0 - sde.t_eps)
     zeros = torch.zeros((batch,), dtype=torch.int32, device=dev)
-    return SolverCarry(
+    carry = SolverCarry(
         x=x_init, x_prev=x_init, t=t0, h=h, nfe=zeros, accepted=zeros,
         rejected=zeros, done=torch.zeros((batch,), dtype=torch.bool, device=dev),
         iterations=torch.zeros((), dtype=torch.int32, device=dev),
         generator=generator, atol=atol, rtol=rtol, cond=cond)
+    return carry if sharding is None else _local_rows(carry, sharding)
+
+
+def _local_rows(carry: SolverCarry, sharding) -> SolverCarry:
+    """This rank's rows of every per-sample leaf of a global carry."""
+    from repro_torch.parallel.sharding import solver_carry_shardings
+
+    if carry.batch != sharding.batch:
+        raise ValueError(f"state batch {carry.batch} != sharding batch {sharding.batch}")
+    shards = solver_carry_shardings(sharding.mesh, carry.batch, carry.x.ndim,
+                                    cond=carry.cond, tolerances=carry.atol is not None)
+    leaves = {}
+    for f in dataclasses.fields(carry):
+        v, s = getattr(carry, f.name), getattr(shards, f.name)
+        if f.name == "cond" and v is not None:
+            v = {k: s[k].local(leaf) for k, leaf in v.items()}
+        elif v is not None and s.batch is not None:
+            v = s.local(v)
+        leaves[f.name] = v
+    return SolverCarry(**leaves)
 
 
 def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
-               step_math, noise_fn=None):
+               step_math, noise_fn=None, sharding=None):
     """One Algorithm-1 iteration: SolverCarry → SolverCarry.
 
     The conditioner wraps the raw ``score_fn`` innermost (a label-aware
     score sees real labels), the precision policy's casts outermost.
+    Under a mesh (``sharding``) the carry holds this rank's rows and each
+    draw is the whole batch's, cut to them.
     """
     policy = resolve_policy(cfg.precision)
     conditioner = cfg.conditioner
@@ -230,7 +293,7 @@ def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
     threshold = sde.t_eps + 1e-12
 
     def draw(s: SolverCarry, x: Tensor) -> Tensor:
-        return draw_noise(s.generator, noise_fn, x)
+        return draw_noise(s.generator, noise_fn, x, sharding)
 
     def body(s: SolverCarry) -> SolverCarry:
         x, x_prev, t, h = s.x, s.x_prev, s.t, s.h
@@ -298,17 +361,35 @@ def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
     return body
 
 
-def sync_state(carry: SolverCarry):
+def sync_state(carry: SolverCarry, sharding=None):
     """(every sample done, iterations) as Python values: one device→host
-    transfer."""
-    flags = torch.stack([carry.done.all().to(torch.int32), carry.iterations])
-    done, iters = flags.tolist()
-    return bool(done), int(iters)
+    transfer.
+
+    Under a mesh (``sharding``) both are global: one ``all_reduce(MAX)``
+    of [some sample active, iterations] over the whole mesh. A carry's
+    ``iterations`` counts the iterations in which one of its own samples
+    was active; after a group that all ranks began at the same count, the
+    largest of those counts is the global one (see the module docstring).
+    """
+    flags = torch.stack([(~carry.done).any().to(torch.int32), carry.iterations])
+    if sharding is not None:
+        all_max(flags, sharding.mesh.group())
+    active, iters = flags.tolist()
+    return not active, int(iters)
+
+
+def _pick_step_math(cfg: AdaptiveConfig, sharding):
+    if not cfg.use_fused_kernel:
+        return _step_math_jnp
+    if sharding is not None and not sharding.replicated:
+        return functools.partial(_step_math_fused_sharded, sharding=sharding)
+    return _step_math_fused
 
 
 def solve_chunk(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
                 max_sync_iters: int, config: AdaptiveConfig | None = None,
-                noise_fn: Callable | None = None, **overrides) -> SolverCarry:
+                noise_fn: Callable | None = None, sharding=None,
+                **overrides) -> SolverCarry:
     """Run at most ``max_sync_iters`` Algorithm-1 iterations.
 
     Stops early when every sample has converged or the solve's
@@ -316,12 +397,15 @@ def solve_chunk(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
     most ``SYNC_EVERY``, sized so that neither bound can be overrun, with
     one host sync after each group. Chaining calls until ``done.all()``
     is bitwise equal to one call with an unbounded ``max_sync_iters``.
+    Under a mesh (``sharding``) the sync is global and the carry's
+    ``iterations`` is set to the global count after each group, so every
+    rank runs the same groups.
     """
     cfg = resolve_config(config, overrides)
     eps_abs = float(sde.abs_tolerance if cfg.eps_abs is None else cfg.eps_abs)
-    step_math = _step_math_fused if cfg.use_fused_kernel else _step_math_jnp
-    body = _make_body(sde, score_fn, cfg, eps_abs, step_math, noise_fn)
-    done, iters = sync_state(carry)
+    body = _make_body(sde, score_fn, cfg, eps_abs, _pick_step_math(cfg, sharding),
+                      noise_fn, sharding)
+    done, iters = sync_state(carry, sharding)
     start = iters
     with torch.no_grad():
         while not done and iters - start < max_sync_iters and iters < cfg.max_iters:
@@ -329,7 +413,10 @@ def solve_chunk(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
                     cfg.max_iters - iters)
             for _ in range(n):
                 carry = body(carry)
-            done, iters = sync_state(carry)
+            done, iters = sync_state(carry, sharding)
+            if sharding is not None:
+                carry.iterations = torch.full((), iters, dtype=torch.int32,
+                                              device=carry.iterations.device)
     return carry
 
 
@@ -365,7 +452,7 @@ def adaptive(sde: SDE, score_fn: Callable, x_init: Tensor,
              generator: Optional[torch.Generator] = None, *,
              config: AdaptiveConfig | None = None, denoise: bool = True,
              cond=None, atol=None, rtol=None, h0=None,
-             noise_fn: Callable | None = None, device="cuda",
+             noise_fn: Callable | None = None, device="cuda", sharding=None,
              **overrides) -> SolveResult:
     """Algorithm 1: solve the reverse diffusion from T to t_eps adaptively.
 
@@ -374,14 +461,18 @@ def adaptive(sde: SDE, score_fn: Callable, x_init: Tensor,
     the noise draws unless ``noise_fn`` is given. ``cond`` is the
     payload of ``cfg.conditioner`` (DESIGN.md §9). ``atol``/``rtol``/
     ``h0`` install per-sample tolerances and initial steps (DESIGN.md
-    §14).
+    §14). ``sharding`` (a batch ``RowSharding`` of a mesh, normally from
+    ``sample(mesh=)``) makes the solve data-parallel: the arguments are
+    global, and the result holds this rank's rows, with the global
+    ``iterations`` (see the module docstring for when it is bitwise the
+    unsharded result's rows).
     """
     dev = resolve_device(device)
     check_noise_source(generator, noise_fn, dev, "adaptive")
     cfg = resolve_config(config, overrides)
     carry = init_carry(sde, x_init.to(dev), generator, config=cfg, cond=cond,
-                       atol=atol, rtol=rtol, h0=h0)
+                       atol=atol, rtol=rtol, h0=h0, sharding=sharding)
     carry = solve_chunk(sde, score_fn, carry, max_sync_iters=cfg.max_iters,
-                        config=cfg, noise_fn=noise_fn)
+                        config=cfg, noise_fn=noise_fn, sharding=sharding)
     return finalize(sde, score_fn, carry, denoise=denoise,
                     precision=cfg.precision, conditioner=cfg.conditioner)

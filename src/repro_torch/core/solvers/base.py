@@ -75,14 +75,24 @@ def solver_nfe_per_iteration(name: str, **solver_kwargs) -> int:
 
 
 def draw_noise(generator: torch.Generator | None, noise_fn: Callable | None,
-               x: Tensor) -> Tensor:
+               x: Tensor, sharding=None) -> Tensor:
     """z ~ N(0, I) shaped like x: from ``noise_fn`` if given, else drawn
-    from ``generator`` in fp32; cast to x's dtype and device."""
+    from ``generator`` in fp32; cast to x's dtype and device.
+
+    Under a mesh, x holds this rank's rows of the ``sharding``: the draw
+    is the whole batch's (``noise_fn`` is handed an uninitialised tensor
+    of the global shape), and the rank keeps its rows. Every rank draws
+    the same numbers from its copy of the generator, so a sharded solve
+    sees the unsharded solve's noise, row for row.
+    """
+    shape = x.shape if sharding is None else sharding.global_shape(x.shape)
     if noise_fn is not None:
-        return noise_fn(x).to(device=x.device, dtype=x.dtype)
-    z = torch.randn(x.shape, generator=generator, dtype=torch.float32,
-                    device=x.device)
-    return z.to(x.dtype)
+        z = noise_fn(x if sharding is None else x.new_empty(shape))
+        z = z.to(device=x.device, dtype=x.dtype)
+    else:
+        z = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=x.device).to(x.dtype)
+    return z if sharding is None else sharding.local(z)
 
 
 def check_noise_source(generator: torch.Generator | None,

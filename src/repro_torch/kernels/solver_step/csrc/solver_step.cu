@@ -27,6 +27,18 @@
 // (B, tiles) scratch buffer, then one warp per row sums the partials in a
 // fixed order. No floating-point atomics, so the same inputs give the
 // same bits on every run (the chunked-equals-monolithic rule needs that).
+//
+// The same kernel is K4, the per-rank body of the sharded step that
+// replaces sharded_error_step of src/repro/kernels/solver_step/ops.py
+// (the TPU kernel under shard_map). solver_step_error_sums runs it on one
+// rank's block: rows of the rank's batch shard and a contiguous column
+// range of the flattened state, read in place through a row stride (the
+// block of a (B, D) state is B rows of D_loc columns, D apart), and
+// its finish stage writes the raw fp32 row sum of squared scaled
+// residuals instead of the normalised e2. The caller all-reduces those
+// sums over the ranks that split the columns and takes sqrt(sum / D):
+// exact, with no sqrt -> square -> x D_loc round trip. A ragged last
+// column range is masked like any ragged tile; nothing is padded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,12 +71,13 @@ __global__ void __launch_bounds__(kThreads) error_partial_kernel(
     const float* __restrict__ e0, const float* __restrict__ d1,
     const float* __restrict__ d2, const float* __restrict__ eps_abs,
     const float* __restrict__ eps_rel, T* __restrict__ xh,
-    float* __restrict__ partial, long long D, int n_tiles, int use_prev) {
+    float* __restrict__ partial, long long D, long long ld_in, long long ld_out,
+    int n_tiles, int use_prev) {
   const int tile = blockIdx.x;
   const long long row = blockIdx.y;
   const float c0 = e0[row], c1 = d1[row], c2 = d2[row];
   const float ea = eps_abs[row], er = eps_rel[row];
-  const long long base = row * D;
+  const long long base = row * ld_in, out_base = row * ld_out;
   const long long begin = static_cast<long long>(tile) * kTile;
 
   float acc = 0.f;
@@ -76,7 +89,7 @@ __global__ void __launch_bounds__(kThreads) error_partial_kernel(
       const float vx = load(x, i), vxp = load(xp, i), vs = load(s2, i), vz = load(z, i);
       const float x_tilde = vx - c0 * vxp + c1 * vs + c2 * vz;
       const float x_high = 0.5f * (vxp + x_tilde);
-      store(xh, i, x_high);
+      store(xh, out_base + col, x_high);
       float mag = fabsf(vxp);
       if (use_prev) mag = fmaxf(mag, fabsf(load(xv, i)));
       const float r = (vxp - x_high) / fmaxf(ea, er * mag);
@@ -97,14 +110,15 @@ __global__ void __launch_bounds__(kThreads) error_partial_kernel(
   }
 }
 
+// raw = 0: e2 = sqrt(sum / D) (K1/K2); raw = 1: the sum itself (K4's partial)
 __global__ void error_finish_kernel(const float* __restrict__ partial,
                                     float* __restrict__ e2, int n_tiles,
-                                    long long D) {
+                                    long long D, int raw) {
   const long long row = blockIdx.x;
   float v = 0.f;
   for (int j = threadIdx.x; j < n_tiles; j += 32) v += partial[row * n_tiles + j];
   v = warp_sum(v);
-  if (threadIdx.x == 0) e2[row] = sqrtf(v / static_cast<float>(D));
+  if (threadIdx.x == 0) e2[row] = raw ? v : sqrtf(v / static_cast<float>(D));
 }
 
 }  // namespace
@@ -113,17 +127,15 @@ extern "C" int solver_step_num_tiles(long long D) {
   return static_cast<int>((D + kTile - 1) / kTile);
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, x', s2, z, x'_prev and x'' share it).
-// Coefficients and tolerances are (B,) float32; partial is (B, num_tiles(D))
-// float32 scratch. Launches on `stream`; returns cudaGetLastError().
-extern "C" int solver_step_error(const void* x, const void* xp, const void* s2,
-                                 const void* z, const void* xv, const void* e0,
-                                 const void* d1, const void* d2,
-                                 const void* eps_abs, const void* eps_rel,
-                                 void* xh, void* e2, void* partial, long long B,
-                                 long long D, int dtype, int use_prev,
-                                 void* stream) {
-  if (B <= 0 || B > 65535 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+namespace {
+
+int launch_error(const void* x, const void* xp, const void* s2, const void* z,
+                 const void* xv, const void* e0, const void* d1, const void* d2,
+                 const void* eps_abs, const void* eps_rel, void* xh, void* e2,
+                 void* partial, long long B, long long D, long long ld_in,
+                 long long ld_out, int dtype, int use_prev, int raw, void* stream) {
+  if (B <= 0 || B > 65535 || D <= 0 || ld_in < D || ld_out < D)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = solver_step_num_tiles(D);
   const dim3 grid(n_tiles, static_cast<unsigned>(B));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -138,20 +150,53 @@ extern "C" int solver_step_error(const void* x, const void* xp, const void* s2,
         static_cast<const float*>(x), static_cast<const float*>(xp),
         static_cast<const float*>(s2), static_cast<const float*>(z),
         static_cast<const float*>(xv), f_e0, f_d1, f_d2, f_ea, f_er,
-        static_cast<float*>(xh), f_part, D, n_tiles, use_prev);
+        static_cast<float*>(xh), f_part, D, ld_in, ld_out, n_tiles, use_prev);
   } else if (dtype == 1) {
     using bf = __nv_bfloat16;
     error_partial_kernel<bf><<<grid, kThreads, 0, s>>>(
         static_cast<const bf*>(x), static_cast<const bf*>(xp),
         static_cast<const bf*>(s2), static_cast<const bf*>(z),
         static_cast<const bf*>(xv), f_e0, f_d1, f_d2, f_ea, f_er,
-        static_cast<bf*>(xh), f_part, D, n_tiles, use_prev);
+        static_cast<bf*>(xh), f_part, D, ld_in, ld_out, n_tiles, use_prev);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   error_finish_kernel<<<static_cast<unsigned>(B), 32, 0, s>>>(
-      f_part, static_cast<float*>(e2), n_tiles, D);
+      f_part, static_cast<float*>(e2), n_tiles, D, raw);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (x, x', s2, z, x'_prev and x'' share it).
+// Coefficients and tolerances are (B,) float32; partial is (B, num_tiles(D))
+// float32 scratch. Launches on `stream`; returns cudaGetLastError().
+extern "C" int solver_step_error(const void* x, const void* xp, const void* s2,
+                                 const void* z, const void* xv, const void* e0,
+                                 const void* d1, const void* d2,
+                                 const void* eps_abs, const void* eps_rel,
+                                 void* xh, void* e2, void* partial, long long B,
+                                 long long D, int dtype, int use_prev,
+                                 void* stream) {
+  return launch_error(x, xp, s2, z, xv, e0, d1, d2, eps_abs, eps_rel, xh, e2,
+                      partial, B, D, D, D, dtype, use_prev, 0, stream);
+}
+
+// K4's per-rank block: the operands are B rows of D columns, ld_in elements
+// apart (all five share the stride); x'' is written B rows of D columns,
+// ld_out apart; sums[row] is the raw fp32 sum of squared scaled residuals
+// over the block's D columns, in the same fixed order as solver_step_error.
+extern "C" int solver_step_error_sums(const void* x, const void* xp,
+                                      const void* s2, const void* z,
+                                      const void* xv, const void* e0,
+                                      const void* d1, const void* d2,
+                                      const void* eps_abs, const void* eps_rel,
+                                      void* xh, void* sums, void* partial,
+                                      long long B, long long D, long long ld_in,
+                                      long long ld_out, int dtype, int use_prev,
+                                      void* stream) {
+  return launch_error(x, xp, s2, z, xv, e0, d1, d2, eps_abs, eps_rel, xh, sums,
+                      partial, B, D, ld_in, ld_out, dtype, use_prev, 1, stream);
 }

@@ -13,11 +13,22 @@ or (B,) tensors; floats are broadcast into (B,) fp32 tensors, so the
 scalar and the per-sample form are one code path and a uniform vector
 gives the scalar path's bits by construction.
 
+``sharded_error_step`` (K4) is the step of one rank of a mesh, with the
+reference's signature: the operands are the rank's rows (its batch
+shard, every column). Batch-only, the rank runs the K1 kernel on its
+rows, which gives the unsharded step's bits for those rows; no
+collective is needed. With ``feature_axis`` the rank takes its
+contiguous range of the flattened columns (``feature_range``, in place,
+through a row stride), the kernel's partial mode returns its rows' raw
+sums of squared scaled residuals, and one all-reduce over the feature
+axis's group gives e2 = sqrt(Σ / D) (``scaled_error_l2_psum``).
+
 Dispatch is by the device of the tensors: CPU tensors take the plain
-versions (``ref.em_step``, ``ref.error_step``); CUDA tensors launch
-``csrc/em_step.cu`` or ``csrc/solver_step.cu``, or raise. There is no
-fallback from one to the other. ``em_launches`` counts K5's launches,
-``launches`` those of K1/K2.
+versions (``ref.em_step``, ``ref.error_step``, ``ref.error_step_sums``);
+CUDA tensors launch ``csrc/em_step.cu`` or ``csrc/solver_step.cu``, or
+raise. There is no fallback from one to the other. ``em_launches``
+counts K5's launches, ``launches`` those of K1/K2, ``sharded_launches``
+those of K4 (the same kernel, launched by ``sharded_error_step``).
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ Tensor = torch.Tensor
 launches = 0
 #: em_step (K5) kernel launches since the count was last set to 0
 em_launches = 0
+#: sharded_error_step (K4) kernel launches since the count was last set to 0
+sharded_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -73,19 +86,79 @@ def em_step(x, score, z, c0, c1, c2):
     return out.reshape(x.shape)
 
 
+def _step(states, e0, d1, d2, eps_abs, eps_rel, use_prev, *, raw, k4):
+    """The step on (B, D) operands: the plain version for CPU tensors, else
+    the kernel (``raw``: its partial mode; ``k4``: counted as K4's)."""
+    B = states[0].shape[0]
+    ea = per_sample_tolerance(eps_abs, B, states[0].device)
+    er = per_sample_tolerance(eps_rel, B, states[0].device)
+    _check(states, (e0, d1, d2, ea, er))
+    if states[0].device.type == "cpu":
+        plain = ref.error_step_sums if raw else ref.error_step
+        return plain(*states, e0, d1, d2, ea, er, use_prev=use_prev)
+    return _launch(*states, e0, d1, d2, ea, er, use_prev=use_prev, raw=raw, k4=k4)
+
+
 def error_step(x, x_prime, score2, z, x_prev, e0, d1, d2, *, eps_abs,
                eps_rel, use_prev: bool = True):
     """Fused x̃ / x'' / δ / scaled-ℓ2 error. Returns (x'', e2)."""
     B = x.shape[0]
-    ea = per_sample_tolerance(eps_abs, B, x.device)
-    er = per_sample_tolerance(eps_rel, B, x.device)
-    _check((x, x_prime, score2, z, x_prev), (e0, d1, d2, ea, er))
     flat = [a.reshape(B, -1) for a in (x, x_prime, score2, z, x_prev)]
-    if x.device.type == "cpu":
-        xh, e2 = ref.error_step(*flat, e0, d1, d2, ea, er, use_prev=use_prev)
-    else:
-        xh, e2 = _launch(*flat, e0, d1, d2, ea, er, use_prev=use_prev)
+    xh, e2 = _step(flat, e0, d1, d2, eps_abs, eps_rel, use_prev, raw=False, k4=False)
     return xh.reshape(x.shape), e2
+
+
+def error_step_sums(x, x_prime, score2, z, x_prev, e0, d1, d2, *, eps_abs,
+                    eps_rel, use_prev: bool = True):
+    """K4's per-rank partial on (B, D) blocks, which may be column views of
+    a wider state (inner stride 1, one row stride for all five). Returns
+    (x'' (B, D) contiguous, Σ r² (B,) fp32)."""
+    return _step((x, x_prime, score2, z, x_prev), e0, d1, d2, eps_abs, eps_rel,
+                 use_prev, raw=True, k4=True)
+
+
+def feature_range(D: int, n: int, i: int) -> tuple:
+    """Columns [start, stop) of shard ``i`` of ``n`` over a flattened width
+    ``D``: contiguous ranges of ceil(D / n), the last one ragged (or
+    empty, where D is small)."""
+    per = -(-D // n)
+    return min(i * per, D), min((i + 1) * per, D)
+
+
+def sharded_error_step(x, x_prime, score2, z, x_prev, e0, d1, d2, *, eps_abs,
+                       eps_rel, mesh, batch_axes, feature_axis=None,
+                       use_prev: bool = True):
+    """``error_step`` on one rank of ``mesh`` (K4).
+
+    The operands are this rank's rows (B_local, ...) of every column, the
+    coefficients and any (B,) tolerances its (B_local,) rows: the batch
+    is already split over ``batch_axes`` by the caller's sharding.
+    Returns (x'', e2 (B_local,)). Batch-only, x'' has x's shape. With
+    ``feature_axis``, x'' is this rank's (B_local, D_local) block of the
+    flattened state, columns ``feature_range(D, f, coord)``, and e2 is
+    the error over all D columns, combined across the feature axis's
+    ranks with one all-reduce.
+    """
+    from repro_torch.parallel.collectives import scaled_error_l2_psum
+
+    batch_axes = (batch_axes,) if isinstance(batch_axes, str) else tuple(batch_axes)
+    for a in batch_axes + ((feature_axis,) if feature_axis else ()):
+        if a not in mesh.axis_names:
+            raise ValueError(f"axis {a!r} is not in the mesh {mesh.axis_names}")
+    B = x.shape[0]
+    flat = [a.reshape(B, -1) for a in (x, x_prime, score2, z, x_prev)]
+    if feature_axis is None:
+        xh, e2 = _step(flat, e0, d1, d2, eps_abs, eps_rel, use_prev, raw=False, k4=True)
+        return xh.reshape(x.shape), e2
+    D = flat[0].shape[1]
+    start, stop = feature_range(D, mesh.shape[feature_axis], mesh.coord(feature_axis))
+    if stop > start:
+        xh, sums = error_step_sums(*(a[:, start:stop] for a in flat), e0, d1, d2,
+                                   eps_abs=eps_abs, eps_rel=eps_rel, use_prev=use_prev)
+    else:
+        xh = flat[0].new_empty(B, 0)
+        sums = torch.zeros(B, dtype=torch.float32, device=x.device)
+    return xh, scaled_error_l2_psum(sums, stop - start, mesh.group(feature_axis))
 
 
 def _declare(lib):
@@ -94,6 +167,10 @@ def _declare(lib):
         fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] * 2
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.solver_step_error_sums.argtypes = (
+            [ctypes.c_void_p] * 13 + [ctypes.c_longlong] * 4
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.solver_step_error_sums.restype = ctypes.c_int
         lib.solver_step_num_tiles.argtypes = [ctypes.c_longlong]
         lib.solver_step_num_tiles.restype = ctypes.c_int
         lib.solver_step_em.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2
@@ -125,25 +202,45 @@ def _launch_em(x, s, z, c0, c1, c2):
     return out
 
 
-def _launch(x, xp, s2, z, xv, e0, d1, d2, ea, er, *, use_prev):
-    global launches
-    operands = (x, xp, s2, z, xv, e0, d1, d2, ea, er)
-    if not all(a.is_contiguous() for a in operands):
-        raise ValueError("solver_step kernel operands must be contiguous")
+def _launch(x, xp, s2, z, xv, e0, d1, d2, ea, er, *, use_prev, raw=False, k4=False):
+    """Launch K1 on (B, D) operands, or with ``raw`` its partial mode on
+    (B, D) blocks that share one row stride (K4's per-rank body). The
+    launch counts in ``sharded_launches`` with ``k4``, else in
+    ``launches``."""
+    global launches, sharded_launches
+    states = (x, xp, s2, z, xv)
     B, D = x.shape
+    if raw:
+        ld = x.stride(0) if B > 1 else D
+        if not all(a.stride(1) == 1 and (B == 1 or a.stride(0) == ld) for a in states):
+            raise ValueError("solver_step kernel blocks must have unit inner stride "
+                             "and one row stride")
+    elif not all(a.is_contiguous() for a in states):
+        raise ValueError("solver_step kernel operands must be contiguous")
+    if not all(c.is_contiguous() for c in (e0, d1, d2, ea, er)):
+        raise ValueError("solver_step kernel coefficients must be contiguous")
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the kernel's grid limit 65535")
     lib = _declare(_build.library())
-    xh = torch.empty_like(x)
+    xh = torch.empty(B, D, dtype=x.dtype, device=x.device)
     e2 = torch.empty(B, dtype=torch.float32, device=x.device)
     partial = torch.empty(B, lib.solver_step_num_tiles(D),
                           dtype=torch.float32, device=x.device)
+    ptrs = [a.data_ptr() for a in states + (e0, d1, d2, ea, er)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.solver_step_error(
-            *(a.data_ptr() for a in operands), xh.data_ptr(), e2.data_ptr(),
-            partial.data_ptr(), B, D, _DTYPES[x.dtype], int(use_prev), stream)
+        if raw:
+            rc = lib.solver_step_error_sums(
+                *ptrs, xh.data_ptr(), e2.data_ptr(), partial.data_ptr(), B, D,
+                ld, D, _DTYPES[x.dtype], int(use_prev), stream)
+        else:
+            rc = lib.solver_step_error(
+                *ptrs, xh.data_ptr(), e2.data_ptr(), partial.data_ptr(), B, D,
+                _DTYPES[x.dtype], int(use_prev), stream)
     if rc != 0:
         raise RuntimeError(f"solver_step kernel launch failed: CUDA error {rc}")
-    launches += 1
+    if k4:
+        sharded_launches += 1
+    else:
+        launches += 1
     return xh, e2

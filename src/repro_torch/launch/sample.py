@@ -14,20 +14,32 @@ A fresh DiT returns exactly 0 (its adaLN and output projections start at
 zero), so ``--liven-seed`` gives those leaves random values first; the
 launcher's default livens with seed 0, and ``--liven-seed -1`` keeps the
 reference demo's zero-output network.
+
+Under ``torchrun`` (``WORLD_SIZE`` set) the launcher is data-parallel:
+each rank initialises the process group from torchrun's environment
+(NCCL on ``cuda``, each rank on card ``LOCAL_RANK``; gloo on ``cpu``),
+builds a ``("data", "model")`` mesh of WORLD_SIZE × 1 and samples with
+``mesh=``; rank 0 prints the gathered result's record. Only the adaptive
+solve runs there: the baselines are not data-parallel yet (ROADMAP A11).
+
+  torchrun --nproc-per-node 2 --master-addr localhost --master-port 29500 \
+      -m repro_torch.launch.sample --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
+import os
 import time
 
 import torch
 
 from repro_torch.configs.diffusion import ARCHS
 from repro_torch.core.precision import PRESETS, resolve_policy
-from repro_torch.core.sampling import sample
+from repro_torch.core.sampling import gather_result, sample
 from repro_torch.core.sde import VPSDE
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -54,12 +66,16 @@ def build_score(arch: str, *, flash: bool, precision: str, seed: int,
 def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
         eps_rel: float = 0.05, max_iters: int = 100_000, flash: bool = False,
         fused: bool = False, seed: int = 0, liven_seed: int = 0,
-        device="cuda", method: str = "adaptive", **solver_kwargs) -> dict:
+        device="cuda", method: str = "adaptive", mesh=None,
+        **solver_kwargs) -> dict:
     """One sample with ``method``; returns the record the launcher prints.
 
     ``eps_rel``, ``max_iters``, ``fused`` and ``precision`` configure the
     adaptive solver; ``solver_kwargs`` go to the solver as they are (for
-    example ``n_steps`` for the fixed-grid baselines).
+    example ``n_steps`` for the fixed-grid baselines). With ``mesh`` the
+    solve is data-parallel (a collective: every rank calls ``run``); the
+    wall time is this rank's, and the record describes the whole batch,
+    gathered from every rank after the timed solve.
     """
     dev = resolve_device(device)
     cfg, model, score = build_score(arch, flash=flash, precision=precision,
@@ -69,15 +85,22 @@ def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
         solver_kwargs = dict(eps_rel=eps_rel, max_iters=max_iters,
                              use_fused_kernel=fused, precision=precision,
                              **solver_kwargs)
-    before = (step_ops.launches, step_ops.em_launches, flash_ops.launches)
+    before = (step_ops.launches, step_ops.em_launches, flash_ops.launches,
+              step_ops.sharded_launches)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     res = sample(VPSDE(), score, shape, seed=seed, device=dev, method=method,
-                 **solver_kwargs)
+                 mesh=mesh, **solver_kwargs)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
+    launches = {"solver_step": step_ops.launches - before[0],
+                "em_step": step_ops.em_launches - before[1],
+                "flash_attention": flash_ops.launches - before[2],
+                "sharded_solver_step": step_ops.sharded_launches - before[3]}
+    if mesh is not None:
+        res = gather_result(res, mesh, batch)
     return {
         "arch": arch, "method": method, "params": param_count(model),
         "batch": batch, "precision": precision,
@@ -88,9 +111,8 @@ def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
         "wall_s": wall,
         "finite": bool(torch.isfinite(res.x).all()),
         "shape": list(res.x.shape),
-        "launches": {"solver_step": step_ops.launches - before[0],
-                     "em_step": step_ops.em_launches - before[1],
-                     "flash_attention": flash_ops.launches - before[2]},
+        "launches": launches,
+        "ranks": 1 if mesh is None else mesh.size,
         "result": res,
     }
 
@@ -121,15 +143,40 @@ def main(argv=None) -> list:
                     help="seed for the zero-init leaves; -1 keeps them at 0")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    mesh, device = None, args.device
+    methods = (("adaptive", {}), ("em", dict(n_steps=100)))
+    if "WORLD_SIZE" in os.environ:
+        mesh = _torchrun_mesh(args.device)
+        device, methods = mesh.device, methods[:1]
     recs = []
-    for method, kw in (("adaptive", {}), ("em", dict(n_steps=100))):
+    for method, kw in methods:
         rec = run(args.arch, batch=args.batch, precision=args.precision,
                   eps_rel=args.eps_rel, max_iters=args.max_iters, flash=args.flash,
                   fused=args.fused, seed=args.seed, liven_seed=args.liven_seed,
-                  device=args.device, method=method, **kw)
-        print(json.dumps({k: v for k, v in rec.items() if k != "result"}))
+                  device=device, method=method, mesh=mesh, **kw)
+        if mesh is None or mesh.coordinate == (0, 0):
+            print(json.dumps({k: v for k, v in rec.items() if k != "result"}))
         recs.append(rec)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return recs
+
+
+def _torchrun_mesh(device: str):
+    """The WORLD_SIZE × 1 mesh of a torchrun job: NCCL with one card per
+    rank on ``cuda``, gloo on ``cpu``; torchrun's environment gives the
+    rendezvous address."""
+    from repro_torch.parallel import init_mesh
+
+    world, local = int(os.environ["WORLD_SIZE"]), int(os.environ.get("LOCAL_RANK", 0))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = resolve_device(torch.device("cuda", local))
+        torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo", init_method="env://",
+        timeout=datetime.timedelta(seconds=60))
+    return init_mesh(world, 1, device=dev)
 
 
 if __name__ == "__main__":

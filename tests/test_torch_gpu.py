@@ -25,7 +25,11 @@ K7 ``ssd_scan``: against the sequential oracle rtol = atol = 3e-4, the
 reference's own bound of its kernel (``tests/test_kernels_ssd.py``);
 against the plain chunked version 6e-4, since each of the two is held to
 3e-4 of the oracle and they chunk differently (64 against 128 rows); bf16
-one bf16 ulp more. Bitwise equal on a second call.
+one bf16 ulp more. Bitwise equal on a second call. K4, the sharded step:
+x'' bitwise equal to K1's on every column range and batch half; the
+partial sums within 1e-5 of the plain version's, as K1's e2; the range
+sums combined within 1e-6 of K1's e2 (the same tile sums in another
+grouping); batch-only e2 bitwise equal to K1's.
 """
 
 import dataclasses
@@ -92,6 +96,72 @@ def test_solver_step_kernel_matches_plain(cuda, D, dtype, vector):
     torch.testing.assert_close(e2, er2, rtol=1e-5, atol=1e-6)
     again = step_ops.error_step(*states, *coeffs, **kw)
     assert torch.equal(again[0], xh) and torch.equal(again[1], e2)  # deterministic
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("D", [196_608, 4_999], ids=["main_path", "ragged"])
+def test_sharded_step_partial_sums_match_plain(cuda, D, f, dtype):
+    """K4's partial mode on f column ranges of the DiT state (views, read in
+    place): x'' bitwise equal to K1's columns, the sums within 1e-5 of the
+    plain version's, and the sums combined in range order within 1e-6 of
+    K1's e2 on the whole state (the same tile sums, added in another
+    grouping)."""
+    states, coeffs, (ea, er) = _step_inputs(8, D, dtype, cuda, seed=1)
+    xh, e2 = step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+    before = step_ops.sharded_launches
+    total = torch.zeros(8, device=cuda)
+    for i in range(f):
+        a, b = step_ops.feature_range(D, f, i)
+        block = [t[:, a:b] for t in states]
+        bx, bs = step_ops.error_step_sums(*block, *coeffs, eps_abs=ea, eps_rel=er)
+        px, ps = step_ref.error_step_sums(*block, *coeffs, ea, er)
+        torch.cuda.synchronize()
+        assert torch.equal(bx, xh[:, a:b])
+        torch.testing.assert_close(bx.float(), px.float(), **X_TOL[dtype])
+        torch.testing.assert_close(bs, ps, rtol=1e-5, atol=0)
+        total = total + bs
+    assert step_ops.sharded_launches == before + f
+    torch.testing.assert_close(torch.sqrt(total / D), e2, rtol=1e-6, atol=0)
+
+
+@pytest.fixture
+def one_rank_mesh(cuda):
+    """A 1×1 mesh over a real NCCL process group of one rank."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.sharded_selftest import free_port
+    from repro_torch.parallel import init_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0, timeout=datetime.timedelta(seconds=60))
+    try:
+        yield init_mesh(1, 1, device=cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_sharded_step_on_batch_halves_is_k1_bitwise(cuda, one_rank_mesh, dtype):
+    """``sharded_error_step`` on each half of the batch (a one-rank NCCL
+    mesh) gives K1's bits for those rows, batch-only and through the
+    partial mode and its all-reduce with a feature axis of one."""
+    states, coeffs, (ea, er) = _step_inputs(8, 196_608, dtype, cuda, seed=2)
+    xh, e2 = step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+    mesh = one_rank_mesh
+    for rows in (slice(0, 4), slice(4, 8)):
+        local = [t[rows] for t in states] + [c[rows] for c in coeffs]
+        bx, be = step_ops.sharded_error_step(*local, eps_abs=ea[rows], eps_rel=er[rows],
+                                             mesh=mesh, batch_axes="data")
+        fx, fe = step_ops.sharded_error_step(*local, eps_abs=ea[rows], eps_rel=er[rows],
+                                             mesh=mesh, batch_axes="data",
+                                             feature_axis="model")
+        torch.cuda.synchronize()
+        assert torch.equal(bx, xh[rows]) and torch.equal(be, e2[rows])
+        assert torch.equal(fx, xh[rows])
+        torch.testing.assert_close(fe, e2[rows], rtol=1e-6, atol=0)
 
 
 CASES = [

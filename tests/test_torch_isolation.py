@@ -254,3 +254,51 @@ def test_port_scan_covers_the_lm_slice():
               "models/transformer.py", "models/config.py", "models/kvcache.py",
               "configs/mamba2_2_7b.py", "launch/steps.py", "launch/serve.py"):
         assert f"src/repro_torch/{f}" in names
+
+
+def test_port_scan_covers_the_sharded_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py",
+              "parallel/collectives.py", "launch/mesh.py", "launch/sharded_selftest.py"):
+        assert f"src/repro_torch/{f}" in names
+
+
+def test_sharded_path_has_no_single_process_fallback(no_card):
+    """Without a process group the mesh is not built; without a card the
+    card's selftest and a sharded solve raise."""
+    from repro_torch.launch import sharded_selftest
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import Mesh, init_mesh
+
+    with pytest.raises(RuntimeError, match="process group"):
+        init_mesh(1, 1, device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        make_host_mesh(device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharded_selftest.run(1)  # the card unless the caller asks for the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharded_selftest.run(1, device="cuda", backend="nccl")
+    with pytest.raises(ValueError, match="NCCL"):
+        sharded_selftest.run(1, device="cpu", backend="nccl")
+    sde = VPSDE()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sampling.sample(sde, analytic.gaussian_score(sde), (2, 3),
+                        mesh=Mesh(("data",), (1,), (0,)))
+
+
+def test_sharded_step_wrappers_do_not_fall_back(monkeypatch):
+    """K4: meta tensors are refused by the sharded step and its partial
+    mode; the plain partial is taken only for CPU tensors."""
+    from repro_torch.parallel import Mesh
+
+    monkeypatch.setattr(step_ref, "error_step_sums", _never)
+    monkeypatch.setattr(step_ref, "error_step", _never)
+    meta = lambda *s: torch.empty(*s, device="meta")
+    args = [meta(2, 8) for _ in range(5)] + [meta(2) for _ in range(3)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        step_ops.error_step_sums(*args, eps_abs=0.01, eps_rel=0.05)
+    mesh = Mesh(("data", "model"), (1, 1), (0, 0))
+    for feature in (None, "model"):
+        with pytest.raises(ValueError, match="unsupported device"):
+            step_ops.sharded_error_step(*args, eps_abs=0.01, eps_rel=0.05, mesh=mesh,
+                                        batch_axes="data", feature_axis=feature)
