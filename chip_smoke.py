@@ -9,7 +9,10 @@ Phases; any failure exits non-zero before the result line is printed:
              nvcc for sm_90a; print the build time and the ptxas lines.
 2. kernels — each kernel against its plain PyTorch version, on the card,
              at the main paths' shapes and at edge shapes, each against
-             its stated bound (GroupNorm → SiLU at all 17 shapes of a
+             its stated bound (K3, flash attention, fp32 and bf16 at the
+             DiT's and the planning shapes, GQA with a causal window, a
+             ragged S = 75 with true_len 50, D = 256, each the same bits
+             on a second call; GroupNorm → SiLU at all 17 shapes of a
              TRAJ_UNET forward, fp32 and bf16, and at x = 1e3 + N(0, 1);
              K5 at the DiT, Table-2 and planning states and a ragged D,
              fp32 and bf16, and a misaligned view, which must raise; K7,
@@ -59,7 +62,11 @@ Phases; any failure exits non-zero before the result line is printed:
              an eager loop), beside its bound, its plain version and, for
              attention,
              ``torch.nn.functional.scaled_dot_product_attention`` (a
-             yardstick only; the port never calls it); one TRAJ_UNET
+             yardstick only; the port never calls it), K3 in fp32 and
+             bf16 at the DiT's shape against both fp32 bounds (CUDA cores,
+             3xTF32 tensor cores) and the bf16 one, and ptxas's registers
+             and spills for K3's instantiations with their shared
+             memory; one TRAJ_UNET
              forward at 128 rows, eager and as a replayed graph; K5 at
              the DiT state and the Table-2 state; K7 at the prefill shape
              and at (1, 32768, 80, 64, 1, 128).
@@ -119,6 +126,8 @@ MAIN_MAX_ITERS = 400
 #: published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12       # CUDA cores, no tensor cores
+TF32_FLOPS = 495e12      # tensor cores, dense
+BF16_FLOPS = 989e12      # tensor cores, dense
 #: flops per element of the fused solver step (x̃ 6, x'' 2, δ 5, r² and sum 4)
 STEP_FLOPS_PER_ELEMENT = 17
 #: flops per element of GroupNorm → SiLU (sum 1; deviation² and sum 3;
@@ -155,6 +164,10 @@ K4_E2_RTOL = 1e-6
 PLAIN_STEP = "ref.py, x-tilde as three fused multiply-adds emulated in fp64"
 #: seconds one run of the sharded selftest may take
 SELFTEST_TIMEOUT_S = 300
+#: K3 against its plain version, times (1 + max|out|): fp32 3e-5 (online
+#: against two-pass softmax, sums in another order), bf16 2e-2 (P and the
+#: output rounded to bf16)
+ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 
 
 def ulp(dtype, mag: float) -> float:
@@ -213,6 +226,37 @@ def device_ms(fn, sets, reps: int = 40, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+def flash_build_summary(log: str) -> None:
+    """K3's instantiations as ptxas built them (registers, spills) with the
+    dynamic shared memory and launch shape the library reports for S = 256."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build
+    if not log:
+        print("  flash_fwd_kernel: no ptxas log (the library was built before this run)")
+        return
+    lib = _build.library()
+    cur = None
+    for line in log.splitlines() + ["Compiling entry function 'end'"]:
+        if "Compiling entry function" in line:
+            if cur:
+                dtype, dp = cur["dtype"], cur["dp"]
+                w, keys, smem = (ctypes.c_int() for _ in range(3))
+                lib.flash_attention_config(256, dp, int(dtype == "bf16"), ctypes.byref(w),
+                                           ctypes.byref(keys), ctypes.byref(smem))
+                print(f"  flash_fwd_kernel<{dtype}, {dp}>: {cur['regs']} registers, spill "
+                      f"stores/loads {cur['st']}/{cur['ld']} bytes, {smem.value:,} bytes of "
+                      f"dynamic shared memory ({w.value} warps, {keys.value}-key tiles)")
+            m = re.search(r"flash_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)E", line)
+            cur = m and {"dtype": "fp32" if m[1] == "f" else "bf16", "dp": int(m[2]),
+                         "regs": "?", "st": 0, "ld": 0}
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            cur["st"], cur["ld"] = max(cur["st"], int(m[1])), max(cur["ld"], int(m[2]))
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            cur["regs"] = int(m[1])
 
 
 def ssd_inputs(B, S, H, P, G, N, *, gen, dtype=torch.float32):
@@ -578,25 +622,38 @@ def main() -> None:
                     fail("solver_step kernel disagrees with its plain version")
                 step_err[(dtype, d, vector)] = x_err
     attn_err = {}
-    for (b, hq, hkv, s, dh, causal, window, dtype, tol) in (
-            (B, H, H, S, Dh, False, None, torch.float32, 3e-5),
-            (B, H, H, S, Dh, False, None, torch.bfloat16, 2e-2),
-            (2, 4, 2, 200, 32, True, 64, torch.float32, 3e-5),
-            (1, 2, 2, 25, 64, False, None, torch.float32, 3e-5)):
+    plan_attn = (2 * PLAN_BATCH, TRAJ_UNET.attn_heads, TRAJ_UNET.attn_heads,
+                 TRAJ_UNET.horizon // 2 ** (len(TRAJ_UNET.mults) - 1),
+                 TRAJ_UNET.base * TRAJ_UNET.mults[-1] // TRAJ_UNET.attn_heads)
+    for (b, hq, hkv, s, dh, causal, window, true_len, dtype) in (
+            (B, H, H, S, Dh, False, None, None, torch.float32),
+            (B, H, H, S, Dh, False, None, None, torch.bfloat16),
+            (*plan_attn, False, None, None, torch.float32),
+            (*plan_attn, False, None, None, torch.bfloat16),
+            (2, 4, 2, 200, 32, True, 64, None, torch.float32),
+            (2, 4, 2, 200, 32, True, 64, None, torch.bfloat16),
+            (1, 2, 2, 25, 64, False, None, None, torch.float32),
+            (2, 4, 4, 75, 64, False, None, 50, torch.float32),
+            (2, 4, 4, 75, 64, True, None, 50, torch.bfloat16),
+            (1, 4, 4, 64, 256, True, None, None, torch.float32),
+            (1, 4, 4, 64, 256, False, None, None, torch.bfloat16)):
         q = torch.randn(b, hq, s, dh, generator=gen, device=dev).to(dtype)
         k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(dtype)
                 for _ in range(2))
-        out = flash_ops.attention(q, k, v, causal=causal, window=window)
-        want = flash_ref.attention(q, k, v, causal=causal, window=window)
+        kw = dict(causal=causal, window=window, true_len=true_len)
+        out = flash_ops.attention(q, k, v, **kw)
+        want = flash_ref.attention(q, k, v, **kw)
+        again = flash_ops.attention(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
-        bound = tol * (1 + want.float().abs().max().item())
-        ok = err <= bound
+        bound = ATTN_TOL[dtype] * (1 + want.float().abs().max().item())
+        same = torch.equal(again, out)
+        ok = err <= bound and same
         print(f"  flash_attention {(b, hq, hkv, s, dh)} causal={causal} window={window} "
-              f"{str(dtype)[6:]}: max abs err {err:.3e} (bound {bound:.1e}) "
-              f"{'ok' if ok else 'FAIL'}")
+              f"true_len={true_len} {str(dtype)[6:]}: max abs err {err:.3e} (bound "
+              f"{bound:.1e}), same bits on a second call {same} {'ok' if ok else 'FAIL'}")
         if not ok:
-            fail("flash attention kernel disagrees with its plain version")
+            fail("flash attention kernel disagrees with its plain version or itself")
         attn_err[(s, dtype, causal)] = err
     # GroupNorm → SiLU at the 17 (H, C) of one TRAJ_UNET forward, 2·64 rows
     gn_shapes = ([(32, 32)] * 2 + [(16, 32), (16, 64), (8, 64)] + [(8, 128)] * 7
@@ -998,15 +1055,29 @@ def main() -> None:
     k3_host = timed_ms(k3, sets, 200)
     k3_bytes = 4 * B * H * S * Dh * 4
     k3_ops = 4 * B * H * S * S * Dh
-    k3_bound = max(k3_bytes / HBM_BYTES_PER_S, k3_ops / FP32_FLOPS) * 1e3
+    # fp32 as 3xTF32: three tensor-core products for each of the two
+    k3_bound = max(k3_bytes / HBM_BYTES_PER_S, 3 * k3_ops / TF32_FLOPS) * 1e3
+    k3_bound_cuda_cores = max(k3_bytes / HBM_BYTES_PER_S, k3_ops / FP32_FLOPS) * 1e3
+    sets = [tuple(a.to(torch.bfloat16) for a in st) for st in sets for _ in range(2)]
+    k3b_ms, k3b_plain, k3b_lib = (device_ms(f, sets) for f in (k3, k3_plain_fn, k3_lib_fn))
+    k3b_bound = max(k3_bytes / 2 / HBM_BYTES_PER_S, k3_ops / BF16_FLOPS) * 1e3
+    del sets
     print(f"  solver_step (8, {D}) fp32, per-sample eps: {k1_ms * 1e3:.1f} us on the device, "
           f"bound {k1_bound * 1e3:.1f} us ({k1_bytes / 1e6:.1f} MB at 3.35 TB/s), "
           f"{k1_bytes / (k1_ms * 1e-3) / 1e12:.2f} TB/s achieved; plain {k1_plain * 1e3:.1f} us; "
           f"eager loop with host gaps: kernel {k1_host * 1e3:.1f} us, plain {k1_plain_host * 1e3:.1f} us")
-    print(f"  flash_attention {(B, H, S, Dh)} fp32: {k3_ms * 1e3:.1f} us on the device, bound "
-          f"{k3_bound * 1e3:.1f} us ({k3_ops / 1e9:.2f} GFLOP at 67 TFLOP/s fp32), "
+    print(f"  flash_attention {(B, H, S, Dh)} fp32 (mma.sync 3xTF32): {k3_ms * 1e3:.2f} us on "
+          f"the device; bounds: 3xTF32 on the tensor cores {k3_bound * 1e3:.2f} us (3 x "
+          f"{k3_ops / 1e9:.2f} GFLOP at 495 TFLOP/s; {k3_bound / k3_ms:.0%} of it reached), fp32 "
+          f"on the CUDA cores {k3_bound_cuda_cores * 1e3:.2f} us (67 TFLOP/s); "
           f"{k3_ops / (k3_ms * 1e-3) / 1e12:.1f} TFLOP/s achieved; plain {k3_plain * 1e3:.1f} us; "
-          f"SDPA {k3_lib * 1e3:.1f} us; eager loop with host gaps: kernel {k3_host * 1e3:.1f} us")
+          f"SDPA {k3_lib * 1e3:.2f} us; eager loop with host gaps: kernel {k3_host * 1e3:.1f} us")
+    print(f"  flash_attention {(B, H, S, Dh)} bf16 (mma.sync bf16): {k3b_ms * 1e3:.2f} us on the "
+          f"device; bound {k3b_bound * 1e3:.2f} us ({k3_bytes / 2e6:.1f} MB at 3.35 TB/s; "
+          f"{k3_ops / BF16_FLOPS * 1e6:.2f} us by operations at 989 TFLOP/s; "
+          f"{k3b_bound / k3b_ms:.0%} of it reached); plain {k3b_plain * 1e3:.1f} us; SDPA bf16 "
+          f"{k3b_lib * 1e3:.2f} us")
+    flash_build_summary(log)
 
     # K5 at the DiT state and the Table-2 state
     k5 = lambda *a: step_ops.em_step(*a)
@@ -1066,7 +1137,7 @@ def main() -> None:
     k3p_ms, k3p_plain, k3p_lib = (device_ms(f, sets) for f in (k3, k3_plain_fn, k3_lib_fn))
     k3p_bytes = 4 * 2 * PLAN_BATCH * ah * a_s * ahd * 4
     k3p_bound = max(k3p_bytes / HBM_BYTES_PER_S,
-                    4 * 2 * PLAN_BATCH * ah * a_s * a_s * ahd / FP32_FLOPS) * 1e3
+                    3 * 4 * 2 * PLAN_BATCH * ah * a_s * a_s * ahd / TF32_FLOPS) * 1e3
     print(f"  solver_step ({PLAN_BATCH}, {D_plan}) fp32: {k1p_ms * 1e3:.2f} us on the device, "
           f"bound {k1p_bound * 1e3:.2f} us; plain {k1p_plain * 1e3:.1f} us")
     print(f"  flash_attention {(2 * PLAN_BATCH, ah, a_s, ahd)} fp32: {k3p_ms * 1e3:.2f} us on "
@@ -1159,10 +1230,18 @@ def main() -> None:
          "replaces": "src/repro/kernels/flash_attention/kernel.py:102",
          "launches": launches["flash_attention"],
          "max_abs_err": attn_err[(S, torch.float32, False)],
+         "design": "mma.sync 3xTF32",
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-         "bound_by": "bytes" if k3_bytes / HBM_BYTES_PER_S >= k3_ops / FP32_FLOPS
+         "bound_by": "bytes" if k3_bytes / HBM_BYTES_PER_S >= 3 * k3_ops / TF32_FLOPS
          else "operations",
+         "bound_of": "3xTF32 on the tensor cores (3 x 4·B·H·S²·D at 495 TFLOP/s)",
+         "bound_fp32_cuda_cores_ms": k3_bound_cuda_cores,
          "library_ms": k3_lib,
+         "bf16": {"design": "mma.sync bf16", "ms": k3b_ms, "plain_ms": k3b_plain,
+                  "bound_ms": k3b_bound,
+                  "bound_by": "bytes" if k3_bytes / 2 / HBM_BYTES_PER_S >= k3_ops / BF16_FLOPS
+                  else "operations", "library_ms": k3b_lib,
+                  "max_abs_err": attn_err[(S, torch.bfloat16, False)]},
          "planning": {"launches": plan_launches["flash_attention"], "ms": k3p_ms,
                       "plain_ms": k3p_plain, "bound_ms": k3p_bound, "library_ms": k3p_lib}},
         {"name": "groupnorm_silu", "route": "cuda",

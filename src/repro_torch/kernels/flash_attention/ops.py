@@ -10,7 +10,11 @@ wrapper nothing is padded.
 Dispatch is by the device of the tensors: CPU tensors take the plain
 version (``ref.attention``); CUDA tensors launch
 ``csrc/flash_attention.cu`` or raise. There is no fallback from one to
-the other. ``launches`` counts kernel launches.
+the other. The kernel moves K/V tiles 16 bytes at a time
+(``cp.async``), so on the card q, k and v need 16-byte-aligned base
+pointers and (b, h, s) strides (``check_alignment``): every model
+tensor of fp32 or bf16 rows whose head width is a multiple of 4 (fp32)
+or 8 (bf16) has them. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -53,6 +57,24 @@ def _check(q, k, v, window, true_len):
         raise ValueError(f"true_len {true_len} outside [1, {S}]")
 
 
+def _aligned(t: Tensor) -> bool:
+    n = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        st % n == 0 for st, size in zip(t.stride()[:3], t.shape[:3]) if size > 1)
+
+
+def check_alignment(q: Tensor, k: Tensor, v: Tensor) -> None:
+    """Raise unless each of q, k, v starts on 16 bytes and steps over
+    batch, head and position by whole 16-byte units, as the kernel's
+    16-byte copies need. Dims of size 1 are never stepped over."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not _aligned(t):
+            raise ValueError(
+                f"flash attention needs 16-byte-aligned {name}: data_ptr % 16 = "
+                f"{t.data_ptr() % 16}, (b, h, s) strides {tuple(t.stride()[:3])} in "
+                f"{t.dtype} elements must be multiples of {16 // t.element_size()}")
+
+
 def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
               window: int | None = None, scale: float | None = None,
               true_len: int | None = None) -> Tensor:
@@ -80,11 +102,17 @@ def _launch(q, k, v, *, causal, window, scale, true_len):
     global launches
     if any(a.stride(-1) != 1 for a in (q, k, v)):
         raise ValueError("flash attention needs a contiguous last dimension")
+    check_alignment(q, k, v)
     B, Hq, S, D = q.shape
     if B * Hq > 65535:
         raise ValueError(f"B*Hq = {B * Hq} exceeds the kernel's grid limit 65535")
     lib = _declare(_build.library())
     out = torch.empty_like(q)  # keeps q's (b, h, s) layout
+    if not _aligned(out):
+        # q is a non-dense view whose head width is not a whole number of
+        # 16-byte units: the output gets padded rows
+        n = 16 // q.element_size()
+        out = q.new_empty(B, Hq, S, -(-D // n) * n)[..., :D]
     strides = [s for a in (q, k, v, out) for s in a.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -6,6 +6,11 @@ reference's Pallas kernel (interpret mode) and its ``ref.py`` on the same
 numpy inputs. Bounds: fp32 3e-5, as ``tests/test_kernels_flash_attention.py``
 holds the reference kernel to its oracle (online vs two-pass softmax,
 sums in another order); bf16 2e-2, one bf16 rounding of the output.
+
+The card's kernel computes both fp32 products in the 3xTF32 split form
+on the tensor cores; ``test_3xtf32_split_keeps_fp32_accuracy`` emulates
+that scheme here and shows why the split is needed: a single TF32 pass
+misses the fp32 bound.
 """
 
 import jax.numpy as jnp
@@ -118,3 +123,71 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ops.attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):
         ops.attention(q, k, v, window=0)
+
+
+def test_alignment_check_enforces_16_byte_rows():
+    """The kernel copies K/V 16 bytes at a time: base pointers and the
+    (b, h, s) strides of q, k, v must be whole 16-byte units. The check is
+    plain Python, so it runs here on CPU tensors."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 4, 4, 24, 32))
+    ops.check_alignment(q, k, v)
+    views = [a.transpose(1, 2).contiguous().transpose(1, 2) for a in (q, k, v)]
+    ops.check_alignment(*views)  # the model's (B, S, H, D) layout
+    ops.check_alignment(q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16))
+    ops.check_alignment(q[:1, :1], k[:1, :1], v[:1, :1])  # size-1 dims are never stepped
+    wide = torch.zeros(2, 4, 24, 33)
+    with pytest.raises(ValueError, match="16-byte"):  # row stride 33 floats
+        ops.check_alignment(wide[..., :32], k, v)
+    with pytest.raises(ValueError, match="16-byte"):  # base 4 bytes past 16
+        ops.check_alignment(q, wide[..., 1:33], v)
+    odd = torch.zeros(2, 4, 24, 36, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):  # 36 bf16 = 72 bytes a row
+        ops.check_alignment(q.to(torch.bfloat16), k.to(torch.bfloat16), odd[..., :32])
+
+
+def _tf32(x):
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, by bit masking: what cvt.rna.tf32.f32 does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _tf32_product(a, b, passes):
+    """a @ b on TF32 operands with an fp32 sum: one pass (hi·hi) or the
+    3xTF32 split (hi·lo + lo·hi first, then hi·hi)."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    if passes == 1:
+        return ah @ bh
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def _emulated_attention(q, k, v, passes):
+    scale = q.shape[-1] ** -0.5
+    s = _tf32_product(q, k.transpose(-1, -2), passes) * scale
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return _tf32_product(p, v, passes) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("shape", [(8, 12, 256, 64), (1, 4, 64, 256)],
+                         ids=["dit", "head_dim_256"])
+def test_3xtf32_split_keeps_fp32_accuracy(shape):
+    """Attention with both products on emulated TF32 tensor cores, against
+    an fp64 oracle, at the DiT's shape and at D = 256: the 3xTF32 split
+    stays within the port's fp32 bound 3e-5·(1 + max|out|), one TF32 pass
+    misses it. Why the card's fp32 kernel splits every operand."""
+    B, H, S, D = shape
+    q, k, v = (torch.from_numpy(a) for a in _qkv(B, H, H, S, D, seed=5))
+    q64, k64, v64 = (a.double() for a in (q, k, v))
+    p64 = torch.softmax(q64 @ k64.transpose(-1, -2) * D ** -0.5, dim=-1)
+    oracle = p64 @ v64
+    bound = 3e-5 * (1 + float(oracle.abs().max()))
+    err = {n: float((_emulated_attention(q, k, v, n).double() - oracle).abs().max())
+           for n in (1, 3)}
+    assert err[3] <= bound, err
+    assert err[1] > bound, err

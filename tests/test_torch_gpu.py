@@ -9,7 +9,7 @@ Run them on a machine with an H100:
 Bounds: solver step fp32 1e-5 (the kernel contracts a·b + c into FMAs
 and sums the row in another order); bf16 1e-2 on x'' (one bf16 ulp)
 with e2 still fp32 1e-5; flash attention fp32 3e-5 and bf16 2e-2, as on
-the CPU side; GroupNorm → SiLU fp32 1e-5 absolute and bf16 one bf16 ulp
+the CPU side, and the same bits on a second call and for strided views; GroupNorm → SiLU fp32 1e-5 absolute and bf16 one bf16 ulp
 plus that 1e-5 (both sides compute in fp32 and round once, so the
 rounded outputs differ by at most an ulp more than the fp32 values,
 which matters near zero, where an ulp is smaller than the fp32
@@ -171,6 +171,10 @@ CASES = [
     (2, 4, 2, 200, 32, True, 64, torch.float32),
     (1, 2, 1, 25, 16, False, None, torch.float32),
     (1, 4, 4, 64, 256, True, None, torch.float32),
+    (128, 4, 4, 8, 32, False, None, torch.float32),    # the planning shape
+    (128, 4, 4, 8, 32, False, None, torch.bfloat16),
+    (2, 4, 2, 200, 32, True, 64, torch.bfloat16),      # GQA, causal, window
+    (1, 4, 4, 64, 256, True, None, torch.bfloat16),
 ]
 
 
@@ -184,6 +188,62 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     want = flash_ref.attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), want.float(), **A_TOL[dtype])
+
+
+def _qkv_on(dev, B, Hq, Hkv, S, D, dtype, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Hq, S, D, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, Hkv, S, D, generator=g, device=dev).to(dtype) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_ragged_tiles_and_true_len(cuda, dtype, causal):
+    """S = 75 is no multiple of the kernel's 32-key tile, and keys at or
+    past true_len = 50 are masked: the ragged tiles are zero-filled."""
+    q, k, v = _qkv_on(cuda, 2, 4, 4, 75, 64, dtype)
+    out = flash_ops.attention(q, k, v, causal=causal, true_len=50)
+    want = flash_ref.attention(q, k, v, causal=causal, true_len=50)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), **A_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_same_bits_on_a_second_call(cuda, dtype):
+    """No atomics and fixed-order sums: the DiT's shape gives the same bits
+    on every call."""
+    q, k, v = _qkv_on(cuda, 8, 12, 12, 256, 64, dtype)
+    first = flash_ops.attention(q, k, v, causal=False)
+    assert torch.equal(flash_ops.attention(q, k, v, causal=False), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_model_layout_views_are_bitwise_copies(cuda, dtype):
+    """The DiT hands over transposed (B, S, H, D) views, read in place
+    through their strides: bitwise the result of contiguous copies. A view
+    whose rows are not 16-byte aligned is refused."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    views = [torch.randn(8, 256, 12, 64, generator=g, device=cuda).to(dtype).transpose(1, 2)
+             for _ in range(3)]
+    assert not views[0].is_contiguous()
+    out = flash_ops.attention(*views, causal=False)
+    assert torch.equal(out, flash_ops.attention(*(a.contiguous() for a in views),
+                                                causal=False))
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_ops.attention(views[0][..., 1:33], views[1][..., :32], views[2][..., :32])
+
+
+def test_flash_attention_odd_head_width_view_gets_aligned_output(cuda):
+    """q/k/v are views of wider rows (head width 33 of 36): their rows are
+    aligned, so the kernel takes them, and the output, which cannot copy
+    q's non-dense layout, gets rows padded to a 16-byte multiple."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 4, 40, 36, generator=g, device=cuda)[..., :33] for _ in range(3))
+    out = flash_ops.attention(q, k, v, causal=True)
+    assert out.shape == q.shape and out.stride(2) % 4 == 0
+    torch.testing.assert_close(out, flash_ref.attention(q, k, v, causal=True),
+                               **A_TOL[torch.float32])
 
 
 def test_dit_forward_flash_matches_plain_on_card(cuda):
