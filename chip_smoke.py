@@ -18,9 +18,13 @@ Phases; any failure exits non-zero before the result line is printed:
              fp32 and bf16, and a misaligned view, which must raise; K7,
              the SSD scan, at mamba2-2.7b's prefill shape (4, 2048, 80,
              64, 1, 128), a ragged S = 1000, several groups (1, 100, 8,
-             32, 2, 32) and prefill_32k's length (1, 32768, 80, 64, 1,
-             128), bitwise equal on a second call, y and the final state
-             against the sequential oracle at a small shape, and bf16).
+             32, 2, 32), prefill_32k's length (1, 32768, 80, 64, 1, 128)
+             and a shape split into ranges with a ragged last range (1,
+             5000, 8, 64, 1, 128), each with the range count the wrapper
+             picks: against the plain version, y and the final state
+             against the sequential oracle, bitwise equal on a second
+             call; y and the final state against the oracle at a small
+             shape, and bf16 at two shapes).
 3. main    — the first main path, ``repro_torch.launch.sample.run``:
              the 256×256 DiT (HIGHRES_DIT, weights from a seed, zero-init
              leaves livened), VP SDE, batch 8, eps_rel 0.05, fused solver
@@ -69,11 +73,15 @@ Phases; any failure exits non-zero before the result line is printed:
              memory; one TRAJ_UNET
              forward at 128 rows, eager and as a replayed graph; K5 at
              the DiT state and the Table-2 state; K7 at the prefill shape
-             and at (1, 32768, 80, 64, 1, 128).
+             and at (1, 32768, 80, 64, 1, 128) against both fp32 bounds
+             (CUDA cores, 3xTF32 tensor cores) and against itself on one
+             range a sequence, and ptxas's registers and spills for K7's
+             kernels with their shared memory.
 7. lm      — the third main path, last, after the DiT and UNet memory is
              freed: mamba2-2.7b at full width (2.83 B parameters, fp32,
              weights from a generator seeded 0). ``make_prefill_step``
-             with K7 on prompts (4, 2048) from seed 0 (K7 counts set to 0
+             as a caller calls it (its default routes the scan through
+             K7) on prompts (4, 2048) from seed 0 (K7 counts set to 0
              just before and read just after: one launch per layer), its
              last-position logits against the plain ``ssd_chunked`` path;
              ``launch.serve.serve_batch`` for 4 requests, prompt 16, gen
@@ -140,9 +148,13 @@ PLAN_BATCH, PLAN_OBS, PLAN_CFG = 64, 17, 1.5
 #: the closed-form Gaussian of the conformance gates
 MU0, S00 = 0.3, 0.5
 #: K7's shapes (B, S, H, P, G, N): mamba2-2.7b's prefill, a ragged S,
-#: several groups, and prefill_32k's sequence length
+#: several groups, prefill_32k's sequence length, and 8 heads over 5000
+#: rows, which the wrapper splits into ranges (79 chunks, a ragged last one)
 SSD_SHAPES = [(4, 2048, 80, 64, 1, 128), (4, 1000, 80, 64, 1, 128),
-              (1, 100, 8, 32, 2, 32), (1, 32768, 80, 64, 1, 128)]
+              (1, 100, 8, 32, 2, 32), (1, 32768, 80, 64, 1, 128),
+              (1, 5000, 8, 64, 1, 128)]
+#: the chunk of K7's yardstick (``ssd_work``), whatever chunk the kernel runs
+SSD_WORK_CHUNK = 64
 #: K7 against its plain version: each is within the reference's 3e-4 of the
 #: sequential oracle (tests/test_kernels_ssd.py) and they chunk differently
 SSD_TOL = 6e-4
@@ -259,6 +271,40 @@ def flash_build_summary(log: str) -> None:
             cur["regs"] = int(m[1])
 
 
+def ssd_build_summary(log: str) -> None:
+    """K7's kernels as ptxas built them (registers, spills) with the
+    dynamic shared memory and blocks an SM holds that the library reports."""
+    import re
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    if not log:
+        print("  ssd_scan: no ptxas log (the library was built before this run)")
+        return
+    cfg = {dt: ssd_ops.kernel_config(torch.cuda.current_device(), code)
+           for dt, code in (("fp32", 0), ("bf16", 1))}
+    cur = None
+    for line in log.splitlines() + ["Compiling entry function 'end'"]:
+        if "Compiling entry function" in line:
+            if cur:
+                c = cfg[cur["dtype"]]
+                smem = {"cb": c["smem_cb"], "pass 1": c["smem_states"],
+                        "pass 3": c["smem_chunks"]}[cur["kind"]]
+                per_sm = {"cb": "", "pass 1": f", {c['states_per_sm']} blocks an SM",
+                          "pass 3": f", {c['chunks_per_sm']} blocks an SM"}[cur["kind"]]
+                print(f"  ssd_scan {cur['kind']} ({cur['name']}, {cur['dtype']}): {cur['regs']} "
+                      f"registers, spill stores/loads {cur['st']}/{cur['ld']} bytes, {smem:,} "
+                      f"bytes of dynamic shared memory{per_sm}")
+            m = re.search(r"(ssd_scan_cb|ssd_scan_chunks)I(13__nv_bfloat16|f)(Lb[01])?E", line)
+            cur = m and {"name": m[1], "dtype": "fp32" if m[2] == "f" else "bf16",
+                         "kind": "cb" if m[1] == "ssd_scan_cb" else
+                         ("pass 3" if m[3] == "Lb1" else "pass 1"),
+                         "regs": "?", "st": 0, "ld": 0}
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            cur["st"], cur["ld"] = max(cur["st"], int(m[1])), max(cur["ld"], int(m[2]))
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            cur["regs"] = int(m[1])
+
+
 def ssd_inputs(B, S, H, P, G, N, *, gen, dtype=torch.float32):
     """K7's operands in the model's layout, as the reference's kernel test
     draws them: x, B, C normal, dt = softplus(normal), A = −exp(normal)."""
@@ -278,13 +324,12 @@ def excess(got, want, tol: float) -> tuple:
 
 
 def ssd_work(B, S, H, P, G, N) -> tuple:
-    """(flops, bytes) of one SSD scan in K7's formulation at its chunk Q:
-    per chunk, C·Bᵀ once per group on the causal half (Q(Q+1)/2·N), and
-    per head the masked scores times x (Q(Q+1)/2·P), C·state and the
-    state update (Q·N·P each), two flops a multiply-add; each input read
-    once and y written once."""
-    from repro_torch.kernels.ssd.ops import KERNEL_CHUNK as Q
-
+    """(flops, bytes) of one SSD scan in the chunked formulation at chunk
+    Q = SSD_WORK_CHUNK: per chunk, C·Bᵀ once per group on the causal half
+    (Q(Q+1)/2·N), and per head the masked scores times x (Q(Q+1)/2·P),
+    C·state and the state update (Q·N·P each), two flops a multiply-add;
+    each input read once and y written once."""
+    Q = SSD_WORK_CHUNK
     nc = -(-S // Q)
     tri = Q * (Q + 1) // 2
     fma = B * nc * (G * tri * N + H * (tri * P + 2 * Q * N * P))
@@ -327,7 +372,7 @@ def run_lm(dev) -> dict:
           f"fp32, made in {time.perf_counter() - t0:.1f} s")
     g = torch.Generator(device=dev).manual_seed(0)
     prompts = torch.randint(0, cfg.vocab_size, LM_PREFILL, generator=g, device=dev)
-    prefill = make_prefill_step(cfg, use_kernel_ssd=True, device=dev)
+    prefill = make_prefill_step(cfg, device=dev)  # the default routes the scan through K7
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         fail("TF32 is on: the LM's fp32 products would not be fp32")
     prefill(params, {"tokens": prompts[:, :256]})  # cuBLAS and the allocator warm up
@@ -349,7 +394,7 @@ def run_lm(dev) -> dict:
 
     # the same weights through the plain ssd_chunked path: last-position logits
     with torch.no_grad():
-        fast, _ = forward(params, prompts, cfg, use_kernel_ssd=True, last_logits_only=True)
+        fast, _ = forward(params, prompts, cfg, last_logits_only=True)
         plain, _ = forward(params, prompts, cfg, use_kernel_ssd=False, last_logits_only=True)
     err, scale = (fast - plain).abs().max().item(), plain.abs().max().item()
     finite = bool(torch.isfinite(fast).all())
@@ -358,13 +403,19 @@ def run_lm(dev) -> dict:
           f"equal {torch.equal(fast.argmax(-1), plain.argmax(-1))}")
     if not (finite and err <= LM_LOGIT_TOL * scale):
         fail("the prefill through K7 disagrees with the plain path")
-    # where one prefill's device time goes
+    # where one prefill's device time goes, and the CUDA kernels a K7 call runs
+    ssd_ops.launches = 0
     by_name, total_us = profile_device(lambda: prefill(params, {"tokens": prompts}))
+    k7_calls = ssd_ops.launches
     k7_us = sum(us for name, (_, us) in by_name.items() if "ssd_scan" in name)
+    k7_kernels = sum(n for name, (n, _) in by_name.items() if "ssd_scan" in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     print(f"  one prefill: {total_us / 1e3:.1f} ms of device time, K7 {k7_us / 1e3:.1f} ms "
-          f"({100 * k7_us / total_us:.1f} %); largest: " + "; ".join(
+          f"({100 * k7_us / total_us:.1f} %) in {k7_kernels} CUDA kernels over {k7_calls} "
+          f"calls; largest: " + "; ".join(
               f"{name[:50]} x{n} {us / 1e3:.1f} ms" for name, (n, us) in top))
+    if not k7_calls or not k7_kernels:
+        fail("the profiled prefill shows no K7 kernel")
     del fast, plain
 
     # serving: 4 requests, prompt 16, gen 16 (prefill by replay, then greedy)
@@ -377,7 +428,7 @@ def run_lm(dev) -> dict:
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     step_ms = serve_s / (P + G - 1) * 1e3
-    first = make_prefill_step(cfg, use_kernel_ssd=True, device=dev)(params, {"tokens": sprompts})
+    first = make_prefill_step(cfg, device=dev)(params, {"tokens": sprompts})
     print(f"  serve_batch {B} requests, prompt {P}, gen {G}: {serve_s:.3f} s, {step_ms:.2f} ms "
           f"per decode step of {B} ({B * 1e3 / step_ms:.1f} tokens/s); tokens finite "
           f"{toks.shape}; prefill's first tokens {first[:, 0].tolist()}, serve's "
@@ -391,8 +442,7 @@ def run_lm(dev) -> dict:
         state = init_decode_state(cfg, B, P + G, device=dev)
         for i in range(P):
             rec_logits, state = decode_step(params, sprompts[:, i:i + 1], state, cfg)
-        chunk_logits, _ = forward(params, sprompts, cfg, use_kernel_ssd=True,
-                                  last_logits_only=True)
+        chunk_logits, _ = forward(params, sprompts, cfg, last_logits_only=True)
     err, scale = (rec_logits - chunk_logits).abs().max().item(), chunk_logits.abs().max().item()
     print(f"  last prompt position: recurrent decode vs chunked prefill logits max abs err "
           f"{err:.3e} (bound {LM_LOGIT_TOL}·max|logit| = {LM_LOGIT_TOL * scale:.3e})")
@@ -424,7 +474,7 @@ def run_lm(dev) -> dict:
                                    for name, (n, us) in top))
     del params, state
     torch.cuda.empty_cache()
-    return {"k7_launches": k7_launches}
+    return {"k7_launches": k7_launches, "k7_cuda_kernels_per_call": k7_kernels / k7_calls}
 
 
 def run_sharded(dev, card: str, main_wall_s: float) -> dict:
@@ -729,26 +779,32 @@ def main() -> None:
     else:
         fail("em_step accepted a misaligned view")
 
-    # K7 ssd_scan: the prefill shape, a ragged S, several groups, prefill_32k's S.
-    # Bound: each of kernel and plain version is within the reference's 3e-4
-    # of the sequential oracle, and they chunk differently (64 and 128 rows),
-    # so against each other 6e-4·(1 + |y|); against the oracle 3e-4.
+    # K7 ssd_scan at every SSD_SHAPES entry, with the range count the wrapper
+    # picks. Bounds: each of kernel and plain version is within the
+    # reference's 3e-4 of the sequential oracle, and they chunk differently
+    # (64 and 128 rows), so against each other 6e-4·(1 + |y|); against the
+    # oracle 3e-4, y and the final state.
     ssd_err = {}
     for shape in SSD_SHAPES:
         args = ssd_inputs(*shape, gen=gen)
-        y = ssd_ops.ssd_scan(*args)
-        again = ssd_ops.ssd_scan(*args)
+        y, st = ssd_ops.ssd_scan(*args, return_state=True)
+        y2, st2 = ssd_ops.ssd_scan(*args, return_state=True)
         want = ssd_ref.ssd_chunked(*args)
+        ys, ss = ssd_ref.ssd_scan(*(a.transpose(1, 2) if a.ndim > 1 else a for a in args))
         torch.cuda.synchronize()
         err, worst = excess(y, want, SSD_TOL)
-        same = torch.equal(y, again)
-        print(f"  ssd_scan {shape}: max|y-plain| {err:.3e}, max of |y-plain| / "
-              f"({SSD_TOL}·(1+|plain|)) {worst:.3f} (bound 1), same bits twice {same} "
-              f"{'ok' if worst <= 1 and same else 'FAIL'}")
-        if not (worst <= 1 and same):
-            fail("ssd_scan kernel disagrees with its plain version")
+        _, wy = excess(y, ys.transpose(1, 2), 3e-4)
+        _, ws = excess(st, ss, 3e-4)
+        same = torch.equal(y, y2) and torch.equal(st, st2)
+        ok = worst <= 1 and wy <= 1 and ws <= 1 and same
+        print(f"  ssd_scan {shape} ({ssd_ops.ranges_for(args[0])} ranges a sequence): "
+              f"max|y-plain| {err:.3e}, of the {SSD_TOL}·(1+|plain|) bound {worst:.3f}; against "
+              f"the sequential oracle, of the 3e-4·(1+|.|) bound: y {wy:.3f}, final state "
+              f"{ws:.3f}; same bits twice {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("ssd_scan kernel disagrees with its plain version or the sequential oracle")
         ssd_err[shape] = err
-        del args, y, again, want
+        del args, y, y2, st, st2, want, ys, ss
     x7, dt7, A7, B7, C7 = ssd_inputs(2, 150, 8, 32, 2, 32, gen=gen)
     y7, st7 = ssd_ops.ssd_scan(x7, dt7, A7, B7, C7, return_state=True)
     ys7, ss7 = ssd_ref.ssd_scan(x7.transpose(1, 2), dt7.transpose(1, 2), A7,
@@ -759,16 +815,26 @@ def main() -> None:
           f"final state {ws:.3f} of the 3e-4·(1+|.|) bound")
     if not (wy <= 1 and ws <= 1):
         fail("ssd_scan kernel disagrees with the sequential oracle")
-    args = ssd_inputs(2, 300, 8, 64, 1, 128, gen=gen, dtype=torch.bfloat16)
-    y, want = ssd_ops.ssd_scan(*args), ssd_ref.ssd_chunked(*args)
-    mag = torch.maximum(y.float().abs(), want.float().abs()).clamp_min(1e-30)
-    bound = torch.exp2(torch.floor(torch.log2(mag)) - 7) + SSD_TOL * (1 + want.float().abs())
-    ok = bool(((y.float() - want.float()).abs() <= bound).all()) and y.dtype == torch.bfloat16
-    print(f"  ssd_scan bf16 (2, 300, 8, 64, 1, 128): max abs err "
-          f"{(y.float() - want.float()).abs().max().item():.3e} (bound one bf16 ulp + "
-          f"{SSD_TOL}·(1+|y|)) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        fail("ssd_scan kernel in bf16 disagrees with its plain version")
+    buf = torch.empty(x7.numel() + 4, device=dev)
+    view = buf[1:1 + x7.numel()].view(x7.shape)  # contiguous, 4 bytes off a 16-byte boundary
+    view.copy_(x7)
+    try:
+        ssd_ops.ssd_scan(view, dt7, A7, B7, C7)
+    except ValueError as e:
+        print(f"  ssd_scan on a misaligned view raises: {e}")
+    else:
+        fail("ssd_scan accepted a misaligned view")
+    for shape in ((2, 300, 8, 64, 1, 128), SSD_SHAPES[4]):
+        args = ssd_inputs(*shape, gen=gen, dtype=torch.bfloat16)
+        y, want = ssd_ops.ssd_scan(*args), ssd_ref.ssd_chunked(*args)
+        mag = torch.maximum(y.float().abs(), want.float().abs()).clamp_min(1e-30)
+        bound = torch.exp2(torch.floor(torch.log2(mag)) - 7) + SSD_TOL * (1 + want.float().abs())
+        ok = bool(((y.float() - want.float()).abs() <= bound).all()) and y.dtype == torch.bfloat16
+        print(f"  ssd_scan bf16 {shape}: max abs err "
+              f"{(y.float() - want.float()).abs().max().item():.3e} (bound one bf16 ulp + "
+              f"{SSD_TOL}·(1+|y|)) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("ssd_scan kernel in bf16 disagrees with its plain version")
 
     # ------------------------------------------------------------- 3. main
     phase("main path: adaptive sampling from HIGHRES_DIT with both kernels")
@@ -1187,18 +1253,30 @@ def main() -> None:
                                             (SSD_SHAPES[3], 1, 6, 2)):
         sets = [ssd_inputs(*shape, gen=gen) for _ in range(n_sets)]  # each > the L2
         ms = device_ms(k7, sets, reps=reps, replays=2)
+        # the same kernel on one range a sequence: what the ranges buy
+        one = device_ms(lambda *a: ssd_ops._launch(*a, return_state=False, ranges=1), sets,
+                        reps=reps, replays=2)
         plain = device_ms(k7_plain_fn, sets, reps=plain_reps, replays=2)
         host = timed_ms(k7, sets, reps)
         flops, nbytes = ssd_work(*shape)
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        # fp32 as 3xTF32: three tensor-core products for each multiply-add
+        bound = max(t_bytes, 3 * flops / TF32_FLOPS * 1e3)
+        bound_cuda_cores = max(t_bytes, flops / FP32_FLOPS * 1e3)
+        ranges = ssd_ops.ranges_for(sets[0][0])
         k7_t[shape] = dict(ms=ms, plain_ms=plain, host_ms=host, bound_ms=bound,
-                           bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-                           else "operations")
-        print(f"  ssd_scan {shape} fp32: {ms:.3f} ms on the device, bound {bound:.3f} ms "
-              f"({flops / 1e9:.1f} GFLOP at 67 TFLOP/s fp32; {nbytes / 1e6:.0f} MB at 3.35 TB/s "
-              f"is {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms), {flops / (ms * 1e-3) / 1e12:.1f} "
-              f"TFLOP/s achieved; plain {plain:.3f} ms; eager loop with host gaps {host:.3f} ms")
+                           bound_fp32_cuda_cores_ms=bound_cuda_cores, ranges=ranges,
+                           ms_one_range=one,
+                           bound_by="bytes" if t_bytes >= bound else "operations")
+        print(f"  ssd_scan {shape} fp32 (mma.sync 3xTF32, {ranges} ranges a sequence): "
+              f"{ms:.3f} ms on the device; bounds: 3xTF32 on the tensor cores {bound:.3f} ms "
+              f"(3 x {flops / 1e9:.1f} GFLOP at 495 TFLOP/s; {bound / ms:.0%} of it reached), "
+              f"fp32 on the CUDA cores {bound_cuda_cores:.3f} ms (67 TFLOP/s), bytes "
+              f"{t_bytes:.3f} ms ({nbytes / 1e6:.0f} MB at 3.35 TB/s); "
+              f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s achieved; one range a sequence "
+              f"{one:.3f} ms; plain {plain:.3f} ms; eager loop with host gaps {host:.3f} ms")
         del sets
+    ssd_build_summary(log)
     del unet, plan_score, fsets
     torch.cuda.empty_cache()
 
@@ -1270,11 +1348,19 @@ def main() -> None:
          "replaces": "src/repro/kernels/ssd/kernel.py:82",
          "launches": lm["k7_launches"],
          "max_abs_err": ssd_err[SSD_SHAPES[0]],
+         "design": "mma.sync 3xTF32; C·Bᵀ once a group; sequence ranges",
+         "cuda_kernels_per_call": lm["k7_cuda_kernels_per_call"],
+         "ranges": k7_t[SSD_SHAPES[0]]["ranges"],
+         "ms_one_range": k7_t[SSD_SHAPES[0]]["ms_one_range"],
          "ms": k7_t[SSD_SHAPES[0]]["ms"], "plain_ms": k7_t[SSD_SHAPES[0]]["plain_ms"],
          "bound_ms": k7_t[SSD_SHAPES[0]]["bound_ms"],
          "bound_by": k7_t[SSD_SHAPES[0]]["bound_by"],
+         "bound_of": "3xTF32 on the tensor cores (3 x ssd_work's flops at 495 TFLOP/s)",
+         "bound_fp32_cuda_cores_ms": k7_t[SSD_SHAPES[0]]["bound_fp32_cuda_cores_ms"],
          "library_ms": None,
-         "prefill_32k": {k: k7_t[SSD_SHAPES[3]][k] for k in ("ms", "plain_ms", "bound_ms")}},
+         "prefill_32k": {k: k7_t[SSD_SHAPES[3]][k]
+                         for k in ("ms", "plain_ms", "bound_ms", "bound_fp32_cuda_cores_ms",
+                                   "ranges", "ms_one_range")}},
         {"name": "sharded_solver_step", "route": "cuda",
          "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
          "replaces": "src/repro/kernels/solver_step/ops.py:123",

@@ -24,7 +24,8 @@
 //   accumulator (lo*lo is dropped). Its error is fp32's; one TF32 pass
 //   would miss the port's fp32 bound by 10x and more
 //   (tests/test_torch_flash_attention.py emulates both), so no product here
-//   is a single TF32 pass.
+//   is a single TF32 pass. The split and the mma.sync wrappers live in
+//   ../../common/csrc/mma_tf32.cuh, shared with ssd_scan.cu.
 // * bf16: mma.sync.m16n8k16.f32.bf16.bf16.f32, fp32 accumulators, m and l.
 //   P is rounded to bf16 only as the operand of P V. ldmatrix loads K, and
 //   ldmatrix.trans V, from shared memory.
@@ -92,6 +93,8 @@
 
 #include <type_traits>
 
+#include "../../common/csrc/mma_tf32.cuh"  // split_tf32, mma_tf32, mma_bf16
+
 namespace {
 
 constexpr int kMaxWarps = 4;
@@ -149,32 +152,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x = hi + lo, both TF32 (10 mantissa bits) rounded to nearest, ties away
-// from zero: the rounding of cvt.rna.tf32.f32, bit for bit on finite values,
-// done by an integer add and mask, which issue at the full ALU rate where the
-// conversion does not. hi's low 13 bits are zero, so x - hi is exact.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = (__float_as_uint(x - __uint_as_float(h)) + 0x1000u) & 0xffffe000u;
-  hi = h;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {

@@ -38,10 +38,11 @@ def make_serve_step(cfg: ModelConfig, *, device="cuda") -> Callable:
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig, *, use_kernel_ssd: bool = False,
+def make_prefill_step(cfg: ModelConfig, *, use_kernel_ssd: bool = True,
                       last_logits_only: bool = True, device="cuda") -> Callable:
-    """Full-sequence forward; ``use_kernel_ssd`` runs every Mamba2 layer's
-    scan through ``kernels.ssd.ops`` (K7 on the card)."""
+    """Full-sequence forward; ``use_kernel_ssd`` (the default) runs every
+    Mamba2 layer's scan through ``kernels.ssd.ops`` (K7 on the card),
+    ``False`` through the plain ``ssd_chunked``."""
     dev = resolve_device(device)
     pin_full_fp32_math()
 

@@ -5,9 +5,10 @@ fused ``in_proj`` is separate z/x/B/C/dt products (the reference splits
 it so a tensor-parallel axis can shard z and x on head boundaries; the
 math is the fused projection's).
 
-Sequence mixing runs through the chunked SSD scan: with
-``use_kernel=True`` through ``kernels.ssd.ops.ssd_scan`` (K7 on CUDA
-tensors, its plain version on CPU tensors), otherwise through the plain
+Sequence mixing runs through the chunked SSD scan: by default
+(``use_kernel=True``) through ``kernels.ssd.ops.ssd_scan`` (K7 on CUDA
+tensors, its plain version on CPU tensors, the same bits as
+``use_kernel=False`` there), with ``use_kernel=False`` through the plain
 ``kernels.ssd.ref.ssd_chunked``, after short causal depthwise
 convolutions on x, B and C. Decode keeps a (conv, ssm) recurrent state:
 O(1) per token.
@@ -105,7 +106,7 @@ def _project(params: dict, x: Tensor):
 
 
 def mamba_forward(params: dict, x: Tensor, cfg: ModelConfig, *,
-                  use_kernel: bool = False) -> Tensor:
+                  use_kernel: bool = True) -> Tensor:
     """Prefill: x (B, S, E) → (B, S, E)."""
     mc = cfg.mamba
     B, S, E = x.shape

@@ -173,12 +173,13 @@ def _block_forward(bp: Params, x: Tensor, cfg: ModelConfig, pos: int,
 
 
 def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
-            use_kernel_ssd: bool = False,
+            use_kernel_ssd: bool = True,
             last_logits_only: bool = False) -> Tuple[Tensor, Tensor]:
     """tokens (B, S) → (logits (B, S or 1, V), aux loss 0).
 
-    ``use_kernel_ssd`` routes every Mamba2 layer's scan through
-    ``kernels.ssd.ops`` (K7 on the card); ``last_logits_only`` applies
+    ``use_kernel_ssd`` (the default) routes every Mamba2 layer's scan
+    through ``kernels.ssd.ops`` (K7 on the card); ``False`` is the plain
+    ``ssd_chunked`` path; ``last_logits_only`` applies
     the head to the last position only, as a serving prefill needs."""
     _check_ported(cfg)
     x = embed_tokens(params, tokens, cfg)

@@ -25,7 +25,8 @@ K7 ``ssd_scan``: against the sequential oracle rtol = atol = 3e-4, the
 reference's own bound of its kernel (``tests/test_kernels_ssd.py``);
 against the plain chunked version 6e-4, since each of the two is held to
 3e-4 of the oracle and they chunk differently (64 against 128 rows); bf16
-one bf16 ulp more. Bitwise equal on a second call. K4, the sharded step:
+one bf16 ulp more. Bitwise equal on a second call, at every range count
+the kernel may run. K4, the sharded step:
 x'' bitwise equal to K1's on every column range and batch half; the
 partial sums within 1e-5 of the plain version's, as K1's e2; the range
 sums combined within 1e-6 of K1's e2 (the same tile sums in another
@@ -413,9 +414,12 @@ def test_baselines_on_card_match_cpu(cuda, sde, method, kw, per_step):
 
 
 #: (B, S, H, P, G, N): mamba2-2.7b's prefill, a ragged S, several groups,
-#: and prefill_32k's sequence length
+#: prefill_32k's sequence length, and 8 heads over 5000 rows, which the
+#: wrapper splits into ranges (79 chunks, the last ragged)
 SSD_SHAPES = [(4, 2048, 80, 64, 1, 128), (4, 1000, 80, 64, 1, 128),
-              (1, 100, 8, 32, 2, 32), (1, 32768, 80, 64, 1, 128)]
+              (1, 100, 8, 32, 2, 32), (1, 32768, 80, 64, 1, 128),
+              (1, 5000, 8, 64, 1, 128)]
+SSD_RANGE_SHAPE = SSD_SHAPES[4]
 
 
 def _ssd_inputs(B, S, H, P, G, N, dev, dtype=torch.float32, seed=0):
@@ -454,14 +458,42 @@ def test_ssd_scan_kernel_matches_sequential_oracle(cuda):
     assert _within(y, ys.transpose(1, 2), 3e-4) and _within(state, ss, 3e-4)
 
 
-def test_ssd_scan_kernel_bf16(cuda):
-    args = _ssd_inputs(2, 300, 8, 64, 1, 128, cuda, dtype=torch.bfloat16, seed=2)
+@pytest.mark.parametrize("shape", [(2, 300, 8, 64, 1, 128), SSD_RANGE_SHAPE], ids=str)
+def test_ssd_scan_kernel_bf16(cuda, shape):
+    args = _ssd_inputs(*shape, cuda, dtype=torch.bfloat16, seed=2)
     y = ssd_ops.ssd_scan(*args)
     want = ssd_ref.ssd_chunked(*args)
     torch.cuda.synchronize()
     assert y.dtype == torch.bfloat16
     bound = torch.maximum(_bf16_ulp(y), _bf16_ulp(want)) + 6e-4 * (1 + want.float().abs())
     assert ((y.float() - want.float()).abs() <= bound).all()
+
+
+def test_ssd_scan_kernel_ranges_match_sequential_oracle(cuda):
+    """A shape the wrapper splits into ranges (a ragged last range): y and
+    the final state against the exact recurrence, the same bits twice."""
+    x, dt, A, Bm, C = _ssd_inputs(*SSD_RANGE_SHAPE, cuda, seed=5)
+    assert ssd_ops.ranges_for(x) > 1
+    y, state = ssd_ops.ssd_scan(x, dt, A, Bm, C, return_state=True)
+    y2, state2 = ssd_ops.ssd_scan(x, dt, A, Bm, C, return_state=True)
+    ys, ss = ssd_ref.ssd_scan(x.transpose(1, 2), dt.transpose(1, 2), A,
+                              Bm.transpose(1, 2), C.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert _within(y, ys.transpose(1, 2), 3e-4) and _within(state, ss, 3e-4)
+    assert torch.equal(y, y2) and torch.equal(state, state2)
+
+
+@pytest.mark.parametrize("ranges", [1, 2, 5, None], ids=["R1", "R2", "R5", "chosen"])
+def test_ssd_scan_kernel_range_counts_agree(cuda, ranges):
+    """Every range count gives y and the final state within the kernel's
+    bound of the plain version, and the same bits on a second call."""
+    args = _ssd_inputs(*SSD_RANGE_SHAPE, cuda, seed=6)
+    y, state = ssd_ops._launch(*args, return_state=True, ranges=ranges)
+    y2, state2 = ssd_ops._launch(*args, return_state=True, ranges=ranges)
+    want, want_state = ssd_ref.ssd_chunked(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert _within(y, want, 6e-4) and _within(state, want_state, 6e-4)
+    assert torch.equal(y, y2) and torch.equal(state, state2)
 
 
 def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
@@ -475,6 +507,21 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
     assert ssd_ops.launches == before
 
 
+def test_ssd_scan_kernel_refuses_misaligned_views(cuda):
+    """A contiguous view 4 bytes into a buffer would fault on the kernel's
+    16-byte loads (a sticky error that ends the context): it raises
+    before the launch instead."""
+    x, dt, A, Bm, C = _ssd_inputs(1, 64, 4, 32, 1, 32, cuda, seed=3)
+    flat = torch.empty(x.numel() + 4, device=cuda)
+    view = flat[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    before = ssd_ops.launches
+    with pytest.raises(ValueError, match="16-byte-aligned x"):
+        ssd_ops.ssd_scan(view, dt, A, Bm, C)
+    assert ssd_ops.launches == before
+    assert torch.equal(ssd_ops.ssd_scan(x, dt, A, Bm, C), ssd_ops.ssd_scan(x, dt, A, Bm, C))
+
+
 def test_prefill_on_card_launches_k7_once_per_layer(cuda):
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_prefill_step
@@ -486,6 +533,9 @@ def test_prefill_on_card_launches_k7_once_per_layer(cuda):
                          generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
     before = ssd_ops.launches
     nxt = make_prefill_step(cfg, use_kernel_ssd=True, device=cuda)(params, {"tokens": toks})
+    assert ssd_ops.launches - before == cfg.num_layers
+    before = ssd_ops.launches  # the default prefill takes the same route
+    assert torch.equal(make_prefill_step(cfg, device=cuda)(params, {"tokens": toks}), nxt)
     assert ssd_ops.launches - before == cfg.num_layers
     with torch.no_grad():
         fast, _ = forward(params, toks, cfg, use_kernel_ssd=True, last_logits_only=True)

@@ -119,6 +119,30 @@ def test_prefill_step_tokens_equal_reference(setup):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_default_prefill_takes_the_kernel_route_with_the_plain_bits(setup, monkeypatch):
+    """Without ``use_kernel_ssd`` the prefill goes through the K7 wrapper
+    (one call a layer), which on CPU tensors runs ``ssd_chunked`` at the
+    plain path's chunk: logits and tokens bitwise those of the explicit
+    plain path (``use_kernel_ssd=False``)."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    _, cfg, _, params = setup
+    toks = torch.from_numpy(_prompts(cfg, 3, 45, seed=8))
+    calls = []
+    wrapper = ssd_ops.ssd_scan
+    monkeypatch.setattr(ssd_ops, "ssd_scan", lambda *a, **k: calls.append(1) or wrapper(*a, **k))
+    default, _ = tr.forward(params, toks, cfg)
+    assert len(calls) == cfg.num_layers
+    plain, _ = tr.forward(params, toks, cfg, use_kernel_ssd=False)
+    assert len(calls) == cfg.num_layers
+    assert torch.equal(default, plain)
+    got = steps.make_prefill_step(cfg, device="cpu")(params, {"tokens": toks})
+    assert len(calls) == 2 * cfg.num_layers
+    want = steps.make_prefill_step(cfg, use_kernel_ssd=False, device="cpu")(
+        params, {"tokens": toks})
+    assert torch.equal(got, want)
+
+
 def test_serve_step_tokens_equal_reference(setup):
     jcfg, cfg, jparams, params = setup
     toks = _prompts(cfg, 2, 1, seed=5)

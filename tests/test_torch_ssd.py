@@ -14,6 +14,14 @@ differ in the order of the sums (a chunk's products, the cross-chunk
 recurrence as a loop here and an associative scan there, and the chunk
 length). bf16 operands: one bf16 ulp of the output plus 3e-4 (both
 sides compute in fp32 and round once).
+
+``ref.ssd_ranges`` is the CUDA kernel's decomposition in plain PyTorch
+(C·Bᵀ once a group, the sequence split into ranges of chunks, a
+state-passing pass); it is held to the same 3e-4 against the oracle, the
+reference's chunked version and its Pallas kernel.
+``test_3xtf32_split_keeps_the_kernels_bound`` emulates the kernel's
+tensor-core products at its widths: one TF32 pass misses the kernel's
+6e-4 bound against ``ssd_chunked``, the 3xTF32 split meets it.
 """
 
 import jax
@@ -179,3 +187,152 @@ def test_ops_rejects_bad_operands(bad):
         x = x[0]
     with pytest.raises((ValueError, TypeError)):
         ops.ssd_scan(x, dt, A, Bm, C)
+
+
+#: (B, S, H, P, G, N, chunk, ranges) of the kernel's decomposition: a ragged
+#: S in one range and in two; several groups in five ranges; 7 chunks in 5
+#: ranges (boundaries 0, 1, 2, 4, 5, 7: ranges of unequal length); 5 chunks
+#: in 2 (2 and 3); S shorter than one range (one chunk, so one range)
+RANGE_CASES = [
+    (2, 300, 4, 16, 1, 16, 32, 1),
+    (2, 300, 4, 16, 1, 16, 32, 2),
+    (1, 300, 8, 32, 2, 32, 32, 5),
+    (1, 224, 4, 16, 4, 16, 32, 5),
+    (2, 77, 4, 16, 1, 16, 16, 2),
+    (1, 40, 2, 16, 1, 16, 64, 5),
+]
+
+
+def _ranges(case, seed, return_state=False):
+    B, S, H, P, G, N, chunk, ranges = case
+    inputs = _inputs((B, S, H, P, G, N, chunk), seed=seed)
+    out = ref.ssd_ranges(*(_t(a) for a in inputs), chunk=chunk, ranges=ranges,
+                         return_state=return_state)
+    return inputs, out
+
+
+@pytest.mark.parametrize("case", RANGE_CASES, ids=str)
+def test_ranges_match_sequential_oracle(case):
+    """y and the final state against the exact recurrence."""
+    inputs, (y, state) = _ranges(case, seed=7, return_state=True)
+    want_y, want_state = _oracle(inputs)
+    np.testing.assert_allclose(y.numpy(), want_y, **TOL)
+    np.testing.assert_allclose(state.numpy(), want_state, **TOL)
+
+
+@pytest.mark.parametrize("case", RANGE_CASES, ids=str)
+def test_ranges_match_chunked(case):
+    """Against the port's ``ssd_chunked`` at the plain version's chunk (what
+    the CPU path runs) and the reference's at the same chunk."""
+    inputs, y = _ranges(case, seed=8)
+    want = ref.ssd_chunked(*(_t(a) for a in inputs), chunk=ops.CHUNK)
+    np.testing.assert_allclose(y.numpy(), want.numpy(), **TOL)
+    want = jchunked(*(_j(a) for a in inputs), chunk=case[6])
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("case", RANGE_CASES, ids=str)
+def test_ranges_match_reference_pallas_kernel(case):
+    """Against the reference's Pallas kernel (interpret mode) at the same chunk."""
+    inputs, y = _ranges(case, seed=9)
+    want = jops.ssd_scan(*(_j(a) for a in inputs), chunk=case[6])
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), **TOL)
+
+
+def test_ranges_past_the_chunk_count_are_one_a_chunk():
+    """More ranges than chunks: one range a chunk, the same result as that
+    count asked for."""
+    case = (1, 100, 2, 16, 1, 16, 32, 9)  # 4 chunks
+    inputs, y = _ranges(case, seed=10)
+    want = ref.ssd_ranges(*(_t(a) for a in inputs), chunk=32, ranges=4)
+    assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("bh,nc,per_sm,want", [
+    (320, 32, 2, 1),     # mamba2-2.7b's prefill (4, 2048): 320 blocks fill a wave of 264
+    (264, 512, 2, 1),    # exactly one wave: no split, however long the sequence
+    (80, 512, 2, 13),    # prefill_32k (1, 32768): 80 blocks leave 52 SMs idle
+    (80, 32, 2, 3),      # 80 blocks of 32 chunks
+    (8, 79, 2, 27),      # (1, 5000) with 8 heads: ranges of 2 and 3 chunks
+    (320, 1, 2, 1),      # one chunk: one range
+    (10_000, 64, 2, 1),  # many waves already: no split
+])
+def test_choose_ranges_on_132_sms(bh, nc, per_sm, want):
+    """The range count is a function of the shape and the card (132 SMs,
+    two blocks an SM), within [1, nc], and 1 once B·H fills a wave."""
+    assert ops.choose_ranges(bh, nc, 132, per_sm, per_sm) == want
+
+
+def test_alignment_check_enforces_16_byte_bases():
+    """The kernel reads x, Bm and C rows 16 (fp32) or 8 (bf16) bytes at a
+    time: contiguous views that start off 16 bytes are refused. The check
+    is plain Python, so it runs here on CPU tensors."""
+    x, dt, A, Bm, C = (_t(a) for a in _inputs(CASES[1]))
+    ops.check_alignment(x, Bm, C)
+    ops.check_alignment(x.to(torch.bfloat16), Bm.to(torch.bfloat16), C.to(torch.bfloat16))
+    for shift, dtype in ((1, torch.float32), (2, torch.float32), (4, torch.bfloat16)):
+        flat = torch.zeros(x.numel() + 8, dtype=dtype)
+        view = flat[shift:shift + x.numel()].view(x.shape)  # contiguous, base off 16 bytes
+        assert view.is_contiguous()
+        with pytest.raises(ValueError, match="16-byte-aligned x"):
+            ops.check_alignment(view, Bm.to(dtype), C.to(dtype))
+    flat = torch.zeros(C.numel() + 8)
+    with pytest.raises(ValueError, match="16-byte-aligned C"):
+        ops.check_alignment(x, Bm, flat[3:3 + C.numel()].view(C.shape))
+    ops.check_alignment(x, flat[4:4 + Bm.numel()].view(Bm.shape), C)  # 16 bytes in: fine
+
+
+def _tf32(x):
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, by bit masking: what cvt.rna.tf32.f32 does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, b, passes):
+    """a @ b on TF32 operands with an fp32 sum: one pass (hi·hi) or the
+    3xTF32 split (hi·lo + lo·hi first, then hi·hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def _emulated_kernel(x, dt, A, Bm, C, passes, Q=64):
+    """The kernel's four products per (b, h) and chunk (one group, S a
+    multiple of Q) on emulated tensor cores: C·Bᵀ, the masked scores times
+    x, C·state and the state update."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    tri = torch.ones(Q, Q, dtype=torch.bool).tril()
+    y = torch.empty(B, S, H, P)
+    for b in range(B):
+        for h in range(H):
+            state = torch.zeros(N, P)
+            for s0 in range(0, S, Q):
+                xc, dc = x[b, s0:s0 + Q, h], dt[b, s0:s0 + Q, h]
+                Bc, Cc = Bm[b, s0:s0 + Q, 0], C[b, s0:s0 + Q, 0]
+                L = torch.cumsum(dc * A[h], 0)
+                cb = _tf32_product(Cc, Bc.T, passes)
+                seg = (L[:, None] - L[None, :]).masked_fill(~tri, 0.0)
+                m = torch.where(tri, cb * torch.exp(seg) * dc[None, :], 0.0)
+                y[b, s0:s0 + Q, h] = (_tf32_product(m, xc, passes)
+                                      + _tf32_product(torch.exp(L)[:, None] * Cc, state, passes))
+                w = torch.exp(L[-1] - L) * dc
+                state = (torch.exp(L[-1]) * state
+                         + _tf32_product((Bc * w[:, None]).T, xc, passes))
+    return y
+
+
+def test_3xtf32_split_keeps_the_kernels_bound():
+    """At the kernel's widths (N 128, P 64, chunk 64, four chunks): with
+    every product on emulated TF32 tensor cores, the 3xTF32 split stays
+    within the kernel's bound against ``ssd_chunked``, 6e-4·(1 + |y|), and
+    one TF32 pass misses it. Why the card's fp32 kernel splits every operand."""
+    x, dt, A, Bm, C = (_t(a) for a in _inputs((1, 256, 4, 64, 1, 128, 64), seed=11))
+    want = ref.ssd_chunked(x, dt, A, Bm, C)
+    excess = {n: float(((_emulated_kernel(x, dt, A, Bm, C, n) - want).abs()
+                        / (6e-4 * (1 + want.abs()))).max()) for n in (1, 3)}
+    assert excess[3] <= 1, excess
+    assert excess[1] > 1, excess
