@@ -13,7 +13,15 @@ Phases; any failure exits non-zero before the result line is printed:
              DiT's and the planning shapes, GQA with a causal window, a
              ragged S = 75 with true_len 50, D = 256, each the same bits
              on a second call; GroupNorm → SiLU at all 17 shapes of a
-             TRAJ_UNET forward, fp32 and bf16, and at x = 1e3 + N(0, 1);
+             TRAJ_UNET forward, fp32 and bf16, and at x = 1e3 + N(0, 1),
+             on the register kernel the wrapper picks there and on the
+             general kernel, forced, each the same bits on a second call;
+             K1 at the DiT state, planning's (64, 736), B = 1 and two
+             3072-column tiles a row, on operands off 16 bytes (bitwise
+             the aligned call), every sub-batch of a B = 64 call bitwise
+             its rows,
+             one CUDA kernel a call (torch.profiler), and a replayed CUDA
+             graph bitwise the eager call;
              K5 at the DiT, Table-2 and planning states and a ragged D,
              fp32 and bf16, and a misaligned view, which must raise; K7,
              the SSD scan, at mamba2-2.7b's prefill shape (4, 2048, 80,
@@ -70,7 +78,12 @@ Phases; any failure exits non-zero before the result line is printed:
              bf16 at the DiT's shape against both fp32 bounds (CUDA cores,
              3xTF32 tensor cores) and the bf16 one, and ptxas's registers
              and spills for K3's instantiations with their shared
-             memory; one TRAJ_UNET
+             memory; the launch floor (a one-element zero_() in the same
+             harness); K6 at each distinct (H, C) of a forward on both
+             kernels, the sum of a forward's 17 launches, and
+             F.group_norm + F.silu as a two-call yardstick; K1 at the
+             planning state; ptxas's registers, spills and shared memory
+             for K6's and K1's kernels; one TRAJ_UNET
              forward at 128 rows, eager and as a replayed graph; K5 at
              the DiT state and the Table-2 state; K7 at the prefill shape
              and at (1, 32768, 80, 64, 1, 128) against both fp32 bounds
@@ -216,28 +229,11 @@ def timed_ms(fn, sets, reps: int) -> float:
 
 def device_ms(fn, sets, reps: int = 40, replays: int = 5) -> float:
     """Mean device ms per call: ``reps`` calls captured in one CUDA graph
-    and replayed, so no host time between launches is counted. Rotates
-    through ``sets`` of inputs, which together exceed the 50 MB L2, so
-    each call finds its inputs in device memory as the solver loop does."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for args in sets:
-            fn(*args)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(reps):
-            fn(*sets[i % len(sets)])
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
+    and replayed, rotating through ``sets`` of inputs
+    (``repro_torch.benchmarks.kernel_times.device_ms``, imported once
+    ``main`` has put the repository's ``src`` on the path)."""
+    from repro_torch.benchmarks import kernel_times
+    return kernel_times.device_ms(fn, sets, reps, replays)
 
 
 def flash_build_summary(log: str) -> None:
@@ -303,6 +299,122 @@ def ssd_build_summary(log: str) -> None:
             cur["st"], cur["ld"] = max(cur["st"], int(m[1])), max(cur["ld"], int(m[2]))
         elif cur and (m := re.search(r"Used (\d+) registers", line)):
             cur["regs"] = int(m[1])
+
+
+def small_kernels_build_summary(log: str) -> list:
+    """K6's and K1's kernels as ptxas built them: registers, spills and
+    static shared memory of each instantiation (printed, and returned for
+    the kernels line)."""
+    import re
+
+    if not log:
+        print("  gn_silu_*, error_step_kernel: no ptxas log (the library was built before "
+              "this run)")
+        return []
+    rows, cur = [], None
+    for line in log.splitlines() + ["Compiling entry function 'end'"]:
+        if "Compiling entry function" in line:
+            if cur:
+                rows.append(cur)
+            m = re.search(r"(gn_silu_regs|gn_silu_block|error_step_kernel)"
+                          r"I(13__nv_bfloat16|f)(?:Li(\d+)E)?E", line)
+            cur = m and {"kernel": m[1] + (f"<{'fp32' if m[2] == 'f' else 'bf16'}"
+                                           + (f", {m[3]}>" if m[3] else ">")),
+                         "registers": None, "spill_bytes": 0, "smem_bytes": 0}
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            cur["spill_bytes"] = max(cur["spill_bytes"], int(m[1]), int(m[2]))
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m[1])
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(s[1]) if s else 0
+    for r in rows:
+        extra = " (+ the slab, H·C/g·4 bytes, dynamic)" if "block" in r["kernel"] else ""
+        print(f"  {r['kernel']}: {r['registers']} registers, {r['spill_bytes']} bytes of "
+              f"spills, {r['smem_bytes']} bytes of static shared memory{extra}")
+    return rows
+
+
+def check_solver_step_edges(dev, gen) -> dict:
+    """Phase 2's K1 checks beyond the DiT shape: planning's (64, 736), B = 1
+    and two tiles a row (3073) within the bounds and the same bits twice;
+    operands off 16 bytes (single-element loads) bitwise equal to aligned
+    copies; a row's bits at B = 64 equal to any sub-batch's; one CUDA kernel
+    a call (torch.profiler); the eager bits on every replay of a captured
+    CUDA graph. Returns the CUDA kernels a call at each shape."""
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.kernels.solver_step import ref as step_ref
+
+    def inputs(b, d, dtype=torch.float32):
+        states = [torch.randn(b, d, generator=gen, device=dev).to(dtype) for _ in range(5)]
+        coeffs = [torch.rand(b, generator=gen, device=dev) for _ in range(3)]
+        eps = (torch.rand(b, generator=gen, device=dev) * 0.1 + 1e-3,
+               torch.rand(b, generator=gen, device=dev) * 0.5 + 0.01)
+        return states, coeffs, eps
+
+    def step(states, coeffs, eps):
+        return step_ops.error_step(*states, *coeffs, eps_abs=eps[0], eps_rel=eps[1])
+
+    per_call = {}
+    for (b, d, dtype) in ((64, 736, torch.float32), (64, 736, torch.bfloat16),
+                          (1, 196_608, torch.float32), (3, 3_073, torch.float32),
+                          (8, 3_072, torch.bfloat16)):
+        states, coeffs, eps = inputs(b, d, dtype)
+        xh, e2 = step(states, coeffs, eps)
+        again = step(states, coeffs, eps)
+        xr, e2r = step_ref.error_step(*states, *coeffs, *eps)
+        views = []
+        for t in states:
+            views.append(torch.empty(b * d + 1, dtype=dtype, device=dev)[1:].view(b, d))
+            views[-1].copy_(t)
+        vx, ve = step(views, coeffs, eps)
+        torch.cuda.synchronize()
+        x_err = (xh.float() - xr.float()).abs().max().item()
+        x_bound = (1e-5 if dtype == torch.float32 else 1e-2) * (1 + xr.float().abs().max().item())
+        e_rel = ((e2 - e2r).abs() / e2r.abs()).max().item()
+        same = torch.equal(again[0], xh) and torch.equal(again[1], e2)
+        unaligned = torch.equal(vx, xh) and torch.equal(ve, e2)
+        ok = x_err <= x_bound and e_rel <= 1e-5 and same and unaligned
+        cfg = step_ops.kernel_config(b, d, d, dtype, True)
+        print(f"  solver_step {str(dtype)[6:]:8s} {(b, d)} ({cfg['tiles']} tile(s) a row, "
+              f"{cfg['design']}): max|x''-plain| {x_err:.3e} (bound {x_bound:.1e}), max rel e2 "
+              f"{e_rel:.3e} (bound 1e-5), same bits twice {same}, off 16 bytes (single-"
+              f"element loads) bitwise the aligned call's {unaligned} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("solver_step kernel disagrees with its plain version or itself")
+    for b, d in ((64, 736), (64, 4_999), (64, 196_608)):
+        states, coeffs, eps = inputs(b, d)
+        xh, e2 = step(states, coeffs, eps)
+        for rows in (slice(0, 1), slice(5, 6), slice(3, 40), slice(1, 64)):
+            for copy in (False, True):
+                part = [t[rows].contiguous() if copy else t[rows] for t in states]
+                bx, be = step(part, [c[rows] for c in coeffs], [e[rows] for e in eps])
+                if not (torch.equal(bx, xh[rows]) and torch.equal(be, e2[rows])):
+                    fail(f"solver_step at D={d}: rows {rows} alone give other bits than at B=64")
+        torch.cuda.synchronize()
+        names, _ = profile_device(lambda: [step(states, coeffs, eps) for _ in range(8)])
+        kernels = {n: c for n, (c, _) in names.items()
+                   if "memcpy" not in n.lower() and "memset" not in n.lower()}
+        per_call[f"{b}x{d}"] = sum(kernels.values()) / 8
+        if per_call[f"{b}x{d}"] != 1 or not all("error_step_kernel" in n for n in kernels):
+            fail(f"solver_step at {(b, d)}: 8 calls ran {kernels}, not 8 error_step_kernel")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(states, coeffs, eps)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [step(states, coeffs, eps) for _ in range(3)]
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            if not all(torch.equal(o[0], xh) and torch.equal(o[1], e2) for o in outs):
+                fail(f"solver_step at {(b, d)} in a replayed CUDA graph differs from eager")
+        del graph, outs
+    print(f"  solver_step at B = 64: every sub-batch (views and copies) gives its rows' bits "
+          f"at D = 736, 4999, 196,608; CUDA kernels a call (profiler) {per_call}; a captured "
+          f"graph of 3 calls gives the eager bits on 3 replays")
+    return per_call
 
 
 def ssd_inputs(B, S, H, P, G, N, *, gen, dtype=torch.float32):
@@ -609,7 +721,7 @@ def main() -> None:
     from repro_torch.configs.diffusion import HIGHRES_DIT, TRAJ_UNET
     from repro_torch.core import analytic
     from repro_torch.core.sampling import sample
-    from repro_torch.benchmarks import table2_highdim
+    from repro_torch.benchmarks import kernel_times, table2_highdim
     from repro_torch.core.sde import VESDE, VPSDE
     from repro_torch.core.solvers import solver_nfe_per_iteration
     from repro_torch.core.solvers import adaptive as ad
@@ -671,6 +783,7 @@ def main() -> None:
                 if not ok:
                     fail("solver_step kernel disagrees with its plain version")
                 step_err[(dtype, d, vector)] = x_err
+    step_per_call = check_solver_step_edges(dev, gen)
     attn_err = {}
     plan_attn = (2 * PLAN_BATCH, TRAJ_UNET.attn_heads, TRAJ_UNET.attn_heads,
                  TRAJ_UNET.horizon // 2 ** (len(TRAJ_UNET.mults) - 1),
@@ -705,45 +818,61 @@ def main() -> None:
         if not ok:
             fail("flash attention kernel disagrees with its plain version or itself")
         attn_err[(s, dtype, causal)] = err
-    # GroupNorm → SiLU at the 17 (H, C) of one TRAJ_UNET forward, 2·64 rows
-    gn_shapes = ([(32, 32)] * 2 + [(16, 32), (16, 64), (8, 64)] + [(8, 128)] * 7
-                 + [(16, 128), (16, 64), (32, 64), (32, 32), (32, 32)])
+    # GroupNorm → SiLU at the 17 (H, C) of one TRAJ_UNET forward, 2·64 rows,
+    # on the path the wrapper picks (the register kernel at every one of
+    # them) and on the general kernel, forced
+    gn_shapes = kernel_times.TRAJ_GN_SHAPES
     gn_rows = 2 * PLAN_BATCH
     gn_err = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        worst = 0.0
-        for i, (h, c) in enumerate(gn_shapes):
-            x = torch.randn(gn_rows, h, c, generator=gen, device=dev).to(dtype)
-            sc = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
-            bi = 0.1 * torch.randn(c, generator=gen, device=dev)
-            out = gn_ops.groupnorm_silu(x, sc, bi, groups=TRAJ_UNET.groups)
-            want = gn_ref.groupnorm_silu(x, sc, bi, groups=TRAJ_UNET.groups)
-            torch.cuda.synchronize()
-            diff = (out.float() - want.float()).abs()
-            if dtype == torch.float32:
-                bound = torch.full_like(diff, 1e-5)
-            else:  # one bf16 ulp plus the fp32 bound: both round once
-                mag = torch.maximum(out.float().abs(), want.float().abs())
-                bound = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7) + 1e-5
-            if not (diff <= bound).all():
-                fail(f"groupnorm_silu {str(dtype)[6:]} at {(gn_rows, h, c)}: "
-                     f"max abs err {diff.max().item():.3e} over its bound")
-            worst = max(worst, diff.max().item())
-            gn_err[(dtype, h, c)] = max(gn_err.get((dtype, h, c), 0.0), diff.max().item())
-        print(f"  groupnorm_silu {str(dtype)[6:]:8s} 17 TRAJ_UNET shapes at {gn_rows} rows: "
-              f"max abs err {worst:.3e} (bound {'1e-5' if dtype == torch.float32 else 'one bf16 ulp + 1e-5'}) ok")
-    x = 1e3 + torch.randn(gn_rows, 32, 64, generator=gen, device=dev)
-    ones, zeros = torch.ones(64, device=dev), torch.zeros(64, device=dev)
-    out = gn_ops.groupnorm_silu(x, ones, zeros, groups=TRAJ_UNET.groups)
-    err = (out - gn_ref.groupnorm_silu(x, ones, zeros, groups=TRAJ_UNET.groups)).abs().max().item()
-    spread = out.std().item()
-    print(f"  groupnorm_silu fp32 x = 1e3 + N(0,1) at {(gn_rows, 32, 64)}: max abs err "
-          f"{err:.3e} (bound 2e-3: sums near 1e3·n in another order), output std {spread:.3f}")
-    if not err <= 2e-3 or not 0.3 < spread < 1.2:
-        fail("groupnorm_silu loses the variance at a large offset")
-    again = gn_ops.groupnorm_silu(x, ones, zeros, groups=TRAJ_UNET.groups)
-    if not torch.equal(again, out):
-        fail("groupnorm_silu gives other bits on the same inputs")
+    gn_paths = {f"{h}x{c}": gn_ops.kernel_config(gn_rows, h, c, TRAJ_UNET.groups,
+                                                 torch.float32, True)["path"]
+                for h, c in gn_shapes}
+    for path in (None, "general"):
+        gn = lambda x, s, b: gn_ops._launch(x, s, b, groups=TRAJ_UNET.groups, eps=1e-6,
+                                            path=path)
+        name = "chosen path" if path is None else "general path"
+        for dtype in (torch.float32, torch.bfloat16):
+            worst = 0.0
+            for i, (h, c) in enumerate(gn_shapes):
+                x = torch.randn(gn_rows, h, c, generator=gen, device=dev).to(dtype)
+                sc = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+                bi = 0.1 * torch.randn(c, generator=gen, device=dev)
+                out = gn(x, sc, bi)
+                again = gn(x, sc, bi)
+                want = gn_ref.groupnorm_silu(x, sc, bi, groups=TRAJ_UNET.groups)
+                torch.cuda.synchronize()
+                diff = (out.float() - want.float()).abs()
+                if dtype == torch.float32:
+                    bound = torch.full_like(diff, 1e-5)
+                else:  # one bf16 ulp plus the fp32 bound: both round once
+                    mag = torch.maximum(out.float().abs(), want.float().abs())
+                    bound = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7) + 1e-5
+                if not (diff <= bound).all() or not torch.equal(again, out):
+                    fail(f"groupnorm_silu ({name}) {str(dtype)[6:]} at {(gn_rows, h, c)}: "
+                         f"max abs err {diff.max().item():.3e} over its bound, or other bits "
+                         f"on a second call")
+                worst = max(worst, diff.max().item())
+                key = (path, dtype, h, c)
+                gn_err[key] = max(gn_err.get(key, 0.0), diff.max().item())
+            print(f"  groupnorm_silu ({name}) {str(dtype)[6:]:8s} 17 TRAJ_UNET shapes at "
+                  f"{gn_rows} rows: max abs err {worst:.3e} (bound "
+                  f"{'1e-5' if dtype == torch.float32 else 'one bf16 ulp + 1e-5'}), the same "
+                  f"bits on a second call ok")
+        x = 1e3 + torch.randn(gn_rows, 32, 64, generator=gen, device=dev)
+        ones, zeros = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+        out = gn(x, ones, zeros)
+        err = (out - gn_ref.groupnorm_silu(x, ones, zeros, groups=TRAJ_UNET.groups)).abs().max().item()
+        spread = out.std().item()
+        print(f"  groupnorm_silu ({name}) fp32 x = 1e3 + N(0,1) at {(gn_rows, 32, 64)}: max "
+              f"abs err {err:.3e} (bound 2e-3: sums near 1e3·n in another order), output std "
+              f"{spread:.3f}")
+        if not err <= 2e-3 or not 0.3 < spread < 1.2:
+            fail("groupnorm_silu loses the variance at a large offset")
+        if not torch.equal(gn(x, ones, zeros), out):
+            fail("groupnorm_silu gives other bits on the same inputs")
+    print(f"  groupnorm_silu paths the wrapper picks at the forward's shapes: {gn_paths}")
+    if set(gn_paths.values()) != {"register"}:
+        fail("a TRAJ_UNET shape does not take the register kernel")
 
     # K5 em_step at the DiT state, the Table-2 state, a plan and a ragged D
     em_err = {}
@@ -1166,8 +1295,31 @@ def main() -> None:
               f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s achieved; plain {plain * 1e3:.1f} us; "
               f"eager loop with host gaps {host * 1e3:.1f} us")
 
-    # the planning path's shapes
+    # the launch floor: the device time of the smallest kernel (a one-
+    # element zero_()) in the same graph harness, beside the sub-µs bounds
+    floor_ms = kernel_times.launch_floor_ms(dev)
+    print(f"  [{card}] launch floor: a one-element zero_() {floor_ms * 1e3:.2f} us on the "
+          f"device (replayed CUDA graph of 40)")
+
+    # the planning path's shapes: K6 at every distinct (H, C) of a forward,
+    # on the register kernel the wrapper picks and on the general kernel
     gn_b, gn_h, gn_c = 2 * PLAN_BATCH, 32, 64
+    k6_shapes = kernel_times.groupnorm_times(dev, gen)
+    k6_general = kernel_times.groupnorm_times(
+        dev, gen, fn=lambda x, s, b: gn_ops._launch(x, s, b, groups=TRAJ_UNET.groups,
+                                                    eps=1e-6, path="general"))
+    moved = lambda h, c: 2 * gn_b * h * c * 4 + 2 * c * 4  # x in, out, scale, bias
+    for h, c in dict.fromkeys(gn_shapes):
+        key = f"{h}x{c}"
+        print(f"  [{card}] groupnorm_silu ({gn_b}, {h}, {c}) fp32 ({gn_paths[key]} path): "
+              f"{k6_shapes[key] * 1e3:.2f} us on the device; general path "
+              f"{k6_general[key] * 1e3:.2f} us; bound {moved(h, c) / HBM_BYTES_PER_S * 1e6:.2f} "
+              f"us (bytes)")
+    fwd_bytes = sum(moved(h, c) for h, c in gn_shapes)
+    print(f"  [{card}] groupnorm_silu, one forward's 17 launches: {k6_shapes['forward'] * 1e3:.2f} "
+          f"us on the device (general path {k6_general['forward'] * 1e3:.2f} us); bound "
+          f"{fwd_bytes / HBM_BYTES_PER_S * 1e6:.2f} us ({fwd_bytes / 1e6:.2f} MB at 3.35 TB/s); "
+          f"17 launch floors {17 * floor_ms * 1e3:.2f} us")
     sets = [(torch.randn(gn_b, gn_h, gn_c, generator=gen, device=dev),
              1 + 0.1 * torch.randn(gn_c, generator=gen, device=dev),
              0.1 * torch.randn(gn_c, generator=gen, device=dev)) for _ in range(4)]
@@ -1175,15 +1327,22 @@ def main() -> None:
     k6_plain_fn = lambda x, s, b: gn_ref.groupnorm_silu(x, s, b, groups=TRAJ_UNET.groups)
     k6_ms, k6_plain = device_ms(k6, sets), device_ms(k6_plain_fn, sets)
     k6_host = timed_ms(k6, sets, 200)
+    # the yardstick: torch's group_norm then silu, two calls, on the same
+    # values laid out (B, C, H) as group_norm wants them (never used by the port)
+    tsets = [(x.transpose(1, 2).contiguous(), s, b) for x, s, b in sets]
+    two_calls = lambda x, s, b: torch.nn.functional.silu(
+        torch.nn.functional.group_norm(x, TRAJ_UNET.groups, s, b, eps=1e-6))
+    k6_two_calls = device_ms(two_calls, tsets)
+    two_err = (two_calls(*tsets[0]).transpose(1, 2) - k6(*sets[0])).abs().max().item()
     k6_bytes = 2 * gn_b * gn_h * gn_c * 4 + 2 * gn_c * 4
     k6_ops = GN_FLOPS_PER_ELEMENT * gn_b * gn_h * gn_c
     k6_bound = max(k6_bytes / HBM_BYTES_PER_S, k6_ops / FP32_FLOPS) * 1e3
-    fwd_elems = sum(2 * PLAN_BATCH * h * c for h, c in gn_shapes)
-    print(f"  groupnorm_silu ({gn_b}, {gn_h}, {gn_c}) fp32: {k6_ms * 1e3:.2f} us on the device, "
-          f"bound {k6_bound * 1e3:.2f} us ({k6_bytes / 1e6:.2f} MB at 3.35 TB/s; inputs "
-          f"L2-resident, as after the conv that makes them); plain {k6_plain * 1e3:.1f} us; "
-          f"eager loop with host gaps {k6_host * 1e3:.1f} us. One forward's 17 launches "
-          f"move {fwd_elems * 8 / 1e6:.2f} MB: bound {fwd_elems * 8 / HBM_BYTES_PER_S * 1e6:.2f} us")
+    print(f"  [{card}] groupnorm_silu ({gn_b}, {gn_h}, {gn_c}) fp32: {k6_ms * 1e3:.2f} us on "
+          f"the device, bound {k6_bound * 1e3:.2f} us ({k6_bytes / 1e6:.2f} MB at 3.35 TB/s; "
+          f"inputs L2-resident, as after the conv that makes them); plain {k6_plain * 1e3:.1f} "
+          f"us; F.group_norm + F.silu, two calls on x laid out (B, C, H): "
+          f"{k6_two_calls * 1e3:.2f} us (max abs diff from the kernel {two_err:.1e}); eager "
+          f"loop with host gaps {k6_host * 1e3:.1f} us")
 
     D_plan = ucfg.horizon * ucfg.transition_dim
     sets = []
@@ -1204,8 +1363,14 @@ def main() -> None:
     k3p_bytes = 4 * 2 * PLAN_BATCH * ah * a_s * ahd * 4
     k3p_bound = max(k3p_bytes / HBM_BYTES_PER_S,
                     3 * 4 * 2 * PLAN_BATCH * ah * a_s * a_s * ahd / TF32_FLOPS) * 1e3
-    print(f"  solver_step ({PLAN_BATCH}, {D_plan}) fp32: {k1p_ms * 1e3:.2f} us on the device, "
-          f"bound {k1p_bound * 1e3:.2f} us; plain {k1p_plain * 1e3:.1f} us")
+    k1_design = {f"{b}x{d}": step_ops.kernel_config(b, d, d, torch.float32, True)["design"]
+                 for b, d in ((B, D), (PLAN_BATCH, D_plan))}
+    print(f"  [{card}] solver_step ({PLAN_BATCH}, {D_plan}) fp32 "
+          f"({k1_design[f'{PLAN_BATCH}x{D_plan}']}, one launch): {k1p_ms * 1e3:.2f} us on the "
+          f"device, bound {k1p_bound * 1e3:.2f} us, launch floor {floor_ms * 1e3:.2f} us; plain "
+          f"{k1p_plain * 1e3:.1f} us; (8, {D}) ({k1_design[f'{B}x{D}']}, one launch): "
+          f"{k1_ms * 1e3:.2f} us, bound {k1_bound * 1e3:.2f} us")
+    small_ptxas = small_kernels_build_summary(log)
     print(f"  flash_attention {(2 * PLAN_BATCH, ah, a_s, ahd)} fp32: {k3p_ms * 1e3:.2f} us on "
           f"the device, bound {k3p_bound * 1e3:.3f} us (bytes); plain {k3p_plain * 1e3:.1f} us; "
           f"SDPA {k3p_lib * 1e3:.1f} us")
@@ -1301,8 +1466,13 @@ def main() -> None:
          else "operations",
          "library_ms": None,
          "plain": PLAIN_STEP,
+         "design": k1_design[f"{B}x{D}"],
+         "cuda_kernels_per_call": step_per_call,
+         "launch_floor_ms": floor_ms,
          "planning": {"launches": plan_launches["solver_step"], "ms": k1p_ms,
-                      "plain_ms": k1p_plain, "bound_ms": k1p_bound}},
+                      "plain_ms": k1p_plain, "bound_ms": k1p_bound,
+                      "design": k1_design[f"{PLAN_BATCH}x{D_plan}"]},
+         "ptxas": [r for r in small_ptxas if r["kernel"].startswith("error_step")]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:102",
@@ -1326,11 +1496,18 @@ def main() -> None:
          "source": "src/repro_torch/kernels/groupnorm_silu/csrc/groupnorm_silu.cu",
          "replaces": "src/repro/kernels/groupnorm_silu/kernel.py:81",
          "launches": plan_launches["groupnorm_silu"],
-         "max_abs_err": gn_err[(torch.float32, gn_h, gn_c)],
+         "max_abs_err": gn_err[(None, torch.float32, gn_h, gn_c)],
          "ms": k6_ms, "plain_ms": k6_plain, "bound_ms": k6_bound,
          "bound_by": "bytes" if k6_bytes / HBM_BYTES_PER_S >= k6_ops / FP32_FLOPS
          else "operations",
-         "library_ms": None},
+         "library_ms": None,
+         "two_calls_ms": k6_two_calls,
+         "two_calls": "F.group_norm then F.silu on x laid out (B, C, H)",
+         "launch_floor_ms": floor_ms,
+         "paths": gn_paths,
+         "ms_by_shape": k6_shapes,
+         "general_path_ms_by_shape": k6_general,
+         "ptxas": [r for r in small_ptxas if r["kernel"].startswith("gn_silu")]},
         {"name": "em_step", "route": "cuda",
          "source": "src/repro_torch/kernels/solver_step/csrc/em_step.cu",
          "replaces": "src/repro/kernels/solver_step/kernel.py:92",

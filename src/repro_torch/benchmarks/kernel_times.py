@@ -1,0 +1,135 @@
+"""Device times of the small kernels of the planning and DiT paths, for
+comparing two builds of the port on one card (no reference
+counterpart: the reference times its Pallas kernels in
+``benchmarks/run.py``).
+
+Times, each the mean device time of one call from a replayed CUDA graph
+of 40 calls (no host time between launches), with inputs rotated
+through sets that stay in the 50 MB L2 where the path finds them there:
+
+- the launch floor: a one-element ``zero_()`` in the same harness;
+- K6 ``groupnorm_silu`` at each distinct (H, C) of a TRAJ_UNET forward
+  (128 rows, 8 groups, fp32), and the sum of one forward's 17 launches;
+- K1 ``error_step`` at the DiT's state (8, 196,608) and at planning's
+  (64, 736), fp32, per-sample tolerances.
+
+It calls only the wrappers' public functions, so it times any checkout
+of the port: run this file by path with ``PYTHONPATH`` at that
+checkout's ``src`` (the kernels build into that checkout's ``build/``),
+e.g. the parent and this tree in turns on one card:
+
+  PYTHONPATH=/path/to/parent/src python src/repro_torch/benchmarks/kernel_times.py
+  PYTHONPATH=src python -m repro_torch.benchmarks.kernel_times
+
+Prints the card's name and power limit, then one JSON line. Needs a
+CUDA card; exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+import torch
+
+#: (H, C) of TRAJ_UNET's 17 GroupNorm → SiLU launches a forward, in
+#: order (horizon 32, base 32, mults (1, 2, 4)), at 8 groups
+TRAJ_GN_SHAPES = ([(32, 32)] * 2 + [(16, 32), (16, 64), (8, 64)] + [(8, 128)] * 7
+                  + [(16, 128), (16, 64), (32, 64), (32, 32), (32, 32)])
+#: rows of a planning forward: 64 plans under classifier-free guidance
+GN_ROWS = 128
+GN_GROUPS = 8
+#: K1's shapes: the DiT's state, planning's (horizon 32 × transition 23)
+STEP_SHAPES = ((8, 196_608), (64, 736))
+
+
+def device_ms(fn, sets, reps: int = 40, replays: int = 5) -> float:
+    """Mean device ms per call: ``reps`` calls captured in one CUDA graph
+    and replayed ``replays`` times, rotating through ``sets`` of inputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def launch_floor_ms(dev) -> float:
+    """Device ms of the smallest kernel: ``zero_()`` of one element."""
+    one = torch.empty(1, device=dev)
+    return device_ms(lambda t: t.zero_(), [(one,)])
+
+
+def groupnorm_times(dev, gen, fn=None) -> dict:
+    """ms of ``fn(x, scale, bias)`` (default: the K6 wrapper at 8 groups)
+    at each distinct (H, C) of a forward, keyed "HxC", and "forward", the
+    sum over the forward's 17 launches."""
+    if fn is None:
+        from repro_torch.kernels.groupnorm_silu import ops as gn_ops
+        fn = lambda x, s, b: gn_ops.groupnorm_silu(x, s, b, groups=GN_GROUPS)
+    times = {}
+    for h, c in dict.fromkeys(TRAJ_GN_SHAPES):
+        sets = [(torch.randn(GN_ROWS, h, c, generator=gen, device=dev),
+                 1 + 0.1 * torch.randn(c, generator=gen, device=dev),
+                 0.1 * torch.randn(c, generator=gen, device=dev)) for _ in range(4)]
+        times[f"{h}x{c}"] = device_ms(fn, sets)
+    times["forward"] = sum(times[f"{h}x{c}"] for h, c in TRAJ_GN_SHAPES)
+    return times
+
+
+def solver_step_times(dev, gen) -> dict:
+    """ms of the K1 wrapper at each of ``STEP_SHAPES``, keyed "BxD"."""
+    from repro_torch.kernels.solver_step import ops as step_ops
+
+    fn = lambda *a: step_ops.error_step(*a[:8], eps_abs=a[8], eps_rel=a[9])
+    times = {}
+    for b, d in STEP_SHAPES:
+        sets = []
+        for _ in range(4):
+            states = [torch.randn(b, d, generator=gen, device=dev) for _ in range(5)]
+            coeffs = [torch.rand(b, generator=gen, device=dev) for _ in range(3)]
+            eps = [step_ops.per_sample_tolerance(e, b, dev) for e in (0.0078, 0.05)]
+            sets.append((*states, *coeffs, *eps))
+        times[f"{b}x{d}"] = device_ms(fn, sets)
+    return times
+
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        sys.exit(1)
+    import repro_torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    result = {"package": repro_torch.__file__, "floor_ms": launch_floor_ms(dev),
+              "groupnorm_silu_ms": groupnorm_times(dev, gen),
+              "solver_step_ms": solver_step_times(dev, gen)}
+    print(card())
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

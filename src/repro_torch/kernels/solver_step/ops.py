@@ -28,7 +28,9 @@ versions (``ref.em_step``, ``ref.error_step``, ``ref.error_step_sums``);
 CUDA tensors launch ``csrc/em_step.cu`` or ``csrc/solver_step.cu``, or
 raise. There is no fallback from one to the other. ``em_launches``
 counts K5's launches, ``launches`` those of K1/K2, ``sharded_launches``
-those of K4 (the same kernel, launched by ``sharded_error_step``).
+those of K4 (the same kernel, launched by ``sharded_error_step``); each
+call of K1/K2/K4 is one kernel launch. ``kernel_config`` fixes its
+tiling (from D alone) and its load width (from the alignment).
 """
 
 from __future__ import annotations
@@ -50,6 +52,39 @@ em_launches = 0
 sharded_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the K1/K2/K4 kernel's tiling (``kThreads``, ``kVec``, ``kTile`` in
+#: ``csrc/solver_step.cu``): a block of 256 threads takes 3072 columns of a
+#: row, a thread three runs of 4 consecutive columns
+STEP_THREADS, STEP_VEC, STEP_TILE = 256, 4, 3072
+
+
+def kernel_config(B: int, D: int, ld: int, dtype, aligned: bool) -> dict:
+    """The K1/K2/K4 launch for B rows of D columns whose rows start ``ld``
+    elements apart in ``dtype``; ``aligned`` says that every operand's
+    base, x'' included, starts on a run of 4 elements (16 bytes in fp32,
+    8 in bf16).
+
+    Returns ``tiles`` of ``STEP_TILE`` columns a row, the ``grid``
+    (tiles, B) and ``threads`` of the one launch, ``design`` ("one block
+    a row" where a row fits one tile, whose block writes e2 itself; else
+    "last block of a row", which sums the row's tile sums in tile order),
+    and ``load_bytes``, the width of one load: a run of 4 elements where
+    every row of every operand is aligned for it, else one element. The
+    tiling, and so each row's order of summation, depends on D alone: B,
+    ``ld``, the dtype and the alignment change the grid and the load
+    width, never the bits."""
+    size = dtype.itemsize
+    tiles = -(-D // STEP_TILE)
+    vec = aligned and D % STEP_VEC == 0 and ld % STEP_VEC == 0
+    return dict(tiles=tiles, grid=(tiles, B), threads=STEP_THREADS,
+                design="one block a row" if tiles == 1 else "last block of a row",
+                load_bytes=STEP_VEC * size if vec else size)
+
+
+def runs_aligned(tensors) -> bool:
+    """Whether every tensor starts on a run of ``STEP_VEC`` elements (16
+    bytes in fp32, 8 in bf16): the ``aligned`` of ``kernel_config``."""
+    return all(t.data_ptr() % (STEP_VEC * t.element_size()) == 0 for t in tensors)
 
 
 def per_sample_tolerance(eps, batch: int, device) -> Tensor:
@@ -165,14 +200,12 @@ def _declare(lib):
     fn = lib.solver_step_error
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] * 2
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.solver_step_error_sums.argtypes = (
             [ctypes.c_void_p] * 13 + [ctypes.c_longlong] * 4
-            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.solver_step_error_sums.restype = ctypes.c_int
-        lib.solver_step_num_tiles.argtypes = [ctypes.c_longlong]
-        lib.solver_step_num_tiles.restype = ctypes.c_int
         lib.solver_step_em.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2
                                        + [ctypes.c_int, ctypes.c_void_p])
         lib.solver_step_em.restype = ctypes.c_int
@@ -224,19 +257,19 @@ def _launch(x, xp, s2, z, xv, e0, d1, d2, ea, er, *, use_prev, raw=False, k4=Fal
     lib = _declare(_build.library())
     xh = torch.empty(B, D, dtype=x.dtype, device=x.device)
     e2 = torch.empty(B, dtype=torch.float32, device=x.device)
-    partial = torch.empty(B, lib.solver_step_num_tiles(D),
-                          dtype=torch.float32, device=x.device)
-    ptrs = [a.data_ptr() for a in states + (e0, d1, d2, ea, er)]
+    cfg = kernel_config(B, D, ld if raw else D, x.dtype, runs_aligned(states + (xh,)))
+    # the tile sums of a row of many tiles; a row of one tile needs none
+    partial = (torch.empty(B, cfg["tiles"], dtype=torch.float32, device=x.device)
+               if cfg["tiles"] > 1 else None)
+    args = ([a.data_ptr() for a in states + (e0, d1, d2, ea, er)]
+            + [xh.data_ptr(), e2.data_ptr(), partial.data_ptr() if partial is not None else None])
+    flags = (_DTYPES[x.dtype], int(use_prev), int(cfg["load_bytes"] > x.element_size()))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if raw:
-            rc = lib.solver_step_error_sums(
-                *ptrs, xh.data_ptr(), e2.data_ptr(), partial.data_ptr(), B, D,
-                ld, D, _DTYPES[x.dtype], int(use_prev), stream)
+            rc = lib.solver_step_error_sums(*args, B, D, ld, D, *flags, stream)
         else:
-            rc = lib.solver_step_error(
-                *ptrs, xh.data_ptr(), e2.data_ptr(), partial.data_ptr(), B, D,
-                _DTYPES[x.dtype], int(use_prev), stream)
+            rc = lib.solver_step_error(*args, B, D, *flags, stream)
     if rc != 0:
         raise RuntimeError(f"solver_step kernel launch failed: CUDA error {rc}")
     if k4:

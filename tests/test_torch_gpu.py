@@ -165,6 +165,116 @@ def test_sharded_step_on_batch_halves_is_k1_bitwise(cuda, one_rank_mesh, dtype):
         torch.testing.assert_close(fe, e2[rows], rtol=1e-6, atol=0)
 
 
+def _kernel_names(fn, calls=8):
+    """Names of the CUDA kernels ``calls`` calls of ``fn`` run
+    (torch.profiler), one entry a launch; copies and memsets are not
+    kernels."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [736, 2048, 2049, 3073, 4_999, 196_608])
+def test_solver_step_kernel_widths_batches_and_unaligned_views(cuda, D, dtype):
+    """K1 at one 3072-column tile a row (736, 2048, 2049), at two (3073, and
+    4999, ragged) and many (the DiT's 196,608), at B = 1 and 8: one launch,
+    within the plain version's
+    bounds, the same bits twice. Operands 1 element into their buffers
+    (off 16 bytes, so single-element loads) give the aligned copies' bits:
+    the load width never changes the order of the sums."""
+    for B in (1, 8):
+        states, coeffs, (ea, er) = _step_inputs(B, D, dtype, cuda, seed=D + B)
+        before = step_ops.launches
+        xh, e2 = step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+        assert step_ops.launches == before + 1
+        xr, e2r = step_ref.error_step(*states, *coeffs, ea, er)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(xh.float(), xr.float(), **X_TOL[dtype])
+        torch.testing.assert_close(e2, e2r, rtol=1e-5, atol=1e-6)
+        again = step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+        assert torch.equal(again[0], xh) and torch.equal(again[1], e2)
+        views = []
+        for t in states:
+            buf = torch.empty(B * D + 1, dtype=dtype, device=cuda)
+            views.append(buf[1:].view(B, D))
+            views[-1].copy_(t)
+        assert not step_ops.runs_aligned(views[:1])
+        vx, ve = step_ops.error_step(*views, *coeffs, eps_abs=ea, eps_rel=er)
+        assert torch.equal(vx, xh) and torch.equal(ve, e2)
+
+
+@pytest.mark.parametrize("D", [736, 4_999, 196_608])
+def test_solver_step_row_bits_independent_of_batch(cuda, D):
+    """A row gives the same bits at B = 64 and in any sub-batch, as a view
+    (same addresses) or a contiguous copy (other alignment)."""
+    states, coeffs, (ea, er) = _step_inputs(64, D, torch.float32, cuda, seed=7)
+    xh, e2 = step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+    for rows in (slice(0, 1), slice(5, 6), slice(3, 40), slice(63, 64), slice(1, 64)):
+        for copy in (False, True):
+            part = [t[rows].contiguous() if copy else t[rows] for t in states]
+            bx, be = step_ops.error_step(*part, *(c[rows] for c in coeffs),
+                                         eps_abs=ea[rows], eps_rel=er[rows])
+            assert torch.equal(bx, xh[rows]) and torch.equal(be, e2[rows])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_sharded_step_partial_sums_at_odd_column_offsets(cuda, dtype):
+    """K4's partial mode on column ranges that start off 16 bytes (columns
+    1 and 3 of the DiT state, and a ragged D): x'' bitwise equal to K1's
+    columns, the sums within 1e-5 of the plain version's."""
+    for D, (a, b) in ((196_608, (1, 98_305)), (196_608, (3, 196_608)), (4_999, (1, 2_501))):
+        states, coeffs, (ea, er) = _step_inputs(8, D, dtype, cuda, seed=a + D)
+        xh, _ = step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+        block = [t[:, a:b] for t in states]
+        assert not step_ops.runs_aligned(block[:1])
+        bx, bs = step_ops.error_step_sums(*block, *coeffs, eps_abs=ea, eps_rel=er)
+        px, ps = step_ref.error_step_sums(*block, *coeffs, ea, er)
+        torch.cuda.synchronize()
+        assert torch.equal(bx, xh[:, a:b])
+        torch.testing.assert_close(bs, ps, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("D", [736, 196_608])
+def test_solver_step_is_one_cuda_kernel_a_call(cuda, D):
+    """With (B,) tolerances (no fill for a scalar one), a call runs exactly
+    one CUDA kernel, at one tile a row and at many: 8 calls, 8 kernels."""
+    states, coeffs, (ea, er) = _step_inputs(8, D, torch.float32, cuda, seed=3)
+    step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+    names = _kernel_names(lambda: step_ops.error_step(*states, *coeffs, eps_abs=ea,
+                                                      eps_rel=er))
+    assert len(names) == 8 and all("error_step_kernel" in n for n in names), names
+
+
+def test_solver_step_in_a_cuda_graph_matches_eager(cuda):
+    """Captured in a CUDA graph and replayed three times, the DiT-shape
+    step (its row counters persist across calls) gives the eager bits on
+    every replay."""
+    states, coeffs, (ea, er) = _step_inputs(8, 196_608, torch.float32, cuda, seed=4)
+    want = step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+                for _ in range(3)]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for xh, e2 in outs:
+            assert torch.equal(xh, want[0]) and torch.equal(e2, want[1])
+    assert torch.equal(step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)[1],
+                       want[1])
+
+
 CASES = [
     # B, Hq, Hkv, S, D, causal, window, dtype
     (8, 12, 12, 256, 64, False, None, torch.float32),
@@ -316,6 +426,63 @@ def test_groupnorm_silu_kernel_large_offset_and_edges(cuda):
                                    rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="contiguous"):
         gn_ops.groupnorm_silu(x[:, ::2], s, b, groups=G)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("i", range(len(TRAJ_GN_SHAPES)))
+def test_groupnorm_silu_general_path_matches_plain(cuda, i, dtype):
+    """The general kernel, forced, at every TRAJ_UNET shape (the register
+    kernel is the one the wrapper picks there): the same bounds and the
+    same bits twice."""
+    H, C = TRAJ_GN_SHAPES[i]
+    assert gn_ops.kernel_config(128, H, C, 8, dtype, True)["path"] == "register"
+    x, scale, bias = _gn_inputs(128, H, C, cuda, dtype, seed=100 + i)
+    out = gn_ops._launch(x, scale, bias, groups=8, eps=1e-6, path="general")
+    want = gn_ref.groupnorm_silu(x, scale, bias, groups=8)
+    torch.cuda.synchronize()
+    diff = (out.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5
+    else:
+        assert (diff <= torch.maximum(_bf16_ulp(out), _bf16_ulp(want)) + 1e-5).all()
+    assert torch.equal(gn_ops._launch(x, scale, bias, groups=8, eps=1e-6, path="general"), out)
+
+
+@pytest.mark.parametrize("path", [None, "general"], ids=["chosen", "general"])
+def test_groupnorm_silu_both_paths_large_offset_and_edges(cuda, path):
+    """x = 1e3 + N(0, 1) at (128, 32, 64) within 2e-3 and with its spread,
+    the odd shapes of the edge test (6 groups; C/g 1; a 2048-element slab:
+    general either way) and register-path edges (30 rows of C/g 16; the
+    largest register slab, 1024; C/g 512, wider than a team of vectors,
+    so a lane's vectors take other channels), each the same bits twice;
+    an x 4 bytes into its buffer takes the general path."""
+    run = lambda x, s, b, g: gn_ops._launch(x, s, b, groups=g, eps=1e-6, path=path)
+    x, _, _ = _gn_inputs(128, 32, 64, cuda, torch.float32, offset=1e3)
+    ones, zeros = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    out = run(x, ones, zeros, 8)
+    torch.testing.assert_close(out, gn_ref.groupnorm_silu(x, ones, zeros, groups=8),
+                               rtol=0, atol=2e-3)
+    assert 0.3 < float(out.std()) < 1.2 and torch.equal(run(x, ones, zeros, 8), out)
+    for (B, H, C, G) in ((3, 30, 96, 6), (2, 16, 4, 8), (1, 64, 256, 8), (5, 16, 24, 8),
+                         (3, 30, 128, 8), (2, 64, 128, 8), (2, 2, 1024, 2)):
+        x, s, b = _gn_inputs(B, H, C, cuda, torch.float32, seed=C)
+        g = min(G, C)
+        out = run(x, s, b, g)
+        torch.testing.assert_close(out, gn_ref.groupnorm_silu(x, s, b, groups=G),
+                                   rtol=0, atol=1e-5)
+        assert torch.equal(run(x, s, b, g), out)
+    x, s, b = _gn_inputs(128, 32, 64, cuda, torch.float32, seed=9)
+    view = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    view.copy_(x)
+    torch.testing.assert_close(run(view, s, b, 8), gn_ref.groupnorm_silu(x, s, b, groups=8),
+                               rtol=0, atol=1e-5)
+
+
+def test_groupnorm_silu_is_one_cuda_kernel_a_call(cuda):
+    x, s, b = _gn_inputs(128, 32, 64, cuda, torch.float32)
+    gn_ops.groupnorm_silu(x, s, b, groups=8)
+    names = _kernel_names(lambda: gn_ops.groupnorm_silu(x, s, b, groups=8))
+    assert len(names) == 8 and all("gn_silu_regs" in n for n in names), names
 
 
 def test_small_plan_on_card_runs_all_three_kernels(cuda):

@@ -161,3 +161,55 @@ def test_indivisible_channels_and_bad_operands_raise():
         ops.groupnorm_silu(x.to(torch.float16), torch.ones(30), torch.zeros(30), groups=6)
     with pytest.raises(ValueError, match="B, H, C"):
         ops.groupnorm_silu(torch.zeros(8, 30), torch.ones(30), torch.zeros(30), groups=6)
+
+
+
+@pytest.mark.parametrize("hc", TRAJ_SHAPES, ids=str)
+@pytest.mark.parametrize("name", sorted(DT))
+def test_kernel_config_takes_the_register_path_at_traj_unet_shapes(hc, name):
+    """Every (H, C) of a planning forward (128 rows, 8 groups) fits a
+    team of lanes: the team is a power of two up to a warp, its vectors
+    cover the slab, a block holds whole teams, the grid covers every
+    slab, and fp32 loads 16 bytes, bf16 8."""
+    H, C = hc
+    tdt = DT[name][1]
+    cfg = ops.kernel_config(128, H, C, 8, tdt, True)
+    n, slabs = H * C // 8, 128 * 8
+    assert cfg["path"] == "register"
+    team, vecs, threads = cfg["team"], cfg["vecs"], cfg["threads"]
+    assert team in (1, 2, 4, 8, 16, 32) and vecs in (1, 2, 4, 8)
+    assert team * vecs * 4 >= n and (vecs == 1 or team * (vecs // 2) * 4 < n)
+    assert threads % 32 == 0 and threads % team == 0 and threads <= ops.REG_THREADS
+    assert cfg["grid"] * (threads // team) >= slabs > (cfg["grid"] - 1) * (threads // team)
+    assert cfg["load_bytes"] == 4 * tdt.itemsize
+    # a slab of 64 elements takes a half warp, not a whole one
+    if n == 64:
+        assert team == 16
+
+
+@pytest.mark.parametrize("shape,why", [
+    ((2, 16, 16, 8), "C/g = 2"), ((2, 16, 24, 8), "C/g = 3"), ((2, 16, 4, 8), "C/g = 1"),
+    ((1, 64, 256, 8), "slab 2048"), ((1, 48, 96, 4), "slab 1152"),
+    ((3, 30, 96, 6), "g = 6"), ((3, 16, 96, 8), "C/(4g) = 3"),
+    ((128, 32, 64, 8), "unaligned")], ids=lambda v: str(v))
+def test_kernel_config_takes_the_general_path(shape, why):
+    B, H, C, G = shape
+    cfg = ops.kernel_config(B, H, C, G, torch.float32, why != "unaligned")
+    assert cfg["path"] == "general"
+    assert cfg["threads"] == ops.THREADS and cfg["grid"] == B * min(G, C)
+    assert cfg["load_bytes"] == 4
+
+
+def test_kernel_config_register_path_limits():
+    """The largest register slab (1024: 32 lanes of 8 vectors), a slab of
+    one vector, an odd row count (H = 30 leaves lanes idle), and a group
+    count the wrapper clamps to C."""
+    big = ops.kernel_config(3, 64, 128, 8, torch.float32, True)
+    assert big["path"] == "register" and (big["team"], big["vecs"]) == (32, 8)
+    assert ops.kernel_config(3, 65, 128, 8, torch.float32, True)["path"] == "general"
+    tiny = ops.kernel_config(1, 1, 4, 1, torch.float32, True)
+    assert (tiny["team"], tiny["vecs"], tiny["threads"], tiny["grid"]) == (1, 1, 32, 1)
+    odd = ops.kernel_config(3, 30, 128, 8, torch.bfloat16, True)
+    assert (odd["path"], odd["team"], odd["vecs"], odd["grid"]) == ("register", 32, 4, 6)
+    clamp = ops.kernel_config(2, 16, 4, 8, torch.float32, True)  # g = 4, C/g = 1
+    assert clamp["path"] == "general" and clamp["grid"] == 8

@@ -130,3 +130,63 @@ def test_reference_kernel_reads_past_padded_d():
     _, re2 = jref.error_step(*(jnp.asarray(s).reshape(2, -1) for s in states),
                              *map(jnp.asarray, coeffs), **kw)
     np.testing.assert_allclose(e2.numpy(), np.asarray(re2), **E_TOL)
+
+
+def test_kernel_config_planning_row_is_one_block():
+    """Planning's state (64 plans of 32 × 23) fits one 3072-column tile a
+    row: one block a row writes e2 itself, with 16-byte loads in fp32 and
+    8-byte in bf16."""
+    for tdt in (torch.float32, torch.bfloat16):
+        cfg = ops.kernel_config(64, 736, 736, tdt, True)
+        assert (cfg["tiles"], cfg["grid"], cfg["design"]) == (1, (1, 64), "one block a row")
+        assert cfg["load_bytes"] == 4 * tdt.itemsize
+
+
+def test_kernel_config_dit_row_is_last_block_of_a_row():
+    cfg = ops.kernel_config(8, 196_608, 196_608, torch.float32, True)
+    assert (cfg["tiles"], cfg["grid"], cfg["design"]) == (64, (64, 8), "last block of a row")
+    assert cfg["load_bytes"] == 16 and cfg["threads"] == ops.STEP_THREADS
+    assert ops.STEP_TILE == ops.STEP_THREADS * 3 * ops.STEP_VEC
+
+
+def test_kernel_config_unaligned_k4_range_loads_single_elements():
+    """K4 reads column ranges in place; a range of the ragged state D = 4999
+    split four ways starts at column 1250, 5000 bytes into a row, and its
+    rows are 4999 columns apart: the launch takes single-element loads,
+    which are legal at any column. An aligned range keeps 16 bytes."""
+    D, f = 4999, 4
+    state = torch.zeros(8, D)
+    for i in range(f):
+        a, b = ops.feature_range(D, f, i)
+        block = state[:, a:b]
+        cfg = ops.kernel_config(8, b - a, block.stride(0), torch.float32,
+                                ops.runs_aligned([block]))
+        assert cfg["load_bytes"] == 4
+    wide = torch.zeros(8, 196_608)
+    for i in range(4):
+        a, b = ops.feature_range(196_608, 4, i)
+        block = wide[:, a:b]
+        aligned = ops.runs_aligned([block])
+        cfg = ops.kernel_config(8, b - a, block.stride(0), torch.float32, aligned)
+        assert aligned == (wide.data_ptr() % 16 == 0) and cfg["load_bytes"] in (4, 16)
+    odd = wide[:, 1:4097]  # 4 bytes off the row's start
+    assert not ops.runs_aligned([odd])
+    assert ops.kernel_config(8, 4096, 196_608, torch.float32, False)["load_bytes"] == 4
+    assert ops.kernel_config(8, 4096, 4097, torch.float32, True)["load_bytes"] == 4
+    assert ops.kernel_config(8, 4097, 4100, torch.float32, True)["load_bytes"] == 4
+
+
+@pytest.mark.parametrize("D", [1, 736, 2048, 3072, 3073, 4_999, 98_304, 196_608])
+def test_kernel_config_row_order_never_depends_on_b(D):
+    """The tiling, which fixes a row's order of summation, is a function
+    of D alone: every batch, row stride, dtype and alignment gives the
+    same tiles and design."""
+    seen = {(c["tiles"], c["design"], c["threads"])
+            for B in (1, 2, 7, 8, 64, 65_535)
+            for ld in (D, D + 1, 2 * D)
+            for tdt in (torch.float32, torch.bfloat16)
+            for aligned in (False, True)
+            for c in [ops.kernel_config(B, D, ld, tdt, aligned)]}
+    assert seen == {(-(-D // ops.STEP_TILE),
+                     "one block a row" if D <= ops.STEP_TILE else "last block of a row",
+                     ops.STEP_THREADS)}
