@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.benchmarks.common import frechet_gaussian
 from repro_torch.core.sampling import sample
 from repro_torch.core.sde import VESDE
 from repro_torch.device import resolve_device
@@ -39,23 +40,6 @@ from repro_torch.device import resolve_device
 D = 3072
 N = 256
 EPS_RELS = (0.01, 0.02, 0.05, 0.10)
-
-
-def frechet_gaussian(x, y) -> float:
-    """Fréchet distance between Gaussian fits of two sample sets (the FID
-    formula on raw features): |μ1−μ2|² + tr(C1 + C2 − 2(C1 C2)^½), in
-    float64 numpy."""
-    x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
-    c1 = np.cov(x, rowvar=False) + 1e-8 * np.eye(x.shape[1])
-    c2 = np.cov(y, rowvar=False) + 1e-8 * np.eye(y.shape[1])
-    s1 = _sqrtm_psd(c1)
-    inner = _sqrtm_psd(s1 @ c2 @ s1)
-    return float(((x.mean(0) - y.mean(0)) ** 2).sum() + np.trace(c1 + c2 - 2 * inner))
-
-
-def _sqrtm_psd(a: np.ndarray) -> np.ndarray:
-    w, v = np.linalg.eigh((a + a.T) / 2)
-    return (v * np.sqrt(np.clip(w, 0, None))) @ v.T
 
 
 def setup(device, d: int = D, seed: int = 0):

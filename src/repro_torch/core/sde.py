@@ -67,6 +67,21 @@ class SDE:
         """(mean_scale(t), std(t)) of the transition kernel p(x_t | x_0)."""
         raise NotImplementedError
 
+    def perturb(self, x0: Tensor, t, z: Tensor) -> Tensor:
+        """Single-step forward corruption x_t = m(t)·x0 + s(t)·z."""
+        m, s = self.marginal(t)
+        return bcast(m, x0) * x0 + bcast(s, x0) * z
+
+    def kernel_score(self, xt: Tensor, x0: Tensor, t) -> Tensor:
+        """∇_{x_t} log p(x_t | x_0), the DSM regression target."""
+        m, s = self.marginal(t)
+        return -(xt - bcast(m, x0) * x0) / bcast(s, x0) ** 2
+
+    def loss_weight(self, t) -> Tensor:
+        """λ(t) ∝ 1 / E‖∇ log p(x_t|x_0)‖² = std(t)² (paper Sec. 2.1)."""
+        _, s = self.marginal(t)
+        return s ** 2
+
     def prior_std(self) -> float:
         raise NotImplementedError
 

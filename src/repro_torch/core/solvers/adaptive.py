@@ -60,8 +60,11 @@ solve's bits wherever the score of a row does not depend on the batch
 around it (the closed-form scores; a network on this CPU; cuBLAS may
 round a product of fewer rows otherwise).
 
-Not ported yet: per-slot keys, momentum, the probability-flow variant,
-telemetry and Algorithm 2.
+Algorithm 2 (``adaptive_forward``, paper App. C) is at the end: the
+forward-time solver for a general diffusion with x-dependent g.
+
+Not ported yet: per-slot keys, momentum, the probability-flow variant
+and telemetry.
 """
 
 from __future__ import annotations
@@ -476,3 +479,110 @@ def adaptive(sde: SDE, score_fn: Callable, x_init: Tensor,
                         config=cfg, noise_fn=noise_fn, sharding=sharding)
     return finalize(sde, score_fn, carry, denoise=denoise,
                     precision=cfg.precision, conditioner=cfg.conditioner)
+
+
+# ---------------------------------------------------------------------------
+# Algorithm 2: arbitrary forward-time diffusion dx = f(x,t)dt + g(x,t)dw
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardAdaptiveConfig:
+    eps_rel: float = 0.01
+    eps_abs: float = 1e-3
+    h_init: float = 0.01
+    safety: float = 0.9
+    r_exponent: float = 0.9
+    max_iters: int = 100_000
+    stratonovich: bool = False  # True (or a state-independent g) → s = 0
+
+
+def _forward_draw(generator: torch.Generator, x: Tensor):
+    """z ~ N(0, I) of x's shape, then s ~ U{−1, +1} per sample (fp32)."""
+    z = torch.randn(x.shape, generator=generator, dtype=torch.float32, device=x.device)
+    s = torch.randint(0, 2, (x.shape[0],), generator=generator, device=x.device)
+    return z, (2 * s - 1).to(torch.float32)
+
+
+def adaptive_forward(drift_fn: Callable, diffusion_fn: Callable, x0: Tensor,
+                     t_begin: float, t_end: float,
+                     generator: Optional[torch.Generator] = None, *,
+                     config: ForwardAdaptiveConfig | None = None,
+                     noise_fn: Callable | None = None, device="cuda") -> SolveResult:
+    """Algorithm 2 (paper App. C): the forward-time adaptive solver for a
+    general diffusion dx = f(x, t) dt + g(x, t) dw, x (B, ...) fp32.
+
+    As Algorithm 1 but forward in time; g may depend on x, which the Itô
+    correction s ~ U{−1, +1} per sample (Roberts 2012) handles, unless
+    ``stratonovich`` (s = 0); and the Gaussian z is kept across
+    rejections, so a rejection does not bias the driving noise (only an
+    accepted sample gets a fresh z and s).
+
+    Noise: one (z, s) draw before the loop and one every iteration, from
+    ``generator`` (on ``device``) or from ``noise_fn(x) -> (z, s)``, the
+    seam through which tests pass the reference's draws. Iterations run
+    in groups of ``SYNC_EVERY`` between host syncs, as in ``solve_chunk``;
+    an iteration after every sample finished changes nothing, and
+    ``iterations`` counts those in which a sample was active, which is
+    the reference's count.
+    """
+    dev = resolve_device(device)
+    check_noise_source(generator, noise_fn, dev, "adaptive_forward")
+    cfg = config or ForwardAdaptiveConfig()
+    draw = noise_fn or (lambda x: _forward_draw(generator, x))
+
+    def noise(x):
+        z, s = draw(x)
+        z, s = z.to(device=dev, dtype=torch.float32), s.to(device=dev, dtype=torch.float32)
+        return z, (torch.zeros_like(s) if cfg.stratonovich else s)
+
+    x = x0.to(device=dev, dtype=torch.float32)
+    batch = x.shape[0]
+    t = torch.full((batch,), float(t_begin), dtype=torch.float32, device=dev)
+    h = torch.clamp(torch.full((batch,), cfg.h_init, dtype=torch.float32, device=dev),
+                    max=t_end - t_begin)
+    end = t_end - 1e-12
+    z, s = noise(x)
+    x_prev = x
+    zeros = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    nfe, acc, rej = zeros, zeros, zeros
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def body(x, x_prev, t, h, z, s, nfe, acc, rej, iters):
+        active = t < end
+        h_c = torch.where(active, torch.minimum(h, t_end - t), 0.0)
+        hb, sq, se = bcast(h_c, x), bcast(torch.sqrt(h_c), x), bcast(s, x)
+        g1, f1 = diffusion_fn(x, t), drift_fn(x, t)
+        x_prime = x + hb * f1 + sq * g1 * (z - se)
+        t2 = t + h_c
+        g2, f2 = diffusion_fn(x_prime, t2), drift_fn(x_prime, t2)
+        x_tilde = x + hb * f2 + sq * g2 * (z + se)
+        x_high = 0.5 * (x_prime + x_tilde)
+        delta = mixed_tolerance(x_prime, x_prev, cfg.eps_abs, cfg.eps_rel)
+        err = scaled_error_l2(x_prime, x_high, delta)
+        accept = (err <= 1.0) & active
+        acc_e = bcast(accept, x)
+        t_new = torch.where(accept, t + h_c, t)
+        z_fresh, s_fresh = noise(x)  # drawn every iteration, kept only on accept
+        remaining = torch.clamp(t_end - t_new, min=0.0)
+        h_new = next_step_size(h, err, remaining, safety=cfg.safety,
+                               r_exponent=cfg.r_exponent)
+        return (torch.where(acc_e, x_high, x), torch.where(acc_e, x_prime, x_prev),
+                t_new, torch.where(active, h_new, h),
+                torch.where(acc_e, z_fresh, z), torch.where(accept, s_fresh, s),
+                nfe + torch.where(active, 2, 0).to(torch.int32),
+                acc + accept.to(torch.int32),
+                rej + (~accept & active).to(torch.int32),
+                iters + active.any().to(torch.int32))
+
+    state = (x, x_prev, t, h, z, s, nfe, acc, rej, iters)
+    with torch.no_grad():
+        while True:
+            flags = torch.stack([(state[2] < end).any().to(torch.int32), state[9]])
+            active, n_iters = flags.tolist()
+            if not active or n_iters >= cfg.max_iters:
+                break
+            for _ in range(min(SYNC_EVERY, cfg.max_iters - n_iters)):
+                state = body(*state)
+    x, _, _, _, _, _, nfe, acc, rej, iters = state
+    return SolveResult(x=x, nfe=nfe, iterations=iters, accepted=acc, rejected=rej)

@@ -10,7 +10,8 @@ wrapper nothing is padded.
 Dispatch is by the device of the tensors: CPU tensors take the plain
 version (``ref.attention``); CUDA tensors launch
 ``csrc/flash_attention.cu`` or raise. There is no fallback from one to
-the other. The kernel moves K/V tiles 16 bytes at a time
+the other, and the launch refuses inputs that require grad under grad
+mode (``kernels.autograd``: the kernel has no backward). The kernel moves K/V tiles 16 bytes at a time
 (``cp.async``), so on the card q, k and v need 16-byte-aligned base
 pointers and (b, h, s) strides (``check_alignment``): every model
 tensor of fp32 or bf16 rows whose head width is a multiple of 4 (fp32)
@@ -24,6 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.autograd import refuse_autograd
 from repro_torch.kernels.flash_attention import ref
 
 Tensor = torch.Tensor
@@ -100,6 +102,7 @@ def _declare(lib):
 
 def _launch(q, k, v, *, causal, window, scale, true_len):
     global launches
+    refuse_autograd("flash_attention", q, k, v)
     if any(a.stride(-1) != 1 for a in (q, k, v)):
         raise ValueError("flash attention needs a contiguous last dimension")
     check_alignment(q, k, v)

@@ -11,7 +11,8 @@ kernel reduces over each group's channels directly and needs none.
 Dispatch is by the device of the tensors: CPU tensors take the plain
 version (``ref.groupnorm_silu``); CUDA tensors launch
 ``csrc/groupnorm_silu.cu`` or raise. There is no fallback from one to
-the other. ``launches`` counts kernel launches, one a call.
+the other, and the launch refuses inputs that require grad under grad
+mode (``kernels.autograd``: the kernel has no backward). ``launches`` counts kernel launches, one a call.
 
 The CUDA source holds two kernels; ``kernel_config`` picks one before
 the launch from the shape, the dtype and the operands' alignment: the
@@ -29,6 +30,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.autograd import refuse_autograd
 from repro_torch.kernels.groupnorm_silu import ref
 
 Tensor = torch.Tensor
@@ -119,6 +121,7 @@ def _launch(x, scale, bias, *, groups, eps, path=None):
     kernel (tests and timings compare the two; the model never passes
     it)."""
     global launches
+    refuse_autograd("groupnorm_silu", x, scale, bias)
     if path not in (None, "general"):
         raise ValueError(f"path must be None or 'general', got {path!r}")
     if not x.is_contiguous():

@@ -26,7 +26,9 @@ axis's group gives e2 = sqrt(Σ / D) (``scaled_error_l2_psum``).
 Dispatch is by the device of the tensors: CPU tensors take the plain
 versions (``ref.em_step``, ``ref.error_step``, ``ref.error_step_sums``);
 CUDA tensors launch ``csrc/em_step.cu`` or ``csrc/solver_step.cu``, or
-raise. There is no fallback from one to the other. ``em_launches``
+raise. There is no fallback from one to the other, and both launches
+refuse inputs that require grad under grad mode (``kernels.autograd``:
+neither kernel has a backward). ``em_launches``
 counts K5's launches, ``launches`` those of K1/K2, ``sharded_launches``
 those of K4 (the same kernel, launched by ``sharded_error_step``); each
 call of K1/K2/K4 is one kernel launch. ``kernel_config`` fixes its
@@ -40,6 +42,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.autograd import refuse_autograd
 from repro_torch.kernels.solver_step import ref
 
 Tensor = torch.Tensor
@@ -215,6 +218,7 @@ def _declare(lib):
 def _launch_em(x, s, z, c0, c1, c2):
     global em_launches
     states = (x, s, z)
+    refuse_autograd("em_step", *states, c0, c1, c2)
     if not all(a.is_contiguous() for a in states + (c0, c1, c2)):
         raise ValueError("em_step kernel operands must be contiguous")
     if any(a.data_ptr() % 16 for a in states):
@@ -242,6 +246,7 @@ def _launch(x, xp, s2, z, xv, e0, d1, d2, ea, er, *, use_prev, raw=False, k4=Fal
     ``launches``."""
     global launches, sharded_launches
     states = (x, xp, s2, z, xv)
+    refuse_autograd("solver_step", *states, e0, d1, d2, ea, er)
     B, D = x.shape
     if raw:
         ld = x.stride(0) if B > 1 else D

@@ -12,7 +12,9 @@ a ragged S, so nothing is transposed or padded.
 Dispatch is by the device of the tensors: CPU tensors take the plain
 version (``ref.ssd_chunked``, chunk ``CHUNK``); CUDA tensors launch
 ``csrc/ssd_scan.cu`` (chunk ``KERNEL_CHUNK``, which changes only the
-rounding) or raise. There is no fallback from one to the other.
+rounding) or raise. There is no fallback from one to the other, and the
+launch refuses inputs that require grad under grad mode
+(``kernels.autograd``: the kernel has no backward).
 ``launches`` counts calls that launched the kernel: one a call, though a
 call runs two or three CUDA kernels (C·Bᵀ once a group, the ranges'
 local states when the sequence is split, the chunk body).
@@ -34,6 +36,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.autograd import refuse_autograd
 from repro_torch.kernels.ssd import ref
 
 Tensor = torch.Tensor
@@ -162,6 +165,7 @@ def _launch(x, dt, A, Bm, C, *, return_state, ranges=None):
     """The kernel on CUDA tensors; ``ranges`` overrides the range count
     (tests compare counts; the main path never passes it)."""
     global launches
+    refuse_autograd("ssd_scan", x, dt, A, Bm, C)
     if not all(a.is_contiguous() for a in (x, dt, A, Bm, C)):
         raise ValueError("ssd_scan kernel needs contiguous operands")
     B, S, H, P = x.shape

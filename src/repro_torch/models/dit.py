@@ -18,6 +18,12 @@ A fresh ``init_dit`` sets ``ada``, ``ada_b``, ``final_ada``,
 fresh network returns exactly 0 for every input. ``liven_zero_init``
 gives those leaves random values, so that a network made from a seed
 carries signal through attention to its output.
+
+Every leaf is a trainable ``nn.Parameter``, as every leaf of the
+reference's tree is trained (``pos_emb`` included). The samplers run
+under ``torch.no_grad()``; training runs with ``use_flash=False``, as
+the reference trains, since the flash kernel has no backward (its
+wrapper raises under grad mode, ``kernels.autograd``).
 """
 
 from __future__ import annotations
@@ -72,8 +78,7 @@ class DiTConfig:
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(tuple(shape), dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.zeros(tuple(shape), dtype=dtype, device=device))
 
 
 class DiTBlock(nn.Module):

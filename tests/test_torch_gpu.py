@@ -365,10 +365,11 @@ def test_dit_forward_flash_matches_plain_on_card(cuda):
     g = torch.Generator(device=cuda).manual_seed(2)
     x = torch.randn(4, 32, 32, 3, generator=g, device=cuda)
     t = torch.linspace(0.1, 1.0, 4, device=cuda)
-    plain = model(x, t)
-    model.cfg = dataclasses.replace(cfg, use_flash=True)
-    before = flash_ops.launches
-    fast = model(x, t)
+    with torch.no_grad():  # the DiT's leaves are trainable; the kernel has no backward
+        plain = model(x, t)
+        model.cfg = dataclasses.replace(cfg, use_flash=True)
+        before = flash_ops.launches
+        fast = model(x, t)
     assert flash_ops.launches == before + cfg.num_layers
     torch.testing.assert_close(fast, plain, rtol=1e-4, atol=1e-4)
     assert plain.abs().mean() > 1e-2
@@ -709,3 +710,87 @@ def test_prefill_on_card_launches_k7_once_per_layer(cuda):
         plain, _ = forward(params, toks, cfg, use_kernel_ssd=False, last_logits_only=True)
     torch.testing.assert_close(fast, plain, rtol=2e-4, atol=2e-4)
     assert torch.equal(nxt, torch.argmax(plain[:, -1:], dim=-1).to(torch.int32))
+
+
+def test_wrappers_refuse_autograd_on_card(cuda):
+    """Under grad mode every CUDA wrapper refuses an input that requires
+    grad and counts nothing; under no_grad the same call launches."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    cs = [torch.rand(8, generator=g, device=cuda) for _ in range(3)]
+    q = r(1, 2, 64, 64).requires_grad_(True)
+    x = r(8, 64).requires_grad_(True)
+    before = (flash_ops.launches, step_ops.launches, step_ops.em_launches)
+    with pytest.raises(ValueError, match="flash_attention"):
+        flash_ops.attention(q, q.detach(), q.detach(), causal=False)
+    with pytest.raises(ValueError, match="solver_step"):
+        step_ops.error_step(x, *(r(8, 64) for _ in range(4)), *cs, eps_abs=0.01, eps_rel=0.05)
+    with pytest.raises(ValueError, match="em_step"):
+        step_ops.em_step(x, r(8, 64), r(8, 64), *cs)
+    with pytest.raises(ValueError, match="groupnorm_silu"):
+        gn_ops.groupnorm_silu(r(4, 32, 64).requires_grad_(True), torch.ones(64, device=cuda),
+                              torch.zeros(64, device=cuda), groups=8)
+    assert (flash_ops.launches, step_ops.launches, step_ops.em_launches) == before
+    with torch.no_grad():
+        flash_ops.attention(q, q, q, causal=False)
+    assert flash_ops.launches == before[0] + 1
+
+
+def test_dit_training_step_on_card(cuda):
+    """A DiT trains on the card with plain attention (every leaf gets a
+    gradient); with flash attention under grad mode it raises instead of
+    dropping the attention's gradient."""
+    from repro_torch.core.losses import dsm_loss
+
+    cfg = tdit.DiTConfig(image_size=16, patch=4, d_model=64, num_layers=2, num_heads=4,
+                         d_ff=128)
+    model = tdit.init_dit(cfg, torch.Generator(device=cuda).manual_seed(0))
+    tdit.liven_zero_init(model, torch.Generator(device=cuda).manual_seed(1))
+    sde = VPSDE()
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x0 = torch.rand(4, 16, 16, 3, generator=g, device=cuda) * 2 - 1
+    apply = lambda m, x, t: m(x, t) / sde.marginal(t)[1].reshape(-1, 1, 1, 1)
+    dsm_loss(sde, apply, model, x0, g).backward()
+    assert all(p.grad is not None and p.grad.abs().max() > 0 for p in model.parameters())
+    model.cfg = dataclasses.replace(cfg, use_flash=True)
+    with pytest.raises(ValueError, match="flash_attention"):
+        dsm_loss(sde, apply, model, x0, g)
+
+
+def test_sample_chunked_on_card_is_the_chunks_bitwise(cuda):
+    """The pinned, side-stream copies give each chunk's bits, and launch
+    no kernel of their own (K5 once a step, K1 once an iteration)."""
+    from repro_torch.core.sampling import chunk_seeds, sample, sample_chunked
+
+    sde = VPSDE()
+    score = tan.gaussian_score(sde)
+    for method, kw, counter in (("em", dict(n_steps=30), "em_launches"),
+                                ("adaptive", dict(eps_rel=0.1, use_fused_kernel=True),
+                                 "launches")):
+        setattr(step_ops, counter, 0)
+        x, mean_nfe = sample_chunked(sde, score, 10, (8,), seed=1, chunk=4, method=method,
+                                     device=cuda, **kw)
+        chunked = getattr(step_ops, counter)
+        setattr(step_ops, counter, 0)
+        outs, nfes = [], []
+        for s in chunk_seeds(1, 3):
+            res = sample(sde, score, (4, 8), seed=s, method=method, device=cuda, **kw)
+            outs.append(res.x.cpu().numpy())
+            nfes.append(res.nfe.cpu().numpy())
+        assert chunked == getattr(step_ops, counter) > 0
+        assert type(x) is np.ndarray
+        np.testing.assert_array_equal(x, np.concatenate(outs)[:10])
+        assert mean_nfe == pytest.approx(float(np.concatenate(nfes)[:10].mean()))
+
+
+def test_adaptive_forward_on_card(cuda):
+    """Algorithm 2 on the card: the OU process's stationary moments."""
+    from repro_torch.core import ForwardAdaptiveConfig, adaptive_forward
+
+    res = adaptive_forward(lambda x, t: -x, lambda x, t: torch.full_like(x, 0.8),
+                           torch.zeros(1024, 2, device=cuda), 0.0, 4.0,
+                           torch.Generator(device=cuda).manual_seed(0),
+                           config=ForwardAdaptiveConfig(eps_abs=2e-2, eps_rel=0.1,
+                                                        h_init=0.1), device=cuda)
+    assert float(res.x.mean()) == pytest.approx(0.0, abs=0.04)
+    assert float(res.x.std()) == pytest.approx(0.8 / 2 ** 0.5, rel=0.06)
