@@ -34,7 +34,10 @@ Phases; any failure exits non-zero before the result line is printed:
              call; y and the final state against the oracle at a small
              shape, and bf16 at two shapes); K1 at the tables' states
              (4096, 2) and (2048, 2) and the trained DIT_100M's (8, 3072),
-             K5 at (4096, 2), fp32, the same bits on a second call; and the
+             K5 at (4096, 2), fp32, the same bits on a second call; K2 (the
+             solver step with ε per row) at the DiT state with the three
+             tiers' ε_rel in one call, within K1's bounds, the same bits
+             twice, each row bitwise its uniform-ε call's; and the
              autograd guard: under grad mode K1, K5, K4's partial mode, K3,
              K6 and K7 each refuse an input that requires grad, launching
              nothing.
@@ -95,6 +98,24 @@ Phases; any failure exits non-zero before the result line is printed:
              (CUDA cores, 3xTF32 tensor cores) and against itself on one
              range a sequence, and ptxas's registers and spills for K7's
              kernels with their shared memory.
+6a. serve  — the serving path, ``serving.DiffusionBatcher`` (the
+             continuous-batching server) on HIGHRES_DIT (seeded, livened),
+             VP, fp32, fused step and flash attention, 8 slots, sync
+             horizon 4, 16 requests cycling the draft / standard /
+             high_fidelity tiers under EDF admission, the telemetry ring
+             (4096) and the tracer on. K1/K2 and K3 counts set to 0 just
+             before and read just after: exactly one solver-step launch
+             (its per-row-ε form, K2) and 24 flash launches a body
+             iteration. Gates: every request finite at (256, 256, 3); nfe
+             = 2·(accepted + rejected); the ring reconciles with the
+             per-request counts; mean NFE draft < standard < high_fidelity;
+             requests 0 and 2 each bitwise their solo run in an idle
+             server; compaction off bitwise the same samples; 4 requests
+             with telemetry on bitwise the same run off. Printed: wall,
+             requests/s, per-tier NFE and deadline misses, wasted and
+             passenger NFE with and without compaction, host transfers and
+             solver syncs, the device idle share (torch.profiler), K2's
+             time at (8, 196,608) with the tiers' ε per row.
 6b. train and tables — the training slice, its memory freed before
              phase 7: DIT_100M (32×32, patch 2, d_model 768, 12 layers)
              trained DIT_STEPS steps at batch DIT_BATCH in fp32 with TF32
@@ -233,6 +254,12 @@ REF_TABLE1_W2G = {"vp": (0.5384, 0.3641), "ve": (1.2221, 0.1476)}
 #: reference's (other nets and draws: the RNGs differ; the port's own CPU
 #: run lands within 3.2 % of it)
 NFE_BAND = 0.15
+#: the serving phase: slots, sync horizon, requests (cycling the tiers),
+#: telemetry ring capacity, each request's deadline, the requests also
+#: served alone
+SERVE_SLOTS, SERVE_HORIZON, SERVE_REQUESTS = 8, 4, 16
+SERVE_TELEMETRY, SERVE_DEADLINE_MS, SERVE_SOLO = 4096, 4000.0, (0, 2)
+SERVE_TIERS = ("draft", "standard", "high_fidelity")
 #: K3 against its plain version, times (1 + max|out|): fp32 3e-5 (online
 #: against two-pass softmax, sums in another order), bf16 2e-2 (P and the
 #: output rounded to bf16)
@@ -460,6 +487,217 @@ def check_solver_step_edges(dev, gen) -> dict:
           f"at D = 736, 4999, 196,608; CUDA kernels a call (profiler) {per_call}; a captured "
           f"graph of 3 calls gives the eager bits on 3 replays")
     return per_call
+
+
+def check_k2_tiers(dev, gen, D: int) -> float:
+    """Phase 2's K2 check: the solver step with ε per row at the DiT's state
+    (8, D) fp32, the rows cycling the tiers' ε_rel (draft 0.5, standard 0.05,
+    high_fidelity 0.01) at the VP SDE's ε_abs, as a tiered serve calls it.
+    Within K1's bounds of the plain version (x'' 1e-5·(1 + max|x''|), e2
+    1e-5 relative), the same bits on a second call, and each row bitwise the
+    same row of a call at that row's ε for every row. Returns max|x''-plain|."""
+    from repro_torch.configs.diffusion import TOLERANCE_CLASSES
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.kernels.solver_step import ref as step_ref
+
+    B = 8
+    tiers = [TOLERANCE_CLASSES[n].eps_rel for n in SERVE_TIERS]
+    rel = torch.tensor([tiers[i % 3] for i in range(B)], device=dev)
+    atol = torch.full((B,), VPSDE().abs_tolerance, device=dev)
+    states = [torch.randn(B, D, generator=gen, device=dev) for _ in range(5)]
+    coeffs = [torch.rand(B, generator=gen, device=dev) for _ in range(3)]
+    xh, e2 = step_ops.error_step(*states, *coeffs, eps_abs=atol, eps_rel=rel)
+    again = step_ops.error_step(*states, *coeffs, eps_abs=atol, eps_rel=rel)
+    xr, e2r = step_ref.error_step(*states, *coeffs, atol, rel)
+    uniform_same = True
+    for eps in tiers:
+        ux, ue = step_ops.error_step(*states, *coeffs, eps_abs=atol, eps_rel=eps)
+        rows = rel == eps
+        uniform_same &= torch.equal(ux[rows], xh[rows]) and torch.equal(ue[rows], e2[rows])
+    torch.cuda.synchronize()
+    x_err = (xh - xr).abs().max().item()
+    x_bound = 1e-5 * (1 + xr.abs().max().item())
+    e_rel = ((e2 - e2r).abs() / e2r.abs()).max().item()
+    same = torch.equal(again[0], xh) and torch.equal(again[1], e2)
+    ok = x_err <= x_bound and e_rel <= 1e-5 and same and uniform_same
+    print(f"  solver_step K2 (8, {D}) fp32, eps_rel per row {[round(e, 2) for e in tiers]} "
+          f"cycling, eps_abs {VPSDE().abs_tolerance}: max|x''-plain| {x_err:.3e} (bound "
+          f"{x_bound:.1e}), max rel e2 {e_rel:.3e} (bound 1e-5), same bits twice {same}, each "
+          f"row bitwise its uniform-eps call's {uniform_same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("K2 with per-row tolerances disagrees with its plain version or with K1")
+    return x_err
+
+
+def run_serve(dev, card: str) -> dict:
+    """Phase 6a, the serving path: ``serving.DiffusionBatcher`` on
+    HIGHRES_DIT (weights from seed 0, zero-init leaves livened), VP, fp32,
+    fused step and flash attention, SERVE_SLOTS slots, sync horizon
+    SERVE_HORIZON, SERVE_REQUESTS requests cycling the three tiers under EDF
+    admission, telemetry ring SERVE_TELEMETRY and the tracer on. Gates:
+    every request delivered finite at (256, 256, 3); nfe == 2·(accepted +
+    rejected); the ring reconciles exactly with the per-request counts; K1/K2
+    exactly one launch a body iteration and K3 24 (the port runs whole groups
+    of SERVE_HORIZON iterations a chunk, so body iterations = SERVE_HORIZON ·
+    chunks); mean NFE rising draft < standard < high_fidelity; two requests
+    bitwise their solo runs in an otherwise idle server; the same requests with
+    compaction off bitwise the same samples; 4 requests with telemetry on
+    bitwise the same run off. Returns the numbers for the kernels line."""
+    from repro_torch.configs.diffusion import HIGHRES_DIT, TOLERANCE_CLASSES
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.core.solvers.adaptive import AdaptiveConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.kernels.solver_step import ref as step_ref
+    from repro_torch.launch.sample import make_sample_step
+    from repro_torch.models.dit import init_dit, liven_zero_init
+    from repro_torch.observability.telemetry import telemetry_history
+    from repro_torch.observability.tracing import StageTracer
+    from repro_torch.serving.diffusion_server import DiffusionBatcher, ImageRequest
+    from repro_torch.serving.scheduler import EdfPriorityAdmission
+
+    t_phase = time.perf_counter()
+    net = dataclasses.replace(HIGHRES_DIT, use_flash=True)
+    model = init_dit(net, torch.Generator(device=dev).manual_seed(0))
+    liven_zero_init(model, torch.Generator(device=dev).manual_seed(0))
+    sde = VPSDE()
+    cfg = AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True)
+    step = make_sample_step(sde, cfg)
+    shape = (net.image_size, net.image_size, net.channels)
+
+    def serve(uids, *, compaction=True, telemetry=0, tracer=None):
+        b = DiffusionBatcher(sde, step, model, shape, slots=SERVE_SLOTS, cfg=cfg,
+                             sync_horizon=SERVE_HORIZON, compaction=compaction,
+                             tolerance_classes=True,
+                             admission=EdfPriorityAdmission(aging_s=5.0),
+                             telemetry=telemetry, tracer=tracer, device=dev)
+        for u in uids:
+            b.submit(ImageRequest(uid=u, seed=u, tier=SERVE_TIERS[u % 3],
+                                  deadline_ms=SERVE_DEADLINE_MS))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = b.run_to_completion()
+        torch.cuda.synchronize()
+        return b, done, time.perf_counter() - t0
+
+    uids = list(range(SERVE_REQUESTS))
+    tracer = StageTracer()
+    step_ops.launches = 0
+    flash_ops.launches = 0
+    b, done, wall = serve(uids, telemetry=SERVE_TELEMETRY, tracer=tracer)
+    launches = {"solver_step": step_ops.launches, "flash_attention": flash_ops.launches}
+    body_iters = SERVE_HORIZON * b.horizon_windows
+    stats = b.class_stats
+    means = [stats[t]["mean_nfe"] for t in SERVE_TIERS]
+    print(f"  [{card}] served {len(done)}/{len(uids)} requests in {wall:.3f} s "
+          f"({len(done) / wall:.2f} requests/s), {b.total_iterations} iterations with a "
+          f"sample active, {body_iters} body iterations ({b.horizon_windows} chunks of "
+          f"{SERVE_HORIZON}), {wall / body_iters * 1e3:.2f} ms a body iteration")
+    for t in SERVE_TIERS:
+        print(f"    tier {t:>13}: {stats[t]['delivered']} delivered, mean NFE "
+              f"{stats[t]['mean_nfe']:.2f}, deadline misses {stats[t]['deadline_misses']} "
+              f"(deadline {SERVE_DEADLINE_MS:.0f} ms), mean wait {stats[t]['mean_wait_s']:.3f} s")
+    stages = tracer.stage_histograms()
+    print("  host clock by stage (tracer): " + ", ".join(
+        f"{k} {v['count']} spans {v['total_s'] * 1e3:.1f} ms (max {v['max_s'] * 1e3:.1f})"
+        for k, v in sorted(stages.items())))
+    print(f"  launches: {launches} (want solver_step = {body_iters}, flash_attention = "
+          f"{2 * net.num_layers * body_iters}); serve-loop host transfers "
+          f"{b.host_transfers}, solver syncs {b.solver_syncs}; per-slot noise: "
+          f"{SERVE_SLOTS} normal_ launches a body iteration")
+    bad = [u for u in uids if u not in done or not np.isfinite(done[u].result).all()
+           or done[u].result.shape != shape]
+    if bad:
+        fail(f"serve: requests {bad} missing, not finite or of the wrong shape")
+    if any(done[u].nfe != 2 * (done[u].accepted + done[u].rejected) for u in uids):
+        fail("serve: a request's nfe != 2·(accepted + rejected)")
+    hist = telemetry_history(b._carry.telemetry)
+    active = hist["t"] > np.float32(sde.t_eps + 1e-12)
+    ring = (int(hist["accept"].sum()), int((active & ~hist["accept"]).sum()))
+    books = (sum(done[u].accepted for u in uids), sum(done[u].rejected for u in uids))
+    print(f"  telemetry ring: {hist['records']} records of {hist['iterations']} iterations, "
+          f"accepted/rejected {ring} against the requests' {books}")
+    if (ring != books or hist["records"] != hist["iterations"]
+            or hist["iterations"] != b.total_iterations):
+        fail("serve: the telemetry ring does not reconcile with the per-request counts")
+    if launches != {"solver_step": body_iters,
+                    "flash_attention": 2 * net.num_layers * body_iters}:
+        fail(f"serve: launch counts {launches} are not one K1/K2 and 24 K3 a body iteration")
+    if not means[0] < means[1] < means[2]:
+        fail(f"serve: mean NFE does not rise draft < standard < high_fidelity: {means}")
+
+    b_off, done_off, wall_off = serve(uids, compaction=False)
+    same_off = all(np.array_equal(done_off[u].result, done[u].result)
+                   and done_off[u].nfe == done[u].nfe for u in uids)
+    print(f"  compaction on: wasted NFE {b.wasted_nfe_fraction:.4f}, passenger "
+          f"{b.passenger_nfe_fraction:.4f}, {wall:.3f} s; off: wasted "
+          f"{b_off.wasted_nfe_fraction:.4f}, passenger {b_off.passenger_nfe_fraction:.4f}, "
+          f"{b_off.total_iterations} iterations, {wall_off:.3f} s; samples bitwise equal "
+          f"{same_off}")
+    if not same_off:
+        fail("serve: compaction off delivers other samples than compaction on")
+    solo_same = {}
+    for u in SERVE_SOLO:
+        _, solo, _ = serve([u])
+        solo_same[u] = (np.array_equal(solo[u].result, done[u].result)
+                        and solo[u].nfe == done[u].nfe)
+    print(f"  solo runs (one request in an idle server) bitwise the mixed run's: {solo_same}")
+    if not all(solo_same.values()):
+        fail("serve: a request served alone differs from the same request in the mixed run")
+    short = [u for u in uids if SERVE_TIERS[u % 3] != "high_fidelity"][:4]
+    _, t_on, _ = serve(short, telemetry=SERVE_TELEMETRY)
+    _, t_off, _ = serve(short)
+    tel_same = all(np.array_equal(t_on[u].result, t_off[u].result)
+                   and t_on[u].nfe == t_off[u].nfe for u in short)
+    print(f"  telemetry on vs off, requests {short}: bitwise equal {tel_same}")
+    if not tel_same:
+        fail("serve: telemetry on changes the samples")
+
+    # the device's idle share of the serve loop: busy time of a profiled
+    # run of the same requests over the unprofiled run's wall
+    by_name, busy_us = profile_device(lambda: serve(uids, telemetry=SERVE_TELEMETRY))
+    idle = 1 - busy_us * 1e-6 / wall
+    n_kernels = sum(c for c, _ in by_name.values())
+    print(f"  [{card}] device busy {busy_us / 1e3:.1f} ms of the {wall * 1e3:.1f} ms serve: "
+          f"idle share {idle:.3f}; {n_kernels} device operations, "
+          f"{n_kernels / body_iters:.0f} a body iteration; by device time:")
+    for name, (c, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"    {us / 1e3:8.1f} ms {c:6d}x  {name[:90]}")
+
+    # K2 at the serving state with the tiers' per-row eps, timed
+    B, D = SERVE_SLOTS, int(np.prod(shape))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rel = torch.tensor([TOLERANCE_CLASSES[SERVE_TIERS[i % 3]].eps_rel for i in range(B)],
+                       device=dev)
+    atol = torch.full((B,), sde.abs_tolerance, device=dev)
+    sets = [(*[torch.randn(B, D, generator=gen, device=dev) for _ in range(5)],
+             *[torch.rand(B, generator=gen, device=dev) for _ in range(3)], atol, rel)
+            for _ in range(4)]
+    k2 = lambda *a: step_ops.error_step(*a[:8], eps_abs=a[8], eps_rel=a[9])
+    k2_ms, k2_plain = device_ms(k2, sets), device_ms(lambda *a: step_ref.error_step(*a), sets)
+    nbytes = 6 * B * D * 4 + 5 * B * 4 + B * 4
+    nops = STEP_FLOPS_PER_ELEMENT * B * D
+    k2_bound = max(nbytes / HBM_BYTES_PER_S, nops / FP32_FLOPS) * 1e3
+    print(f"  [{card}] solver_step K2 (8, {D}) fp32, the tiers' eps per row: "
+          f"{k2_ms * 1e3:.2f} us on the device, bound {k2_bound * 1e3:.2f} us; plain "
+          f"{k2_plain * 1e3:.1f} us")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  [{card}] serve phase {phase_s:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches=launches["solver_step"], flash_launches=launches["flash_attention"],
+                ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= nops / FP32_FLOPS
+                else "operations",
+                wall_s=wall, requests_per_s=len(done) / wall, idle_share=idle,
+                mean_nfe=dict(zip(SERVE_TIERS, means)),
+                host_transfers=b.host_transfers, solver_syncs=b.solver_syncs,
+                wasted_nfe_fraction=b.wasted_nfe_fraction,
+                passenger_nfe_fraction=b.passenger_nfe_fraction,
+                wasted_nfe_fraction_no_compaction=b_off.wasted_nfe_fraction,
+                iterations=b.total_iterations, body_iterations=body_iters,
+                phase_s=phase_s)
 
 
 def ssd_inputs(B, S, H, P, G, N, *, gen, dtype=torch.float32):
@@ -1171,6 +1409,7 @@ def main() -> None:
                     fail("solver_step kernel disagrees with its plain version")
                 step_err[(dtype, d, vector)] = x_err
     step_per_call = check_solver_step_edges(dev, gen)
+    k2_err = check_k2_tiers(dev, gen, D)
     attn_err = {}
     plan_attn = (2 * PLAN_BATCH, TRAJ_UNET.attn_heads, TRAJ_UNET.attn_heads,
                  TRAJ_UNET.horizon // 2 ** (len(TRAJ_UNET.mults) - 1),
@@ -1833,6 +2072,10 @@ def main() -> None:
     del unet, plan_score, fsets, fwd
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ 6a. serve
+    phase("main path: the continuous-batching server on HIGHRES_DIT, tiered (K2, K3)")
+    srv = run_serve(dev, card)
+
     # ------------------------------------------------------ 6b. train/tables
     phase("train and tables: DIT_100M trained and sampled (K1, K3); Tables 1, 3, 4-5 (K1, K5)")
     tt = train_and_tables(dev, card)
@@ -1850,7 +2093,6 @@ def main() -> None:
         {"name": "solver_step", "route": "cuda",
          "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
          "replaces": "src/repro/kernels/solver_step/kernel.py:158",
-         "also_replaces": "src/repro/kernels/solver_step/kernel.py:242",
          "launches": launches["solver_step"],
          "max_abs_err": step_err[(torch.float32, D, False)],
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
@@ -1869,6 +2111,22 @@ def main() -> None:
          "trained_dit_100m": {"launches": tt["dit_launches"]["solver_step"],
                               "iterations": tt["dit_iterations"]},
          "ptxas": [r for r in small_ptxas if r["kernel"].startswith("error_step")]},
+        {"name": "solver_step_per_row_eps", "route": "cuda",
+         "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
+         "replaces": "src/repro/kernels/solver_step/kernel.py:242",
+         "launches": srv["launches"],
+         "max_abs_err": k2_err,
+         "ms": srv["ms"], "plain_ms": srv["plain_ms"], "bound_ms": srv["bound_ms"],
+         "bound_by": srv["bound_by"], "library_ms": None,
+         "plain": PLAIN_STEP,
+         "launched_as": "error_step with (B,) eps: the solver_step kernel, eps by pointer; "
+                        "the launches of the tiered serve (phase 6a)",
+         "serve": {k: srv[k] for k in ("wall_s", "requests_per_s", "idle_share", "mean_nfe",
+                                       "host_transfers", "solver_syncs", "iterations",
+                                       "body_iterations", "wasted_nfe_fraction",
+                                       "passenger_nfe_fraction",
+                                       "wasted_nfe_fraction_no_compaction",
+                                       "flash_launches")}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:102",

@@ -44,6 +44,16 @@ HIGH_FIDELITY = ToleranceClass("high_fidelity", eps_rel=0.01, priority=0)
 
 TOLERANCE_CLASSES = {c.name: c for c in (DRAFT, STANDARD, HIGH_FIDELITY)}
 
+
+def resolve_tier(tier) -> ToleranceClass:
+    """Preset name or ToleranceClass instance → ToleranceClass."""
+    if isinstance(tier, ToleranceClass):
+        return tier
+    if tier in TOLERANCE_CLASSES:
+        return TOLERANCE_CLASSES[tier]
+    raise KeyError(f"unknown tolerance class {tier!r}; presets: "
+                   f"{sorted(TOLERANCE_CLASSES)} (or pass a ToleranceClass)")
+
 CIFAR_DIT = DiTConfig(
     image_size=32, channels=3, patch=4, d_model=256, num_layers=6,
     num_heads=8, d_ff=1024,

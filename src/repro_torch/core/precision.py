@@ -74,6 +74,16 @@ class PrecisionPolicy:
     def to_state(self, x: Tensor) -> Tensor:
         return x.to(self.state)
 
+    def as_dict(self) -> Dict[str, object]:
+        """JSON-friendly record of the policy (the reference's keys)."""
+        name = lambda d: str(d).removeprefix("torch.")
+        return {"policy": self.name, "compute_dtype": name(self.compute),
+                "param_dtype": name(self.param), "state_dtype": name(self.state),
+                "control_dtype": name(self.control),
+                "compute_itemsize": self.compute.itemsize,
+                "param_itemsize": self.param.itemsize,
+                "state_itemsize": self.state.itemsize}
+
     def wrap_score_fn(self, score_fn: Callable) -> Callable:
         """x → compute dtype on entry, score → state dtype on exit; t is
         control data and passes untouched. No-op casts under fp32."""

@@ -28,6 +28,23 @@ the iteration draws a second time, after z, for the projection noise
 (the order in which the reference splits its key), through the same
 seam.
 
+Per-slot noise streams (the reference's (B, 2) per-slot keys,
+DESIGN.md §7): the carry's ``generator`` may instead be a list of B
+per-slot sources, and each sample's row of z then comes from its own
+source (``base.draw_noise``), so a trajectory does not depend on the
+slot it occupies or on its seatmates. The serving loop moves a source
+with its row through every compaction permutation.
+
+Telemetry (DESIGN.md §15): ``AdaptiveConfig.telemetry_capacity`` > 0
+(or ``init_carry(telemetry=N)``) attaches a ``StepTelemetry`` ring, and
+each iteration in which some sample is active writes its per-sample (t,
+h, err, accept) there, on the device. Off (the default) the carry has
+no ring and the body records nothing; on, recording reads values the
+body computed anyway, so the solve's bits are the same either way.
+
+``host_syncs`` counts ``sync_state``'s device→host reads, so the serving
+loop can report the solver's syncs beside its own.
+
 Conditioning (DESIGN.md §9): ``AdaptiveConfig.conditioner`` is the
 static half, ``SolverCarry.cond`` the per-sample payload. The score is
 wrapped by the conditioner inside the precision wrap; a projecting
@@ -63,8 +80,9 @@ round a product of fewer rows otherwise).
 Algorithm 2 (``adaptive_forward``, paper App. C) is at the end: the
 forward-time solver for a general diffusion with x-dependent g.
 
-Not ported yet: per-slot keys, momentum, the probability-flow variant
-and telemetry.
+Not ported yet: momentum, the probability-flow variant (ROADMAP A5),
+and ``events_pending``/``solve_horizons``, the pieces of the
+device-resident serve loop (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -85,6 +103,9 @@ from repro_torch.core.tolerance import (
     mixed_tolerance, next_step_size, scaled_error_l2, scaled_error_linf,
 )
 from repro_torch.device import resolve_device
+from repro_torch.observability.telemetry import (
+    StepTelemetry, init_telemetry, record_step,
+)
 from repro_torch.parallel.collectives import all_max
 
 Tensor = torch.Tensor
@@ -93,6 +114,9 @@ Tensor = torch.Tensor
 #: SYNC_EVERY − 1 of them run after the last sample converged, and those
 #: change nothing.
 SYNC_EVERY = 8
+
+#: ``sync_state`` device→host reads since the count was last set to 0
+host_syncs = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +138,10 @@ class AdaptiveConfig:
     #: static half of a score-field conditioner (DESIGN.md §9); None is
     #: the unconditional path
     conditioner: Optional[Conditioner] = None
+    #: step-telemetry ring capacity (DESIGN.md §15): > 0 makes
+    #: ``init_carry`` attach a ``StepTelemetry`` ring of that many records
+    #: a sample; 0 leaves the carry without one
+    telemetry_capacity: int = 0
 
 
 def resolve_config(config: Optional[AdaptiveConfig], overrides) -> AdaptiveConfig:
@@ -188,10 +216,13 @@ class SolverCarry:
     the policy's state dtype. t, h: per-sample time and step (B,) fp32.
     nfe / accepted / rejected: (B,) int32. done: (B,) bool, t <= t_eps.
     iterations: 0-d int32, iterations in which some sample was active.
-    generator: the noise source of the default draw. atol / rtol:
-    optional per-sample tolerances (B,) fp32 that replace the config's
-    (DESIGN.md §14); both or neither. cond: the conditioner's per-sample
-    payload (DESIGN.md §9), a dict of tensors leading with B, or None.
+    generator: the noise source of the default draw, a ``torch.Generator``
+    shared by the batch or a list of B per-slot sources (``draw_noise``).
+    atol / rtol: optional per-sample tolerances (B,) fp32 that replace the
+    config's (DESIGN.md §14); both or neither. cond: the conditioner's
+    per-sample payload (DESIGN.md §9), a dict of tensors leading with B,
+    or None. telemetry: the optional ``StepTelemetry`` ring (DESIGN.md
+    §15), None when off.
     """
 
     x: Tensor
@@ -207,6 +238,7 @@ class SolverCarry:
     atol: Optional[Tensor] = None
     rtol: Optional[Tensor] = None
     cond: Optional[dict] = None
+    telemetry: Optional[StepTelemetry] = None
 
     @property
     def batch(self) -> int:
@@ -220,7 +252,8 @@ def _per_sample(v, batch: int, device) -> Tensor:
 
 def init_carry(sde: SDE, x_init: Tensor, generator: Optional[torch.Generator],
                *, config: AdaptiveConfig | None = None, cond=None, atol=None,
-               rtol=None, h0=None, sharding=None, **overrides) -> SolverCarry:
+               rtol=None, h0=None, sharding=None, telemetry=None,
+               **overrides) -> SolverCarry:
     """Fresh carry at t = T on ``x_init``'s device.
 
     ``cond`` is the optional per-sample condition payload: every leaf
@@ -229,6 +262,9 @@ def init_carry(sde: SDE, x_init: Tensor, generator: Optional[torch.Generator],
     math). ``atol``/``rtol`` (scalars or (B,)) install per-sample
     tolerances; pass both or neither. ``h0`` overrides the initial step
     per sample; it is clamped to the t-span like ``cfg.h_init``.
+    ``telemetry`` overrides ``cfg.telemetry_capacity``: a positive
+    capacity attaches a fresh ring, 0 forces it off, None defers to the
+    config.
 
     With ``sharding`` (the state's batch sharding under a mesh) every
     argument is global, and the carry holds this rank's rows of each
@@ -254,11 +290,17 @@ def init_carry(sde: SDE, x_init: Tensor, generator: Optional[torch.Generator],
     h_of = cfg.h_init if h0 is None else h0
     h = torch.minimum(_per_sample(h_of, batch, dev), t0 - sde.t_eps)
     zeros = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    cap = int(cfg.telemetry_capacity if telemetry is None else telemetry)
+    if cap > 0 and sharding is not None:
+        raise NotImplementedError("a telemetry ring under a mesh waits for the "
+                                  "telemetry leaf of solver_carry_shardings "
+                                  "(ROADMAP A11)")
     carry = SolverCarry(
         x=x_init, x_prev=x_init, t=t0, h=h, nfe=zeros, accepted=zeros,
         rejected=zeros, done=torch.zeros((batch,), dtype=torch.bool, device=dev),
         iterations=torch.zeros((), dtype=torch.int32, device=dev),
-        generator=generator, atol=atol, rtol=rtol, cond=cond)
+        generator=generator, atol=atol, rtol=rtol, cond=cond,
+        telemetry=init_telemetry(batch, cap, dev) if cap > 0 else None)
     return carry if sharding is None else _local_rows(carry, sharding)
 
 
@@ -348,6 +390,13 @@ def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
         remaining = torch.clamp(t_new - sde.t_eps, min=0.0)
         h_new = next_step_size(h, err, remaining, safety=cfg.safety,
                                r_exponent=cfg.r_exponent)
+        any_active = active.any()
+        tel = s.telemetry
+        if tel is not None:
+            # the attempted step: entry t, the active-clamped h, the fp32
+            # error and the accept bit; a masked iteration records nothing
+            tel = record_step(tel, t=t, h=h_c, err=err, accept=accept,
+                              live=any_active)
         two = torch.where(active, 2, 0).to(torch.int32)
         return SolverCarry(
             x=x_new,
@@ -358,8 +407,9 @@ def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
             accepted=s.accepted + accept.to(torch.int32),
             rejected=s.rejected + (~accept & active).to(torch.int32),
             done=t_new <= threshold,
-            iterations=s.iterations + active.any().to(torch.int32),
-            generator=s.generator, atol=s.atol, rtol=s.rtol, cond=s.cond)
+            iterations=s.iterations + any_active.to(torch.int32),
+            generator=s.generator, atol=s.atol, rtol=s.rtol, cond=s.cond,
+            telemetry=tel)
 
     return body
 
@@ -374,10 +424,12 @@ def sync_state(carry: SolverCarry, sharding=None):
     was active; after a group that all ranks began at the same count, the
     largest of those counts is the global one (see the module docstring).
     """
+    global host_syncs
     flags = torch.stack([(~carry.done).any().to(torch.int32), carry.iterations])
     if sharding is not None:
         all_max(flags, sharding.mesh.group())
     active, iters = flags.tolist()
+    host_syncs += 1
     return not active, int(iters)
 
 

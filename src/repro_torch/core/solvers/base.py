@@ -74,10 +74,20 @@ def solver_nfe_per_iteration(name: str, **solver_kwargs) -> int:
     return int(rule(**solver_kwargs)) if callable(rule) else int(rule)
 
 
-def draw_noise(generator: torch.Generator | None, noise_fn: Callable | None,
-               x: Tensor, sharding=None) -> Tensor:
+def draw_noise(generator, noise_fn: Callable | None, x: Tensor,
+               sharding=None) -> Tensor:
     """z ~ N(0, I) shaped like x: from ``noise_fn`` if given, else drawn
     from ``generator`` in fp32; cast to x's dtype and device.
+
+    ``generator`` is one ``torch.Generator`` for the batch, or a list of
+    x.shape[0] per-slot sources (the reference's per-slot keys): row i
+    of z then comes from source i alone, so a sample's noise does not
+    depend on its slot or its seatmates. A source is a ``torch.Generator``
+    on x's device (its row is ``normal_`` on a contiguous row of z, the
+    numbers ``torch.randn`` of the row's shape gives), a callable
+    ``source(shape) -> Tensor`` of one row's shape (the seam through which
+    tests hand every slot the reference's own per-request draws), or None
+    for an idle slot, whose row is 0 (it draws from no request's stream).
 
     Under a mesh, x holds this rank's rows of the ``sharding``: the draw
     is the whole batch's (``noise_fn`` is handed an uninitialised tensor
@@ -89,6 +99,21 @@ def draw_noise(generator: torch.Generator | None, noise_fn: Callable | None,
     if noise_fn is not None:
         z = noise_fn(x if sharding is None else x.new_empty(shape))
         z = z.to(device=x.device, dtype=x.dtype)
+    elif isinstance(generator, list):
+        if sharding is not None:
+            raise NotImplementedError("per-slot noise under a mesh waits for "
+                                      "DiffusionBatcher(mesh=) (ROADMAP A11)")
+        if len(generator) != x.shape[0]:
+            raise ValueError(f"{len(generator)} per-slot sources for {x.shape[0]} rows")
+        z = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        for row, src in zip(z, generator):
+            if src is None:
+                row.zero_()
+            elif isinstance(src, torch.Generator):
+                row.normal_(generator=src)
+            else:
+                row.copy_(src(tuple(row.shape)))
+        z = z.to(x.dtype)
     else:
         z = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=x.device).to(x.dtype)

@@ -1,6 +1,7 @@
 """Demo sampling launcher; port of the run mode of
-``repro/launch/sample.py`` (its dry-run modes lower XLA programs and have
-no counterpart here).
+``repro/launch/sample.py`` and of its ``make_sample_step``, the serving
+loop's device step (its dry-run modes lower XLA programs and have no
+counterpart here).
 
 Samples a batch from a DiT score network made from a seed on the VP SDE,
 first with the adaptive solver and then with Euler–Maruyama at 100
@@ -31,6 +32,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import datetime
+import inspect
 import json
 import os
 import time
@@ -40,12 +42,13 @@ import torch
 from repro_torch.configs.diffusion import ARCHS
 from repro_torch.core.precision import PRESETS, resolve_policy
 from repro_torch.core.sampling import gather_result, sample
-from repro_torch.core.sde import VPSDE
+from repro_torch.core.sde import VPSDE, bcast
+from repro_torch.core.solvers.adaptive import AdaptiveConfig, solve_chunk
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.solver_step import ops as step_ops
 from repro_torch.models.dit import (
-    init_dit, liven_zero_init, make_score_fn, param_count,
+    dit_forward, init_dit, liven_zero_init, make_score_fn, param_count,
 )
 
 
@@ -61,6 +64,43 @@ def build_score(arch: str, *, flash: bool, precision: str, seed: int,
         liven_zero_init(model, torch.Generator(device=dev).manual_seed(liven_seed))
     policy = resolve_policy(precision)
     return cfg, model, make_score_fn(model, VPSDE(), policy=policy)
+
+
+def make_sample_step(sde, cfg: AdaptiveConfig, forward_fn=None):
+    """Resumable Algorithm-1 chunk as a step function; port of the
+    reference's ``make_sample_step`` (``repro/launch/sample.py:104``).
+
+    Returns ``step(params, carry, max_sync_iters=1) -> carry`` over the
+    port's ``solve_chunk``, so serving runs the very body ``adaptive()``
+    runs (fused kernel, per-slot noise streams, NFE accounting, the
+    telemetry ring) and chained chunks give the monolithic solve's bits.
+    This is the unit the serving loop repeats between its syncs.
+
+    ``forward_fn(params, x, t[, y])`` predicts noise: score = −out/std,
+    with the division in fp32. The default is the DiT forward,
+    ``params`` the ``DiT`` module, run at ``cfg.precision``'s compute
+    dtype. ``cfg.conditioner`` threads through ``solve_chunk`` (DESIGN.md
+    §9): with a ``ClassifierFree`` conditioner the score must take labels,
+    so it passes ``y`` whenever ``forward_fn`` declares it (the default
+    forward does). The reference's first argument, the DiT config, is not
+    taken: the port's ``DiT`` module carries its own.
+    """
+    policy = resolve_policy(cfg.precision)
+    if forward_fn is None:
+        forward_fn = lambda model, x, t, y=None: dit_forward(model, x, t, policy=policy, y=y)
+    accepts_y = "y" in inspect.signature(forward_fn).parameters
+
+    def sample_step(params, carry, max_sync_iters: int = 1):
+        def score_fn(x, t, y=None):
+            _, std = sde.marginal(t)
+            out = (forward_fn(params, x, t, y=y) if accepts_y
+                   else forward_fn(params, x, t)).to(torch.float32)
+            return -out / bcast(std, x)
+
+        return solve_chunk(sde, score_fn, carry, max_sync_iters=max_sync_iters,
+                           config=cfg)
+
+    return sample_step
 
 
 def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",

@@ -1,24 +1,41 @@
-"""Serving launcher, batched language-model decode; port of the LM mode
-of ``repro/launch/serve.py``.
+"""Serving launchers; port of ``repro/launch/serve.py``: batched
+language-model decode and the continuous-batching diffusion server.
 
-``serve_batch`` prefills a batch of prompts by replaying them token by
-token through the serve step (exact and state-consistent, as the
-reference does), then decodes greedily. The ``--diffusion`` and
-``--plan`` modes of the reference come with serving (ROADMAP A7).
+LM mode: ``serve_batch`` prefills a batch of prompts by replaying them
+token by token through the serve step (exact and state-consistent, as
+the reference does), then decodes greedily.
+
+``--diffusion`` runs ``serving.DiffusionBatcher`` (DESIGN.md §4, §7):
+seeded requests drain through a DiT score network (seeded weights, the
+zero-init leaves livened) with the horizon-chunked solver, the fused
+solver step and flash attention, K1 (K2 with ``--tier``) and K3 on the
+card. ``--arch`` names a DiT preset (``configs.diffusion.ARCHS``); without
+it the net is the reference's small one at ``--image-size``. The
+``--plan`` mode waits for ROADMAP A8, ``--device-resident`` for A7's
+device-resident item, and the reference's ``--fake-devices`` mesh for
+A11.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --batch 4 --prompt-len 16 --gen-len 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --diffusion --arch highres_dit \\
+      --slots 8 --requests 16 --sync-horizon 4 --tier mixed
+  PYTHONPATH=src python -m repro_torch.launch.serve --diffusion --device cpu \\
+      --slots 4 --requests 8 --tier mixed --telemetry 256 --trace-out trace.json
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import pathlib
 import time
 
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.precision import PRESETS
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import init_decode_state, init_model
@@ -49,17 +66,225 @@ def serve_batch(cfg: ModelConfig, params, prompts: Tensor, *, gen_len: int = 32,
     return torch.cat(out, dim=1)
 
 
+def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
+                    arch: str | None = None, sync_horizon: int = 4,
+                    compaction: bool = True, precision: str = "fp32",
+                    inpaint: bool = False, cfg_scale: float | None = None,
+                    device_resident: bool = False, tier: str | None = None,
+                    deadline_ms: float | None = None, telemetry: int = 0,
+                    metrics_out: str | None = None, trace_out: str | None = None,
+                    device="cuda") -> dict:
+    """Continuous-batching diffusion serving on ``device``; returns (and
+    prints) the reference's record: throughput, mean NFE, the wasted-NFE
+    fraction, host transfers, per-class stats.
+
+    ``requests`` seeded requests (seed = uid) drain through the slot
+    batch with ``sync_horizon`` iterations a host sync (DESIGN.md §7).
+    ``inpaint`` gives every request a checkerboard mask (phase by uid);
+    ``cfg_scale`` a class-conditional DiT with classifier-free guidance,
+    labels cycling by uid (DESIGN.md §9). ``tier`` is a tolerance class
+    every request rides, or ``"mixed"`` to cycle the presets; a tiered
+    server admits EDF within priority bands (DESIGN.md §14).
+    ``telemetry`` is the ring's capacity a slot; ``metrics_out`` writes
+    the registry as JSON and a sibling ``.prom``; ``trace_out`` turns the
+    stage tracer on and writes ``trace_record()`` as JSON (DESIGN.md §15).
+    ``device_resident=True`` raises (ROADMAP A7's device-resident item).
+    """
+    from repro_torch.configs.diffusion import ARCHS
+    from repro_torch.core.guidance import ClassifierFree, Inpaint
+    from repro_torch.core.precision import resolve_policy
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.core.solvers.adaptive import AdaptiveConfig
+    from repro_torch.launch.sample import make_sample_step
+    from repro_torch.models.dit import DiTConfig, init_dit, liven_zero_init
+    from repro_torch.observability.tracing import StageTracer
+    from repro_torch.serving.diffusion_server import DiffusionBatcher, ImageRequest
+    from repro_torch.serving.scheduler import EdfPriorityAdmission
+
+    if device_resident:
+        raise NotImplementedError(
+            "--device-resident waits for ROADMAP A7's device-resident item "
+            "(events_pending, solve_horizons, CUDA-graph chunks)")
+    if inpaint and cfg_scale is not None:
+        raise ValueError("pick one conditioner per server: --inpaint or --cfg-scale")
+    dev = resolve_device(device)
+    num_classes = 10 if cfg_scale is not None else 0
+    if arch is None:
+        net = DiTConfig(image_size=image_size, patch=4, d_model=32, num_layers=2,
+                        num_heads=2, d_ff=64)
+    else:
+        net = ARCHS[arch]
+    net = dataclasses.replace(net, num_classes=num_classes, use_flash=True)
+    image_size = net.image_size
+    sde = VPSDE()
+    policy = resolve_policy(precision)
+    conditioner = None
+    if inpaint:
+        conditioner = Inpaint()
+    elif cfg_scale is not None:
+        conditioner = ClassifierFree(scale=float(cfg_scale))
+    cfg = AdaptiveConfig(eps_rel=0.05, precision=precision, conditioner=conditioner,
+                         use_fused_kernel=True)
+    # weights from seed 0, the zero-init leaves livened (a fresh DiT
+    # returns exactly 0), stored at the policy's param dtype
+    model = init_dit(net, torch.Generator(device=dev).manual_seed(0))
+    liven_zero_init(model, torch.Generator(device=dev).manual_seed(0))
+    model.to(policy.param)
+    step = make_sample_step(sde, cfg)
+    shape = (image_size, image_size, net.channels)
+    tiered = tier is not None
+    if tiered and tier != "mixed":
+        from repro_torch.configs.diffusion import resolve_tier
+        resolve_tier(tier)  # fail fast on a bad preset name
+    tracer = StageTracer() if trace_out else None
+    b = DiffusionBatcher(sde, step, model, shape, slots=slots, cfg=cfg,
+                         sync_horizon=sync_horizon, compaction=compaction,
+                         tolerance_classes=tiered or None,
+                         admission=EdfPriorityAdmission(aging_s=5.0) if tiered else None,
+                         telemetry=telemetry, tracer=tracer, device=dev)
+    mixed_cycle = ("draft", "standard", "high_fidelity")
+
+    def request_tier(uid: int):
+        if not tiered:
+            return None
+        return mixed_cycle[uid % len(mixed_cycle)] if tier == "mixed" else tier
+
+    def request_cond(uid: int):
+        if inpaint:
+            yy, xx = torch.meshgrid(torch.arange(image_size), torch.arange(image_size),
+                                    indexing="ij")
+            mask = ((yy // 2 + xx // 2) + uid) % 2 == 0
+            mask = mask[:, :, None].expand(shape).to(torch.float32)
+            observed = torch.linspace(-0.5, 0.5, image_size)[:, None, None].expand(shape)
+            return {"mask": mask, "observed": observed.to(torch.float32)}
+        if cfg_scale is not None:
+            return {"label": uid % num_classes}
+        return None
+
+    for uid in range(requests):
+        b.submit(ImageRequest(uid=uid, seed=uid, cond=request_cond(uid),
+                              tier=request_tier(uid), deadline_ms=deadline_ms))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    done = b.run_to_completion()
+    dt = time.perf_counter() - t0
+    nfes = [done[u].nfe for u in sorted(done)]
+    rec = {
+        "devices": 1,
+        "slots": slots,
+        "slots_per_device": b.slots_per_device,
+        "sync_horizon": sync_horizon,
+        "compaction": compaction,
+        "precision": policy.as_dict(),
+        "conditioner": ("inpaint" if inpaint
+                        else f"cfg:{cfg_scale}" if cfg_scale is not None else "none"),
+        "completed": len(done),
+        "samples_per_sec": len(done) / dt,
+        "mean_nfe": sum(nfes) / len(nfes),
+        "total_iterations": b.total_iterations,
+        "wasted_nfe_fraction": b.wasted_nfe_fraction,
+        "refills_per_device": list(b.refills_per_device),
+        "device_resident": device_resident,
+        "host_transfers": b.host_transfers,
+        "host_transfers_per_request": b.host_transfers / max(len(done), 1),
+        "tier": tier,
+        "deadline_ms": deadline_ms,
+        "class_stats": b.class_stats if tiered else None,
+        "telemetry": telemetry,
+        "metrics_out": metrics_out,
+        "trace_out": trace_out,
+        # the port's own: the device, the net, the solver's syncs apart
+        # from the serve loop's reads, the wall time
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "arch": arch,
+        "solver_syncs": b.solver_syncs,
+        "passenger_nfe_fraction": b.passenger_nfe_fraction,
+        "wall_s": dt,
+    }
+    if metrics_out:
+        reg = b.metrics_snapshot()
+        path = pathlib.Path(metrics_out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(reg.to_json(), indent=2) + "\n")
+        path.with_suffix(".prom").write_text(reg.to_prometheus())
+        print(f"metrics -> {path} (+ {path.with_suffix('.prom').name})")
+    if trace_out:
+        path = pathlib.Path(trace_out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(b.trace_record(), indent=2) + "\n")
+        print(f"trace -> {path}")
+    print(f"diffusion serve[{policy.name}, {rec['conditioner']}] on {rec['device']}: "
+          f"{rec['completed']}/{requests} requests in {dt:.2f} s "
+          f"({rec['samples_per_sec']:.2f} samples/s), {slots} slots, horizon "
+          f"{sync_horizon}, mean NFE {rec['mean_nfe']:.1f}, wasted NFE "
+          f"{rec['wasted_nfe_fraction']:.1%}, host transfers/request "
+          f"{rec['host_transfers_per_request']:.1f}, solver syncs {b.solver_syncs}")
+    if tiered:
+        for name in sorted(rec["class_stats"]):
+            st = rec["class_stats"][name]
+            print(f"  tier {name:>13}: {st['delivered']} delivered, mean NFE "
+                  f"{st['mean_nfe']:.1f}, deadline misses {st['deadline_misses']}, "
+                  f"mean wait {st['mean_wait_s'] * 1e3:.0f} ms")
+    return rec
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True, help=f"one of {list(ARCH_IDS)}")
+    ap.add_argument("--arch", default=None,
+                    help=f"LM mode: one of {list(ARCH_IDS)}; --diffusion: a DiT "
+                         "preset of configs.diffusion.ARCHS (default: the "
+                         "reference's small net at --image-size)")
     ap.add_argument("--reduced", action="store_true",
                     help="the config's scaled_down() variant")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--diffusion", action="store_true",
+                    help="run the continuous-batching diffusion server instead")
+    ap.add_argument("--image-size", type=int, default=8,
+                    help="--diffusion without --arch: the small net's image size")
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--sync-horizon", type=int, default=4,
+                    help="device iterations per host sync (diffusion mode)")
+    ap.add_argument("--no-compaction", action="store_true",
+                    help="monolithic-wave baseline: no mid-flight slot refill")
+    ap.add_argument("--device-resident", action="store_true",
+                    help="on-device serve loop: waits for ROADMAP A7 (raises)")
+    ap.add_argument("--precision", default="fp32", choices=sorted(PRESETS),
+                    help="precision policy of the diffusion server (DESIGN.md §8)")
+    ap.add_argument("--inpaint", action="store_true",
+                    help="per-request checkerboard-mask inpainting (DESIGN.md §9)")
+    ap.add_argument("--cfg-scale", type=float, default=None,
+                    help="per-request classifier-free guidance at this scale")
+    ap.add_argument("--tier", default=None,
+                    help="tolerance class of every request (draft/standard/"
+                         "high_fidelity) or 'mixed' to cycle them (DESIGN.md §14)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request latency budget; late deliveries count as misses")
+    ap.add_argument("--telemetry", type=int, default=0,
+                    help="per-slot step-telemetry ring capacity; 0 = off (DESIGN.md §15)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the metrics registry as JSON here plus a sibling .prom")
+    ap.add_argument("--trace-out", default=None,
+                    help="turn stage tracing on and write the trace record here; "
+                         "'python -m repro_torch.analysis.telemetry' renders it")
     args = ap.parse_args(argv)
 
+    if args.diffusion:
+        return serve_diffusion(
+            slots=args.slots, requests=args.requests, image_size=args.image_size,
+            arch=args.arch, sync_horizon=args.sync_horizon,
+            compaction=not args.no_compaction, precision=args.precision,
+            inpaint=args.inpaint, cfg_scale=args.cfg_scale,
+            device_resident=args.device_resident, tier=args.tier,
+            deadline_ms=args.deadline_ms, telemetry=args.telemetry,
+            metrics_out=args.metrics_out, trace_out=args.trace_out,
+            device=args.device)
+    if args.arch is None:
+        ap.error("--arch is required unless --diffusion is given")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:

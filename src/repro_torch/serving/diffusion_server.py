@@ -1,0 +1,577 @@
+"""Continuous-batching diffusion sampling server (DESIGN.md §4, §7); port
+of the host-driven path of ``repro/serving/diffusion_server.py``.
+
+The paper's per-sample step sizes (Sec. 3.1.5) mean each sample of a
+batch finishes its reverse diffusion at its own NFE. A server runs a
+fixed slot batch of Algorithm-1 state and, whenever a slot's sample
+reaches t_eps, delivers it and refills the slot with the next request's
+prior draw: no request waits for the batch's slowest sample.
+
+Horizon-chunked solve (DESIGN.md §7): the device step is the solver's
+own ``solve_chunk`` (``launch.sample.make_sample_step``) over a
+``SolverCarry`` whose noise comes from per-slot sources.
+``sync_horizon`` Algorithm-1 iterations run per host sync; then the
+host retires converged slots, compacts the survivors and admits queued
+requests into the freed slots (a prior drawn from the request's own
+seed at t = T). Every slot owns its noise stream, so a sample's
+trajectory does not depend on its slot or its seatmates: compaction and
+admission never perturb a sample in flight.
+
+Per-request streams: by default a request's prior and its noise come
+from one ``torch.Generator`` on the carry's device, seeded with
+``ImageRequest.seed`` (the prior first, then one draw an iteration,
+two with a projecting conditioner), the order ``sample(seed=...)``
+draws in. ``request_streams`` replaces that: the parity tests hand every
+request the reference's own prior and per-slot draws through it.
+
+What crosses the device: compaction permutes every carry leaf with one
+``index_select`` on the device and admission scatters the admitted rows
+with ``index_copy``; only the (B,) bookkeeping and the retired rows come
+to the host, through ``_d2h``, which counts each read
+(``host_transfers``). The solver's own syncs (one before and one after
+each group of ``SYNC_EVERY`` iterations, ``adaptive.sync_state``) are
+counted apart, in ``solver_syncs``.
+
+Not ported: the device-resident serve loop (DESIGN.md §12;
+``device_resident=True`` raises, ROADMAP A7) and mesh serving
+(``mesh=`` raises, ROADMAP A11).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Callable, Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.diffusion import ToleranceClass, resolve_tier
+from repro_torch.core.precision import resolve_policy
+from repro_torch.core.sde import SDE
+from repro_torch.core.solvers import adaptive as ad
+from repro_torch.core.solvers.adaptive import AdaptiveConfig, SolverCarry
+from repro_torch.core.solvers.base import solver_nfe_per_iteration
+from repro_torch.device import resolve_device
+from repro_torch.observability.metrics import MetricsRegistry
+from repro_torch.observability.telemetry import init_telemetry, telemetry_history
+from repro_torch.observability.tracing import NULL_TRACER, profiler_annotation
+from repro_torch.serving.scheduler import (
+    AdmissionPolicy, FifoAdmission, TierAccounting, tier_name,
+)
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class ImageRequest:
+    """One sampling request (DESIGN.md §4, §9, §14): a seed, optionally a
+    condition payload for the server's conditioner, and, on a tiered
+    server, a tolerance class, deadline and priority."""
+
+    uid: int
+    seed: int
+    #: the request's unbatched condition payload (DESIGN.md §9), e.g.
+    #: ``{"mask": (H, W, C), "observed": (H, W, C)}`` or ``{"label": ()}``;
+    #: None (with a conditioner) is the neutral payload
+    cond: Any = None
+    #: tolerance class (DESIGN.md §14): a preset name of
+    #: ``configs.diffusion.TOLERANCE_CLASSES`` (or of the server's own
+    #: registry) or a ``ToleranceClass``; None rides the server's config
+    tier: Any = None
+    #: latency budget in ms from submission; None defers to the tier's
+    deadline_ms: Optional[float] = None
+    #: admission band, lower = more urgent; None defers to the tier's
+    priority: Optional[int] = None
+    result: Optional[np.ndarray] = None
+    nfe: int = 0
+    done: bool = False
+    #: set at delivery: did the request outlive its deadline?
+    deadline_missed: bool = False
+    #: loop iterations spent in a slot (admission → retirement)
+    resident_iters: int = 0
+    #: accept/reject counts, pulled with the NFE at retirement (DESIGN.md
+    #: §15); nfe == nfe_per_iter·(accepted + rejected)
+    accepted: int = 0
+    rejected: int = 0
+    #: absolute deadline on the server's clock, stamped at submit()
+    deadline_at: Optional[float] = dataclasses.field(default=None, repr=False)
+    _admit_iters: int = dataclasses.field(default=0, repr=False)
+    _submit_t: float = dataclasses.field(default=0.0, repr=False)
+    _seat_t: float = dataclasses.field(default=0.0, repr=False)
+
+
+class DiffusionBatcher:
+    """Slot-compacting sampler around a ``solve_chunk`` step.
+
+    ``sample_step(params, carry, max_sync_iters=N) -> carry`` is the
+    device step (``launch.sample.make_sample_step``). ``sync_horizon``
+    iterations run between host syncs (1 is the per-step loop; larger
+    horizons take fewer syncs for up to horizon − 1 iterations of
+    retirement latency). ``compaction=True`` retires converged slots and
+    admits queued requests at every sync; ``False`` is the
+    monolithic-wave baseline, which turns the batch over only once every
+    occupied slot has converged (the paper's batched loop).
+
+    The carry's state dtype is ``cfg.precision``'s. With
+    ``cfg.conditioner`` the carry holds a per-slot condition payload:
+    idle slots the neutral one, an admitted request its own, and
+    compaction moves payloads with their samples (DESIGN.md §9).
+
+    ``tolerance_classes`` (DESIGN.md §14) turns on per-request quality
+    tiers: the carry grows (B,) ``atol``/``rtol`` leaves, so each seated
+    request solves at its own class's tolerance in one fused step (K2,
+    the solver-step kernel with ε per row); a dict is this server's own
+    name → ``ToleranceClass`` registry (default: the presets).
+    ``admission`` picks which queued requests take free slots (FIFO by
+    default) and ``delivery`` keeps per-class NFE and deadline books
+    (``class_stats``). ``telemetry`` > 0 attaches a step-telemetry ring of
+    that capacity a slot, ``tracer`` records stage spans, and every
+    serve-loop counter lives in the ``metrics`` registry (DESIGN.md §15).
+
+    ``device`` holds the carry (``cuda`` unless the caller passes
+    ``"cpu"``); ``request_streams(req, shape, device) -> (prior, source)``
+    replaces the default per-request generator (module docstring).
+    """
+
+    def __init__(self, sde: SDE, sample_step: Callable, params, sample_shape, *,
+                 slots: int = 8, cfg: AdaptiveConfig | None = None, mesh=None,
+                 sync_horizon: int = 1, compaction: bool = True,
+                 device_resident: bool = False, tolerance_classes=None,
+                 admission: Optional[AdmissionPolicy] = None, delivery=None,
+                 clock: Optional[Callable[[], float]] = None, telemetry: int = 0,
+                 tracer=None, device="cuda", request_streams: Optional[Callable] = None):
+        if device_resident:
+            raise NotImplementedError(
+                "the device-resident serve loop (events_pending, solve_horizons, "
+                "CUDA-graph chunks) waits for ROADMAP A7's device-resident item")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh serving, DiffusionBatcher(mesh=), waits for ROADMAP A11")
+        self.sde = sde
+        self.cfg = cfg or AdaptiveConfig()
+        self.policy = resolve_policy(self.cfg.precision)
+        self.params = params
+        self.n = slots
+        self.shape = tuple(sample_shape)
+        self.device = resolve_device(device)
+        self.sync_horizon = int(sync_horizon)
+        self.compaction = bool(compaction)
+        #: score-net evaluations one loop iteration issues over the slots
+        self.nfe_per_iter = solver_nfe_per_iteration("adaptive")
+        self.tiered = bool(tolerance_classes)
+        self.tolerance_classes = (tolerance_classes
+                                  if isinstance(tolerance_classes, dict) else None)
+        self.admission = admission if admission is not None else FifoAdmission()
+        self.delivery = delivery if delivery is not None else TierAccounting()
+        self._clock = clock if clock is not None else time.monotonic
+        self.telemetry_capacity = int(telemetry)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics = MetricsRegistry()
+        self._c_iters = self.metrics.counter("serve_iterations_total")
+        self._c_useful = self.metrics.counter("serve_nfe_useful_total")
+        self._c_resident = self.metrics.counter("serve_nfe_resident_total")
+        self._c_transfers = self.metrics.counter("serve_host_transfers_total")
+        self._c_syncs = self.metrics.counter("serve_solver_syncs_total")
+        self._c_accept = self.metrics.counter("serve_accepted_total")
+        self._c_reject = self.metrics.counter("serve_rejected_total")
+        if hasattr(self.delivery, "bind"):
+            # the delivery stage's per-tier books share the serve loop's
+            self.delivery.bind(self.metrics)
+        self._streams = request_streams or self._seeded_streams
+        #: the tolerance a tier-less request rides: solve_chunk's rule
+        self._default_atol = float(sde.abs_tolerance if self.cfg.eps_abs is None
+                                   else self.cfg.eps_abs)
+        self._default_rtol = float(self.cfg.eps_rel)
+        self._default_h0 = min(float(self.cfg.h_init), sde.T - sde.t_eps)
+        self.conditioner = self.cfg.conditioner
+        self.step_fn = lambda p, c: sample_step(p, c, max_sync_iters=self.sync_horizon)
+        #: one device, one block of slots (the reference's per-device
+        #: admission counts under a mesh, ROADMAP A11)
+        self.slots_per_device = slots
+        self.refills_per_device: List[int] = [0]
+        self.queue: Deque[ImageRequest] = deque()
+        self.finished: Dict[int, ImageRequest] = {}
+        self._slot_req: List[Optional[ImageRequest]] = [None] * slots
+        #: step() chunks run
+        self.horizon_windows = 0
+        #: host mirror of the carry's iteration counter (one read a chunk)
+        self._host_iters = 0
+        B, dev = slots, self.device
+        zi = lambda: torch.zeros((B,), dtype=torch.int32, device=dev)
+        f32 = lambda v: torch.full((B,), v, dtype=torch.float32, device=dev)
+        self._carry = SolverCarry(
+            x=torch.zeros((B,) + self.shape, dtype=self.policy.state, device=dev),
+            x_prev=torch.zeros((B,) + self.shape, dtype=self.policy.state, device=dev),
+            t=f32(0.0),  # 0 = idle
+            h=f32(self.cfg.h_init),
+            nfe=zi(), accepted=zi(), rejected=zi(),
+            done=torch.ones((B,), dtype=torch.bool, device=dev),
+            iterations=torch.zeros((), dtype=torch.int32, device=dev),
+            # idle slots draw from no request's stream
+            generator=[None] * B,
+            cond=(None if self.conditioner is None
+                  else self._to_device(self.conditioner.neutral_cond(B, self.shape))),
+            atol=f32(self._default_atol) if self.tiered else None,
+            rtol=f32(self._default_rtol) if self.tiered else None,
+            telemetry=(init_telemetry(B, self.telemetry_capacity, dev)
+                       if self.telemetry_capacity > 0 else None),
+        )
+
+    # ------------------------------------------------------------------
+    def _d2h(self, *tensors):
+        """The serve loop's device→host seam: every read crosses here and
+        is counted; one call is one logical sync, however many tensors
+        ride in it. Returns numpy arrays (one, or a tuple)."""
+        self._c_transfers.inc()
+        out = tuple(t.cpu().numpy() for t in tensors)
+        return out[0] if len(out) == 1 else out
+
+    def _to_device(self, cond: dict) -> dict:
+        return {k: v.to(self.device) for k, v in cond.items()}
+
+    def _seeded_streams(self, req: ImageRequest, shape, device):
+        """(prior, noise source) of a request: one generator seeded with
+        ``req.seed``, the prior drawn first."""
+        g = torch.Generator(device=device).manual_seed(int(req.seed))
+        return self.sde.prior_sample(shape, g), g
+
+    def _request_cond(self, req: ImageRequest) -> dict:
+        """An admitted request's condition rows: its own ``cond`` coerced
+        to the payload's dtypes and shapes, or the conditioner's neutral
+        payload (the null label for CFG, never class 0)."""
+        if req.cond is None:
+            return {k: v[0] for k, v in
+                    self.conditioner.neutral_cond(1, self.shape).items()}
+        struct = self.conditioner.cond_struct(1, self.shape)
+        return {k: torch.as_tensor(np.asarray(req.cond[k])).to(s.dtype).reshape(s.shape[1:])
+                for k, s in struct.items()}
+
+    def _resolve_tier(self, tier) -> ToleranceClass:
+        """Tier name or ToleranceClass → ToleranceClass, against this
+        server's registry (or the presets)."""
+        if isinstance(tier, ToleranceClass):
+            return tier
+        if self.tolerance_classes is not None:
+            if tier in self.tolerance_classes:
+                return self.tolerance_classes[tier]
+            raise KeyError(f"unknown tolerance class {tier!r}; this server "
+                           f"registers {sorted(self.tolerance_classes)}")
+        return resolve_tier(tier)
+
+    def _request_tol(self, req: ImageRequest):
+        """An admitted request's (atol, rtol, h0): its class, None fields
+        deferring to the config and SDE defaults."""
+        if req.tier is None:
+            return self._default_atol, self._default_rtol, self._default_h0
+        tier = self._resolve_tier(req.tier)
+        atol = self._default_atol if tier.eps_abs is None else float(tier.eps_abs)
+        h = self.cfg.h_init if tier.h_init is None else tier.h_init
+        return atol, float(tier.eps_rel), min(float(h), self.sde.T - self.sde.t_eps)
+
+    def submit(self, req: ImageRequest) -> None:
+        """Queue a request; it takes a slot at the next sync with a free
+        one. Stamps the submission clock and settles the deadline and
+        priority from the tolerance class."""
+        if req.tier is not None and not self.tiered:
+            raise ValueError(
+                f"request {req.uid} carries tier {req.tier!r} but this server was "
+                "built without tolerance_classes: its carry has no per-slot "
+                "tolerance leaves to honour it")
+        now = self._clock()
+        req._submit_t = now
+        tier = None if req.tier is None else self._resolve_tier(req.tier)
+        if req.priority is None:
+            req.priority = 0 if tier is None else int(tier.priority)
+        deadline_ms = req.deadline_ms
+        if deadline_ms is None and tier is not None:
+            deadline_ms = tier.deadline_ms
+        req.deadline_at = None if deadline_ms is None else now + deadline_ms / 1000.0
+        self.queue.append(req)
+
+    # -- serve-loop counters (DESIGN.md §15), read from the registry -----
+    @property
+    def total_iterations(self) -> int:
+        """Loop iterations run (each costs nfe_per_iter forwards over all
+        slots, busy or not)."""
+        return int(self._c_iters.value)
+
+    @property
+    def useful_nfe(self) -> int:
+        """Σ per-request NFE delivered."""
+        return int(self._c_useful.value)
+
+    @property
+    def resident_nfe(self) -> int:
+        """Σ nfe_per_iter·resident_iters over delivered requests."""
+        return int(self._c_resident.value)
+
+    @property
+    def host_transfers(self) -> int:
+        """Device→host reads the serve loop issued (through ``_d2h``)."""
+        return int(self._c_transfers.value)
+
+    @property
+    def solver_syncs(self) -> int:
+        """Host syncs inside the device step (``adaptive.sync_state``),
+        apart from ``host_transfers``; the reference's jitted chunk has
+        none."""
+        return int(self._c_syncs.value)
+
+    @property
+    def class_stats(self) -> Dict[str, Any]:
+        """Per-class delivery counters (DESIGN.md §14) as plain dicts."""
+        return {name: s.as_dict() for name, s in self.delivery.stats.items()}
+
+    @property
+    def wasted_nfe_fraction(self) -> float:
+        """Share of issued evaluations (nfe_per_iter · slots · iterations)
+        spent on idle or converged slots; 0 before any ran."""
+        issued = self.nfe_per_iter * self.n * self.total_iterations
+        if issued == 0:
+            return 0.0
+        return 1.0 - min(self.useful_nfe, issued) / issued
+
+    @property
+    def passenger_nfe_fraction(self) -> float:
+        """Share of evaluations issued to occupied slots whose sample had
+        already converged: the waste only compaction removes. 0 before
+        any delivery."""
+        if self.resident_nfe == 0:
+            return 0.0
+        return 1.0 - min(self.useful_nfe, self.resident_nfe) / self.resident_nfe
+
+    # ------------------------------------------------------------------
+    def _retire(self, rows, nfe, acc, rej, conv_idx) -> None:
+        """Deliver the transferred retired rows: fill in each request, move
+        it to ``finished``, free its slot, charge the books."""
+        now = self._clock()
+        with self.tracer.span("serve/delivery",
+                              uids=[self._slot_req[i].uid for i in conv_idx],
+                              slots=list(conv_idx),
+                              nfe=[int(nfe[i]) for i in conv_idx]):
+            for row, i in zip(rows, conv_idx):
+                req = self._slot_req[i]
+                req.result = row
+                req.nfe = int(nfe[i])
+                req.accepted = int(acc[i])
+                req.rejected = int(rej[i])
+                req.done = True
+                req.resident_iters = self.total_iterations - req._admit_iters
+                self.finished[req.uid] = req
+                self._c_useful.inc(int(nfe[i]))
+                self._c_resident.inc(self.nfe_per_iter * req.resident_iters)
+                self._c_accept.inc(int(acc[i]))
+                self._c_reject.inc(int(rej[i]))
+                self._slot_req[i] = None
+                self.delivery.on_deliver(req, now)
+
+    def _admit_from_queue(self):
+        """Seat queued requests in free slots, lowest free slot first
+        (host bookkeeping; the caller writes the carry). Returns the
+        admitted (slots, requests)."""
+        free = [i for i in range(self.n) if self._slot_req[i] is None]
+        if not free or not self.queue:
+            return [], []
+        now = self._clock()
+        with self.tracer.span("serve/admission", free=len(free),
+                              queued=len(self.queue)) as sp:
+            reqs = self.admission.select(self.queue, len(free), now)
+            admit_pos = free[: len(reqs)]
+            for i, req in zip(admit_pos, reqs):
+                self._slot_req[i] = req
+                req._admit_iters = self.total_iterations
+                req._seat_t = now
+                self.refills_per_device[0] += 1
+            # the span names the uids seated and the slots they took
+            sp["attrs"]["uids"] = [r.uid for r in reqs]
+            sp["attrs"]["slots"] = list(admit_pos)
+        return admit_pos, reqs
+
+    def _compaction_perm(self) -> np.ndarray:
+        """Pack the in-flight samples to the front of the slot block and
+        reorder ``_slot_req`` to match; the identity when compaction is
+        off."""
+        perm = np.arange(self.n)
+        if self.compaction:
+            live = [i for i in range(self.n) if self._slot_req[i] is not None]
+            free = [i for i in range(self.n) if self._slot_req[i] is None]
+            perm[:] = live + free
+            self._slot_req = [self._slot_req[j] for j in perm]
+        return perm
+
+    def _sync(self) -> None:
+        """Host sync: retire converged slots, compact, admit from the queue.
+
+        Only the (B,) bookkeeping and the retired rows cross to the host;
+        the permutation and the admissions are applied on the device.
+        """
+        c = self._carry
+        # the device's own convergence mask: anything else could disagree
+        # with the loop's active mask and make retirement depend on the
+        # sync horizon
+        done = self._d2h(c.done)
+        occupied = [r is not None for r in self._slot_req]
+        conv = [occupied[i] and bool(done[i]) for i in range(self.n)]
+        if not self.compaction and occupied != conv and any(occupied):
+            return  # monolithic wave: turn over once every slot converged
+        if not any(conv) and not (self.queue and not all(occupied)):
+            return
+        dev = self.device
+
+        # 1. deliver the converged slots (the t_eps state, before the
+        #    Tweedie denoise, as the reference delivers)
+        conv_idx = [i for i in range(self.n) if conv[i]]
+        if conv_idx:
+            idx = torch.tensor(conv_idx, dtype=torch.long, device=dev)
+            rows = c.x.index_select(0, idx).to(torch.float32)
+            if self.conditioner is not None:
+                cond_rows = {k: v.index_select(0, idx) for k, v in c.cond.items()}
+                rows = self.conditioner.finalize_project(rows, cond_rows)
+            rows, nfe, acc, rej = self._d2h(rows, c.nfe, c.accepted, c.rejected)
+            self._retire(rows, nfe, acc, rej, conv_idx)
+
+        # 2. compaction: each sample's noise source moves with it
+        perm = self._compaction_perm()
+        permute = not np.array_equal(perm, np.arange(self.n))
+        perm_t = torch.from_numpy(perm).to(dev) if permute else None
+
+        # 3. admission: each request's prior from its own stream, at t = T
+        admit_pos, reqs = self._admit_from_queue()
+        pos_t = torch.tensor(admit_pos, dtype=torch.long, device=dev)
+        priors, sources = [], []
+        for req in reqs:
+            prior, src = self._streams(req, self.shape, dev)
+            priors.append(prior)
+            sources.append(src)
+
+        def update(leaf: Tensor, admit=None) -> Tensor:
+            if permute:
+                leaf = leaf.index_select(0, perm_t)
+            if admit_pos and admit is not None:
+                if not isinstance(admit, Tensor):
+                    admit = torch.full((len(admit_pos),), admit, dtype=leaf.dtype,
+                                       device=dev)
+                leaf = leaf.index_copy(0, pos_t, admit.to(leaf.dtype))
+            return leaf
+
+        x_admit = torch.stack(priors).to(dev) if admit_pos else None
+        tol = [None] * 3
+        if self.tiered and admit_pos:
+            tols = np.asarray([self._request_tol(r) for r in reqs], np.float32).T
+            tol = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in tols]
+        cond = c.cond
+        if cond is not None:
+            rows = [self._request_cond(r) for r in reqs]
+            cond = {k: update(v, torch.stack([r[k] for r in rows]).to(dev)
+                              if admit_pos else None)
+                    for k, v in cond.items()}
+        gens = [c.generator[j] for j in perm]
+        for i, src in zip(admit_pos, sources):
+            gens[i] = src
+        self._carry = SolverCarry(
+            x=update(c.x, x_admit), x_prev=update(c.x_prev, x_admit),
+            t=update(c.t, float(self.sde.T)),
+            h=update(c.h, self._default_h0 if tol[2] is None else tol[2]),
+            nfe=update(c.nfe, 0), accepted=update(c.accepted, 0),
+            rejected=update(c.rejected, 0), done=update(c.done, False),
+            # the counter is per chunk in serving: folded into the host
+            # total and reset, so cfg.max_iters never trips on a long run
+            iterations=torch.zeros((), dtype=torch.int32, device=dev),
+            generator=gens, cond=cond,
+            atol=update(c.atol, tol[0]) if self.tiered else None,
+            rtol=update(c.rtol, tol[1]) if self.tiered else None,
+            # telemetry rows permute with their sample and are never
+            # cleared at admission (DESIGN.md §15)
+            telemetry=(None if c.telemetry is None
+                       else c.telemetry.index_rows(perm_t) if permute
+                       else c.telemetry),
+        )
+        self._host_iters = 0
+
+    # ------------------------------------------------------------------
+    def step(self) -> int:
+        """One serve-loop turn, one sync-horizon chunk; returns the busy
+        slots that entered the device work."""
+        self._sync()
+        busy = sum(1 for r in self._slot_req if r is not None)
+        if busy == 0:
+            return 0
+        ann = (profiler_annotation("serve/solve", step=self.horizon_windows,
+                                   device=self.device)
+               if self.tracer.enabled else contextlib.nullcontext())
+        with self.tracer.span("serve/solve", window=self.horizon_windows,
+                              busy=busy), ann:
+            syncs = ad.host_syncs
+            self._carry = self.step_fn(self.params, self._carry)
+            self._c_syncs.inc(ad.host_syncs - syncs)
+            cur = int(self._d2h(self._carry.iterations))
+        self.horizon_windows += 1
+        self._c_iters.inc(cur - self._host_iters)
+        self._host_iters = cur
+        return busy
+
+    def run_to_completion(self, max_steps: int = 100_000) -> Dict[int, ImageRequest]:
+        """Drain the queue: step until every submitted request is delivered."""
+        steps = 0
+        while (self.queue or any(r is not None for r in self._slot_req)) \
+                and steps < max_steps:
+            if self.step() == 0 and not self.queue:
+                break
+            steps += 1
+        self._sync()  # deliver the stragglers
+        return self.finished
+
+    # ------------------------------------------------------------------
+    def metrics_snapshot(self) -> MetricsRegistry:
+        """Refresh the point-in-time gauges (queue depth, occupancy, waste
+        fractions, acceptance rate) and return the registry."""
+        m = self.metrics
+        m.gauge("serve_queue_depth").set(float(len(self.queue)))
+        m.gauge("serve_slots_occupied").set(
+            float(sum(1 for r in self._slot_req if r is not None)))
+        m.gauge("serve_slots_total").set(float(self.n))
+        m.gauge("serve_wasted_nfe_fraction").set(self.wasted_nfe_fraction)
+        m.gauge("serve_passenger_nfe_fraction").set(self.passenger_nfe_fraction)
+        acc, rej = self._c_accept.value, self._c_reject.value
+        m.gauge("serve_acceptance_rate").set(acc / (acc + rej) if (acc + rej) else 0.0)
+        m.gauge("serve_horizon_windows").set(float(self.horizon_windows))
+        return m
+
+    def trace_record(self) -> Dict[str, Any]:
+        """One JSON-ready record of what the server observed: delivered
+        requests with their books, the registry, the tracer's spans and
+        histograms, the per-class stats and, with the ring on, the
+        chronological step history (``repro_torch.analysis.telemetry``
+        renders it)."""
+        self.metrics_snapshot()
+        requests = [
+            {"uid": r.uid, "tier": tier_name(r), "nfe": r.nfe,
+             "accepted": r.accepted, "rejected": r.rejected,
+             "resident_iters": r.resident_iters,
+             "deadline_missed": bool(r.deadline_missed)}
+            for r in sorted(self.finished.values(), key=lambda r: r.uid)
+        ]
+        rec: Dict[str, Any] = {
+            "requests": requests,
+            "metrics": self.metrics.to_json(),
+            "trace": self.tracer.to_json(),
+            "class_stats": self.class_stats,
+        }
+        tel = self._carry.telemetry
+        if tel is not None:
+            t, h, err, accept, head = self._d2h(tel.t, tel.h, tel.err, tel.accept,
+                                                tel.head)
+            hist = telemetry_history(dataclasses.replace(
+                tel, t=t, h=h, err=err, accept=accept, head=head))
+            rec["telemetry"] = {
+                "t": hist["t"].tolist(), "h": hist["h"].tolist(),
+                "err": hist["err"].tolist(),
+                "accept": hist["accept"].astype(int).tolist(),
+                "iterations": int(hist["iterations"]),
+                "records": int(hist["records"]),
+                "t_eps": float(self.sde.t_eps),
+            }
+        return rec

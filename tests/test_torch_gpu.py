@@ -794,3 +794,61 @@ def test_adaptive_forward_on_card(cuda):
                                                         h_init=0.1), device=cuda)
     assert float(res.x.mean()) == pytest.approx(0.0, abs=0.04)
     assert float(res.x.std()) == pytest.approx(0.8 / 2 ** 0.5, rel=0.06)
+
+
+@pytest.mark.parametrize("D", [196_608, 4_999], ids=["main_path", "ragged"])
+def test_k2_with_the_tiers_eps_per_row(cuda, D):
+    """K2 as a tiered serve calls it: the three tiers' ε_rel in one call at
+    the VP SDE's ε_abs, within K1's bounds of the plain version, the same
+    bits twice, and each row bitwise the row of a call at a uniform ε."""
+    from repro_torch.configs.diffusion import TOLERANCE_CLASSES
+
+    tiers = [c.eps_rel for c in TOLERANCE_CLASSES.values()]
+    rel = torch.tensor([tiers[i % 3] for i in range(8)], device=cuda)
+    atol = torch.full((8,), VPSDE().abs_tolerance, device=cuda)
+    states, coeffs, _ = _step_inputs(8, D, torch.float32, cuda, seed=5)
+    xh, e2 = step_ops.error_step(*states, *coeffs, eps_abs=atol, eps_rel=rel)
+    xr, e2r = step_ref.error_step(*states, *coeffs, atol, rel)
+    torch.testing.assert_close(xh, xr, **X_TOL[torch.float32])
+    torch.testing.assert_close(e2, e2r, rtol=1e-5, atol=1e-6)
+    again = step_ops.error_step(*states, *coeffs, eps_abs=atol, eps_rel=rel)
+    assert torch.equal(again[0], xh) and torch.equal(again[1], e2)
+    for eps in tiers:
+        ux, ue = step_ops.error_step(*states, *coeffs, eps_abs=atol, eps_rel=eps)
+        rows = rel == eps
+        assert torch.equal(ux[rows], xh[rows]) and torch.equal(ue[rows], e2[rows])
+
+
+def test_tiered_serve_on_card_is_bitwise_its_solo_runs(cuda):
+    """A 4-request mixed-tier serve through K2 and K3 on a small livened
+    DiT: each request bitwise (sample and NFE) its run alone in an idle
+    server of the same slot count, and exactly one solver-step launch and
+    2·layers flash launches a body iteration."""
+    from repro_torch.launch.sample import make_sample_step
+    from repro_torch.serving.diffusion_server import DiffusionBatcher, ImageRequest
+
+    cfg = tdit.DiTConfig(image_size=16, patch=4, d_model=128, num_layers=2, num_heads=2,
+                         d_ff=256, use_flash=True)
+    model = tdit.init_dit(cfg, torch.Generator(device=cuda).manual_seed(0))
+    tdit.liven_zero_init(model, torch.Generator(device=cuda).manual_seed(1))
+    sde = VPSDE()
+    acfg = AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True)
+    step = make_sample_step(sde, acfg)
+    tiers = ("draft", "high_fidelity", "standard", "draft")
+
+    def serve(uids):
+        b = DiffusionBatcher(sde, step, model, (16, 16, 3), slots=4, cfg=acfg, sync_horizon=4,
+                             tolerance_classes=True, device=cuda)
+        for u in uids:
+            b.submit(ImageRequest(uid=u, seed=10 + u, tier=tiers[u]))
+        return b, b.run_to_completion()
+
+    step_ops.launches = flash_ops.launches = 0
+    b, mixed = serve(range(4))
+    body = 4 * b.horizon_windows
+    assert step_ops.launches == body and flash_ops.launches == 2 * cfg.num_layers * body
+    for u in range(4):
+        _, solo = serve([u])
+        assert solo[u].nfe == mixed[u].nfe, u
+        np.testing.assert_array_equal(solo[u].result, mixed[u].result, err_msg=f"uid {u}")
+        assert np.isfinite(mixed[u].result).all()
