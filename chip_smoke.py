@@ -22,8 +22,11 @@ Phases; any failure exits non-zero before the result line is printed:
              its rows,
              one CUDA kernel a call (torch.profiler), and a replayed CUDA
              graph bitwise the eager call;
-             K5 at the DiT, Table-2 and planning states and a ragged D,
-             fp32 and bf16, and a misaligned view, which must raise; K7,
+             K5 at the DiT, Table-2 and planning states, ragged D, the
+             tables' (4096, 2) and (2048, 2), (5, 3) and B = 70,000, fp32
+             and bf16, each also off 16 bytes (bitwise the aligned call),
+             with the launch ``em_kernel_config`` gives, and a
+             non-contiguous view, which must raise; K7,
              the SSD scan, at mamba2-2.7b's prefill shape (4, 2048, 80,
              64, 1, 128), a ragged S = 1000, several groups (1, 100, 8,
              32, 2, 32), prefill_32k's length (1, 32768, 80, 64, 1, 128)
@@ -33,8 +36,8 @@ Phases; any failure exits non-zero before the result line is printed:
              against the sequential oracle, bitwise equal on a second
              call; y and the final state against the oracle at a small
              shape, and bf16 at two shapes); K1 at the tables' states
-             (4096, 2) and (2048, 2) and the trained DIT_100M's (8, 3072),
-             K5 at (4096, 2), fp32, the same bits on a second call; K2 (the
+             (4096, 2) and (2048, 2) and the trained DIT_100M's (8, 3072);
+             K2 (the
              solver step with ε per row) at the DiT state with the three
              tiers' ε_rel in one call, within K1's bounds, the same bits
              twice, each row bitwise its uniform-ε call's; and the
@@ -93,7 +96,9 @@ Phases; any failure exits non-zero before the result line is printed:
              planning state; ptxas's registers, spills and shared memory
              for K6's and K1's kernels; one TRAJ_UNET
              forward at 128 rows, eager and as a replayed graph; K5 at
-             the DiT state and the Table-2 state; K7 at the prefill shape
+             the DiT state, the Table-2 state and the tables' (4096, 2) and
+             (2048, 2), fp32 and bf16, with ptxas's registers for its
+             instantiations; K7 at the prefill shape
              and at (1, 32768, 80, 64, 1, 128) against both fp32 bounds
              (CUDA cores, 3xTF32 tensor cores) and against itself on one
              range a sequence, and ptxas's registers and spills for K7's
@@ -139,8 +144,9 @@ Phases; any failure exits non-zero before the result line is printed:
              pair is printed, not gated: the reference misses the rule
              there itself); (c) adaptive at eps_rel 0.05 at most 500 NFE;
              (d) each adaptive row's mean NFE within NFE_BAND of the
-             reference's CPU run (REF_TABLE1_NFE). Last, K1 and K5 timed at
-             (4096, 2) and the phase's wall time.
+             reference's CPU run (REF_TABLE1_NFE). Last, K1 timed at
+             (4096, 2) (K5 there is timed in phase 6), the device idle share of one Table-1 EM-1000 solve
+             (VP, N 4096; torch.profiler) and the phase's wall time.
 7. lm      — the third main path, last, after the DiT and UNet memory is
              freed: mamba2-2.7b at full width (2.83 B parameters, fp32,
              weights from a generator seeded 0). ``make_prefill_step``
@@ -373,14 +379,14 @@ def ssd_build_summary(log: str) -> None:
 
 
 def small_kernels_build_summary(log: str) -> list:
-    """K6's and K1's kernels as ptxas built them: registers, spills and
-    static shared memory of each instantiation (printed, and returned for
-    the kernels line)."""
+    """K6's, K1's and K5's kernels as ptxas built them: registers, spills
+    and static shared memory of each instantiation (printed, and returned
+    for the kernels line)."""
     import re
 
     if not log:
-        print("  gn_silu_*, error_step_kernel: no ptxas log (the library was built before "
-              "this run)")
+        print("  gn_silu_*, error_step_kernel, em_step_kernel: no ptxas log (the library was "
+              "built before this run)")
         return []
     rows, cur = [], None
     for line in log.splitlines() + ["Compiling entry function 'end'"]:
@@ -392,6 +398,11 @@ def small_kernels_build_summary(log: str) -> list:
             cur = m and {"kernel": m[1] + (f"<{'fp32' if m[2] == 'f' else 'bf16'}"
                                            + (f", {m[3]}>" if m[3] else ">")),
                          "registers": None, "spill_bytes": 0, "smem_bytes": 0}
+            if (k5 := re.search(r"em_step_kernelI(13__nv_bfloat16|f)([jx])Lb([01])E", line)):
+                cur = {"kernel": f"em_step_kernel<{'fp32' if k5[1] == 'f' else 'bf16'}, "
+                                 f"{'32' if k5[2] == 'j' else '64'}-bit index, "
+                                 f"{'evict-first' if k5[3] == '1' else 'plain'}>",
+                       "registers": None, "spill_bytes": 0, "smem_bytes": 0}
         elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             cur["spill_bytes"] = max(cur["spill_bytes"], int(m[1]), int(m[2]))
         elif cur and (m := re.search(r"Used (\d+) registers", line)):
@@ -761,14 +772,14 @@ def profile_device(fn) -> tuple:
 
 def check_tables_state_and_guard(dev, gen) -> dict:
     """Phase 2's checks for the training slice: K1 at the tables' states,
-    (4096, 2) for Table 1 and (2048, 2) for Tables 3 and 4–5, and K5 at
-    Table 1's (4096, 2), fp32, against their plain versions at the bounds
-    of phase 2 (K1 x'' 1e-5·(1 + max|x''|), e2 1e-5 relative; K5 2 ulp of
-    max|x'|), the same bits on a second call, and K1 on operands off 16
-    bytes bitwise equal to the aligned call; then the autograd guard:
+    (4096, 2) for Table 1 and (2048, 2) for Tables 3 and 4–5, fp32,
+    against its plain version at the bounds of phase 2 (x''
+    1e-5·(1 + max|x''|), e2 1e-5 relative), the same bits on a second
+    call, and on operands off 16 bytes bitwise equal to the aligned call
+    (K5 at those states is in phase 2's K5 loop); then the autograd guard:
     under grad mode every CUDA wrapper refuses an input that requires
     grad and launches nothing (neither package has a backward kernel).
-    Returns the largest max abs errors at those states."""
+    Returns K1's largest max abs error at those states."""
     from repro_torch.benchmarks.table1_solver_grid import N_SAMPLES
     from repro_torch.benchmarks.table3_offtheshelf import N as N_TABLE3
     from repro_torch.benchmarks.table45_ablations import N as N_TABLE45
@@ -807,21 +818,6 @@ def check_tables_state_and_guard(dev, gen) -> dict:
             fail(f"solver_step at {(b, d)} disagrees with its plain version or itself")
         k1_err = max(k1_err, err)
 
-    b = N_SAMPLES
-    states = [torch.randn(b, d, generator=gen, device=dev) for _ in range(3)]
-    coeffs = [torch.rand(b, generator=gen, device=dev) for _ in range(3)]
-    em = step_ops.em_step(*states, *coeffs)
-    em_again = step_ops.em_step(*states, *coeffs)
-    em_want = step_ref.em_step(*states, *coeffs)
-    torch.cuda.synchronize()
-    k5_err = (em - em_want).abs().max().item()
-    k5_bound = 2 * ulp(torch.float32, em_want.abs().max().item())
-    k5_same = torch.equal(em, em_again)
-    print(f"  em_step fp32 at Table 1's state {(b, d)}: max|x'-plain| {k5_err:.3e} (bound 2 "
-          f"ulp of max|x'|: {k5_bound:.1e}), same bits twice {k5_same}")
-    if not (k5_err <= k5_bound and k5_same):
-        fail("em_step at (4096, 2) disagrees with its plain version or itself")
-
     counters = lambda: (step_ops.launches, step_ops.em_launches, step_ops.sharded_launches,
                         flash_ops.launches, gn_ops.launches, ssd_ops.launches)
     before = counters()
@@ -859,15 +855,16 @@ def check_tables_state_and_guard(dev, gen) -> dict:
         calls["flash_attention (K3)"]()
     if flash_ops.launches != before[3] + 1:
         fail("flash attention under no_grad did not launch")
-    return {"solver_step": k1_err, "em_step": k5_err}
+    return {"solver_step": k1_err}
 
 
 def train_and_tables(dev, card: str) -> dict:
     """The training slice on the card (the new phase): DIT_100M trained
     for DIT_STEPS steps, checkpointed, reloaded and sampled through K1 and
     K3; the two TOY_MLP nets; Tables 1, 3 and 4–5 with their launch rules
-    and gates (a)–(d); K1 and K5 timed at Table 1's state. Returns what
-    the kernels line reports."""
+    and gates (a)–(d); K1 timed at Table 1's state; the device
+    idle share of one Table-1 EM-1000 solve. Returns what the kernels
+    line reports."""
     import shutil
     import tempfile
 
@@ -995,7 +992,7 @@ def train_and_tables(dev, card: str) -> dict:
     gate_b = e2e_rule(dev)
     check_sample_chunked(dev, *bench.trained_mlp_score("vp", 600, 0, dev))
 
-    # K1 and K5 at Table 1's state, timed
+    # K1 at Table 1's state, timed
     b, d = t1.N_SAMPLES, 2
     gen = torch.Generator(device=dev).manual_seed(5)
     sets = []
@@ -1009,21 +1006,21 @@ def train_and_tables(dev, card: str) -> dict:
     k1_bytes = 6 * b * d * 4 + 6 * b * 4
     k1_ops = STEP_FLOPS_PER_ELEMENT * b * d
     k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_FLOPS) * 1e3
-    k5_sets = [a[:3] + a[5:8] for a in sets]
-    k5_ms = device_ms(lambda *a: step_ops.em_step(*a), k5_sets)
-    k5_plain = device_ms(lambda *a: step_ref.em_step(*a), k5_sets)
-    k5_bytes = 4 * b * d * 4 + 3 * b * 4
-    k5_bound = max(k5_bytes / HBM_BYTES_PER_S, EM_FLOPS_PER_ELEMENT * b * d / FP32_FLOPS) * 1e3
     print(f"  [{card}] at Table 1's state {(b, d)} fp32: solver_step {k1_ms * 1e3:.2f} us on the "
-          f"device (bound {k1_bound * 1e3:.3f} us, bytes; plain {k1_plain * 1e3:.1f} us); em_step "
-          f"{k5_ms * 1e3:.2f} us (bound {k5_bound * 1e3:.3f} us; plain {k5_plain * 1e3:.1f} us)")
+          f"device (bound {k1_bound * 1e3:.3f} us, bytes; plain {k1_plain * 1e3:.1f} us)")
+    # the device idle share of one Table-1 EM-1000 row (VP, N 4096)
+    from repro_torch.benchmarks import kernel_times
+    idle = kernel_times.table1_em_idle(dev)
+    print(f"  [{card}] Table 1 EM-1000 at N 4096 (VP): wall {idle['wall_ms']:.1f} ms, device "
+          f"busy {idle['busy_ms']:.2f} ms (K5 {idle['em_step_ms']:.3f} ms), idle share "
+          f"{idle['idle_share']:.3f}")
     wall = time.perf_counter() - t_phase
     print(f"  [{card}] train and tables: {wall:.1f} s; K1 launches over the tables' adaptive "
           f"rows {k1_total}, K5 launches over their EM and PC rows {k5_total}")
     return {"dit_launches": dit_launches, "dit_iterations": dit_iters,
             "k1_tables": k1_total, "k5_tables": k5_total, "gate_b": gate_b,
             "k1_t1": dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound),
-            "k5_t1": dict(ms=k5_ms, plain_ms=k5_plain, bound_ms=k5_bound)}
+            "em1000_idle": idle}
 
 
 def check_sample_chunked(dev, sde, score_fn) -> None:
@@ -1500,39 +1497,55 @@ def main() -> None:
     if set(gn_paths.values()) != {"register"}:
         fail("a TRAJ_UNET shape does not take the register kernel")
 
-    # K5 em_step at the DiT state, the Table-2 state, a plan and a ragged D
+    # K5 em_step at the DiT state, the Table-2 state, a plan, ragged D, the
+    # tables' 2-column states, rows narrower than a pack and B = 70,000
+    # (above the former kernel's 65,535 rows); each shape also as operands
+    # off 16 bytes (single-element loads), which must give the same bits
     em_err = {}
     em_shapes = [(B, D), (table2_highdim.N, table2_highdim.D),
                  (PLAN_BATCH, TRAJ_UNET.horizon * TRAJ_UNET.transition_dim), (B, 1000),
-                 (3, 999)]
+                 (3, 999), (4096, 2), (2048, 2), (5, 3), (70_000, 2)]
     for dtype in (torch.float32, torch.bfloat16):
         for b, d in em_shapes:
             ops_in = [torch.randn(b, d, generator=gen, device=dev).to(dtype) for _ in range(3)]
             cs = [torch.rand(b, generator=gen, device=dev) * 2 - 0.5 for _ in range(3)]
+            views = []
+            for t in ops_in:  # contiguous, one element off a 16-byte boundary
+                views.append(torch.empty(b * d + 1, dtype=dtype, device=dev)[1:].view(b, d))
+                views[-1].copy_(t)
             before = step_ops.em_launches
             out = step_ops.em_step(*ops_in, *cs)
             again = step_ops.em_step(*ops_in, *cs)
+            off = step_ops.em_step(*views, *cs)
             want = step_ref.em_step(*ops_in, *cs)
             torch.cuda.synchronize()
             err = (out.float() - want.float()).abs().max().item()
             bound = 2 * ulp(dtype, want.float().abs().max().item())
-            ok = (err <= bound and torch.equal(out, again) and out.dtype == dtype
-                  and step_ops.em_launches == before + 2)
+            ok = (err <= bound and torch.equal(out, again) and torch.equal(off, out)
+                  and out.dtype == dtype and step_ops.em_launches == before + 3)
+            cfg = step_ops.em_kernel_config(b, d, dtype, True)
             print(f"  em_step {str(dtype)[6:]:8s} {(b, d)}: max|x'-plain| {err:.3e} "
                   f"(bound 2 ulp of max|x'|: {bound:.1e}), same bits twice "
-                  f"{torch.equal(out, again)} {'ok' if ok else 'FAIL'}")
+                  f"{torch.equal(out, again)}, off 16 bytes bitwise {torch.equal(off, out)} "
+                  f"{'ok' if ok else 'FAIL'}; launch grid {cfg['grid']} x {cfg['threads']} "
+                  f"threads, {cfg['elems_per_thread']} elements a thread, {cfg['passes']} "
+                  f"pass(es), {cfg['load_bytes']}-byte loads (aligned), evict-first "
+                  f"{cfg['evict_first']}")
             if not ok:
-                fail("em_step kernel disagrees with its plain version")
+                fail("em_step kernel disagrees with its plain version, itself or its "
+                     "unaligned call")
             em_err[(dtype, b, d)] = err
-    buf = torch.randn(B * 1000 + 1, generator=gen, device=dev)
-    view = buf[1:].view(B, 1000)  # contiguous, 4 bytes off a 16-byte boundary
+    wide = torch.randn(B, 2000, generator=gen, device=dev)[:, :1000]
     cs = [torch.ones(B, device=dev)] * 3
+    before = step_ops.em_launches
     try:
-        step_ops.em_step(view, view, view, *cs)
+        step_ops.em_step(wide, wide, wide, *cs)
     except ValueError as e:
-        print(f"  em_step on a misaligned view raises: {e}")
+        print(f"  em_step on a non-contiguous view raises: {e}")
     else:
-        fail("em_step accepted a misaligned view")
+        fail("em_step accepted a non-contiguous view")
+    if step_ops.em_launches != before:
+        fail("a refused em_step call was counted as a launch")
     t1_state_err = check_tables_state_and_guard(dev, gen)
 
     # K7 ssd_scan at every SSD_SHAPES entry, with the range count the wrapper
@@ -1901,26 +1914,30 @@ def main() -> None:
           f"{k3b_lib * 1e3:.2f} us")
     flash_build_summary(log)
 
-    # K5 at the DiT state and the Table-2 state
+    # K5 at the DiT state, the Table-2 state and the tables' states, fp32
+    # and bf16 (kernel_times.EM_SHAPES), on the launch the wrapper picks
     k5 = lambda *a: step_ops.em_step(*a)
     k5_plain_fn = lambda *a: step_ref.em_step(*a)
     k5_t = {}
-    for b, d in ((B, D), (table2_highdim.N, table2_highdim.D)):
-        sets = [tuple([torch.randn(b, d, generator=gen, device=dev) for _ in range(3)]
-                      + [torch.rand(b, generator=gen, device=dev) for _ in range(3)])
-                for _ in range(4 if b * d * 16 * 4 > 50e6 else 8)]  # sets exceed the L2
-        ms, plain = device_ms(k5, sets), device_ms(k5_plain_fn, sets)
-        host = timed_ms(k5, sets, 200)
-        nbytes = 4 * b * d * 4 + 3 * b * 4
-        nops = EM_FLOPS_PER_ELEMENT * b * d
-        bound = max(nbytes / HBM_BYTES_PER_S, nops / FP32_FLOPS) * 1e3
-        k5_t[(b, d)] = dict(ms=ms, plain_ms=plain, host_ms=host, bound_ms=bound,
-                            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= nops / FP32_FLOPS
-                            else "operations")
-        print(f"  em_step ({b}, {d}) fp32: {ms * 1e3:.2f} us on the device, bound "
-              f"{bound * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
-              f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s achieved; plain {plain * 1e3:.1f} us; "
-              f"eager loop with host gaps {host * 1e3:.1f} us")
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, d in kernel_times.EM_SHAPES:
+            sets = kernel_times.em_sets(dev, gen, b, d, dtype)
+            ms, plain = device_ms(k5, sets), device_ms(k5_plain_fn, sets)
+            host = timed_ms(k5, sets, 200)
+            nbytes = 4 * b * d * dtype.itemsize + 3 * b * 4
+            nops = EM_FLOPS_PER_ELEMENT * b * d
+            bound = max(nbytes / HBM_BYTES_PER_S, nops / FP32_FLOPS) * 1e3
+            cfg = step_ops.em_kernel_config(b, d, dtype, True)
+            k5_t[(dtype, b, d)] = dict(
+                ms=ms, plain_ms=plain, host_ms=host, bound_ms=bound,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= nops / FP32_FLOPS
+                else "operations", grid=cfg["grid"], evict_first=cfg["evict_first"])
+            print(f"  em_step ({b}, {d}) {str(dtype)[6:]}: {ms * 1e3:.2f} us on the device, "
+                  f"bound {bound * 1e3:.3f} us ({nbytes / 1e6:.3f} MB at 3.35 TB/s; "
+                  f"{bound / ms:.0%} of it reached), {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s "
+                  f"achieved; plain {plain * 1e3:.1f} us; eager loop with host gaps "
+                  f"{host * 1e3:.1f} us; grid {cfg['grid']} x {cfg['threads']}, evict-first "
+                  f"{cfg['evict_first']}")
 
     # the launch floor: the device time of the smallest kernel (a one-
     # element zero_()) in the same graph harness, beside the sub-µs bounds
@@ -2169,15 +2186,25 @@ def main() -> None:
          "replaces": "src/repro/kernels/solver_step/kernel.py:92",
          "launches": k5_launches["em"],
          "max_abs_err": em_err[(torch.float32, B, D)],
-         "ms": k5_t[(B, D)]["ms"], "plain_ms": k5_t[(B, D)]["plain_ms"],
-         "bound_ms": k5_t[(B, D)]["bound_ms"], "bound_by": k5_t[(B, D)]["bound_by"],
+         "ms": k5_t[(torch.float32, B, D)]["ms"],
+         "plain_ms": k5_t[(torch.float32, B, D)]["plain_ms"],
+         "bound_ms": k5_t[(torch.float32, B, D)]["bound_ms"],
+         "bound_by": k5_t[(torch.float32, B, D)]["bound_by"],
          "library_ms": None,
+         "design": "one flat pass over B·D on a 1-D grid, 16-byte packs where aligned",
          "pc_launches": k5_launches["pc"],
-         "table2": {"ms": k5_t[(table2_highdim.N, table2_highdim.D)]["ms"],
-                    "plain_ms": k5_t[(table2_highdim.N, table2_highdim.D)]["plain_ms"],
-                    "bound_ms": k5_t[(table2_highdim.N, table2_highdim.D)]["bound_ms"]},
-         "tables": {"launches": tt["k5_tables"], "max_abs_err": t1_state_err["em_step"],
-                    **tt["k5_t1"]}},
+         "launch_floor_ms": floor_ms,
+         "by_state": {f"{str(dt)[6:]} {b}x{d}": {k: v[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "grid", "evict_first")}
+             for (dt, b, d), v in k5_t.items()},
+         "table2": {k: k5_t[(torch.float32, table2_highdim.N, table2_highdim.D)][k]
+                    for k in ("ms", "plain_ms", "bound_ms")},
+         "tables": {"launches": tt["k5_tables"],
+                    "max_abs_err": em_err[(torch.float32, 4096, 2)],
+                    **{k: k5_t[(torch.float32, 4096, 2)][k]
+                       for k in ("ms", "plain_ms", "bound_ms")},
+                    "em1000_n4096": tt["em1000_idle"]},
+         "ptxas": [r for r in small_ptxas if r["kernel"].startswith("em_step")]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd/kernel.py:82",

@@ -11,7 +11,14 @@ through sets that stay in the 50 MB L2 where the path finds them there:
 - K6 ``groupnorm_silu`` at each distinct (H, C) of a TRAJ_UNET forward
   (128 rows, 8 groups, fp32), and the sum of one forward's 17 launches;
 - K1 ``error_step`` at the DiT's state (8, 196,608) and at planning's
-  (64, 736), fp32, per-sample tolerances.
+  (64, 736), fp32, per-sample tolerances;
+- K5 ``em_step`` at the DiT's state, Table 2's (256, 3072) and the
+  tables' (4096, 2) and (2048, 2), fp32 and bf16.
+
+Last it trains Table 1's VP ``TOY_MLP`` (600 steps) and gives the
+device idle share of one EM-1000 solve at N 4096: 1 − (device busy time
+of a profiled solve, torch.profiler) / (wall time of an unprofiled
+one).
 
 It calls only the wrappers' public functions, so it times any checkout
 of the port: run this file by path with ``PYTHONPATH`` at that
@@ -42,6 +49,10 @@ GN_ROWS = 128
 GN_GROUPS = 8
 #: K1's shapes: the DiT's state, planning's (horizon 32 × transition 23)
 STEP_SHAPES = ((8, 196_608), (64, 736))
+#: K5's shapes: the DiT's state, Table 2's, Table 1's and Tables 3/4–5's
+EM_SHAPES = ((8, 196_608), (256, 3072), (4096, 2), (2048, 2))
+#: the L2's bytes: sets of inputs larger than half of it rotate through 4
+L2_BYTES = 50e6
 
 
 def device_ms(fn, sets, reps: int = 40, replays: int = 5) -> float:
@@ -108,6 +119,55 @@ def solver_step_times(dev, gen) -> dict:
     return times
 
 
+def em_sets(dev, gen, b: int, d: int, dtype=torch.float32) -> list:
+    """Input sets (x, score, z, c0, c1, c2) of K5 at (b, d): 8 of them, or
+    4 where a set's 4·b·d elements pass half the L2, so the sets exceed
+    it."""
+    big = 4 * b * d * dtype.itemsize > L2_BYTES / 2
+    return [tuple([torch.randn(b, d, generator=gen, device=dev).to(dtype) for _ in range(3)]
+                  + [torch.rand(b, generator=gen, device=dev) for _ in range(3)])
+            for _ in range(4 if big else 8)]
+
+
+def em_step_times(dev, gen, dtype=torch.float32) -> dict:
+    """ms of the K5 wrapper at each of ``EM_SHAPES`` in ``dtype``, keyed
+    "BxD", on ``em_sets``."""
+    from repro_torch.kernels.solver_step import ops as step_ops
+
+    return {f"{b}x{d}": device_ms(step_ops.em_step, em_sets(dev, gen, b, d, dtype))
+            for b, d in EM_SHAPES}
+
+
+def table1_em_idle(dev, n_steps: int = 1000) -> dict:
+    """The device idle share of one Table-1 EM solve (VP, N 4096, the
+    600-step TOY_MLP, ``n_steps`` K5 launches): the wall of an unprofiled
+    solve, the device busy time of a profiled one, and K5's part of it."""
+    import time
+
+    from repro_torch.benchmarks.common import trained_mlp_score
+    from repro_torch.core.sampling import sample
+
+    sde, score_fn = trained_mlp_score("vp", steps=600, device=dev)
+    run = lambda: sample(sde, score_fn, (4096, 2), seed=42, method="em", n_steps=n_steps,
+                         device=dev)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy = em = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.device_time_total
+            em += e.device_time_total if "em_step_kernel" in e.name else 0.0
+    return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "em_step_ms": em / 1e3,
+            "idle_share": 1 - busy / 1e3 / (wall * 1e3)}
+
+
 def card() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -126,7 +186,10 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     result = {"package": repro_torch.__file__, "floor_ms": launch_floor_ms(dev),
               "groupnorm_silu_ms": groupnorm_times(dev, gen),
-              "solver_step_ms": solver_step_times(dev, gen)}
+              "solver_step_ms": solver_step_times(dev, gen),
+              "em_step_ms": {"fp32": em_step_times(dev, gen),
+                             "bf16": em_step_times(dev, gen, torch.bfloat16)},
+              "table1_em1000": table1_em_idle(dev)}
     print(card())
     print(json.dumps(result))
 

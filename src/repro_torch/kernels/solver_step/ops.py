@@ -5,7 +5,10 @@ reference).
 
 ``em_step`` (K5) takes any (B, ...) state and three (B,) fp32
 coefficients, flattens the state to (B, D) and returns
-x' = c0·x + c1·score + c2·z with x's shape and dtype.
+x' = c0·x + c1·score + c2·z with x's shape and dtype. Its kernel makes
+one flat pass over the B·D elements on a 1-D grid, fixed before the
+launch by ``em_kernel_config``: 16-byte packs where every state base is
+aligned, single elements where one is not, any B.
 
 ``error_step`` takes any (B, ...) state, flattens it to (B, D) and
 returns (x'' with x's shape, e2 (B,) fp32). The tolerances may be floats
@@ -31,13 +34,15 @@ refuse inputs that require grad under grad mode (``kernels.autograd``:
 neither kernel has a backward). ``em_launches``
 counts K5's launches, ``launches`` those of K1/K2, ``sharded_launches``
 those of K4 (the same kernel, launched by ``sharded_error_step``); each
-call of K1/K2/K4 is one kernel launch. ``kernel_config`` fixes its
-tiling (from D alone) and its load width (from the alignment).
+call of K1/K2/K4 and of K5 is one kernel launch. ``kernel_config``
+fixes K1's tiling (from D alone) and its load width (from the
+alignment), ``em_kernel_config`` K5's grid and load width.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -82,6 +87,60 @@ def kernel_config(B: int, D: int, ld: int, dtype, aligned: bool) -> dict:
     return dict(tiles=tiles, grid=(tiles, B), threads=STEP_THREADS,
                 design="one block a row" if tiles == 1 else "last block of a row",
                 load_bytes=STEP_VEC * size if vec else size)
+
+
+#: K5's block (``em_step.cu`` takes up to 128), the threads an SM holds
+#: at full occupancy, and the SMs of an H100 SXM (the config's default;
+#: the wrapper passes the card's own count)
+EM_THREADS, THREADS_PER_SM, H100_SMS = 128, 2048, 132
+#: K5's pack: the bytes of one vector load or store
+EM_PACK_BYTES = 16
+#: K5 streams its state (evict-first loads and stores) where a call moves
+#: more than a quarter of the H100's 50 MB L2: below that, the caller's
+#: next kernels find x' (and the next step its inputs) in the L2
+EM_STREAM_BYTES = 50e6 / 4
+
+
+def fast_divider(d: int) -> tuple:
+    """(magic, shift) with n // d == (umulhi(n, magic) + n) >> shift for
+    every 0 <= n < 2^31, umulhi the high 32 bits of the 64-bit product of
+    two 32-bit unsigned values: K5's row of a flat index."""
+    if not 0 < d < 2**31:
+        raise ValueError(f"divisor {d} outside 1..2^31-1")
+    shift = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << shift) - d)) // d + 1, shift
+
+
+def em_kernel_config(B: int, D: int, dtype, aligned: bool, sms: int = H100_SMS) -> dict:
+    """The K5 launch for a contiguous (B, D) state of ``dtype`` on a card
+    of ``sms`` SMs; ``aligned`` says that x, score, z and the output all
+    start on 16 bytes.
+
+    The kernel walks the n = B·D elements flat, a thread one pack of
+    ``elems_per_thread`` elements (16 bytes) a pass: one 16-byte
+    load an operand where ``aligned`` (``load_bytes`` 16), else one
+    element a load (``load_bytes`` the element size), with the same bits.
+    ``grid`` is the blocks of ``threads`` that cover the packs, at most
+    one wave (``sms`` · ``THREADS_PER_SM`` / ``threads``), and ``passes``
+    the grid-stride passes. (``magic``, ``shift``) divide a flat index by
+    D (``fast_divider``) while n < 2^31; magic 0 asks for a 64-bit
+    division. ``evict_first``: streaming state loads and stores, where
+    the call moves more than ``EM_STREAM_BYTES``."""
+    size = dtype.itemsize
+    pack = EM_PACK_BYTES // size
+    n = B * D
+    blocks = -(-n // (pack * EM_THREADS))
+    grid = min(blocks, sms * (THREADS_PER_SM // EM_THREADS))
+    magic, shift = fast_divider(D) if n < 2**31 else (0, 0)
+    return dict(grid=grid, threads=EM_THREADS, elems_per_thread=pack,
+                load_bytes=EM_PACK_BYTES if aligned else size,
+                passes=-(-blocks // grid), magic=magic, shift=shift,
+                evict_first=4 * n * size > EM_STREAM_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def runs_aligned(tensors) -> bool:
@@ -210,7 +269,8 @@ def _declare(lib):
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.solver_step_error_sums.restype = ctypes.c_int
         lib.solver_step_em.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2
-                                       + [ctypes.c_int, ctypes.c_void_p])
+                                       + [ctypes.c_uint] + [ctypes.c_int] * 6
+                                       + [ctypes.c_void_p])
         lib.solver_step_em.restype = ctypes.c_int
     return lib
 
@@ -221,18 +281,19 @@ def _launch_em(x, s, z, c0, c1, c2):
     refuse_autograd("em_step", *states, c0, c1, c2)
     if not all(a.is_contiguous() for a in states + (c0, c1, c2)):
         raise ValueError("em_step kernel operands must be contiguous")
-    if any(a.data_ptr() % 16 for a in states):
-        raise ValueError("em_step kernel state operands must be 16-byte aligned")
-    B = x.shape[0]
-    if not 0 < B <= 65535:
-        raise ValueError(f"batch {B} outside the kernel's grid limits 1..65535")
+    B, n = x.shape[0], x.numel()
+    if n == 0:
+        raise ValueError("em_step kernel needs a non-empty state")
     lib = _declare(_build.library())
     out = torch.empty_like(x)
+    aligned = all(a.data_ptr() % EM_PACK_BYTES == 0 for a in states + (out,))
+    cfg = em_kernel_config(B, n // B, x.dtype, aligned, _sm_count(x.device.index))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.solver_step_em(*(a.data_ptr() for a in (x, s, z, c0, c1, c2)),
-                                out.data_ptr(), B, x.numel() // B,
-                                _DTYPES[x.dtype], stream)
+                                out.data_ptr(), n, n // B, cfg["magic"], cfg["shift"],
+                                cfg["grid"], cfg["threads"], int(aligned),
+                                int(cfg["evict_first"]), _DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"em_step kernel launch failed: CUDA error {rc}")
     em_launches += 1

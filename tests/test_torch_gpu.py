@@ -510,7 +510,8 @@ def test_small_plan_on_card_runs_all_three_kernels(cuda):
     assert bool((res.nfe == 2 * (res.accepted + res.rejected) + 1).all())
 
 
-EM_SHAPES = [(8, 196_608), (256, 3072), (64, 736), (8, 1000), (3, 999)]
+EM_SHAPES = [(8, 196_608), (256, 3072), (64, 736), (8, 1000), (3, 999), (4096, 2),
+             (2048, 2), (5, 3), (70_000, 2)]
 
 
 def _ulp(dtype, mag):
@@ -535,6 +536,10 @@ def test_em_step_kernel_matches_plain(cuda, shape, dtype):
 
 
 def test_em_step_kernel_takes_image_states_and_refuses_misaligned_views(cuda):
+    """Image states flatten to (B, D); a contiguous view off 16 bytes takes
+    single-element loads and gives the aligned call's bits (the kernel
+    refused it before its flat redesign); a non-contiguous one is still
+    refused, launching nothing."""
     g = torch.Generator(device=cuda).manual_seed(1)
     x, s, z = (torch.randn(4, 16, 16, 3, generator=g, device=cuda) for _ in range(3))
     cs = [torch.rand(4, generator=g, device=cuda) for _ in range(3)]
@@ -542,15 +547,53 @@ def test_em_step_kernel_takes_image_states_and_refuses_misaligned_views(cuda):
     assert out.shape == x.shape
     assert torch.equal(out, step_ref.em_step(x.reshape(4, -1), s.reshape(4, -1),
                                              z.reshape(4, -1), *cs).reshape(x.shape))
-    buf = torch.randn(4 * 1000 + 1, device=cuda)
+    buf = torch.randn(4 * 1000 + 1, generator=g, device=cuda)
     view = buf[1:].view(4, 1000)
+    aligned = view.clone()
+    assert view.data_ptr() % 16 and not aligned.data_ptr() % 16
     before = step_ops.em_launches
-    with pytest.raises(ValueError, match="aligned"):
-        step_ops.em_step(view, view, view, *cs)
+    got = step_ops.em_step(view, view, view, *cs)
+    assert step_ops.em_launches == before + 1
+    assert torch.equal(got, step_ops.em_step(aligned, aligned, aligned, *cs))
+    before = step_ops.em_launches
     with pytest.raises(ValueError, match="contiguous"):
         wide = torch.randn(4, 2000, device=cuda)[:, :1000]
         step_ops.em_step(wide, wide, wide, *cs)
     assert step_ops.em_launches == before
+
+
+@pytest.mark.parametrize("shape", [(4096, 2), (8, 196_608)], ids=str)
+def test_em_step_is_one_cuda_kernel_a_call(cuda, shape):
+    """A K5 call runs exactly one CUDA kernel, at Table 1's state and at
+    the DiT's: 8 calls, 8 kernels."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x, s, z = (torch.randn(*shape, generator=g, device=cuda) for _ in range(3))
+    cs = [torch.rand(shape[0], generator=g, device=cuda) for _ in range(3)]
+    step_ops.em_step(x, s, z, *cs)
+    names = _kernel_names(lambda: step_ops.em_step(x, s, z, *cs))
+    assert len(names) == 8 and all("em_step_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("shape", [(4096, 2), (8, 196_608)], ids=str)
+def test_em_step_in_a_cuda_graph_matches_eager(cuda, shape):
+    """Captured in a CUDA graph and replayed three times, K5 gives the
+    eager call's bits on every replay."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x, s, z = (torch.randn(*shape, generator=g, device=cuda) for _ in range(3))
+    cs = [torch.rand(shape[0], generator=g, device=cuda) for _ in range(3)]
+    want = step_ops.em_step(x, s, z, *cs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step_ops.em_step(x, s, z, *cs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [step_ops.em_step(x, s, z, *cs) for _ in range(3)]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o in outs)
 
 
 class _SeededNoise:
