@@ -40,10 +40,17 @@ Phases; any failure exits non-zero before the result line is printed:
              K2 (the
              solver step with ε per row) at the DiT state with the three
              tiers' ε_rel in one call, within K1's bounds, the same bits
-             twice, each row bitwise its uniform-ε call's; and the
-             autograd guard: under grad mode K1, K5, K4's partial mode, K3,
-             K6 and K7 each refuse an input that requires grad, launching
-             nothing.
+             twice, each row bitwise its uniform-ε call's; P1
+             (``philox_normal``, the per-slot noise draw) at the DiT
+             state, planning's, Table 1's and a ragged row: the words
+             exactly, z within 2e-6·(1 + |z|) of ``ref.py``, an idle row
+             0, permuted rows bitwise; P2 (``horizon_cond``) on
+             hand-built masks, exactly; K1 at (70,000, 2) and K3 at
+             (17,500, 4, 8, 32), past one launch's 65,535 rows of
+             gridDim.y (two launches each), against their plain
+             versions; and the autograd guard: under grad mode K1, K5,
+             K4's partial mode, K3, K6 and K7 each refuse an input that
+             requires grad, launching nothing.
 3. main    — the first main path, ``repro_torch.launch.sample.run``:
              the 256×256 DiT (HIGHRES_DIT, weights from a seed, zero-init
              leaves livened), VP SDE, batch 8, eps_rel 0.05, fused solver
@@ -108,10 +115,11 @@ Phases; any failure exits non-zero before the result line is printed:
              VP, fp32, fused step and flash attention, 8 slots, sync
              horizon 4, 16 requests cycling the draft / standard /
              high_fidelity tiers under EDF admission, the telemetry ring
-             (4096) and the tracer on. K1/K2 and K3 counts set to 0 just
-             before and read just after: exactly one solver-step launch
-             (its per-row-ε form, K2) and 24 flash launches a body
-             iteration. Gates: every request finite at (256, 256, 3); nfe
+             (4096) and the tracer on. K1/K2, K3 and P1 counts set to 0
+             just before and read just after: exactly one solver-step
+             launch (its per-row-ε form, K2), 24 flash launches and one P1
+             (the per-slot noise) a body iteration, and one P1 an
+             admission (the admitted priors). Gates: every request finite at (256, 256, 3); nfe
              = 2·(accepted + rejected); the ring reconciles with the
              per-request counts; mean NFE draft < standard < high_fidelity;
              requests 0 and 2 each bitwise their solo run in an idle
@@ -121,6 +129,29 @@ Phases; any failure exits non-zero before the result line is printed:
              passenger NFE with and without compaction, host transfers and
              solver syncs, the device idle share (torch.profiler), K2's
              time at (8, 196,608) with the tiers' ε per row.
+6c. device — the device-resident serve loop on the same setup: a
+             CUDA-graph WHILE node a driver window around the horizon
+             captured once per server (P1, P2, K2, K3). Bitwise the
+             host-driven serve, with compaction on and off; fewer host
+             reads; ≥ 5× fewer device→host reads a request on the
+             reference's bench workload at sync horizon 2; no
+             synchronising call inside a window; one capture per server;
+             the ring reconciles; a run with arrivals over time (4, then 2
+             after every second step) bitwise the drain in both modes.
+             K2, K3, P1 and P2 counts set to 0 just before the first
+             device-resident drain and read just after: the captured
+             horizon holds K2 once, K3 24 times and P1 once a body
+             iteration, and each count is exactly that times the
+             horizons the device ran (the driver charges them when the
+             host reads the window's flag) plus the eager calls (the
+             capture's warm-up iteration, P1 once an admission); P2 once
+             a horizon and once a window. Printed: walls, reads, windows,
+             the share of the wall outside the solver windows in both
+             modes (CUDA events around each window or chunk), the
+             host-driven idle share (torch.profiler, whose CUPTI tracing
+             of WHILE-node graphs loses records and can fault, so it has
+             no device-resident counterpart), and P1's and P2's device
+             times.
 6b. train and tables — the training slice, its memory freed before
              phase 7: DIT_100M (32×32, patch 2, d_model 768, 12 layers)
              trained DIT_STEPS steps at batch DIT_BATCH in fp32 with TF32
@@ -266,6 +297,24 @@ NFE_BAND = 0.15
 SERVE_SLOTS, SERVE_HORIZON, SERVE_REQUESTS = 8, 4, 16
 SERVE_TELEMETRY, SERVE_DEADLINE_MS, SERVE_SOLO = 4096, 4000.0, (0, 2)
 SERVE_TIERS = ("draft", "standard", "high_fidelity")
+#: P1 against its plain version, times (1 + |z|): both round each add and
+#: product once; logf, sqrtf, sinf and cosf differ from torch's by an ulp or two
+P1_TOL = 2e-6
+#: P1's shapes in phase 2: the DiT state, planning's, Table 1's, a ragged row
+P1_SHAPES = ((8, 196_608), (64, 736), (4096, 2), (5, 7))
+#: operations per element of P1: a quarter of a Philox4x32-10 call (ten
+#: rounds of two 32-bit multiplies, their high halves, three xors and two
+#: key adds) and half of a Box–Muller pair (log, sqrt, sin, cos, four products)
+P1_OPS_PER_ELEMENT = 32
+#: P2's hand-built (occupied, done) masks in phase 2
+P2_MASKS = (([1, 1, 0, 1], [0, 0, 1, 0]), ([1, 1, 0, 1], [1, 0, 1, 0]),
+            ([1, 1, 0, 1], [1, 1, 1, 1]), ([0, 0, 0, 0], [1, 1, 1, 1]),
+            ([1, 0, 0, 0, 0, 0, 0, 0], [0, 1, 1, 1, 1, 1, 1, 1]))
+#: K1 and K3 past one launch's 65,535 rows (gridDim.y): B 70,000 of
+#: Table 1's width; B·Hq 70,000
+K1_BIG, K3_BIG = (70_000, 2), (17_500, 4, 8, 32)
+#: the reference's bench workload (benchmarks/bench_device_serving.py)
+REQUESTS_PER_SLOT = 3
 #: K3 against its plain version, times (1 + max|out|): fp32 3e-5 (online
 #: against two-pass softmax, sums in another order), bf16 2e-2 (P and the
 #: output rounded to bf16)
@@ -549,7 +598,8 @@ def run_serve(dev, card: str) -> dict:
     admission, telemetry ring SERVE_TELEMETRY and the tracer on. Gates:
     every request delivered finite at (256, 256, 3); nfe == 2·(accepted +
     rejected); the ring reconciles exactly with the per-request counts; K1/K2
-    exactly one launch a body iteration and K3 24 (the port runs whole groups
+    exactly one launch a body iteration, K3 24, and P1 (the per-slot noise)
+    one a body iteration and one an admission (the port runs whole groups
     of SERVE_HORIZON iterations a chunk, so body iterations = SERVE_HORIZON ·
     chunks); mean NFE rising draft < standard < high_fidelity; two requests
     bitwise their solo runs in an otherwise idle server; the same requests with
@@ -559,6 +609,7 @@ def run_serve(dev, card: str) -> dict:
     from repro_torch.core.sde import VPSDE
     from repro_torch.core.solvers.adaptive import AdaptiveConfig
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.philox import ops as ph
     from repro_torch.kernels.solver_step import ops as step_ops
     from repro_torch.kernels.solver_step import ref as step_ref
     from repro_torch.launch.sample import make_sample_step
@@ -596,8 +647,10 @@ def run_serve(dev, card: str) -> dict:
     tracer = StageTracer()
     step_ops.launches = 0
     flash_ops.launches = 0
+    ph.launches = 0
     b, done, wall = serve(uids, telemetry=SERVE_TELEMETRY, tracer=tracer)
     launches = {"solver_step": step_ops.launches, "flash_attention": flash_ops.launches}
+    p1_launches = ph.launches
     body_iters = SERVE_HORIZON * b.horizon_windows
     stats = b.class_stats
     means = [stats[t]["mean_nfe"] for t in SERVE_TIERS]
@@ -613,10 +666,14 @@ def run_serve(dev, card: str) -> dict:
     print("  host clock by stage (tracer): " + ", ".join(
         f"{k} {v['count']} spans {v['total_s'] * 1e3:.1f} ms (max {v['max_s'] * 1e3:.1f})"
         for k, v in sorted(stages.items())))
+    admissions = stages["serve/admission"]["count"]
     print(f"  launches: {launches} (want solver_step = {body_iters}, flash_attention = "
           f"{2 * net.num_layers * body_iters}); serve-loop host transfers "
-          f"{b.host_transfers}, solver syncs {b.solver_syncs}; per-slot noise: "
-          f"{SERVE_SLOTS} normal_ launches a body iteration")
+          f"{b.host_transfers}, solver syncs {b.solver_syncs}; per-slot noise (P1, "
+          f"SlotStreams): {p1_launches} launches (want one a body iteration and one an "
+          f"admission: {body_iters + admissions})")
+    if p1_launches != body_iters + admissions:
+        fail(f"serve: {p1_launches} P1 launches, not one a body iteration and one an admission")
     bad = [u for u in uids if u not in done or not np.isfinite(done[u].result).all()
            or done[u].result.shape != shape]
     if bad:
@@ -709,6 +766,508 @@ def run_serve(dev, card: str) -> dict:
                 wasted_nfe_fraction_no_compaction=b_off.wasted_nfe_fraction,
                 iterations=b.total_iterations, body_iterations=body_iters,
                 phase_s=phase_s)
+
+
+class TickClock:
+    """1 s a read: the serve loop's clock in runs compared with each
+    other, so the per-class books (waits, deadlines) are equal exactly."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 1.0
+        return self.t
+
+
+def check_streams_and_grids(dev, gen) -> dict:
+    """Phase 2's checks of the device-resident slice. P1 (``philox``)
+    against its plain version (``ref.py``, run on the card) at the DiT
+    state, planning's and Table 1's, and a ragged row: the uint32 words
+    exactly, z within P1_TOL·(1 + |z|) (both sides round each add and
+    product once; the logarithm, square root, sine and cosine are library
+    versions that differ by an ulp or two), an idle row (seed < 0) zero,
+    and the rows permuted (the output permuted bit for bit). P2
+    (``horizon_cond``) on hand-built masks against its plain version,
+    exactly. K1 at (70,000, 2) and K3 at B·Hq = 70,000 (17,500, 4, 8, 32),
+    past one launch's 65,535 rows of ``gridDim.y``: two launches each,
+    against their plain versions at phase 2's bounds, and the first
+    range's rows bitwise a call on those rows alone."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.graph_loop import ops as loop_ops
+    from repro_torch.kernels.graph_loop import ref as loop_ref
+    from repro_torch.kernels.philox import ops as ph
+    from repro_torch.kernels.philox import ref as ph_ref
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.kernels.solver_step import ref as step_ref
+
+    p1_err = {}
+    for b, d in P1_SHAPES:
+        seed = torch.randint(0, 2**62, (b,), generator=gen, device=dev)
+        seed[0] = -1
+        ctr = torch.randint(0, 2**40, (b,), generator=gen, device=dev)
+        words_ok = torch.equal(ph.words(seed, ctr, d), ph_ref.philox_words(seed, ctr, d))
+        z, want = ph.normal(seed, ctr, d), ph_ref.philox_normal(seed, ctr, d)
+        perm = torch.randperm(b, generator=gen, device=dev)
+        perm_ok = torch.equal(ph.normal(seed[perm], ctr[perm], d), z[perm])
+        torch.cuda.synchronize()
+        err = ((z - want).abs() / (1 + want.abs())).max().item()
+        idle_ok = not z[0].any().item()
+        ok = words_ok and perm_ok and idle_ok and err <= P1_TOL and torch.isfinite(z).all()
+        print(f"  philox_normal ({b}, {d}): words exact {words_ok}, max |z - plain|/(1+|z|) "
+              f"{err:.3e} (bound {P1_TOL:.0e}), permuted rows bitwise {perm_ok}, idle row 0 "
+              f"{idle_ok} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("philox_normal disagrees with its plain version")
+        p1_err[(b, d)] = (z - want).abs().max().item()
+    p2_err = 0
+    state, plain = (torch.zeros(2, dtype=torch.int32, device=dev) for _ in range(2))
+    for occ, done in P2_MASKS:
+        o = torch.tensor(occ, dtype=torch.bool, device=dev)
+        dn = torch.tensor(done, dtype=torch.bool, device=dev)
+        for wait_all in (False, True):
+            for first in (True, False, False):
+                loop_ops.horizon_cond(o, dn, state, wait_all=wait_all, max_horizons=2,
+                                      first=first)
+                loop_ref.horizon_cond(o, dn, plain, wait_all=wait_all, max_horizons=2,
+                                      first=first)
+                p2_err = max(p2_err, (state - plain).abs().max().item())
+    print(f"  horizon_cond on {len(P2_MASKS)} hand-built masks, both event forms: max |state - "
+          f"plain| {p2_err} {'ok' if p2_err == 0 else 'FAIL'}")
+    if p2_err:
+        fail("horizon_cond disagrees with its plain version")
+
+    b, d = K1_BIG
+    states = [torch.randn(b, d, generator=gen, device=dev) for _ in range(5)]
+    coeffs = [torch.rand(b, generator=gen, device=dev) for _ in range(3)]
+    step_ops.launches = 0
+    xh, e2 = step_ops.error_step(*states, *coeffs, eps_abs=0.0078, eps_rel=0.05)
+    k1_launches = step_ops.launches
+    xr, e2r = step_ref.error_step(*states, *coeffs,
+                                  step_ops.per_sample_tolerance(0.0078, b, dev),
+                                  step_ops.per_sample_tolerance(0.05, b, dev))
+    first = step_ops.MAX_GRID_ROWS
+    xa, ea = step_ops.error_step(*(a[:first] for a in states + coeffs), eps_abs=0.0078,
+                                 eps_rel=0.05)
+    torch.cuda.synchronize()
+    k1_err = (xh - xr).abs().max().item()
+    k1_rel = ((e2 - e2r).abs() / e2r.abs()).max().item()
+    k1_same = torch.equal(xa, xh[:first]) and torch.equal(ea, e2[:first])
+    ok = (k1_err <= 1e-5 * (1 + xr.abs().max().item()) and k1_rel <= 1e-5
+          and k1_launches == 2 and k1_same)
+    print(f"  solver_step {K1_BIG}: {k1_launches} launches, max|x''-plain| {k1_err:.3e}, max "
+          f"rel e2 {k1_rel:.3e}, first {first} rows bitwise a call on them alone {k1_same} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("solver_step past 65,535 rows disagrees with its plain version")
+    q, k, v = (torch.randn(*K3_BIG, generator=gen, device=dev) for _ in range(3))
+    flash_ops.launches = 0
+    out = flash_ops.attention(q, k, v, causal=False)
+    k3_launches = flash_ops.launches
+    want = flash_ref.attention(q, k, v, causal=False)
+    nb = flash_ops.batch_ranges(K3_BIG[0], K3_BIG[1])[0][1]
+    part = flash_ops.attention(q[:nb], k[:nb], v[:nb], causal=False)
+    torch.cuda.synchronize()
+    k3_err = (out - want).abs().max().item()
+    k3_bound = ATTN_TOL[torch.float32] * (1 + want.abs().max().item())
+    k3_same = torch.equal(part, out[:nb])
+    ok = k3_err <= k3_bound and k3_launches == 2 and k3_same
+    print(f"  flash_attention {K3_BIG} (B·Hq {K3_BIG[0] * K3_BIG[1]}): {k3_launches} launches, "
+          f"max abs err {k3_err:.3e} (bound {k3_bound:.1e}), first {nb} batches bitwise a call "
+          f"on them alone {k3_same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("flash attention past 65,535 (b, h) pairs disagrees with its plain version")
+    return dict(p1_err=p1_err, p2_err=p2_err,
+                k1_big={"shape": K1_BIG, "launches": k1_launches, "max_abs_err": k1_err},
+                k3_big={"shape": K3_BIG, "launches": k3_launches, "max_abs_err": k3_err})
+
+
+def run_device_serve(dev, card: str, floor_ms: float) -> dict:
+    """Phase 6c, the device-resident serve loop on HIGHRES_DIT: phase 6a's
+    setup (seeded, livened, VP, fp32, SERVE_SLOTS slots, sync horizon
+    SERVE_HORIZON, SERVE_REQUESTS mixed-tier requests under EDF, telemetry
+    ring and tracer on), each server on a tick clock (TickClock) so that
+    runs compare exactly. Gates: the device-resident drain is bitwise the
+    host-driven one (samples, nfe, accepted, rejected, delivery order,
+    total_iterations, class_stats, wasted and passenger NFE), also with
+    compaction off; it reads the host less (host transfers plus solver
+    syncs); on the reference's bench workload (``benchmarks.
+    device_serving``, D 2) ≥ 5× fewer device→host reads a request at sync
+    horizon 2; under ``torch.cuda.set_sync_debug_mode("warn")`` no
+    synchronising call inside any driver window (a read of the flag, the
+    control, warns); one horizon capture per server; the ring reconciles
+    with the per-request counts; the captured horizon holds K2 once, K3
+    2·num_layers times and P1 once a body iteration, and the drain's
+    launches are exactly those times the horizons the device ran, plus the
+    capture's eager warm-up iteration and P1 once an admission. A second
+    run admits 4 requests, then 2 after every second ``step()``, 16 in
+    all, in both modes: every sample bitwise the drain's. Prints wall,
+    requests/s, host transfers, windows, events, admission-only visits
+    and masked body iterations of both modes and runs, and P1's and P2's
+    device times. Two device shares, which are different metrics: in both
+    modes the share of the wall outside the solver windows (CUDA events
+    around each driver window's graph launch, or each host-driven chunk:
+    the serve loop's own time; a chunk's host gaps count as inside), and
+    for the host-driven runs only the idle share (torch.profiler's kernel
+    time over the wall; the profiler cannot trace the WHILE-node graph).
+    Returns the numbers for the kernels line."""
+    import warnings
+
+    from repro_torch.benchmarks import device_serving
+    from repro_torch.configs.diffusion import HIGHRES_DIT
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.core.solvers.adaptive import AdaptiveConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.graph_loop import ops as loop_ops
+    from repro_torch.kernels.graph_loop import ref as loop_ref
+    from repro_torch.kernels.philox import ops as ph
+    from repro_torch.kernels.philox import ref as ph_ref
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.launch.sample import make_sample_step
+    from repro_torch.models.dit import init_dit, liven_zero_init
+    from repro_torch.observability.telemetry import telemetry_history
+    from repro_torch.observability.tracing import StageTracer
+    from repro_torch.serving.diffusion_server import DiffusionBatcher, ImageRequest
+    from repro_torch.serving.scheduler import EdfPriorityAdmission
+
+    t_phase = time.perf_counter()
+    rt, drv = loop_ops.cuda_versions()
+    print(f"  CUDA runtime of the kernel library {rt}, driver {drv} (conditional WHILE nodes "
+          f"need {loop_ops.MIN_CUDA} in both)")
+    net = dataclasses.replace(HIGHRES_DIT, use_flash=True)
+    model = init_dit(net, torch.Generator(device=dev).manual_seed(0))
+    liven_zero_init(model, torch.Generator(device=dev).manual_seed(0))
+    sde = VPSDE()
+    cfg = AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True)
+    step = make_sample_step(sde, cfg)
+    shape = (net.image_size, net.image_size, net.channels)
+    uids = list(range(SERVE_REQUESTS))
+    H = SERVE_HORIZON
+
+    def server(device_resident, compaction=True, telemetry=SERVE_TELEMETRY, tracer=None):
+        return DiffusionBatcher(sde, step, model, shape, slots=SERVE_SLOTS, cfg=cfg,
+                                sync_horizon=H, compaction=compaction,
+                                device_resident=device_resident, tolerance_classes=True,
+                                admission=EdfPriorityAdmission(aging_s=5.0), clock=TickClock(),
+                                telemetry=telemetry, tracer=tracer, device=dev)
+
+    def request(u):
+        return ImageRequest(uid=u, seed=u, tier=SERVE_TIERS[u % 3],
+                            deadline_ms=SERVE_DEADLINE_MS)
+
+    def timed_windows(b):
+        """CUDA events around each of ``b``'s solver windows: a
+        device-resident driver window's graph launch (the driver, its
+        capture and WHILE graph, is built here, before the run), or a
+        host-driven chunk (``step_fn``, whose host gaps fall inside).
+        torch.profiler cannot take the device-resident busy time: its
+        CUPTI tracing of a WHILE-node graph lost kernel records (864 of
+        1,920 K3 launches seen) and faulted with an illegal address after
+        ~90 horizons on this card (§7 of PERF.md)."""
+        times = []
+
+        def timing(fn):
+            def timed(*args):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = fn(*args)
+                end.record()
+                times.append((start, end))
+                return out
+            return timed
+
+        if b.device_resident:
+            drv = b._device_driver()
+            drv.window = timing(drv.window)
+        else:
+            b.step_fn = timing(b.step_fn)
+        return times
+
+    def span_ms(times):
+        torch.cuda.synchronize()
+        return sum(st.elapsed_time(en) for st, en in times)
+
+    def drain(b):
+        for u in uids:
+            b.submit(request(u))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = b.run_to_completion()
+        torch.cuda.synchronize()
+        return done, time.perf_counter() - t0
+
+    def arrivals(b):
+        """4 requests, then 2 more after every second step()."""
+        pending = [request(u) for u in uids]
+        for r in pending[:4]:
+            b.submit(r)
+        pending = pending[4:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = 0
+        while pending or b.queue or any(r is not None for r in b._slot_req):
+            b.step()
+            steps += 1
+            if steps % 2 == 0 and pending:
+                for r in pending[:2]:
+                    b.submit(r)
+                pending = pending[2:]
+            if steps > 10_000:
+                fail("serve with arrivals: no progress")
+        done = b.run_to_completion()
+        torch.cuda.synchronize()
+        return done, time.perf_counter() - t0
+
+    def same(d1, d2):
+        return list(d1) == list(d2) and all(
+            np.array_equal(d1[u].result, d2[u].result) and
+            (d1[u].nfe, d1[u].accepted, d1[u].rejected) ==
+            (d2[u].nfe, d2[u].accepted, d2[u].rejected) for u in d1)
+
+    def books(b):
+        return (b.total_iterations, b.class_stats, b.wasted_nfe_fraction,
+                b.passenger_nfe_fraction)
+
+    def describe(tag, b, wall, span=None):
+        body = (b.device_horizons if b.device_resident else b.horizon_windows) * H
+        if b.device_resident:
+            mode = (f"{b.horizon_windows} driver windows, {b.event_visits} events, "
+                    f"{b.admission_visits} admission-only visits, {b.device_horizons} horizons, "
+                    f"{b.graph_captures} capture ({b._driver.build_s:.3f} s, "
+                    f"{'before the timed run' if span is not None else 'in the wall'})")
+        else:
+            mode = f"{b.horizon_windows} chunks"
+        if span is not None:
+            mode += (f"; the solver windows {span:.1f} ms on the device (CUDA events), share "
+                     f"of the wall outside them {1 - span / 1e3 / wall:.4f}")
+        print(f"  [{card}] {tag}: {len(b.finished)} requests in {wall:.3f} s "
+              f"({len(b.finished) / wall:.2f} requests/s), host transfers {b.host_transfers} + "
+              f"solver syncs {b.solver_syncs} = {b.host_transfers + b.solver_syncs} reads; "
+              f"{mode}; {b.total_iterations} iterations with a sample active of {body} body "
+              f"iterations ({body - b.total_iterations} masked)")
+        return dict(wall_s=wall, requests_per_s=len(b.finished) / wall,
+                    host_transfers=b.host_transfers, solver_syncs=b.solver_syncs,
+                    windows=b.horizon_windows, iterations=b.total_iterations,
+                    body_iterations=body, masked_iterations=body - b.total_iterations,
+                    events=b.event_visits, admission_visits=b.admission_visits,
+                    build_s=b._driver.build_s if b.device_resident else 0.0,
+                    **({} if span is None else dict(
+                        window_ms=span, outside_windows_share=1 - span / 1e3 / wall)))
+
+    # the drain in both modes, in turns (host, device, device, host); the
+    # counts at 0 just before the first device-resident run, read after it
+    b_host = server(False, tracer=StageTracer())
+    t_host = timed_windows(b_host)
+    done_host, wall_host = drain(b_host)
+    step_ops.launches = flash_ops.launches = ph.launches = 0
+    loop_ops.launches = loop_ops.windows = 0
+    b_dev = server(True, tracer=StageTracer())
+    t_dev = timed_windows(b_dev)
+    done_dev, wall_dev = drain(b_dev)
+    launches = {"solver_step": step_ops.launches, "flash_attention": flash_ops.launches,
+                "philox_normal": ph.launches, "horizon_cond": loop_ops.launches,
+                "windows": loop_ops.windows}
+    b_dev2 = server(True)
+    t_dev2 = timed_windows(b_dev2)
+    done_dev2, wall_dev2 = drain(b_dev2)
+    b_host2 = server(False)
+    t_host2 = timed_windows(b_host2)
+    done_host2, wall_host2 = drain(b_host2)
+    rec = {"host": describe("host-driven drain", b_host, wall_host, span_ms(t_host)),
+           "device": describe("device-resident drain", b_dev, wall_dev, span_ms(t_dev)),
+           "device_2": describe("device-resident drain, again", b_dev2, wall_dev2,
+                                span_ms(t_dev2)),
+           "host_2": describe("host-driven drain, again", b_host2, wall_host2,
+                              span_ms(t_host2))}
+    rec["device"]["captures"] = b_dev.graph_captures
+    bitwise = (same(done_host, done_dev) and books(b_host) == books(b_dev)
+               and same(done_host, done_dev2) and same(done_host, done_host2)
+               and books(b_dev2) == books(b_host2) == books(b_host))
+    print(f"  device-resident drains bitwise the host-driven ones (samples, nfe, accepted, "
+          f"rejected, order, iterations, class_stats, wasted/passenger NFE): {bitwise}")
+    if not bitwise:
+        fail("device-resident serve differs from the host-driven serve")
+    if b_dev2.graph_captures != 1:
+        fail(f"device-resident server captured {b_dev2.graph_captures} horizons, not 1")
+    if b_dev.graph_captures != 1:
+        fail(f"device-resident server captured {b_dev.graph_captures} horizons, not 1")
+    reads = lambda b: b.host_transfers + b.solver_syncs
+    if not reads(b_dev) < reads(b_host):
+        fail("device-resident serve reads the host no less than the host-driven serve")
+    # the device-resident drain's launches: what the captured horizon
+    # holds, times the horizons the device ran, plus the eager calls
+    names = {step_ops: "solver_step", flash_ops: "flash_attention", ph: "philox_normal"}
+    recorded = {names[m]: n for m, n in b_dev._driver.graph.recorded.items()}
+    per_iter = {k: v / H for k, v in recorded.items()}
+    eager = {k: launches[k] - recorded[k] * b_dev.device_horizons for k in recorded}
+    admits = b_dev.tracer.stage_histograms()["serve/admission"]["count"]
+    want_iter = {"solver_step": 1, "flash_attention": 2 * net.num_layers, "philox_normal": 1}
+    want_eager = dict(want_iter, philox_normal=1 + admits)
+    launches["per_body_iteration_in_graph"] = per_iter
+    launches["eager"] = eager
+    print(f"  device-resident drain launches {launches}: the captured horizon holds "
+          f"{recorded} ({per_iter} a body iteration; want {want_iter}), replayed "
+          f"{b_dev.device_horizons} times; eager {eager} (want the capture's warm-up "
+          f"iteration {want_iter} and P1 once an admission, {admits}: {want_eager}); P2 "
+          f"one a horizon and one a window")
+    if per_iter != want_iter or eager != want_eager:
+        fail(f"device-resident drain launched {launches}, not {want_iter} a body iteration "
+             f"in the graph and {want_eager} eagerly")
+    if launches["windows"] != b_dev.horizon_windows or \
+            launches["horizon_cond"] != b_dev.device_horizons + b_dev.horizon_windows:
+        fail(f"P2 launches {launches} do not match the driver's windows and horizons")
+    hist = telemetry_history(b_dev._carry.telemetry)
+    active = hist["t"] > np.float32(sde.t_eps + 1e-12)
+    ring = (int(hist["accept"].sum()), int((active & ~hist["accept"]).sum()))
+    req_books = (sum(done_dev[u].accepted for u in uids), sum(done_dev[u].rejected for u in uids))
+    print(f"  telemetry ring (device-resident): {hist['records']} records of "
+          f"{hist['iterations']} iterations, accepted/rejected {ring} against the requests' "
+          f"{req_books}")
+    if ring != req_books or hist["iterations"] != b_dev.total_iterations:
+        fail("device-resident serve: the ring does not reconcile with the per-request counts")
+
+    # compaction off, both modes
+    b_off_h, b_off_d = server(False, compaction=False), server(True, compaction=False)
+    off_h, wall_off_h = drain(b_off_h)
+    off_d, wall_off_d = drain(b_off_d)
+    rec["host_no_compaction"] = describe("host-driven drain, compaction off", b_off_h, wall_off_h)
+    rec["device_no_compaction"] = describe("device-resident drain, compaction off", b_off_d,
+                                           wall_off_d)
+    off_ok = (same(off_h, off_d) and books(b_off_h) == books(b_off_d)
+              and all(np.array_equal(off_d[u].result, done_dev[u].result) for u in uids)
+              and b_off_d.graph_captures == 1)
+    print(f"  compaction off: device-resident bitwise host-driven and the compacted drain "
+          f"{off_ok}")
+    if not off_ok:
+        fail("device-resident serve with compaction off differs")
+
+    # no synchronising call inside a driver window
+    b_sync = server(True, telemetry=0)
+    for u in uids:
+        b_sync.submit(request(u))
+    b_sync.step()  # the first window builds the driver (capture, instantiation)
+    window, seen = b_sync._driver.window, {"windows": 0, "syncs": 0, "control": 0}
+
+    def sync_warnings(fn):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return out, sum("synchroniz" in str(w.message) for w in caught)
+
+    def checked_window():
+        state, n = sync_warnings(window)
+        seen["windows"] += 1
+        seen["syncs"] += n
+        return state
+
+    b_sync._driver.window = checked_window
+    done_sync = b_sync.run_to_completion()
+    _, seen["control"] = sync_warnings(lambda: b_sync._driver.state.cpu())
+    del b_sync._driver.window
+    print(f"  sync debug mode: {seen['syncs']} synchronising calls inside "
+          f"{seen['windows']} driver windows; the flag read alone warns {seen['control']} "
+          f"time(s) (the control)")
+    if seen["syncs"] or not seen["windows"] or not seen["control"]:
+        fail("a driver window synchronises, or the sync check saw nothing")
+    if not all(np.array_equal(done_sync[u].result, done_dev[u].result) for u in uids):
+        fail("the sync-checked device-resident serve differs")
+
+    # arrivals spread over time, both modes
+    b_arr_h, b_arr_d = server(False), server(True)
+    t_arr_h, t_arr_d = timed_windows(b_arr_h), timed_windows(b_arr_d)
+    arr_h, wall_arr_h = arrivals(b_arr_h)
+    arr_d, wall_arr_d = arrivals(b_arr_d)
+    rec["host_arrivals"] = describe("host-driven, arrivals over time", b_arr_h, wall_arr_h,
+                                    span_ms(t_arr_h))
+    rec["device_arrivals"] = describe("device-resident, arrivals over time", b_arr_d, wall_arr_d,
+                                      span_ms(t_arr_d))
+    arr_ok = all(np.array_equal(arr_h[u].result, done_host[u].result)
+                 and np.array_equal(arr_d[u].result, done_host[u].result)
+                 and arr_h[u].nfe == arr_d[u].nfe == done_host[u].nfe for u in uids)
+    print(f"  arrivals over time: every sample bitwise the drain's in both modes {arr_ok}")
+    if not arr_ok:
+        fail("a request served with arrivals over time differs from the drain's")
+
+    # the device's idle share: busy time of a profiled run over the
+    # unprofiled run's wall, both modes and both runs
+    del b_host, b_dev, b_dev2, b_host2, b_off_h, b_off_d, b_sync, b_arr_h, b_arr_d
+    # the host-driven runs' idle share: kernel busy time of a profiled run
+    # of the same requests over the unprofiled runs' walls
+    for key, fn, walls in (("host", drain, (wall_host, wall_host2)),
+                           ("host_arrivals", arrivals, (wall_arr_h,))):
+        by_name, busy_us = profile_device(lambda: fn(server(False)))
+        flash = sum(c for n, (c, _) in by_name.items() if "flash_fwd_kernel" in n)
+        idle = [1 - busy_us * 1e-6 / w for w in walls]
+        rec[key]["idle_share"] = idle
+        rec[key]["device_busy_ms"] = busy_us / 1e3
+        rec[key]["profiled_flash_kernels"] = flash
+        print(f"  [{card}] {key}: device busy {busy_us / 1e3:.1f} ms of the "
+              f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms run(s), idle share "
+              f"{', '.join(f'{i:.3f}' for i in idle)}; the profiler saw {flash} K3 kernels "
+              f"({2 * net.num_layers} a body iteration: "
+              f"{2 * net.num_layers * rec[key]['body_iterations']} ran)")
+
+    # the reference's gate on its bench workload (D 2, 8 slots, 3 requests
+    # a slot): ≥ 5× fewer device→host reads a request at sync horizon 2
+    row = device_serving.bench_serving(SERVE_SLOTS, dev, horizons=(2,))[2]
+    per_req = lambda r: (r["transfers"] + r["solver_syncs"]) / (REQUESTS_PER_SLOT * SERVE_SLOTS)
+    ratio = per_req(row["host"]) / per_req(row["device"])
+    print(f"  bench workload, sync horizon 2: device→host reads a request host-driven "
+          f"{per_req(row['host']):.2f} (serve loop {row['host']['per_request']:.2f} + solver "
+          f"syncs), device-resident {per_req(row['device']):.2f}: {ratio:.1f}x (gate 5x); serve "
+          f"loop alone {row['ratio']:.1f}x; samples/s {row['host']['samples_per_s']:.1f} and "
+          f"{row['device']['samples_per_s']:.1f}")
+    if ratio < 5:
+        fail("device-resident serve does not cut device→host reads 5x at sync horizon 2")
+    rec["bench_h2"] = {"reads_per_request_host": per_req(row["host"]),
+                       "reads_per_request_device": per_req(row["device"]), "ratio": ratio,
+                       "serve_loop_ratio": row["ratio"],
+                       "samples_per_s": {"host": row["host"]["samples_per_s"],
+                                         "device": row["device"]["samples_per_s"]}}
+
+    # P1 and P2 device times
+    B, D = SERVE_SLOTS, int(np.prod(shape))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sets = [(torch.randint(0, 2**62, (B,), generator=gen, device=dev),
+             torch.randint(0, 2**40, (B,), generator=gen, device=dev)) for _ in range(4)]
+    p1_ms = device_ms(lambda s, c: ph.normal(s, c, D), sets)
+    p1_plain = device_ms(lambda s, c: ph_ref.philox_normal(s, c, D), sets)
+    randn_ms = device_ms(lambda: torch.randn(B, D, device=dev), [()])
+    p1_bytes, p1_ops = 4 * B * D + 16 * B, P1_OPS_PER_ELEMENT * B * D
+    p1_bound = max(p1_bytes / HBM_BYTES_PER_S, p1_ops / FP32_FLOPS) * 1e3
+    occ = torch.ones(B, dtype=torch.bool, device=dev)
+    dn = torch.zeros(B, dtype=torch.bool, device=dev)
+    st = torch.zeros(2, dtype=torch.int32, device=dev)
+    p2 = lambda o, d_, s: loop_ops.horizon_cond(o, d_, s, wait_all=False, max_horizons=32,
+                                                first=False)
+    p2_ms = device_ms(p2, [(occ, dn, st)])
+    p2_plain = timed_ms(lambda o, d_, s: loop_ref.horizon_cond(
+        o, d_, s, wait_all=False, max_horizons=32, first=False), [(occ, dn, st)], 50)
+    p2_bytes, p2_ops = 2 * B + 8, 3 * B
+    p2_bound = max(p2_bytes / HBM_BYTES_PER_S, p2_ops / FP32_FLOPS) * 1e3
+    print(f"  [{card}] philox_normal ({B}, {D}): {p1_ms * 1e3:.2f} us on the device, bound "
+          f"{p1_bound * 1e3:.2f} us ({p1_bytes / 1e6:.2f} MB written); plain {p1_plain * 1e3:.1f} "
+          f"us; torch.randn of the shape (another generator, for scale) {randn_ms * 1e3:.2f} us")
+    print(f"  [{card}] horizon_cond (B {B}): {p2_ms * 1e3:.2f} us on the device, launch floor "
+          f"{floor_ms * 1e3:.2f} us, bound {p2_bound * 1e3:.5f} us; plain (reads the host) "
+          f"{p2_plain * 1e3:.1f} us")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  [{card}] device-resident serve phase {phase_s:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return dict(rec=rec, launches=launches, cuda_versions=(rt, drv),
+                p1=dict(ms=p1_ms, plain_ms=p1_plain, bound_ms=p1_bound, randn_ms=randn_ms,
+                        bound_by="bytes" if p1_bytes / HBM_BYTES_PER_S >= p1_ops / FP32_FLOPS
+                        else "operations"),
+                p2=dict(ms=p2_ms, plain_ms=p2_plain, bound_ms=p2_bound,
+                        bound_by="bytes" if p2_bytes / HBM_BYTES_PER_S >= p2_ops / FP32_FLOPS
+                        else "operations"),
+                sync_check=seen, phase_s=phase_s)
 
 
 def ssd_inputs(B, S, H, P, G, N, *, gen, dtype=torch.float32):
@@ -1407,6 +1966,7 @@ def main() -> None:
                 step_err[(dtype, d, vector)] = x_err
     step_per_call = check_solver_step_edges(dev, gen)
     k2_err = check_k2_tiers(dev, gen, D)
+    streams = check_streams_and_grids(dev, gen)
     attn_err = {}
     plan_attn = (2 * PLAN_BATCH, TRAJ_UNET.attn_heads, TRAJ_UNET.attn_heads,
                  TRAJ_UNET.horizon // 2 ** (len(TRAJ_UNET.mults) - 1),
@@ -2093,6 +2653,11 @@ def main() -> None:
     phase("main path: the continuous-batching server on HIGHRES_DIT, tiered (K2, K3)")
     srv = run_serve(dev, card)
 
+    # ------------------------------------------------------ 6c. device-resident serve
+    phase("main path: the device-resident serve loop on HIGHRES_DIT (P1, P2, K2, K3; "
+          "a WHILE-node CUDA graph a window)")
+    dsrv = run_device_serve(dev, card, floor_ms)
+
     # ------------------------------------------------------ 6b. train/tables
     phase("train and tables: DIT_100M trained and sampled (K1, K3); Tables 1, 3, 4-5 (K1, K5)")
     tt = train_and_tables(dev, card)
@@ -2105,6 +2670,12 @@ def main() -> None:
     # ------------------------------------------------------------- 8. sharded
     phase("sharded sampling: K4 and sample(mesh=) over torch.distributed")
     k4 = run_sharded(dev, card, rec["wall_s"])
+
+    def device_resident_launches(name):
+        """A kernel's launches in phase 6c's device-resident drain."""
+        got = dsrv["launches"]
+        return {"launches": got[name], "per_body_iteration_in_graph":
+                got["per_body_iteration_in_graph"][name], "eager": got["eager"][name]}
 
     kernels = [
         {"name": "solver_step", "route": "cuda",
@@ -2127,6 +2698,7 @@ def main() -> None:
                     **tt["k1_t1"]},
          "trained_dit_100m": {"launches": tt["dit_launches"]["solver_step"],
                               "iterations": tt["dit_iterations"]},
+         "beyond_65535_rows": streams["k1_big"],
          "ptxas": [r for r in small_ptxas if r["kernel"].startswith("error_step")]},
         {"name": "solver_step_per_row_eps", "route": "cuda",
          "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
@@ -2143,7 +2715,8 @@ def main() -> None:
                                        "body_iterations", "wasted_nfe_fraction",
                                        "passenger_nfe_fraction",
                                        "wasted_nfe_fraction_no_compaction",
-                                       "flash_launches")}},
+                                       "flash_launches")},
+         "device_resident": device_resident_launches("solver_step")},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:102",
@@ -2164,7 +2737,9 @@ def main() -> None:
          "planning": {"launches": plan_launches["flash_attention"], "ms": k3p_ms,
                       "plain_ms": k3p_plain, "bound_ms": k3p_bound, "library_ms": k3p_lib},
          "trained_dit_100m": {"launches": tt["dit_launches"]["flash_attention"],
-                              "iterations": tt["dit_iterations"]}},
+                              "iterations": tt["dit_iterations"]},
+         "beyond_65535_heads": streams["k3_big"],
+         "device_resident": device_resident_launches("flash_attention")},
         {"name": "groupnorm_silu", "route": "cuda",
          "source": "src/repro_torch/kernels/groupnorm_silu/csrc/groupnorm_silu.cu",
          "replaces": "src/repro/kernels/groupnorm_silu/kernel.py:81",
@@ -2238,6 +2813,33 @@ def main() -> None:
          "ms_of": "the partial (feature-split) mode at the full state",
          "feature_half": {k: k4["times"]["half"][k] for k in ("ms", "plain_ms", "bound_ms")},
          "all_reduce_9_us": k4["all_reduce_9_us"]},
+        {"name": "philox_normal", "route": "cuda",
+         "source": "src/repro_torch/kernels/philox/csrc/philox_normal.cu",
+         "replaces": "none: XLA's threefry in _draw_noise, src/repro/core/solvers/adaptive.py:410",
+         "launches": dsrv["launches"]["philox_normal"],
+         "max_abs_err": streams["p1_err"][(SERVE_SLOTS, D)],
+         "ms": dsrv["p1"]["ms"], "plain_ms": dsrv["p1"]["plain_ms"],
+         "bound_ms": dsrv["p1"]["bound_ms"], "bound_by": dsrv["p1"]["bound_by"],
+         "library_ms": None,
+         "torch_randn_ms": dsrv["p1"]["randn_ms"],
+         "launched_as": "per-slot noise (SlotStreams) of the device-resident serve (phase 6c): "
+                        "the captured horizon's calls times the horizons run, plus the eager "
+                        "calls (the capture's warm-up, admissions)",
+         "device_resident": device_resident_launches("philox_normal"),
+         "max_abs_err_by_shape": {f"{b}x{d}": e for (b, d), e in streams["p1_err"].items()}},
+        {"name": "horizon_cond", "route": "cuda",
+         "source": "src/repro_torch/kernels/graph_loop/csrc/while_driver.cu",
+         "replaces": "none: the lax.while_loop condition of solve_horizons, "
+                     "src/repro/core/solvers/adaptive.py:672",
+         "launches": dsrv["launches"]["horizon_cond"],
+         "max_abs_err": float(streams["p2_err"]),
+         "ms": dsrv["p2"]["ms"], "plain_ms": dsrv["p2"]["plain_ms"],
+         "bound_ms": dsrv["p2"]["bound_ms"], "bound_by": dsrv["p2"]["bound_by"],
+         "library_ms": None,
+         "launch_floor_ms": floor_ms,
+         "driver_windows": dsrv["launches"]["windows"],
+         "cuda_versions": dsrv["cuda_versions"],
+         "serve": dsrv["rec"], "sync_check": dsrv["sync_check"]},
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):

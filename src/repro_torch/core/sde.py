@@ -18,6 +18,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.streams import SlotStreams
+
 Tensor = torch.Tensor
 
 
@@ -85,11 +87,20 @@ class SDE:
     def prior_std(self) -> float:
         raise NotImplementedError
 
-    def prior_sample(self, shape, generator: torch.Generator) -> Tensor:
+    def prior_sample(self, shape, generator) -> Tensor:
         """x_T ~ N(0, prior_std² I) in fp32, drawn from ``generator`` on
-        the generator's device."""
-        z = torch.randn(tuple(shape), generator=generator,
-                        dtype=torch.float32, device=generator.device)
+        the generator's device: a ``torch.Generator``, or per-slot
+        streams (``streams.SlotStreams``), whose row i is the draw
+        of stream i at its counter (a request's prior is its stream's
+        draw at counter 0); ``shape`` then leads with the streams' B."""
+        if isinstance(generator, SlotStreams):
+            if shape[0] != generator.seed.shape[0]:
+                raise ValueError(f"prior of {shape[0]} rows from "
+                                 f"{generator.seed.shape[0]} streams")
+            z = generator.draw(tuple(shape)[1:])
+        else:
+            z = torch.randn(tuple(shape), generator=generator,
+                            dtype=torch.float32, device=generator.device)
         return z * self.prior_std()
 
     def tweedie_denoise(self, x: Tensor, score: Tensor) -> Tensor:
@@ -132,9 +143,10 @@ class VESDE(SDE):
 
     def diffusion(self, t) -> Tensor:
         sig = self.sigma(t)
-        # the reference takes log and sqrt of the ratio in fp32
-        ratio = torch.tensor(self.sigma_max / self.sigma_min,
-                             dtype=torch.float32, device=sig.device)
+        # the reference takes log and sqrt of the ratio in fp32 (a fill on
+        # the device, so that a CUDA graph can capture it)
+        ratio = torch.full((), self.sigma_max / self.sigma_min,
+                           dtype=torch.float32, device=sig.device)
         return sig * torch.sqrt(2.0 * torch.log(ratio))
 
     def marginal(self, t) -> Tuple[Tensor, Tensor]:

@@ -8,9 +8,9 @@ from repro_torch.core.solvers import euler_maruyama as _em  # noqa: F401
 from repro_torch.core.solvers import predictor_corrector as _pc  # noqa: F401
 from repro_torch.core.solvers import probability_flow as _ode  # noqa: F401
 from repro_torch.core.solvers.adaptive import (  # noqa: F401
-    ForwardAdaptiveConfig, adaptive_forward,
+    ForwardAdaptiveConfig, adaptive_forward, events_pending, solve_horizons,
 )
 from repro_torch.core.solvers.base import (  # noqa: F401
-    SolveResult, available_solvers, get_solver, register_solver,
+    SlotStreams, SolveResult, available_solvers, get_solver, register_solver,
     solver_nfe_per_iteration,
 )

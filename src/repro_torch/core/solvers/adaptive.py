@@ -29,11 +29,28 @@ the iteration draws a second time, after z, for the projection noise
 seam.
 
 Per-slot noise streams (the reference's (B, 2) per-slot keys,
-DESIGN.md §7): the carry's ``generator`` may instead be a list of B
-per-slot sources, and each sample's row of z then comes from its own
-source (``base.draw_noise``), so a trajectory does not depend on the
-slot it occupies or on its seatmates. The serving loop moves a source
-with its row through every compaction permutation.
+DESIGN.md §7): the carry's ``generator`` may instead be a
+``SlotStreams`` ((B,) seed and counter on the device, drawn by the P1
+kernel) or a list of B per-slot sources (callables, the tests' replay
+seam), and each sample's row of z then comes from its own stream
+(``base.draw_noise``), so a trajectory does not depend on the slot it
+occupies or on its seatmates. The body returns the streams' counters
+advanced by one draw an iteration in which some sample was active (two
+with a projecting conditioner). The serving loop moves a stream with its
+row through every compaction permutation.
+
+The graphed sync horizon (the device-resident serve loop, DESIGN.md
+§12): ``capture_horizon`` records ``sync_horizon`` iterations of the body
+as one CUDA graph over one set of static carry buffers, with no host
+read inside. The bounds ``solve_chunk`` checks on the host (some sample
+active, ``iterations − start < sync_horizon``, ``iterations <
+cfg.max_iters``) become part of the body's mask on the device, and an
+iteration outside them changes nothing. ``events_pending`` (on the
+carry's ``done`` and the occupancy mask; ``kernels.graph_loop.ref``) and
+``solve_horizons`` are the reference's device-side serving event flag and
+multi-horizon driver: on the card the driver is a CUDA-graph WHILE node
+around the captured horizon (``kernels.graph_loop``), on the CPU the
+plain loop over ``solve_chunk``.
 
 Telemetry (DESIGN.md §15): ``AdaptiveConfig.telemetry_capacity`` > 0
 (or ``init_carry(telemetry=N)``) attaches a ``StepTelemetry`` ring, and
@@ -80,16 +97,16 @@ round a product of fewer rows otherwise).
 Algorithm 2 (``adaptive_forward``, paper App. C) is at the end: the
 forward-time solver for a general diffusion with x-dependent g.
 
-Not ported yet: momentum, the probability-flow variant (ROADMAP A5),
-and ``events_pending``/``solve_horizons``, the pieces of the
-device-resident serve loop (ROADMAP A7).
+Not ported yet: momentum and the probability-flow variant (ROADMAP A5).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
-from typing import Callable, Optional
+import time
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -97,12 +114,15 @@ from repro_torch.core.guidance import Conditioner, cond_batch
 from repro_torch.core.precision import PrecisionPolicy, resolve_policy
 from repro_torch.core.sde import SDE, bcast
 from repro_torch.core.solvers.base import (
-    SolveResult, check_noise_source, draw_noise, register_solver,
+    SlotStreams, SolveResult, check_noise_source, draw_noise, register_solver,
 )
 from repro_torch.core.tolerance import (
     mixed_tolerance, next_step_size, scaled_error_l2, scaled_error_linf,
 )
 from repro_torch.device import resolve_device
+from repro_torch.kernels.graph_loop import ops as loop_ops
+from repro_torch.kernels.graph_loop import ref as loop_ref
+from repro_torch.kernels.graph_loop.ref import events_pending  # noqa: F401  (the reference's name)
 from repro_torch.observability.telemetry import (
     StepTelemetry, init_telemetry, record_step,
 )
@@ -217,7 +237,8 @@ class SolverCarry:
     nfe / accepted / rejected: (B,) int32. done: (B,) bool, t <= t_eps.
     iterations: 0-d int32, iterations in which some sample was active.
     generator: the noise source of the default draw, a ``torch.Generator``
-    shared by the batch or a list of B per-slot sources (``draw_noise``).
+    shared by the batch, a ``SlotStreams`` or a list of B per-slot
+    sources (``draw_noise``).
     atol / rtol: optional per-sample tolerances (B,) fp32 that replace the
     config's (DESIGN.md §14); both or neither. cond: the conditioner's
     per-sample payload (DESIGN.md §9), a dict of tensors leading with B,
@@ -234,7 +255,7 @@ class SolverCarry:
     rejected: Tensor
     done: Tensor
     iterations: Tensor
-    generator: Optional[torch.Generator] = None
+    generator: Any = None
     atol: Optional[Tensor] = None
     rtol: Optional[Tensor] = None
     cond: Optional[dict] = None
@@ -250,16 +271,20 @@ def _per_sample(v, batch: int, device) -> Tensor:
     return v.expand(batch).contiguous()
 
 
-def init_carry(sde: SDE, x_init: Tensor, generator: Optional[torch.Generator],
-               *, config: AdaptiveConfig | None = None, cond=None, atol=None,
+def init_carry(sde: SDE, x_init: Tensor, generator, *,
+               config: AdaptiveConfig | None = None, cond=None, atol=None,
                rtol=None, h0=None, sharding=None, telemetry=None,
                **overrides) -> SolverCarry:
     """Fresh carry at t = T on ``x_init``'s device.
 
-    ``cond`` is the optional per-sample condition payload: every leaf
-    must lead with the batch dimension; it moves to x's device, and its
-    float leaves become fp32 (projection and guidance are control-path
-    math). ``atol``/``rtol`` (scalars or (B,)) install per-sample
+    ``generator`` is a ``torch.Generator`` shared by the batch, or per-slot
+    streams: a ``SlotStreams`` of B rows (as the reference's ``init_carry``
+    takes a (B, 2) key; a batch-1 solve from ``SlotStreams.of([seed], 1)``
+    on the prior at counter 0 is a served request's stream discipline) or
+    a list of B sources. ``cond`` is the optional per-sample condition
+    payload: every leaf must lead with the batch dimension; it moves to
+    x's device, and its float leaves become fp32 (projection and guidance
+    are control-path math). ``atol``/``rtol`` (scalars or (B,)) install per-sample
     tolerances; pass both or neither. ``h0`` overrides the initial step
     per sample; it is clamped to the t-span like ``cfg.h_init``.
     ``telemetry`` overrides ``cfg.telemetry_capacity``: a positive
@@ -277,6 +302,8 @@ def init_carry(sde: SDE, x_init: Tensor, generator: Optional[torch.Generator],
     if (atol is None) != (rtol is None):
         raise ValueError("per-sample tolerances come in pairs: pass both "
                          "atol and rtol, or neither")
+    if isinstance(generator, SlotStreams) and generator.seed.shape != (batch,):
+        raise ValueError(f"{generator.seed.shape[0]} streams for a batch of {batch}")
     if atol is not None:
         atol, rtol = _per_sample(atol, batch, dev), _per_sample(rtol, batch, dev)
     if cond is not None:
@@ -325,37 +352,48 @@ def _local_rows(carry: SolverCarry, sharding) -> SolverCarry:
 
 def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
                step_math, noise_fn=None, sharding=None):
-    """One Algorithm-1 iteration: SolverCarry → SolverCarry.
+    """One Algorithm-1 iteration: ``body(carry, limits=None) -> carry``.
 
     The conditioner wraps the raw ``score_fn`` innermost (a label-aware
     score sees real labels), the precision policy's casts outermost.
     Under a mesh (``sharding``) the carry holds this rank's rows and each
     draw is the whole batch's, cut to them.
+
+    ``limits = (start, horizon)`` puts ``solve_chunk``'s host-side bounds
+    into the mask on the device (the graphed horizon): a sample is active
+    only while ``iterations − start < horizon`` and ``iterations <
+    cfg.max_iters``, ``start`` a 0-d int32 tensor. An iteration in which
+    no sample is active changes no leaf, the stream counters included.
     """
     policy = resolve_policy(cfg.precision)
     conditioner = cfg.conditioner
     projecting = conditioner is not None and conditioner.has_projection
     threshold = sde.t_eps + 1e-12
+    draws = 2 if projecting else 1
 
-    def draw(s: SolverCarry, x: Tensor) -> Tensor:
-        return draw_noise(s.generator, noise_fn, x, sharding)
+    def draw(s: SolverCarry, x: Tensor, offset: int) -> Tensor:
+        return draw_noise(s.generator, noise_fn, x, sharding, offset)
 
-    def body(s: SolverCarry) -> SolverCarry:
+    def body(s: SolverCarry, limits=None) -> SolverCarry:
         x, x_prev, t, h = s.x, s.x_prev, s.t, s.h
         sf = score_fn
         if conditioner is not None:
             sf = conditioner.wrap_score(sf, s.cond)
         sf = policy.wrap_score_fn(sf)
         active = t > threshold
+        if limits is not None:
+            start, horizon = limits
+            active = active & ((s.iterations - start < horizon)
+                               & (s.iterations < cfg.max_iters))
         # frozen samples are fed clamped times
         t_c = torch.clamp(t, sde.t_eps, sde.T)
         h_c = torch.where(active, h, 0.0)
         t2 = torch.clamp(t_c - h_c, sde.t_eps, sde.T)
-        z = draw(s, x)
+        z = draw(s, x, 0)
         if projecting:
             # the projection's own draw, after z: the unconditional
             # noise stream is untouched by the conditioning seam
-            z_proj = draw(s, x)
+            z_proj = draw(s, x, 1)
 
         # low-order proposal: one reverse Euler–Maruyama step. The fp32
         # coefficients promote the arithmetic to fp32; x' is stored back
@@ -398,6 +436,9 @@ def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
             tel = record_step(tel, t=t, h=h_c, err=err, accept=accept,
                               live=any_active)
         two = torch.where(active, 2, 0).to(torch.int32)
+        gen = s.generator
+        if isinstance(gen, SlotStreams):
+            gen = gen.advanced(any_active.to(torch.int64) * draws)
         return SolverCarry(
             x=x_new,
             x_prev=torch.where(acc_e, x_prime, x_prev),
@@ -408,7 +449,7 @@ def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
             rejected=s.rejected + (~accept & active).to(torch.int32),
             done=t_new <= threshold,
             iterations=s.iterations + any_active.to(torch.int32),
-            generator=s.generator, atol=s.atol, rtol=s.rtol, cond=s.cond,
+            generator=gen, atol=s.atol, rtol=s.rtol, cond=s.cond,
             telemetry=tel)
 
     return body
@@ -473,6 +514,196 @@ def solve_chunk(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
                 carry.iterations = torch.full((), iters, dtype=torch.int32,
                                               device=carry.iterations.device)
     return carry
+
+
+def _tensor_leaves(v) -> list:
+    """Every tensor of a carry (or of one of its leaves), in field order;
+    a list of per-slot sources holds none."""
+    if isinstance(v, Tensor):
+        return [v]
+    if isinstance(v, dict):
+        return [t for k in sorted(v) for t in _tensor_leaves(v[k])]
+    if dataclasses.is_dataclass(v):
+        return [t for f in dataclasses.fields(v) for t in _tensor_leaves(getattr(v, f.name))]
+    return []
+
+
+def own_buffers(carry: SolverCarry) -> SolverCarry:
+    """Give every tensor leaf of ``carry`` a buffer of its own, in place:
+    a leaf that shares another's memory (``init_carry`` starts x_prev as
+    x and the three counters as one zeros) is replaced by a copy. A
+    carry that is written in place, leaf by leaf, needs this."""
+    seen = set()
+
+    def fix(v):
+        if isinstance(v, Tensor):
+            if v.data_ptr() in seen:
+                v = v.clone()
+            seen.add(v.data_ptr())
+            return v
+        if isinstance(v, dict):
+            return {k: fix(v[k]) for k in sorted(v)}
+        if dataclasses.is_dataclass(v):
+            for f in dataclasses.fields(v):
+                setattr(v, f.name, fix(getattr(v, f.name)))
+        return v
+
+    return fix(carry)
+
+
+def copy_carry_(dst: SolverCarry, src: SolverCarry) -> None:
+    """Write ``src``'s leaves into ``dst``'s buffers (leaves ``src`` shares
+    with ``dst`` are left alone): the last nodes of a captured horizon,
+    and the plain driver's copy-back."""
+    for a, b in zip(_tensor_leaves(dst), _tensor_leaves(src), strict=True):
+        if a is not b:
+            a.copy_(b)
+
+
+def capture_horizon(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
+                    sync_horizon: int, config: AdaptiveConfig | None = None,
+                    **overrides) -> torch.cuda.CUDAGraph:
+    """Record ``sync_horizon`` Algorithm-1 iterations as one CUDA graph over
+    ``carry``'s buffers (``keep_graph=True``: the raw graph is kept for a
+    parent graph to hold, ``kernels.graph_loop``).
+
+    The graph copies ``carry.iterations`` into its own ``start`` first and
+    runs each iteration under ``limits=(start, sync_horizon)``, so the
+    bounds ``solve_chunk`` checks on the host are part of the mask and the
+    graph reads nothing back; its last nodes ``copy_`` the new leaves into
+    ``carry``'s buffers. A replay is therefore one ``solve_chunk(...,
+    max_sync_iters=sync_horizon)`` on the carry, bit for bit where the
+    same kernels run (an iteration past the bounds changes nothing).
+    ``carry`` must own its buffers (``own_buffers``) and keep them: the
+    caller writes new requests into them in place. Its noise must come
+    from a ``SlotStreams``: a graph cannot call Python sources, and a
+    shared generator's state would be frozen into it. Lazy library state (cuBLAS handles,
+    kernel attributes) is made first by one iteration on a copy of the
+    carry, on a side stream. ``graph.recorded`` is {wrapper module: its
+    kernel calls in the horizon} (``graph_loop.ops.captured_calls``):
+    what one replay launches, which the driver charges to the wrappers'
+    launch counts.
+    """
+    cfg = resolve_config(config, overrides)
+    if not isinstance(carry.generator, SlotStreams):
+        raise ValueError("a captured horizon draws its noise from SlotStreams: a CUDA "
+                         "graph cannot call per-slot Python sources or a generator")
+    eps_abs = float(sde.abs_tolerance if cfg.eps_abs is None else cfg.eps_abs)
+    body = _make_body(sde, score_fn, cfg, eps_abs, _pick_step_math(cfg, None))
+    dev = carry.x.device
+    start = torch.zeros((), dtype=torch.int32, device=dev)
+    limits = (start, int(sync_horizon))
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.no_grad():
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm = copy.deepcopy(carry)
+            body(warm, limits)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        del warm
+        before = loop_ops.captured_calls()
+        with torch.cuda.graph(graph):
+            start.copy_(carry.iterations)
+            c = carry
+            for _ in range(int(sync_horizon)):
+                c = body(c, limits)
+            copy_carry_(carry, c)
+    graph.horizon_start = start  # read by the graph: lives as long as it
+    graph.recorded = {m: n - before[m] for m, n in loop_ops.captured_calls().items()}
+    return graph
+
+
+class HorizonDriver:
+    """The device-resident multi-horizon driver of one carry kept in place
+    (``solve_horizons``'s loop, built once and run every window).
+
+    ``unit`` is the one callable the carry's device uses. On the card,
+    ``unit(carry)`` captures one sync horizon over the carry's buffers,
+    which become static (``capture_horizon``, returning the graph), and a
+    WHILE node replays it until an event is pending or ``max_horizons``
+    ran (``kernels.graph_loop.ops.WhileDriver``, P2 its condition); CUDA
+    12.3 or later is needed in the toolkit and the driver, and an older
+    one raises naming both. On the CPU, ``unit(carry) -> carry`` runs one
+    horizon (one ``solve_chunk``) in the plain loop
+    (``kernels.graph_loop.ref``) and the result is copied into the same
+    buffers, so a window leaves the carry's tensors where they were
+    either way. ``window()`` returns ``state``, a (2,) int32 on the
+    device: the event flag at exit and the horizons run, which the caller
+    reads once and hands to ``account``."""
+
+    def __init__(self, carry: SolverCarry, occupied: Tensor, unit: Callable, *,
+                 max_horizons: int, wait_all: bool = False):
+        self.carry = own_buffers(carry)
+        self.occupied = occupied
+        self.unit = unit
+        self.max_horizons = int(max_horizons)
+        self.wait_all = bool(wait_all)
+        dev = carry.x.device
+        self.state = torch.zeros(2, dtype=torch.int32, device=dev)
+        self.graph = self.driver = None
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            loop_ops.require_conditional_nodes()
+            self.graph = unit(self.carry)
+            self.driver = loop_ops.WhileDriver(self.graph, occupied, self.carry.done,
+                                               self.state, recorded=self.graph.recorded,
+                                               max_horizons=self.max_horizons,
+                                               wait_all=self.wait_all)
+        #: horizon graphs captured (one a driver, none on the CPU)
+        self.captures = int(self.graph is not None)
+        #: host seconds the capture (its warm-up iteration included) and
+        #: the driver graph's instantiation took
+        self.build_s = time.perf_counter() - t0
+
+    def window(self) -> Tensor:
+        """One driver window; reads nothing back on the card."""
+        if self.driver is not None:
+            self.driver.launch()
+            return self.state
+        with torch.no_grad():
+            out, event, n = loop_ref.solve_horizons(
+                self.unit, self.carry, self.occupied,
+                max_horizons=self.max_horizons, wait_all=self.wait_all)
+            copy_carry_(self.carry, out)
+        self.state.copy_(torch.tensor([int(event), n], dtype=torch.int32))
+        return self.state
+
+    def account(self, horizons: int) -> None:
+        """On the card, charge a window's kernel launches (``horizons``
+        read from its state) to the wrappers' counts
+        (``WhileDriver.account``); the CPU launches nothing."""
+        if self.driver is not None:
+            self.driver.account(horizons)
+
+
+def solve_horizons(sde: SDE, score_fn: Callable, carry: SolverCarry, occupied: Tensor, *,
+                   sync_horizon: int, max_horizons: int,
+                   config: AdaptiveConfig | None = None, wait_all: bool = False,
+                   **overrides):
+    """Multi-horizon driver (DESIGN.md §12): chain ``sync_horizon``-bounded
+    chunks until a serving event is pending (``events_pending``), every
+    occupied sample converged, or ``max_horizons`` chunks ran. Returns
+    ``(carry, events)``, the flag a 0-d bool on the device.
+
+    Each horizon is the unit the host-driven serve loop runs a sync, so
+    the result is the chained chunks' bit for bit. On the card this call
+    captures a horizon and runs one window of a ``HorizonDriver`` (the
+    serve loop keeps its driver across windows instead). On the CPU it is
+    the plain loop over ``solve_chunk``. Either way the carry's buffers
+    are written in place, as the reference donates its carry: a tensor
+    the carry shares with the caller (``init_carry``'s ``x_init``) is
+    overwritten.
+    """
+    cfg = resolve_config(config, overrides)
+    if carry.x.device.type == "cuda":
+        unit = lambda c: capture_horizon(sde, score_fn, c, sync_horizon=sync_horizon,
+                                         config=cfg)
+    else:
+        unit = lambda c: solve_chunk(sde, score_fn, c, max_sync_iters=sync_horizon, config=cfg)
+    drv = HorizonDriver(carry, occupied, unit, max_horizons=max_horizons, wait_all=wait_all)
+    state = drv.window()
+    return drv.carry, state[0].to(torch.bool)
 
 
 def finalize(sde: SDE, score_fn: Callable, carry: SolverCarry, *,

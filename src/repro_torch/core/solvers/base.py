@@ -8,6 +8,9 @@ its own: ``denoise``, ``device`` (``cuda`` unless the caller passes
 draw from the generator; the parity tests pass the reference's own
 noise through it, since JAX's threefry and torch's generators never give
 the same numbers. Solvers that draw nothing ignore it.
+
+``SlotStreams`` (``core/streams.py``) is the port of the reference's
+(B, 2) per-slot keys, the third form of ``draw_noise``'s generator.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.core.sde import SDE
+from repro_torch.core.streams import SlotStreams
 
 Tensor = torch.Tensor
 
@@ -75,19 +79,19 @@ def solver_nfe_per_iteration(name: str, **solver_kwargs) -> int:
 
 
 def draw_noise(generator, noise_fn: Callable | None, x: Tensor,
-               sharding=None) -> Tensor:
+               sharding=None, offset: int = 0) -> Tensor:
     """z ~ N(0, I) shaped like x: from ``noise_fn`` if given, else drawn
     from ``generator`` in fp32; cast to x's dtype and device.
 
-    ``generator`` is one ``torch.Generator`` for the batch, or a list of
-    x.shape[0] per-slot sources (the reference's per-slot keys): row i
-    of z then comes from source i alone, so a sample's noise does not
-    depend on its slot or its seatmates. A source is a ``torch.Generator``
-    on x's device (its row is ``normal_`` on a contiguous row of z, the
-    numbers ``torch.randn`` of the row's shape gives), a callable
-    ``source(shape) -> Tensor`` of one row's shape (the seam through which
-    tests hand every slot the reference's own per-request draws), or None
-    for an idle slot, whose row is 0 (it draws from no request's stream).
+    ``generator`` takes one of three forms. One ``torch.Generator`` for
+    the batch. A ``SlotStreams`` (the reference's per-slot keys as device
+    data): row i of z is P1's draw of stream (seed[i], counter[i] +
+    ``offset``), one kernel launch for the batch, so a sample's noise
+    does not depend on its slot or its seatmates, and an idle row
+    (seed < 0) is 0. Or a list of x.shape[0] per-slot sources: a
+    callable ``source(shape) -> Tensor`` of one row's shape (the seam
+    through which tests hand every slot the reference's own per-request
+    draws) or None for an idle slot, whose row is 0.
 
     Under a mesh, x holds this rank's rows of the ``sharding``: the draw
     is the whole batch's (``noise_fn`` is handed an uninitialised tensor
@@ -99,6 +103,12 @@ def draw_noise(generator, noise_fn: Callable | None, x: Tensor,
     if noise_fn is not None:
         z = noise_fn(x if sharding is None else x.new_empty(shape))
         z = z.to(device=x.device, dtype=x.dtype)
+    elif isinstance(generator, SlotStreams):
+        if sharding is not None:
+            raise NotImplementedError("per-slot streams under a mesh wait for the "
+                                      "per-slot-key leaf of solver_carry_shardings "
+                                      "(ROADMAP A11)")
+        z = generator.draw(x.shape[1:], offset).to(x.dtype)
     elif isinstance(generator, list):
         if sharding is not None:
             raise NotImplementedError("per-slot noise under a mesh waits for "
@@ -109,8 +119,6 @@ def draw_noise(generator, noise_fn: Callable | None, x: Tensor,
         for row, src in zip(z, generator):
             if src is None:
                 row.zero_()
-            elif isinstance(src, torch.Generator):
-                row.normal_(generator=src)
             else:
                 row.copy_(src(tuple(row.shape)))
         z = z.to(x.dtype)
@@ -120,10 +128,10 @@ def draw_noise(generator, noise_fn: Callable | None, x: Tensor,
     return z if sharding is None else sharding.local(z)
 
 
-def check_noise_source(generator: torch.Generator | None,
-                       noise_fn: Callable | None, dev: torch.device,
+def check_noise_source(generator, noise_fn: Callable | None, dev: torch.device,
                        name: str) -> None:
-    """A stochastic solver needs a generator on ``dev`` or a noise_fn."""
+    """A stochastic solver needs a generator (or ``SlotStreams``) on
+    ``dev``, or a noise_fn."""
     if noise_fn is None:
         if generator is None:
             raise ValueError(f"{name} needs a generator or a noise_fn")

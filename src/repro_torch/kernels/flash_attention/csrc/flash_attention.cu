@@ -583,7 +583,9 @@ int keys_per_tile(int D) {
 
 // q: (B, Hq, S, D), k/v: (B, Hkv, S, D), out like q, each addressed by
 // element strides (b, h, s) with a contiguous last dimension; base pointers
-// and strides 16-byte aligned. dtype: 0 = float32, 1 = bfloat16. window <= 0
+// and strides 16-byte aligned. One launch takes B * Hq <= 65,535 (b, h)
+// pairs (gridDim.y); the wrapper launches a larger batch in ranges of
+// whole batches (flash_attention/ops.py batch_ranges). dtype: 0 = float32, 1 = bfloat16. window <= 0
 // means no window. Launches on `stream`; returns cudaGetLastError().
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out,

@@ -15,7 +15,12 @@ mode (``kernels.autograd``: the kernel has no backward). The kernel moves K/V ti
 (``cp.async``), so on the card q, k and v need 16-byte-aligned base
 pointers and (b, h, s) strides (``check_alignment``): every model
 tensor of fp32 or bf16 rows whose head width is a multiple of 4 (fp32)
-or 8 (bf16) has them. ``launches`` counts kernel launches.
+or 8 (bf16) has them. ``launches`` counts kernel launches: one a call
+up to 65,535 (b, h) pairs, else one a range of whole batches
+(``batch_ranges``; the pairs sit on ``gridDim.y``). A call made while
+the stream is captured into a CUDA graph launches nothing: it counts in
+``captured``, and whoever replays the graph charges ``launches`` with
+its replays (``graph_loop.ops.WhileDriver``).
 """
 
 from __future__ import annotations
@@ -32,9 +37,23 @@ Tensor = torch.Tensor
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: kernels recorded into CUDA graphs under capture (not launched)
+captured = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+#: (b, h) pairs one launch takes (they sit on ``gridDim.y``)
+MAX_GRID_HEADS = 65535
+
+
+def batch_ranges(B: int, Hq: int) -> list:
+    """The (first batch, batches) of each launch: one launch of all B
+    where B·Hq ≤ ``MAX_GRID_HEADS``, else consecutive ranges of whole
+    batches, each of at most that many (b, h) pairs."""
+    per = MAX_GRID_HEADS // Hq
+    if per < 1:
+        raise ValueError(f"{Hq} query heads exceed the kernel's {MAX_GRID_HEADS} a launch")
+    return [(b, min(per, B - b)) for b in range(0, B, per)]
 
 
 def _check(q, k, v, window, true_len):
@@ -101,14 +120,12 @@ def _declare(lib):
 
 
 def _launch(q, k, v, *, causal, window, scale, true_len):
-    global launches
+    global launches, captured
     refuse_autograd("flash_attention", q, k, v)
     if any(a.stride(-1) != 1 for a in (q, k, v)):
         raise ValueError("flash attention needs a contiguous last dimension")
     check_alignment(q, k, v)
     B, Hq, S, D = q.shape
-    if B * Hq > 65535:
-        raise ValueError(f"B*Hq = {B * Hq} exceeds the kernel's grid limit 65535")
     lib = _declare(_build.library())
     out = torch.empty_like(q)  # keeps q's (b, h, s) layout
     if not _aligned(out):
@@ -117,14 +134,22 @@ def _launch(q, k, v, *, causal, window, scale, true_len):
         n = 16 // q.element_size()
         out = q.new_empty(B, Hq, S, -(-D // n) * n)[..., :D]
     strides = [s for a in (q, k, v, out) for s in a.stride()[:3]]
+    size = q.element_size()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
-            B, Hq, k.shape[1], S, D, S if true_len is None else true_len,
-            int(causal), 0 if window is None else int(window), float(scale),
-            _DTYPES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
-    launches += 1
+        for b0, nb in batch_ranges(B, Hq):
+            # a range is its batches' slice of q, k, v and out (whole
+            # 16-byte units: the batch strides are checked above)
+            ptrs = [a.data_ptr() + b0 * a.stride(0) * size for a in (q, k, v, out)]
+            rc = lib.flash_attention_fwd(
+                *ptrs, *strides, nb, Hq, k.shape[1], S, D,
+                S if true_len is None else true_len, int(causal),
+                0 if window is None else int(window), float(scale),
+                _DTYPES[q.dtype], stream)
+            if rc != 0:
+                raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
+            if torch.cuda.is_current_stream_capturing():
+                captured += 1
+            else:
+                launches += 1
     return out

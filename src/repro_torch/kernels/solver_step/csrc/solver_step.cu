@@ -87,10 +87,14 @@ constexpr int kThreads = 256;
 constexpr int kVec = 4;                          // consecutive columns a run
 constexpr int kItems = 3;                        // runs a thread a tile
 constexpr int kTile = kThreads * kItems * kVec;  // 3072 columns a block
-constexpr int kMaxRows = 65535;                  // gridDim.y
+constexpr int kMaxRows = 65535;                  // gridDim.y: rows a launch
 
-// One ticket counter a row index, zero when the library loads; each
-// multi-tile launch returns the counters it used to 0.
+// One ticket counter a row of a launch, zero when the library loads; each
+// multi-tile launch returns the counters it used to 0. A batch of more
+// than kMaxRows rows is launched by the wrapper in ranges of rows
+// (solver_step/ops.py kernel_config), each on its rows' slices of the
+// operands; consecutive launches on one stream reuse the counters, which
+// the one before has set back to 0.
 __device__ unsigned int g_row_tickets[kMaxRows];
 
 // Every operand element is read once: loads are evict-first (ld.global.cs)

@@ -33,10 +33,16 @@ raise. There is no fallback from one to the other, and both launches
 refuse inputs that require grad under grad mode (``kernels.autograd``:
 neither kernel has a backward). ``em_launches``
 counts K5's launches, ``launches`` those of K1/K2, ``sharded_launches``
-those of K4 (the same kernel, launched by ``sharded_error_step``); each
-call of K1/K2/K4 and of K5 is one kernel launch. ``kernel_config``
-fixes K1's tiling (from D alone) and its load width (from the
-alignment), ``em_kernel_config`` K5's grid and load width.
+those of K4 (the same kernel, launched by ``sharded_error_step``); a
+call of K5 is one kernel launch, and so is a call of K1/K2/K4 up to
+65,535 rows (above that, one launch a range of rows). A K1/K2/K4 call
+made while the stream is captured into a CUDA graph launches nothing:
+it counts in ``captured``, and whoever replays the graph charges
+``launches`` with its replays (``graph_loop.ops.WhileDriver``).
+``kernel_config``
+fixes K1's tiling (from D alone), its ranges of rows (from B) and its
+load width (from the alignment), ``em_kernel_config`` K5's grid and load
+width.
 """
 
 from __future__ import annotations
@@ -58,8 +64,12 @@ launches = 0
 em_launches = 0
 #: sharded_error_step (K4) kernel launches since the count was last set to 0
 sharded_launches = 0
+#: K1/K2/K4 kernels recorded into CUDA graphs under capture (not launched)
+captured = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: rows one K1/K2/K4 launch takes (its rows sit on ``gridDim.y``)
+MAX_GRID_ROWS = 65535
 #: the K1/K2/K4 kernel's tiling (``kThreads``, ``kVec``, ``kTile`` in
 #: ``csrc/solver_step.cu``): a block of 256 threads takes 3072 columns of a
 #: row, a thread three runs of 4 consecutive columns
@@ -73,10 +83,13 @@ def kernel_config(B: int, D: int, ld: int, dtype, aligned: bool) -> dict:
     8 in bf16).
 
     Returns ``tiles`` of ``STEP_TILE`` columns a row, the ``grid``
-    (tiles, B) and ``threads`` of the one launch, ``design`` ("one block
-    a row" where a row fits one tile, whose block writes e2 itself; else
-    "last block of a row", which sums the row's tile sums in tile order),
-    and ``load_bytes``, the width of one load: a run of 4 elements where
+    (tiles, rows) and ``threads`` of a launch, ``ranges``, the (first row,
+    rows) of each launch: one launch of all B rows where B ≤
+    ``MAX_GRID_ROWS``, else consecutive ranges of at most that many rows
+    (rows sit on ``gridDim.y``), ``design`` ("one block a row" where a row
+    fits one tile, whose block writes e2 itself; else "last block of a
+    row", which sums the row's tile sums in tile order), and
+    ``load_bytes``, the width of one load: a run of 4 elements where
     every row of every operand is aligned for it, else one element. The
     tiling, and so each row's order of summation, depends on D alone: B,
     ``ld``, the dtype and the alignment change the grid and the load
@@ -84,7 +97,9 @@ def kernel_config(B: int, D: int, ld: int, dtype, aligned: bool) -> dict:
     size = dtype.itemsize
     tiles = -(-D // STEP_TILE)
     vec = aligned and D % STEP_VEC == 0 and ld % STEP_VEC == 0
-    return dict(tiles=tiles, grid=(tiles, B), threads=STEP_THREADS,
+    ranges = [(r, min(MAX_GRID_ROWS, B - r)) for r in range(0, B, MAX_GRID_ROWS)]
+    return dict(tiles=tiles, grid=(tiles, ranges[0][1]), threads=STEP_THREADS,
+                ranges=ranges,
                 design="one block a row" if tiles == 1 else "last block of a row",
                 load_bytes=STEP_VEC * size if vec else size)
 
@@ -305,7 +320,7 @@ def _launch(x, xp, s2, z, xv, e0, d1, d2, ea, er, *, use_prev, raw=False, k4=Fal
     (B, D) blocks that share one row stride (K4's per-rank body). The
     launch counts in ``sharded_launches`` with ``k4``, else in
     ``launches``."""
-    global launches, sharded_launches
+    global launches, sharded_launches, captured
     states = (x, xp, s2, z, xv)
     refuse_autograd("solver_step", *states, e0, d1, d2, ea, er)
     B, D = x.shape
@@ -318,28 +333,37 @@ def _launch(x, xp, s2, z, xv, e0, d1, d2, ea, er, *, use_prev, raw=False, k4=Fal
         raise ValueError("solver_step kernel operands must be contiguous")
     if not all(c.is_contiguous() for c in (e0, d1, d2, ea, er)):
         raise ValueError("solver_step kernel coefficients must be contiguous")
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the kernel's grid limit 65535")
     lib = _declare(_build.library())
     xh = torch.empty(B, D, dtype=x.dtype, device=x.device)
     e2 = torch.empty(B, dtype=torch.float32, device=x.device)
-    cfg = kernel_config(B, D, ld if raw else D, x.dtype, runs_aligned(states + (xh,)))
+    ld_in = ld if raw else D
+    cfg = kernel_config(B, D, ld_in, x.dtype, runs_aligned(states + (xh,)))
     # the tile sums of a row of many tiles; a row of one tile needs none
     partial = (torch.empty(B, cfg["tiles"], dtype=torch.float32, device=x.device)
                if cfg["tiles"] > 1 else None)
-    args = ([a.data_ptr() for a in states + (e0, d1, d2, ea, er)]
-            + [xh.data_ptr(), e2.data_ptr(), partial.data_ptr() if partial is not None else None])
     flags = (_DTYPES[x.dtype], int(use_prev), int(cfg["load_bytes"] > x.element_size()))
+    size = x.element_size()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if raw:
-            rc = lib.solver_step_error_sums(*args, B, D, ld, D, *flags, stream)
-        else:
-            rc = lib.solver_step_error(*args, B, D, *flags, stream)
-    if rc != 0:
-        raise RuntimeError(f"solver_step kernel launch failed: CUDA error {rc}")
-    if k4:
-        sharded_launches += 1
-    else:
-        launches += 1
+        for r0, rows in cfg["ranges"]:
+            # a range is its rows' slice of every operand; its launch takes
+            # the rows' tickets from the start of the ticket array, which
+            # the launch before it, on the same stream, has set back to 0
+            args = ([a.data_ptr() + r0 * ld_in * size for a in states]
+                    + [c.data_ptr() + r0 * 4 for c in (e0, d1, d2, ea, er)]
+                    + [xh.data_ptr() + r0 * D * size, e2.data_ptr() + r0 * 4,
+                       partial.data_ptr() + r0 * cfg["tiles"] * 4
+                       if partial is not None else None])
+            if raw:
+                rc = lib.solver_step_error_sums(*args, rows, D, ld_in, D, *flags, stream)
+            else:
+                rc = lib.solver_step_error(*args, rows, D, *flags, stream)
+            if rc != 0:
+                raise RuntimeError(f"solver_step kernel launch failed: CUDA error {rc}")
+            if torch.cuda.is_current_stream_capturing():
+                captured += 1
+            elif k4:
+                sharded_launches += 1
+            else:
+                launches += 1
     return xh, e2

@@ -43,7 +43,7 @@ from repro_torch.configs.diffusion import ARCHS
 from repro_torch.core.precision import PRESETS, resolve_policy
 from repro_torch.core.sampling import gather_result, sample
 from repro_torch.core.sde import VPSDE, bcast
-from repro_torch.core.solvers.adaptive import AdaptiveConfig, solve_chunk
+from repro_torch.core.solvers.adaptive import AdaptiveConfig, capture_horizon, solve_chunk
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.solver_step import ops as step_ops
@@ -75,6 +75,9 @@ def make_sample_step(sde, cfg: AdaptiveConfig, forward_fn=None):
     runs (fused kernel, per-slot noise streams, NFE accounting, the
     telemetry ring) and chained chunks give the monolithic solve's bits.
     This is the unit the serving loop repeats between its syncs.
+    ``step.capture_horizon(params, carry, sync_horizon)`` hands the
+    device-resident driver the same unit as a CUDA graph over ``carry``'s
+    buffers (``adaptive.capture_horizon``).
 
     ``forward_fn(params, x, t[, y])`` predicts noise: score = −out/std,
     with the division in fp32. The default is the DiT forward,
@@ -90,16 +93,21 @@ def make_sample_step(sde, cfg: AdaptiveConfig, forward_fn=None):
         forward_fn = lambda model, x, t, y=None: dit_forward(model, x, t, policy=policy, y=y)
     accepts_y = "y" in inspect.signature(forward_fn).parameters
 
-    def sample_step(params, carry, max_sync_iters: int = 1):
+    def score_of(params):
         def score_fn(x, t, y=None):
             _, std = sde.marginal(t)
             out = (forward_fn(params, x, t, y=y) if accepts_y
                    else forward_fn(params, x, t)).to(torch.float32)
             return -out / bcast(std, x)
 
-        return solve_chunk(sde, score_fn, carry, max_sync_iters=max_sync_iters,
+        return score_fn
+
+    def sample_step(params, carry, max_sync_iters: int = 1):
+        return solve_chunk(sde, score_of(params), carry, max_sync_iters=max_sync_iters,
                            config=cfg)
 
+    sample_step.capture_horizon = lambda params, carry, sync_horizon: capture_horizon(
+        sde, score_of(params), carry, sync_horizon=sync_horizon, config=cfg)
     return sample_step
 
 

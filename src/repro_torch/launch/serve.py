@@ -10,16 +10,18 @@ seeded requests drain through a DiT score network (seeded weights, the
 zero-init leaves livened) with the horizon-chunked solver, the fused
 solver step and flash attention, K1 (K2 with ``--tier``) and K3 on the
 card. ``--arch`` names a DiT preset (``configs.diffusion.ARCHS``); without
-it the net is the reference's small one at ``--image-size``. The
-``--plan`` mode waits for ROADMAP A8, ``--device-resident`` for A7's
-device-resident item, and the reference's ``--fake-devices`` mesh for
-A11.
+it the net is the reference's small one at ``--image-size``.
+``--device-resident`` runs the device-resident serve loop (DESIGN.md §12):
+on the card one CUDA graph a driver window (a WHILE node over the
+captured sync horizon; CUDA 12.3 or later), on the CPU the plain driver.
+The ``--plan`` mode waits for ROADMAP A8 and the reference's
+``--fake-devices`` mesh for A11.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --batch 4 --prompt-len 16 --gen-len 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion --arch highres_dit \\
-      --slots 8 --requests 16 --sync-horizon 4 --tier mixed
+      --slots 8 --requests 16 --sync-horizon 4 --tier mixed [--device-resident]
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion --device cpu \\
       --slots 4 --requests 8 --tier mixed --telemetry 256 --trace-out trace.json
 """
@@ -88,7 +90,8 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
     ``telemetry`` is the ring's capacity a slot; ``metrics_out`` writes
     the registry as JSON and a sibling ``.prom``; ``trace_out`` turns the
     stage tracer on and writes ``trace_record()`` as JSON (DESIGN.md §15).
-    ``device_resident=True`` raises (ROADMAP A7's device-resident item).
+    ``device_resident=True`` serves through the device-resident driver
+    (DESIGN.md §12); the record then counts its windows.
     """
     from repro_torch.configs.diffusion import ARCHS
     from repro_torch.core.guidance import ClassifierFree, Inpaint
@@ -101,10 +104,6 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
     from repro_torch.serving.diffusion_server import DiffusionBatcher, ImageRequest
     from repro_torch.serving.scheduler import EdfPriorityAdmission
 
-    if device_resident:
-        raise NotImplementedError(
-            "--device-resident waits for ROADMAP A7's device-resident item "
-            "(events_pending, solve_horizons, CUDA-graph chunks)")
     if inpaint and cfg_scale is not None:
         raise ValueError("pick one conditioner per server: --inpaint or --cfg-scale")
     dev = resolve_device(device)
@@ -139,6 +138,7 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
     tracer = StageTracer() if trace_out else None
     b = DiffusionBatcher(sde, step, model, shape, slots=slots, cfg=cfg,
                          sync_horizon=sync_horizon, compaction=compaction,
+                         device_resident=device_resident,
                          tolerance_classes=tiered or None,
                          admission=EdfPriorityAdmission(aging_s=5.0) if tiered else None,
                          telemetry=telemetry, tracer=tracer, device=dev)
@@ -188,6 +188,7 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
         "device_resident": device_resident,
         "host_transfers": b.host_transfers,
         "host_transfers_per_request": b.host_transfers / max(len(done), 1),
+        "horizon_windows": b.horizon_windows,
         "tier": tier,
         "deadline_ms": deadline_ms,
         "class_stats": b.class_stats if tiered else None,
@@ -219,7 +220,8 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
           f"({rec['samples_per_sec']:.2f} samples/s), {slots} slots, horizon "
           f"{sync_horizon}, mean NFE {rec['mean_nfe']:.1f}, wasted NFE "
           f"{rec['wasted_nfe_fraction']:.1%}, host transfers/request "
-          f"{rec['host_transfers_per_request']:.1f}, solver syncs {b.solver_syncs}")
+          f"{rec['host_transfers_per_request']:.1f}, solver syncs {b.solver_syncs}, "
+          f"{'driver windows' if device_resident else 'chunks'} {b.horizon_windows}")
     if tiered:
         for name in sorted(rec["class_stats"]):
             st = rec["class_stats"][name]
@@ -252,7 +254,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--no-compaction", action="store_true",
                     help="monolithic-wave baseline: no mid-flight slot refill")
     ap.add_argument("--device-resident", action="store_true",
-                    help="on-device serve loop: waits for ROADMAP A7 (raises)")
+                    help="device-resident serve loop: one host read a driver window "
+                         "(DESIGN.md §12; CUDA graphs on the card)")
     ap.add_argument("--precision", default="fp32", choices=sorted(PRESETS),
                     help="precision policy of the diffusion server (DESIGN.md §8)")
     ap.add_argument("--inpaint", action="store_true",

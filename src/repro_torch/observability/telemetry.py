@@ -62,13 +62,6 @@ class StepTelemetry:
     def capacity(self) -> int:
         return self.t.shape[1]
 
-    def index_rows(self, idx: Tensor) -> "StepTelemetry":
-        """The ring with its rows gathered by ``idx`` (a compaction
-        permutation); the head is shared."""
-        take = lambda a: a.index_select(0, idx)
-        return StepTelemetry(t=take(self.t), h=take(self.h), err=take(self.err),
-                             accept=take(self.accept), head=self.head)
-
 
 def init_telemetry(batch: int, capacity: int, device="cpu") -> StepTelemetry:
     """A fresh all-zero ring of ``batch`` slots × ``capacity`` records on

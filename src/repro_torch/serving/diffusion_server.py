@@ -1,5 +1,5 @@
-"""Continuous-batching diffusion sampling server (DESIGN.md §4, §7); port
-of the host-driven path of ``repro/serving/diffusion_server.py``.
+"""Continuous-batching diffusion sampling server (DESIGN.md §4, §7, §12);
+port of ``repro/serving/diffusion_server.py``.
 
 The paper's per-sample step sizes (Sec. 3.1.5) mean each sample of a
 batch finishes its reverse diffusion at its own NFE. A server runs a
@@ -9,32 +9,48 @@ prior draw: no request waits for the batch's slowest sample.
 
 Horizon-chunked solve (DESIGN.md §7): the device step is the solver's
 own ``solve_chunk`` (``launch.sample.make_sample_step``) over a
-``SolverCarry`` whose noise comes from per-slot sources.
+``SolverCarry`` whose noise comes from per-slot streams.
 ``sync_horizon`` Algorithm-1 iterations run per host sync; then the
 host retires converged slots, compacts the survivors and admits queued
 requests into the freed slots (a prior drawn from the request's own
-seed at t = T). Every slot owns its noise stream, so a sample's
+stream at t = T). Every slot owns its noise stream, so a sample's
 trajectory does not depend on its slot or its seatmates: compaction and
 admission never perturb a sample in flight.
 
-Per-request streams: by default a request's prior and its noise come
-from one ``torch.Generator`` on the carry's device, seeded with
-``ImageRequest.seed`` (the prior first, then one draw an iteration,
-two with a projecting conditioner), the order ``sample(seed=...)``
-draws in. ``request_streams`` replaces that: the parity tests hand every
-request the reference's own prior and per-slot draws through it.
+Per-request streams: by default a request's stream is device data, a
+``SlotStreams`` row (seed ``ImageRequest.seed``, a counter) drawn by the
+P1 kernel: the prior is the draw at counter 0, then one draw an
+iteration (two with a projecting conditioner) from counter 1, the order
+``sample(seed=...)`` draws in, so a request served with seatmates is
+bitwise its solo batch-1 ``adaptive()`` on ``SlotStreams.of([seed], 1)``.
+``request_streams`` replaces that: the parity tests hand every request
+the reference's own prior and per-slot draws through it (Python
+callables, which a CUDA graph cannot call).
 
 What crosses the device: compaction permutes every carry leaf with one
-``index_select`` on the device and admission scatters the admitted rows
-with ``index_copy``; only the (B,) bookkeeping and the retired rows come
-to the host, through ``_d2h``, which counts each read
+``index_select`` on the device and admission writes the admitted rows
+with ``index_copy_``, both in place; only the (B,) bookkeeping and the
+retired rows come to the host, through ``_d2h``, which counts each read
 (``host_transfers``). The solver's own syncs (one before and one after
 each group of ``SYNC_EVERY`` iterations, ``adaptive.sync_state``) are
 counted apart, in ``solver_syncs``.
 
-Not ported: the device-resident serve loop (DESIGN.md §12;
-``device_resident=True`` raises, ROADMAP A7) and mesh serving
-(``mesh=`` raises, ROADMAP A11).
+Device-resident hot path (DESIGN.md §12; ``device_resident=True``): the
+per-horizon polling loop moves to the device. A driver
+(``adaptive.HorizonDriver``) chains sync-horizon chunks until a serving
+event (a pending delivery) fires or ``MAX_HORIZONS`` ran, and the host
+reads one (2,) int32 a window: the event flag and the horizons run. On
+the card the driver is one CUDA graph: the horizon captured once per
+server over the carry's static buffers, inside a WHILE node whose
+condition is the P2 kernel (``kernels.graph_loop``). On the CPU it is
+the plain loop over ``solve_chunk``. Only when the flag is set does the
+host pull the (B,) bookkeeping and the retired rows and write the
+permutation and the admissions into the same buffers in place
+(``_process_events``), so host↔device traffic is O(delivered requests),
+not O(sync horizons), and the delivered samples are the host-driven
+loop's bit for bit.
+
+Not ported: mesh serving (``mesh=`` raises, ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -52,8 +68,8 @@ from repro_torch.configs.diffusion import ToleranceClass, resolve_tier
 from repro_torch.core.precision import resolve_policy
 from repro_torch.core.sde import SDE
 from repro_torch.core.solvers import adaptive as ad
-from repro_torch.core.solvers.adaptive import AdaptiveConfig, SolverCarry
-from repro_torch.core.solvers.base import solver_nfe_per_iteration
+from repro_torch.core.solvers.adaptive import AdaptiveConfig, HorizonDriver, SolverCarry
+from repro_torch.core.solvers.base import SlotStreams, solver_nfe_per_iteration
 from repro_torch.device import resolve_device
 from repro_torch.observability.metrics import MetricsRegistry
 from repro_torch.observability.telemetry import init_telemetry, telemetry_history
@@ -63,6 +79,10 @@ from repro_torch.serving.scheduler import (
 )
 
 Tensor = torch.Tensor
+
+#: sync horizons one device-resident window runs at most (the reference's
+#: default ``max_horizons``): how long newcomers wait for free slots
+MAX_HORIZONS = 32
 
 
 @dataclasses.dataclass
@@ -131,25 +151,30 @@ class DiffusionBatcher:
     that capacity a slot, ``tracer`` records stage spans, and every
     serve-loop counter lives in the ``metrics`` registry (DESIGN.md §15).
 
+    ``device_resident=True`` (DESIGN.md §12) replaces the per-horizon
+    host round trip with the device-resident driver: up to
+    ``MAX_HORIZONS`` sync-horizon chunks a host visit, one read a window
+    (module docstring). ``graph_captures`` counts the horizon graphs the
+    server captured (one on the card, at its first window).
+
     ``device`` holds the carry (``cuda`` unless the caller passes
     ``"cpu"``); ``request_streams(req, shape, device) -> (prior, source)``
-    replaces the default per-request generator (module docstring).
+    replaces the default per-request streams (module docstring); a
+    device-resident server on the card refuses it.
     """
 
     def __init__(self, sde: SDE, sample_step: Callable, params, sample_shape, *,
                  slots: int = 8, cfg: AdaptiveConfig | None = None, mesh=None,
                  sync_horizon: int = 1, compaction: bool = True,
-                 device_resident: bool = False, tolerance_classes=None,
+                 device_resident: bool = False,
+                 tolerance_classes=None,
                  admission: Optional[AdmissionPolicy] = None, delivery=None,
                  clock: Optional[Callable[[], float]] = None, telemetry: int = 0,
                  tracer=None, device="cuda", request_streams: Optional[Callable] = None):
-        if device_resident:
-            raise NotImplementedError(
-                "the device-resident serve loop (events_pending, solve_horizons, "
-                "CUDA-graph chunks) waits for ROADMAP A7's device-resident item")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh serving, DiffusionBatcher(mesh=), waits for ROADMAP A11")
+                "mesh serving, DiffusionBatcher(mesh=), host-driven or device-resident, "
+                "waits for ROADMAP A11")
         self.sde = sde
         self.cfg = cfg or AdaptiveConfig()
         self.policy = resolve_policy(self.cfg.precision)
@@ -157,8 +182,14 @@ class DiffusionBatcher:
         self.n = slots
         self.shape = tuple(sample_shape)
         self.device = resolve_device(device)
+        if device_resident and request_streams is not None and self.device.type == "cuda":
+            raise ValueError(
+                "request_streams hands the carry Python callables, which the device-"
+                "resident driver's CUDA graph cannot call: on the card it draws from "
+                "SlotStreams only (the CPU's plain driver takes request_streams)")
         self.sync_horizon = int(sync_horizon)
         self.compaction = bool(compaction)
+        self.device_resident = bool(device_resident)
         #: score-net evaluations one loop iteration issues over the slots
         self.nfe_per_iter = solver_nfe_per_iteration("adaptive")
         self.tiered = bool(tolerance_classes)
@@ -180,14 +211,17 @@ class DiffusionBatcher:
         if hasattr(self.delivery, "bind"):
             # the delivery stage's per-tier books share the serve loop's
             self.delivery.bind(self.metrics)
-        self._streams = request_streams or self._seeded_streams
+        self._streams = request_streams
         #: the tolerance a tier-less request rides: solve_chunk's rule
         self._default_atol = float(sde.abs_tolerance if self.cfg.eps_abs is None
                                    else self.cfg.eps_abs)
         self._default_rtol = float(self.cfg.eps_rel)
         self._default_h0 = min(float(self.cfg.h_init), sde.T - sde.t_eps)
         self.conditioner = self.cfg.conditioner
-        self.step_fn = lambda p, c: sample_step(p, c, max_sync_iters=self.sync_horizon)
+        self.sample_step = sample_step
+        # no reference to self: a server (and its captured graph) is freed
+        # as soon as its last user lets go of it
+        self.step_fn = lambda p, c, h=self.sync_horizon: sample_step(p, c, max_sync_iters=h)
         #: one device, one block of slots (the reference's per-device
         #: admission counts under a mesh, ROADMAP A11)
         self.slots_per_device = slots
@@ -195,8 +229,14 @@ class DiffusionBatcher:
         self.queue: Deque[ImageRequest] = deque()
         self.finished: Dict[int, ImageRequest] = {}
         self._slot_req: List[Optional[ImageRequest]] = [None] * slots
-        #: step() chunks run
+        #: driver windows (device-resident) / step() chunks (host-driven)
         self.horizon_windows = 0
+        #: sync horizons the device-resident driver ran, over all windows
+        self.device_horizons = 0
+        #: device-resident host visits: at an event (delivery pulls) and
+        #: admission-only (newcomers into free slots, one pull)
+        self.event_visits = 0
+        self.admission_visits = 0
         #: host mirror of the carry's iteration counter (one read a chunk)
         self._host_iters = 0
         B, dev = slots, self.device
@@ -211,7 +251,9 @@ class DiffusionBatcher:
             done=torch.ones((B,), dtype=torch.bool, device=dev),
             iterations=torch.zeros((), dtype=torch.int32, device=dev),
             # idle slots draw from no request's stream
-            generator=[None] * B,
+            generator=(SlotStreams(seed=torch.full((B,), -1, dtype=torch.int64, device=dev),
+                                   counter=torch.zeros((B,), dtype=torch.int64, device=dev))
+                       if request_streams is None else [None] * B),
             cond=(None if self.conditioner is None
                   else self._to_device(self.conditioner.neutral_cond(B, self.shape))),
             atol=f32(self._default_atol) if self.tiered else None,
@@ -219,6 +261,10 @@ class DiffusionBatcher:
             telemetry=(init_telemetry(B, self.telemetry_capacity, dev)
                        if self.telemetry_capacity > 0 else None),
         )
+        #: the host's slot occupancy on the device, for the driver's event
+        #: flag (idle slots ride with done=True); refreshed after each event
+        self._occupied = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self._driver: Optional[HorizonDriver] = None
 
     # ------------------------------------------------------------------
     def _d2h(self, *tensors):
@@ -231,12 +277,6 @@ class DiffusionBatcher:
 
     def _to_device(self, cond: dict) -> dict:
         return {k: v.to(self.device) for k, v in cond.items()}
-
-    def _seeded_streams(self, req: ImageRequest, shape, device):
-        """(prior, noise source) of a request: one generator seeded with
-        ``req.seed``, the prior drawn first."""
-        g = torch.Generator(device=device).manual_seed(int(req.seed))
-        return self.sde.prior_sample(shape, g), g
 
     def _request_cond(self, req: ImageRequest) -> dict:
         """An admitted request's condition rows: its own ``cond`` coerced
@@ -319,6 +359,12 @@ class DiffusionBatcher:
         apart from ``host_transfers``; the reference's jitted chunk has
         none."""
         return int(self._c_syncs.value)
+
+    @property
+    def graph_captures(self) -> int:
+        """Horizon graphs this server captured: one on the card once the
+        device-resident driver has run, else 0."""
+        return 0 if self._driver is None else self._driver.captures
 
     @property
     def class_stats(self) -> Dict[str, Any]:
@@ -419,82 +465,190 @@ class DiffusionBatcher:
             return  # monolithic wave: turn over once every slot converged
         if not any(conv) and not (self.queue and not all(occupied)):
             return
-        dev = self.device
 
         # 1. deliver the converged slots (the t_eps state, before the
         #    Tweedie denoise, as the reference delivers)
         conv_idx = [i for i in range(self.n) if conv[i]]
         if conv_idx:
-            idx = torch.tensor(conv_idx, dtype=torch.long, device=dev)
-            rows = c.x.index_select(0, idx).to(torch.float32)
-            if self.conditioner is not None:
-                cond_rows = {k: v.index_select(0, idx) for k, v in c.cond.items()}
-                rows = self.conditioner.finalize_project(rows, cond_rows)
-            rows, nfe, acc, rej = self._d2h(rows, c.nfe, c.accepted, c.rejected)
+            rows, nfe, acc, rej = self._d2h(self._retired_rows(conv_idx), c.nfe,
+                                            c.accepted, c.rejected)
             self._retire(rows, nfe, acc, rej, conv_idx)
-
-        # 2. compaction: each sample's noise source moves with it
+        # 2. compaction (each sample's stream moves with it) and 3. admission
         perm = self._compaction_perm()
-        permute = not np.array_equal(perm, np.arange(self.n))
-        perm_t = torch.from_numpy(perm).to(dev) if permute else None
-
-        # 3. admission: each request's prior from its own stream, at t = T
         admit_pos, reqs = self._admit_from_queue()
-        pos_t = torch.tensor(admit_pos, dtype=torch.long, device=dev)
-        priors, sources = [], []
-        for req in reqs:
-            prior, src = self._streams(req, self.shape, dev)
-            priors.append(prior)
-            sources.append(src)
-
-        def update(leaf: Tensor, admit=None) -> Tensor:
-            if permute:
-                leaf = leaf.index_select(0, perm_t)
-            if admit_pos and admit is not None:
-                if not isinstance(admit, Tensor):
-                    admit = torch.full((len(admit_pos),), admit, dtype=leaf.dtype,
-                                       device=dev)
-                leaf = leaf.index_copy(0, pos_t, admit.to(leaf.dtype))
-            return leaf
-
-        x_admit = torch.stack(priors).to(dev) if admit_pos else None
-        tol = [None] * 3
-        if self.tiered and admit_pos:
-            tols = np.asarray([self._request_tol(r) for r in reqs], np.float32).T
-            tol = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in tols]
-        cond = c.cond
-        if cond is not None:
-            rows = [self._request_cond(r) for r in reqs]
-            cond = {k: update(v, torch.stack([r[k] for r in rows]).to(dev)
-                              if admit_pos else None)
-                    for k, v in cond.items()}
-        gens = [c.generator[j] for j in perm]
-        for i, src in zip(admit_pos, sources):
-            gens[i] = src
-        self._carry = SolverCarry(
-            x=update(c.x, x_admit), x_prev=update(c.x_prev, x_admit),
-            t=update(c.t, float(self.sde.T)),
-            h=update(c.h, self._default_h0 if tol[2] is None else tol[2]),
-            nfe=update(c.nfe, 0), accepted=update(c.accepted, 0),
-            rejected=update(c.rejected, 0), done=update(c.done, False),
-            # the counter is per chunk in serving: folded into the host
-            # total and reset, so cfg.max_iters never trips on a long run
-            iterations=torch.zeros((), dtype=torch.int32, device=dev),
-            generator=gens, cond=cond,
-            atol=update(c.atol, tol[0]) if self.tiered else None,
-            rtol=update(c.rtol, tol[1]) if self.tiered else None,
-            # telemetry rows permute with their sample and are never
-            # cleared at admission (DESIGN.md §15)
-            telemetry=(None if c.telemetry is None
-                       else c.telemetry.index_rows(perm_t) if permute
-                       else c.telemetry),
-        )
+        self._write_slots(perm, admit_pos, reqs)
+        # the counter is per chunk in serving: folded into the host total
+        # and reset, so cfg.max_iters never trips on a long run
+        c.iterations.zero_()
         self._host_iters = 0
+
+    def _retired_rows(self, conv_idx) -> Tensor:
+        """The converged slots' rows in fp32, with the conditioner's exact
+        ``finalize_project`` (inpainting pins the observed coordinates)."""
+        c = self._carry
+        idx = torch.tensor(conv_idx, dtype=torch.long, device=self.device)
+        rows = c.x.index_select(0, idx).to(torch.float32)
+        if self.conditioner is not None:
+            cond_rows = {k: v.index_select(0, idx) for k, v in c.cond.items()}
+            rows = self.conditioner.finalize_project(rows, cond_rows)
+        return rows
+
+    def _write_slots(self, perm: np.ndarray, admit_pos, reqs) -> None:
+        """Apply one host decision to the carry in place: permute every
+        per-slot leaf by ``perm`` (the telemetry rows too; the ring is never
+        cleared at admission, DESIGN.md §15), then write the admitted
+        requests' rows: the prior at t = T (each request's stream at
+        counter 0), h0 or the tier's h, zeroed counts, the tier's
+        atol/rtol, the condition payload, and the stream itself from
+        counter 1. The device-resident driver's graph reads these same
+        buffers, so nothing is rebound."""
+        c, dev = self._carry, self.device
+        permute = not np.array_equal(perm, np.arange(self.n))
+        if permute:
+            perm_t = torch.from_numpy(perm).to(dev)
+            for leaf in self._slot_leaves():
+                leaf.copy_(leaf.index_select(0, perm_t))
+            if isinstance(c.generator, list):
+                c.generator = [c.generator[j] for j in perm]
+        if not admit_pos:
+            return
+        k = len(admit_pos)
+        pos_t = torch.tensor(admit_pos, dtype=torch.long, device=dev)
+        put = lambda leaf, v: leaf.index_copy_(
+            0, pos_t, v.to(leaf.dtype) if isinstance(v, Tensor)
+            else torch.full((k,), v, dtype=leaf.dtype, device=dev))
+        if isinstance(c.generator, SlotStreams):
+            seeds = torch.tensor([int(r.seed) for r in reqs], dtype=torch.int64, device=dev)
+            priors = self.sde.prior_sample((k,) + self.shape,
+                                           SlotStreams(seed=seeds, counter=torch.zeros_like(seeds)))
+            put(c.generator.seed, seeds)
+            put(c.generator.counter, 1)
+        else:
+            drawn = [self._streams(req, self.shape, dev) for req in reqs]
+            priors = torch.stack([p for p, _ in drawn]).to(dev)
+            for i, (_, src) in zip(admit_pos, drawn):
+                c.generator[i] = src
+        put(c.x, priors)
+        put(c.x_prev, priors)
+        put(c.t, float(self.sde.T))
+        for leaf in (c.nfe, c.accepted, c.rejected):
+            put(leaf, 0)
+        put(c.done, False)
+        if self.tiered:
+            tols = np.asarray([self._request_tol(r) for r in reqs], np.float32).T
+            for leaf, v in zip((c.atol, c.rtol, c.h), tols):
+                put(leaf, torch.from_numpy(np.ascontiguousarray(v)).to(dev))
+        else:
+            put(c.h, self._default_h0)
+        if c.cond is not None:
+            rows = [self._request_cond(r) for r in reqs]
+            for name, leaf in c.cond.items():
+                put(leaf, torch.stack([r[name] for r in rows]).to(dev))
+
+    def _slot_leaves(self) -> List[Tensor]:
+        """Every (B, ...) tensor of the carry that moves with its slot."""
+        c = self._carry
+        leaves = [c.x, c.x_prev, c.t, c.h, c.nfe, c.accepted, c.rejected, c.done]
+        if isinstance(c.generator, SlotStreams):
+            leaves += [c.generator.seed, c.generator.counter]
+        if c.atol is not None:
+            leaves += [c.atol, c.rtol]
+        if c.cond is not None:
+            leaves += list(c.cond.values())
+        if c.telemetry is not None:
+            tel = c.telemetry
+            leaves += [tel.t, tel.h, tel.err, tel.accept]
+        return leaves
+
+    # ------------------------------------------------------------------
+    def _set_occupied(self) -> None:
+        """Mirror the host's slot occupancy into the device mask the
+        driver's event flag reads (one host→device copy)."""
+        self._occupied.copy_(torch.tensor([r is not None for r in self._slot_req]))
+
+    def _device_driver(self) -> HorizonDriver:
+        """The device-resident driver, built at the first window: on the
+        card it captures the horizon over the carry's buffers (once per
+        server) and builds the WHILE-node graph around it."""
+        if self._driver is None:
+            step, params, h = self.sample_step, self.params, self.sync_horizon
+            if self.device.type == "cuda":
+                unit = lambda c: step.capture_horizon(params, c, h)
+            else:
+                unit = lambda c: step(params, c, max_sync_iters=h)
+            self._driver = HorizonDriver(self._carry, self._occupied, unit,
+                                         max_horizons=MAX_HORIZONS,
+                                         wait_all=not self.compaction)
+            self._carry = self._driver.carry
+        return self._driver
+
+    def _process_events(self, deliver: bool = True) -> None:
+        """Device-resident event handler (DESIGN.md §12): one host visit
+        that retires, compacts and admits, written into the carry's
+        buffers in place.
+
+        ``deliver=False`` is the admission-only form (newcomers into
+        already-free slots: nothing to deliver, so only the iteration
+        counter is pulled). Every read goes through ``_d2h``: one
+        bookkeeping pull, plus one pull of the retired rows when something
+        converged — O(events), never O(horizons)."""
+        c = self._carry
+        if deliver:
+            self.event_visits += 1
+            done, nfe, acc, rej, iters = self._d2h(c.done, c.nfe, c.accepted, c.rejected,
+                                                   c.iterations)
+        else:
+            self.admission_visits += 1
+            iters = self._d2h(c.iterations)
+            done, acc, rej, nfe = np.zeros(self.n, bool), None, None, None
+        # fold-and-reset: the device counter restarts at every host visit
+        self._c_iters.inc(int(iters))
+        self._host_iters = 0
+        conv_idx = [i for i, r in enumerate(self._slot_req) if r is not None and bool(done[i])]
+        if conv_idx:
+            self._retire(self._d2h(self._retired_rows(conv_idx)), nfe, acc, rej, conv_idx)
+        perm = self._compaction_perm()
+        can_admit = self.compaction or not any(r is not None for r in self._slot_req)
+        admit_pos, reqs = self._admit_from_queue() if can_admit else ([], [])
+        self._write_slots(perm, admit_pos, reqs)
+        c.iterations.zero_()
+        self._set_occupied()
+
+    def _device_step(self) -> int:
+        """One device-resident window: at most MAX_HORIZONS · sync_horizon
+        iterations a host visit, one read of the (event, horizons) flag."""
+        occupied = [r is not None for r in self._slot_req]
+        if self.queue and not all(occupied) and (self.compaction or not any(occupied)):
+            # admission is host knowledge (queue and occupancy): seat the
+            # newcomers before the window; no slot frees up inside it
+            self._process_events(deliver=False)
+        busy = sum(1 for r in self._slot_req if r is not None)
+        if busy == 0:
+            return 0
+        ann = (profiler_annotation("serve/solve", step=self.horizon_windows,
+                                   device=self.device)
+               if self.tracer.enabled else contextlib.nullcontext())
+        with self.tracer.span("serve/solve", window=self.horizon_windows,
+                              busy=busy), ann:
+            driver = self._device_driver()
+            syncs = ad.host_syncs
+            state = driver.window()
+            event, horizons = self._d2h(state)
+            self._c_syncs.inc(ad.host_syncs - syncs)
+        self.horizon_windows += 1
+        self.device_horizons += int(horizons)
+        driver.account(int(horizons))
+        if event:
+            self._process_events()
+        return busy
 
     # ------------------------------------------------------------------
     def step(self) -> int:
-        """One serve-loop turn, one sync-horizon chunk; returns the busy
-        slots that entered the device work."""
+        """One serve-loop turn; returns the busy slots that entered the
+        device work. Host-driven: one sync-horizon chunk. Device-resident:
+        one driver window."""
+        if self.device_resident:
+            return self._device_step()
         self._sync()
         busy = sum(1 for r in self._slot_req if r is not None)
         if busy == 0:
@@ -521,7 +675,11 @@ class DiffusionBatcher:
             if self.step() == 0 and not self.queue:
                 break
             steps += 1
-        self._sync()  # deliver the stragglers
+        # deliver the stragglers
+        if self.device_resident:
+            self._process_events()
+        else:
+            self._sync()
         return self.finished
 
     # ------------------------------------------------------------------

@@ -22,12 +22,14 @@ Three groups:
     ``test_torch_adaptive.py``).
   * **mirrors** of ``tests/test_diffusion_server.py`` (all six) and of
     ``tests/test_tolerance_tiers.py`` (four: the retrace test has no
-    eager counterpart, since the port compiles nothing to retrace, and
-    the device-resident cases wait for the device-resident serve loop), in
-    the port's own RNG: bitwise scheduling invariance, solo ≡ served.
+    eager counterpart, since the port compiles nothing to retrace; the
+    device-resident rows are in ``test_torch_device_serving.py``), in
+    the port's own RNG (``SlotStreams``): bitwise scheduling invariance,
+    solo ≡ served.
   * **launcher**: ``serve_diffusion`` on the CPU returns the reference's
-    record keys, ``--tier mixed`` gives per-class stats, and the
-    device-resident and mesh modes raise naming their ROADMAP items.
+    record keys, ``--tier mixed`` gives per-class stats, the
+    device-resident mode runs and the mesh mode raises naming ROADMAP
+    A11.
 
 The closed-form Gaussian score stands in for the net (as in the
 reference's tests) except in one parity case through a small livened DiT.
@@ -56,6 +58,7 @@ from repro_torch.core import analytic as tan
 from repro_torch.core.guidance import ClassifierFree, Inpaint
 from repro_torch.core.sde import VPSDE
 from repro_torch.core.solvers.adaptive import AdaptiveConfig, adaptive
+from repro_torch.core.solvers.base import SlotStreams
 from repro_torch.launch import serve as tserve
 from repro_torch.launch.sample import make_sample_step
 from repro_torch.models import dit as tdit
@@ -389,18 +392,17 @@ def _request_eps(sde, cfg, tier):
 
 def _solo(sde, cfg, seed, atol, rtol):
     """Solo batch-1 ``adaptive()`` at the request's tolerance, on the
-    server's stream discipline (one generator seeded with the seed: the
-    prior, then the noise)."""
-    g = torch.Generator().manual_seed(seed)
-    x0 = sde.prior_sample((1, D), g)
+    server's stream discipline (the request's ``SlotStreams`` row: the
+    prior at counter 0, the noise from counter 1)."""
+    x0 = sde.prior_sample((1, D), SlotStreams.of([seed], 0, "cpu"))
     fwd = tan.gaussian_noise_pred(sde, MU, S0)
 
     def score(x, t):
         _, std = sde.marginal(t)
         return -fwd(x, t).to(torch.float32) / std.reshape(-1, 1)
 
-    res = adaptive(sde, score, x0, g, config=cfg, denoise=False, atol=atol, rtol=rtol,
-                   device="cpu")
+    res = adaptive(sde, score, x0, SlotStreams.of([seed], 1, "cpu"), config=cfg, denoise=False,
+                   atol=atol, rtol=rtol, device="cpu")
     return res.x[0].numpy(), int(res.nfe[0])
 
 
@@ -413,7 +415,8 @@ def _serve_wave(parts, **kw):
 
 @pytest.mark.parametrize("kw", [
     dict(sync_horizon=1), dict(sync_horizon=8), dict(sync_horizon=8, compaction=False),
-], ids=["h1", "h8", "h8-nocompact"])
+    dict(sync_horizon=4, device_resident=True),
+], ids=["h1", "h8", "h8-nocompact", "device-resident"])
 def test_mixed_wave_bit_identical_to_solo_at_own_tolerance(parts, kw):
     sde, cfg, _ = parts
     _, done = _serve_wave(parts, **kw)
@@ -496,12 +499,15 @@ def test_serve_cli_conditioned_modes():
 
 
 def test_device_resident_and_mesh_raise_naming_roadmap(parts):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tserve.serve_diffusion(slots=2, requests=1, device_resident=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        _batcher(parts, device_resident=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        _batcher(parts, mesh=object())
+    """The device-resident mode runs (the plain driver on the CPU); mesh
+    serving raises, device-resident or not, naming ROADMAP A11."""
+    rec = tserve.serve_diffusion(slots=2, requests=1, device_resident=True, device="cpu")
+    assert rec["completed"] == 1 and rec["device_resident"]
+    assert rec["horizon_windows"] >= 1
+    assert _batcher(parts, device_resident=True).device_resident
+    for dr in (False, True):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            _batcher(parts, mesh=object(), device_resident=dr)
 
 
 def test_server_without_a_card_raises(parts, monkeypatch):

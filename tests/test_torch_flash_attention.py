@@ -191,3 +191,22 @@ def test_3xtf32_split_keeps_fp32_accuracy(shape):
            for n in (1, 3)}
     assert err[3] <= bound, err
     assert err[1] > bound, err
+
+
+@pytest.mark.parametrize("B,Hq", [(8, 12), (5461, 12), (17_500, 4), (70_000, 1), (65_535, 1),
+                                  (9, 8192)])
+def test_batch_ranges_cover_every_head_once(B, Hq):
+    """(b, h) pairs sit on ``gridDim.y``, so one launch takes at most
+    65,535: the wrapper launches a larger batch in ranges of whole batches
+    that cover every (b, h) exactly once; up to 65,535 pairs it is today's
+    single launch of all B."""
+    ranges = ops.batch_ranges(B, Hq)
+    pairs = [(b, h) for b0, nb in ranges for b in range(b0, b0 + nb) for h in range(Hq)]
+    assert pairs == [(b, h) for b in range(B) for h in range(Hq)]
+    assert all(0 < nb * Hq <= ops.MAX_GRID_HEADS for _, nb in ranges)
+    if B * Hq <= ops.MAX_GRID_HEADS:
+        assert ranges == [(0, B)]
+    else:
+        assert len(ranges) > 1
+    with pytest.raises(ValueError):
+        ops.batch_ranges(1, ops.MAX_GRID_HEADS + 1)

@@ -895,3 +895,166 @@ def test_tiered_serve_on_card_is_bitwise_its_solo_runs(cuda):
         assert solo[u].nfe == mixed[u].nfe, u
         np.testing.assert_array_equal(solo[u].result, mixed[u].result, err_msg=f"uid {u}")
         assert np.isfinite(mixed[u].result).all()
+
+
+# --------------------------------------------------------------------------
+# the device-resident serve loop: P1, P2, the graphed horizon, K1/K3 ranges
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(8, 196_608), (64, 736), (4096, 2), (5, 7)], ids=str)
+def test_philox_kernel_matches_plain(cuda, shape):
+    """P1 against ``ref.py`` on the card: the uint32 words exactly, z within
+    2e-6·(1 + |z|) (library log/sqrt/sin/cos on both sides), an idle row
+    0, and permuted rows the output permuted bit for bit."""
+    from repro_torch.kernels.philox import ops as ph
+    from repro_torch.kernels.philox import ref as ph_ref
+
+    B, D = shape
+    g = torch.Generator(device=cuda).manual_seed(B)
+    seed = torch.randint(0, 2**62, (B,), generator=g, device=cuda)
+    seed[0] = -1
+    ctr = torch.randint(0, 2**40, (B,), generator=g, device=cuda)
+    assert torch.equal(ph.words(seed, ctr, D), ph_ref.philox_words(seed, ctr, D))
+    z, want = ph.normal(seed, ctr, D), ph_ref.philox_normal(seed, ctr, D)
+    assert ((z - want).abs() / (1 + want.abs())).max().item() <= 2e-6
+    assert not z[0].any()
+    perm = torch.randperm(B, generator=g, device=cuda)
+    assert torch.equal(ph.normal(seed[perm], ctr[perm], D), z[perm])
+
+
+def test_horizon_cond_flags_on_hand_built_masks(cuda):
+    from repro_torch.kernels.graph_loop import ops as loop_ops
+    from repro_torch.kernels.graph_loop import ref as loop_ref
+
+    state = torch.zeros(2, dtype=torch.int32, device=cuda)
+    for occ, done in (([1, 1, 0, 1], [0, 0, 1, 0]), ([1, 1, 0, 1], [1, 0, 1, 0]),
+                      ([1, 1, 0, 1], [1, 1, 1, 1]), ([0, 0, 0, 0], [1, 1, 1, 1])):
+        o = torch.tensor(occ, dtype=torch.bool, device=cuda)
+        d = torch.tensor(done, dtype=torch.bool, device=cuda)
+        for wait_all in (False, True):
+            plain = torch.zeros(2, dtype=torch.int32)
+            for first in (True, False, False):
+                loop_ops.horizon_cond(o, d, state, wait_all=wait_all, max_horizons=2,
+                                      first=first)
+                loop_ref.horizon_cond(o.cpu(), d.cpu(), plain, wait_all=wait_all,
+                                      max_horizons=2, first=first)
+                assert state.tolist() == plain.tolist(), (occ, done, wait_all, first)
+
+
+def _analytic_step(cuda, **kw):
+    from repro_torch.launch.sample import make_sample_step
+
+    sde = VPSDE()
+    cfg = AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True, **kw)
+    f = tan.gaussian_noise_pred(sde, 0.3, 0.5)
+    return sde, cfg, make_sample_step(sde, cfg, forward_fn=lambda p, x, t: f(x, t))
+
+
+def test_graphed_horizon_is_bitwise_the_eager_horizon(cuda):
+    """Two replays of one captured horizon on a carry of SlotStreams equal
+    two eager ``solve_chunk`` horizons leaf for leaf, counters included."""
+    import copy
+
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.core.solvers.base import SlotStreams
+
+    sde, cfg, step = _analytic_step(cuda)
+    seeds = list(range(8))
+    x0 = sde.prior_sample((8, 32), SlotStreams.of(seeds, 0, cuda))
+    graphed = ad.own_buffers(ad.init_carry(sde, x0, SlotStreams.of(seeds, 1, cuda), config=cfg))
+    eager = copy.deepcopy(graphed)
+    g = step.capture_horizon(None, graphed, 4)
+    for _ in range(2):
+        g.replay()
+        eager = step(None, eager, max_sync_iters=4)
+    for a, b in zip(ad._tensor_leaves(graphed), ad._tensor_leaves(eager)):
+        assert torch.equal(a, b)
+
+
+def test_graphed_horizon_counts_the_kernels_its_replays_launch(cuda):
+    """A horizon under capture launches nothing and records K1 and P1 once
+    a body iteration; a device-resident drain's counts are those calls
+    times the horizons the device ran, plus the capture's eager warm-up
+    iteration and P1 once an admission."""
+    from repro_torch.kernels.philox import ops as ph
+    from repro_torch.serving.diffusion_server import DiffusionBatcher, ImageRequest
+
+    sde, cfg, step = _analytic_step(cuda)
+    b = DiffusionBatcher(sde, step, None, (32,), slots=4, cfg=cfg, sync_horizon=2,
+                         device_resident=True, device=cuda)
+    for u in range(12):
+        b.submit(ImageRequest(uid=u, seed=u))
+    step_ops.launches = ph.launches = 0
+    graph = b._device_driver().graph
+    assert graph.recorded == {step_ops: 2, flash_ops: 0, ph: 2}
+    assert (step_ops.launches, ph.launches) == (1, 1)
+    b.run_to_completion()
+    assert step_ops.launches == 1 + 2 * b.device_horizons
+    admissions = ph.launches - 1 - 2 * b.device_horizons
+    assert 1 <= admissions <= b.event_visits + b.admission_visits
+
+
+@pytest.mark.parametrize("compaction", [True, False], ids=["compaction", "monolithic"])
+def test_device_resident_serve_on_card_matches_host_driven(cuda, compaction):
+    """The WHILE-node driver against the host-driven loop on the card: the
+    same samples, nfe and delivery order, fewer host reads, one capture,
+    and the carry's buffers where they were."""
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.serving.diffusion_server import DiffusionBatcher, ImageRequest
+
+    sde, cfg, step = _analytic_step(cuda)
+    runs = {}
+    for dr in (False, True):
+        b = DiffusionBatcher(sde, step, None, (32,), slots=4, cfg=cfg, sync_horizon=2,
+                             compaction=compaction, device_resident=dr, device=cuda)
+        for u in range(12):
+            b.submit(ImageRequest(uid=u, seed=u))
+        ptrs = [t.data_ptr() for t in ad._tensor_leaves(b._carry)]
+        done = b.run_to_completion()
+        runs[dr] = (b, done, ptrs)
+    (bh, dh, _), (bd, dd, ptrs) = runs[False], runs[True]
+    assert list(dh) == list(dd)
+    for u in dh:
+        assert dh[u].nfe == dd[u].nfe
+        np.testing.assert_array_equal(dh[u].result, dd[u].result)
+    assert bh.total_iterations == bd.total_iterations
+    assert bd.graph_captures == 1 and bd.solver_syncs == 0
+    assert bd.host_transfers + bd.solver_syncs < bh.host_transfers + bh.solver_syncs
+    assert [t.data_ptr() for t in ad._tensor_leaves(bd._carry)] == ptrs
+
+
+def test_device_resident_on_card_refuses_python_streams(cuda):
+    from repro_torch.serving.diffusion_server import DiffusionBatcher
+
+    sde, cfg, step = _analytic_step(cuda)
+    with pytest.raises(ValueError, match="CUDA graph"):
+        DiffusionBatcher(sde, step, None, (32,), slots=2, cfg=cfg, device_resident=True,
+                         device=cuda, request_streams=lambda req, shape, dev: None)
+
+
+@pytest.mark.parametrize("B", [70_000, 200_000])
+def test_solver_step_past_65535_rows_matches_plain(cuda, B):
+    """Rows past one launch's gridDim.y: the ranges' launches against the
+    plain version, and the first range bitwise a call on its rows alone."""
+    states, coeffs, (ea, er) = _step_inputs(B, 2, torch.float32, cuda, seed=6)
+    step_ops.launches = 0
+    xh, e2 = step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+    assert step_ops.launches == -(-B // step_ops.MAX_GRID_ROWS)
+    xr, er2 = step_ref.error_step(*states, *coeffs, ea, er)
+    torch.testing.assert_close(xh, xr, **X_TOL[torch.float32])
+    torch.testing.assert_close(e2, er2, rtol=1e-5, atol=0)
+    n = step_ops.MAX_GRID_ROWS
+    xa, ea2 = step_ops.error_step(*(a[:n] for a in states + coeffs), eps_abs=ea[:n],
+                                  eps_rel=er[:n])
+    assert torch.equal(xa, xh[:n]) and torch.equal(ea2, e2[:n])
+
+
+def test_flash_attention_past_65535_heads_matches_plain(cuda):
+    q, k, v = _qkv_on(cuda, 17_500, 4, 4, 8, 32, torch.float32)
+    flash_ops.launches = 0
+    out = flash_ops.attention(q, k, v, causal=False)
+    assert flash_ops.launches == 2
+    want = flash_ref.attention(q, k, v, causal=False)
+    torch.testing.assert_close(out, want, **A_TOL[torch.float32])
+    nb = flash_ops.batch_ranges(17_500, 4)[0][1]
+    assert torch.equal(flash_ops.attention(q[:nb], k[:nb], v[:nb], causal=False), out[:nb])

@@ -4,12 +4,11 @@ the telemetry leaf of the port's Algorithm-1 carry.
 
 Mirrors the rows of ``tests/test_observability.py`` that the port's
 slice holds: telemetry off ≡ on bitwise (the adaptive family at sync
-horizons 1 and 8; the momentum and Heun families wait for ROADMAP A5,
-the device-resident mode for A7), the ring against a host-replayed
-oracle, its wraparound and chunk-boundary invariance, request ids
-through compaction, the mixed-wave trace reconciliation and report, the
-registry, the tracer, and the quality gauges. The device-resident rows
-wait for the next slice.
+horizons 1 and 8 and device-resident; the momentum and Heun families
+wait for ROADMAP A5), the ring against a host-replayed oracle, its
+wraparound and chunk-boundary invariance, request ids through
+compaction, the mixed-wave trace reconciliation and report (host-driven
+and device-resident), the registry, the tracer, and the quality gauges.
 
 Against the reference: its ring and the port's, on the reference's
 replayed per-slot draws, hold the same accept bits record for record,
@@ -63,7 +62,8 @@ D = 32
 N_REQ = 6
 WAVE = ["draft", "high_fidelity", None, "standard", "draft", None,
         "high_fidelity", "draft", "standard", None]
-MODES = {"h1": dict(sync_horizon=1), "h8": dict(sync_horizon=8)}
+MODES = {"h1": dict(sync_horizon=1), "h8": dict(sync_horizon=8),
+         "device-resident": dict(sync_horizon=4, device_resident=True)}
 
 
 def _active_threshold(t_eps) -> float:
@@ -303,6 +303,28 @@ def test_mixed_wave_trace_reconciles_and_renders(parts):
                    "## Per-tier delivery", "draft"):
         assert needle in md, needle
     assert md == janalysis.telemetry_markdown(rec)
+
+
+def test_device_resident_trace_reconciles(parts):
+    """The same reconciliation on the device-resident path, whose
+    iteration counter folds at another seam (the multi-horizon driver's
+    events): ring head == total_iterations, ring sums == the requests'
+    books == the registry's."""
+    b, done = _serve(parts, n_req=len(WAVE), tiers=WAVE, sync_horizon=4,
+                     device_resident=True, tolerance_classes=True, telemetry=4096,
+                     tracer=StageTracer())
+    rec = json.loads(json.dumps(b.trace_record()))
+    reqs, tel, m = rec["requests"], rec["telemetry"], b.metrics
+    acc = np.asarray(tel["accept"]).astype(bool)
+    active = np.asarray(tel["t"]) > _active_threshold(tel["t_eps"])
+    assert tel["records"] == tel["iterations"] == b.total_iterations \
+        == int(m.value("serve_iterations_total"))
+    assert int(acc.sum()) == sum(r["accepted"] for r in reqs) \
+        == int(m.value("serve_accepted_total"))
+    assert int((active & ~acc).sum()) == sum(r["rejected"] for r in reqs)
+    assert sum(r["nfe"] for r in reqs) == sum(r.nfe for r in done.values()) \
+        == int(m.value("serve_nfe_useful_total"))
+    assert rec["metrics"]["gauges"]["serve_horizon_windows"] == b.horizon_windows
 
 
 # --------------------------------------------------------------------------

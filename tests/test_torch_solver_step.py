@@ -190,3 +190,21 @@ def test_kernel_config_row_order_never_depends_on_b(D):
     assert seen == {(-(-D // ops.STEP_TILE),
                      "one block a row" if D <= ops.STEP_TILE else "last block of a row",
                      ops.STEP_THREADS)}
+
+
+@pytest.mark.parametrize("B", [1, 8, 4096, 65_535, 65_536, 70_000, 200_000])
+def test_kernel_config_row_ranges_cover_every_row_once(B):
+    """Rows sit on ``gridDim.y``, so one launch takes at most 65,535: the
+    wrapper launches a larger batch in consecutive ranges (each on its
+    rows' slices, the tiling unchanged), which cover every row exactly
+    once; up to 65,535 rows it is today's single launch of all B."""
+    for D in (2, 736, 196_608):
+        cfg = ops.kernel_config(B, D, D, torch.float32, True)
+        rows = [r for r0, n in cfg["ranges"] for r in range(r0, r0 + n)]
+        assert rows == list(range(B))
+        assert all(0 < n <= ops.MAX_GRID_ROWS for _, n in cfg["ranges"])
+        assert cfg["tiles"] == -(-D // ops.STEP_TILE)
+        if B <= ops.MAX_GRID_ROWS:
+            assert cfg["ranges"] == [(0, B)] and cfg["grid"] == (cfg["tiles"], B)
+        else:
+            assert len(cfg["ranges"]) == -(-B // ops.MAX_GRID_ROWS)
