@@ -10,20 +10,25 @@ Phases; any failure exits non-zero before the result line is printed:
 2. kernels — each kernel against its plain PyTorch version, on the card,
              at the main paths' shapes and at edge shapes, each against
              its stated bound (K3, flash attention, fp32 and bf16 at the
-             DiT's and the planning shapes, GQA with a causal window, a
+             DiT's and the planning shapes, fp32 at the served closed
+             loop's (32, 4, 4, 8, 32), GQA with a causal window, a
              ragged S = 75 with true_len 50, D = 256, each the same bits
              on a second call; GroupNorm → SiLU at all 17 shapes of a
-             TRAJ_UNET forward, fp32 and bf16, and at x = 1e3 + N(0, 1),
+             TRAJ_UNET forward at 128 and at 32 rows (phase 6e's served
+             slots), fp32 and bf16, and at x = 1e3 + N(0, 1),
              on the register kernel the wrapper picks there and on the
              general kernel, forced, each the same bits on a second call;
              K1 at the DiT state, planning's (64, 736), B = 1 and two
              3072-column tiles a row, on operands off 16 bytes (bitwise
              the aligned call), every sub-batch of a B = 64 call bitwise
              its rows,
-             one CUDA kernel a call (torch.profiler), and a replayed CUDA
-             graph bitwise the eager call;
+             one CUDA kernel a call (the kernel nodes of a captured graph
+             of 8 calls, read through the driver API; torch.profiler's
+             trace may hold no more, nor any other kernel), and a
+             replayed CUDA graph bitwise the eager call;
              K5 at the DiT, Table-2 and planning states, ragged D, the
-             tables' (4096, 2) and (2048, 2), (5, 3) and B = 70,000, fp32
+             tables' (4096, 2) and (2048, 2), (5, 3), B = 70,000 and the
+             selection race's (512, 8), fp32
              and bf16, each also off 16 bytes (bitwise the aligned call),
              with the launch ``em_kernel_config`` gives, and a
              non-contiguous view, which must raise; K7,
@@ -36,13 +41,17 @@ Phases; any failure exits non-zero before the result line is printed:
              against the sequential oracle, bitwise equal on a second
              call; y and the final state against the oracle at a small
              shape, and bf16 at two shapes); K1 at the tables' states
-             (4096, 2) and (2048, 2) and the trained DIT_100M's (8, 3072);
+             (4096, 2) and (2048, 2) and the trained DIT_100M's (8, 3072),
+             and in fp32 at the zoo's and planning service's states (the
+             selection race's (512, 8), the served closed loop's (16, 768),
+             the OU service's (4, 32));
              K2 (the
              solver step with ε per row) at the DiT state with the three
              tiers' ε_rel in one call, within K1's bounds, the same bits
              twice, each row bitwise its uniform-ε call's; P1
              (``philox_normal``, the per-slot noise draw) at the DiT
-             state, planning's, Table 1's and a ragged row: the words
+             state, planning's, Table 1's, a ragged row and the served
+             states of phases 6d and 6e: the words
              exactly, z within 2e-6·(1 + |z|) of ``ref.py``, an idle row
              0, permuted rows bitwise; P2 (``horizon_cond``) on
              hand-built masks, exactly; K1 at (70,000, 2) and K3 at
@@ -152,6 +161,21 @@ Phases; any failure exits non-zero before the result line is printed:
              of WHILE-node graphs loses records and can fault, so it has
              no device-resident counterpart), and P1's and P2's device
              times.
+6d. zoo    — the solver zoo (``run_zoo``): momentum and Heun through
+             ``launch.sample.run`` from HIGHRES_DIT (batch 8, eps_rel 0.05,
+             K1 and K3, exact launches, nfe = 2·(accepted + rejected) + 1);
+             every ``analysis.solver_select.ZOO`` row on the closed-form
+             score, VP and VE, with exact K1/K5 launches, momentum and Heun
+             under their W2 gates, the selection report; each family served
+             host-driven and device-resident, every delivery bitwise its
+             batch-1 solve, Heun's captured horizon without P1.
+6e. plan service — ``launch.plan.serve_planning`` at the reference's
+             defaults and its steering gate (bin 2 above bin 4); the
+             receding-horizon planner at TRAJ_UNET's width (transition 24,
+             PointMassEnv(dim=8)), 32 environments, 3 rounds, 16 slots,
+             CFG 1.5, host-driven, K1/K3/K6/P1 exact a body iteration; the
+             first round drained host-driven and device-resident in turns,
+             bitwise the planner's deliveries (``run_plan_service``).
 6b. train and tables — the training slice, its memory freed before
              phase 7: DIT_100M (32×32, patch 2, d_model 768, 12 layers)
              trained DIT_STEPS steps at batch DIT_BATCH in fp32 with TF32
@@ -300,8 +324,10 @@ SERVE_TIERS = ("draft", "standard", "high_fidelity")
 #: P1 against its plain version, times (1 + |z|): both round each add and
 #: product once; logf, sqrtf, sinf and cosf differ from torch's by an ulp or two
 P1_TOL = 2e-6
-#: P1's shapes in phase 2: the DiT state, planning's, Table 1's, a ragged row
-P1_SHAPES = ((8, 196_608), (64, 736), (4096, 2), (5, 7))
+#: P1's shapes in phase 2: the DiT state, planning's, Table 1's, a ragged row,
+#: and the served states of phases 6d and 6e (the zoo's 8 slots of 3072, the
+#: closed loop's 16 slots of 32 · 24, the OU service's 4 slots of 8 · 4)
+P1_SHAPES = ((8, 196_608), (64, 736), (4096, 2), (5, 7), (8, 3072), (16, 768), (4, 32))
 #: operations per element of P1: a quarter of a Philox4x32-10 call (ten
 #: rounds of two 32-bit multiplies, their high halves, three xors and two
 #: key adds) and half of a Box–Muller pair (log, sqrt, sin, cos, four products)
@@ -313,6 +339,16 @@ P2_MASKS = (([1, 1, 0, 1], [0, 0, 1, 0]), ([1, 1, 0, 1], [1, 0, 1, 0]),
 #: K1 and K3 past one launch's 65,535 rows (gridDim.y): B 70,000 of
 #: Table 1's width; B·Hq 70,000
 K1_BIG, K3_BIG = (70_000, 2), (17_500, 4, 8, 32)
+#: the zoo's served families: state width (CIFAR's), slots, requests
+ZOO_SERVE_D, ZOO_SERVE_SLOTS, ZOO_SERVE_REQUESTS = 3072, 8, 12
+#: planning served at TRAJ_UNET's width: PointMassEnv's dim (obs 2·dim + act
+#: dim = 24 columns for TRAJ_UNET's 23), slots, environments, control rounds
+PLAN_SERVE_DIM, PLAN_SERVE_SLOTS, PLAN_SERVE_ENVS, PLAN_SERVE_ROUNDS = 8, 16, 32, 3
+#: the solver-step states of phases 6d and 6e, (rows, columns): the
+#: selection race (solver_select's BATCH x DIM), the closed loop at
+#: TRAJ_UNET's width (slots x horizon 32 · 24 columns) and the OU service
+#: at the reference's defaults (4 slots x horizon 8 · 4 columns)
+SERVED_STEP_SHAPES = ((512, 8), (PLAN_SERVE_SLOTS, 32 * 3 * PLAN_SERVE_DIM), (4, 8 * 4))
 #: the reference's bench workload (benchmarks/bench_device_serving.py)
 REQUESTS_PER_SLOT = 3
 #: K3 against its plain version, times (1 + max|out|): fp32 3e-5 (online
@@ -468,11 +504,16 @@ def small_kernels_build_summary(log: str) -> list:
 def check_solver_step_edges(dev, gen) -> dict:
     """Phase 2's K1 checks beyond the DiT shape: planning's (64, 736), B = 1,
     two tiles a row (3073) and the trained DIT_100M's sample state (8, 3072)
-    in fp32 and bf16 within the bounds and the same bits twice;
+    in fp32 and bf16, and in fp32 the zoo's and the planning service's
+    states (phases 6d and 6e: the selection race's (512, 8), the served
+    closed loop's (16, 768), the OU service's (4, 32)), within the bounds
+    and the same bits twice;
     operands off 16 bytes (single-element loads) bitwise equal to aligned
     copies; a row's bits at B = 64 equal to any sub-batch's; one CUDA kernel
-    a call (torch.profiler); the eager bits on every replay of a captured
-    CUDA graph. Returns the CUDA kernels a call at each shape."""
+    a call (the kernel nodes of a captured graph of 8 calls; torch.profiler's
+    trace of 8 eager calls may hold no more, nor any other kernel); the eager
+    bits on every replay of a captured CUDA graph. Returns the CUDA kernels a
+    call at each shape."""
     from repro_torch.kernels.solver_step import ops as step_ops
     from repro_torch.kernels.solver_step import ref as step_ref
 
@@ -487,9 +528,10 @@ def check_solver_step_edges(dev, gen) -> dict:
         return step_ops.error_step(*states, *coeffs, eps_abs=eps[0], eps_rel=eps[1])
 
     per_call = {}
+    served = [(b, d, torch.float32) for b, d in SERVED_STEP_SHAPES]
     for (b, d, dtype) in ((64, 736, torch.float32), (64, 736, torch.bfloat16),
                           (1, 196_608, torch.float32), (3, 3_073, torch.float32),
-                          (8, 3_072, torch.float32), (8, 3_072, torch.bfloat16)):
+                          (8, 3_072, torch.float32), (8, 3_072, torch.bfloat16), *served):
         states, coeffs, eps = inputs(b, d, dtype)
         xh, e2 = step(states, coeffs, eps)
         again = step(states, coeffs, eps)
@@ -523,17 +565,34 @@ def check_solver_step_edges(dev, gen) -> dict:
                 if not (torch.equal(bx, xh[rows]) and torch.equal(be, e2[rows])):
                     fail(f"solver_step at D={d}: rows {rows} alone give other bits than at B=64")
         torch.cuda.synchronize()
-        names, _ = profile_device(lambda: [step(states, coeffs, eps) for _ in range(8)])
-        kernels = {n: c for n, (c, _) in names.items()
-                   if "memcpy" not in n.lower() and "memset" not in n.lower()}
-        per_call[f"{b}x{d}"] = sum(kernels.values()) / 8
-        if per_call[f"{b}x{d}"] != 1 or not all("error_step_kernel" in n for n in kernels):
-            fail(f"solver_step at {(b, d)}: 8 calls ran {kernels}, not 8 error_step_kernel")
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             step(states, coeffs, eps)
         torch.cuda.current_stream().wait_stream(side)
+        # the CUDA kernels of 8 calls, read from a graph that captured them
+        # (every node it holds), then from torch.profiler, whose CUPTI
+        # trace may lose records: it fails only on a kernel too many or
+        # one of another name
+        held = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(held):
+            [step(states, coeffs, eps) for _ in range(8)]
+        nodes = graph_nodes(held)
+        del held
+        kernels = {n: c for n, c in nodes.items() if n != "other nodes"}
+        per_call[f"{b}x{d}"] = sum(kernels.values()) / 8
+        if (per_call[f"{b}x{d}"] != 1 or "other nodes" in nodes
+                or not all("error_step_kernel" in n for n in kernels)):
+            fail(f"solver_step at {(b, d)}: a graph of 8 calls holds {nodes}, "
+                 f"not 8 error_step_kernel")
+        names, _ = profile_device(lambda: [step(states, coeffs, eps) for _ in range(8)])
+        traced = {n: c for n, (c, _) in names.items()
+                  if "memcpy" not in n.lower() and "memset" not in n.lower()}
+        if sum(traced.values()) > 8 or not all("error_step_kernel" in n for n in traced):
+            fail(f"solver_step at {(b, d)}: the profiled 8 calls ran {traced}")
+        if sum(traced.values()) < 8:
+            print(f"  solver_step at {(b, d)}: the profiler's trace holds "
+                  f"{sum(traced.values())} of the 8 calls' kernel records (CUPTI lost the rest)")
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             outs = [step(states, coeffs, eps) for _ in range(3)]
@@ -544,7 +603,7 @@ def check_solver_step_edges(dev, gen) -> dict:
                 fail(f"solver_step at {(b, d)} in a replayed CUDA graph differs from eager")
         del graph, outs
     print(f"  solver_step at B = 64: every sub-batch (views and copies) gives its rows' bits "
-          f"at D = 736, 4999, 196,608; CUDA kernels a call (profiler) {per_call}; a captured "
+          f"at D = 736, 4999, 196,608; CUDA kernels a call (graph nodes) {per_call}; a captured "
           f"graph of 3 calls gives the eager bits on 3 replays")
     return per_call
 
@@ -780,6 +839,40 @@ class TickClock:
         return self.t
 
 
+def timed_windows(b):
+    """CUDA events around each of server ``b``'s solver windows: a
+    device-resident driver window's graph launch (the driver, its capture
+    and WHILE graph, is built here, before the run), or a host-driven chunk
+    (``step_fn``, whose host gaps fall inside). torch.profiler cannot take
+    the device-resident busy time: its CUPTI tracing of a WHILE-node graph
+    lost kernel records (864 of 1,920 K3 launches seen) and faulted with an
+    illegal address after ~90 horizons on this card (§7 of PERF.md)."""
+    times = []
+
+    def timing(fn):
+        def timed(*args):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args)
+            end.record()
+            times.append((start, end))
+            return out
+        return timed
+
+    if b.device_resident:
+        drv = b._device_driver()
+        drv.window = timing(drv.window)
+    else:
+        b.step_fn = timing(b.step_fn)
+    return times
+
+
+def span_ms(times) -> float:
+    """Device ms inside the windows ``timed_windows`` recorded."""
+    torch.cuda.synchronize()
+    return sum(st.elapsed_time(en) for st, en in times)
+
+
 def check_streams_and_grids(dev, gen) -> dict:
     """Phase 2's checks of the device-resident slice. P1 (``philox``)
     against its plain version (``ref.py``, run on the card) at the DiT
@@ -956,38 +1049,6 @@ def run_device_serve(dev, card: str, floor_ms: float) -> dict:
         return ImageRequest(uid=u, seed=u, tier=SERVE_TIERS[u % 3],
                             deadline_ms=SERVE_DEADLINE_MS)
 
-    def timed_windows(b):
-        """CUDA events around each of ``b``'s solver windows: a
-        device-resident driver window's graph launch (the driver, its
-        capture and WHILE graph, is built here, before the run), or a
-        host-driven chunk (``step_fn``, whose host gaps fall inside).
-        torch.profiler cannot take the device-resident busy time: its
-        CUPTI tracing of a WHILE-node graph lost kernel records (864 of
-        1,920 K3 launches seen) and faulted with an illegal address after
-        ~90 horizons on this card (§7 of PERF.md)."""
-        times = []
-
-        def timing(fn):
-            def timed(*args):
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-                out = fn(*args)
-                end.record()
-                times.append((start, end))
-                return out
-            return timed
-
-        if b.device_resident:
-            drv = b._device_driver()
-            drv.window = timing(drv.window)
-        else:
-            b.step_fn = timing(b.step_fn)
-        return times
-
-    def span_ms(times):
-        torch.cuda.synchronize()
-        return sum(st.elapsed_time(en) for st, en in times)
-
     def drain(b):
         for u in uids:
             b.submit(request(u))
@@ -1098,7 +1159,7 @@ def run_device_serve(dev, card: str, floor_ms: float) -> dict:
     # the device-resident drain's launches: what the captured horizon
     # holds, times the horizons the device ran, plus the eager calls
     names = {step_ops: "solver_step", flash_ops: "flash_attention", ph: "philox_normal"}
-    recorded = {names[m]: n for m, n in b_dev._driver.graph.recorded.items()}
+    recorded = {names[m]: n for m, n in b_dev._driver.graph.recorded.items() if m in names}
     per_iter = {k: v / H for k, v in recorded.items()}
     eager = {k: launches[k] - recorded[k] * b_dev.device_horizons for k in recorded}
     admits = b_dev.tracer.stage_histograms()["serve/admission"]["count"]
@@ -1315,18 +1376,70 @@ def dit_train_flops(cfg, batch: int) -> float:
     return 3 * (2 * batch * S * per_token + 2 * batch * per_sample + attention)
 
 
-def profile_device(fn) -> tuple:
+def profile_device(fn, attempts: int = 3) -> tuple:
     """Run ``fn`` under torch.profiler (CUDA activity): (device µs by
-    kernel name → (count, µs), total device µs)."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.device_time_total)
-    return by_name, sum(us for _, us in by_name.values())
+    kernel name → (count, µs), total device µs). Every caller's ``fn``
+    runs device work, so a trace with no device record at all is one
+    CUPTI lost: it is taken again, up to ``attempts`` traces, and the
+    run fails if none holds a record."""
+    for attempt in range(1, attempts + 1):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.device_time_total)
+        if by_name:
+            return by_name, sum(us for _, us in by_name.values())
+        print(f"  torch.profiler: trace {attempt} of {attempts} holds no device record")
+    fail(f"torch.profiler recorded no device activity in {attempts} traces")
+
+
+def graph_nodes(graph) -> dict:
+    """The nodes of a CUDA graph captured with ``keep_graph=True``, read
+    through the driver API (cuGraphGetNodes; a kernel node's function by
+    cuGraphKernelNodeGetParams and cuFuncGetName or cuKernelGetName): the
+    kernel nodes by function name, any other node under "other nodes".
+    What the graph holds is what its capture launched; unlike a CUPTI
+    trace, no record can be lost on the way."""
+    import ctypes
+
+    class KernelParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(name, *args):
+        rc = getattr(cu, name)(*args)
+        if rc != 0:
+            fail(f"{name} returned CUresult {rc}")
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", g, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    call("cuGraphGetNodes", g, nodes, ctypes.byref(count))
+    held = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        key = "other nodes"
+        if kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            p = KernelParams()
+            call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(p))
+            name = ctypes.c_char_p()
+            if p.func:
+                call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(p.func))
+            else:
+                call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(p.kern))
+            key = name.value.decode()
+        held[key] = held.get(key, 0) + 1
+    return held
 
 
 def check_tables_state_and_guard(dev, gen) -> dict:
@@ -1895,10 +2008,378 @@ def run_sharded(dev, card: str, main_wall_s: float) -> dict:
             "times": t, "all_reduce_9_us": ar["event_us"], "runs": runs}
 
 
+def run_zoo(dev, card: str, adaptive_rec: dict) -> dict:
+    """Phase 6d, the solver zoo: ``sample(method="momentum")`` and
+    ``sample(method="heun")`` through ``launch.sample.run`` from
+    HIGHRES_DIT (phase 3's seeded, livened weights, batch 8, eps_rel 0.05,
+    fused step, flash attention, fp32): finite, converged, nfe = 2·(accepted
+    + rejected) + 1 per sample, and exactly K1 once and K3 2·num_layers
+    times a body iteration (whole groups of SYNC_EVERY) plus num_layers for
+    the denoise, K5 never. Then the selection race: every ``ZOO`` row on
+    the closed-form Gaussian score, VP and VE (DDIM on VP), each row's K1
+    and K5 launches exactly its rule (K1 one a body iteration on the
+    Algorithm-1 families, K5 one a step on EM, two on PC, one on PC-HMC),
+    momentum and Heun under their W2 gates; the report printed. Last, each
+    family served (``DiffusionBatcher(solver=...)``, the closed-form score
+    at D ZOO_SERVE_D, ZOO_SERVE_SLOTS slots, sync horizon SERVE_HORIZON,
+    ZOO_SERVE_REQUESTS requests) host-driven and device-resident: every
+    delivery bitwise its batch-1 ``adaptive()`` on its own stream with its
+    NFE, the device-resident drain bitwise the host-driven one, and the
+    captured horizon holding P1 once a body iteration for momentum and
+    never for Heun (no z, no projection). Returns the numbers for the
+    kernels line."""
+    from repro_torch.analysis import solver_select
+    from repro_torch.configs.diffusion import HIGHRES_DIT
+    from repro_torch.core import analytic
+    from repro_torch.core.sde import VESDE, VPSDE, bcast
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.core.solvers.base import SlotStreams
+    from repro_torch.core.solvers.momentum import DEFAULT_BETA
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.philox import ops as ph
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.launch import sample as launcher
+    from repro_torch.launch.sample import make_sample_step
+    from repro_torch.serving.diffusion_server import DiffusionBatcher, ImageRequest
+
+    t_phase = time.perf_counter()
+    L = HIGHRES_DIT.num_layers
+    groups = lambda iters: ad.SYNC_EVERY * math.ceil(iters / ad.SYNC_EVERY)
+    out = {"dit": {}, "race": {}, "served": {}}
+    print(f"  adaptive (phase 3): {adaptive_rec['iterations']} iterations, mean NFE "
+          f"{adaptive_rec['mean_nfe']:.2f}, {adaptive_rec['wall_s']:.3f} s")
+    for method in ("momentum", "heun"):
+        step_ops.launches = step_ops.em_launches = flash_ops.launches = 0
+        rec = launcher.run("highres_dit", batch=8, precision="fp32", eps_rel=0.05,
+                           max_iters=MAIN_MAX_ITERS, flash=True, fused=True, seed=0,
+                           liven_seed=0, device=dev, method=method)
+        got = {"solver_step": step_ops.launches, "flash_attention": flash_ops.launches,
+               "em_step": step_ops.em_launches}
+        res, iters = rec["result"], rec["iterations"]
+        body = groups(iters)
+        want = {"solver_step": body, "flash_attention": 2 * L * body + L, "em_step": 0}
+        rule = bool(torch.equal(res.nfe, 2 * (res.accepted + res.rejected) + 1))
+        print(f"  [{card}] {method} from HIGHRES_DIT: {iters} iterations, mean NFE "
+              f"{rec['mean_nfe']:.2f} (adaptive {adaptive_rec['mean_nfe']:.2f}), "
+              f"{rec['wall_s']:.3f} s (adaptive {adaptive_rec['wall_s']:.3f}), accepted "
+              f"{int(res.accepted.sum())}, rejected {int(res.rejected.sum())}; nfe = "
+              f"2·(accepted + rejected) + 1: {rule}; launches {got} (want {want}); finite "
+              f"{rec['finite']}")
+        if (not rec["finite"] or rec["shape"] != adaptive_rec["shape"] or not rule
+                or iters >= MAIN_MAX_ITERS):
+            fail(f"{method} from HIGHRES_DIT: finite {rec['finite']}, shape {rec['shape']}, "
+                 f"nfe rule {rule}, {iters} iterations")
+        if got != want:
+            fail(f"{method} from HIGHRES_DIT launched {got}, not {want}")
+        out["dit"][method] = dict(iterations=iters, mean_nfe=rec["mean_nfe"],
+                                  wall_s=rec["wall_s"], launches=got)
+        del rec, res
+    torch.cuda.empty_cache()
+
+    # the selection race on the closed-form score, each row's launches exact
+    rows = []
+    for sde_name, sde_c in (("vp", VPSDE()), ("ve", VESDE(sigma_max=10.0))):
+        for solver, spec in solver_select.ZOO.items():
+            if spec.get("vp_only") and sde_name != "vp":
+                continue
+            kw = {"use_fused_kernel": True} if solver in launcher.ADAPTIVE_FAMILY else {}
+            step_ops.launches = step_ops.em_launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            row = solver_select.conformance_row(solver, sde_name, sde_c, device=dev, **kw)
+            torch.cuda.synchronize()
+            row["wall_s"] = time.perf_counter() - t0
+            row["launches"] = {"solver_step": step_ops.launches, "em_step": step_ops.em_launches}
+            n = spec["kwargs"].get("n_steps", 0)
+            want = {"solver_step": groups(row["iterations"]) if kw else 0,
+                    "em_step": {"em": n, "pc": 2 * n, "pc_hmc": n}.get(solver, 0)}
+            print(f"  [{card}] {sde_name} {solver:8s}: W2 {row['w2']:.4f} (gate {row['tol']}), "
+                  f"mean NFE {row['mean_nfe']:.1f}, {row['wall_s']:.3f} s, launches "
+                  f"{row['launches']} (want {want})")
+            if row["launches"] != want:
+                fail(f"the {sde_name} {solver} row launched {row['launches']}, not {want}")
+            if solver in ("momentum", "heun") and not row["w2"] < row["tol"]:
+                fail(f"{solver} on {sde_name} misses its W2 gate: {row['w2']:.4f}")
+            rows.append(row)
+    report = solver_select.select(rows)
+    print("  " + solver_select.render_markdown(report).replace("\n", "\n  "))
+    out["race"] = {f"{r['sde']}:{r['solver']}": {k: r[k] for k in (
+        "w2", "tol", "mean_nfe", "iterations", "wall_s", "launches")} for r in rows}
+    out["winners"] = {w: d["winner"] for w, d in report.items()}
+
+    # each family served: seatmates bitwise solo, device-resident bitwise host-driven
+    sde = VPSDE()
+    fwd = analytic.gaussian_noise_pred(sde, MU0, S00)
+    score = lambda x, t: -fwd(x, t) / bcast(sde.marginal(t)[1], x)  # make_sample_step's
+    for family, field in (("momentum", {"momentum": DEFAULT_BETA}),
+                          ("heun", {"probability_flow": True})):
+        cfg = ad.AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True, **field)
+        step = make_sample_step(sde, cfg, forward_fn=lambda p, x, t: fwd(x, t))
+        runs = {}
+        for resident in (False, True):
+            b = DiffusionBatcher(sde, step, None, (ZOO_SERVE_D,), slots=ZOO_SERVE_SLOTS,
+                                 cfg=cfg, sync_horizon=SERVE_HORIZON, device=dev,
+                                 solver=family, device_resident=resident)
+            for u in range(ZOO_SERVE_REQUESTS):
+                b.submit(ImageRequest(uid=u, seed=1000 + u))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = b.run_to_completion()
+            torch.cuda.synchronize()
+            runs[resident] = (b, done, time.perf_counter() - t0)
+        (bh, host, wall_h), (bd, dev_done, wall_d) = runs[False], runs[True]
+        solo_ok = True
+        for u, req in host.items():
+            x0 = sde.prior_sample((1, ZOO_SERVE_D), SlotStreams.of([req.seed], 0, device=dev))
+            solo = ad.adaptive(sde, score, x0, SlotStreams.of([req.seed], 1, device=dev),
+                               config=cfg, denoise=False, device=dev)
+            solo_ok &= (np.array_equal(solo.x[0].cpu().numpy(), req.result)
+                        and int(solo.nfe[0]) == req.nfe == 2 * (req.accepted + req.rejected))
+        same = list(host) == list(dev_done) and all(
+            np.array_equal(host[u].result, dev_done[u].result) and host[u].nfe == dev_done[u].nfe
+            for u in host)
+        recorded = {getattr(m, "__name__", str(m)).split(".")[-2]: n
+                    for m, n in bd._driver.graph.recorded.items()}
+        want_p1 = SERVE_HORIZON if family == "momentum" else 0
+        print(f"  [{card}] {family} served ({ZOO_SERVE_REQUESTS} requests, {ZOO_SERVE_SLOTS} "
+              f"slots, D {ZOO_SERVE_D}): nfe_per_iter {bh.nfe_per_iter}, wasted NFE "
+              f"{bh.wasted_nfe_fraction:.4f}; host-driven {wall_h:.3f} s, "
+              f"{bh.host_transfers + bh.solver_syncs} reads; device-resident {wall_d:.3f} s, "
+              f"{bd.host_transfers + bd.solver_syncs} reads; every delivery bitwise its solo "
+              f"adaptive() {solo_ok}; device-resident bitwise host-driven {same}; the "
+              f"captured horizon holds {recorded} (P1 want {want_p1})")
+        if not (solo_ok and same and len(host) == ZOO_SERVE_REQUESTS):
+            fail(f"{family} served: solo {solo_ok}, device-resident = host-driven {same}")
+        if recorded["philox"] != want_p1 or recorded["solver_step"] != SERVE_HORIZON:
+            fail(f"{family}'s captured horizon holds {recorded}")
+        out["served"][family] = dict(host_wall_s=wall_h, device_wall_s=wall_d,
+                                     host_reads=bh.host_transfers + bh.solver_syncs,
+                                     device_reads=bd.host_transfers + bd.solver_syncs,
+                                     recorded=recorded)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  [{card}] zoo phase {out['phase_s']:.1f} s")
+    return out
+
+
+def run_plan_service(dev, card: str) -> dict:
+    """Phase 6e, planning served through the batcher. First
+    ``launch.plan.serve_planning`` at the reference's defaults (OU, the
+    analytic returns-binned score, 6 environments, 4 rounds, 4 slots, sync
+    horizon 4), and its steering gate (``tests/test_planning.py``'s: with
+    guidance 1.5 on 4 environments and 4 rounds, bin 2's mean reward above
+    bin 4's). Then ``RecedingHorizonPlanner`` at TRAJ_UNET's width
+    (attention through K3, every GroupNorm → SiLU through K6, seeded and
+    livened; only ``transition_dim`` is the environment's, PointMassEnv
+    (dim PLAN_SERVE_DIM): 2·dim + dim), horizon 32, returns CFG PLAN_CFG
+    (one forward over twice the slots), PLAN_SERVE_SLOTS slots,
+    PLAN_SERVE_ENVS environments, PLAN_SERVE_ROUNDS rounds, sync horizon
+    SERVE_HORIZON, host-driven, fused step: every plan finite and pinned
+    exactly, nfe = 2·(accepted + rejected), and K1 once, K3 twice, K6
+    34 times and P1 twice (z and the projection) a body iteration, P1 once
+    more an admission. Last, the first round's requests drained through a
+    fresh host-driven and a device-resident ``DiffusionBatcher`` with the
+    same cfg and conditioner, in turns (host, device, device, host): every
+    delivery bitwise the planner's, with its NFE, and the device-resident
+    launches exactly the captured horizon's times the horizons run plus
+    the eager calls. Printed: plans/s, mean NFE, reads, windows, the share
+    of the wall outside the solver windows (CUDA events) in both modes, the
+    host-driven idle share (torch.profiler). Returns the numbers for the
+    kernels line."""
+    from repro_torch.configs.diffusion import TRAJ_UNET
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.core.solvers.adaptive import AdaptiveConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.graph_loop import ops as loop_ops
+    from repro_torch.kernels.groupnorm_silu import ops as gn_ops
+    from repro_torch.kernels.philox import ops as ph
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.launch import plan as plan_launcher
+    from repro_torch.launch.sample import make_sample_step
+    from repro_torch.models import temporal_unet as tu
+    from repro_torch.observability.tracing import StageTracer
+    from repro_torch.planning import (
+        PlannerConfig, PlanRequest, PointMassEnv, RecedingHorizonPlanner,
+    )
+    from repro_torch.serving.diffusion_server import DiffusionBatcher
+
+    t_phase = time.perf_counter()
+    out = {}
+    ou = plan_launcher.serve_planning(device=dev)
+    if not (np.isfinite(ou["mean_reward"]) and ou["plans"] == 24):
+        fail(f"serve_planning at the reference's defaults: {ou}")
+    steer = {label: plan_launcher.serve_planning(envs=4, steps=4, cfg_scale=1.5,
+                                                 returns_label=label, seed=4, device=dev)
+             for label in (2, 4)}
+    print(f"  steering gate: mean reward bin 2 {steer[2]['mean_reward']:.4f} > bin 4 "
+          f"{steer[4]['mean_reward']:.4f}: {steer[2]['mean_reward'] > steer[4]['mean_reward']}")
+    if not steer[2]["mean_reward"] > steer[4]["mean_reward"]:
+        fail("returns guidance does not steer the OU reward (bin 2 not above bin 4)")
+    out["ou"] = {k: ou[k] for k in ("plans", "plans_per_sec", "mean_nfe", "mean_reward",
+                                    "wasted_nfe_fraction", "host_transfers", "solver_syncs",
+                                    "wall_s")}
+    out["steering"] = {str(k): v["mean_reward"] for k, v in steer.items()}
+
+    # the closed loop at TRAJ_UNET's width
+    env = PointMassEnv(dim=PLAN_SERVE_DIM)
+    ucfg = dataclasses.replace(TRAJ_UNET, transition_dim=env.obs_dim + env.act_dim,
+                               attention=True, use_flash=True, use_fused_norm=True)
+    unet = tu.init_temporal_unet(ucfg, torch.Generator(device=dev).manual_seed(0))
+    tu.liven_zero_init(unet, torch.Generator(device=dev).manual_seed(0))
+    sde = VPSDE()
+    pcfg = PlannerConfig(horizon=ucfg.horizon, obs_dim=env.obs_dim, act_dim=env.act_dim,
+                         guidance_scale=PLAN_CFG)
+    fwd = lambda p, x, t, y=None: p(x, t, y=y)
+    label = ucfg.returns_bins - 1
+    H = SERVE_HORIZON
+    per_forward = 2 * (2 * len(ucfg.mults) + 2) + 1  # K6 launches of one forward
+    rh = RecedingHorizonPlanner(sde, fwd, unet, pcfg, env,
+                                cfg=AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True),
+                                slots=PLAN_SERVE_SLOTS, sync_horizon=H, tracer=StageTracer(),
+                                device=dev)
+    print(f"  TRAJ_UNET at transition {ucfg.transition_dim} (PointMassEnv dim "
+          f"{PLAN_SERVE_DIM}): {tu.param_count(unet):,} parameters; {PLAN_SERVE_ENVS} envs x "
+          f"{PLAN_SERVE_ROUNDS} rounds on {PLAN_SERVE_SLOTS} slots, CFG {PLAN_CFG} over "
+          f"{2 * PLAN_SERVE_SLOTS} rows, returns bin {label}")
+    step_ops.launches = flash_ops.launches = gn_ops.launches = ph.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    roll = rh.rollout(0, n_envs=PLAN_SERVE_ENVS, n_steps=PLAN_SERVE_ROUNDS,
+                      returns_label=label)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b = rh.batcher
+    body = H * b.horizon_windows
+    admits = b.tracer.stage_histograms()["serve/admission"]["count"]
+    got = {"solver_step": step_ops.launches, "flash_attention": flash_ops.launches,
+           "groupnorm_silu": gn_ops.launches, "philox_normal": ph.launches}
+    want = {"solver_step": body, "flash_attention": 2 * body,
+            "groupnorm_silu": 2 * per_forward * body, "philox_normal": 2 * body + admits}
+    n_plans = PLAN_SERVE_ENVS * PLAN_SERVE_ROUNDS
+    reads = b.host_transfers + b.solver_syncs
+    print(f"  [{card}] closed loop: {n_plans} plans in {wall:.3f} s ({n_plans / wall:.2f} "
+          f"plans/s), mean NFE {roll['nfe'].mean():.2f}, mean reward "
+          f"{roll['rewards'].mean():.3f} by round {roll['rewards'].mean(1).round(3).tolist()}, "
+          f"{b.total_iterations} iterations with a plan active of {body} body iterations "
+          f"({b.horizon_windows} chunks), wasted NFE {b.wasted_nfe_fraction:.4f}, reads "
+          f"{b.host_transfers} + {b.solver_syncs} solver syncs = {reads}; launches {got} "
+          f"(want {want})")
+    if got != want:
+        fail(f"the served closed loop launched {got}, not {want}")
+    bad = []
+    for uid, req in roll["finished"].items():
+        m = np.asarray(req.cond["mask"]) == 1.0
+        if (req.result.shape != pcfg.sample_shape or not np.isfinite(req.result).all()
+                or not np.array_equal(req.result[m], np.asarray(req.cond["observed"])[m])
+                or req.nfe != 2 * (req.accepted + req.rejected)):
+            bad.append(uid)
+    if bad or len(roll["finished"]) != n_plans or not np.isfinite(roll["rewards"]).all():
+        fail(f"closed loop: plans {bad} not finite, not pinned or off the NFE rule")
+    out["closed_loop"] = dict(plans=n_plans, wall_s=wall, plans_per_sec=n_plans / wall,
+                              mean_nfe=float(roll["nfe"].mean()),
+                              mean_reward=float(roll["rewards"].mean()),
+                              iterations=b.total_iterations, body_iterations=body,
+                              reads=reads, wasted_nfe_fraction=b.wasted_nfe_fraction,
+                              launches=got, transition_dim=ucfg.transition_dim)
+
+    # the first round through a host-driven and a device-resident batcher
+    first = {u: roll["finished"][u] for u in range(PLAN_SERVE_ENVS)}
+    step = make_sample_step(sde, rh.cfg, forward_fn=fwd)
+
+    def server(resident):
+        return DiffusionBatcher(sde, step, unet, pcfg.sample_shape, slots=PLAN_SERVE_SLOTS,
+                                cfg=rh.cfg, sync_horizon=H, device=dev,
+                                device_resident=resident, tracer=StageTracer())
+
+    def drain(srv):
+        for u, req in first.items():
+            srv.submit(PlanRequest(uid=u, seed=req.seed, cond=req.cond))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = srv.run_to_completion()
+        torch.cuda.synchronize()
+        return done, time.perf_counter() - t0
+
+    def describe(tag, srv, wall, span):
+        reads = srv.host_transfers + srv.solver_syncs
+        mode = (f"{srv.horizon_windows} driver windows, {srv.device_horizons} horizons, capture "
+                f"{srv._driver.build_s:.3f} s before the run" if srv.device_resident
+                else f"{srv.horizon_windows} chunks")
+        share = 1 - span / 1e3 / wall
+        print(f"  [{card}] {tag}: {len(first)} plans in {wall:.3f} s ({len(first) / wall:.2f} "
+              f"plans/s), reads {srv.host_transfers} + {srv.solver_syncs} = {reads}; {mode}; "
+              f"solver windows {span:.1f} ms on the device, share of the wall outside them "
+              f"{share:.4f}")
+        return dict(wall_s=wall, plans_per_sec=len(first) / wall, reads=reads,
+                    windows=srv.horizon_windows, outside_windows_share=share,
+                    build_s=srv._driver.build_s if srv.device_resident else 0.0)
+
+    runs = {}
+    for tag, resident in (("host", False), ("device", True), ("device_2", True),
+                          ("host_2", False)):
+        if tag == "device":  # the counts at 0 before the capture's warm-up iteration
+            step_ops.launches = flash_ops.launches = gn_ops.launches = ph.launches = 0
+            loop_ops.launches = 0
+        srv = server(resident)
+        times = timed_windows(srv)  # builds the device-resident driver (its capture)
+        done, w = drain(srv)
+        if tag == "device":
+            dev_launches = {"solver_step": step_ops.launches,
+                            "flash_attention": flash_ops.launches,
+                            "groupnorm_silu": gn_ops.launches, "philox_normal": ph.launches,
+                            "horizon_cond": loop_ops.launches}
+        runs[tag] = (srv, done, describe(f"first round, {tag.replace('_2', ', again')}",
+                                         srv, w, span_ms(times)))
+    same = all(list(done) == list(runs["host"][1]) and all(
+        np.array_equal(done[u].result, first[u].result) and done[u].nfe == first[u].nfe
+        for u in first) for _, done, _ in runs.values())
+    print(f"  first-round deliveries of every drain bitwise the planner's, NFE equal: {same}")
+    if not same:
+        fail("the device-resident (or a fresh host-driven) drain of the first round differs "
+             "from the planner's deliveries")
+    bd = runs["device"][0]
+    names = {step_ops: "solver_step", flash_ops: "flash_attention", gn_ops: "groupnorm_silu",
+             ph: "philox_normal"}
+    recorded = {names[m]: n for m, n in bd._driver.graph.recorded.items()}
+    per_iter = {k: v / H for k, v in recorded.items()}
+    eager = {k: dev_launches[k] - recorded[k] * bd.device_horizons for k in recorded}
+    admits = bd.tracer.stage_histograms()["serve/admission"]["count"]
+    want_iter = {"solver_step": 1, "flash_attention": 2, "groupnorm_silu": 2 * per_forward,
+                 "philox_normal": 2}
+    want_eager = dict(want_iter, philox_normal=2 + admits)
+    print(f"  device-resident launches {dev_launches}: the captured horizon holds {per_iter} "
+          f"a body iteration (want {want_iter}), replayed {bd.device_horizons} times; eager "
+          f"{eager} (want {want_eager}: the capture's warm-up iteration and P1 once an "
+          f"admission)")
+    if per_iter != want_iter or eager != want_eager:
+        fail(f"device-resident planning launched {dev_launches}")
+    if bd.graph_captures != 1:
+        fail(f"the device-resident planning server captured {bd.graph_captures} horizons")
+    # the host-driven drain's idle share: profiler kernel time over its wall
+    by_name, busy_us = profile_device(lambda: drain(server(False)))
+    host_wall = runs["host"][2]["wall_s"]
+    idle = 1 - busy_us * 1e-6 / host_wall
+    print(f"  [{card}] host-driven first round: device busy {busy_us / 1e3:.1f} ms of "
+          f"{host_wall * 1e3:.1f} ms, idle share {idle:.3f} (profiler); device-resident idle "
+          f"share: not measured (the profiler cannot trace the WHILE-node graph); by device "
+          f"time:")
+    for name, (c, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        print(f"    {us / 1e3:8.1f} ms {c:6d}x  {name[:90]}")
+    out["first_round"] = {tag: rec for tag, (_, _, rec) in runs.items()}
+    out["first_round"]["host"]["idle_share"] = idle
+    out["device_resident_launches"] = dict(dev_launches, per_body_iteration_in_graph=per_iter,
+                                           eager=eager)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  [{card}] planning-service phase {out['phase_s']:.1f} s")
+    del unet, rh, runs
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device; chip_smoke.py runs on a machine with an NVIDIA card")
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.analysis import solver_select
     from repro_torch.configs.diffusion import HIGHRES_DIT, TRAJ_UNET
     from repro_torch.core import analytic
     from repro_torch.core.sampling import sample
@@ -1964,6 +2445,9 @@ def main() -> None:
                 if not ok:
                     fail("solver_step kernel disagrees with its plain version")
                 step_err[(dtype, d, vector)] = x_err
+    if SERVED_STEP_SHAPES[0] != (solver_select.BATCH, solver_select.DIM):
+        fail(f"the selection race's state is {(solver_select.BATCH, solver_select.DIM)}, "
+             f"not {SERVED_STEP_SHAPES[0]}")
     step_per_call = check_solver_step_edges(dev, gen)
     k2_err = check_k2_tiers(dev, gen, D)
     streams = check_streams_and_grids(dev, gen)
@@ -1971,11 +2455,13 @@ def main() -> None:
     plan_attn = (2 * PLAN_BATCH, TRAJ_UNET.attn_heads, TRAJ_UNET.attn_heads,
                  TRAJ_UNET.horizon // 2 ** (len(TRAJ_UNET.mults) - 1),
                  TRAJ_UNET.base * TRAJ_UNET.mults[-1] // TRAJ_UNET.attn_heads)
+    served_attn = (2 * PLAN_SERVE_SLOTS, *plan_attn[1:])  # phase 6e's CFG-doubled slots
     for (b, hq, hkv, s, dh, causal, window, true_len, dtype) in (
             (B, H, H, S, Dh, False, None, None, torch.float32),
             (B, H, H, S, Dh, False, None, None, torch.bfloat16),
             (*plan_attn, False, None, None, torch.float32),
             (*plan_attn, False, None, None, torch.bfloat16),
+            (*served_attn, False, None, None, torch.float32),
             (2, 4, 2, 200, 32, True, 64, None, torch.float32),
             (2, 4, 2, 200, 32, True, 64, None, torch.bfloat16),
             (1, 2, 2, 25, 64, False, None, None, torch.float32),
@@ -2000,24 +2486,26 @@ def main() -> None:
               f"{bound:.1e}), same bits on a second call {same} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail("flash attention kernel disagrees with its plain version or itself")
-        attn_err[(s, dtype, causal)] = err
-    # GroupNorm → SiLU at the 17 (H, C) of one TRAJ_UNET forward, 2·64 rows,
-    # on the path the wrapper picks (the register kernel at every one of
-    # them) and on the general kernel, forced
+        attn_err[(s, dtype, causal)] = max(attn_err.get((s, dtype, causal), 0.0), err)
+    # GroupNorm → SiLU at the 17 (H, C) of one TRAJ_UNET forward, 2·64 rows
+    # (phase 4's plans) and 2·16 (phase 6e's served slots), on the path the
+    # wrapper picks (the register kernel at every one of them) and on the
+    # general kernel, forced
     gn_shapes = kernel_times.TRAJ_GN_SHAPES
     gn_rows = 2 * PLAN_BATCH
     gn_err = {}
-    gn_paths = {f"{h}x{c}": gn_ops.kernel_config(gn_rows, h, c, TRAJ_UNET.groups,
-                                                 torch.float32, True)["path"]
-                for h, c in gn_shapes}
-    for path in (None, "general"):
+    gn_paths, gn_paths_served = ({f"{h}x{c}": gn_ops.kernel_config(
+        rows, h, c, TRAJ_UNET.groups, torch.float32, True)["path"] for h, c in gn_shapes}
+        for rows in (gn_rows, 2 * PLAN_SERVE_SLOTS))
+    for path, rows in ((None, gn_rows), ("general", gn_rows), (None, 2 * PLAN_SERVE_SLOTS),
+                       ("general", 2 * PLAN_SERVE_SLOTS)):
         gn = lambda x, s, b: gn_ops._launch(x, s, b, groups=TRAJ_UNET.groups, eps=1e-6,
                                             path=path)
         name = "chosen path" if path is None else "general path"
         for dtype in (torch.float32, torch.bfloat16):
             worst = 0.0
             for i, (h, c) in enumerate(gn_shapes):
-                x = torch.randn(gn_rows, h, c, generator=gen, device=dev).to(dtype)
+                x = torch.randn(rows, h, c, generator=gen, device=dev).to(dtype)
                 sc = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
                 bi = 0.1 * torch.randn(c, generator=gen, device=dev)
                 out = gn(x, sc, bi)
@@ -2031,40 +2519,43 @@ def main() -> None:
                     mag = torch.maximum(out.float().abs(), want.float().abs())
                     bound = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7) + 1e-5
                 if not (diff <= bound).all() or not torch.equal(again, out):
-                    fail(f"groupnorm_silu ({name}) {str(dtype)[6:]} at {(gn_rows, h, c)}: "
+                    fail(f"groupnorm_silu ({name}) {str(dtype)[6:]} at {(rows, h, c)}: "
                          f"max abs err {diff.max().item():.3e} over its bound, or other bits "
                          f"on a second call")
                 worst = max(worst, diff.max().item())
                 key = (path, dtype, h, c)
                 gn_err[key] = max(gn_err.get(key, 0.0), diff.max().item())
             print(f"  groupnorm_silu ({name}) {str(dtype)[6:]:8s} 17 TRAJ_UNET shapes at "
-                  f"{gn_rows} rows: max abs err {worst:.3e} (bound "
+                  f"{rows} rows: max abs err {worst:.3e} (bound "
                   f"{'1e-5' if dtype == torch.float32 else 'one bf16 ulp + 1e-5'}), the same "
                   f"bits on a second call ok")
-        x = 1e3 + torch.randn(gn_rows, 32, 64, generator=gen, device=dev)
+        x = 1e3 + torch.randn(rows, 32, 64, generator=gen, device=dev)
         ones, zeros = torch.ones(64, device=dev), torch.zeros(64, device=dev)
         out = gn(x, ones, zeros)
         err = (out - gn_ref.groupnorm_silu(x, ones, zeros, groups=TRAJ_UNET.groups)).abs().max().item()
         spread = out.std().item()
-        print(f"  groupnorm_silu ({name}) fp32 x = 1e3 + N(0,1) at {(gn_rows, 32, 64)}: max "
+        print(f"  groupnorm_silu ({name}) fp32 x = 1e3 + N(0,1) at {(rows, 32, 64)}: max "
               f"abs err {err:.3e} (bound 2e-3: sums near 1e3·n in another order), output std "
               f"{spread:.3f}")
         if not err <= 2e-3 or not 0.3 < spread < 1.2:
             fail("groupnorm_silu loses the variance at a large offset")
         if not torch.equal(gn(x, ones, zeros), out):
             fail("groupnorm_silu gives other bits on the same inputs")
-    print(f"  groupnorm_silu paths the wrapper picks at the forward's shapes: {gn_paths}")
-    if set(gn_paths.values()) != {"register"}:
+    print(f"  groupnorm_silu paths the wrapper picks at the forward's shapes: {gn_paths}; "
+          f"at {2 * PLAN_SERVE_SLOTS} rows: {gn_paths_served}")
+    if set(gn_paths.values()) | set(gn_paths_served.values()) != {"register"}:
         fail("a TRAJ_UNET shape does not take the register kernel")
 
     # K5 em_step at the DiT state, the Table-2 state, a plan, ragged D, the
-    # tables' 2-column states, rows narrower than a pack and B = 70,000
-    # (above the former kernel's 65,535 rows); each shape also as operands
+    # tables' 2-column states, rows narrower than a pack, B = 70,000
+    # (above the former kernel's 65,535 rows) and the selection race's
+    # state (phase 6d's EM, PC and PC-HMC rows); each shape also as operands
     # off 16 bytes (single-element loads), which must give the same bits
     em_err = {}
     em_shapes = [(B, D), (table2_highdim.N, table2_highdim.D),
                  (PLAN_BATCH, TRAJ_UNET.horizon * TRAJ_UNET.transition_dim), (B, 1000),
-                 (3, 999), (4096, 2), (2048, 2), (5, 3), (70_000, 2)]
+                 (3, 999), (4096, 2), (2048, 2), (5, 3), (70_000, 2),
+                 (solver_select.BATCH, solver_select.DIM)]
     for dtype in (torch.float32, torch.bfloat16):
         for b, d in em_shapes:
             ops_in = [torch.randn(b, d, generator=gen, device=dev).to(dtype) for _ in range(3)]
@@ -2374,12 +2865,12 @@ def main() -> None:
         fail("the Table-2 analog on the card")
 
     # conformance through K5 on the closed-form Gaussian score, each solver
-    # against its gate in the reference's conformance table
-    # (src/repro/analysis/solver_select.py ZOO): EM 0.08; the PC family
-    # 0.25, since its Langevin corrector inflates the variance on VE at any
-    # grid (the reference's own conformance suite gives W2 0.13 there)
+    # against its gate in the conformance table (analysis.solver_select.ZOO):
+    # EM 0.08; the PC family 0.25, since its Langevin corrector inflates the
+    # variance on VE at any grid (the reference's own conformance suite
+    # gives W2 0.13 there)
     w2s = {}
-    gates = {"em": 0.08, "pc": 0.25}
+    gates = {m: solver_select.ZOO[m]["tol"] for m in ("em", "pc")}
     for sde_c in (VPSDE(), VESDE(sigma_max=10.0)):
         mu_a, s_a = analytic.gaussian_marginal_moments(sde_c, MU0, S00)
         for method, n_steps in (("em", 1000), ("pc", 500)):
@@ -2411,9 +2902,10 @@ def main() -> None:
     mu_a, s_a = analytic.gaussian_marginal_moments(sde, mu0, s0)
     xs = r.x.double()
     w2 = analytic.gaussian_w2(xs.mean().item(), xs.std(unbiased=False).item(), mu_a, s_a)
-    print(f"  analytic Gaussian, fused kernel on the card: W2 {w2:.4f} (gate 0.08), "
+    gate = solver_select.ZOO["adaptive"]["tol"]
+    print(f"  analytic Gaussian, fused kernel on the card: W2 {w2:.4f} (gate {gate}), "
           f"mean NFE {float(r.mean_nfe):.1f}, kernel launches {step_ops.launches - before}")
-    if not w2 < 0.08 or step_ops.launches == before:
+    if not w2 < gate or step_ops.launches == before:
         fail("the adaptive solve on the card misses the conformance gate")
 
     # ----------------------------------------------------------- 6. timing
@@ -2658,6 +3150,16 @@ def main() -> None:
           "a WHILE-node CUDA graph a window)")
     dsrv = run_device_serve(dev, card, floor_ms)
 
+    # ------------------------------------------------------------ 6d. zoo
+    phase("the solver zoo: momentum and Heun from HIGHRES_DIT (K1, K3), the selection race "
+          "(K1, K5), both families served")
+    zoo = run_zoo(dev, card, rec)
+
+    # ----------------------------------------------------- 6e. planning service
+    phase("planning served through the batcher: the OU service, then the closed loop at "
+          "TRAJ_UNET's width (K1, K3, K6, P1; host-driven and device-resident)")
+    psrv = run_plan_service(dev, card)
+
     # ------------------------------------------------------ 6b. train/tables
     phase("train and tables: DIT_100M trained and sampled (K1, K3); Tables 1, 3, 4-5 (K1, K5)")
     tt = train_and_tables(dev, card)
@@ -2699,6 +3201,15 @@ def main() -> None:
          "trained_dit_100m": {"launches": tt["dit_launches"]["solver_step"],
                               "iterations": tt["dit_iterations"]},
          "beyond_65535_rows": streams["k1_big"],
+         "zoo": {"launched_as": "error_step in every iteration of momentum and Heun "
+                                "(phase 6d): from HIGHRES_DIT, in the selection race, served",
+                 **{m: zoo["dit"][m]["launches"]["solver_step"] for m in ("momentum", "heun")},
+                 "race": {k: v["launches"]["solver_step"] for k, v in zoo["race"].items()
+                          if v["launches"]["solver_step"]}},
+         "plan_service": {"launched_as": "error_step at (16, 768) in every iteration of the "
+                                         "served closed loop at TRAJ_UNET's width (phase 6e)",
+                          "launches": psrv["closed_loop"]["launches"]["solver_step"],
+                          "device_resident": psrv["device_resident_launches"]["solver_step"]},
          "ptxas": [r for r in small_ptxas if r["kernel"].startswith("error_step")]},
         {"name": "solver_step_per_row_eps", "route": "cuda",
          "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
@@ -2739,7 +3250,16 @@ def main() -> None:
          "trained_dit_100m": {"launches": tt["dit_launches"]["flash_attention"],
                               "iterations": tt["dit_iterations"]},
          "beyond_65535_heads": streams["k3_big"],
-         "device_resident": device_resident_launches("flash_attention")},
+         "device_resident": device_resident_launches("flash_attention"),
+         "zoo": {"launched_as": "the DiT's attention in momentum and Heun from HIGHRES_DIT "
+                                "(phase 6d)",
+                 **{m: zoo["dit"][m]["launches"]["flash_attention"]
+                    for m in ("momentum", "heun")}},
+         "plan_service": {"launched_as": "TRAJ_UNET's bottleneck attention, once a forward, in "
+                                         "the served closed loop (phase 6e)",
+                          "launches": psrv["closed_loop"]["launches"]["flash_attention"],
+                          "device_resident":
+                              psrv["device_resident_launches"]["flash_attention"]}},
         {"name": "groupnorm_silu", "route": "cuda",
          "source": "src/repro_torch/kernels/groupnorm_silu/csrc/groupnorm_silu.cu",
          "replaces": "src/repro/kernels/groupnorm_silu/kernel.py:81",
@@ -2755,6 +3275,12 @@ def main() -> None:
          "paths": gn_paths,
          "ms_by_shape": k6_shapes,
          "general_path_ms_by_shape": k6_general,
+         "plan_service": {"launched_as": "every GroupNorm → SiLU of TRAJ_UNET (17 a forward) "
+                                         "in the served closed loop (phase 6e), the first "
+                                         "served path and the first captured horizon with K6",
+                          "launches": psrv["closed_loop"]["launches"]["groupnorm_silu"],
+                          "device_resident":
+                              psrv["device_resident_launches"]["groupnorm_silu"]},
          "ptxas": [r for r in small_ptxas if r["kernel"].startswith("gn_silu")]},
         {"name": "em_step", "route": "cuda",
          "source": "src/repro_torch/kernels/solver_step/csrc/em_step.cu",
@@ -2779,6 +3305,10 @@ def main() -> None:
                     **{k: k5_t[(torch.float32, 4096, 2)][k]
                        for k in ("ms", "plain_ms", "bound_ms")},
                     "em1000_n4096": tt["em1000_idle"]},
+         "zoo_race": {"launched_as": "em_step on the EM, PC and PC-HMC rows of the solver "
+                                     "selection race (phase 6d)",
+                      **{k: v["launches"]["em_step"] for k, v in zoo["race"].items()
+                         if v["launches"]["em_step"]}},
          "ptxas": [r for r in small_ptxas if r["kernel"].startswith("em_step")]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
@@ -2826,6 +3356,8 @@ def main() -> None:
                         "the captured horizon's calls times the horizons run, plus the eager "
                         "calls (the capture's warm-up, admissions)",
          "device_resident": device_resident_launches("philox_normal"),
+         "plan_service": {"launches": psrv["closed_loop"]["launches"]["philox_normal"],
+                          "device_resident": psrv["device_resident_launches"]["philox_normal"]},
          "max_abs_err_by_shape": {f"{b}x{d}": e for (b, d), e in streams["p1_err"].items()}},
         {"name": "horizon_cond", "route": "cuda",
          "source": "src/repro_torch/kernels/graph_loop/csrc/while_driver.cu",
@@ -2839,7 +3371,9 @@ def main() -> None:
          "launch_floor_ms": floor_ms,
          "driver_windows": dsrv["launches"]["windows"],
          "cuda_versions": dsrv["cuda_versions"],
-         "serve": dsrv["rec"], "sync_check": dsrv["sync_check"]},
+         "serve": dsrv["rec"], "sync_check": dsrv["sync_check"],
+         "plan_service": {"launches": psrv["device_resident_launches"]["horizon_cond"],
+                          "first_round": psrv["first_round"]}},
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):

@@ -1,1 +1,2 @@
-"""Port of ``repro/analysis``: the telemetry report (``telemetry.py``)."""
+"""Port of ``repro/analysis``: the telemetry report (``telemetry.py``) and
+the solver zoo's auto-selection (``solver_select.py``)."""

@@ -1,8 +1,8 @@
 """Controlled generation as score-field transforms; port of
-``repro/core/guidance.py`` (``Conditioner``, ``ClassifierFree``,
-``Inpaint``, ``class_conditional``, ``inpaint``, ``cond_batch``;
-``Colorize``, ``gray_basis``, ``to_gray`` and the functional
-``classifier_free`` are not ported yet).
+``repro/core/guidance.py`` (``Conditioner``, the functional
+``classifier_free``, ``ClassifierFree``, ``class_conditional``,
+``Inpaint``, ``inpaint``, ``gray_basis``, ``Colorize``, ``colorize``,
+``to_gray``, ``cond_batch``).
 
 A conditioner has two halves (DESIGN.md §9):
 
@@ -21,6 +21,7 @@ all. Projection math runs in fp32 under every precision preset.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Optional, Tuple
 
 import torch
@@ -78,6 +79,23 @@ class Conditioner:
         if struct is None:
             return None
         return {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in struct.items()}
+
+
+def classifier_free(cond_score: Callable, uncond_score: Callable,
+                    scale: float) -> Callable:
+    """The functional classifier-free transform s_u + w·(s_c − s_u) of two
+    plain ``s(x, t)`` fields, for solvers that take no conditioner (the
+    fixed-grid baselines): fp32 arithmetic, cast back to the unconditional
+    score's dtype. ``scale == 0`` returns ``uncond_score`` itself."""
+    if scale == 0.0:
+        return uncond_score
+
+    def guided(x: Tensor, t: Tensor) -> Tensor:
+        s_u = uncond_score(x, t)
+        u32, c32 = _f32(s_u, cond_score(x, t))
+        return (u32 + scale * (c32 - u32)).to(s_u.dtype)
+
+    return guided
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +182,78 @@ def inpaint(mask, observed) -> Tuple[Optional[Inpaint], Any]:
         return None, None
     return Inpaint(), {"mask": torch.as_tensor(mask).to(torch.float32),
                        "observed": torch.as_tensor(observed).to(torch.float32)}
+
+
+def gray_basis(channels: int) -> Tensor:
+    """Orthonormal channel basis (C, C) fp32 whose row 0 is the gray
+    direction 1/√C (Song et al. 2021 App. I.2, DESIGN.md §9): the
+    Householder reflection taking e₀ to 1/√C, computed in fp64 and
+    rounded once."""
+    c = int(channels)
+    g = torch.full((c,), 1.0 / math.sqrt(c), dtype=torch.float64)
+    v = g - torch.eye(c, dtype=torch.float64)[0]
+    n2 = float(v @ v)
+    eye = torch.eye(c, dtype=torch.float64)
+    m = eye if n2 < 1e-12 else eye - 2.0 * torch.outer(v, v) / n2
+    return m.T.contiguous().to(torch.float32)
+
+
+def _rotate(x32: Tensor, basis: Tensor) -> Tensor:
+    """Trailing channels into the gray basis: u = x · basisᵀ."""
+    return torch.einsum("...c,dc->...d", x32, basis.to(x32.device))
+
+
+def _unrotate(u: Tensor, basis: Tensor) -> Tensor:
+    return torch.einsum("...d,dc->...c", u, basis.to(u.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class Colorize(Conditioner):
+    """Colorization: inpainting of the gray coordinate in the rotated
+    channel basis of ``gray_basis`` (DESIGN.md §9). After every accepted
+    step, u₀ ← m(t)·gray + std(t)·z at each sample's own t, in fp32, then
+    back to the channel basis; ``finalize_project`` pins u₀ = gray
+    exactly. Payload ``{"gray": (B, ..., 1)}`` fp32."""
+
+    has_projection = True
+    channels: int = 3
+
+    def project(self, sde, x: Tensor, t: Tensor, cond: Any, z: Tensor) -> Tensor:
+        basis = gray_basis(self.channels)
+        m, s = sde.marginal(t)
+        x32, gray, z32, m32, s32 = _f32(x, cond["gray"], z, m, s)
+        u = _rotate(x32, basis)
+        gray_t = bcast(m32, gray) * gray + bcast(s32, gray) * z32[..., :1]
+        return _unrotate(torch.cat([gray_t, u[..., 1:]], dim=-1), basis)
+
+    def finalize_project(self, x: Tensor, cond: Any) -> Tensor:
+        basis = gray_basis(self.channels)
+        x32, gray = _f32(x, cond["gray"])
+        u = _rotate(x32, basis)
+        return _unrotate(torch.cat([gray, u[..., 1:]], dim=-1), basis).to(x.dtype)
+
+    def cond_struct(self, batch: int, sample_shape) -> Any:
+        shape = (batch,) + tuple(sample_shape[:-1]) + (1,)
+        return {"gray": torch.empty(shape, dtype=torch.float32, device="meta")}
+
+
+def colorize(gray, channels: int = 3) -> Tuple[Optional[Colorize], Any]:
+    """(conditioner, payload) for colorization from the known gray
+    component ⟨x, 1⟩/√C, (B, ..., 1) (a (B, ...) without the trailing
+    channel gains it); ``gray=None`` returns ``(None, None)``."""
+    if gray is None:
+        return None, None
+    g = torch.as_tensor(gray).to(torch.float32)
+    if g.shape[-1] != 1:
+        g = g[..., None]
+    return Colorize(channels=channels), {"gray": g}
+
+
+def to_gray(x, channels: int = 3) -> Tensor:
+    """The gray component ⟨x, 1⟩/√C over the trailing channel axis, kept
+    as a singleton channel (``gray_basis``'s convention)."""
+    x32 = torch.as_tensor(x).to(torch.float32)
+    return torch.einsum("...c,c->...", x32, gray_basis(channels)[0].to(x32.device))[..., None]
 
 
 def cond_batch(cond: Any) -> Optional[int]:

@@ -97,7 +97,16 @@ round a product of fewer rows otherwise).
 Algorithm 2 (``adaptive_forward``, paper App. C) is at the end: the
 forward-time solver for a general diffusion with x-dependent g.
 
-Not ported yet: momentum and the probability-flow variant (ROADMAP A5).
+The solver zoo's two families (DESIGN.md §11) are this body with one
+field set. ``AdaptiveConfig.momentum`` = β adds β·v, v = x − x_prev the
+last accepted displacement, to both proposals (the fused step takes
+x + β·v as its x), and x_prev then holds the last accepted state, so v
+is 0 at ``init_carry`` and at a server's admission, where x_prev = x =
+the prior. ``AdaptiveConfig.probability_flow`` integrates the
+probability-flow ODE: the score coefficients halve, the noise
+coefficients are 0, z is zeros and the main draw is skipped, so a
+stream's counter moves only for a projecting conditioner's draw
+(``momentum.py``, ``heun.py``).
 """
 
 from __future__ import annotations
@@ -158,6 +167,13 @@ class AdaptiveConfig:
     #: static half of a score-field conditioner (DESIGN.md §9); None is
     #: the unconditional path
     conditioner: Optional[Conditioner] = None
+    #: heavy-ball coefficient β of the ``momentum`` family (DESIGN.md
+    #: §11): both proposals gain β·(x − x_prev), and x_prev holds the last
+    #: accepted state instead of the last accepted x'; 0.0 is Algorithm 1
+    momentum: float = 0.0
+    #: integrate the probability-flow ODE (the ``heun`` family, DESIGN.md
+    #: §11): halved score coefficients, no noise, no main draw
+    probability_flow: bool = False
     #: step-telemetry ring capacity (DESIGN.md §15): > 0 makes
     #: ``init_carry`` attach a ``StepTelemetry`` ring of that many records
     #: a sample; 0 leaves the carry without one
@@ -369,10 +385,22 @@ def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
     conditioner = cfg.conditioner
     projecting = conditioner is not None and conditioner.has_projection
     threshold = sde.t_eps + 1e-12
-    draws = 2 if projecting else 1
+    mom = float(cfg.momentum)
+    pf = bool(cfg.probability_flow)
+    # draws an iteration: z (none on the probability-flow ODE), then the
+    # projection's
+    draws = (0 if pf else 1) + (1 if projecting else 0)
 
     def draw(s: SolverCarry, x: Tensor, offset: int) -> Tensor:
         return draw_noise(s.generator, noise_fn, x, sharding, offset)
+
+    def em_coeffs(t: Tensor, h: Tensor):
+        """x' = c0·x + c1·score + c2·z; the probability-flow ODE halves the
+        score's coefficient and has no noise."""
+        a, g = sde.drift_coeff(t), sde.diffusion(t)
+        if pf:
+            return 1.0 - h * a, 0.5 * h * g * g, torch.zeros_like(h)
+        return 1.0 - h * a, h * g * g, torch.sqrt(h) * g
 
     def body(s: SolverCarry, limits=None) -> SolverCarry:
         x, x_prev, t, h = s.x, s.x_prev, s.t, s.h
@@ -389,30 +417,38 @@ def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
         t_c = torch.clamp(t, sde.t_eps, sde.T)
         h_c = torch.where(active, h, 0.0)
         t2 = torch.clamp(t_c - h_c, sde.t_eps, sde.T)
-        z = draw(s, x, 0)
+        # the probability-flow ODE draws no z (its stream does not move)
+        z = torch.zeros_like(x) if pf else draw(s, x, 0)
         if projecting:
             # the projection's own draw, after z: the unconditional
             # noise stream is untouched by the conditioning seam
-            z_proj = draw(s, x, 1)
+            z_proj = draw(s, x, draws - 1)
 
         # low-order proposal: one reverse Euler–Maruyama step. The fp32
         # coefficients promote the arithmetic to fp32; x' is stored back
         # at the state dtype.
         score1 = sf(x, t_c)
-        a, g = sde.drift_coeff(t_c), sde.diffusion(t_c)
-        c0, c1, c2 = 1.0 - h_c * a, h_c * g * g, torch.sqrt(h_c) * g
-        x_prime = (bcast(c0, x) * x + bcast(c1, x) * score1
-                   + bcast(c2, x) * z).to(x.dtype)
+        c0, c1, c2 = em_coeffs(t_c, h_c)
+        x_base = x
+        x_prime = bcast(c0, x) * x + bcast(c1, x) * score1 + bcast(c2, x) * z
+        if mom:
+            # heavy-ball transport shared by both proposals, so the error
+            # estimate still measures the EM / Improved-Euler gap only
+            v = x.to(torch.float32) - x_prev.to(torch.float32)
+            x_base = (x.to(torch.float32) + mom * v).to(x.dtype)
+            x_prime = x_prime + mom * v
+        x_prime = x_prime.to(x.dtype)
 
-        # high-order proposal: stochastic Improved Euler
+        # high-order proposal: stochastic Improved Euler (Heun's
+        # trapezoid on the probability-flow ODE)
         score2 = sf(x_prime, t2)
         e0 = h_c * sde.drift_coeff(t2)
         g2 = sde.diffusion(t2)
-        d1 = h_c * g2 * g2
-        d2 = torch.sqrt(h_c) * g2
+        d1 = (0.5 * h_c if pf else h_c) * g2 * g2
+        d2 = torch.zeros_like(h_c) if pf else torch.sqrt(h_c) * g2
         ea = eps_abs if s.atol is None else s.atol
         er = cfg.eps_rel if s.rtol is None else s.rtol
-        x_high, err = step_math(x, x_prime, score2, z, x_prev, e0, d1, d2,
+        x_high, err = step_math(x_base, x_prime, score2, z, x_prev, e0, d1, d2,
                                 cfg, ea, er)
         proposal = (x_high if cfg.extrapolate else x_prime).to(x.dtype)
 
@@ -437,11 +473,13 @@ def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
                               live=any_active)
         two = torch.where(active, 2, 0).to(torch.int32)
         gen = s.generator
-        if isinstance(gen, SlotStreams):
+        if isinstance(gen, SlotStreams) and draws:
             gen = gen.advanced(any_active.to(torch.int64) * draws)
         return SolverCarry(
             x=x_new,
-            x_prev=torch.where(acc_e, x_prime, x_prev),
+            # the momentum family keeps the last accepted state (v = x −
+            # x_prev); otherwise the last accepted x' (Eq. 5)
+            x_prev=torch.where(acc_e, x if mom else x_prime, x_prev),
             t=t_new,
             h=torch.where(active, h_new, h),
             nfe=s.nfe + two,

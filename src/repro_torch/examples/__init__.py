@@ -1,2 +1,3 @@
 """Port of ``examples/``: runnable end-to-end programs (``quickstart``,
-``train_diffusion``), kept inside the package."""
+``train_diffusion``, ``sample_adaptive``, ``inpaint_adaptive``), kept
+inside the package."""

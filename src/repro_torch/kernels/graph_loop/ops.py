@@ -17,7 +17,7 @@ at exit and the horizons run, the one thing the host reads.
 ``horizons + 1`` a driver window. A graph's kernels run where the host
 cannot count them, so ``WhileDriver.account`` charges a window once the
 caller has read its state: P2's executions, and for each wrapper the
-horizon runs (K1/K2, K3, P1) its calls recorded into the horizon at
+horizon runs (K1/K2, K3, K6, P1) its calls recorded into the horizon at
 capture (``captured_calls``) times the horizons run. ``windows`` counts
 parent-graph launches.
 Conditional nodes need CUDA 12.3 or later in the toolkit the library was
@@ -34,6 +34,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.graph_loop import ref
+from repro_torch.kernels.groupnorm_silu import ops as gn_ops
 from repro_torch.kernels.philox import ops as philox_ops
 from repro_torch.kernels.solver_step import ops as step_ops
 
@@ -76,9 +77,9 @@ def cuda_versions() -> tuple:
 
 def captured_calls() -> dict:
     """{wrapper module: its calls recorded into CUDA graphs so far}, for
-    the wrappers a captured horizon runs: K1/K2, K3 and P1. The
+    the wrappers a captured horizon runs: K1/K2, K3, K6 and P1. The
     difference across a capture is what one replay launches."""
-    return {m: m.captured for m in (step_ops, flash_ops, philox_ops)}
+    return {m: m.captured for m in (step_ops, flash_ops, gn_ops, philox_ops)}
 
 
 def _dotted(v: int) -> str:

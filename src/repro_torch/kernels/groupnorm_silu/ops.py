@@ -13,6 +13,9 @@ version (``ref.groupnorm_silu``); CUDA tensors launch
 ``csrc/groupnorm_silu.cu`` or raise. There is no fallback from one to
 the other, and the launch refuses inputs that require grad under grad
 mode (``kernels.autograd``: the kernel has no backward). ``launches`` counts kernel launches, one a call.
+A call made while the stream is captured into a CUDA graph launches
+nothing: it counts in ``captured``, and whoever replays the graph charges
+``launches`` with its replays (``graph_loop.ops.WhileDriver``).
 
 The CUDA source holds two kernels; ``kernel_config`` picks one before
 the launch from the shape, the dtype and the operands' alignment: the
@@ -37,6 +40,8 @@ Tensor = torch.Tensor
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: kernels recorded into CUDA graphs under capture (not launched)
+captured = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: one (sample, group) slab is staged in shared memory as fp32; 48 KB is
@@ -120,7 +125,7 @@ def _launch(x, scale, bias, *, groups, eps, path=None):
     """The kernel on CUDA tensors; ``path="general"`` forces the general
     kernel (tests and timings compare the two; the model never passes
     it)."""
-    global launches
+    global launches, captured
     refuse_autograd("groupnorm_silu", x, scale, bias)
     if path not in (None, "general"):
         raise ValueError(f"path must be None or 'general', got {path!r}")
@@ -145,5 +150,8 @@ def _launch(x, scale, bias, *, groups, eps, path=None):
             int(cfg["path"] == "register"), cfg["team"], cfg["vecs"], cfg["threads"], stream)
     if rc != 0:
         raise RuntimeError(f"groupnorm_silu kernel launch failed: CUDA error {rc}")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out

@@ -52,6 +52,10 @@ from repro_torch.models.dit import (
 )
 
 
+#: the solvers that run Algorithm 1's body and take its configuration
+ADAPTIVE_FAMILY = ("adaptive", "momentum", "heun")
+
+
 def build_score(arch: str, *, flash: bool, precision: str, seed: int,
                 liven_seed: int, device) -> tuple:
     """(cfg, model, score_fn) for ``arch`` on ``device``: weights drawn
@@ -119,7 +123,8 @@ def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
     """One sample with ``method``; returns the record the launcher prints.
 
     ``eps_rel``, ``max_iters``, ``fused`` and ``precision`` configure the
-    adaptive solver; ``solver_kwargs`` go to the solver as they are (for
+    Algorithm-1 families (``ADAPTIVE_FAMILY``: ``adaptive``, ``momentum``,
+    ``heun``); ``solver_kwargs`` go to the solver as they are (for
     example ``n_steps`` for the fixed-grid baselines). With ``mesh`` the
     solve is data-parallel (a collective: every rank calls ``run``); the
     wall time is this rank's, and the record describes the whole batch,
@@ -129,7 +134,7 @@ def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
     cfg, model, score = build_score(arch, flash=flash, precision=precision,
                                     seed=seed, liven_seed=liven_seed, device=dev)
     shape = (batch, cfg.image_size, cfg.image_size, cfg.channels)
-    if method == "adaptive":
+    if method in ADAPTIVE_FAMILY:
         solver_kwargs = dict(eps_rel=eps_rel, max_iters=max_iters,
                              use_fused_kernel=fused, precision=precision,
                              **solver_kwargs)
@@ -155,7 +160,7 @@ def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "mean_nfe": float(res.mean_nfe), "max_nfe": int(res.max_nfe),
         "iterations": int(res.iterations),
-        "converged": _converged(res, max_iters) if method == "adaptive" else batch,
+        "converged": _converged(res, max_iters) if method in ADAPTIVE_FAMILY else batch,
         "wall_s": wall,
         "finite": bool(torch.isfinite(res.x).all()),
         "shape": list(res.x.shape),

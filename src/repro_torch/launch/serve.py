@@ -1,5 +1,6 @@
 """Serving launchers; port of ``repro/launch/serve.py``: batched
-language-model decode and the continuous-batching diffusion server.
+language-model decode, the continuous-batching diffusion server and the
+receding-horizon planner as a service.
 
 LM mode: ``serve_batch`` prefills a batch of prompts by replaying them
 token by token through the serve step (exact and state-consistent, as
@@ -14,8 +15,11 @@ it the net is the reference's small one at ``--image-size``.
 ``--device-resident`` runs the device-resident serve loop (DESIGN.md §12):
 on the card one CUDA graph a driver window (a WHILE node over the
 captured sync horizon; CUDA 12.3 or later), on the CPU the plain driver.
-The ``--plan`` mode waits for ROADMAP A8 and the reference's
-``--fake-devices`` mesh for A11.
+``--plan`` runs the receding-horizon planner as a service (DESIGN.md
+§10): closed-loop plan requests (the state pinned by horizon-axis
+inpainting, ``--cfg-scale`` returns guidance) drain through the same
+``DiffusionBatcher``; ``repro_torch.launch.plan`` is the launcher
+underneath. The reference's ``--fake-devices`` mesh waits for ROADMAP A11.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --batch 4 --prompt-len 16 --gen-len 16
@@ -24,6 +28,7 @@ The ``--plan`` mode waits for ROADMAP A8 and the reference's
       --slots 8 --requests 16 --sync-horizon 4 --tier mixed [--device-resident]
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion --device cpu \\
       --slots 4 --requests 8 --tier mixed --telemetry 256 --trace-out trace.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --plan --device cpu --envs 6 --plan-steps 4
 """
 
 from __future__ import annotations
@@ -245,6 +250,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     ap.add_argument("--diffusion", action="store_true",
                     help="run the continuous-batching diffusion server instead")
+    ap.add_argument("--plan", action="store_true",
+                    help="run the receding-horizon planner service (DESIGN.md §10)")
+    ap.add_argument("--plan-env", default="ou", choices=["ou", "pointmass"],
+                    help="analytic environment for --plan")
+    ap.add_argument("--envs", type=int, default=6,
+                    help="closed-loop environments for --plan")
+    ap.add_argument("--plan-steps", type=int, default=4,
+                    help="control rounds per environment for --plan")
+    ap.add_argument("--plan-horizon", type=int, default=8, help="plan horizon H for --plan")
+    ap.add_argument("--unet", action="store_true",
+                    help="--plan with a temporal UNet score instead of the analytic one")
     ap.add_argument("--image-size", type=int, default=8,
                     help="--diffusion without --arch: the small net's image size")
     ap.add_argument("--slots", type=int, default=8)
@@ -276,6 +292,15 @@ def main(argv=None) -> dict:
                          "'python -m repro_torch.analysis.telemetry' renders it")
     args = ap.parse_args(argv)
 
+    if args.plan:
+        from repro_torch.launch.plan import serve_planning
+
+        return serve_planning(
+            env_name=args.plan_env, envs=args.envs, steps=args.plan_steps,
+            slots=args.slots, sync_horizon=args.sync_horizon,
+            compaction=not args.no_compaction, horizon=args.plan_horizon,
+            cfg_scale=args.cfg_scale or 0.0, precision=args.precision, unet=args.unet,
+            device=args.device)
     if args.diffusion:
         return serve_diffusion(
             slots=args.slots, requests=args.requests, image_size=args.image_size,
@@ -287,7 +312,7 @@ def main(argv=None) -> dict:
             metrics_out=args.metrics_out, trace_out=args.trace_out,
             device=args.device)
     if args.arch is None:
-        ap.error("--arch is required unless --diffusion is given")
+        ap.error("--arch is required unless --diffusion or --plan is given")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:

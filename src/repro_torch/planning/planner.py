@@ -1,8 +1,5 @@
-"""Single-shot trajectory planning on the adaptive solver; port of
-``repro/planning/planner.py`` (``NULL_RETURN``, ``PlannerConfig``,
-``PlanConditioner``, ``state_pin``, ``plan_conditioner``,
-``returns_to_bin``, ``plan``, ``first_action``; the closed-loop
-``RecedingHorizonPlanner`` waits for the serving batcher).
+"""Receding-horizon trajectory planning on the adaptive solver; port of
+``repro/planning/planner.py``.
 
 Planning is controlled generation over (B, H, D) trajectories
 (DESIGN.md §10):
@@ -17,6 +14,16 @@ Planning is controlled generation over (B, H, D) trajectories
   * ``PlanConditioner`` composes the two, and ``plan_conditioner``
     builds the (conditioner, payload) pair, ``(None, None)`` when there
     is nothing to condition on.
+
+``plan`` is the single-shot form, one adaptive solve a call.
+``RecedingHorizonPlanner`` is the closed loop: plans are ordinary
+requests (``PlanRequest``) of a ``DiffusionBatcher`` (DESIGN.md §7), each
+environment executes the first action of its delivered plan, and the
+re-conditioned request (the new state pinned, a fresh uid and seed)
+queues again. A request's noise is its own stream, and compaction moves
+payloads with their samples, so a delivered plan is bitwise its
+standalone ``adaptive()`` solve of the same (seed, payload), whichever
+slot it took and whichever environments shared the batch.
 """
 
 from __future__ import annotations
@@ -24,14 +31,20 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.guidance import ClassifierFree, Inpaint, cond_batch
 from repro_torch.core.sampling import sample
 from repro_torch.core.solvers import SolveResult
 from repro_torch.core.solvers.adaptive import AdaptiveConfig
+from repro_torch.serving.diffusion_server import DiffusionBatcher, ImageRequest
 
 Tensor = torch.Tensor
+
+#: a plan request is an ordinary batcher request: the same queue, slots
+#: and compaction (DESIGN.md §10)
+PlanRequest = ImageRequest
 
 #: returns bin meaning "unconditional" (the null CFG branch)
 NULL_RETURN = -1
@@ -173,3 +186,111 @@ def first_action(x: Tensor, pcfg: PlannerConfig) -> Tensor:
     action coordinates. Takes (H, D) or (B, H, D)."""
     row = pcfg.context - 1
     return x[..., row, pcfg.obs_dim: pcfg.obs_dim + pcfg.act_dim]
+
+
+class RecedingHorizonPlanner:
+    """Closed-loop planner serving on the diffusion batcher (DESIGN.md §10).
+
+    Each environment's plan is a ``PlanRequest`` in a ``DiffusionBatcher``
+    whose conditioner is a ``PlanConditioner`` (unless ``cfg`` brings its
+    own). One control round: every environment submits a request pinning
+    its current observation (and carrying its returns bin); the batcher
+    drains, retiring converged plans at sync horizons, compacting and
+    admitting queued requests into freed slots (more environments than
+    slots queue for real); each environment executes ``first_action`` of
+    its delivered plan, and the re-conditioned request enters the next
+    round.
+
+    ``forward_fn(params, x, t, y=None)`` predicts noise (score = −out/std),
+    label-aware when returns guidance is on; the device step is built here
+    from the same final ``cfg`` the batcher gets. ``device`` holds the
+    batcher (``cuda`` unless the caller passes ``"cpu"``);
+    ``request_streams`` is the batcher's seam (tests hand in the
+    reference's per-request draws). ``mesh=`` raises (ROADMAP A11).
+    """
+
+    def __init__(self, sde, forward_fn, params, pcfg: PlannerConfig, env, *,
+                 cfg: Optional[AdaptiveConfig] = None, slots: int = 4,
+                 sync_horizon: int = 4, compaction: bool = True, mesh=None,
+                 tracer=None, device="cuda", request_streams: Optional[Callable] = None):
+        from repro_torch.launch.sample import make_sample_step
+
+        self.pcfg = pcfg
+        self.env = env
+        if env.obs_dim != pcfg.obs_dim or env.act_dim != pcfg.act_dim:
+            raise ValueError(f"env dims ({env.obs_dim}, {env.act_dim}) != planner "
+                             f"({pcfg.obs_dim}, {pcfg.act_dim})")
+        base = cfg or AdaptiveConfig(eps_rel=0.05)
+        if base.conditioner is None:
+            base = dataclasses.replace(base, conditioner=PlanConditioner(
+                scale=float(pcfg.guidance_scale), null_label=pcfg.null_label))
+        self.cfg = base
+        # one step for the batcher, from the cfg it gets: a step built
+        # without the conditioner would skip the in-loop projection while
+        # delivery still pinned
+        sample_step = make_sample_step(sde, base, forward_fn=forward_fn)
+        self.batcher = DiffusionBatcher(
+            sde, sample_step, params, pcfg.sample_shape, slots=slots, cfg=base, mesh=mesh,
+            sync_horizon=sync_horizon, compaction=compaction, tracer=tracer,
+            device=device, request_streams=request_streams)
+        self._uid = 0
+
+    def request_cond(self, obs, returns_label: Optional[int] = None) -> Dict[str, Tensor]:
+        """One request's unbatched payload rows, with exactly the keys of
+        the server conditioner's ``cond_struct``: the pin of this
+        environment's state and its returns bin (None is the null label)."""
+        struct = self.cfg.conditioner.cond_struct(1, self.pcfg.sample_shape)
+        if returns_label is not None and "label" not in struct:
+            raise ValueError(
+                f"returns_label={returns_label} given but the server conditioner "
+                f"{type(self.cfg.conditioner).__name__} carries no label payload: the "
+                "guidance would be silently dropped")
+        pin = state_pin(self.pcfg, torch.as_tensor(obs)[None])
+        label = self.pcfg.null_label if returns_label is None else int(returns_label)
+        rows = {"label": torch.tensor(label, dtype=torch.int32),
+                **{k: v[0] for k, v in pin.items()}}
+        unknown = set(struct) - set(rows)
+        if unknown:
+            raise ValueError(f"server conditioner declares payload keys {sorted(unknown)} "
+                             f"the planner cannot fill (have {sorted(rows)})")
+        return {k: rows[k] for k in struct}
+
+    def rollout(self, generator=0, *, n_envs: int, n_steps: int,
+                returns_label: Optional[int] = None, seed0: int = 0) -> Dict[str, Any]:
+        """Run ``n_envs`` environments for ``n_steps`` control rounds through
+        the shared batcher; returns the rewards and per-request NFE
+        (n_steps, n_envs), the delivered requests and the batcher's waste
+        books. ``generator`` (a CPU ``torch.Generator``, an int seed, or a
+        replay source, ``envs``) draws every environment's reset, then
+        their steps' noise in round and environment order."""
+        if isinstance(generator, int):
+            generator = torch.Generator().manual_seed(generator)
+        obs = [self.env.reset(generator) for _ in range(n_envs)]
+        rewards = np.zeros((n_steps, n_envs))
+        nfes = np.zeros((n_steps, n_envs), np.int64)
+        for round_i in range(n_steps):
+            with self.batcher.tracer.span("plan/round", round=round_i, envs=n_envs) as sp:
+                uids = []
+                for i in range(n_envs):
+                    uid = seed0 + self._uid
+                    self._uid += 1
+                    self.batcher.submit(PlanRequest(
+                        uid=uid, seed=uid, cond=self.request_cond(obs[i], returns_label)))
+                    uids.append(uid)
+                sp["attrs"]["uids"] = list(uids)
+                done = self.batcher.run_to_completion()
+                for i, uid in enumerate(uids):
+                    req = done[uid]
+                    a = torch.from_numpy(np.ascontiguousarray(first_action(req.result, self.pcfg)))
+                    obs[i], rewards[round_i, i] = self.env.step(obs[i], a, generator)
+                    nfes[round_i, i] = req.nfe
+        b = self.batcher
+        return {
+            "rewards": rewards,
+            "nfe": nfes,
+            "finished": b.finished,
+            "total_iterations": b.total_iterations,
+            "wasted_nfe_fraction": b.wasted_nfe_fraction,
+            "passenger_nfe_fraction": b.passenger_nfe_fraction,
+            "refills_per_device": list(b.refills_per_device),
+        }

@@ -123,6 +123,13 @@ class ImageRequest:
     _seat_t: float = dataclasses.field(default=0.0, repr=False)
 
 
+def _family(cfg: AdaptiveConfig) -> str:
+    """The solver registry's name of the Algorithm-1 family ``cfg`` runs."""
+    if cfg.probability_flow:
+        return "heun"
+    return "momentum" if cfg.momentum else "adaptive"
+
+
 class DiffusionBatcher:
     """Slot-compacting sampler around a ``solve_chunk`` step.
 
@@ -157,6 +164,14 @@ class DiffusionBatcher:
     (module docstring). ``graph_captures`` counts the horizon graphs the
     server captured (one on the card, at its first window).
 
+    ``solver``/``solver_kwargs`` name the solver family ``sample_step``
+    runs, so that the waste books convert loop iterations to issued score
+    evaluations with the registry's ``solver_nfe_per_iteration``. The
+    batcher runs the Algorithm-1 body only, and ``cfg`` picks its family
+    (``momentum`` with ``cfg.momentum``, ``heun`` with
+    ``cfg.probability_flow``, else ``adaptive``): any other ``solver``
+    raises ``ValueError``, so the books cannot take another family's rate.
+
     ``device`` holds the carry (``cuda`` unless the caller passes
     ``"cpu"``); ``request_streams(req, shape, device) -> (prior, source)``
     replaces the default per-request streams (module docstring); a
@@ -166,8 +181,8 @@ class DiffusionBatcher:
     def __init__(self, sde: SDE, sample_step: Callable, params, sample_shape, *,
                  slots: int = 8, cfg: AdaptiveConfig | None = None, mesh=None,
                  sync_horizon: int = 1, compaction: bool = True,
-                 device_resident: bool = False,
-                 tolerance_classes=None,
+                 device_resident: bool = False, solver: str = "adaptive",
+                 solver_kwargs: Optional[dict] = None, tolerance_classes=None,
                  admission: Optional[AdmissionPolicy] = None, delivery=None,
                  clock: Optional[Callable[[], float]] = None, telemetry: int = 0,
                  tracer=None, device="cuda", request_streams: Optional[Callable] = None):
@@ -190,8 +205,14 @@ class DiffusionBatcher:
         self.sync_horizon = int(sync_horizon)
         self.compaction = bool(compaction)
         self.device_resident = bool(device_resident)
-        #: score-net evaluations one loop iteration issues over the slots
-        self.nfe_per_iter = solver_nfe_per_iteration("adaptive")
+        if solver != _family(self.cfg):
+            raise ValueError(
+                f"solver {solver!r} is not the family of the step's config "
+                f"({_family(self.cfg)!r}: momentum {self.cfg.momentum}, probability_flow "
+                f"{self.cfg.probability_flow}); the batcher runs the Algorithm-1 body only")
+        #: score-net evaluations one loop iteration issues over the slots,
+        #: from the solver registry
+        self.nfe_per_iter = solver_nfe_per_iteration(solver, **(solver_kwargs or {}))
         self.tiered = bool(tolerance_classes)
         self.tolerance_classes = (tolerance_classes
                                   if isinstance(tolerance_classes, dict) else None)

@@ -206,6 +206,8 @@ NFE_CASES = {
     "em": (dict(n_steps=50), {}),
     "ddim": (dict(n_steps=25), {}),
     "adaptive": (dict(eps_rel=0.05), {}),
+    "momentum": (dict(eps_rel=0.05, momentum=0.15), {}),
+    "heun": (dict(eps_rel=0.05, probability_flow=True), {}),
     "ode": ({}, {}),
     "pc": (dict(n_steps=30, corrector_steps=2), dict(corrector_steps=2)),
     "pc_hmc": (dict(n_steps=30, corrector_steps=1, hmc_leapfrog=3),
@@ -224,7 +226,7 @@ def test_registry_rule_matches_measured_nfe(method):
     ts = tsde.VPSDE()
     res = sample(ts, tan.gaussian_score(ts), (B, D), seed=0, method=method,
                  denoise=False, device="cpu", **kwargs)
-    if method == "adaptive":
+    if method in ("adaptive", "momentum", "heun"):
         assert torch.equal(res.nfe, per_iter * (res.accepted + res.rejected))
         assert int((res.accepted + res.rejected).max()) <= int(res.iterations)
     else:

@@ -986,7 +986,7 @@ def test_graphed_horizon_counts_the_kernels_its_replays_launch(cuda):
         b.submit(ImageRequest(uid=u, seed=u))
     step_ops.launches = ph.launches = 0
     graph = b._device_driver().graph
-    assert graph.recorded == {step_ops: 2, flash_ops: 0, ph: 2}
+    assert graph.recorded == {step_ops: 2, flash_ops: 0, gn_ops: 0, ph: 2}
     assert (step_ops.launches, ph.launches) == (1, 1)
     b.run_to_completion()
     assert step_ops.launches == 1 + 2 * b.device_horizons
@@ -1058,3 +1058,46 @@ def test_flash_attention_past_65535_heads_matches_plain(cuda):
     torch.testing.assert_close(out, want, **A_TOL[torch.float32])
     nb = flash_ops.batch_ranges(17_500, 4)[0][1]
     assert torch.equal(flash_ops.attention(q[:nb], k[:nb], v[:nb], causal=False), out[:nb])
+
+
+def test_groupnorm_silu_under_capture_counts_as_captured(cuda):
+    """K6 called while a stream is captured launches nothing: it counts in
+    ``captured``, and each replay runs it (a device-resident TRAJ_UNET
+    horizon holds 17 calls a forward)."""
+    x = torch.randn(4, 32, 64, device=cuda)
+    scale, bias = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    want = gn_ops.groupnorm_silu(x, scale, bias, groups=8)
+    launches, captured = gn_ops.launches, gn_ops.captured
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gn_ops.groupnorm_silu(x, scale, bias, groups=8)
+    assert (gn_ops.launches, gn_ops.captured) == (launches, captured + 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("family", ["momentum", "heun"])
+def test_zoo_family_graphed_horizon_bitwise_eager(cuda, family):
+    """A captured horizon of the momentum or Heun body replays bitwise the
+    eager chunks, through K1 and the per-slot streams; Heun's holds no P1
+    (no z, no projection)."""
+    import copy
+
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.core.solvers.base import SlotStreams
+    from repro_torch.kernels.philox import ops as ph
+
+    field = {"momentum": dict(momentum=0.15), "heun": dict(probability_flow=True)}[family]
+    sde, cfg, step = _analytic_step(cuda, **field)
+    seeds = list(range(8))
+    x0 = sde.prior_sample((8, 32), SlotStreams.of(seeds, 0, cuda))
+    graphed = ad.own_buffers(ad.init_carry(sde, x0, SlotStreams.of(seeds, 1, cuda), config=cfg))
+    eager = copy.deepcopy(graphed)
+    g = step.capture_horizon(None, graphed, 4)
+    assert g.recorded[ph] == (4 if family == "momentum" else 0) and g.recorded[step_ops] == 4
+    for _ in range(3):
+        g.replay()
+        eager = step(None, eager, max_sync_iters=4)
+    for a, b in zip(ad._tensor_leaves(graphed), ad._tensor_leaves(eager)):
+        assert torch.equal(a, b)

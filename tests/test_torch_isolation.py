@@ -26,7 +26,8 @@ from repro_torch.kernels.groupnorm_silu import ref as gn_ref
 from repro_torch.kernels.solver_step import ops as step_ops
 from repro_torch.kernels.solver_step import ref as step_ref
 from repro_torch.launch import sample as launcher
-from repro_torch.planning import PlannerConfig, plan
+from repro_torch.launch.plan import serve_planning
+from repro_torch.planning import OUEnv, PlannerConfig, RecedingHorizonPlanner, plan
 
 torch.set_num_threads(2)
 
@@ -69,6 +70,11 @@ def test_entry_points_without_a_card_raise(no_card):
         tad.adaptive(sde, score, torch.zeros(2, 3), torch.Generator())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launcher.main(["--arch", "cifar_dit"])
+    pcfg = PlannerConfig(horizon=8, obs_dim=2, act_dim=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RecedingHorizonPlanner(sde, lambda p, x, t, y=None: x, None, pcfg, OUEnv())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_planning(envs=1, steps=1)
     # the same calls run when the caller asks for the CPU
     assert sampling.sample(sde, score, (2, 3), device="cpu").x.shape == (2, 3)
 

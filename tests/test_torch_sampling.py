@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.analysis.solver_select import zoo_cases
+from repro_torch.analysis.solver_select import zoo_cases
 from repro.core import analytic as jan
 from repro.core import sde as jsde
 from repro_torch.core import analytic as tan
