@@ -12,7 +12,9 @@ Phases; any failure exits non-zero before the result line is printed:
              its stated bound (K3, flash attention, fp32 and bf16 at the
              DiT's and the planning shapes, fp32 at the served closed
              loop's (32, 4, 4, 8, 32), GQA with a causal window, a
-             ragged S = 75 with true_len 50, D = 256, each the same bits
+             ragged S = 75 with true_len 50, D = 256, gemma3-12b's prefill
+             shapes (1, 16, 4096, 256) over (1, 8, 4096, 256) causal with
+             window 1024 ("L") and causal ("A"), each the same bits
              on a second call; GroupNorm → SiLU at all 17 shapes of a
              TRAJ_UNET forward at 128 and at 32 rows (phase 6e's served
              slots), fp32 and bf16, and at x = 1e3 + N(0, 1),
@@ -44,7 +46,7 @@ Phases; any failure exits non-zero before the result line is printed:
              (4096, 2) and (2048, 2) and the trained DIT_100M's (8, 3072),
              and in fp32 at the zoo's and planning service's states (the
              selection race's (512, 8), the served closed loop's (16, 768),
-             the OU service's (4, 32));
+             the OU service's (4, 32)) and the diffusion LM's (4, 4096);
              K2 (the
              solver step with ε per row) at the DiT state with the three
              tiers' ε_rel in one call, within K1's bounds, the same bits
@@ -215,6 +217,30 @@ Phases; any failure exits non-zero before the result line is printed:
              logits close; prefill and decode times, the decode's device
              idle share and K7's share of a prefill's device time
              (torch.profiler).
+7b. attention lm — gemma3-12b at full width (12.77 B parameters, fp32,
+             seeded weights, TF32 off), after phase 7 has freed
+             mamba2-2.7b. First K3 at the prefill's shapes, "L" and "A",
+             timed against its 3xTF32 bound (the visible (query, key)
+             pairs), the plain version and SDPA. Then ``make_prefill_step``
+             on a (1, 4096) prompt from seed 0 (K3 counts set to 0 just
+             before and read just after: exactly 48, one a layer; the
+             peak allocated memory), its last-position logits against the
+             ``use_flash=False`` prefill within LM_LOGIT_TOL·max|logit|,
+             the greedy token equal unless the top-2 gap is within that
+             bound; ``serve_batch`` for 4 requests of 16 + 16 (ms a decode
+             step; its first tokens against the prefill's, gap-gated); and
+             ``serving.ContinuousBatcher``: 8 requests of mixed (prompt,
+             gen) through 4 slots (steps, ``wasted_step_fraction``,
+             tokens/s), each request's tokens equal to its solo
+             ``serve_batch`` run, or differing first where the solo top-2
+             gap is within the bound.
+7c. diffusion lm — ``models.diffusion_lm`` on olmo-1b's backbone at full
+             width (16 layers, d_model 2048, vocab 50,304; embed_dim 64;
+             seeded, ``out_proj`` livened), VP, batch 4 × 64 tokens,
+             adaptive at eps_rel 0.05 with the fused step: K1 counts set to
+             0 just before and read just after, exactly 8·⌈iterations/8⌉;
+             nfe = 2·(accepted + rejected) + 1, the sample finite, the
+             tokens in range.
 8. sharded — the fourth main path, data-parallel adaptive sampling
              (``sample(mesh=)`` over torch.distributed). First K4, the
              sharded solver step, in process at HIGHRES_DIT's state
@@ -355,6 +381,19 @@ REQUESTS_PER_SLOT = 3
 #: against two-pass softmax, sums in another order), bf16 2e-2 (P and the
 #: output rounded to bf16)
 ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+#: the attention LM phase (7b): gemma3-12b's prefill (B, S) and its K3 shape
+#: (B, Hq, Hkv, S, D), the "L" layers' window; serve_batch's (requests,
+#: prompt, gen); the continuous batcher's slots, cache and (prompt, gen) a
+#: request
+GEMMA_PREFILL = (1, 4096)
+GEMMA_ATTN = (1, 16, 8, 4096, 256)
+GEMMA_WINDOW = 1024
+GEMMA_SERVE = (4, 16, 16)
+BATCHER_SLOTS, BATCHER_CACHE = 4, 128
+BATCHER_REQUESTS = ((5, 12), (16, 4), (9, 9), (3, 16), (12, 6), (7, 10), (14, 3), (4, 8))
+#: the diffusion LM (phase 7c) on olmo-1b's backbone: (batch, tokens,
+#: embed_dim) and eps_rel; the solver state is (batch, tokens · embed_dim)
+DLM_SHAPE, DLM_EPS_REL = (4, 64, 64), 0.05
 
 
 def ulp(dtype, mag: float) -> float:
@@ -529,6 +568,7 @@ def check_solver_step_edges(dev, gen) -> dict:
 
     per_call = {}
     served = [(b, d, torch.float32) for b, d in SERVED_STEP_SHAPES]
+    served.append((DLM_SHAPE[0], DLM_SHAPE[1] * DLM_SHAPE[2], torch.float32))  # phase 7c
     for (b, d, dtype) in ((64, 736, torch.float32), (64, 736, torch.bfloat16),
                           (1, 196_608, torch.float32), (3, 3_073, torch.float32),
                           (8, 3_072, torch.float32), (8, 3_072, torch.bfloat16), *served):
@@ -1398,48 +1438,15 @@ def profile_device(fn, attempts: int = 3) -> tuple:
 
 
 def graph_nodes(graph) -> dict:
-    """The nodes of a CUDA graph captured with ``keep_graph=True``, read
-    through the driver API (cuGraphGetNodes; a kernel node's function by
-    cuGraphKernelNodeGetParams and cuFuncGetName or cuKernelGetName): the
-    kernel nodes by function name, any other node under "other nodes".
-    What the graph holds is what its capture launched; unlike a CUPTI
-    trace, no record can be lost on the way."""
-    import ctypes
-
-    class KernelParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
-        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
-                    ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
-                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
-                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
-
-    cu = ctypes.CDLL("libcuda.so.1")
-
-    def call(name, *args):
-        rc = getattr(cu, name)(*args)
-        if rc != 0:
-            fail(f"{name} returned CUresult {rc}")
-
-    g = ctypes.c_void_p(graph.raw_cuda_graph())
-    count = ctypes.c_size_t(0)
-    call("cuGraphGetNodes", g, None, ctypes.byref(count))
-    nodes = (ctypes.c_void_p * count.value)()
-    call("cuGraphGetNodes", g, nodes, ctypes.byref(count))
-    held = {}
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
-        key = "other nodes"
-        if kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
-            p = KernelParams()
-            call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(p))
-            name = ctypes.c_char_p()
-            if p.func:
-                call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(p.func))
-            else:
-                call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(p.kern))
-            key = name.value.decode()
-        held[key] = held.get(key, 0) + 1
-    return held
+    """The nodes of a CUDA graph captured with ``keep_graph=True``, kernel
+    nodes by function name, any other under "other nodes"
+    (``repro_torch.benchmarks.kernel_times.graph_nodes``, read through the
+    driver API; unlike a CUPTI trace, no record can be lost)."""
+    from repro_torch.benchmarks import kernel_times
+    try:
+        return kernel_times.graph_nodes(graph)
+    except RuntimeError as e:
+        fail(str(e))
 
 
 def check_tables_state_and_guard(dev, gen) -> dict:
@@ -1881,6 +1888,295 @@ def run_lm(dev) -> dict:
     del params, state
     torch.cuda.empty_cache()
     return {"k7_launches": k7_launches, "k7_cuda_kernels_per_call": k7_kernels / k7_calls}
+
+
+def top2_gap(logits) -> float:
+    """The gap between the largest and the second largest logit of a row."""
+    top = torch.topk(logits.float().reshape(-1), 2).values
+    return (top[0] - top[1]).item()
+
+
+def k3_lm_times(dev, gen, card: str) -> dict:
+    """K3 at gemma3-12b's prefill shapes, "L" (causal, window 1024) and "A"
+    (causal), fp32: device time beside its bound (3xTF32 on the tensor
+    cores over the visible (query, key) pairs; bytes), the plain version
+    and SDPA (``is_causal`` with ``enable_gqa`` for "A", an explicit boolean
+    mask for "L"; a yardstick the port never calls)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    B, Hq, Hkv, S, Dh = GEMMA_ATTN
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qpos = torch.arange(S, device=dev)[:, None]
+    kpos = torch.arange(S, device=dev)[None, :]
+    out = {}
+    for kind, window in (("L", GEMMA_WINDOW), ("A", None)):
+        sets = [(torch.randn(B, Hq, S, Dh, generator=gen, device=dev),
+                 torch.randn(B, Hkv, S, Dh, generator=gen, device=dev),
+                 torch.randn(B, Hkv, S, Dh, generator=gen, device=dev)) for _ in range(2)]
+        k3 = lambda q, k, v: flash_ops.attention(q, k, v, causal=True, window=window)
+        plain = lambda q, k, v: flash_ref.attention(q, k, v, causal=True, window=window)
+        if window is None:
+            lib = lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            mask = (kpos <= qpos) & (kpos > qpos - window)
+            lib = lambda q, k, v: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+        lib_err = (lib(*sets[0]) - plain(*sets[0])).abs().max().item()
+        ms = device_ms(k3, sets, reps=6, replays=2)
+        plain_ms = device_ms(plain, sets, reps=2, replays=2)
+        lib_ms = device_ms(lib, sets, reps=4, replays=2)
+        w = S if window is None else window
+        pairs = w * (w + 1) // 2 + (S - w) * w  # visible (query, key) pairs
+        flops = 4 * B * Hq * pairs * Dh
+        nbytes = 4 * (2 * B * Hq * S * Dh + 2 * B * Hkv * S * Dh)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_bytes, 3 * flops / TF32_FLOPS * 1e3)
+        out[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                         bound_by="bytes" if t_bytes >= bound else "operations",
+                         bound_fp32_cuda_cores_ms=max(t_bytes, flops / FP32_FLOPS * 1e3),
+                         visible_pairs=pairs, library_max_abs_diff=lib_err)
+        print(f"  [{card}] flash_attention {GEMMA_ATTN} causal window={window} fp32: "
+              f"{ms:.3f} ms on the device; bound {bound:.3f} ms (3xTF32: 3 x "
+              f"{flops / 1e9:.1f} GFLOP over {pairs:,} visible pairs at 495 TFLOP/s; "
+              f"{bound / ms:.0%} of it reached; bytes {t_bytes:.3f} ms), CUDA cores "
+              f"{out[kind]['bound_fp32_cuda_cores_ms']:.3f} ms; plain {plain_ms:.3f} ms; SDPA "
+              f"{lib_ms:.3f} ms (max abs diff from the plain version {lib_err:.1e})")
+        del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_attention_lm(dev, card: str) -> dict:
+    """Phase 7b: gemma3-12b at full width (seeded weights, fp32, TF32 off):
+    the (1, 4096) prefill through K3 (48 launches, one a layer) against the
+    plain attention, ``serve_batch`` and ``ContinuousBatcher`` against solo
+    runs; K3's times at the prefill's shapes first. Returns the numbers of
+    the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import decode_step, forward, init_decode_state, init_model
+    from repro_torch.models.transformer import param_count
+    from repro_torch.serving.scheduler import ContinuousBatcher, Request
+
+    cfg = get_config("gemma3-12b")
+    B, Hq, Hkv, S, Dh = GEMMA_ATTN
+    if ((Hq, Hkv, Dh, cfg.sliding_window) != (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                                               GEMMA_WINDOW) or GEMMA_PREFILL != (B, S)):
+        fail(f"GEMMA_ATTN {GEMMA_ATTN} is not gemma3-12b's prefill shape")
+    times = k3_lm_times(dev, torch.Generator(device=dev).manual_seed(24), card)
+
+    t0 = time.perf_counter()
+    params = init_model(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n = param_count(params)
+    print(f"  {cfg.name}: {cfg.num_layers} layers ({cfg.mixer_pattern.count('L') * cfg.num_repeats}"
+          f" sliding-window 'L' of {cfg.sliding_window}, {cfg.mixer_pattern.count('A') * cfg.num_repeats}"
+          f" global 'A'), d_model {cfg.d_model}, GQA {cfg.num_heads}:{cfg.num_kv_heads}, "
+          f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n:,} parameters, "
+          f"{n * 4 / 1e9:.2f} GB fp32, {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+          f"allocated, made in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev).manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, GEMMA_PREFILL, generator=g, device=dev)
+    prefill = make_prefill_step(cfg, device=dev)  # the default runs attention through K3
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on: the LM's fp32 products would not be fp32")
+    prefill(params, {"tokens": prompts[:, :256]})  # cuBLAS and the allocator warm up
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    k3_launches = flash_ops.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"  prefill {GEMMA_PREFILL} through K3: {prefill_s:.3f} s, "
+          f"{GEMMA_PREFILL[1] / prefill_s:.0f} tokens/s, peak allocated {peak:.2f} GiB; K3 "
+          f"launches {k3_launches} (want {cfg.num_layers}: one a layer); next token "
+          f"{nxt[:, 0].tolist()}")
+    if k3_launches != cfg.num_layers:
+        fail(f"the prefill launched K3 {k3_launches} times, not {cfg.num_layers}")
+    if not bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all()):
+        fail(f"prefill token {nxt.tolist()} out of range")
+    with torch.no_grad():
+        fast, _ = forward(params, prompts, cfg, last_logits_only=True)
+        t0 = time.perf_counter()
+        plain, _ = forward(params, prompts, cfg, use_flash=False, last_logits_only=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    err, scale = (fast - plain).abs().max().item(), plain.abs().max().item()
+    bound = LM_LOGIT_TOL * scale
+    gap = top2_gap(plain[0, -1])
+    same_token = torch.equal(fast.argmax(-1), plain.argmax(-1))
+    finite = bool(torch.isfinite(fast).all())
+    print(f"  last-position logits, K3 vs the plain attention (prefill {plain_s:.3f} s): max abs "
+          f"err {err:.3e} (bound {LM_LOGIT_TOL}·max|logit| = {bound:.3e}), finite {finite}, "
+          f"greedy token equal {same_token} (top-2 gap {gap:.3e})")
+    if not (finite and err <= bound) or (not same_token and gap > bound):
+        fail("the prefill through K3 disagrees with the plain path")
+    by_name, total_us = profile_device(lambda: prefill(params, {"tokens": prompts}))
+    k3_us = sum(us for name, (_, us) in by_name.items() if "flash_fwd" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    print(f"  one prefill: {total_us / 1e3:.1f} ms of device time, K3 {k3_us / 1e3:.1f} ms "
+          f"({100 * k3_us / total_us:.1f} %); largest: " + "; ".join(
+              f"{name[:50]} x{c} {us / 1e3:.1f} ms" for name, (c, us) in top))
+    del fast, plain
+
+    # serve_batch: 4 requests, prompt 16, gen 16 (prefill by replay, then greedy)
+    R, P, G = GEMMA_SERVE
+    sprompts = torch.randint(0, cfg.vocab_size, (R, P), generator=g, device=dev)
+    serve_batch(cfg, params, sprompts[:, :2], gen_len=2, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = serve_batch(cfg, params, sprompts, gen_len=G, device=dev)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    step_ms = serve_s / (P + G - 1) * 1e3
+    first = prefill(params, {"tokens": sprompts})
+    with torch.no_grad():
+        first_logits, _ = forward(params, sprompts, cfg, last_logits_only=True)
+    print(f"  serve_batch {R} requests, prompt {P}, gen {G}: {serve_s:.3f} s, {step_ms:.2f} ms "
+          f"per decode step of {R} ({R * 1e3 / step_ms:.1f} tokens/s); prefill's first tokens "
+          f"{first[:, 0].tolist()}, serve's {toks[:, 0].tolist()}")
+    if toks.shape != (R, G) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail("serve_batch tokens out of range")
+    for r in range(R):
+        gap = top2_gap(first_logits[r, -1])
+        if first[r, 0] != toks[r, 0] and gap > LM_LOGIT_TOL * first_logits.abs().max().item():
+            fail(f"request {r}: the prefill's first token differs from the decode's at a top-2 "
+                 f"gap of {gap:.3e}")
+
+    # the decode's device idle share: device busy time of a profiled run
+    # against the same run's unprofiled wall (as phase 7 for mamba2)
+    step = make_serve_step(cfg, device=dev)
+    state = init_decode_state(cfg, R, P + G, device=dev)
+
+    def decode_loop(n=LM_IDLE_STEPS):
+        nonlocal state
+        tok = toks[:, :1]
+        for _ in range(n):
+            tok, state = step(params, {"tokens": tok}, state)
+
+    decode_loop(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_loop()
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    by_name, busy_us = profile_device(decode_loop)
+    idle = 1 - busy_us / 1e3 / loop_ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+    print(f"  decode: {LM_IDLE_STEPS} steps {loop_ms:.1f} ms unprofiled wall, device busy "
+          f"{busy_us / 1e3:.1f} ms ({busy_us / 1e3 / LM_IDLE_STEPS:.2f} ms a step), idle share "
+          f"{idle:.2f}; {sum(c for c, _ in by_name.values()) / LM_IDLE_STEPS:.0f} device "
+          f"operations a step; largest: " + "; ".join(
+              f"{name[:50]} x{c} {us / 1e3:.1f} ms" for name, (c, us) in top))
+    del state
+
+    # the continuous batcher: mixed requests through BATCHER_SLOTS slots
+    reqs = [(uid, torch.randint(0, cfg.vocab_size, (p,), generator=g, device=dev), m)
+            for uid, (p, m) in enumerate(BATCHER_REQUESTS)]
+    b = ContinuousBatcher(cfg, params, slots=BATCHER_SLOTS, cache_len=BATCHER_CACHE, device=dev)
+    for uid, p, m in reqs:
+        b.submit(Request(uid=uid, prompt=p.cpu().numpy(), max_new_tokens=m))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = b.run_to_completion()
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    n_new = sum(m for _, _, m in reqs)
+    print(f"  ContinuousBatcher: {len(reqs)} requests (prompt, gen) {list(BATCHER_REQUESTS)} "
+          f"through {BATCHER_SLOTS} slots: {b.total_steps} steps in {batch_s:.3f} s "
+          f"({batch_s / b.total_steps * 1e3:.2f} ms a step, {n_new / batch_s:.1f} new tokens/s), "
+          f"wasted_step_fraction {b.wasted_step_fraction:.4f}, finishing order {list(done)}")
+    if len(done) != len(reqs) or b.total_steps >= BATCHER_CACHE:
+        fail(f"the batcher finished {len(done)} of {len(reqs)} requests in {b.total_steps} steps")
+    differ = 0
+    for uid, p, m in reqs:
+        solo = serve_batch(cfg, params, p[None], gen_len=m, device=dev)[0].tolist()
+        got = done[uid].output
+        if got == solo:
+            continue
+        j = next(i for i, (a, c) in enumerate(zip(got, solo)) if a != c)
+        # the solo run's logits at the first differing position
+        state = init_decode_state(cfg, 1, p.numel() + m, device=dev)
+        with torch.no_grad():
+            for tok in torch.cat([p, torch.tensor(solo[:j], device=dev, dtype=p.dtype)]):
+                logits, state = decode_step(params, tok.view(1, 1), state, cfg)
+        gap, lbound = top2_gap(logits[0, -1]), LM_LOGIT_TOL * logits.abs().max().item()
+        differ += 1
+        print(f"  request {uid}: batched {got} vs solo {solo} differ first at {j}, where the "
+              f"solo top-2 gap is {gap:.3e} (bound {lbound:.3e})")
+        if gap > lbound:
+            fail(f"request {uid}: the batcher's tokens differ from its solo run's past the bound")
+    print(f"  every batched request equals its solo serve_batch tokens"
+          + (f" up to a near tie ({differ} requests)" if differ else ""))
+    rec = {"k3": times, "launches": k3_launches, "prefill_s": prefill_s,
+           "plain_prefill_s": plain_s, "params": n, "peak_gib": peak, "logit_err": err,
+           "serve_ms_per_step": step_ms, "decode_idle_share": idle,
+           "decode_device_ms_per_step": busy_us / 1e3 / LM_IDLE_STEPS,
+           "batcher_s": batch_s, "batcher_steps": b.total_steps,
+           "wasted_step_fraction": b.wasted_step_fraction,
+           "batcher_tokens_per_s": n_new / batch_s, "differ": differ}
+    del params, b
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_diffusion_lm(dev) -> dict:
+    """Phase 7c: the diffusion LM on olmo-1b's backbone at full width
+    (seeded weights, ``out_proj`` livened), VP, adaptive at DLM_EPS_REL with
+    the fused step: K1 exactly once an iteration in whole groups of 8.
+    Returns the numbers of the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.models import diffusion_lm as dlm
+    from repro_torch.models.transformer import param_count
+
+    B, S, De = DLM_SHAPE
+    cfg = dlm.DiffusionLMConfig(backbone=get_config("olmo-1b"), embed_dim=De)
+    params = dlm.init_diffusion_lm(cfg, 0, device=dev)
+    dlm.liven(params, torch.Generator(device=dev).manual_seed(0))
+    bb = cfg.backbone
+    print(f"  diffusion LM on {bb.name}'s backbone ({bb.num_repeats} layers, d_model "
+          f"{bb.d_model}, {bb.num_heads} heads, d_ff {bb.d_ff}, {bb.norm_type}, vocab "
+          f"{bb.vocab_size}; embed_dim {De}): {param_count(params):,} parameters; batch {B} x "
+          f"{S} tokens, VP, eps_rel {DLM_EPS_REL}")
+    sde = VPSDE()
+    kw = dict(method="adaptive", device=dev, eps_rel=DLM_EPS_REL, use_fused_kernel=True,
+              max_iters=MAIN_MAX_ITERS)
+    dlm.generate(params, cfg, sde, B, S, seed=1, **{**kw, "max_iters": 8})  # warm-up
+    step_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, res = dlm.generate(params, cfg, sde, B, S, seed=0, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = step_ops.launches
+    iters = int(res.iterations)
+    want = 8 * -(-iters // 8)
+    nfe, acc, rej = res.nfe, res.accepted, res.rejected
+    print(f"  generate: {iters} iterations, mean NFE {float(res.mean_nfe):.2f}, accepted "
+          f"{int(acc.sum())}, rejected {int(rej.sum())}, wall {wall:.3f} s "
+          f"({wall / (2 * iters) * 1e3:.2f} ms a batch forward, two an iteration); K1 launches "
+          f"{k1} (want 8·⌈iterations/8⌉ = {want}); tokens {tuple(toks.shape)}, first row "
+          f"{toks[0, :12].tolist()}")
+    if k1 != want:
+        fail(f"the diffusion LM's solve launched K1 {k1} times, not {want}")
+    if not (bool(torch.isfinite(res.x).all()) and toks.shape == (B, S)
+            and bool(((toks >= 0) & (toks < bb.vocab_size)).all())):
+        fail("the diffusion LM's sample is not finite or its tokens are out of range")
+    if not torch.equal(nfe, 2 * (acc + rej) + 1):
+        fail(f"NFE {nfe.tolist()} is not 2·(accepted + rejected) + 1 (the denoise)")
+    if iters >= MAIN_MAX_ITERS:
+        fail(f"the diffusion LM's solve did not converge in {MAIN_MAX_ITERS} iterations")
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": k1, "iterations": iters, "mean_nfe": float(res.mean_nfe),
+            "wall_s": wall, "ms_per_batch_forward": wall / (2 * iters) * 1e3}
 
 
 def run_sharded(dev, card: str, main_wall_s: float) -> dict:
@@ -2468,7 +2764,9 @@ def main() -> None:
             (2, 4, 4, 75, 64, False, None, 50, torch.float32),
             (2, 4, 4, 75, 64, True, None, 50, torch.bfloat16),
             (1, 4, 4, 64, 256, True, None, None, torch.float32),
-            (1, 4, 4, 64, 256, False, None, None, torch.bfloat16)):
+            (1, 4, 4, 64, 256, False, None, None, torch.bfloat16),
+            (*GEMMA_ATTN, True, GEMMA_WINDOW, None, torch.float32),  # phase 7b's "L"
+            (*GEMMA_ATTN, True, None, None, torch.float32)):  # phase 7b's "A"
         q = torch.randn(b, hq, s, dh, generator=gen, device=dev).to(dtype)
         k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(dtype)
                 for _ in range(2))
@@ -2486,7 +2784,8 @@ def main() -> None:
               f"{bound:.1e}), same bits on a second call {same} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail("flash attention kernel disagrees with its plain version or itself")
-        attn_err[(s, dtype, causal)] = max(attn_err.get((s, dtype, causal), 0.0), err)
+        key = (s, dtype, causal, window)
+        attn_err[key] = max(attn_err.get(key, 0.0), err)
     # GroupNorm → SiLU at the 17 (H, C) of one TRAJ_UNET forward, 2·64 rows
     # (phase 4's plans) and 2·16 (phase 6e's served slots), on the path the
     # wrapper picks (the register kernel at every one of them) and on the
@@ -3169,6 +3468,15 @@ def main() -> None:
     phase("main path: mamba2-2.7b prefill through K7 and greedy serving")
     lm = run_lm(dev)
 
+    # ------------------------------------------------------- 7b. attention lm
+    phase("main path: gemma3-12b prefill through K3 (causal, windowed, GQA), serve_batch "
+          "and the continuous batcher")
+    alm = run_attention_lm(dev, card)
+
+    # -------------------------------------------------------- 7c. diffusion lm
+    phase("main path: the diffusion LM on olmo-1b's backbone, adaptive through K1")
+    dlm_rec = run_diffusion_lm(dev)
+
     # ------------------------------------------------------------- 8. sharded
     phase("sharded sampling: K4 and sample(mesh=) over torch.distributed")
     k4 = run_sharded(dev, card, rec["wall_s"])
@@ -3210,6 +3518,10 @@ def main() -> None:
                                          "served closed loop at TRAJ_UNET's width (phase 6e)",
                           "launches": psrv["closed_loop"]["launches"]["solver_step"],
                           "device_resident": psrv["device_resident_launches"]["solver_step"]},
+         "diffusion_lm": {"launched_as": "error_step at (4, 64·64) in every iteration of the "
+                                         "diffusion LM's adaptive solve on olmo-1b's backbone "
+                                         "(phase 7c), 8·⌈iterations/8⌉",
+                          **dlm_rec},
          "ptxas": [r for r in small_ptxas if r["kernel"].startswith("error_step")]},
         {"name": "solver_step_per_row_eps", "route": "cuda",
          "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
@@ -3232,7 +3544,7 @@ def main() -> None:
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:102",
          "launches": launches["flash_attention"],
-         "max_abs_err": attn_err[(S, torch.float32, False)],
+         "max_abs_err": attn_err[(S, torch.float32, False, None)],
          "design": "mma.sync 3xTF32",
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
          "bound_by": "bytes" if k3_bytes / HBM_BYTES_PER_S >= 3 * k3_ops / TF32_FLOPS
@@ -3244,7 +3556,7 @@ def main() -> None:
                   "bound_ms": k3b_bound,
                   "bound_by": "bytes" if k3_bytes / 2 / HBM_BYTES_PER_S >= k3_ops / BF16_FLOPS
                   else "operations", "library_ms": k3b_lib,
-                  "max_abs_err": attn_err[(S, torch.bfloat16, False)]},
+                  "max_abs_err": attn_err[(S, torch.bfloat16, False, None)]},
          "planning": {"launches": plan_launches["flash_attention"], "ms": k3p_ms,
                       "plain_ms": k3p_plain, "bound_ms": k3p_bound, "library_ms": k3p_lib},
          "trained_dit_100m": {"launches": tt["dit_launches"]["flash_attention"],
@@ -3259,7 +3571,23 @@ def main() -> None:
                                          "the served closed loop (phase 6e)",
                           "launches": psrv["closed_loop"]["launches"]["flash_attention"],
                           "device_resident":
-                              psrv["device_resident_launches"]["flash_attention"]}},
+                              psrv["device_resident_launches"]["flash_attention"]},
+         "attention_lm": {"launched_as": "every attention layer of gemma3-12b's (1, 4096) "
+                                         "prefill (phase 7b): causal with window 1024 on the "
+                                         "40 'L' layers, causal on the 8 'A' layers, GQA 16:8, "
+                                         "head_dim 256, fp32",
+                          "launches": alm["launches"],
+                          "max_abs_err": {
+                              "L": attn_err[(GEMMA_ATTN[3], torch.float32, True, GEMMA_WINDOW)],
+                              "A": attn_err[(GEMMA_ATTN[3], torch.float32, True, None)]},
+                          **{kind: alm["k3"][kind] for kind in ("L", "A")},
+                          **{k: alm[k] for k in ("prefill_s", "plain_prefill_s", "params",
+                                                 "peak_gib", "logit_err", "serve_ms_per_step",
+                                                 "decode_idle_share",
+                                                 "decode_device_ms_per_step",
+                                                 "batcher_s", "batcher_steps",
+                                                 "wasted_step_fraction",
+                                                 "batcher_tokens_per_s", "differ")}}},
         {"name": "groupnorm_silu", "route": "cuda",
          "source": "src/repro_torch/kernels/groupnorm_silu/csrc/groupnorm_silu.cu",
          "replaces": "src/repro/kernels/groupnorm_silu/kernel.py:81",

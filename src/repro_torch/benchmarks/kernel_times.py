@@ -29,7 +29,9 @@ e.g. the parent and this tree in turns on one card:
   PYTHONPATH=src python -m repro_torch.benchmarks.kernel_times
 
 Prints the card's name and power limit, then one JSON line. Needs a
-CUDA card; exits 1 without one.
+CUDA card; exits 1 without one. ``graph_nodes`` (the kernels a captured
+CUDA graph holds, read through the driver API) serves ``chip_smoke.py``
+and the card tests' one-kernel-a-call checks.
 """
 
 from __future__ import annotations
@@ -77,6 +79,51 @@ def device_ms(fn, sets, reps: int = 40, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+def graph_nodes(graph) -> dict:
+    """The nodes of a CUDA graph captured with ``keep_graph=True``, read
+    through the driver API (cuGraphGetNodes; a kernel node's function by
+    cuGraphKernelNodeGetParams and cuFuncGetName or cuKernelGetName): the
+    kernel nodes by function name, any other node under "other nodes".
+    What the graph holds is what its capture launched; unlike a CUPTI
+    trace, no record can be lost on the way."""
+    import ctypes
+
+    class KernelParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(name, *args):
+        rc = getattr(cu, name)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{name} returned CUresult {rc}")
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", g, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    call("cuGraphGetNodes", g, nodes, ctypes.byref(count))
+    held = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        key = "other nodes"
+        if kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            p = KernelParams()
+            call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(p))
+            name = ctypes.c_char_p()
+            if p.func:
+                call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(p.func))
+            else:
+                call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(p.kern))
+            key = name.value.decode()
+        held[key] = held.get(key, 0) + 1
+    return held
 
 
 def launch_floor_ms(dev) -> float:

@@ -1,26 +1,37 @@
 """Port of ``repro/configs``: the diffusion configurations
-(``configs/diffusion.py``) and the registry of language-model
-architectures, ``get_config(arch_id)``.
+(``configs/diffusion.py``), the registry of language-model
+architectures, ``get_config(arch_id)``, and the input shapes with their
+per-architecture policy (``configs/shapes.py``).
 
-The registry holds the architectures the port can run. The reference's
-other architectures have attention, experts or codebook heads, which
-come with ROADMAP item A12; asking for one raises and says so.
+The registry holds the architectures the port can run: the dense
+attention models (olmo-1b, qwen1.5-0.5b, qwen3-14b, gemma3-12b) and
+mamba2-2.7b. The reference's other architectures need mixture-of-experts
+layers, cross-attention or codebook heads, which come with ROADMAP item
+A12; asking for one raises and says so.
 """
 
 from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import mamba2_2_7b
+from . import gemma3_12b, mamba2_2_7b, olmo_1b, qwen1_5_0_5b, qwen3_14b
+from .shapes import (
+    LONG_CONTEXT_SWA_WINDOW,
+    SHAPES,
+    InputShape,
+    apply_shape_policy,
+    get_shape,
+    needs_swa_override,
+)
 
-_REGISTRY = {m.CONFIG.name: m.CONFIG for m in (mamba2_2_7b,)}
+_REGISTRY = {m.CONFIG.name: m.CONFIG
+             for m in (olmo_1b, qwen1_5_0_5b, qwen3_14b, gemma3_12b, mamba2_2_7b)}
 
 ARCH_IDS = tuple(sorted(_REGISTRY))
 
 #: the reference's architectures that the port does not run yet
-NOT_PORTED = ("deepseek-moe-16b", "gemma3-12b", "granite-moe-3b-a800m",
-              "jamba-v0.1-52b", "llama-3.2-vision-90b", "musicgen-medium",
-              "olmo-1b", "qwen1.5-0.5b", "qwen3-14b")
+NOT_PORTED = ("deepseek-moe-16b", "granite-moe-3b-a800m", "jamba-v0.1-52b",
+              "llama-3.2-vision-90b", "musicgen-medium")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -29,9 +40,19 @@ def get_config(name: str) -> ModelConfig:
     except KeyError:
         if name in NOT_PORTED:
             raise NotImplementedError(
-                f"arch '{name}' is not ported yet (attention, MoE and codebook "
+                f"arch '{name}' is not ported yet (MoE, cross-attention and codebook "
                 f"architectures come with ROADMAP A12); have {list(ARCH_IDS)}") from None
         raise ValueError(f"unknown arch '{name}'; have {list(ARCH_IDS)}") from None
 
 
-__all__ = ["ARCH_IDS", "NOT_PORTED", "get_config"]
+__all__ = [
+    "ARCH_IDS",
+    "InputShape",
+    "LONG_CONTEXT_SWA_WINDOW",
+    "NOT_PORTED",
+    "SHAPES",
+    "apply_shape_policy",
+    "get_config",
+    "get_shape",
+    "needs_swa_override",
+]

@@ -2,9 +2,15 @@
 language-model decode, the continuous-batching diffusion server and the
 receding-horizon planner as a service.
 
-LM mode: ``serve_batch`` prefills a batch of prompts by replaying them
-token by token through the serve step (exact and state-consistent, as
-the reference does), then decodes greedily.
+LM mode (``--arch``): ``serve_batch`` prefills a batch of prompts by
+replaying them token by token through the serve step (exact and
+state-consistent, as the reference does), then decodes greedily. It
+runs every registered architecture (``configs.ARCH_IDS``): the dense
+attention models olmo-1b, qwen1.5-0.5b, qwen3-14b and gemma3-12b (global
+and sliding-window GQA over ring-buffer KV caches) and mamba2-2.7b. The
+mixture-of-experts, cross-attention and codebook architectures come
+with ROADMAP A12; ``serving.ContinuousBatcher`` serves the attention
+models request by request.
 
 ``--diffusion`` runs ``serving.DiffusionBatcher`` (DESIGN.md §4, §7):
 seeded requests drain through a DiT score network (seeded weights, the
@@ -21,9 +27,10 @@ inpainting, ``--cfg-scale`` returns guidance) drain through the same
 ``DiffusionBatcher``; ``repro_torch.launch.plan`` is the launcher
 underneath. The reference's ``--fake-devices`` mesh waits for ROADMAP A11.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
       --batch 4 --prompt-len 16 --gen-len 16
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion --arch highres_dit \\
       --slots 8 --requests 16 --sync-horizon 4 --tier mixed [--device-resident]
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion --device cpu \\
@@ -52,12 +59,14 @@ Tensor = torch.Tensor
 
 
 def serve_batch(cfg: ModelConfig, params, prompts: Tensor, *, gen_len: int = 32,
-                device="cuda") -> Tensor:
+                cache_len: int | None = None, device="cuda") -> Tensor:
     """prompts (B, P) int → the generated tokens (B, gen_len) int32: the
-    first from the last prompt position, then greedy."""
+    first from the last prompt position, then greedy. The attention
+    layers' caches hold ``cache_len`` tokens (default P + gen_len; a
+    sliding-window layer's at most its window)."""
     dev = resolve_device(device)
     B, P = prompts.shape
-    state = init_decode_state(cfg, B, P + gen_len, device=dev)
+    state = init_decode_state(cfg, B, cache_len or (P + gen_len), device=dev)
     step = make_serve_step(cfg, device=dev)
     prompts = prompts.to(dev)
 

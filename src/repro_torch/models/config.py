@@ -11,9 +11,9 @@ Mixer kinds:  "A" global causal attention · "L" sliding-window attention
 MLP kinds:    "D" dense MLP · "E" mixture-of-experts · "N" none
 
 The fields and ``scaled_down`` equal the reference's, so a configuration
-built here describes the same model there. The port runs the "M" mixer
-and the "N"/"D" MLPs (``models/transformer.py``); the other kinds are
-data only until their slice (ROADMAP A12).
+built here describes the same model there. The port runs the "A", "L"
+and "M" mixers and the "N"/"D" MLPs (``models/transformer.py``); "X"
+and "E" are data only until their slice (ROADMAP A12).
 """
 
 from __future__ import annotations

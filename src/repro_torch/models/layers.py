@@ -1,7 +1,7 @@
 """Shared layers; port of ``repro/models/layers.py`` (the parts the DiT,
-the temporal UNet and the language models use: initializer, norms, the
-MLP, time embedding), and ``to_tensor``, which carries the reference's
-parameter leaves across.
+the temporal UNet and the language models use: initializer, norms,
+rotary embeddings, the MLP, time embedding), and ``to_tensor``, which
+carries the reference's parameter leaves across.
 
 Norms take their statistics in fp32 whatever the activation dtype and
 round once on return, like the reference.
@@ -71,6 +71,25 @@ def apply_norm(x: Tensor, norm_type: str, params: Optional[dict] = None,
     else:
         raise ValueError(norm_type)
     return y.to(x.dtype)
+
+
+def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """Rotary embedding (reference ``layers.py:64``). x (..., S, H, D),
+    positions (..., S) integer: fp32 angles positions·θ^(−i/half), the
+    half-split rotation, the result in x's dtype.
+
+    The frequencies are rounded once from float64, which gives the
+    reference's correctly rounded fp32 power bit for bit; cos and sin are
+    torch's, within an ulp of XLA's."""
+    half = x.shape[-1] // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = torch.pow(torch.full((), theta, dtype=torch.float64, device=x.device),
+                     exps.to(torch.float64)).to(torch.float32)
+    angles = positions[..., :, None].to(torch.float32) * freq  # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 def init_mlp(d_model: int, d_ff: int, glu: bool, *, generator: torch.Generator,

@@ -5,26 +5,31 @@ The layer stack is ``num_repeats`` repeats of the config's (mixer, mlp)
 pattern. As in the reference, each pattern position's weights are
 stacked on a leading repeat axis (``params["blocks"]["p{i}"]``); where
 the reference ``lax.scan``s over that axis, the port loops over it and
-takes each layer's weights as views. Decode threads per-layer recurrent
-state, stacked the same way.
+takes each layer's weights as views. Decode threads per-layer state,
+stacked the same way: a ring-buffer KV cache for attention layers
+(written in place), a recurrent state for Mamba2 layers.
 
-Runs the "M" (Mamba2 SSD) mixer and the "N" (none) and "D" (dense) MLPs
-with an untied head. Attention ("A", "L", "X") and mixture-of-experts
-("E") layers, codebook heads and tied embeddings raise
-``NotImplementedError``: they come with ROADMAP A12. Parameters are a
-nested dict of tensors with the reference's keys and layouts;
+Runs the global ("A") and sliding-window ("L") attention mixers and the
+"M" (Mamba2 SSD) mixer, the "N" (none) and "D" (dense) MLPs, with an
+untied head. Cross-attention ("X") and mixture-of-experts ("E") layers,
+codebook heads and tied embeddings raise ``NotImplementedError``: they
+come with ROADMAP A12; the mesh levers (``attn_q_seq_shard``,
+``residual_seq_shard``, ``decode_flash_shard``) with A11. Parameters are
+a nested dict of tensors with the reference's keys and layouts;
 ``params_from_jax`` copies a reference tree into one.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+import dataclasses
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.attention import attention_decode, attention_forward, init_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.kvcache import MambaState
+from repro_torch.models.kvcache import init_kv_cache
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, dense_init, init_mlp, init_norm, to_tensor)
 from repro_torch.models.mamba2 import (
@@ -37,26 +42,30 @@ from repro_torch.models.mamba2 import (
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
-_NOT_PORTED = ("layer kind {!r} is not ported yet (attention and mixture-of-experts "
+_NOT_PORTED = ("layer kind {!r} is not ported yet (cross-attention and mixture-of-experts "
                "layers come with ROADMAP A12)")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     for mix in cfg.mixer_pattern:
-        if mix != "M":
+        if mix not in ("A", "L", "M"):
             raise NotImplementedError(_NOT_PORTED.format(mix))
     for mlp in cfg.mlp_pattern:
         if mlp not in ("N", "D"):
             raise NotImplementedError(_NOT_PORTED.format(mlp))
     if cfg.num_codebooks > 1 or cfg.tie_embeddings:
         raise NotImplementedError("codebook heads and tied embeddings come with ROADMAP A12")
+    if cfg.residual_seq_shard:  # the attention levers: models.attention._refuse
+        raise NotImplementedError("residual_seq_shard is a mesh lever; the LM under a mesh "
+                                  "comes with ROADMAP A11")
 
 
 def _map(fn, tree):
     if isinstance(tree, Mapping):
         return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, MambaState):
-        return MambaState(conv=fn(tree.conv), ssm=fn(tree.ssm))
+    if dataclasses.is_dataclass(tree):  # MambaState, LayerKVCache
+        return type(tree)(**{f.name: fn(getattr(tree, f.name))
+                             for f in dataclasses.fields(tree)})
     return fn(tree)
 
 
@@ -64,9 +73,9 @@ def _stack(trees):
     first = trees[0]
     if isinstance(first, Mapping):
         return {k: _stack([t[k] for t in trees]) for k in first}
-    if isinstance(first, MambaState):
-        return MambaState(conv=torch.stack([t.conv for t in trees]),
-                          ssm=torch.stack([t.ssm for t in trees]))
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{f.name: torch.stack([getattr(t, f.name) for t in trees])
+                              for f in dataclasses.fields(first)})
     return torch.stack(trees)
 
 
@@ -83,8 +92,9 @@ def param_count(params: Params) -> int:
 def _init_block_position(cfg: ModelConfig, pos: int, generator: torch.Generator) -> Params:
     dtype = getattr(torch, cfg.dtype)
     dev = generator.device
-    p: Params = {"norm1": init_norm(cfg.d_model, cfg.norm_type, dtype, dev),
-                 "mixer": init_mamba(cfg, generator)}
+    mix = cfg.mixer_pattern[pos]
+    mixer = init_mamba(cfg, generator) if mix == "M" else init_attention(cfg, mix, generator)
+    p: Params = {"norm1": init_norm(cfg.d_model, cfg.norm_type, dtype, dev), "mixer": mixer}
     if cfg.mlp_pattern[pos] == "D":
         p["norm2"] = init_norm(cfg.d_model, cfg.norm_type, dtype, dev)
         p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.glu, generator=generator, dtype=dtype)
@@ -165,28 +175,37 @@ def _mlp_residual(bp: Params, x: Tensor, cfg: ModelConfig, pos: int) -> Tensor:
     return x + apply_mlp(h, mlp["w_in"], mlp["w_out"], mlp.get("w_gate"), act=cfg.act)
 
 
-def _block_forward(bp: Params, x: Tensor, cfg: ModelConfig, pos: int,
-                   use_kernel_ssd: bool) -> Tensor:
+def _block_forward(bp: Params, x: Tensor, cfg: ModelConfig, pos: int, positions: Tensor,
+                   use_kernel_ssd: bool, use_flash: bool) -> Tensor:
+    mix = cfg.mixer_pattern[pos]
     h = apply_norm(x, cfg.norm_type, bp["norm1"])
-    x = x + mamba_forward(bp["mixer"], h, cfg, use_kernel=use_kernel_ssd)
+    if mix == "M":
+        x = x + mamba_forward(bp["mixer"], h, cfg, use_kernel=use_kernel_ssd)
+    else:
+        x = x + attention_forward(bp["mixer"], h, cfg, mix, positions, use_flash=use_flash)
     return _mlp_residual(bp, x, cfg, pos)
 
 
 def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
-            use_kernel_ssd: bool = True,
+            use_kernel_ssd: bool = True, use_flash: bool = True,
             last_logits_only: bool = False) -> Tuple[Tensor, Tensor]:
     """tokens (B, S) → (logits (B, S or 1, V), aux loss 0).
 
     ``use_kernel_ssd`` (the default) routes every Mamba2 layer's scan
-    through ``kernels.ssd.ops`` (K7 on the card); ``False`` is the plain
-    ``ssd_chunked`` path; ``last_logits_only`` applies
-    the head to the last position only, as a serving prefill needs."""
+    through ``kernels.ssd.ops`` (K7 on the card), ``False`` through the
+    plain ``ssd_chunked``; ``use_flash`` (the default) every attention
+    layer's causal attention through ``kernels.flash_attention.ops`` (K3
+    on the card; windowed on "L" layers), ``False`` through the plain
+    ``_ref_attention``. Positions are ``arange(S)``. ``last_logits_only``
+    applies the head to the last position only, as a serving prefill
+    needs."""
     _check_ported(cfg)
     x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for r in range(cfg.num_repeats):
         for i in range(len(cfg.mixer_pattern)):
-            x = _block_forward(_layer(params["blocks"][f"p{i}"], r), x, cfg, i,
-                               use_kernel_ssd)
+            x = _block_forward(_layer(params["blocks"][f"p{i}"], r), x, cfg, i, positions,
+                               use_kernel_ssd, use_flash)
     if last_logits_only:
         x = x[:, -1:]
     x = apply_norm(x, cfg.norm_type, params["final_norm"])
@@ -199,27 +218,46 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       device="cpu") -> Dict[str, Any]:
-    """Per-pattern-position recurrent state, stacked over repeats. A
-    Mamba2 state does not grow with the sequence, so ``cache_len`` (the
-    attention layers' cache length) sizes nothing here."""
+    """Per-pattern-position decode state, stacked over repeats: an "A"
+    layer's KV cache holds ``cache_len`` tokens, an "L" layer's
+    ``min(cache_len, sliding_window)`` (a ring buffer of its window); a
+    Mamba2 state does not grow with the sequence."""
     _check_ported(cfg)
-    one = init_mamba_decode_state(cfg, batch, device)
-    return {f"p{i}": _map(lambda a: a.expand((cfg.num_repeats,) + a.shape).clone(), one)
-            for i in range(len(cfg.mixer_pattern))}
+    dtype = getattr(torch, cfg.dtype)
+    state = {}
+    for i, mix in enumerate(cfg.mixer_pattern):
+        if mix == "M":
+            one = init_mamba_decode_state(cfg, batch, device)
+        else:
+            eff = cache_len if mix == "A" else min(cache_len, cfg.sliding_window)
+            one = init_kv_cache(batch, eff, cfg.num_kv_heads, cfg.head_dim, dtype, device)
+        state[f"p{i}"] = _map(lambda a: a.expand((cfg.num_repeats,) + a.shape).clone(), one)
+    return state
 
 
-def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any],
-                cfg: ModelConfig) -> Tuple[Tensor, Dict[str, Any]]:
-    """One decode step. tokens (B, 1) → (logits (B, 1, V), state')."""
+def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: ModelConfig, *,
+                start_pos: Optional[Tensor] = None) -> Tuple[Tensor, Dict[str, Any]]:
+    """One decode step. tokens (B, 1) → (logits (B, 1, V), state').
+
+    The attention layers' caches are written in place (state' holds the
+    same cache tensors), the Mamba2 states are new tensors: pass each
+    state to one step. ``start_pos`` (B,), on the state's device, hides
+    from each batch lane the cache positions before its own request
+    (continuous batching)."""
     _check_ported(cfg)
     x = embed_tokens(params, tokens, cfg)
     new = {f"p{i}": [] for i in range(len(cfg.mixer_pattern))}
     for r in range(cfg.num_repeats):
-        for i in range(len(cfg.mixer_pattern)):
+        for i, mix in enumerate(cfg.mixer_pattern):
             bp = _layer(params["blocks"][f"p{i}"], r)
             h = apply_norm(x, cfg.norm_type, bp["norm1"])
-            y, s_new = mamba_decode(bp["mixer"], h, cfg, _layer(state[f"p{i}"], r))
-            new[f"p{i}"].append(s_new)
+            st = _layer(state[f"p{i}"], r)
+            if mix == "M":
+                y, s_new = mamba_decode(bp["mixer"], h, cfg, st)
+                new[f"p{i}"].append(s_new)
+            else:  # the views write into the stacked cache
+                y, _ = attention_decode(bp["mixer"], h, cfg, mix, st, start_pos=start_pos)
             x = _mlp_residual(bp, x + y, cfg, i)
     x = apply_norm(x, cfg.norm_type, params["final_norm"])
-    return lm_logits(params, x, cfg), {k: _stack(v) for k, v in new.items()}
+    out = {k: _stack(v) if v else state[k] for k, v in new.items()}
+    return lm_logits(params, x, cfg), out

@@ -1,7 +1,8 @@
-"""Serving-stage policies (DESIGN.md §14); port of the policy half of
-``repro/serving/scheduler.py``: pluggable admission ordering (FIFO,
-earliest-deadline-first within priority bands, with aging) and the
-per-class delivery accounting stage, shared with the diffusion batcher.
+"""Serving stages; port of ``repro/serving/scheduler.py``: pluggable
+admission ordering (FIFO, earliest-deadline-first within priority bands,
+with aging) and the per-class delivery accounting stage, shared with the
+diffusion batcher (DESIGN.md §14); and ``ContinuousBatcher``, greedy
+continuous-batching decode of a language model over a fixed slot batch.
 
 The serve loop runs admission → solve → delivery. The solve stage is the
 device step; these classes are the host-side halves. They are duck-typed
@@ -9,18 +10,30 @@ over request objects with ``priority`` (int band, lower = more urgent),
 ``deadline_at`` (absolute clock time or None), ``_submit_t``
 (submission clock time) and ``uid``.
 
-Not ported: the reference's ``ContinuousBatcher`` (scheduler.py:232),
-the LM decode scheduler, waits for ROADMAP A12. It refuses SSM mixers
-(scheduler.py:238–243), because a slot's SSM state cannot be masked
-after the fact, and mamba2-2.7b is the only language model the port
-has.
+``ContinuousBatcher`` (reference :232–336) seats queued ``Request``s in
+free slots, replays each prompt token by token, then decodes greedily
+until EOS or ``max_new_tokens``; a retired slot takes the next request
+at once. Slots share one KV cache whose positions advance in lockstep;
+a slot sees only the positions from its request's start on
+(``start_pos``), so nothing leaks between requests. It refuses Mamba2
+("M") mixers, whose state cannot be masked after the fact, and codebook
+heads, as the reference does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from collections import deque
 from typing import Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.launch.steps import make_serve_step
+from repro_torch.models import init_decode_state
+from repro_torch.models.config import ModelConfig
 
 
 class AdmissionPolicy:
@@ -171,3 +184,131 @@ def tier_name(req) -> str:
     if tier is None:
         return "default"
     return tier if isinstance(tier, str) else tier.name
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray          # (P,) int token ids
+    max_new_tokens: int
+    eos_id: Optional[int] = None
+    # filled by the scheduler
+    output: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+@dataclasses.dataclass
+class _Slot:
+    request: Optional[Request] = None
+    remaining_prompt: Deque[int] = dataclasses.field(default_factory=deque)
+    new_tokens: int = 0
+
+    @property
+    def free(self) -> bool:
+        return self.request is None
+
+
+class ContinuousBatcher:
+    """Greedy continuous-batching decode over a fixed slot batch, on
+    ``device`` (the card unless the caller asks for the CPU).
+
+    ``cache_len`` is the attention caches' length: the global step count
+    (every step advances every slot's position) must stay below it for
+    the global layers, as in the reference."""
+
+    def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
+                 cache_len: int = 256, device="cuda"):
+        if cfg.num_codebooks != 1:
+            raise ValueError("the scheduler serves one-codebook language models")
+        if any(m == "M" for m in cfg.mixer_pattern):
+            raise ValueError("continuous batching isolates slots by masking KV positions; "
+                             "SSM state cannot be masked after the fact, so serve SSM "
+                             "architectures in dedicated batches (launch.serve.serve_batch)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.slots = [_Slot() for _ in range(slots)]
+        self.n_slots = slots
+        self.cache_len = cache_len
+        self.state = init_decode_state(cfg, slots, cache_len, device=self.device)
+        self.step_fn = make_serve_step(cfg, device=self.device)
+        self.queue: Deque[Request] = deque()
+        self.finished: Dict[int, Request] = {}
+        # the token each slot feeds next step (0 for a free slot)
+        self._next_input = np.zeros((slots,), np.int32)
+        # the global step (the caches' length) and each slot's request start
+        self._global_step = 0
+        self._start_pos = np.zeros((slots,), np.int32)
+        # occupancy: every step costs a slots-wide forward, occupied or not
+        # (the decode-side analog of DiffusionBatcher's wasted NFE); the
+        # sampled token feeds the next step, so a step reads the host once
+        self.total_steps = 0
+        self.useful_steps = 0
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _assign_free_slots(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot.free and self.queue:
+                req = self.queue.popleft()
+                slot.request = req
+                slot.remaining_prompt = deque(int(t) for t in np.asarray(req.prompt))
+                slot.new_tokens = 0
+                self._next_input[i] = slot.remaining_prompt.popleft()
+                # isolation: this slot sees only KV from its own request
+                self._start_pos[i] = self._global_step
+
+    def _advance_slot(self, i: int, sampled: int) -> None:
+        slot = self.slots[i]
+        req = slot.request
+        if req is None:
+            return
+        if slot.remaining_prompt:
+            # still prefilling by replay: ignore the sample, feed the prompt
+            self._next_input[i] = slot.remaining_prompt.popleft()
+            return
+        req.output.append(sampled)
+        slot.new_tokens += 1
+        hit_eos = req.eos_id is not None and sampled == req.eos_id
+        if slot.new_tokens >= req.max_new_tokens or hit_eos:
+            req.done = True
+            self.finished[req.uid] = req
+            slot.request = None
+            self._next_input[i] = 0
+        else:
+            self._next_input[i] = sampled
+
+    @property
+    def wasted_step_fraction(self) -> float:
+        """Share of issued slot-steps that served free slots."""
+        issued = self.n_slots * self.total_steps
+        if issued == 0:
+            return 0.0
+        return 1.0 - self.useful_steps / issued
+
+    def step(self) -> int:
+        """One device step for all slots; returns the number of active slots."""
+        self._assign_free_slots()
+        active = sum(0 if s.free else 1 for s in self.slots)
+        if active == 0:
+            return 0
+        self.total_steps += 1
+        self.useful_steps += active
+        batch = {"tokens": torch.from_numpy(self._next_input[:, None].copy()).to(self.device),
+                 "start_pos": torch.from_numpy(self._start_pos.copy()).to(self.device)}
+        next_tok, self.state = self.step_fn(self.params, batch, self.state)
+        self._global_step += 1
+        sampled = next_tok[:, 0].cpu().numpy()
+        for i in range(self.n_slots):
+            self._advance_slot(i, int(sampled[i]))
+        return active
+
+    def run_to_completion(self, max_steps: int = 10_000) -> Dict[int, Request]:
+        """Step until the queue and every slot are empty (or ``max_steps``);
+        returns the finished requests by uid, in finishing order."""
+        steps = 0
+        while (self.queue or any(not s.free for s in self.slots)) and steps < max_steps:
+            self.step()
+            steps += 1
+        return self.finished

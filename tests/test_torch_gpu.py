@@ -30,7 +30,9 @@ the kernel may run. K4, the sharded step:
 x'' bitwise equal to K1's on every column range and batch half; the
 partial sums within 1e-5 of the plain version's, as K1's e2; the range
 sums combined within 1e-6 of K1's e2 (the same tile sums in another
-grouping); batch-only e2 bitwise equal to K1's.
+grouping); batch-only e2 bitwise equal to K1's. "One CUDA kernel a call"
+reads the kernel nodes of a CUDA graph that captured the calls (the
+driver API), not a torch.profiler trace, which can lose records.
 """
 
 import dataclasses
@@ -166,17 +168,20 @@ def test_sharded_step_on_batch_halves_is_k1_bitwise(cuda, one_rank_mesh, dtype):
 
 
 def _kernel_names(fn, calls=8):
-    """Names of the CUDA kernels ``calls`` calls of ``fn`` run
-    (torch.profiler), one entry a launch; copies and memsets are not
-    kernels."""
+    """Names of the CUDA kernels ``calls`` calls of ``fn`` launch, one entry
+    a launch: the kernel nodes of a CUDA graph that captured the calls
+    (``kernel_times.graph_nodes``, the driver API; a torch.profiler trace
+    can lose records). Copies and memsets are nodes of another kind."""
+    from repro_torch.benchmarks.kernel_times import graph_nodes
+
+    fn()  # warm-up outside the capture
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    nodes = graph_nodes(graph)
+    return [name for name, n in nodes.items() if name != "other nodes" for _ in range(n)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -286,6 +291,7 @@ CASES = [
     (128, 4, 4, 8, 32, False, None, torch.bfloat16),
     (2, 4, 2, 200, 32, True, 64, torch.bfloat16),      # GQA, causal, window
     (1, 4, 4, 64, 256, True, None, torch.bfloat16),
+    (1, 16, 8, 4096, 256, True, 1024, torch.float32),  # gemma3-12b's "L" prefill
 ]
 
 
@@ -299,6 +305,23 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     want = flash_ref.attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), want.float(), **A_TOL[dtype])
+
+
+def test_flash_attention_gemma3_shapes(cuda):
+    """gemma3-12b's prefill shapes, "L" (causal, window 1024: most key tiles
+    skipped, so a wrong first tile shows only at long S) and "A"
+    (causal), GQA 16:8 at head_dim 256, fp32: within the bound of the
+    plain version, the same bits on a second call, one CUDA kernel a
+    call."""
+    q, k, v = _qkv_on(cuda, 1, 16, 8, 4096, 256, torch.float32, seed=7)
+    for window in (1024, None):
+        out = flash_ops.attention(q, k, v, causal=True, window=window)
+        want = flash_ref.attention(q, k, v, causal=True, window=window)
+        torch.testing.assert_close(out, want, **A_TOL[torch.float32])
+        assert torch.equal(flash_ops.attention(q, k, v, causal=True, window=window), out)
+        names = _kernel_names(lambda: flash_ops.attention(q, k, v, causal=True, window=window),
+                              calls=2)
+        assert len(names) == 2 and all("flash_fwd_kernel" in n for n in names), names
 
 
 def _qkv_on(dev, B, Hq, Hkv, S, D, dtype, seed=1):
@@ -753,6 +776,39 @@ def test_prefill_on_card_launches_k7_once_per_layer(cuda):
         plain, _ = forward(params, toks, cfg, use_kernel_ssd=False, last_logits_only=True)
     torch.testing.assert_close(fast, plain, rtol=2e-4, atol=2e-4)
     assert torch.equal(nxt, torch.argmax(plain[:, -1:], dim=-1).to(torch.int32))
+
+
+def test_attention_lm_prefill_on_card_launches_k3_once_per_layer(cuda):
+    """gemma3-12b scaled down (five "L" layers of window 16, one "A"): the
+    default prefill runs K3 once an attention layer, within the LM bound of
+    the plain attention; the continuous batcher on the card gives each
+    request its solo serve_batch tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import forward, init_model
+    from repro_torch.serving.scheduler import ContinuousBatcher, Request
+
+    cfg = get_config("gemma3-12b").scaled_down()
+    params = init_model(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                         generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    before = flash_ops.launches
+    nxt = make_prefill_step(cfg, device=cuda)(params, {"tokens": toks})
+    assert flash_ops.launches - before == cfg.num_layers
+    with torch.no_grad():
+        fast, _ = forward(params, toks, cfg, last_logits_only=True)
+        plain, _ = forward(params, toks, cfg, use_flash=False, last_logits_only=True)
+    torch.testing.assert_close(fast, plain, rtol=2e-4, atol=2e-4)
+    assert torch.equal(nxt, torch.argmax(plain[:, -1:], dim=-1).to(torch.int32))
+    b = ContinuousBatcher(cfg, params, slots=2, cache_len=64, device=cuda)
+    prompts = [toks[0, :n].cpu().numpy() for n in (5, 9, 3)]
+    for uid, p in enumerate(prompts):
+        b.submit(Request(uid=uid, prompt=p, max_new_tokens=12))
+    done = b.run_to_completion()
+    for uid, p in enumerate(prompts):
+        solo = serve_batch(cfg, params, torch.from_numpy(p)[None], gen_len=12, device=cuda)
+        assert done[uid].output == solo[0].tolist(), uid
 
 
 def test_wrappers_refuse_autograd_on_card(cuda):

@@ -225,7 +225,8 @@ def test_config_fields_equal_reference(arch):
 
 def test_registry_names_what_is_not_ported():
     assert set(configs.ARCH_IDS) | set(configs.NOT_PORTED) == set(jconfigs.ARCH_IDS)
-    assert configs.ARCH_IDS == ("mamba2-2.7b",)
+    assert configs.ARCH_IDS == ("gemma3-12b", "mamba2-2.7b", "olmo-1b", "qwen1.5-0.5b",
+                                "qwen3-14b")
     for arch in configs.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP A12"):
             configs.get_config(arch)
@@ -233,16 +234,36 @@ def test_registry_names_what_is_not_ported():
         configs.get_config("no-such-model")
 
 
-@pytest.mark.parametrize("kinds", [(("A",), ("D",), False), (("L",), ("N",), False),
-                                   (("M",), ("E",), False), (("M",), ("N",), True)],
-                         ids=["attention", "window", "experts", "tied_head"])
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_registered_arch_runs_scaled_down(arch):
+    """Every registered architecture, scaled down, builds on the CPU,
+    prefills and decodes a step: finite logits of the vocabulary's width,
+    the decode step's within the LM bound of the forward's."""
+    cfg = configs.get_config(arch).scaled_down()
+    params = tr.init_model(cfg, 0, device="cpu")
+    toks = torch.from_numpy(_prompts(cfg, 2, 6, seed=9))
+    full, _ = tr.forward(params, toks, cfg)
+    assert full.shape == (2, 6, cfg.vocab_size) and bool(torch.isfinite(full).all())
+    state = tr.init_decode_state(cfg, 2, 8)
+    for i in range(6):
+        step, state = tr.decode_step(params, toks[:, i:i + 1], state, cfg)
+    np.testing.assert_allclose(step[:, 0].numpy(), full[:, -1].numpy(), **TOL)
+
+
+@pytest.mark.parametrize("kinds", [(("X",), ("D",), False, 1), (("L",), ("E",), False, 1),
+                                   (("M",), ("E",), False, 1), (("M",), ("N",), True, 1),
+                                   (("A",), ("D",), False, 4)],
+                         ids=["attention", "window", "experts", "tied_head", "codebooks"])
 def test_unported_layer_kinds_raise(kinds):
-    mix, mlp, tied = kinds
+    """What still needs A12: cross-attention ("X"), experts ("E", also
+    under a sliding-window mixer), tied heads and codebook heads."""
+    mix, mlp, tied, codebooks = kinds
     cfg = ModelConfig(name="x", arch_type="dense", num_layers=1, d_model=32, num_heads=2,
                       num_kv_heads=2, d_ff=64, vocab_size=16, mixer_pattern=mix,
                       mlp_pattern=mlp, mamba=MambaConfig(d_state=16, head_dim=16),
                       moe=MoEConfig(num_experts=2, top_k=1, expert_ffn=32),
-                      tie_embeddings=tied)
+                      tie_embeddings=tied, num_codebooks=codebooks, vision_dim=16,
+                      num_patches=4)
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         tr.init_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
