@@ -14,7 +14,8 @@ Phases; any failure exits non-zero before the result line is printed:
              loop's (32, 4, 4, 8, 32), GQA with a causal window, a
              ragged S = 75 with true_len 50, D = 256, gemma3-12b's prefill
              shapes (1, 16, 4096, 256) over (1, 8, 4096, 256) causal with
-             window 1024 ("L") and causal ("A"), each the same bits
+             window 1024 ("L") and causal ("A"), the MoE LMs' causal
+             prefill shapes (phase 7d), each the same bits
              on a second call; GroupNorm → SiLU at all 17 shapes of a
              TRAJ_UNET forward at 128 and at 32 rows (phase 6e's served
              slots), fp32 and bf16, and at x = 1e3 + N(0, 1),
@@ -37,8 +38,9 @@ Phases; any failure exits non-zero before the result line is printed:
              the SSD scan, at mamba2-2.7b's prefill shape (4, 2048, 80,
              64, 1, 128), a ragged S = 1000, several groups (1, 100, 8,
              32, 2, 32), prefill_32k's length (1, 32768, 80, 64, 1, 128)
-             and a shape split into ranges with a ragged last range (1,
-             5000, 8, 64, 1, 128), each with the range count the wrapper
+             a shape split into ranges with a ragged last range (1,
+             5000, 8, 64, 1, 128) and jamba-v0.1-52b's "M" layers at
+             d_state 16 (1, 2048, 128, 64, 1, 16), each with the range count the wrapper
              picks: against the plain version, y and the final state
              against the sequential oracle, bitwise equal on a second
              call; y and the final state against the oracle at a small
@@ -241,6 +243,34 @@ Phases; any failure exits non-zero before the result line is printed:
              0 just before and read just after, exactly 8·⌈iterations/8⌉;
              nfe = 2·(accepted + rejected) + 1, the sample finite, the
              tokens in range.
+7d. moe lm — the mixture-of-experts LMs, seeded, fp32, TF32 off, after
+             the earlier phases have freed their memory (< 1 GiB still
+             allocated, else it fails). First K3 at the three prefill
+             shapes (causal fp32: (1, 16, 16, 4096, 128), (1, 24, 8, 4096,
+             64), (1, 32, 8, 2048, 128)) and K7 at jamba's (1, 2048, 128,
+             64, 1, 16), timed beside their bounds, the plain versions and
+             SDPA. (a) deepseek-moe-16b at full width and depth
+             (16,879,568,896 parameters, checked; init's peak allocated
+             memory < 70 GiB): the (1, 4096) prefill through
+             ``make_prefill_step`` with exactly 28 K3 launches, its
+             last-position logits against the plain attention at
+             LM_LOGIT_TOL (where they miss, the first differing routing
+             decisions must be near ties, each margin printed), einsum
+             against gather dispatch the same way, the prefill's device
+             time split by torch.profiler (K3, expert products, dispatch
+             and combine, router, rest); ``serve_batch`` 4 × (16 + 16),
+             a decode step's device ms and idle share; the dropped share
+             of routing decisions (capacity) in the prefill and in a
+             decode step; ``ContinuousBatcher`` (8 requests, 4 slots)
+             twice, the same tokens, and the tokens that differ from the
+             requests' solo runs counted, not gated (capacity is shared
+             by seatmates). (b) granite-moe-3b-a800m at full width: the
+             (1, 4096) prefill, 32 K3 launches, against the plain path;
+             ``serve_batch``. (c) jamba-v0.1-52b at full width, one
+             8-layer period (7 "M", 1 "A", 4 "D", 4 "E"; the whole stack
+             is 205.84 GB): the (1, 2048) prefill with 7 K7 and 1 K3
+             launches against the plain SSD and attention;
+             ``serve_batch``.
 8. sharded — the fourth main path, data-parallel adaptive sampling
              (``sample(mesh=)`` over torch.distributed). First K4, the
              sharded solver step, in process at HIGHRES_DIT's state
@@ -300,11 +330,12 @@ PLAN_BATCH, PLAN_OBS, PLAN_CFG = 64, 17, 1.5
 #: the closed-form Gaussian of the conformance gates
 MU0, S00 = 0.3, 0.5
 #: K7's shapes (B, S, H, P, G, N): mamba2-2.7b's prefill, a ragged S,
-#: several groups, prefill_32k's sequence length, and 8 heads over 5000
-#: rows, which the wrapper splits into ranges (79 chunks, a ragged last one)
+#: several groups, prefill_32k's sequence length, 8 heads over 5000
+#: rows, which the wrapper splits into ranges (79 chunks, a ragged last one),
+#: and jamba-v0.1-52b's "M" layers at d_state 16 (phase 7d)
 SSD_SHAPES = [(4, 2048, 80, 64, 1, 128), (4, 1000, 80, 64, 1, 128),
               (1, 100, 8, 32, 2, 32), (1, 32768, 80, 64, 1, 128),
-              (1, 5000, 8, 64, 1, 128)]
+              (1, 5000, 8, 64, 1, 128), (1, 2048, 128, 64, 1, 16)]
 #: the chunk of K7's yardstick (``ssd_work``), whatever chunk the kernel runs
 SSD_WORK_CHUNK = 64
 #: K7 against its plain version: each is within the reference's 3e-4 of the
@@ -394,6 +425,18 @@ BATCHER_REQUESTS = ((5, 12), (16, 4), (9, 9), (3, 16), (12, 6), (7, 10), (14, 3)
 #: the diffusion LM (phase 7c) on olmo-1b's backbone: (batch, tokens,
 #: embed_dim) and eps_rel; the solver state is (batch, tokens · embed_dim)
 DLM_SHAPE, DLM_EPS_REL = (4, 64, 64), 0.05
+#: the mixture-of-experts LMs (phase 7d): each one's prefill (B, S) (jamba's
+#: cut with its depth), serve_batch's (requests, prompt, gen)
+MOE_PREFILL = {"deepseek-moe-16b": (1, 4096), "granite-moe-3b-a800m": (1, 4096),
+               "jamba-v0.1-52b": (1, 2048)}
+MOE_SERVE = (4, 16, 16)
+#: deepseek-moe-16b's parameters (the reference's ``init_model``, counted
+#: with ``jax.eval_shape``), and the peak allocated memory its init may reach
+DEEPSEEK_PARAMS = 16_879_568_896
+INIT_PEAK_GIB = 70
+#: a routing decision that two fp32 paths make differently must be a near
+#: tie: a top-k margin below this share of the token's largest probability
+NEAR_TIE = 1e-4
 
 
 def ulp(dtype, mag: float) -> float:
@@ -2179,6 +2222,436 @@ def run_diffusion_lm(dev) -> dict:
             "wall_s": wall, "ms_per_batch_forward": wall / (2 * iters) * 1e3}
 
 
+def attention_bound(shape) -> dict:
+    """K3's least time at ``shape`` (B, Hq, Hkv, S, D), causal, fp32: 3xTF32
+    on the tensor cores over the visible (query, key) pairs (QKᵀ and PV,
+    two flops a multiply-add), or each operand read once and the output
+    written once at 3.35 TB/s, whichever is larger."""
+    B, Hq, Hkv, S, D = shape
+    pairs = S * (S + 1) // 2
+    flops = 4 * B * Hq * pairs * D
+    t_bytes = 4 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D) / HBM_BYTES_PER_S * 1e3
+    bound = max(t_bytes, 3 * flops / TF32_FLOPS * 1e3)
+    return {"bound_ms": bound, "bound_by": "bytes" if t_bytes >= bound else "operations",
+            "visible_pairs": pairs, "gflop": flops / 1e9}
+
+
+def moe_kernel_times(dev, card: str) -> dict:
+    """K3 at the three MoE LMs' prefill shapes and K7 at jamba's "M"
+    layers (``kernel_times``), each beside its bound, its plain version and
+    (K3) SDPA."""
+    from repro_torch.benchmarks import kernel_times
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    k3 = {}
+    for name, shape in kernel_times.MOE_ATTN_SHAPES.items():
+        t = {**kernel_times.causal_attention_times(dev, gen, shape), **attention_bound(shape)}
+        k3[name] = t
+        print(f"  [{card}] flash_attention {shape} causal fp32 ({name}): {t['ms']:.3f} ms on "
+              f"the device; bound {t['bound_ms']:.3f} ms (3xTF32: 3 x {t['gflop']:.1f} GFLOP "
+              f"over {t['visible_pairs']:,} visible pairs at 495 TFLOP/s; {t['bound_ms'] / t['ms']:.0%}"
+              f" of it reached); plain {t['plain_ms']:.3f} ms; SDPA {t['library_ms']:.3f} ms "
+              f"(max abs diff from the plain version {t['library_max_abs_diff']:.1e})")
+    shape = kernel_times.JAMBA_SSD_SHAPE
+    if shape not in SSD_SHAPES:
+        fail(f"jamba's K7 shape {shape} is not held against the plain version in phase 2")
+    k7 = kernel_times.ssd_times(dev, gen, shape)
+    flops, nbytes = ssd_work(*shape)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    k7["bound_ms"] = max(t_bytes, 3 * flops / TF32_FLOPS * 1e3)
+    k7["bound_by"] = "bytes" if t_bytes >= k7["bound_ms"] else "operations"
+    print(f"  [{card}] ssd_scan {shape} fp32 (jamba's 'M' layers, {k7['ranges']} ranges a "
+          f"sequence): {k7['ms']:.3f} ms on the device; bound {k7['bound_ms']:.4f} ms by "
+          f"{k7['bound_by']} ({nbytes / 1e6:.1f} MB at 3.35 TB/s; 3 x {flops / 1e9:.2f} GFLOP "
+          f"at 495 TFLOP/s); plain {k7['plain_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return {"k3": k3, "k7": k7}
+
+
+def routing_rows(rec: dict):
+    """One "E" call's routing record as per-token rows over the true T
+    tokens: experts (T, k), kept (T, k), margin (T,)."""
+    n, g, k = rec["expert_idx"].shape
+    T = rec["tokens"]
+    kept = rec["keep"].reshape(n, k, g).transpose(1, 2).reshape(-1, k)[:T]
+    return rec["expert_idx"].reshape(-1, k)[:T], kept, rec["margin"].reshape(-1)[:T]
+
+
+def dropped_share(records: list) -> float:
+    """The share of the true tokens' routing decisions over every "E"
+    layer of a run that found its expert full (capacity)."""
+    kept = total = 0
+    for rec in records:
+        _, k, _ = routing_rows(rec)
+        kept += int(k.sum())
+        total += k.numel()
+    return 1 - kept / total
+
+
+def hold_moe_logits(label: str, fast, plain, rec_fast: list, rec_plain: list) -> dict:
+    """Last-position logits of two fp32 paths through an MoE LM (B 1), as
+    phase 7b holds them: within LM_LOGIT_TOL·max|logit| with the same
+    greedy token (or a top-2 gap within that bound). Routing is
+    discontinuous, so where they miss, the routing decisions of the two
+    runs are compared layer by layer: the first "E" layer where any
+    differs must differ only in tokens whose top-k choice is a near tie
+    (a margin below NEAR_TIE of the token's largest probability, in
+    either run; each printed); what differs after it follows from it
+    (counted). Returns the numbers."""
+    err, scale = (fast - plain).abs().max().item(), plain.abs().max().item()
+    bound = LM_LOGIT_TOL * scale
+    gap = top2_gap(plain[0, -1])
+    same = torch.equal(fast.argmax(-1), plain.argmax(-1))
+    per_layer = []
+    for a, b in zip(rec_fast, rec_plain):
+        ea, ka, ma = routing_rows(a)
+        eb, kb, mb = routing_rows(b)
+        moved = (ea != eb).any(-1)
+        per_layer.append((int(moved.sum()), int(((ka != kb).any(-1) & ~moved).sum()),
+                          torch.minimum(ma, mb)[moved].tolist()))
+    flips = sum(m for m, _, _ in per_layer)
+    print(f"  {label}: last-position logits max abs err {err:.3e} (bound {LM_LOGIT_TOL}·max|logit|"
+          f" = {bound:.3e}), greedy token equal {same} (top-2 gap {gap:.3e}); routing decisions "
+          f"that differ: {flips} tokens over {len(per_layer)} 'E' layers")
+    if not bool(torch.isfinite(fast).all()):
+        fail(f"{label}: non-finite logits")
+    out = {"logit_err": err, "bound": bound, "routing_flips": flips, "first_flip_layer": None}
+    if err <= bound and (same or gap <= bound):
+        return out
+    first = next((i for i, (m, kd, _) in enumerate(per_layer) if m or kd), None)
+    if first is None:
+        fail(f"{label}: the logits miss the bound with the same routing in every layer")
+    moved, kept_only, margins = per_layer[first]
+    print(f"  {label}: first differing 'E' layer {first}: {moved} tokens change experts, "
+          f"{kept_only} more only kept/dropped; their top-k margins: "
+          + ", ".join(f"{m:.2e}" for m in margins))
+    if not moved or max(margins) >= NEAR_TIE:
+        fail(f"{label}: the logits miss the bound and the first differing routing is not a near "
+             f"tie (margins {margins}, want < {NEAR_TIE})")
+    out.update(first_flip_layer=first, first_layer_margins=margins)
+    return out
+
+
+def moe_profile_split(fn, attempts: int = 3) -> dict:
+    """One run of ``fn`` under torch.profiler with the MoE pieces annotated
+    (``record_function`` around ``moe._route_common``, the dispatch and
+    ``moe._expert_ffn``, patched for the traced run only): device ms of
+    K3, of the expert products, of the dispatch and combine products (the
+    dispatch less the experts), of the router, and of the rest. A kernel
+    is charged to the innermost annotation whose device span (the trace's
+    gpu_user_annotation records) holds its start. A trace without device
+    records or spans (CUPTI can lose them) is taken again, up to
+    ``attempts``; after that the split is not measured, which fails
+    nothing."""
+    from repro_torch.models import moe
+
+    labels = {"_route_common": "moe:router", "_dispatch_einsum": "moe:dispatch",
+              "_dispatch_gather": "moe:dispatch", "_expert_ffn": "moe:experts"}
+    saved = {n: getattr(moe, n) for n in labels}
+
+    def annotate(label, f):
+        def run(*a, **kw):
+            with torch.profiler.record_function(label):
+                return f(*a, **kw)
+        return run
+
+    act = torch.profiler.ProfilerActivity
+    for attempt in range(1, attempts + 1):
+        try:
+            for n, label in labels.items():
+                setattr(moe, n, annotate(label, saved[n]))
+            with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        finally:
+            for n, f in saved.items():
+                setattr(moe, n, f)
+        spans, kernels = [], []
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                (spans if e.name in labels.values() else kernels).append(e)
+        if spans and kernels:
+            break
+        print(f"  torch.profiler: trace {attempt} of {attempts} holds {len(kernels)} device "
+              f"records and {len(spans)} annotation spans")
+    else:
+        return {"method": "not measured"}
+    part = {"moe:experts": 0.0, "moe:dispatch": 0.0, "moe:router": 0.0}
+    k3 = 0.0
+    for e in kernels:
+        t = e.time_range.start
+        inner = [s for s in spans if s.time_range.start <= t < s.time_range.end]
+        if "flash_fwd" in e.name:
+            k3 += e.device_time_total
+        elif inner:
+            part[max(inner, key=lambda s: s.time_range.start).name] += e.device_time_total
+    total = sum(e.device_time_total for e in kernels)
+    return {"method": "device spans", "total_ms": total / 1e3, "k3_ms": k3 / 1e3,
+            "experts_ms": part["moe:experts"] / 1e3,
+            "dispatch_combine_ms": part["moe:dispatch"] / 1e3,
+            "router_ms": part["moe:router"] / 1e3,
+            "rest_ms": (total - k3 - sum(part.values())) / 1e3}
+
+
+def moe_prefill(cfg, params, prompts, dev, *, k3: int, k7: int = 0) -> dict:
+    """``make_prefill_step`` on ``prompts`` (the default: attention through
+    K3, SSD through K7), warm first: the counts set to 0 just before and
+    read just after (exactly ``k3`` and ``k7``), the wall, the peak
+    allocated memory; then the last-position logits against the plain
+    paths (``use_flash=False``, ``use_kernel_ssd=False``), routing
+    recorded in both runs (``hold_moe_logits``)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import forward
+
+    prefill = make_prefill_step(cfg, device=dev)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on: the LM's fp32 products would not be fp32")
+    prefill(params, {"tokens": prompts[:, :256]})  # cuBLAS and the allocator warm up
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_ops.launches = ssd_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"K3": flash_ops.launches, "K7": ssd_ops.launches}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    S = prompts.shape[1]
+    print(f"  prefill {tuple(prompts.shape)}: {wall:.3f} s, {S / wall:.0f} tokens/s, peak "
+          f"allocated {peak:.2f} GiB; launches K3 {got['K3']} (want {k3}), K7 {got['K7']} (want "
+          f"{k7}); next token {nxt[:, 0].tolist()}")
+    if got != {"K3": k3, "K7": k7}:
+        fail(f"{cfg.name}'s prefill launched {got}, not K3 {k3} and K7 {k7}")
+    if not bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all()):
+        fail(f"prefill token {nxt.tolist()} out of range")
+    rec_fast, rec_plain = [], []
+    with torch.no_grad():
+        fast, aux = forward(params, prompts, cfg, last_logits_only=True, moe_routing=rec_fast)
+        t0 = time.perf_counter()
+        plain, _ = forward(params, prompts, cfg, use_flash=False, use_kernel_ssd=False,
+                           last_logits_only=True, moe_routing=rec_plain)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    held = hold_moe_logits(f"{cfg.name} kernels vs plain paths (plain prefill {plain_s:.3f} s)",
+                           fast, plain, rec_fast, rec_plain)
+    if not torch.equal(nxt, fast[:, -1:].argmax(-1).to(torch.int32)):
+        fail(f"{cfg.name}: the prefill step's token is not its forward's")
+    drop = dropped_share(rec_fast)
+    print(f"  aux loss {aux.item():.6f}; dropped share of the prefill's routing decisions "
+          f"(capacity) {drop:.4f}")
+    return {"prefill_s": wall, "plain_prefill_s": plain_s, "peak_gib": peak, "launches": got,
+            "aux": aux.item(), "prefill_dropped_share": drop, "logits": fast,
+            "routing": rec_fast, **held}
+
+
+def moe_serve(cfg, params, gen, dev, card: str) -> dict:
+    """``serve_batch`` for MOE_SERVE requests (prompt + gen) after a warm-up:
+    ms a decode step, tokens in range. Its first tokens are printed beside
+    the prefill's, not gated: the prefill routes the prompts' tokens in
+    one group, a decode step the batch's tokens, at other capacities."""
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_prefill_step
+
+    R, P, G = MOE_SERVE
+    prompts = torch.randint(0, cfg.vocab_size, (R, P), generator=gen, device=dev)
+    serve_batch(cfg, params, prompts[:, :2], gen_len=2, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = serve_batch(cfg, params, prompts, gen_len=G, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = wall / (P + G - 1) * 1e3
+    first = make_prefill_step(cfg, device=dev)(params, {"tokens": prompts})
+    print(f"  [{card}] serve_batch {R} requests, prompt {P}, gen {G}: {wall:.3f} s, {step_ms:.2f} "
+          f"ms per decode step of {R} ({R * 1e3 / step_ms:.1f} tokens/s); first tokens: serve's "
+          f"{toks[:, 0].tolist()}, the prefill's {first[:, 0].tolist()}")
+    if toks.shape != (R, G) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"{cfg.name}: serve_batch tokens out of range")
+    return {"serve_s": wall, "serve_ms_per_step": step_ms, "prompts": prompts, "tokens": toks}
+
+
+def init_moe_model(cfg, dev, label: str) -> tuple:
+    """``init_model(cfg, 0)`` on the card, its parameter count, the peak
+    allocated memory while it built and the seconds it took."""
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import param_count
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_model(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = param_count(params)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"  {label}: {n:,} parameters, {n * 4 / 1e9:.2f} GB fp32 ({n * 4 / 2**30:.2f} GiB); init "
+          f"{init_s:.1f} s, peak allocated {peak:.2f} GiB")
+    return params, {"params": n, "init_peak_gib": peak, "init_s": init_s}
+
+
+def run_moe_lm(dev, card: str) -> dict:
+    """Phase 7d: the mixture-of-experts LMs (seeded weights, fp32, TF32
+    off), after the earlier phases have freed theirs. K3 at the three
+    prefill shapes and K7 at jamba's first; then (a) deepseek-moe-16b at
+    full width and depth, (b) granite-moe-3b-a800m at full width and
+    depth, (c) jamba-v0.1-52b at full width, one 8-layer period. Returns
+    the numbers of the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import decode_step, forward, init_decode_state
+    from repro_torch.serving.scheduler import ContinuousBatcher, Request
+
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    print(f"  allocated before the phase: {held:.3f} GiB")
+    if held >= 1:
+        fail(f"{held:.2f} GiB still allocated from earlier phases (want < 1 GiB)")
+    out = moe_kernel_times(dev, card)
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    # (a) deepseek-moe-16b, full width and depth
+    cfg = get_config("deepseek-moe-16b")
+    params, rec = init_moe_model(cfg, dev, f"{cfg.name} ({cfg.num_layers} 'A' + 'E' layers, "
+                                 f"{cfg.moe.num_experts} experts of {cfg.moe.expert_ffn}, top-"
+                                 f"{cfg.moe.top_k}, shared {cfg.moe.shared_ffn})")
+    if rec["params"] != DEEPSEEK_PARAMS:
+        fail(f"deepseek-moe-16b has {rec['params']:,} parameters, not {DEEPSEEK_PARAMS:,}")
+    if rec["init_peak_gib"] >= INIT_PEAK_GIB:
+        fail(f"deepseek-moe-16b's init peaked at {rec['init_peak_gib']:.2f} GiB "
+             f"(want < {INIT_PEAK_GIB})")
+    prompts = torch.randint(0, cfg.vocab_size, MOE_PREFILL[cfg.name], generator=g, device=dev)
+    rec.update(moe_prefill(cfg, params, prompts, dev, k3=cfg.num_layers))
+    rec_gather = []
+    with torch.no_grad():
+        gathered, _ = forward(params, prompts, cfg.replace(moe_dispatch="gather"),
+                              last_logits_only=True, moe_routing=rec_gather)
+    rec["gather"] = hold_moe_logits("deepseek-moe-16b einsum vs gather dispatch",
+                                    rec["logits"], gathered, rec["routing"], rec_gather)
+    del gathered, rec_gather
+    rec["profile"] = split = moe_profile_split(
+        lambda: forward(params, prompts, cfg, last_logits_only=True))
+    if split["method"] == "not measured":
+        print("  one prefill's device time by part: not measured (no trace held its records)")
+    else:
+        print(f"  [{card}] one prefill: {split['total_ms']:.1f} ms of device time: K3 "
+              f"{split['k3_ms']:.1f} ms, expert products {split['experts_ms']:.1f} ms, dispatch "
+              f"and combine products {split['dispatch_combine_ms']:.1f} ms, router "
+              f"{split['router_ms']:.1f} ms, the rest {split['rest_ms']:.1f} ms")
+    srv = moe_serve(cfg, params, g, dev, card)
+    rec.update({k: srv[k] for k in ("serve_s", "serve_ms_per_step")})
+
+    # a decode step's dropped share, then its device time and idle share
+    R, P, G = MOE_SERVE
+    step = make_serve_step(cfg, device=dev)
+    state = init_decode_state(cfg, R, P + G, device=dev)
+    routing = []
+    with torch.no_grad():
+        decode_step(params, srv["prompts"][:, :1], state, cfg, moe_routing=routing)
+    rec["decode_dropped_share"] = dropped_share(routing)
+    state = init_decode_state(cfg, R, P + G, device=dev)
+
+    def decode_loop(n=LM_IDLE_STEPS):
+        nonlocal state
+        tok = srv["tokens"][:, :1]
+        for _ in range(n):
+            tok, state = step(params, {"tokens": tok}, state)
+
+    decode_loop(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_loop()
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    by_name, busy_us = profile_device(decode_loop)
+    rec["decode_device_ms_per_step"] = busy_us / 1e3 / LM_IDLE_STEPS
+    rec["decode_idle_share"] = 1 - busy_us / 1e3 / loop_ms
+    weights_ms = rec["params"] * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"  [{card}] decode: {LM_IDLE_STEPS} steps {loop_ms:.1f} ms unprofiled wall, device "
+          f"busy {rec['decode_device_ms_per_step']:.2f} ms a step (every expert reads its weights: "
+          f"{weights_ms:.1f} ms at 3.35 TB/s), idle share {rec['decode_idle_share']:.2f}; "
+          f"{sum(c for c, _ in by_name.values()) / LM_IDLE_STEPS:.0f} device operations a step; "
+          f"dropped share of a decode step's routing decisions {rec['decode_dropped_share']:.4f}")
+    del state
+
+    # the continuous batcher, twice on the same requests; solo runs compared, not gated
+    reqs = [(uid, torch.randint(0, cfg.vocab_size, (p,), generator=g, device=dev), m)
+            for uid, (p, m) in enumerate(BATCHER_REQUESTS)]
+    runs = []
+    for _ in range(2):
+        b = ContinuousBatcher(cfg, params, slots=BATCHER_SLOTS, cache_len=BATCHER_CACHE,
+                              device=dev)
+        for uid, p, m in reqs:
+            b.submit(Request(uid=uid, prompt=p.cpu().numpy(), max_new_tokens=m))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = b.run_to_completion()
+        torch.cuda.synchronize()
+        runs.append((b, done, time.perf_counter() - t0))
+    b, done, batch_s = runs[0]
+    n_new = sum(m for _, _, m in reqs)
+    print(f"  [{card}] ContinuousBatcher: {len(reqs)} requests through {BATCHER_SLOTS} slots: "
+          f"{b.total_steps} steps in {batch_s:.3f} s and {runs[1][2]:.3f} s "
+          f"({batch_s / b.total_steps * 1e3:.2f} ms a step, {n_new / batch_s:.1f} new tokens/s), "
+          f"wasted_step_fraction {b.wasted_step_fraction:.4f}, finishing order {list(done)}")
+    if len(done) != len(reqs) or b.total_steps >= BATCHER_CACHE:
+        fail(f"the batcher finished {len(done)} of {len(reqs)} requests in {b.total_steps} steps")
+    again = runs[1][1]
+    if list(again) != list(done) or any(again[u].output != done[u].output for u in done):
+        fail("two batcher runs on the same requests gave different tokens")
+    differ = 0
+    for uid, p, m in reqs:
+        solo = serve_batch(cfg, params, p[None], gen_len=m, device=dev)[0].tolist()
+        differ += sum(a != c for a, c in zip(done[uid].output, solo))
+    print(f"  two batcher runs gave the same tokens; {differ} of {n_new} batched tokens differ "
+          f"from the requests' solo runs (seatmates share the experts' capacity; not gated)")
+    rec.update(batcher_s=batch_s, batcher_steps=b.total_steps,
+               wasted_step_fraction=b.wasted_step_fraction, batcher_tokens_per_s=n_new / batch_s,
+               tokens_differing_from_solo=differ)
+    del params, b, done, runs, srv
+    out["deepseek-moe-16b"] = rec
+    torch.cuda.empty_cache()
+
+    # (b) granite-moe-3b-a800m, full width and depth
+    cfg = get_config("granite-moe-3b-a800m")
+    params, rec = init_moe_model(cfg, dev, f"{cfg.name} ({cfg.num_layers} 'A' (GQA "
+                                 f"{cfg.num_heads}:{cfg.num_kv_heads}) + 'E' layers, "
+                                 f"{cfg.moe.num_experts} experts of {cfg.moe.expert_ffn}, "
+                                 f"top-{cfg.moe.top_k})")
+    prompts = torch.randint(0, cfg.vocab_size, MOE_PREFILL[cfg.name], generator=g, device=dev)
+    rec.update(moe_prefill(cfg, params, prompts, dev, k3=cfg.num_layers))
+    srv = moe_serve(cfg, params, g, dev, card)
+    rec.update({k: srv[k] for k in ("serve_s", "serve_ms_per_step")})
+    del params, srv
+    out["granite-moe-3b-a800m"] = rec
+    torch.cuda.empty_cache()
+
+    # (c) jamba-v0.1-52b at full width, its depth cut to one period of 8
+    full = get_config("jamba-v0.1-52b")
+    cfg = full.replace(num_layers=len(full.mixer_pattern))
+    n_m = cfg.mixer_pattern.count("M")
+    params, rec = init_moe_model(cfg, dev, f"{cfg.name}, one period ({n_m} 'M' of d_state "
+                                 f"{cfg.mamba.d_state}, {cfg.mixer_pattern.count('A')} 'A', "
+                                 f"{cfg.mlp_pattern.count('D')} 'D', {cfg.mlp_pattern.count('E')} "
+                                 f"'E' of {cfg.moe.num_experts} experts; cut from "
+                                 f"{full.num_layers} layers)")
+    prompts = torch.randint(0, cfg.vocab_size, MOE_PREFILL[cfg.name], generator=g, device=dev)
+    rec.update(moe_prefill(cfg, params, prompts, dev, k3=cfg.mixer_pattern.count("A"), k7=n_m))
+    srv = moe_serve(cfg, params, g, dev, card)
+    rec.update({k: srv[k] for k in ("serve_s", "serve_ms_per_step")})
+    del params, srv
+    out["jamba-v0.1-52b"] = rec
+    torch.cuda.empty_cache()
+
+    for name in ("deepseek-moe-16b", "granite-moe-3b-a800m", "jamba-v0.1-52b"):
+        for key in ("logits", "routing"):
+            out[name].pop(key)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  [{card}] MoE phase {out['phase_s']:.1f} s")
+    return out
+
+
 def run_sharded(dev, card: str, main_wall_s: float) -> dict:
     """Phase 8: K4 against its plain version in process, then the sharded
     selftest in subprocesses (world 1 over NCCL, world 2 over gloo on this
@@ -2766,7 +3239,9 @@ def main() -> None:
             (1, 4, 4, 64, 256, True, None, None, torch.float32),
             (1, 4, 4, 64, 256, False, None, None, torch.bfloat16),
             (*GEMMA_ATTN, True, GEMMA_WINDOW, None, torch.float32),  # phase 7b's "L"
-            (*GEMMA_ATTN, True, None, None, torch.float32)):  # phase 7b's "A"
+            (*GEMMA_ATTN, True, None, None, torch.float32),  # phase 7b's "A"
+            *((*shape, True, None, None, torch.float32)  # phase 7d's prefills
+              for shape in kernel_times.MOE_ATTN_SHAPES.values())):
         q = torch.randn(b, hq, s, dh, generator=gen, device=dev).to(dtype)
         k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(dtype)
                 for _ in range(2))
@@ -2786,6 +3261,7 @@ def main() -> None:
             fail("flash attention kernel disagrees with its plain version or itself")
         key = (s, dtype, causal, window)
         attn_err[key] = max(attn_err.get(key, 0.0), err)
+        attn_err[(b, hq, hkv, s, dh, dtype, causal, window)] = err
     # GroupNorm → SiLU at the 17 (H, C) of one TRAJ_UNET forward, 2·64 rows
     # (phase 4's plans) and 2·16 (phase 6e's served slots), on the path the
     # wrapper picks (the register kernel at every one of them) and on the
@@ -3477,6 +3953,11 @@ def main() -> None:
     phase("main path: the diffusion LM on olmo-1b's backbone, adaptive through K1")
     dlm_rec = run_diffusion_lm(dev)
 
+    # ------------------------------------------------------------ 7d. moe lm
+    phase("main path: the mixture-of-experts LMs: deepseek-moe-16b and granite-moe-3b-a800m "
+          "through K3, jamba-v0.1-52b's hybrid period through K7 and K3")
+    moe_rec = run_moe_lm(dev, card)
+
     # ------------------------------------------------------------- 8. sharded
     phase("sharded sampling: K4 and sample(mesh=) over torch.distributed")
     k4 = run_sharded(dev, card, rec["wall_s"])
@@ -3587,7 +4068,17 @@ def main() -> None:
                                                  "decode_device_ms_per_step",
                                                  "batcher_s", "batcher_steps",
                                                  "wasted_step_fraction",
-                                                 "batcher_tokens_per_s", "differ")}}},
+                                                 "batcher_tokens_per_s", "differ")}},
+         "moe_lm": {"launched_as": "every attention layer of the MoE LMs' prefills (phase 7d), "
+                                   "causal, fp32: deepseek-moe-16b (1, 4096), 28 'A' layers, MHA "
+                                   "16 heads at head_dim 128; granite-moe-3b-a800m (1, 4096), 32 "
+                                   "'A', GQA 24:8 at 64; jamba-v0.1-52b one period (1, 2048), 1 "
+                                   "'A', GQA 32:8 at 128",
+                    **{name: {"launches": moe_rec[name]["launches"]["K3"],
+                              "max_abs_err": attn_err[(*shape, torch.float32, True, None)],
+                              **{k: moe_rec["k3"][name][k] for k in (
+                                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+                       for name, shape in kernel_times.MOE_ATTN_SHAPES.items()}}},
         {"name": "groupnorm_silu", "route": "cuda",
          "source": "src/repro_torch/kernels/groupnorm_silu/csrc/groupnorm_silu.cu",
          "replaces": "src/repro/kernels/groupnorm_silu/kernel.py:81",
@@ -3655,7 +4146,14 @@ def main() -> None:
          "library_ms": None,
          "prefill_32k": {k: k7_t[SSD_SHAPES[3]][k]
                          for k in ("ms", "plain_ms", "bound_ms", "bound_fp32_cuda_cores_ms",
-                                   "ranges", "ms_one_range")}},
+                                   "ranges", "ms_one_range")},
+         "jamba": {"launched_as": "the 7 'M' layers of jamba-v0.1-52b's (1, 2048) prefill, one "
+                                  "8-layer period at full width, d_state 16 (phase 7d)",
+                   "shape": list(kernel_times.JAMBA_SSD_SHAPE),
+                   "launches": moe_rec["jamba-v0.1-52b"]["launches"]["K7"],
+                   "max_abs_err": ssd_err[kernel_times.JAMBA_SSD_SHAPE],
+                   **{k: moe_rec["k7"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "ranges")}}},
         {"name": "sharded_solver_step", "route": "cuda",
          "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
          "replaces": "src/repro/kernels/solver_step/ops.py:123",

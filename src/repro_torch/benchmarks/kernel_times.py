@@ -13,7 +13,12 @@ through sets that stay in the 50 MB L2 where the path finds them there:
 - K1 ``error_step`` at the DiT's state (8, 196,608) and at planning's
   (64, 736), fp32, per-sample tolerances;
 - K5 ``em_step`` at the DiT's state, Table 2's (256, 3072) and the
-  tables' (4096, 2) and (2048, 2), fp32 and bf16.
+  tables' (4096, 2) and (2048, 2), fp32 and bf16;
+- K3 ``flash_attention`` at the mixture-of-experts LMs' prefill shapes
+  (``MOE_ATTN_SHAPES``, causal, fp32), beside its plain version and
+  SDPA (``is_causal``, ``enable_gqa``), and K7 ``ssd_scan`` at
+  jamba-v0.1-52b's "M" layers (``JAMBA_SSD_SHAPE``, d_state 16) beside
+  its plain ``ssd_chunked``.
 
 Last it trains Table 1's VP ``TOY_MLP`` (600 steps) and gives the
 device idle share of one EM-1000 solve at N 4096: 1 − (device busy time
@@ -55,6 +60,16 @@ STEP_SHAPES = ((8, 196_608), (64, 736))
 EM_SHAPES = ((8, 196_608), (256, 3072), (4096, 2), (2048, 2))
 #: the L2's bytes: sets of inputs larger than half of it rotate through 4
 L2_BYTES = 50e6
+#: K3 at the mixture-of-experts LMs' prefills, (B, Hq, Hkv, S, D), causal:
+#: deepseek-moe-16b's "A" layers (MHA, head_dim 128), granite-moe-3b-a800m's
+#: (GQA 24:8, 64) at S 4096, jamba-v0.1-52b's one "A" layer a period (GQA
+#: 32:8, 128) at its (1, 2048) prefill
+MOE_ATTN_SHAPES = {"deepseek-moe-16b": (1, 16, 16, 4096, 128),
+                   "granite-moe-3b-a800m": (1, 24, 8, 4096, 64),
+                   "jamba-v0.1-52b": (1, 32, 8, 2048, 128)}
+#: K7 at jamba-v0.1-52b's "M" layers in its (1, 2048) prefill, (B, S, H, P,
+#: G, N): d_inner 8192 in 128 heads of 64, one group, d_state 16
+JAMBA_SSD_SHAPE = (1, 2048, 128, 64, 1, 16)
 
 
 def device_ms(fn, sets, reps: int = 40, replays: int = 5) -> float:
@@ -185,6 +200,56 @@ def em_step_times(dev, gen, dtype=torch.float32) -> dict:
             for b, d in EM_SHAPES}
 
 
+def causal_attention_times(dev, gen, shape) -> dict:
+    """K3 at ``shape`` (B, Hq, Hkv, S, D), causal, fp32, on two input sets:
+    device ms of the wrapper (``ms``), of its plain version
+    (``plain_ms``) and of SDPA with ``is_causal`` and ``enable_gqa``
+    (``library_ms``, a yardstick the port never calls), and SDPA's max
+    abs difference from the plain version."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    B, Hq, Hkv, S, D = shape
+    sets = [(torch.randn(B, Hq, S, D, generator=gen, device=dev),
+             torch.randn(B, Hkv, S, D, generator=gen, device=dev),
+             torch.randn(B, Hkv, S, D, generator=gen, device=dev)) for _ in range(2)]
+    sdpa = lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+    plain = lambda q, k, v: flash_ref.attention(q, k, v, causal=True)
+    out = {"ms": device_ms(lambda q, k, v: flash_ops.attention(q, k, v, causal=True), sets,
+                           reps=8, replays=2),
+           "plain_ms": device_ms(plain, sets, reps=2, replays=2),
+           "library_ms": device_ms(sdpa, sets, reps=4, replays=2),
+           "library_max_abs_diff": (sdpa(*sets[0]) - plain(*sets[0])).abs().max().item()}
+    del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssd_sets(dev, gen, shape, n: int = 2) -> list:
+    """``n`` sets of K7's operands at ``shape`` (B, S, H, P, G, N), fp32, as
+    the reference's kernel test draws them: x, B, C normal, dt =
+    softplus(normal), A = −exp(normal)."""
+    B, S, H, P, G, N = shape
+    return [(torch.randn(B, S, H, P, generator=gen, device=dev),
+             torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen, device=dev)),
+             -torch.exp(torch.randn(H, generator=gen, device=dev)),
+             torch.randn(B, S, G, N, generator=gen, device=dev),
+             torch.randn(B, S, G, N, generator=gen, device=dev)) for _ in range(n)]
+
+
+def ssd_times(dev, gen, shape) -> dict:
+    """K7 at ``shape``: device ms of the wrapper (``ms``, the range count it
+    picks) and of the plain ``ssd_chunked`` (``plain_ms``)."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    sets = ssd_sets(dev, gen, shape)
+    return {"ms": device_ms(lambda *a: ssd_ops.ssd_scan(*a), sets, reps=10, replays=2),
+            "plain_ms": device_ms(lambda *a: ssd_ref.ssd_chunked(*a), sets, reps=2, replays=2),
+            "ranges": ssd_ops.ranges_for(sets[0][0])}
+
+
 def table1_em_idle(dev, n_steps: int = 1000) -> dict:
     """The device idle share of one Table-1 EM solve (VP, N 4096, the
     600-step TOY_MLP, ``n_steps`` K5 launches): the wall of an unprofiled
@@ -236,7 +301,10 @@ def main() -> None:
               "solver_step_ms": solver_step_times(dev, gen),
               "em_step_ms": {"fp32": em_step_times(dev, gen),
                              "bf16": em_step_times(dev, gen, torch.bfloat16)},
-              "table1_em1000": table1_em_idle(dev)}
+              "table1_em1000": table1_em_idle(dev),
+              "moe_lm_attention": {name: causal_attention_times(dev, gen, shape)
+                                   for name, shape in MOE_ATTN_SHAPES.items()},
+              "jamba_ssd": ssd_times(dev, gen, JAMBA_SSD_SHAPE)}
     print(card())
     print(json.dumps(result))
 

@@ -4,17 +4,27 @@ architectures, ``get_config(arch_id)``, and the input shapes with their
 per-architecture policy (``configs/shapes.py``).
 
 The registry holds the architectures the port can run: the dense
-attention models (olmo-1b, qwen1.5-0.5b, qwen3-14b, gemma3-12b) and
-mamba2-2.7b. The reference's other architectures need mixture-of-experts
-layers, cross-attention or codebook heads, which come with ROADMAP item
-A12; asking for one raises and says so.
+attention models (olmo-1b, qwen1.5-0.5b, qwen3-14b, gemma3-12b),
+mamba2-2.7b, the mixture-of-experts models (deepseek-moe-16b,
+granite-moe-3b-a800m) and the hybrid jamba-v0.1-52b. The reference's
+other two architectures need cross-attention or codebook heads, which
+come with ROADMAP item A12; asking for one raises and says so.
 """
 
 from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import gemma3_12b, mamba2_2_7b, olmo_1b, qwen1_5_0_5b, qwen3_14b
+from . import (
+    deepseek_moe_16b,
+    gemma3_12b,
+    granite_moe_3b_a800m,
+    jamba_v0_1_52b,
+    mamba2_2_7b,
+    olmo_1b,
+    qwen1_5_0_5b,
+    qwen3_14b,
+)
 from .shapes import (
     LONG_CONTEXT_SWA_WINDOW,
     SHAPES,
@@ -25,13 +35,13 @@ from .shapes import (
 )
 
 _REGISTRY = {m.CONFIG.name: m.CONFIG
-             for m in (olmo_1b, qwen1_5_0_5b, qwen3_14b, gemma3_12b, mamba2_2_7b)}
+             for m in (olmo_1b, qwen1_5_0_5b, qwen3_14b, gemma3_12b, mamba2_2_7b,
+                       deepseek_moe_16b, granite_moe_3b_a800m, jamba_v0_1_52b)}
 
 ARCH_IDS = tuple(sorted(_REGISTRY))
 
 #: the reference's architectures that the port does not run yet
-NOT_PORTED = ("deepseek-moe-16b", "granite-moe-3b-a800m", "jamba-v0.1-52b",
-              "llama-3.2-vision-90b", "musicgen-medium")
+NOT_PORTED = ("llama-3.2-vision-90b", "musicgen-medium")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -40,7 +50,7 @@ def get_config(name: str) -> ModelConfig:
     except KeyError:
         if name in NOT_PORTED:
             raise NotImplementedError(
-                f"arch '{name}' is not ported yet (MoE, cross-attention and codebook "
+                f"arch '{name}' is not ported yet (cross-attention and codebook "
                 f"architectures come with ROADMAP A12); have {list(ARCH_IDS)}") from None
         raise ValueError(f"unknown arch '{name}'; have {list(ARCH_IDS)}") from None
 

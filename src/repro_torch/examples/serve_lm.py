@@ -5,6 +5,8 @@ requests with the adaptive solver; port of ``examples/serve_lm.py``.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_lm [--arch gemma3-12b] [--device cpu]
 
+``--arch`` takes any registered architecture, the mixture-of-experts
+ones (deepseek-moe-16b, granite-moe-3b-a800m, jamba-v0.1-52b) included.
 ``python -m repro_torch.launch.serve --arch gemma3-12b`` serves the
 full-width model on the card.
 """

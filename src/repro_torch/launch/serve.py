@@ -7,10 +7,12 @@ replaying them token by token through the serve step (exact and
 state-consistent, as the reference does), then decodes greedily. It
 runs every registered architecture (``configs.ARCH_IDS``): the dense
 attention models olmo-1b, qwen1.5-0.5b, qwen3-14b and gemma3-12b (global
-and sliding-window GQA over ring-buffer KV caches) and mamba2-2.7b. The
-mixture-of-experts, cross-attention and codebook architectures come
-with ROADMAP A12; ``serving.ContinuousBatcher`` serves the attention
-models request by request.
+and sliding-window GQA over ring-buffer KV caches), mamba2-2.7b, the
+mixture-of-experts models deepseek-moe-16b and granite-moe-3b-a800m, and
+jamba-v0.1-52b (Mamba2, attention, dense and expert MLPs). The
+cross-attention and codebook architectures come with ROADMAP A12;
+``serving.ContinuousBatcher`` serves the attention models (MoE ones
+too) request by request.
 
 ``--diffusion`` runs ``serving.DiffusionBatcher`` (DESIGN.md §4, §7):
 seeded requests drain through a DiT score network (seeded weights, the
@@ -30,6 +32,8 @@ underneath. The reference's ``--fake-devices`` mesh waits for ROADMAP A11.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
       --batch 4 --prompt-len 16 --gen-len 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion --arch highres_dit \\
       --slots 8 --requests 16 --sync-horizon 4 --tier mixed [--device-resident]

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import LayerKVCache, cache_write, valid_mask
-from repro_torch.models.layers import apply_norm, dense_init, rope
+from repro_torch.models.layers import apply_norm, dense_init, init_norm, new_leaf, rope
 
 Tensor = torch.Tensor
 
@@ -43,23 +43,26 @@ def _refuse(cfg: ModelConfig, kind: str) -> None:
                                       f"attention under a mesh come with ROADMAP A11")
 
 
-def init_attention(cfg: ModelConfig, kind: str, generator: torch.Generator) -> dict:
+def init_attention(cfg: ModelConfig, kind: str, generator: torch.Generator,
+                   alloc=None) -> dict:
     """An "A" or "L" mixer's parameters (reference ``attention.py:28``):
     ``wq`` (E, H, Dh), ``wk``/``wv`` (E, Kv, Dh), ``wo`` (H, Dh, E), zero
     ``bq``/``bk``/``bv`` with ``qkv_bias``, unit ``q_norm``/``k_norm``
-    scales with ``qk_norm``; drawn from ``generator`` on its device."""
+    scales with ``qk_norm``; drawn from ``generator`` on its device, into
+    leaves from ``alloc`` where given (``layers.new_leaf``)."""
     _refuse(cfg, kind)
     E, H, Kv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dtype, dev = getattr(torch, cfg.dtype), generator.device
-    draw = lambda shape, fan: dense_init(shape, generator=generator, dtype=dtype, fan_in=fan)
+    draw = lambda shape, fan: dense_init(shape, generator=generator, dtype=dtype, fan_in=fan,
+                                         alloc=alloc)
     p = {"wq": draw((E, H, Dh), E), "wk": draw((E, Kv, Dh), E),
          "wv": draw((E, Kv, Dh), E), "wo": draw((H, Dh, E), H * Dh)}
     if cfg.qkv_bias:
         for name, heads in (("bq", H), ("bk", Kv), ("bv", Kv)):
-            p[name] = torch.zeros(heads, Dh, dtype=dtype, device=dev)
+            p[name] = new_leaf(alloc, (heads, Dh), dtype, dev).zero_()
     if cfg.qk_norm:
-        p["q_norm"] = {"scale": torch.ones(Dh, dtype=dtype, device=dev)}
-        p["k_norm"] = {"scale": torch.ones(Dh, dtype=dtype, device=dev)}
+        p["q_norm"] = init_norm(Dh, "rmsnorm", dtype, dev, alloc)
+        p["k_norm"] = init_norm(Dh, "rmsnorm", dtype, dev, alloc)
     return p
 
 

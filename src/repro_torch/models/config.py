@@ -12,8 +12,8 @@ MLP kinds:    "D" dense MLP · "E" mixture-of-experts · "N" none
 
 The fields and ``scaled_down`` equal the reference's, so a configuration
 built here describes the same model there. The port runs the "A", "L"
-and "M" mixers and the "N"/"D" MLPs (``models/transformer.py``); "X"
-and "E" are data only until their slice (ROADMAP A12).
+and "M" mixers and the "N"/"D"/"E" MLPs (``models/transformer.py``);
+"X" is data only until its slice (ROADMAP A12).
 """
 
 from __future__ import annotations

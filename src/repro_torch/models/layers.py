@@ -29,24 +29,40 @@ def to_tensor(a) -> Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
+def new_leaf(alloc, shape, dtype, device) -> Tensor:
+    """An uninitialised parameter leaf: ``alloc(shape, dtype)`` where the
+    caller hands one in (``transformer.init_model`` gives views into the
+    stacked leaves), else a new tensor on ``device``."""
+    if alloc is not None:
+        return alloc(tuple(shape), dtype)
+    return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
 def dense_init(shape, *, generator: torch.Generator, dtype=torch.float32,
-               fan_in: Optional[int] = None) -> Tensor:
+               fan_in: Optional[int] = None, alloc=None) -> Tensor:
     """Truncated normal on [−2, 2] times 1/sqrt(fan_in) (fan_in = shape[0]
-    by default), drawn in fp32 on the generator's device."""
+    by default), drawn in fp32 on the generator's device and scaled in
+    place, into a leaf from ``new_leaf(alloc, ...)`` (an fp32 leaf holds
+    the draw itself; another dtype takes a rounded copy)."""
     fan = fan_in if fan_in is not None else shape[0]
-    w = torch.empty(tuple(shape), dtype=torch.float32, device=generator.device)
+    out = new_leaf(alloc, shape, dtype, generator.device)
+    w = out if out.dtype == torch.float32 else torch.empty(
+        tuple(shape), dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * fan ** -0.5).to(dtype)
+    w.mul_(fan ** -0.5)
+    if w is not out:
+        out.copy_(w)
+    return out
 
 
-def init_norm(dim: int, norm_type: str, dtype=torch.float32, device="cpu") -> dict:
+def init_norm(dim: int, norm_type: str, dtype=torch.float32, device="cpu", alloc=None) -> dict:
     """The norm's parameters: ``rmsnorm`` a unit scale, ``layernorm`` a
     unit scale and a zero bias, ``layernorm_np`` none."""
+    leaf = lambda: new_leaf(alloc, (dim,), dtype, device)
     if norm_type == "rmsnorm":
-        return {"scale": torch.ones(dim, dtype=dtype, device=device)}
+        return {"scale": leaf().fill_(1)}
     if norm_type == "layernorm":
-        return {"scale": torch.ones(dim, dtype=dtype, device=device),
-                "bias": torch.zeros(dim, dtype=dtype, device=device)}
+        return {"scale": leaf().fill_(1), "bias": leaf().zero_()}
     if norm_type == "layernorm_np":
         return {}
     raise ValueError(norm_type)
@@ -93,12 +109,12 @@ def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
 
 
 def init_mlp(d_model: int, d_ff: int, glu: bool, *, generator: torch.Generator,
-             dtype=torch.float32) -> dict:
+             dtype=torch.float32, alloc=None) -> dict:
     """``w_in`` (E, F), ``w_out`` (F, E) and, when gated, ``w_gate`` (E, F)."""
-    p = {"w_in": dense_init((d_model, d_ff), generator=generator, dtype=dtype),
-         "w_out": dense_init((d_ff, d_model), generator=generator, dtype=dtype)}
+    draw = lambda shape: dense_init(shape, generator=generator, dtype=dtype, alloc=alloc)
+    p = {"w_in": draw((d_model, d_ff)), "w_out": draw((d_ff, d_model))}
     if glu:
-        p["w_gate"] = dense_init((d_model, d_ff), generator=generator, dtype=dtype)
+        p["w_gate"] = draw((d_model, d_ff))
     return p
 
 

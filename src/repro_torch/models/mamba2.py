@@ -29,7 +29,7 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import MambaState, init_mamba_state
-from repro_torch.models.layers import apply_norm, dense_init
+from repro_torch.models.layers import apply_norm, dense_init, init_norm, new_leaf
 
 Tensor = torch.Tensor
 
@@ -38,8 +38,9 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def init_mamba(cfg: ModelConfig, generator: torch.Generator) -> dict:
-    """Fresh parameters on the generator's device, drawn from it."""
+def init_mamba(cfg: ModelConfig, generator: torch.Generator, alloc=None) -> dict:
+    """Fresh parameters on the generator's device, drawn from it, into
+    leaves from ``alloc`` where given (``layers.new_leaf``)."""
     mc = cfg.mamba
     E = cfg.d_model
     di = mc.d_inner(E)
@@ -52,7 +53,8 @@ def init_mamba(cfg: ModelConfig, generator: torch.Generator) -> dict:
     dt0 = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))  # inverse softplus
     d = lambda shape, fan_in=None: dense_init(shape, generator=generator, dtype=dtype,
-                                              fan_in=fan_in)
+                                              fan_in=fan_in, alloc=alloc)
+    f32 = lambda: new_leaf(alloc, (H,), torch.float32, dev)
     return {
         "in_z": d((E, di)),
         "in_x": d((E, di)),
@@ -62,10 +64,10 @@ def init_mamba(cfg: ModelConfig, generator: torch.Generator) -> dict:
         "conv_x": d((W, di), W),
         "conv_B": d((W, G * N), W),
         "conv_C": d((W, G * N), W),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=dev)),
-        "D": torch.ones(H, device=dev),
-        "dt_bias": dt_bias,
-        "norm": {"scale": torch.ones(di, dtype=dtype, device=dev)},
+        "A_log": f32().copy_(torch.log(torch.linspace(1.0, 16.0, H, device=dev))),
+        "D": f32().fill_(1),
+        "dt_bias": f32().copy_(dt_bias),
+        "norm": init_norm(di, "rmsnorm", dtype, dev, alloc),
         "out": d((di, E)),
     }
 

@@ -15,9 +15,13 @@ free slots, replays each prompt token by token, then decodes greedily
 until EOS or ``max_new_tokens``; a retired slot takes the next request
 at once. Slots share one KV cache whose positions advance in lockstep;
 a slot sees only the positions from its request's start on
-(``start_pos``), so nothing leaks between requests. It refuses Mamba2
+(``start_pos``), so nothing leaks through attention. It refuses Mamba2
 ("M") mixers, whose state cannot be masked after the fact, and codebook
-heads, as the reference does.
+heads, as the reference does. It serves mixture-of-experts ("E")
+models, whose requests are not isolated: a decode step routes the slots'
+tokens as one group with a shared expert capacity, so a request's tokens
+depend on its seatmates, as in the reference; free slots feed token 0
+(reference :252), and those tokens take capacity too.
 """
 
 from __future__ import annotations
@@ -214,7 +218,9 @@ class ContinuousBatcher:
 
     ``cache_len`` is the attention caches' length: the global step count
     (every step advances every slot's position) must stay below it for
-    the global layers, as in the reference."""
+    the global layers, as in the reference. With "E" layers a request's
+    tokens depend on its seatmates (and on free slots' token 0) through
+    the experts' capacity, as in the reference."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  cache_len: int = 256, device="cuda"):

@@ -324,6 +324,45 @@ def test_flash_attention_gemma3_shapes(cuda):
         assert len(names) == 2 and all("flash_fwd_kernel" in n for n in names), names
 
 
+def test_flash_attention_head_dim_128(cuda):
+    """deepseek-moe-16b's attention (MHA 16 heads, head_dim 128: the
+    ``Cfg<float, 128>`` instantiation), causal, fp32, at S = 512: within
+    the bound of the plain version, the same bits on a second call."""
+    q, k, v = _qkv_on(cuda, 1, 16, 16, 512, 128, torch.float32, seed=8)
+    out = flash_ops.attention(q, k, v, causal=True)
+    want = flash_ref.attention(q, k, v, causal=True)
+    torch.testing.assert_close(out, want, **A_TOL[torch.float32])
+    assert torch.equal(flash_ops.attention(q, k, v, causal=True), out)
+
+
+def test_apply_moe_on_card_matches_cpu(cuda):
+    """The mixture-of-experts MLP at deepseek-moe-16b's per-layer widths
+    (d_model 2048, 64 experts of 1408, top-6, shared 2816), 1024 tokens
+    in 2 groups of 512, both dispatches, on the card against the same call
+    on the CPU (TF32 off): the same routing decisions, y within
+    1e-5·(1 + max|y|), the aux loss within 1e-6."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import pin_full_fp32_math
+    from repro_torch.models import apply_moe, init_moe
+
+    pin_full_fp32_math()
+    cfg = get_config("deepseek-moe-16b")
+    params = init_moe(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn(2, 512, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    on_card = {k: (v.to(cuda) if k != "shared" else {n: w.to(cuda) for n, w in v.items()})
+               for k, v in params.items()}
+    for dispatch in ("einsum", "gather"):
+        want_rec, got_rec = [], []
+        want, want_aux = apply_moe(params, x, cfg, dispatch=dispatch, routing=want_rec)
+        got, aux = apply_moe(on_card, x.to(cuda), cfg, dispatch=dispatch, routing=got_rec)
+        assert want_rec[0]["expert_idx"].shape == (2, 512, 6)
+        for key in ("expert_idx", "pos", "keep"):
+            assert torch.equal(got_rec[0][key].cpu(), want_rec[0][key]), (dispatch, key)
+        bound = 1e-5 * (1 + want.abs().max().item())
+        assert (got.cpu() - want).abs().max().item() <= bound, dispatch
+        assert abs(aux.item() - want_aux.item()) <= 1e-6
+
+
 def _qkv_on(dev, B, Hq, Hkv, S, D, dtype, seed=1):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, Hq, S, D, generator=g, device=dev).to(dtype)
