@@ -15,7 +15,9 @@ Phases; any failure exits non-zero before the result line is printed:
              ragged S = 75 with true_len 50, D = 256, gemma3-12b's prefill
              shapes (1, 16, 4096, 256) over (1, 8, 4096, 256) causal with
              window 1024 ("L") and causal ("A"), the MoE LMs' causal
-             prefill shapes (phase 7d), each the same bits
+             prefill shapes (phase 7d), llama-3.2-vision-90b's (1, 64, 8,
+             4096, 128) and musicgen-medium's (4, 24, 24, 1500, 64) causal
+             (phase 7e), each the same bits
              on a second call; GroupNorm → SiLU at all 17 shapes of a
              TRAJ_UNET forward at 128 and at 32 rows (phase 6e's served
              slots), fp32 and bf16, and at x = 1e3 + N(0, 1),
@@ -242,7 +244,8 @@ Phases; any failure exits non-zero before the result line is printed:
              adaptive at eps_rel 0.05 with the fused step: K1 counts set to
              0 just before and read just after, exactly 8·⌈iterations/8⌉;
              nfe = 2·(accepted + rejected) + 1, the sample finite, the
-             tokens in range.
+             tokens in range; then K1 timed at the solve's state (4, 4096)
+             beside its bytes bound and its plain version.
 7d. moe lm — the mixture-of-experts LMs, seeded, fp32, TF32 off, after
              the earlier phases have freed their memory (< 1 GiB still
              allocated, else it fails). First K3 at the three prefill
@@ -271,6 +274,34 @@ Phases; any failure exits non-zero before the result line is printed:
              is 205.84 GB): the (1, 2048) prefill with 7 K7 and 1 K3
              launches against the plain SSD and attention;
              ``serve_batch``.
+7e. vlm, audio, training — the last two architectures and LM training,
+             seeded, fp32, TF32 off, < 1 GiB allocated before (else it
+             fails). First K3 at their prefill shapes (causal fp32:
+             (1, 64, 8, 4096, 128), GQA 8:1, and (4, 24, 24, 1500, 64), a
+             ragged S) beside its bound, the plain version and SDPA.
+             (a) llama-3.2-vision-90b at full width, its depth cut to one
+             period (4 "A" + 1 "X", 6,378,577,920 parameters, checked; the
+             100 layers need A11's sharding), on seeded image embeddings
+             (B, 1601, 7680), the reference's stubbed vision tower: the
+             (1, 4096) prefill through ``make_prefill_step`` with exactly 4
+             K3 launches (the "X" layer takes the plain path), its
+             last-position logits against ``use_flash=False`` within
+             LM_LOGIT_TOL·max|logit|, the greedy token equal unless the
+             top-2 gap is within that bound; the peak allocated memory;
+             ``serve_batch`` 4 × (16 + 16) with the embeddings: ms and
+             device ms a decode step, the idle share. (b) musicgen-medium
+             at full width and depth (1,384,418,304 parameters, checked):
+             the (4, 1500, 4) prefill (30 s of audio at 50 frames a
+             second) with exactly 48 K3 launches, the logits held the same
+             way in each of the 4 codebooks; ``serve_batch`` on (4, 16, 4)
+             prompts. (c) musicgen-medium trained through
+             ``launch.train.train_loop``: 20 steps of 2 × 512 frames × 4
+             codebooks (delay pattern), AdamW at lr 3e-4 (warmup_cosine):
+             every cross-entropy finite, the last below the first, every
+             parameter leaf moved; ms a step, the peak allocated memory;
+             then one step under remat "full" against "none" from the same
+             weights and batch: the loss within 1e-6 relative, the peak
+             lower.
 8. sharded — the fourth main path, data-parallel adaptive sampling
              (``sample(mesh=)`` over torch.distributed). First K4, the
              sharded solver step, in process at HIGHRES_DIT's state
@@ -437,6 +468,19 @@ INIT_PEAK_GIB = 70
 #: a routing decision that two fp32 paths make differently must be a near
 #: tie: a top-k margin below this share of the token's largest probability
 NEAR_TIE = 1e-4
+#: phase 7e: llama-3.2-vision-90b cut to one period (4 "A" + 1 "X") and
+#: musicgen-medium whole: their parameters (the reference's ``init_model``,
+#: counted with ``jax.eval_shape``), prefills (B, S) (musicgen's 30 s of
+#: audio at EnCodec's 50 frames a second, arXiv:2306.05284), serve_batch's
+#: (requests, prompt, gen); musicgen's training run: steps, batch, frames,
+#: peak learning rate
+VLM_PARAMS, MUSICGEN_PARAMS = 6_378_577_920, 1_384_418_304
+VLM_PREFILL, MUSICGEN_PREFILL = (1, 4096), (4, 1500)
+VLM_AUDIO_SERVE = (4, 16, 16)
+MUSICGEN_TRAIN = dict(steps=20, batch=2, seq=512, lr=3e-4)
+#: one train step under remat "full" against "none": the same products on
+#: the same inputs, so the same loss up to this relative difference
+REMAT_LOSS_RTOL = 1e-6
 
 
 def ulp(dtype, mag: float) -> float:
@@ -2218,8 +2262,29 @@ def run_diffusion_lm(dev) -> dict:
         fail(f"the diffusion LM's solve did not converge in {MAIN_MAX_ITERS} iterations")
     del params
     torch.cuda.empty_cache()
+    # K1 at the solve's state (B, S·embed_dim), timed beside its bytes bound
+    from repro_torch.kernels.solver_step import ref as step_ref
+    b, d = B, S * De
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sets = []
+    for _ in range(8):
+        states = [torch.randn(b, d, generator=gen, device=dev) for _ in range(5)]
+        coeffs = [torch.rand(b, generator=gen, device=dev) for _ in range(3)]
+        eps = [step_ops.per_sample_tolerance(e, b, dev) for e in (0.0078, DLM_EPS_REL)]
+        sets.append((*states, *coeffs, *eps))
+    k1_fn = lambda *a: step_ops.error_step(*a[:8], eps_abs=a[8], eps_rel=a[9])
+    k1_ms = device_ms(k1_fn, sets)
+    k1_plain = device_ms(lambda *a: step_ref.error_step(*a), sets)
+    k1_bytes = 6 * b * d * 4 + 6 * b * 4
+    k1_t_bytes = k1_bytes / HBM_BYTES_PER_S * 1e3
+    k1_bound = max(k1_t_bytes, STEP_FLOPS_PER_ELEMENT * b * d / FP32_FLOPS * 1e3)
+    print(f"  K1 at the solve's state {(b, d)} fp32: {k1_ms * 1e3:.2f} us on the device (bound "
+          f"{k1_bound * 1e3:.3f} us by {'bytes' if k1_t_bytes >= k1_bound else 'operations'}: "
+          f"{k1_bytes / 1e6:.3f} MB at 3.35 TB/s); plain {k1_plain * 1e3:.1f} us")
     return {"launches": k1, "iterations": iters, "mean_nfe": float(res.mean_nfe),
-            "wall_s": wall, "ms_per_batch_forward": wall / (2 * iters) * 1e3}
+            "wall_s": wall, "ms_per_batch_forward": wall / (2 * iters) * 1e3,
+            "shape": [b, d], "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
+            "bound_by": "bytes" if k1_t_bytes >= k1_bound else "operations"}
 
 
 def attention_bound(shape) -> dict:
@@ -2649,6 +2714,290 @@ def run_moe_lm(dev, card: str) -> dict:
             out[name].pop(key)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  [{card}] MoE phase {out['phase_s']:.1f} s")
+    return out
+
+
+def hold_lm_logits(label: str, fast, plain) -> dict:
+    """The kernel path's last-position logits against the plain path's:
+    within LM_LOGIT_TOL·max|logit|, and the same greedy token in every row
+    (a sequence's, or a sequence's codebook's) unless that row's top-2 gap
+    is within the bound (a near tie two fp32 paths may break either way)."""
+    err = (fast - plain).abs().max().item()
+    bound = LM_LOGIT_TOL * plain.abs().max().item()
+    V = plain.shape[-1]
+    rows_f, rows_p = fast.reshape(-1, V), plain.reshape(-1, V)
+    same = torch.equal(rows_f.argmax(-1), rows_p.argmax(-1))
+    gaps = [top2_gap(r) for r in rows_p]
+    print(f"  {label}: max|Δlogit| {err:.3e} (bound {bound:.3e}); the same greedy token in all "
+          f"{len(gaps)} rows {same}; smallest top-2 gap {min(gaps):.3e}")
+    if err > bound:
+        fail(f"{label}: logits {err:.3e} off the plain path (bound {bound:.3e})")
+    for i, (a, b) in enumerate(zip(rows_f.argmax(-1).tolist(), rows_p.argmax(-1).tolist())):
+        if a != b and gaps[i] > bound:
+            fail(f"{label}: row {i} takes token {a}, the plain path {b}, at a top-2 gap "
+                 f"{gaps[i]:.3e} above the bound")
+    return {"logit_err": err, "logit_bound": bound, "same_tokens": same,
+            "min_top2_gap": min(gaps)}
+
+
+def lm_prefill(cfg, params, batch: dict, dev, k3: int) -> dict:
+    """``make_prefill_step`` on ``batch`` (attention through K3; "X" layers
+    plain), warm first: K3's count set to 0 just before and read just after
+    (exactly ``k3``), the wall, the peak allocated memory; then the
+    last-position logits against the plain attention (``hold_lm_logits``)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import forward
+
+    prefill = make_prefill_step(cfg, device=dev)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on: the LM's fp32 products would not be fp32")
+    prefill(params, {**batch, "tokens": batch["tokens"][:, :256]})  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt = prefill(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = flash_ops.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    toks = batch["tokens"]
+    rate = toks.shape[0] * toks.shape[1] / wall
+    print(f"  prefill {tuple(toks.shape)}: {wall:.3f} s, {rate:.0f} positions/s, peak allocated "
+          f"{peak:.2f} GiB; K3 launches {got} (want {k3}); next tokens {nxt[:, 0].tolist()}")
+    if got != k3:
+        fail(f"{cfg.name}'s prefill launched K3 {got} times, not {k3}")
+    if not bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all()):
+        fail(f"prefill token {nxt.tolist()} out of range")
+    with torch.no_grad():
+        fast, _ = forward(params, toks, cfg, cross_embeds=batch.get("cross_embeds"),
+                          last_logits_only=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain, _ = forward(params, toks, cfg, cross_embeds=batch.get("cross_embeds"),
+                           use_flash=False, last_logits_only=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    if not torch.equal(nxt, fast[:, -1:].argmax(-1).to(torch.int32)):
+        fail(f"{cfg.name}: the prefill step's tokens are not its forward's")
+    held = hold_lm_logits(f"{cfg.name} K3 vs the plain attention (plain prefill "
+                          f"{plain_s:.3f} s)", fast, plain)
+    if not bool(torch.isfinite(fast).all()):
+        fail(f"{cfg.name}: non-finite prefill logits")
+    return {"prefill_s": wall, "plain_prefill_s": plain_s, "peak_gib": peak, "launches": got,
+            **held}
+
+
+def lm_serve(cfg, params, prompts, cross, dev, card: str) -> dict:
+    """``serve_batch`` (prompt + VLM_AUDIO_SERVE's gen, ``cross`` the image
+    embeddings or None) after a warm-up: ms a decode step, tokens in range;
+    then a loop of LM_IDLE_STEPS serve steps unprofiled and profiled: device
+    ms a step and the idle share."""
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import init_decode_state
+
+    R, P, G = VLM_AUDIO_SERVE
+    extra = {} if cross is None else {"cross_embeds": cross}
+    serve_batch(cfg, params, prompts[:, :2], gen_len=2, cross_embeds=cross, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = serve_batch(cfg, params, prompts, gen_len=G, cross_embeds=cross, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = wall / (P + G - 1) * 1e3
+    want = (R, G) + tuple(prompts.shape[2:])
+    if tuple(toks.shape) != want or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"{cfg.name}: serve_batch gave {tuple(toks.shape)} (want {want}) or tokens out "
+             f"of range")
+    step = make_serve_step(cfg, device=dev)
+    state = init_decode_state(cfg, R, P + G, device=dev)
+
+    def decode_loop(n=LM_IDLE_STEPS):
+        nonlocal state
+        tok = toks[:, :1]
+        for _ in range(n):
+            tok, state = step(params, {"tokens": tok, **extra}, state)
+
+    decode_loop(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_loop()
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    by_name, busy_us = profile_device(decode_loop)
+    dev_ms = busy_us / 1e3 / LM_IDLE_STEPS
+    idle = 1 - busy_us / 1e3 / loop_ms
+    ops = sum(c for c, _ in by_name.values()) / LM_IDLE_STEPS
+    print(f"  [{card}] serve_batch {R} requests, prompt {P}, gen {G}: {wall:.3f} s, {step_ms:.2f} "
+          f"ms per decode step of {R}; {LM_IDLE_STEPS} steps {loop_ms:.1f} ms unprofiled, "
+          f"device busy {dev_ms:.2f} ms a step ({ops:.0f} device operations), idle share "
+          f"{idle:.2f}; first tokens {toks[:, 0].tolist()}")
+    del state
+    return {"serve_s": wall, "serve_ms_per_step": step_ms, "decode_device_ms_per_step": dev_ms,
+            "decode_idle_share": idle, "decode_ops_per_step": ops}
+
+
+def train_musicgen(dev, card: str) -> dict:
+    """Phase 7e (c): musicgen-medium at full width trained MUSICGEN_TRAIN's
+    steps through ``launch.train.train_loop`` (seeded weights, the delay
+    pattern, plain attention, TF32 off): every cross-entropy finite, the
+    last below the first, every parameter moved, ms a step and the peak
+    allocated memory; then one step under remat "full" against "none" from
+    the same weights and batch: the same loss, a lower peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipelineConfig, synth_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import _map, param_count
+    from repro_torch.optim import AdamW
+
+    cfg = get_config("musicgen-medium")
+    run = MUSICGEN_TRAIN
+    n = MUSICGEN_PARAMS
+    print(f"  train {cfg.name}: {run['steps']} steps of batch {run['batch']} x {run['seq']} "
+          f"frames x {cfg.num_codebooks} codebooks (delay pattern), AdamW, lr {run['lr']} "
+          f"(warmup_cosine); weights, grads, m and v {4 * n * 4 / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    t0 = time.perf_counter()
+    params, losses = train_loop(cfg, **run, seed=0, log_every=5, step_times=times, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if param_count(params) != n:
+        fail(f"musicgen-medium has {param_count(params):,} parameters, not {n:,}")
+    steady = sorted(times[1:])[len(times[1:]) // 2] * 1e3
+    tokens = run["batch"] * run["seq"] * cfg.num_codebooks
+    print(f"  [{card}] train_loop: {wall:.2f} s in all; a step {steady:.1f} ms (median after the "
+          f"first, {times[0] * 1e3:.1f} ms), {tokens / steady * 1e3:.0f} tokens/s; peak allocated "
+          f"{peak:.2f} GiB; ce {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"a training loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"training did not lower the cross-entropy: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    fresh = init_model(cfg, 0, device=dev)
+    after, before = [], []
+    _map(after.append, params)
+    _map(before.append, fresh)
+    moved = sum(not torch.equal(a.detach(), b) for a, b in zip(after, before))
+    print(f"  {moved} of {len(after)} parameter leaves moved")
+    if moved != len(after):
+        fail(f"only {moved} of {len(after)} parameter leaves moved in training")
+    del params, fresh, after, before
+    torch.cuda.empty_cache()
+
+    # one step under remat "full" against "none": same weights, same batch
+    batch = {"tokens": synth_batch(TokenPipelineConfig(cfg.vocab_size, run["seq"], run["batch"],
+                                                       num_codebooks=cfg.num_codebooks), 0)}
+    remat = {}
+    for mode in ("none", "full"):
+        params = init_model(cfg, 0, device=dev)
+        opt = AdamW(lr=run["lr"])
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, remat=mode, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        metrics = step(params, state, batch)[2]
+        loss = metrics["loss"].item()
+        ms = (time.perf_counter() - t0) * 1e3
+        remat[mode] = {"loss": loss, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                       "ms": ms}
+        del params, state, step, metrics  # the moments too: the next mode's peak starts clean
+        torch.cuda.empty_cache()
+    a, b = remat["none"], remat["full"]
+    rel = abs(b["loss"] - a["loss"]) / abs(a["loss"])
+    print(f"  [{card}] one step, remat none / full: loss {a['loss']:.6f} / {b['loss']:.6f} "
+          f"(relative {rel:.2e}, bound {REMAT_LOSS_RTOL:g}); peak allocated "
+          f"{a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB; {a['ms']:.1f} / {b['ms']:.1f} ms "
+          f"(first step of each: cold allocator)")
+    if rel > REMAT_LOSS_RTOL:
+        fail(f"remat 'full' changed the loss by {rel:.2e} relative")
+    if not b["peak_gib"] < a["peak_gib"]:
+        fail(f"remat 'full' did not lower the peak ({b['peak_gib']:.2f} GiB against "
+             f"{a['peak_gib']:.2f})")
+    return {"steps": run["steps"], "batch": run["batch"], "seq": run["seq"], "wall_s": wall,
+            "ms_per_step": steady, "first_step_ms": times[0] * 1e3, "tokens_per_s":
+            tokens / steady * 1e3, "peak_gib": peak, "ce_first": losses[0],
+            "ce_last": losses[-1], "remat": remat}
+
+
+def run_vlm_audio_lm(dev, card: str) -> dict:
+    """Phase 7e: the cross-attention and codebook LMs and LM training
+    (seeded weights, fp32, TF32 off), after the earlier phases have freed
+    their memory (< 1 GiB still allocated, else it fails). First K3 at the
+    two prefill shapes, timed beside its bound, its plain version and SDPA;
+    then (a) llama-3.2-vision-90b at full width, one 5-layer period, on
+    seeded image embeddings, (b) musicgen-medium at full width and depth,
+    (c) musicgen-medium trained (``train_musicgen``). Returns the numbers
+    of the kernels line."""
+    from repro_torch.benchmarks import kernel_times
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    print(f"  allocated before the phase: {held:.3f} GiB")
+    if held >= 1:
+        fail(f"{held:.2f} GiB still allocated from earlier phases (want < 1 GiB)")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    out = {"k3": {}}
+    for name, shape in kernel_times.VLM_AUDIO_ATTN_SHAPES.items():
+        t = {**kernel_times.causal_attention_times(dev, gen, shape), **attention_bound(shape)}
+        out["k3"][name] = t
+        print(f"  [{card}] flash_attention {shape} causal fp32 ({name}): {t['ms']:.3f} ms on "
+              f"the device; bound {t['bound_ms']:.3f} ms by {t['bound_by']} (3xTF32: 3 x "
+              f"{t['gflop']:.1f} GFLOP over {t['visible_pairs']:,} visible pairs at 495 TFLOP/s;"
+              f" {t['bound_ms'] / t['ms']:.0%} of it reached); plain {t['plain_ms']:.3f} ms; "
+              f"SDPA {t['library_ms']:.3f} ms (max abs diff from the plain version "
+              f"{t['library_max_abs_diff']:.1e})")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    # (a) llama-3.2-vision-90b at full width, its depth cut to one period
+    full = get_config("llama-3.2-vision-90b")
+    cfg = full.replace(num_layers=len(full.mixer_pattern))
+    params, rec = init_moe_model(cfg, dev, f"{cfg.name}, one period ({cfg.mixer_pattern.count('A')}"
+                                 f" 'A' GQA {cfg.num_heads}:{cfg.num_kv_heads} x {cfg.head_dim}, "
+                                 f"1 'X' over {cfg.num_patches} patches of {cfg.vision_dim}; cut "
+                                 f"from {full.num_layers} layers)")
+    if rec["params"] != VLM_PARAMS:
+        fail(f"one period of {cfg.name} has {rec['params']:,} parameters, not {VLM_PARAMS:,}")
+    B, S = VLM_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    cross = torch.randn(B, cfg.num_patches, cfg.vision_dim, generator=g, device=dev)
+    rec.update(lm_prefill(cfg, params, {"tokens": toks, "cross_embeds": cross}, dev,
+                          k3=cfg.mixer_pattern.count("A")))
+    R, P, _ = VLM_AUDIO_SERVE
+    prompts = torch.randint(0, cfg.vocab_size, (R, P), generator=g, device=dev)
+    cross = torch.randn(R, cfg.num_patches, cfg.vision_dim, generator=g, device=dev)
+    rec.update(lm_serve(cfg, params, prompts, cross, dev, card))
+    del params, cross
+    out["llama-3.2-vision-90b"] = rec
+    torch.cuda.empty_cache()
+
+    # (b) musicgen-medium at full width and depth
+    cfg = get_config("musicgen-medium")
+    K = cfg.num_codebooks
+    params, rec = init_moe_model(cfg, dev, f"{cfg.name} ({cfg.num_layers} 'A' MHA "
+                                 f"{cfg.num_heads} x {cfg.head_dim} + 'D' layers, {K} codebooks "
+                                 f"of {cfg.vocab_size}, {cfg.norm_type}, {cfg.act})")
+    if rec["params"] != MUSICGEN_PARAMS:
+        fail(f"{cfg.name} has {rec['params']:,} parameters, not {MUSICGEN_PARAMS:,}")
+    toks = torch.randint(0, cfg.vocab_size, (*MUSICGEN_PREFILL, K), generator=g, device=dev)
+    rec.update(lm_prefill(cfg, params, {"tokens": toks}, dev, k3=cfg.num_layers))
+    prompts = torch.randint(0, cfg.vocab_size, (R, P, K), generator=g, device=dev)
+    rec.update(lm_serve(cfg, params, prompts, None, dev, card))
+    del params
+    out["musicgen-medium"] = rec
+    torch.cuda.empty_cache()
+
+    # (c) musicgen-medium trained at full width
+    out["train"] = train_musicgen(dev, card)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  [{card}] cross-attention, codebook and training phase {out['phase_s']:.1f} s")
     return out
 
 
@@ -3241,7 +3590,9 @@ def main() -> None:
             (*GEMMA_ATTN, True, GEMMA_WINDOW, None, torch.float32),  # phase 7b's "L"
             (*GEMMA_ATTN, True, None, None, torch.float32),  # phase 7b's "A"
             *((*shape, True, None, None, torch.float32)  # phase 7d's prefills
-              for shape in kernel_times.MOE_ATTN_SHAPES.values())):
+              for shape in kernel_times.MOE_ATTN_SHAPES.values()),
+            *((*shape, True, None, None, torch.float32)  # phase 7e's prefills
+              for shape in kernel_times.VLM_AUDIO_ATTN_SHAPES.values())):
         q = torch.randn(b, hq, s, dh, generator=gen, device=dev).to(dtype)
         k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(dtype)
                 for _ in range(2))
@@ -3958,6 +4309,11 @@ def main() -> None:
           "through K3, jamba-v0.1-52b's hybrid period through K7 and K3")
     moe_rec = run_moe_lm(dev, card)
 
+    # ------------------------------------------------- 7e. vlm, audio, training
+    phase("main path: llama-3.2-vision-90b's period (cross-attention) and musicgen-medium "
+          "(codebooks) through K3, and musicgen-medium trained at full width")
+    xc_rec = run_vlm_audio_lm(dev, card)
+
     # ------------------------------------------------------------- 8. sharded
     phase("sharded sampling: K4 and sample(mesh=) over torch.distributed")
     k4 = run_sharded(dev, card, rec["wall_s"])
@@ -4078,7 +4434,19 @@ def main() -> None:
                               "max_abs_err": attn_err[(*shape, torch.float32, True, None)],
                               **{k: moe_rec["k3"][name][k] for k in (
                                   "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
-                       for name, shape in kernel_times.MOE_ATTN_SHAPES.items()}}},
+                       for name, shape in kernel_times.MOE_ATTN_SHAPES.items()}},
+         "vlm_audio_lm": {"launched_as": "every 'A' layer of the prefills of phase 7e, causal, "
+                                         "fp32: llama-3.2-vision-90b's period (1, 4096), 4 'A' "
+                                         "layers, GQA 64:8 at head_dim 128 (its 'X' layer takes "
+                                         "the plain path); musicgen-medium (4, 1500, 4 "
+                                         "codebooks), 48 'A', MHA 24 heads at 64, a ragged S",
+                          **{name: {"shape": list(shape),
+                                    "launches": xc_rec[name]["launches"],
+                                    "max_abs_err": attn_err[(*shape, torch.float32, True, None)],
+                                    **{k: xc_rec["k3"][name][k] for k in (
+                                        "ms", "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by")}}
+                             for name, shape in kernel_times.VLM_AUDIO_ATTN_SHAPES.items()}}},
         {"name": "groupnorm_silu", "route": "cuda",
          "source": "src/repro_torch/kernels/groupnorm_silu/csrc/groupnorm_silu.cu",
          "replaces": "src/repro/kernels/groupnorm_silu/kernel.py:81",

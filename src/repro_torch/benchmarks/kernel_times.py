@@ -15,7 +15,8 @@ through sets that stay in the 50 MB L2 where the path finds them there:
 - K5 ``em_step`` at the DiT's state, Table 2's (256, 3072) and the
   tables' (4096, 2) and (2048, 2), fp32 and bf16;
 - K3 ``flash_attention`` at the mixture-of-experts LMs' prefill shapes
-  (``MOE_ATTN_SHAPES``, causal, fp32), beside its plain version and
+  (``MOE_ATTN_SHAPES``) and llama-3.2-vision-90b's and musicgen-medium's
+  (``VLM_AUDIO_ATTN_SHAPES``), causal, fp32, beside its plain version and
   SDPA (``is_causal``, ``enable_gqa``), and K7 ``ssd_scan`` at
   jamba-v0.1-52b's "M" layers (``JAMBA_SSD_SHAPE``, d_state 16) beside
   its plain ``ssd_chunked``.
@@ -67,6 +68,11 @@ L2_BYTES = 50e6
 MOE_ATTN_SHAPES = {"deepseek-moe-16b": (1, 16, 16, 4096, 128),
                    "granite-moe-3b-a800m": (1, 24, 8, 4096, 64),
                    "jamba-v0.1-52b": (1, 32, 8, 2048, 128)}
+#: K3 at llama-3.2-vision-90b's "A" layers in its (1, 4096) prefill (GQA
+#: 64:8, head_dim 128) and at musicgen-medium's in its (4, 1500) prefill
+#: (MHA 24 heads of 64; 30 s of audio at 50 frames a second, a ragged S)
+VLM_AUDIO_ATTN_SHAPES = {"llama-3.2-vision-90b": (1, 64, 8, 4096, 128),
+                         "musicgen-medium": (4, 24, 24, 1500, 64)}
 #: K7 at jamba-v0.1-52b's "M" layers in its (1, 2048) prefill, (B, S, H, P,
 #: G, N): d_inner 8192 in 128 heads of 64, one group, d_state 16
 JAMBA_SSD_SHAPE = (1, 2048, 128, 64, 1, 16)
@@ -304,6 +310,8 @@ def main() -> None:
               "table1_em1000": table1_em_idle(dev),
               "moe_lm_attention": {name: causal_attention_times(dev, gen, shape)
                                    for name, shape in MOE_ATTN_SHAPES.items()},
+              "vlm_audio_lm_attention": {name: causal_attention_times(dev, gen, shape)
+                                         for name, shape in VLM_AUDIO_ATTN_SHAPES.items()},
               "jamba_ssd": ssd_times(dev, gen, JAMBA_SSD_SHAPE)}
     print(card())
     print(json.dumps(result))

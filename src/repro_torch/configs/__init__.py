@@ -3,12 +3,12 @@
 architectures, ``get_config(arch_id)``, and the input shapes with their
 per-architecture policy (``configs/shapes.py``).
 
-The registry holds the architectures the port can run: the dense
+The registry holds every architecture of the reference: the dense
 attention models (olmo-1b, qwen1.5-0.5b, qwen3-14b, gemma3-12b),
 mamba2-2.7b, the mixture-of-experts models (deepseek-moe-16b,
-granite-moe-3b-a800m) and the hybrid jamba-v0.1-52b. The reference's
-other two architectures need cross-attention or codebook heads, which
-come with ROADMAP item A12; asking for one raises and says so.
+granite-moe-3b-a800m), the hybrid jamba-v0.1-52b, the vision-language
+llama-3.2-vision-90b (cross-attention) and the audio musicgen-medium
+(four codebooks).
 """
 
 from __future__ import annotations
@@ -20,7 +20,9 @@ from . import (
     gemma3_12b,
     granite_moe_3b_a800m,
     jamba_v0_1_52b,
+    llama3_2_vision_90b,
     mamba2_2_7b,
+    musicgen_medium,
     olmo_1b,
     qwen1_5_0_5b,
     qwen3_14b,
@@ -36,22 +38,19 @@ from .shapes import (
 
 _REGISTRY = {m.CONFIG.name: m.CONFIG
              for m in (olmo_1b, qwen1_5_0_5b, qwen3_14b, gemma3_12b, mamba2_2_7b,
-                       deepseek_moe_16b, granite_moe_3b_a800m, jamba_v0_1_52b)}
+                       deepseek_moe_16b, granite_moe_3b_a800m, jamba_v0_1_52b,
+                       llama3_2_vision_90b, musicgen_medium)}
 
 ARCH_IDS = tuple(sorted(_REGISTRY))
 
-#: the reference's architectures that the port does not run yet
-NOT_PORTED = ("llama-3.2-vision-90b", "musicgen-medium")
+#: the reference's architectures that the port does not run: none
+NOT_PORTED = ()
 
 
 def get_config(name: str) -> ModelConfig:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"arch '{name}' is not ported yet (cross-attention and codebook "
-                f"architectures come with ROADMAP A12); have {list(ARCH_IDS)}") from None
         raise ValueError(f"unknown arch '{name}'; have {list(ARCH_IDS)}") from None
 
 

@@ -6,7 +6,9 @@ requests with the adaptive solver; port of ``examples/serve_lm.py``.
   PYTHONPATH=src python -m repro_torch.examples.serve_lm [--arch gemma3-12b] [--device cpu]
 
 ``--arch`` takes any registered architecture, the mixture-of-experts
-ones (deepseek-moe-16b, granite-moe-3b-a800m, jamba-v0.1-52b) included.
+ones (deepseek-moe-16b, granite-moe-3b-a800m, jamba-v0.1-52b),
+llama-3.2-vision-90b (seeded image embeddings) and musicgen-medium
+(four-codebook prompts) included.
 ``python -m repro_torch.launch.serve --arch gemma3-12b`` serves the
 full-width model on the card.
 """
@@ -41,10 +43,16 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch).scaled_down()
     params = init_model(cfg, 0, device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=g,
+    shape = (args.batch, args.prompt_len) + ((cfg.num_codebooks,) if cfg.num_codebooks > 1
+                                            else ())
+    prompts = torch.randint(0, cfg.vocab_size, shape, generator=g, device=dev)
+    cross = None
+    if cfg.vision_dim:
+        cross = torch.randn((args.batch, cfg.num_patches, cfg.vision_dim), generator=g,
                             device=dev)
     t0 = time.perf_counter()
-    toks = serve_batch(cfg, params, prompts, gen_len=args.gen_len, device=dev)
+    toks = serve_batch(cfg, params, prompts, gen_len=args.gen_len, cross_embeds=cross,
+                       device=dev)
     dt = time.perf_counter() - t0
     print(f"[AR] {args.arch} (reduced): generated {tuple(toks.shape)} in {dt:.1f} s "
           f"({toks.numel() / dt:.0f} tok/s)")

@@ -5,14 +5,16 @@ receding-horizon planner as a service.
 LM mode (``--arch``): ``serve_batch`` prefills a batch of prompts by
 replaying them token by token through the serve step (exact and
 state-consistent, as the reference does), then decodes greedily. It
-runs every registered architecture (``configs.ARCH_IDS``): the dense
-attention models olmo-1b, qwen1.5-0.5b, qwen3-14b and gemma3-12b (global
-and sliding-window GQA over ring-buffer KV caches), mamba2-2.7b, the
-mixture-of-experts models deepseek-moe-16b and granite-moe-3b-a800m, and
-jamba-v0.1-52b (Mamba2, attention, dense and expert MLPs). The
-cross-attention and codebook architectures come with ROADMAP A12;
-``serving.ContinuousBatcher`` serves the attention models (MoE ones
-too) request by request.
+runs every architecture of the reference (``configs.ARCH_IDS``): the
+dense attention models olmo-1b, qwen1.5-0.5b, qwen3-14b and gemma3-12b
+(global and sliding-window GQA over ring-buffer KV caches), mamba2-2.7b,
+the mixture-of-experts models deepseek-moe-16b and granite-moe-3b-a800m,
+jamba-v0.1-52b (Mamba2, attention, dense and expert MLPs),
+llama-3.2-vision-90b (cross-attention over image embeddings, which the
+CLI draws from the seed: the reference's stubbed vision tower) and
+musicgen-medium (four codebooks: prompts (B, P, 4)).
+``serving.ContinuousBatcher`` serves the one-codebook models without
+Mamba2 or cross-attention layers (MoE ones too) request by request.
 
 ``--diffusion`` runs ``serving.DiffusionBatcher`` (DESIGN.md §4, §7):
 seeded requests drain through a DiT score network (seeded weights, the
@@ -35,6 +37,8 @@ underneath. The reference's ``--fake-devices`` mesh waits for ROADMAP A11.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-90b --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion --arch highres_dit \\
       --slots 8 --requests 16 --sync-horizon 4 --tier mixed [--device-resident]
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion --device cpu \\
@@ -63,25 +67,29 @@ Tensor = torch.Tensor
 
 
 def serve_batch(cfg: ModelConfig, params, prompts: Tensor, *, gen_len: int = 32,
-                cache_len: int | None = None, device="cuda") -> Tensor:
-    """prompts (B, P) int → the generated tokens (B, gen_len) int32: the
-    first from the last prompt position, then greedy. The attention
-    layers' caches hold ``cache_len`` tokens (default P + gen_len; a
-    sliding-window layer's at most its window)."""
+                cache_len: int | None = None, cross_embeds: Tensor | None = None,
+                device="cuda") -> Tensor:
+    """prompts (B, P) int, or (B, P, K) with K codebooks → the generated
+    tokens (B, gen_len) or (B, gen_len, K) int32: the first from the last
+    prompt position, then greedy. The attention layers' caches hold
+    ``cache_len`` tokens (default P + gen_len; a sliding-window layer's at
+    most its window). ``cross_embeds`` (B, num_patches, vision_dim) feed
+    every step's cross-attention layers."""
     dev = resolve_device(device)
-    B, P = prompts.shape
+    B, P = prompts.shape[:2]
     state = init_decode_state(cfg, B, cache_len or (P + gen_len), device=dev)
     step = make_serve_step(cfg, device=dev)
     prompts = prompts.to(dev)
+    extra = {} if cross_embeds is None else {"cross_embeds": cross_embeds.to(dev)}
 
     # prefill by replay (exact; the fused prefill is make_prefill_step)
     next_tok = None
     for i in range(P):
-        next_tok, state = step(params, {"tokens": prompts[:, i:i + 1]}, state)
+        next_tok, state = step(params, {"tokens": prompts[:, i:i + 1], **extra}, state)
 
     out = [next_tok]
     for _ in range(gen_len - 1):
-        nt, state = step(params, {"tokens": out[-1]}, state)
+        nt, state = step(params, {"tokens": out[-1], **extra}, state)
         out.append(nt)
     return torch.cat(out, dim=1)
 
@@ -330,12 +338,20 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.scaled_down()
-    params = init_model(cfg, 0, device=dev)  # weights and prompts from seed 0
+    # weights, prompts and image embeddings from seed 0
+    params = init_model(cfg, 0, device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=g, device=dev)
+    shape = (args.batch, args.prompt_len)
+    if cfg.num_codebooks > 1:
+        shape += (cfg.num_codebooks,)
+    prompts = torch.randint(0, cfg.vocab_size, shape, generator=g, device=dev)
+    cross = None
+    if cfg.vision_dim:
+        cross = torch.randn((args.batch, cfg.num_patches, cfg.vision_dim), generator=g,
+                            device=dev).to(getattr(torch, cfg.dtype))
     t0 = time.perf_counter()
-    toks = serve_batch(cfg, params, prompts, gen_len=args.gen_len, device=dev)
+    toks = serve_batch(cfg, params, prompts, gen_len=args.gen_len, cross_embeds=cross,
+                       device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

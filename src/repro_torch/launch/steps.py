@@ -1,15 +1,19 @@
 """Step functions of the language-model path; port of
-``repro/launch/steps.py`` (``make_prefill_step`` and ``make_serve_step``;
-``make_train_step`` comes with the training slice).
+``repro/launch/steps.py``.
 
-``make_prefill_step`` returns f(params, batch) → next tokens (B, 1)
-int32: the full-sequence forward with the head on the last position
-only. ``make_serve_step`` returns f(params, batch, state) →
-(next tokens (B, 1) int32, state'), greedy. ``batch`` is a dict with
-``"tokens"`` and, for continuous batching, ``"start_pos"`` (B,), as in
-the reference. Both run without autograd, in full
-fp32 (TF32 off), on ``device``: the card unless the caller asks for the
-CPU, and they raise at construction when no card is there.
+``make_train_step`` returns f(params, opt_state, batch) → (params,
+opt_state, metrics): next-token cross-entropy plus the "E" layers' aux
+loss, its gradients by autograd, one ``optim.AdamW`` update (in place).
+``make_prefill_step`` returns f(params, batch) → next tokens (B, 1) int32
+((B, 1, K) with K codebooks): the full-sequence forward with the head on
+the last position only. ``make_serve_step`` returns f(params, batch,
+state) → (next tokens (B, 1[, K]) int32, state'), greedy. ``batch`` is a
+dict with ``"tokens"`` and, as the model needs, ``"cross_embeds"`` (the
+image embeddings of the cross-attention layers) and, for continuous
+batching, ``"start_pos"`` (B,), as in the reference. The prefill and
+serve steps run without autograd, every step in full fp32 (TF32 off), on
+``device``: the card unless the caller asks for the CPU; they raise at
+construction when no card is there.
 """
 
 from __future__ import annotations
@@ -19,12 +23,73 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.core.precision import pin_full_fp32_math
+from repro_torch.data.tokens import lm_loss
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, forward
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import AdamW
+from repro_torch.optim.tree import leaves, tree_map
 
 Tensor = torch.Tensor
 Batch = Dict[str, Tensor]
+
+
+def _cross(batch: Batch, dev):
+    cross = batch.get("cross_embeds")
+    return None if cross is None else cross.to(dev)
+
+
+def make_loss_fn(cfg: ModelConfig, *, remat: str = "none", use_flash: bool = False,
+                 use_kernel_ssd: bool = False) -> Callable:
+    """The train step's loss (the reference's ``loss_fn``, reference :35):
+    f(params, batch) → (loss, ce, aux), with loss = ce + aux, ce the
+    next-token cross-entropy (``data.tokens.lm_loss``) and aux the "E"
+    layers' summed aux loss. The forward takes the plain attention and
+    SSD paths by default, as the reference's (no kernel has a backward:
+    on the card ``use_flash=True`` or ``use_kernel_ssd=True`` under grad
+    raises, ``kernels/autograd.py``)."""
+
+    def loss_fn(params, batch: Batch):
+        tokens = batch["tokens"]
+        logits, aux = forward(params, tokens, cfg, cross_embeds=batch.get("cross_embeds"),
+                              use_flash=use_flash, use_kernel_ssd=use_kernel_ssd,
+                              remat=remat)
+        ce = lm_loss(logits, tokens)
+        return ce + aux, ce, aux
+
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, optimizer: AdamW, *, remat: str = "none",
+                    use_flash: bool = False, use_kernel_ssd: bool = False,
+                    device="cuda") -> Callable:
+    """One training step (reference :25): the loss of ``make_loss_fn``,
+    its gradient for every parameter leaf (``torch.autograd.grad``; the
+    leaves are set to require grad), then ``optimizer.update``, which
+    writes the parameters and the moments in place. ``remat`` is
+    ``forward``'s: "none", "full" (each layer recomputed in the backward
+    pass) or "dots" (all but its unbatched products). Metrics are 0-d
+    fp32 tensors ``loss``, ``ce`` and ``moe_aux``."""
+    dev = resolve_device(device)
+    pin_full_fp32_math()
+    loss_fn = make_loss_fn(cfg, remat=remat, use_flash=use_flash,
+                           use_kernel_ssd=use_kernel_ssd)
+
+    def train_step(params, opt_state, batch: Batch):
+        batch = {**batch, "tokens": batch["tokens"].to(dev), "cross_embeds": _cross(batch, dev)}
+        flat = leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            loss, ce, aux = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, flat)
+        it = iter(grads)  # tree_map walks the leaves in leaves()' order
+        params, opt_state = optimizer.update(tree_map(lambda _: next(it), params), opt_state,
+                                             params)
+        metrics = {"loss": loss.detach(), "ce": ce.detach(), "moe_aux": aux.detach()}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_serve_step(cfg: ModelConfig, *, device="cuda") -> Callable:
@@ -35,6 +100,7 @@ def make_serve_step(cfg: ModelConfig, *, device="cuda") -> Callable:
     def serve_step(params, batch: Batch, state):
         start_pos = batch.get("start_pos")
         logits, state = decode_step(params, batch["tokens"].to(dev), state, cfg,
+                                    cross_embeds=_cross(batch, dev),
                                     start_pos=None if start_pos is None else start_pos.to(dev))
         return torch.argmax(logits, dim=-1).to(torch.int32), state
 
@@ -45,16 +111,18 @@ def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = True,
                       use_kernel_ssd: bool = True, last_logits_only: bool = True,
                       device="cuda") -> Callable:
     """Full-sequence forward (reference :77); ``use_flash`` (the default)
-    runs every attention layer through ``kernels.flash_attention.ops``
-    (K3 on the card), ``use_kernel_ssd`` (the default) every Mamba2
-    layer's scan through ``kernels.ssd.ops`` (K7 on the card); ``False``
-    takes the plain path."""
+    runs every "A"/"L" attention layer through
+    ``kernels.flash_attention.ops`` (K3 on the card; "X" layers take the
+    plain path), ``use_kernel_ssd`` (the default) every Mamba2 layer's
+    scan through ``kernels.ssd.ops`` (K7 on the card); ``False`` takes the
+    plain path."""
     dev = resolve_device(device)
     pin_full_fp32_math()
 
     @torch.no_grad()
     def prefill_step(params, batch: Batch):
         logits, _ = forward(params, batch["tokens"].to(dev), cfg,
+                            cross_embeds=_cross(batch, dev),
                             use_kernel_ssd=use_kernel_ssd, use_flash=use_flash,
                             last_logits_only=last_logits_only)
         # the next token after the last position of every sequence

@@ -8,12 +8,16 @@ Its public face is the model layout (B, S, H, D).
 
 The mixers: global causal ("A") and sliding-window causal ("L")
 self-attention with GQA, QKV biases (``qkv_bias``), per-head RMS q/k
-norms (``qk_norm``), rotary positions and optional logit soft-capping.
-``attention_forward`` is the training / prefill form (with ``use_flash``
-its attention runs K3, causal, windowed on "L"); ``attention_decode``
-the single-token form over the ring-buffer ``LayerKVCache``. Cross
-attention ("X") comes with ROADMAP A12; the sequence-sharding levers
-(``attn_q_seq_shard``, ``decode_flash_shard``) with A11.
+norms (``qk_norm``), rotary positions and optional logit soft-capping,
+and cross-attention ("X": queries from the text, keys and values
+projected from the image embeddings ``cross_kv`` of width
+``vision_dim``; no rotary positions, no mask). ``attention_forward`` is
+the training / prefill form (with ``use_flash`` an "A"/"L" layer's
+attention runs K3, causal, windowed on "L"; an "X" layer always takes the
+plain path, as in the reference); ``attention_decode`` the single-token
+form over the ring-buffer ``LayerKVCache`` ("X" is stateless: it
+recomputes the image K/V each step). The sequence-sharding levers
+(``attn_q_seq_shard``, ``decode_flash_shard``) come with ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -31,11 +35,9 @@ Tensor = torch.Tensor
 
 
 def _refuse(cfg: ModelConfig, kind: str) -> None:
-    """Raise for what the mixers do not run: cross-attention and the
-    attention layers' mesh levers."""
-    if kind == "X":
-        raise NotImplementedError("cross-attention ('X') is not ported yet (ROADMAP A12)")
-    if kind not in ("A", "L"):
+    """Raise for what the mixers do not run: the attention layers' mesh
+    levers."""
+    if kind not in ("A", "L", "X"):
         raise ValueError(f"not an attention mixer: {kind!r}")
     for lever in ("attn_q_seq_shard", "decode_flash_shard"):
         if getattr(cfg, lever):
@@ -45,9 +47,10 @@ def _refuse(cfg: ModelConfig, kind: str) -> None:
 
 def init_attention(cfg: ModelConfig, kind: str, generator: torch.Generator,
                    alloc=None) -> dict:
-    """An "A" or "L" mixer's parameters (reference ``attention.py:28``):
-    ``wq`` (E, H, Dh), ``wk``/``wv`` (E, Kv, Dh), ``wo`` (H, Dh, E), zero
-    ``bq``/``bk``/``bv`` with ``qkv_bias``, unit ``q_norm``/``k_norm``
+    """An "A", "L" or "X" mixer's parameters (reference ``attention.py:28``):
+    ``wq`` (E, H, Dh), ``wk``/``wv`` (E, Kv, Dh) (an "X" layer's from the
+    image embeddings: (vision_dim, Kv, Dh), fan-in vision_dim), ``wo``
+    (H, Dh, E), zero ``bq``/``bk``/``bv`` with ``qkv_bias``, unit ``q_norm``/``k_norm``
     scales with ``qk_norm``; drawn from ``generator`` on its device, into
     leaves from ``alloc`` where given (``layers.new_leaf``)."""
     _refuse(cfg, kind)
@@ -55,8 +58,9 @@ def init_attention(cfg: ModelConfig, kind: str, generator: torch.Generator,
     dtype, dev = getattr(torch, cfg.dtype), generator.device
     draw = lambda shape, fan: dense_init(shape, generator=generator, dtype=dtype, fan_in=fan,
                                          alloc=alloc)
-    p = {"wq": draw((E, H, Dh), E), "wk": draw((E, Kv, Dh), E),
-         "wv": draw((E, Kv, Dh), E), "wo": draw((H, Dh, E), H * Dh)}
+    kv_in = cfg.vision_dim if kind == "X" else E
+    p = {"wq": draw((E, H, Dh), E), "wk": draw((kv_in, Kv, Dh), kv_in),
+         "wv": draw((kv_in, Kv, Dh), kv_in), "wo": draw((H, Dh, E), H * Dh)}
     if cfg.qkv_bias:
         for name, heads in (("bq", H), ("bk", Kv), ("bv", Kv)):
             p[name] = new_leaf(alloc, (heads, Dh), dtype, dev).zero_()
@@ -66,12 +70,13 @@ def init_attention(cfg: ModelConfig, kind: str, generator: torch.Generator,
     return p
 
 
-def _project_qkv(params: dict, x: Tensor, cfg: ModelConfig):
-    """(B, S, E) → q (B, S, H, Dh), k, v (B, S, Kv, Dh), with the biases
+def _project_qkv(params: dict, x: Tensor, kv_src: Tensor, cfg: ModelConfig):
+    """q from x (B, S, E), k and v from ``kv_src`` (B, Sk, E or
+    vision_dim) → q (B, S, H, Dh), k, v (B, Sk, Kv, Dh), with the biases
     and the q/k norms the config asks for (reference :49)."""
     q = torch.einsum("bse,ehd->bshd", x, params["wq"])
-    k = torch.einsum("bse,ehd->bshd", x, params["wk"])
-    v = torch.einsum("bse,ehd->bshd", x, params["wv"])
+    k = torch.einsum("bse,ehd->bshd", kv_src, params["wk"])
+    v = torch.einsum("bse,ehd->bshd", kv_src, params["wv"])
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     if cfg.qk_norm:
@@ -128,14 +133,25 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
 
 
 def attention_forward(params: dict, x: Tensor, cfg: ModelConfig, kind: str,
-                      positions: Tensor, *, use_flash: bool = False) -> Tensor:
-    """Training / prefill self-attention (reference :153). x (B, S, E),
-    positions (B or 1, S) → (B, S, E). Causal; an "L" layer sees its last
-    ``cfg.sliding_window`` positions. With ``use_flash`` the attention
-    goes through the flash wrapper (K3 on the card) unless the config
-    soft-caps its logits."""
+                      positions: Optional[Tensor], *, cross_kv: Optional[Tensor] = None,
+                      use_flash: bool = False) -> Tensor:
+    """Training / prefill attention (reference :153). x (B, S, E),
+    positions (B or 1, S) → (B, S, E). "A"/"L": causal self-attention; an
+    "L" layer sees its last ``cfg.sliding_window`` positions; with
+    ``use_flash`` the attention goes through the flash wrapper (K3 on the
+    card) unless the config soft-caps its logits. "X": attention over the
+    image embeddings ``cross_kv`` (B, num_patches, vision_dim), no rotary
+    positions, no mask, always the plain path (the reference passes no
+    ``use_flash`` there, so even S == num_patches stays off K3)."""
     _refuse(cfg, kind)
-    q, k, v = _project_qkv(params, x, cfg)
+    if kind == "X":
+        if cross_kv is None:
+            raise ValueError("a cross-attention ('X') layer needs cross_kv, the image "
+                             "embeddings (B, num_patches, vision_dim)")
+        q, k, v = _project_qkv(params, x, cross_kv, cfg)
+        out = attention(q, k, v, causal=False, window=None, softcap=cfg.attn_logit_softcap)
+        return torch.einsum("bshd,hde->bse", out, params["wo"])
+    q, k, v = _project_qkv(params, x, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if kind == "L" else None
@@ -145,14 +161,19 @@ def attention_forward(params: dict, x: Tensor, cfg: ModelConfig, kind: str,
 
 
 def attention_decode(params: dict, x: Tensor, cfg: ModelConfig, kind: str,
-                     cache: LayerKVCache, *, start_pos: Optional[Tensor] = None
-                     ) -> Tuple[Tensor, LayerKVCache]:
+                     cache: Optional[LayerKVCache], *, cross_kv: Optional[Tensor] = None,
+                     start_pos: Optional[Tensor] = None
+                     ) -> Tuple[Tensor, Optional[LayerKVCache]]:
     """Single-token decode over the ring-buffer cache (reference :192, its
     unsharded branch). x (B, 1, E) → ((B, 1, E), the cache, written in
     place). The token sits at position ``cache.length``; ``start_pos``
-    (B,) hides each lane's slots from before its own request."""
+    (B,) hides each lane's slots from before its own request. An "X"
+    layer is stateless: it recomputes the image K/V from ``cross_kv`` and
+    returns ``cache`` untouched."""
     _refuse(cfg, kind)
-    q, k_new, v_new = _project_qkv(params, x, cfg)
+    if kind == "X":
+        return attention_forward(params, x, cfg, kind, None, cross_kv=cross_kv), cache
+    q, k_new, v_new = _project_qkv(params, x, x, cfg)
     pos = cache.length.to(torch.int32).expand(x.shape[0], 1)
     q = rope(q, pos, cfg.rope_theta)
     k_new = rope(k_new, pos, cfg.rope_theta)

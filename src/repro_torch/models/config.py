@@ -11,9 +11,8 @@ Mixer kinds:  "A" global causal attention · "L" sliding-window attention
 MLP kinds:    "D" dense MLP · "E" mixture-of-experts · "N" none
 
 The fields and ``scaled_down`` equal the reference's, so a configuration
-built here describes the same model there. The port runs the "A", "L"
-and "M" mixers and the "N"/"D"/"E" MLPs (``models/transformer.py``);
-"X" is data only until its slice (ROADMAP A12).
+built here describes the same model there. The port runs every kind
+(``models/transformer.py``).
 """
 
 from __future__ import annotations

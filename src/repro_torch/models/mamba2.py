@@ -25,6 +25,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models.config import ModelConfig
@@ -167,10 +168,13 @@ def mamba_decode(params: dict, x: Tensor, cfg: ModelConfig,
     return out, MambaState(conv=conv_state, ssm=ssm)
 
 
-def init_mamba_decode_state(cfg: ModelConfig, batch: int, device="cpu") -> MambaState:
+def init_mamba_decode_state(cfg: ModelConfig, batch: int, device="cuda") -> MambaState:
+    """A zero decode state on ``device`` (the card unless the caller asks
+    for the CPU; raises without a card, as ``resolve_device`` does)."""
     mc = cfg.mamba
     E = cfg.d_model
     di = mc.d_inner(E)
     H, N, P = mc.num_heads(E), mc.d_state, mc.head_dim
     channels = di + 2 * mc.n_groups * N
-    return init_mamba_state(batch, mc.conv_width, channels, H, N, P, _dtype(cfg), device)
+    return init_mamba_state(batch, mc.conv_width, channels, H, N, P, _dtype(cfg),
+                            resolve_device(device))

@@ -9,14 +9,21 @@ takes each layer's weights as views. Decode threads per-layer state,
 stacked the same way: a ring-buffer KV cache for attention layers
 (written in place), a recurrent state for Mamba2 layers.
 
-Runs the global ("A") and sliding-window ("L") attention mixers and the
-"M" (Mamba2 SSD) mixer, the "N" (none), "D" (dense) and "E"
-(mixture-of-experts, ``models/moe.py``) MLPs, with an untied head.
-Cross-attention ("X") layers, codebook heads and tied embeddings raise
-``NotImplementedError``: they come with ROADMAP A12; the mesh levers
+Runs every layer kind of the reference: the global ("A"),
+sliding-window ("L") and cross-attention ("X", over image embeddings
+passed as ``cross_embeds``) mixers and the "M" (Mamba2 SSD) mixer, the
+"N" (none), "D" (dense) and "E" (mixture-of-experts, ``models/moe.py``)
+MLPs; one token stream or ``num_codebooks`` parallel ones (summed
+embeddings, a head a codebook: tokens (B, S, K), logits (B, S, K, V)),
+with an untied head or the embedding tied as the head. The mesh levers
 (``attn_q_seq_shard``, ``residual_seq_shard``, ``decode_flash_shard``)
-with A11. Parameters are a nested dict of tensors with the reference's
-keys and layouts; ``params_from_jax`` copies a reference tree into one.
+raise ``NotImplementedError``: they come with ROADMAP A11. Parameters
+are a nested dict of tensors with the reference's keys and layouts
+(a tied model has no ``lm_head``); ``params_from_jax`` copies a
+reference tree into one. ``forward(remat=)`` recomputes each layer's
+activations in the backward pass ("full") or all but its products
+without batch dimensions ("dots"), the reference's ``jax.checkpoint``
+policies.
 ``init_model`` allocates each stacked leaf once and draws every layer
 into its view, so building a model takes its weights' memory and no
 more (deepseek-moe-16b's 62.9 GiB on an 80 GB card).
@@ -25,9 +32,11 @@ more (deepseek-moe-16b's 62.9 GiB on an 80 GB card).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import attention_decode, attention_forward, init_attention
@@ -46,18 +55,13 @@ from repro_torch.models.moe import apply_moe, init_moe
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
-_NOT_PORTED = "layer kind {!r} is not ported yet (cross-attention layers come with ROADMAP A12)"
-
-
-def _check_ported(cfg: ModelConfig) -> None:
+def _check_config(cfg: ModelConfig) -> None:
     for mix in cfg.mixer_pattern:
-        if mix not in ("A", "L", "M"):
-            raise NotImplementedError(_NOT_PORTED.format(mix))
+        if mix not in ("A", "L", "X", "M"):
+            raise ValueError(f"unknown mixer kind {mix!r}")
     for mlp in cfg.mlp_pattern:
         if mlp not in ("N", "D", "E"):
-            raise NotImplementedError(_NOT_PORTED.format(mlp))
-    if cfg.num_codebooks > 1 or cfg.tie_embeddings:
-        raise NotImplementedError("codebook heads and tied embeddings come with ROADMAP A12")
+            raise ValueError(f"unknown mlp kind {mlp!r}")
     if cfg.residual_seq_shard:  # the attention levers: models.attention._refuse
         raise NotImplementedError("residual_seq_shard is a mesh lever; the LM under a mesh "
                                   "comes with ROADMAP A11")
@@ -160,19 +164,25 @@ def _init_stacked(cfg: ModelConfig, pos: int, generator: torch.Generator) -> Par
 def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
     """Fresh parameters, drawn from a ``torch.Generator`` seeded ``seed``
     on ``device`` (the card unless the caller asks for the CPU): the
-    embedding, each pattern position's layers in turn (``_init_stacked``),
-    the head."""
-    _check_ported(cfg)
+    embedding ((V, E), or (K, V, E) with K codebooks), each pattern
+    position's layers in turn (``_init_stacked``), the head ((E, V) or
+    (K, E, V); none when the embedding is tied as the head)."""
+    _check_config(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
+    K = cfg.num_codebooks
+    lead = (K,) if K > 1 else ()
     params: Params = {
-        "embed": dense_init((cfg.vocab_size, cfg.d_model), generator=g, dtype=dtype,
+        "embed": dense_init((*lead, cfg.vocab_size, cfg.d_model), generator=g, dtype=dtype,
                             fan_in=cfg.d_model),
         "blocks": {f"p{i}": _init_stacked(cfg, i, g) for i in range(len(cfg.mixer_pattern))},
         "final_norm": init_norm(cfg.d_model, cfg.norm_type, dtype, dev),
-        "lm_head": dense_init((cfg.d_model, cfg.vocab_size), generator=g, dtype=dtype),
     }
+    if not cfg.tie_embeddings:
+        # fan-in shape[0], as the reference: K for the codebook heads
+        params["lm_head"] = dense_init((*lead, cfg.d_model, cfg.vocab_size), generator=g,
+                                       dtype=dtype)
     return params
 
 
@@ -180,7 +190,8 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device="cpu") -> 
     """The reference's ``init_model`` tree (nested dicts of numpy arrays
     or tensors, the blocks stacked on their repeat axis) → the port's
     parameters on ``device`` holding the same values. Keys and shapes
-    must be those of the port's ``init_model(cfg)``; each leaf keeps the
+    must be those of the port's ``init_model(cfg)`` (so a tied tree given
+    to an untied config, or the reverse, raises); each leaf keeps the
     config's dtype."""
     params = init_model(cfg, device=device)
     with torch.no_grad():
@@ -207,10 +218,27 @@ def _copy_tree(dst, src, path: str) -> None:
 # --------------------------------------------------------------------------
 
 def embed_tokens(params: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    return params["embed"][tokens.long()]
+    """tokens (B, S) → (B, S, E); with K codebooks tokens (B, S, K) → the
+    sum of the K codebooks' embeddings, added in order k = 0..K−1
+    (reference :105)."""
+    tokens = tokens.long()
+    if cfg.num_codebooks > 1:
+        x = params["embed"][0][tokens[..., 0]]
+        for k in range(1, cfg.num_codebooks):
+            x = x + params["embed"][k][tokens[..., k]]
+        return x
+    return params["embed"][tokens]
 
 
 def lm_logits(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """x (B, S, E) → logits (B, S, V), or (B, S, K, V) with K codebooks;
+    through the embedding when it is tied as the head (reference :116)."""
+    if cfg.tie_embeddings:
+        if cfg.num_codebooks > 1:
+            return torch.einsum("bse,kve->bskv", x, params["embed"])
+        return torch.einsum("bse,ve->bsv", x, params["embed"])
+    if cfg.num_codebooks > 1:
+        return torch.einsum("bse,kev->bskv", x, params["lm_head"])
     return x @ params["lm_head"]
 
 
@@ -221,6 +249,15 @@ def lm_logits(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
 def _layer(tree, r: int):
     """Layer r's weights: views into the stacked tensors."""
     return _map(lambda a: a[r], tree)
+
+
+def _layers(tree, repeats: int) -> list:
+    """Every layer's weights, views through one ``unbind`` a stacked leaf:
+    under autograd a leaf's gradient is then one stack of its layers'
+    gradients, where a view a layer (``_layer``) would add a zero-padded
+    full-size gradient for each layer."""
+    unbound = _map(lambda a: a.unbind(0), tree)
+    return [_map(lambda u: u[r], unbound) for r in range(repeats)]
 
 
 def _mlp_residual(bp: Params, x: Tensor, cfg: ModelConfig, pos: int,
@@ -239,22 +276,58 @@ def _mlp_residual(bp: Params, x: Tensor, cfg: ModelConfig, pos: int,
 
 
 def _block_forward(bp: Params, x: Tensor, cfg: ModelConfig, pos: int, positions: Tensor,
-                   use_kernel_ssd: bool, use_flash: bool, moe_routing: Optional[list]):
+                   cross_embeds: Optional[Tensor], use_kernel_ssd: bool, use_flash: bool,
+                   moe_routing: Optional[list]):
     mix = cfg.mixer_pattern[pos]
     h = apply_norm(x, cfg.norm_type, bp["norm1"])
     if mix == "M":
         x = x + mamba_forward(bp["mixer"], h, cfg, use_kernel=use_kernel_ssd)
     else:
-        x = x + attention_forward(bp["mixer"], h, cfg, mix, positions, use_flash=use_flash)
+        x = x + attention_forward(bp["mixer"], h, cfg, mix, positions,
+                                  cross_kv=cross_embeds if mix == "X" else None,
+                                  use_flash=use_flash)
     return _mlp_residual(bp, x, cfg, pos, moe_routing)
 
 
+def _save_unbatched_products(ctx, op, *args, **kwargs):
+    """``remat="dots"``'s policy, the reference's
+    ``checkpoint_dots_with_no_batch_dims``: keep the outputs of products
+    without batch dimensions (``mm``, ``addmm``, and ``bmm`` over a batch
+    of 1, which is how ``torch.einsum`` runs the projections), recompute
+    the rest (the attention's per-head products, the experts', norms,
+    activations)."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn`` run under ``torch.utils.checkpoint`` as ``remat`` asks:
+    "none" as it is, "full" keeping only its inputs, "dots" keeping the
+    unbatched products' outputs too."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        ctx = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                _save_unbatched_products)
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False, context_fn=ctx)
+    raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
+
+
 def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
+            cross_embeds: Optional[Tensor] = None,
             use_kernel_ssd: bool = True, use_flash: bool = True,
-            last_logits_only: bool = False,
+            remat: str = "none", last_logits_only: bool = False,
             moe_routing: Optional[list] = None) -> Tuple[Tensor, Tensor]:
-    """tokens (B, S) → (logits (B, S or 1, V), the "E" layers' aux loss
-    summed over the layers in order, fp32; 0 without "E" layers).
+    """tokens (B, S) or, with K codebooks, (B, S, K) → (logits (B, S or 1,
+    V) or (B, S or 1, K, V), the "E" layers' aux loss summed over the
+    layers in order, fp32; 0 without "E" layers). ``cross_embeds`` (B,
+    num_patches, vision_dim) are the image embeddings every "X" layer
+    attends to (the reference's stubbed vision tower).
 
     ``use_kernel_ssd`` (the default) routes every Mamba2 layer's scan
     through ``kernels.ssd.ops`` (K7 on the card), ``False`` through the
@@ -263,16 +336,27 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
     on the card; windowed on "L" layers), ``False`` through the plain
     ``_ref_attention``. Positions are ``arange(S)``. ``last_logits_only``
     applies the head to the last position only, as a serving prefill
-    needs. ``moe_routing`` (tests and the smoke only) collects every "E"
-    layer's routing decisions in layer order (``moe.apply_moe``)."""
-    _check_ported(cfg)
+    needs. ``remat`` ("none", "full", "dots") checkpoints each layer for
+    training (``_remat``). ``moe_routing`` (tests and the smoke only)
+    collects every "E" layer's routing decisions in layer order
+    (``moe.apply_moe``)."""
+    _check_config(cfg)
+    if "X" in cfg.mixer_pattern and cross_embeds is None:
+        raise ValueError(f"{cfg.name} has cross-attention layers: pass cross_embeds "
+                         f"(B, {cfg.num_patches}, {cfg.vision_dim})")
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks = [_layers(params["blocks"][f"p{i}"], cfg.num_repeats)
+              for i in range(len(cfg.mixer_pattern))]
     for r in range(cfg.num_repeats):
         for i in range(len(cfg.mixer_pattern)):
-            x, a = _block_forward(_layer(params["blocks"][f"p{i}"], r), x, cfg, i, positions,
-                                  use_kernel_ssd, use_flash, moe_routing)
+            layer = functools.partial(_block_forward, blocks[i][r],
+                                      cfg=cfg, pos=i, positions=positions,
+                                      cross_embeds=cross_embeds,
+                                      use_kernel_ssd=use_kernel_ssd, use_flash=use_flash,
+                                      moe_routing=moe_routing)
+            x, a = _remat(layer, remat)(x)
             if a is not None:
                 aux = aux + a
     if last_logits_only:
@@ -286,15 +370,21 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
 # --------------------------------------------------------------------------
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
-                      device="cpu") -> Dict[str, Any]:
-    """Per-pattern-position decode state, stacked over repeats: an "A"
+                      device="cuda") -> Dict[str, Any]:
+    """Per-pattern-position decode state, stacked over repeats, on
+    ``device`` (the card unless the caller asks for the CPU): an "A"
     layer's KV cache holds ``cache_len`` tokens, an "L" layer's
     ``min(cache_len, sliding_window)`` (a ring buffer of its window); a
-    Mamba2 state does not grow with the sequence."""
-    _check_ported(cfg)
+    Mamba2 state does not grow with the sequence; an "X" layer has none
+    (``{}``: it recomputes the image K/V each step)."""
+    _check_config(cfg)
+    device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     state = {}
     for i, mix in enumerate(cfg.mixer_pattern):
+        if mix == "X":
+            state[f"p{i}"] = {}
+            continue
         if mix == "M":
             one = init_mamba_decode_state(cfg, batch, device)
         else:
@@ -305,9 +395,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: ModelConfig, *,
-                start_pos: Optional[Tensor] = None,
+                cross_embeds: Optional[Tensor] = None, start_pos: Optional[Tensor] = None,
                 moe_routing: Optional[list] = None) -> Tuple[Tensor, Dict[str, Any]]:
-    """One decode step. tokens (B, 1) → (logits (B, 1, V), state').
+    """One decode step. tokens (B, 1) or (B, 1, K) → (logits (B, 1, V) or
+    (B, 1, K, V), state'). ``cross_embeds`` as in ``forward``.
 
     The attention layers' caches are written in place (state' holds the
     same cache tensors), the Mamba2 states are new tensors: pass each
@@ -317,7 +408,7 @@ def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: Mode
     group, so every lane (a free batcher slot too) takes capacity, and
     its aux loss is discarded, as in the reference; ``moe_routing`` as in
     ``forward``."""
-    _check_ported(cfg)
+    _check_config(cfg)
     x = embed_tokens(params, tokens, cfg)
     new = {f"p{i}": [] for i in range(len(cfg.mixer_pattern))}
     for r in range(cfg.num_repeats):
@@ -328,6 +419,8 @@ def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: Mode
             if mix == "M":
                 y, s_new = mamba_decode(bp["mixer"], h, cfg, st)
                 new[f"p{i}"].append(s_new)
+            elif mix == "X":  # stateless
+                y, _ = attention_decode(bp["mixer"], h, cfg, mix, None, cross_kv=cross_embeds)
             else:  # the views write into the stacked cache
                 y, _ = attention_decode(bp["mixer"], h, cfg, mix, st, start_pos=start_pos)
             x, _ = _mlp_residual(bp, x + y, cfg, i, moe_routing)  # aux discarded

@@ -8,10 +8,15 @@ clip scale is min(1, clip / max(‖g‖, 1e-9)) (``clip_grad_norm_`` uses
 clip / (‖g‖ + 1e-6)). The moments are fp32 whatever the parameters'
 dtype, and the step counter is a Python int.
 
-``update`` writes the new values into ``params`` in place (an
-``nn.Module``'s parameters stay the same objects, so autograd and the
-module keep seeing them) and returns ``(params, new_state)``, the
-reference's pair.
+``update`` writes the new values into ``params`` and the moments into
+the state's ``mu``/``nu`` in place (an ``nn.Module``'s parameters stay
+the same objects, so autograd and the module keep seeing them; the state
+passed in is spent) and returns ``(params, new_state)``, the reference's
+pair. It goes leaf by leaf and through a large leaf ``CHUNK`` elements
+at a time (elementwise arithmetic, so the same bits), so the update holds
+two chunks' temporaries beside the parameters, gradients and moments: a
+language model's optimizer step takes no second copy of any of them, and
+a training step's peak memory is its activations', not the optimizer's.
 """
 
 from __future__ import annotations
@@ -24,6 +29,14 @@ import torch
 from repro_torch.optim.tree import leaves, tree_map
 
 Tensor = torch.Tensor
+
+#: elements a pass of ``update`` and ``global_norm`` takes of a leaf
+CHUNK = 1 << 24
+
+
+def _chunks(t: Tensor):
+    """``t``'s elements as views of at most CHUNK (t contiguous), else t."""
+    return t.view(-1).split(CHUNK) if t.is_contiguous() else (t,)
 
 
 class AdamWState(NamedTuple):
@@ -53,32 +66,49 @@ class AdamW:
     def update(self, grads, state: AdamWState, params) -> Tuple[Any, AdamWState]:
         step = state.step + 1
         with torch.no_grad():
+            scale = None
             if self.clip_norm is not None:
                 gnorm = global_norm(grads)
                 scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-                grads = tree_map(lambda g: g * scale, grads)
             b1, b2 = self.b1, self.b2
-            mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(torch.float32),
-                          state.mu, grads)
-            nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.to(torch.float32)),
-                          state.nu, grads)
-            s = torch.full((), step, dtype=torch.float32, device=leaves(mu)[0].device)
+            mu, nu = leaves(state.mu), leaves(state.nu)
+            s = torch.full((), step, dtype=torch.float32, device=mu[0].device)
             bc1 = 1 - b1 ** s
             bc2 = 1 - b2 ** s
             lr = self._lr(s)
+            for p, g, m, v in zip(leaves(params), leaves(grads), mu, nu, strict=True):
+                if p.is_contiguous():  # m and v are: init made them
+                    parts = zip(_chunks(p), g.reshape(-1).split(CHUNK), _chunks(m), _chunks(v))
+                else:
+                    parts = [(p, g, m, v)]
+                for pc, gc, mc, vc in parts:
+                    self._update_chunk(pc, gc, mc, vc, scale, bc1, bc2, lr)
+        return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
 
-            def upd(p, m, v):
-                u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-                u = u + self.weight_decay * p.to(torch.float32)
-                p.copy_((p.to(torch.float32) - lr * u).to(p.dtype))
-
-            tree_map(upd, params, mu, nu)
-        return params, AdamWState(step=step, mu=mu, nu=nu)
+    def _update_chunk(self, p, g, m, v, scale, bc1, bc2, lr) -> None:
+        """One chunk in place, with two temporaries; each product and sum
+        rounded once as in the reference's expressions."""
+        gs = g * scale if scale is not None else g.clone()
+        gs = gs.to(torch.float32)
+        t = gs * (1 - self.b1)
+        m.mul_(self.b1).add_(t)
+        torch.mul(gs, gs, out=t).mul_(1 - self.b2)
+        v.mul_(self.b2).add_(t)
+        torch.div(v, bc2, out=t).sqrt_().add_(self.eps)
+        u = torch.div(m, bc1, out=gs).div_(t)
+        pf = p if p.dtype == torch.float32 else p.to(torch.float32)
+        u.add_(torch.mul(pf, self.weight_decay, out=t)).mul_(lr)
+        if pf is p:
+            p.sub_(u)
+        else:
+            p.copy_((pf - u).to(p.dtype))
 
 
 def global_norm(tree) -> Tensor:
-    """sqrt of the sum over leaves of Σ x² (fp32), leaves added in order."""
+    """sqrt of the sum over leaves of Σ x² (fp32), leaves (and a large
+    leaf's chunks) added in order."""
     total = 0
     for x in leaves(tree):
-        total = total + torch.sum(torch.square(x.to(torch.float32)))
+        for c in _chunks(x):
+            total = total + torch.sum(torch.square(c.to(torch.float32)))
     return torch.sqrt(total)

@@ -6,7 +6,7 @@ collectives of data-parallel adaptive sampling over ``torch.distributed``.
 rank owns; ``collectives.py`` holds the O(B) error combine, the O(1)
 loop-control reduction and the row gather. The reference's
 ``pipeline.py`` and its tensor-parallel rules are not ported yet
-(ROADMAP A11, A12).
+(ROADMAP A11).
 """
 
 from repro_torch.parallel.mesh import Mesh, init_mesh

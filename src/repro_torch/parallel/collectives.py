@@ -5,7 +5,7 @@ to XLA.
 
 Every collective runs over a group of the port's ``Mesh``
 (``torch.distributed``: NCCL on the card, gloo on the CPU).
-``flash_decode`` waits for the attention LM (ROADMAP A12).
+``flash_decode`` waits for the LM under a mesh (ROADMAP A11).
 """
 
 from __future__ import annotations

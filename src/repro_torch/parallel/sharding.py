@@ -14,7 +14,7 @@ puts them.
 Not ported yet, each with the slice that needs it (ROADMAP): the
 per-slot key leaf and the telemetry ring of ``solver_carry_shardings``
 (A7, A9); ``param_shardings``, ``kv_cache_spec``/``kv_cache_sharding``
-and ``serving_loop_shardings`` (A12, A7).
+and ``serving_loop_shardings`` (A11, A7).
 """
 
 from __future__ import annotations

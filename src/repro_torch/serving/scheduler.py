@@ -17,7 +17,8 @@ at once. Slots share one KV cache whose positions advance in lockstep;
 a slot sees only the positions from its request's start on
 (``start_pos``), so nothing leaks through attention. It refuses Mamba2
 ("M") mixers, whose state cannot be masked after the fact, and codebook
-heads, as the reference does. It serves mixture-of-experts ("E")
+heads, as the reference does, and cross-attention ("X") mixers, since
+the reference's batcher passes no image embeddings. It serves mixture-of-experts ("E")
 models, whose requests are not isolated: a decode step routes the slots'
 tokens as one group with a shared expert capacity, so a request's tokens
 depend on its seatmates, as in the reference; free slots feed token 0
@@ -226,6 +227,10 @@ class ContinuousBatcher:
                  cache_len: int = 256, device="cuda"):
         if cfg.num_codebooks != 1:
             raise ValueError("the scheduler serves one-codebook language models")
+        if "X" in cfg.mixer_pattern:
+            raise ValueError("the scheduler passes no image embeddings, so it does not serve "
+                             "cross-attention ('X') models; serve them with "
+                             "launch.serve.serve_batch(cross_embeds=)")
         if any(m == "M" for m in cfg.mixer_pattern):
             raise ValueError("continuous batching isolates slots by masking KV positions; "
                              "SSM state cannot be masked after the fact, so serve SSM "

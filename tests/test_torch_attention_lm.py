@@ -204,7 +204,7 @@ def test_decode_step_matches_reference(arch):
     jcfg, cfg, jparams, params = arch
     toks = _prompts(cfg.vocab_size, 3, 24, seed=2)
     jstate = jtr.init_decode_state(jcfg, 3, 32)
-    state = tr.init_decode_state(cfg, 3, 32)
+    state = tr.init_decode_state(cfg, 3, 32, device="cpu")
     for i in range(toks.shape[1]):
         want, jstate = jdecode(jparams, jnp.asarray(toks[:, i:i + 1]), jstate, jcfg)
         got, state = tr.decode_step(params, torch.from_numpy(toks[:, i:i + 1]), state, cfg)
@@ -221,7 +221,7 @@ def test_decode_matches_forward_in_port(arch):
     _, cfg, _, params = arch
     toks = torch.from_numpy(_prompts(cfg.vocab_size, 2, 20, seed=3))
     full, _ = tr.forward(params, toks, cfg)
-    state = tr.init_decode_state(cfg, 2, 20)
+    state = tr.init_decode_state(cfg, 2, 20, device="cpu")
     outs = []
     for i in range(20):
         lg, state = tr.decode_step(params, toks[:, i:i + 1], state, cfg)
@@ -266,7 +266,7 @@ def test_ring_buffer_past_the_window():
     got = serve.serve_batch(cfg, params, torch.from_numpy(prompts), gen_len=20, cache_len=40,
                             device="cpu")
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    state = tr.init_decode_state(cfg, 2, 40)
+    state = tr.init_decode_state(cfg, 2, 40, device="cpu")
     assert state["p0"].k.shape[2] == 16 and state["p5"].k.shape[2] == 40
 
 
@@ -304,7 +304,8 @@ def test_mesh_levers_and_cross_attention_raise():
             tr.init_model(cfg.replace(**{lever: "model"}), device="cpu")
     p = att.init_attention(cfg, "A", torch.Generator().manual_seed(0))
     x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    # a cross-attention layer without its image embeddings raises
+    with pytest.raises(ValueError, match="cross_kv"):
         att.attention_forward(p, x, cfg, "X", torch.arange(4)[None])
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         att.attention_forward(p, x, cfg.replace(attn_q_seq_shard="model"), "A",

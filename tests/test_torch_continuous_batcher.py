@@ -108,7 +108,7 @@ def test_batcher_with_eos_matches_reference(tiny):
 
 def _decode_alone(cfg, params, prompt, n_new):
     """Single-sequence greedy decode, as the reference's test does it."""
-    state = init_decode_state(cfg, 1, 64)
+    state = init_decode_state(cfg, 1, 64, device="cpu")
     tok = None
     for t in prompt:
         logits, state = decode_step(params, torch.tensor([[t]], dtype=torch.int32), state, cfg)

@@ -33,6 +33,11 @@ sums combined within 1e-6 of K1's e2 (the same tile sums in another
 grouping); batch-only e2 bitwise equal to K1's. "One CUDA kernel a call"
 reads the kernel nodes of a CUDA graph that captured the calls (the
 driver API), not a torch.profiler trace, which can lose records.
+A scaled-down musicgen-medium train step on the card against the same
+step on the CPU: the loss within 1e-5 relative, each leaf's update
+within 2e-4·(1 + max|update|), or 2·lr where the clipped gradient is
+within 1e3·ε of 0 (AdamW's first step turns a last-bit gradient
+difference there into an update difference of up to lr).
 """
 
 import dataclasses
@@ -333,6 +338,65 @@ def test_flash_attention_head_dim_128(cuda):
     want = flash_ref.attention(q, k, v, causal=True)
     torch.testing.assert_close(out, want, **A_TOL[torch.float32])
     assert torch.equal(flash_ops.attention(q, k, v, causal=True), out)
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 8, 512, 128), (2, 24, 24, 300, 64)],
+                         ids=["llama_gqa8", "musicgen_ragged"])
+def test_flash_attention_new_lm_shapes(cuda, shape):
+    """llama-3.2-vision-90b's "A" layers (GQA 64:8, a group of 8) and
+    musicgen-medium's (MHA 24 heads at head_dim 64, a ragged S), causal,
+    fp32, at a short S: within the bound of the plain version, the same
+    bits on a second call."""
+    B, Hq, Hkv, S, D = shape
+    q, k, v = _qkv_on(cuda, B, Hq, Hkv, S, D, torch.float32, seed=9)
+    out = flash_ops.attention(q, k, v, causal=True)
+    want = flash_ref.attention(q, k, v, causal=True)
+    torch.testing.assert_close(out, want, **A_TOL[torch.float32])
+    assert torch.equal(flash_ops.attention(q, k, v, causal=True), out)
+
+
+def test_musicgen_train_step_on_card_matches_cpu(cuda):
+    """One scaled-down musicgen-medium train step (4 codebooks, the delay
+    pattern, plain attention under grad) on the card against the same step
+    on the CPU: the loss within 1e-5 relative, each updated leaf within
+    2e-4·(1 + max|update|) of the CPU's, or 2·lr where the CPU's clipped
+    gradient is within 1e3·ε of 0 (AdamW's first step moves such an element by up
+    to lr on a last-bit difference)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipelineConfig, synth_batch
+    from repro_torch.launch.steps import make_loss_fn, make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import _map
+    from repro_torch.optim import AdamW, global_norm
+
+    cfg = get_config("musicgen-medium").scaled_down()
+    toks = synth_batch(TokenPipelineConfig(cfg.vocab_size, 32, 2, num_codebooks=4), 0)
+    lr = 1e-3
+    fresh = init_model(cfg, 0, device="cpu")
+    flat = []
+    _map(lambda a: flat.append(a.requires_grad_(True)), fresh)
+    loss, _, _ = make_loss_fn(cfg)(fresh, {"tokens": toks})
+    grads = torch.autograd.grad(loss, flat)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        params = _map(lambda a: a.to(dev), init_model(cfg, 0, device="cpu"))
+        old = []
+        _map(lambda a: old.append(a.detach().cpu().clone()), params)
+        opt = AdamW(lr=lr)
+        params, _, m = make_train_step(cfg, opt, device=dev)(params, opt.init(params),
+                                                             {"tokens": toks})
+        new = []
+        _map(lambda a: new.append(a.detach().cpu()), params)
+        out[dev.type] = (float(m["loss"]), [n - o for n, o in zip(new, old)])
+    (loss_c, upd_c), (loss_g, upd_g) = out["cpu"], out[cuda.type]
+    assert loss_c == float(loss.detach())
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    clip = min(1.0, 1.0 / max(float(global_norm(list(grads))), 1e-9))
+    for a, b, g in zip(upd_g, upd_c, grads):
+        err = (a - b).abs()
+        sharp = g.abs() * clip > 1e3 * 1e-8
+        assert (err[sharp] <= 2e-4 * (1 + b.abs().max())).all()
+        assert (err <= 2 * lr).all()
 
 
 def test_apply_moe_on_card_matches_cpu(cuda):

@@ -87,7 +87,7 @@ def test_decode_matches_reference(name):
     """Token by token from the zero state: outputs and both states."""
     jcfg, tcfg, jparams, params, x = _setup(name, seed=2, S=6)
     jstate = jm.init_mamba_decode_state(jcfg, 2)
-    state = tm.init_mamba_decode_state(tcfg, 2)
+    state = tm.init_mamba_decode_state(tcfg, 2, device="cpu")
     assert tuple(state.conv.shape) == jstate.conv.shape
     assert tuple(state.ssm.shape) == jstate.ssm.shape and state.ssm.dtype == torch.float32
     for i in range(x.shape[1]):
@@ -105,7 +105,7 @@ def test_decode_matches_forward(name):
     _, tcfg, _, params, x = _setup(name, seed=3)
     xt = torch.from_numpy(x)
     y_full = tm.mamba_forward(params, xt, tcfg, use_kernel=True)
-    state = tm.init_mamba_decode_state(tcfg, 2)
+    state = tm.init_mamba_decode_state(tcfg, 2, device="cpu")
     ys = []
     for i in range(x.shape[1]):
         y, state = tm.mamba_decode(params, xt[:, i:i + 1], tcfg, state)
@@ -157,7 +157,7 @@ def test_softplus_matches_jax_past_torch_threshold():
 
 def test_decode_state_dtypes():
     _, tcfg = _cfgs("ref_test")
-    st = tm.init_mamba_decode_state(tcfg.replace(dtype="bfloat16"), 3)
+    st = tm.init_mamba_decode_state(tcfg.replace(dtype="bfloat16"), 3, device="cpu")
     assert isinstance(st, MambaState)
     assert st.conv.dtype == torch.bfloat16 and st.ssm.dtype == torch.float32
     assert tuple(st.conv.shape) == (3, 3, 64 + 2 * 16) and tuple(st.ssm.shape) == (3, 4, 16, 16)

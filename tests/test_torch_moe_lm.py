@@ -40,6 +40,9 @@ AUX_TOL = 1e-6
 ARCHS = ("deepseek-moe-16b", "granite-moe-3b-a800m", "jamba-v0.1-52b")
 #: the architectures the port ran before its mixture-of-experts slice
 EARLIER = ("gemma3-12b", "mamba2-2.7b", "olmo-1b", "qwen1.5-0.5b", "qwen3-14b")
+#: the cross-attention and codebook architectures, ported after it, and a
+#: tied codebook variant: the in-place build holds their seeded weights too
+LATER = ("llama-3.2-vision-90b", "musicgen-medium", "musicgen-medium+tied")
 
 jforward = jax.jit(jtr.forward, static_argnames=("cfg", "last_logits_only"))
 jdecode = jax.jit(jtr.decode_step, static_argnames="cfg")
@@ -97,7 +100,7 @@ def test_decode_steps_match_reference(arch):
     jcfg, cfg, jparams, params = arch
     toks = _prompts(cfg.vocab_size, 3, 6, seed=2)
     jstate = jtr.init_decode_state(jcfg, 3, 8)
-    state = tr.init_decode_state(cfg, 3, 8)
+    state = tr.init_decode_state(cfg, 3, 8, device="cpu")
     for i in range(toks.shape[1]):
         want, jstate = jdecode(jparams, jnp.asarray(toks[:, i:i + 1]), jstate, jcfg)
         rec = []
@@ -175,23 +178,30 @@ def _stacked_build(cfg, seed=0):
 
     g = torch.Generator().manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
-    embed = dense((cfg.vocab_size, cfg.d_model), g, dtype, cfg.d_model)
+    lead = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    embed = dense((*lead, cfg.vocab_size, cfg.d_model), g, dtype, cfg.d_model)
     blocks = {}
     for i in range(len(cfg.mixer_pattern)):
         layers_i = [tr._init_block_position(cfg, i, g) for _ in range(cfg.num_repeats)]
         blocks[f"p{i}"] = tr._stack(layers_i)
-    return {"embed": embed, "blocks": blocks,
-            "final_norm": layers.init_norm(cfg.d_model, cfg.norm_type, dtype),
-            "lm_head": dense((cfg.d_model, cfg.vocab_size), g, dtype)}
+    out = {"embed": embed, "blocks": blocks,
+           "final_norm": layers.init_norm(cfg.d_model, cfg.norm_type, dtype)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = dense((*lead, cfg.d_model, cfg.vocab_size), g, dtype)
+    return out
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", EARLIER)
+@pytest.mark.parametrize("name", EARLIER + LATER)
 def test_init_in_place_keeps_seeded_weights(name, dtype):
     """Three pattern repeats (a real stack), in fp32 and in bf16: the
-    same leaves, dtypes and bits as the former build."""
+    same leaves, dtypes and bits as the former build (for the later
+    architectures, as that build would have drawn them: the codebook
+    embedding and heads, no head when tied)."""
+    name, _, tied = name.partition("+")
     base = configs.get_config(name).scaled_down()
-    cfg = base.replace(num_layers=3 * len(base.mixer_pattern), dtype=dtype)
+    cfg = base.replace(num_layers=3 * len(base.mixer_pattern), dtype=dtype,
+                       tie_embeddings=bool(tied))
     got, want = [], []
     tr._map(got.append, tr.init_model(cfg, 7, device="cpu"))
     tr._map(want.append, _stacked_build(cfg, 7))

@@ -148,3 +148,33 @@ def test_ema_converges_to_constant():
     for _ in range(2000):
         ema = topt.ema_update(ema, target, decay=0.99)
     np.testing.assert_allclose(ema["w"].numpy(), 1.0, atol=1e-5)
+
+
+def test_update_in_chunks_gives_the_same_bits(monkeypatch):
+    """A leaf larger than ``CHUNK`` is updated a chunk at a time (the
+    moments in place): the same parameters and moments as in one pass
+    (elementwise arithmetic either way; no clipping, whose norm sums the
+    chunks in another grouping); a non-contiguous leaf takes one pass.
+    The chunked global norm within 1e-6 relative of the one-pass norm."""
+    from repro_torch.optim import adamw
+
+    shapes = {"big": (7, 11), "small": (3,), "t": (6, 5)}
+
+    def run():
+        params = {k: torch.randn(s, generator=torch.Generator().manual_seed(1))
+                  for k, s in shapes.items()}
+        params["t"] = params["t"].T  # non-contiguous
+        opt = topt.AdamW(lr=topt.warmup_cosine(1e-2, 2, 10), clip_norm=None)
+        state = opt.init(params)
+        for step in range(3):
+            grads = {k: torch.randn(p.shape, generator=torch.Generator().manual_seed(step))
+                     for k, p in params.items()}
+            params, state = opt.update(grads, state, params)
+        return params, state, topt.global_norm(params)
+
+    want = run()
+    monkeypatch.setattr(adamw, "CHUNK", 10)
+    got = run()
+    for a, b in ((got[0], want[0]), (got[1].mu, want[1].mu), (got[1].nu, want[1].nu)):
+        assert all(torch.equal(a[k], b[k]) for k in shapes)
+    assert abs(float(got[2]) - float(want[2])) <= 1e-6 * float(want[2])
