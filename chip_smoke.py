@@ -14,7 +14,8 @@ Phases; any failure exits non-zero before the result line is printed:
              loop's (32, 4, 4, 8, 32), GQA with a causal window, a
              ragged S = 75 with true_len 50, D = 256, gemma3-12b's prefill
              shapes (1, 16, 4096, 256) over (1, 8, 4096, 256) causal with
-             window 1024 ("L") and causal ("A"), the MoE LMs' causal
+             window 1024 ("L") and causal ("A"), fp32 and bf16 (phase 9d),
+             the MoE LMs' causal
              prefill shapes (phase 7d), llama-3.2-vision-90b's (1, 64, 8,
              4096, 128) and musicgen-medium's (4, 24, 24, 1500, 64) causal
              (phase 7e), each the same bits
@@ -46,7 +47,11 @@ Phases; any failure exits non-zero before the result line is printed:
              picks: against the plain version, y and the final state
              against the sequential oracle, bitwise equal on a second
              call; y and the final state against the oracle at a small
-             shape, and bf16 at two shapes); K1 at the tables' states
+             shape, and bf16 at three shapes, mamba2-2.7b's prefill shape
+             among them (phase 9e), each the same bits twice); K1 at
+             HIGHRES_DIT's state (8, 196,608) with bf16 state (phase 9),
+             against the plain version, the same bits twice, and off 16
+             bytes bitwise the aligned call; K1 at the tables' states
              (4096, 2) and (2048, 2) and the trained DIT_100M's (8, 3072),
              and in fp32 at the zoo's and planning service's states (the
              selection race's (512, 8), the served closed loop's (16, 768),
@@ -324,6 +329,34 @@ Phases; any failure exits non-zero before the result line is printed:
              (8, 98,304) feature half, one NCCL all_reduce of 9 floats,
              and the sharded solve's wall times against the unsharded
              solve's, warm and in turns, and against phase 3's.
+9. precision — the precision seams in bf16 at full width, after the LM
+             phases have freed their memory (< 1 GiB held at its start and
+             before each LM): (a) HIGHRES_DIT, batch 8, phase 3's seeded
+             weights, through ``launch.sample.run`` under ``bf16`` and
+             ``bf16_full``: finite, delivered in fp32, mean NFE ≤ 1.25×
+             phase 3's, K1 8·⌈iterations/8⌉ (bf16 state under
+             ``bf16_full``) and K3 12 a forward, TF32 off, the carry's x, t,
+             h dtypes; a forward's device time under each preset and fp32;
+             (b) the reference's analytic precision gate on the port's RNG
+             (VP, VE × both presets: W2 ≤ 2 × fp32's + 3·s/√(B·D), mean NFE
+             ≤ 1.25×); (c) phase 6a's tiered serve of 16 requests under
+             ``bf16_full`` (K2 with bf16 state, K3 in bf16, P1): K2 one and
+             K3 24 a body iteration, two requests served alone bitwise the
+             mixed run's; K1/K2 with bf16 state, K3 at gemma3's "L" and "A"
+             and K7 at (4, 2048, 80, 64, 1, 128) in bf16 timed beside their
+             bounds, plain versions and SDPA; (d) gemma3-12b and (e)
+             mamba2-2.7b in bf16 (``ModelConfig.dtype``): the prefill (K3 48
+             / K7 64, in bf16), its last-position logits against phases
+             7b's / 7's fp32 logits of the same seeded weights within
+             4·sqrt(2·layers)·2^-8·max|logit| with the same greedy token
+             wherever the top-2 gap exceeds it, the prefill's wall, device
+             time by kernel and peak, serve_batch 4 × (16 + 16), a decode
+             step's wall and device time, the idle share; (f) the share of
+             the card's peak (bf16 989, fp32 67 TFLOP/s) reached by (a)'s
+             forward and (d)'s and (e)'s prefills, bf16 and fp32: the dry
+             run's FLOPs counted on meta tensors in the phase over the
+             measured device time, each line with the card's name and
+             power limit; a share above 1.05 fails.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object naming each kernel, and ``{"ok": true, "device": ...}``.
@@ -482,6 +515,16 @@ MUSICGEN_TRAIN = dict(steps=20, batch=2, seq=512, lr=3e-4)
 #: the same inputs, so the same loss up to this relative difference
 REMAT_LOSS_RTOL = 1e-6
 
+#: phase 9: the bf16 presets the port runs end to end, the NFE they may
+#: spend against fp32's (the reference's precision gate), the bf16 LM
+#: bound's constant (4 standard deviations of the largest of V logits'
+#: rounding errors: c·sqrt(2·layers)·2^-8 of max|logit|, two rounded
+#: residual updates a layer), and the share of the peak a count may reach
+#: before it is taken as wrong
+PRESETS_BF16 = ("bf16", "bf16_full")
+PRECISION_NFE_RATIO = 1.25
+BF16_LOGIT_C = 4.0
+MAX_SHARE = 1.05
 
 def ulp(dtype, mag: float) -> float:
     """One ulp of ``dtype`` at magnitude ``mag`` (fp32: 23 fraction bits,
@@ -497,6 +540,21 @@ def fail(msg: str) -> None:
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def held_below_1gib(dev, what: str) -> None:
+    """Fail unless less than 1 GiB is still allocated when ``what`` starts.
+    cuBLAS keeps a workspace for each (handle, stream) in the caching
+    allocator, and every timing captured on a side stream
+    (``device_ms``) leaves one behind: they are freed first, since the
+    next GEMM on a stream allocates its workspace again."""
+    before = torch.cuda.memory_allocated(dev) / 2 ** 30
+    torch._C._cuda_clearCublasWorkspaces()
+    held = torch.cuda.memory_allocated(dev) / 2 ** 30
+    print(f"  allocated before {what}: {held:.3f} GiB ({before:.3f} GiB with cuBLAS's "
+          f"workspaces)")
+    if held >= 1:
+        fail(f"{held:.2f} GiB still allocated from earlier phases (want < 1 GiB)")
 
 
 def timed_ms(fn, sets, reps: int) -> float:
@@ -733,6 +791,63 @@ def check_solver_step_edges(dev, gen) -> dict:
           f"at D = 736, 4999, 196,608; CUDA kernels a call (graph nodes) {per_call}; a captured "
           f"graph of 3 calls gives the eager bits on 3 replays")
     return per_call
+
+
+def check_k1_bf16_state(dev, gen, B: int, D: int) -> float:
+    """K1 and K2 with bf16 state, the dtype ``bf16_full`` gives x and
+    x_prev (phase 9), at the DiT state (B, D) and the precision gate's
+    (512, 8), with a scalar ε and with ε per row: against the plain
+    version at phase 2's bf16 bound, the same bits on a second call, and
+    operands 2 bytes off a 16-byte boundary (element loads) bitwise the
+    aligned call, the fp32 error sums included. Returns the max abs error
+    of x'' at (B, D), scalar ε."""
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.kernels.solver_step import ref as step_ref
+
+    worst = None
+    for b, d in ((B, D), (512, 8)):
+        states = [torch.randn(b, d, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(5)]
+        coeffs = [torch.rand(b, generator=gen, device=dev) for _ in range(3)]
+        views = []
+        for t in states:  # contiguous, one bf16 element off a 16-byte boundary
+            views.append(torch.empty(b * d + 1, dtype=torch.bfloat16, device=dev)[1:].view(b, d))
+            views[-1].copy_(t)
+        for vector in (False, True):
+            if vector:
+                ea = torch.rand(b, generator=gen, device=dev) * 0.1 + 1e-3
+                er = torch.rand(b, generator=gen, device=dev) * 0.5 + 0.01
+            else:
+                ea, er = 0.0078, 0.05
+            before = step_ops.launches
+            xh, e2 = step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+            xh2, e22 = step_ops.error_step(*states, *coeffs, eps_abs=ea, eps_rel=er)
+            xo, eo = step_ops.error_step(*views, *coeffs, eps_abs=ea, eps_rel=er)
+            xr, e2r = step_ref.error_step(*states, *coeffs,
+                                          step_ops.per_sample_tolerance(ea, b, dev),
+                                          step_ops.per_sample_tolerance(er, b, dev))
+            torch.cuda.synchronize()
+            x_err = (xh.float() - xr.float()).abs().max().item()
+            x_bound = 1e-2 * (1 + xr.float().abs().max().item())
+            e_rel = ((e2 - e2r).abs() / e2r.abs()).max().item()
+            twice = torch.equal(xh, xh2) and torch.equal(e2, e22)
+            off = torch.equal(xo, xh) and torch.equal(eo, e2)
+            loads = (step_ops.kernel_config(b, d, d, torch.bfloat16, True)["load_bytes"],
+                     step_ops.kernel_config(b, d, d, torch.bfloat16, False)["load_bytes"])
+            ok = (x_err <= x_bound and e_rel <= 1e-5 and twice and off
+                  and xh.dtype == torch.bfloat16 and e2.dtype == torch.float32
+                  and step_ops.launches == before + 3)
+            print(f"  solver_step bf16 state {(b, d)} {'vector' if vector else 'scalar'} eps: "
+                  f"max|x''-plain| {x_err:.3e} (bound {x_bound:.1e}), max rel e2 {e_rel:.3e} "
+                  f"(bound 1e-5; e2 {str(e2.dtype)[6:]}), same bits twice {twice}, off 16 "
+                  f"bytes bitwise the aligned call {off} ({loads[0]}- and {loads[1]}-byte "
+                  f"loads) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail("solver_step with bf16 state disagrees with its plain version, itself "
+                     "or its unaligned call")
+            if worst is None:
+                worst = x_err
+    return worst
 
 
 def check_k2_tiers(dev, gen, D: int) -> float:
@@ -1916,6 +2031,7 @@ def run_lm(dev) -> dict:
               f"{name[:50]} x{n} {us / 1e3:.1f} ms" for name, (n, us) in top))
     if not k7_calls or not k7_kernels:
         fail("the profiled prefill shows no K7 kernel")
+    fp32_logits = fast.cpu()  # phase 9e holds the bf16 prefill against these
     del fast, plain
 
     # serving: 4 requests, prompt 16, gen 16 (prefill by replay, then greedy)
@@ -1974,7 +2090,9 @@ def run_lm(dev) -> dict:
                                    for name, (n, us) in top))
     del params, state
     torch.cuda.empty_cache()
-    return {"k7_launches": k7_launches, "k7_cuda_kernels_per_call": k7_kernels / k7_calls}
+    return {"k7_launches": k7_launches, "k7_cuda_kernels_per_call": k7_kernels / k7_calls,
+            "fp32_logits": fp32_logits, "prefill_s": prefill_s,
+            "prefill_device_ms": total_us / 1e3}
 
 
 def top2_gap(logits) -> float:
@@ -1983,12 +2101,13 @@ def top2_gap(logits) -> float:
     return (top[0] - top[1]).item()
 
 
-def k3_lm_times(dev, gen, card: str) -> dict:
+def k3_lm_times(dev, gen, card: str, dtype=torch.float32) -> dict:
     """K3 at gemma3-12b's prefill shapes, "L" (causal, window 1024) and "A"
-    (causal), fp32: device time beside its bound (3xTF32 on the tensor
-    cores over the visible (query, key) pairs; bytes), the plain version
-    and SDPA (``is_causal`` with ``enable_gqa`` for "A", an explicit boolean
-    mask for "L"; a yardstick the port never calls)."""
+    (causal), in ``dtype``: device time beside its bound (fp32: 3xTF32 on
+    the tensor cores over the visible (query, key) pairs; bf16: the bf16
+    tensor-core peak over them; bytes), the plain version and SDPA
+    (``is_causal`` with ``enable_gqa`` for "A", an explicit boolean mask
+    for "L"; a yardstick the port never calls)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
 
@@ -1998,9 +2117,10 @@ def k3_lm_times(dev, gen, card: str) -> dict:
     kpos = torch.arange(S, device=dev)[None, :]
     out = {}
     for kind, window in (("L", GEMMA_WINDOW), ("A", None)):
-        sets = [(torch.randn(B, Hq, S, Dh, generator=gen, device=dev),
-                 torch.randn(B, Hkv, S, Dh, generator=gen, device=dev),
-                 torch.randn(B, Hkv, S, Dh, generator=gen, device=dev)) for _ in range(2)]
+        sets = [(torch.randn(B, Hq, S, Dh, generator=gen, device=dev).to(dtype),
+                 torch.randn(B, Hkv, S, Dh, generator=gen, device=dev).to(dtype),
+                 torch.randn(B, Hkv, S, Dh, generator=gen, device=dev).to(dtype))
+                for _ in range(2)]
         k3 = lambda q, k, v: flash_ops.attention(q, k, v, causal=True, window=window)
         plain = lambda q, k, v: flash_ref.attention(q, k, v, causal=True, window=window)
         if window is None:
@@ -2008,25 +2128,28 @@ def k3_lm_times(dev, gen, card: str) -> dict:
         else:
             mask = (kpos <= qpos) & (kpos > qpos - window)
             lib = lambda q, k, v: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
-        lib_err = (lib(*sets[0]) - plain(*sets[0])).abs().max().item()
+        lib_err = (lib(*sets[0]).float() - plain(*sets[0]).float()).abs().max().item()
         ms = device_ms(k3, sets, reps=6, replays=2)
         plain_ms = device_ms(plain, sets, reps=2, replays=2)
         lib_ms = device_ms(lib, sets, reps=4, replays=2)
         w = S if window is None else window
         pairs = w * (w + 1) // 2 + (S - w) * w  # visible (query, key) pairs
         flops = 4 * B * Hq * pairs * Dh
-        nbytes = 4 * (2 * B * Hq * S * Dh + 2 * B * Hkv * S * Dh)
+        nbytes = dtype.itemsize * (2 * B * Hq * S * Dh + 2 * B * Hkv * S * Dh)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound = max(t_bytes, 3 * flops / TF32_FLOPS * 1e3)
+        if dtype == torch.float32:  # 3xTF32: three tensor-core products a multiply-add
+            t_ops, of = 3 * flops / TF32_FLOPS * 1e3, "3xTF32: 3 x"
+        else:
+            t_ops, of = flops / BF16_FLOPS * 1e3, "bf16:"
+        bound = max(t_bytes, t_ops)
         out[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                          bound_by="bytes" if t_bytes >= bound else "operations",
                          bound_fp32_cuda_cores_ms=max(t_bytes, flops / FP32_FLOPS * 1e3),
                          visible_pairs=pairs, library_max_abs_diff=lib_err)
-        print(f"  [{card}] flash_attention {GEMMA_ATTN} causal window={window} fp32: "
-              f"{ms:.3f} ms on the device; bound {bound:.3f} ms (3xTF32: 3 x "
-              f"{flops / 1e9:.1f} GFLOP over {pairs:,} visible pairs at 495 TFLOP/s; "
-              f"{bound / ms:.0%} of it reached; bytes {t_bytes:.3f} ms), CUDA cores "
-              f"{out[kind]['bound_fp32_cuda_cores_ms']:.3f} ms; plain {plain_ms:.3f} ms; SDPA "
+        print(f"  [{card}] flash_attention {GEMMA_ATTN} causal window={window} "
+              f"{str(dtype)[6:]}: {ms:.3f} ms on the device; bound {bound:.3f} ms ({of} "
+              f"{flops / 1e9:.1f} GFLOP over {pairs:,} visible pairs; {bound / ms:.0%} of it "
+              f"reached; bytes {t_bytes:.3f} ms); plain {plain_ms:.3f} ms; SDPA "
               f"{lib_ms:.3f} ms (max abs diff from the plain version {lib_err:.1e})")
         del sets
     torch.cuda.empty_cache()
@@ -2109,6 +2232,8 @@ def run_attention_lm(dev, card: str) -> dict:
     print(f"  one prefill: {total_us / 1e3:.1f} ms of device time, K3 {k3_us / 1e3:.1f} ms "
           f"({100 * k3_us / total_us:.1f} %); largest: " + "; ".join(
               f"{name[:50]} x{c} {us / 1e3:.1f} ms" for name, (c, us) in top))
+    fp32_logits = fast.cpu()  # phase 9d holds the bf16 prefill against these
+    prefill_device_ms = total_us / 1e3
     del fast, plain
 
     # serve_batch: 4 requests, prompt 16, gen 16 (prefill by replay, then greedy)
@@ -2206,7 +2331,8 @@ def run_attention_lm(dev, card: str) -> dict:
            "decode_device_ms_per_step": busy_us / 1e3 / LM_IDLE_STEPS,
            "batcher_s": batch_s, "batcher_steps": b.total_steps,
            "wasted_step_fraction": b.wasted_step_fraction,
-           "batcher_tokens_per_s": n_new / batch_s, "differ": differ}
+           "batcher_tokens_per_s": n_new / batch_s, "differ": differ,
+           "fp32_logits": fp32_logits, "prefill_device_ms": prefill_device_ms}
     del params, b
     torch.cuda.empty_cache()
     return rec
@@ -2569,10 +2695,7 @@ def run_moe_lm(dev, card: str) -> dict:
     from repro_torch.serving.scheduler import ContinuousBatcher, Request
 
     t_phase = time.perf_counter()
-    held = torch.cuda.memory_allocated(dev) / 2**30
-    print(f"  allocated before the phase: {held:.3f} GiB")
-    if held >= 1:
-        fail(f"{held:.2f} GiB still allocated from earlier phases (want < 1 GiB)")
+    held_below_1gib(dev, "the phase")
     out = moe_kernel_times(dev, card)
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -2938,10 +3061,7 @@ def run_vlm_audio_lm(dev, card: str) -> dict:
     from repro_torch.configs import get_config
 
     t_phase = time.perf_counter()
-    held = torch.cuda.memory_allocated(dev) / 2**30
-    print(f"  allocated before the phase: {held:.3f} GiB")
-    if held >= 1:
-        fail(f"{held:.2f} GiB still allocated from earlier phases (want < 1 GiB)")
+    held_below_1gib(dev, "the phase")
     gen = torch.Generator(device=dev).manual_seed(26)
     out = {"k3": {}}
     for name, shape in kernel_times.VLM_AUDIO_ATTN_SHAPES.items():
@@ -3493,6 +3613,445 @@ def run_plan_service(dev, card: str) -> dict:
     return out
 
 
+def bf16_logit_bound(num_layers: int, scale: float) -> float:
+    """The bound on max|bf16 logit − fp32 logit| of an LM of
+    ``num_layers`` layers whose fp32 logits reach ``scale``: every
+    residual update rounds to bf16 (2^-8 relative), two a layer,
+    independent roundings add in quadrature, and the largest of the
+    vocabulary's errors is taken at BF16_LOGIT_C standard deviations."""
+    return BF16_LOGIT_C * math.sqrt(2 * num_layers) * 2.0 ** -8 * scale
+
+
+def precision_dit(dev, card: str, fp32_rec: dict) -> dict:
+    """Phase 9a: HIGHRES_DIT, batch 8, phase 3's seeded and livened
+    weights, through ``launch.sample.run(precision=…)`` under ``bf16`` and
+    ``bf16_full``, beside phase 3's fp32 record. Gates: finite, delivered
+    in fp32, mean NFE ≤ PRECISION_NFE_RATIO × fp32's, K1 exactly one
+    launch a body iteration (8·⌈iterations/8⌉) and K3 12 a forward (one a
+    layer: 2 a body iteration and the denoise), TF32 off after each policy
+    is built. Then a forward at batch 8 under each preset and fp32 as
+    replayed CUDA graphs, for phase 9f's shares."""
+    from repro_torch.configs.diffusion import HIGHRES_DIT
+    from repro_torch.core.precision import resolve_policy
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.launch import sample as launcher
+
+    B = 8
+    out = {}
+    print(f"  fp32 (phase 3): {fp32_rec['iterations']} iterations, mean NFE "
+          f"{fp32_rec['mean_nfe']:.2f}, {fp32_rec['wall_s']:.3f} s")
+    for preset in PRESETS_BF16:
+        step_ops.launches = 0
+        flash_ops.launches = 0
+        rec = launcher.run("highres_dit", batch=B, precision=preset, eps_rel=0.05,
+                           max_iters=MAIN_MAX_ITERS, flash=True, fused=True, seed=0,
+                           liven_seed=0, device=dev)
+        launches = {"solver_step": step_ops.launches, "flash_attention": flash_ops.launches}
+        if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+            fail(f"TF32 is on after building the {preset} policy")
+        res, iters = rec["result"], rec["iterations"]
+        body = ad.SYNC_EVERY * -(-iters // ad.SYNC_EVERY)
+        forwards = 2 * body + 1
+        want = {"solver_step": body, "flash_attention": HIGHRES_DIT.num_layers * forwards}
+        carry = ad.init_carry(VPSDE(), torch.zeros(B, 4, device=dev), None, precision=preset)
+        dtypes = {k: str(getattr(carry, k).dtype)[6:] for k in ("x", "t", "h")}
+        ratio = rec["mean_nfe"] / fp32_rec["mean_nfe"]
+        print(f"  {preset}: {iters} iterations, mean NFE {rec['mean_nfe']:.2f} ({ratio:.3f}× "
+              f"fp32's; gate ≤ {PRECISION_NFE_RATIO}), wall {rec['wall_s']:.3f} s, "
+              f"{rec['wall_s'] / forwards * 1e3:.2f} ms per NFE (a batch forward, {forwards} "
+              f"run); launches {launches} (want {want}); carry dtypes {dtypes}, delivered "
+              f"{str(res.x.dtype)[6:]}, finite {rec['finite']}")
+        if not rec["finite"] or res.x.dtype != torch.float32 or res.x.shape[0] != B:
+            fail(f"{preset}: the sample is not finite, or not delivered in fp32")
+        if ratio > PRECISION_NFE_RATIO:
+            fail(f"{preset}: mean NFE {rec['mean_nfe']:.2f} above {PRECISION_NFE_RATIO}× fp32's")
+        if launches != want:
+            fail(f"{preset}: launches {launches}, want {want}")
+        if dtypes["t"] != "float32" or dtypes["h"] != "float32":
+            fail(f"{preset}: the control path is not fp32: {dtypes}")
+        out[preset] = {"iterations": iters, "mean_nfe": rec["mean_nfe"], "wall_s": rec["wall_s"],
+                       "ms_per_nfe": rec["wall_s"] / forwards * 1e3, "launches": launches,
+                       "dtypes": dtypes}
+        del rec, res
+    # one forward at batch 8 under each policy, as a replayed graph
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(B, 256, 256, 3, generator=g, device=dev)
+    t = torch.linspace(0.05, 1.0, B, device=dev)
+    for preset in ("fp32", *PRESETS_BF16):
+        _, model, _ = launcher.build_score("highres_dit", flash=True, precision=preset, seed=0,
+                                           liven_seed=0, device=dev)
+        policy = resolve_policy(preset)
+        with torch.no_grad():
+            ms = device_ms(lambda x, t: model(x, t, policy=policy), [(x, t)], reps=10, replays=3)
+        out.setdefault(preset, {})["forward_device_ms"] = ms
+        print(f"  [{card}] a DiT forward at batch {B}, {preset}: {ms:.3f} ms on the device "
+              f"(replayed graph)")
+        del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def precision_gate(dev) -> dict:
+    """Phase 9b: the reference's analytic precision gate on the card, on
+    the port's own RNG: the closed-form VP and VE Gaussians (512 × 8, no
+    denoise, the fused step: K1 with bf16 state under ``bf16_full``) under
+    each bf16 preset: W2 ≤ 2 × fp32's W2 + the Monte-Carlo floor 3·s/√(B·D)
+    and mean NFE ≤ PRECISION_NFE_RATIO × fp32's."""
+    from repro_torch.analysis import solver_select
+    from repro_torch.core import analytic
+    from repro_torch.core.sde import VESDE, VPSDE
+
+    rows = {}
+    for name, sde in (("vp", VPSDE()), ("ve", VESDE(sigma_max=10.0))):
+        r32 = solver_select.conformance_row("adaptive", name, sde, device=dev,
+                                            use_fused_kernel=True)
+        _, s_a = analytic.gaussian_marginal_moments(sde, solver_select.MU, solver_select.S0)
+        floor = 3.0 * s_a / math.sqrt(solver_select.BATCH * solver_select.DIM)
+        rows[(name, "fp32")] = r32
+        for preset in PRESETS_BF16:
+            r = solver_select.conformance_row("adaptive", name, sde, device=dev,
+                                              use_fused_kernel=True, precision=preset)
+            tol = 2.0 * r32["w2"] + floor
+            ok = r["w2"] <= tol and r["mean_nfe"] <= PRECISION_NFE_RATIO * r32["mean_nfe"]
+            print(f"  {name} {preset}: W2 {r['w2']:.4f} (gate 2·{r32['w2']:.4f} + {floor:.4f} = "
+                  f"{tol:.4f}), mean NFE {r['mean_nfe']:.2f} against fp32's "
+                  f"{r32['mean_nfe']:.2f} (gate ≤ {PRECISION_NFE_RATIO}×) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the precision gate: {name} {preset} misses W2 or the NFE ratio")
+            rows[(name, preset)] = {**r, "tol": tol}
+    return {f"{n} {p}": {k: r[k] for k in ("w2", "mean_nfe", "tol")} for (n, p), r in rows.items()}
+
+
+def precision_serve(dev, card: str) -> dict:
+    """Phase 9c: phase 6a's tiered serve of SERVE_REQUESTS requests under
+    ``bf16_full`` (weights, carry and compute in bf16: K2 with bf16
+    state, K3 in bf16, P1's noise cast after the draw): every request
+    finite, K2 one launch and K3 24 a body iteration, and the SERVE_SOLO
+    requests served alone bitwise the mixed run's."""
+    from repro_torch.configs.diffusion import HIGHRES_DIT
+    from repro_torch.core.precision import resolve_policy
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.core.solvers.adaptive import AdaptiveConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.launch.sample import make_sample_step
+    from repro_torch.models.dit import init_dit, liven_zero_init
+    from repro_torch.serving.diffusion_server import DiffusionBatcher, ImageRequest
+    from repro_torch.serving.scheduler import EdfPriorityAdmission
+
+    net = dataclasses.replace(HIGHRES_DIT, use_flash=True)
+    model = init_dit(net, torch.Generator(device=dev).manual_seed(0))
+    liven_zero_init(model, torch.Generator(device=dev).manual_seed(0))
+    resolve_policy("bf16_full").cast_params(model)
+    sde = VPSDE()
+    cfg = AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True, precision="bf16_full")
+    step = make_sample_step(sde, cfg)
+    shape = (net.image_size, net.image_size, net.channels)
+
+    def serve(uids):
+        b = DiffusionBatcher(sde, step, model, shape, slots=SERVE_SLOTS, cfg=cfg,
+                             sync_horizon=SERVE_HORIZON, tolerance_classes=True,
+                             admission=EdfPriorityAdmission(aging_s=5.0), device=dev)
+        for u in uids:
+            b.submit(ImageRequest(uid=u, seed=u, tier=SERVE_TIERS[u % 3],
+                                  deadline_ms=SERVE_DEADLINE_MS))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = b.run_to_completion()
+        torch.cuda.synchronize()
+        return b, done, time.perf_counter() - t0
+
+    uids = list(range(SERVE_REQUESTS))
+    step_ops.launches = 0
+    flash_ops.launches = 0
+    b, done, wall = serve(uids)
+    launches = {"solver_step": step_ops.launches, "flash_attention": flash_ops.launches}
+    body = SERVE_HORIZON * b.horizon_windows
+    want = {"solver_step": body, "flash_attention": 2 * net.num_layers * body}
+    means = {t: b.class_stats[t]["mean_nfe"] for t in SERVE_TIERS}
+    print(f"  [{card}] bf16_full: served {len(done)}/{len(uids)} in {wall:.3f} s "
+          f"({len(done) / wall:.2f} requests/s), {body} body iterations, carry x "
+          f"{str(b._carry.x.dtype)[6:]}; mean NFE by tier "
+          + ", ".join(f"{t} {m:.2f}" for t, m in means.items())
+          + f"; launches {launches} (want {want})")
+    bad = [u for u in uids if u not in done or not np.isfinite(done[u].result).all()
+           or done[u].result.shape != shape]
+    if bad or b._carry.x.dtype != torch.bfloat16:
+        fail(f"bf16_full serve: requests {bad} missing or not finite, or the carry is not bf16")
+    if launches != want:
+        fail(f"bf16_full serve: launches {launches}, want {want}")
+    solo_same = {}
+    for u in SERVE_SOLO:
+        _, solo, _ = serve([u])
+        solo_same[u] = (np.array_equal(solo[u].result, done[u].result)
+                        and solo[u].nfe == done[u].nfe)
+    print(f"  solo runs bitwise the mixed run's: {solo_same}")
+    if not all(solo_same.values()):
+        fail("bf16_full serve: a request served alone differs from the mixed run")
+    del model, b
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "requests_per_s": len(done) / wall, "mean_nfe": means,
+            "launches": launches, "body_iterations": body}
+
+
+def bf16_lm(dev, card: str, arch: str, prompts_shape, fp32: dict) -> dict:
+    """Phase 9d/9e: ``arch`` at full width in bf16 (``ModelConfig.dtype``;
+    the seeded weights of phases 7/7b rounded once, since ``init_model``
+    draws in fp32): the prefill of ``prompts_shape`` through K3 ("A"/"L",
+    one a layer) or K7 (one a layer) in bf16, its last-position logits
+    against the fp32 prefill's of the same weights and prompts within
+    ``bf16_logit_bound`` with the same greedy token wherever the fp32
+    top-2 gap exceeds it; the prefill's wall, device time by kernel and
+    peak; serve_batch 4 × (16 + 16); a decode step's wall, device time and
+    the decode's idle share."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import forward, init_decode_state, init_model
+    from repro_torch.models.transformer import _map, param_count
+
+    cfg = get_config(arch).replace(dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_model(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n = param_count(params)
+    print(f"  {arch} in bf16: {n:,} parameters, {torch.cuda.memory_allocated(dev) / 2**30:.2f} "
+          f"GiB allocated, made in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev).manual_seed(0)  # phases 7/7b's prompts
+    prompts = torch.randint(0, cfg.vocab_size, prompts_shape, generator=g, device=dev)
+    prefill = make_prefill_step(cfg, device=dev)
+    prefill(params, {"tokens": prompts[:, :256]})  # cuBLAS and the allocator warm up
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_ops.launches = 0
+    ssd_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {"K3": flash_ops.launches, "K7": ssd_ops.launches}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    attn = sum(m in ("A", "L") for m in cfg.mixer_pattern) * cfg.num_repeats
+    ssd = sum(m == "M" for m in cfg.mixer_pattern) * cfg.num_repeats
+    n_tok = prompts_shape[0] * prompts_shape[1]
+    print(f"  prefill {prompts_shape} in bf16: {prefill_s:.3f} s ({n_tok / prefill_s:.0f} "
+          f"tokens/s; fp32 {fp32['prefill_s']:.3f} s), peak {peak:.2f} GiB; launches {launches} "
+          f"(want K3 {attn}, K7 {ssd}: one a layer)")
+    if launches != {"K3": attn, "K7": ssd}:
+        fail(f"{arch} bf16 prefill: launches {launches}, want K3 {attn}, K7 {ssd}")
+    if not bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all()):
+        fail(f"{arch} bf16 prefill: tokens {nxt.tolist()} out of range")
+    with torch.no_grad():
+        got, _ = forward(params, prompts, cfg, last_logits_only=True)
+    want = fp32["fp32_logits"].to(dev)
+    got = got.float()
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    bound = bf16_logit_bound(cfg.num_layers, scale)
+    finite = bool(torch.isfinite(got).all())
+    rows = want.reshape(-1, want.shape[-1])
+    same = (got.reshape(rows.shape).argmax(-1) == rows.argmax(-1)).tolist()
+    gaps = [top2_gap(r) for r in rows]
+    print(f"  last-position logits, bf16 against fp32 (the same seeded weights): max abs err "
+          f"{err:.3e} = {err / scale:.4f} of max|logit| {scale:.3f} (bound {BF16_LOGIT_C}·"
+          f"sqrt(2·{cfg.num_layers})·2^-8·max|logit| = {bound:.3e}), finite {finite}; greedy "
+          f"tokens equal {same} at top-2 gaps {[f'{v:.3e}' for v in gaps]}")
+    if not finite or err > bound:
+        fail(f"{arch}: the bf16 prefill's logits are not within the bound of fp32's")
+    if any(not s and gap > bound for s, gap in zip(same, gaps)):
+        fail(f"{arch}: a bf16 greedy token differs from fp32's past the bound")
+    by_name, total_us = profile_device(lambda: prefill(params, {"tokens": prompts}))
+    kern_us = {"K3": sum(us for nm, (_, us) in by_name.items() if "flash_fwd" in nm),
+               "K7": sum(us for nm, (_, us) in by_name.items() if "ssd_scan" in nm)}
+    gemm_us = sum(us for nm, (_, us) in by_name.items()
+                  if any(w in nm.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"  [{card}] one bf16 prefill: {total_us / 1e3:.1f} ms of device time (fp32 "
+          f"{fp32['prefill_device_ms']:.1f} ms); K3 {kern_us['K3'] / 1e3:.1f} ms, K7 "
+          f"{kern_us['K7'] / 1e3:.1f} ms, GEMMs {gemm_us / 1e3:.1f} ms "
+          f"({100 * gemm_us / total_us:.1f} %); largest: " + "; ".join(
+              f"{nm[:50]} x{c} {us / 1e3:.1f} ms" for nm, (c, us) in top))
+    del got, want
+
+    R, P, G = LM_SERVE
+    sprompts = torch.randint(0, cfg.vocab_size, (R, P), generator=g, device=dev)
+    serve_batch(cfg, params, sprompts[:, :2], gen_len=2, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = serve_batch(cfg, params, sprompts, gen_len=G, device=dev)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    step_ms = serve_s / (P + G - 1) * 1e3
+    if toks.shape != (R, G) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"{arch} bf16 serve_batch: tokens out of range")
+    step = make_serve_step(cfg, device=dev)
+    state = init_decode_state(cfg, R, P + G, device=dev)
+    states = []
+    _map(lambda a: states.append(str(a.dtype)[6:]), state)
+
+    def decode_loop(n=LM_IDLE_STEPS):
+        nonlocal state
+        tok = toks[:, :1]
+        for _ in range(n):
+            tok, state = step(params, {"tokens": tok}, state)
+
+    decode_loop(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_loop()
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    by_name, busy_us = profile_device(decode_loop)
+    idle = 1 - busy_us / 1e3 / loop_ms
+    print(f"  [{card}] serve_batch {R} × ({P} + {G}) in bf16: {serve_s:.3f} s, {step_ms:.2f} ms "
+          f"a decode step; decode {LM_IDLE_STEPS} steps {loop_ms:.1f} ms wall, device "
+          f"{busy_us / 1e3 / LM_IDLE_STEPS:.2f} ms a step, idle share {idle:.2f}; decode state "
+          f"dtypes {sorted(set(states))}")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"params": n, "prefill_s": prefill_s, "prefill_device_ms": total_us / 1e3,
+            "kernel_device_ms": {k: v / 1e3 for k, v in kern_us.items()},
+            "gemm_device_ms": gemm_us / 1e3, "peak_gib": peak, "launches": launches,
+            "logit_err": err, "logit_bound": bound, "same_tokens": same,
+            "serve_ms_per_step": step_ms, "decode_device_ms_per_step":
+                busy_us / 1e3 / LM_IDLE_STEPS, "decode_idle_share": idle}
+
+
+def roofline_shares(card: str, dit: dict, gemma: dict, mamba: dict, alm: dict, lm: dict,
+                    ) -> dict:
+    """Phase 9f: the share of the card's peak reached by (a)'s forward, and
+    by (d)'s and (e)'s prefills, bf16 and fp32: the dry run's counted
+    FLOPs of the same config and shape (``launch/dryrun.py::count`` on
+    meta tensors, run here) over the measured device time and the dtype's
+    peak (``analysis/roofline.py``: bf16 989, fp32 67 TFLOP/s), with the
+    roofline's bounding term. A share above MAX_SHARE fails: the count
+    would be too low."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun, sample as launcher
+    from repro_torch.launch.specs import build_dryrun
+
+    rows = []
+    for preset in ("fp32", *PRESETS_BF16):
+        rec = launcher.dryrun(8, preset, save=False)
+        dtype = "float32" if preset == "fp32" else "bfloat16"
+        rows.append((f"HIGHRES_DIT forward, batch 8, {preset}", dtype, rec["per_nfe"]["flops"],
+                     rec["per_nfe"]["bytes"], dit[preset]["forward_device_ms"]))
+    for arch, shp, b16, f32 in (("gemma3-12b", GEMMA_PREFILL, gemma, alm),
+                                ("mamba2-2.7b", LM_PREFILL, mamba, lm)):
+        shape = InputShape(f"prefill_{shp[1]}", shp[1], shp[0], "prefill")
+        for dtype, ms in (("bfloat16", b16["prefill_device_ms"]),
+                          ("float32", f32["prefill_device_ms"])):
+            spec = build_dryrun(get_config(arch), shape, dtype=dtype)
+            cost = dryrun.count(spec.fn, *spec.args)
+            rows.append((f"{arch} prefill {shp}, {dtype}", dtype, cost["flops"],
+                         cost["est_hbm_traffic_bytes"], ms))
+    out = {}
+    for label, dtype, flops, nbytes, ms in rows:
+        share = roofline.share_of_peak(flops, ms * 1e-3, dtype)
+        t_c, t_m = flops / roofline.peak_flops(dtype), nbytes / roofline.HBM_BW
+        roof = max(t_c, t_m) / (ms * 1e-3)
+        print(f"  [{card}] {label}: {flops / 1e12:.3f} TFLOP counted (dry run, meta) in "
+              f"{ms:.3f} ms of device time: {flops / ms / 1e9:.1f} TFLOP/s, {share:.3f} of the "
+              f"{roofline.peak_flops(dtype) / 1e12:.0f} TFLOP/s peak; bounding term "
+              f"{'compute' if t_c >= t_m else 'memory'} ({t_c * 1e3:.3f} ms compute, "
+              f"{t_m * 1e3:.3f} ms memory): {roof:.3f} of the roofline")
+        if share > MAX_SHARE or roof > MAX_SHARE:
+            fail(f"{label}: {share:.3f} of the peak, {roof:.3f} of the roofline: the count is "
+                 f"too low")
+        out[label] = {"tflop": flops / 1e12, "device_ms": ms, "share": share,
+                      "roofline_share": roof, "bound_by": "operations" if t_c >= t_m else "bytes"}
+    return out
+
+
+def bf16_kernel_times(dev, card: str) -> dict:
+    """The kernels at phase 9's bf16 shapes, device time from replayed
+    CUDA graphs beside the bound (bytes: each input read once, each output
+    written once; operations at the peak of their type), the plain version
+    and the library call where one exists: K1 at (8, 196,608) with bf16
+    state, scalar and per-row (K2: the tiers' eps) tolerances; K3 at
+    gemma3-12b's "L" and "A" (``k3_lm_times``); K7 at mamba2-2.7b's
+    prefill shape."""
+    from repro_torch.configs.diffusion import HIGHRES_DIT, TOLERANCE_CLASSES
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.kernels.solver_step import ref as step_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    out = {}
+    B, D = 8, HIGHRES_DIT.image_size ** 2 * HIGHRES_DIT.channels
+    rel = torch.tensor([TOLERANCE_CLASSES[SERVE_TIERS[i % 3]].eps_rel for i in range(B)],
+                       device=dev)
+    atol = torch.full((B,), 0.0078, device=dev)
+    sets = [(*[torch.randn(B, D, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(5)],
+             *[torch.rand(B, generator=gen, device=dev) for _ in range(3)]) for _ in range(4)]
+    nbytes = 6 * B * D * 2 + 5 * B * 4 + B * 4
+    nops = STEP_FLOPS_PER_ELEMENT * B * D
+    bound = max(nbytes / HBM_BYTES_PER_S, nops / FP32_FLOPS) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= nops / FP32_FLOPS else "operations"
+    for name, fn, plain in (
+            ("K1", lambda *a: step_ops.error_step(*a, eps_abs=0.0078, eps_rel=0.05),
+             lambda *a: step_ref.error_step(*a, atol, torch.full((B,), 0.05, device=dev))),
+            ("K2", lambda *a: step_ops.error_step(*a, eps_abs=atol, eps_rel=rel),
+             lambda *a: step_ref.error_step(*a, atol, rel))):
+        ms, plain_ms = device_ms(fn, sets), device_ms(plain, sets)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         library_ms=None)
+        print(f"  [{card}] solver_step {name} ({B}, {D}) bf16 state: {ms * 1e3:.2f} us on the "
+              f"device, bound {bound * 1e3:.2f} us ({by}); plain {plain_ms * 1e3:.1f} us")
+    del sets
+    out["K3"] = k3_lm_times(dev, gen, card, torch.bfloat16)
+    shape = SSD_SHAPES[0]
+    sets = [ssd_inputs(*shape, gen=gen, dtype=torch.bfloat16) for _ in range(2)]
+    ms = device_ms(lambda *a: ssd_ops.ssd_scan(*a), sets, reps=20, replays=2)
+    plain_ms = device_ms(lambda *a: ssd_ref.ssd_chunked(*a), sets, reps=4, replays=2)
+    flops, _ = ssd_work(*shape)
+    b_, s_, h_, p_, g_, n_ = shape
+    nbytes = 2 * (2 * b_ * s_ * h_ * p_ + 2 * b_ * s_ * g_ * n_) + 4 * (b_ * s_ * h_ + h_)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    out["K7"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+                     ranges=ssd_ops.ranges_for(sets[0][0]))
+    print(f"  [{card}] ssd_scan {shape} bf16: {ms:.3f} ms on the device; bound "
+          f"{out['K7']['bound_ms']:.3f} ms ({out['K7']['bound_by']}: {flops / 1e9:.1f} GFLOP at "
+          f"989 TFLOP/s, {nbytes / 1e6:.1f} MB); plain {plain_ms:.3f} ms")
+    del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_precision(dev, card: str, fp32_dit: dict, alm: dict, lm: dict) -> dict:
+    """Phase 9, the precision seams in bf16 at full width (a–f)."""
+    t_phase = time.perf_counter()
+    held_below_1gib(dev, "the precision phase")
+    print("  (a) HIGHRES_DIT sampled under bf16 and bf16_full")
+    dit = precision_dit(dev, card, fp32_dit)
+    print("  (b) the analytic precision gate (VP, VE × bf16, bf16_full)")
+    gate = precision_gate(dev)
+    print("  (c) the tiered serve under bf16_full")
+    srv = precision_serve(dev, card)
+    print("  the kernels at the bf16 shapes")
+    times = bf16_kernel_times(dev, card)
+    print("  (d) gemma3-12b in bf16")
+    held_below_1gib(dev, "gemma3-12b in bf16")
+    gemma = bf16_lm(dev, card, "gemma3-12b", GEMMA_PREFILL, alm)
+    print("  (e) mamba2-2.7b in bf16")
+    held_below_1gib(dev, "mamba2-2.7b in bf16")
+    mamba = bf16_lm(dev, card, "mamba2-2.7b", LM_PREFILL, lm)
+    print("  (f) roofline shares")
+    shares = roofline_shares(card, dit, gemma, mamba, alm, lm)
+    phase_s = time.perf_counter() - t_phase
+    print(f"  [{card}] precision phase {phase_s:.1f} s")
+    return {"dit": dit, "gate": gate, "serve": srv, "gemma3-12b": gemma,
+            "mamba2-2.7b": mamba, "shares": shares, "times": times, "phase_s": phase_s}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device; chip_smoke.py runs on a machine with an NVIDIA card")
@@ -3566,6 +4125,7 @@ def main() -> None:
     if SERVED_STEP_SHAPES[0] != (solver_select.BATCH, solver_select.DIM):
         fail(f"the selection race's state is {(solver_select.BATCH, solver_select.DIM)}, "
              f"not {SERVED_STEP_SHAPES[0]}")
+    k1_bf16_err = check_k1_bf16_state(dev, gen, B, D)
     step_per_call = check_solver_step_edges(dev, gen)
     k2_err = check_k2_tiers(dev, gen, D)
     streams = check_streams_and_grids(dev, gen)
@@ -3589,6 +4149,8 @@ def main() -> None:
             (1, 4, 4, 64, 256, False, None, None, torch.bfloat16),
             (*GEMMA_ATTN, True, GEMMA_WINDOW, None, torch.float32),  # phase 7b's "L"
             (*GEMMA_ATTN, True, None, None, torch.float32),  # phase 7b's "A"
+            (*GEMMA_ATTN, True, GEMMA_WINDOW, None, torch.bfloat16),  # phase 9d's "L"
+            (*GEMMA_ATTN, True, None, None, torch.bfloat16),  # phase 9d's "A"
             *((*shape, True, None, None, torch.float32)  # phase 7d's prefills
               for shape in kernel_times.MOE_ATTN_SHAPES.values()),
             *((*shape, True, None, None, torch.float32)  # phase 7e's prefills
@@ -3770,17 +4332,23 @@ def main() -> None:
         print(f"  ssd_scan on a misaligned view raises: {e}")
     else:
         fail("ssd_scan accepted a misaligned view")
-    for shape in ((2, 300, 8, 64, 1, 128), SSD_SHAPES[4]):
+    # bf16, mamba2-2.7b's (4, 2048) prefill shape among them (phase 9e)
+    for shape in ((2, 300, 8, 64, 1, 128), SSD_SHAPES[4], SSD_SHAPES[0]):
         args = ssd_inputs(*shape, gen=gen, dtype=torch.bfloat16)
         y, want = ssd_ops.ssd_scan(*args), ssd_ref.ssd_chunked(*args)
+        same = torch.equal(ssd_ops.ssd_scan(*args), y)
         mag = torch.maximum(y.float().abs(), want.float().abs()).clamp_min(1e-30)
         bound = torch.exp2(torch.floor(torch.log2(mag)) - 7) + SSD_TOL * (1 + want.float().abs())
-        ok = bool(((y.float() - want.float()).abs() <= bound).all()) and y.dtype == torch.bfloat16
-        print(f"  ssd_scan bf16 {shape}: max abs err "
-              f"{(y.float() - want.float()).abs().max().item():.3e} (bound one bf16 ulp + "
-              f"{SSD_TOL}·(1+|y|)) {'ok' if ok else 'FAIL'}")
+        ok = (bool(((y.float() - want.float()).abs() <= bound).all())
+              and y.dtype == torch.bfloat16 and same)
+        err = (y.float() - want.float()).abs().max().item()
+        print(f"  ssd_scan bf16 {shape} ({ssd_ops.ranges_for(args[0])} ranges): max abs err "
+              f"{err:.3e} (bound one bf16 ulp + {SSD_TOL}·(1+|y|)), same bits twice {same} "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            fail("ssd_scan kernel in bf16 disagrees with its plain version")
+            fail("ssd_scan kernel in bf16 disagrees with its plain version or itself")
+        ssd_err[(shape, torch.bfloat16)] = err
+        del args, y, want
 
     # ------------------------------------------------------------- 3. main
     phase("main path: adaptive sampling from HIGHRES_DIT with both kernels")
@@ -4318,6 +4886,12 @@ def main() -> None:
     phase("sharded sampling: K4 and sample(mesh=) over torch.distributed")
     k4 = run_sharded(dev, card, rec["wall_s"])
 
+    # ----------------------------------------------------------- 9. precision
+    phase("precision: HIGHRES_DIT under bf16 and bf16_full (K1, K3), the precision gate, the "
+          "bf16_full tiered serve (K2, K3, P1), gemma3-12b (K3) and mamba2-2.7b (K7) in bf16, "
+          "roofline shares")
+    prec = run_precision(dev, card, rec, alm, lm)
+
     def device_resident_launches(name):
         """A kernel's launches in phase 6c's device-resident drain."""
         got = dsrv["launches"]
@@ -4359,7 +4933,14 @@ def main() -> None:
                                          "diffusion LM's adaptive solve on olmo-1b's backbone "
                                          "(phase 7c), 8·⌈iterations/8⌉",
                           **dlm_rec},
-         "ptxas": [r for r in small_ptxas if r["kernel"].startswith("error_step")]},
+         "ptxas": [r for r in small_ptxas if r["kernel"].startswith("error_step")],
+         "precision": {"launched_as": "error_step in every iteration of HIGHRES_DIT's "
+                                      "adaptive solve under bf16 (fp32 state) and bf16_full "
+                                      "(bf16 state), 8·⌈iterations/8⌉ (phase 9a)",
+                       **{p: prec["dit"][p]["launches"]["solver_step"] for p in PRESETS_BF16},
+                       "max_abs_err_bf16_state": k1_bf16_err,
+                       **{k: prec["times"]["K1"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                             "bound_by")}}},
         {"name": "solver_step_per_row_eps", "route": "cuda",
          "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
          "replaces": "src/repro/kernels/solver_step/kernel.py:242",
@@ -4376,7 +4957,12 @@ def main() -> None:
                                        "passenger_nfe_fraction",
                                        "wasted_nfe_fraction_no_compaction",
                                        "flash_launches")},
-         "device_resident": device_resident_launches("solver_step")},
+         "device_resident": device_resident_launches("solver_step"),
+         "precision": {"launched_as": "error_step with (B,) eps on bf16 state: the tiered "
+                                      "serve under bf16_full (phase 9c)",
+                       "launches": prec["serve"]["launches"]["solver_step"],
+                       **{k: prec["times"]["K2"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                             "bound_by")}}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:102",
@@ -4446,7 +5032,20 @@ def main() -> None:
                                     **{k: xc_rec["k3"][name][k] for k in (
                                         "ms", "plain_ms", "library_ms", "bound_ms",
                                         "bound_by")}}
-                             for name, shape in kernel_times.VLM_AUDIO_ATTN_SHAPES.items()}}},
+                             for name, shape in kernel_times.VLM_AUDIO_ATTN_SHAPES.items()}},
+         "precision": {"launched_as": "bf16: the DiT's attention under bf16 and bf16_full "
+                                      "(phase 9a), the bf16_full serve (9c), every layer of "
+                                      "gemma3-12b's (1, 4096) prefill in bf16 (9d)",
+                       **{p: prec["dit"][p]["launches"]["flash_attention"]
+                          for p in PRESETS_BF16},
+                       "serve_bf16_full": prec["serve"]["launches"]["flash_attention"],
+                       "gemma3-12b": {
+                           "launches": prec["gemma3-12b"]["launches"]["K3"],
+                           "max_abs_err": {
+                               "L": attn_err[(GEMMA_ATTN[3], torch.bfloat16, True,
+                                              GEMMA_WINDOW)],
+                               "A": attn_err[(GEMMA_ATTN[3], torch.bfloat16, True, None)]},
+                           **{kind: prec["times"]["K3"][kind] for kind in ("L", "A")}}}},
         {"name": "groupnorm_silu", "route": "cuda",
          "source": "src/repro_torch/kernels/groupnorm_silu/csrc/groupnorm_silu.cu",
          "replaces": "src/repro/kernels/groupnorm_silu/kernel.py:81",
@@ -4521,7 +5120,13 @@ def main() -> None:
                    "launches": moe_rec["jamba-v0.1-52b"]["launches"]["K7"],
                    "max_abs_err": ssd_err[kernel_times.JAMBA_SSD_SHAPE],
                    **{k: moe_rec["k7"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                    "ranges")}}},
+                                                    "ranges")}},
+         "precision": {"launched_as": "every layer of mamba2-2.7b's (4, 2048) prefill in bf16 "
+                                      "(phase 9e)",
+                       "launches": prec["mamba2-2.7b"]["launches"]["K7"],
+                       "max_abs_err": ssd_err[(SSD_SHAPES[0], torch.bfloat16)],
+                       **{k: prec["times"]["K7"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                             "bound_by", "ranges")}}},
         {"name": "sharded_solver_step", "route": "cuda",
          "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
          "replaces": "src/repro/kernels/solver_step/ops.py:123",

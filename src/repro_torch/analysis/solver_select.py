@@ -50,6 +50,7 @@ def conformance_row(solver: str, sde_name: str, sde, *, seed: int = 0, device="c
     denoise, the port's own RNG from ``seed``; W2 to the exact marginal
     at t_eps, mean NFE, the gate and the solve's iterations."""
     from repro_torch.core import analytic
+    from repro_torch.core.precision import resolve_policy
     from repro_torch.core.sampling import sample
 
     kw, tol = zoo_cases()[solver]
@@ -59,7 +60,8 @@ def conformance_row(solver: str, sde_name: str, sde, *, seed: int = 0, device="c
     x = res.x.double()
     mean, std = x.mean().item(), x.std(unbiased=False).item()
     mu_a, s_a = analytic.gaussian_marginal_moments(sde, MU, S0)
-    return {"solver": solver, "sde": sde_name, "precision": "fp32", "conditioner": "none",
+    precision = resolve_policy(kw.get("precision")).name
+    return {"solver": solver, "sde": sde_name, "precision": precision, "conditioner": "none",
             "mean_err": abs(mean - mu_a), "std_err": abs(std - s_a),
             "w2": analytic.gaussian_w2(mean, std, mu_a, s_a),
             "mean_nfe": float(res.mean_nfe), "tol": tol, "iterations": int(res.iterations)}

@@ -13,7 +13,9 @@ import torch
 
 
 def resolve_device(device="cuda") -> torch.device:
-    """``"cuda"`` | ``"cpu"`` | ``torch.device`` → ``torch.device``.
+    """``"cuda"`` | ``"cpu"`` | ``"meta"`` | ``torch.device`` →
+    ``torch.device``. ``"meta"`` (shapes and dtypes, no storage) is for
+    the dry run (``launch/dryrun.py``), which asks for it by name.
 
     Raises ``RuntimeError`` for a CUDA device when no card is present.
     """
@@ -25,6 +27,6 @@ def resolve_device(device="cuda") -> torch.device:
                 "port's plain PyTorch path on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r} (want 'cuda' or 'cpu')")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r} (want 'cuda', 'cpu' or 'meta')")
     return dev

@@ -64,8 +64,9 @@ def _make_forward(pcfg: PlannerConfig, unet: bool, precision: str,
         t_dim=32, groups=4, returns_bins=RETURNS_BINS if pcfg.guidance_scale else 0,
         attention=attention, use_flash=attention, use_fused_norm=fused_norm)
     dev = resolve_device(device)
-    params = init_temporal_unet(ucfg, torch.Generator(device=dev).manual_seed(0),
-                                dtype=policy.param)
+    # weights stored at the policy's param dtype (reference :72)
+    params = policy.cast_params(
+        init_temporal_unet(ucfg, torch.Generator(device=dev).manual_seed(0)))
 
     def fwd(p, x, t, y=None):
         return temporal_unet_forward(p, x, t, policy=policy, y=y)

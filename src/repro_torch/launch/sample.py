@@ -1,7 +1,6 @@
-"""Demo sampling launcher; port of the run mode of
+"""Demo sampling launcher; port of the run and dry-run modes of
 ``repro/launch/sample.py`` and of its ``make_sample_step``, the serving
-loop's device step (its dry-run modes lower XLA programs and have no
-counterpart here).
+loop's device step.
 
 Samples a batch from a DiT score network made from a seed on the VP SDE,
 first with the adaptive solver and then with Euler–Maruyama at 100
@@ -25,6 +24,19 @@ solve runs there: the baselines are not data-parallel yet (ROADMAP A11).
 
   torchrun --nproc-per-node 2 --master-addr localhost --master-port 29500 \
       -m repro_torch.launch.sample --device cpu
+
+``--dryrun`` counts one Algorithm-1 iteration (two forwards and the step
+math, as the reference's ``dryrun``) of HIGHRES_DIT on the VE SDE at
+batch 512, on meta tensors (no card, nothing drawn), under
+``--precision``'s policy, and one forward alone (one NFE): FLOPs and
+bytes from ``launch/dryrun.py::count``, and the policy's dtypes with the
+weight and state bytes they imply (``_precision_record``, one device).
+The record goes to ``--out`` (default ``experiments/dryrun_torch/``).
+The whole sharded loop (``--dryrun-loop``), the pipelined forward
+(``--pipeline``) and the two-pod mesh (``--multi-pod``) wait for ROADMAP
+A11 and say so when asked for.
+
+  PYTHONPATH=src python -m repro_torch.launch.sample --dryrun --precision bf16_full
 """
 
 from __future__ import annotations
@@ -42,14 +54,18 @@ import torch
 from repro_torch.configs.diffusion import ARCHS
 from repro_torch.core.precision import PRESETS, resolve_policy
 from repro_torch.core.sampling import gather_result, sample
-from repro_torch.core.sde import VPSDE, bcast
+from repro_torch.core.sde import VESDE, VPSDE, bcast
+from repro_torch.core.solvers import adaptive as ad
 from repro_torch.core.solvers.adaptive import AdaptiveConfig, capture_horizon, solve_chunk
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.solver_step import ops as step_ops
 from repro_torch.models.dit import (
-    dit_forward, init_dit, liven_zero_init, make_score_fn, param_count,
+    DiT, dit_forward, init_dit, liven_zero_init, make_score_fn, param_count,
 )
+
+DRYRUN_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                          "experiments", "dryrun_torch")
 
 
 #: the solvers that run Algorithm 1's body and take its configuration
@@ -110,6 +126,7 @@ def make_sample_step(sde, cfg: AdaptiveConfig, forward_fn=None):
         return solve_chunk(sde, score_of(params), carry, max_sync_iters=max_sync_iters,
                            config=cfg)
 
+    sample_step.score_of = score_of
     sample_step.capture_horizon = lambda params, carry, sync_horizon: capture_horizon(
         sde, score_of(params), carry, sync_horizon=sync_horizon, config=cfg)
     return sample_step
@@ -170,6 +187,60 @@ def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
     }
 
 
+def _precision_record(policy, params, state_x) -> dict:
+    """The policy's dtypes and the bytes they imply (reference :214) on
+    one device: the stored weights, and x and x_prev of the carry
+    (``state_x`` is the (B, ...) state)."""
+    rec = policy.as_dict()
+    rec["param_bytes_total"] = sum(p.numel() * p.element_size() for p in params)
+    rec["state_bytes_per_device"] = 2 * state_x.numel() * state_x.element_size()
+    return rec
+
+
+def dryrun(batch: int = 512, precision: str = "fp32", *, arch: str = "highres_dit",
+           out_dir: str = DRYRUN_DIR, save: bool = True) -> dict:
+    """One Algorithm-1 iteration of ``arch`` on the VE SDE (σ_max 50, the
+    paper's high-resolution process, eps_rel 0.02), counted on meta
+    tensors under ``precision`` (reference :236); one forward counted
+    alone gives the per-NFE FLOPs and bytes. The plain attention and step
+    math run (``use_flash=False``, ``use_fused_kernel=False``): the
+    kernels' wrappers take CPU or CUDA tensors only."""
+    from repro_torch.launch.dryrun import count
+
+    meta = torch.device("meta")
+    net = dataclasses.replace(ARCHS[arch], use_flash=False)
+    sde = VESDE(sigma_max=50.0)
+    policy = resolve_policy(precision)
+    model = policy.cast_params(DiT(net, device=meta))  # stored at the param dtype
+    shape = (batch, net.image_size, net.image_size, net.channels)
+    cfg = AdaptiveConfig(eps_rel=0.02, precision=policy)
+    step = make_sample_step(sde, cfg)
+    carry = ad.init_carry(sde, torch.empty(shape, device=meta), None, config=cfg)
+    body = ad._make_body(sde, step.score_of(model), cfg, float(sde.abs_tolerance),
+                         ad._step_math_jnp, noise_fn=torch.randn_like)
+    with torch.no_grad():
+        it = count(body, carry)
+        nfe = count(lambda x, t: dit_forward(model, x, t, policy=policy),
+                    carry.x, carry.t)
+    rec = {"arch": f"dit-{arch.removesuffix('_dit')}-sampler", "shape": f"sample_b{batch}_"
+           f"{net.image_size}px", "mesh": "1card", "devices": 1, "dtype": policy.compute_dtype,
+           "cost": it, "per_nfe": {"flops": nfe["flops"],
+                                   "bytes": nfe["est_hbm_traffic_bytes"]},
+           "precision": _precision_record(policy, model.parameters(), carry.x),
+           "note": "one Algorithm-1 iteration (2 score-net forwards + step math)"}
+    if save:
+        os.makedirs(out_dir, exist_ok=True)
+        suffix = "" if policy.is_fp32 else f"_{policy.name}"
+        with open(os.path.join(out_dir, f"{rec['arch']}_{rec['shape']}_1card{suffix}.json"),
+                  "w") as f:
+            json.dump(rec, f, indent=1, sort_keys=True)
+    print(f"[{rec['arch']} × {rec['shape']} × 1card, {policy.name}] flops {it['flops']:.3e} "
+          f"(a forward {nfe['flops']:.3e}), traffic {it['est_hbm_traffic_bytes'] / 2**30:.2f} "
+          f"GiB, weights {rec['precision']['param_bytes_total'] / 2**30:.3f} GiB, state "
+          f"{rec['precision']['state_bytes_per_device'] / 2**30:.3f} GiB")
+    return rec
+
+
 def _converged(res, max_iters: int) -> int:
     """Samples that reached t_eps. Below the iteration cap the solve ran
     until all did; at the cap, a sample that was active in every
@@ -182,8 +253,9 @@ def _converged(res, max_iters: int) -> int:
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", choices=sorted(ARCHS), default="cifar_dit")
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--arch", choices=sorted(ARCHS),
+                    help="cifar_dit; highres_dit with --dryrun")
+    ap.add_argument("--batch", type=int, help="8; 512 with --dryrun")
     ap.add_argument("--precision", choices=sorted(PRESETS), default="fp32")
     ap.add_argument("--eps-rel", type=float, default=0.05)
     ap.add_argument("--max-iters", type=int, default=100_000)
@@ -195,7 +267,20 @@ def main(argv=None) -> list:
     ap.add_argument("--liven-seed", type=int, default=0,
                     help="seed for the zero-init leaves; -1 keeps them at 0")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="count one iteration at --batch (default 512) on meta tensors")
+    ap.add_argument("--out", default=DRYRUN_DIR, help="the dry run's record directory")
+    for flag in ("--dryrun-loop", "--pipeline", "--multi-pod"):
+        ap.add_argument(flag, action="store_true", help="waits for ROADMAP A11")
     args = ap.parse_args(argv)
+    for flag in ("dryrun_loop", "pipeline", "multi_pod"):
+        if getattr(args, flag):
+            raise SystemExit(f"--{flag.replace('_', '-')} needs a device mesh, which waits "
+                             f"for ROADMAP A11")
+    if args.dryrun:
+        return [dryrun(args.batch or 512, args.precision, arch=args.arch or "highres_dit",
+                       out_dir=args.out)]
+    args.arch, args.batch = args.arch or "cifar_dit", args.batch or 8
     mesh, device = None, args.device
     methods = (("adaptive", {}), ("em", dict(n_steps=100)))
     if "WORLD_SIZE" in os.environ:

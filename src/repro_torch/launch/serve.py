@@ -154,7 +154,7 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
     # returns exactly 0), stored at the policy's param dtype
     model = init_dit(net, torch.Generator(device=dev).manual_seed(0))
     liven_zero_init(model, torch.Generator(device=dev).manual_seed(0))
-    model.to(policy.param)
+    policy.cast_params(model)
     step = make_sample_step(sde, cfg)
     shape = (image_size, image_size, net.channels)
     tiered = tier is not None

@@ -11,9 +11,10 @@ state) → (next tokens (B, 1[, K]) int32, state'), greedy. ``batch`` is a
 dict with ``"tokens"`` and, as the model needs, ``"cross_embeds"`` (the
 image embeddings of the cross-attention layers) and, for continuous
 batching, ``"start_pos"`` (B,), as in the reference. The prefill and
-serve steps run without autograd, every step in full fp32 (TF32 off), on
-``device``: the card unless the caller asks for the CPU; they raise at
-construction when no card is there.
+serve steps run without autograd, every step in the config's dtype
+(``ModelConfig.dtype``; fp32 products with TF32 off), on ``device``: the
+card unless the caller asks for the CPU (or, for the dry run's meta
+tensors, ``"meta"``); they raise at construction when no card is there.
 """
 
 from __future__ import annotations

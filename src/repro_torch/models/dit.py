@@ -258,13 +258,14 @@ def make_score_fn(model: DiT, sde, policy=None):
     """s(x, t) = −net(x, t)/std(t) (noise-prediction parametrisation).
 
     With ``policy`` the module's parameters are cast in place to
-    ``policy.param`` (no second copy of the weights is kept), x is cast
+    ``policy.param`` by ``policy.cast_params`` (no second copy of the
+    weights is kept), x is cast
     to ``policy.compute`` on entry, the division by std runs in fp32, and
     the score is returned in ``policy.state``. With a class-conditional
     config the score takes an optional ``y``.
     """
     if policy is not None:
-        model.to(policy.param)
+        policy.cast_params(model)
 
     def score(x: Tensor, t: Tensor, y: Optional[Tensor] = None) -> Tensor:
         _, std = sde.marginal(t)

@@ -29,6 +29,20 @@ def to_tensor(a) -> Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
+class Unseeded:
+    """Stands in for a ``torch.Generator`` on the meta device, which has
+    none: the init functions allocate their leaves there and draw nothing
+    (``launch/specs.py::abstract_params``)."""
+
+    device = torch.device("meta")
+
+
+def draws_from(generator):
+    """The ``generator=`` of a draw: None for ``Unseeded`` (a meta tensor
+    holds no values), else the generator itself."""
+    return None if isinstance(generator, Unseeded) else generator
+
+
 def new_leaf(alloc, shape, dtype, device) -> Tensor:
     """An uninitialised parameter leaf: ``alloc(shape, dtype)`` where the
     caller hands one in (``transformer.init_model`` gives views into the
@@ -48,7 +62,7 @@ def dense_init(shape, *, generator: torch.Generator, dtype=torch.float32,
     out = new_leaf(alloc, shape, dtype, generator.device)
     w = out if out.dtype == torch.float32 else torch.empty(
         tuple(shape), dtype=torch.float32, device=generator.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=draws_from(generator))
     w.mul_(fan ** -0.5)
     if w is not out:
         out.copy_(w)

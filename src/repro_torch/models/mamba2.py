@@ -30,7 +30,7 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import MambaState, init_mamba_state
-from repro_torch.models.layers import apply_norm, dense_init, init_norm, new_leaf
+from repro_torch.models.layers import apply_norm, dense_init, draws_from, init_norm, new_leaf
 
 Tensor = torch.Tensor
 
@@ -50,7 +50,7 @@ def init_mamba(cfg: ModelConfig, generator: torch.Generator, alloc=None) -> dict
     dtype = _dtype(cfg)
     dev = generator.device
     # dt bias so that softplus(dt_bias) spans [1e-3, 1e-1] (mamba default)
-    u = torch.rand(H, generator=generator, device=dev)
+    u = torch.rand(H, generator=draws_from(generator), device=dev)
     dt0 = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))  # inverse softplus
     d = lambda shape, fan_in=None: dense_init(shape, generator=generator, dtype=dtype,

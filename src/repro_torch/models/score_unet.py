@@ -337,11 +337,11 @@ def make_score_fn(model: nn.Module, sde, policy=None):
     """Noise-prediction net → score: s(x, t) = −net(x, t)/std(t).
 
     With ``policy`` the module's parameters are cast in place to
-    ``policy.param``, x to ``policy.compute`` on entry; the division by
+    ``policy.param`` by ``policy.cast_params``, x to ``policy.compute`` on entry; the division by
     std runs in fp32 and the score is returned in ``policy.state``.
     """
     if policy is not None:
-        model.to(policy.param)
+        policy.cast_params(model)
 
     def score(x: Tensor, t: Tensor) -> Tensor:
         _, std = sde.marginal(t)

@@ -370,11 +370,11 @@ def make_score_fn(model: TemporalUNet, sde, policy=None):
     trajectories.
 
     With ``policy`` the module's parameters are cast in place to
-    ``policy.param``, x goes to ``policy.compute``, the division by std
+    ``policy.param`` by ``policy.cast_params``, x goes to ``policy.compute``, the division by std
     runs in fp32, and the score comes back in ``policy.state``.
     """
     if policy is not None:
-        model.to(policy.param)
+        policy.cast_params(model)
 
     def score(x: Tensor, t: Tensor, y: Optional[Tensor] = None) -> Tensor:
         _, std = sde.marginal(t)

@@ -43,7 +43,7 @@ from repro_torch.models.attention import attention_decode, attention_forward, in
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import init_kv_cache
 from repro_torch.models.layers import (
-    apply_mlp, apply_norm, dense_init, init_mlp, init_norm, to_tensor)
+    Unseeded, apply_mlp, apply_norm, dense_init, init_mlp, init_norm, to_tensor)
 from repro_torch.models.mamba2 import (
     init_mamba,
     init_mamba_decode_state,
@@ -166,10 +166,12 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
     on ``device`` (the card unless the caller asks for the CPU): the
     embedding ((V, E), or (K, V, E) with K codebooks), each pattern
     position's layers in turn (``_init_stacked``), the head ((E, V) or
-    (K, E, V); none when the embedding is tied as the head)."""
+    (K, E, V); none when the embedding is tied as the head). On
+    ``device="meta"`` the leaves are allocated and nothing is drawn (the
+    dry run's abstract parameters)."""
     _check_config(cfg)
     dev = resolve_device(device)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = Unseeded() if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
     K = cfg.num_codebooks
     lead = (K,) if K > 1 else ()
