@@ -1,7 +1,9 @@
 """Roofline analysis of the dry run's records on one H100; port of
 ``repro/analysis/roofline.py``.
 
-Per (arch × shape), from ``launch/dryrun.py``'s counted FLOPs and bytes:
+Per (arch × shape), from ``launch/dryrun.py``'s counted FLOPs and bytes
+(the port's path on the card: K3's visible pairs on a prefill's "A"/"L"
+layers, the plain path elsewhere):
 
     compute    = FLOPs / peak FLOP/s of the record's dtype
     memory     = estimated HBM traffic / HBM bandwidth
@@ -37,15 +39,13 @@ from typing import Dict, Mapping, Optional
 
 from repro_torch.configs import ARCH_IDS, get_config, get_shape
 from repro_torch.configs.shapes import apply_shape_policy
+from repro_torch.launch.dryrun import OUT_DIR as DRYRUN_DIR
 
 #: H100 SXM5 peaks (data sheet, dense)
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 HBM_BW = 3.35e12          # bytes/s
 LINK_BW = 450e9           # bytes/s, NVLink one way
 CARD = "H100 SXM5 80 GB, 700 W"
-
-DRYRUN_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                          "experiments", "dryrun_torch")
 
 
 def peak_flops(dtype: str) -> float:

@@ -29,6 +29,7 @@ import time
 
 import torch
 
+from repro_torch.analysis.roofline import HBM_BW
 from repro_torch.core import analytic
 from repro_torch.core.sde import VPSDE
 from repro_torch.core.solvers.adaptive import AdaptiveConfig
@@ -42,8 +43,6 @@ REQUESTS_PER_SLOT = 3
 SYNC_HORIZONS = (1, 4, 8)
 #: the trajectory rows of section 2: (plans, horizon · transition width)
 TRAJ_ROWS = (("traj16x6", 64, 96), ("traj32x8", 64, 256))
-#: H100 SXM memory rate (NVIDIA data sheet), for section 2's bound
-HBM_BYTES_PER_S = 3.35e12
 
 
 def emit(name: str, us: float, derived: str) -> None:
@@ -121,7 +120,7 @@ def bench_trajectory_rows(device) -> dict:
                  step_ops.per_sample_tolerance(0.0078, b, dev),
                  step_ops.per_sample_tolerance(0.05, b, dev)) for _ in range(4)]
         ms = device_ms(fn, sets)
-        bound = (6 * b * d * 4 + 6 * b * 4) / HBM_BYTES_PER_S * 1e3
+        bound = (6 * b * d * 4 + 6 * b * 4) / HBM_BW * 1e3
         emit(f"device_serving/kernel/{name}", ms * 1e3,
              f"bound_us={bound * 1e3:.3f};rows={b};features={d}")
         out[name] = {"ms": ms, "bound_ms": bound}

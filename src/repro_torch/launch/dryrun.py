@@ -8,16 +8,19 @@ writes one JSON record a combination to ``--out`` (default
 ``experiments/dryrun_torch/``, ignored by git) for
 ``analysis/roofline.py``:
 
-  * ``cost.flops``: the products' FLOPs (matmuls, batched matmuls,
-    convolutions; elementwise work is not counted), by operator in
-    ``cost.flops_by_op``. Attention runs the plain path, so a causal or
-    windowed layer counts its full S × S products, as the reference's
-    ``cost_analysis`` of its plain path does;
+  * ``cost.flops``: the products' FLOPs of the port's path on the card
+    (matmuls, batched matmuls, convolutions; elementwise work is not
+    counted). The step runs the plain attention, which computes every
+    S × S product of a causal or windowed layer; on the card a prefill's
+    "A"/"L" layers run K3, which computes the visible (query, key) pairs
+    only, so ``k3_correction`` takes the masked products out. Train and
+    decode run the plain attention on the card too and keep their count.
+    ``cost.plain_path`` keeps the plain path's counts, ``cost.flops_by_op``
+    its FLOPs by operator;
   * ``cost.est_hbm_traffic_bytes``: the products' operands read once and
     results written once, as if every elementwise operator were fused
-    into its neighbours (the roofline's memory term); beside it
-    ``cost.unfused_traffic_bytes``, every operator's tensor inputs and
-    outputs (views move nothing), the traffic of an unfused program;
+    into its neighbours (the roofline's memory term); on K3's layers q, k,
+    v and the output once in place of the plain path's fp32 S × S scores;
   * ``memory``: the bytes of the parameters, the optimizer moments, the
     decode state and the outputs;
   * ``devices``: 1.
@@ -33,19 +36,20 @@ production mesh (``--multi-pod``) waits for ROADMAP A11.
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import os
 import time
 import traceback
-from typing import Callable, Dict
+from typing import Callable, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
-from repro_torch.configs import ARCH_IDS, SHAPES, get_config, get_shape
-from repro_torch.launch.specs import build_dryrun
+from repro_torch.configs import ARCH_IDS, SHAPES, InputShape, get_config, get_shape
+from repro_torch.launch.specs import DryRunSpec, build_dryrun
+from repro_torch.models.attention import attention
+from repro_torch.models.config import ModelConfig
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
@@ -70,30 +74,23 @@ def _leaves(tree) -> list:
 
 
 class _Traffic(TorchDispatchMode):
-    """Bytes each operator reads (its tensor arguments) and writes (its
-    outputs), in all and for the products (the operators with a FLOP
-    formula); views move nothing."""
+    """Bytes the products (the operators with a FLOP formula) read (their
+    tensor arguments) and write (their outputs)."""
 
     def __init__(self):
         super().__init__()
-        self.bytes = self.product_bytes = 0
-        self.by_op: Dict[str, int] = collections.Counter()
+        self.product_bytes = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if not getattr(func, "is_view", False):
-            n = tensor_bytes((args, kwargs)) + tensor_bytes(out)
-            self.bytes += n
-            self.by_op[str(func.overloadpacket)] += n
-            if func.overloadpacket in flop_registry:
-                self.product_bytes += n
+        if func.overloadpacket in flop_registry:
+            self.product_bytes += tensor_bytes((args, kwargs)) + tensor_bytes(out)
         return out
 
 
 def count(fn: Callable, *args) -> dict:
     """Run ``fn(*args)`` (meta tensors) under both counters: {"flops",
-    "flops_by_op", "est_hbm_traffic_bytes", "unfused_traffic_bytes",
-    "bytes_by_op", "output_bytes"}."""
+    "flops_by_op", "est_hbm_traffic_bytes", "output_bytes"}."""
     flops = FlopCounterMode(display=False)
     traffic = _Traffic()
     with flops, traffic:
@@ -101,9 +98,52 @@ def count(fn: Callable, *args) -> dict:
     by_op = {str(k): int(v) for k, v in flops.get_flop_counts().get("Global", {}).items()}
     return {"flops": float(flops.get_total_flops()), "flops_by_op": by_op,
             "est_hbm_traffic_bytes": float(traffic.product_bytes),
-            "unfused_traffic_bytes": float(traffic.bytes),
-            "bytes_by_op": dict(sorted(traffic.by_op.items(), key=lambda kv: -kv[1])[:8]),
             "output_bytes": tensor_bytes(out)}
+
+
+def visible_pairs(S: int, window: Optional[int]) -> int:
+    """The (query, key) pairs of a causal layer over S positions, each
+    query seeing its last ``window`` keys (all with None)."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def k3_correction(cfg: ModelConfig, shape: InputShape) -> dict:
+    """K3's cost less the plain path's counted cost, summed over a
+    prefill's "A"/"L" layers ({"flops", "bytes"}, both ≤ 0): K3 computes
+    QKᵀ and PV over the visible pairs only (4·B·Hq·D a pair) and moves
+    q, k, v and the output once; the plain path's cost is counted on a
+    layer of the same shape. Zero for train and decode, and for layers
+    with a logit softcap (the plain path runs there on the card too)."""
+    if shape.kind != "prefill" or cfg.attn_logit_softcap:
+        return {"flops": 0.0, "bytes": 0.0}
+    B, S, Hq, Hkv, D = (shape.global_batch, shape.seq_len, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim)
+    meta, dtype = torch.device("meta"), getattr(torch, cfg.dtype)
+    q = torch.empty(B, S, Hq, D, dtype=dtype, device=meta)
+    kv = torch.empty(B, S, Hkv, D, dtype=dtype, device=meta)
+    flops = nbytes = 0.0
+    for kind in cfg.mixer_pattern:
+        if kind not in ("A", "L"):
+            continue
+        window = cfg.sliding_window if kind == "L" else None
+        plain = count(lambda: attention(q, kv, kv, causal=True, window=window))
+        k3_bytes = q.element_size() * B * S * D * (2 * Hq + 2 * Hkv)
+        flops += cfg.num_repeats * (4 * B * Hq * D * visible_pairs(S, window) - plain["flops"])
+        nbytes += cfg.num_repeats * (k3_bytes - plain["est_hbm_traffic_bytes"])
+    return {"flops": flops, "bytes": nbytes}
+
+
+def step_cost(spec: DryRunSpec, shape: InputShape) -> dict:
+    """``count`` of the spec's step, with ``k3_correction`` applied to
+    its FLOPs and traffic; the plain path's counts under "plain_path"."""
+    cost = count(spec.fn, *spec.args)
+    k3 = k3_correction(spec.cfg, shape)
+    cost["plain_path"] = {k: cost[k] for k in ("flops", "est_hbm_traffic_bytes")}
+    cost["flops"] += k3["flops"]
+    cost["est_hbm_traffic_bytes"] += k3["bytes"]
+    return cost
 
 
 def check_meta(tree, what: str) -> None:
@@ -125,7 +165,7 @@ def run_one(arch: str, shape_name: str, *, remat: str = "none", dtype: str = "bf
                         dtype=dtype, cfg_overrides=cfg_overrides,
                         last_logits_only=last_logits_only)
     check_meta(spec.args, "arguments")
-    cost = count(spec.fn, *spec.args)
+    cost = step_cost(spec, shape)
     params = spec.args[0]
     opt_bytes = tensor_bytes((spec.args[1].mu, spec.args[1].nu)) if spec.kind == "train" else 0
     state_bytes = tensor_bytes(spec.args[2]) if spec.kind == "decode" else 0

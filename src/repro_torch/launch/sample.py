@@ -60,12 +60,10 @@ from repro_torch.core.solvers.adaptive import AdaptiveConfig, capture_horizon, s
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.solver_step import ops as step_ops
+from repro_torch.launch.dryrun import OUT_DIR as DRYRUN_DIR, count
 from repro_torch.models.dit import (
     DiT, dit_forward, init_dit, liven_zero_init, make_score_fn, param_count,
 )
-
-DRYRUN_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                          "experiments", "dryrun_torch")
 
 
 #: the solvers that run Algorithm 1's body and take its configuration
@@ -205,8 +203,6 @@ def dryrun(batch: int = 512, precision: str = "fp32", *, arch: str = "highres_di
     alone gives the per-NFE FLOPs and bytes. The plain attention and step
     math run (``use_flash=False``, ``use_fused_kernel=False``): the
     kernels' wrappers take CPU or CUDA tensors only."""
-    from repro_torch.launch.dryrun import count
-
     meta = torch.device("meta")
     net = dataclasses.replace(ARCHS[arch], use_flash=False)
     sde = VESDE(sigma_max=50.0)

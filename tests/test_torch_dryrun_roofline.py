@@ -9,6 +9,9 @@
   1e-12 relative;
 * a scaled-down dense prefill's counted FLOPs equal a hand count of its
   products and its attention within 1 %;
+* a prefill's cost on the card (``step_cost``) counts K3's layers by
+  their visible pairs and q, k, v and the output once, exactly as a hand
+  count, causal and windowed; train and decode keep the plain count;
 * remat "full" counts more train FLOPs than "none";
 * every architecture at scaled-down widths runs its train, prefill and
   decode step on meta tensors, and no operator makes a tensor off the
@@ -67,6 +70,37 @@ def test_dense_prefill_flops_equal_a_hand_count():
     attn = 2 * 2 * B * H * S * S * Dh
     want = cfg.num_layers * (proj + mlp + attn) + 2 * B * E * V
     assert got == pytest.approx(want, rel=0.01)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "gemma3-12b"])
+def test_prefill_cost_counts_k3_visible_pairs(arch):
+    """olmo-1b (causal "A") and gemma3-12b ("L" with a window of 16 once
+    scaled down, and "A") at a (2, 64) prefill in fp32: FLOPs as the
+    dense hand count with QKᵀ and PV over the visible pairs only; bytes as
+    the plain path's less its fp32 attention products (QKᵀ reads q and k
+    and writes the scores, PV reads them and v and writes the output:
+    4·B·Hq·(4·S·D + 2·S²) a layer) plus K3's q, k, v and output."""
+    cfg = get_config(arch).scaled_down()
+    B, S = 2, 64
+    shape = InputShape("p64", S, B, "prefill")
+    cost = dryrun.step_cost(build_dryrun(cfg, shape, dtype="float32"), shape)
+    E, H, Kv, Dh, F, V = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                          cfg.d_ff, cfg.vocab_size)
+    T = B * S
+    proj = 2 * T * E * Dh * (2 * H + 2 * Kv)
+    mlp = 2 * T * E * F * (3 if cfg.glu else 2)
+    windows = [cfg.sliding_window if m == "L" else None for m in cfg.mixer_pattern]
+    pairs = cfg.num_repeats * sum(
+        sum(min(i + 1, w or S) for i in range(S)) for w in windows)
+    dense = cfg.num_layers * (proj + mlp + 4 * B * H * Dh * S * S) + 2 * B * E * V
+    assert cost["flops"] == cfg.num_layers * (proj + mlp) + 4 * B * H * Dh * pairs + 2 * B * E * V
+    assert cost["plain_path"]["flops"] == dense
+    per_layer = 4 * B * S * Dh * (2 * H + 2 * Kv) - 4 * B * H * (4 * S * Dh + 2 * S * S)
+    assert cost["est_hbm_traffic_bytes"] == (cost["plain_path"]["est_hbm_traffic_bytes"]
+                                             + cfg.num_layers * per_layer)
+    for kind in ("train", "decode"):
+        assert dryrun.k3_correction(cfg, InputShape("x", S, B, kind)) == {"flops": 0.0,
+                                                                          "bytes": 0.0}
 
 
 def test_remat_full_counts_more_train_flops():
