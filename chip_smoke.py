@@ -326,10 +326,29 @@ Phases; any failure exits non-zero before the result line is printed:
              card (NCCL refuses two ranks on one GPU): the closed-form
              checks bitwise, K4's feature combine, and the DiT solve
              finite, converged and within 4 NFE of the unsharded one per
-             sample. Last, K4's device time at (8, 196,608) and at a
-             (8, 98,304) feature half, one NCCL all_reduce of 9 floats,
-             and the sharded solve's wall times against the unsharded
-             solve's, warm and in turns, and against phase 3's.
+             sample. The same selftest serves on the mesh (checks 3, 4
+             and 6 of ``sharded_selftest``): the reference's sharded
+             ``DiffusionBatcher`` check on the Gaussian (bitwise an
+             unsharded batcher at horizon 1, per-device refill) and its
+             device-resident twin (bitwise the host-driven mesh server,
+             equal iterations, fewer reads; at world 2 over gloo, that
+             asking for it raises: a gloo collective cannot be captured);
+             then phase 6a's tiered HIGHRES_DIT serve (8 slots, 16
+             requests over the tiers under EDF, horizon 4) on the mesh.
+             World 1 (NCCL): host-driven and device-resident (the NCCL
+             all-reduce captured in the WHILE node's body, P2 reading the
+             agreed flags), each per request bitwise the unsharded serve,
+             with K4 (per-row tolerances), K3, P1 and, device-resident, P2
+             launches counted from 0 over the mesh serve, its reads,
+             windows and walls; and EM at 59 steps from HIGHRES_DIT under
+             ``mesh=`` (K5, 59 launches), bitwise the unsharded EM. World
+             2 (gloo, host-driven): every request delivered finite, NFE
+             within 4 of the unsharded serve per request, bitwise
+             reported, the refills per rank. Last, K4's device time at
+             (8, 196,608) and at a (8, 98,304) feature half, one NCCL
+             all_reduce of 9 floats, and the sharded solve's wall times
+             against the unsharded solve's, warm and in turns, and against
+             phase 3's.
 9. precision — the precision seams in bf16 at full width, after the LM
              phases have freed their memory (< 1 GiB held at its start and
              before each LM): (a) HIGHRES_DIT, batch 8, phase 3's seeded
@@ -1411,7 +1430,8 @@ def run_device_serve(dev, card: str, floor_ms: float) -> dict:
     # the device-resident drain's launches: what the captured horizon
     # holds, times the horizons the device ran, plus the eager calls
     names = {step_ops: "solver_step", flash_ops: "flash_attention", ph: "philox_normal"}
-    recorded = {names[m]: n for m, n in b_dev._driver.graph.recorded.items() if m in names}
+    recorded = {names[m]: n for (m, c), n in b_dev._driver.graph.recorded.items()
+                if m in names and c == "launches"}
     per_iter = {k: v / H for k, v in recorded.items()}
     eager = {k: launches[k] - recorded[k] * b_dev.device_horizons for k in recorded}
     admits = b_dev.tracer.stage_histograms()["serve/admission"]["count"]
@@ -3292,6 +3312,7 @@ def run_sharded(dev, card: str, main_wall_s: float) -> dict:
           f"{two['finite']}; K4 feature combine max rel e2 "
           f"{runs[2]['fused_kernel']['max_rel_e2_feature']:.3e}. One card: no speed-up is "
           f"measured here.")
+    mesh = mesh_serving(runs, card)
 
     # timings, each beside the card's name and power limit
     sets_full, sets_half = [], []
@@ -3325,7 +3346,71 @@ def run_sharded(dev, card: str, main_wall_s: float) -> dict:
           f"{walls(one['unsharded_warm_walls_s'])} s (order S U U S); world 2 on one card, "
           f"sharded {walls(two['sharded_walls_s'])} s")
     return {"launches": launches["sharded_solver_step"], "max_abs_err": err[(torch.float32, 2)],
-            "times": t, "all_reduce_9_us": ar["event_us"], "runs": runs}
+            "times": t, "all_reduce_9_us": ar["event_us"], "runs": runs, "mesh": mesh}
+
+
+def mesh_serving(runs: dict, card: str) -> dict:
+    """Phase 8's serving half, read from the selftest's JSON (checks 3, 4,
+    6 and check 5's EM): prints and gates it, and returns the launches of
+    the mesh serves for the kernels line."""
+    for world, run in sorted(runs.items()):
+        b, dr = run["batcher"], run["device_resident"]
+        print(f"  world {world} {run['backend']}: DiffusionBatcher(mesh=) on the Gaussian "
+              f"({2 * world} slots, {6 * world} requests, horizon 4): bitwise the unsharded "
+              f"batcher at horizon 1 {b['scheduling_invariant']}, refills per device "
+              f"{b['refills_per_device']} (first fill {b['slots_per_device']} each)")
+        if dr["capturable"]:
+            print(f"    device-resident: bitwise the host-driven mesh server "
+                  f"{dr['bitwise_equal']}, iterations equal {dr['iterations_equal']}, reads "
+                  f"{dr['resident_transfers']} against {dr['host_transfers']}, "
+                  f"{dr['graph_captures']} horizon graph(s) captured")
+        else:
+            print(f"    device-resident on this gloo mesh raises (a gloo collective cannot be "
+                  f"captured): {dr['raises']}")
+    one, two = runs[1]["arch_serve"], runs[2]["arch_serve"]
+    ref = one["unsharded"]
+    print(f"  [{card}] HIGHRES_DIT tiered serve, 16 requests, 8 slots, horizon 4: unsharded "
+          f"(rank 0) {ref['wall_s']:.3f} s, {ref['host_transfers']} reads, "
+          f"{ref['iterations']} iterations, mean NFE by tier {ref['mean_nfe']}")
+    for world, serve in ((1, one), (2, two)):
+        for name in ("host", "device_resident"):
+            r = serve[name]
+            if "launches" not in r:
+                continue
+            print(f"  [{card}] world {world} ({runs[world]['backend']}) {name}: {r['wall_s']:.3f} "
+                  f"s, bitwise the unsharded serve per request {r['bitwise_equal']}, max NFE "
+                  f"diff {r['max_nfe_diff']}, max|x diff| {r['max_abs_diff']:.3e}, delivered "
+                  f"{r['delivered']}, reads {r['host_transfers']}, solver syncs "
+                  f"{r['solver_syncs']}, windows {r['windows']}, iterations {r['iterations']}, "
+                  f"graph captures {r['graph_captures']}, refills per device "
+                  f"{r['refills_per_device']}; launches from 0 over the serve (rank 0): "
+                  f"{r['launches']}")
+    em = runs[1]["arch"]["em"]
+    print(f"  [{card}] EM-{em['steps']} from HIGHRES_DIT under mesh= (world 1, NCCL): K5 "
+          f"{em['launches']} launches, bitwise the unsharded EM {em['bitwise_equal']}, "
+          f"{em['wall_s']:.3f} s against {em['unsharded_wall_s']:.3f} s")
+    host, res = one["host"], one["device_resident"]
+    if not (host["bitwise_equal"] and res["bitwise_equal"] and em["bitwise_equal"]):
+        fail("the world-1 mesh serve or EM differs from the unsharded run")
+    for name, r in (("host", host), ("device_resident", res)):
+        n = r["launches"]
+        if n["sharded_solver_step"] <= 0 or n["flash_attention"] <= 0 or n["philox_normal"] <= 0:
+            fail(f"the world-1 mesh serve ({name}) did not run K4, K3 and P1: {n}")
+    if res["launches"]["horizon_cond"] <= 0 or res["graph_captures"] != 1:
+        fail("the device-resident mesh serve did not run the WHILE node's P2")
+    if res["host_transfers"] >= host["host_transfers"]:
+        fail("the device-resident mesh serve did not read less than the host-driven one")
+    if em["launches"] != em["steps"]:
+        fail(f"EM under the mesh launched K5 {em['launches']} times, not {em['steps']}")
+    if not two["host"]["ok"]:
+        fail("the world-2 mesh serve missed a request, a finite sample or the NFE slack")
+    return {"k4": host["launches"]["sharded_solver_step"]
+            + res["launches"]["sharded_solver_step"],
+            "k3": host["launches"]["flash_attention"] + res["launches"]["flash_attention"],
+            "p1": host["launches"]["philox_normal"] + res["launches"]["philox_normal"],
+            "p2": res["launches"]["horizon_cond"], "k5": em["launches"],
+            "host": host, "device_resident": res, "world2": two["host"],
+            "unsharded": ref, "em": em}
 
 
 def run_zoo(dev, card: str, adaptive_rec: dict) -> dict:
@@ -3459,7 +3544,7 @@ def run_zoo(dev, card: str, adaptive_rec: dict) -> dict:
             np.array_equal(host[u].result, dev_done[u].result) and host[u].nfe == dev_done[u].nfe
             for u in host)
         recorded = {getattr(m, "__name__", str(m)).split(".")[-2]: n
-                    for m, n in bd._driver.graph.recorded.items()}
+                    for (m, c), n in bd._driver.graph.recorded.items() if c == "launches"}
         want_p1 = SERVE_HORIZON if family == "momentum" else 0
         print(f"  [{card}] {family} served ({ZOO_SERVE_REQUESTS} requests, {ZOO_SERVE_SLOTS} "
               f"slots, D {ZOO_SERVE_D}): nfe_per_iter {bh.nfe_per_iter}, wasted NFE "
@@ -3659,7 +3744,8 @@ def run_plan_service(dev, card: str) -> dict:
     bd = runs["device"][0]
     names = {step_ops: "solver_step", flash_ops: "flash_attention", gn_ops: "groupnorm_silu",
              ph: "philox_normal"}
-    recorded = {names[m]: n for m, n in bd._driver.graph.recorded.items()}
+    recorded = {names[m]: n for (m, c), n in bd._driver.graph.recorded.items()
+                if c == "launches"}
     per_iter = {k: v / H for k, v in recorded.items()}
     eager = {k: dev_launches[k] - recorded[k] * bd.device_horizons for k in recorded}
     admits = bd.tracer.stage_histograms()["serve/admission"]["count"]
@@ -5107,6 +5193,12 @@ def main() -> None:
                               "iterations": tt["dit_iterations"]},
          "beyond_65535_heads": streams["k3_big"],
          "device_resident": device_resident_launches("flash_attention"),
+         "mesh_serve": {"launched_as": "the DiT's attention in the tiered HIGHRES_DIT serve on "
+                                       "a world-1 NCCL mesh, host-driven then device-resident "
+                                       "(phase 8)",
+                        "launches": k4["mesh"]["k3"],
+                        **{k: k4["mesh"][k]["launches"]["flash_attention"]
+                           for k in ("host", "device_resident")}},
          "zoo": {"launched_as": "the DiT's attention in momentum and Heun from HIGHRES_DIT "
                                 "(phase 6d)",
                  **{m: zoo["dit"][m]["launches"]["flash_attention"]
@@ -5212,6 +5304,9 @@ def main() -> None:
                     **{k: k5_t[(torch.float32, 4096, 2)][k]
                        for k in ("ms", "plain_ms", "bound_ms")},
                     "em1000_n4096": tt["em1000_idle"]},
+         "mesh": {"launched_as": "EM-59 from HIGHRES_DIT under mesh= on a world-1 NCCL mesh "
+                                 "(phase 8)",
+                  "launches": k4["mesh"]["k5"], "bitwise_equal": k4["mesh"]["em"]["bitwise_equal"]},
          "zoo_race": {"launched_as": "em_step on the EM, PC and PC-HMC rows of the solver "
                                      "selection race (phase 6d)",
                       **{k: v["launches"]["em_step"] for k, v in zoo["race"].items()
@@ -5262,7 +5357,13 @@ def main() -> None:
                         "on the rank's rows (timed in the solver_step row)",
          "ms_of": "the partial (feature-split) mode at the full state",
          "feature_half": {k: k4["times"]["half"][k] for k in ("ms", "plain_ms", "bound_ms")},
-         "all_reduce_9_us": k4["all_reduce_9_us"]},
+         "all_reduce_9_us": k4["all_reduce_9_us"],
+         "mesh_serve": {"launched_as": "K4 with per-row tolerances in every body iteration "
+                                       "of the tiered HIGHRES_DIT serve on a world-1 NCCL "
+                                       "mesh, host-driven then device-resident (phase 8)",
+                        "launches": k4["mesh"]["k4"],
+                        **{k: k4["mesh"][k]["launches"]["sharded_solver_step"]
+                           for k in ("host", "device_resident")}}},
         {"name": "philox_normal", "route": "cuda",
          "source": "src/repro_torch/kernels/philox/csrc/philox_normal.cu",
          "replaces": "none: XLA's threefry in _draw_noise, src/repro/core/solvers/adaptive.py:410",
@@ -5278,6 +5379,9 @@ def main() -> None:
          "device_resident": device_resident_launches("philox_normal"),
          "plan_service": {"launches": psrv["closed_loop"]["launches"]["philox_normal"],
                           "device_resident": psrv["device_resident_launches"]["philox_normal"]},
+         "mesh_serve": {"launches": k4["mesh"]["p1"],
+                        **{k: k4["mesh"][k]["launches"]["philox_normal"]
+                           for k in ("host", "device_resident")}},
          "max_abs_err_by_shape": {f"{b}x{d}": e for (b, d), e in streams["p1_err"].items()}},
         {"name": "horizon_cond", "route": "cuda",
          "source": "src/repro_torch/kernels/graph_loop/csrc/while_driver.cu",
@@ -5293,7 +5397,18 @@ def main() -> None:
          "cuda_versions": dsrv["cuda_versions"],
          "serve": dsrv["rec"], "sync_check": dsrv["sync_check"],
          "plan_service": {"launches": psrv["device_resident_launches"]["horizon_cond"],
-                          "first_round": psrv["first_round"]}},
+                          "first_round": psrv["first_round"]},
+         "mesh_serve": {"launched_as": "the WHILE node's condition of the device-resident "
+                                       "tiered HIGHRES_DIT serve on a world-1 NCCL mesh, after "
+                                       "the captured all-reduce (phase 8)",
+                        "launches": k4["mesh"]["p2"],
+                        "serve": {k: {f: k4["mesh"][k][f] for f in (
+                            "wall_s", "host_transfers", "windows", "iterations",
+                            "bitwise_equal")} for k in ("host", "device_resident")},
+                        "unsharded": {f: k4["mesh"]["unsharded"][f]
+                                      for f in ("wall_s", "host_transfers", "iterations")},
+                        "world2_gloo": {f: k4["mesh"]["world2"][f] for f in (
+                            "wall_s", "bitwise_equal", "max_nfe_diff", "refills_per_device")}}},
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):

@@ -19,17 +19,15 @@ Under ``mesh=`` (a ``repro_torch.parallel.Mesh`` over
 ``torch.distributed``, DESIGN.md §3) both are data-parallel: every rank
 draws the global prior from the same seed, the batch shards over the
 mesh's data axes (``sample_state_shardings``; an indivisible batch
-replicates), the adaptive solver runs on this rank's rows, and the
-result holds those rows. ``gather_result`` assembles the whole batch.
-The fixed-grid baselines and the ODE are not data-parallel yet (ROADMAP
-A11) and raise under a mesh rather than solve the whole batch on every
-rank.
+replicates), every registered solver runs on this rank's rows (the
+adaptive families, the fixed-grid baselines with the global draws cut to
+the rank's rows, the ODE with its batch-global error all-reduced), and
+the result holds those rows. ``gather_result`` assembles the whole
+batch.
 """
 
 from __future__ import annotations
 
-import functools
-import inspect
 from typing import Callable
 
 import numpy as np
@@ -52,11 +50,6 @@ def _generator(seed: int, dev: torch.device) -> torch.Generator:
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-@functools.cache
-def _accepts_sharding(solver: Callable) -> bool:
-    return "sharding" in inspect.signature(solver).parameters
-
-
 def _state_sharding(mesh, shape, dev: torch.device):
     """The batch sharding of the state under ``mesh`` (None without one)."""
     if mesh is None:
@@ -74,12 +67,10 @@ def sample(sde: SDE, score_fn: Callable, shape, *, seed: int = 0,
     per-sample payload of the conditioner in the solver's config (with a
     ``ClassifierFree`` conditioner the score is ``s(x, t, y)``).
 
-    ``mesh`` shards the batch over the mesh's data axes: the result holds
-    this rank's rows (``gather_result`` collects the batch), the
-    unsharded result's rows (bit for bit where a row's score does not
-    depend on the batch around it). Only solvers that take a
-    ``sharding`` (the adaptive solver) run under a mesh; the others raise
-    ``NotImplementedError`` (ROADMAP A11).
+    ``mesh`` shards the batch over the mesh's data axes for every
+    solver: the result holds this rank's rows (``gather_result`` collects
+    the batch), the unsharded result's rows (bit for bit where a row's
+    score does not depend on the batch around it).
     """
     dev = resolve_device(device)
     gen = _generator(seed, dev)
@@ -89,10 +80,6 @@ def sample(sde: SDE, score_fn: Callable, shape, *, seed: int = 0,
         solver_kwargs["cond"] = cond
     sharding = _state_sharding(mesh, shape, dev)
     if sharding is not None:
-        if not _accepts_sharding(solver):
-            raise NotImplementedError(
-                f"solver '{method}' is not data-parallel yet (ROADMAP A11): "
-                "only the adaptive solver runs under mesh=")
         solver_kwargs["sharding"] = sharding
     return solver(sde, score_fn, x_init, gen, denoise=denoise, device=dev,
                   **solver_kwargs)

@@ -76,23 +76,42 @@ update are fp32 under every preset.
 Sharding (DESIGN.md §3): under a mesh the solve is data-parallel over
 ``torch.distributed``. ``sharding`` is the batch sharding of the state
 (``repro_torch.parallel.sharding.sample_state_shardings``); ``init_carry``
-takes the global (B, ...) start and keeps this rank's rows, every noise
-draw is the whole batch's draw cut to those rows (the generator is
-replicated), and the fused step runs K4 (``sharded_error_step``) on
-them. Loop control stays global: at each group's sync one
-``all_reduce(MAX)`` of [any sample active, iterations] over the mesh
-gives every rank the reference's ``any(t > t_eps)`` and its iteration
-count. Because ``active`` only falls within a group, the iterations in
-which a rank had an active sample form a prefix of the group, and the
-largest such count over the ranks is the count of iterations in which
-some sample anywhere was active. A rank whose samples are all done keeps
-running masked iterations until every rank's are, as the reference's
-while loop does. One O(1) collective per group of ``SYNC_EVERY``
-iterations, no host sync per iteration. Everything but the score
-network runs row by row, so the sharded solve gives the unsharded
-solve's bits wherever the score of a row does not depend on the batch
-around it (the closed-form scores; a network on this CPU; cuBLAS may
-round a product of fewer rows otherwise).
+takes the global (B, ...) start and keeps this rank's rows of every
+per-sample leaf (``solver_carry_shardings``: per-slot streams and the
+telemetry ring's rows too), a shared generator's draw is the whole
+batch's draw cut to those rows, per-slot streams draw the rank's rows
+directly, and the fused step runs K4 (``sharded_error_step``) on them.
+Loop control stays global: at each group's sync one ``all_reduce(MAX)``
+of [any sample active, iterations] over the mesh gives every rank the
+reference's ``any(t > t_eps)`` and its iteration count. Because
+``active`` only falls within a group, the iterations in which a rank had
+an active sample form a prefix of the group, and the largest such count
+over the ranks is the count of iterations in which some sample anywhere
+was active. A rank whose samples are all done keeps running masked
+iterations until every rank's are, as the reference's while loop does.
+A rank whose prefix was shorter than the mesh's then catches up
+(``_catch_up``): the unsharded body would have recorded its frozen rows
+in the telemetry ring (t, h = 0, err = 0, no accept) and moved their
+stream counters in the iterations it skipped, and the catch-up does
+exactly that, so the ring and the streams are the unsharded carry's
+rows. One O(1) collective per group of ``SYNC_EVERY`` iterations, no
+host sync per iteration. Everything but the score network runs row by
+row, so the sharded solve gives the unsharded solve's bits wherever the
+score of a row does not depend on the batch around it (the closed-form
+scores; a network on this CPU; cuBLAS may round a product of fewer rows
+otherwise).
+
+The device-resident driver under a mesh (``MeshFlags``): after every
+horizon the ranks agree on the event flags (an occupied sample running,
+an occupied sample done) and the iteration count with one
+``all_reduce(MAX)`` of three int32, so every rank runs the same number
+of horizons, as the reference's ``lax.while_loop`` over the whole batch
+does. On the card that all-reduce is an NCCL collective captured into
+the horizon's graph, inside the WHILE node's body ahead of P2, which
+then reads the agreed flags as a batch of two virtual slots; gloo
+collectives cannot be captured, so a device-resident server on CUDA
+tensors over gloo raises. On the CPU the plain driver all-reduces over
+gloo after every horizon.
 
 Algorithm 2 (``adaptive_forward``, paper App. C) is at the end: the
 forward-time solver for a general diffusion with x-dependent g.
@@ -118,6 +137,7 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.guidance import Conditioner, cond_batch
 from repro_torch.core.precision import PrecisionPolicy, resolve_policy
@@ -309,7 +329,9 @@ def init_carry(sde: SDE, x_init: Tensor, generator, *,
 
     With ``sharding`` (the state's batch sharding under a mesh) every
     argument is global, and the carry holds this rank's rows of each
-    per-sample leaf (``solver_carry_shardings``).
+    per-sample leaf (``solver_carry_shardings``): per-slot streams (a
+    ``SlotStreams`` or a list of sources) and the telemetry ring's rows
+    included.
     """
     cfg = resolve_config(config, overrides)
     policy = resolve_policy(cfg.precision)
@@ -334,10 +356,6 @@ def init_carry(sde: SDE, x_init: Tensor, generator, *,
     h = torch.minimum(_per_sample(h_of, batch, dev), t0 - sde.t_eps)
     zeros = torch.zeros((batch,), dtype=torch.int32, device=dev)
     cap = int(cfg.telemetry_capacity if telemetry is None else telemetry)
-    if cap > 0 and sharding is not None:
-        raise NotImplementedError("a telemetry ring under a mesh waits for the "
-                                  "telemetry leaf of solver_carry_shardings "
-                                  "(ROADMAP A11)")
     carry = SolverCarry(
         x=x_init, x_prev=x_init, t=t0, h=h, nfe=zeros, accepted=zeros,
         rejected=zeros, done=torch.zeros((batch,), dtype=torch.bool, device=dev),
@@ -353,17 +371,58 @@ def _local_rows(carry: SolverCarry, sharding) -> SolverCarry:
 
     if carry.batch != sharding.batch:
         raise ValueError(f"state batch {carry.batch} != sharding batch {sharding.batch}")
-    shards = solver_carry_shardings(sharding.mesh, carry.batch, carry.x.ndim,
-                                    cond=carry.cond, tolerances=carry.atol is not None)
+    gen = carry.generator
+    shards = solver_carry_shardings(
+        sharding.mesh, carry.batch, carry.x.ndim,
+        per_slot_keys=isinstance(gen, (SlotStreams, list)), cond=carry.cond,
+        tolerances=carry.atol is not None, telemetry=carry.telemetry is not None)
     leaves = {}
     for f in dataclasses.fields(carry):
         v, s = getattr(carry, f.name), getattr(shards, f.name)
-        if f.name == "cond" and v is not None:
+        if v is None or s is None or (isinstance(s, type(sharding)) and s.batch is None):
+            pass
+        elif f.name == "cond":
             v = {k: s[k].local(leaf) for k, leaf in v.items()}
-        elif v is not None and s.batch is not None:
+        elif f.name == "telemetry":
+            v = StepTelemetry(**{g.name: getattr(v, g.name) if g.name == "head"
+                                 else getattr(s, g.name).local(getattr(v, g.name))
+                                 for g in dataclasses.fields(v)})
+        elif isinstance(v, SlotStreams):
+            v = SlotStreams(seed=s.local(v.seed), counter=s.local(v.counter))
+        elif isinstance(v, list):
+            v = v[s.rows]
+        elif isinstance(v, Tensor):
             v = s.local(v)
         leaves[f.name] = v
     return SolverCarry(**leaves)
+
+
+def draws_per_iteration(cfg: AdaptiveConfig) -> int:
+    """Noise draws one active iteration of the body makes: z (none on the
+    probability-flow ODE), then a projecting conditioner's."""
+    projecting = cfg.conditioner is not None and cfg.conditioner.has_projection
+    return (0 if cfg.probability_flow else 1) + (1 if projecting else 0)
+
+
+def _catch_up(carry: SolverCarry, lag, max_lag: int, draws: int) -> SolverCarry:
+    """A rank's carry after ``lag`` iterations in which none of its samples
+    was active but some sample on another rank was: what the unsharded
+    body records for frozen rows in such an iteration (t at entry, h 0,
+    err 0, no accept) goes into the telemetry ring, and the per-slot
+    stream counters move on by ``lag · draws``. ``lag`` is a Python int
+    (then ``max_lag`` is it) or a 0-d int32 tensor of at most ``max_lag``
+    (masked writes, no host read: the captured horizon's form)."""
+    tel, gen = carry.telemetry, carry.generator
+    if tel is not None and max_lag:
+        zero = torch.zeros_like(carry.t)
+        no = torch.zeros_like(carry.done)
+        for k in range(max_lag):
+            live = (torch.ones((), dtype=torch.bool, device=carry.t.device)
+                    if isinstance(lag, int) else lag > k)
+            tel = record_step(tel, t=carry.t, h=zero, err=zero, accept=no, live=live)
+    if isinstance(gen, SlotStreams) and draws:
+        gen = gen.advanced(lag * draws)
+    return dataclasses.replace(carry, telemetry=tel, generator=gen)
 
 
 def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
@@ -387,9 +446,7 @@ def _make_body(sde: SDE, score_fn, cfg: AdaptiveConfig, eps_abs: float,
     threshold = sde.t_eps + 1e-12
     mom = float(cfg.momentum)
     pf = bool(cfg.probability_flow)
-    # draws an iteration: z (none on the probability-flow ODE), then the
-    # projection's
-    draws = (0 if pf else 1) + (1 if projecting else 0)
+    draws = draws_per_iteration(cfg)
 
     def draw(s: SolverCarry, x: Tensor, offset: int) -> Tensor:
         return draw_noise(s.generator, noise_fn, x, sharding, offset)
@@ -503,13 +560,21 @@ def sync_state(carry: SolverCarry, sharding=None):
     was active; after a group that all ranks began at the same count, the
     largest of those counts is the global one (see the module docstring).
     """
+    done, iters, _ = _sync(carry, sharding)
+    return done, iters
+
+
+def _sync(carry: SolverCarry, sharding):
+    """``sync_state`` plus this rank's own iteration count, read in the same
+    transfer."""
     global host_syncs
     flags = torch.stack([(~carry.done).any().to(torch.int32), carry.iterations])
     if sharding is not None:
-        all_max(flags, sharding.mesh.group())
-    active, iters = flags.tolist()
+        flags = torch.cat([flags, carry.iterations.reshape(1)])
+        all_max(flags[:2], sharding.mesh.group())
+    vals = flags.tolist()
     host_syncs += 1
-    return not active, int(iters)
+    return not vals[0], int(vals[1]), int(vals[-1])
 
 
 def _pick_step_math(cfg: AdaptiveConfig, sharding):
@@ -533,7 +598,8 @@ def solve_chunk(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
     is bitwise equal to one call with an unbounded ``max_sync_iters``.
     Under a mesh (``sharding``) the sync is global and the carry's
     ``iterations`` is set to the global count after each group, so every
-    rank runs the same groups.
+    rank runs the same groups; a rank that idled through the end of a
+    group catches up (``_catch_up``).
     """
     cfg = resolve_config(config, overrides)
     eps_abs = float(sde.abs_tolerance if cfg.eps_abs is None else cfg.eps_abs)
@@ -547,8 +613,11 @@ def solve_chunk(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
                     cfg.max_iters - iters)
             for _ in range(n):
                 carry = body(carry)
-            done, iters = sync_state(carry, sharding)
+            done, iters, local = _sync(carry, sharding)
             if sharding is not None:
+                if iters > local:
+                    carry = _catch_up(carry, iters - local, iters - local,
+                                      draws_per_iteration(cfg))
                 carry.iterations = torch.full((), iters, dtype=torch.int32,
                                               device=carry.iterations.device)
     return carry
@@ -600,6 +669,7 @@ def copy_carry_(dst: SolverCarry, src: SolverCarry) -> None:
 
 def capture_horizon(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
                     sync_horizon: int, config: AdaptiveConfig | None = None,
+                    sharding=None, flags: Optional["MeshFlags"] = None,
                     **overrides) -> torch.cuda.CUDAGraph:
     """Record ``sync_horizon`` Algorithm-1 iterations as one CUDA graph over
     ``carry``'s buffers (``keep_graph=True``: the raw graph is kept for a
@@ -617,17 +687,23 @@ def capture_horizon(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
     from a ``SlotStreams``: a graph cannot call Python sources, and a
     shared generator's state would be frozen into it. Lazy library state (cuBLAS handles,
     kernel attributes) is made first by one iteration on a copy of the
-    carry, on a side stream. ``graph.recorded`` is {wrapper module: its
-    kernel calls in the horizon} (``graph_loop.ops.captured_calls``):
-    what one replay launches, which the driver charges to the wrappers'
-    launch counts.
+    carry, on a side stream. ``graph.recorded`` is {(wrapper module, its
+    launch counter): its kernel calls in the horizon}
+    (``graph_loop.ops.captured_calls``): what one replay launches, which
+    the driver charges to the wrappers' launch counts.
+
+    Under a mesh the carry holds this rank's rows of ``sharding`` (the
+    fused step is K4's), and ``flags`` (``MeshFlags``) appends the mesh's
+    agreement to the graph: an NCCL all-reduce of the event flags and the
+    iteration count, and the catch-up of a rank that idled.
     """
     cfg = resolve_config(config, overrides)
     if not isinstance(carry.generator, SlotStreams):
         raise ValueError("a captured horizon draws its noise from SlotStreams: a CUDA "
                          "graph cannot call per-slot Python sources or a generator")
     eps_abs = float(sde.abs_tolerance if cfg.eps_abs is None else cfg.eps_abs)
-    body = _make_body(sde, score_fn, cfg, eps_abs, _pick_step_math(cfg, None))
+    body = _make_body(sde, score_fn, cfg, eps_abs, _pick_step_math(cfg, sharding),
+                      sharding=sharding)
     dev = carry.x.device
     start = torch.zeros((), dtype=torch.int32, device=dev)
     limits = (start, int(sync_horizon))
@@ -647,9 +723,67 @@ def capture_horizon(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
             for _ in range(int(sync_horizon)):
                 c = body(c, limits)
             copy_carry_(carry, c)
+            if flags is not None:
+                flags.update(carry)
     graph.horizon_start = start  # read by the graph: lives as long as it
-    graph.recorded = {m: n - before[m] for m, n in loop_ops.captured_calls().items()}
+    graph.recorded = {k: n - before[k] for k, n in loop_ops.captured_calls().items()}
     return graph
+
+
+def mesh_capturable(group) -> bool:
+    """Whether collectives over ``group`` can be captured into a CUDA graph:
+    NCCL's can, gloo's cannot."""
+    return dist.get_backend(group) == "nccl"
+
+
+class MeshFlags:
+    """The serving event flags of a sharded carry, agreed on by the mesh
+    after every horizon (DESIGN.md §12).
+
+    ``update(carry)`` computes this rank's [an occupied sample running,
+    an occupied sample done, iterations] into a (3,) int32 buffer,
+    all-reduces it with MAX over the mesh, writes the result as a batch
+    of two virtual slots (``occupied_v`` = [running, done-and-occupied],
+    ``done_v`` = [False, True], on which P2 and ``events_pending`` give
+    the whole mesh's flag) and brings the carry to the agreed iteration
+    count (``_catch_up``, at most ``horizon`` iterations behind). It reads
+    nothing back, so a CUDA graph can capture it: with NCCL the
+    all-reduce is a captured collective. ``draws`` is the body's draws an
+    iteration (``draws_per_iteration``).
+    """
+
+    def __init__(self, sharding, occupied: Tensor, *, horizon: int, draws: int):
+        dev = occupied.device
+        self.sharding = sharding
+        self.group = sharding.mesh.group()
+        self.occupied = occupied
+        self.horizon, self.draws = int(horizon), int(draws)
+        self.buf = torch.zeros(3, dtype=torch.int32, device=dev)
+        self.occupied_v = torch.zeros(2, dtype=torch.bool, device=dev)
+        self.done_v = torch.tensor([False, True], device=dev)
+
+    def update(self, carry: SolverCarry) -> None:
+        occ, done = self.occupied, carry.done
+        self.buf.copy_(torch.stack([(occ & ~done).any().to(torch.int32),
+                                    (occ & done).any().to(torch.int32),
+                                    carry.iterations]))
+        all_max(self.buf, self.group)
+        self.occupied_v.copy_(self.buf[:2] > 0)
+        lag = self.buf[2] - carry.iterations
+        if carry.x.device.type == "cpu":  # the plain driver: the lag is free to read
+            lag = int(lag)
+            if not lag:
+                return
+            caught = _catch_up(carry, lag, lag, self.draws)
+        else:
+            caught = _catch_up(carry, lag, self.horizon, self.draws)
+        copy_carry_(carry, dataclasses.replace(caught, iterations=self.buf[2]))
+
+    def masks(self, carry: SolverCarry):
+        """``update``, then the virtual (occupied, done) pair: the plain
+        driver's condition."""
+        self.update(carry)
+        return self.occupied_v, self.done_v
 
 
 class HorizonDriver:
@@ -668,24 +802,47 @@ class HorizonDriver:
     buffers, so a window leaves the carry's tensors where they were
     either way. ``window()`` returns ``state``, a (2,) int32 on the
     device: the event flag at exit and the horizons run, which the caller
-    reads once and hands to ``account``."""
+    reads once and hands to ``account``.
+
+    Under a mesh ``flags`` (``MeshFlags``) makes the condition global: on
+    the card the unit must capture ``flags.update`` at the end of its
+    horizon (``capture_horizon(flags=)``), the WHILE node's P2 reads the
+    agreed virtual slots, and each window first runs ``flags.update``
+    once eagerly (no host read) for the condition it starts from; on the
+    CPU the plain loop reads ``flags.masks`` after every horizon. On CUDA
+    tensors the mesh must be NCCL's: a gloo collective cannot be
+    captured, so a gloo mesh raises here rather than fall back to a
+    host-driven loop.
+    """
 
     def __init__(self, carry: SolverCarry, occupied: Tensor, unit: Callable, *,
-                 max_horizons: int, wait_all: bool = False):
+                 max_horizons: int, wait_all: bool = False,
+                 flags: Optional[MeshFlags] = None):
         self.carry = own_buffers(carry)
         self.occupied = occupied
         self.unit = unit
         self.max_horizons = int(max_horizons)
         self.wait_all = bool(wait_all)
+        self.flags = flags
         dev = carry.x.device
         self.state = torch.zeros(2, dtype=torch.int32, device=dev)
         self.graph = self.driver = None
         t0 = time.perf_counter()
         if dev.type == "cuda":
             loop_ops.require_conditional_nodes()
+            occ, done = occupied, self.carry.done
+            if flags is not None:
+                if not mesh_capturable(flags.group):
+                    raise ValueError(
+                        "the device-resident driver under a mesh captures the mesh's "
+                        "all-reduce into its CUDA graph, and gloo collectives cannot be "
+                        f"captured (this mesh's backend: {dist.get_backend(flags.group)}); "
+                        "serve device-resident on an NCCL mesh, or host-driven on gloo")
+                flags.update(self.carry)  # makes NCCL's communicator before the capture
+                occ, done = flags.occupied_v, flags.done_v
             self.graph = unit(self.carry)
-            self.driver = loop_ops.WhileDriver(self.graph, occupied, self.carry.done,
-                                               self.state, recorded=self.graph.recorded,
+            self.driver = loop_ops.WhileDriver(self.graph, occ, done, self.state,
+                                               recorded=self.graph.recorded,
                                                max_horizons=self.max_horizons,
                                                wait_all=self.wait_all)
         #: horizon graphs captured (one a driver, none on the CPU)
@@ -697,12 +854,15 @@ class HorizonDriver:
     def window(self) -> Tensor:
         """One driver window; reads nothing back on the card."""
         if self.driver is not None:
+            if self.flags is not None:
+                self.flags.update(self.carry)
             self.driver.launch()
             return self.state
         with torch.no_grad():
             out, event, n = loop_ref.solve_horizons(
                 self.unit, self.carry, self.occupied,
-                max_horizons=self.max_horizons, wait_all=self.wait_all)
+                max_horizons=self.max_horizons, wait_all=self.wait_all,
+                masks=None if self.flags is None else self.flags.masks)
             copy_carry_(self.carry, out)
         self.state.copy_(torch.tensor([int(event), n], dtype=torch.int32))
         return self.state
@@ -718,7 +878,7 @@ class HorizonDriver:
 def solve_horizons(sde: SDE, score_fn: Callable, carry: SolverCarry, occupied: Tensor, *,
                    sync_horizon: int, max_horizons: int,
                    config: AdaptiveConfig | None = None, wait_all: bool = False,
-                   **overrides):
+                   sharding=None, **overrides):
     """Multi-horizon driver (DESIGN.md §12): chain ``sync_horizon``-bounded
     chunks until a serving event is pending (``events_pending``), every
     occupied sample converged, or ``max_horizons`` chunks ran. Returns
@@ -731,15 +891,23 @@ def solve_horizons(sde: SDE, score_fn: Callable, carry: SolverCarry, occupied: T
     the plain loop over ``solve_chunk``. Either way the carry's buffers
     are written in place, as the reference donates its carry: a tensor
     the carry shares with the caller (``init_carry``'s ``x_init``) is
-    overwritten.
+    overwritten. Under a mesh (``sharding``) ``carry`` and ``occupied``
+    hold this rank's rows, and the flag is the whole mesh's
+    (``MeshFlags``).
     """
     cfg = resolve_config(config, overrides)
+    flags = None
+    if sharding is not None:
+        flags = MeshFlags(sharding, occupied, horizon=sync_horizon,
+                          draws=draws_per_iteration(cfg))
     if carry.x.device.type == "cuda":
         unit = lambda c: capture_horizon(sde, score_fn, c, sync_horizon=sync_horizon,
-                                         config=cfg)
+                                         config=cfg, sharding=sharding, flags=flags)
     else:
-        unit = lambda c: solve_chunk(sde, score_fn, c, max_sync_iters=sync_horizon, config=cfg)
-    drv = HorizonDriver(carry, occupied, unit, max_horizons=max_horizons, wait_all=wait_all)
+        unit = lambda c: solve_chunk(sde, score_fn, c, max_sync_iters=sync_horizon,
+                                     config=cfg, sharding=sharding)
+    drv = HorizonDriver(carry, occupied, unit, max_horizons=max_horizons, wait_all=wait_all,
+                        flags=flags)
     state = drv.window()
     return drv.carry, state[0].to(torch.bool)
 

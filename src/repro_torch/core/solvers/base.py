@@ -4,7 +4,9 @@ A solver consumes an SDE, a score function s(x, t) (t a per-sample
 vector), an initial state drawn from the prior and a generator, and
 returns a ``SolveResult``. Every solver takes the same keywords besides
 its own: ``denoise``, ``device`` (``cuda`` unless the caller passes
-``"cpu"``) and ``noise_fn``. ``noise_fn(x) -> z`` replaces each normal
+``"cpu"``), ``noise_fn`` and ``sharding`` (under a mesh: the state's
+batch sharding, ``sample(mesh=)``; the solve then runs on this rank's
+rows and returns them). ``noise_fn(x) -> z`` replaces each normal
 draw from the generator; the parity tests pass the reference's own
 noise through it, since JAX's threefry and torch's generators never give
 the same numbers. Solvers that draw nothing ignore it.
@@ -93,26 +95,20 @@ def draw_noise(generator, noise_fn: Callable | None, x: Tensor,
     through which tests hand every slot the reference's own per-request
     draws) or None for an idle slot, whose row is 0.
 
-    Under a mesh, x holds this rank's rows of the ``sharding``: the draw
-    is the whole batch's (``noise_fn`` is handed an uninitialised tensor
-    of the global shape), and the rank keeps its rows. Every rank draws
-    the same numbers from its copy of the generator, so a sharded solve
-    sees the unsharded solve's noise, row for row.
+    Under a mesh, x holds this rank's rows of the ``sharding``. A
+    ``torch.Generator`` or a ``noise_fn`` draws the whole batch
+    (``noise_fn`` is handed an uninitialised tensor of the global shape)
+    and the rank keeps its rows: every rank draws the same numbers from
+    its copy of the generator, so a sharded solve sees the unsharded
+    solve's noise, row for row. Per-slot streams are sharded with the
+    state (``solver_carry_shardings(per_slot_keys=True)``): a
+    ``SlotStreams`` or a list holds this rank's rows only and draws them
+    directly, each row the unsharded row bit for bit, since a row's draw
+    depends on its own stream alone.
     """
-    shape = x.shape if sharding is None else sharding.global_shape(x.shape)
-    if noise_fn is not None:
-        z = noise_fn(x if sharding is None else x.new_empty(shape))
-        z = z.to(device=x.device, dtype=x.dtype)
-    elif isinstance(generator, SlotStreams):
-        if sharding is not None:
-            raise NotImplementedError("per-slot streams under a mesh wait for the "
-                                      "per-slot-key leaf of solver_carry_shardings "
-                                      "(ROADMAP A11)")
-        z = generator.draw(x.shape[1:], offset).to(x.dtype)
-    elif isinstance(generator, list):
-        if sharding is not None:
-            raise NotImplementedError("per-slot noise under a mesh waits for "
-                                      "DiffusionBatcher(mesh=) (ROADMAP A11)")
+    if isinstance(generator, (SlotStreams, list)) and noise_fn is None:
+        if isinstance(generator, SlotStreams):
+            return generator.draw(x.shape[1:], offset).to(x.dtype)
         if len(generator) != x.shape[0]:
             raise ValueError(f"{len(generator)} per-slot sources for {x.shape[0]} rows")
         z = torch.empty(x.shape, dtype=torch.float32, device=x.device)
@@ -121,11 +117,24 @@ def draw_noise(generator, noise_fn: Callable | None, x: Tensor,
                 row.zero_()
             else:
                 row.copy_(src(tuple(row.shape)))
-        z = z.to(x.dtype)
+        return z.to(x.dtype)
+    shape = x.shape if sharding is None else sharding.global_shape(x.shape)
+    if noise_fn is not None:
+        z = noise_fn(x if sharding is None else x.new_empty(shape))
+        z = z.to(device=x.device, dtype=x.dtype)
     else:
         z = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=x.device).to(x.dtype)
     return z if sharding is None else sharding.local(z)
+
+
+def local_state(x_init: Tensor, dev: torch.device, sharding=None) -> Tensor:
+    """A solver's starting state on ``dev``: the global ``x_init``, or under
+    a mesh this rank's rows of it (``sharding``, the state's batch
+    sharding). The fixed-grid solvers then run row by row on those rows,
+    each row the unsharded solve's row."""
+    x = x_init.to(dev)
+    return x if sharding is None else sharding.local(x)
 
 
 def check_noise_source(generator, noise_fn: Callable | None, dev: torch.device,

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core.sde import VPSDE, bcast
 from repro_torch.core.solvers.base import (
-    SolveResult, fixed_grid_result, register_solver, tweedie_tail,
+    SolveResult, fixed_grid_result, local_state, register_solver, tweedie_tail,
 )
 from repro_torch.core.solvers.predictor_corrector import linspace_f32
 from repro_torch.device import resolve_device
@@ -33,14 +33,16 @@ Tensor = torch.Tensor
 def ddim(sde: VPSDE, score_fn: Callable, x_init: Tensor,
          generator: torch.Generator | None = None, *, n_steps: int = 100,
          eta: float = 0.0, denoise: bool = True,
-         noise_fn: Callable | None = None, device="cuda") -> SolveResult:
+         noise_fn: Callable | None = None, device="cuda",
+         sharding=None) -> SolveResult:
     """``n_steps`` deterministic DDIM steps on ``device``; draws nothing
-    (``generator`` and ``noise_fn`` are accepted for a uniform API)."""
+    (``generator`` and ``noise_fn`` are accepted for a uniform API).
+    Under a mesh (``sharding``) the rank steps its rows."""
     if not isinstance(sde, VPSDE):
         raise TypeError("DDIM is defined only for VP diffusions (paper Sec. 4)")
     del generator, noise_fn, eta
     dev = resolve_device(device)
-    x = x_init.to(dev)
+    x = local_state(x_init, dev, sharding)
     batch = x.shape[0]
     grid = linspace_f32(sde.T, sde.t_eps, n_steps + 1, dev)
     grid = grid[:, None].expand(n_steps + 1, batch).contiguous()

@@ -24,7 +24,7 @@ import torch
 from repro_torch.core.sde import SDE
 from repro_torch.core.solvers.base import (
     SolveResult, check_noise_source, draw_noise, fixed_grid_result, fma32,
-    register_solver, tweedie_tail,
+    local_state, register_solver, tweedie_tail,
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels.solver_step import ops as step_ops
@@ -58,13 +58,14 @@ def euler_maruyama(sde: SDE, score_fn: Callable, x_init: Tensor,
                    generator: torch.Generator | None = None, *,
                    n_steps: int = 1000, denoise: bool = True,
                    noise_fn: Callable | None = None,
-                   device="cuda") -> SolveResult:
+                   device="cuda", sharding=None) -> SolveResult:
     """``n_steps`` reverse EM steps from T to t_eps on ``device``: one
     score evaluation and one K5 launch per step. Noise: one draw per step,
-    from ``generator`` or ``noise_fn``."""
+    from ``generator`` or ``noise_fn`` (under a mesh the whole batch's,
+    cut to this rank's rows of ``sharding``)."""
     dev = resolve_device(device)
     check_noise_source(generator, noise_fn, dev, "em")
-    x = x_init.to(dev)
+    x = local_state(x_init, dev, sharding)
     batch = x.shape[0]
     h = torch.tensor((sde.T - sde.t_eps) / n_steps, dtype=torch.float32, device=dev)
     sqrt_h = torch.sqrt(h)
@@ -72,7 +73,7 @@ def euler_maruyama(sde: SDE, score_fn: Callable, x_init: Tensor,
     with torch.no_grad():
         for i in range(n_steps):
             t = grid[i]
-            z = draw_noise(generator, noise_fn, x)
+            z = draw_noise(generator, noise_fn, x, sharding)
             score = score_fn(x, t)
             g = sde.diffusion(t)
             x = k5(x, score, z, 1.0 - h * sde.drift_coeff(t), h * g * g, sqrt_h * g)

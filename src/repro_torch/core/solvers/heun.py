@@ -31,10 +31,13 @@ def heun_config(config: Optional[AdaptiveConfig] = None, **overrides) -> Adaptiv
 
 @register_solver("heun", nfe_per_iter=2)
 def heun(sde: SDE, score_fn: Callable, x_init: torch.Tensor, generator=None, *,
-         config: Optional[AdaptiveConfig] = None, **kwargs) -> SolveResult:
+         config: Optional[AdaptiveConfig] = None, sharding=None,
+         **kwargs) -> SolveResult:
     """Adaptive second-order probability-flow solve: takes everything
-    ``adaptive`` takes; ``probability_flow`` is forced on."""
+    ``adaptive`` takes; ``probability_flow`` is forced on. ``sharding`` (from
+    ``sample(mesh=)``) goes to ``adaptive``: the solve is data-parallel."""
     overrides = {k: kwargs.pop(k) for k in list(kwargs)
                  if k in AdaptiveConfig.__dataclass_fields__}
     return adaptive(sde, score_fn, x_init, generator,
-                    config=heun_config(config, **overrides), **kwargs)
+                    config=heun_config(config, **overrides), sharding=sharding,
+                    **kwargs)

@@ -37,10 +37,13 @@ def momentum_config(config: Optional[AdaptiveConfig] = None, **overrides) -> Ada
 
 @register_solver("momentum", nfe_per_iter=2)
 def momentum(sde: SDE, score_fn: Callable, x_init: torch.Tensor, generator=None, *,
-             config: Optional[AdaptiveConfig] = None, **kwargs) -> SolveResult:
+             config: Optional[AdaptiveConfig] = None, sharding=None,
+             **kwargs) -> SolveResult:
     """Heavy-ball Algorithm 1: takes everything ``adaptive`` takes; β is the
-    config's ``momentum``, ``DEFAULT_BETA`` where that is 0.0."""
+    config's ``momentum``, ``DEFAULT_BETA`` where that is 0.0. ``sharding`` (from
+    ``sample(mesh=)``) goes to ``adaptive``: the solve is data-parallel."""
     overrides = {k: kwargs.pop(k) for k in list(kwargs)
                  if k in AdaptiveConfig.__dataclass_fields__}
     return adaptive(sde, score_fn, x_init, generator,
-                    config=momentum_config(config, **overrides), **kwargs)
+                    config=momentum_config(config, **overrides), sharding=sharding,
+                    **kwargs)

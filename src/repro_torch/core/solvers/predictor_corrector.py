@@ -38,7 +38,7 @@ import torch
 from repro_torch.core.sde import SDE, VESDE, bcast
 from repro_torch.core.solvers.base import (
     SolveResult, check_noise_source, draw_noise, fixed_grid_result, fma32,
-    register_solver, tweedie_tail,
+    local_state, register_solver, tweedie_tail,
 )
 from repro_torch.core.solvers.euler_maruyama import k5
 from repro_torch.device import resolve_device
@@ -86,12 +86,14 @@ def predictor_corrector(sde: SDE, score_fn: Callable, x_init: Tensor,
                         snr: float | None = None, denoise: bool = True,
                         corrector: str = "langevin", hmc_leapfrog: int = 3,
                         noise_fn: Callable | None = None,
-                        device="cuda") -> SolveResult:
+                        device="cuda", sharding=None) -> SolveResult:
     """``n_steps`` grid steps on ``device``, each ``corrector_steps``
-    corrector passes then one ancestral predictor step."""
+    corrector passes then one ancestral predictor step. Under a mesh
+    (``sharding``) the rank solves its rows: the draws are the whole
+    batch's cut to them, and the Langevin step size is per row."""
     dev = resolve_device(device)
     check_noise_source(generator, noise_fn, dev, "pc")
-    x = x_init.to(dev)
+    x = local_state(x_init, dev, sharding)
     batch = x.shape[0]
     is_ve = isinstance(sde, VESDE)
     if snr is None:
@@ -99,7 +101,7 @@ def predictor_corrector(sde: SDE, score_fn: Callable, x_init: Tensor,
     grid = linspace_f32(sde.T, sde.t_eps, n_steps + 1, dev)
     grid = grid[:, None].expand(n_steps + 1, batch).contiguous()
     ones = torch.ones((batch,), dtype=torch.float32, device=dev)
-    draw = lambda v: draw_noise(generator, noise_fn, v)
+    draw = lambda v: draw_noise(generator, noise_fn, v, sharding)
 
     def step_size(t, z, score):
         """snr-derived Langevin step ε = 2 α (r ‖z‖/‖s‖)², shape (B,)."""
@@ -164,11 +166,11 @@ def predictor_corrector_hmc(sde: SDE, score_fn: Callable, x_init: Tensor,
                             snr: float | None = None, denoise: bool = True,
                             hmc_leapfrog: int = 3,
                             noise_fn: Callable | None = None,
-                            device="cuda") -> SolveResult:
+                            device="cuda", sharding=None) -> SolveResult:
     """The PC sampler with ``corrector="hmc"`` (DESIGN.md §11):
     ``1 + corrector_steps·L`` evaluations per grid step."""
     return predictor_corrector(
         sde, score_fn, x_init, generator, n_steps=n_steps,
         corrector_steps=corrector_steps, snr=snr, denoise=denoise,
         corrector="hmc", hmc_leapfrog=hmc_leapfrog, noise_fn=noise_fn,
-        device=device)
+        device=device, sharding=sharding)

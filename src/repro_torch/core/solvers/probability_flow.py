@@ -15,6 +15,14 @@ in ``adaptive.solve_chunk``: an attempt made once s has reached the span
 reference's. s and h stay fp32 tensors, and the tableau is kept as the
 reference keeps it (``_C``, ``_B5``, ``_B4`` fp32 arrays, ``_A`` Python
 floats), so the step sizes and accept decisions round as there.
+
+The error is the reference's whole-batch RMS of the scaled residual
+(``probability_flow.py:81`` there), summed in two stages: each row's sum
+of squares, then the (B,) row sums. Under a mesh (``sharding``) each rank
+holds its rows' sums in a zero-filled (B,) vector, and one
+``all_reduce(SUM)`` of that vector (adding zeros is exact) gives every
+rank the unsharded row sums bit for bit, so every rank takes the same
+accept/reject and step size as the unsharded solve.
 """
 
 from __future__ import annotations
@@ -22,10 +30,13 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.sde import SDE
 from repro_torch.core.solvers.adaptive import SYNC_EVERY
-from repro_torch.core.solvers.base import SolveResult, register_solver, tweedie_tail
+from repro_torch.core.solvers.base import (
+    SolveResult, local_state, register_solver, tweedie_tail,
+)
 from repro_torch.device import resolve_device
 
 Tensor = torch.Tensor
@@ -52,14 +63,17 @@ def probability_flow_rk45(sde: SDE, score_fn: Callable, x_init: Tensor,
                           rtol: float = 1e-5, atol: float = 1e-5,
                           h_init: float = 0.01, max_iters: int = 100_000,
                           denoise: bool = True, noise_fn: Callable | None = None,
-                          device="cuda") -> SolveResult:
+                          device="cuda", sharding=None) -> SolveResult:
     """Integrate the probability-flow ODE from T to t_eps on ``device``.
     Deterministic: ``generator`` and ``noise_fn`` are accepted for a
-    uniform API and not used."""
+    uniform API and not used. Under a mesh (``sharding``) the rank
+    integrates its rows with the batch-global error (module docstring)."""
     del generator, noise_fn
     dev = resolve_device(device)
-    x = x_init.to(dev)
+    x = local_state(x_init, dev, sharding)
     batch = x.shape[0]
+    sharded = sharding is not None and not sharding.replicated
+    n_total = x_init.numel()
     f32 = dict(dtype=torch.float32, device=dev)
     C, B5, B4 = (a.to(dev) for a in (_C, _B5, _B4))
     T = torch.tensor(sde.T, **f32)
@@ -71,6 +85,16 @@ def probability_flow_rk45(sde: SDE, score_fn: Callable, x_init: Tensor,
         """Reverse-time ODE drift as dx/ds with s = T − t (s runs up)."""
         tt = t.expand(batch).contiguous()
         return -sde.ode_drift(x, tt, score_fn(x, tt))
+
+    def global_sum_sq(r: Tensor) -> Tensor:
+        """Σ r² over the whole batch: per row, then over the rows."""
+        rows = torch.sum((r * r).reshape(batch, -1), dim=1)
+        if sharded:
+            full = rows.new_zeros(sharding.batch)
+            full[sharding.rows] = rows
+            dist.all_reduce(full, op=dist.ReduceOp.SUM, group=sharding.mesh.group())
+            rows = full
+        return torch.sum(rows)
 
     def attempt(x, s, h, nfe, iters, k1):
         active = (s < stop32) & (iters < max_iters)
@@ -86,7 +110,7 @@ def probability_flow_rk45(sde: SDE, score_fn: Callable, x_init: Tensor,
             x5 = x5 + h * B5[i] * ks[i]
             x4 = x4 + h * B4[i] * ks[i]
         scale = atol + rtol * torch.maximum(torch.abs(x), torch.abs(x5))
-        err = torch.sqrt(torch.mean(((x5 - x4) / scale) ** 2))  # global norm
+        err = torch.sqrt(global_sum_sq((x5 - x4) / scale) / n_total)  # global norm
         accept = (err <= 1.0) & active
         factor = torch.clamp(0.9 * err ** (-0.2), 0.2, 10.0)
         step = active.to(torch.int32)

@@ -17,8 +17,8 @@ at exit and the horizons run, the one thing the host reads.
 ``horizons + 1`` a driver window. A graph's kernels run where the host
 cannot count them, so ``WhileDriver.account`` charges a window once the
 caller has read its state: P2's executions, and for each wrapper the
-horizon runs (K1/K2, K3, K6, P1) its calls recorded into the horizon at
-capture (``captured_calls``) times the horizons run. ``windows`` counts
+horizon runs (K1/K2, K4, K3, K6, P1) its calls recorded into the horizon
+at capture (``captured_calls``) times the horizons run. ``windows`` counts
 parent-graph launches.
 Conditional nodes need CUDA 12.3 or later in the toolkit the library was
 built with and in the driver: ``require_conditional_nodes`` raises,
@@ -76,10 +76,15 @@ def cuda_versions() -> tuple:
 
 
 def captured_calls() -> dict:
-    """{wrapper module: its calls recorded into CUDA graphs so far}, for
-    the wrappers a captured horizon runs: K1/K2, K3, K6 and P1. The
+    """{(wrapper module, its launch counter): the calls recorded into CUDA
+    graphs so far}, for the wrappers a captured horizon runs: K1/K2 and K4
+    (the sharded step, ``sharded_launches``), K3, K6 and P1. The
     difference across a capture is what one replay launches."""
-    return {m: m.captured for m in (step_ops, flash_ops, gn_ops, philox_ops)}
+    return {(step_ops, "launches"): step_ops.captured,
+            (step_ops, "sharded_launches"): step_ops.captured_sharded,
+            (flash_ops, "launches"): flash_ops.captured,
+            (gn_ops, "launches"): gn_ops.captured,
+            (philox_ops, "launches"): philox_ops.captured}
 
 
 def _dotted(v: int) -> str:
@@ -136,8 +141,9 @@ class WhileDriver:
     """The instantiated parent graph around one captured horizon. It keeps
     the horizon graph, the masks and ``state`` alive as long as it lives;
     the masks and the carry the horizon writes must stay where they are.
-    ``recorded`` is {wrapper module: its calls in one horizon}, the
-    difference of ``captured_calls()`` across the horizon's capture."""
+    ``recorded`` is {(wrapper module, its launch counter): its calls in
+    one horizon}, the difference of ``captured_calls()`` across the
+    horizon's capture."""
 
     def __init__(self, horizon: "torch.cuda.CUDAGraph", occupied: Tensor, done: Tensor,
                  state: Tensor, *, recorded: dict, max_horizons: int, wait_all: bool):
@@ -175,8 +181,8 @@ class WhileDriver:
         times."""
         global launches
         launches += int(horizons) + 1
-        for module, calls in self.recorded.items():
-            module.launches += calls * int(horizons)
+        for (module, counter), calls in self.recorded.items():
+            setattr(module, counter, getattr(module, counter) + calls * int(horizons))
 
     def close(self) -> None:
         if getattr(self, "_handle", None) is not None and self._handle.value:

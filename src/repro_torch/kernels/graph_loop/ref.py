@@ -37,15 +37,23 @@ def horizon_cond(occupied: Tensor, done: Tensor, state: Tensor, *, wait_all: boo
 
 
 def solve_horizons(horizon: Callable, carry, occupied: Tensor, *, max_horizons: int,
-                   wait_all: bool = False):
+                   wait_all: bool = False, masks: Callable | None = None):
     """Run ``horizon(carry) -> carry`` (one sync-horizon chunk) until an
     event is pending, no occupied sample runs, or ``max_horizons`` ran.
-    Returns (carry, event at exit, horizons run)."""
+    Returns (carry, event at exit, horizons run). ``masks(carry) ->
+    (occupied, done)`` replaces the pair the condition reads (under a
+    mesh: the whole mesh's flags as two virtual slots,
+    ``adaptive.MeshFlags.masks``)."""
+    masks = masks or (lambda c: (occupied, c.done))
     state = torch.zeros(2, dtype=torch.int32)
-    go = horizon_cond(occupied.cpu(), carry.done.cpu(), state, wait_all=wait_all,
-                      max_horizons=max_horizons, first=True)
+
+    def cond(first: bool) -> bool:
+        occ, done = masks(carry)
+        return horizon_cond(occ.cpu(), done.cpu(), state, wait_all=wait_all,
+                            max_horizons=max_horizons, first=first)
+
+    go = cond(True)
     while go:
         carry = horizon(carry)
-        go = horizon_cond(occupied.cpu(), carry.done.cpu(), state, wait_all=wait_all,
-                          max_horizons=max_horizons, first=False)
+        go = cond(False)
     return carry, bool(state[0]), int(state[1])

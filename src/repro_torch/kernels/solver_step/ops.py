@@ -37,8 +37,9 @@ those of K4 (the same kernel, launched by ``sharded_error_step``); a
 call of K5 is one kernel launch, and so is a call of K1/K2/K4 up to
 65,535 rows (above that, one launch a range of rows). A K1/K2/K4 call
 made while the stream is captured into a CUDA graph launches nothing:
-it counts in ``captured``, and whoever replays the graph charges
-``launches`` with its replays (``graph_loop.ops.WhileDriver``).
+it counts in ``captured`` (K4's in ``captured_sharded``), and whoever
+replays the graph charges ``launches`` (``sharded_launches``) with its
+replays (``graph_loop.ops.WhileDriver``).
 ``kernel_config``
 fixes K1's tiling (from D alone), its ranges of rows (from B) and its
 load width (from the alignment), ``em_kernel_config`` K5's grid and load
@@ -64,8 +65,10 @@ launches = 0
 em_launches = 0
 #: sharded_error_step (K4) kernel launches since the count was last set to 0
 sharded_launches = 0
-#: K1/K2/K4 kernels recorded into CUDA graphs under capture (not launched)
+#: K1/K2 kernels recorded into CUDA graphs under capture (not launched)
 captured = 0
+#: K4 kernels recorded into CUDA graphs under capture (not launched)
+captured_sharded = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: rows one K1/K2/K4 launch takes (its rows sit on ``gridDim.y``)
@@ -320,7 +323,7 @@ def _launch(x, xp, s2, z, xv, e0, d1, d2, ea, er, *, use_prev, raw=False, k4=Fal
     (B, D) blocks that share one row stride (K4's per-rank body). The
     launch counts in ``sharded_launches`` with ``k4``, else in
     ``launches``."""
-    global launches, sharded_launches, captured
+    global launches, sharded_launches, captured, captured_sharded
     states = (x, xp, s2, z, xv)
     refuse_autograd("solver_step", *states, e0, d1, d2, ea, er)
     B, D = x.shape
@@ -361,7 +364,10 @@ def _launch(x, xp, s2, z, xv, e0, d1, d2, ea, er, *, use_prev, raw=False, k4=Fal
             if rc != 0:
                 raise RuntimeError(f"solver_step kernel launch failed: CUDA error {rc}")
             if torch.cuda.is_current_stream_capturing():
-                captured += 1
+                if k4:
+                    captured_sharded += 1
+                else:
+                    captured += 1
             elif k4:
                 sharded_launches += 1
             else:

@@ -19,8 +19,8 @@ Under ``torchrun`` (``WORLD_SIZE`` set) the launcher is data-parallel:
 each rank initialises the process group from torchrun's environment
 (NCCL on ``cuda``, each rank on card ``LOCAL_RANK``; gloo on ``cpu``),
 builds a ``("data", "model")`` mesh of WORLD_SIZE × 1 and samples with
-``mesh=``; rank 0 prints the gathered result's record. Only the adaptive
-solve runs there: the baselines are not data-parallel yet (ROADMAP A11).
+``mesh=``, the adaptive solve and then EM, each data-parallel; rank 0
+prints the gathered result's record.
 
   torchrun --nproc-per-node 2 --master-addr localhost --master-port 29500 \
       -m repro_torch.launch.sample --device cpu
@@ -95,7 +95,9 @@ def make_sample_step(sde, cfg: AdaptiveConfig, forward_fn=None):
     This is the unit the serving loop repeats between its syncs.
     ``step.capture_horizon(params, carry, sync_horizon)`` hands the
     device-resident driver the same unit as a CUDA graph over ``carry``'s
-    buffers (``adaptive.capture_horizon``).
+    buffers (``adaptive.capture_horizon``). Under a mesh both take the
+    slots' ``sharding`` (the carry is this rank's rows), and the capture
+    the driver's ``flags`` (``adaptive.MeshFlags``).
 
     ``forward_fn(params, x, t[, y])`` predicts noise: score = −out/std,
     with the division in fp32. The default is the DiT forward,
@@ -120,13 +122,16 @@ def make_sample_step(sde, cfg: AdaptiveConfig, forward_fn=None):
 
         return score_fn
 
-    def sample_step(params, carry, max_sync_iters: int = 1):
+    def sample_step(params, carry, max_sync_iters: int = 1, sharding=None):
         return solve_chunk(sde, score_of(params), carry, max_sync_iters=max_sync_iters,
-                           config=cfg)
+                           config=cfg, sharding=sharding)
+
+    def capture(params, carry, sync_horizon, sharding=None, flags=None):
+        return capture_horizon(sde, score_of(params), carry, sync_horizon=sync_horizon,
+                               config=cfg, sharding=sharding, flags=flags)
 
     sample_step.score_of = score_of
-    sample_step.capture_horizon = lambda params, carry, sync_horizon: capture_horizon(
-        sde, score_of(params), carry, sync_horizon=sync_horizon, config=cfg)
+    sample_step.capture_horizon = capture
     return sample_step
 
 
@@ -280,8 +285,8 @@ def main(argv=None) -> list:
     mesh, device = None, args.device
     methods = (("adaptive", {}), ("em", dict(n_steps=100)))
     if "WORLD_SIZE" in os.environ:
-        mesh = _torchrun_mesh(args.device)
-        device, methods = mesh.device, methods[:1]
+        mesh = torchrun_mesh(args.device)
+        device = mesh.device
     recs = []
     for method, kw in methods:
         rec = run(args.arch, batch=args.batch, precision=args.precision,
@@ -296,7 +301,7 @@ def main(argv=None) -> list:
     return recs
 
 
-def _torchrun_mesh(device: str):
+def torchrun_mesh(device: str):
     """The WORLD_SIZE × 1 mesh of a torchrun job: NCCL with one card per
     rank on ``cuda``, gloo on ``cpu``; torchrun's environment gives the
     rendezvous address."""

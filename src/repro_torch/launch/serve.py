@@ -29,7 +29,17 @@ captured sync horizon; CUDA 12.3 or later), on the CPU the plain driver.
 §10): closed-loop plan requests (the state pinned by horizon-axis
 inpainting, ``--cfg-scale`` returns guidance) drain through the same
 ``DiffusionBatcher``; ``repro_torch.launch.plan`` is the launcher
-underneath. The reference's ``--fake-devices`` mesh waits for ROADMAP A11.
+underneath.
+
+Under ``torchrun`` (``WORLD_SIZE`` set) ``--diffusion`` serves on a mesh,
+as the reference always does (DESIGN.md §3): each rank initialises the
+process group from torchrun's environment (NCCL on ``cuda``, each rank
+on card ``LOCAL_RANK``; gloo on ``cpu``), builds a WORLD_SIZE × 1
+``("data", "model")`` mesh and runs ``DiffusionBatcher(mesh=)``, its
+slots split over the ranks; rank 0 prints the record, with
+``refills_per_device`` and ``slots_per_device``. The reference's
+``--fake-devices`` (forced host devices in one process) has no
+counterpart: a rank is a process.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
       --batch 4 --prompt-len 16 --gen-len 16
@@ -44,6 +54,8 @@ underneath. The reference's ``--fake-devices`` mesh waits for ROADMAP A11.
   PYTHONPATH=src python -m repro_torch.launch.serve --diffusion --device cpu \\
       --slots 4 --requests 8 --tier mixed --telemetry 256 --trace-out trace.json
   PYTHONPATH=src python -m repro_torch.launch.serve --plan --device cpu --envs 6 --plan-steps 4
+  PYTHONPATH=src torchrun --nproc-per-node 2 --master-addr localhost --master-port 29500 \
+      -m repro_torch.launch.serve --diffusion --device cpu --slots 4 --requests 8 --tier mixed
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
 import time
 
@@ -101,7 +114,7 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
                     device_resident: bool = False, tier: str | None = None,
                     deadline_ms: float | None = None, telemetry: int = 0,
                     metrics_out: str | None = None, trace_out: str | None = None,
-                    device="cuda") -> dict:
+                    device="cuda", mesh=None) -> dict:
     """Continuous-batching diffusion serving on ``device``; returns (and
     prints) the reference's record: throughput, mean NFE, the wasted-NFE
     fraction, host transfers, per-class stats.
@@ -117,7 +130,10 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
     the registry as JSON and a sibling ``.prom``; ``trace_out`` turns the
     stage tracer on and writes ``trace_record()`` as JSON (DESIGN.md §15).
     ``device_resident=True`` serves through the device-resident driver
-    (DESIGN.md §12); the record then counts its windows.
+    (DESIGN.md §12); the record then counts its windows. ``mesh`` serves
+    data-parallel (``DiffusionBatcher(mesh=)``, a collective: every rank
+    calls this with the same arguments); the record is the same on every
+    rank, the files are written and the summary printed by rank 0 only.
     """
     from repro_torch.configs.diffusion import ARCHS
     from repro_torch.core.guidance import ClassifierFree, Inpaint
@@ -132,7 +148,8 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
 
     if inpaint and cfg_scale is not None:
         raise ValueError("pick one conditioner per server: --inpaint or --cfg-scale")
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
+    lead = mesh is None or all(c == 0 for c in mesh.coordinate)
     num_classes = 10 if cfg_scale is not None else 0
     if arch is None:
         net = DiTConfig(image_size=image_size, patch=4, d_model=32, num_layers=2,
@@ -167,7 +184,7 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
                          device_resident=device_resident,
                          tolerance_classes=tiered or None,
                          admission=EdfPriorityAdmission(aging_s=5.0) if tiered else None,
-                         telemetry=telemetry, tracer=tracer, device=dev)
+                         telemetry=telemetry, tracer=tracer, device=dev, mesh=mesh)
     mixed_cycle = ("draft", "standard", "high_fidelity")
 
     def request_tier(uid: int):
@@ -197,7 +214,7 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
     dt = time.perf_counter() - t0
     nfes = [done[u].nfe for u in sorted(done)]
     rec = {
-        "devices": 1,
+        "devices": b.n_devices,
         "slots": slots,
         "slots_per_device": b.slots_per_device,
         "sync_horizon": sync_horizon,
@@ -229,6 +246,9 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
         "passenger_nfe_fraction": b.passenger_nfe_fraction,
         "wall_s": dt,
     }
+    trace = b.trace_record() if trace_out else None  # a collective under a mesh
+    if not lead:
+        return rec
     if metrics_out:
         reg = b.metrics_snapshot()
         path = pathlib.Path(metrics_out)
@@ -239,9 +259,10 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
     if trace_out:
         path = pathlib.Path(trace_out)
         path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(json.dumps(b.trace_record(), indent=2) + "\n")
+        path.write_text(json.dumps(trace, indent=2) + "\n")
         print(f"trace -> {path}")
-    print(f"diffusion serve[{policy.name}, {rec['conditioner']}] on {rec['device']}: "
+    print(f"diffusion serve[{policy.name}, {rec['conditioner']}] on {rec['device']}"
+          f"{f' × {b.n_devices} ranks' if mesh is not None else ''}: "
           f"{rec['completed']}/{requests} requests in {dt:.2f} s "
           f"({rec['samples_per_sec']:.2f} samples/s), {slots} slots, horizon "
           f"{sync_horizon}, mean NFE {rec['mean_nfe']:.1f}, wasted NFE "
@@ -323,15 +344,24 @@ def main(argv=None) -> dict:
             cfg_scale=args.cfg_scale or 0.0, precision=args.precision, unet=args.unet,
             device=args.device)
     if args.diffusion:
-        return serve_diffusion(
-            slots=args.slots, requests=args.requests, image_size=args.image_size,
-            arch=args.arch, sync_horizon=args.sync_horizon,
-            compaction=not args.no_compaction, precision=args.precision,
-            inpaint=args.inpaint, cfg_scale=args.cfg_scale,
-            device_resident=args.device_resident, tier=args.tier,
-            deadline_ms=args.deadline_ms, telemetry=args.telemetry,
-            metrics_out=args.metrics_out, trace_out=args.trace_out,
-            device=args.device)
+        mesh = None
+        if "WORLD_SIZE" in os.environ:
+            from repro_torch.launch.sample import torchrun_mesh
+
+            mesh = torchrun_mesh(args.device)
+        try:
+            return serve_diffusion(
+                slots=args.slots, requests=args.requests, image_size=args.image_size,
+                arch=args.arch, sync_horizon=args.sync_horizon,
+                compaction=not args.no_compaction, precision=args.precision,
+                inpaint=args.inpaint, cfg_scale=args.cfg_scale,
+                device_resident=args.device_resident, tier=args.tier,
+                deadline_ms=args.deadline_ms, telemetry=args.telemetry,
+                metrics_out=args.metrics_out, trace_out=args.trace_out,
+                device=args.device, mesh=mesh)
+        finally:
+            if mesh is not None:
+                torch.distributed.destroy_process_group()
     if args.arch is None:
         ap.error("--arch is required unless --diffusion or --plan is given")
     dev = resolve_device(args.device)

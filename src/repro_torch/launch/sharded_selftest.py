@@ -16,7 +16,19 @@ the multi-rank path end to end:
      ``("data",)`` mesh of all ranks, x'' and e2 bitwise; batch- and
      feature-sharded over a (world/2, 2) ``("data", "model")`` mesh (1 × 1
      at world 1), x'' bitwise and e2 within ``FEATURE_RTOL``;
-  3. with ``--arch``, one solve of that DiT (weights from seed 0, livened
+  3. ``batcher``, the reference's check 3 at its size: a
+     ``DiffusionBatcher(mesh=)`` on the Gaussian noise prediction (VP,
+     eps_rel 0.05, ``sample_shape`` (32,), 2·world slots, 6·world
+     requests, sync horizon 4) delivers every request, finite, each
+     bitwise the same request from an unsharded batcher at sync horizon
+     1; every device refills past its first fill, and the refills sum to
+     the requests;
+  4. ``device_resident``, the reference's check 4: the same server
+     device-resident, bitwise the host-driven mesh server per request,
+     with equal iterations and fewer host reads. Where the mesh cannot
+     be captured (gloo on the card) it checks instead that asking for it
+     raises;
+  5. with ``--arch``, one solve of that DiT (weights from seed 0, livened
      from seed 0, VP, batch 8, eps_rel 0.05, fp32, fused step and flash
      attention) through ``repro_torch.launch.sample.run(mesh=)``, against
      the unsharded ``run`` on rank 0: bitwise at world 1; at a larger
@@ -26,11 +38,23 @@ the multi-rank path end to end:
      flash launches are counted from 0 over the sharded solve. Then the
      warm wall times in turns: that sharded solve, the unsharded one
      twice on rank 0, the sharded one again (the first, unsharded solve
-     is the cold call). On the card one ``all_reduce`` of 9 floats is
-     timed.
+     is the cold call). Then EM at ``EM_STEPS`` steps from that DiT under
+     ``mesh=`` (K5), against the unsharded run: bitwise at world 1;
+  6. with ``--arch``, the tiered serve of that DiT (``serve_arch``:
+     ``SERVE_SLOTS`` slots, ``SERVE_REQUESTS`` requests over the three
+     tiers under EDF, sync horizon 4; K4 with per-row tolerances, K3,
+     P1) under the mesh, host-driven and, where the mesh can be captured,
+     device-resident (P2 and the NCCL all-reduce in the WHILE node's
+     body), against the unsharded serve on rank 0: per request bitwise at
+     world 1; at a larger world every request delivered finite with its
+     NFE within ``NFE_SLACK`` (bitwise is reported) and the devices'
+     refills summing to the requests. (Per-device refill is check 3's
+     gate: under EDF the five high-fidelity requests are seated first,
+     four of them in block 0, which then holds them until the queue has
+     drained through the other blocks, so block 0 need not refill.) The
+     kernels' launches are counted from 0 over each mesh serve.
 
-The reference's checks 3 and 4 (the sharded ``DiffusionBatcher`` and
-device-resident serving) wait for serving (ROADMAP A7).
+On the card one ``all_reduce`` of 9 floats is timed.
 
 Prints one JSON line with the results; exits non-zero on any failure.
 
@@ -42,6 +66,7 @@ Prints one JSON line with the results; exits non-zero on any failure.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import json
 import os
@@ -51,6 +76,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -64,6 +90,11 @@ NFE_SLACK = 4
 KERNEL_SHAPES = ((8, 10, 10, 3), (8, 256 * 256 * 3))
 #: seconds a rank waits for the others before a collective fails
 PG_TIMEOUT_S = 60
+#: EM steps of check 5 (phase 3's EM-59 of chip_smoke.py)
+EM_STEPS = 59
+#: the tiered serve of check 6: chip_smoke.py phase 6a's
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_HORIZON = 8, 16, 4
+SERVE_TIERS = ("draft", "standard", "high_fidelity")
 
 
 def free_port() -> int:
@@ -172,6 +203,96 @@ def check_fused_kernel(mesh1d, mesh2d, dev) -> dict:
     return out
 
 
+def gaussian_batcher(dev, *, slots: int, sync_horizon: int, mesh=None, **kw):
+    """The reference selftest's server: VP, eps_rel 0.05, the Gaussian
+    noise prediction as the net, ``sample_shape`` (32,)."""
+    from repro_torch.core import analytic
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.core.solvers.adaptive import AdaptiveConfig
+    from repro_torch.launch.sample import make_sample_step
+    from repro_torch.serving.diffusion_server import DiffusionBatcher
+
+    sde = VPSDE()
+    cfg = AdaptiveConfig(eps_rel=0.05)
+    fwd = analytic.gaussian_noise_pred(sde)
+    step = make_sample_step(sde, cfg, forward_fn=lambda p, x, t: fwd(x, t))
+    return DiffusionBatcher(sde, step, None, (32,), slots=slots, cfg=cfg, mesh=mesh,
+                            sync_horizon=sync_horizon, device=dev, **kw)
+
+
+def drain(b, n_req: int) -> dict:
+    """Submit requests 0..n_req-1 (seed = uid) and run to completion."""
+    from repro_torch.serving.diffusion_server import ImageRequest
+
+    for uid in range(n_req):
+        b.submit(ImageRequest(uid=uid, seed=uid))
+    return b.run_to_completion()
+
+
+def same_requests(got: dict, want: dict, n_req: int) -> bool:
+    """Every request delivered by both, each bitwise equal."""
+    return (len(got) == len(want) == n_req
+            and all(np.array_equal(got[u].result, want[u].result) and got[u].nfe == want[u].nfe
+                    for u in range(n_req)))
+
+
+def check_batcher(mesh, dev) -> dict:
+    """Check 3: the sharded DiffusionBatcher, completion and per-device
+    refill, against an unsharded batcher at another sync horizon."""
+    slots, n_req = 2 * mesh.size, 6 * mesh.size
+    b = gaussian_batcher(dev, slots=slots, sync_horizon=4, mesh=mesh)
+    done = drain(b, n_req)
+    xs = np.stack([done[u].result for u in sorted(done)])
+    b_ref = gaussian_batcher(dev, slots=slots, sync_horizon=1)
+    done_ref = drain(b_ref, n_req)
+    return {
+        "all_completed": len(done) == n_req,
+        "finite": bool(np.isfinite(xs).all()),
+        "slots_per_device": b.slots_per_device,
+        "refills_per_device": list(b.refills_per_device),
+        "per_device_refill": all(r > b.slots_per_device for r in b.refills_per_device),
+        "total_assignments_match": sum(b.refills_per_device) == n_req,
+        "wasted_nfe_fraction": b.wasted_nfe_fraction,
+        "scheduling_invariant": same_requests(done, done_ref, n_req),
+    }
+
+
+def capturable(mesh, dev) -> bool:
+    """Whether a device-resident mesh server can run here: the CPU's plain
+    driver takes any mesh, the card's captured one NCCL's only."""
+    from repro_torch.core.solvers.adaptive import mesh_capturable
+
+    return dev.type == "cpu" or mesh_capturable(mesh.group())
+
+
+def check_device_resident(mesh, dev) -> dict:
+    """Check 4: the device-resident mesh server against the host-driven
+    one, bitwise, equal iterations, fewer reads; where the mesh cannot be
+    captured, that asking for it raises."""
+    slots, n_req = 2 * mesh.size, 6 * mesh.size
+    if not capturable(mesh, dev):
+        try:
+            gaussian_batcher(dev, slots=slots, sync_horizon=4, mesh=mesh, device_resident=True)
+            raised = False
+        except ValueError:
+            raised = True
+        return {"capturable": False, "raises": raised}
+    host = gaussian_batcher(dev, slots=slots, sync_horizon=4, mesh=mesh)
+    done_host = drain(host, n_req)
+    res = gaussian_batcher(dev, slots=slots, sync_horizon=4, mesh=mesh, device_resident=True)
+    done_res = drain(res, n_req)
+    return {
+        "capturable": True,
+        "all_completed": len(done_host) == len(done_res) == n_req,
+        "bitwise_equal": same_requests(done_res, done_host, n_req),
+        "iterations_equal": host.total_iterations == res.total_iterations,
+        "host_transfers": host.host_transfers,
+        "resident_transfers": res.host_transfers,
+        "transfers_reduced": res.host_transfers < host.host_transfers,
+        "graph_captures": res.graph_captures,
+    }
+
+
 def check_arch(mesh, dev, arch: str) -> dict:
     """One DiT solve through the launcher, sharded against unsharded."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -197,6 +318,14 @@ def check_arch(mesh, dev, arch: str) -> dict:
         dist.barrier()
         warm.append(u["wall_s"] if rank0 else None)
     again = launcher.run(arch, mesh=mesh, **kw)
+    # EM under the mesh (K5 on the rank's rows)
+    em_kw = dict(batch=8, precision="fp32", flash=True, seed=0, liven_seed=0, device=dev,
+                 method="em", n_steps=EM_STEPS)
+    em_ref = launcher.run(arch, **em_kw) if rank0 else None
+    dist.barrier()
+    step_ops.em_launches = 0
+    em = launcher.run(arch, mesh=mesh, **em_kw)
+    em_launches = step_ops.em_launches
     out = {"arch": arch, "launches": launches, "sharded_wall_s": rec["wall_s"],
            "sharded_walls_s": [rec["wall_s"], again["wall_s"]],
            "iterations": rec["iterations"], "mean_nfe": rec["mean_nfe"]}
@@ -212,11 +341,111 @@ def check_arch(mesh, dev, arch: str) -> dict:
             max_nfe_diff=nfe_diff,
             finite=rec["finite"], converged=rec["converged"],
             max_abs_diff=float((got.x - want.x).abs().max()))
+        em_bitwise = bool(torch.equal(em["result"].x, em_ref["result"].x))
+        out["em"] = {"steps": EM_STEPS, "launches": em_launches, "bitwise_equal": em_bitwise,
+                     "finite": em["finite"], "wall_s": em["wall_s"],
+                     "unsharded_wall_s": em_ref["wall_s"],
+                     "max_abs_diff": float((em["result"].x - em_ref["result"].x).abs().max())}
         if mesh.size == 1:
-            out["ok"] = out["bitwise_equal"]
+            out["ok"] = out["bitwise_equal"] and em_bitwise
         else:
             out["ok"] = (rec["finite"] and rec["converged"] == kw["batch"]
-                         and nfe_diff <= NFE_SLACK)
+                         and nfe_diff <= NFE_SLACK and em["finite"])
+    else:
+        out["em"] = {"launches": em_launches}
+    return out
+
+
+def serve_arch(arch: str, dev, *, mesh=None, device_resident: bool = False) -> dict:
+    """Check 6's tiered serve of ``arch`` (weights from seed 0, livened from
+    seed 0, VP, eps_rel 0.05, fp32, fused step, flash attention), with the
+    kernels' launches counted from 0 over the drain; returns the server,
+    what it delivered, its wall time and the launches."""
+    from repro_torch.configs.diffusion import ARCHS
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.core.solvers.adaptive import AdaptiveConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.graph_loop import ops as loop_ops
+    from repro_torch.kernels.philox import ops as ph
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.launch.sample import make_sample_step
+    from repro_torch.models.dit import init_dit, liven_zero_init
+    from repro_torch.serving.diffusion_server import DiffusionBatcher, ImageRequest
+    from repro_torch.serving.scheduler import EdfPriorityAdmission
+
+    net = dataclasses.replace(ARCHS[arch], use_flash=True)
+    model = init_dit(net, torch.Generator(device=dev).manual_seed(0))
+    liven_zero_init(model, torch.Generator(device=dev).manual_seed(0))
+    sde = VPSDE()
+    cfg = AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True)
+    b = DiffusionBatcher(sde, make_sample_step(sde, cfg), model,
+                         (net.image_size, net.image_size, net.channels),
+                         slots=SERVE_SLOTS, cfg=cfg, mesh=mesh, sync_horizon=SERVE_HORIZON,
+                         device_resident=device_resident, tolerance_classes=True,
+                         admission=EdfPriorityAdmission(aging_s=5.0), device=dev)
+    for u in range(SERVE_REQUESTS):
+        b.submit(ImageRequest(uid=u, seed=u, tier=SERVE_TIERS[u % 3]))
+    for m, name in ((step_ops, "launches"), (step_ops, "sharded_launches"),
+                    (flash_ops, "launches"), (ph, "launches"), (loop_ops, "launches")):
+        setattr(m, name, 0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    done = b.run_to_completion()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {"solver_step": step_ops.launches,
+                "sharded_solver_step": step_ops.sharded_launches,
+                "flash_attention": flash_ops.launches, "philox_normal": ph.launches,
+                "horizon_cond": loop_ops.launches}
+    del model
+    return {"server": b, "done": done, "wall_s": wall, "launches": launches}
+
+
+def check_arch_serve(mesh, dev, arch: str) -> dict:
+    """Check 6: the tiered serve of ``arch`` under the mesh against the
+    unsharded serve on rank 0."""
+    rank0 = dist.get_rank() == 0
+    runs = {"host": serve_arch(arch, dev, mesh=mesh)}
+    if capturable(mesh, dev):
+        runs["device_resident"] = serve_arch(arch, dev, mesh=mesh, device_resident=True)
+    ref = serve_arch(arch, dev) if rank0 else None
+    dist.barrier()
+    out = {}
+    for name, r in runs.items():
+        b, done = r["server"], r["done"]
+        rec = {"wall_s": r["wall_s"], "launches": r["launches"],
+               "delivered": len(done), "host_transfers": b.host_transfers,
+               "solver_syncs": b.solver_syncs, "windows": b.horizon_windows,
+               "iterations": b.total_iterations, "graph_captures": b.graph_captures,
+               "build_s": b._driver.build_s if b._driver is not None else 0.0,
+               "refills_per_device": list(b.refills_per_device),
+               "slots_per_device": b.slots_per_device,
+               "finite": all(np.isfinite(done[u].result).all() for u in done)}
+        if rank0:
+            want = ref["done"]
+            rec["bitwise_equal"] = same_requests(done, want, SERVE_REQUESTS)
+            rec["max_nfe_diff"] = max(abs(done[u].nfe - want[u].nfe) for u in want
+                                      if u in done) if done else None
+            rec["max_abs_diff"] = max(float(np.abs(done[u].result - want[u].result).max())
+                                      for u in want if u in done) if done else None
+            if mesh.size == 1:
+                rec["ok"] = rec["bitwise_equal"]
+            else:
+                rec["ok"] = (rec["delivered"] == SERVE_REQUESTS and rec["finite"]
+                             and rec["max_nfe_diff"] <= NFE_SLACK
+                             and sum(b.refills_per_device) == SERVE_REQUESTS)
+        out[name] = rec
+    if rank0:
+        rb = ref["server"]
+        out["unsharded"] = {"wall_s": ref["wall_s"], "launches": ref["launches"],
+                            "host_transfers": rb.host_transfers,
+                            "iterations": rb.total_iterations,
+                            "mean_nfe": {t: v["mean_nfe"] for t, v in rb.class_stats.items()}}
+        out["ok"] = all(out[n]["ok"] for n in runs)
+    if not capturable(mesh, dev):
+        out["device_resident"] = {"capturable": False}
     return out
 
 
@@ -252,9 +481,12 @@ def _rank_main(rank: int, world: int, port: int, out_dir: str, opts: dict) -> No
         res = {"rank": rank,
                "sample_jnp": check_sample_equivalence(mesh1d, dev, fused=False),
                "sample_fused": check_sample_equivalence(mesh1d, dev, fused=True),
-               "fused_kernel": check_fused_kernel(mesh1d, mesh2d, dev)}
+               "fused_kernel": check_fused_kernel(mesh1d, mesh2d, dev),
+               "batcher": check_batcher(mesh1d, dev),
+               "device_resident": check_device_resident(mesh1d, dev)}
         if opts["arch"]:
             res["arch"] = check_arch(mesh1d, dev, opts["arch"])
+            res["arch_serve"] = check_arch_serve(mesh1d, dev, opts["arch"])
         if dev.type == "cuda":
             res["all_reduce_9"] = time_all_reduce(dev)
         put_result(out_dir, rank, res)
@@ -301,13 +533,39 @@ def run(world: int, *, device: str = "cuda", backend: str | None = None,
                        "sharded_over_ranks"))
     ok &= agree("fused_kernel", "batch_sharded_bitwise")
     ok &= agree("fused_kernel", "feature_sharded_close")
+    results["batcher"] = ranks[0]["batcher"]
+    ok &= all(agree("batcher", k) for k in ("all_completed", "finite", "per_device_refill",
+                                             "total_assignments_match",
+                                             "scheduling_invariant"))
+    results["device_resident"] = ranks[0]["device_resident"]
+    if results["device_resident"]["capturable"]:
+        ok &= all(agree("device_resident", k) for k in ("all_completed", "bitwise_equal",
+                                                         "iterations_equal",
+                                                         "transfers_reduced"))
+    else:
+        ok &= agree("device_resident", "raises")
     if arch:
         results["arch"] = ranks[0]["arch"]
         results["arch"]["launches_per_rank"] = [r["arch"]["launches"] for r in ranks]
         ok &= bool(results["arch"]["ok"])
+        results["arch_serve"] = ranks[0]["arch_serve"]
+        results["arch_serve"]["launches_per_rank"] = {
+            name: [r["arch_serve"][name]["launches"] for r in ranks]
+            for name in ("host", "device_resident") if "launches" in ranks[0]["arch_serve"][name]}
+        ok &= bool(results["arch_serve"]["ok"])
         if device == "cuda":  # the kernels ran on every rank
             ok &= all(r["arch"]["launches"]["sharded_solver_step"] > 0
-                      and r["arch"]["launches"]["flash_attention"] > 0 for r in ranks)
+                      and r["arch"]["launches"]["flash_attention"] > 0
+                      and r["arch"]["em"]["launches"] == EM_STEPS for r in ranks)
+            for r in ranks:
+                serve = r["arch_serve"]
+                for name in ("host", "device_resident"):
+                    n = serve[name].get("launches")
+                    if n is None:
+                        continue
+                    ok &= (n["sharded_solver_step"] > 0 and n["flash_attention"] > 0
+                           and n["philox_normal"] > 0
+                           and (n["horizon_cond"] > 0) == (name == "device_resident"))
     if "all_reduce_9" in ranks[0]:
         results["all_reduce_9"] = ranks[0]["all_reduce_9"]
     results["ok"] = bool(ok)

@@ -1,12 +1,13 @@
 """Port of ``repro/parallel``: the device mesh, the sharding rules and the
-collectives of data-parallel adaptive sampling over ``torch.distributed``.
+collectives of data-parallel adaptive sampling and serving over
+``torch.distributed``.
 
 ``Mesh`` and ``init_mesh`` (``parallel/mesh.py``) stand in for
 ``jax.sharding.Mesh``; ``sharding.py`` says which rows of each leaf a
 rank owns; ``collectives.py`` holds the O(B) error combine, the O(1)
-loop-control reduction and the row gather. The reference's
-``pipeline.py`` and its tensor-parallel rules are not ported yet
-(ROADMAP A11).
+loop-control reduction, the row gather and the serve loop's gathers of
+bookkeeping and retired rows. The reference's ``pipeline.py`` and its
+tensor-parallel rules are not ported yet (ROADMAP A11, the LM half).
 """
 
 from repro_torch.parallel.mesh import Mesh, init_mesh
@@ -16,10 +17,12 @@ from repro_torch.parallel.sharding import (
     data_axes,
     replicated,
     sample_state_shardings,
+    serving_loop_shardings,
     solver_carry_shardings,
 )
 
 __all__ = [
     "Mesh", "RowSharding", "batch_sharding", "data_axes", "init_mesh",
-    "replicated", "sample_state_shardings", "solver_carry_shardings",
+    "replicated", "sample_state_shardings", "serving_loop_shardings",
+    "solver_carry_shardings",
 ]

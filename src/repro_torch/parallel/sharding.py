@@ -1,6 +1,7 @@
-"""Sharding rules for data-parallel sampling; port of the sampling half of
-``repro/parallel/sharding.py`` (``data_axes``, ``batch_sharding``,
-``replicated``, ``sample_state_shardings``, ``solver_carry_shardings``).
+"""Sharding rules for data-parallel sampling and serving; port of the
+diffusion half of ``repro/parallel/sharding.py`` (``data_axes``,
+``batch_sharding``, ``replicated``, ``sample_state_shardings``,
+``solver_carry_shardings``, ``serving_loop_shardings``).
 
 In the reference a sharding is a ``NamedSharding``: it says how XLA lays
 one global array over the mesh. In the port each rank holds only its own
@@ -11,10 +12,8 @@ shard i are [i·B/n, (i+1)·B/n), with i this rank's index over the data
 axes, major to minor, which is where the reference's ``PartitionSpec``
 puts them.
 
-Not ported yet, each with the slice that needs it (ROADMAP): the
-per-slot key leaf and the telemetry ring of ``solver_carry_shardings``
-(A7, A9); ``param_shardings``, ``kv_cache_spec``/``kv_cache_sharding``
-and ``serving_loop_shardings`` (A11, A7).
+The LM's rules, ``param_shardings`` and ``kv_cache_spec``/
+``kv_cache_sharding``, are not ported yet (ROADMAP A11, the LM half).
 """
 
 from __future__ import annotations
@@ -116,23 +115,59 @@ def sample_state_shardings(mesh: Mesh, batch: int, state_ndim: int):
 
 
 def solver_carry_shardings(mesh: Mesh, batch: int, state_ndim: int, *,
-                           cond=None, tolerances: bool = False):
+                           per_slot_keys: bool = False, cond=None,
+                           tolerances: bool = False, telemetry: bool = False):
     """A ``SolverCarry`` whose leaves are the ``RowSharding`` of each leaf
     of the carry (DESIGN.md §7).
+
+    ``per_slot_keys`` shards the noise source with the state: the
+    carry's ``generator`` is then a ``SlotStreams`` (or a list of per-slot
+    sources) whose seed and counter rows are this rank's rows, and each
+    rank draws its own rows (P1 draws by (seed, counter), so no rank
+    needs another's streams, and shard-local compaction never moves a
+    stream across ranks). Without it the generator replicates: every
+    rank draws the whole batch's noise and keeps its rows.
 
     ``cond`` is the condition payload (a dict of tensors, each leading
     with the batch); each leaf gets a batch sharding of its own ndim, so
     a slot's condition lives with the slot. ``tolerances`` gives the
     per-sample ``atol``/``rtol`` the (B,) vector sharding; False matches
-    a carry with no tolerance leaves. The generator replicates: every
-    rank draws the whole batch's noise and keeps its rows.
+    a carry with no tolerance leaves. ``telemetry`` shards the
+    step-telemetry ring's (B, cap) buffers by rows and replicates its
+    head cursor; False matches a carry without a ring.
     """
     from repro_torch.core.solvers.adaptive import SolverCarry
+    from repro_torch.observability.telemetry import StepTelemetry
 
     arr, vec, rep = sample_state_shardings(mesh, batch, state_ndim)
     cond_s = ({k: batch_sharding(mesh, batch, v.ndim) for k, v in cond.items()}
               if cond is not None else None)
     tol = vec if tolerances else None
+    tel = None
+    if telemetry:
+        ring = batch_sharding(mesh, batch, 2)
+        tel = StepTelemetry(t=ring, h=ring, err=ring, accept=ring, head=rep)
     return SolverCarry(x=arr, x_prev=arr, t=vec, h=vec, nfe=vec, accepted=vec,
-                       rejected=vec, done=vec, iterations=rep, generator=rep,
-                       atol=tol, rtol=tol, cond=cond_s)
+                       rejected=vec, done=vec, iterations=rep,
+                       generator=vec if per_slot_keys else rep,
+                       atol=tol, rtol=tol, cond=cond_s, telemetry=tel)
+
+
+def serving_loop_shardings(mesh: Mesh, batch: int, state_ndim: int, *,
+                           per_slot_keys: bool = True, cond=None,
+                           tolerances: bool = False, telemetry: bool = False):
+    """The sharding pair of the serve loop under a mesh (DESIGN.md §12):
+    ``(carry_shardings, scalar_sharding)``.
+
+    In the reference the pair pins the jitted driver's outputs to the
+    carry's input shardings, so that XLA keeps the donated buffers. The
+    port has no donation to pin: each rank's carry is its static block
+    of rows, written in place by the host's event updates and, on the
+    card, read and written by the captured horizon graph
+    (``solver_carry_shardings``, ``per_slot_keys`` on). The scalar
+    sharding (replicated) covers the driver's event state and the global
+    flags the ranks agree on after every horizon.
+    """
+    carry = solver_carry_shardings(mesh, batch, state_ndim, per_slot_keys=per_slot_keys,
+                                   cond=cond, tolerances=tolerances, telemetry=telemetry)
+    return carry, replicated(mesh)

@@ -151,7 +151,7 @@ def returns_to_bin(returns, lo: float, hi: float, bins: int) -> Tensor:
 def plan(sde, score_fn: Callable, obs, seed: int = 0, *, pcfg: PlannerConfig,
          returns=None, config: Optional[AdaptiveConfig] = None,
          batch: Optional[int] = None, device="cuda",
-         noise_fn: Optional[Callable] = None, **overrides) -> SolveResult:
+         noise_fn: Optional[Callable] = None, mesh=None, **overrides) -> SolveResult:
     """One planning solve on ``device`` (``cuda`` unless the caller
     passes ``"cpu"``): (B, H, D) trajectories from the adaptive solver,
     conditioned on the current observations ``obs`` (B, obs_dim) (None
@@ -160,7 +160,9 @@ def plan(sde, score_fn: Callable, obs, seed: int = 0, *, pcfg: PlannerConfig,
     coordinates; ``first_action`` reads the executed action. The score
     must be label-aware (``s(x, t, y)``) when ``returns`` is given.
     ``seed`` seeds the prior and the solver's noise; ``noise_fn``
-    replaces the noise draws (``adaptive``'s seam).
+    replaces the noise draws (``adaptive``'s seam). ``mesh`` makes the
+    solve data-parallel (``sample(mesh=)``): the result holds this rank's
+    rows (``sampling.gather_result`` collects them).
     """
     conditioner, cond = plan_conditioner(pcfg, state=obs, returns=returns)
     cfg = config or AdaptiveConfig(eps_rel=0.05)
@@ -178,7 +180,7 @@ def plan(sde, score_fn: Callable, obs, seed: int = 0, *, pcfg: PlannerConfig,
         raise ValueError("unconditional plan() needs an explicit batch=")
     return sample(sde, score_fn, (batch,) + pcfg.sample_shape, seed=seed,
                   method="adaptive", config=cfg, cond=cond, device=device,
-                  noise_fn=noise_fn)
+                  noise_fn=noise_fn, mesh=mesh)
 
 
 def first_action(x: Tensor, pcfg: PlannerConfig) -> Tensor:
@@ -206,7 +208,10 @@ class RecedingHorizonPlanner:
     from the same final ``cfg`` the batcher gets. ``device`` holds the
     batcher (``cuda`` unless the caller passes ``"cpu"``);
     ``request_streams`` is the batcher's seam (tests hand in the
-    reference's per-request draws). ``mesh=`` raises (ROADMAP A11).
+    reference's per-request draws). ``mesh=`` shards the batcher's slots
+    over the mesh's data axes (``DiffusionBatcher(mesh=)``): every rank
+    of the mesh builds the planner and runs the same rollout, and each
+    environment steps on every rank with the plan all of them deliver.
     """
 
     def __init__(self, sde, forward_fn, params, pcfg: PlannerConfig, env, *,

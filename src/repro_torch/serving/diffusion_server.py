@@ -50,19 +50,40 @@ permutation and the admissions into the same buffers in place
 not O(sync horizons), and the delivered samples are the host-driven
 loop's bit for bit.
 
-Not ported: mesh serving (``mesh=`` raises, ROADMAP A11).
+Mesh scale-out (DESIGN.md §3; ``mesh=``): the slot batch shards over the
+mesh's data axes, a rank of ``torch.distributed`` per data index. Each
+rank's carry holds only its contiguous block of ``slots / n_devices``
+rows, and compaction is shard-local: slots are permuted within their
+block only, so no sample, stream or condition row crosses a rank, and
+``refills_per_device`` counts each block's admissions. The host's books
+(queue, slot table, counters) are the same on every rank, which is the
+SPMD contract: every rank constructs the server and submits the same
+requests in the same order, and every decision reads only global
+values. At a sync the (B,) bookkeeping is gathered from every rank in
+one collective (one ``_d2h`` read, as the reference's one
+``device_get``), and the retired rows reach every rank's ``finished`` in
+another; admission writes only the rows a rank owns. Every clock read
+that a decision or a book depends on (submission stamps and deadlines,
+EDF admission's ``now``, delivery) is rank 0's reading, broadcast over a
+host (gloo) group, so the ranks seat the same requests. The
+device-resident driver agrees on its event flag after every horizon
+(``adaptive.MeshFlags``): on the card the NCCL all-reduce is captured
+inside the WHILE node's body, and a gloo mesh on CUDA tensors raises.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import math
 import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.diffusion import ToleranceClass, resolve_tier
 from repro_torch.core.precision import resolve_policy
@@ -74,6 +95,7 @@ from repro_torch.device import resolve_device
 from repro_torch.observability.metrics import MetricsRegistry
 from repro_torch.observability.telemetry import init_telemetry, telemetry_history
 from repro_torch.observability.tracing import NULL_TRACER, profiler_annotation
+from repro_torch.parallel.collectives import gather_retired, gather_rows, gather_slot_vectors
 from repro_torch.serving.scheduler import (
     AdmissionPolicy, FifoAdmission, TierAccounting, tier_name,
 )
@@ -121,6 +143,35 @@ class ImageRequest:
     _admit_iters: int = dataclasses.field(default=0, repr=False)
     _submit_t: float = dataclasses.field(default=0.0, repr=False)
     _seat_t: float = dataclasses.field(default=0.0, repr=False)
+
+
+@functools.cache
+def _host_group(group):
+    """A gloo group over the ranks of ``group`` (``group`` itself when it is
+    gloo's): the mesh server's host-side agreement. Made once a group, in
+    the same order on every rank."""
+    if dist.get_backend(group) == "gloo":
+        return group
+    return dist.new_group(dist.get_process_group_ranks(group), backend="gloo")
+
+
+class MeshClock:
+    """Rank 0's clock on every rank of a mesh: each call reads ``clock`` on
+    the mesh's first rank and broadcasts the value over a host group, so
+    every rank stamps, orders and books with the same readings, in the
+    same number and order as one unsharded server reads its clock."""
+
+    def __init__(self, clock: Callable[[], float], mesh):
+        self.clock = clock
+        self.group = _host_group(mesh.group())
+        self.src = int(np.asarray(mesh.ranks()).reshape(-1)[0])
+
+    def __call__(self) -> float:
+        t = torch.zeros(1, dtype=torch.float64)
+        if dist.get_rank() == self.src:
+            t[0] = self.clock()
+        dist.broadcast(t, src=self.src, group=self.group)
+        return float(t[0])
 
 
 def _family(cfg: AdaptiveConfig) -> str:
@@ -176,6 +227,16 @@ class DiffusionBatcher:
     ``"cpu"``); ``request_streams(req, shape, device) -> (prior, source)``
     replaces the default per-request streams (module docstring); a
     device-resident server on the card refuses it.
+
+    ``mesh`` (a ``repro_torch.parallel.Mesh``) shards the slots over its
+    data axes (module docstring): ``n_devices`` is the product of the data
+    axes, ``slots`` must divide by it (else ``ValueError``), and
+    ``slots_per_device``, ``slot_device`` and ``refills_per_device`` are
+    per data index. A mesh server is a collective: every rank of the mesh
+    builds it, submits the same requests in the same order and drives it
+    the same way; ``sample_step`` must take ``sharding=`` (and its
+    ``capture_horizon`` ``sharding=`` and ``flags=``), as
+    ``launch.sample.make_sample_step``'s does.
     """
 
     def __init__(self, sde: SDE, sample_step: Callable, params, sample_shape, *,
@@ -186,10 +247,6 @@ class DiffusionBatcher:
                  admission: Optional[AdmissionPolicy] = None, delivery=None,
                  clock: Optional[Callable[[], float]] = None, telemetry: int = 0,
                  tracer=None, device="cuda", request_streams: Optional[Callable] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving, DiffusionBatcher(mesh=), host-driven or device-resident, "
-                "waits for ROADMAP A11")
         self.sde = sde
         self.cfg = cfg or AdaptiveConfig()
         self.policy = resolve_policy(self.cfg.precision)
@@ -219,6 +276,35 @@ class DiffusionBatcher:
         self.admission = admission if admission is not None else FifoAdmission()
         self.delivery = delivery if delivery is not None else TierAccounting()
         self._clock = clock if clock is not None else time.monotonic
+        self.mesh = mesh
+        #: under a mesh, the ``RowSharding`` of each carry leaf
+        #: (``serving_loop_shardings``) and the slots' (the state's); None
+        #: without one
+        self._carry_shardings = self._sharding = None
+        self.n_devices = 1
+        if mesh is not None:
+            from repro_torch.parallel.sharding import data_axes, serving_loop_shardings
+
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"mesh on {mesh.device}, server on {self.device}")
+            axes = data_axes(mesh)
+            self.n_devices = math.prod(mesh.shape[a] for a in axes) if axes else 1
+            if slots % self.n_devices:
+                raise ValueError(f"slots={slots} must divide across {self.n_devices} devices")
+            if (device_resident and self.device.type == "cuda"
+                    and not ad.mesh_capturable(mesh.group())):
+                raise ValueError(
+                    "the device-resident driver under a mesh captures the mesh's "
+                    "all-reduce into its CUDA graph, and gloo collectives cannot be "
+                    "captured: serve device-resident on an NCCL mesh, or host-driven "
+                    "on gloo")
+            cond = (None if self.cfg.conditioner is None
+                    else self.cfg.conditioner.cond_struct(slots, self.shape))
+            self._carry_shardings, _ = serving_loop_shardings(
+                mesh, slots, 1 + len(self.shape), cond=cond, tolerances=self.tiered,
+                telemetry=int(telemetry) > 0)
+            self._sharding = self._carry_shardings.x
+            self._clock = MeshClock(self._clock, mesh)
         self.telemetry_capacity = int(telemetry)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = MetricsRegistry()
@@ -242,11 +328,17 @@ class DiffusionBatcher:
         self.sample_step = sample_step
         # no reference to self: a server (and its captured graph) is freed
         # as soon as its last user lets go of it
-        self.step_fn = lambda p, c, h=self.sync_horizon: sample_step(p, c, max_sync_iters=h)
-        #: one device, one block of slots (the reference's per-device
-        #: admission counts under a mesh, ROADMAP A11)
-        self.slots_per_device = slots
-        self.refills_per_device: List[int] = [0]
+        self.step_fn = lambda p, c, h=self.sync_horizon, kw=self._shard_kw(): sample_step(
+            p, c, max_sync_iters=h, **kw)
+        #: one block of slots a data index of the mesh (one block without one)
+        self.slots_per_device = slots // self.n_devices
+        #: per-device count of queue→slot assignments (the initial fill
+        #: included): admission proceeds block by block
+        self.refills_per_device: List[int] = [0] * self.n_devices
+        #: the slots this rank's carry holds: its block under a mesh
+        rows = (range(slots) if self._sharding is None or self._sharding.replicated
+                else range(slots)[self._sharding.rows])
+        self._lo, self._hi = rows.start, rows.stop
         self.queue: Deque[ImageRequest] = deque()
         self.finished: Dict[int, ImageRequest] = {}
         self._slot_req: List[Optional[ImageRequest]] = [None] * slots
@@ -260,7 +352,7 @@ class DiffusionBatcher:
         self.admission_visits = 0
         #: host mirror of the carry's iteration counter (one read a chunk)
         self._host_iters = 0
-        B, dev = slots, self.device
+        B, dev = self._hi - self._lo, self.device
         zi = lambda: torch.zeros((B,), dtype=torch.int32, device=dev)
         f32 = lambda v: torch.full((B,), v, dtype=torch.float32, device=dev)
         self._carry = SolverCarry(
@@ -288,6 +380,18 @@ class DiffusionBatcher:
         self._driver: Optional[HorizonDriver] = None
 
     # ------------------------------------------------------------------
+    def _shard_kw(self) -> dict:
+        """The device step's keywords under a mesh: the slots' sharding."""
+        return {} if self._sharding is None else {"sharding": self._sharding}
+
+    def slot_device(self, slot: int) -> int:
+        """The data index of the mesh that owns ``slot`` (contiguous blocks)."""
+        return slot // self.slots_per_device
+
+    def _local(self, slots) -> list:
+        """This rank's carry rows of the global ``slots`` it owns."""
+        return [i - self._lo for i in slots if self._lo <= i < self._hi]
+
     def _d2h(self, *tensors):
         """The serve loop's device→host seam: every read crosses here and
         is counted; one call is one logical sync, however many tensors
@@ -295,6 +399,14 @@ class DiffusionBatcher:
         self._c_transfers.inc()
         out = tuple(t.cpu().numpy() for t in tensors)
         return out[0] if len(out) == 1 else out
+
+    def _books(self, *vectors):
+        """The (B,) bookkeeping read: every (B_local,) per-slot vector of the
+        carry as the whole slot batch's, in one gather under a mesh; one
+        ``_d2h`` read either way."""
+        if self._sharding is not None:
+            vectors = gather_slot_vectors(vectors, self.mesh, self._carry_shardings.done)
+        return self._d2h(*vectors)
 
     def _to_device(self, cond: dict) -> dict:
         return {k: v.to(self.device) for k, v in cond.items()}
@@ -451,21 +563,24 @@ class DiffusionBatcher:
                 self._slot_req[i] = req
                 req._admit_iters = self.total_iterations
                 req._seat_t = now
-                self.refills_per_device[0] += 1
+                self.refills_per_device[self.slot_device(i)] += 1
             # the span names the uids seated and the slots they took
             sp["attrs"]["uids"] = [r.uid for r in reqs]
             sp["attrs"]["slots"] = list(admit_pos)
         return admit_pos, reqs
 
     def _compaction_perm(self) -> np.ndarray:
-        """Pack the in-flight samples to the front of the slot block and
+        """Shard-local compaction: within each device's block of slots, pack
+        the in-flight samples to the front (no slot crosses a block), and
         reorder ``_slot_req`` to match; the identity when compaction is
         off."""
         perm = np.arange(self.n)
         if self.compaction:
-            live = [i for i in range(self.n) if self._slot_req[i] is not None]
-            free = [i for i in range(self.n) if self._slot_req[i] is None]
-            perm[:] = live + free
+            for d in range(self.n_devices):
+                block = range(d * self.slots_per_device, (d + 1) * self.slots_per_device)
+                live = [i for i in block if self._slot_req[i] is not None]
+                free = [i for i in block if self._slot_req[i] is None]
+                perm[block.start:block.stop] = live + free
             self._slot_req = [self._slot_req[j] for j in perm]
         return perm
 
@@ -479,7 +594,7 @@ class DiffusionBatcher:
         # the device's own convergence mask: anything else could disagree
         # with the loop's active mask and make retirement depend on the
         # sync horizon
-        done = self._d2h(c.done)
+        done, nfe, acc, rej = self._books(c.done, c.nfe, c.accepted, c.rejected)
         occupied = [r is not None for r in self._slot_req]
         conv = [occupied[i] and bool(done[i]) for i in range(self.n)]
         if not self.compaction and occupied != conv and any(occupied):
@@ -491,9 +606,7 @@ class DiffusionBatcher:
         #    Tweedie denoise, as the reference delivers)
         conv_idx = [i for i in range(self.n) if conv[i]]
         if conv_idx:
-            rows, nfe, acc, rej = self._d2h(self._retired_rows(conv_idx), c.nfe,
-                                            c.accepted, c.rejected)
-            self._retire(rows, nfe, acc, rej, conv_idx)
+            self._retire(self._d2h(self._retired_rows(conv_idx)), nfe, acc, rej, conv_idx)
         # 2. compaction (each sample's stream moves with it) and 3. admission
         perm = self._compaction_perm()
         admit_pos, reqs = self._admit_from_queue()
@@ -505,13 +618,19 @@ class DiffusionBatcher:
 
     def _retired_rows(self, conv_idx) -> Tensor:
         """The converged slots' rows in fp32, with the conditioner's exact
-        ``finalize_project`` (inpainting pins the observed coordinates)."""
+        ``finalize_project`` (inpainting pins the observed coordinates).
+        Under a mesh each rank cuts the rows it owns and one gather hands
+        every rank all of them, in ``conv_idx``'s (ascending) order."""
         c = self._carry
-        idx = torch.tensor(conv_idx, dtype=torch.long, device=self.device)
+        idx = torch.tensor(self._local(conv_idx), dtype=torch.long, device=self.device)
         rows = c.x.index_select(0, idx).to(torch.float32)
         if self.conditioner is not None:
             cond_rows = {k: v.index_select(0, idx) for k, v in c.cond.items()}
             rows = self.conditioner.finalize_project(rows, cond_rows)
+        if self._sharding is not None:
+            counts = [sum(1 for i in conv_idx if self.slot_device(i) == d)
+                      for d in range(self.n_devices)]
+            rows = gather_retired(rows, counts, self.mesh, self._sharding)
         return rows
 
     def _write_slots(self, perm: np.ndarray, admit_pos, reqs) -> None:
@@ -524,13 +643,18 @@ class DiffusionBatcher:
         counter 1. The device-resident driver's graph reads these same
         buffers, so nothing is rebound."""
         c, dev = self._carry, self.device
-        permute = not np.array_equal(perm, np.arange(self.n))
+        # this rank's block: compaction never leaves a block, so the block's
+        # permutation is its own rows'
+        perm = perm[self._lo:self._hi] - self._lo
+        permute = not np.array_equal(perm, np.arange(perm.shape[0]))
         if permute:
             perm_t = torch.from_numpy(perm).to(dev)
             for leaf in self._slot_leaves():
                 leaf.copy_(leaf.index_select(0, perm_t))
             if isinstance(c.generator, list):
                 c.generator = [c.generator[j] for j in perm]
+        reqs = [r for i, r in zip(admit_pos, reqs) if self._lo <= i < self._hi]
+        admit_pos = self._local(admit_pos)
         if not admit_pos:
             return
         k = len(admit_pos)
@@ -585,7 +709,8 @@ class DiffusionBatcher:
     def _set_occupied(self) -> None:
         """Mirror the host's slot occupancy into the device mask the
         driver's event flag reads (one host→device copy)."""
-        self._occupied.copy_(torch.tensor([r is not None for r in self._slot_req]))
+        self._occupied.copy_(torch.tensor([r is not None for r in
+                                           self._slot_req[self._lo:self._hi]]))
 
     def _device_driver(self) -> HorizonDriver:
         """The device-resident driver, built at the first window: on the
@@ -593,13 +718,19 @@ class DiffusionBatcher:
         server) and builds the WHILE-node graph around it."""
         if self._driver is None:
             step, params, h = self.sample_step, self.params, self.sync_horizon
+            kw, flags = self._shard_kw(), None
+            if self._sharding is not None:
+                flags = ad.MeshFlags(self._sharding, self._occupied, horizon=h,
+                                     draws=ad.draws_per_iteration(self.cfg))
             if self.device.type == "cuda":
-                unit = lambda c: step.capture_horizon(params, c, h)
+                if flags is not None:
+                    kw["flags"] = flags
+                unit = lambda c: step.capture_horizon(params, c, h, **kw)
             else:
-                unit = lambda c: step(params, c, max_sync_iters=h)
+                unit = lambda c: step(params, c, max_sync_iters=h, **kw)
             self._driver = HorizonDriver(self._carry, self._occupied, unit,
                                          max_horizons=MAX_HORIZONS,
-                                         wait_all=not self.compaction)
+                                         wait_all=not self.compaction, flags=flags)
             self._carry = self._driver.carry
         return self._driver
 
@@ -616,8 +747,11 @@ class DiffusionBatcher:
         c = self._carry
         if deliver:
             self.event_visits += 1
-            done, nfe, acc, rej, iters = self._d2h(c.done, c.nfe, c.accepted, c.rejected,
-                                                   c.iterations)
+            # the iteration count is the mesh's (replicated): it rides the
+            # gather as a vector
+            done, nfe, acc, rej, iters = self._books(
+                c.done, c.nfe, c.accepted, c.rejected, c.iterations.expand(c.batch))
+            iters = iters[0]
         else:
             self.admission_visits += 1
             iters = self._d2h(c.iterations)
@@ -724,7 +858,8 @@ class DiffusionBatcher:
         requests with their books, the registry, the tracer's spans and
         histograms, the per-class stats and, with the ring on, the
         chronological step history (``repro_torch.analysis.telemetry``
-        renders it)."""
+        renders it). Under a mesh the ring's rows are gathered from every
+        rank: a collective, which every rank calls."""
         self.metrics_snapshot()
         requests = [
             {"uid": r.uid, "tier": tier_name(r), "nfe": r.nfe,
@@ -741,8 +876,11 @@ class DiffusionBatcher:
         }
         tel = self._carry.telemetry
         if tel is not None:
-            t, h, err, accept, head = self._d2h(tel.t, tel.h, tel.err, tel.accept,
-                                                tel.head)
+            rings = [getattr(tel, f) for f in ("t", "h", "err", "accept")]
+            if self._sharding is not None:
+                rings = [gather_rows(r, self.mesh, self._carry_shardings.telemetry.t)
+                         for r in rings]
+            t, h, err, accept, head = self._d2h(*rings, tel.head)
             hist = telemetry_history(dataclasses.replace(
                 tel, t=t, h=h, err=err, accept=accept, head=head))
             rec["telemetry"] = {

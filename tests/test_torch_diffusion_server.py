@@ -28,8 +28,8 @@ Three groups:
     solo ≡ served.
   * **launcher**: ``serve_diffusion`` on the CPU returns the reference's
     record keys, ``--tier mixed`` gives per-class stats, the
-    device-resident mode runs and the mesh mode raises naming ROADMAP
-    A11.
+    device-resident mode runs and a mesh that does not divide the slots
+    raises.
 
 The closed-form Gaussian score stands in for the net (as in the
 reference's tests) except in one parity case through a small livened DiT.
@@ -62,6 +62,7 @@ from repro_torch.core.solvers.base import SlotStreams
 from repro_torch.launch import serve as tserve
 from repro_torch.launch.sample import make_sample_step
 from repro_torch.models import dit as tdit
+from repro_torch.parallel import Mesh
 from repro_torch.serving.diffusion_server import DiffusionBatcher, ImageRequest
 
 from test_torch_dit import liven
@@ -499,15 +500,18 @@ def test_serve_cli_conditioned_modes():
 
 
 def test_device_resident_and_mesh_raise_naming_roadmap(parts):
-    """The device-resident mode runs (the plain driver on the CPU); mesh
-    serving raises, device-resident or not, naming ROADMAP A11."""
+    """The device-resident mode runs (the plain driver on the CPU); a mesh
+    whose data axes do not divide the slots raises ``ValueError``,
+    device-resident or not (mesh serving itself runs in
+    ``test_torch_sharded_serving.py``)."""
     rec = tserve.serve_diffusion(slots=2, requests=1, device_resident=True, device="cpu")
     assert rec["completed"] == 1 and rec["device_resident"]
     assert rec["horizon_windows"] >= 1
     assert _batcher(parts, device_resident=True).device_resident
+    mesh = Mesh(("data", "model"), (3, 2), (1, 0))  # no process group: raises first
     for dr in (False, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            _batcher(parts, mesh=object(), device_resident=dr)
+        with pytest.raises(ValueError, match="must divide across 3 devices"):
+            _batcher(parts, mesh=mesh, device_resident=dr)
 
 
 def test_server_without_a_card_raises(parts, monkeypatch):

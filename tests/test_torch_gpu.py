@@ -1145,7 +1145,9 @@ def test_graphed_horizon_counts_the_kernels_its_replays_launch(cuda):
         b.submit(ImageRequest(uid=u, seed=u))
     step_ops.launches = ph.launches = 0
     graph = b._device_driver().graph
-    assert graph.recorded == {step_ops: 2, flash_ops: 0, gn_ops: 0, ph: 2}
+    assert graph.recorded == {(step_ops, "launches"): 2, (step_ops, "sharded_launches"): 0,
+                              (flash_ops, "launches"): 0, (gn_ops, "launches"): 0,
+                              (ph, "launches"): 2}
     assert (step_ops.launches, ph.launches) == (1, 1)
     b.run_to_completion()
     assert step_ops.launches == 1 + 2 * b.device_horizons
@@ -1254,7 +1256,8 @@ def test_zoo_family_graphed_horizon_bitwise_eager(cuda, family):
     graphed = ad.own_buffers(ad.init_carry(sde, x0, SlotStreams.of(seeds, 1, cuda), config=cfg))
     eager = copy.deepcopy(graphed)
     g = step.capture_horizon(None, graphed, 4)
-    assert g.recorded[ph] == (4 if family == "momentum" else 0) and g.recorded[step_ops] == 4
+    assert g.recorded[(ph, "launches")] == (4 if family == "momentum" else 0)
+    assert g.recorded[(step_ops, "launches")] == 4
     for _ in range(3):
         g.replay()
         eager = step(None, eager, max_sync_iters=4)

@@ -4,8 +4,8 @@ the telemetry leaf of the port's Algorithm-1 carry.
 
 Mirrors the rows of ``tests/test_observability.py`` that the port's
 slice holds: telemetry off ≡ on bitwise (the adaptive family at sync
-horizons 1 and 8 and device-resident; the momentum and Heun families
-wait for ROADMAP A5), the ring against a host-replayed oracle, its
+horizons 1 and 8 and device-resident; the momentum and Heun families'
+rows are not mirrored yet, ROADMAP A item 5), the ring against a host-replayed oracle, its
 wraparound and chunk-boundary invariance, request ids through
 compaction, the mixed-wave trace reconciliation and report (host-driven
 and device-resident), the registry, the tracer, and the quality gauges.

@@ -21,7 +21,8 @@ each with one thread. On every rank:
   accepted and rejected exactly, iterations equal, x within the bounds
   of ``tests/test_torch_adaptive.py`` (rtol 1e-4, atol 1e-5·max|x|).
 
-A fixed-grid solver or the ODE under a mesh raises.
+The fixed-grid baselines, the ODE and the zoo under a mesh are held in
+``tests/test_torch_sharded_serving.py``.
 """
 
 import datetime
@@ -41,7 +42,7 @@ from repro_torch.core.sampling import gather_result, sample, solve_in_chunks
 from repro_torch.core.solvers import adaptive as tad
 from repro_torch.launch.sharded_selftest import put_result, spawn_ranks
 from repro_torch.models import dit as tdit
-from repro_torch.parallel import Mesh, init_mesh, sample_state_shardings
+from repro_torch.parallel import init_mesh, sample_state_shardings
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SDES = {"vp": lambda: tsde.VPSDE(), "ve": lambda: tsde.VESDE(sigma_max=10.0)}
@@ -220,12 +221,3 @@ def test_matches_reference_sharded_sample(spawned, reference, name, fused):
         np.testing.assert_allclose(got["x"], want_x, rtol=1e-4,
                                    atol=1e-5 * max(1.0, float(np.abs(want_x).max())))
     assert int(reference[f"{tag}/rejected"].sum()) > 0
-
-
-@pytest.mark.parametrize("method", ["em", "pc", "ddim", "ode"])
-def test_non_adaptive_solver_under_a_mesh_raises(method):
-    sde = tsde.VPSDE()
-    mesh = Mesh(("data",), (1,), (0,))
-    with pytest.raises(NotImplementedError, match="A11"):
-        sample(sde, analytic.gaussian_score(sde), (2, 3), method=method, device="cpu",
-               mesh=mesh, n_steps=4)

@@ -229,8 +229,9 @@ def test_mesh_checks_and_local_rows():
 
 def test_launcher_under_torchrun(tmp_path):
     """``torchrun`` drives the sampling launcher data-parallel (gloo, two
-    ranks): rank 0 prints one record of the gathered batch, with the
-    unsharded run's NFE and iterations."""
+    ranks): rank 0 prints a record of the gathered batch for each solve,
+    the adaptive one with the unsharded run's NFE and iterations, then
+    EM at 100 steps (101 NFE with the denoise)."""
     from repro_torch.launch import sample as launcher
     from repro_torch.launch.sharded_selftest import free_port
 
@@ -244,7 +245,10 @@ def test_launcher_under_torchrun(tmp_path):
         env=env, capture_output=True, text=True, timeout=120, cwd=tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = [json.loads(l) for l in proc.stdout.splitlines() if l.startswith("{")]
-    assert len(lines) == 1 and lines[0]["ranks"] == 2 and lines[0]["method"] == "adaptive"
+    assert [(l["method"], l["ranks"]) for l in lines] == [("adaptive", 2), ("em", 2)]
+    em = lines[1]
+    assert em["finite"] and em["mean_nfe"] == em["max_nfe"] == 101
+    assert em["shape"] == [kw["batch"], 32, 32, 3]
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # as each rank runs
     try:
