@@ -381,6 +381,27 @@ Phases; any failure exits non-zero before the result line is printed:
              by their visible pairs) over the measured device time, the
              plain path's dense count beside it, each line with the card's
              name and power limit; a share above 1.05 fails.
+10. LM mesh — the language models served under a ("data", "model")
+             mesh (fp32, TF32 off, seed 0; ``run_lm_mesh``): gemma3-12b
+             whole (prefill (1, 4096), 16 greedy decode steps of 4),
+             mamba2-2.7b whole ((4, 2048), 16 × 4), deepseek-moe-16b's
+             first 4 layers and llama-3.2-vision-90b's 5-layer period
+             ((1, 4096), 8 × 4): (a) each unsharded here, its record
+             written, the model freed before any spawn; (b) world 1 over
+             NCCL, mesh 1×1, every record bitwise the unsharded one; (c)
+             world 2 over gloo, both ranks on this card, mesh 1×2, in one
+             spawn that builds and frees the models in turn (gemma3-12b
+             decoded again with ``decode_flash_shard="model"``), and (d)
+             gemma3-12b at 12 layers on mesh 2×1 (rows split): logits
+             within LM_LOGIT_TOL·max|logit| of the unsharded run's (teacher
+             forced on its tokens), greedy tokens equal except below the
+             top-2 gap, deepseek's prefill by ``hold_moe_logits``; K3 and
+             K7 launched on every rank once a layer (gemma3 48, deepseek 4,
+             llama 4, mamba2 K7 64); every rank's residual and tokens the
+             same bits; the walls, collectives and bytes a prefill and a
+             decode step, and the peaks a rank printed with the card.
+             ``--only-lm-mesh`` runs the build and this phase alone and
+             prints no result line.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object naming each kernel, and ``{"ok": true, "device": ...}``.
@@ -432,6 +453,18 @@ SSD_WORK_CHUNK = 64
 #: K7 against its plain version: each is within the reference's 3e-4 of the
 #: sequential oracle (tests/test_kernels_ssd.py) and they chunk differently
 SSD_TOL = 6e-4
+#: phase 10, the LMs under a ("data", "model") mesh: (arch, layers (None: all), prefill
+#: (B, S), decode (B, steps)); each also decoded with decode_flash_shard="model"
+#: where the last field is set
+LM_MESH_RUNS = (("gemma3-12b", None, (1, 4096), (4, 16), True),
+                ("mamba2-2.7b", None, (4, 2048), (4, 16), False),
+                ("deepseek-moe-16b", 4, (1, 4096), (4, 8), False),
+                ("llama-3.2-vision-90b", 5, (1, 4096), (4, 8), False))
+#: phase 10 (d): gemma3-12b with the rows split over "data", mesh (2, 1), cut to 12
+#: layers (two whole replicas, 2 x 51 GB, do not fit one card)
+LM_ROWS_RUN = ("gemma3-12b", 12, (2, 1024), (4, 16), False)
+#: seconds the phase-10 selftests may take
+LM_MESH_TIMEOUT_S = 420
 #: the LM phase: prefill prompts, (requests, prompt, gen) of serve_batch,
 #: decode steps of the idle-share measurement
 LM_PREFILL = (4, 2048)
@@ -4243,6 +4276,167 @@ def run_precision(dev, card: str, fp32_dit: dict, alm: dict, lm: dict) -> dict:
             "mamba2-2.7b": mamba, "shares": shares, "times": times, "phase_s": phase_s}
 
 
+def lm_mesh_plan(runs, mesh, records: dict, out_dir: str, *, flash: bool = True) -> list:
+    """The selftest's ``--lm-plan`` for ``runs`` on ``mesh``, each compared
+    with its unsharded record and writing rank 0's record; ``flash``
+    keeps the runs' second decode with ``decode_flash_shard="model"``."""
+    plan = []
+    for arch, layers, prefill, decode, also_flash in runs:
+        key = (arch, layers)
+        plan.append(dict(arch=arch, layers=layers, mesh=list(mesh), prefill=list(prefill),
+                         decode=list(decode), record=records[key],
+                         out=os.path.join(out_dir, f"{arch}-{layers}-{mesh[0]}x{mesh[1]}.pt"),
+                         also_flash=flash and also_flash, tol=LM_LOGIT_TOL))
+    return plan
+
+
+def run_lm_selftest(world: int, backend: str, plan: list, out_dir: str) -> dict:
+    """The sharded selftest's LM check in a subprocess: ``world`` ranks over
+    ``backend`` on this card, one spawn for the whole ``plan``."""
+    path = os.path.join(out_dir, f"plan-{world}-{backend}.json")
+    with open(path, "w") as f:
+        json.dump(plan, f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.sharded_selftest", "--device", "cuda",
+           "--backend", backend, "--world", str(world), "--lm-plan", path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=LM_MESH_TIMEOUT_S)
+    line = (proc.stdout.strip().splitlines() or ["{}"])[-1]
+    wall = time.perf_counter() - t0
+    print(f"  LM selftest world {world} over {backend}, exit {proc.returncode} in {wall:.1f} s")
+    if proc.returncode != 0:
+        print(line[:4000])
+        print(proc.stderr[-6000:], file=sys.stderr)
+        fail(f"the LM sharded selftest at world {world} over {backend} failed")
+    res = json.loads(line)
+    res["wall_s"] = wall
+    return res
+
+
+def run_lm_mesh(dev, card: str) -> dict:
+    """Phase 10: the language models served under a ("data", "model") mesh
+    (fp32, TF32 off, seeded weights). (a) Each model of ``LM_MESH_RUNS``
+    and ``LM_ROWS_RUN`` unsharded here (``sharded_selftest.lm_record``:
+    the prefill through K3/K7, then greedy decode steps), its record
+    written and the model freed before any spawn; (b) world 1 over NCCL,
+    mesh (1, 1): every record bitwise the unsharded one; (c) world 2 over
+    gloo with both ranks on this card, mesh (1, 2), in one spawn that
+    builds and frees the models in turn (gemma3-12b decoded a second time
+    with decode_flash_shard="model"), and (d) ``LM_ROWS_RUN`` on mesh
+    (2, 1) in the same spawn: logits within LM_LOGIT_TOL·max|logit|,
+    greedy tokens equal except below the top-2 gap, deepseek's prefill
+    held by ``hold_moe_logits``; K3 and K7 launched on every rank, once a
+    layer; every rank's residual and tokens the same bits. Returns the
+    numbers of the kernels line and PERF.md."""
+    import tempfile
+
+    from repro_torch.launch import sharded_selftest as st
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import param_count
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="lm_mesh_")
+    records, unsharded = {}, {}
+    for arch, layers, prefill, decode, _ in LM_MESH_RUNS + (LM_ROWS_RUN,):
+        held_below_1gib(dev, f"{arch} ({layers or 'all'} layers) unsharded")
+        cfg = st.lm_config(arch, layers=layers)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_model(cfg, 0, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        rec = st.lm_record(cfg, params, st.lm_inputs(cfg, prefill, decode), decode[1], dev)
+        n = param_count(params)
+        want = {"K3": sum(m in ("A", "L") for m in cfg.mixer_pattern) * cfg.num_repeats,
+                "K7": cfg.mixer_pattern.count("M") * cfg.num_repeats}
+        got = {k: rec["prefill_counts"][k] for k in want}
+        print(f"  [{card}] {arch} ({cfg.num_layers} layers) unsharded: {n:,} parameters "
+              f"({n * 4 / 2**30:.2f} GiB fp32), built in {build_s:.1f} s; prefill {prefill} "
+              f"{rec['prefill_s']:.3f} s (cold), K3 {got['K3']} K7 {got['K7']}; {decode[1]} "
+              f"decode steps of {decode[0]} in {rec['decode_s']:.3f} s; peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        if got != want:
+            fail(f"{arch}: the unsharded prefill launched {got}, want {want}")
+        path = os.path.join(out_dir, f"{arch}-{layers}-unsharded.pt")
+        torch.save(rec, path)
+        records[(arch, layers)] = path
+        unsharded[(arch, layers)] = {"prefill_s": rec["prefill_s"], "decode_s": rec["decode_s"],
+                                     "params": n, "build_s": build_s, "record": rec}
+        del params
+        torch.cuda.empty_cache()
+    held_below_1gib(dev, "the spawns")
+
+    one = run_lm_selftest(1, "nccl", lm_mesh_plan(LM_MESH_RUNS, (1, 1), records, out_dir,
+                                                  flash=False), out_dir)
+    for r in one["lm"]:
+        c = r["compare"]
+        print(f"  world 1 (NCCL) {r['arch']}: bitwise {c['bitwise']}, prefill err "
+              f"{c['prefill_logits']['max_abs_err']:.3e}, decode err "
+              f"{c['decode_logits']['max_abs_err']:.3e}, launches {r['ranks'][0]['prefill_counts']}")
+        if not c["bitwise"]:
+            fail(f"world 1: {r['arch']} under the (1, 1) mesh is not the unsharded record bitwise")
+    plan2 = (lm_mesh_plan(LM_MESH_RUNS, (1, 2), records, out_dir)
+             + lm_mesh_plan((LM_ROWS_RUN,), (2, 1), records, out_dir))
+    two = run_lm_selftest(2, "gloo", plan2, out_dir)
+    out = {"world1": one, "world2": two, "unsharded": {}}
+    for r in two["lm"]:
+        arch, key = r["arch"], (r["arch"], r["layers"])
+        label = f"world 2 (gloo) {arch} mesh {tuple(r['mesh'])}" + (
+            " flash-decode" if r["flash_decode"] else "")
+        c = r["compare"]
+        ranks = r["ranks"]
+        pc = [p["prefill_counts"] for p in ranks]
+        dc = [p["decode_step_counts"] for p in ranks]
+        print(f"  {label}: prefill err {c['prefill_logits']['max_abs_err']:.3e} (bound "
+              f"{c['prefill_logits']['bound']:.3e}), decode err "
+              f"{c['decode_logits']['max_abs_err']:.3e} (bound {c['decode_logits']['bound']:.3e}); "
+              f"tokens differing {c['token_mismatches']} beyond the top-2 gap, "
+              f"{c['token_mismatches_near_tie']} at near ties; ranks agree {r['ranks_agree']}")
+        print(f"  [{card}] {label}: prefill {[round(p['prefill_s'], 3) for p in ranks]} s a rank "
+              f"(unsharded {unsharded[key]['prefill_s']:.3f} s, both cold), decode "
+              f"{[round(p['decode_s'], 3) for p in ranks]} s (unsharded "
+              f"{unsharded[key]['decode_s']:.3f} s); a prefill's collectives {pc[0]['collectives']}"
+              f" ({pc[0]['collective_bytes'] / 1e6:.1f} MB a rank), a decode step's "
+              f"{dc[0]['collectives']:.0f} ({dc[0]['collective_bytes'] / 1e6:.3f} MB); K3 "
+              f"{[p['K3'] for p in pc]}, K7 {[p['K7'] for p in pc]} a rank; parameters a rank "
+              f"{ranks[0]['params_local']:,}; peak {[round(p['peak_gib'], 2) for p in ranks]} GiB "
+              f"serving, {[round(p['build_peak_gib'], 2) for p in ranks]} GiB building")
+        if not r["ranks_agree"]:
+            fail(f"{label}: the ranks' residuals or tokens differ")
+        if arch == "deepseek-moe-16b":
+            got = torch.load(r["out"])
+            want = unsharded[key]["record"]
+            hold = hold_moe_logits(label, got["prefill_logits"][:, None],
+                                   want["prefill_logits"][:, None], got["routing"],
+                                   want["routing"])
+            if not c["decode_logits"]["ok"] or c["token_mismatches"]:
+                fail(f"{label}: decode misses the bound ({c})")
+            r["hold_moe"] = hold
+        elif not c["ok"]:
+            fail(f"{label}: {c}")
+    if not two["ok"]:
+        fail("the world-2 LM selftest did not pass its own checks (launch counts, agreement)")
+    for key, u in unsharded.items():
+        out["unsharded"][f"{key[0]}:{key[1] or 'all'}"] = {k: u[k] for k in (
+            "prefill_s", "decode_s", "params", "build_s")}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  [{card}] LM mesh phase {out['phase_s']:.1f} s (selftests {one['wall_s']:.1f} s, "
+          f"{two['wall_s']:.1f} s)")
+    return out
+
+
+def lm_mesh_launches(rec: dict, kernel: str) -> dict:
+    """A kernel's per-rank launches in phase 10, by run."""
+    out = {}
+    for world, key in ((1, "world1"), (2, "world2")):
+        for r in rec[key]["lm"]:
+            n = [p["prefill_counts"][kernel] for p in r["ranks"]]
+            if any(n):
+                out[f"world{world} {r['arch']} mesh {r['mesh'][0]}x{r['mesh'][1]}"] = n
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device; chip_smoke.py runs on a machine with an NVIDIA card")
@@ -4270,6 +4464,7 @@ def main() -> None:
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    only_lm_mesh = "--only-lm-mesh" in sys.argv[1:]
 
     # ------------------------------------------------------------ 1. build
     phase("build")
@@ -4279,6 +4474,13 @@ def main() -> None:
         if ("Compiling entry function" in line or "ptxas info    : Used" in line
                 or "spill" in line or line.startswith("==")):
             print("  " + line.strip())
+    if only_lm_mesh:  # a partial run for development: no result line
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True).stdout.strip()
+        phase("the LMs served under a (data, model) mesh (only this phase)")
+        print(json.dumps({"lm_mesh_partial": run_lm_mesh(dev, card)}, default=str)[:20000])
+        return
 
     # ---------------------------------------------------------- 2. kernels
     phase("kernels vs plain versions")
@@ -5099,6 +5301,11 @@ def main() -> None:
           "roofline shares")
     prec = run_precision(dev, card, rec, alm, lm)
 
+    # ------------------------------------------------------------ 10. LM mesh
+    phase("the LMs served under a (data, model) mesh: K3/K7 on each rank's heads, "
+          "flash-decode, world 1 NCCL and world 2 gloo")
+    lm_mesh = run_lm_mesh(dev, card)
+
     def device_resident_launches(name):
         """A kernel's launches in phase 6c's device-resident drain."""
         got = dsrv["launches"]
@@ -5208,6 +5415,12 @@ def main() -> None:
                           "launches": psrv["closed_loop"]["launches"]["flash_attention"],
                           "device_resident":
                               psrv["device_resident_launches"]["flash_attention"]},
+         "lm_mesh": {"launched_as": "every 'A'/'L' layer of the phase-10 prefills on each "
+                                    "rank's heads under a (data, model) mesh: gemma3-12b "
+                                    "(8 of 16 query heads, 4 of 8 KV heads at mesh 1x2), "
+                                    "deepseek-moe-16b's 4 layers (8 of 16), "
+                                    "llama-3.2-vision-90b's period (32 of 64, 4 of 8)",
+                     "launches_per_rank": lm_mesh_launches(lm_mesh, "K3")},
          "attention_lm": {"launched_as": "every attention layer of gemma3-12b's (1, 4096) "
                                          "prefill (phase 7b): causal with window 1024 on the "
                                          "40 'L' layers, causal on the 8 'A' layers, GQA 16:8, "
@@ -5316,6 +5529,9 @@ def main() -> None:
          "source": "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd/kernel.py:82",
          "launches": lm["k7_launches"],
+         "lm_mesh": {"launched_as": "every layer of mamba2-2.7b's (4, 2048) prefill on each "
+                                    "rank's heads (40 of 80 at mesh 1x2; phase 10)",
+                     "launches_per_rank": lm_mesh_launches(lm_mesh, "K7")},
          "max_abs_err": ssd_err[SSD_SHAPES[0]],
          "design": "mma.sync 3xTF32; C·Bᵀ once a group; sequence ranges",
          "cuda_kernels_per_call": lm["k7_cuda_kernels_per_call"],

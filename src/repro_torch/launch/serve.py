@@ -81,17 +81,23 @@ Tensor = torch.Tensor
 
 def serve_batch(cfg: ModelConfig, params, prompts: Tensor, *, gen_len: int = 32,
                 cache_len: int | None = None, cross_embeds: Tensor | None = None,
-                device="cuda") -> Tensor:
+                device="cuda", mesh=None) -> Tensor:
     """prompts (B, P) int, or (B, P, K) with K codebooks → the generated
     tokens (B, gen_len) or (B, gen_len, K) int32: the first from the last
     prompt position, then greedy. The attention layers' caches hold
     ``cache_len`` tokens (default P + gen_len; a sliding-window layer's at
     most its window). ``cross_embeds`` (B, num_patches, vision_dim) feed
-    every step's cross-attention layers."""
-    dev = resolve_device(device)
+    every step's cross-attention layers.
+
+    ``mesh``: a collective (every rank calls it with the same prompts);
+    ``params`` is the rank's shard, the decode state is laid out by
+    ``init_decode_state(mesh=)``, and every rank returns every row's
+    tokens: the reference's ``serve_batch`` under an ambient mesh with
+    parameters placed by ``param_shardings``, made explicit."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     B, P = prompts.shape[:2]
-    state = init_decode_state(cfg, B, cache_len or (P + gen_len), device=dev)
-    step = make_serve_step(cfg, device=dev)
+    state = init_decode_state(cfg, B, cache_len or (P + gen_len), device=dev, mesh=mesh)
+    step = make_serve_step(cfg, device=dev, mesh=mesh)
     prompts = prompts.to(dev)
     extra = {} if cross_embeds is None else {"cross_embeds": cross_embeds.to(dev)}
 

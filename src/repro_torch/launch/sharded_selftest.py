@@ -56,11 +56,32 @@ the multi-rank path end to end:
 
 On the card one ``all_reduce`` of 9 floats is timed.
 
+With ``--lm-arch`` the self-test checks a language model under a
+``("data", "model")`` mesh instead (``--mesh D,M``, D·M = ``--world``):
+each rank builds its shard (``init_model(mesh=)``, seed 0; ``--lm-reduced``
+the scaled-down config), prefills seeded
+prompts through K3/K7 on its heads (``--lm-prefill B,S``) and decodes
+``--lm-decode B,STEPS`` greedy steps from seeded first tokens
+(``--flash-decode``: with ``decode_flash_shard="model"``). Every rank
+counts its K3 and K7 launches, the LM collectives of the prefill and of
+a decode step and their bytes; rank 0 writes the record (last-position
+logits, every decode step's logits, the tokens, the MoE routing) to
+``--lm-out``. Given ``--lm-record`` (an unsharded record from
+``lm_record``) the run feeds that record's tokens (teacher forcing) and
+compares: logits within ``LM_TOL``·max|logit|, greedy tokens equal
+except where the record's top-2 gap is within that bound, and every
+rank's residual and tokens the same bits. ``--lm-plan FILE`` runs a JSON
+list of such runs (keys as the flags: arch, reduced, mesh, flash_decode,
+prefill, decode, record, out; and layers, a depth cut; tol, the bound;
+also_flash, a second decode with the lever) in one spawn, building and
+freeing the models in turn.
+
 Prints one JSON line with the results; exits non-zero on any failure.
 
   PYTHONPATH=src python -m repro_torch.launch.sharded_selftest --device cpu --world 4
   PYTHONPATH=src python -m repro_torch.launch.sharded_selftest --device cuda --backend nccl --world 1 --arch highres_dit
   PYTHONPATH=src python -m repro_torch.launch.sharded_selftest --device cuda --backend gloo --world 2 --arch highres_dit
+  PYTHONPATH=src python -m repro_torch.launch.sharded_selftest --device cpu --world 2 --lm-arch gemma3-12b --lm-reduced --mesh 1,2
 """
 
 from __future__ import annotations
@@ -95,6 +116,8 @@ EM_STEPS = 59
 #: the tiered serve of check 6: chip_smoke.py phase 6a's
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_HORIZON = 8, 16, 4
 SERVE_TIERS = ("draft", "standard", "high_fidelity")
+#: the LM check's logits bound, times max|logit| (chip_smoke.py's LM_LOGIT_TOL)
+LM_TOL = 1e-3
 
 
 def free_port() -> int:
@@ -471,6 +494,300 @@ def time_all_reduce(dev, reps: int = 200) -> dict:
             "sync_wall_us": (time.perf_counter() - t0) / reps * 1e6}
 
 
+# --------------------------------------------------------------------------
+# the language models under a mesh
+# --------------------------------------------------------------------------
+
+def lm_config(arch: str, *, layers: int | None = None, reduced: bool = False):
+    """The registered config of ``arch``, scaled down with ``reduced``, cut
+    to ``layers`` layers (a multiple of its pattern) where given."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.scaled_down()
+    return cfg.replace(num_layers=layers) if layers else cfg
+
+
+def lm_inputs(cfg, prefill, decode, seed: int = 0) -> dict:
+    """Seeded CPU inputs: prompts (B, S[, K]), the decode's first tokens
+    (B_d, 1[, K]) and, for cross-attention, image embeddings for each."""
+    g = torch.Generator().manual_seed(seed)
+    K = cfg.num_codebooks
+    shape = lambda b, s: (b, s, K) if K > 1 else (b, s)
+    out = {"prompts": torch.randint(0, cfg.vocab_size, shape(*prefill), generator=g),
+           "first": torch.randint(0, cfg.vocab_size, shape(decode[0], 1), generator=g)}
+    if cfg.vision_dim:
+        for key, b in (("cross_prefill", prefill[0]), ("cross_decode", decode[0])):
+            out[key] = torch.randn(b, cfg.num_patches, cfg.vision_dim, generator=g)
+    return out
+
+
+def _counters():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.parallel import collectives as coll
+
+    return {"K3": flash_ops.launches, "K7": ssd_ops.launches, "collectives": coll.calls,
+            "collective_bytes": coll.nbytes}
+
+
+def _zero_counters():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.parallel import collectives as coll
+
+    flash_ops.launches = ssd_ops.launches = coll.calls = coll.nbytes = 0
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def lm_record(cfg, params, inputs: dict, decode_steps: int, dev, *, mesh=None,
+              feed=None, prefill: bool = True) -> dict:
+    """Prefill and decode ``cfg`` (``params``: the whole model, or the rank's
+    shard on ``mesh``) on ``inputs`` (``lm_inputs``): the prefill of every
+    prompt with the head on the last position (K3/K7 through the default
+    paths), then ``decode_steps`` greedy steps from ``first`` over a cache
+    of twice the steps. ``feed`` (a record's ``decode_tokens``) makes the
+    steps teacher-forced. Returns the record: ``prefill_logits`` (B, V[,…])
+    and ``decode_logits`` (steps, B_d, …) of every row on CPU,
+    ``decode_tokens`` fed and ``decode_choices`` taken, the MoE routing of
+    the prefill, the residual the final norm read, walls, and the
+    counters (K3/K7 launches and LM collectives of the prefill, the
+    collectives of a mean decode step). ``prefill=False`` decodes only."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.parallel.collectives import gather_rows
+    from repro_torch.parallel.sharding import batch_sharding
+
+    def cut(t, rows):
+        return t if rows is None else t[rows.rows]
+
+    def whole(t, rows):
+        return t if rows is None else gather_rows(t.contiguous(), mesh, rows)
+
+    rec = {}
+    if prefill:
+        rec.update(_lm_prefill(cfg, params, inputs, dev, mesh, cut, whole))
+
+    first = inputs["first"]
+    B = first.shape[0]
+    rows_d = None if mesh is None else batch_sharding(mesh, B, 2)
+    cross_d = inputs.get("cross_decode")
+    state = tr.init_decode_state(cfg, B, 2 * decode_steps, device=dev, mesh=mesh)
+    tok = first
+    fed, choices, step_logits = [], [], []
+    _sync(dev)
+    _zero_counters()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(decode_steps):
+            fed.append(tok)
+            lg, state = tr.decode_step(
+                params, cut(tok, rows_d).to(dev), state, cfg,
+                cross_embeds=None if cross_d is None else cut(cross_d, rows_d).to(dev),
+                mesh=mesh, rows=rows_d)
+            lg = whole(lg[:, 0], rows_d).float()
+            choice = torch.argmax(lg, dim=-1).cpu()
+            choices.append(choice)
+            step_logits.append(lg.cpu())
+            tok = (feed[t + 1] if feed is not None and t + 1 < len(feed)
+                   else choice).reshape(first.shape)
+    _sync(dev)
+    rec["decode_s"] = time.perf_counter() - t0
+    counts = _counters()
+    rec["decode_step_counts"] = {k: v / decode_steps for k, v in counts.items()}
+    rec["decode_logits"] = torch.stack(step_logits)
+    rec["decode_tokens"] = torch.stack(fed)
+    rec["decode_choices"] = torch.stack(choices)
+    return rec
+
+
+def _lm_prefill(cfg, params, inputs, dev, mesh, cut, whole) -> dict:
+    """``lm_record``'s prefill."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.parallel.sharding import batch_sharding
+
+    prompts = inputs["prompts"]
+    rows = None if mesh is None else batch_sharding(mesh, prompts.shape[0], 2)
+    cross = inputs.get("cross_prefill")
+    routing = [] if cfg.moe is not None else None
+    residual = []
+    _sync(dev)
+    _zero_counters()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = tr.forward(params, cut(prompts, rows).to(dev), cfg,
+                               cross_embeds=None if cross is None else cut(cross, rows).to(dev),
+                               last_logits_only=True, mesh=mesh, rows=rows,
+                               moe_routing=routing, residual=residual)
+    _sync(dev)
+    rec = {"prefill_s": time.perf_counter() - t0, "prefill_counts": _counters()}
+    rec["prefill_logits"] = whole(logits[:, -1], rows).float().cpu()
+    rec["residual"] = residual[0].cpu()
+    rec["routing"] = None if routing is None else [
+        {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in r.items()} for r in routing]
+    return rec
+
+
+def top2_gap(logits) -> float:
+    top = torch.topk(logits.float().reshape(-1), 2).values
+    return (top[0] - top[1]).item()
+
+
+def compare_lm(got: dict, want: dict, tol: float = LM_TOL) -> dict:
+    """A record against the unsharded one: bitwise, the logits' max error
+    against ``tol``·max|logit| (prefill; decode over every step), and the
+    greedy choices that differ whose top-2 gap in ``want`` exceeds that
+    bound (none may)."""
+    out = {"bitwise": all(torch.equal(got[k], want[k]) for k in
+                          ("prefill_logits", "decode_logits", "decode_choices"))}
+    for key in ("prefill_logits", "decode_logits"):
+        scale = want[key].abs().max().item()
+        err = (got[key] - want[key]).abs().max().item()
+        out[key] = {"max_abs_err": err, "scale": scale, "bound": tol * scale,
+                    "ok": bool(torch.isfinite(got[key]).all()) and err <= tol * scale}
+    bad, near = [], 0
+    pairs = [(got["prefill_logits"].argmax(-1), want["prefill_logits"].argmax(-1),
+              want["prefill_logits"], out["prefill_logits"]["bound"])]
+    pairs += [(got["decode_choices"][t], want["decode_choices"][t], want["decode_logits"][t],
+               out["decode_logits"]["bound"]) for t in range(len(want["decode_choices"]))]
+    for g, w, logits, bound in pairs:
+        for idx in (g != w).nonzero().tolist():
+            gap = top2_gap(logits[tuple(idx)])
+            if gap > bound:
+                bad.append((idx, gap))
+            else:
+                near += 1
+    out["token_mismatches_near_tie"] = near
+    out["token_mismatches"] = len(bad)
+    out["ok"] = out["prefill_logits"]["ok"] and out["decode_logits"]["ok"] and not bad
+    return out
+
+
+def check_lm(mesh, dev, run: dict) -> list:
+    """One LM run on this rank (the keys of ``--lm-plan``; ``also_flash``
+    decodes the same shard a second time with ``decode_flash_shard=
+    "model"``); rank 0 writes the record and compares it with the
+    unsharded one. Returns a result a decode."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim.tree import leaves
+
+    cfg = lm_config(run["arch"], layers=run.get("layers"), reduced=run.get("reduced", False))
+    want = torch.load(run["record"]) if run.get("record") else None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    params = tr.init_model(cfg, 0, device=dev, mesh=mesh)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else None
+    inputs = lm_inputs(cfg, tuple(run["prefill"]), tuple(run["decode"]))
+    feed = None if want is None else want["decode_tokens"]
+    results, prefill = [], None
+    for flash in (bool(run.get("flash_decode")),) + ((True,) if run.get("also_flash") else ()):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        rec = lm_record(cfg.replace(decode_flash_shard="model") if flash else cfg, params,
+                        inputs, run["decode"][1], dev, mesh=mesh, feed=feed,
+                        prefill=prefill is None)
+        if prefill is None:
+            prefill = {k: rec[k] for k in ("prefill_s", "prefill_counts", "prefill_logits",
+                                           "residual", "routing")}
+        rec.update(prefill)
+        out = {"arch": run["arch"], "layers": run.get("layers"), "mesh": list(mesh.sizes),
+               "coordinate": list(mesh.coordinate), "flash_decode": flash,
+               "build_s": build_s, "prefill_s": rec["prefill_s"], "decode_s": rec["decode_s"],
+               "prefill_counts": rec["prefill_counts"],
+               "decode_step_counts": rec["decode_step_counts"],
+               "params_local": sum(t.numel() for t in leaves(params)),
+               "residual": rec["residual"], "choices": rec["decode_choices"],
+               "prefill_tokens": rec["prefill_logits"].argmax(-1), "out": None}
+        if dev.type == "cuda":
+            out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            out["build_peak_gib"] = build_peak
+        if dist.get_rank() == 0:
+            if run.get("out"):
+                out["out"] = run["out"] + (".flash" if results else "")
+                torch.save(rec, out["out"])
+            if want is not None:
+                out["compare"] = compare_lm(rec, want, run.get("tol", LM_TOL))
+        results.append(out)
+        del rec
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return results
+
+
+def _lm_rank_main(rank: int, world: int, port: int, out_dir: str, opts: dict) -> None:
+    from repro_torch.parallel import init_mesh
+
+    dev = init_rank(rank, world, port, opts["device"], opts["backend"])
+    try:
+        res = []
+        for run in opts["plan"]:
+            mesh = init_mesh(*run["mesh"], device=dev)
+            res.extend(check_lm(mesh, dev, run))
+        put_result(out_dir, rank, res)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_lm(world: int, plan: list, *, device: str = "cuda", backend: str | None = None) -> dict:
+    """Spawn ``world`` ranks and run the LM ``plan`` (a list of run dicts);
+    returns every run's per-rank results, the cross-rank checks and
+    ``ok``."""
+    backend = backend or default_backend(device, world)
+    for run in plan:
+        run.setdefault("mesh", [1, world])
+        if run["mesh"][0] * run["mesh"][1] != world:
+            raise ValueError(f"mesh {run['mesh']} does not cover {world} ranks")
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_lm_rank_main, world, dict(device=device, backend=backend, plan=plan))
+    runs, ok = [], True
+    flat = [dict(run, flash_decode=flash) for run in plan
+            for flash in (bool(run.get("flash_decode")),) + ((True,) if run.get("also_flash")
+                                                           else ())]
+    for i, run in enumerate(flat):
+        per = [r[i] for r in ranks]
+        by_data = {}
+        for p in per:
+            by_data.setdefault(p["coordinate"][0], []).append(p)
+        same = all(torch.equal(p["residual"], g[0]["residual"])
+                   for g in by_data.values() for p in g)
+        same &= all(torch.equal(p["choices"], per[0]["choices"])
+                    and torch.equal(p["prefill_tokens"], per[0]["prefill_tokens"]) for p in per)
+        rec = {k: per[0][k] for k in ("arch", "layers", "mesh", "flash_decode", "out")}
+        rec["ranks"] = [{k: v for k, v in p.items()
+                         if k not in ("residual", "choices", "prefill_tokens", "compare")}
+                        for p in per]
+        rec["ranks_agree"] = bool(same)
+        if "compare" in per[0]:
+            rec["compare"] = per[0]["compare"]
+            # at world 1 the mesh path is the unsharded arithmetic (the flash
+            # lever's decode is another sum order)
+            ok &= rec["compare"]["ok"] and (world > 1 or run["flash_decode"]
+                                            or rec["compare"]["bitwise"])
+        ok &= bool(same)
+        if device == "cuda":  # the kernels ran on every rank, every layer
+            cfg = lm_config(run["arch"], layers=run.get("layers"),
+                            reduced=run.get("reduced", False))
+            want = {"K3": sum(m in ("A", "L") for m in cfg.mixer_pattern) * cfg.num_repeats,
+                    "K7": cfg.mixer_pattern.count("M") * cfg.num_repeats}
+            rec["kernel_launches_expected"] = want
+            ok &= all(p["prefill_counts"][k] == n for p in per for k, n in want.items())
+        runs.append(rec)
+    return {"world": world, "device": device, "backend": backend,
+            "seconds": time.perf_counter() - t0, "lm": runs, "ok": bool(ok)}
+
+
 def _rank_main(rank: int, world: int, port: int, out_dir: str, opts: dict) -> None:
     from repro_torch.parallel import init_mesh
 
@@ -580,10 +897,34 @@ def main(argv=None) -> int:
                     help="default: nccl on cuda at world 1, gloo otherwise")
     ap.add_argument("--arch", default=None,
                     help="also solve with this DiT (e.g. highres_dit) sharded and unsharded")
+    ap.add_argument("--lm-arch", default=None,
+                    help="check this LM under --mesh instead of the sampling checks")
+    ap.add_argument("--lm-reduced", action="store_true", help="the scaled-down config")
+    ap.add_argument("--mesh", default=None, help="D,M (default 1,world)")
+    ap.add_argument("--flash-decode", action="store_true",
+                    help="decode with decode_flash_shard='model'")
+    ap.add_argument("--lm-prefill", default="1,64", help="prefill B,S")
+    ap.add_argument("--lm-decode", default="4,8", help="decode B,STEPS")
+    ap.add_argument("--lm-record", default=None, help="the unsharded record to compare with")
+    ap.add_argument("--lm-out", default=None, help="write rank 0's record here")
+    ap.add_argument("--lm-plan", default=None, help="a JSON list of LM runs")
     args = ap.parse_args(argv)
     backend = args.backend or default_backend(args.device, args.world)
+    ints = lambda s: [int(v) for v in s.split(",")]
     try:
-        results = run(args.world, device=args.device, backend=backend, arch=args.arch)
+        if args.lm_plan or args.lm_arch:
+            if args.lm_plan:
+                with open(args.lm_plan) as f:
+                    plan = json.load(f)
+            else:
+                plan = [dict(arch=args.lm_arch, reduced=args.lm_reduced,
+                             mesh=ints(args.mesh) if args.mesh else [1, args.world],
+                             flash_decode=args.flash_decode, prefill=ints(args.lm_prefill),
+                             decode=ints(args.lm_decode), record=args.lm_record,
+                             out=args.lm_out)]
+            results = run_lm(args.world, plan, device=args.device, backend=backend)
+        else:
+            results = run(args.world, device=args.device, backend=backend, arch=args.arch)
     except Exception as e:  # a rank raised: report it on the JSON line, exit 1
         print(json.dumps({"world": args.world, "device": args.device, "backend": backend,
                           "error": f"{type(e).__name__}: {e}", "ok": False}))

@@ -12,9 +12,11 @@ counter.
 
 The step takes the plain attention and SSD paths by explicit arguments
 (``use_flash=False``, ``use_kernel_ssd=False``): the kernels' wrappers
-run only on CPU or CUDA tensors. The shardings of the reference
-(``batch_shardings``, ``decode_state_shardings``, ``fsdp``, ``zero1``)
-wait for ROADMAP A11.
+run only on CPU or CUDA tensors. ``batch_shardings`` and
+``decode_state_shardings`` give the reference's layouts over the port's
+``Mesh`` (the serving path under a mesh reads them); the train
+layouts (``fsdp``, ``zero1``) and a dry run under a mesh wait for ROADMAP
+A11 (i) and (iii).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_tr
 from repro_torch.models import init_decode_state, init_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamW
+from repro_torch.parallel.sharding import MODEL_AXIS, batch_sharding, data_axes, kv_cache_spec
 
 META = torch.device("meta")
 
@@ -58,6 +61,47 @@ def token_specs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, torch.Tenso
 def decode_state_specs(cfg: ModelConfig, batch: int, cache_len: int):
     """``init_decode_state(cfg, batch, cache_len)`` on the meta device."""
     return init_decode_state(cfg, batch, cache_len, device=META)
+
+
+def batch_shardings(cfg: ModelConfig, mesh, batch_specs) -> Dict[str, Any]:
+    """The ``RowSharding`` of each leaf of a step's batch (reference :60):
+    rows over the data axes when they divide the batch."""
+    return {k: batch_sharding(mesh, v.shape[0], v.ndim) for k, v in batch_specs.items()}
+
+
+def decode_state_shardings(cfg: ModelConfig, mesh, state_abs) -> Dict[str, Any]:
+    """The spec of every leaf of a stacked decode state (reference :70;
+    ``state_abs`` as ``decode_state_specs`` gives it): a KV cache's k/v
+    (R, B, S_cache, Kv, Dh) by ``kv_cache_spec``; a Mamba2 state's ssm
+    (R, B, H, N, P) rows over the data axes and heads over "model" when
+    they divide, its conv (R, B, W−1, C) rows only; everything else
+    replicated. As dicts ``{"p{i}": {leaf name: spec}}``. The port's
+    caches under ``decode_flash_shard`` lie over the lever's axes instead
+    (``parallel.sharding.decode_cache_sharding``, what the reference's
+    ``flash_decode`` reshards to), and its conv state holds a rank's x
+    channels (its heads' inputs) where the reference replicates them."""
+    out: Dict[str, Any] = {}
+    msize = mesh.shape.get(MODEL_AXIS, 1)
+    for key, st in state_abs.items():
+        leaves = {}
+        for f in (dataclasses.fields(st) if dataclasses.is_dataclass(st) else ()):
+            leaf = getattr(st, f.name)
+            if not isinstance(leaf, torch.Tensor):
+                continue
+            shape = leaf.shape
+            bax = batch_sharding(mesh, shape[1], 1).spec[0] if leaf.ndim >= 2 else None
+            if f.name in ("k", "v") and leaf.ndim == 5:
+                spec = (None, *kv_cache_spec(mesh.shape, data_axes(mesh), shape[1], shape[2],
+                                             shape[3]))
+            elif f.name == "ssm" and leaf.ndim == 5:
+                spec = (None, bax, MODEL_AXIS if shape[2] % msize == 0 else None, None, None)
+            elif f.name == "conv" and leaf.ndim == 4:
+                spec = (None, bax, None, None)
+            else:
+                spec = ()
+            leaves[f.name] = spec
+        out[key] = leaves
+    return out
 
 
 @dataclasses.dataclass

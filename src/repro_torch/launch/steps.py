@@ -15,6 +15,14 @@ serve steps run without autograd, every step in the config's dtype
 (``ModelConfig.dtype``; fp32 products with TF32 off), on ``device``: the
 card unless the caller asks for the CPU (or, for the dry run's meta
 tensors, ``"meta"``); they raise at construction when no card is there.
+
+``make_prefill_step(mesh=)`` and ``make_serve_step(mesh=)`` run under a
+``("data", "model")`` mesh (on ``mesh.device``) with the rank's
+parameter shard (``init_model(mesh=)``/``shard_params``) and, for
+serving, its decode state (``init_decode_state(mesh=)``): every rank
+calls the step with the whole batch, keeps its rows
+(``parallel.sharding.batch_sharding``: rows over "data" when they
+divide), and returns the tokens of every row (gathered over "data").
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from repro_torch.models import decode_step, forward
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamW
 from repro_torch.optim.tree import leaves, tree_map
+from repro_torch.parallel.collectives import gather_rows
+from repro_torch.parallel.sharding import batch_sharding
 
 Tensor = torch.Tensor
 Batch = Dict[str, Tensor]
@@ -93,40 +103,59 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *, remat: str = "none",
     return train_step
 
 
-def make_serve_step(cfg: ModelConfig, *, device="cuda") -> Callable:
-    dev = resolve_device(device)
+def _rows(batch: Batch, mesh, dev):
+    """The rank's rows of every leaf of ``batch`` and their ``RowSharding``
+    (None without a mesh)."""
+    if mesh is None:
+        return {k: v.to(dev) for k, v in batch.items() if v is not None}, None
+    rows = batch_sharding(mesh, batch["tokens"].shape[0], 1)
+    return {k: v[rows.rows].to(dev) for k, v in batch.items() if v is not None}, rows
+
+
+def _gather(tokens: Tensor, mesh, rows) -> Tensor:
+    return tokens if mesh is None else gather_rows(tokens, mesh, rows)
+
+
+def make_serve_step(cfg: ModelConfig, *, device="cuda", mesh=None) -> Callable:
+    """One greedy decode step (reference :64): f(params, batch, state) →
+    (next tokens (B, 1[, K]) int32, state'). With ``mesh`` the rank's
+    shard and state; every row's tokens returned (module docstring)."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     pin_full_fp32_math()
 
     @torch.no_grad()
     def serve_step(params, batch: Batch, state):
-        start_pos = batch.get("start_pos")
-        logits, state = decode_step(params, batch["tokens"].to(dev), state, cfg,
-                                    cross_embeds=_cross(batch, dev),
-                                    start_pos=None if start_pos is None else start_pos.to(dev))
-        return torch.argmax(logits, dim=-1).to(torch.int32), state
+        local, rows = _rows(batch, mesh, dev)
+        logits, state = decode_step(params, local["tokens"], state, cfg,
+                                    cross_embeds=local.get("cross_embeds"),
+                                    start_pos=local.get("start_pos"), mesh=mesh, rows=rows)
+        return _gather(torch.argmax(logits, dim=-1).to(torch.int32), mesh, rows), state
 
     return serve_step
 
 
 def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = True,
                       use_kernel_ssd: bool = True, last_logits_only: bool = True,
-                      device="cuda") -> Callable:
+                      device="cuda", mesh=None) -> Callable:
     """Full-sequence forward (reference :77); ``use_flash`` (the default)
     runs every "A"/"L" attention layer through
     ``kernels.flash_attention.ops`` (K3 on the card; "X" layers take the
     plain path), ``use_kernel_ssd`` (the default) every Mamba2 layer's
     scan through ``kernels.ssd.ops`` (K7 on the card); ``False`` takes the
-    plain path."""
-    dev = resolve_device(device)
+    plain path. With ``mesh`` K3 and K7 run on the rank's heads and rows,
+    the head gathers the vocab of the last position only, and every row's
+    token is returned."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     pin_full_fp32_math()
 
     @torch.no_grad()
     def prefill_step(params, batch: Batch):
-        logits, _ = forward(params, batch["tokens"].to(dev), cfg,
-                            cross_embeds=_cross(batch, dev),
+        local, rows = _rows(batch, mesh, dev)
+        logits, _ = forward(params, local["tokens"], cfg,
+                            cross_embeds=local.get("cross_embeds"),
                             use_kernel_ssd=use_kernel_ssd, use_flash=use_flash,
-                            last_logits_only=last_logits_only)
+                            last_logits_only=last_logits_only, mesh=mesh, rows=rows)
         # the next token after the last position of every sequence
-        return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        return _gather(torch.argmax(logits[:, -1:], dim=-1).to(torch.int32), mesh, rows)
 
     return prefill_step

@@ -7,8 +7,10 @@ models, seeded image embeddings for cross-attention ones) with
 ``optim.AdamW`` under ``warmup_cosine(lr, max(steps // 10, 1), steps)``,
 in full fp32 with the plain attention and SSD paths (no kernel has a
 backward), and checkpoints the parameters into ``ckpt_dir`` when given.
-There is no mesh: ``mesh=`` raises (the sharded parameters, the
-reference's ``param_shardings``, come with ROADMAP A11).
+There is no mesh: ``mesh=`` raises. The model runs under a mesh for
+serving (``models.transformer``, ``parallel.sharding.param_shardings``);
+training under one needs the backward passes through the collectives
+and comes with ROADMAP A11 (i).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium --steps 20 --batch 2 --seq 512
@@ -39,8 +41,9 @@ def train_loop(cfg: ModelConfig, *, steps: int = 20, batch: int = 8, seq: int = 
     ``step_times``, when given, receives each step's seconds (the host
     waits for the step's cross-entropy, so the time is the device's)."""
     if mesh is not None:
-        raise NotImplementedError("training under a mesh (param_shardings) comes with "
-                                  "ROADMAP A11; train_loop runs on one device")
+        raise NotImplementedError("training under a mesh (backward through the model-axis "
+                                  "collectives, fsdp/zero1) comes with ROADMAP A11 (i); "
+                                  "train_loop runs on one device")
     dev = resolve_device(device)
     optimizer = AdamW(lr=warmup_cosine(lr, max(steps // 10, 1), steps))
     params = init_model(cfg, seed, device=dev)

@@ -12,10 +12,11 @@ from repro_torch.models.transformer import (
     forward,
     init_decode_state,
     init_model,
+    shard_params,
 )
 
 __all__ = [
     "LayerKVCache", "MambaConfig", "ModelConfig", "MoEConfig",
     "apply_moe", "attention_decode", "attention_forward", "decode_step", "forward",
-    "init_decode_state", "init_kv_cache", "init_model", "init_moe",
+    "init_decode_state", "init_kv_cache", "init_model", "init_moe", "shard_params",
 ]

@@ -15,7 +15,8 @@ back to the host.
 Unlike the reference's functional update, ``cache_write`` writes the
 slot in place (``index_copy_`` at a tensor index) and returns the same
 cache: a decode step then copies one token's k/v a layer, not the
-cache. A caller passes each decode state to one step only.
+cache. A caller passes each decode state to one step only. Under a mesh
+a cache holds a rank's block and says which (``sharding``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ class LayerKVCache:
     v: Tensor       # (B, S_cache, Kv, Dh)
     pos: Tensor     # (S_cache,) int32: absolute position held by each slot, -1 empty
     length: Tensor  # () int32: tokens seen so far
+    #: under a mesh, how the global (B, S_cache, Kv, Dh) cache lies over the
+    #: ranks (a ``parallel.sharding.ParamSharding``): k/v/pos then hold this
+    #: rank's block; None for a whole cache
+    sharding: Optional[object] = None
 
 
 def init_kv_cache(batch: int, cache_len: int, kv_heads: int, head_dim: int,

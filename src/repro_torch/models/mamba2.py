@@ -15,12 +15,27 @@ O(1) per token.
 
 Parameters are a dict of tensors with the reference's keys and layouts,
 so ``transformer.params_from_jax`` copies a reference tree leaf by leaf.
+
+Under a mesh (``shard``, the layer's ``ParamSharding`` tree, and
+``mesh``) a rank of the n ranks of "model" runs heads [r·H/n,
+(r+1)·H/n): ``in_z``, ``in_x``, ``conv_x``, ``A_log``, ``D``,
+``dt_bias`` and ``out`` are its slices; ``in_B``, ``in_C``, ``in_dt``,
+``conv_B`` and ``conv_C`` are whole, and it takes the ``dt`` columns of
+its heads and the B/C groups they read (every registered config has one
+group), so K7 runs on the rank's heads unchanged. The gated RMSNorm
+normalises over the whole d_inner: the rank's sum of squares is
+all-reduced before the rsqrt, and it scales by its slice of the
+replicated scale. ``out`` gives a partial sum (finished by
+``finish``, an all-reduce over "model" by default). A split that cuts a
+head, or heads that fall neither on whole groups nor inside one group,
+raises ``ValueError``. The decode state holds the rank's rows, its x
+channels (then every B/C channel) of ``conv`` and its heads of ``ssm``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +46,8 @@ from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import MambaState, init_mamba_state
 from repro_torch.models.layers import apply_norm, dense_init, draws_from, init_norm, new_leaf
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import model_rank
 
 Tensor = torch.Tensor
 
@@ -99,18 +116,25 @@ def _softplus(v: Tensor) -> Tensor:
     return torch.logaddexp(v, torch.zeros((), dtype=v.dtype, device=v.device))
 
 
-def _project(params: dict, x: Tensor):
+def _project(params: dict, x: Tensor, heads: slice = slice(None)):
+    """z, x, B, C and dt (fp32) of x; ``heads``: the dt columns of a rank's
+    heads (``in_dt`` is whole under a mesh, ``dt_bias`` the rank's)."""
     z = x @ params["in_z"]
     xs = x @ params["in_x"]
     Bm = x @ params["in_B"]
     C = x @ params["in_C"]
-    dt = _softplus((x @ params["in_dt"]).float() + params["dt_bias"])  # fp32
+    dt = _softplus((x @ params["in_dt"][:, heads]).float() + params["dt_bias"])  # fp32
     return z, xs, Bm, C, dt
 
 
 def mamba_forward(params: dict, x: Tensor, cfg: ModelConfig, *,
-                  use_kernel: bool = True) -> Tensor:
-    """Prefill: x (B, S, E) → (B, S, E)."""
+                  use_kernel: bool = True, shard: Optional[dict] = None, mesh=None,
+                  finish: Optional[Callable] = None) -> Tensor:
+    """Prefill: x (B, S, E) → (B, S, E); under a mesh on the rank's heads
+    (module docstring)."""
+    local = _local_heads(cfg, shard, mesh)
+    if local is not None:
+        return _forward_local(params, x, cfg, local, use_kernel, mesh, finish)
     mc = cfg.mamba
     B, S, E = x.shape
     di = mc.d_inner(E)
@@ -137,9 +161,13 @@ def mamba_forward(params: dict, x: Tensor, cfg: ModelConfig, *,
     return y @ params["out"]
 
 
-def mamba_decode(params: dict, x: Tensor, cfg: ModelConfig,
-                 state: MambaState) -> Tuple[Tensor, MambaState]:
-    """One token: x (B, 1, E) → ((B, 1, E), state')."""
+def mamba_decode(params: dict, x: Tensor, cfg: ModelConfig, state: MambaState, *,
+                 shard: Optional[dict] = None, mesh=None) -> Tuple[Tensor, MambaState]:
+    """One token: x (B, 1, E) → ((B, 1, E), state'); under a mesh on the
+    rank's heads, with its local state (module docstring)."""
+    local = _local_heads(cfg, shard, mesh)
+    if local is not None:
+        return _decode_local(params, x, cfg, state, local, mesh)
     mc = cfg.mamba
     B, _, E = x.shape
     di = mc.d_inner(E)
@@ -168,13 +196,132 @@ def mamba_decode(params: dict, x: Tensor, cfg: ModelConfig,
     return out, MambaState(conv=conv_state, ssm=ssm)
 
 
-def init_mamba_decode_state(cfg: ModelConfig, batch: int, device="cuda") -> MambaState:
+def init_mamba_decode_state(cfg: ModelConfig, batch: int, device="cuda", *,
+                            heads: Optional[int] = None) -> MambaState:
     """A zero decode state on ``device`` (the card unless the caller asks
-    for the CPU; raises without a card, as ``resolve_device`` does)."""
+    for the CPU; raises without a card, as ``resolve_device`` does) of
+    ``batch`` rows; ``heads`` of the H heads (a rank's, under a mesh: the
+    conv state then holds their x channels and every B/C channel)."""
     mc = cfg.mamba
     E = cfg.d_model
-    di = mc.d_inner(E)
     H, N, P = mc.num_heads(E), mc.d_state, mc.head_dim
-    channels = di + 2 * mc.n_groups * N
-    return init_mamba_state(batch, mc.conv_width, channels, H, N, P, _dtype(cfg),
+    h = H if heads is None else heads
+    channels = h * P + 2 * mc.n_groups * N
+    return init_mamba_state(batch, mc.conv_width, channels, h, N, P, _dtype(cfg),
                             resolve_device(device))
+
+
+# --------------------------------------------------------------------------
+# under a mesh: the rank's heads
+# --------------------------------------------------------------------------
+
+class _Local:
+    """A rank's heads [h0, h0 + h) of H and the B/C groups [g0, g0 + g)
+    they read; ``n`` ranks of "model"."""
+
+    def __init__(self, h0, h, g0, g, n):
+        self.h0, self.h, self.g0, self.g, self.n = h0, h, g0, g, n
+
+
+def _local_heads(cfg: ModelConfig, shard: Optional[dict], mesh) -> Optional[_Local]:
+    """The rank's heads under a mesh whose "model" axis splits them; None
+    where the layer runs whole (no mesh, one rank of "model", or every
+    leaf replicated because the ranks do not divide d_inner)."""
+    if shard is None:
+        return None
+    n, r = model_rank(mesh)
+    if n == 1:
+        return None
+    mc = cfg.mamba
+    H, G = mc.num_heads(cfg.d_model), mc.n_groups
+    x_split = shard["in_x"].sharded_dim() is not None
+    h_split = shard["A_log"].sharded_dim() is not None
+    if not x_split and not h_split:
+        return None
+    if not (x_split and h_split):
+        raise ValueError(f"{n} ranks of 'model' split d_inner {mc.d_inner(cfg.d_model)} "
+                         f"but not its {H} heads: the split would cut a head")
+    h = H // n
+    per = H // G  # heads a group
+    if h % per == 0:
+        g0, g = r * h // per, h // per
+    elif per % h == 0:
+        g0, g = r * h // per, 1
+    else:
+        raise ValueError(f"{h} heads a rank fall neither on whole SSD groups of {per} heads "
+                         f"nor inside one group")
+    return _Local(r * h, h, g0, g, n)
+
+
+def _groups(t: Tensor, loc: _Local, N: int) -> Tensor:
+    """The channels of the rank's groups of a (..., G·N) B or C."""
+    if loc.g * N == t.shape[-1]:
+        return t
+    return t[..., loc.g0 * N:(loc.g0 + loc.g) * N].contiguous()
+
+
+def _gated_norm(y: Tensor, z: Tensor, params: dict, di: int, loc: _Local, mesh,
+                eps: float = 1e-6) -> Tensor:
+    """RMSNorm of y·silu(z) over the whole d_inner from the rank's channels:
+    the sum of squares all-reduced over "model", the rank's slice of the
+    scale."""
+    g = y * F.silu(z)
+    gf = g.to(torch.float32)
+    ss = coll.all_reduce_sum((gf * gf).sum(dim=-1, keepdim=True), mesh)
+    lo = loc.h0 * (g.shape[-1] // loc.h)
+    scale = params["norm"]["scale"][lo:lo + g.shape[-1]].to(torch.float32)
+    return (gf * torch.rsqrt(ss / di + eps) * scale).to(g.dtype)
+
+
+def _finish(y: Tensor, mesh, finish: Optional[Callable]) -> Tensor:
+    return finish(y, True) if finish is not None else coll.all_reduce_sum(y, mesh)
+
+
+def _forward_local(params: dict, x: Tensor, cfg: ModelConfig, loc: _Local, use_kernel: bool,
+                   mesh, finish: Optional[Callable]) -> Tensor:
+    mc = cfg.mamba
+    B, S, E = x.shape
+    P, N = mc.head_dim, mc.d_state
+    z, xs, Bm, C, dt = _project(params, x, slice(loc.h0, loc.h0 + loc.h))
+    xs = F.silu(_causal_conv(xs, params["conv_x"]))
+    Bm = _groups(F.silu(_causal_conv(Bm, params["conv_B"])), loc, N)
+    C = _groups(F.silu(_causal_conv(C, params["conv_C"])), loc, N)
+    xh = xs.reshape(B, S, loc.h, P)
+    Bh, Ch = Bm.reshape(B, S, loc.g, N), C.reshape(B, S, loc.g, N)
+    A = -torch.exp(params["A_log"])
+    if use_kernel:
+        y = ssd_ops.ssd_scan(xh, dt, A, Bh, Ch)
+    else:
+        y = ssd_ref.ssd_chunked(xh, dt, A, Bh, Ch)
+    y = y + params["D"][None, None, :, None] * xh
+    y = y.reshape(B, S, loc.h * P).to(x.dtype)
+    y = _gated_norm(y, z, params, mc.d_inner(E), loc, mesh)
+    return _finish(y @ params["out"], mesh, finish)
+
+
+def _decode_local(params: dict, x: Tensor, cfg: ModelConfig, state: MambaState, loc: _Local,
+                  mesh) -> Tuple[Tensor, MambaState]:
+    mc = cfg.mamba
+    B, _, E = x.shape
+    P, G, N = mc.head_dim, mc.n_groups, mc.d_state
+    dl = loc.h * P
+    z, xs, Bm, C, dt = _project(params, x[:, 0, :], slice(loc.h0, loc.h0 + loc.h))
+    ch = torch.cat([xs, Bm, C], dim=-1)  # (B, di_local + 2GN)
+    conv_w = torch.cat([params["conv_x"], params["conv_B"], params["conv_C"]], dim=1)
+    conv_state, conv_out = _conv_step(state.conv, ch, conv_w)
+    conv_out = F.silu(conv_out)
+    xs, Bm, C = torch.split(conv_out, [dl, G * N, G * N], dim=-1)
+    xh = xs.reshape(B, loc.h, P)
+    rep = loc.h // loc.g
+    Bh = torch.repeat_interleave(_groups(Bm, loc, N).reshape(B, loc.g, N), rep, dim=1)
+    Ch = torch.repeat_interleave(_groups(C, loc, N).reshape(B, loc.g, N), rep, dim=1)
+    A = -torch.exp(params["A_log"])
+    a = torch.exp(dt * A)
+    ssm = state.ssm * a[..., None, None] + (
+        dt[..., None, None] * Bh[..., :, None].float() * xh[..., None, :].float())
+    y = torch.einsum("bhn,bhnp->bhp", Ch.float(), ssm)
+    y = y + params["D"][None, :, None] * xh.float()
+    y = y.reshape(B, dl).to(x.dtype)
+    y = _gated_norm(y, z, params, mc.d_inner(E), loc, mesh)
+    out = coll.all_reduce_sum(y @ params["out"], mesh)[:, None, :]
+    return out, MambaState(conv=conv_state, ssm=ssm)

@@ -26,17 +26,28 @@ order for ties, so the top k come from a stable descending sort.
 ``apply_moe(..., routing=[])`` appends each call's routing decisions to
 the list (a seam for the tests and ``chip_smoke.py``, in the manner of
 the serving noise sources); the model path passes none.
+
+Under a mesh (``shard``, ``mesh``) the router is replicated and every
+rank routes the identical residual, so routing, capacity and drops are
+the same on every rank. Where the experts shard over "model" (their
+count divides it: deepseek) a rank runs ``_expert_ffn`` on its experts'
+slots and combines only those; otherwise (granite's 40 experts against
+16, padded experts) each expert's F shards and a rank runs every expert
+on its slice of F. The shared experts shard on F. Each gives a partial
+sum, and one all-reduce over "model" (``finish``) finishes the sum.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import _act, dense_init
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import model_rank
 
 Tensor = torch.Tensor
 
@@ -125,9 +136,11 @@ def _expert_ffn(expert_in: Tensor, params: dict, cfg: ModelConfig) -> Tensor:
     return torch.einsum("nxcf,xfe->nxce", _act(gt, cfg.act) * h, params["w_out"])
 
 
-def _dispatch_einsum(xg: Tensor, params: dict, cfg: ModelConfig, C: int, route: Route
-                     ) -> Tensor:
-    """GShard one-hot products (reference ``_route_group``, :101)."""
+def _dispatch_einsum(xg: Tensor, params: dict, cfg: ModelConfig, C: int, route: Route,
+                     experts: Optional[slice] = None) -> Tensor:
+    """GShard one-hot products (reference ``_route_group``, :101); with
+    ``experts`` (a rank's expert-sharded slice) only those experts' slots
+    are filled and combined."""
     gate_vals, onehot, pos = route.gate_vals, route.onehot, route.pos
     n, g, _ = xg.shape
     k = cfg.moe.top_k
@@ -137,20 +150,29 @@ def _dispatch_einsum(xg: Tensor, params: dict, cfg: ModelConfig, C: int, route: 
     oh = onehot.to(xg.dtype)
     disp = torch.einsum("ntkx,ntkc->ntxc", oh, slot_oh)  # (n, g, X, C)
     combine = torch.einsum("ntkx,ntkc,ntk->ntxc", oh, slot_oh, gate_vals.to(xg.dtype))
+    if experts is not None:
+        disp, combine = disp[:, :, experts], combine[:, :, experts]
     expert_in = torch.einsum("ntxc,nte->nxce", disp, xg)  # (n, X, C, E)
     expert_out = _expert_ffn(expert_in, params, cfg)
     return torch.einsum("ntxc,nxce->nte", combine, expert_out)
 
 
-def _dispatch_gather(xg: Tensor, params: dict, cfg: ModelConfig, C: int, route: Route
-                     ) -> Tensor:
+def _dispatch_gather(xg: Tensor, params: dict, cfg: ModelConfig, C: int, route: Route,
+                     experts: Optional[slice] = None) -> Tensor:
     """A slot → token table and gathers (reference
     ``_route_group_gather``, :125). Overflow choices write the dump column
-    C, which is sliced off, so duplicate writes touch only that column."""
+    C, which is sliced off, so duplicate writes touch only that column.
+    With ``experts`` (a rank's expert-sharded slice) only those experts'
+    rows of the table run, and a choice of another expert reads zeros."""
     gate_vals, expert_idx, pos, keep = route.gate_vals, route.expert_idx, route.pos, route.keep
     n, g, E = xg.shape
     X, k = cfg.moe.physical_experts, cfg.moe.top_k
     dev = xg.device
+    if experts is not None:
+        mine = (expert_idx >= experts.start) & (expert_idx < experts.stop)  # (n, g, k)
+        keep = keep & mine.transpose(1, 2).reshape(n, k * g)
+        expert_idx = torch.where(mine, expert_idx - experts.start, 0)
+        X = experts.stop - experts.start
 
     flat_expert = expert_idx.transpose(1, 2).reshape(n, k * g)  # rank-major
     token_of = torch.arange(g, device=dev).repeat(k).expand(n, k * g)
@@ -171,7 +193,8 @@ def _dispatch_gather(xg: Tensor, params: dict, cfg: ModelConfig, C: int, route: 
 
 
 def apply_moe(params: dict, x: Tensor, cfg: ModelConfig, *, group_size: int = DEFAULT_GROUP,
-              dispatch: str = "einsum", routing: Optional[List[dict]] = None
+              dispatch: str = "einsum", routing: Optional[List[dict]] = None,
+              shard: Optional[dict] = None, mesh=None, finish: Optional[Callable] = None
               ) -> Tuple[Tensor, Tensor]:
     """x (B, S, E) → (y (B, S, E), aux loss): T = B·S tokens padded with
     zero rows to a multiple of g = min(group_size, T), the groups routed
@@ -199,11 +222,27 @@ def apply_moe(params: dict, x: Tensor, cfg: ModelConfig, *, group_size: int = DE
         routing.append({"expert_idx": route.expert_idx, "pos": route.pos, "keep": route.keep,
                         "margin": route.margin, "tokens": T, "capacity": C})
     run = _dispatch_gather if dispatch == "gather" else _dispatch_einsum
-    yt = run(xG, params, cfg, C, route).reshape(-1, E)[:T]
-
+    # under a mesh, the rank's experts or F slices give partial sums
+    n, r = (1, 0) if shard is None else model_rank(mesh)
+    routed_split = shared_split = False
+    experts = None
+    if n > 1:
+        routed_split = shard["w_in"].sharded_dim() is not None
+        shared_split = mc.num_shared_experts and \
+            shard["shared"]["w_out"].sharded_dim() is not None
+        if shard["w_in"].sharded_dim() == 0:
+            Xl = mc.physical_experts // n
+            experts = slice(r * Xl, (r + 1) * Xl)
+    partial, whole = [], []
+    yt = run(xG, params, cfg, C, route, experts).reshape(-1, E)[:T]
+    (partial if routed_split else whole).append(yt)
     if mc.num_shared_experts:
         sh = params["shared"]
         xt_true = xt[:T]
         hs = _act(xt_true @ sh["w_gate"], cfg.act) * (xt_true @ sh["w_in"])
-        yt = yt + hs @ sh["w_out"]
-    return yt.reshape(B, S, E), route.aux.mean() * mc.router_aux_weight
+        (partial if shared_split else whole).append(hs @ sh["w_out"])
+    if finish is None:
+        finish = lambda y, split: coll.all_reduce_sum(y, mesh) if split else y
+    parts = [finish(sum(p[1:], p[0]).reshape(B, S, E), split)
+             for p, split in ((partial, True), (whole, False)) if p]
+    return sum(parts[1:], parts[0]), route.aux.mean() * mc.router_aux_weight

@@ -15,9 +15,7 @@ passed as ``cross_embeds``) mixers and the "M" (Mamba2 SSD) mixer, the
 "N" (none), "D" (dense) and "E" (mixture-of-experts, ``models/moe.py``)
 MLPs; one token stream or ``num_codebooks`` parallel ones (summed
 embeddings, a head a codebook: tokens (B, S, K), logits (B, S, K, V)),
-with an untied head or the embedding tied as the head. The mesh levers
-(``attn_q_seq_shard``, ``residual_seq_shard``, ``decode_flash_shard``)
-raise ``NotImplementedError``: they come with ROADMAP A11. Parameters
+with an untied head or the embedding tied as the head. Parameters
 are a nested dict of tensors with the reference's keys and layouts
 (a tied model has no ``lm_head``); ``params_from_jax`` copies a
 reference tree into one. ``forward(remat=)`` recomputes each layer's
@@ -27,6 +25,23 @@ policies.
 ``init_model`` allocates each stacked leaf once and draws every layer
 into its view, so building a model takes its weights' memory and no
 more (deepseek-moe-16b's 62.9 GiB on an 80 GB card).
+
+Under a ``("data", "model")`` mesh (``mesh=``: the reference's model
+placed by ``param_shardings`` and run under an ambient mesh, made
+explicit) each rank holds its shard (``init_model(mesh=)`` draws it,
+``shard_params`` cuts it from a full tree) and the layers call the
+collectives GSPMD inserts for the reference: the embedding looks up the
+ids of the rank's vocab slice (zeros elsewhere) and all-reduces; the
+mixers and MLPs run the rank's heads, experts or F slice and all-reduce
+their partial sums over "model", so the residual is the same bits on
+every model rank; the head gathers the vocab. Batch rows split over
+"data" as the caller cuts them. The levers: ``attn_q_seq_shard``
+(``models/attention.py``), ``residual_seq_shard`` (the residual held
+split over the sequence between the sublayers: each partial sum is
+reduce-scattered over the sequence and the rows gathered before the next
+sublayer) and ``decode_flash_shard`` (the decode caches' sequence over
+its axes, ``flash_decode``); a lever without a mesh that has its axis
+raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -51,6 +66,10 @@ from repro_torch.models.mamba2 import (
     mamba_forward,
 )
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import (
+    ParamSharding, batch_sharding, check_levers, check_runnable, decode_cache_sharding,
+    model_rank, param_shardings, split_rows, tree_map_with_path)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -62,17 +81,15 @@ def _check_config(cfg: ModelConfig) -> None:
     for mlp in cfg.mlp_pattern:
         if mlp not in ("N", "D", "E"):
             raise ValueError(f"unknown mlp kind {mlp!r}")
-    if cfg.residual_seq_shard:  # the attention levers: models.attention._refuse
-        raise NotImplementedError("residual_seq_shard is a mesh lever; the LM under a mesh "
-                                  "comes with ROADMAP A11")
 
 
 def _map(fn, tree):
     if isinstance(tree, Mapping):
         return {k: _map(fn, v) for k, v in tree.items()}
-    if dataclasses.is_dataclass(tree):  # MambaState, LayerKVCache
-        return type(tree)(**{f.name: fn(getattr(tree, f.name))
-                             for f in dataclasses.fields(tree)})
+    if dataclasses.is_dataclass(tree):  # MambaState, LayerKVCache (its sharding kept)
+        return type(tree)(**{f.name: fn(v) if isinstance(v, Tensor) else v
+                             for f in dataclasses.fields(tree)
+                             for v in (getattr(tree, f.name),)})
     return fn(tree)
 
 
@@ -81,8 +98,10 @@ def _stack(trees):
     if isinstance(first, Mapping):
         return {k: _stack([t[k] for t in trees]) for k in first}
     if dataclasses.is_dataclass(first):
-        return type(first)(**{f.name: torch.stack([getattr(t, f.name) for t in trees])
-                              for f in dataclasses.fields(first)})
+        return type(first)(**{
+            f.name: torch.stack([getattr(t, f.name) for t in trees])
+            if isinstance(getattr(first, f.name), Tensor) else getattr(first, f.name)
+            for f in dataclasses.fields(first)})
     return torch.stack(trees)
 
 
@@ -161,31 +180,156 @@ def _init_stacked(cfg: ModelConfig, pos: int, generator: torch.Generator) -> Par
     return _map(lambda view: leaves.stacked_of[id(view)], first)
 
 
-def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
+class _ShardedLeaves:
+    """The ``alloc`` of one pattern position's layers under a mesh: each
+    call returns a whole scratch leaf that the initialiser draws into;
+    at the next call (and at ``flush``) the rank's block of the finished
+    leaf is copied into view r of its stacked local leaf (R,
+    *local_shape), and the scratch is emptied, so a rank holds its shard
+    and one whole leaf. ``shardings`` are the leaves' ``ParamSharding``
+    in call order (stacked: the repeat axis first)."""
+
+    def __init__(self, repeats: int, device, shardings: list):
+        self.repeats, self.device, self.shardings = repeats, device, shardings
+        self.stacked: list = []
+        self.pending = None
+        self.layer = self.k = 0
+
+    def start(self, layer: int) -> None:
+        self.flush()
+        self.layer, self.k = layer, 0
+
+    def flush(self) -> None:
+        if self.pending is None:
+            return
+        k, scratch = self.pending
+        sh = self.shardings[k]
+        block = scratch[sh.index((self.repeats, *scratch.shape))[1:]]
+        if self.layer == 0:
+            local = sh.local_shape((self.repeats, *scratch.shape))
+            self.stacked.append(torch.empty(local, dtype=scratch.dtype, device=self.device))
+        self.stacked[k][self.layer].copy_(block)
+        scratch.set_()  # the initialiser's reference keeps an empty tensor
+        self.pending = None
+
+    def __call__(self, shape, dtype) -> Tensor:
+        self.flush()
+        scratch = torch.empty(tuple(shape), dtype=dtype, device=self.device)
+        self.pending = (self.k, scratch)
+        self.k += 1
+        return scratch
+
+
+def _leaf_paths(cfg: ModelConfig, pos: int) -> list:
+    """The tree path of each leaf of a pattern position's layer, in the
+    order its initialiser allocates them (one run on the meta device)."""
+    made = []
+
+    def alloc(shape, dtype):
+        made.append(torch.empty(shape, dtype=dtype, device="meta"))
+        return made[-1]
+
+    tree = _init_block_position(cfg, pos, Unseeded(), alloc)
+    where = {}
+    tree_map_with_path(lambda path, t: where.__setitem__(id(t), path), tree)
+    return [where[id(t)] for t in made]
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _init_stacked_sharded(cfg: ModelConfig, pos: int, generator: torch.Generator,
+                          shardings: dict) -> Params:
+    """``_init_stacked`` under a mesh: the same draws, layer by layer, into
+    whole scratch leaves, of which the rank keeps its blocks
+    (``_ShardedLeaves``); ``shardings`` is the position's stacked
+    ``ParamSharding`` tree."""
+    paths = _leaf_paths(cfg, pos)
+    leaves = _ShardedLeaves(cfg.num_repeats, generator.device,
+                            [_at(shardings, p) for p in paths])
+    for r in range(cfg.num_repeats):
+        leaves.start(r)
+        _init_block_position(cfg, pos, generator, leaves)
+    leaves.flush()
+    out: Params = {}
+    for path, leaf in zip(paths, leaves.stacked):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda", mesh=None) -> Params:
     """Fresh parameters, drawn from a ``torch.Generator`` seeded ``seed``
     on ``device`` (the card unless the caller asks for the CPU): the
     embedding ((V, E), or (K, V, E) with K codebooks), each pattern
     position's layers in turn (``_init_stacked``), the head ((E, V) or
     (K, E, V); none when the embedding is tied as the head). On
     ``device="meta"`` the leaves are allocated and nothing is drawn (the
-    dry run's abstract parameters)."""
+    dry run's abstract parameters).
+
+    With ``mesh`` the rank's shard (``model_shardings``): every leaf is
+    drawn whole, as without a mesh, and the rank keeps its block, so a
+    shard is bitwise the slice of the unsharded init and a rank's peak is
+    its shard plus one whole leaf."""
     _check_config(cfg)
     dev = resolve_device(device)
     g = Unseeded() if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
     K = cfg.num_codebooks
     lead = (K,) if K > 1 else ()
+    shards = None if mesh is None else model_shardings(cfg, mesh)
+
+    def kept(name, leaf):  # the rank's block of a whole leaf
+        return leaf if shards is None else shards[name].local(leaf).clone()
+
     params: Params = {
-        "embed": dense_init((*lead, cfg.vocab_size, cfg.d_model), generator=g, dtype=dtype,
-                            fan_in=cfg.d_model),
-        "blocks": {f"p{i}": _init_stacked(cfg, i, g) for i in range(len(cfg.mixer_pattern))},
+        "embed": kept("embed", dense_init((*lead, cfg.vocab_size, cfg.d_model), generator=g,
+                                          dtype=dtype, fan_in=cfg.d_model)),
+        "blocks": {f"p{i}": _init_stacked(cfg, i, g) if shards is None
+                   else _init_stacked_sharded(cfg, i, g, shards["blocks"][f"p{i}"])
+                   for i in range(len(cfg.mixer_pattern))},
         "final_norm": init_norm(cfg.d_model, cfg.norm_type, dtype, dev),
     }
     if not cfg.tie_embeddings:
         # fan-in shape[0], as the reference: K for the codebook heads
-        params["lm_head"] = dense_init((*lead, cfg.d_model, cfg.vocab_size), generator=g,
-                                       dtype=dtype)
+        params["lm_head"] = kept("lm_head", dense_init((*lead, cfg.d_model, cfg.vocab_size),
+                                                       generator=g, dtype=dtype))
     return params
+
+
+_SHARDINGS: dict = {}
+
+
+def model_shardings(cfg: ModelConfig, mesh) -> Params:
+    """The ``ParamSharding`` tree of ``cfg``'s parameters on ``mesh``
+    (``param_shardings`` over the meta tree, with the unpadded expert
+    count, as the reference's ``train.py``), cached a (config, mesh).
+    Raises for leaves the model path cannot run (``check_runnable``)."""
+    key = (cfg, id(mesh))
+    if key not in _SHARDINGS or _SHARDINGS[key][0] is not mesh:
+        shapes = init_model(cfg, device="meta")
+        tree = param_shardings(shapes, mesh, cfg.moe.num_experts if cfg.moe else None)
+        check_runnable(tree)
+        _SHARDINGS[key] = (mesh, tree)
+    return _SHARDINGS[key][1]
+
+
+def _layer_shardings(tree):
+    """A pattern position's stacked shardings → one layer's (the repeat
+    axis dropped)."""
+    return tree_map_with_path(lambda _, s: ParamSharding(s.mesh, tuple(s.spec[1:])), tree)
+
+
+def shard_params(params: Params, mesh, cfg: ModelConfig) -> Params:
+    """This rank's shard of a full parameter tree (``init_model`` or
+    ``params_from_jax``): each leaf's block by ``model_shardings``, a copy."""
+    shards = model_shardings(cfg, mesh)
+    return tree_map_with_path(lambda path, t: _at(shards, path).local(t).clone(), params)
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device="cpu") -> Params:
@@ -219,11 +363,37 @@ def _copy_tree(dst, src, path: str) -> None:
 # embedding / head
 # --------------------------------------------------------------------------
 
-def embed_tokens(params: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
+def _vocab_split(shard: Optional[ParamSharding], dim: int, mesh) -> bool:
+    return shard is not None and model_rank(mesh)[0] > 1 and shard.sharded_dim() == dim
+
+
+def embed_tokens(params: Params, tokens: Tensor, cfg: ModelConfig, *,
+                 shard: Optional[ParamSharding] = None, mesh=None) -> Tensor:
     """tokens (B, S) → (B, S, E); with K codebooks tokens (B, S, K) → the
     sum of the K codebooks' embeddings, added in order k = 0..K−1
-    (reference :105)."""
+    (reference :105). A vocab-sharded embedding (``shard``, ``mesh``)
+    looks up the ids of the rank's slice (zeros for the others) and
+    all-reduces over "model" (exact: one rank holds each row), the K
+    codebooks' lookups in one all-reduce, then summed in order."""
     tokens = tokens.long()
+    K = cfg.num_codebooks
+    if _vocab_split(shard, 1 if K > 1 else 0, mesh):
+        n, r = model_rank(mesh)
+        Vl = cfg.vocab_size // n
+
+        def lookup(table, ids):
+            local = ids - r * Vl
+            inside = (local >= 0) & (local < Vl)
+            return table[local.clamp(0, Vl - 1)].masked_fill(~inside[..., None], 0)
+
+        if K > 1:
+            parts = coll.all_reduce_sum(torch.stack(
+                [lookup(params["embed"][k], tokens[..., k]) for k in range(K)]), mesh)
+            x = parts[0]
+            for k in range(1, K):
+                x = x + parts[k]
+            return x
+        return coll.all_reduce_sum(lookup(params["embed"], tokens), mesh)
     if cfg.num_codebooks > 1:
         x = params["embed"][0][tokens[..., 0]]
         for k in range(1, cfg.num_codebooks):
@@ -232,9 +402,17 @@ def embed_tokens(params: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     return params["embed"][tokens]
 
 
-def lm_logits(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+def lm_logits(params: Params, x: Tensor, cfg: ModelConfig, *,
+              shard: Optional[ParamSharding] = None, mesh=None) -> Tensor:
     """x (B, S, E) → logits (B, S, V), or (B, S, K, V) with K codebooks;
-    through the embedding when it is tied as the head (reference :116)."""
+    through the embedding when it is tied as the head (reference :116).
+    A vocab-sharded head (``shard``: the head's, or the tied embedding's
+    sharding) computes the rank's vocab columns and gathers the vocab
+    over "model"."""
+    K = cfg.num_codebooks
+    vocab_dim = (1 if K > 1 else 0) if cfg.tie_embeddings else (2 if K > 1 else 1)
+    if _vocab_split(shard, vocab_dim, mesh):
+        return coll.all_gather_dim(lm_logits(params, x, cfg), -1, mesh)
     if cfg.tie_embeddings:
         if cfg.num_codebooks > 1:
             return torch.einsum("bse,kve->bskv", x, params["embed"])
@@ -262,33 +440,100 @@ def _layers(tree, repeats: int) -> list:
     return [_map(lambda u: u[r], unbound) for r in range(repeats)]
 
 
+class _Ctx:
+    """One layer's place under a mesh: its ``ParamSharding`` tree
+    (``shard``), the mesh, and how a sublayer's output is finished
+    (``finish(y, partial)``: a partial sum is all-reduced over "model", a
+    whole one kept; under ``residual_seq_shard`` both become the rank's
+    sequence rows, and ``gather`` rebuilds every row of the residual);
+    ``rows_of``, the ``RowSharding`` of the batch rows the rank holds."""
+
+    def __init__(self, shard, mesh, seq_len: Optional[int] = None, rows=None):
+        self.shard, self.mesh, self.rows_of = shard, mesh, rows
+        self.seq_len = seq_len
+        if seq_len is not None:
+            n, r = model_rank(mesh)
+            self.n, self.rows = n, split_rows(seq_len, n, r)
+            self.block = -(-seq_len // n)
+
+    def finish(self, y: Tensor, partial: bool) -> Tensor:
+        if self.seq_len is None:
+            return coll.all_reduce_sum(y, self.mesh) if partial else y
+        a, b = self.rows
+        if not partial:
+            return y[:, a:b]
+        pad = self.n * self.block - y.shape[1]
+        if pad:
+            y = torch.cat([y, y.new_zeros((y.shape[0], pad, *y.shape[2:]))], dim=1)
+        return coll.reduce_scatter_dim(y, 1, self.mesh)[:, :b - a]
+
+    def split(self, x: Tensor) -> Tensor:
+        a, b = self.rows
+        return x[:, a:b]
+
+    def gather(self, x: Tensor) -> Tensor:
+        if self.seq_len is None:
+            return x
+        if x.shape[1] < self.block:
+            x = torch.cat([x, x.new_zeros((x.shape[0], self.block - x.shape[1],
+                                           *x.shape[2:]))], dim=1)
+        return coll.all_gather_dim(x, 1, self.mesh)[:, :self.seq_len]
+
+
+def _sharded(ctx: Optional[_Ctx]) -> bool:
+    """Whether a layer runs the rank's slices (a mesh with more than one
+    rank of "model")."""
+    return ctx is not None and model_rank(ctx.mesh)[0] > 1
+
+
 def _mlp_residual(bp: Params, x: Tensor, cfg: ModelConfig, pos: int,
-                  moe_routing: Optional[list]) -> Tuple[Tensor, Optional[Tensor]]:
+                  moe_routing: Optional[list], ctx: Optional[_Ctx] = None
+                  ) -> Tuple[Tensor, Optional[Tensor]]:
     """x plus the layer's MLP of its normed x, and an "E" layer's aux
-    loss (None for the others)."""
+    loss (None for the others). Under ``residual_seq_shard`` x holds the
+    rank's rows and the normed input is gathered first."""
     kind = cfg.mlp_pattern[pos]
     if kind == "N":
         return x, None
-    h = apply_norm(x, cfg.norm_type, bp["norm2"])
+    h = apply_norm(ctx.gather(x) if ctx is not None else x, cfg.norm_type, bp["norm2"])
     mlp = bp["mlp"]
     if kind == "E":
-        y, aux = apply_moe(mlp, h, cfg, dispatch=cfg.moe_dispatch, routing=moe_routing)
+        # routing groups span the whole batch, as in the reference under
+        # GSPMD: row-sharded ranks route every row and keep theirs
+        split = ctx is not None and ctx.rows_of is not None and ctx.rows_of.n_shards > 1
+        if split:
+            h = coll.all_gather_dim(h, 0, ctx.mesh, ctx.rows_of.axes)
+        kw = {}
+        if _sharded(ctx):
+            kw = dict(shard=ctx.shard["mlp"], mesh=ctx.mesh,
+                      finish=None if split else ctx.finish)
+        y, aux = apply_moe(mlp, h, cfg, dispatch=cfg.moe_dispatch, routing=moe_routing, **kw)
+        if split:
+            y = y[ctx.rows_of.rows]
+            if ctx.seq_len is not None:
+                y = ctx.finish(y, False)
         return x + y, aux
-    return x + apply_mlp(h, mlp["w_in"], mlp["w_out"], mlp.get("w_gate"), act=cfg.act), None
+    y = apply_mlp(h, mlp["w_in"], mlp["w_out"], mlp.get("w_gate"), act=cfg.act)
+    if _sharded(ctx):
+        y = ctx.finish(y, ctx.shard["mlp"]["w_out"].sharded_dim() is not None)
+    return x + y, None
 
 
 def _block_forward(bp: Params, x: Tensor, cfg: ModelConfig, pos: int, positions: Tensor,
                    cross_embeds: Optional[Tensor], use_kernel_ssd: bool, use_flash: bool,
-                   moe_routing: Optional[list]):
+                   moe_routing: Optional[list], ctx: Optional[_Ctx] = None):
     mix = cfg.mixer_pattern[pos]
-    h = apply_norm(x, cfg.norm_type, bp["norm1"])
+    h = apply_norm(ctx.gather(x) if ctx is not None else x, cfg.norm_type, bp["norm1"])
+    kw = {} if ctx is None else dict(mesh=ctx.mesh)
+    if _sharded(ctx):
+        kw.update(shard=ctx.shard["mixer"], finish=ctx.finish)
     if mix == "M":
-        x = x + mamba_forward(bp["mixer"], h, cfg, use_kernel=use_kernel_ssd)
+        x = x + mamba_forward(bp["mixer"], h, cfg, use_kernel=use_kernel_ssd, **kw)
     else:
         x = x + attention_forward(bp["mixer"], h, cfg, mix, positions,
                                   cross_kv=cross_embeds if mix == "X" else None,
-                                  use_flash=use_flash)
-    return _mlp_residual(bp, x, cfg, pos, moe_routing)
+                                  use_flash=use_flash, **kw)
+    return _mlp_residual(bp, x, cfg, pos, moe_routing, ctx)
 
 
 def _save_unbatched_products(ctx, op, *args, **kwargs):
@@ -324,7 +569,8 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
             cross_embeds: Optional[Tensor] = None,
             use_kernel_ssd: bool = True, use_flash: bool = True,
             remat: str = "none", last_logits_only: bool = False,
-            moe_routing: Optional[list] = None) -> Tuple[Tensor, Tensor]:
+            moe_routing: Optional[list] = None, mesh=None,
+            rows=None, residual: Optional[list] = None) -> Tuple[Tensor, Tensor]:
     """tokens (B, S) or, with K codebooks, (B, S, K) → (logits (B, S or 1,
     V) or (B, S or 1, K, V), the "E" layers' aux loss summed over the
     layers in order, fp32; 0 without "E" layers). ``cross_embeds`` (B,
@@ -341,30 +587,60 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
     needs. ``remat`` ("none", "full", "dots") checkpoints each layer for
     training (``_remat``). ``moe_routing`` (tests and the smoke only)
     collects every "E" layer's routing decisions in layer order
-    (``moe.apply_moe``)."""
+    (``moe.apply_moe``); ``residual`` (the same) the residual the final
+    norm reads (the last position's with ``last_logits_only``).
+
+    ``mesh``: ``params`` is this rank's shard on it, ``tokens`` (and
+    ``cross_embeds``) the rank's rows, cut by ``rows`` (a
+    ``RowSharding``; None: every rank holds every row); the logits are
+    the rank's rows over the whole vocab (module docstring). An "E"
+    layer routes every row of the batch, as the reference does under
+    GSPMD (its routing groups span the batch)."""
     _check_config(cfg)
+    check_levers(cfg, mesh)
     if "X" in cfg.mixer_pattern and cross_embeds is None:
         raise ValueError(f"{cfg.name} has cross-attention layers: pass cross_embeds "
                          f"(B, {cfg.num_patches}, {cfg.vision_dim})")
-    x = embed_tokens(params, tokens, cfg)
+    shards = None if mesh is None else model_shardings(cfg, mesh)
+    if shards is not None and remat != "none":
+        raise NotImplementedError("remat under a mesh is the training slice's (ROADMAP A11 (i))")
+    x = embed_tokens(params, tokens, cfg, **_head_kw(shards, "embed", mesh))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     blocks = [_layers(params["blocks"][f"p{i}"], cfg.num_repeats)
               for i in range(len(cfg.mixer_pattern))]
+    seq = cfg.residual_seq_shard is not None and mesh is not None and model_rank(mesh)[0] > 1
+    ctxs = [None] * len(cfg.mixer_pattern) if shards is None else [
+        _Ctx(_layer_shardings(shards["blocks"][f"p{i}"]), mesh, x.shape[1] if seq else None,
+             rows) for i in range(len(cfg.mixer_pattern))]
+    if seq:  # the residual holds the rank's sequence rows between sublayers
+        x = ctxs[0].split(x)
     for r in range(cfg.num_repeats):
         for i in range(len(cfg.mixer_pattern)):
             layer = functools.partial(_block_forward, blocks[i][r],
                                       cfg=cfg, pos=i, positions=positions,
                                       cross_embeds=cross_embeds,
                                       use_kernel_ssd=use_kernel_ssd, use_flash=use_flash,
-                                      moe_routing=moe_routing)
+                                      moe_routing=moe_routing, ctx=ctxs[i])
             x, a = _remat(layer, remat)(x)
             if a is not None:
                 aux = aux + a
+    if seq:
+        x = ctxs[0].gather(x)
     if last_logits_only:
         x = x[:, -1:]
+    if residual is not None:
+        residual.append(x)
     x = apply_norm(x, cfg.norm_type, params["final_norm"])
-    return lm_logits(params, x, cfg), aux
+    return lm_logits(params, x, cfg, **_head_kw(shards, _head_name(cfg), mesh)), aux
+
+
+def _head_name(cfg: ModelConfig) -> str:
+    return "embed" if cfg.tie_embeddings else "lm_head"
+
+
+def _head_kw(shards, name: str, mesh) -> dict:
+    return {} if shards is None else dict(shard=shards[name], mesh=mesh)
 
 
 # --------------------------------------------------------------------------
@@ -372,14 +648,21 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
 # --------------------------------------------------------------------------
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
-                      device="cuda") -> Dict[str, Any]:
+                      device="cuda", *, mesh=None) -> Dict[str, Any]:
     """Per-pattern-position decode state, stacked over repeats, on
     ``device`` (the card unless the caller asks for the CPU): an "A"
     layer's KV cache holds ``cache_len`` tokens, an "L" layer's
     ``min(cache_len, sliding_window)`` (a ring buffer of its window); a
     Mamba2 state does not grow with the sequence; an "X" layer has none
-    (``{}``: it recomputes the image K/V each step)."""
+    (``{}``: it recomputes the image K/V each step).
+
+    With ``mesh`` the rank's block of the global state of ``batch`` rows
+    (``launch.specs.decode_state_shardings``): each KV cache laid out by
+    ``kv_cache_spec`` (or over ``decode_flash_shard``'s axes,
+    ``parallel.sharding.decode_cache_sharding``) and carrying that
+    sharding; a Mamba2 state the rank's rows, heads and conv channels."""
     _check_config(cfg)
+    check_levers(cfg, mesh)
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     state = {}
@@ -388,17 +671,32 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
             state[f"p{i}"] = {}
             continue
         if mix == "M":
-            one = init_mamba_decode_state(cfg, batch, device)
+            rows, heads = batch, None
+            if mesh is not None:
+                rows = batch // batch_sharding(mesh, batch, 1).n_shards
+                H = cfg.mamba.num_heads(cfg.d_model)
+                n = model_rank(mesh)[0]
+                shard = _layer_shardings(model_shardings(cfg, mesh)["blocks"][f"p{i}"])
+                heads = H // n if shard["mixer"]["A_log"].sharded_dim() is not None else H
+            one = init_mamba_decode_state(cfg, rows, device, heads=heads)
         else:
             eff = cache_len if mix == "A" else min(cache_len, cfg.sliding_window)
-            one = init_kv_cache(batch, eff, cfg.num_kv_heads, cfg.head_dim, dtype, device)
+            full = (batch, eff, cfg.num_kv_heads, cfg.head_dim)
+            if mesh is None:
+                one = init_kv_cache(batch, eff, cfg.num_kv_heads, cfg.head_dim, dtype, device)
+            else:
+                sh = decode_cache_sharding(cfg, mesh, batch, eff)
+                b, sl, kv, dh = sh.local_shape(full)
+                one = init_kv_cache(b, sl, kv, dh, dtype, device)
+                one.sharding = sh
         state[f"p{i}"] = _map(lambda a: a.expand((cfg.num_repeats,) + a.shape).clone(), one)
     return state
 
 
 def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: ModelConfig, *,
                 cross_embeds: Optional[Tensor] = None, start_pos: Optional[Tensor] = None,
-                moe_routing: Optional[list] = None) -> Tuple[Tensor, Dict[str, Any]]:
+                moe_routing: Optional[list] = None, mesh=None, rows=None
+                ) -> Tuple[Tensor, Dict[str, Any]]:
     """One decode step. tokens (B, 1) or (B, 1, K) → (logits (B, 1, V) or
     (B, 1, K, V), state'). ``cross_embeds`` as in ``forward``.
 
@@ -409,23 +707,32 @@ def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: Mode
     (continuous batching). An "E" layer routes the step's B tokens as one
     group, so every lane (a free batcher slot too) takes capacity, and
     its aux loss is discarded, as in the reference; ``moe_routing`` as in
-    ``forward``."""
+    ``forward``. ``mesh`` and ``rows``: the rank's shard, rows and state
+    (``init_decode_state(mesh=)``), as in ``forward``."""
     _check_config(cfg)
-    x = embed_tokens(params, tokens, cfg)
+    check_levers(cfg, mesh)
+    shards = None if mesh is None else model_shardings(cfg, mesh)
+    x = embed_tokens(params, tokens, cfg, **_head_kw(shards, "embed", mesh))
+    ctxs = [None if shards is None else
+            _Ctx(_layer_shardings(shards["blocks"][f"p{i}"]), mesh, rows=rows)
+            for i in range(len(cfg.mixer_pattern))]
     new = {f"p{i}": [] for i in range(len(cfg.mixer_pattern))}
     for r in range(cfg.num_repeats):
         for i, mix in enumerate(cfg.mixer_pattern):
+            ctx = ctxs[i]
+            kw = {} if ctx is None else dict(mesh=mesh, shard=ctx.shard["mixer"])
             bp = _layer(params["blocks"][f"p{i}"], r)
             h = apply_norm(x, cfg.norm_type, bp["norm1"])
             st = _layer(state[f"p{i}"], r)
             if mix == "M":
-                y, s_new = mamba_decode(bp["mixer"], h, cfg, st)
+                y, s_new = mamba_decode(bp["mixer"], h, cfg, st, **kw)
                 new[f"p{i}"].append(s_new)
             elif mix == "X":  # stateless
-                y, _ = attention_decode(bp["mixer"], h, cfg, mix, None, cross_kv=cross_embeds)
+                y, _ = attention_decode(bp["mixer"], h, cfg, mix, None, cross_kv=cross_embeds,
+                                        **kw)
             else:  # the views write into the stacked cache
-                y, _ = attention_decode(bp["mixer"], h, cfg, mix, st, start_pos=start_pos)
-            x, _ = _mlp_residual(bp, x + y, cfg, i, moe_routing)  # aux discarded
+                y, _ = attention_decode(bp["mixer"], h, cfg, mix, st, start_pos=start_pos, **kw)
+            x, _ = _mlp_residual(bp, x + y, cfg, i, moe_routing, ctx)  # aux discarded
     x = apply_norm(x, cfg.norm_type, params["final_norm"])
     out = {k: _stack(v) if v else state[k] for k, v in new.items()}
-    return lm_logits(params, x, cfg), out
+    return lm_logits(params, x, cfg, **_head_kw(shards, _head_name(cfg), mesh)), out

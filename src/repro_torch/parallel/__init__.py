@@ -1,20 +1,34 @@
 """Port of ``repro/parallel``: the device mesh, the sharding rules and the
-collectives of data-parallel adaptive sampling and serving over
-``torch.distributed``.
+collectives over ``torch.distributed``.
 
 ``Mesh`` and ``init_mesh`` (``parallel/mesh.py``) stand in for
-``jax.sharding.Mesh``; ``sharding.py`` says which rows of each leaf a
-rank owns; ``collectives.py`` holds the O(B) error combine, the O(1)
-loop-control reduction, the row gather and the serve loop's gathers of
-bookkeeping and retired rows. The reference's ``pipeline.py`` and its
-tensor-parallel rules are not ported yet (ROADMAP A11, the LM half).
+``jax.sharding.Mesh``; ``sharding.py`` holds the rows of each leaf a rank
+owns in data-parallel sampling and serving, and the language models'
+rules (``param_shardings``, ``kv_cache_spec``, ``kv_cache_sharding``):
+which block of each parameter and decode cache a rank holds under a
+``("data", "model")`` mesh; ``collectives.py`` the O(B) error combine,
+the O(1) loop-control reduction, the row and bookkeeping gathers of
+sampling and serving, and the LM's model-axis sums and gathers and
+``flash_decode``. The reference's ``pipeline.py`` is not ported yet
+(ROADMAP A11 (ii)).
 """
 
+from repro_torch.parallel.collectives import (
+    all_gather_dim,
+    all_reduce_sum,
+    flash_decode,
+    reduce_scatter_dim,
+)
 from repro_torch.parallel.mesh import Mesh, init_mesh
 from repro_torch.parallel.sharding import (
+    MODEL_AXIS,
+    ParamSharding,
     RowSharding,
     batch_sharding,
     data_axes,
+    kv_cache_sharding,
+    kv_cache_spec,
+    param_shardings,
     replicated,
     sample_state_shardings,
     serving_loop_shardings,
@@ -22,7 +36,8 @@ from repro_torch.parallel.sharding import (
 )
 
 __all__ = [
-    "Mesh", "RowSharding", "batch_sharding", "data_axes", "init_mesh",
-    "replicated", "sample_state_shardings", "serving_loop_shardings",
-    "solver_carry_shardings",
+    "MODEL_AXIS", "Mesh", "ParamSharding", "RowSharding", "all_gather_dim", "all_reduce_sum",
+    "batch_sharding", "data_axes", "flash_decode", "init_mesh", "kv_cache_sharding",
+    "kv_cache_spec", "param_shardings", "reduce_scatter_dim", "replicated",
+    "sample_state_shardings", "serving_loop_shardings", "solver_carry_shardings",
 ]

@@ -12,15 +12,25 @@ shard i are [i·B/n, (i+1)·B/n), with i this rank's index over the data
 axes, major to minor, which is where the reference's ``PartitionSpec``
 puts them.
 
-The LM's rules, ``param_shardings`` and ``kv_cache_spec``/
-``kv_cache_sharding``, are not ported yet (ROADMAP A11, the LM half).
+The LM's rules are the reference's, verbatim and in its order: a leaf's
+path is matched against ``_RULES`` (the MoE ``mlp/(w_in|w_gate)$`` rule
+comes first and also decides dense MLPs, whose stacked (R, E, F) leaves
+it shards on F), each dimension takes the first candidate axis whose
+size divides it, and a leaf no rule names is replicated. A spec is a
+tuple with one entry a dimension, as a ``PartitionSpec``: None, an axis
+name, or a tuple of names (major to minor). ``param_shardings`` returns
+a tree of ``ParamSharding``: the spec and the mesh, which give a leaf's
+local shape and this rank's slice of a full tensor. A ``Mesh`` without
+a ``DeviceMesh`` is enough to read them. Running parameters sharded over
+a data axis (``fsdp=True``) is the training slice's (ROADMAP A11 (i)).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+import re
+from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -171,3 +181,311 @@ def serving_loop_shardings(mesh: Mesh, batch: int, state_ndim: int, *,
     carry = solver_carry_shardings(mesh, batch, state_ndim, per_slot_keys=per_slot_keys,
                                    cond=cond, tolerances=tolerances, telemetry=telemetry)
     return carry, replicated(mesh)
+
+
+# --------------------------------------------------------------------------
+# the language models' rules (reference :25-:215)
+# --------------------------------------------------------------------------
+
+MODEL_AXIS = "model"
+
+#: (path regex, per-dimension candidate axes), most specific first; see the
+#: module docstring and the reference (:38) for the candidates' meaning
+_RULES: Sequence[Tuple[str, Sequence[Sequence[Optional[str]]]]] = (
+    # --- MoE experts: prefer expert sharding, fall back to ffn dim -----
+    (r"mlp/(w_in|w_gate)$", [["expert_or_none"], [None], ["model_if_expert_failed"]]),
+    (r"mlp/w_out$", [["expert_or_none"], ["model_if_expert_failed"], [None]]),
+    (r"mlp/router$", [[None], [None]]),
+    (r"shared/(w_in|w_gate)$", [[None], [MODEL_AXIS]]),
+    (r"shared/w_out$", [[MODEL_AXIS], [None]]),
+    # --- attention ------------------------------------------------------
+    (r"mixer/wq$", [[None], [MODEL_AXIS], [None]]),
+    (r"mixer/w[kv]$", [[None], [MODEL_AXIS], [None]]),
+    (r"mixer/wo$", [[MODEL_AXIS], [None], [None]]),
+    (r"mixer/b[qkv]$", [[MODEL_AXIS], [None]]),
+    # --- mamba ------------------------------------------------------------
+    (r"mixer/in_[zx]$", [[None], [MODEL_AXIS]]),
+    (r"mixer/in_(B|C|dt)$", [[None], [None]]),
+    (r"mixer/conv_x$", [[None], [MODEL_AXIS]]),
+    (r"mixer/conv_[BC]$", [[None], [None]]),
+    (r"mixer/(A_log|D|dt_bias)$", [[MODEL_AXIS]]),
+    (r"mixer/out$", [[MODEL_AXIS], [None]]),
+    # --- dense MLP ---------------------------------------------------------
+    (r"mlp/(w_in|w_gate)$", [[None], [MODEL_AXIS]]),
+    (r"mlp/w_out$", [[MODEL_AXIS], [None]]),
+    # --- norms & everything small -----------------------------------------
+    (r"norm", [[None]] * 4),
+)
+
+
+def _embed_spec(path: str, shape, msize: int) -> Optional[tuple]:
+    """Vocab-sharded embedding and head specs, by ndim (a codebook model
+    adds a leading codebook dim); None for any other leaf."""
+    def vm(d):
+        return MODEL_AXIS if shape[d] % msize == 0 else None
+
+    if re.search(r"(^|/)embed$", path):
+        if len(shape) == 2:   # (V, E)
+            return (vm(0), None)
+        if len(shape) == 3:   # (K, V, E)
+            return (None, vm(1), None)
+    if re.search(r"(^|/)lm_head$", path):
+        if len(shape) == 2:   # (E, V)
+            return (None, vm(1))
+        if len(shape) == 3:   # (K, E, V)
+            return (None, None, vm(2))
+    return None
+
+
+def _path_str(path) -> str:
+    """A tree path (a sequence of keys) as the rules' "a/b/c"."""
+    return "/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)
+
+
+def _spec_for(path: str, shape: Tuple[int, ...], mesh, num_experts: Optional[int]) -> tuple:
+    """The spec of the leaf at ``path`` of ``shape`` (reference :88). A
+    stacked block leaf's leading repeat axis is the rule's offset; a leaf
+    of fewer dims than its rule takes the rule's last dims."""
+    msize = mesh.shape.get(MODEL_AXIS, 1)
+
+    es = _embed_spec(path, shape, msize)
+    if es is not None:
+        return es
+
+    for pat, dims in _RULES:
+        if re.search(pat, path):
+            offset = len(shape) - len(dims)
+            if offset < 0:
+                dims = dims[-len(shape):]
+                offset = 0
+            spec: list = [None] * len(shape)
+            expert_sharded = False
+            for i, cands in enumerate(dims):
+                dim = offset + i
+                for cand in cands:
+                    if cand is None:
+                        break
+                    if cand == "expert_or_none":
+                        if num_experts and shape[dim] == num_experts and shape[dim] % msize == 0:
+                            spec[dim] = MODEL_AXIS
+                            expert_sharded = True
+                        break
+                    if cand == "model_if_expert_failed":
+                        if not expert_sharded and shape[dim] % msize == 0:
+                            spec[dim] = MODEL_AXIS
+                        break
+                    if cand == "vocab_model":
+                        if shape[dim] % msize == 0:
+                            spec[dim] = MODEL_AXIS
+                        break
+                    if shape[dim] % mesh.shape.get(cand, 1) == 0:
+                        spec[dim] = cand
+                        break
+            return tuple(spec)
+    return ()  # replicate by default
+
+
+def _spec_axes(entry) -> Tuple[str, ...]:
+    """The axes of one spec entry: () for None, (name,) or the tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ParamSharding:
+    """How one parameter leaf lies over ``mesh``: ``spec`` has an entry a
+    dimension (missing trailing entries are None). Dimension d is cut
+    into ``n`` equal blocks over the axes of its entry, and this rank
+    holds block ``mesh.index(axes)``."""
+
+    mesh: Mesh
+    spec: tuple
+
+    def entry(self, dim: int):
+        return self.spec[dim] if dim < len(self.spec) else None
+
+    def axes(self) -> Tuple[str, ...]:
+        """Every axis the leaf is sharded over."""
+        return tuple(a for e in self.spec for a in _spec_axes(e))
+
+    def sharded_dim(self, axis: str = MODEL_AXIS) -> Optional[int]:
+        """The dimension sharded over ``axis``, or None."""
+        for d, e in enumerate(self.spec):
+            if axis in _spec_axes(e):
+                return d
+        return None
+
+    def _block(self, dim: int, size: int) -> slice:
+        axes = _spec_axes(self.entry(dim))
+        if not axes:
+            return slice(None)
+        n = math.prod(self.mesh.shape[a] for a in axes)
+        if size % n:
+            raise ValueError(f"dim {dim} of size {size} does not split into {n} blocks")
+        i, b = self.mesh.index(axes), size // n
+        return slice(i * b, (i + 1) * b)
+
+    def local_shape(self, shape) -> tuple:
+        """This rank's shape of a leaf whose full shape is ``shape``."""
+        out = []
+        for d, size in enumerate(shape):
+            axes = _spec_axes(self.entry(d))
+            out.append(size // math.prod(self.mesh.shape[a] for a in axes) if axes else size)
+        return tuple(out)
+
+    def index(self, shape) -> tuple:
+        """The slices that cut this rank's block out of a full leaf."""
+        return tuple(self._block(d, size) for d, size in enumerate(shape))
+
+    def local(self, t: Tensor) -> Tensor:
+        """This rank's block of the full leaf ``t`` (a view)."""
+        return t[self.index(t.shape)]
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a tree of nested dicts (``path``: the keys)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def param_shardings(params_shapes, mesh: Mesh, num_experts: Optional[int] = None, *,
+                    fsdp: bool = False):
+    """A tree of ``ParamSharding`` matching a tree of tensors (meta tensors
+    do: ``launch/specs.py::abstract_params``) or of shapes (reference
+    :130). ``fsdp=True``: after the tensor-parallel rules, the largest
+    remaining unsharded dim of every ≥2-dim leaf that the data axes'
+    total size divides also shards over the data axes (ZeRO-3 style).
+    The model path does not run such leaves yet (``check_runnable``)."""
+    axes = data_axes(mesh)
+    dsize = math.prod(mesh.shape[a] for a in axes) if axes else 1
+
+    def fn(path, leaf):
+        shape = tuple(getattr(leaf, "shape", leaf))
+        spec = _spec_for(_path_str(path), shape, mesh, num_experts)
+        if fsdp and len(shape) >= 2 and dsize > 1:
+            parts = list(spec) + [None] * (len(shape) - len(spec))
+            cands = sorted((i for i in range(len(shape))
+                            if parts[i] is None and shape[i] % dsize == 0
+                            and shape[i] >= dsize), key=lambda i: -shape[i])
+            if cands:
+                parts[cands[0]] = axes if len(axes) > 1 else axes[0]
+                spec = tuple(parts)
+        return ParamSharding(mesh, spec)
+
+    return tree_map_with_path(fn, params_shapes)
+
+
+def check_runnable(shardings) -> None:
+    """Raise ``NotImplementedError`` for parameters sharded over a data axis
+    (``fsdp``): the model path gathers weights over "model" only; the
+    data-axis all-gathers and reduce-scatters of ZeRO-3 come with the
+    training slice (ROADMAP A11 (i))."""
+    bad = []
+    tree_map_with_path(lambda p, s: bad.append(_path_str(p))
+                        if set(s.axes()) - {MODEL_AXIS} else None, shardings)
+    if bad:
+        raise NotImplementedError(
+            f"parameters sharded over a data axis (fsdp), e.g. {bad[0]}: running them "
+            f"comes with the training slice under a mesh (ROADMAP A11 (i))")
+
+
+def kv_cache_spec(axis_sizes: dict, axes: Tuple[str, ...], batch: int, cache_len: int,
+                  kv_heads: int) -> tuple:
+    """The spec of a (B, S_cache, Kv, Dh) decode cache (reference :173):
+    the batch over the data axes when it divides them; the KV heads over
+    "model" when they divide it, else the cache sequence over "model"
+    (distributed flash-decode); when the batch cannot shard, the
+    sequence over the data axes too (long context at B = 1)."""
+    total = math.prod(axis_sizes[a] for a in axes) if axes else 1
+    msize = axis_sizes.get(MODEL_AXIS, 1)
+    if kv_heads % msize == 0:
+        head_ax, seq_model = MODEL_AXIS, None
+    else:
+        head_ax, seq_model = None, MODEL_AXIS if cache_len % msize == 0 else None
+    if axes and total > 1 and batch % total == 0:
+        return (axes, seq_model, head_ax, None)
+    if axes and total > 1 and cache_len % total == 0:
+        seq_ax = (axes + (MODEL_AXIS,)) if seq_model else axes
+        return (None, seq_ax, head_ax, None)
+    return (None, seq_model, head_ax, None)
+
+
+def kv_cache_sharding(mesh: Mesh, batch: int, cache_len: int, kv_heads: int) -> ParamSharding:
+    """``kv_cache_spec`` on ``mesh``, as a ``ParamSharding`` (reference :201)."""
+    return ParamSharding(mesh, kv_cache_spec(mesh.shape, data_axes(mesh), batch, cache_len,
+                                             kv_heads))
+
+
+def lever_axes(value) -> Tuple[str, ...]:
+    """The mesh axes a lever or a spec entry names: None → (), "a" or
+    "a,b" → ("a", ...), a tuple as it is."""
+    if not value:
+        return ()
+    if isinstance(value, str):
+        return tuple(a for a in value.split(",") if a)
+    return tuple(value)
+
+
+_LEVERS = ("attn_q_seq_shard", "residual_seq_shard", "decode_flash_shard")
+
+
+def check_levers(cfg, mesh: Optional[Mesh]) -> None:
+    """Raise ``ValueError`` for a mesh lever of ``cfg`` that names an axis
+    ``mesh`` lacks, or any lever when no mesh is passed (the reference's
+    sharding constraint and ``shard_map`` fail without a mesh that has the
+    axis). The port splits rows over "model" only, where every rank holds
+    the same activations: ``attn_q_seq_shard`` and ``residual_seq_shard``
+    naming another axis raise too."""
+    for lever in _LEVERS:
+        axes = lever_axes(getattr(cfg, lever))
+        if not axes:
+            continue
+        if mesh is None:
+            raise ValueError(f"{lever}={getattr(cfg, lever)!r} names mesh axes, but no mesh "
+                             f"was passed (mesh=)")
+        missing = [a for a in axes if a not in mesh.axis_names]
+        if missing:
+            raise ValueError(f"{lever} names {missing}, which the mesh over "
+                             f"{mesh.axis_names} lacks")
+        if lever != "decode_flash_shard" and axes != (MODEL_AXIS,):
+            raise ValueError(f"{lever}={getattr(cfg, lever)!r}: the port splits the "
+                             f"sequence over {MODEL_AXIS!r} only (the data axes carry "
+                             f"different rows on each rank)")
+
+
+def model_rank(mesh: Mesh) -> Tuple[int, int]:
+    """(size of "model", this rank's coordinate on it); (1, 0) without it."""
+    if MODEL_AXIS not in mesh.axis_names:
+        return 1, 0
+    return mesh.shape[MODEL_AXIS], mesh.coord(MODEL_AXIS)
+
+
+def split_rows(size: int, n: int, i: int) -> Tuple[int, int]:
+    """Block i of ``size`` rows cut into n blocks of ⌈size/n⌉ (the last
+    ones short or empty): (start, stop)."""
+    block = -(-size // n)
+    start = min(size, i * block)
+    return start, min(size, start + block)
+
+
+def decode_cache_sharding(cfg, mesh: Mesh, batch: int, cache_len: int) -> ParamSharding:
+    """How one (B, S_cache, Kv, Dh) decode cache lies on the port's ranks:
+    ``kv_cache_spec``, except that ``decode_flash_shard`` puts the
+    sequence over its axes (what the reference's ``flash_decode``
+    ``shard_map`` reshards the cache to), with every KV head where the
+    axes include "model" and the batch over the data axes the sequence
+    does not take."""
+    spec = kv_cache_spec(mesh.shape, data_axes(mesh), batch, cache_len, cfg.num_kv_heads)
+    axes = lever_axes(cfg.decode_flash_shard)
+    if axes:
+        b = spec[0] if spec[0] and not set(lever_axes(spec[0])) & set(axes) else None
+        h = None if MODEL_AXIS in axes else spec[2]
+        spec = (b, axes if len(axes) > 1 else axes[0], h, None)
+    sh = ParamSharding(mesh, spec)
+    n = math.prod(mesh.shape[a] for a in lever_axes(sh.entry(1)))
+    if cache_len % n:
+        raise ValueError(f"a cache of {cache_len} slots does not split over the {n} ranks "
+                         f"of {sh.entry(1)!r}")
+    return sh

@@ -320,16 +320,25 @@ def test_init_model_tree_matches_reference_layout(arch):
 
 
 def test_mesh_levers_and_cross_attention_raise():
+    """A mesh lever without a mesh raises ValueError (the reference's
+    sharding constraint has no axis to name without an ambient mesh), in
+    forward, decode and the attention mixer; init_model does not look at
+    the levers."""
     cfg = configs.get_config("olmo-1b").scaled_down()
+    toks = torch.zeros(1, 4, dtype=torch.long)
     for lever in ("attn_q_seq_shard", "residual_seq_shard", "decode_flash_shard"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            tr.init_model(cfg.replace(**{lever: "model"}), device="cpu")
+        lcfg = cfg.replace(**{lever: "model"})
+        params = tr.init_model(lcfg, device="cpu")
+        with pytest.raises(ValueError, match="no mesh"):
+            tr.forward(params, toks, lcfg)
+        with pytest.raises(ValueError, match="no mesh"):
+            tr.init_decode_state(lcfg, 1, 8, device="cpu")
     p = att.init_attention(cfg, "A", torch.Generator().manual_seed(0))
     x = torch.zeros(1, 4, cfg.d_model)
     # a cross-attention layer without its image embeddings raises
     with pytest.raises(ValueError, match="cross_kv"):
         att.attention_forward(p, x, cfg, "X", torch.arange(4)[None])
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(ValueError, match="no mesh"):
         att.attention_forward(p, x, cfg.replace(attn_q_seq_shard="model"), "A",
                               torch.arange(4)[None])
 
