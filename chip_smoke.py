@@ -388,7 +388,8 @@ Phases; any failure exits non-zero before the result line is printed:
              first 4 layers and llama-3.2-vision-90b's 5-layer period
              ((1, 4096), 8 × 4): (a) each unsharded here, its record
              written, the model freed before any spawn; (b) world 1 over
-             NCCL, mesh 1×1, every record bitwise the unsharded one; (c)
+             NCCL in this process (``run_world1``), mesh 1×1, every record
+             bitwise the unsharded one; (c)
              world 2 over gloo, both ranks on this card, mesh 1×2, in one
              spawn that builds and frees the models in turn (gemma3-12b
              decoded again with ``decode_flash_shard="model"``), and (d)
@@ -402,6 +403,28 @@ Phases; any failure exits non-zero before the result line is printed:
              decode step, and the peaks a rank printed with the card.
              ``--only-lm-mesh`` runs the build and this phase alone and
              prints no result line.
+11. training mesh — LM training under a ("data", "model") mesh (fp32,
+             TF32 off, seed 0, the plain attention and SSD, AdamW at
+             phase 7e's lr 3e-4; ``run_train_mesh``): (a) world 1 over
+             NCCL in this process, mesh 1×1, musicgen-medium whole,
+             ``train_loop`` 3 steps of 2 × 512 unsharded and under the
+             mesh: every loss and the final parameters bitwise; (b) world
+             2 over gloo, both ranks on this card, one spawn
+             (``sharded_selftest --train-plan``, ``train_mesh_plan``):
+             musicgen-medium at 24 layers on 1×2 "tp" and "tp" with remat
+             "full", at 4 layers on 2×1 data parallel, "fsdp" and "zero1",
+             3 steps each; gemma3-12b's 6-layer period, mamba2-2.7b's first 8
+             layers and deepseek-moe-16b's first 4 one step each at 1×2;
+             each rank trains the unsharded port first, the ranks at once,
+             as the record: every gradient and new block
+             within the CPU tests' bounds (2e-4·(1 + max|g|); the update's,
+             or 2·lr where ill-conditioned), every step's loss within 1e-5
+             relative, the clip scale the same bits on every rank, remat
+             the same bits as "tp" with a lower peak, fsdp's and zero1's
+             peak a rank below data parallelism's, K3 and K7 launched 0
+             times; the walls, peaks, collectives and MB a step by kind
+             printed with the card. ``--only-train-mesh`` runs the build
+             and this phase alone and prints no result line.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object naming each kernel, and ``{"ok": true, "device": ...}``.
@@ -573,6 +596,23 @@ VLM_PARAMS, MUSICGEN_PARAMS = 6_378_577_920, 1_384_418_304
 VLM_PREFILL, MUSICGEN_PREFILL = (1, 4096), (4, 1500)
 VLM_AUDIO_SERVE = (4, 16, 16)
 MUSICGEN_TRAIN = dict(steps=20, batch=2, seq=512, lr=3e-4)
+#: phase 11, LM training under a ("data", "model") mesh: musicgen-medium at full
+#: width, steps of (batch, seq) at phase 7e's lr (constant in the world-2 runs)
+TRAIN_MESH_ARCH, TRAIN_MESH_STEPS, TRAIN_MESH_SHAPE, TRAIN_MESH_LR = (
+    "musicgen-medium", 3, (2, 512), MUSICGEN_TRAIN["lr"])
+#: the depths of phase 11's world-2 musicgen runs (of its 48 layers): the 1×2
+#: "tp" runs, and the 2×1 runs (data parallel, fsdp, zero1). Every collective of
+#: a world-2 run is staged through the host by gloo (0.74-0.83 GB/s a rank in
+#: phase 10) and every unsharded record through host memory, so the phase's
+#: wall grows with depth: at 48 and 12 layers it took 157-243 s of the script's
+#: 1200 (whole runs 884-1091 s)
+TRAIN_MESH_TP_LAYERS, TRAIN_MESH_DATA_LAYERS = 24, 4
+#: phase 11's other mixers at full width, one step at 1×2: (arch, layers); gemma3's
+#: one period of 5 "L" and an "A", mamba2's first 8 "M" layers, deepseek's first 4
+#: ("A" + "E", 64 experts, 32 a rank)
+TRAIN_MESH_MIXERS = (("gemma3-12b", 6), ("mamba2-2.7b", 8), ("deepseek-moe-16b", 4))
+#: seconds each phase-11 selftest may take
+TRAIN_MESH_TIMEOUT_S = 360
 #: one train step under remat "full" against "none": the same products on
 #: the same inputs, so the same loss up to this relative difference
 REMAT_LOSS_RTOL = 1e-6
@@ -4290,6 +4330,25 @@ def lm_mesh_plan(runs, mesh, records: dict, out_dir: str, *, flash: bool = True)
     return plan
 
 
+def run_world1(run, plan: list, what: str) -> dict:
+    """A selftest plan at world 1 over NCCL in this process
+    (``sharded_selftest.run_lm`` or ``run_train``: at world 1 the rank runs
+    in the caller's process, which spares a new process seconds of
+    reaching the card); fails on a raise or a failed check."""
+    t0 = time.perf_counter()
+    try:
+        res = run(1, plan, device="cuda", backend="nccl")
+    except Exception as e:  # noqa: BLE001  (any failure of the run fails the phase)
+        fail(f"{what} at world 1 over NCCL raised {type(e).__name__}: {e}")
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"  {what} world 1 over nccl (in this process), ok {res['ok']} in "
+          f"{res['wall_s']:.1f} s")
+    if not res["ok"]:
+        print(json.dumps(res, default=str)[:4000])
+        fail(f"{what} at world 1 over NCCL failed its checks")
+    return res
+
+
 def run_lm_selftest(world: int, backend: str, plan: list, out_dir: str) -> dict:
     """The sharded selftest's LM check in a subprocess: ``world`` ranks over
     ``backend`` on this card, one spawn for the whole ``plan``."""
@@ -4319,8 +4378,9 @@ def run_lm_mesh(dev, card: str) -> dict:
     (fp32, TF32 off, seeded weights). (a) Each model of ``LM_MESH_RUNS``
     and ``LM_ROWS_RUN`` unsharded here (``sharded_selftest.lm_record``:
     the prefill through K3/K7, then greedy decode steps), its record
-    written and the model freed before any spawn; (b) world 1 over NCCL,
-    mesh (1, 1): every record bitwise the unsharded one; (c) world 2 over
+    written and the model freed before any spawn; (b) world 1 over NCCL in
+    this process (``run_world1``), mesh (1, 1): every record bitwise the
+    unsharded one; (c) world 2 over
     gloo with both ranks on this card, mesh (1, 2), in one spawn that
     builds and frees the models in turn (gemma3-12b decoded a second time
     with decode_flash_shard="model"), and (d) ``LM_ROWS_RUN`` on mesh
@@ -4367,8 +4427,8 @@ def run_lm_mesh(dev, card: str) -> dict:
         torch.cuda.empty_cache()
     held_below_1gib(dev, "the spawns")
 
-    one = run_lm_selftest(1, "nccl", lm_mesh_plan(LM_MESH_RUNS, (1, 1), records, out_dir,
-                                                  flash=False), out_dir)
+    one = run_world1(st.run_lm, lm_mesh_plan(LM_MESH_RUNS, (1, 1), records, out_dir,
+                                             flash=False), "LM selftest")
     for r in one["lm"]:
         c = r["compare"]
         print(f"  world 1 (NCCL) {r['arch']}: bitwise {c['bitwise']}, prefill err "
@@ -4378,6 +4438,7 @@ def run_lm_mesh(dev, card: str) -> dict:
             fail(f"world 1: {r['arch']} under the (1, 1) mesh is not the unsharded record bitwise")
     plan2 = (lm_mesh_plan(LM_MESH_RUNS, (1, 2), records, out_dir)
              + lm_mesh_plan((LM_ROWS_RUN,), (2, 1), records, out_dir))
+    held_below_1gib(dev, "the world-2 spawn")
     two = run_lm_selftest(2, "gloo", plan2, out_dir)
     out = {"world1": one, "world2": two, "unsharded": {}}
     for r in two["lm"]:
@@ -4426,6 +4487,150 @@ def run_lm_mesh(dev, card: str) -> dict:
     return out
 
 
+def train_mesh_plan() -> list:
+    """Phase 11's world-2 training plan (``sharded_selftest --train-plan``):
+    musicgen-medium at ``TRAIN_MESH_TP_LAYERS`` layers on 1×2 "tp" (kept)
+    and with ``remat="full"`` (its bits, a lower peak), at
+    ``TRAIN_MESH_DATA_LAYERS`` layers on 2×1 plain data parallelism,
+    "fsdp" and "zero1"; then each of ``TRAIN_MESH_MIXERS`` one step at 1×2,
+    gradients only in its record. Every run against the unsharded port
+    trained by each rank, the ranks at once, on this card."""
+    B, S = TRAIN_MESH_SHAPE
+    base = dict(arch=TRAIN_MESH_ARCH, steps=TRAIN_MESH_STEPS, batch=B, seq=S,
+                lr=TRAIN_MESH_LR, reference="self")
+    tp = dict(base, mesh=[1, 2], layers=TRAIN_MESH_TP_LAYERS)
+    cut = dict(base, mesh=[2, 1], layers=TRAIN_MESH_DATA_LAYERS)
+    plan = [dict(tp, layout="tp", keep=True),
+            dict(tp, layout="tp", remat="full", same_bits_as=0),
+            dict(cut, layout="tp"), dict(cut, layout="fsdp"), dict(cut, layout="zero1")]
+    for arch, layers in TRAIN_MESH_MIXERS:
+        plan.append(dict(arch=arch, layers=layers, mesh=[1, 2], layout="tp", steps=1, batch=B,
+                         seq=S, lr=TRAIN_MESH_LR, reference="self", grads_only=True))
+    return plan
+
+
+def run_train_selftest(world: int, backend: str, plan: list, out_dir: str) -> dict:
+    """The sharded selftest's training plan in a subprocess: ``world`` ranks
+    over ``backend`` on this card, one spawn for the whole ``plan``."""
+    path = os.path.join(out_dir, f"train-plan-{world}-{backend}.json")
+    with open(path, "w") as f:
+        json.dump(plan, f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.sharded_selftest", "--device", "cuda",
+           "--backend", backend, "--world", str(world), "--train-plan", path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=TRAIN_MESH_TIMEOUT_S)
+    line = (proc.stdout.strip().splitlines() or ["{}"])[-1]
+    wall = time.perf_counter() - t0
+    print(f"  training selftest world {world} over {backend}, exit {proc.returncode} in "
+          f"{wall:.1f} s")
+    if proc.returncode != 0:
+        print(line[:4000])
+        print(proc.stderr[-6000:], file=sys.stderr)
+        fail(f"the training selftest at world {world} over {backend} failed")
+    res = json.loads(line)
+    res["wall_s"] = wall
+    print(f"  the spawn {res['seconds']:.1f} s of it; a run's wall on rank 0 (its unsharded "
+          f"record included): {[round(r['ranks'][0]['run_s'], 1) for r in res['train']]} s")
+    return res
+
+
+def per_step_counts(counts: list) -> str:
+    """A steady step's collectives by kind (the last step's): calls and MB."""
+    last = counts[-1]
+    return ", ".join(f"{k} {c} ({b / 1e6:.1f} MB)" for k, (c, b) in sorted(last.items()))
+
+
+def run_train_mesh(dev, card: str) -> dict:
+    """Phase 11: LM training under a ("data", "model") mesh (fp32, TF32 off,
+    seeded weights, the plain attention and SSD: no kernel has a backward).
+    (a) World 1 over NCCL in this process, mesh 1×1: musicgen-medium
+    whole, ``train_loop``
+    for ``TRAIN_MESH_STEPS`` steps of ``TRAIN_MESH_SHAPE`` unsharded and
+    under the mesh, every loss and the final parameters bitwise. (b) World
+    2 over gloo, both ranks on this card (``train_mesh_plan``): every
+    gradient and new block within the CPU tests' bounds of the unsharded
+    port's, every step's loss within 1e-5 relative, the clip scale the same
+    bits on every rank; remat "full" the same bits as "tp" with a lower
+    peak; fsdp's and zero1's peak a rank below plain data parallelism's;
+    K3 and K7 launched 0 times. Prints the walls (first and steady), peaks
+    against the unsharded run's, collectives and MB a step by kind, and
+    the errors, each beside the card."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="train_mesh_")
+    held_below_1gib(dev, "the training spawns")
+    B, S = TRAIN_MESH_SHAPE
+    from repro_torch.launch import sharded_selftest as st
+
+    one = run_world1(st.run_train, [dict(arch=TRAIN_MESH_ARCH, kind="train_loop", mesh=[1, 1],
+                                         steps=TRAIN_MESH_STEPS, batch=B, seq=S,
+                                         lr=TRAIN_MESH_LR)], "training selftest")
+    r = one["train"][0]
+    print(f"  [{card}] world 1 (NCCL) {TRAIN_MESH_ARCH} train_loop mesh 1x1, {TRAIN_MESH_STEPS} "
+          f"steps of {B} x {S}: losses {r['losses']} (unsharded {r['plain_losses']}), losses "
+          f"bitwise {r['losses_bitwise']}, parameters bitwise {r['params_bitwise']} (max abs "
+          f"err {r['max_abs_err']:.3e}); step walls {[round(t, 3) for t in r['step_s']]} s "
+          f"(unsharded {[round(t, 3) for t in r['plain_step_s']]} s); "
+          f"loops {r['plain_s']:.1f} s unsharded, {r['mesh_s']:.1f} s under the mesh; peak "
+          f"{r['peak_gib']:.2f} GiB")
+    if not (one["ok"] and r["losses_bitwise"] and r["params_bitwise"]):
+        fail("world 1: train_loop under the (1, 1) mesh is not the unsharded loop bitwise")
+    held_below_1gib(dev, "the world-2 training spawn")
+    two = run_train_selftest(2, "gloo", train_mesh_plan(), out_dir)
+    runs = two["train"]
+    for run in runs:
+        ranks = run["ranks"]
+        label = (f"world 2 (gloo) {run['arch']} ({run['layers']} layers) mesh "
+                 f"{run['mesh'][0]}x{run['mesh'][1]} {run['layout']}"
+                 + (f" remat={run['remat']}" if run["remat"] != "none" else ""))
+        hold = [p["hold"] for p in ranks]
+        new = ("not held (a gradients-only record)" if hold[0]["new_leaf"] is None else
+               f"{max(h['new_err'] for h in hold):.3e} "
+               f"({max(h['new_ratio'] for h in hold):.3e})")
+        same = ("; the same bits as the kept run: " + str(all(p["same_bits"] for p in ranks))
+                if "same_bits" in ranks[0] else "")
+        print(f"  {label}: loss {run['loss']:.6f} (max rel err "
+              f"{max(max(p['loss_rel']) for p in ranks):.2e} over {len(run['losses'])} steps), "
+              f"clip {run['clip_scale']:.6f} (bits agree {run['ranks_agree']}); gradients max "
+              f"abs err {max(h['grad_err'] for h in hold):.3e} "
+              f"({max(h['grad_ratio'] for h in hold):.3e} of the bound, {hold[0]['grad_leaf']}), "
+              f"parameters {new}{same}; K3/K7 {[p['kernel_launches'] for p in ranks]}")
+        walls = [p["step_s"] for p in ranks]
+        print(f"  [{card}] {label}: step walls a rank {[[round(t, 3) for t in w] for w in walls]} s "
+              f"(first, then steady; unsharded {[round(t, 3) for t in ranks[0]['reference_step_s']]} "
+              f"s); peak {[round(p['peak_gib'], 2) for p in ranks]} GiB a rank (unsharded "
+              f"{ranks[0]['reference_peak_gib']:.2f}); built in "
+              f"{[round(p['build_s'], 1) for p in ranks]} s (the unsharded record "
+              f"{[round(p['reference_wall_s'] or 0.0, 1) for p in ranks]} s); parameters a rank "
+              f"{ranks[0]['params_local']:,}; a step's collectives a rank: "
+              f"{per_step_counts(ranks[0]['counts'])}")
+        if not run["ok"]:
+            fail(f"{label}: {[{k: p.get(k) for k in ('hold', 'loss_rel', 'first', 'same_bits')} for p in ranks]}")
+    dp, fsdp, zero1 = runs[2], runs[3], runs[4]
+    for name, z in (("fsdp", fsdp), ("zero1", zero1)):
+        for a, b in zip(z["ranks"], dp["ranks"]):
+            if not a["peak_gib"] < b["peak_gib"]:
+                fail(f"{name}'s peak {a['peak_gib']:.2f} GiB a rank is not below data "
+                     f"parallelism's {b['peak_gib']:.2f} GiB at 2x1")
+    if not two["ok"]:
+        fail("the world-2 training selftest did not pass its own checks")
+    out = {"world1": one, "world2": two, "phase_s": time.perf_counter() - t_phase}
+    print(f"  [{card}] training mesh phase {out['phase_s']:.1f} s (selftests "
+          f"{one['wall_s']:.1f} s, {two['wall_s']:.1f} s)")
+    return out
+
+
+def train_mesh_launches(rec: dict, kernel: str) -> dict:
+    """A kernel's launches in phase 11 (0: training runs the plain paths)."""
+    return {"launched_as": "none: LM training under a (data, model) mesh runs the plain "
+                           "attention and SSD (no kernel has a backward; phase 11)",
+            "launches_per_rank": [p["kernel_launches"][kernel] for r in rec["world2"]["train"]
+                                  for p in r["ranks"]]}
+
+
 def lm_mesh_launches(rec: dict, kernel: str) -> dict:
     """A kernel's per-rank launches in phase 10, by run."""
     out = {}
@@ -4465,6 +4670,7 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     only_lm_mesh = "--only-lm-mesh" in sys.argv[1:]
+    only_train_mesh = "--only-train-mesh" in sys.argv[1:]
 
     # ------------------------------------------------------------ 1. build
     phase("build")
@@ -4480,6 +4686,13 @@ def main() -> None:
                               text=True).stdout.strip()
         phase("the LMs served under a (data, model) mesh (only this phase)")
         print(json.dumps({"lm_mesh_partial": run_lm_mesh(dev, card)}, default=str)[:20000])
+        return
+    if only_train_mesh:  # the same for phase 11
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True).stdout.strip()
+        phase("LM training under a (data, model) mesh (only this phase)")
+        run_train_mesh(dev, card)
         return
 
     # ---------------------------------------------------------- 2. kernels
@@ -5306,6 +5519,11 @@ def main() -> None:
           "flash-decode, world 1 NCCL and world 2 gloo")
     lm_mesh = run_lm_mesh(dev, card)
 
+    # ------------------------------------------------------- 11. training mesh
+    phase("LM training under a (data, model) mesh: world 1 NCCL train_loop bitwise, world 2 "
+          "gloo tp / remat / data parallel / fsdp / zero1 and the other mixers")
+    train_mesh = run_train_mesh(dev, card)
+
     def device_resident_launches(name):
         """A kernel's launches in phase 6c's device-resident drain."""
         got = dsrv["launches"]
@@ -5421,6 +5639,7 @@ def main() -> None:
                                     "deepseek-moe-16b's 4 layers (8 of 16), "
                                     "llama-3.2-vision-90b's period (32 of 64, 4 of 8)",
                      "launches_per_rank": lm_mesh_launches(lm_mesh, "K3")},
+         "train_mesh": train_mesh_launches(train_mesh, "K3"),
          "attention_lm": {"launched_as": "every attention layer of gemma3-12b's (1, 4096) "
                                          "prefill (phase 7b): causal with window 1024 on the "
                                          "40 'L' layers, causal on the 8 'A' layers, GQA 16:8, "
@@ -5532,6 +5751,7 @@ def main() -> None:
          "lm_mesh": {"launched_as": "every layer of mamba2-2.7b's (4, 2048) prefill on each "
                                     "rank's heads (40 of 80 at mesh 1x2; phase 10)",
                      "launches_per_rank": lm_mesh_launches(lm_mesh, "K7")},
+         "train_mesh": train_mesh_launches(train_mesh, "K7"),
          "max_abs_err": ssd_err[SSD_SHAPES[0]],
          "design": "mma.sync 3xTF32; C·Bᵀ once a group; sequence ranges",
          "cuda_kernels_per_call": lm["k7_cuda_kernels_per_call"],

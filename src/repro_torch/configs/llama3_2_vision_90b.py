@@ -5,8 +5,8 @@ The ViT vision tower is the reference's stub: callers pass precomputed
 patch embeddings (B, num_patches, vision_dim) as ``cross_embeds``; the
 decoder's cross-attention layers (k/v projected from vision_dim) are
 implemented. The whole stack (87.6 B parameters, 326.5 GiB in fp32)
-needs ROADMAP A11's sharding; one 5-layer period (``replace(num_layers=5)``,
-6.38 B) fits one card.
+needs a mesh of several cards (``init_model(mesh=)``); one 5-layer
+period (``replace(num_layers=5)``, 6.38 B) fits one card.
 
 Port of ``repro/configs/llama3_2_vision_90b.py``.
 """

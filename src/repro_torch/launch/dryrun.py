@@ -27,7 +27,8 @@ writes one JSON record a combination to ``--out`` (default
 
 Every layer runs, so the reference's depth extrapolation of XLA's
 scanned loops (its ``dryrun.py:78-121``) has no counterpart. The
-production mesh (``--multi-pod``) waits for ROADMAP A11.
+production mesh (``--multi-pod``) waits for the dry run under a mesh
+(ROADMAP A11 (iii)).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out /tmp/dryrun
@@ -204,10 +205,11 @@ def main(argv=None) -> None:
     ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     ap.add_argument("--out", default=OUT_DIR, help="directory of the JSON records")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the production mesh: waits for ROADMAP A11")
+                    help="the production mesh: waits for ROADMAP A11 (iii)")
     args = ap.parse_args(argv)
     if args.multi_pod:
-        raise SystemExit("--multi-pod needs the production mesh, which waits for ROADMAP A11")
+        raise SystemExit("--multi-pod needs the production mesh: the dry run under a mesh "
+                         "waits for ROADMAP A11 (iii)")
     if not args.all and not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
     combos = ([(a, s) for a in ARCH_IDS for s in SHAPES] if args.all

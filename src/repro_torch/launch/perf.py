@@ -13,7 +13,8 @@ when the file already holds a baseline record.
 
 The reference's variants that need a mesh (sequence-sharded attention,
 sequence parallelism, padded experts for sharding, FSDP, ZeRO-1, flash
-decode over a mesh axis) raise, naming ROADMAP A11.
+decode over a mesh axis) raise: they wait for the dry run under a mesh
+(ROADMAP A11 (iii); the layouts themselves run, ``launch/specs.py``).
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ def run_variant(arch: str, shape_name: str, variant: str, *, out_dir: str = OUT_
     """One variant's dry run and roofline, appended to the combination's
     JSONL; ``cfg`` replaces the registry's config (tests)."""
     if variant in MESH_VARIANTS:
-        raise NotImplementedError(f"variant {variant!r} needs a device mesh, which waits for "
-                                  f"ROADMAP A11")
+        raise NotImplementedError(f"variant {variant!r} is a dry run under a device mesh, "
+                                  f"which waits for ROADMAP A11 (iii)")
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; have {sorted(VARIANTS)}")
     rec = run_one(arch, shape_name, save=False, verbose=False, cfg=cfg, **VARIANTS[variant])

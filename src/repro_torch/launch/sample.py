@@ -32,9 +32,10 @@ batch 512, on meta tensors (no card, nothing drawn), under
 bytes from ``launch/dryrun.py::count``, and the policy's dtypes with the
 weight and state bytes they imply (``_precision_record``, one device).
 The record goes to ``--out`` (default ``experiments/dryrun_torch/``).
-The whole sharded loop (``--dryrun-loop``), the pipelined forward
-(``--pipeline``) and the two-pod mesh (``--multi-pod``) wait for ROADMAP
-A11 and say so when asked for.
+The whole sharded loop (``--dryrun-loop``) and the two-pod mesh
+(``--multi-pod``) wait for the dry run under a mesh (ROADMAP A11 (iii)),
+the pipelined forward (``--pipeline``) for ``parallel/pipeline.py``
+(A11 (ii)); each says so when asked for.
 
   PYTHONPATH=src python -m repro_torch.launch.sample --dryrun --precision bf16_full
 """
@@ -271,13 +272,16 @@ def main(argv=None) -> list:
     ap.add_argument("--dryrun", action="store_true",
                     help="count one iteration at --batch (default 512) on meta tensors")
     ap.add_argument("--out", default=DRYRUN_DIR, help="the dry run's record directory")
-    for flag in ("--dryrun-loop", "--pipeline", "--multi-pod"):
-        ap.add_argument(flag, action="store_true", help="waits for ROADMAP A11")
+    waits = {"dryrun_loop": "the dry run under a mesh, ROADMAP A11 (iii)",
+             "pipeline": "parallel/pipeline.py, ROADMAP A11 (ii)",
+             "multi_pod": "the dry run under a mesh, ROADMAP A11 (iii)"}
+    for flag, what in waits.items():
+        ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
+                        help=f"waits for {what}")
     args = ap.parse_args(argv)
-    for flag in ("dryrun_loop", "pipeline", "multi_pod"):
+    for flag, what in waits.items():
         if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} needs a device mesh, which waits "
-                             f"for ROADMAP A11")
+            raise SystemExit(f"--{flag.replace('_', '-')} waits for {what}")
     if args.dryrun:
         return [dryrun(args.batch or 512, args.precision, arch=args.arch or "highres_dit",
                        out_dir=args.out)]

@@ -76,12 +76,34 @@ prefill, decode, record, out; and layers, a depth cut; tol, the bound;
 also_flash, a second decode with the lever) in one spawn, building and
 freeing the models in turn.
 
+``--train-plan FILE`` runs a JSON list of LM training runs under a mesh
+(keys: arch, reduced, layers, mesh, layout ("tp", "fsdp", "zero1";
+``launch.specs.train_layout``), remat, steps, batch, seq, lr, seed;
+record, the path of an unsharded record from ``train_record``, or
+reference "self": each rank first trains the unsharded port itself, on
+its device, all ranks at once, kept a key at a time; grads_only, that
+record the first batch's gradients alone; keep, to hold the run's
+first-step blocks for a later run's same_bits_as (its index); kind "train_loop":
+``train_loop`` unsharded, then under the mesh, every loss and the final
+shard compared bit for bit). Each rank builds its shard
+(``init_model(mesh=)``, seed 0; the ZeRO-3 layout's data blocks cut
+from it), trains ``steps`` steps of ``synth_batch`` (every rank the same
+batch, its rows kept) with ``AdamW`` at a constant lr, and reports the
+first step's loss, ce, aux and clip scale (with its bits), each leaf's
+gradient block and new block against the record's (the CPU tests'
+bounds: 2e-4·(1 + max|g|); the update 2e-4·(1 + max|update|) where
+|g|·clip > ``WELL_CONDITIONED``, else 2·lr), every step's loss (within
+``TRAIN_LOSS_RTOL``), its wall, the collectives and bytes of each step
+by kind, the peak (the card) and the run's wall (``run_s``). The result line adds the cross-rank
+checks: every rank's losses and clip scale the same bits.
+
 Prints one JSON line with the results; exits non-zero on any failure.
 
   PYTHONPATH=src python -m repro_torch.launch.sharded_selftest --device cpu --world 4
   PYTHONPATH=src python -m repro_torch.launch.sharded_selftest --device cuda --backend nccl --world 1 --arch highres_dit
   PYTHONPATH=src python -m repro_torch.launch.sharded_selftest --device cuda --backend gloo --world 2 --arch highres_dit
   PYTHONPATH=src python -m repro_torch.launch.sharded_selftest --device cpu --world 2 --lm-arch gemma3-12b --lm-reduced --mesh 1,2
+  PYTHONPATH=src python -m repro_torch.launch.sharded_selftest --device cpu --world 2 --train-plan plan.json
 """
 
 from __future__ import annotations
@@ -118,6 +140,12 @@ SERVE_SLOTS, SERVE_REQUESTS, SERVE_HORIZON = 8, 16, 4
 SERVE_TIERS = ("draft", "standard", "high_fidelity")
 #: the LM check's logits bound, times max|logit| (chip_smoke.py's LM_LOGIT_TOL)
 LM_TOL = 1e-3
+#: the training check's bounds, tests/test_torch_lm_train.py's: a step's loss
+#: (relative), a gradient leaf (times 1 + max|g|), an update (times 1 + max|update|
+#: where the clipped gradient is above WELL_CONDITIONED, else 2·lr)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 2e-4
+WELL_CONDITIONED = 1e3 * 1e-8
 
 
 def free_port() -> int:
@@ -131,9 +159,18 @@ def spawn_ranks(fn, world: int, *args) -> list:
     ranks and return what each pickled to ``out_dir/rank{r}.pkl`` (a file
     each: results through a pipe would block a rank until the parent
     reads, and the parent reads after every rank has ended). Raises if a
-    rank raises."""
+    rank raises. At world 1 the one rank runs in this process (a new
+    process takes seconds to reach the card); the thread count
+    ``init_rank`` sets is restored after."""
     with tempfile.TemporaryDirectory() as out_dir:
-        mp.spawn(fn, args=(world, free_port(), out_dir, *args), nprocs=world)
+        if world == 1:
+            threads = torch.get_num_threads()
+            try:
+                fn(0, 1, free_port(), out_dir, *args)
+            finally:
+                torch.set_num_threads(threads)
+        else:
+            mp.spawn(fn, args=(world, free_port(), out_dir, *args), nprocs=world)
         ranks = []
         for r in range(world):
             with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
@@ -537,7 +574,8 @@ def _zero_counters():
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.parallel import collectives as coll
 
-    flash_ops.launches = ssd_ops.launches = coll.calls = coll.nbytes = 0
+    flash_ops.launches = ssd_ops.launches = 0
+    coll.reset()
 
 
 def _sync(dev):
@@ -788,6 +826,372 @@ def run_lm(world: int, plan: list, *, device: str = "cuda", backend: str | None 
             "seconds": time.perf_counter() - t0, "lm": runs, "ok": bool(ok)}
 
 
+# --------------------------------------------------------------------------
+# LM training under a mesh
+# --------------------------------------------------------------------------
+
+def train_batches(cfg, batch: int, seq: int, steps: int, seed: int = 0) -> list:
+    """Every step's batch as every rank draws it, on the CPU: ``synth_batch``
+    tokens and, for cross-attention, one seeded draw of image embeddings."""
+    from repro_torch.data.tokens import TokenPipelineConfig, synth_batch
+
+    pipe = TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                               num_codebooks=cfg.num_codebooks, seed=seed)
+    cross = None
+    if cfg.vision_dim:
+        g = torch.Generator().manual_seed(seed)
+        cross = torch.randn((batch, cfg.num_patches, cfg.vision_dim), generator=g)
+    out = []
+    for step in range(steps):
+        b = {"tokens": synth_batch(pipe, step)}
+        if cross is not None:
+            b["cross_embeds"] = cross
+        out.append(b)
+    return out
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """A nested dict of tensors as {"a/b": tensor} in leaf order."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flat_tree(v, key + "/"))
+        else:
+            out[key] = v
+    return out
+
+
+def train_record(cfg, params, batches: list, dev, *, lr: float,
+                 grads_only: bool = False) -> dict:
+    """The unsharded port trained on ``batches`` (``params``: the whole
+    model on ``dev``, spent): every step's loss and wall, and of the first
+    step its loss, ce, aux, clip scale, each leaf's gradient and new
+    value (on the CPU) and their maxima (``grad_max``; ``update_max``,
+    the largest |new − old|). ``grads_only``: the first batch's loss and
+    gradients alone (no optimizer state: a model twice the size fits)."""
+    from repro_torch.launch.steps import make_loss_fn, make_train_step
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.tree import leaves
+
+    if grads_only:
+        flat = leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        b = {k: v.to(dev) for k, v in batches[0].items()}
+        _sync(dev)
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loss, ce, aux = make_loss_fn(cfg)(params, b)
+            grads = torch.autograd.grad(loss, flat)
+        _sync(dev)
+        rec = {"losses": [float(loss)], "step_s": [time.perf_counter() - t0],
+               "loss": float(loss), "ce": float(ce), "aux": float(aux)}
+        if dev.type == "cuda":  # the step's peak, before the record's own temporaries
+            rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        names = list(flat_tree(params))
+        rec.update(grad_max={k: float(g.abs().max()) for k, g in zip(names, grads)},
+                   grads={k: g.to("cpu", copy=True) for k, g in zip(names, grads)})
+        return rec
+
+    opt = AdamW(lr=lr)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, device=dev)
+    # the first step's inputs on the host, off the device's peak
+    old = {k: v.detach().to("cpu", copy=True) for k, v in flat_tree(params).items()}
+    rec = {"losses": [], "step_s": []}
+    peak0 = 0.0
+    for i, b in enumerate(batches):
+        seen = {} if i == 0 else None
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b, record=seen)
+        _sync(dev)
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["losses"].append(float(m["loss"]))
+        if i == 0:  # the step's peak, then the record's own temporaries
+            if dev.type == "cuda":
+                peak0 = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            grads, new = flat_tree(seen["grads"]), flat_tree(params)
+            rec.update(loss=float(m["loss"]), ce=float(m["ce"]), aux=float(m["moe_aux"]),
+                       clip_scale=float(seen["clip_scale"]),
+                       grad_max={k: float(g.abs().max()) for k, g in grads.items()},
+                       update_max={k: float((new[k].detach() - old[k].to(dev)).abs().max())
+                                   for k in new},
+                       grads={k: g.to("cpu", copy=True) for k, g in grads.items()},
+                       new={k: p.detach().to("cpu", copy=True) for k, p in new.items()})
+            del seen, grads, old
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+    if dev.type == "cuda":
+        rec["peak_gib"] = max(peak0, torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    return rec
+
+
+def hold_train_step(got: dict, want: dict, shardings: dict, dev, lr: float) -> dict:
+    """A rank's first-step blocks (``got``: "grads", "new", flat) against an
+    unsharded record, leaf by leaf on ``dev``: each block's max abs error
+    and its bound (``TRAIN_GRAD_TOL``; the update's where the record's
+    clipped gradient is above ``WELL_CONDITIONED``, else 2·lr). Returns
+    the worst ratios and errors and the leaves they fell on."""
+    out = {"grad_ratio": 0.0, "new_ratio": 0.0, "grad_err": 0.0, "new_err": 0.0,
+           "grad_leaf": None, "new_leaf": None}
+    clip = want.get("clip_scale")
+    for key, g in got["grads"].items():
+        sh = shardings[key]
+        g_ref = sh.local(want["grads"][key]).to(dev)
+        err = (g.float() - g_ref).abs().max().item() if g.numel() else 0.0
+        ratio = err / (TRAIN_GRAD_TOL * (1 + want["grad_max"][key]))
+        if ratio >= out["grad_ratio"]:
+            out.update(grad_ratio=ratio, grad_leaf=key)
+        out["grad_err"] = max(out["grad_err"], err)
+        if "new" not in want:  # a gradients-only record
+            continue
+        p_ref = sh.local(want["new"][key]).to(dev)
+        diff = (got["new"][key].float() - p_ref).abs()
+        sharp = g_ref.abs() * clip > WELL_CONDITIONED
+        bound = TRAIN_GRAD_TOL * (1 + want["update_max"][key])
+        r_sharp = (diff[sharp].max().item() / bound) if bool(sharp.any()) else 0.0
+        r_flat = diff.max().item() / (2 * lr) if diff.numel() else 0.0
+        ratio = max(r_sharp, r_flat)
+        if ratio >= out["new_ratio"]:
+            out.update(new_ratio=ratio, new_leaf=key)
+        out["new_err"] = max(out["new_err"], diff.max().item() if diff.numel() else 0.0)
+        del g_ref, p_ref, diff, sharp
+    out["ok"] = out["grad_ratio"] <= 1.0 and out["new_ratio"] <= 1.0
+    return out
+
+
+_REFERENCES: dict = {}
+
+
+def _self_reference(cfg, run: dict, dev) -> dict:
+    """The unsharded record of ``run``'s model and batches, trained on this
+    rank's device (every rank alike, at once: ranks sharing a card each
+    hold a whole model then), kept for the next run of the same key (one
+    at a time: a new key frees the last)."""
+    from repro_torch.models import transformer as tr
+
+    key = (cfg, run["batch"], run["seq"], run["steps"], run.get("lr", 1e-3),
+           bool(run.get("grads_only")))
+    if key not in _REFERENCES:
+        _REFERENCES.clear()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        params = tr.init_model(cfg, 0, device=dev)
+        batches = train_batches(cfg, run["batch"], run["seq"], run["steps"])
+        t0 = time.perf_counter()
+        rec = train_record(cfg, params, batches, dev, lr=run.get("lr", 1e-3),
+                           grads_only=bool(run.get("grads_only")))
+        rec["wall_s"] = time.perf_counter() - t0
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        _REFERENCES[key] = rec
+    return _REFERENCES[key]
+
+
+_KEPT: dict = {}
+
+
+def check_train(mesh, dev, run: dict, index: int) -> dict:
+    """One training run of the plan on this rank (module docstring)."""
+    from repro_torch.launch import specs
+    from repro_torch.launch.steps import init_opt_state, make_train_step
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.tree import leaves
+    from repro_torch.parallel import collectives as coll
+
+    cfg = lm_config(run["arch"], layers=run.get("layers"), reduced=run.get("reduced", False))
+    if run.get("kind") == "train_loop":
+        return _check_train_loop(cfg, mesh, dev, run)
+    lr = run.get("lr", 1e-3)
+    want = None
+    if run.get("record"):
+        want = torch.load(run["record"])
+    elif run.get("reference") == "self":
+        want = _self_reference(cfg, run, dev)
+    layout = specs.train_layout(cfg, mesh, run.get("layout", "tp"))
+    _sync(dev)
+    t0 = time.perf_counter()
+    params = tr.init_model(cfg, 0, device=dev, mesh=mesh)
+    if layout.name == "fsdp":
+        params = tr.data_blocks(params, layout.params)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    opt = AdamW(lr=lr)
+    state = init_opt_state(opt, params, layout)
+    step = make_train_step(cfg, opt, remat=run.get("remat", "none"), mesh=mesh, shardings=layout)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    out = {"arch": run["arch"], "layers": cfg.num_layers, "mesh": list(mesh.sizes),
+           "coordinate": list(mesh.coordinate), "layout": layout.name,
+           "remat": run.get("remat", "none"), "build_s": build_s, "losses": [], "step_s": [],
+           "counts": [], "params_local": sum(t.numel() for t in leaves(params))}
+    peak0 = 0.0
+    for i, b in enumerate(train_batches(cfg, run["batch"], run["seq"], run["steps"])):
+        seen = {} if i == 0 else None
+        coll.reset()
+        _sync(dev)
+        t1 = time.perf_counter()
+        params, state, m = step(params, state, b, record=seen)
+        _sync(dev)
+        out["step_s"].append(time.perf_counter() - t1)
+        out["counts"].append(coll.counts())
+        out["losses"].append(float(m["loss"]))
+        if i == 0:  # held before the next step writes the shard in place
+            if dev.type == "cuda":
+                peak0 = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            clip = m["clip_scale"].detach().float().cpu().reshape(1)
+            out.update(loss=float(m["loss"]), ce=float(m["ce"]), aux=float(m["moe_aux"]),
+                       clip_scale=float(clip), clip_bits=int(clip.view(torch.int32)))
+            first = {"grads": {k: g.detach() for k, g in flat_tree(seen["grads"]).items()},
+                     "new": {k: p.detach() for k, p in flat_tree(params).items()}}
+            del seen
+            if want is not None:
+                out["hold"] = hold_train_step(first, want, flat_tree(layout.params), dev, lr)
+            same = run.get("same_bits_as")
+            if same is not None:  # the kept blocks sit on the host, off the peak
+                kept = _KEPT.pop(same)
+                out["same_bits"] = all(torch.equal(first[part][k].cpu(), kept[part][k])
+                                       for part in ("grads", "new") for k in kept[part])
+                out["same_bits_peak_gib"] = kept.get("peak_gib")
+            if run.get("keep"):
+                _KEPT[index] = {part: {k: v.to("cpu", copy=True) for k, v in first[part].items()}
+                                for part in ("grads", "new")}
+            del first
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+    if dev.type == "cuda":
+        out["peak_gib"] = max(peak0, torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        if run.get("keep"):
+            _KEPT[index]["peak_gib"] = out["peak_gib"]
+    out["kernel_launches"] = {k: v for k, v in _counters().items() if k in ("K3", "K7")}
+    if want is not None:
+        out["loss_rel"] = [abs(a - b) / abs(b) for a, b in zip(out["losses"], want["losses"])]
+        out["first"] = {"ce_err": abs(out["ce"] - want["ce"]),
+                        "aux_err": abs(out["aux"] - want["aux"]),
+                        "clip_err": abs(out["clip_scale"] - want.get("clip_scale",
+                                                                     out["clip_scale"]))}
+        out["reference_step_s"] = want["step_s"]
+        out["reference_peak_gib"] = want.get("peak_gib")
+        out["reference_wall_s"] = want.get("wall_s")
+    del params, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _check_train_loop(cfg, mesh, dev, run: dict) -> dict:
+    """``train_loop`` unsharded, then under ``mesh``: every loss and the
+    rank's final shard against the unsharded run's (bitwise, and the max
+    abs error)."""
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import transformer as tr
+    from repro_torch.parallel.sharding import tree_map_with_path
+
+    kw = dict(steps=run["steps"], batch=run["batch"], seq=run["seq"], lr=run.get("lr", 3e-4),
+              log_every=run["steps"])
+    t0 = time.perf_counter()
+    plain_times: list = []
+    whole, want = train_loop(cfg, device=dev, step_times=plain_times, **kw)
+    plain_s = time.perf_counter() - t0
+    shards = flat_tree(tr.model_shardings(cfg, mesh))
+    blocks = tree_map_with_path(
+        lambda path, t: shards["/".join(path)].local(t.detach()).clone(), whole)
+    del whole
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    times: list = []
+    got, losses = train_loop(cfg, mesh=mesh, step_times=times, **kw)
+    mesh_s = time.perf_counter() - t0
+    a, b = flat_tree(got), flat_tree(blocks)
+    out = {"arch": run["arch"], "layers": cfg.num_layers, "mesh": list(mesh.sizes),
+           "coordinate": list(mesh.coordinate), "kind": "train_loop", "losses": losses,
+           "plain_losses": want, "losses_bitwise": losses == want,
+           "params_bitwise": all(torch.equal(a[k].detach(), b[k]) for k in b),
+           "max_abs_err": max((a[k].detach() - b[k]).abs().max().item() for k in b),
+           "plain_s": plain_s, "mesh_s": mesh_s, "step_s": times, "plain_step_s": plain_times}
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del got, blocks, a, b
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _train_rank_main(rank: int, world: int, port: int, out_dir: str, opts: dict) -> None:
+    from repro_torch.parallel import init_mesh
+
+    dev = init_rank(rank, world, port, opts["device"], opts["backend"])
+    try:
+        res = []
+        for i, run in enumerate(opts["plan"]):
+            t0 = time.perf_counter()
+            mesh = init_mesh(*run["mesh"], device=dev)
+            res.append(dict(check_train(mesh, dev, run, i), run_s=time.perf_counter() - t0))
+        put_result(out_dir, rank, res)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_train(world: int, plan: list, *, device: str = "cuda",
+              backend: str | None = None) -> dict:
+    """Spawn ``world`` ranks and run the training ``plan``; returns every
+    run's per-rank results, the cross-rank checks and ``ok``: against a
+    record, every gradient and new block within bound, every step's loss
+    within ``TRAIN_LOSS_RTOL``, the first step's ce and aux within 1e-6
+    (ce relative above 1) and clip scale within 1e-6; every rank's losses
+    and clip scale the same bits; ``same_bits_as`` bitwise with a lower
+    peak on the card; a ``train_loop`` run bitwise at world 1."""
+    backend = backend or default_backend(device, world)
+    for run in plan:
+        run.setdefault("mesh", [1, world])
+        if run["mesh"][0] * run["mesh"][1] != world:
+            raise ValueError(f"mesh {run['mesh']} does not cover {world} ranks")
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_train_rank_main, world, dict(device=device, backend=backend, plan=plan))
+    runs, ok = [], True
+    for i, run in enumerate(plan):
+        per = [r[i] for r in ranks]
+        rec = {k: v for k, v in per[0].items() if k not in ("coordinate",)}
+        rec["ranks"] = per
+        agree = all(p["losses"] == per[0]["losses"] for p in per)
+        if run.get("kind") == "train_loop":
+            good = agree and (world > 1 or (per[0]["losses_bitwise"]
+                                            and all(p["params_bitwise"] for p in per)))
+        else:
+            agree &= all(p["clip_bits"] == per[0]["clip_bits"] for p in per)
+            # training runs the plain attention and SSD (no kernel has a backward)
+            good = agree and all(not any(p["kernel_launches"].values()) for p in per)
+            if "hold" in per[0]:
+                good &= all(p["hold"]["ok"] and max(p["loss_rel"]) <= TRAIN_LOSS_RTOL
+                            and p["first"]["ce_err"] <= 1e-6 * max(1.0, abs(p["ce"]))
+                            and p["first"]["aux_err"] <= 1e-6
+                            and p["first"]["clip_err"] <= 1e-6 for p in per)
+            if run.get("same_bits_as") is not None:
+                good &= all(p["same_bits"] for p in per)
+                if device == "cuda":
+                    good &= all(p["peak_gib"] < p["same_bits_peak_gib"] for p in per)
+        rec["ranks_agree"] = bool(agree)
+        rec["ok"] = bool(good)
+        ok &= bool(good)
+        runs.append(rec)
+    return {"world": world, "device": device, "backend": backend,
+            "seconds": time.perf_counter() - t0, "train": runs, "ok": bool(ok)}
+
+
 def _rank_main(rank: int, world: int, port: int, out_dir: str, opts: dict) -> None:
     from repro_torch.parallel import init_mesh
 
@@ -908,11 +1312,17 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-record", default=None, help="the unsharded record to compare with")
     ap.add_argument("--lm-out", default=None, help="write rank 0's record here")
     ap.add_argument("--lm-plan", default=None, help="a JSON list of LM runs")
+    ap.add_argument("--train-plan", default=None,
+                    help="a JSON list of LM training runs under a mesh")
     args = ap.parse_args(argv)
     backend = args.backend or default_backend(args.device, args.world)
     ints = lambda s: [int(v) for v in s.split(",")]
     try:
-        if args.lm_plan or args.lm_arch:
+        if args.train_plan:
+            with open(args.train_plan) as f:
+                results = run_train(args.world, json.load(f), device=args.device,
+                                    backend=backend)
+        elif args.lm_plan or args.lm_arch:
             if args.lm_plan:
                 with open(args.lm_plan) as f:
                     plan = json.load(f)

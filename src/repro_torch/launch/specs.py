@@ -12,11 +12,13 @@ counter.
 
 The step takes the plain attention and SSD paths by explicit arguments
 (``use_flash=False``, ``use_kernel_ssd=False``): the kernels' wrappers
-run only on CPU or CUDA tensors. ``batch_shardings`` and
-``decode_state_shardings`` give the reference's layouts over the port's
-``Mesh`` (the serving path under a mesh reads them); the train
-layouts (``fsdp``, ``zero1``) and a dry run under a mesh wait for ROADMAP
-A11 (i) and (iii).
+run only on CPU or CUDA tensors. ``batch_shardings``,
+``decode_state_shardings`` and ``train_layout`` give the reference's
+layouts over the port's ``Mesh`` (the serving and training paths under a
+mesh read them): ``train_layout`` is the parameter and moment shardings
+of ``build_dryrun``'s train branch (reference :125-138, ``fsdp=`` and
+``zero1=``), the counterpart of its ``in_shardings``/``out_shardings``.
+A dry run under a mesh waits for ROADMAP A11 (iii).
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_tr
 from repro_torch.models import init_decode_state, init_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamW
-from repro_torch.parallel.sharding import MODEL_AXIS, batch_sharding, data_axes, kv_cache_spec
+from repro_torch.parallel.sharding import (
+    MODEL_AXIS, batch_sharding, data_axes, kv_cache_spec, param_shardings, tree_map_with_path)
 
 META = torch.device("meta")
 
@@ -102,6 +105,81 @@ def decode_state_shardings(cfg: ModelConfig, mesh, state_abs) -> Dict[str, Any]:
             leaves[f.name] = spec
         out[key] = leaves
     return out
+
+
+#: the train layouts: "tp" (the parameters by the tensor-parallel rules,
+#: replicated over the data axes: data parallelism where "model" is 1),
+#: "fsdp" (ZeRO-3: parameters, gradients and moments cut over the data
+#: axes too) and "zero1" (the moments alone cut over the data axes)
+LAYOUTS = ("tp", "fsdp", "zero1")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainLayout:
+    """A train step's layout on a mesh: ``params``, the ``ParamSharding``
+    tree of the parameters (and of their gradients), and ``moments``, that
+    of the AdamW moments (reference ``specs.py:128-138``; ``step`` is
+    replicated)."""
+
+    name: str
+    params: Any
+    moments: Any
+
+    def blocks(self):
+        """ZeRO-1's tree for ``AdamW.init``/``update``: where a moment is cut
+        over data axes that its parameter is not, the data part of the
+        moment's sharding (the block of the rank's parameter it holds),
+        else None."""
+        def one(path, m):
+            p = _at(self.params, path)
+            return m.data_part() if m.data_dim() is not None and p.data_dim() is None else None
+        return tree_map_with_path(one, self.moments)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _blocks_of(tree) -> list:
+    """Each leaf's cut dimensions and their axes, axes of one rank dropped
+    (a spec naming a one-rank axis cuts nothing)."""
+    out = []
+
+    def one(path, s):
+        sizes = s.mesh.shape
+        cut = tuple((d, tuple(a for a in ((e,) if isinstance(e, str) else e) if sizes[a] > 1))
+                    for d, e in enumerate(s.spec) if e)
+        out.append((path, tuple(c for c in cut if c[1])))
+
+    tree_map_with_path(one, tree)
+    return out
+
+
+def train_layout(cfg: ModelConfig, mesh, layout: str = "tp") -> TrainLayout:
+    """The reference's train shardings on the port's ``mesh``: parameters
+    by ``param_shardings(fsdp=layout == "fsdp")``, moments by
+    ``param_shardings(fsdp=layout in ("fsdp", "zero1"))``, with
+    ``physical_experts`` as ``specs.py`` passes it. The reference's
+    ``train.py`` places its parameters with ``num_experts``
+    (``models.transformer.model_shardings``, which ``train_loop`` and
+    ``init_model(mesh=)`` follow): a padded-expert config on which the two
+    counts give different layouts raises ``ValueError``."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    shapes = abstract_params(cfg)
+    nexp = cfg.moe.physical_experts if cfg.moe else None
+    params = param_shardings(shapes, mesh, nexp, fsdp=layout == "fsdp")
+    moments = param_shardings(shapes, mesh, nexp, fsdp=layout in ("fsdp", "zero1"))
+    if cfg.moe and nexp != cfg.moe.num_experts:
+        other = param_shardings(shapes, mesh, cfg.moe.num_experts, fsdp=layout == "fsdp")
+        if _blocks_of(other) != _blocks_of(params):
+            raise ValueError(
+                f"{cfg.name}: padded experts ({nexp} physical for {cfg.moe.num_experts}): "
+                f"launch/specs.py lays the train step out by physical_experts and "
+                f"launch/train.py by num_experts, and on this mesh the two layouts differ")
+    return TrainLayout(layout, params, moments)
 
 
 @dataclasses.dataclass

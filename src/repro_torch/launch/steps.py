@@ -23,11 +23,29 @@ serving, its decode state (``init_decode_state(mesh=)``): every rank
 calls the step with the whole batch, keeps its rows
 (``parallel.sharding.batch_sharding``: rows over "data" when they
 divide), and returns the tokens of every row (gathered over "data").
+
+``make_train_step(mesh=, shardings=)`` is the reference's train step
+under its shardings (reference :25-56 under ``jit`` with
+``in_shardings``/``out_shardings``), every reduction GSPMD inserts made
+an explicit collective: the rank takes its shard laid out by
+``shardings`` (``launch.specs.train_layout``: "tp", "fsdp" or "zero1";
+default the tensor-parallel layout of ``init_model(mesh=)``), every rank
+is called with the whole batch and keeps its rows (which must split
+evenly over the data axes), the forward's collectives carry their
+backward passes, each rank's objective is (ce_rows + aux) / n_data (the
+mean of equal row blocks' means is the batch's mean, and an "E" layer's
+aux, the same on every data rank, is counted once by the sum), the
+gradients of the leaves the data axes do not cut are summed over them
+(one all-reduce a leaf; ZeRO-3's leaves arrive reduce-scattered), and
+``AdamW.update`` clips by the norm over the mesh and updates the rank's
+blocks (ZeRO-1: then gathers them). It returns the rank's new shard and
+moment blocks and the global metrics, plus ``clip_scale``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import math
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -38,8 +56,9 @@ from repro_torch.models import decode_step, forward
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamW
 from repro_torch.optim.tree import leaves, tree_map
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.collectives import gather_rows
-from repro_torch.parallel.sharding import batch_sharding
+from repro_torch.parallel.sharding import batch_sharding, data_axes
 
 Tensor = torch.Tensor
 Batch = Dict[str, Tensor]
@@ -51,20 +70,21 @@ def _cross(batch: Batch, dev):
 
 
 def make_loss_fn(cfg: ModelConfig, *, remat: str = "none", use_flash: bool = False,
-                 use_kernel_ssd: bool = False) -> Callable:
+                 use_kernel_ssd: bool = False, mesh=None, shardings=None) -> Callable:
     """The train step's loss (the reference's ``loss_fn``, reference :35):
-    f(params, batch) → (loss, ce, aux), with loss = ce + aux, ce the
-    next-token cross-entropy (``data.tokens.lm_loss``) and aux the "E"
-    layers' summed aux loss. The forward takes the plain attention and
+    f(params, batch, rows=None) → (loss, ce, aux), with loss = ce + aux,
+    ce the next-token cross-entropy (``data.tokens.lm_loss``) and aux the
+    "E" layers' summed aux loss. The forward takes the plain attention and
     SSD paths by default, as the reference's (no kernel has a backward:
     on the card ``use_flash=True`` or ``use_kernel_ssd=True`` under grad
-    raises, ``kernels/autograd.py``)."""
+    raises, ``kernels/autograd.py``). With ``mesh`` the batch is the
+    rank's rows (``rows``, their ``RowSharding``) and ce their mean."""
 
-    def loss_fn(params, batch: Batch):
+    def loss_fn(params, batch: Batch, rows=None):
         tokens = batch["tokens"]
         logits, aux = forward(params, tokens, cfg, cross_embeds=batch.get("cross_embeds"),
                               use_flash=use_flash, use_kernel_ssd=use_kernel_ssd,
-                              remat=remat)
+                              remat=remat, mesh=mesh, rows=rows, shardings=shardings)
         ce = lm_loss(logits, tokens)
         return ce + aux, ce, aux
 
@@ -73,20 +93,30 @@ def make_loss_fn(cfg: ModelConfig, *, remat: str = "none", use_flash: bool = Fal
 
 def make_train_step(cfg: ModelConfig, optimizer: AdamW, *, remat: str = "none",
                     use_flash: bool = False, use_kernel_ssd: bool = False,
-                    device="cuda") -> Callable:
+                    device="cuda", mesh=None, shardings=None) -> Callable:
     """One training step (reference :25): the loss of ``make_loss_fn``,
     its gradient for every parameter leaf (``torch.autograd.grad``; the
     leaves are set to require grad), then ``optimizer.update``, which
     writes the parameters and the moments in place. ``remat`` is
     ``forward``'s: "none", "full" (each layer recomputed in the backward
     pass) or "dots" (all but its unbatched products). Metrics are 0-d
-    fp32 tensors ``loss``, ``ce`` and ``moe_aux``."""
+    fp32 tensors ``loss``, ``ce`` and ``moe_aux``.
+
+    ``mesh`` and ``shardings`` (a ``launch.specs.TrainLayout``): the step
+    on the rank's shard (module docstring), on ``mesh.device``; its
+    metrics add ``clip_scale``, and the moments must come from
+    ``init_opt_state``. ``record`` (a dict, tests and the selftest only)
+    receives the gradient tree the update used."""
+    if mesh is not None:
+        return _mesh_train_step(cfg, optimizer, remat=remat, use_flash=use_flash,
+                                use_kernel_ssd=use_kernel_ssd, mesh=mesh,
+                                layout=shardings or tp_layout(cfg, mesh))
     dev = resolve_device(device)
     pin_full_fp32_math()
     loss_fn = make_loss_fn(cfg, remat=remat, use_flash=use_flash,
                            use_kernel_ssd=use_kernel_ssd)
 
-    def train_step(params, opt_state, batch: Batch):
+    def train_step(params, opt_state, batch: Batch, record: Optional[dict] = None):
         batch = {**batch, "tokens": batch["tokens"].to(dev), "cross_embeds": _cross(batch, dev)}
         flat = leaves(params)
         for p in flat:
@@ -95,9 +125,78 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *, remat: str = "none",
             loss, ce, aux = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, flat)
         it = iter(grads)  # tree_map walks the leaves in leaves()' order
-        params, opt_state = optimizer.update(tree_map(lambda _: next(it), params), opt_state,
-                                             params)
+        tree = tree_map(lambda _: next(it), params)
+        params, opt_state = optimizer.update(tree, opt_state, params, info=record)
+        if record is not None:
+            record["grads"] = tree
         metrics = {"loss": loss.detach(), "ce": ce.detach(), "moe_aux": aux.detach()}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def tp_layout(cfg: ModelConfig, mesh):
+    """The layout ``init_model(mesh=)`` builds and ``train_loop`` trains:
+    the tensor-parallel rules with ``num_experts`` (reference
+    ``train.py:48``), parameters and moments alike."""
+    from repro_torch.launch.specs import TrainLayout
+    from repro_torch.models.transformer import model_shardings
+
+    tree = model_shardings(cfg, mesh)
+    return TrainLayout("tp", tree, tree)
+
+
+def init_opt_state(optimizer: AdamW, params, layout=None):
+    """The optimizer state of a rank's shard: moments shaped as its
+    parameter blocks, or, under ZeRO-1 (``layout.name == "zero1"``), as
+    their blocks over the data axes (``TrainLayout.blocks``)."""
+    if layout is None or layout.name != "zero1":
+        return optimizer.init(params)
+    return optimizer.init(params, blocks=layout.blocks())
+
+
+def _mesh_train_step(cfg: ModelConfig, optimizer: AdamW, *, remat: str, use_flash: bool,
+                     use_kernel_ssd: bool, mesh, layout) -> Callable:
+    dev = mesh.device
+    pin_full_fp32_math()
+    loss_fn = make_loss_fn(cfg, remat=remat, use_flash=use_flash,
+                           use_kernel_ssd=use_kernel_ssd, mesh=mesh, shardings=layout.params)
+    axes = data_axes(mesh)
+    n_data = math.prod(mesh.shape[a] for a in axes)
+    cut = [sh.data_dim() is not None for sh in leaves(layout.params)]
+    blocks = layout.blocks() if layout.name == "zero1" else None
+
+    def train_step(params, opt_state, batch: Batch, record: Optional[dict] = None):
+        B = batch["tokens"].shape[0]
+        if B % n_data:
+            raise ValueError(f"a batch of {B} rows does not split evenly over the "
+                             f"{n_data} ranks of the data axes {axes}")
+        local, rows = _rows(batch, mesh, dev)
+        flat = leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            loss, ce, aux = loss_fn(params, local, rows)
+            # the rank's part of the global objective: summed over the data
+            # ranks it is the batch's mean ce plus aux, counted once
+            obj = loss if n_data == 1 else ce / n_data + aux / n_data
+            grads = list(torch.autograd.grad(obj, flat, allow_unused=True))
+        for i, (g, p) in enumerate(zip(grads, flat)):
+            if g is None:
+                grads[i] = torch.zeros_like(p)
+        grads = coll.reduce_gradients(grads, mesh, skip=cut)
+        it = iter(grads)
+        tree = tree_map(lambda _: next(it), params)
+        info = {}
+        params, opt_state = optimizer.update(tree, opt_state, params, shardings=layout.params,
+                                             blocks=blocks, info=info)
+        if record is not None:
+            record.update(info, grads=tree)
+        ce_all = ce.detach()
+        if n_data > 1:
+            ce_all = coll.sum_over(ce_all / n_data, mesh, axes, "metrics")
+        metrics = {"loss": loss.detach() if n_data == 1 else ce_all + aux.detach(),
+                   "ce": ce_all, "moe_aux": aux.detach(), "clip_scale": info["clip_scale"]}
         return params, opt_state, metrics
 
     return train_step

@@ -34,6 +34,9 @@ keys they see, and the rows are gathered. A decode cache that holds a
 sequence slice (``LayerKVCache.sharding``: ``kv_cache_spec`` shards the
 sequence, or ``decode_flash_shard`` names axes) goes through
 ``parallel.collectives.flash_decode``, as in the reference (:217).
+Under autograd ``_project`` marks where the replicated input and the
+replicated leaves enter the rank's heads (``enter_model_region``), and
+every gather names its backward.
 """
 
 from __future__ import annotations
@@ -267,21 +270,51 @@ def _project(params: dict, x: Tensor, kv_src: Tensor, cfg: ModelConfig, heads: _
              mesh) -> Tuple[Tensor, Tensor, Tensor]:
     """q of ``heads.q`` and k, v of ``heads.kv`` from the rank's leaves:
     its slices, or the columns it needs of a replicated ``wk``/``wv``;
-    heads another rank holds are gathered over "model"."""
-    q = torch.einsum("bse,ehd->bshd", x, params["wq"])
+    heads another rank holds are gathered over "model" (every rank then
+    holds the same heads: "own" backward).
+
+    The entries into the rank's region (``enter_model_region``, the sum of
+    the ranks' partial gradients in the backward pass): x where q is the
+    rank's heads; x (or the image embeddings) where k/v are, and then a
+    replicated ``wk``/``wv``/``bk``/``bv`` of which the rank uses its query
+    heads' part (Kv % n ≠ 0); the replicated q/k norm scales where they
+    scale the rank's heads. Every rank's whole k/v (``all_kv`` with
+    replicated leaves) is replicated work and enters nothing."""
+    q_in = coll.enter_model_region(x, mesh) if heads.q_sharded else x
+    kv_rank = heads.kv_sharded or (heads.q_sharded and not heads.all_kv)
+    kv_in, w = kv_src, dict(params)
+    if kv_rank:
+        kv_in = q_in if kv_src is x else coll.enter_model_region(kv_src, mesh)
+        if not heads.kv_sharded:  # replicated leaves, the rank's heads' part
+            for name in ("wk", "wv", "bk", "bv", "k_norm"):
+                if name in w:
+                    w[name] = _enter_tree(w[name], mesh)
+    if heads.q_sharded and "q_norm" in w:
+        w["q_norm"] = _enter_tree(w["q_norm"], mesh)
+    if heads.kv_sharded and "k_norm" in w:
+        w["k_norm"] = _enter_tree(w["k_norm"], mesh)
+    q = torch.einsum("bse,ehd->bshd", q_in, w["wq"])
     kv = slice(None) if heads.kv_sharded else slice(heads.kv[0], sum(heads.kv))
-    k = torch.einsum("bse,ehd->bshd", kv_src, params["wk"][:, kv])
-    v = torch.einsum("bse,ehd->bshd", kv_src, params["wv"][:, kv])
+    k = torch.einsum("bse,ehd->bshd", kv_in, w["wk"][:, kv])
+    v = torch.einsum("bse,ehd->bshd", kv_in, w["wv"][:, kv])
     if cfg.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"][kv], v + params["bv"][kv]
+        q, k, v = q + w["bq"], k + w["bk"][kv], v + w["bv"][kv]
     if cfg.qk_norm:
-        q = apply_norm(q, "rmsnorm", params["q_norm"])
-        k = apply_norm(k, "rmsnorm", params["k_norm"])
+        q = apply_norm(q, "rmsnorm", w["q_norm"])
+        k = apply_norm(k, "rmsnorm", w["k_norm"])
     if heads.all_q and heads.q_sharded:
-        q = coll.all_gather_dim(q, 2, mesh)
+        q = coll.all_gather_dim(q, 2, mesh, backward="own")
     if heads.all_kv and heads.kv_sharded:
-        k, v = coll.all_gather_dim(k, 2, mesh), coll.all_gather_dim(v, 2, mesh)
+        k = coll.all_gather_dim(k, 2, mesh, backward="own")
+        v = coll.all_gather_dim(v, 2, mesh, backward="own")
     return q, k, v
+
+
+def _enter_tree(t, mesh):
+    """``enter_model_region`` on a leaf or on each leaf of a norm's dict."""
+    if isinstance(t, dict):
+        return {k: coll.enter_model_region(v, mesh) for k, v in t.items()}
+    return coll.enter_model_region(t, mesh)
 
 
 def _needed(t: Tensor, heads: _Heads) -> Tensor:
@@ -294,12 +327,11 @@ def _needed(t: Tensor, heads: _Heads) -> Tensor:
 
 
 def _local_q_heads(out: Tensor, heads: _Heads, cfg: ModelConfig, mesh) -> Tensor:
-    """The rank's query heads of an output over every head."""
+    """The rank's query heads of an output over every head (the same on
+    every rank: all-gather backward)."""
     if not (heads.all_q and heads.q_sharded):
         return out
-    n, r = model_rank(mesh)
-    H = cfg.num_heads
-    return out[:, :, r * H // n:(r + 1) * H // n]
+    return coll.split_dim(out, 2, mesh)
 
 
 def _out_proj(params: dict, out: Tensor, heads: _Heads, mesh,
@@ -352,12 +384,14 @@ def _forward_local(params: dict, x: Tensor, cfg: ModelConfig, kind: str,
     S = q.shape[1]
     a, b = split_rows(S, n, r)
     a0 = 0 if window is None else max(0, a - window + 1)
+    # enter: every head's q, k, v (the same on every rank) meet the rank's rows
+    q, k, v = (coll.enter_model_region(t, mesh) for t in (q, k, v))
     rows = attention(q[:, a0:b], k[:, a0:b], v[:, a0:b], **kw)[:, a - a0:]
     block = -(-S // n)
     if rows.shape[1] < block:  # an uneven split's short last blocks
         rows = torch.cat([rows, rows.new_zeros((rows.shape[0], block - rows.shape[1],
                                                 *rows.shape[2:]))], dim=1)
-    out = coll.all_gather_dim(rows, 1, mesh)[:, :S]
+    out = coll.all_gather_dim(rows, 1, mesh, backward="own")[:, :S]
     return _out_proj(params, _local_q_heads(out, heads, cfg, mesh), heads, mesh, finish)
 
 
@@ -382,7 +416,8 @@ def _decode_local(params: dict, x: Tensor, cfg: ModelConfig, kind: str,
     rows_of = batch_sharding(mesh, cache.k.shape[0] * coll.axes_size(mesh, lever_axes(b_ax)), 1)
     gather_rows = not b_ax and rows_of.n_shards > 1
     if gather_rows:
-        q, k_new, v_new = (coll.all_gather_dim(t, 0, mesh, rows_of.axes)
+        q, k_new, v_new = (coll.all_gather_dim(t, 0, mesh, rows_of.axes,
+                                               backward="reduce_scatter")
                            for t in (q, k_new, v_new))
     pos = cache.length.to(torch.int32).expand(q.shape[0], 1)
     q = rope(q, pos, cfg.rope_theta)

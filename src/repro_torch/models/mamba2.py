@@ -30,6 +30,10 @@ replicated scale. ``out`` gives a partial sum (finished by
 head, or heads that fall neither on whole groups nor inside one group,
 raises ``ValueError``. The decode state holds the rank's rows, its x
 channels (then every B/C channel) of ``conv`` and its heads of ``ssm``.
+Under autograd the normed input, the replicated ``in_B``/``in_C``/
+``in_dt``/``conv_B``/``conv_C``, the norm's summed squares and its scale
+enter the rank's region (``enter_model_region``): their gradients are
+the sums of the ranks' parts.
 """
 
 from __future__ import annotations
@@ -267,14 +271,28 @@ def _gated_norm(y: Tensor, z: Tensor, params: dict, di: int, loc: _Local, mesh,
     scale."""
     g = y * F.silu(z)
     gf = g.to(torch.float32)
-    ss = coll.all_reduce_sum((gf * gf).sum(dim=-1, keepdim=True), mesh)
+    # the summed squares (replicated) scale the rank's channels: enter
+    ss = coll.enter_model_region(
+        coll.all_reduce_sum((gf * gf).sum(dim=-1, keepdim=True), mesh), mesh)
     lo = loc.h0 * (g.shape[-1] // loc.h)
-    scale = params["norm"]["scale"][lo:lo + g.shape[-1]].to(torch.float32)
-    return (gf * torch.rsqrt(ss / di + eps) * scale).to(g.dtype)
+    # enter: the rank's slice of the replicated scale
+    scale = coll.enter_model_region(params["norm"]["scale"], mesh)[lo:lo + g.shape[-1]]
+    return (gf * torch.rsqrt(ss / di + eps) * scale.to(torch.float32)).to(g.dtype)
 
 
 def _finish(y: Tensor, mesh, finish: Optional[Callable]) -> Tensor:
     return finish(y, True) if finish is not None else coll.all_reduce_sum(y, mesh)
+
+
+def _regional(params: dict, mesh) -> dict:
+    """The layer's leaves with the replicated ones the rank uses only for
+    its heads (``in_B``, ``in_C``, ``in_dt``: its heads' columns,
+    ``conv_B``, ``conv_C``) entering the rank's region: their gradients
+    are the sums of the ranks' parts."""
+    out = dict(params)
+    for name in ("in_B", "in_C", "in_dt", "conv_B", "conv_C"):
+        out[name] = coll.enter_model_region(params[name], mesh)
+    return out
 
 
 def _forward_local(params: dict, x: Tensor, cfg: ModelConfig, loc: _Local, use_kernel: bool,
@@ -282,6 +300,9 @@ def _forward_local(params: dict, x: Tensor, cfg: ModelConfig, loc: _Local, use_k
     mc = cfg.mamba
     B, S, E = x.shape
     P, N = mc.head_dim, mc.d_state
+    # enter: the normed x meets the rank's heads (all five projections)
+    x = coll.enter_model_region(x, mesh)
+    params = _regional(params, mesh)
     z, xs, Bm, C, dt = _project(params, x, slice(loc.h0, loc.h0 + loc.h))
     xs = F.silu(_causal_conv(xs, params["conv_x"]))
     Bm = _groups(F.silu(_causal_conv(Bm, params["conv_B"])), loc, N)

@@ -35,6 +35,10 @@ slots and combines only those; otherwise (granite's 40 experts against
 16, padded experts) each expert's F shards and a rank runs every expert
 on its slice of F. The shared experts shard on F. Each gives a partial
 sum, and one all-reduce over "model" (``finish``) finishes the sum.
+Under autograd the tokens enter the rank's experts and the router's
+gates enter where they scale the rank's partial outputs
+(``enter_model_region``); the aux loss reads the router whole on every
+rank, and its gradient is not summed.
 """
 
 from __future__ import annotations
@@ -234,11 +238,20 @@ def apply_moe(params: dict, x: Tensor, cfg: ModelConfig, *, group_size: int = DE
             Xl = mc.physical_experts // n
             experts = slice(r * Xl, (r + 1) * Xl)
     partial, whole = [], []
-    yt = run(xG, params, cfg, C, route, experts).reshape(-1, E)[:T]
+    x_run = xG
+    if routed_split:
+        # enter: the tokens meet the rank's experts (or F slices), and the
+        # router's gates scale the rank's partial expert outputs; the aux
+        # loss reads the router whole, on every rank alike
+        x_run = coll.enter_model_region(xG, mesh)
+        route = route._replace(gate_vals=coll.enter_model_region(route.gate_vals, mesh))
+    yt = run(x_run, params, cfg, C, route, experts).reshape(-1, E)[:T]
     (partial if routed_split else whole).append(yt)
     if mc.num_shared_experts:
         sh = params["shared"]
         xt_true = xt[:T]
+        if shared_split:  # enter: the rank's F slice of the shared experts
+            xt_true = coll.enter_model_region(xt_true, mesh)
         hs = _act(xt_true @ sh["w_gate"], cfg.act) * (xt_true @ sh["w_in"])
         (partial if shared_split else whole).append(hs @ sh["w_out"])
     if finish is None:

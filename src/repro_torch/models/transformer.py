@@ -42,6 +42,19 @@ reduce-scattered over the sequence and the rows gathered before the next
 sublayer) and ``decode_flash_shard`` (the decode caches' sequence over
 its axes, ``flash_decode``); a lever without a mesh that has its axis
 raises ``ValueError``.
+
+Under autograd (training, ``launch/steps.py::make_train_step(mesh=)``)
+the same forward carries the collectives' backward passes
+(``parallel/collectives.py``, the Megatron convention): the sums finish
+partial outputs (identity backward) and ``enter_model_region`` marks
+each entry into a rank's slice (the normed input of the sharded
+mixers, MLPs and head; the replicated leaves a rank uses only in part,
+in ``attention.py``, ``mamba2.py`` and ``moe.py``), whose backward sums
+the ranks' partial gradients. A layout that also cuts leaves over the
+data axes (``shardings=``, ZeRO-3) gathers each where it is used: the
+embedding and head once a forward, a layer's leaves inside the layer
+(``_Ctx.weights``), so that ``remat`` gathers them again in its
+recompute instead of keeping them.
 """
 
 from __future__ import annotations
@@ -68,8 +81,8 @@ from repro_torch.models.mamba2 import (
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (
-    ParamSharding, batch_sharding, check_levers, check_runnable, decode_cache_sharding,
-    model_rank, param_shardings, split_rows, tree_map_with_path)
+    ParamSharding, batch_sharding, check_levers, decode_cache_sharding, model_rank,
+    param_shardings, split_rows, tree_map_with_path)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -220,9 +233,10 @@ class _ShardedLeaves:
         return scratch
 
 
-def _leaf_paths(cfg: ModelConfig, pos: int) -> list:
+def _leaf_paths(cfg: ModelConfig, pos: int) -> Tuple[list, Params]:
     """The tree path of each leaf of a pattern position's layer, in the
-    order its initialiser allocates them (one run on the meta device)."""
+    order its initialiser allocates them, and the layer's tree on the
+    meta device (one run there)."""
     made = []
 
     def alloc(shape, dtype):
@@ -232,7 +246,7 @@ def _leaf_paths(cfg: ModelConfig, pos: int) -> list:
     tree = _init_block_position(cfg, pos, Unseeded(), alloc)
     where = {}
     tree_map_with_path(lambda path, t: where.__setitem__(id(t), path), tree)
-    return [where[id(t)] for t in made]
+    return [where[id(t)] for t in made], tree
 
 
 def _at(tree, path):
@@ -247,20 +261,16 @@ def _init_stacked_sharded(cfg: ModelConfig, pos: int, generator: torch.Generator
     whole scratch leaves, of which the rank keeps its blocks
     (``_ShardedLeaves``); ``shardings`` is the position's stacked
     ``ParamSharding`` tree."""
-    paths = _leaf_paths(cfg, pos)
+    paths, tree = _leaf_paths(cfg, pos)
     leaves = _ShardedLeaves(cfg.num_repeats, generator.device,
                             [_at(shardings, p) for p in paths])
     for r in range(cfg.num_repeats):
         leaves.start(r)
         _init_block_position(cfg, pos, generator, leaves)
     leaves.flush()
-    out: Params = {}
-    for path, leaf in zip(paths, leaves.stacked):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
-    return out
+    # the meta tree's structure, so that a leafless norm ({}) keeps its key
+    stacked = dict(zip(paths, leaves.stacked))
+    return tree_map_with_path(lambda path, _: stacked[path], tree)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda", mesh=None) -> Params:
@@ -308,28 +318,44 @@ _SHARDINGS: dict = {}
 def model_shardings(cfg: ModelConfig, mesh) -> Params:
     """The ``ParamSharding`` tree of ``cfg``'s parameters on ``mesh``
     (``param_shardings`` over the meta tree, with the unpadded expert
-    count, as the reference's ``train.py``), cached a (config, mesh).
-    Raises for leaves the model path cannot run (``check_runnable``)."""
+    count, as the reference's ``train.py``), cached a (config, mesh)."""
     key = (cfg, id(mesh))
     if key not in _SHARDINGS or _SHARDINGS[key][0] is not mesh:
         shapes = init_model(cfg, device="meta")
         tree = param_shardings(shapes, mesh, cfg.moe.num_experts if cfg.moe else None)
-        check_runnable(tree)
         _SHARDINGS[key] = (mesh, tree)
     return _SHARDINGS[key][1]
 
 
 def _layer_shardings(tree):
-    """A pattern position's stacked shardings → one layer's (the repeat
-    axis dropped)."""
-    return tree_map_with_path(lambda _, s: ParamSharding(s.mesh, tuple(s.spec[1:])), tree)
+    """A pattern position's stacked shardings → one layer's model-axis
+    layout (the repeat axis and the data axes dropped)."""
+    return tree_map_with_path(
+        lambda _, s: ParamSharding(s.mesh, tuple(s.model_part().spec[1:])), tree)
 
 
-def shard_params(params: Params, mesh, cfg: ModelConfig) -> Params:
+def _has_data_axes(tree) -> bool:
+    found = []
+    tree_map_with_path(lambda _, s: found.append(s.data_dim() is not None), tree)
+    return any(found)
+
+
+def shard_params(params: Params, mesh, cfg: ModelConfig, shardings=None) -> Params:
     """This rank's shard of a full parameter tree (``init_model`` or
-    ``params_from_jax``): each leaf's block by ``model_shardings``, a copy."""
-    shards = model_shardings(cfg, mesh)
+    ``params_from_jax``): each leaf's block by ``shardings`` (default
+    ``model_shardings``), a copy."""
+    shards = shardings if shardings is not None else model_shardings(cfg, mesh)
     return tree_map_with_path(lambda path, t: _at(shards, path).local(t).clone(), params)
+
+
+def data_blocks(params: Params, shardings) -> Params:
+    """The ZeRO-3 shard from a tensor-parallel one: each leaf's block over
+    the data axes of ``shardings`` (``ParamSharding.data_part``), a copy
+    (a leaf no data axis cuts is the same tensor)."""
+    def one(path, t):
+        part = _at(shardings, path).data_part()
+        return part.local(t).clone() if part.axes() else t
+    return tree_map_with_path(one, params)
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device="cpu") -> Params:
@@ -412,7 +438,10 @@ def lm_logits(params: Params, x: Tensor, cfg: ModelConfig, *,
     K = cfg.num_codebooks
     vocab_dim = (1 if K > 1 else 0) if cfg.tie_embeddings else (2 if K > 1 else 1)
     if _vocab_split(shard, vocab_dim, mesh):
-        return coll.all_gather_dim(lm_logits(params, x, cfg), -1, mesh)
+        # enter: the head's input meets the rank's vocab columns; after the
+        # gather every rank computes the same loss ("own")
+        x = coll.enter_model_region(x, mesh)
+        return coll.all_gather_dim(lm_logits(params, x, cfg), -1, mesh, backward="own")
     if cfg.tie_embeddings:
         if cfg.num_codebooks > 1:
             return torch.einsum("bse,kve->bskv", x, params["embed"])
@@ -446,10 +475,15 @@ class _Ctx:
     (``finish(y, partial)``: a partial sum is all-reduced over "model", a
     whole one kept; under ``residual_seq_shard`` both become the rank's
     sequence rows, and ``gather`` rebuilds every row of the residual);
-    ``rows_of``, the ``RowSharding`` of the batch rows the rank holds."""
+    ``rows_of``, the ``RowSharding`` of the batch rows the rank holds;
+    ``fsdp``, the position's stacked ``ParamSharding`` tree where a leaf
+    is cut over the data axes (ZeRO-3; ``weights`` gathers a layer's),
+    else None."""
 
-    def __init__(self, shard, mesh, seq_len: Optional[int] = None, rows=None):
-        self.shard, self.mesh, self.rows_of = shard, mesh, rows
+    def __init__(self, shard, mesh, seq_len: Optional[int] = None, rows=None, fsdp=None,
+                 repeats: int = 1):
+        self.shard, self.mesh, self.rows_of, self.fsdp = shard, mesh, rows, fsdp
+        self.repeats = repeats
         self.seq_len = seq_len
         if seq_len is not None:
             n, r = model_rank(mesh)
@@ -461,15 +495,15 @@ class _Ctx:
             return coll.all_reduce_sum(y, self.mesh) if partial else y
         a, b = self.rows
         if not partial:
-            return y[:, a:b]
+            return self.split(y)
         pad = self.n * self.block - y.shape[1]
         if pad:
             y = torch.cat([y, y.new_zeros((y.shape[0], pad, *y.shape[2:]))], dim=1)
         return coll.reduce_scatter_dim(y, 1, self.mesh)[:, :b - a]
 
     def split(self, x: Tensor) -> Tensor:
-        a, b = self.rows
-        return x[:, a:b]
+        """The rank's sequence rows of a replicated x (all-gather backward)."""
+        return coll.split_dim(x, 1, self.mesh)
 
     def gather(self, x: Tensor) -> Tensor:
         if self.seq_len is None:
@@ -477,7 +511,62 @@ class _Ctx:
         if x.shape[1] < self.block:
             x = torch.cat([x, x.new_zeros((x.shape[0], self.block - x.shape[1],
                                            *x.shape[2:]))], dim=1)
-        return coll.all_gather_dim(x, 1, self.mesh)[:, :self.seq_len]
+        # every rank computes the same from the gathered residual ("own")
+        return coll.all_gather_dim(x, 1, self.mesh, backward="own")[:, :self.seq_len]
+
+    def weights(self, bp: Params, r: int) -> Params:
+        """Layer r's weights for its computation: under ZeRO-3 each leaf cut
+        over the data axes gathered whole over them (``fsdp_gather``; a
+        leaf cut on the repeat axis broadcast by the rank that holds layer
+        r, ``fsdp_broadcast``), where the layer runs. Without ``remat``
+        autograd keeps each layer's gathered weights for its backward
+        pass; under ``remat`` it keeps none, and the recompute gathers
+        them again, so a rank holds one layer's at a time."""
+        if self.fsdp is None:
+            return bp
+
+        def one(path, t):
+            sh = _at(self.fsdp, path)
+            d = sh.data_dim()
+            if d is None:
+                return t
+            axes = sh.data_axes()
+            if d == 0:
+                owner, _ = _repeat_owner(sh, r, self.repeats)
+                return coll.fsdp_broadcast(t, self.mesh, axes, owner,
+                                           owner == self.mesh.index(axes))
+            return coll.fsdp_gather(t, d - 1, self.mesh, axes)
+
+        return tree_map_with_path(one, bp)
+
+
+def _repeat_owner(sh: ParamSharding, r: int, repeats: int) -> Tuple[int, int]:
+    """Where layer r of a stacked leaf cut over data axes on its repeat
+    axis lives: (the data index holding it, its index in that block)."""
+    per = repeats // coll.axes_size(sh.mesh, sh.data_axes())
+    return r // per, r % per
+
+
+def _layer_inputs(tree: Params, fsdp, repeats: int, mesh) -> list:
+    """Every layer's local weights, as ``_layers`` gives them; a leaf cut
+    over the data axes on its repeat axis (ZeRO-3) holds only its block
+    of layers, so layer r is its view where this rank holds it, and
+    another view of the leaf elsewhere (``fsdp_broadcast`` reads no value
+    of it there, and gives it no gradient)."""
+    if fsdp is None:
+        return _layers(tree, repeats)
+    unbound = _map(lambda a: a.unbind(0), tree)
+
+    def pick(r):
+        def one(path, u):
+            sh = _at(fsdp, path)
+            if sh.data_dim() != 0:
+                return u[r]
+            owner, j = _repeat_owner(sh, r, repeats)
+            return u[j] if owner == mesh.index(sh.data_axes()) else u[0]
+        return tree_map_with_path(one, unbound)
+
+    return [pick(r) for r in range(repeats)]
 
 
 def _sharded(ctx: Optional[_Ctx]) -> bool:
@@ -499,10 +588,15 @@ def _mlp_residual(bp: Params, x: Tensor, cfg: ModelConfig, pos: int,
     mlp = bp["mlp"]
     if kind == "E":
         # routing groups span the whole batch, as in the reference under
-        # GSPMD: row-sharded ranks route every row and keep theirs
+        # GSPMD: row-sharded ranks route every row and keep theirs (so
+        # their gradients differ after the gather: "reduce_scatter")
         split = ctx is not None and ctx.rows_of is not None and ctx.rows_of.n_shards > 1
         if split:
-            h = coll.all_gather_dim(h, 0, ctx.mesh, ctx.rows_of.axes)
+            h = coll.all_gather_dim(h, 0, ctx.mesh, ctx.rows_of.axes, backward="reduce_scatter")
+            if h.shape[0] != ctx.rows_of.batch:
+                raise ValueError(f"an 'E' layer routes groups of the whole batch: the data "
+                                 f"ranks' rows gather to {h.shape[0]}, not the "
+                                 f"{ctx.rows_of.batch} rows the unsharded groups hold")
         kw = {}
         if _sharded(ctx):
             kw = dict(shard=ctx.shard["mlp"], mesh=ctx.mesh,
@@ -513,16 +607,21 @@ def _mlp_residual(bp: Params, x: Tensor, cfg: ModelConfig, pos: int,
             if ctx.seq_len is not None:
                 y = ctx.finish(y, False)
         return x + y, aux
+    split = _sharded(ctx) and ctx.shard["mlp"]["w_out"].sharded_dim() is not None
+    if split:  # enter: the normed h meets the rank's F slice of w_in/w_gate
+        h = coll.enter_model_region(h, ctx.mesh)
     y = apply_mlp(h, mlp["w_in"], mlp["w_out"], mlp.get("w_gate"), act=cfg.act)
     if _sharded(ctx):
-        y = ctx.finish(y, ctx.shard["mlp"]["w_out"].sharded_dim() is not None)
+        y = ctx.finish(y, split)
     return x + y, None
 
 
 def _block_forward(bp: Params, x: Tensor, cfg: ModelConfig, pos: int, positions: Tensor,
                    cross_embeds: Optional[Tensor], use_kernel_ssd: bool, use_flash: bool,
-                   moe_routing: Optional[list], ctx: Optional[_Ctx] = None):
+                   moe_routing: Optional[list], ctx: Optional[_Ctx] = None, r: int = 0):
     mix = cfg.mixer_pattern[pos]
+    if ctx is not None:
+        bp = ctx.weights(bp, r)
     h = apply_norm(ctx.gather(x) if ctx is not None else x, cfg.norm_type, bp["norm1"])
     kw = {} if ctx is None else dict(mesh=ctx.mesh)
     if _sharded(ctx):
@@ -570,7 +669,8 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
             use_kernel_ssd: bool = True, use_flash: bool = True,
             remat: str = "none", last_logits_only: bool = False,
             moe_routing: Optional[list] = None, mesh=None,
-            rows=None, residual: Optional[list] = None) -> Tuple[Tensor, Tensor]:
+            rows=None, residual: Optional[list] = None,
+            shardings=None) -> Tuple[Tensor, Tensor]:
     """tokens (B, S) or, with K codebooks, (B, S, K) → (logits (B, S or 1,
     V) or (B, S or 1, K, V), the "E" layers' aux loss summed over the
     layers in order, fp32; 0 without "E" layers). ``cross_embeds`` (B,
@@ -590,29 +690,39 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
     (``moe.apply_moe``); ``residual`` (the same) the residual the final
     norm reads (the last position's with ``last_logits_only``).
 
-    ``mesh``: ``params`` is this rank's shard on it, ``tokens`` (and
+    ``mesh``: ``params`` is this rank's shard on it, laid out by
+    ``shardings`` (a ``ParamSharding`` tree; default ``model_shardings``,
+    the tensor-parallel layout; a leaf it cuts over the data axes too,
+    ZeRO-3, is gathered where it is used), ``tokens`` (and
     ``cross_embeds``) the rank's rows, cut by ``rows`` (a
     ``RowSharding``; None: every rank holds every row); the logits are
     the rank's rows over the whole vocab (module docstring). An "E"
     layer routes every row of the batch, as the reference does under
-    GSPMD (its routing groups span the batch)."""
+    GSPMD (its routing groups span the batch). Under autograd the
+    collectives carry their backward passes (``parallel/collectives.py``),
+    and ``remat`` recomputes a layer's collectives with it, in the same
+    order on every rank."""
     _check_config(cfg)
     check_levers(cfg, mesh)
     if "X" in cfg.mixer_pattern and cross_embeds is None:
         raise ValueError(f"{cfg.name} has cross-attention layers: pass cross_embeds "
                          f"(B, {cfg.num_patches}, {cfg.vision_dim})")
-    shards = None if mesh is None else model_shardings(cfg, mesh)
-    if shards is not None and remat != "none":
-        raise NotImplementedError("remat under a mesh is the training slice's (ROADMAP A11 (i))")
+    shards = None if mesh is None else (
+        shardings if shardings is not None else model_shardings(cfg, mesh))
+    if shards is not None:
+        params = _gather_top(params, shards, mesh)
     x = embed_tokens(params, tokens, cfg, **_head_kw(shards, "embed", mesh))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    blocks = [_layers(params["blocks"][f"p{i}"], cfg.num_repeats)
+    stacked = [None if shards is None else shards["blocks"][f"p{i}"]
+               for i in range(len(cfg.mixer_pattern))]
+    fsdp = [st if st is not None and _has_data_axes(st) else None for st in stacked]
+    blocks = [_layer_inputs(params["blocks"][f"p{i}"], fsdp[i], cfg.num_repeats, mesh)
               for i in range(len(cfg.mixer_pattern))]
     seq = cfg.residual_seq_shard is not None and mesh is not None and model_rank(mesh)[0] > 1
     ctxs = [None] * len(cfg.mixer_pattern) if shards is None else [
-        _Ctx(_layer_shardings(shards["blocks"][f"p{i}"]), mesh, x.shape[1] if seq else None,
-             rows) for i in range(len(cfg.mixer_pattern))]
+        _Ctx(_layer_shardings(stacked[i]), mesh, x.shape[1] if seq else None, rows, fsdp[i],
+             cfg.num_repeats) for i in range(len(cfg.mixer_pattern))]
     if seq:  # the residual holds the rank's sequence rows between sublayers
         x = ctxs[0].split(x)
     for r in range(cfg.num_repeats):
@@ -621,7 +731,7 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
                                       cfg=cfg, pos=i, positions=positions,
                                       cross_embeds=cross_embeds,
                                       use_kernel_ssd=use_kernel_ssd, use_flash=use_flash,
-                                      moe_routing=moe_routing, ctx=ctxs[i])
+                                      moe_routing=moe_routing, ctx=ctxs[i], r=r)
             x, a = _remat(layer, remat)(x)
             if a is not None:
                 aux = aux + a
@@ -640,7 +750,20 @@ def _head_name(cfg: ModelConfig) -> str:
 
 
 def _head_kw(shards, name: str, mesh) -> dict:
-    return {} if shards is None else dict(shard=shards[name], mesh=mesh)
+    return {} if shards is None else dict(shard=shards[name].model_part(), mesh=mesh)
+
+
+def _gather_top(params: Params, shards, mesh) -> Params:
+    """``params`` with the embedding and the head gathered over the data
+    axes where ZeRO-3 cuts them (once a forward: a tied embedding serves
+    as the head from the same gather); the blocks gather in their layers."""
+    out = dict(params)
+    for name in ("embed", "lm_head"):
+        sh = shards.get(name)
+        d = None if sh is None else sh.data_dim()
+        if d is not None:
+            out[name] = coll.fsdp_gather(params[name], d, mesh, sh.data_axes())
+    return out
 
 
 # --------------------------------------------------------------------------

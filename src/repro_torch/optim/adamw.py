@@ -17,6 +17,17 @@ at a time (elementwise arithmetic, so the same bits), so the update holds
 two chunks' temporaries beside the parameters, gradients and moments: a
 language model's optimizer step takes no second copy of any of them, and
 a training step's peak memory is its activations', not the optimizer's.
+
+Under a mesh (``shardings=``: the ``ParamSharding`` tree of the rank's
+parameter and gradient blocks) the clip norm is global: each rank sums
+the squares of its blocks, a leaf held alike by k ranks weighted 1/k,
+and one all-reduce over the whole mesh finishes the sum, so every rank
+takes the same clip scale. The update itself runs on the rank's blocks
+unchanged. ZeRO-1 (``blocks=``: where a moment holds only the rank's
+block over the data axes of a parameter the rank holds whole) updates
+that block of the parameter from its moment block and the whole
+(data-summed) gradient, and all-gathers the blocks over the data axes,
+leaf by leaf; ``init(params, blocks=)`` makes such moments.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.optim.tree import leaves, tree_map
+from repro_torch.parallel.collectives import sum_over, zero1_gather_
 
 Tensor = torch.Tensor
 
@@ -54,35 +66,60 @@ class AdamW:
     weight_decay: float = 0.1
     clip_norm: Optional[float] = 1.0
 
-    def init(self, params) -> AdamWState:
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return AdamWState(step=0, mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+    def init(self, params, blocks=None) -> AdamWState:
+        """Zero moments shaped as the parameters, or, with ``blocks`` (a tree
+        of ``ParamSharding`` or None a leaf, ZeRO-1), as each parameter's
+        block ``blocks[leaf].local_shape(p.shape)``."""
+        blks = [None] * len(leaves(params)) if blocks is None else _leaf_list(blocks, params)
+
+        def zeros():
+            it = iter(blks)
+            return tree_map(lambda p: torch.zeros(
+                (lambda b: p.shape if b is None else b.local_shape(p.shape))(next(it)),
+                dtype=torch.float32, device=p.device), params)
+
+        return AdamWState(step=0, mu=zeros(), nu=zeros())
 
     def _lr(self, step: Tensor) -> Tensor:
         if callable(self.lr):
             return self.lr(step)
         return torch.full((), self.lr, dtype=torch.float32, device=step.device)
 
-    def update(self, grads, state: AdamWState, params) -> Tuple[Any, AdamWState]:
+    def update(self, grads, state: AdamWState, params, *, shardings=None,
+               blocks=None, info: Optional[dict] = None) -> Tuple[Any, AdamWState]:
+        """One step (module docstring); ``shardings`` and ``blocks`` under
+        a mesh. ``info``, where given, receives the step's ``clip_scale``
+        (a 0-d tensor; None without clipping)."""
         step = state.step + 1
         with torch.no_grad():
             scale = None
             if self.clip_norm is not None:
-                gnorm = global_norm(grads)
+                gnorm = global_norm(grads, shardings)
                 scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+            if info is not None:
+                info["clip_scale"] = scale
             b1, b2 = self.b1, self.b2
             mu, nu = leaves(state.mu), leaves(state.nu)
             s = torch.full((), step, dtype=torch.float32, device=mu[0].device)
             bc1 = 1 - b1 ** s
             bc2 = 1 - b2 ** s
             lr = self._lr(s)
-            for p, g, m, v in zip(leaves(params), leaves(grads), mu, nu, strict=True):
+            blks = [None] * len(mu) if blocks is None else _leaf_list(blocks, params)
+            for p, g, m, v, blk in zip(leaves(params), leaves(grads), mu, nu, blks, strict=True):
+                whole = p
+                if blk is not None:  # ZeRO-1: the rank's block, then the gather
+                    idx = blk.index(p.shape)
+                    p, g = p[idx], g[idx]
                 if p.is_contiguous():  # m and v are: init made them
                     parts = zip(_chunks(p), g.reshape(-1).split(CHUNK), _chunks(m), _chunks(v))
+                elif p.dim() > 1:  # a strided block: a layer at a time
+                    parts = [(p[i], g[i], m[i], v[i]) for i in range(p.shape[0])]
                 else:
                     parts = [(p, g, m, v)]
                 for pc, gc, mc, vc in parts:
                     self._update_chunk(pc, gc, mc, vc, scale, bc1, bc2, lr)
+                if blk is not None:
+                    zero1_gather_(whole, p, blk.data_dim(), blk.mesh)
         return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
 
     def _update_chunk(self, p, g, m, v, scale, bc1, bc2, lr) -> None:
@@ -104,11 +141,32 @@ class AdamW:
             p.copy_((pf - u).to(p.dtype))
 
 
-def global_norm(tree) -> Tensor:
+def global_norm(tree, shardings=None) -> Tensor:
     """sqrt of the sum over leaves of Σ x² (fp32), leaves (and a large
-    leaf's chunks) added in order."""
+    leaf's chunks) added in order. With ``shardings`` (a tree of
+    ``ParamSharding`` matching ``tree``: each leaf is the rank's block)
+    the norm of the whole tree over the mesh: a leaf whose block k ranks
+    hold alike is weighted 1/k, and one all-reduce over the mesh sums the
+    ranks' totals (the same bits on every rank)."""
     total = 0
-    for x in leaves(tree):
+    shs = [None] * len(leaves(tree)) if shardings is None else _leaf_list(shardings, tree)
+    for x, sh in zip(leaves(tree), shs, strict=True):
+        k = 1 if sh is None else sh.replicas()
         for c in _chunks(x):
-            total = total + torch.sum(torch.square(c.to(torch.float32)))
+            part = torch.sum(torch.square(c.to(torch.float32)))
+            total = total + (part if k == 1 else part / k)
+    if shardings is not None and shs and shs[0].mesh.size > 1:
+        mesh = shs[0].mesh
+        total = sum_over(total, mesh, mesh.axis_names, "clip_norm")
     return torch.sqrt(total)
+
+
+def _leaf_list(tree, like) -> list:
+    """The leaves of ``tree`` (ParamSharding or None a leaf) in the order
+    of ``like``'s tensor leaves."""
+    if isinstance(like, dict):
+        out = []
+        for k, v in like.items():
+            out.extend(_leaf_list(tree[k], v) if isinstance(v, dict) else [tree[k]])
+        return out
+    return list(tree)

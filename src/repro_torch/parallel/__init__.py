@@ -6,18 +6,26 @@ collectives over ``torch.distributed``.
 owns in data-parallel sampling and serving, and the language models'
 rules (``param_shardings``, ``kv_cache_spec``, ``kv_cache_sharding``):
 which block of each parameter and decode cache a rank holds under a
-``("data", "model")`` mesh; ``collectives.py`` the O(B) error combine,
-the O(1) loop-control reduction, the row and bookkeeping gathers of
-sampling and serving, and the LM's model-axis sums and gathers and
-``flash_decode``. The reference's ``pipeline.py`` is not ported yet
-(ROADMAP A11 (ii)).
+``("data", "model")`` mesh, ZeRO-3's data-axis blocks too;
+``collectives.py`` the O(B) error combine, the O(1) loop-control
+reduction, the row and bookkeeping gathers of sampling and serving, the
+LM's model-axis sums and gathers and ``flash_decode``, their backward
+passes (the autograd pair: ``all_reduce_sum`` and
+``enter_model_region``), and training's data-axis collectives. The
+reference's ``pipeline.py`` is not ported yet (ROADMAP A11 (ii)).
 """
 
 from repro_torch.parallel.collectives import (
     all_gather_dim,
     all_reduce_sum,
+    enter_model_region,
     flash_decode,
+    fsdp_broadcast,
+    fsdp_gather,
+    reduce_gradients,
     reduce_scatter_dim,
+    split_dim,
+    zero1_gather_,
 )
 from repro_torch.parallel.mesh import Mesh, init_mesh
 from repro_torch.parallel.sharding import (
@@ -37,7 +45,8 @@ from repro_torch.parallel.sharding import (
 
 __all__ = [
     "MODEL_AXIS", "Mesh", "ParamSharding", "RowSharding", "all_gather_dim", "all_reduce_sum",
-    "batch_sharding", "data_axes", "flash_decode", "init_mesh", "kv_cache_sharding",
-    "kv_cache_spec", "param_shardings", "reduce_scatter_dim", "replicated",
-    "sample_state_shardings", "serving_loop_shardings", "solver_carry_shardings",
+    "batch_sharding", "data_axes", "enter_model_region", "flash_decode", "fsdp_broadcast",
+    "fsdp_gather", "init_mesh", "kv_cache_sharding", "kv_cache_spec", "param_shardings",
+    "reduce_gradients", "reduce_scatter_dim", "replicated", "sample_state_shardings",
+    "serving_loop_shardings", "solver_carry_shardings", "split_dim", "zero1_gather_",
 ]

@@ -5,32 +5,45 @@ leaves to XLA: for sampling and serving, the O(1) loop-control reduction
 gather, and the serve loop's two gathers at a sync: the (B_local,)
 bookkeeping vectors into (B,) (``gather_slot_vectors``) and the retired
 rows to every rank (``gather_retired``); for the language models under
-a mesh, the collectives GSPMD inserts for the reference: the sum of
-partial products over an axis (``all_reduce_sum``), the gather of a
-dimension (``all_gather_dim``) and the reduce-scatter of a dimension
-(``reduce_scatter_dim``).
+a mesh, the collectives GSPMD inserts for the reference's forward and
+train steps: the sum of partial products over an axis
+(``all_reduce_sum``), the gather of a dimension (``all_gather_dim``),
+the reduce-scatter of a dimension (``reduce_scatter_dim``), and their
+backward passes.
 
 Every collective runs over a group of the port's ``Mesh``
 (``torch.distributed``: NCCL on the card, gloo on the CPU, or gloo on the
-card with two ranks on one card). The LM's collectives run forward only
-and return their result (the caller never reads its input again), so
-that a training path can wrap them in ``torch.autograd.Function``s
-without changing the callers. ``calls`` and ``nbytes`` count the LM's
-collectives and the bytes each rank sends into them.
+card with two ranks on one card). Under autograd the LM's model-axis
+collectives are ``torch.autograd.Function``s with the Megatron
+convention's backward passes (the notes above ``_AllReduceSum``):
+``all_reduce_sum`` (identity backward), ``enter_model_region`` (identity
+forward, all-reduce backward; new calls, one at each entry into
+computation on a rank's slice, named where the layers make them),
+``all_gather_dim`` (each call says which backward: "own" or
+"reduce_scatter"), ``split_dim`` and ``reduce_scatter_dim`` (all-gather
+backward). Without autograd they run as before: forward only, in place
+where they can. Training adds the data-axis collectives GSPMD inserts
+for the reference's train step: the gradients' sum over the data axes
+(``reduce_gradients``), ZeRO-3's gather of a data-sharded leaf with a
+reduce-scatter backward (``fsdp_gather``; ``fsdp_broadcast`` where the
+leaf is cut on its repeat axis) and ZeRO-1's gather of the updated
+blocks (``zero1_gather_``). ``calls`` and ``nbytes`` count every LM
+collective and the bytes each rank sends into it, ``by_kind`` the same
+by kind (forward, remat's recompute, backward, the data-axis kinds).
 """
 
 from __future__ import annotations
 
 import itertools
 import math
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.mesh import Mesh
-from repro_torch.parallel.sharding import lever_axes
+from repro_torch.parallel.sharding import data_axes, lever_axes, split_rows
 
 Tensor = torch.Tensor
 
@@ -130,15 +143,41 @@ def gather_retired(rows: Tensor, counts, mesh: Mesh, sharding) -> Tensor:
 # --------------------------------------------------------------------------
 
 #: the LM collectives called and the bytes this rank put into them, since
-#: they were last set to 0
+#: they were last set to 0 (``reset``), in all and by kind: forward (the
+#: sums and gathers of a forward pass, and ``flash_decode``); recompute
+#: (the same, run again by ``remat`` inside the backward pass); backward
+#: (the backward passes' collectives); grad_reduce (the gradients' sum
+#: over the data axes); fsdp_gather and fsdp_scatter (a ZeRO-3 leaf's
+#: gather or broadcast, and its gradient's reduce-scatter or reduce);
+#: zero1_gather (the updated blocks' gather); clip_norm and metrics (the
+#: step's small sums); checkpoint (a leaf gathered whole for saving)
 calls = 0
 nbytes = 0
+by_kind: dict = {}
 
 
-def _count(t: Tensor) -> None:
+def reset() -> None:
+    """Set every count to 0."""
     global calls, nbytes
+    calls = nbytes = 0
+    by_kind.clear()
+
+
+def counts() -> dict:
+    """{kind: (calls, bytes)} since the last ``reset``."""
+    return {k: tuple(v) for k, v in by_kind.items()}
+
+
+def _count(t: Tensor, kind: Optional[str] = None) -> None:
+    global calls, nbytes
+    if kind is None:  # a forward collective; inside a backward pass, remat's recompute
+        kind = "recompute" if torch._C._current_graph_task_id() != -1 else "forward"
+    size = t.numel() * t.element_size()
     calls += 1
-    nbytes += t.numel() * t.element_size()
+    nbytes += size
+    c = by_kind.setdefault(kind, [0, 0])
+    c[0] += 1
+    c[1] += size
 
 
 def axes_group(mesh: Mesh, axes: Sequence[str]):
@@ -156,54 +195,320 @@ def axes_size(mesh: Mesh, axes: Sequence[str]) -> int:
     return math.prod(mesh.shape[a] for a in axes)
 
 
-def all_reduce_sum(t: Tensor, mesh: Mesh, axis: str = "model") -> Tensor:
-    """The sum of every rank's ``t`` over ``axis`` (every rank gets the same
-    bits). A one-rank axis returns ``t``."""
-    if mesh.shape[axis] == 1:
-        return t
-    t = t.contiguous()
-    _count(t)
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+def _axes(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _owned(t: Tensor) -> Tensor:
+    """A contiguous tensor the caller may overwrite: a gradient handed to a
+    backward pass can be shared with another input's (an add's)."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _sum_(t: Tensor, mesh: Mesh, axes, kind: Optional[str]) -> Tensor:
+    """All-reduce (sum) of the contiguous ``t`` over ``axes``, in place."""
+    _count(t, kind)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=axes_group(mesh, axes))
     return t
 
 
-def all_gather_dim(t: Tensor, dim: int, mesh: Mesh, axes: Union[str, Sequence[str]] = "model"
-                   ) -> Tensor:
-    """Every rank's ``t`` over ``axes``, concatenated along ``dim`` in the
-    ranks' order over ``axes`` (major to minor). A one-rank span returns
-    ``t``."""
-    axes = (axes,) if isinstance(axes, str) else tuple(axes)
-    n = axes_size(mesh, axes)
-    if n == 1:
-        return t
-    group = axes_group(mesh, axes)
+def _gather(t: Tensor, dim: int, mesh: Mesh, axes, kind: Optional[str]) -> Tensor:
+    """Every rank's ``t`` over ``axes`` concatenated along ``dim``; group
+    rank i sits at mesh index i over these axes (row-major mesh)."""
     t = t.contiguous()
-    _count(t)
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t, group=group)
-    # group rank i sits at mesh index i over these axes (row-major mesh)
+    _count(t, kind)
+    parts = [torch.empty_like(t) for _ in range(axes_size(mesh, axes))]
+    dist.all_gather(parts, t, group=axes_group(mesh, axes))
     return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter(t: Tensor, dim: int, mesh: Mesh, axes, kind: Optional[str]) -> Tensor:
+    """This rank's block (of n along ``dim``) of the sum over ``axes``.
+    NCCL reduce-scatters; gloo, which cannot, all-reduces and keeps the
+    rank's block (the same numbers)."""
+    n = axes_size(mesh, axes)
+    size = t.shape[dim]
+    if size % n:
+        raise ValueError(f"dim {dim} of size {size} does not split over {n} ranks of {axes}")
+    i, b = mesh.index(axes), size // n
+    group = axes_group(mesh, axes)
+    if dist.get_backend(group) == "nccl":
+        parts = [p.contiguous() for p in t.split(b, dim=dim)]
+        out = torch.empty_like(parts[0])
+        _count(t, kind)
+        dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=group)
+        return out
+    return _sum_(_owned(t), mesh, axes, kind).narrow(dim, i * b, b)
+
+
+def _block(t: Tensor, dim: int, mesh: Mesh, axes) -> Tensor:
+    """This rank's block of n equal blocks of ``t`` along ``dim``."""
+    b = t.shape[dim] // axes_size(mesh, axes)
+    return t.narrow(dim, mesh.index(axes) * b, b)
+
+
+def _grad_on(t: Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+# The autograd pair (the Megatron convention). A tensor is *replicated*
+# when every rank of "model" holds the same values, and then its gradient
+# is the whole gradient, the same on every rank; it is *partial* when the
+# ranks hold different summands or slices, and then each holds its part
+# of the gradient. ``all_reduce_sum`` turns partial sums into a
+# replicated tensor: every rank's upstream gradient is the same, so its
+# backward is the identity. ``enter_model_region`` marks where a
+# replicated tensor is consumed by computation on the rank's slice only
+# (a sharded projection's input, a replicated leaf of which a rank uses a
+# part): the identity forward, and a backward that sums the ranks' partial
+# gradients. ``all_gather_dim`` says at each call which backward follows
+# from what comes after the gather: "own" (every rank computes the same
+# thing after it: the rank takes its block of the whole gradient) or
+# "reduce_scatter" (ranks compute different things after it: the sum of
+# their gradients, the rank's block). ``split_dim`` (the rank's block of a
+# replicated tensor) is ``all_gather_dim``'s "own" mirror, and
+# ``reduce_scatter_dim``'s backward is an all-gather.
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return _sum_(_owned(t), mesh, axes, None)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _EnterRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_(_owned(g), ctx.mesh, ctx.axes, "backward"), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh, axes, backward):
+        ctx.dim, ctx.mesh, ctx.axes, ctx.backward = dim, mesh, axes, backward
+        return _gather(t, dim, mesh, axes, None)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.backward == "own":
+            g = _block(g, ctx.dim, ctx.mesh, ctx.axes)
+        else:
+            g = _reduce_scatter(g, ctx.dim, ctx.mesh, ctx.axes, "backward")
+        return g, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh, axes):
+        ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
+        return _reduce_scatter(t, dim, mesh, axes, None)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.mesh, ctx.axes, "backward"), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh, axis):
+        n, r = mesh.shape[axis], mesh.coord(axis)
+        size = t.shape[dim]
+        a, b = split_rows(size, n, r)
+        ctx.dim, ctx.mesh, ctx.axis, ctx.size, ctx.block = dim, mesh, axis, size, -(-size // n)
+        return t.narrow(dim, a, b - a)
+
+    @staticmethod
+    def backward(ctx, g):
+        pad = ctx.block - g.shape[ctx.dim]
+        if pad:
+            shape = list(g.shape)
+            shape[ctx.dim] = pad
+            g = torch.cat([g, g.new_zeros(shape)], dim=ctx.dim)
+        full = _gather(g, ctx.dim, ctx.mesh, (ctx.axis,), "backward")
+        return full.narrow(ctx.dim, 0, ctx.size), None, None, None
+
+
+def all_reduce_sum(t: Tensor, mesh: Mesh, axis: str = "model") -> Tensor:
+    """The sum of every rank's ``t`` over ``axis`` (every rank gets the same
+    bits; partial sums → a replicated tensor, the identity backward). A
+    one-rank axis returns ``t``. Without autograd it reduces ``t`` in place
+    where ``t`` is contiguous (the caller never reads its input again)."""
+    if mesh.shape[axis] == 1:
+        return t
+    if _grad_on(t):
+        return _AllReduceSum.apply(t, mesh, (axis,))
+    return _sum_(t.contiguous(), mesh, (axis,), None)
+
+
+def enter_model_region(t: Tensor, mesh: Mesh, axis: str = "model") -> Tensor:
+    """``t`` (replicated over ``axis``) where it enters computation on the
+    rank's slice: the identity, and in the backward pass the sum of the
+    ranks' partial gradients. A one-rank axis, or ``t`` outside autograd,
+    returns ``t``."""
+    if mesh.shape[axis] == 1 or not _grad_on(t):
+        return t
+    return _EnterRegion.apply(t, mesh, (axis,))
+
+
+def all_gather_dim(t: Tensor, dim: int, mesh: Mesh, axes: Union[str, Sequence[str]] = "model",
+                   *, backward: str) -> Tensor:
+    """Every rank's ``t`` over ``axes``, concatenated along ``dim`` in the
+    ranks' order over ``axes`` (major to minor). ``backward`` names what
+    follows the gather (module notes above): "own" or "reduce_scatter".
+    A one-rank span returns ``t``."""
+    if backward not in ("own", "reduce_scatter"):
+        raise ValueError(f"backward must be 'own' or 'reduce_scatter', got {backward!r}")
+    axes = _axes(axes)
+    if axes_size(mesh, axes) == 1:
+        return t
+    if _grad_on(t):
+        return _AllGather.apply(t, dim, mesh, axes, backward)
+    return _gather(t, dim, mesh, axes, None)
+
+
+def gather_whole(t: Tensor, sharding) -> Tensor:
+    """The whole leaf from every rank's block ``t`` (its ``ParamSharding``):
+    one all-gather a cut dimension, over its axes (a checkpoint's
+    gather, outside autograd)."""
+    with torch.no_grad():
+        for d, e in enumerate(sharding.spec):
+            axes = lever_axes(e)
+            if axes and axes_size(sharding.mesh, axes) > 1:
+                t = _gather(t, d, sharding.mesh, axes, "checkpoint")
+    return t
 
 
 def reduce_scatter_dim(t: Tensor, dim: int, mesh: Mesh, axis: str = "model") -> Tensor:
     """This rank's block (of ``n`` equal blocks along ``dim``) of the sum of
-    every rank's ``t`` over ``axis``. NCCL reduce-scatters; gloo, which
-    cannot, all-reduces and keeps the rank's block (the same numbers)."""
+    every rank's ``t`` over ``axis``; its backward all-gathers."""
+    if mesh.shape[axis] == 1:
+        return t
+    if _grad_on(t):
+        return _ReduceScatter.apply(t, dim, mesh, (axis,))
+    return _reduce_scatter(t, dim, mesh, (axis,), None)
+
+
+def split_dim(t: Tensor, dim: int, mesh: Mesh, axis: str = "model") -> Tensor:
+    """The rank's rows of a replicated ``t`` along ``dim``: block i of
+    ⌈size/n⌉ (the last ones short or empty, ``sharding.split_rows``); its
+    backward all-gathers the ranks' gradients. A one-rank axis returns
+    ``t``."""
     n = mesh.shape[axis]
     if n == 1:
         return t
-    size = t.shape[dim]
-    if size % n:
-        raise ValueError(f"dim {dim} of size {size} does not split over {n} ranks of {axis!r}")
-    i, b = mesh.coord(axis), size // n
-    group = mesh.group(axis)
-    if dist.get_backend(group) == "nccl":
-        parts = [p.contiguous() for p in t.split(b, dim=dim)]
-        out = torch.empty_like(parts[0])
-        _count(t)
-        dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=group)
-        return out
-    return all_reduce_sum(t, mesh, axis).narrow(dim, i * b, b)
+    if _grad_on(t):
+        return _Split.apply(t, dim, mesh, axis)
+    a, b = split_rows(t.shape[dim], n, mesh.coord(axis))
+    return t.narrow(dim, a, b - a)
+
+
+# --------------------------------------------------------------------------
+# the data axes: training's gradient sum, ZeRO-3 and ZeRO-1
+# --------------------------------------------------------------------------
+
+def reduce_gradients(grads: Sequence[Tensor], mesh: Mesh, skip: Sequence[bool] = ()) -> list:
+    """Every gradient summed over the data axes of ``mesh``, one all-reduce
+    a leaf (``torch.autograd.grad`` returns them all at once), in place
+    where a gradient is contiguous. ``skip[i]`` leaves gradient i alone (a
+    data-sharded leaf's gradient is already its block of the sum)."""
+    grads = list(grads)
+    axes = data_axes(mesh)
+    if axes_size(mesh, axes) == 1:
+        return grads
+    for i, g in enumerate(grads):
+        if not (skip and skip[i]):
+            grads[i] = _sum_(g.contiguous(), mesh, axes, "grad_reduce")
+    return grads
+
+
+def sum_over(t: Tensor, mesh: Mesh, axes, kind: str) -> Tensor:
+    """The sum of ``t`` over ``axes`` (a copy; ``t`` itself on one rank)."""
+    axes = _axes(axes)
+    if not axes or axes_size(mesh, axes) == 1:
+        return t
+    return _sum_(_owned(t), mesh, axes, kind)
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh, axes):
+        ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
+        return _gather(t, dim, mesh, axes, "fsdp_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.mesh, ctx.axes, "fsdp_scatter"), None, None, None
+
+
+def _broadcast(t: Tensor, mesh: Mesh, axes, owner: int, mine: bool) -> Tuple[Tensor, int]:
+    """The owner's ``t`` on every rank of ``axes`` (a copy), and the
+    owner's global rank."""
+    group = axes_group(mesh, axes)
+    src = dist.get_global_rank(group, owner)
+    buf = _owned(t) if mine else torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    _count(buf, "fsdp_gather")
+    dist.broadcast(buf, src=src, group=group)
+    return buf, src
+
+
+class _FsdpBroadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, owner, mine):
+        buf, ctx.src = _broadcast(t, mesh, axes, owner, mine)
+        ctx.mesh, ctx.axes, ctx.mine = mesh, axes, mine
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _owned(g)
+        group = axes_group(ctx.mesh, ctx.axes)
+        _count(g, "fsdp_scatter")
+        if dist.get_backend(group) == "nccl":
+            dist.reduce(g, dst=ctx.src, op=dist.ReduceOp.SUM, group=group)
+        else:  # gloo reduces CPU tensors only: all-reduce, the owner keeps it
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        return (g if ctx.mine else None), None, None, None, None
+
+
+def fsdp_gather(t: Tensor, dim: int, mesh: Mesh, axes) -> Tensor:
+    """A ZeRO-3 leaf's whole value over the data ``axes`` from this rank's
+    block ``t`` (cut along ``dim``): an all-gather, whose backward
+    reduce-scatters the gradient back to the rank's block."""
+    axes = _axes(axes)
+    if axes_size(mesh, axes) == 1:
+        return t
+    if _grad_on(t):
+        return _FsdpGather.apply(t, dim, mesh, axes)
+    return _gather(t, dim, mesh, axes, "fsdp_gather")
+
+
+def fsdp_broadcast(t: Tensor, mesh: Mesh, axes, owner: int, mine: bool) -> Tensor:
+    """One layer of a stacked leaf sharded over the data ``axes`` on its
+    repeat axis: the layer lives whole on the rank at data index
+    ``owner``, which broadcasts it (``t``: the layer where ``mine``, else
+    any tensor of its shape, whose values are not read). The backward
+    reduces the gradient to the owner (gloo: all-reduces), the only rank
+    that keeps it (the others return none). Every rank calls it, for
+    every layer."""
+    axes = _axes(axes)
+    if _grad_on(t):
+        return _FsdpBroadcast.apply(t, mesh, axes, owner, mine)
+    return _broadcast(t, mesh, axes, owner, mine)[0]
+
+
+def zero1_gather_(p: Tensor, block: Tensor, dim: int, mesh: Mesh) -> None:
+    """ZeRO-1: write every data rank's updated ``block`` of ``p`` (blocks
+    along ``dim``) into ``p``, one all-gather over the data axes."""
+    p.copy_(_gather(block, dim, mesh, data_axes(mesh), "zero1_gather"))
 
 
 def flash_decode(q: Tensor, k_new: Tensor, v_new: Tensor, cache_k: Tensor, cache_v: Tensor,

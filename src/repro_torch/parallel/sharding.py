@@ -21,8 +21,12 @@ tuple with one entry a dimension, as a ``PartitionSpec``: None, an axis
 name, or a tuple of names (major to minor). ``param_shardings`` returns
 a tree of ``ParamSharding``: the spec and the mesh, which give a leaf's
 local shape and this rank's slice of a full tensor. A ``Mesh`` without
-a ``DeviceMesh`` is enough to read them. Running parameters sharded over
-a data axis (``fsdp=True``) is the training slice's (ROADMAP A11 (i)).
+a ``DeviceMesh`` is enough to read them. A leaf sharded over a data
+axis too (``fsdp=True``, ZeRO-3) runs in training: the model path
+gathers it over the data axes where its layer runs
+(``collectives.fsdp_gather``, or ``fsdp_broadcast`` where the data axes
+cut the repeat axis), and ``ParamSharding.data_part`` and
+``model_part`` give the two halves of its block.
 """
 
 from __future__ import annotations
@@ -342,6 +346,38 @@ class ParamSharding:
         """This rank's block of the full leaf ``t`` (a view)."""
         return t[self.index(t.shape)]
 
+    def _keep(self, keep) -> "ParamSharding":
+        spec = []
+        for e in self.spec:
+            axes = tuple(a for a in _spec_axes(e) if keep(a))
+            spec.append(None if not axes else axes[0] if len(axes) == 1 else axes)
+        return ParamSharding(self.mesh, tuple(spec))
+
+    def data_part(self) -> "ParamSharding":
+        """The spec's data axes alone: the block of a leaf's model-axis
+        block (``local``) that this rank holds under ZeRO-3, as ``local``
+        gives the model-axis block of a whole leaf."""
+        return self._keep(lambda a: a != MODEL_AXIS)
+
+    def model_part(self) -> "ParamSharding":
+        """The spec's "model" axis alone (the tensor-parallel layout)."""
+        return self._keep(lambda a: a == MODEL_AXIS)
+
+    def data_dim(self) -> Optional[int]:
+        """The dimension cut over data axes (ZeRO-3), or None."""
+        for d, e in enumerate(self.spec):
+            if set(_spec_axes(e)) - {MODEL_AXIS}:
+                return d
+        return None
+
+    def data_axes(self) -> Tuple[str, ...]:
+        d = self.data_dim()
+        return () if d is None else _spec_axes(self.spec[d])
+
+    def replicas(self) -> int:
+        """How many ranks hold each block: the mesh's size over the blocks'."""
+        return self.mesh.size // math.prod(self.mesh.shape[a] for a in self.axes())
+
 
 def tree_map_with_path(fn, tree, path=()):
     """``fn(path, leaf)`` over a tree of nested dicts (``path``: the keys)."""
@@ -356,8 +392,8 @@ def param_shardings(params_shapes, mesh: Mesh, num_experts: Optional[int] = None
     do: ``launch/specs.py::abstract_params``) or of shapes (reference
     :130). ``fsdp=True``: after the tensor-parallel rules, the largest
     remaining unsharded dim of every ≥2-dim leaf that the data axes'
-    total size divides also shards over the data axes (ZeRO-3 style).
-    The model path does not run such leaves yet (``check_runnable``)."""
+    total size divides also shards over the data axes (ZeRO-3 style;
+    the model path gathers such a leaf where its layer runs)."""
     axes = data_axes(mesh)
     dsize = math.prod(mesh.shape[a] for a in axes) if axes else 1
 
@@ -375,20 +411,6 @@ def param_shardings(params_shapes, mesh: Mesh, num_experts: Optional[int] = None
         return ParamSharding(mesh, spec)
 
     return tree_map_with_path(fn, params_shapes)
-
-
-def check_runnable(shardings) -> None:
-    """Raise ``NotImplementedError`` for parameters sharded over a data axis
-    (``fsdp``): the model path gathers weights over "model" only; the
-    data-axis all-gathers and reduce-scatters of ZeRO-3 come with the
-    training slice (ROADMAP A11 (i))."""
-    bad = []
-    tree_map_with_path(lambda p, s: bad.append(_path_str(p))
-                        if set(s.axes()) - {MODEL_AXIS} else None, shardings)
-    if bad:
-        raise NotImplementedError(
-            f"parameters sharded over a data axis (fsdp), e.g. {bad[0]}: running them "
-            f"comes with the training slice under a mesh (ROADMAP A11 (i))")
 
 
 def kv_cache_spec(axis_sizes: dict, axes: Tuple[str, ...], batch: int, cache_len: int,

@@ -288,7 +288,9 @@ def test_codebook_stream_shape_and_delay():
 
 def test_train_loop_on_the_cpu(tmp_path, capsys):
     """musicgen-medium scaled down, 8 steps: finite, falling cross-entropy,
-    a time a step, a checkpoint; ``mesh=`` refused."""
+    a time a step, a checkpoint; ``mesh=`` a mesh without process groups
+    raises rather than training unsharded (``train_loop(mesh=)`` runs in
+    ``tests/test_torch_mesh_train_loop.py``)."""
     cfg = configs.get_config("musicgen-medium").scaled_down()
     times = []
     params, losses = train.train_loop(cfg, steps=8, batch=2, seq=32, lr=3e-3,
@@ -298,8 +300,11 @@ def test_train_loop_on_the_cpu(tmp_path, capsys):
     assert losses[-1] < losses[0]
     assert (tmp_path / "ckpt_00000008.npz").exists()
     assert "step    4" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A11"):
-        train.train_loop(cfg, steps=1, mesh=object(), device="cpu")
+    from repro_torch.parallel.mesh import Mesh
+
+    with pytest.raises(RuntimeError, match="no process groups"):
+        train.train_loop(cfg, steps=1, batch=2, seq=8,
+                         mesh=Mesh(("data", "model"), (1, 2), (0, 0)))
 
 
 def test_train_launcher_on_the_cpu(capsys):

@@ -12,8 +12,17 @@ parameters against the reference's ``param_shardings`` over
 (1, 4), (2, 2)}, with ``fsdp`` off and on; the decode caches'
 ``kv_cache_spec`` too. Specs are compared padded with None to the leaf's
 ndim (a ``PartitionSpec`` leaves trailing dims out). ``ParamSharding``
-is held to its spec: local shapes and slices of a full tensor.
+is held to its spec: local shapes and slices of a full tensor, and an
+``fsdp`` leaf's data and model parts. The train layouts
+(``launch.specs.train_layout``: "tp", "fsdp", "zero1") leaf by leaf
+against the reference's ``build_dryrun`` train branch's calls of
+``param_shardings`` (parameters, then moments with ``fsdp or zero1``,
+``physical_experts``), and a padded-expert config whose two expert
+counts lay the parameters out otherwise refused.
 """
+
+import dataclasses
+
 
 import jax
 import pytest
@@ -137,9 +146,82 @@ def test_param_shardings_equal_reference(arch, monkeypatch):
             sh.tree_map_with_path(lambda p, s: got.__setitem__(
                 "/".join(p), _norm(s.spec, len(tr._at(meta, p).shape))), tree)
             assert got == {k: v[0] for k, v in want.items()}, (arch, data, model, fsdp)
-            if fsdp and data > 1:
-                with pytest.raises(NotImplementedError, match="training slice"):
-                    sh.check_runnable(tree)
+            if fsdp and data > 1:  # ZeRO-3 leaves run: their two parts
+                plain = sh.param_shardings(meta, _mesh(data, model),
+                                           cfg.moe.num_experts if cfg.moe else None)
+                sh.tree_map_with_path(lambda p, s: _check_parts(
+                    s, tr._at(plain, p), len(tr._at(meta, p).shape), data), tree)
+
+
+def _check_parts(s, plain, ndim, data):
+    """An fsdp sharding is the tensor-parallel one plus the data axes on
+    one dimension: its model part is the plain spec, its data part that
+    dimension alone."""
+    assert _norm(s.model_part().spec, ndim) == _norm(plain.spec, ndim)
+    d = s.data_dim()
+    data_spec = _norm(s.data_part().spec, ndim)
+    assert all(e is None for i, e in enumerate(data_spec) if i != d)
+    assert (d is None) == (s.replicas() == plain.replicas())
+    if d is not None:
+        assert data_spec[d] == "data" and s.replicas() * data == plain.replicas()
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_train_layouts_equal_reference(arch, monkeypatch):
+    """``train_layout`` against the reference's train branch of
+    ``build_dryrun`` (``specs.py:125-138``): parameters by
+    ``param_shardings(fsdp=fsdp)``, moments by ``fsdp or zero1``, both with
+    ``physical_experts``; on the file's meshes, leaf by leaf."""
+    monkeypatch.setattr(jsh, "NamedSharding", lambda mesh, spec: spec)
+    jcfg, cfg = jconfigs.get_config(arch), configs.get_config(arch)
+    shapes = jax.eval_shape(lambda k: jtr.init_model(jcfg, k), jax.random.PRNGKey(0))
+    nexp = jcfg.moe.physical_experts if jcfg.moe else None
+    flat = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    for data, model in MESHES:
+        fake = FakeMesh(data=data, model=model)
+        for layout, fsdp, zero1 in (("tp", False, False), ("fsdp", True, False),
+                                    ("zero1", False, True)):
+            want_p = jsh.param_shardings(shapes, fake, nexp, fsdp=fsdp)
+            want_m = jsh.param_shardings(shapes, fake, nexp, fsdp=fsdp or zero1)
+            got = tspecs.train_layout(cfg, _mesh(data, model), layout)
+            assert got.name == layout
+            for path, leaf in flat:
+                keys = [p.key for p in path]
+                for want, tree in ((want_p, got.params), (want_m, got.moments)):
+                    w = want
+                    for k in keys:
+                        w = w[k]
+                    assert _norm(tr._at(tree, keys).spec, leaf.ndim) == _norm(w, leaf.ndim), \
+                        (arch, data, model, layout, keys)
+            blocks = got.blocks()
+            sh.tree_map_with_path(lambda p, b: _check_block(
+                b, tr._at(got.params, p), tr._at(got.moments, p), layout), blocks)
+
+
+def _check_block(b, p, m, layout):
+    """ZeRO-1's blocks: the data part of a moment cut over data axes that
+    its parameter is not cut over; none elsewhere (and none but zero1)."""
+    if layout == "zero1" and m.data_dim() is not None:
+        assert b is not None and b.data_dim() == m.data_dim() and not b.model_part().axes()
+    else:
+        assert b is None
+
+
+def test_train_layout_refuses_padded_experts_that_differ():
+    """A padded-expert config (granite's 40 experts padded to 48, the
+    reference's moe-pad48 perf variant) on a 16-rank "model" axis:
+    ``physical_experts`` (``specs.py``) shards the experts, ``num_experts``
+    (``train.py``) their F; the two layouts differ, so ``train_layout``
+    raises, naming the two; an unpadded config and a mesh where both
+    agree pass."""
+    cfg = configs.get_config("granite-moe-3b-a800m")
+    padded = cfg.replace(moe=dataclasses.replace(cfg.moe, padded_experts=48))
+    with pytest.raises(ValueError, match="physical_experts.*num_experts"):
+        tspecs.train_layout(padded, _mesh(1, 16), "tp")
+    tspecs.train_layout(cfg, _mesh(1, 16), "tp")
+    tspecs.train_layout(padded, _mesh(2, 1), "zero1")
+    with pytest.raises(ValueError, match="layout"):
+        tspecs.train_layout(cfg, _mesh(2, 1), "zero3")
 
 
 class _Named:
