@@ -348,7 +348,22 @@ Phases; any failure exits non-zero before the result line is printed:
              (8, 196,608) and at a (8, 98,304) feature half, one NCCL
              all_reduce of 9 floats, and the sharded solve's wall times
              against the unsharded solve's, warm and in turns, and against
-             phase 3's.
+             phase 3's. The same two selftests run checks 7 and 8 (no
+             further spawn): HIGHRES_DIT's forward pipelined over "pod"
+             (batch 8, 4 microbatches; one stage of 12 layers at world 1,
+             two of 6 at world 2), every rank's output bitwise the whole
+             model's with its blocks run microbatch by microbatch, K3 48
+             launches at world 1 and 24 a rank at world 2, the stage
+             handoffs booked; at world 1 an adaptive solve through
+             ``make_sample_step(forward_fn=pipelined)``, finite, converged,
+             within 4 NFE of the unpipelined solve, K1 and K3 launched;
+             and its tensor-parallel forward at mesh 1x1 (bitwise) and 1x2
+             (6 of 12 heads a rank; within 1e-4·(1 + max) of the unsharded
+             forward), K3 12 launches a rank, its collectives by kind, and
+             the same forward counted on meta tensors for that rank
+             (``collectives.counting``) equal to those books. K3 is timed
+             at their shapes, (2, 12, 256, 64) and (8, 6, 256, 64), beside
+             its plain version, SDPA and the 3xTF32 bound.
 9. precision — the precision seams in bf16 at full width, after the LM
              phases have freed their memory (< 1 GiB held at its start and
              before each LM): (a) HIGHRES_DIT, batch 8, phase 3's seeded
@@ -442,6 +457,8 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+#: the script's start, for the total it prints
+T0 = time.perf_counter()
 sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.analysis import roofline  # noqa: E402  (the port's package, from the checkout)
 
@@ -506,6 +523,11 @@ K4_E2_RTOL = 1e-6
 PLAIN_STEP = "ref.py, x-tilde as three fused multiply-adds emulated in fp64"
 #: seconds one run of the sharded selftest may take
 SELFTEST_TIMEOUT_S = 300
+#: K3's shapes in phase 8's checks 7 and 8 of HIGHRES_DIT (B, Hq, Hkv, S, Dh): a
+#: microbatch of 2 of the pipelined forward (batch 8, 4 microbatches) and a
+#: rank's 6 of 12 heads at mesh 1x2
+PIPE_ATTN = (2, 12, 12, 256, 64)
+TP_ATTN = (8, 6, 6, 256, 64)
 #: the training phase: DIT_100M's training steps and batch
 DIT_STEPS, DIT_BATCH = 20, 32
 #: the reference's Table 1 on the CPU (``PYTHONPATH=src python -m
@@ -3386,6 +3408,8 @@ def run_sharded(dev, card: str, main_wall_s: float) -> dict:
           f"{runs[2]['fused_kernel']['max_rel_e2_feature']:.3e}. One card: no speed-up is "
           f"measured here.")
     mesh = mesh_serving(runs, card)
+    dit_mesh = dit_mesh_checks(runs, card)
+    dit_mesh["k3"] = k3_mesh_times(dev, gen, card)
 
     # timings, each beside the card's name and power limit
     sets_full, sets_half = [], []
@@ -3419,7 +3443,89 @@ def run_sharded(dev, card: str, main_wall_s: float) -> dict:
           f"{walls(one['unsharded_warm_walls_s'])} s (order S U U S); world 2 on one card, "
           f"sharded {walls(two['sharded_walls_s'])} s")
     return {"launches": launches["sharded_solver_step"], "max_abs_err": err[(torch.float32, 2)],
-            "times": t, "all_reduce_9_us": ar["event_us"], "runs": runs, "mesh": mesh}
+            "times": t, "all_reduce_9_us": ar["event_us"], "runs": runs, "mesh": mesh,
+            "dit_mesh": dit_mesh}
+
+
+def dit_mesh_checks(runs: dict, card: str) -> dict:
+    """Phase 8's checks 7 and 8 of the selftest (the pipelined and the
+    tensor-parallel HIGHRES_DIT forward), read from both worlds' JSON:
+    printed, gated, and returned for the kernels line."""
+    from repro_torch.launch.sharded_selftest import NFE_SLACK, PIPE_MICROBATCHES
+
+    layers = 12
+    for world, run in sorted(runs.items()):
+        for p in run["pipeline"]:
+            print(f"  [{card}] check 7, world {world} ({run['backend']}), stage {p['stage']} of "
+                  f"mesh {p['mesh']} (layers {p['layers'][0]}-{p['layers'][1] - 1}): pipelined "
+                  f"forward bitwise the microbatched forward {p['bitwise_equal']}, K3 "
+                  f"{p['k3_launches']}, handoffs sent {p['handoffs'][0]} "
+                  f"({p['handoffs'][1] / 1e6:.2f} MB), broadcast {p['broadcasts'][0]} "
+                  f"({p['broadcasts'][1] / 1e6:.2f} MB); wall {p['wall_s']:.4f} s against "
+                  f"{p['microbatched_wall_s']:.4f} s unpipelined; check {p['seconds']:.1f} s")
+            want = (p["layers"][1] - p["layers"][0]) * PIPE_MICROBATCHES
+            sends = PIPE_MICROBATCHES if p["stage"] < world - 1 else 0
+            if not (p["bitwise_equal"] and p["k3_launches"] == want
+                    and p["handoffs"][0] == sends):
+                fail(f"check 7 at world {world}: not bitwise, or K3 launched "
+                     f"{p['k3_launches']} times (want {want}), or {p['handoffs'][0]} handoffs")
+        for p in run["tensor_parallel"]:
+            print(f"  [{card}] check 8, world {world} ({run['backend']}), rank {p['coordinate']} "
+                  f"of mesh {p['mesh']}: {p['heads']} heads, F {p['ffn']}, ada {p['ada']} a rank; "
+                  f"bitwise the unsharded forward {p['bitwise_equal']}, max|diff| "
+                  f"{p['max_abs_diff']:.3e} (bound {p['bound']:.2e}); K3 {p['k3_launches']}; "
+                  f"collectives a forward {p['books']}; meta count equal {p['meta_equal']}; "
+                  f"wall {p['wall_s']:.4f} s against {p['unsharded_wall_s']:.4f} s unsharded; "
+                  f"check {p['seconds']:.1f} s")
+            if not (p["within_bound"] and p["meta_equal"] and p["k3_launches"] == layers
+                    and (world > 1 or p["bitwise_equal"])):
+                fail(f"check 8 at world {world}: out of bound, meta count unequal, or K3 "
+                     f"launched {p['k3_launches']} times")
+    sol = runs[1]["pipeline"][0]["solve"]
+    print(f"  [{card}] check 7's solve through make_sample_step(forward_fn=pipelined), world 1: "
+          f"{sol['iterations']} iterations, mean NFE {sol['mean_nfe']:.2f} against "
+          f"{sol['unsharded_mean_nfe']:.2f} unpipelined (max diff {sol['max_nfe_diff']}, slack "
+          f"{NFE_SLACK}), converged {sol['converged']}/8, finite {sol['finite']}; K1 "
+          f"{sol['k1_launches']}, K3 {sol['k3_launches']}; {sol['wall_s']:.3f} s against "
+          f"{sol['unsharded_wall_s']:.3f} s")
+    if not (sol["finite"] and sol["converged"] == 8 and sol["max_nfe_diff"] <= NFE_SLACK
+            and sol["k1_launches"] > 0 and sol["k3_launches"] > 0):
+        fail("check 7's pipelined solve missed convergence, finiteness, the NFE slack or a kernel")
+    added = {w: sum(p["seconds"] for p in (runs[w]["pipeline"][0], runs[w]["tensor_parallel"][0]))
+             for w in runs}
+    print(f"  checks 7 and 8 took {added[1]:.1f} s in the world-1 selftest and {added[2]:.1f} s in "
+          f"the world-2 one (rank 0)")
+    return {"pipeline": {w: [p["k3_launches"] for p in runs[w]["pipeline"]] for w in runs},
+            "tensor_parallel": {w: [p["k3_launches"] for p in runs[w]["tensor_parallel"]]
+                                for w in runs},
+            "solve": sol, "seconds": added,
+            "books": {w: runs[w]["tensor_parallel"][0]["books"] for w in runs}}
+
+
+def k3_mesh_times(dev, gen, card: str) -> dict:
+    """K3 at checks 7 and 8's shapes, fp32, non-causal: device ms beside its
+    plain version, SDPA and the 3xTF32 bound (3 x 4·B·H·S²·D at 495
+    TFLOP/s, or the bytes at 3.35 TB/s if larger)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    out = {}
+    for name, (b, h, _, s, dh) in (("pipeline", PIPE_ATTN), ("tensor_parallel", TP_ATTN)):
+        sets = [tuple(torch.randn(b, h, s, dh, generator=gen, device=dev) for _ in range(3))
+                for _ in range(4)]
+        ms = device_ms(lambda q, k, v: flash_ops.attention(q, k, v, causal=False), sets)
+        plain = device_ms(lambda q, k, v: flash_ref.attention(q, k, v, causal=False), sets)
+        lib = device_ms(torch.nn.functional.scaled_dot_product_attention, sets)
+        ops, nbytes = 4 * b * h * s * s * dh, 4 * b * h * s * dh * 4
+        t_ops, t_bytes = 3 * ops / TF32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"shape": [b, h, s, dh], "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        print(f"  [{card}] flash_attention {(b, h, s, dh)} fp32 ({name}): {ms * 1e3:.2f} us on the "
+              f"device; bound {max(t_ops, t_bytes) * 1e3:.2f} us (3 x {ops / 1e9:.3f} GFLOP at "
+              f"495 TFLOP/s); plain {plain * 1e3:.1f} us; SDPA {lib * 1e3:.2f} us")
+        del sets
+    return out
 
 
 def mesh_serving(runs: dict, card: str) -> dict:
@@ -4745,6 +4851,8 @@ def main() -> None:
             (*plan_attn, False, None, None, torch.float32),
             (*plan_attn, False, None, None, torch.bfloat16),
             (*served_attn, False, None, None, torch.float32),
+            (*PIPE_ATTN, False, None, None, torch.float32),  # phase 8's check 7
+            (*TP_ATTN, False, None, None, torch.float32),  # phase 8's check 8
             (2, 4, 2, 200, 32, True, 64, None, torch.float32),
             (2, 4, 2, 200, 32, True, 64, None, torch.bfloat16),
             (1, 2, 2, 25, 64, False, None, None, torch.float32),
@@ -5566,6 +5674,11 @@ def main() -> None:
                                          "(phase 7c), 8·⌈iterations/8⌉",
                           **dlm_rec},
          "ptxas": [r for r in small_ptxas if r["kernel"].startswith("error_step")],
+         "dit_pipeline_solve": {"launched_as": "error_step in every iteration of phase 8's "
+                                               "check 7 solve through the pipelined HIGHRES_DIT "
+                                               "forward (world 1, NCCL)",
+                                "launches": k4["dit_mesh"]["solve"]["k1_launches"],
+                                "iterations": k4["dit_mesh"]["solve"]["iterations"]},
          "precision": {"launched_as": "error_step in every iteration of HIGHRES_DIT's "
                                       "adaptive solve under bf16 (fp32 state) and bf16_full "
                                       "(bf16 state), 8·⌈iterations/8⌉ (phase 9a)",
@@ -5640,6 +5753,20 @@ def main() -> None:
                                     "llama-3.2-vision-90b's period (32 of 64, 4 of 8)",
                      "launches_per_rank": lm_mesh_launches(lm_mesh, "K3")},
          "train_mesh": train_mesh_launches(train_mesh, "K3"),
+         "dit_pipeline": {"launched_as": "the DiT's attention in phase 8's check 7: HIGHRES_DIT's "
+                                         "pipelined forward, batch 8 in 4 microbatches of 2, "
+                                         "one stage of 12 layers at world 1 (NCCL), two of 6 "
+                                         "at world 2 (gloo)",
+                          "launches_per_rank": k4["dit_mesh"]["pipeline"],
+                          "max_abs_err": attn_err[(*PIPE_ATTN, torch.float32, False, None)],
+                          **k4["dit_mesh"]["k3"]["pipeline"]},
+         "dit_tensor_parallel": {"launched_as": "the DiT's attention in phase 8's check 8: "
+                                                "HIGHRES_DIT's tensor-parallel forward, batch 8, "
+                                                "all 12 heads at 1x1 (NCCL), 6 a rank at 1x2 "
+                                                "(gloo)",
+                                 "launches_per_rank": k4["dit_mesh"]["tensor_parallel"],
+                                 "max_abs_err": attn_err[(*TP_ATTN, torch.float32, False, None)],
+                                 **k4["dit_mesh"]["k3"]["tensor_parallel"]},
          "attention_lm": {"launched_as": "every attention layer of gemma3-12b's (1, 4096) "
                                          "prefill (phase 7b): causal with window 1024 on the "
                                          "40 'L' layers, causal on the 8 'A' layers, GQA 16:8, "
@@ -5849,6 +5976,7 @@ def main() -> None:
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite measurement for {k['name']}")
+    print(f"chip_smoke: {time.perf_counter() - T0:.1f} s to the result lines")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -568,13 +568,20 @@ def _sync(carry: SolverCarry, sharding):
     """``sync_state`` plus this rank's own iteration count, read in the same
     transfer."""
     global host_syncs
+    vals = sync_flags(carry, sharding).tolist()
+    host_syncs += 1
+    return not vals[0], int(vals[1]), int(vals[-1])
+
+
+def sync_flags(carry: SolverCarry, sharding=None) -> Tensor:
+    """[some sample active, iterations] on the device, made global under a
+    mesh by one ``all_reduce(MAX)`` (the loop control of a sync group),
+    with this rank's own iterations appended there: what ``_sync`` reads."""
     flags = torch.stack([(~carry.done).any().to(torch.int32), carry.iterations])
     if sharding is not None:
         flags = torch.cat([flags, carry.iterations.reshape(1)])
-        all_max(flags[:2], sharding.mesh.group())
-    vals = flags.tolist()
-    host_syncs += 1
-    return not vals[0], int(vals[1]), int(vals[-1])
+        all_max(flags[:2], sharding.mesh)
+    return flags
 
 
 def _pick_step_math(cfg: AdaptiveConfig, sharding):

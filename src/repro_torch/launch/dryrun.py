@@ -27,8 +27,8 @@ writes one JSON record a combination to ``--out`` (default
 
 Every layer runs, so the reference's depth extrapolation of XLA's
 scanned loops (its ``dryrun.py:78-121``) has no counterpart. The
-production mesh (``--multi-pod``) waits for the dry run under a mesh
-(ROADMAP A11 (iii)).
+production mesh (``--multi-pod``) waits for the LMs' dry run under a
+mesh (ROADMAP A11 (iii); the sampler's runs, ``launch/sample.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out /tmp/dryrun

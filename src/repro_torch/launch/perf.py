@@ -13,8 +13,8 @@ when the file already holds a baseline record.
 
 The reference's variants that need a mesh (sequence-sharded attention,
 sequence parallelism, padded experts for sharding, FSDP, ZeRO-1, flash
-decode over a mesh axis) raise: they wait for the dry run under a mesh
-(ROADMAP A11 (iii); the layouts themselves run, ``launch/specs.py``).
+decode over a mesh axis) raise: they wait for the LMs' dry run under a
+mesh (ROADMAP A11 (iii); the layouts themselves run, ``launch/specs.py``).
 """
 
 from __future__ import annotations

@@ -30,14 +30,25 @@ math, as the reference's ``dryrun``) of HIGHRES_DIT on the VE SDE at
 batch 512, on meta tensors (no card, nothing drawn), under
 ``--precision``'s policy, and one forward alone (one NFE): FLOPs and
 bytes from ``launch/dryrun.py::count``, and the policy's dtypes with the
-weight and state bytes they imply (``_precision_record``, one device).
-The record goes to ``--out`` (default ``experiments/dryrun_torch/``).
-The whole sharded loop (``--dryrun-loop``) and the two-pod mesh
-(``--multi-pod``) wait for the dry run under a mesh (ROADMAP A11 (iii)),
-the pipelined forward (``--pipeline``) for ``parallel/pipeline.py``
-(A11 (ii)); each says so when asked for.
+weight and state bytes they imply (``_precision_record``). On one card
+by default; ``--mesh 1pod`` and ``--multi-pod`` (``2pod``) count one
+rank of the reference's (16, 16) and (2, 16, 16) production meshes
+(``launch/mesh.py::make_production_mesh``): its rows of the state over
+the data axes, its blocks of the weights under the DiT's
+tensor-parallel rules (``_dit_param_shardings``), and the collectives it
+would call, by the reference's op kinds, inside
+``parallel.collectives.counting()``. ``--pipeline`` (2pod only, as in
+the reference) runs the forward as GPipe stages over "pod" at 4
+microbatches (``make_pipelined_dit_forward``). Every layer runs, so the
+counts are about an order of magnitude above the reference's, whose
+``cost_analysis`` counts the scanned layer body once. ``--dryrun-loop``
+counts the whole sharded loop of CIFAR_DIT on a ``("data",)`` mesh of
+``--loop-devices`` ranks (``dryrun_loop``). The records go to ``--out``
+(default ``experiments/dryrun_torch/``).
 
   PYTHONPATH=src python -m repro_torch.launch.sample --dryrun --precision bf16_full
+  PYTHONPATH=src python -m repro_torch.launch.sample --dryrun --multi-pod --pipeline
+  PYTHONPATH=src python -m repro_torch.launch.sample --dryrun-loop --loop-devices 8 --batch 32
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ import inspect
 import json
 import os
 import time
+from typing import Optional
 
 import torch
 
@@ -62,13 +74,61 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.solver_step import ops as step_ops
 from repro_torch.launch.dryrun import OUT_DIR as DRYRUN_DIR, count
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.dit import (
-    DiT, dit_forward, init_dit, liven_zero_init, make_score_fn, param_count,
+    DiT, DiTConfig, dit_forward, dit_param_shapes, init_dit, liven_zero_init, make_score_fn,
+    param_count,
 )
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.mesh import Mesh
+from repro_torch.parallel.pipeline import pipeline_forward, stage_layers
+from repro_torch.parallel.sharding import ParamSharding, batch_sharding, tree_map_with_path
 
 
 #: the solvers that run Algorithm 1's body and take its configuration
 ADAPTIVE_FAMILY = ("adaptive", "momentum", "heun")
+#: the dry run's meshes: one card, the reference's one- and two-pod meshes
+DRYRUN_MESHES = ("1card", "1pod", "2pod")
+#: the pipelined forward's microbatches in the dry run (the reference's default)
+PIPELINE_MICROBATCHES = 4
+
+
+def _dit_param_shardings(model, mesh: Mesh, pipeline_axis: Optional[str] = None):
+    """The DiT's tensor-parallel rules (reference :68-101): a tree of
+    ``ParamSharding`` over ``models/dit.py::dit_param_shapes`` of
+    ``model`` (a ``DiT`` or its ``DiTConfig``), on the stacked shapes:
+    ``wq``/``wk``/``wv`` on their heads and ``wo`` on its heads where n
+    divides them, ``w_in``/``w_gate`` on F and ``w_out`` on F, the 3-D
+    ``ada`` on its 6E columns, each where the size n of "model" divides
+    the dimension; with ``pipeline_axis``, every ``layers`` leaf also cut
+    on its repeat axis (GPipe stages) where that axis divides it; every
+    other leaf replicated."""
+    cfg = model if isinstance(model, DiTConfig) else model.cfg
+    msize = mesh.shape.get("model", 1)
+
+    def fn(path, shape):
+        name = "/".join(path)
+        stage = pipeline_axis if (
+            pipeline_axis and name.startswith("layers")
+            and shape[0] % mesh.shape.get(pipeline_axis, 1) == 0) else None
+        ok = lambda d: shape[d] % msize == 0
+        if name.endswith(("attn/wq", "attn/wk", "attn/wv")) and ok(2):
+            spec = (stage, None, "model", None)
+        elif name.endswith("attn/wo") and ok(1):
+            spec = (stage, "model", None, None)
+        elif name.endswith(("mlp/w_in", "mlp/w_gate")) and ok(2):
+            spec = (stage, None, "model")
+        elif name.endswith("mlp/w_out") and ok(1):
+            spec = (stage, "model", None)
+        elif name.endswith("/ada") and len(shape) == 3 and ok(2):
+            spec = (stage, None, "model")
+        elif stage:
+            spec = (stage,)
+        else:
+            spec = ()
+        return ParamSharding(mesh, spec)
+
+    return tree_map_with_path(fn, dit_param_shapes(cfg))
 
 
 def build_score(arch: str, *, flash: bool, precision: str, seed: int,
@@ -136,6 +196,60 @@ def make_sample_step(sde, cfg: AdaptiveConfig, forward_fn=None):
     return sample_step
 
 
+def make_pipelined_dit_forward(model: DiT, *, num_microbatches: int = 4, axis: str = "pod",
+                               policy=None, mesh: Mesh, sharded_rows: bool = False):
+    """The DiT forward with its blocks pipelined over ``axis`` (GPipe,
+    ``parallel/pipeline.py``); port of the reference's (:152-209).
+
+    Returns ``fwd(model, x, t)``, a ``make_sample_step`` forward (no
+    label input, as in the reference), ``model`` the rank's DiT: its
+    stage's blocks (``_dit_param_shardings(..., pipeline_axis=axis)``),
+    each on its heads and F columns where the mesh has "model" (the
+    tensor-parallel forward). The patch tokens and the fp32 timestep
+    embedding from the stored weights come first; the embedding rides as
+    one extra token, so one tensor crosses each stage boundary; the stage
+    runs the rank's blocks, and every rank runs the final adaLN and the
+    output projection on the pipeline's outputs. ``policy`` casts as the
+    DiT's forward does.
+
+    The pipeline takes the whole batch on every stage (the reference's
+    ``in_specs=P()``). With ``sharded_rows`` x holds this rank's rows of a
+    batch sharded over the data axes (the solver's carry): the rows of
+    the ranks along ``axis`` are gathered first, and the rank keeps its
+    block of the outputs. At one stage the result is bitwise the whole
+    model's blocks run microbatch by microbatch.
+
+    Raises ``ValueError`` unless ``model`` holds exactly its stage's
+    layers (``pipeline.stage_layers``): when n does not divide the
+    layers, the rules keep every block on every stage, and the pipeline
+    would run the stack n times over.
+    """
+    n = mesh.shape[axis]
+    want = stage_layers(model.cfg.num_layers, mesh, axis)
+    if model.layer_range != want:
+        raise ValueError(f"this DiT holds layers {model.layer_range}, not its stage's {want}")
+
+    def fwd(params: DiT, x, t):
+        h, temb, cw = params.embed(x, t, policy=policy)
+        hm = torch.cat([h, temb[:, None, :]], dim=1)
+        if sharded_rows:
+            hm = coll.all_gather_dim(hm, 0, mesh, axis, backward="own")
+
+        def stage(hm_mb):
+            h_mb, temb_mb = hm_mb[:, :-1].contiguous(), hm_mb[:, -1].contiguous()
+            h_mb = params.run_blocks(h_mb, temb_mb, cw, mesh)
+            return torch.cat([h_mb, temb_mb[:, None, :]], dim=1)
+
+        hm = pipeline_forward(stage, hm, mesh=mesh, axis=axis,
+                              num_microbatches=num_microbatches)
+        if sharded_rows and n > 1:
+            b = hm.shape[0] // n
+            hm = hm[mesh.coord(axis) * b:(mesh.coord(axis) + 1) * b]
+        return params.head(hm[:, :-1].contiguous(), hm[:, -1].contiguous(), cw)
+
+    return fwd
+
+
 def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
         eps_rel: float = 0.05, max_iters: int = 100_000, flash: bool = False,
         fused: bool = False, seed: int = 0, liven_seed: int = 0,
@@ -191,55 +305,192 @@ def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
     }
 
 
-def _precision_record(policy, params, state_x) -> dict:
-    """The policy's dtypes and the bytes they imply (reference :214) on
-    one device: the stored weights, and x and x_prev of the carry
-    (``state_x`` is the (B, ...) state)."""
+def _precision_record(policy, param_bytes: int, state_x) -> dict:
+    """The policy's dtypes and the bytes they imply (reference :214): the
+    whole tree's stored weights, and x and x_prev of the carry on one
+    device (``state_x``: this device's rows of the state)."""
     rec = policy.as_dict()
-    rec["param_bytes_total"] = sum(p.numel() * p.element_size() for p in params)
+    rec["param_bytes_total"] = param_bytes
     rec["state_bytes_per_device"] = 2 * state_x.numel() * state_x.element_size()
     return rec
 
 
+def _param_bytes(net: DiTConfig, dtype: torch.dtype) -> int:
+    """The bytes of the whole DiT stored at ``dtype``."""
+    shapes = []
+    tree_map_with_path(lambda _, shape: shapes.append(shape), dit_param_shapes(net))
+    elem = torch.empty((), dtype=dtype).element_size()
+    return sum(elem * int(torch.Size(s).numel()) for s in shapes)
+
+
+def mesh_iteration(model: DiT, sde, cfg: AdaptiveConfig, x, *, mesh: Optional[Mesh] = None,
+                   pipeline: bool = False, sharded_rows: bool = False):
+    """(body, carry, forward) of one Algorithm-1 iteration of ``model``
+    (the rank's DiT) on the state ``x`` (the rank's rows): the body with
+    the plain step math and ``torch.randn_like`` noise, the forward
+    tensor-parallel under ``mesh`` (or pipelined over "pod" with
+    ``pipeline``, ``PIPELINE_MICROBATCHES`` microbatches, the rows
+    gathered over "pod" first where ``sharded_rows``). The dry runs count
+    it on meta tensors; the tests and the self-test run it for real."""
+    policy = resolve_policy(cfg.precision)
+    if pipeline:
+        fwd = make_pipelined_dit_forward(model, num_microbatches=PIPELINE_MICROBATCHES,
+                                         policy=policy, mesh=mesh, sharded_rows=sharded_rows)
+    else:
+        fwd = lambda m, x, t: dit_forward(m, x, t, policy=policy, mesh=mesh)
+    step = make_sample_step(sde, cfg, forward_fn=fwd)
+    carry = ad.init_carry(sde, x, None, config=cfg)
+    body = ad._make_body(sde, step.score_of(model), cfg, float(sde.abs_tolerance),
+                         ad._step_math_jnp, noise_fn=torch.randn_like)
+    return body, carry, lambda x, t: fwd(model, x, t)
+
+
+def _collectives_record() -> dict:
+    """The counted collectives since the last ``coll.reset()``: calls and
+    result bytes by the reference's op kinds (its record's fields), and
+    calls and sent bytes by the port's kinds."""
+    ops = coll.op_counts()
+    return {"bytes_by_kind": {k: v[1] for k, v in ops.items()},
+            "counts": {k: v[0] for k, v in ops.items()},
+            "total_bytes": sum(v[1] for v in ops.values()),
+            "port_kinds": {k: {"calls": v[0], "bytes": v[1]} for k, v in coll.counts().items()}}
+
+
+def _save(rec: dict, out_dir: str, policy) -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    suffix = "" if policy.is_fp32 else f"_{policy.name}"
+    with open(os.path.join(out_dir, f"{rec['arch']}_{rec['shape']}_{rec['mesh']}{suffix}.json"),
+              "w") as f:
+        json.dump(rec, f, indent=1, sort_keys=True)
+
+
 def dryrun(batch: int = 512, precision: str = "fp32", *, arch: str = "highres_dit",
-           out_dir: str = DRYRUN_DIR, save: bool = True) -> dict:
+           mesh: str = "1card", pipeline: bool = False, out_dir: str = DRYRUN_DIR,
+           save: bool = True) -> dict:
     """One Algorithm-1 iteration of ``arch`` on the VE SDE (σ_max 50, the
     paper's high-resolution process, eps_rel 0.02), counted on meta
     tensors under ``precision`` (reference :236); one forward counted
     alone gives the per-NFE FLOPs and bytes. The plain attention and step
     math run (``use_flash=False``, ``use_fused_kernel=False``): the
-    kernels' wrappers take CPU or CUDA tensors only."""
+    kernels' wrappers take CPU or CUDA tensors only.
+
+    ``mesh`` "1pod" / "2pod" counts the first rank of the reference's
+    production mesh: its rows of the state (``parallel.sharding.
+    batch_sharding`` over the data axes), its blocks of the weights
+    (``_dit_param_shardings``), and every collective it calls, inside
+    ``coll.counting()``, in the record's ``collectives``. ``pipeline``
+    (2pod only, as the reference asserts) cuts the layers over "pod" and
+    runs the pipelined forward on the rank's "data" rows gathered over
+    "pod"."""
+    if mesh not in DRYRUN_MESHES:
+        raise ValueError(f"mesh {mesh!r}: want one of {DRYRUN_MESHES}")
+    if pipeline and mesh != "2pod":
+        raise ValueError("pipeline stages live on the pod axis (the 2pod mesh)")
     meta = torch.device("meta")
     net = dataclasses.replace(ARCHS[arch], use_flash=False)
     sde = VESDE(sigma_max=50.0)
     policy = resolve_policy(precision)
-    model = policy.cast_params(DiT(net, device=meta))  # stored at the param dtype
-    shape = (batch, net.image_size, net.image_size, net.channels)
     cfg = AdaptiveConfig(eps_rel=0.02, precision=policy)
-    step = make_sample_step(sde, cfg)
-    carry = ad.init_carry(sde, torch.empty(shape, device=meta), None, config=cfg)
-    body = ad._make_body(sde, step.score_of(model), cfg, float(sde.abs_tolerance),
-                         ad._step_math_jnp, noise_fn=torch.randn_like)
-    with torch.no_grad():
+    shape = (batch, net.image_size, net.image_size, net.channels)
+    m, rows, shardings = None, slice(None), None
+    if mesh != "1card":
+        m = make_production_mesh(multi_pod=mesh == "2pod")
+        rs = batch_sharding(m, batch, len(shape))
+        rows = rs.rows
+        shardings = _dit_param_shardings(net, m, pipeline_axis="pod" if pipeline else None)
+    model = policy.cast_params(DiT(net, device=meta, shardings=shardings))
+    x = torch.empty(shape, device=meta)[rows]
+    body, carry, fwd = mesh_iteration(model, sde, cfg, x, mesh=m, pipeline=pipeline,
+                                      sharded_rows=m is not None and not rs.replicated)
+    coll.reset()
+    with torch.no_grad(), coll.counting():
         it = count(body, carry)
-        nfe = count(lambda x, t: dit_forward(model, x, t, policy=policy),
-                    carry.x, carry.t)
-    rec = {"arch": f"dit-{arch.removesuffix('_dit')}-sampler", "shape": f"sample_b{batch}_"
-           f"{net.image_size}px", "mesh": "1card", "devices": 1, "dtype": policy.compute_dtype,
-           "cost": it, "per_nfe": {"flops": nfe["flops"],
-                                   "bytes": nfe["est_hbm_traffic_bytes"]},
-           "precision": _precision_record(policy, model.parameters(), carry.x),
-           "note": "one Algorithm-1 iteration (2 score-net forwards + step math)"}
+        collectives = _collectives_record()
+        nfe = count(fwd, carry.x, carry.t)
+    coll.reset()
+    rec = {"arch": f"dit-{arch.removesuffix('_dit')}-sampler" + ("-pipelined" if pipeline else ""),
+           "shape": f"sample_b{batch}_{net.image_size}px", "mesh": mesh,
+           "devices": 1 if m is None else m.size, "dtype": policy.compute_dtype,
+           "cost": it, "per_nfe": {"flops": nfe["flops"], "bytes": nfe["est_hbm_traffic_bytes"]},
+           "collectives": collectives,
+           "precision": _precision_record(policy, _param_bytes(net, policy.param), carry.x),
+           "note": "one Algorithm-1 iteration (2 score-net forwards + step math)"
+                   + ("" if m is None else "; one rank, every layer counted")}
+    if m is not None:
+        rec["rank"] = {"coordinate": dict(zip(m.axis_names, m.coordinate)),
+                       "rows": carry.x.shape[0],
+                       "layers": [model.layer_range.start, model.layer_range.stop],
+                       "param_bytes": sum(p.numel() * p.element_size()
+                                          for p in model.parameters())}
+        if pipeline:
+            rec["rank"]["microbatches"] = PIPELINE_MICROBATCHES
     if save:
-        os.makedirs(out_dir, exist_ok=True)
-        suffix = "" if policy.is_fp32 else f"_{policy.name}"
-        with open(os.path.join(out_dir, f"{rec['arch']}_{rec['shape']}_1card{suffix}.json"),
-                  "w") as f:
-            json.dump(rec, f, indent=1, sort_keys=True)
-    print(f"[{rec['arch']} × {rec['shape']} × 1card, {policy.name}] flops {it['flops']:.3e} "
+        _save(rec, out_dir, policy)
+    print(f"[{rec['arch']} × {rec['shape']} × {mesh}, {policy.name}] flops {it['flops']:.3e} "
           f"(a forward {nfe['flops']:.3e}), traffic {it['est_hbm_traffic_bytes'] / 2**30:.2f} "
           f"GiB, weights {rec['precision']['param_bytes_total'] / 2**30:.3f} GiB, state "
-          f"{rec['precision']['state_bytes_per_device'] / 2**30:.3f} GiB")
+          f"{rec['precision']['state_bytes_per_device'] / 2**30:.3f} GiB a device, "
+          f"collectives {collectives['total_bytes'] / 2**20:.2f} MiB "
+          f"{collectives['bytes_by_kind']}")
+    return rec
+
+
+def dryrun_loop(batch: int = 256, precision: str = "fp32", *, devices: int = 64,
+                out_dir: str = DRYRUN_DIR, save: bool = True) -> dict:
+    """The whole sharded sampling loop of CIFAR_DIT (VP, eps_rel 0.02) on a
+    ``("data",)`` mesh of ``devices`` ranks, weights replicated, counted
+    on meta tensors for the first rank (reference :312-373): the prior,
+    one loop body (two forwards and the step math), the loop control of a
+    sync group (``adaptive.sync_flags``: one ``all_reduce(MAX)``) and the
+    Tweedie denoise. The trip count depends on the data and is not in
+    the count (XLA's ``cost_analysis`` also counts the while body once);
+    ``cost.total`` is the prior, one iteration, one sync and the denoise.
+    The collectives are loop bookkeeping: none is activation-sized."""
+    if devices < 1 or batch % devices:
+        raise ValueError(f"batch {batch} must divide over {devices} devices")
+    meta = torch.device("meta")
+    net = ARCHS["cifar_dit"]
+    sde = VPSDE()
+    policy = resolve_policy(precision)
+    cfg = AdaptiveConfig(eps_rel=0.02, precision=policy)
+    m = Mesh(("data",), (devices,), (0,), device=meta)
+    shape = (batch, net.image_size, net.image_size, net.channels)
+    sharding = batch_sharding(m, batch, len(shape))
+    local = (batch // devices,) + shape[1:]
+    model = policy.cast_params(DiT(net, device=meta))
+    x = torch.empty(local, device=meta)
+    body, carry, _ = mesh_iteration(model, sde, cfg, x)
+    score = make_sample_step(sde, cfg).score_of(model)
+    parts, colls = {}, {}
+    with torch.no_grad(), coll.counting():
+        for name, fn, args in (
+                ("prior", lambda: torch.randn(local, device=meta) * sde.prior_std(), ()),
+                ("body", body, (carry,)),
+                ("loop_control", lambda c: ad.sync_flags(c, sharding), (carry,)),
+                ("denoise", lambda c: ad.finalize(sde, score, c, precision=policy).x,
+                 (carry,))):
+            coll.reset()
+            parts[name] = count(fn, *args)
+            colls[name] = _collectives_record()
+    coll.reset()
+    total = {k: sum(p[k] for p in parts.values())
+             for k in ("flops", "est_hbm_traffic_bytes")}
+    per_iteration = colls["body"]["total_bytes"] + colls["loop_control"]["total_bytes"]
+    rec = {"arch": "dit-cifar-sampler-whole-loop", "shape": f"sample_b{batch}_32px",
+           "mesh": f"data{devices}", "devices": devices, "dtype": policy.compute_dtype,
+           "cost": {"total": total, **parts}, "collectives": colls,
+           "collective_bytes_per_iteration": per_iteration,
+           "precision": _precision_record(policy, _param_bytes(net, policy.param), x),
+           "note": "prior + one loop body + one sync group's loop control + the Tweedie "
+                   "denoise, batch sharded, weights replicated; the trip count is "
+                   "data-dependent and not in the count (XLA's cost_analysis also counts the "
+                   "while body once)"}
+    if save:
+        _save(rec, out_dir, policy)
+    print(f"[{rec['arch']} × {rec['shape']} × {rec['mesh']}, {policy.name}] flops "
+          f"{total['flops']:.3e} (an iteration {parts['body']['flops']:.3e}), collectives "
+          f"an iteration {rec['collective_bytes_per_iteration']} B "
+          f"{colls['loop_control']['bytes_by_kind']}")
     return rec
 
 
@@ -271,20 +522,27 @@ def main(argv=None) -> list:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dryrun", action="store_true",
                     help="count one iteration at --batch (default 512) on meta tensors")
+    meshes = ap.add_mutually_exclusive_group()
+    meshes.add_argument("--mesh", choices=DRYRUN_MESHES[:2], default="1card",
+                        help="the dry run's mesh: one card, or one rank of the "
+                             "reference's 1pod (16, 16) mesh")
+    meshes.add_argument("--multi-pod", action="store_true",
+                        help="the dry run on one rank of the 2pod (2, 16, 16) mesh")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="the dry run's forward as GPipe stages over 'pod' (with --multi-pod)")
+    ap.add_argument("--dryrun-loop", action="store_true",
+                    help="count the whole sharded loop of CIFAR_DIT (default batch 256)")
+    ap.add_argument("--loop-devices", type=int, default=64,
+                    help="ranks of the ('data',) mesh of --dryrun-loop")
     ap.add_argument("--out", default=DRYRUN_DIR, help="the dry run's record directory")
-    waits = {"dryrun_loop": "the dry run under a mesh, ROADMAP A11 (iii)",
-             "pipeline": "parallel/pipeline.py, ROADMAP A11 (ii)",
-             "multi_pod": "the dry run under a mesh, ROADMAP A11 (iii)"}
-    for flag, what in waits.items():
-        ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
-                        help=f"waits for {what}")
     args = ap.parse_args(argv)
-    for flag, what in waits.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} waits for {what}")
-    if args.dryrun:
+    if args.dryrun_loop:
+        return [dryrun_loop(args.batch or 256, args.precision, devices=args.loop_devices,
+                            out_dir=args.out)]
+    if args.dryrun or args.multi_pod or args.pipeline or args.mesh != "1card":
         return [dryrun(args.batch or 512, args.precision, arch=args.arch or "highres_dit",
-                       out_dir=args.out)]
+                       mesh="2pod" if args.multi_pod else args.mesh,
+                       pipeline=args.pipeline, out_dir=args.out)]
     args.arch, args.batch = args.arch or "cifar_dit", args.batch or 8
     mesh, device = None, args.device
     methods = (("adaptive", {}), ("em", dict(n_steps=100)))

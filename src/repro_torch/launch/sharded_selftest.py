@@ -52,7 +52,26 @@ the multi-rank path end to end:
      gate: under EDF the five high-fidelity requests are seated first,
      four of them in block 0, which then holds them until the queue has
      drained through the other blocks, so block 0 need not refill.) The
-     kernels' launches are counted from 0 over each mesh serve.
+     kernels' launches are counted from 0 over each mesh serve;
+  7. with ``--arch``, the pipelined forward of that DiT
+     (``launch/sample.py::make_pipelined_dit_forward``, batch
+     ``PIPE_BATCH``, ``PIPE_MICROBATCHES`` microbatches) on a
+     ``("pod", "data", "model")`` mesh of (world, 1, 1): each rank holds
+     its stage's blocks (``shard_dit`` under ``_dit_param_shardings``
+     with the pipeline axis "pod"), and every rank's output is bitwise
+     the whole model's forward with its blocks run microbatch by
+     microbatch; K3's launches, the stage handoffs and the broadcast are
+     counted. At world 1, one adaptive solve through
+     ``make_sample_step(forward_fn=pipelined)`` (VP, eps_rel 0.05, fused
+     step): every sample finite and converged, NFE within ``NFE_SLACK``
+     of the same solve through the unsharded forward, K1 and K3 launched;
+  8. with ``--arch``, the tensor-parallel forward of that DiT on the
+     ``("data", "model")`` mesh of (world/2, 2) (1 × 1 at world 1): bitwise
+     the unsharded forward at world 1, within ``TP_TOL``·(1 + max|out|)
+     of it otherwise; the collectives of the forward by kind (the books);
+     and the forward counted on meta tensors for the same rank of the
+     same mesh without process groups (``collectives.counting``) equal to
+     those books, call for call and byte for byte.
 
 On the card one ``all_reduce`` of 9 floats is timed.
 
@@ -138,6 +157,11 @@ EM_STEPS = 59
 #: the tiered serve of check 6: chip_smoke.py phase 6a's
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_HORIZON = 8, 16, 4
 SERVE_TIERS = ("draft", "standard", "high_fidelity")
+#: checks 7 and 8: the DiT's batch and the pipeline's microbatches
+PIPE_BATCH, PIPE_MICROBATCHES = 8, 4
+#: check 8: the tensor-parallel forward against the unsharded one, times
+#: 1 + max|out| (the fp32 DiT parity tolerance of tests/test_torch_dit.py)
+TP_TOL = 1e-4
 #: the LM check's logits bound, times max|logit| (chip_smoke.py's LM_LOGIT_TOL)
 LM_TOL = 1e-3
 #: the training check's bounds, tests/test_torch_lm_train.py's: a step's loss
@@ -506,6 +530,161 @@ def check_arch_serve(mesh, dev, arch: str) -> dict:
         out["ok"] = all(out[n]["ok"] for n in runs)
     if not capturable(mesh, dev):
         out["device_resident"] = {"capturable": False}
+    return out
+
+
+def _arch_model(arch: str, dev, *, flash: bool = True):
+    """``arch``'s DiT (weights from seed 0, livened from seed 0) and a
+    ``PIPE_BATCH`` input drawn from seed 7."""
+    from repro_torch.configs.diffusion import ARCHS
+    from repro_torch.models.dit import init_dit, liven_zero_init
+
+    net = dataclasses.replace(ARCHS[arch], use_flash=flash)
+    model = init_dit(net, torch.Generator(device=dev).manual_seed(0))
+    liven_zero_init(model, torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(PIPE_BATCH, net.image_size, net.image_size, net.channels, generator=gen,
+                    device=dev)
+    t = torch.rand(PIPE_BATCH, generator=gen, device=dev) * 0.9 + 0.1
+    return net, model, x, t
+
+
+def _timed(fn, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def microbatched_forward(model, x, t, microbatches: int, policy=None):
+    """The whole ``model``'s blocks run on ``microbatches`` blocks of rows
+    in turn, the embedding and the head on the whole batch: what a GPipe
+    pipeline computes (check 7's expected value)."""
+    h, temb, cw = model.embed(x, t, policy=policy)
+    h = torch.cat([model.run_blocks(hb, tb, cw) for hb, tb in
+                   zip(h.chunk(microbatches), temb.chunk(microbatches))])
+    return model.head(h, temb, cw)
+
+
+def _solve_steps(step, model, sde, cfg, dev, max_sync_iters: int = 8):
+    """An adaptive solve chained through ``step`` (``make_sample_step``)
+    from a prior and noise drawn from seed 0, then the Tweedie denoise."""
+    from repro_torch.core.solvers import adaptive as ad
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shape = (PIPE_BATCH, model.cfg.image_size, model.cfg.image_size, model.cfg.channels)
+    carry = ad.init_carry(sde, sde.prior_sample(shape, gen), gen, config=cfg)
+    while True:
+        done, iters = ad.sync_state(carry)
+        if done or iters >= cfg.max_iters:
+            break
+        carry = step(model, carry, max_sync_iters=max_sync_iters)
+    return ad.finalize(sde, step.score_of(model), carry, precision=cfg.precision)
+
+
+def check_pipeline(dev, arch: str, world: int) -> dict:
+    """Check 7: the pipelined forward of ``arch`` over "pod" against the
+    whole model's blocks run microbatch by microbatch; at world 1 a solve
+    through it."""
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.core.solvers.adaptive import AdaptiveConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.launch.sample import (
+        _converged, _dit_param_shardings, make_pipelined_dit_forward, make_sample_step)
+    from repro_torch.models.dit import shard_dit
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import init_mesh
+
+    t0 = time.perf_counter()
+    mesh = init_mesh(1, 1, device=dev, pod=world)
+    net, full, x, t = _arch_model(arch, dev)
+    model = shard_dit(full, _dit_param_shardings(net, mesh, pipeline_axis="pod"))
+    fwd = make_pipelined_dit_forward(model, num_microbatches=PIPE_MICROBATCHES, mesh=mesh)
+    with torch.no_grad():
+        want, want_s = _timed(lambda: microbatched_forward(full, x, t, PIPE_MICROBATCHES), dev)
+        fwd(model, x, t)  # warm
+        coll.reset()
+        flash_ops.launches = 0
+        got, got_s = _timed(lambda: fwd(model, x, t), dev)
+    books = coll.counts()
+    out = {"mesh": list(mesh.sizes), "stage": mesh.coord("pod"),
+           "layers": [model.layer_range.start, model.layer_range.stop],
+           "bitwise_equal": bool(torch.equal(got, want)),
+           "max_abs_diff": float((got - want).abs().max()),
+           "k3_launches": flash_ops.launches,
+           "handoffs": list(books.get("stage_handoff", (0, 0))),
+           "broadcasts": list(books.get("stage_broadcast", (0, 0))),
+           "wall_s": got_s, "microbatched_wall_s": want_s}
+    if world == 1:
+        sde = VPSDE()
+        cfg = AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True, max_iters=400)
+        with torch.no_grad():
+            ref, ref_s = _timed(lambda: _solve_steps(make_sample_step(sde, cfg), full, sde,
+                                                     cfg, dev), dev)
+            step_ops.launches = flash_ops.launches = 0
+            res, res_s = _timed(lambda: _solve_steps(
+                make_sample_step(sde, cfg, forward_fn=fwd), model, sde, cfg, dev), dev)
+        out["solve"] = {
+            "k1_launches": step_ops.launches, "k3_launches": flash_ops.launches,
+            "iterations": int(res.iterations), "mean_nfe": float(res.nfe.float().mean()),
+            "unsharded_mean_nfe": float(ref.nfe.float().mean()),
+            "max_nfe_diff": int((res.nfe - ref.nfe).abs().max()),
+            "finite": bool(torch.isfinite(res.x).all()),
+            "converged": _converged(res, cfg.max_iters),
+            "wall_s": res_s, "unsharded_wall_s": ref_s}
+    del full, model
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_tensor_parallel(mesh, dev, arch: str) -> dict:
+    """Check 8: the tensor-parallel forward of ``arch`` on ``mesh`` against
+    the unsharded forward, and its books against its meta count."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.dryrun import count
+    from repro_torch.launch.sample import _dit_param_shardings
+    from repro_torch.models.dit import DiT, shard_dit
+    from repro_torch.parallel import Mesh
+    from repro_torch.parallel import collectives as coll
+
+    t0 = time.perf_counter()
+    net, full, x, t = _arch_model(arch, dev)
+    model = shard_dit(full, _dit_param_shardings(net, mesh))
+    with torch.no_grad():
+        want, want_s = _timed(lambda: full(x, t), dev)
+        model(x, t, mesh=mesh)  # warm
+        coll.reset()
+        flash_ops.launches = 0
+        got, got_s = _timed(lambda: model(x, t, mesh=mesh), dev)
+        books, ops = coll.counts(), coll.op_counts()
+        meta = torch.device("meta")
+        place = Mesh(mesh.axis_names, mesh.sizes, mesh.coordinate, device=meta)
+        mnet = dataclasses.replace(net, use_flash=False)  # kernel wrappers refuse meta
+        shadow = DiT(mnet, device=meta, shardings=_dit_param_shardings(mnet, place))
+        coll.reset()
+        with coll.counting():
+            count(lambda a, b: shadow(a, b, mesh=place), x.to(meta), t.to(meta))
+        counted, counted_ops = coll.counts(), coll.op_counts()
+    coll.reset()
+    err = float((got - want).abs().max())
+    bound = TP_TOL * (1 + float(want.abs().max()))
+    blk = model.blocks[0]
+    out = {"mesh": list(mesh.sizes), "coordinate": list(mesh.coordinate),
+           "layers": len(model.blocks), "heads": blk.wq.shape[1], "ffn": blk.w_in.shape[1],
+           "ada": blk.ada.shape[1],
+           "bitwise_equal": bool(torch.equal(got, want)), "max_abs_diff": err,
+           "bound": bound, "within_bound": err <= bound,
+           "k3_launches": flash_ops.launches,
+           "books": {k: {"calls": v[0], "mb": v[1] / 1e6} for k, v in ops.items()},
+           "port_kinds": {k: {"calls": v[0], "mb": v[1] / 1e6} for k, v in books.items()},
+           "meta_equal": counted_ops == ops and counted == books,
+           "wall_s": got_s, "unsharded_wall_s": want_s}
+    del full, model
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -1208,11 +1387,39 @@ def _rank_main(rank: int, world: int, port: int, out_dir: str, opts: dict) -> No
         if opts["arch"]:
             res["arch"] = check_arch(mesh1d, dev, opts["arch"])
             res["arch_serve"] = check_arch_serve(mesh1d, dev, opts["arch"])
+            res["pipeline"] = check_pipeline(dev, opts["arch"], world)
+            res["tensor_parallel"] = check_tensor_parallel(mesh2d, dev, opts["arch"])
         if dev.type == "cuda":
             res["all_reduce_9"] = time_all_reduce(dev)
         put_result(out_dir, rank, res)
     finally:
         dist.destroy_process_group()
+
+
+def _gate_dit_mesh(results: dict, ranks: list, world: int, device: str) -> bool:
+    """Checks 7 and 8 into ``results`` (every rank's), and whether they
+    passed: on the card also K3 (and in the solve K1) launched, K3 once a
+    layer a microbatch a stage and once a layer in the TP forward."""
+    pipe = [r["pipeline"] for r in ranks]
+    tp = [r["tensor_parallel"] for r in ranks]
+    results["pipeline"], results["tensor_parallel"] = pipe, tp
+    ok = all(p["bitwise_equal"] for p in pipe)
+    ok &= all(p["handoffs"][0] == (PIPE_MICROBATCHES if p["stage"] < world - 1 else 0)
+              for p in pipe)
+    if world == 1:
+        sol = pipe[0]["solve"]
+        ok &= (sol["finite"] and sol["converged"] == PIPE_BATCH
+               and sol["max_nfe_diff"] <= NFE_SLACK)
+        ok &= all(p["bitwise_equal"] for p in tp)
+    ok &= all(p["within_bound"] and p["meta_equal"] for p in tp)
+    if device == "cuda":
+        for p in pipe:
+            ok &= p["k3_launches"] == (p["layers"][1] - p["layers"][0]) * PIPE_MICROBATCHES
+        for p in tp:
+            ok &= p["k3_launches"] == p["layers"]
+        if world == 1:
+            ok &= pipe[0]["solve"]["k1_launches"] > 0 and pipe[0]["solve"]["k3_launches"] > 0
+    return bool(ok)
 
 
 def default_backend(device: str, world: int) -> str:
@@ -1287,6 +1494,8 @@ def run(world: int, *, device: str = "cuda", backend: str | None = None,
                     ok &= (n["sharded_solver_step"] > 0 and n["flash_attention"] > 0
                            and n["philox_normal"] > 0
                            and (n["horizon_cond"] > 0) == (name == "device_resident"))
+    if arch:
+        ok &= _gate_dit_mesh(results, ranks, world, device)
     if "all_reduce_9" in ranks[0]:
         results["all_reduce_9"] = ranks[0]["all_reduce_9"]
     results["ok"] = bool(ok)

@@ -18,7 +18,9 @@ layouts over the port's ``Mesh`` (the serving and training paths under a
 mesh read them): ``train_layout`` is the parameter and moment shardings
 of ``build_dryrun``'s train branch (reference :125-138, ``fsdp=`` and
 ``zero1=``), the counterpart of its ``in_shardings``/``out_shardings``.
-A dry run under a mesh waits for ROADMAP A11 (iii).
+The LMs' dry run under a mesh waits for ROADMAP A11 (iii), on the
+counting mode of the collectives the sampler's mesh dry runs use
+(``parallel/collectives.py::counting``).
 """
 
 from __future__ import annotations

@@ -11,8 +11,10 @@ which block of each parameter and decode cache a rank holds under a
 reduction, the row and bookkeeping gathers of sampling and serving, the
 LM's model-axis sums and gathers and ``flash_decode``, their backward
 passes (the autograd pair: ``all_reduce_sum`` and
-``enter_model_region``), and training's data-axis collectives. The
-reference's ``pipeline.py`` is not ported yet (ROADMAP A11 (ii)).
+``enter_model_region``), and training's data-axis collectives,
+the pipeline's stage handoffs, and the dry runs' counting mode;
+``pipeline.py`` the GPipe forward over a mesh axis (``pipeline_forward``,
+``stage_layers``).
 """
 
 from repro_torch.parallel.collectives import (
@@ -28,6 +30,7 @@ from repro_torch.parallel.collectives import (
     zero1_gather_,
 )
 from repro_torch.parallel.mesh import Mesh, init_mesh
+from repro_torch.parallel.pipeline import pipeline_forward, stage_layers
 from repro_torch.parallel.sharding import (
     MODEL_AXIS,
     ParamSharding,
@@ -47,6 +50,7 @@ __all__ = [
     "MODEL_AXIS", "Mesh", "ParamSharding", "RowSharding", "all_gather_dim", "all_reduce_sum",
     "batch_sharding", "data_axes", "enter_model_region", "flash_decode", "fsdp_broadcast",
     "fsdp_gather", "init_mesh", "kv_cache_sharding", "kv_cache_spec", "param_shardings",
-    "reduce_gradients", "reduce_scatter_dim", "replicated", "sample_state_shardings",
-    "serving_loop_shardings", "solver_carry_shardings", "split_dim", "zero1_gather_",
+    "pipeline_forward", "reduce_gradients", "reduce_scatter_dim", "replicated",
+    "sample_state_shardings", "serving_loop_shardings", "solver_carry_shardings", "split_dim",
+    "stage_layers", "zero1_gather_",
 ]

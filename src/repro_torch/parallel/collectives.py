@@ -27,15 +27,31 @@ for the reference's train step: the gradients' sum over the data axes
 (``reduce_gradients``), ZeRO-3's gather of a data-sharded leaf with a
 reduce-scatter backward (``fsdp_gather``; ``fsdp_broadcast`` where the
 leaf is cut on its repeat axis) and ZeRO-1's gather of the updated
-blocks (``zero1_gather_``). ``calls`` and ``nbytes`` count every LM
-collective and the bytes each rank sends into it, ``by_kind`` the same
-by kind (forward, remat's recompute, backward, the data-axis kinds).
+blocks (``zero1_gather_``). A pipeline over a mesh axis
+(``parallel/pipeline.py``) hands activations to the next stage with
+point-to-point calls (``stage_handoff``) and sends the last stage's
+outputs to every stage (``stage_broadcast``).
+
+``calls`` and ``nbytes`` count every collective these functions run
+(the sampling gathers and the K4 error combine aside) and the bytes each
+rank sends into it, ``by_kind`` the same by the port's kinds (forward,
+remat's recompute, backward, the data-axis kinds, the loop control, the
+pipeline's), and ``ops`` by the reference's five op kinds
+(``repro/analysis/hlo.py:23-24``) with the bytes of each call's result
+on this rank, as the reference counts an HLO result shape
+(``hlo.py:36-64``). ``counting()`` is the dry runs' mode: inside it a
+collective on meta tensors over a ``Mesh`` without process groups books
+its call as a real one would and returns a meta tensor of its result's
+shape, so one rank of a 256- or 512-device mesh can be counted on one
+host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
+import weakref
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -68,7 +84,13 @@ def scaled_error_l2_psum(sq_sum: Tensor, n_local, group) -> Tensor:
 
 
 def all_max(t: Tensor, group) -> Tensor:
-    """Element-wise maximum of ``t`` over ``group``, in place."""
+    """Element-wise maximum of ``t`` over ``group`` (a process group, or a
+    ``Mesh``: its whole group), in place; booked as "loop_control"."""
+    _count(t, "loop_control")
+    if isinstance(group, Mesh):
+        if _counted(t, group):
+            return t
+        group = group.group()
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
 
@@ -150,10 +172,19 @@ def gather_retired(rows: Tensor, counts, mesh: Mesh, sharding) -> Tensor:
 #: over the data axes); fsdp_gather and fsdp_scatter (a ZeRO-3 leaf's
 #: gather or broadcast, and its gradient's reduce-scatter or reduce);
 #: zero1_gather (the updated blocks' gather); clip_norm and metrics (the
-#: step's small sums); checkpoint (a leaf gathered whole for saving)
+#: step's small sums); checkpoint (a leaf gathered whole for saving);
+#: loop_control (the solver's sync, ``all_max``); stage_handoff and
+#: stage_broadcast (a pipeline's)
 calls = 0
 nbytes = 0
 by_kind: dict = {}
+#: the same calls by the reference's op kinds, with the bytes of each
+#: call's result on this rank (a gather's whole, a reduce-scatter's block)
+ops: dict = {}
+REFERENCE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                 "collective-permute")
+
+_counting = False
 
 
 def reset() -> None:
@@ -161,6 +192,7 @@ def reset() -> None:
     global calls, nbytes
     calls = nbytes = 0
     by_kind.clear()
+    ops.clear()
 
 
 def counts() -> dict:
@@ -168,7 +200,38 @@ def counts() -> dict:
     return {k: tuple(v) for k, v in by_kind.items()}
 
 
-def _count(t: Tensor, kind: Optional[str] = None) -> None:
+def op_counts() -> dict:
+    """{reference op kind: (calls, result bytes)} since the last ``reset``."""
+    return {k: tuple(v) for k, v in ops.items()}
+
+
+@contextlib.contextmanager
+def counting():
+    """The dry runs' mode. Inside it every collective on a meta tensor over
+    a ``Mesh`` without a ``DeviceMesh`` (``launch/mesh.py::
+    make_production_mesh``) books its call as a real one would and returns
+    a meta tensor of its result's shape: a gather multiplies the gathered
+    dimension by the ranks, a reduce-scatter divides it, a sum or a
+    broadcast keeps it. Outside it nothing changes, and a one-rank axis
+    is no call at all either way."""
+    global _counting
+    before, _counting = _counting, True
+    try:
+        yield
+    finally:
+        _counting = before
+
+
+def _counted(t: Tensor, mesh: Mesh) -> bool:
+    """True where the call is only counted (``counting``)."""
+    return _counting and t.is_meta and mesh.device_mesh is None
+
+
+def _count(t: Tensor, kind: Optional[str] = None, op: str = "all-reduce",
+           out_numel: Optional[int] = None) -> None:
+    """Book one call on ``t`` (the tensor this rank puts in) as ``kind``,
+    and as the reference's ``op`` with a result of ``out_numel`` elements
+    (``t``'s by default)."""
     global calls, nbytes
     if kind is None:  # a forward collective; inside a backward pass, remat's recompute
         kind = "recompute" if torch._C._current_graph_task_id() != -1 else "forward"
@@ -178,6 +241,9 @@ def _count(t: Tensor, kind: Optional[str] = None) -> None:
     c = by_kind.setdefault(kind, [0, 0])
     c[0] += 1
     c[1] += size
+    o = ops.setdefault(op, [0, 0])
+    o[0] += 1
+    o[1] += (t.numel() if out_numel is None else out_numel) * t.element_size()
 
 
 def axes_group(mesh: Mesh, axes: Sequence[str]):
@@ -208,6 +274,8 @@ def _owned(t: Tensor) -> Tensor:
 def _sum_(t: Tensor, mesh: Mesh, axes, kind: Optional[str]) -> Tensor:
     """All-reduce (sum) of the contiguous ``t`` over ``axes``, in place."""
     _count(t, kind)
+    if _counted(t, mesh):
+        return t
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=axes_group(mesh, axes))
     return t
 
@@ -216,8 +284,13 @@ def _gather(t: Tensor, dim: int, mesh: Mesh, axes, kind: Optional[str]) -> Tenso
     """Every rank's ``t`` over ``axes`` concatenated along ``dim``; group
     rank i sits at mesh index i over these axes (row-major mesh)."""
     t = t.contiguous()
-    _count(t, kind)
-    parts = [torch.empty_like(t) for _ in range(axes_size(mesh, axes))]
+    n = axes_size(mesh, axes)
+    _count(t, kind, "all-gather", n * t.numel())
+    if _counted(t, mesh):
+        shape = list(t.shape)
+        shape[dim] *= n
+        return t.new_empty(shape)
+    parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=axes_group(mesh, axes))
     return torch.cat(parts, dim=dim)
 
@@ -231,14 +304,18 @@ def _reduce_scatter(t: Tensor, dim: int, mesh: Mesh, axes, kind: Optional[str]) 
     if size % n:
         raise ValueError(f"dim {dim} of size {size} does not split over {n} ranks of {axes}")
     i, b = mesh.index(axes), size // n
+    _count(t, kind, "reduce-scatter", t.numel() // n)
+    if _counted(t, mesh):
+        return t.narrow(dim, i * b, b).contiguous()
     group = axes_group(mesh, axes)
     if dist.get_backend(group) == "nccl":
         parts = [p.contiguous() for p in t.split(b, dim=dim)]
         out = torch.empty_like(parts[0])
-        _count(t, kind)
         dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=group)
         return out
-    return _sum_(_owned(t), mesh, axes, kind).narrow(dim, i * b, b)
+    buf = _owned(t)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.narrow(dim, i * b, b)
 
 
 def _block(t: Tensor, dim: int, mesh: Mesh, axes) -> Tensor:
@@ -449,13 +526,18 @@ class _FsdpGather(torch.autograd.Function):
         return _reduce_scatter(g, ctx.dim, ctx.mesh, ctx.axes, "fsdp_scatter"), None, None, None
 
 
-def _broadcast(t: Tensor, mesh: Mesh, axes, owner: int, mine: bool) -> Tuple[Tensor, int]:
+def _broadcast(t: Tensor, mesh: Mesh, axes, owner: int, mine: bool,
+               kind: str = "fsdp_gather", op: str = "all-gather") -> Tuple[Tensor, int]:
     """The owner's ``t`` on every rank of ``axes`` (a copy), and the
-    owner's global rank."""
+    owner's global rank (None when only counted). ``op`` is the
+    reference's op this broadcast stands for: ZeRO-3's gather of a layer
+    by default."""
+    buf = _owned(t) if mine else torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    _count(buf, kind, op)
+    if _counted(buf, mesh):
+        return buf, None
     group = axes_group(mesh, axes)
     src = dist.get_global_rank(group, owner)
-    buf = _owned(t) if mine else torch.empty(t.shape, dtype=t.dtype, device=t.device)
-    _count(buf, "fsdp_gather")
     dist.broadcast(buf, src=src, group=group)
     return buf, src
 
@@ -574,3 +656,80 @@ def flash_decode(q: Tensor, k_new: Tensor, v_new: Tensor, cache_k: Tensor, cache
     o = packed[:, H:].reshape(B, 1, H, Dh)
     o = o / torch.clamp(s_glob, min=1e-30).transpose(1, 2)[..., None]
     return o.to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# the pipeline's stage boundaries (parallel/pipeline.py)
+# --------------------------------------------------------------------------
+
+#: the (mesh, axis) pairs whose group has run a collective that every
+#: stage joined (``open_stage_group``)
+_opened = weakref.WeakKeyDictionary()
+
+
+def open_stage_group(mesh: Mesh, axis: str, like: Tensor) -> None:
+    """Let the stage handoffs over ``axis`` start: the first call on an
+    NCCL group must include every rank of it, and a pipeline's first
+    ticks hand off between two stages only. So every stage joins one
+    all-reduce of a single value on the group, once per ``mesh`` and
+    axis, before its first handoff (``like``: a tensor on the rank's
+    device). It moves no data of the model and is not booked. Nothing
+    runs at one stage or inside ``counting``."""
+    if mesh.shape[axis] == 1 or _counted(like, mesh):
+        return
+    done = _opened.setdefault(mesh, set())
+    if axis in done:
+        return
+    group = mesh.group(axis)
+    dev = "cpu" if dist.get_backend(group) == "gloo" else like.device
+    dist.all_reduce(torch.zeros(1, device=dev), group=group)
+    done.add(axis)
+
+
+def stage_handoff(send: Optional[Tensor], recv_like: Optional[Tensor], mesh: Mesh,
+                  axis: str) -> Optional[Tensor]:
+    """One tick's boundary of a pipeline over ``axis`` (the reference's
+    ``ppermute`` to stage + 1): ``send`` goes to the next stage, and a
+    tensor shaped like ``recv_like`` comes from the previous one; the two
+    are posted together (``batch_isend_irecv``), so neither waits for the
+    other. Either may be None (the first stage receives nothing, the last
+    sends nothing, an idle tick neither). Returns what was received, or
+    None. A handoff is booked once, by its sender: "stage_handoff", the
+    reference's "collective-permute". Over gloo the tensors pass through
+    the host."""
+    if send is not None:
+        send = send.contiguous()
+        _count(send, "stage_handoff", "collective-permute")
+    first = send if send is not None else recv_like
+    if first is None:
+        return None
+    if _counted(first, mesh):
+        return None if recv_like is None else torch.empty_like(recv_like)
+    group, s = mesh.group(axis), mesh.coord(axis)
+    dev = first.device
+    host = dist.get_backend(group) == "gloo" and dev.type != "cpu"
+    p2p, got = [], None
+    if send is not None:
+        p2p.append(dist.P2POp(dist.isend, send.cpu() if host else send,
+                              dist.get_global_rank(group, s + 1), group))
+    if recv_like is not None:
+        got = torch.empty(recv_like.shape, dtype=recv_like.dtype,
+                          device="cpu" if host else recv_like.device)
+        p2p.append(dist.P2POp(dist.irecv, got, dist.get_global_rank(group, s - 1), group))
+    for work in dist.batch_isend_irecv(p2p):
+        work.wait()
+    return None if got is None else got.to(dev)
+
+
+def stage_broadcast(t: Tensor, mesh: Mesh, axis: str, owner: int) -> Tensor:
+    """The stage at ``owner`` of ``axis`` sends ``t`` to every stage (a
+    copy on each; ``t``'s values are read on the owner only). The
+    reference sums the last stage's outputs with the other stages' zeros
+    (a psum, ``repro/parallel/pipeline.py:77-79``); the broadcast gives
+    the owner's bits exactly and moves fewer bytes. Booked as
+    "stage_broadcast", and as the reference's "all-reduce", the op it
+    stands for."""
+    if mesh.shape[axis] == 1:
+        return t
+    return _broadcast(t, mesh, (axis,), owner, mesh.coord(axis) == owner,
+                      kind="stage_broadcast", op="all-reduce")[0]

@@ -85,24 +85,29 @@ class Mesh:
         return self.device_mesh.mesh.tolist()
 
 
-def init_mesh(data: int, model: int = 1, *, device) -> Mesh:
+def init_mesh(data: int, model: int = 1, *, device, pod: Optional[int] = None) -> Mesh:
     """A ``("data", "model")`` mesh over the initialised default process
-    group, whose world size must be ``data · model``.
+    group, whose world size must be ``data · model``; with ``pod``, the
+    reference's ``("pod", "data", "model")`` layout (``repro/launch/
+    mesh.py:13-16``) over a world of ``pod · data · model``.
 
     ``device`` is the device this rank computes on (``cuda:i`` or
     ``cpu``). Ranks are laid out row-major: rank r sits at
-    (r // model, r % model). Raises when no process group is initialised;
-    there is no single-process stand-in.
+    (r // model, r % model), and with ``pod`` at
+    (r // (data · model), (r // model) % data, r % model). Raises when no
+    process group is initialised; there is no single-process stand-in.
     """
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError("init_mesh needs an initialised torch.distributed "
                            "process group (init_process_group first)")
+    names, sizes = ("data", "model"), (data, model)
+    if pod is not None:
+        names, sizes = ("pod",) + names, (pod,) + sizes
     world = dist.get_world_size()
-    if data * model != world:
-        raise ValueError(f"mesh ({data}, {model}) does not cover the world of {world} ranks")
+    if math.prod(sizes) != world:
+        raise ValueError(f"mesh {sizes} does not cover the world of {world} ranks")
     device = torch.device(device)
-    dm = init_device_mesh(device.type, (data, model), mesh_dim_names=("data", "model"))
-    return Mesh(("data", "model"), (data, model), tuple(dm.get_coordinate()),
-                device=device, device_mesh=dm)
+    dm = init_device_mesh(device.type, sizes, mesh_dim_names=names)
+    return Mesh(names, sizes, tuple(dm.get_coordinate()), device=device, device_mesh=dm)

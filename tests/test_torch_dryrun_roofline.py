@@ -222,9 +222,15 @@ def test_sample_dryrun_cli_and_mesh_modes(tmp_path):
                         "--out", str(tmp_path)])
     assert recs[0]["shape"] == "sample_b4_256px"
     assert (tmp_path / "dit-highres-sampler_sample_b4_256px_1card_bf16_full.json").exists()
-    for flag in ("--dryrun-loop", "--pipeline", "--multi-pod"):
-        with pytest.raises(SystemExit, match="A11"):
-            sample.main([flag])
+    # the sampler's mesh dry runs write their records; the LMs' production
+    # mesh still waits for ROADMAP A11 (iii)
+    for flags, name in ((["--dryrun-loop", "--loop-devices", "4"],
+                         "dit-cifar-sampler-whole-loop_sample_b4_32px_data4.json"),
+                        (["--multi-pod", "--pipeline"],
+                         "dit-highres-sampler-pipelined_sample_b4_256px_2pod.json"),
+                        (["--multi-pod"], "dit-highres-sampler_sample_b4_256px_2pod.json")):
+        sample.main(flags + ["--batch", "4", "--out", str(tmp_path)])
+        assert (tmp_path / name).exists()
     with pytest.raises(SystemExit, match="A11"):
         dryrun.main(["--all", "--multi-pod"])
 
