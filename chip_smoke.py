@@ -287,7 +287,7 @@ Phases; any failure exits non-zero before the result line is printed:
              ragged S) beside its bound, the plain version and SDPA.
              (a) llama-3.2-vision-90b at full width, its depth cut to one
              period (4 "A" + 1 "X", 6,378,577,920 parameters, checked; the
-             100 layers need A11's sharding), on seeded image embeddings
+             100 layers fit across cards only), on seeded image embeddings
              (B, 1601, 7680), the reference's stubbed vision tower: the
              (1, 4096) prefill through ``make_prefill_step`` with exactly 4
              K3 launches (the "X" layer takes the plain path), its
@@ -415,7 +415,11 @@ Phases; any failure exits non-zero before the result line is printed:
              K7 launched on every rank once a layer (gemma3 48, deepseek 4,
              llama 4, mamba2 K7 64); every rank's residual and tokens the
              same bits; the walls, collectives and bytes a prefill and a
-             decode step, and the peaks a rank printed with the card.
+             decode step, and the peaks a rank printed with the card; in
+             (b), (c) and (d) every rank's count of the dry run's prefill
+             and decode step (``specs.build_dryrun`` on meta tensors for
+             its coordinate, ``sharded_selftest.meta_books``) equal to the
+             real run's books, call for call and byte for byte.
              ``--only-lm-mesh`` runs the build and this phase alone and
              prints no result line.
 11. training mesh — LM training under a ("data", "model") mesh (fp32,
@@ -437,8 +441,11 @@ Phases; any failure exits non-zero before the result line is printed:
              relative, the clip scale the same bits on every rank, remat
              the same bits as "tp" with a lower peak, fsdp's and zero1's
              peak a rank below data parallelism's, K3 and K7 launched 0
-             times; the walls, peaks, collectives and MB a step by kind
-             printed with the card. ``--only-train-mesh`` runs the build
+             times, every rank's count of the dry run's train step of its
+             layout on meta tensors equal to its first step's books ((a)
+             has no collective to compare); the walls, peaks, collectives
+             and MB a step by kind printed with the card.
+             ``--only-train-mesh`` runs the build
              and this phase alone and prints no result line.
 
 The last lines are the card's name and power limit (nvidia-smi), one
@@ -4422,6 +4429,40 @@ def run_precision(dev, card: str, fp32_dit: dict, alm: dict, lm: dict) -> dict:
             "mamba2-2.7b": mamba, "shares": shares, "times": times, "phase_s": phase_s}
 
 
+def meta_gate(runs: list, world: int, backend: str, what: str) -> float:
+    """Phases 10 and 11's meta = books gate: each run's every rank counted
+    the dry run's steps (``specs.build_dryrun``) on meta tensors for its
+    coordinate (``sharded_selftest.meta_books``); prints each step's
+    ``meta_equal`` and the counts' seconds a rank, and fails where a count
+    differs from the books. Returns the slowest rank's seconds over the
+    runs (runs without a count, ``train_loop``'s, are skipped)."""
+    per_rank = None
+    for r in runs:
+        ranks = [p for p in r["ranks"] if "meta_equal" in p]
+        if not ranks:
+            continue
+        per_rank = [0.0] * len(ranks) if per_rank is None else per_rank
+        steps = {}
+        for i, p in enumerate(ranks):
+            eq = p["meta_equal"] if isinstance(p["meta_equal"], dict) else {
+                "train step": p["meta_equal"]}
+            for step, same in eq.items():
+                steps.setdefault(step, []).append(bool(same))
+            per_rank[i] += p["meta_s"]
+        label = (f"{r['arch']} ({r.get('layers') or 'all'} layers) mesh "
+                 f"{r['mesh'][0]}x{r['mesh'][1]}" + (f" {r['layout']}" if "layout" in r else "")
+                 + (f" remat={r['remat']}" if r.get("remat", "none") != "none" else "")
+                 + (" flash-decode" if r.get("flash_decode") else ""))
+        print(f"  {what} world {world} over {backend} {label}: meta_equal "
+              f"{ {k: v for k, v in steps.items()} }, counted in "
+              f"{[round(p['meta_s'], 2) for p in ranks]} s a rank")
+        for step, same in steps.items():
+            if not all(same):
+                fail(f"{what} world {world} over {backend} {label}: the {step}'s meta count "
+                     f"differs from its books")
+    return max(per_rank or [0.0])
+
+
 def lm_mesh_plan(runs, mesh, records: dict, out_dir: str, *, flash: bool = True) -> list:
     """The selftest's ``--lm-plan`` for ``runs`` on ``mesh``, each compared
     with its unsharded record and writing rank 0's record; ``flash``
@@ -4542,6 +4583,7 @@ def run_lm_mesh(dev, card: str) -> dict:
               f"{c['decode_logits']['max_abs_err']:.3e}, launches {r['ranks'][0]['prefill_counts']}")
         if not c["bitwise"]:
             fail(f"world 1: {r['arch']} under the (1, 1) mesh is not the unsharded record bitwise")
+    meta1 = meta_gate(one["lm"], 1, "nccl", "LM")
     plan2 = (lm_mesh_plan(LM_MESH_RUNS, (1, 2), records, out_dir)
              + lm_mesh_plan((LM_ROWS_RUN,), (2, 1), records, out_dir))
     held_below_1gib(dev, "the world-2 spawn")
@@ -4582,14 +4624,18 @@ def run_lm_mesh(dev, card: str) -> dict:
             r["hold_moe"] = hold
         elif not c["ok"]:
             fail(f"{label}: {c}")
+    meta2 = meta_gate(two["lm"], 2, "gloo", "LM")
     if not two["ok"]:
-        fail("the world-2 LM selftest did not pass its own checks (launch counts, agreement)")
+        fail("the world-2 LM selftest did not pass its own checks (launch counts, agreement, "
+             "meta = books)")
+    out["meta_s"] = {"world1": meta1, "world2": meta2}
     for key, u in unsharded.items():
         out["unsharded"][f"{key[0]}:{key[1] or 'all'}"] = {k: u[k] for k in (
             "prefill_s", "decode_s", "params", "build_s")}
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  [{card}] LM mesh phase {out['phase_s']:.1f} s (selftests {one['wall_s']:.1f} s, "
-          f"{two['wall_s']:.1f} s)")
+          f"{two['wall_s']:.1f} s; the meta counts {meta1:.1f} s at world 1, {meta2:.1f} s a "
+          f"rank at world 2)")
     return out
 
 
@@ -4721,11 +4767,14 @@ def run_train_mesh(dev, card: str) -> dict:
             if not a["peak_gib"] < b["peak_gib"]:
                 fail(f"{name}'s peak {a['peak_gib']:.2f} GiB a rank is not below data "
                      f"parallelism's {b['peak_gib']:.2f} GiB at 2x1")
+    meta2 = meta_gate(runs, 2, "gloo", "training")
     if not two["ok"]:
         fail("the world-2 training selftest did not pass its own checks")
-    out = {"world1": one, "world2": two, "phase_s": time.perf_counter() - t_phase}
+    out = {"world1": one, "world2": two, "phase_s": time.perf_counter() - t_phase,
+           "meta_s": {"world2": meta2}}
     print(f"  [{card}] training mesh phase {out['phase_s']:.1f} s (selftests "
-          f"{one['wall_s']:.1f} s, {two['wall_s']:.1f} s)")
+          f"{one['wall_s']:.1f} s, {two['wall_s']:.1f} s; the meta counts {meta2:.1f} s a rank "
+          f"at world 2)")
     return out
 
 
@@ -5976,6 +6025,12 @@ def main() -> None:
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite measurement for {k['name']}")
+    print(f"meta = books (phases 10, 11): every step equal; counted in "
+          f"{lm_mesh['meta_s']['world1']:.1f} s at world 1 (NCCL, phase 10; phase 11's "
+          f"world-1 train_loop has no collective to compare), "
+          f"{lm_mesh['meta_s']['world2']:.1f} + {train_mesh['meta_s']['world2']:.1f} s a rank "
+          f"at world 2 (gloo); phase 10 {lm_mesh['phase_s']:.1f} s, phase 11 "
+          f"{train_mesh['phase_s']:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s to the result lines")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,13 +1,17 @@
 """Roofline analysis of the dry run's records on one H100; port of
 ``repro/analysis/roofline.py``.
 
-Per (arch × shape), from ``launch/dryrun.py``'s counted FLOPs and bytes
-(the port's path on the card: K3's visible pairs on a prefill's "A"/"L"
-layers, the plain path elsewhere):
+Per (arch × shape × mesh), from ``launch/dryrun.py``'s counted FLOPs and
+bytes (the port's path on the card: K3's visible pairs on a prefill's
+"A"/"L" layers, the plain path elsewhere; a mesh record's are one
+rank's):
 
     compute    = FLOPs / peak FLOP/s of the record's dtype
     memory     = estimated HBM traffic / HBM bandwidth
-    collective = collective bytes / NVLink bandwidth (0 on one card)
+    collective = collective bytes (the reference's op kinds' result
+                 bytes) / the link's bandwidth (``link_of``: NVLink in
+                 one node; InfiniBand between the nodes a 256- or
+                 512-card mesh spans; 0 on one card)
 
 The peaks are the published ones of the H100 SXM5 (80 GB HBM3, 700 W)
 from NVIDIA's H100 Tensor Core GPU data sheet, dense (no sparsity):
@@ -24,7 +28,7 @@ top_k / num_experts of the routed experts), as the reference does, and
 the useful ratio model FLOPs / counted FLOPs (remat and dead products
 show there).
 
-  PYTHONPATH=src python -m repro_torch.analysis.roofline [--dir DIR] [--md]
+  PYTHONPATH=src python -m repro_torch.analysis.roofline [--dir DIR] [--md] [--mesh 1pod]
   PYTHONPATH=src python -m repro_torch.analysis.roofline --score-eval FILE
 """
 
@@ -46,6 +50,25 @@ PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 HBM_BW = 3.35e12          # bytes/s
 LINK_BW = 450e9           # bytes/s, NVLink one way
 CARD = "H100 SXM5 80 GB, 700 W"
+#: cards an NVLink domain holds (an HGX H100 node), and the link between
+#: nodes: one 400 Gb/s InfiniBand NDR adapter a card (DGX H100), 50 GB/s
+#: each way
+NODE_CARDS = 8
+INTERNODE_BW = 50e9       # bytes/s a card, one way
+
+
+def link_of(rec: dict) -> dict:
+    """The link a record's collective term divides by: NVLink where every
+    mesh axis fits in one node, else InfiniBand (the reference's 16-wide
+    "model" axis spans two 8-card nodes, and a ring over it runs at the
+    slowest link's rate)."""
+    devices = rec.get("devices", 1)
+    if devices <= NODE_CARDS:
+        return {"name": "NVLink 4, one way", "bytes_per_s": LINK_BW,
+                "why": f"{devices} card(s), one node"}
+    return {"name": "InfiniBand NDR 400 Gb/s a card, one way", "bytes_per_s": INTERNODE_BW,
+            "why": f"{devices} cards: the 16-wide 'model' axis spans two "
+                   f"{NODE_CARDS}-card nodes"}
 
 
 def peak_flops(dtype: str) -> float:
@@ -110,7 +133,9 @@ def analyze_record(rec: dict, model_flops: Optional[float] = None) -> dict:
     flops = rec["cost"].get("flops", 0.0)
     nbytes = rec["cost"].get("est_hbm_traffic_bytes", 0.0)
     coll = rec.get("collectives", {}).get("total_bytes", 0)
-    terms = {"compute": flops / peak, "memory": nbytes / HBM_BW, "collective": coll / LINK_BW}
+    link = link_of(rec)
+    terms = {"compute": flops / peak, "memory": nbytes / HBM_BW,
+             "collective": coll / link["bytes_per_s"]}
     dominant = max(terms, key=terms.get)
     if model_flops is None:
         model_flops = model_flops_per_device(rec["arch"], rec["shape"],
@@ -124,7 +149,8 @@ def analyze_record(rec: dict, model_flops: Optional[float] = None) -> dict:
             "model_flops_per_device": model_flops,
             "useful_ratio": model_flops / flops if flops else float("nan"),
             "mfu_upper_bound": model_flops / peak / bound if bound else float("nan"),
-            "resident_gib": resident / 2 ** 30}
+            "resident_gib": resident / 2 ** 30, "collective_bytes": coll,
+            "devices": rec.get("devices", 1), "link": link["name"]}
 
 
 def share_of_peak(flops: float, seconds: float, dtype: str) -> float:
@@ -132,13 +158,15 @@ def share_of_peak(flops: float, seconds: float, dtype: str) -> float:
     return flops / seconds / peak_flops(dtype)
 
 
-def load_all(out_dir: str = DRYRUN_DIR) -> Dict[str, dict]:
-    """The dry run's LM records in ``out_dir`` by "arch:shape"."""
+def load_all(out_dir: str = DRYRUN_DIR, mesh: str = "1card") -> Dict[str, dict]:
+    """The dry run's LM records of ``mesh`` ("1card", "1pod", "2pod") in
+    ``out_dir`` by "arch:shape" (reference ``load_all(mesh=)``)."""
     out = {}
-    for path in sorted(glob.glob(os.path.join(out_dir, "*_1card.json"))):
+    for path in sorted(glob.glob(os.path.join(out_dir, f"*_{mesh}.json"))):
         with open(path) as f:
             rec = json.load(f)
-        if rec.get("arch") in ARCH_IDS:  # the sampler's records have their own report
+        if rec.get("arch") in ARCH_IDS and rec.get("mesh", "1card") == mesh:
+            # the sampler's records have their own report
             out[f"{rec['arch']}:{rec['shape']}"] = rec
     return out
 
@@ -177,16 +205,27 @@ def score_eval_markdown(artifact: dict) -> str:
     return "\n".join(lines)
 
 
-def table(recs: Dict[str, dict], md: bool) -> str:
+def table(recs: Dict[str, dict], md: bool, vs: Optional[Dict[str, dict]] = None) -> str:
+    """One row a record: per device (a mesh record's counts are one rank's;
+    ``load_all`` reads one mesh's records). Mesh records add the
+    collectives' GiB by the reference's op kinds (all-reduce, all-gather,
+    reduce-scatter) and the largest tensor a rank makes; ``vs`` (another
+    mesh's records) adds its FLOPs and collective bytes over these."""
     header = ("arch", "shape", "dtype", "GFLOP", "traffic_GiB", "compute_s", "memory_s",
               "coll_s", "dominant", "useful", "mfu_ub", "resident_GiB")
+    mesh = any(r.get("devices", 1) > 1 for r in recs.values())
+    if mesh:
+        header += ("AR_GiB", "AG_GiB", "RS_GiB", "largest_GiB", "largest_op")
+    if vs is not None:
+        header += ("vs_flops", "vs_coll")
     sep = " | " if md else ","
     lines = []
     if md:
         lines += ["| " + sep.join(header) + " |", "|" + "---|" * len(header)]
     else:
         lines.append(sep.join(header))
-    for _, rec in sorted(recs.items()):
+    gib = 2 ** 30
+    for key, rec in sorted(recs.items()):
         a = analyze_record(rec)
         row = (rec["arch"], rec["shape"], rec.get("dtype", "bfloat16"),
                f"{rec['cost']['flops'] / 1e9:.4g}",
@@ -194,6 +233,18 @@ def table(recs: Dict[str, dict], md: bool) -> str:
                f"{a['t_compute_s']:.3e}", f"{a['t_memory_s']:.3e}",
                f"{a['t_collective_s']:.3e}", a["dominant"], f"{a['useful_ratio']:.2f}",
                f"{a['mfu_upper_bound']:.2f}", f"{a['resident_gib']:.2f}")
+        if mesh:
+            by = rec["collectives"].get("bytes_by_kind", {})
+            big = rec["memory"].get("largest_tensor") or {"bytes": 0, "op": ""}
+            row += tuple(f"{by.get(k, 0) / gib:.4g}" for k in
+                         ("all-reduce", "all-gather", "reduce-scatter"))
+            row += (f"{big['bytes'] / gib:.4g}", big["op"])
+        if vs is not None:
+            other = vs.get(key)
+            ratio = lambda x, y: f"{x / y:.3f}" if other is not None and y else "-"
+            row += (ratio(other["cost"]["flops"], rec["cost"]["flops"]) if other else "-",
+                    ratio(other["collectives"]["total_bytes"], rec["collectives"]["total_bytes"])
+                    if other else "-")
         lines.append(("| " + sep.join(row) + " |") if md else sep.join(row))
     return "\n".join(lines)
 
@@ -202,6 +253,10 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dir", default=DRYRUN_DIR, help="the dry run's --out directory")
     ap.add_argument("--md", action="store_true", help="markdown table")
+    ap.add_argument("--mesh", choices=("1card", "1pod", "2pod"), default="1card",
+                    help="the records of this mesh")
+    ap.add_argument("--vs", choices=("1card", "1pod", "2pod"),
+                    help="add the FLOPs and collective bytes of this mesh's records over them")
     ap.add_argument("--score-eval", metavar="FILE",
                     help="print the per-NFE roofline join of this JSON artifact")
     args = ap.parse_args(argv)
@@ -209,10 +264,10 @@ def main(argv=None) -> None:
         with open(args.score_eval) as f:
             print(score_eval_markdown(json.load(f)))
         return
-    recs = load_all(args.dir)
+    recs = load_all(args.dir, args.mesh)
     if not recs:
-        raise SystemExit(f"no dry-run records in {args.dir}")
-    print(table(recs, args.md))
+        raise SystemExit(f"no {args.mesh} dry-run records in {args.dir}")
+    print(table(recs, args.md, load_all(args.dir, args.vs) if args.vs else None))
 
 
 if __name__ == "__main__":

@@ -345,17 +345,6 @@ def mesh_iteration(model: DiT, sde, cfg: AdaptiveConfig, x, *, mesh: Optional[Me
     return body, carry, lambda x, t: fwd(model, x, t)
 
 
-def _collectives_record() -> dict:
-    """The counted collectives since the last ``coll.reset()``: calls and
-    result bytes by the reference's op kinds (its record's fields), and
-    calls and sent bytes by the port's kinds."""
-    ops = coll.op_counts()
-    return {"bytes_by_kind": {k: v[1] for k, v in ops.items()},
-            "counts": {k: v[0] for k, v in ops.items()},
-            "total_bytes": sum(v[1] for v in ops.values()),
-            "port_kinds": {k: {"calls": v[0], "bytes": v[1]} for k, v in coll.counts().items()}}
-
-
 def _save(rec: dict, out_dir: str, policy) -> None:
     os.makedirs(out_dir, exist_ok=True)
     suffix = "" if policy.is_fp32 else f"_{policy.name}"
@@ -405,7 +394,7 @@ def dryrun(batch: int = 512, precision: str = "fp32", *, arch: str = "highres_di
     coll.reset()
     with torch.no_grad(), coll.counting():
         it = count(body, carry)
-        collectives = _collectives_record()
+        collectives = coll.books()
         nfe = count(fwd, carry.x, carry.t)
     coll.reset()
     rec = {"arch": f"dit-{arch.removesuffix('_dit')}-sampler" + ("-pipelined" if pipeline else ""),
@@ -471,7 +460,7 @@ def dryrun_loop(batch: int = 256, precision: str = "fp32", *, devices: int = 64,
                  (carry,))):
             coll.reset()
             parts[name] = count(fn, *args)
-            colls[name] = _collectives_record()
+            colls[name] = coll.books()
     coll.reset()
     total = {k: sum(p[k] for p in parts.values())
              for k in ("flops", "est_hbm_traffic_bytes")}

@@ -85,7 +85,14 @@ prompts through K3/K7 on its heads (``--lm-prefill B,S``) and decodes
 counts its K3 and K7 launches, the LM collectives of the prefill and of
 a decode step and their bytes; rank 0 writes the record (last-position
 logits, every decode step's logits, the tokens, the MoE routing) to
-``--lm-out``. Given ``--lm-record`` (an unsharded record from
+``--lm-out``. Each rank then counts the dry run's prefill and decode
+step (``specs.build_dryrun``, ``meta_books``) on meta tensors for its
+coordinate of a mesh of the same shape without process groups
+(``collectives.counting``): the counts must equal the real run's books
+(the prefill and the first decode step, each with its tokens gathered
+to every rank as the dry run's steps return them), call for call and
+byte for byte, by the reference's op kinds and by the port's
+(``meta_equal``). Given ``--lm-record`` (an unsharded record from
 ``lm_record``) the run feeds that record's tokens (teacher forcing) and
 compares: logits within ``LM_TOL``·max|logit|, greedy tokens equal
 except where the record's top-2 gap is within that bound, and every
@@ -113,8 +120,11 @@ gradient block and new block against the record's (the CPU tests'
 bounds: 2e-4·(1 + max|g|); the update 2e-4·(1 + max|update|) where
 |g|·clip > ``WELL_CONDITIONED``, else 2·lr), every step's loss (within
 ``TRAIN_LOSS_RTOL``), its wall, the collectives and bytes of each step
-by kind, the peak (the card) and the run's wall (``run_s``). The result line adds the cross-rank
-checks: every rank's losses and clip scale the same bits.
+by kind, the peak (the card) and the run's wall (``run_s``). Each rank
+counts the dry run's train step of its layout on meta tensors for its
+coordinate (``meta_books``), which must equal the first step's books
+(``meta_equal``). The result line adds the cross-rank checks: every
+rank's losses and clip scale the same bits.
 
 Prints one JSON line with the results; exits non-zero on any failure.
 
@@ -757,6 +767,43 @@ def _zero_counters():
     coll.reset()
 
 
+def _books() -> dict:
+    """The collectives since the last reset: by the reference's op kinds
+    and by the port's, each {kind: (calls, bytes)}."""
+    from repro_torch.parallel import collectives as coll
+
+    return {"ops": coll.op_counts(), "kinds": coll.counts()}
+
+
+def meta_place(mesh):
+    """This rank's place on ``mesh`` as a mesh without process groups, on
+    the meta device (what a dry run counts)."""
+    from repro_torch.parallel import Mesh
+
+    return Mesh(mesh.axis_names, mesh.sizes, mesh.coordinate, device=torch.device("meta"))
+
+
+def meta_books(cfg, mesh, shape, *, fsdp: bool = False, zero1: bool = False,
+               remat: str = "none") -> dict:
+    """The dry run's step of ``shape`` (an ``InputShape``: its rows,
+    length and kind), built by ``specs.build_dryrun`` for this rank's
+    coordinate of ``mesh`` and counted on meta tensors inside
+    ``collectives.counting`` (the plain attention and SSD, as the dry run
+    counts): its books (``_books``) and the count's ``seconds``."""
+    from repro_torch.launch import specs
+    from repro_torch.parallel import collectives as coll
+
+    t0 = time.perf_counter()
+    spec = specs.build_dryrun(cfg, shape, meta_place(mesh), dtype=cfg.dtype, fsdp=fsdp,
+                              zero1=zero1, remat=remat)
+    coll.reset()
+    with coll.counting():
+        spec.fn(*spec.args)
+    out = {"books": _books(), "seconds": time.perf_counter() - t0}
+    coll.reset()
+    return out
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -774,7 +821,11 @@ def lm_record(cfg, params, inputs: dict, decode_steps: int, dev, *, mesh=None,
     ``decode_tokens`` fed and ``decode_choices`` taken, the MoE routing of
     the prefill, the residual the final norm read, walls, and the
     counters (K3/K7 launches and LM collectives of the prefill, the
-    collectives of a mean decode step). ``prefill=False`` decodes only."""
+    collectives of a mean decode step), and the books (``_books``) of the
+    prefill and of the first decode step, each with its tokens gathered
+    to every rank as ``make_prefill_step`` and ``make_serve_step`` return
+    them (the books of the dry run's steps; the logits' gather for the
+    record comes after). ``prefill=False`` decodes only."""
     from repro_torch.models import transformer as tr
     from repro_torch.parallel.collectives import gather_rows
     from repro_torch.parallel.sharding import batch_sharding
@@ -806,8 +857,12 @@ def lm_record(cfg, params, inputs: dict, decode_steps: int, dev, *, mesh=None,
                 params, cut(tok, rows_d).to(dev), state, cfg,
                 cross_embeds=None if cross_d is None else cut(cross_d, rows_d).to(dev),
                 mesh=mesh, rows=rows_d)
+            # the serve step's tokens (B, 1[, K]), every row
+            choice = whole(torch.argmax(lg, dim=-1).to(torch.int32), rows_d)
+            if t == 0:
+                rec["decode_books"] = _books()
+            choice = choice[:, 0].to(torch.int64).cpu()
             lg = whole(lg[:, 0], rows_d).float()
-            choice = torch.argmax(lg, dim=-1).cpu()
             choices.append(choice)
             step_logits.append(lg.cpu())
             tok = (feed[t + 1] if feed is not None and t + 1 < len(feed)
@@ -842,6 +897,9 @@ def _lm_prefill(cfg, params, inputs, dev, mesh, cut, whole) -> dict:
                                moe_routing=routing, residual=residual)
     _sync(dev)
     rec = {"prefill_s": time.perf_counter() - t0, "prefill_counts": _counters()}
+    # the prefill step's tokens, every row, as make_prefill_step returns them
+    whole(torch.argmax(logits[:, -1:], dim=-1).to(torch.int32), rows)
+    rec["prefill_books"] = _books()
     rec["prefill_logits"] = whole(logits[:, -1], rows).float().cpu()
     rec["residual"] = residual[0].cpu()
     rec["routing"] = None if routing is None else [
@@ -889,6 +947,7 @@ def check_lm(mesh, dev, run: dict) -> list:
     decodes the same shard a second time with ``decode_flash_shard=
     "model"``); rank 0 writes the record and compares it with the
     unsharded one. Returns a result a decode."""
+    from repro_torch.configs import InputShape
     from repro_torch.models import transformer as tr
     from repro_torch.optim.tree import leaves
 
@@ -911,9 +970,20 @@ def check_lm(mesh, dev, run: dict) -> list:
         rec = lm_record(cfg.replace(decode_flash_shard="model") if flash else cfg, params,
                         inputs, run["decode"][1], dev, mesh=mesh, feed=feed,
                         prefill=prefill is None)
+        # the dry run's decode step (its cache of twice the steps) and
+        # prefill, counted for this rank
+        run_cfg = cfg.replace(decode_flash_shard="model") if flash else cfg
+        B_d, steps = run["decode"]
+        meta = {"decode": meta_books(run_cfg, mesh, InputShape("decode", 2 * steps, B_d,
+                                                               "decode"))}
+        if prefill is None:
+            B_p, S_p = run["prefill"]
+            meta["prefill"] = meta_books(run_cfg, mesh, InputShape("prefill", S_p, B_p,
+                                                                   "prefill"))
+        meta_equal = {k: m["books"] == rec[f"{k}_books"] for k, m in meta.items()}
         if prefill is None:
             prefill = {k: rec[k] for k in ("prefill_s", "prefill_counts", "prefill_logits",
-                                           "residual", "routing")}
+                                           "residual", "routing", "prefill_books")}
         rec.update(prefill)
         out = {"arch": run["arch"], "layers": run.get("layers"), "mesh": list(mesh.sizes),
                "coordinate": list(mesh.coordinate), "flash_decode": flash,
@@ -921,6 +991,8 @@ def check_lm(mesh, dev, run: dict) -> list:
                "prefill_counts": rec["prefill_counts"],
                "decode_step_counts": rec["decode_step_counts"],
                "params_local": sum(t.numel() for t in leaves(params)),
+               "meta_equal": meta_equal,
+               "meta_s": sum(m["seconds"] for m in meta.values()),
                "residual": rec["residual"], "choices": rec["decode_choices"],
                "prefill_tokens": rec["prefill_logits"].argmax(-1), "out": None}
         if dev.type == "cuda":
@@ -993,6 +1065,9 @@ def run_lm(world: int, plan: list, *, device: str = "cuda", backend: str | None 
             ok &= rec["compare"]["ok"] and (world > 1 or run["flash_decode"]
                                             or rec["compare"]["bitwise"])
         ok &= bool(same)
+        # every rank's meta count equals its books, each step
+        rec["meta_equal"] = all(all(p["meta_equal"].values()) for p in per)
+        ok &= rec["meta_equal"]
         if device == "cuda":  # the kernels ran on every rank, every layer
             cfg = lm_config(run["arch"], layers=run.get("layers"),
                             reduced=run.get("reduced", False))
@@ -1176,6 +1251,7 @@ _KEPT: dict = {}
 
 def check_train(mesh, dev, run: dict, index: int) -> dict:
     """One training run of the plan on this rank (module docstring)."""
+    from repro_torch.configs import InputShape
     from repro_torch.launch import specs
     from repro_torch.launch.steps import init_opt_state, make_train_step
     from repro_torch.models import transformer as tr
@@ -1222,6 +1298,8 @@ def check_train(mesh, dev, run: dict, index: int) -> dict:
         _sync(dev)
         out["step_s"].append(time.perf_counter() - t1)
         out["counts"].append(coll.counts())
+        if i == 0:
+            books = _books()
         out["losses"].append(float(m["loss"]))
         if i == 0:  # held before the next step writes the shard in place
             if dev.type == "cuda":
@@ -1251,6 +1329,10 @@ def check_train(mesh, dev, run: dict, index: int) -> dict:
         if run.get("keep"):
             _KEPT[index]["peak_gib"] = out["peak_gib"]
     out["kernel_launches"] = {k: v for k, v in _counters().items() if k in ("K3", "K7")}
+    meta = meta_books(cfg, mesh, InputShape("train", run["seq"], run["batch"], "train"),
+                      fsdp=layout.name == "fsdp", zero1=layout.name == "zero1",
+                      remat=run.get("remat", "none"))
+    out.update(meta_equal=meta["books"] == books, meta_s=meta["seconds"])
     if want is not None:
         out["loss_rel"] = [abs(a - b) / abs(b) for a, b in zip(out["losses"], want["losses"])]
         out["first"] = {"ce_err": abs(out["ce"] - want["ce"]),
@@ -1352,8 +1434,10 @@ def run_train(world: int, plan: list, *, device: str = "cuda",
                                             and all(p["params_bitwise"] for p in per)))
         else:
             agree &= all(p["clip_bits"] == per[0]["clip_bits"] for p in per)
-            # training runs the plain attention and SSD (no kernel has a backward)
+            # training runs the plain attention and SSD (no kernel has a backward);
+            # every rank's meta count equals its first step's books
             good = agree and all(not any(p["kernel_launches"].values()) for p in per)
+            good &= all(p["meta_equal"] for p in per)
             if "hold" in per[0]:
                 good &= all(p["hold"]["ok"] and max(p["loss_rel"]) <= TRAIN_LOSS_RTOL
                             and p["first"]["ce_err"] <= 1e-6 * max(1.0, abs(p["ce"]))

@@ -1,5 +1,5 @@
-"""Meta-device stand-ins for every (arch × shape) combination; port of
-``repro/launch/specs.py`` on one card.
+"""Meta-device stand-ins for every (arch × shape) combination, on one
+card or as one rank of a mesh; port of ``repro/launch/specs.py``.
 
 Where the reference builds ``jax.ShapeDtypeStruct`` trees through
 ``jax.eval_shape``, the port builds its own parameters, optimizer
@@ -18,9 +18,14 @@ layouts over the port's ``Mesh`` (the serving and training paths under a
 mesh read them): ``train_layout`` is the parameter and moment shardings
 of ``build_dryrun``'s train branch (reference :125-138, ``fsdp=`` and
 ``zero1=``), the counterpart of its ``in_shardings``/``out_shardings``.
-The LMs' dry run under a mesh waits for ROADMAP A11 (iii), on the
-counting mode of the collectives the sampler's mesh dry runs use
-(``parallel/collectives.py::counting``).
+
+``build_dryrun(mesh=)`` builds one rank of a mesh without process groups
+(``launch/mesh.py::make_production_mesh``): every leaf a meta tensor of
+the rank's block (``ParamSharding.local_shape`` of ``param_shardings``
+with ``physical_experts``, as the reference lays out every kind), the
+moments by ``fsdp or zero1``, the decode state of
+``init_decode_state(mesh=)``, and the step under ``mesh=``, which the dry
+run counts inside ``parallel.collectives.counting()``.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.shapes import InputShape, apply_shape_policy
-from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
+from repro_torch.launch.steps import (
+    init_opt_state, make_prefill_step, make_serve_step, make_train_step)
 from repro_torch.models import init_decode_state, init_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamW
@@ -168,20 +174,38 @@ def train_layout(cfg: ModelConfig, mesh, layout: str = "tp") -> TrainLayout:
     (``models.transformer.model_shardings``, which ``train_loop`` and
     ``init_model(mesh=)`` follow): a padded-expert config on which the two
     counts give different layouts raises ``ValueError``."""
+    out = _layout(cfg, mesh, layout)
+    nexp = cfg.moe.physical_experts if cfg.moe else None
+    if cfg.moe and nexp != cfg.moe.num_experts:
+        shapes = abstract_params(cfg)
+        other = param_shardings(shapes, mesh, cfg.moe.num_experts, fsdp=layout == "fsdp")
+        if _blocks_of(other) != _blocks_of(out.params):
+            raise ValueError(
+                f"{cfg.name}: padded experts ({nexp} physical for {cfg.moe.num_experts}): "
+                f"launch/specs.py lays the train step out by physical_experts and "
+                f"launch/train.py by num_experts, and on this mesh the two layouts differ")
+    return out
+
+
+def _layout(cfg: ModelConfig, mesh, layout: str) -> TrainLayout:
+    """``train_layout`` without its refusal: the dry run's layout of every
+    kind (reference ``specs.py:128-138``), which trains nothing."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     shapes = abstract_params(cfg)
     nexp = cfg.moe.physical_experts if cfg.moe else None
     params = param_shardings(shapes, mesh, nexp, fsdp=layout == "fsdp")
     moments = param_shardings(shapes, mesh, nexp, fsdp=layout in ("fsdp", "zero1"))
-    if cfg.moe and nexp != cfg.moe.num_experts:
-        other = param_shardings(shapes, mesh, cfg.moe.num_experts, fsdp=layout == "fsdp")
-        if _blocks_of(other) != _blocks_of(params):
-            raise ValueError(
-                f"{cfg.name}: padded experts ({nexp} physical for {cfg.moe.num_experts}): "
-                f"launch/specs.py lays the train step out by physical_experts and "
-                f"launch/train.py by num_experts, and on this mesh the two layouts differ")
     return TrainLayout(layout, params, moments)
+
+
+def local_params(cfg: ModelConfig, shardings):
+    """The rank's parameter blocks as meta tensors: each leaf of
+    ``abstract_params(cfg)`` at its ``ParamSharding.local_shape``."""
+    shapes = abstract_params(cfg)
+    return tree_map_with_path(
+        lambda path, sh: torch.empty(sh.local_shape(_at(shapes, path).shape),
+                                     dtype=_at(shapes, path).dtype, device=META), shardings)
 
 
 @dataclasses.dataclass
@@ -191,21 +215,64 @@ class DryRunSpec:
     cfg: ModelConfig
     fn: Callable
     args: Tuple[Any, ...]
+    #: under a mesh: the mesh, the layout (parameters and moments) and the
+    #: ``RowSharding`` of the batch's rows
+    mesh: Any = None
+    layout: Optional[TrainLayout] = None
+    rows: Any = None
 
 
-def build_dryrun(cfg: ModelConfig, shape: InputShape, *, remat: str = "none",
-                 dtype: str = "bfloat16", cfg_overrides: Optional[dict] = None,
+def build_dryrun(cfg: ModelConfig, shape: InputShape, mesh=None, *, remat: str = "none",
+                 dtype: str = "bfloat16", fsdp: bool = False, zero1: bool = False,
+                 cfg_overrides: Optional[dict] = None,
                  last_logits_only: bool = True) -> DryRunSpec:
     """The step of ``shape.kind`` and its meta arguments for one (arch ×
     shape): the config after the shape policy, in ``dtype``, with
     ``cfg_overrides``. Train: (params, AdamW moments, batch) of
     global_batch × seq_len; prefill: (params, batch); decode: one token a
-    sequence against a cache of seq_len, (params, batch, state)."""
+    sequence against a cache of seq_len, (params, batch, state).
+
+    ``mesh`` (one rank's place, on the meta device): the rank's blocks
+    laid out by ``param_shardings(physical_experts, fsdp=fsdp)``, the
+    moments by ``fsdp or zero1`` (the train layouts "fsdp", "zero1" or
+    "tp"), the decode state by ``init_decode_state(mesh=)``; the batch is
+    global (every rank is called with it and keeps its rows). ``fsdp``
+    and ``zero1`` need a mesh."""
     cfg = apply_shape_policy(cfg, shape).replace(dtype=dtype)
     if cfg_overrides:
         cfg = cfg.replace(**cfg_overrides)
-    params = abstract_params(cfg)
     name = f"{cfg.name}:{shape.name}"
+    if shape.kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown shape kind {shape.kind!r}")
+    if mesh is None:
+        if fsdp or zero1:
+            raise ValueError("fsdp and zero1 lay a step out over a mesh: pass mesh=")
+        return _one_card(cfg, shape, name, remat, last_logits_only)
+    layout = _layout(cfg, mesh, "fsdp" if fsdp else "zero1" if zero1 else "tp")
+    params = local_params(cfg, layout.params)
+    seq = 1 if shape.kind == "decode" else shape.seq_len
+    batch = token_specs(cfg, shape.global_batch, seq)
+    rows = batch_sharding(mesh, shape.global_batch, 1)
+    if shape.kind == "train":
+        optimizer = AdamW(lr=1e-4)
+        fn = make_train_step(cfg, optimizer, remat=remat, mesh=mesh, shardings=layout)
+        args = (params, init_opt_state(optimizer, params, layout), batch)
+    elif shape.kind == "prefill":
+        fn = make_prefill_step(cfg, use_flash=False, use_kernel_ssd=False,
+                               last_logits_only=last_logits_only, mesh=mesh,
+                               shardings=layout.params)
+        args = (params, batch)
+    else:
+        fn = make_serve_step(cfg, mesh=mesh, shardings=layout.params)
+        args = (params, batch, init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                                 device=META, mesh=mesh))
+    return DryRunSpec(name=name, kind=shape.kind, cfg=cfg, fn=fn, args=args, mesh=mesh,
+                      layout=layout, rows=rows)
+
+
+def _one_card(cfg: ModelConfig, shape: InputShape, name: str, remat: str,
+              last_logits_only: bool) -> DryRunSpec:
+    params = abstract_params(cfg)
     if shape.kind == "train":
         optimizer = AdamW(lr=1e-4)
         fn = make_train_step(cfg, optimizer, remat=remat, device=META)
@@ -215,10 +282,8 @@ def build_dryrun(cfg: ModelConfig, shape: InputShape, *, remat: str = "none",
         fn = make_prefill_step(cfg, use_flash=False, use_kernel_ssd=False,
                                last_logits_only=last_logits_only, device=META)
         args = (params, token_specs(cfg, shape.global_batch, shape.seq_len))
-    elif shape.kind == "decode":
+    else:
         fn = make_serve_step(cfg, device=META)
         args = (params, token_specs(cfg, shape.global_batch, 1),
                 decode_state_specs(cfg, shape.global_batch, shape.seq_len))
-    else:
-        raise ValueError(f"unknown shape kind {shape.kind!r}")
     return DryRunSpec(name=name, kind=shape.kind, cfg=cfg, fn=fn, args=args)

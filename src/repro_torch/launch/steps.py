@@ -215,10 +215,14 @@ def _gather(tokens: Tensor, mesh, rows) -> Tensor:
     return tokens if mesh is None else gather_rows(tokens, mesh, rows)
 
 
-def make_serve_step(cfg: ModelConfig, *, device="cuda", mesh=None) -> Callable:
+def make_serve_step(cfg: ModelConfig, *, device="cuda", mesh=None,
+                    shardings=None) -> Callable:
     """One greedy decode step (reference :64): f(params, batch, state) →
     (next tokens (B, 1[, K]) int32, state'). With ``mesh`` the rank's
-    shard and state; every row's tokens returned (module docstring)."""
+    shard and state; every row's tokens returned (module docstring).
+    ``shardings`` lays the shard out (default ``model_shardings``; the
+    dry run passes ``param_shardings`` with ``physical_experts``, or
+    ZeRO-3's, whose data-cut leaves are gathered where they are used)."""
     dev = resolve_device(device if mesh is None else mesh.device)
     pin_full_fp32_math()
 
@@ -227,7 +231,8 @@ def make_serve_step(cfg: ModelConfig, *, device="cuda", mesh=None) -> Callable:
         local, rows = _rows(batch, mesh, dev)
         logits, state = decode_step(params, local["tokens"], state, cfg,
                                     cross_embeds=local.get("cross_embeds"),
-                                    start_pos=local.get("start_pos"), mesh=mesh, rows=rows)
+                                    start_pos=local.get("start_pos"), mesh=mesh, rows=rows,
+                                    shardings=shardings)
         return _gather(torch.argmax(logits, dim=-1).to(torch.int32), mesh, rows), state
 
     return serve_step
@@ -235,7 +240,7 @@ def make_serve_step(cfg: ModelConfig, *, device="cuda", mesh=None) -> Callable:
 
 def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = True,
                       use_kernel_ssd: bool = True, last_logits_only: bool = True,
-                      device="cuda", mesh=None) -> Callable:
+                      device="cuda", mesh=None, shardings=None) -> Callable:
     """Full-sequence forward (reference :77); ``use_flash`` (the default)
     runs every "A"/"L" attention layer through
     ``kernels.flash_attention.ops`` (K3 on the card; "X" layers take the
@@ -243,7 +248,7 @@ def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = True,
     scan through ``kernels.ssd.ops`` (K7 on the card); ``False`` takes the
     plain path. With ``mesh`` K3 and K7 run on the rank's heads and rows,
     the head gathers the vocab of the last position only, and every row's
-    token is returned."""
+    token is returned; ``shardings`` as ``make_serve_step``'s."""
     dev = resolve_device(device if mesh is None else mesh.device)
     pin_full_fp32_math()
 
@@ -253,7 +258,8 @@ def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = True,
         logits, _ = forward(params, local["tokens"], cfg,
                             cross_embeds=local.get("cross_embeds"),
                             use_kernel_ssd=use_kernel_ssd, use_flash=use_flash,
-                            last_logits_only=last_logits_only, mesh=mesh, rows=rows)
+                            last_logits_only=last_logits_only, mesh=mesh, rows=rows,
+                            shardings=shardings)
         # the next token after the last position of every sequence
         return _gather(torch.argmax(logits[:, -1:], dim=-1).to(torch.int32), mesh, rows)
 

@@ -818,7 +818,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
 
 def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: ModelConfig, *,
                 cross_embeds: Optional[Tensor] = None, start_pos: Optional[Tensor] = None,
-                moe_routing: Optional[list] = None, mesh=None, rows=None
+                moe_routing: Optional[list] = None, mesh=None, rows=None, shardings=None
                 ) -> Tuple[Tensor, Dict[str, Any]]:
     """One decode step. tokens (B, 1) or (B, 1, K) → (logits (B, 1, V) or
     (B, 1, K, V), state'). ``cross_embeds`` as in ``forward``.
@@ -830,21 +830,34 @@ def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: Mode
     (continuous batching). An "E" layer routes the step's B tokens as one
     group, so every lane (a free batcher slot too) takes capacity, and
     its aux loss is discarded, as in the reference; ``moe_routing`` as in
-    ``forward``. ``mesh`` and ``rows``: the rank's shard, rows and state
-    (``init_decode_state(mesh=)``), as in ``forward``."""
+    ``forward``. ``mesh``, ``rows`` and ``shardings``: the rank's shard,
+    rows and state (``init_decode_state(mesh=)``), as in ``forward``."""
     _check_config(cfg)
     check_levers(cfg, mesh)
-    shards = None if mesh is None else model_shardings(cfg, mesh)
+    shards = None if mesh is None else (
+        shardings if shardings is not None else model_shardings(cfg, mesh))
+    if shards is not None:
+        params = _gather_top(params, shards, mesh)
     x = embed_tokens(params, tokens, cfg, **_head_kw(shards, "embed", mesh))
+    stacked = [None if shards is None else shards["blocks"][f"p{i}"]
+               for i in range(len(cfg.mixer_pattern))]
+    fsdp = [st if st is not None and _has_data_axes(st) else None for st in stacked]
     ctxs = [None if shards is None else
-            _Ctx(_layer_shardings(shards["blocks"][f"p{i}"]), mesh, rows=rows)
+            _Ctx(_layer_shardings(stacked[i]), mesh, rows=rows, fsdp=fsdp[i],
+                 repeats=cfg.num_repeats)
             for i in range(len(cfg.mixer_pattern))]
+    zero3 = [None if f is None else _layer_inputs(params["blocks"][f"p{i}"], f,
+                                                  cfg.num_repeats, mesh)
+             for i, f in enumerate(fsdp)]
     new = {f"p{i}": [] for i in range(len(cfg.mixer_pattern))}
     for r in range(cfg.num_repeats):
         for i, mix in enumerate(cfg.mixer_pattern):
             ctx = ctxs[i]
             kw = {} if ctx is None else dict(mesh=mesh, shard=ctx.shard["mixer"])
-            bp = _layer(params["blocks"][f"p{i}"], r)
+            if zero3[i] is None:
+                bp = _layer(params["blocks"][f"p{i}"], r)
+            else:  # ZeRO-3: the layer's leaves gathered over the data axes
+                bp = ctx.weights(zero3[i][r], r)
             h = apply_norm(x, cfg.norm_type, bp["norm1"])
             st = _layer(state[f"p{i}"], r)
             if mix == "M":

@@ -33,7 +33,7 @@ point-to-point calls (``stage_handoff``) and sends the last stage's
 outputs to every stage (``stage_broadcast``).
 
 ``calls`` and ``nbytes`` count every collective these functions run
-(the sampling gathers and the K4 error combine aside) and the bytes each
+(the retired rows' gather and the K4 error combine aside) and the bytes each
 rank sends into it, ``by_kind`` the same by the port's kinds (forward,
 remat's recompute, backward, the data-axis kinds, the loop control, the
 pipeline's), and ``ops`` by the reference's five op kinds
@@ -116,10 +116,14 @@ def gather_rows(t: Tensor, mesh: Mesh, sharding) -> Tensor:
     ``sharding`` is the ``RowSharding`` the rows were cut by. A replicated
     leaf is returned as it is; otherwise one ``all_gather`` over the whole
     mesh collects every rank's rows, and the shards are put in order by
-    each rank's index over the data axes.
+    each rank's index over the data axes. Booked as "result_gather", and
+    as the reference's "all-gather" of the whole (B, ...) result.
     """
     if sharding.replicated:
         return t
+    label = _count(t, "result_gather", "all-gather", sharding.n_shards * t.numel())
+    if _counted(t, mesh):
+        return _made(t, (sharding.n_shards * t.shape[0], *t.shape[1:]), label)
     group = mesh.group()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
@@ -174,7 +178,8 @@ def gather_retired(rows: Tensor, counts, mesh: Mesh, sharding) -> Tensor:
 #: zero1_gather (the updated blocks' gather); clip_norm and metrics (the
 #: step's small sums); checkpoint (a leaf gathered whole for saving);
 #: loop_control (the solver's sync, ``all_max``); stage_handoff and
-#: stage_broadcast (a pipeline's)
+#: stage_broadcast (a pipeline's); result_gather (a step's rows gathered
+#: to every rank, ``gather_rows``)
 calls = 0
 nbytes = 0
 by_kind: dict = {}
@@ -185,6 +190,8 @@ REFERENCE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                  "collective-permute")
 
 _counting = False
+#: the open ``counting``'s list of the results its gathers made
+_results: list = []
 
 
 def reset() -> None:
@@ -205,6 +212,16 @@ def op_counts() -> dict:
     return {k: tuple(v) for k, v in ops.items()}
 
 
+def books() -> dict:
+    """The collectives since the last ``reset`` as a dry run records them:
+    calls and result bytes by the reference's op kinds (its record's
+    fields), and calls and sent bytes by the port's kinds."""
+    return {"bytes_by_kind": {k: v[1] for k, v in ops.items()},
+            "counts": {k: v[0] for k, v in ops.items()},
+            "total_bytes": sum(v[1] for v in ops.values()),
+            "port_kinds": {k: {"calls": v[0], "bytes": v[1]} for k, v in by_kind.items()}}
+
+
 @contextlib.contextmanager
 def counting():
     """The dry runs' mode. Inside it every collective on a meta tensor over
@@ -213,13 +230,15 @@ def counting():
     a meta tensor of its result's shape: a gather multiplies the gathered
     dimension by the ranks, a reduce-scatter divides it, a sum or a
     broadcast keeps it. Outside it nothing changes, and a one-rank axis
-    is no call at all either way."""
-    global _counting
-    before, _counting = _counting, True
+    is no call at all either way. It yields a list to which every counted
+    gather adds the result it made, as (bytes, "op (kind)", shape)."""
+    global _counting, _results
+    before = _counting, _results
+    _counting, _results = True, []
     try:
-        yield
+        yield _results
     finally:
-        _counting = before
+        _counting, _results = before
 
 
 def _counted(t: Tensor, mesh: Mesh) -> bool:
@@ -227,11 +246,19 @@ def _counted(t: Tensor, mesh: Mesh) -> bool:
     return _counting and t.is_meta and mesh.device_mesh is None
 
 
+def _made(t: Tensor, shape, label: str) -> Tensor:
+    """A counted gather's result: a meta tensor of ``shape``, listed in
+    ``counting``'s list under ``label`` (``_count``'s)."""
+    out = t.new_empty(shape)
+    _results.append((out.numel() * out.element_size(), label, tuple(out.shape)))
+    return out
+
+
 def _count(t: Tensor, kind: Optional[str] = None, op: str = "all-reduce",
-           out_numel: Optional[int] = None) -> None:
+           out_numel: Optional[int] = None) -> str:
     """Book one call on ``t`` (the tensor this rank puts in) as ``kind``,
     and as the reference's ``op`` with a result of ``out_numel`` elements
-    (``t``'s by default)."""
+    (``t``'s by default); returns "op (kind)"."""
     global calls, nbytes
     if kind is None:  # a forward collective; inside a backward pass, remat's recompute
         kind = "recompute" if torch._C._current_graph_task_id() != -1 else "forward"
@@ -244,17 +271,37 @@ def _count(t: Tensor, kind: Optional[str] = None, op: str = "all-reduce",
     o = ops.setdefault(op, [0, 0])
     o[0] += 1
     o[1] += (t.numel() if out_numel is None else out_numel) * t.element_size()
+    return f"{op} ({kind})"
+
+
+#: the process groups spanning several (not all) axes of a mesh, by mesh
+#: and axes (``axes_group``)
+_spans = weakref.WeakKeyDictionary()
 
 
 def axes_group(mesh: Mesh, axes: Sequence[str]):
     """The process group spanning ``axes`` of ``mesh``: one axis's group,
-    or the whole mesh's when ``axes`` are all of its axes."""
+    the whole mesh's when ``axes`` are all of its axes, else (the data
+    axes ("pod", "data") of a mesh with "model") the group of this rank's
+    positions over ``axes``, made on first use: every rank makes every
+    such group at once (``new_subgroups_by_enumeration``), which the
+    ranks' same program order gives. ``axes`` run major to minor in the
+    mesh's order, as the group's ranks do."""
     axes = tuple(axes)
     if len(axes) == 1:
         return mesh.group(axes[0])
     if set(axes) == set(mesh.axis_names):
         return mesh.group()
-    raise ValueError(f"no process group for axes {axes} of a mesh over {mesh.axis_names}")
+    dims = [mesh.axis_names.index(a) for a in axes]
+    if dims != sorted(dims):
+        raise ValueError(f"axes {axes} out of the mesh's order {mesh.axis_names}")
+    made = _spans.setdefault(mesh, {})
+    if axes not in made:
+        other = [d for d in range(len(mesh.sizes)) if d not in dims]
+        grid = np.transpose(np.asarray(mesh.ranks()), other + dims)
+        spans = grid.reshape(-1, math.prod(mesh.sizes[d] for d in dims)).tolist()
+        made[axes] = dist.new_subgroups_by_enumeration(spans)[0]
+    return made[axes]
 
 
 def axes_size(mesh: Mesh, axes: Sequence[str]) -> int:
@@ -285,11 +332,11 @@ def _gather(t: Tensor, dim: int, mesh: Mesh, axes, kind: Optional[str]) -> Tenso
     rank i sits at mesh index i over these axes (row-major mesh)."""
     t = t.contiguous()
     n = axes_size(mesh, axes)
-    _count(t, kind, "all-gather", n * t.numel())
+    label = _count(t, kind, "all-gather", n * t.numel())
     if _counted(t, mesh):
         shape = list(t.shape)
         shape[dim] *= n
-        return t.new_empty(shape)
+        return _made(t, shape, label)
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=axes_group(mesh, axes))
     return torch.cat(parts, dim=dim)
@@ -552,8 +599,10 @@ class _FsdpBroadcast(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = _owned(g)
-        group = axes_group(ctx.mesh, ctx.axes)
         _count(g, "fsdp_scatter")
+        if _counted(g, ctx.mesh):
+            return (g if ctx.mine else None), None, None, None, None
+        group = axes_group(ctx.mesh, ctx.axes)
         if dist.get_backend(group) == "nccl":
             dist.reduce(g, dst=ctx.src, op=dist.ReduceOp.SUM, group=group)
         else:  # gloo reduces CPU tensors only: all-reduce, the owner keeps it
@@ -638,11 +687,13 @@ def flash_decode(q: Tensor, k_new: Tensor, v_new: Tensor, cache_k: Tensor, cache
     s_loc = p.sum(dim=-1)  # (B, H, 1)
     o_loc = torch.einsum("bhst,bthd->bshd", p, vv)  # (B, 1, H, Dh)
 
+    counted = n > 1 and _counted(q, mesh)
     if n > 1:
-        grp = axes_group(mesh, axes)
         m_glob = m_loc.clone()  # m_loc stays this rank's
         _count(m_glob)
-        dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=grp)
+        if not counted:
+            grp = axes_group(mesh, axes)
+            dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=grp)
     else:
         m_glob = m_loc
     corr = torch.exp(m_loc - m_glob)  # (B, H, 1)
@@ -650,7 +701,8 @@ def flash_decode(q: Tensor, k_new: Tensor, v_new: Tensor, cache_k: Tensor, cache
                         (o_loc * corr.transpose(1, 2)[..., None]).reshape(B, -1)], dim=1)
     if n > 1:
         _count(packed)
-        dist.all_reduce(packed, op=dist.ReduceOp.SUM, group=grp)
+        if not counted:
+            dist.all_reduce(packed, op=dist.ReduceOp.SUM, group=grp)
     H = q.shape[2]
     s_glob = packed[:, :H].reshape(B, H, 1)
     o = packed[:, H:].reshape(B, 1, H, Dh)

@@ -222,8 +222,7 @@ def test_sample_dryrun_cli_and_mesh_modes(tmp_path):
                         "--out", str(tmp_path)])
     assert recs[0]["shape"] == "sample_b4_256px"
     assert (tmp_path / "dit-highres-sampler_sample_b4_256px_1card_bf16_full.json").exists()
-    # the sampler's mesh dry runs write their records; the LMs' production
-    # mesh still waits for ROADMAP A11 (iii)
+    # the sampler's mesh dry runs write their records, and so do the LMs'
     for flags, name in ((["--dryrun-loop", "--loop-devices", "4"],
                          "dit-cifar-sampler-whole-loop_sample_b4_32px_data4.json"),
                         (["--multi-pod", "--pipeline"],
@@ -231,8 +230,10 @@ def test_sample_dryrun_cli_and_mesh_modes(tmp_path):
                         (["--multi-pod"], "dit-highres-sampler_sample_b4_256px_2pod.json")):
         sample.main(flags + ["--batch", "4", "--out", str(tmp_path)])
         assert (tmp_path / name).exists()
-    with pytest.raises(SystemExit, match="A11"):
-        dryrun.main(["--all", "--multi-pod"])
+    dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "decode_32k", "--multi-pod",
+                 "--out", str(tmp_path)])
+    rec = json.loads((tmp_path / "qwen1.5-0.5b_decode_32k_2pod.json").read_text())
+    assert rec["mesh"] == "2pod" and rec["devices"] == 512
 
 
 def test_perf_variants(tmp_path):
@@ -247,8 +248,10 @@ def test_perf_variants(tmp_path):
     assert [json.loads(line)["variant"] for line in lines] == [
         "baseline", "last-logits", "moe-gather"]
     for variant in ("fsdp", "zero1", "seq-shard-attn"):
-        with pytest.raises(NotImplementedError, match="A11"):
+        with pytest.raises(ValueError, match="--mesh 1pod or --multi-pod"):
             perf.run_variant("deepseek-moe-16b", "prefill_32k", variant, **kw)
+        rec = perf.run_variant("deepseek-moe-16b", "prefill_32k", variant, mesh="1pod", **kw)
+        assert rec["mesh"] == "1pod" and rec["variant"] == variant and "vs_baseline" not in rec
     remat = perf.run_variant("qwen1.5-0.5b", "train_4k", "remat-dots",
                              out_dir=str(tmp_path), cfg=get_config("qwen1.5-0.5b").scaled_down())
     assert remat["dominant"] in ("compute", "memory") and math.isfinite(remat["flops"])
