@@ -79,7 +79,20 @@ Phases; any failure exits non-zero before the result line is printed:
              iterations. Launch counts are set to 0 just before and read
              just after; every kernel must have run. Then one DiT forward
              and one Algorithm-1 iteration with the kernels, against the
-             same weights on the plain paths.
+             same weights on the plain paths. Then the graphed solve
+             (``graphed_vs_host``): ``sample()`` three times (the first
+             call captures the cached driver's horizon, the others
+             replay it, the last with CUDA events around the WHILE-node
+             window) against the host-driven ``solve_chunk`` chain on the
+             same streams: x, nfe, accepted, rejected, iterations and the
+             telemetry ring bitwise, one host read a solve, one capture
+             then none, the replay's K1/K3/K6/P1 launches the chain's
+             (the first call's plus one warm-up body iteration); the
+             walls of the first call, a replay and the chain, and the
+             window share from the events: the window's elapsed time
+             on the device over the call's wall (elapsed, not busy:
+             CUPTI cannot trace the WHILE node, so gaps inside the
+             window are not seen).
 4. plan    — the second main path, ``repro_torch.planning.plan``: the
              temporal UNet TRAJ_UNET (attention, flash, fused GroupNorm →
              SiLU; weights from seed 0, zero-init leaves livened), VP SDE,
@@ -90,7 +103,8 @@ Phases; any failure exits non-zero before the result line is printed:
              all three kernels must have run. The pinned coordinates must
              equal obs exactly. Then one UNet forward and one guided,
              projected Algorithm-1 iteration with the kernels, against
-             the same weights on the plain paths.
+             the same weights on the plain paths. Then phase 3's graphed
+             gates on ``plan()`` (conditioner, projection draws, K6).
 4b. baselines — the paper's comparison on the card, every update of the
              stochastic baselines through K5 (``em_step``): EM, DDIM and PC
              from HIGHRES_DIT (the same livened weights, flash on, fp32,
@@ -180,7 +194,12 @@ Phases; any failure exits non-zero before the result line is printed:
              score, VP and VE, with exact K1/K5 launches, momentum and Heun
              under their W2 gates, the selection report; each family served
              host-driven and device-resident, every delivery bitwise its
-             batch-1 solve, Heun's captured horizon without P1.
+             batch-1 solve, Heun's captured horizon without P1. Then
+             phase 3's graphed gates on ``sample(method="momentum")`` and
+             ``sample(method="heun")``. (A first call at a new key
+             captures its graph, and the capture's warm-up runs one body
+             iteration eagerly: every exact launch gate of a graphed solve
+             adds ``adaptive.captures``' rise, here and in 6b, 7c, 9a.)
 6e. plan service — ``launch.plan.serve_planning`` at the reference's
              defaults and its steering gate (bin 2 above bin 4); the
              receding-horizon planner at TRAJ_UNET's width (transition 24,
@@ -226,7 +245,16 @@ Phases; any failure exits non-zero before the result line is printed:
              the same prompts (the chunked scan against the recurrence),
              logits close; prefill and decode times, the decode's device
              idle share and K7's share of a prefill's device time
-             (torch.profiler).
+             (torch.profiler). Every LM phase's ``serve_batch`` decodes
+             through the graphed serve step, and ``decode_gate`` holds it
+             against its eager step (7, 7b, 7d's deepseek and jamba, 7e's
+             llama period and musicgen): tokens and the final decode
+             state bitwise, each state in place, one capture; ms a step
+             of each, the graphed step's elapsed ms from CUDA events,
+             and each step's profiled busy time (torch.profiler traces
+             the plain graph's replays) and idle share. 7b and 7d drain the
+             ``ContinuousBatcher`` graphed and eager, request for request
+             equal.
 7b. attention lm — gemma3-12b at full width (12.77 B parameters, fp32,
              seeded weights, TF32 off), after phase 7 has freed
              mamba2-2.7b. First K3 at the prefill's shapes, "L" and "A",
@@ -453,6 +481,7 @@ JSON object naming each kernel, and ``{"ok": true, "device": ...}``.
 """
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -678,12 +707,20 @@ def held_below_1gib(dev, what: str) -> None:
     cuBLAS keeps a workspace for each (handle, stream) in the caching
     allocator, and every timing captured on a side stream
     (``device_ms``) leaves one behind: they are freed first, since the
-    next GEMM on a stream allocates its workspace again."""
+    next GEMM on a stream allocates its workspace again. The graph cache
+    (``core.solvers.adaptive.graph_driver``) holds its score functions
+    weakly, so the drivers of earlier phases' score nets, their graphs
+    and their pools went with those nets; the cycle collector runs
+    first, for nets held in reference cycles, and the drivers still
+    cached are counted."""
+    from repro_torch.core.solvers import adaptive as ad
+
+    gc.collect()
     before = torch.cuda.memory_allocated(dev) / 2 ** 30
     torch._C._cuda_clearCublasWorkspaces()
     held = torch.cuda.memory_allocated(dev) / 2 ** 30
     print(f"  allocated before {what}: {held:.3f} GiB ({before:.3f} GiB with cuBLAS's "
-          f"workspaces)")
+          f"workspaces; {len(ad._drivers)} graph drivers cached)")
     if held >= 1:
         fail(f"{held:.2f} GiB still allocated from earlier phases (want < 1 GiB)")
 
@@ -1822,12 +1859,13 @@ def dit_train_flops(cfg, batch: int) -> float:
     return 3 * (2 * batch * S * per_token + 2 * batch * per_sample + attention)
 
 
-def profile_device(fn, attempts: int = 3) -> tuple:
+def profile_device(fn, attempts: int = 3, required: bool = True) -> tuple:
     """Run ``fn`` under torch.profiler (CUDA activity): (device µs by
     kernel name → (count, µs), total device µs). Every caller's ``fn``
     runs device work, so a trace with no device record at all is one
     CUPTI lost: it is taken again, up to ``attempts`` traces, and the
-    run fails if none holds a record."""
+    run fails if none holds a record, unless ``required`` is False: then
+    ({}, None), which the caller prints as "not measured"."""
     for attempt in range(1, attempts + 1):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
@@ -1840,7 +1878,265 @@ def profile_device(fn, attempts: int = 3) -> tuple:
         if by_name:
             return by_name, sum(us for _, us in by_name.values())
         print(f"  torch.profiler: trace {attempt} of {attempts} holds no device record")
+    if not required:
+        return {}, None
     fail(f"torch.profiler recorded no device activity in {attempts} traces")
+
+
+GRAPH_FIELDS = ("x", "nfe", "accepted", "rejected", "iterations")
+#: the ring the graphed-solve gates compare (their configs turn it on)
+GRAPH_RING = 64
+
+
+def kernel_counts() -> dict:
+    """The launch counts of the kernels a graphed solve runs: K1, K3, K6, P1."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.groupnorm_silu import ops as gn_ops
+    from repro_torch.kernels.philox import ops as ph
+    from repro_torch.kernels.solver_step import ops as step_ops
+    return {"solver_step": step_ops.launches, "flash_attention": flash_ops.launches,
+            "groupnorm_silu": gn_ops.launches, "philox_normal": ph.launches}
+
+
+def zero_kernel_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.groupnorm_silu import ops as gn_ops
+    from repro_torch.kernels.philox import ops as ph
+    from repro_torch.kernels.solver_step import ops as step_ops
+    step_ops.launches = flash_ops.launches = gn_ops.launches = ph.launches = 0
+
+
+def host_chain(sde, score, shape, seed: int, cfg, dev, cond=None) -> tuple:
+    """The host-driven ``solve_chunk`` chain on ``sample(seed=)``'s streams
+    (the prior at counter 0, the noise from counter 1): (SolveResult,
+    final carry). One host read a group of SYNC_EVERY iterations."""
+    from repro_torch.core.sampling import seed_streams
+    from repro_torch.core.solvers import adaptive as ad
+
+    st = seed_streams(seed, shape[0], dev)
+    carry = ad.init_carry(sde, sde.prior_sample(shape, st), st.advanced(1), config=cfg,
+                          cond=cond)
+    carry = ad.solve_chunk(sde, score, carry, max_sync_iters=cfg.max_iters, config=cfg)
+    return (ad.finalize(sde, score, carry, precision=cfg.precision,
+                        conditioner=cfg.conditioner), carry)
+
+
+def graphed_vs_host(label: str, card: str, call, host) -> dict:
+    """Phases 3, 4, 6d: ``call()`` (an entry point of the graphed solve:
+    ``sample()`` or ``plan()``, its config with a GRAPH_RING ring) three
+    times against ``host()`` (``host_chain`` on the same streams and
+    config) once, each with the counts at 0. The first call captures the
+    cached driver's horizon, the second replays it, the third replays it
+    with CUDA events around the driver's window (the window share: the
+    window's elapsed device time over the call's wall; elapsed, not busy,
+    since CUPTI cannot trace a WHILE node). Gates: x, nfe, accepted, rejected,
+    iterations and the ring bitwise the host chain's; one host read a
+    graphed solve (``adaptive.host_syncs``); one capture on the first
+    call, none after; the replay's K1, K3, K6 and P1 launches the host
+    chain's, the first call's those plus one body iteration's (the
+    capture's warm-up)."""
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.kernels.graph_loop import ops as loop_ops
+
+    runs = {}
+    for name, fn in (("first", call), ("replay", call), ("host", host)):
+        zero_kernel_counts()
+        c0, s0, p0 = ad.captures, ad.host_syncs, loop_ops.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res, carry = got if name == "host" else (got, None)
+        if name == "replay":  # the cached driver's carry holds the replayed solve's ring
+            drv = next(reversed(ad._drivers.values()))
+            carry = drv.carry
+        runs[name] = dict(res=res, ring=carry and carry.telemetry, wall_s=wall,
+                          launches=kernel_counts(), p2=loop_ops.launches - p0,
+                          syncs=ad.host_syncs - s0, captures=ad.captures - c0)
+    # the device's share of a replayed call: events around the driver's window
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    window = drv.window
+
+    def timed_window():
+        e0.record()
+        state = window()
+        e1.record()
+        return state
+
+    drv.window = timed_window
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        window_wall = time.perf_counter() - t0
+    finally:
+        del drv.window
+    window_ms = e0.elapsed_time(e1)
+    first, replay, hostr = runs["first"], runs["replay"], runs["host"]
+    names = {"solver_step": "solver_step", "flash_attention": "flash_attention",
+             "groupnorm_silu": "groupnorm_silu", "philox": "philox_normal"}
+    per_horizon = {names[getattr(m, "__name__", "").split(".")[-2]]: n
+                   for (m, c), n in drv.graph.recorded.items()
+                   if c == "launches" and getattr(m, "__name__", "").split(".")[-2] in names}
+    warm = {k: hostr["launches"][k] + per_horizon.get(k, 0) // drv_horizon(drv)
+            for k in hostr["launches"]}
+    same = {k: all(torch.equal(getattr(r["res"], f), getattr(hostr["res"], f))
+                   for f in GRAPH_FIELDS) for k, r in (("first", first), ("replay", replay))}
+    ring = all(torch.equal(getattr(replay["ring"], f.name), getattr(hostr["ring"], f.name))
+               for f in dataclasses.fields(hostr["ring"]))
+    its = int(hostr["res"].iterations)
+    print(f"  [{card}] {label} graphed: first call {first['wall_s']:.3f} s (capture included), "
+          f"replayed {replay['wall_s']:.3f} s, host-driven {hostr['wall_s']:.3f} s "
+          f"({hostr['wall_s'] / replay['wall_s']:.2f}x); {its} iterations; bitwise the host "
+          f"chain: first {same['first']}, replayed {same['replay']}, ring {ring}; host reads "
+          f"{first['syncs']}, {replay['syncs']} (host-driven {hostr['syncs']}); captures "
+          f"{first['captures']}, {replay['captures']} (build {drv.build_s:.3f} s); launches "
+          f"replayed {replay['launches']} "
+          f"(host-driven {hostr['launches']}; first {first['launches']}, want {warm}), P2 "
+          f"{replay['p2']} (the horizons + 1; host-driven {hostr['p2']}); the "
+          f"driver's window {window_ms:.1f} ms elapsed on the device of a "
+          f"{window_wall * 1e3:.1f} ms call (window share {window_ms / (window_wall * 1e3):.2f}, "
+          f"CUDA events)")
+    if not (same["first"] and same["replay"] and ring):
+        fail(f"{label}: the graphed solve is not bitwise the host-driven chain")
+    if first["syncs"] != 1 or replay["syncs"] != 1:
+        fail(f"{label}: {first['syncs']}, {replay['syncs']} host reads a graphed solve, not 1")
+    if first["captures"] != 1 or replay["captures"] != 0:
+        fail(f"{label}: captures {first['captures']}, {replay['captures']}, not 1 then 0")
+    horizons = -(-its // ad.SYNC_EVERY)
+    if replay["p2"] != horizons + 1 or hostr["p2"] != 0:
+        fail(f"{label}: P2 ran {replay['p2']} times in the replayed solve (want the "
+             f"{horizons} horizons + 1), {hostr['p2']} in the host-driven one")
+    if replay["launches"] != hostr["launches"] or first["launches"] != warm:
+        fail(f"{label}: launches replayed {replay['launches']}, first {first['launches']}; "
+             f"the host chain's {hostr['launches']}, plus the warm-up {warm}")
+    return {"first_s": first["wall_s"], "replay_s": replay["wall_s"], "host_s": hostr["wall_s"],
+            "iterations": its, "mean_nfe": float(hostr["res"].mean_nfe),
+            "launches": replay["launches"], "first_launches": first["launches"],
+            "horizon_cond": replay["p2"],
+            "host_reads": replay["syncs"], "host_driven_reads": hostr["syncs"],
+            "build_s": drv.build_s, "window_ms": window_ms, "window_call_s": window_wall,
+            "window_share": window_ms / (window_wall * 1e3)}
+
+
+def drv_horizon(drv) -> int:
+    """The iterations of a cached driver's captured horizon."""
+    from repro_torch.core.solvers import adaptive as ad
+    return next(k[3] for k, d in ad._drivers.items() if d is drv)
+
+
+def captured_warmups(c0: int) -> int:
+    """Horizons captured since ``adaptive.captures`` read ``c0``: each
+    capture's warm-up ran one body iteration eagerly (K1 once, the
+    forwards' kernels twice)."""
+    from repro_torch.core.solvers import adaptive as ad
+    return ad.captures - c0
+
+
+def tensor_leaves(tree) -> list:
+    return [t for t in torch.utils._pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+#: the decode gates' prompt and generated tokens (fewer than the serves':
+#: the eager comparison is the slow side)
+DECODE_GATE_TOKENS = (8, 8)
+
+
+def decode_gate(label: str, card: str, cfg, params, prompts, dev, cross=None) -> dict:
+    """Phases 7, 7b, 7d, 7e: ``serve_batch``'s loop (``greedy_decode``) on
+    the graphed serve step and on its eager step, each from a fresh decode
+    state, over the first DECODE_GATE_TOKENS[0] prompt tokens and
+    DECODE_GATE_TOKENS[1] generated: the tokens and every tensor of the
+    final state bitwise equal, each state kept in place (its tensors'
+    ``data_ptr``), one capture.
+    Then LM_IDLE_STEPS more steps of each: ms a step; graphed, the
+    elapsed device ms a step from CUDA events around the replays; for
+    each, the profiled device busy time (torch.profiler, which traces the
+    kernels of a plain graph's replays) and the idle share against the
+    unprofiled wall."""
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.launch.steps import GraphedServeStep, make_serve_step
+    from repro_torch.models import init_decode_state
+
+    P, gen_len = DECODE_GATE_TOKENS
+    prompts = prompts[:, :P]
+    R = prompts.shape[0]
+    step = make_serve_step(cfg, device=dev)
+    if not isinstance(step, GraphedServeStep):
+        fail(f"{label}: the serve step on the card is not graphed")
+    runs = {}
+    for name, fn in (("graphed", step), ("eager", step.eager)):
+        state = init_decode_state(cfg, R, P + gen_len, device=dev)
+        ptrs = [t.data_ptr() for t in tensor_leaves(state)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = greedy_decode(fn, params, prompts, state, gen_len=gen_len, cross_embeds=cross)
+        torch.cuda.synchronize()
+        runs[name] = (toks, state, time.perf_counter() - t0,
+                      [t.data_ptr() for t in tensor_leaves(state)] == ptrs)
+    (tg, sg, wg, ig), (te, se, we, ie) = runs["graphed"], runs["eager"]
+    same_tokens = torch.equal(tg, te)
+    same_state = all(torch.equal(a, b) for a, b in zip(tensor_leaves(sg), tensor_leaves(se)))
+    extra = {} if cross is None else {"cross_embeds": cross}
+
+    def loop(fn, state, n=LM_IDLE_STEPS):
+        tok = tg[:, -1:]
+        for _ in range(n):
+            tok, state = fn(params, {"tokens": tok, **extra}, state)
+
+    n = LM_IDLE_STEPS
+    loop(step, sg, 2)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0.record()
+    loop(step, sg)
+    e1.record()
+    torch.cuda.synchronize()
+    g_ms = (time.perf_counter() - t0) * 1e3 / n
+    g_elapsed = e0.elapsed_time(e1) / n
+    # the replays' busy time: a plain CUDA graph's kernels are traced
+    _, g_busy_us = profile_device(lambda: loop(step, sg), required=False)
+    g_busy = None if g_busy_us is None else g_busy_us / 1e3 / n
+    loop(step.eager, se, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop(step.eager, se)
+    torch.cuda.synchronize()
+    e_ms = (time.perf_counter() - t0) * 1e3 / n
+    by_name, busy_us = profile_device(lambda: loop(step.eager, se))
+    e_dev = busy_us / 1e3 / n
+    ops = sum(c for c, _ in by_name.values()) / n
+    steps = P + gen_len - 1
+    g_idle = None if g_busy is None else 1 - g_busy / g_ms
+    print(f"  [{card}] {label} decode, graphed vs eager ({R} rows, prompt {P}, gen {gen_len}): "
+          f"tokens bitwise {same_tokens}, final state bitwise {same_state}, in place "
+          f"{ig and ie}, captures {step.captures} (build {step.build_s:.3f} s); the "
+          f"{steps} steps graphed {wg:.3f} s (capture included), eager {we:.3f} s; then "
+          f"{n} steps: graphed {g_ms:.2f} ms a step, elapsed {g_elapsed:.2f} ms on the device "
+          f"(CUDA events, window share {g_elapsed / g_ms:.2f}), busy {busy_text(g_busy)} ms "
+          f"(profiler, idle share {busy_text(g_idle)}); eager {e_ms:.2f} ms a step, busy "
+          f"{e_dev:.2f} ms ({ops:.0f} device operations, profiler), idle share "
+          f"{1 - e_dev / e_ms:.2f}; {e_ms / g_ms:.2f}x")
+    if not (same_tokens and same_state and ig and ie and step.captures == 1):
+        fail(f"{label}: the graphed decode is not bitwise the eager step (tokens "
+             f"{same_tokens}, state {same_state}, in place {ig and ie}, captures "
+             f"{step.captures})")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+    return {"graphed_ms_per_step": g_ms, "graphed_elapsed_ms_per_step": g_elapsed,
+            "graphed_window_share": g_elapsed / g_ms, "graphed_busy_ms_per_step": g_busy,
+            "graphed_idle_share": g_idle, "build_s": step.build_s,
+            "graphed_first_call_s": wg, "eager_call_s": we,
+            "eager_ms_per_step": e_ms, "decode_device_ms_per_step": e_dev,
+            "decode_idle_share": 1 - e_dev / e_ms, "decode_ops_per_step": ops,
+            "top": [(name[:50], c, us / 1e3) for name, (c, us) in top]}
+
+
+def busy_text(v) -> str:
+    """A profiled number, or "not measured" where the trace held no record."""
+    return "not measured" if v is None else f"{v:.2f}"
 
 
 def graph_nodes(graph) -> dict:
@@ -2046,8 +2342,9 @@ def train_and_tables(dev, card: str) -> dict:
                 fail(f"{r['name']}: {k5} K5 launches, want exactly {want_k5}")
             if r["method"] == "adaptive" and r["fused"]:
                 # one launch an iteration, in whole groups of SYNC_EVERY (the
-                # last group's iterations after convergence change nothing)
-                want_k1 = SYNC_EVERY * -(-r["iterations"] // SYNC_EVERY)
+                # last group's iterations after convergence change nothing),
+                # plus one a capture's warm-up
+                want_k1 = SYNC_EVERY * -(-r["iterations"] // SYNC_EVERY) + r["captures"]
                 if k1 != want_k1:
                     fail(f"{r['name']}: {k1} K1 launches, want {want_k1} for "
                          f"{r['iterations']} iterations")
@@ -2114,19 +2411,24 @@ def check_sample_chunked(dev, sde, score_fn) -> None:
     with its seed, and the launches are exactly theirs (K5 one an EM
     step; K1 the same count as the chunks' own solves): the pinned
     copies on the side stream add none."""
+    from repro_torch.core.solvers import adaptive as ad
     from repro_torch.core.sampling import chunk_seeds, sample, sample_chunked
     from repro_torch.kernels.solver_step import ops as step_ops
 
     for method, kw in (("em", dict(n_steps=100)),
                        ("adaptive", dict(eps_rel=0.05, use_fused_kernel=True))):
+        # the chunks share one key: the first sample() captures, the rest
+        # replay; a capture's warm-up adds one K1 launch, taken off both sides
         step_ops.launches = step_ops.em_launches = 0
+        c0 = ad.captures
         x, mean_nfe = sample_chunked(sde, score_fn, 4096, (2,), seed=3, chunk=1024,
                                      method=method, device=dev, **kw)
-        got = (step_ops.launches, step_ops.em_launches)
+        got = (step_ops.launches - captured_warmups(c0), step_ops.em_launches)
         step_ops.launches = step_ops.em_launches = 0
+        c0 = ad.captures
         parts = [sample(sde, score_fn, (1024, 2), seed=s, method=method, device=dev, **kw)
                  for s in chunk_seeds(3, 4)]
-        want = (step_ops.launches, step_ops.em_launches)
+        want = (step_ops.launches - captured_warmups(c0), step_ops.em_launches)
         same = np.array_equal(x, np.concatenate([p.x.cpu().numpy() for p in parts]))
         print(f"  sample_chunked {method} N 4096 in chunks of 1024: mean NFE {mean_nfe:.2f}, "
               f"launches (K1, K5) {got}, the four chunks' own solves {want}, the same bits "
@@ -2268,35 +2570,15 @@ def run_lm(dev) -> dict:
           f"{err:.3e} (bound {LM_LOGIT_TOL}·max|logit| = {LM_LOGIT_TOL * scale:.3e})")
     if not err <= LM_LOGIT_TOL * scale:
         fail("the recurrent decode's logits disagree with the chunked prefill's")
-    # the decode's device idle share, as phase 6 measures planning's: device
-    # busy time of a profiled run against the same run's unprofiled wall
-    step = make_serve_step(cfg, device=dev)
-    state = init_decode_state(cfg, B, P + G, device=dev)
-
-    def decode_loop(n=LM_IDLE_STEPS):
-        nonlocal state
-        tok = toks[:, :1]
-        for _ in range(n):
-            tok, state = step(params, {"tokens": tok}, state)
-
-    decode_loop(2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    decode_loop()
-    torch.cuda.synchronize()
-    loop_ms = (time.perf_counter() - t0) * 1e3
-    by_name, busy_us = profile_device(decode_loop)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
-    print(f"  decode: {LM_IDLE_STEPS} steps {loop_ms:.1f} ms unprofiled wall, device busy "
-          f"{busy_us / 1e3:.1f} ms, idle share {1 - busy_us / 1e3 / loop_ms:.2f}; "
-          f"{sum(n for n, _ in by_name.values()) / LM_IDLE_STEPS:.0f} device operations a step; "
-          f"largest: " + "; ".join(f"{name[:50]} x{n} {us / 1e3:.1f} ms"
-                                   for name, (n, us) in top))
+    # the graphed decode step against the eager one: bitwise, ms a step,
+    # device time (the Mamba2 state now written in place)
+    decode = decode_gate("mamba2-2.7b", "phase 7", cfg, params, sprompts, dev)
     del params, state
     torch.cuda.empty_cache()
     return {"k7_launches": k7_launches, "k7_cuda_kernels_per_call": k7_kernels / k7_calls,
             "fp32_logits": fp32_logits, "prefill_s": prefill_s,
-            "prefill_device_ms": total_us / 1e3}
+            "prefill_device_ms": total_us / 1e3, "serve_ms_per_step": step_ms,
+            "decode": decode}
 
 
 def top2_gap(logits) -> float:
@@ -2464,51 +2746,41 @@ def run_attention_lm(dev, card: str) -> dict:
             fail(f"request {r}: the prefill's first token differs from the decode's at a top-2 "
                  f"gap of {gap:.3e}")
 
-    # the decode's device idle share: device busy time of a profiled run
-    # against the same run's unprofiled wall (as phase 7 for mamba2)
-    step = make_serve_step(cfg, device=dev)
-    state = init_decode_state(cfg, R, P + G, device=dev)
-
-    def decode_loop(n=LM_IDLE_STEPS):
-        nonlocal state
-        tok = toks[:, :1]
-        for _ in range(n):
-            tok, state = step(params, {"tokens": tok}, state)
-
-    decode_loop(2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    decode_loop()
-    torch.cuda.synchronize()
-    loop_ms = (time.perf_counter() - t0) * 1e3
-    by_name, busy_us = profile_device(decode_loop)
-    idle = 1 - busy_us / 1e3 / loop_ms
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
-    print(f"  decode: {LM_IDLE_STEPS} steps {loop_ms:.1f} ms unprofiled wall, device busy "
-          f"{busy_us / 1e3:.1f} ms ({busy_us / 1e3 / LM_IDLE_STEPS:.2f} ms a step), idle share "
-          f"{idle:.2f}; {sum(c for c, _ in by_name.values()) / LM_IDLE_STEPS:.0f} device "
-          f"operations a step; largest: " + "; ".join(
-              f"{name[:50]} x{c} {us / 1e3:.1f} ms" for name, (c, us) in top))
-    del state
+    # the graphed decode step against the eager one
+    decode = decode_gate("gemma3-12b", "phase 7b", cfg, params, sprompts, dev)
+    idle = decode["decode_idle_share"]
 
     # the continuous batcher: mixed requests through BATCHER_SLOTS slots
     reqs = [(uid, torch.randint(0, cfg.vocab_size, (p,), generator=g, device=dev), m)
             for uid, (p, m) in enumerate(BATCHER_REQUESTS)]
-    b = ContinuousBatcher(cfg, params, slots=BATCHER_SLOTS, cache_len=BATCHER_CACHE, device=dev)
-    for uid, p, m in reqs:
-        b.submit(Request(uid=uid, prompt=p.cpu().numpy(), max_new_tokens=m))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = b.run_to_completion()
-    torch.cuda.synchronize()
-    batch_s = time.perf_counter() - t0
+    drains = {}
+    for graphed in (True, False):  # the graphed step, then its eager one
+        b = ContinuousBatcher(cfg, params, slots=BATCHER_SLOTS, cache_len=BATCHER_CACHE,
+                              device=dev)
+        if not graphed:
+            b.step_fn = b.step_fn.eager
+        for uid, p, m in reqs:
+            b.submit(Request(uid=uid, prompt=p.cpu().numpy(), max_new_tokens=m))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = b.run_to_completion()
+        torch.cuda.synchronize()
+        drains[graphed] = (b, done, time.perf_counter() - t0)
+    (b, done, batch_s), (be, done_e, batch_e) = drains[True], drains[False]
     n_new = sum(m for _, _, m in reqs)
+    same_drain = list(done) == list(done_e) and all(
+        done[u].output == done_e[u].output for u in done)
     print(f"  ContinuousBatcher: {len(reqs)} requests (prompt, gen) {list(BATCHER_REQUESTS)} "
-          f"through {BATCHER_SLOTS} slots: {b.total_steps} steps in {batch_s:.3f} s "
-          f"({batch_s / b.total_steps * 1e3:.2f} ms a step, {n_new / batch_s:.1f} new tokens/s), "
-          f"wasted_step_fraction {b.wasted_step_fraction:.4f}, finishing order {list(done)}")
+          f"through {BATCHER_SLOTS} slots: {b.total_steps} steps in {batch_s:.3f} s graphed "
+          f"({batch_s / b.total_steps * 1e3:.2f} ms a step, {n_new / batch_s:.1f} new tokens/s; "
+          f"captures {b.captures}, build {b.build_s:.3f} s), eager {batch_e:.3f} s "
+          f"({batch_e / be.total_steps * 1e3:.2f} ms a step); request for request bitwise the "
+          f"eager drain {same_drain}; wasted_step_fraction {b.wasted_step_fraction:.4f}, "
+          f"finishing order {list(done)}")
     if len(done) != len(reqs) or b.total_steps >= BATCHER_CACHE:
         fail(f"the batcher finished {len(done)} of {len(reqs)} requests in {b.total_steps} steps")
+    if not same_drain or b.captures != 1:
+        fail(f"the graphed batcher's drain is not the eager one's (captures {b.captures})")
     differ = 0
     for uid, p, m in reqs:
         solo = serve_batch(cfg, params, p[None], gen_len=m, device=dev)[0].tolist()
@@ -2532,12 +2804,13 @@ def run_attention_lm(dev, card: str) -> dict:
     rec = {"k3": times, "launches": k3_launches, "prefill_s": prefill_s,
            "plain_prefill_s": plain_s, "params": n, "peak_gib": peak, "logit_err": err,
            "serve_ms_per_step": step_ms, "decode_idle_share": idle,
-           "decode_device_ms_per_step": busy_us / 1e3 / LM_IDLE_STEPS,
-           "batcher_s": batch_s, "batcher_steps": b.total_steps,
+           "decode_device_ms_per_step": decode["decode_device_ms_per_step"], "decode": decode,
+           "batcher_s": batch_s, "batcher_eager_s": batch_e, "batcher_steps": b.total_steps,
+           "batcher_build_s": b.build_s,
            "wasted_step_fraction": b.wasted_step_fraction,
            "batcher_tokens_per_s": n_new / batch_s, "differ": differ,
            "fp32_logits": fp32_logits, "prefill_device_ms": prefill_device_ms}
-    del params, b
+    del params, b, be
     torch.cuda.empty_cache()
     return rec
 
@@ -2548,6 +2821,7 @@ def run_diffusion_lm(dev) -> dict:
     the fused step: K1 exactly once an iteration in whole groups of 8.
     Returns the numbers of the kernels line."""
     from repro_torch.configs import get_config
+    from repro_torch.core.solvers import adaptive as ad
     from repro_torch.core.sde import VPSDE
     from repro_torch.kernels.solver_step import ops as step_ops
     from repro_torch.models import diffusion_lm as dlm
@@ -2567,6 +2841,7 @@ def run_diffusion_lm(dev) -> dict:
               max_iters=MAIN_MAX_ITERS)
     dlm.generate(params, cfg, sde, B, S, seed=1, **{**kw, "max_iters": 8})  # warm-up
     step_ops.launches = 0
+    c0 = ad.captures
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks, res = dlm.generate(params, cfg, sde, B, S, seed=0, **kw)
@@ -2574,12 +2849,15 @@ def run_diffusion_lm(dev) -> dict:
     wall = time.perf_counter() - t0
     k1 = step_ops.launches
     iters = int(res.iterations)
-    want = 8 * -(-iters // 8)
+    # generate() makes its score function anew: its graph is captured, and
+    # the capture's warm-up runs one body iteration
+    want = 8 * -(-iters // 8) + captured_warmups(c0)
     nfe, acc, rej = res.nfe, res.accepted, res.rejected
     print(f"  generate: {iters} iterations, mean NFE {float(res.mean_nfe):.2f}, accepted "
           f"{int(acc.sum())}, rejected {int(rej.sum())}, wall {wall:.3f} s "
           f"({wall / (2 * iters) * 1e3:.2f} ms a batch forward, two an iteration); K1 launches "
-          f"{k1} (want 8·⌈iterations/8⌉ = {want}); tokens {tuple(toks.shape)}, first row "
+          f"{k1} (want 8·⌈iterations/8⌉ + the capture's warm-up = {want}); tokens "
+          f"{tuple(toks.shape)}, first row "
           f"{toks[0, :12].tolist()}")
     if k1 != want:
         fail(f"the diffusion LM's solve launched K1 {k1} times, not {want}")
@@ -2934,46 +3212,34 @@ def run_moe_lm(dev, card: str) -> dict:
     srv = moe_serve(cfg, params, g, dev, card)
     rec.update({k: srv[k] for k in ("serve_s", "serve_ms_per_step")})
 
-    # a decode step's dropped share, then its device time and idle share
+    # a decode step's dropped share (the eager step records the routing;
+    # a graphed step refuses moe_routing), then the graphed step against it
     R, P, G = MOE_SERVE
-    step = make_serve_step(cfg, device=dev)
     state = init_decode_state(cfg, R, P + G, device=dev)
     routing = []
     with torch.no_grad():
         decode_step(params, srv["prompts"][:, :1], state, cfg, moe_routing=routing)
     rec["decode_dropped_share"] = dropped_share(routing)
-    state = init_decode_state(cfg, R, P + G, device=dev)
-
-    def decode_loop(n=LM_IDLE_STEPS):
-        nonlocal state
-        tok = srv["tokens"][:, :1]
-        for _ in range(n):
-            tok, state = step(params, {"tokens": tok}, state)
-
-    decode_loop(2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    decode_loop()
-    torch.cuda.synchronize()
-    loop_ms = (time.perf_counter() - t0) * 1e3
-    by_name, busy_us = profile_device(decode_loop)
-    rec["decode_device_ms_per_step"] = busy_us / 1e3 / LM_IDLE_STEPS
-    rec["decode_idle_share"] = 1 - busy_us / 1e3 / loop_ms
-    weights_ms = rec["params"] * 4 / HBM_BYTES_PER_S * 1e3
-    print(f"  [{card}] decode: {LM_IDLE_STEPS} steps {loop_ms:.1f} ms unprofiled wall, device "
-          f"busy {rec['decode_device_ms_per_step']:.2f} ms a step (every expert reads its weights: "
-          f"{weights_ms:.1f} ms at 3.35 TB/s), idle share {rec['decode_idle_share']:.2f}; "
-          f"{sum(c for c, _ in by_name.values()) / LM_IDLE_STEPS:.0f} device operations a step; "
-          f"dropped share of a decode step's routing decisions {rec['decode_dropped_share']:.4f}")
     del state
+    rec["decode"] = decode = decode_gate("deepseek-moe-16b", card, cfg, params, srv["prompts"],
+                                         dev)
+    rec["decode_device_ms_per_step"] = decode["decode_device_ms_per_step"]
+    rec["decode_idle_share"] = decode["decode_idle_share"]
+    weights_ms = rec["params"] * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"  [{card}] decode: every expert reads its weights ({weights_ms:.1f} ms at 3.35 "
+          f"TB/s); dropped share of a decode step's routing decisions "
+          f"{rec['decode_dropped_share']:.4f}")
 
-    # the continuous batcher, twice on the same requests; solo runs compared, not gated
+    # the continuous batcher, graphed then eager on the same requests; solo
+    # runs compared, not gated
     reqs = [(uid, torch.randint(0, cfg.vocab_size, (p,), generator=g, device=dev), m)
             for uid, (p, m) in enumerate(BATCHER_REQUESTS)]
     runs = []
-    for _ in range(2):
+    for graphed in (True, False):
         b = ContinuousBatcher(cfg, params, slots=BATCHER_SLOTS, cache_len=BATCHER_CACHE,
                               device=dev)
+        if not graphed:
+            b.step_fn = b.step_fn.eager
         for uid, p, m in reqs:
             b.submit(Request(uid=uid, prompt=p.cpu().numpy(), max_new_tokens=m))
         torch.cuda.synchronize()
@@ -2984,21 +3250,24 @@ def run_moe_lm(dev, card: str) -> dict:
     b, done, batch_s = runs[0]
     n_new = sum(m for _, _, m in reqs)
     print(f"  [{card}] ContinuousBatcher: {len(reqs)} requests through {BATCHER_SLOTS} slots: "
-          f"{b.total_steps} steps in {batch_s:.3f} s and {runs[1][2]:.3f} s "
+          f"{b.total_steps} steps in {batch_s:.3f} s graphed (captures {b.captures}, build "
+          f"{b.build_s:.3f} s) and {runs[1][2]:.3f} s eager "
           f"({batch_s / b.total_steps * 1e3:.2f} ms a step, {n_new / batch_s:.1f} new tokens/s), "
           f"wasted_step_fraction {b.wasted_step_fraction:.4f}, finishing order {list(done)}")
     if len(done) != len(reqs) or b.total_steps >= BATCHER_CACHE:
         fail(f"the batcher finished {len(done)} of {len(reqs)} requests in {b.total_steps} steps")
     again = runs[1][1]
-    if list(again) != list(done) or any(again[u].output != done[u].output for u in done):
-        fail("two batcher runs on the same requests gave different tokens")
+    if (list(again) != list(done) or any(again[u].output != done[u].output for u in done)
+            or b.captures != 1):
+        fail("the graphed batcher's drain differs from the eager one's, request for request")
     differ = 0
     for uid, p, m in reqs:
         solo = serve_batch(cfg, params, p[None], gen_len=m, device=dev)[0].tolist()
         differ += sum(a != c for a, c in zip(done[uid].output, solo))
-    print(f"  two batcher runs gave the same tokens; {differ} of {n_new} batched tokens differ "
+    print(f"  the graphed and eager drains gave the same tokens; {differ} of {n_new} batched "
+          f"tokens differ "
           f"from the requests' solo runs (seatmates share the experts' capacity; not gated)")
-    rec.update(batcher_s=batch_s, batcher_steps=b.total_steps,
+    rec.update(batcher_s=batch_s, batcher_eager_s=runs[1][2], batcher_steps=b.total_steps,
                wasted_step_fraction=b.wasted_step_fraction, batcher_tokens_per_s=n_new / batch_s,
                tokens_differing_from_solo=differ)
     del params, b, done, runs, srv
@@ -3032,6 +3301,7 @@ def run_moe_lm(dev, card: str) -> dict:
     rec.update(moe_prefill(cfg, params, prompts, dev, k3=cfg.mixer_pattern.count("A"), k7=n_m))
     srv = moe_serve(cfg, params, g, dev, card)
     rec.update({k: srv[k] for k in ("serve_s", "serve_ms_per_step")})
+    rec["decode"] = decode_gate("jamba's period", card, cfg, params, srv["prompts"], dev)
     del params, srv
     out["jamba-v0.1-52b"] = rec
     torch.cuda.empty_cache()
@@ -3118,19 +3388,19 @@ def lm_prefill(cfg, params, batch: dict, dev, k3: int) -> dict:
 
 def lm_serve(cfg, params, prompts, cross, dev, card: str) -> dict:
     """``serve_batch`` (prompt + VLM_AUDIO_SERVE's gen, ``cross`` the image
-    embeddings or None) after a warm-up: ms a decode step, tokens in range;
-    then a loop of LM_IDLE_STEPS serve steps unprofiled and profiled: device
-    ms a step and the idle share."""
+    embeddings or None) after a warm-up: ms a decode step, tokens in range,
+    the capture's build time; then ``decode_gate``: the graphed step
+    bitwise the eager one, ms and device ms a step of each, the eager
+    step's idle share."""
     from repro_torch.launch.serve import serve_batch
-    from repro_torch.launch.steps import make_serve_step
-    from repro_torch.models import init_decode_state
 
     R, P, G = VLM_AUDIO_SERVE
-    extra = {} if cross is None else {"cross_embeds": cross}
     serve_batch(cfg, params, prompts[:, :2], gen_len=2, cross_embeds=cross, device=dev)
     torch.cuda.synchronize()
+    stats = {}
     t0 = time.perf_counter()
-    toks = serve_batch(cfg, params, prompts, gen_len=G, cross_embeds=cross, device=dev)
+    toks = serve_batch(cfg, params, prompts, gen_len=G, cross_embeds=cross, device=dev,
+                       stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     step_ms = wall / (P + G - 1) * 1e3
@@ -3138,32 +3408,15 @@ def lm_serve(cfg, params, prompts, cross, dev, card: str) -> dict:
     if tuple(toks.shape) != want or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         fail(f"{cfg.name}: serve_batch gave {tuple(toks.shape)} (want {want}) or tokens out "
              f"of range")
-    step = make_serve_step(cfg, device=dev)
-    state = init_decode_state(cfg, R, P + G, device=dev)
-
-    def decode_loop(n=LM_IDLE_STEPS):
-        nonlocal state
-        tok = toks[:, :1]
-        for _ in range(n):
-            tok, state = step(params, {"tokens": tok, **extra}, state)
-
-    decode_loop(2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    decode_loop()
-    torch.cuda.synchronize()
-    loop_ms = (time.perf_counter() - t0) * 1e3
-    by_name, busy_us = profile_device(decode_loop)
-    dev_ms = busy_us / 1e3 / LM_IDLE_STEPS
-    idle = 1 - busy_us / 1e3 / loop_ms
-    ops = sum(c for c, _ in by_name.values()) / LM_IDLE_STEPS
-    print(f"  [{card}] serve_batch {R} requests, prompt {P}, gen {G}: {wall:.3f} s, {step_ms:.2f} "
-          f"ms per decode step of {R}; {LM_IDLE_STEPS} steps {loop_ms:.1f} ms unprofiled, "
-          f"device busy {dev_ms:.2f} ms a step ({ops:.0f} device operations), idle share "
-          f"{idle:.2f}; first tokens {toks[:, 0].tolist()}")
-    del state
-    return {"serve_s": wall, "serve_ms_per_step": step_ms, "decode_device_ms_per_step": dev_ms,
-            "decode_idle_share": idle, "decode_ops_per_step": ops}
+    print(f"  [{card}] serve_batch {R} requests, prompt {P}, gen {G}: {wall:.3f} s (its capture "
+          f"{stats['build_s']:.3f} s included), {step_ms:.2f} ms per decode step of {R}; first "
+          f"tokens {toks[:, 0].tolist()}")
+    decode = decode_gate(cfg.name if cross is None else f"{cfg.name}'s period", card, cfg,
+                         params, prompts, dev, cross=cross)
+    return {"serve_s": wall, "serve_ms_per_step": step_ms, "serve_build_s": stats["build_s"],
+            "decode_device_ms_per_step": decode["decode_device_ms_per_step"],
+            "decode_idle_share": decode["decode_idle_share"],
+            "decode_ops_per_step": decode["decode_ops_per_step"], "decode": decode}
 
 
 def train_musicgen(dev, card: str) -> dict:
@@ -3622,6 +3875,7 @@ def run_zoo(dev, card: str, adaptive_rec: dict) -> dict:
     from repro_torch.analysis import solver_select
     from repro_torch.configs.diffusion import HIGHRES_DIT
     from repro_torch.core import analytic
+    from repro_torch.core.sampling import sample
     from repro_torch.core.sde import VESDE, VPSDE, bcast
     from repro_torch.core.solvers import adaptive as ad
     from repro_torch.core.solvers.base import SlotStreams
@@ -3641,13 +3895,14 @@ def run_zoo(dev, card: str, adaptive_rec: dict) -> dict:
           f"{adaptive_rec['mean_nfe']:.2f}, {adaptive_rec['wall_s']:.3f} s")
     for method in ("momentum", "heun"):
         step_ops.launches = step_ops.em_launches = flash_ops.launches = 0
+        c0 = ad.captures
         rec = launcher.run("highres_dit", batch=8, precision="fp32", eps_rel=0.05,
                            max_iters=MAIN_MAX_ITERS, flash=True, fused=True, seed=0,
                            liven_seed=0, device=dev, method=method)
         got = {"solver_step": step_ops.launches, "flash_attention": flash_ops.launches,
                "em_step": step_ops.em_launches}
         res, iters = rec["result"], rec["iterations"]
-        body = groups(iters)
+        body = groups(iters) + captured_warmups(c0)  # a fresh score: one capture
         want = {"solver_step": body, "flash_attention": 2 * L * body + L, "em_step": 0}
         rule = bool(torch.equal(res.nfe, 2 * (res.accepted + res.rejected) + 1))
         print(f"  [{card}] {method} from HIGHRES_DIT: {iters} iterations, mean NFE "
@@ -3665,6 +3920,22 @@ def run_zoo(dev, card: str, adaptive_rec: dict) -> dict:
         out["dit"][method] = dict(iterations=iters, mean_nfe=rec["mean_nfe"],
                                   wall_s=rec["wall_s"], launches=got)
         del rec, res
+    # the graphed momentum and Heun solves against their host-driven chains
+    cfg_d, model, score = launcher.build_score("highres_dit", flash=True, precision="fp32",
+                                               seed=0, liven_seed=0, device=dev)
+    dshape = (8, cfg_d.image_size, cfg_d.image_size, cfg_d.channels)
+    out["graphed"] = {}
+    for method, field in (("momentum", {"momentum": DEFAULT_BETA}),
+                          ("heun", {"probability_flow": True})):
+        gcfg = ad.AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True, max_iters=MAIN_MAX_ITERS,
+                                 telemetry_capacity=GRAPH_RING, **field)
+        out["graphed"][method] = graphed_vs_host(
+            f"HIGHRES_DIT {method}", card,
+            lambda: sample(VPSDE(), score, dshape, seed=0, method=method, config=gcfg,
+                           device=dev),
+            lambda: host_chain(VPSDE(), score, dshape, 0, gcfg, dev))
+    del model, score
+    gc.collect()  # the graph cache's drivers of this net go with it
     torch.cuda.empty_cache()
 
     # the selection race on the closed-form score, each row's launches exact
@@ -3675,6 +3946,7 @@ def run_zoo(dev, card: str, adaptive_rec: dict) -> dict:
                 continue
             kw = {"use_fused_kernel": True} if solver in launcher.ADAPTIVE_FAMILY else {}
             step_ops.launches = step_ops.em_launches = 0
+            c0 = ad.captures
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             row = solver_select.conformance_row(solver, sde_name, sde_c, device=dev, **kw)
@@ -3682,7 +3954,7 @@ def run_zoo(dev, card: str, adaptive_rec: dict) -> dict:
             row["wall_s"] = time.perf_counter() - t0
             row["launches"] = {"solver_step": step_ops.launches, "em_step": step_ops.em_launches}
             n = spec["kwargs"].get("n_steps", 0)
-            want = {"solver_step": groups(row["iterations"]) if kw else 0,
+            want = {"solver_step": groups(row["iterations"]) + captured_warmups(c0) if kw else 0,
                     "em_step": {"em": n, "pc": 2 * n, "pc_hmc": n}.get(solver, 0)}
             print(f"  [{card}] {sde_name} {solver:8s}: W2 {row['w2']:.4f} (gate {row['tol']}), "
                   f"mean NFE {row['mean_nfe']:.1f}, {row['wall_s']:.3f} s, launches "
@@ -4000,6 +4272,7 @@ def precision_dit(dev, card: str, fp32_rec: dict) -> dict:
     for preset in PRESETS_BF16:
         step_ops.launches = 0
         flash_ops.launches = 0
+        c0 = ad.captures
         rec = launcher.run("highres_dit", batch=B, precision=preset, eps_rel=0.05,
                            max_iters=MAIN_MAX_ITERS, flash=True, fused=True, seed=0,
                            liven_seed=0, device=dev)
@@ -4007,7 +4280,8 @@ def precision_dit(dev, card: str, fp32_rec: dict) -> dict:
         if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
             fail(f"TF32 is on after building the {preset} policy")
         res, iters = rec["result"], rec["iterations"]
-        body = ad.SYNC_EVERY * -(-iters // ad.SYNC_EVERY)
+        # whole groups of SYNC_EVERY, plus the capture's warm-up iteration
+        body = ad.SYNC_EVERY * -(-iters // ad.SYNC_EVERY) + captured_warmups(c0)
         forwards = 2 * body + 1
         want = {"solver_step": body, "flash_attention": HIGHRES_DIT.num_layers * forwards}
         carry = ad.init_carry(VPSDE(), torch.zeros(B, 4, device=dev), None, precision=preset)
@@ -4259,7 +4533,7 @@ def bf16_lm(dev, card: str, arch: str, prompts_shape, fp32: dict) -> dict:
     step_ms = serve_s / (P + G - 1) * 1e3
     if toks.shape != (R, G) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         fail(f"{arch} bf16 serve_batch: tokens out of range")
-    step = make_serve_step(cfg, device=dev)
+    step = make_serve_step(cfg, device=dev).eager  # the profiler traces eager steps
     state = init_decode_state(cfg, R, P + G, device=dev)
     states = []
     _map(lambda a: states.append(str(a.dtype)[6:]), state)
@@ -4279,8 +4553,9 @@ def bf16_lm(dev, card: str, arch: str, prompts_shape, fp32: dict) -> dict:
     by_name, busy_us = profile_device(decode_loop)
     idle = 1 - busy_us / 1e3 / loop_ms
     print(f"  [{card}] serve_batch {R} × ({P} + {G}) in bf16: {serve_s:.3f} s, {step_ms:.2f} ms "
-          f"a decode step; decode {LM_IDLE_STEPS} steps {loop_ms:.1f} ms wall, device "
-          f"{busy_us / 1e3 / LM_IDLE_STEPS:.2f} ms a step, idle share {idle:.2f}; decode state "
+          f"a decode step (graphed); eager decode {LM_IDLE_STEPS} steps {loop_ms:.1f} ms wall, "
+          f"device {busy_us / 1e3 / LM_IDLE_STEPS:.2f} ms a step, idle share {idle:.2f}; decode "
+          f"state "
           f"dtypes {sorted(set(states))}")
     del params, state
     torch.cuda.empty_cache()
@@ -4813,6 +5088,7 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.groupnorm_silu import ops as gn_ops
     from repro_torch.kernels.groupnorm_silu import ref as gn_ref
+    from repro_torch.kernels.philox import ops as ph_ops
     from repro_torch.kernels.solver_step import ops as step_ops
     from repro_torch.kernels.solver_step import ref as step_ref
     from repro_torch.launch import sample as launcher
@@ -5190,7 +5466,23 @@ def main() -> None:
     print(f"  where the time goes: one DiT forward (batch {B}, flash) {fwd_ms:.2f} ms; "
           f"main path {rec['wall_s'] / max(iters, 1) * 1e3:.2f} ms per iteration "
           f"(two forwards + one solver step + the host sync share)")
-    del model, score_fast
+    # the graphed solve (one WHILE-node launch, one host read) against the
+    # host-driven chain on the same streams
+    gcfg = ad.AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True, max_iters=MAIN_MAX_ITERS,
+                             telemetry_capacity=GRAPH_RING)
+    dshape = (B, cfg.image_size, cfg.image_size, cfg.channels)
+    graphed = {"adaptive": graphed_vs_host(
+        "HIGHRES_DIT adaptive", "phase 3",
+        lambda: sample(sde, score_fast, dshape, seed=0, config=gcfg, device=dev),
+        lambda: host_chain(sde, score_fast, dshape, 0, gcfg, dev))}
+    # the graph cache holds score functions weakly: dropping the net drops
+    # its driver (graph, pool and carry) with it
+    cached = len(ad._drivers)
+    del model, score_fast, body
+    gc.collect()
+    print(f"  graph drivers cached: {cached} with the net, {len(ad._drivers)} after dropping it")
+    if len(ad._drivers) != cached - 1:
+        fail("dropping the score net did not drop its cached graph driver")
 
     # ------------------------------------------------------------- 4. plan
     phase("main path: guided planning through TRAJ_UNET with all three kernels")
@@ -5210,13 +5502,13 @@ def main() -> None:
                                  max_iters=MAIN_MAX_ITERS)
     print(f"  TRAJ_UNET {tu.param_count(unet):,} parameters; plans {PLAN_BATCH} x "
           f"{pcfg.sample_shape}, CFG {PLAN_CFG} over {2 * PLAN_BATCH} rows")
-    # a first, cold call (allocator, cuDNN's first use of each conv shape),
-    # then the measured call with the counts at 0
+    # a first, cold call (allocator, cuDNN's first use of each conv shape,
+    # the graph's capture), then the measured call with the counts at 0
     t0 = time.perf_counter()
     cold = plan(sde, plan_score, obs, pcfg=pcfg, returns=bins, config=plan_cfg, device=dev)
     torch.cuda.synchronize()
     cold_wall = time.perf_counter() - t0
-    step_ops.launches = flash_ops.launches = gn_ops.launches = 0
+    step_ops.launches = flash_ops.launches = gn_ops.launches = ph_ops.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pres = plan(sde, plan_score, obs, pcfg=pcfg, returns=bins, config=plan_cfg, device=dev)
@@ -5224,7 +5516,7 @@ def main() -> None:
     plan_wall = time.perf_counter() - t0
     plan_launches = {"solver_step": step_ops.launches,
                      "flash_attention": flash_ops.launches,
-                     "groupnorm_silu": gn_ops.launches}
+                     "groupnorm_silu": gn_ops.launches, "philox_normal": ph_ops.launches}
     p_iters = int(pres.iterations)
     print(f"  iterations {p_iters}, mean NFE {float(pres.mean_nfe):.2f}, "
           f"accepted {int(pres.accepted.sum())}, rejected {int(pres.rejected.sum())}, "
@@ -5248,6 +5540,16 @@ def main() -> None:
         fail("the pinned observation coordinates differ from obs")
     print(f"  plans finite, shape {tuple(px.shape)}, x[:, 0, :{PLAN_OBS}] == obs exactly, "
           f"all converged before the cap: {p_iters < MAIN_MAX_ITERS}")
+    # the graphed planning solve against the host-driven chain on its streams
+    plan_gcfg = dataclasses.replace(plan_cfg, telemetry_capacity=GRAPH_RING)
+    pcond_c, pcond = plan_conditioner(pcfg, state=obs, returns=bins)
+    graphed["planning"] = graphed_vs_host(
+        "TRAJ_UNET planning", "phase 4",
+        lambda: plan(sde, plan_score, obs, pcfg=pcfg, returns=bins, config=plan_gcfg,
+                     device=dev),
+        lambda: host_chain(sde, plan_score, (PLAN_BATCH,) + pcfg.sample_shape, 0,
+                           dataclasses.replace(plan_gcfg, conditioner=pcond_c), dev,
+                           cond=pcond))
 
     # the same weights on the plain paths: one forward, one iteration
     xu = torch.randn(2 * PLAN_BATCH, *pcfg.sample_shape, generator=g, device=dev)
@@ -5565,13 +5867,20 @@ def main() -> None:
     print(f"  profiled eager forward: {n_kern} device operations, {dev_us:.0f} us of device "
           f"time; largest: " + "; ".join(f"{name[:60]} x{n} {us:.0f} us"
                                           for name, (n, us) in top))
-    # the device's busy time over one whole planning solve (one stream, so
-    # the kernel times add up), against the unprofiled solve's wall time
-    _, busy_us = profile_device(lambda: plan(sde, plan_score, obs, pcfg=pcfg, returns=bins,
-                                             config=plan_cfg, device=dev))
+    # the device's busy time over one whole host-driven planning solve (one
+    # stream, so the kernel times add up) against its unprofiled wall; the
+    # graphed solve's share is phase 4's (CUDA events: CUPTI cannot trace
+    # the WHILE node)
+    host_plan = lambda: host_chain(sde, plan_score, (PLAN_BATCH,) + pcfg.sample_shape, 0,
+                                   dataclasses.replace(plan_cfg, conditioner=pcond_c), dev,
+                                   cond=pcond)
+    _, busy_us = profile_device(host_plan)
     busy_ms = busy_us / 1e3
-    print(f"  planning solve: device busy {busy_ms:.1f} ms of the {plan_wall * 1e3:.1f} ms "
-          f"unprofiled wall, idle share {1 - busy_ms / (plan_wall * 1e3):.2f}")
+    host_wall = graphed["planning"]["host_s"]
+    print(f"  host-driven planning solve: device busy {busy_ms:.1f} ms of the "
+          f"{host_wall * 1e3:.1f} ms unprofiled wall, idle share "
+          f"{1 - busy_ms / (host_wall * 1e3):.2f}; graphed: window share "
+          f"{graphed['planning']['window_share']:.2f} of {plan_wall * 1e3:.1f} ms")
     iter_ms = plan_wall / max(p_iters, 1) * 1e3
     print(f"  TRAJ_UNET forward at {2 * PLAN_BATCH} rows: eager {unet_eager:.3f} ms, "
           f"device (graph replay) {unet_dev:.3f} ms; all-plain forward: eager "
@@ -5636,6 +5945,7 @@ def main() -> None:
     # ------------------------------------------------------ 6b. train/tables
     phase("train and tables: DIT_100M trained and sampled (K1, K3); Tables 1, 3, 4-5 (K1, K5)")
     tt = train_and_tables(dev, card)
+    gc.collect()  # the graph cache's drivers go with their score nets
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 7. lm
@@ -5681,6 +5991,28 @@ def main() -> None:
           "gloo tp / remat / data parallel / fsdp / zero1 and the other mixers")
     train_mesh = run_train_mesh(dev, card)
 
+    # the graphed loops of this slice, in one place: the solves' walls (first
+    # call, replayed, host-driven) and the decode steps' ms (graphed, eager)
+    graphed_all = {**{f"dit_{k}" if k == "adaptive" else k: v for k, v in graphed.items()},
+                   **{f"dit_{m}": zoo["graphed"][m] for m in ("momentum", "heun")}}
+    decodes = {"mamba2-2.7b": lm["decode"], "gemma3-12b": alm["decode"],
+               "deepseek-moe-16b": moe_rec["deepseek-moe-16b"]["decode"],
+               "jamba-v0.1-52b (one period)": moe_rec["jamba-v0.1-52b"]["decode"],
+               **{k: v["decode"] for k, v in xc_rec.items()
+                  if isinstance(v, dict) and "decode" in v}}
+    print(f"graphed solves [{card}] (s: first call, replayed, host-driven; reads; window "
+          f"share): " + "; ".join(
+              f"{k} {v['first_s']:.3f}, {v['replay_s']:.3f}, {v['host_s']:.3f}; "
+              f"{v['host_reads']} vs {v['host_driven_reads']}; {v['window_share']:.2f}"
+              for k, v in graphed_all.items()))
+    print(f"graphed decode [{card}] (ms a step graphed / eager; graphed elapsed ms (events); "
+          f"busy ms graphed / eager (profiler); build s): " + "; ".join(
+              f"{k} {v['graphed_ms_per_step']:.2f} / {v['eager_ms_per_step']:.2f}; "
+              f"{v['graphed_elapsed_ms_per_step']:.2f}; "
+              f"{busy_text(v['graphed_busy_ms_per_step'])} / "
+              f"{v['decode_device_ms_per_step']:.2f}; {v['build_s']:.3f}"
+              for k, v in decodes.items()))
+
     def device_resident_launches(name):
         """A kernel's launches in phase 6c's device-resident drain."""
         got = dsrv["launches"]
@@ -5692,6 +6024,9 @@ def main() -> None:
          "source": "src/repro_torch/kernels/solver_step/csrc/solver_step.cu",
          "replaces": "src/repro/kernels/solver_step/kernel.py:158",
          "launches": launches["solver_step"],
+         "graphed": {"launched_as": "error_step inside the WHILE node of the graphed solve: "
+                                    "the replayed call's launches (phases 3, 4, 6d)",
+                     **{k: v["launches"]["solver_step"] for k, v in graphed_all.items()}},
          "max_abs_err": step_err[(torch.float32, D, False)],
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / FP32_FLOPS
@@ -5988,6 +6323,10 @@ def main() -> None:
          "launched_as": "per-slot noise (SlotStreams) of the device-resident serve (phase 6c): "
                         "the captured horizon's calls times the horizons run, plus the eager "
                         "calls (the capture's warm-up, admissions)",
+         "sample_path": {"launched_as": "sample()'s per-row streams: the prior at counter 0, "
+                                        "then the graphed solve's draws (phases 3, 4, 6d; "
+                                        "Heun draws none)",
+                         **{k: v["launches"]["philox_normal"] for k, v in graphed_all.items()}},
          "device_resident": device_resident_launches("philox_normal"),
          "plan_service": {"launches": psrv["closed_loop"]["launches"]["philox_normal"],
                           "device_resident": psrv["device_resident_launches"]["philox_normal"]},
@@ -6006,6 +6345,10 @@ def main() -> None:
          "library_ms": None,
          "launch_floor_ms": floor_ms,
          "driver_windows": dsrv["launches"]["windows"],
+         "graphed_solve": {"launched_as": "the WHILE node's condition of sample()'s graphed "
+                                          "solve: the horizons + 1 a replayed solve (phases "
+                                          "3, 4, 6d)",
+                           **{k: v["horizon_cond"] for k, v in graphed_all.items()}},
          "cuda_versions": dsrv["cuda_versions"],
          "serve": dsrv["rec"], "sync_check": dsrv["sync_check"],
          "plan_service": {"launches": psrv["device_resident_launches"]["horizon_cond"],

@@ -238,10 +238,14 @@ def solve_row(name: str, sde: SDE, score_fn: Callable, shape, *, seed: int, devi
     solver step was asked for (``fused``), and the solver-step kernels'
     launches in this solve (both counts set to 0 just before it and read
     just after; 0 on the CPU, where the wrappers take their plain
-    versions)."""
+    versions), with ``captures``, the CUDA graphs the solve captured (the
+    graphed solve's first call at a key, ``adaptive.graph_driver``; its
+    warm-up runs one body iteration eagerly)."""
+    from repro_torch.core.solvers import adaptive as ad
     from repro_torch.kernels.solver_step import ops as step_ops
 
     step_ops.launches = step_ops.em_launches = 0
+    c0 = ad.captures
     us, res = timed(lambda: sample(sde, score_fn, shape, seed=seed, method=method,
                                    device=device, **solver_kwargs))
     launches = {"solver_step": step_ops.launches, "em_step": step_ops.em_launches}
@@ -255,4 +259,5 @@ def solve_row(name: str, sde: SDE, score_fn: Callable, shape, *, seed: int, devi
                 rej=rej / max(acc + rej, 1), frechet=frechet_gaussian(x, data),
                 sw2=sliced_wasserstein(x, data), w2g=w2_gaussianized(x, data),
                 finite=bool(np.isfinite(x).all()), launches=launches,
+                captures=ad.captures - c0,
                 n_steps=solver_kwargs.get("n_steps"))

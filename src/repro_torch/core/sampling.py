@@ -3,41 +3,60 @@
 ``sample_chunked``).
 
 ``sample`` ties the pipeline together (DESIGN.md §1) for every
-registered solver (``adaptive``, ``em``, ``pc``, ``pc_hmc``, ``ddim``,
-``ode``): one ``torch.Generator`` on the target device, seeded by the
-caller, draws the prior and then every noise draw of the solve; a
-``noise_fn`` in the solver's keywords replaces those draws. ``solve_in_chunks``
-is the resumable form (DESIGN.md §7): the same adaptive solve as a
-host-driven chain of ``solve_chunk`` calls (or of a caller's prebuilt
-``chunk_fn``), bitwise equal to ``sample(method="adaptive")`` for the
-same seed. ``sample_chunked`` draws many samples as a chain of
-``sample`` calls and hands them back as host numpy. The first two take the optional
-condition payload ``cond`` of ``AdaptiveConfig.conditioner``
-(DESIGN.md §9), which rides in the carry through every chunk.
+registered solver (``adaptive``, ``momentum``, ``heun``, ``em``, ``pc``,
+``pc_hmc``, ``ddim``, ``ode``). Its noise is per-row Philox streams
+(``seed_streams``): row i's stream seed is ``chunk_seeds(seed, B)[i]``
+(``numpy.random.SeedSequence(seed)``), and every method draws its prior
+from the streams at counter 0, so one seed gives every method the same
+prior (the reference's ``k_prior`` split). The Algorithm-1 families
+(``STREAM_SOLVERS``) then draw their noise from the same streams from
+counter 1, which makes a row of ``sample(seed=s)`` bitwise a solo
+``adaptive()`` on that row's stream, and lets their solve run as one
+captured CUDA graph (``core.solvers.adaptive``'s graphed solve); the
+fixed-grid baselines draw theirs from a ``torch.Generator`` seeded
+``seed``. A ``noise_fn`` in the solver's keywords replaces the solver's
+draws (the prior stays the streams'). ``solve_in_chunks`` is the
+resumable form (DESIGN.md §7): the same adaptive solve as a chain of
+chunks of ``max_sync_iters`` iterations with a host read between them,
+bitwise equal to ``sample(method="adaptive")`` for the same seed.
+``sample_chunked`` draws many samples as a chain of ``sample`` calls
+and hands them back as host numpy. The first two take the optional
+condition payload ``cond`` of ``AdaptiveConfig.conditioner`` (DESIGN.md
+§9), which rides in the carry through every chunk.
+
+Both run their graphed solves through the solver's bounded graph cache
+(``core.solvers.adaptive.graph_driver``, the reference's
+``_chunk_jit``/``_finalize_jit``): a repeated solve at the same key
+copies its fresh carry into a cached driver's captured buffers and
+launches it, capturing nothing.
 
 Under ``mesh=`` (a ``repro_torch.parallel.Mesh`` over
-``torch.distributed``, DESIGN.md §3) both are data-parallel: every rank
-draws the global prior from the same seed, the batch shards over the
-mesh's data axes (``sample_state_shardings``; an indivisible batch
-replicates), every registered solver runs on this rank's rows (the
-adaptive families, the fixed-grid baselines with the global draws cut to
-the rank's rows, the ODE with its batch-global error all-reduced), and
-the result holds those rows. ``gather_result`` assembles the whole
-batch.
+``torch.distributed``, DESIGN.md §3) both are data-parallel and
+host-driven (the mesh's loop control is a collective on the host; gloo
+collectives cannot be captured): every rank draws the global prior from
+the same streams, the batch shards over the mesh's data axes
+(``sample_state_shardings``; an indivisible batch replicates), every
+registered solver runs on this rank's rows (the adaptive families on
+the rank's rows of the streams, the fixed-grid baselines with the
+global draws cut to the rank's rows, the ODE with its batch-global
+error all-reduced), and the result holds those rows.
+``gather_result`` assembles the whole batch.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable
 
 import numpy as np
 import torch
 
+from repro_torch.core import streams
 from repro_torch.core.sde import SDE
 from repro_torch.core.solvers import SolveResult, get_solver
 from repro_torch.core.solvers.adaptive import (
-    AdaptiveConfig, finalize, init_carry, resolve_config, solve_chunk,
-    sync_state,
+    AdaptiveConfig, driver_window, finalize, graph_driver, graphable, init_carry,
+    resolve_config, solve_chunk, sync_state,
 )
 from repro_torch.device import resolve_device
 from repro_torch.parallel.collectives import gather_rows
@@ -46,8 +65,20 @@ from repro_torch.parallel.sharding import sample_state_shardings
 Tensor = torch.Tensor
 
 
+#: the solvers that draw their noise from ``sample``'s streams (the
+#: Algorithm-1 families); the rest take a ``torch.Generator``
+STREAM_SOLVERS = ("adaptive", "momentum", "heun")
+
+
 def _generator(seed: int, dev: torch.device) -> torch.Generator:
     return torch.Generator(device=dev).manual_seed(seed)
+
+
+def seed_streams(seed: int, batch: int, device="cuda") -> streams.SlotStreams:
+    """``sample``'s per-row streams at counter 0 on ``device`` (``cuda``
+    unless the caller passes ``"cpu"``): row i's seed is
+    ``chunk_seeds(seed, batch)[i]``."""
+    return streams.SlotStreams.of(chunk_seeds(seed, batch), 0, device=device)
 
 
 def _state_sharding(mesh, shape, dev: torch.device):
@@ -67,14 +98,21 @@ def sample(sde: SDE, score_fn: Callable, shape, *, seed: int = 0,
     per-sample payload of the conditioner in the solver's config (with a
     ``ClassifierFree`` conditioner the score is ``s(x, t, y)``).
 
+    The prior is the streams' draw at counter 0 (``seed_streams``) for
+    every method; the ``STREAM_SOLVERS`` draw their noise from the same
+    streams (graphed, unless the solver's keywords hold a ``noise_fn``
+    or ``mesh`` is given: then host-driven), the others from a
+    ``torch.Generator`` seeded ``seed`` (module docstring).
+
     ``mesh`` shards the batch over the mesh's data axes for every
     solver: the result holds this rank's rows (``gather_result`` collects
     the batch), the unsharded result's rows (bit for bit where a row's
     score does not depend on the batch around it).
     """
     dev = resolve_device(device)
-    gen = _generator(seed, dev)
-    x_init = sde.prior_sample(shape, gen)
+    st = seed_streams(seed, shape[0], dev)
+    x_init = sde.prior_sample(shape, st)
+    gen = st.advanced(1) if method in STREAM_SOLVERS else _generator(seed, dev)
     solver = get_solver(method)
     if cond is not None:
         solver_kwargs["cond"] = cond
@@ -103,44 +141,62 @@ def solve_in_chunks(sde: SDE, score_fn: Callable, shape, *, max_sync_iters: int,
                     noise_fn: Callable | None = None,
                     chunk_fn: Callable | None = None,
                     **overrides) -> SolveResult:
-    """Adaptive solve as a chain of ``solve_chunk`` calls of at most
-    ``max_sync_iters`` iterations; ``on_sync(carry)`` sees every
-    intermediate carry. Bitwise equal to ``sample(method="adaptive")``
-    for the same seed, with or without ``mesh`` (this rank's rows).
+    """Adaptive solve as a chain of chunks of at most ``max_sync_iters``
+    iterations, one host read after each; ``on_sync(carry)`` sees every
+    intermediate carry (a copy). Bitwise equal to
+    ``sample(method="adaptive")`` for the same seed, with or without
+    ``mesh`` (this rank's rows).
 
-    ``chunk_fn`` is a prebuilt ``carry -> carry`` chunk that replaces
-    the default ``solve_chunk`` call; ``max_sync_iters`` and ``noise_fn``
-    then belong to it, and the chain stops on the carry's global done
-    flag or ``max_iters``, as with the default chunk. It mirrors the
-    reference's seam, which there reuses a prebuilt jitted chunk to
-    avoid a recompile; eager PyTorch has nothing to prebuild, so nothing
-    in this package passes it yet. Its intended caller is a captured
-    CUDA graph of one ``SYNC_EVERY`` group."""
+    A chunk is one window of the cached driver whose horizon is
+    ``max_sync_iters`` iterations (``graph_driver``): on the card one
+    replay of a captured graph a sync, captured once a key; on the CPU a
+    ``solve_chunk`` call. With ``noise_fn`` (Python a graph cannot
+    call), ``mesh`` (a collective on the host) or ``chunk_fn`` the chain
+    is host-driven: ``chunk_fn`` is a prebuilt ``carry -> carry`` chunk
+    that replaces the default ``solve_chunk`` call (``max_sync_iters``
+    and ``noise_fn`` then belong to it), the reference's seam for a
+    prebuilt jitted chunk, and the chain stops on the carry's global
+    done flag or ``max_iters``, as with the default chunk."""
     cfg = resolve_config(config, overrides)
     dev = resolve_device(device)
-    gen = _generator(seed, dev)
+    st = seed_streams(seed, shape[0], dev)
     sharding = _state_sharding(mesh, shape, dev)
-    carry = init_carry(sde, sde.prior_sample(shape, gen), gen, config=cfg,
+    carry = init_carry(sde, sde.prior_sample(shape, st), st.advanced(1), config=cfg,
                        cond=cond, sharding=sharding)
-    while True:
-        done, iters = sync_state(carry, sharding)
-        if done or iters >= cfg.max_iters:
-            break
-        if chunk_fn is not None:
-            carry = chunk_fn(carry)
-        else:
-            carry = solve_chunk(sde, score_fn, carry, max_sync_iters=max_sync_iters,
-                                config=cfg, noise_fn=noise_fn, sharding=sharding)
-        if on_sync is not None:
-            on_sync(carry)
+    if chunk_fn is None and graphable(carry.generator, noise_fn, sharding):
+        drv = graph_driver(sde, score_fn, carry, cfg, max_sync_iters=max_sync_iters,
+                           max_horizons=1)
+        while cfg.max_iters > 0:
+            horizons, active, iters = driver_window(drv)
+            if not horizons:  # every row had converged before the chunk
+                break
+            if on_sync is not None:
+                on_sync(copy.deepcopy(drv.carry))
+            if not active or iters >= cfg.max_iters:
+                break
+        carry = copy.deepcopy(drv.carry)
+    else:
+        while True:
+            done, iters = sync_state(carry, sharding)
+            if done or iters >= cfg.max_iters:
+                break
+            if chunk_fn is not None:
+                carry = chunk_fn(carry)
+            else:
+                carry = solve_chunk(sde, score_fn, carry, max_sync_iters=max_sync_iters,
+                                    config=cfg, noise_fn=noise_fn, sharding=sharding)
+            if on_sync is not None:
+                on_sync(carry)
     return finalize(sde, score_fn, carry, denoise=denoise,
                     precision=cfg.precision, conditioner=cfg.conditioner)
 
 
 def chunk_seeds(seed: int, n: int) -> list:
-    """The seeds of ``sample_chunked``'s chunks: n independent 63-bit
-    integers from ``numpy.random.SeedSequence(seed)`` (the reference
-    splits its key once per chunk)."""
+    """n independent non-negative 63-bit integers from
+    ``numpy.random.SeedSequence(seed)``: with its 2n 32-bit words w,
+    seed i is (w[2i] << 31) ^ w[2i + 1]. The seeds of ``sample_chunked``'s
+    chunks (the reference splits its key once per chunk) and of
+    ``sample``'s per-row streams."""
     state = np.random.SeedSequence(seed).generate_state(2 * n, dtype=np.uint32)
     return [int((int(state[2 * i]) << 31) ^ int(state[2 * i + 1])) for i in range(n)]
 

@@ -59,8 +59,21 @@ h, err, accept) there, on the device. Off (the default) the carry has
 no ring and the body records nothing; on, recording reads values the
 body computed anyway, so the solve's bits are the same either way.
 
-``host_syncs`` counts ``sync_state``'s device→host reads, so the serving
-loop can report the solver's syncs beside its own.
+The graphed whole solve (the reference's ``lax.while_loop``): given a
+``SlotStreams``, no ``noise_fn`` and no mesh, ``adaptive`` runs its solve
+through a ``HorizonDriver`` that ``wait_all`` waits on every row, with one
+``SYNC_EVERY`` group as its horizon and ⌈``max_iters``/``SYNC_EVERY``⌉
+horizons at most: on the card one WHILE-node graph launch (P2 its
+condition) and one host read a solve, on the CPU the plain driver over
+``solve_chunk``'s groups. The groups are ``solve_chunk``'s and an
+iteration with no active sample changes no leaf, so the result is the
+host-driven chain's bit for bit. The drivers live in a bounded cache
+(``graph_driver``) keyed as the reference keys its jit, so a repeated
+solve copies its fresh carry into the captured buffers and replays them.
+
+``host_syncs`` counts the solver's device→host reads (``sync_state``'s,
+and the graphed solve's one read a window), so the serving loop can
+report the solver's syncs beside its own.
 
 Conditioning (DESIGN.md §9): ``AdaptiveConfig.conditioner`` is the
 static half, ``SolverCarry.cond`` the per-sample payload. The score is
@@ -130,10 +143,13 @@ stream's counter moves only for a projecting conditioner's draw
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import functools
+import inspect
 import time
+import weakref
 from typing import Any, Callable, Optional
 
 import torch
@@ -919,6 +935,150 @@ def solve_horizons(sde: SDE, score_fn: Callable, carry: SolverCarry, occupied: T
     return drv.carry, state[0].to(torch.bool)
 
 
+# ---------------------------------------------------------------------------
+# The graphed whole solve and its driver cache
+# ---------------------------------------------------------------------------
+
+#: drivers the graph cache keeps at once (the reference's
+#: ``lru_cache(maxsize=8)``)
+GRAPH_CACHE_SIZE = 8
+_drivers: "collections.OrderedDict[tuple, HorizonDriver]" = collections.OrderedDict()
+#: horizon graphs the cache's drivers captured since the count was last set to 0
+captures = 0
+
+
+def graphable(generator, noise_fn: Callable | None = None, sharding=None) -> bool:
+    """Whether a solve runs graphed (the one rule ``adaptive`` and
+    ``core.sampling`` choose by): its noise a ``SlotStreams``, no
+    ``noise_fn`` and no mesh. A ``noise_fn`` or a list of per-slot
+    sources is Python a graph cannot call; a ``torch.Generator``'s
+    Philox offset is set by the host at each launch, so every body
+    iteration inside one WHILE-node launch would draw the same noise;
+    ``sharding`` keeps the mesh's all-reduce on the host (gloo
+    collectives cannot be captured)."""
+    return noise_fn is None and sharding is None and isinstance(generator, SlotStreams)
+
+
+def _anchor(fn: Callable) -> tuple:
+    """(the object whose life a cached driver follows, the function called
+    on it): a bound method's object and function (a bound method is made
+    anew at each attribute access), else the callable itself and None."""
+    if inspect.ismethod(fn):
+        return fn.__self__, fn.__func__
+    return fn, None
+
+
+def _forget(ident: tuple) -> None:
+    """Drop the drivers of a score function that was collected."""
+    for key in list(_drivers):
+        if key[1] == ident:
+            _drivers.pop(key, None)
+
+
+def _signature(carry: SolverCarry) -> tuple:
+    """The carry's structure: the device, the payload's names, and each
+    field's tensor leaves as (shape, dtype), None for an empty field."""
+    leaves = tuple(
+        None if getattr(carry, f.name) is None else
+        tuple((tuple(t.shape), t.dtype) for t in _tensor_leaves(getattr(carry, f.name)))
+        for f in dataclasses.fields(carry))
+    cond = None if carry.cond is None else tuple(sorted(carry.cond))
+    return (str(carry.x.device), cond) + leaves
+
+
+def graph_driver(sde: SDE, score_fn: Callable, carry: SolverCarry, config: AdaptiveConfig, *,
+                 max_sync_iters: int, max_horizons: int) -> HorizonDriver:
+    """The cached driver of ``max_sync_iters``-iteration horizons, at most
+    ``max_horizons`` a window, waiting on every row, with ``carry``
+    copied into its buffers. Built on a miss: on the card the horizon is
+    captured (``capture_horizon``) and counted in ``captures``; on the
+    CPU the horizon is ``solve_chunk``.
+
+    The cache is the reference's ``_chunk_jit``/``_finalize_jit``: at
+    most ``GRAPH_CACHE_SIZE`` drivers, least recently used out first,
+    keyed as the reference keys its jit, (sde, score_fn, config,
+    ``max_sync_iters``, sharding), the score function by identity (a
+    bound method by its object and function), with the horizons a window may run and
+    the carry's leaf shapes and dtypes added (the sharding part is always
+    None: the graphed paths take no mesh). A hit copies the fresh carry
+    (prior, t, h, stream seeds, payload) into the driver's captured
+    buffers and captures nothing.
+
+    The cache holds ``score_fn`` (a bound method's object) weakly: once
+    it is collected its drivers, their graphs and their pools go with it,
+    so a dropped model leaves nothing on the card. A score function that
+    takes no weak reference gets a driver that is not cached. A cached
+    graph replays what it captured, so a score function whose behaviour
+    follows Python state (a flag on its model, a swapped module) must be
+    a new function, or the cache cleared (``clear_graph_cache``), when
+    that state changes."""
+    global captures
+    obj, func = _anchor(score_fn)
+    ident = (id(obj), func)  # identity, not equality: a score net may define __eq__
+    key = (sde, ident, config, int(max_sync_iters), int(max_horizons), None,
+           _signature(carry))
+    drv = _drivers.get(key)
+    if drv is not None:
+        _drivers.move_to_end(key)
+        copy_carry_(drv.carry, carry)
+        return drv
+    try:  # the driver keeps no strong reference to the score function
+        anchor = weakref.ref(obj, lambda _, ident=ident: _forget(ident))
+    except TypeError:  # takes no weak reference: solved by a driver that is not cached
+        anchor = None
+    if anchor is None:
+        score = lambda: score_fn
+    elif func is None:
+        score = anchor
+    else:
+        score = lambda: func.__get__(anchor())
+    if carry.x.device.type == "cuda":
+        unit = lambda c: capture_horizon(sde, score(), c, sync_horizon=max_sync_iters,
+                                         config=config)
+    else:
+        unit = lambda c: solve_chunk(sde, score(), c, max_sync_iters=max_sync_iters,
+                                     config=config)
+    occupied = torch.ones(carry.batch, dtype=torch.bool, device=carry.x.device)
+    drv = HorizonDriver(copy.deepcopy(carry), occupied, unit, max_horizons=max_horizons,
+                        wait_all=True)
+    captures += drv.captures
+    if anchor is not None:
+        drv.anchor = anchor  # lives as long as the entry: its callback drops the entry
+        _drivers[key] = drv
+        while len(_drivers) > GRAPH_CACHE_SIZE:
+            _drivers.popitem(last=False)
+    return drv
+
+
+def clear_graph_cache() -> None:
+    """Drop every cached driver (and the graphs and buffers it holds)."""
+    _drivers.clear()
+
+
+def driver_window(drv: HorizonDriver) -> tuple:
+    """One driver window and its one host read: (horizons run, some row
+    still active, iterations), the window's launches charged."""
+    global host_syncs
+    drv.window()
+    vals = torch.cat([drv.state, sync_flags(drv.carry)]).tolist()
+    host_syncs += 1
+    drv.account(vals[1])
+    return vals[1], bool(vals[2]), vals[3]
+
+
+def solve_graphed(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
+                  config: AdaptiveConfig) -> SolverCarry:
+    """The whole solve of ``carry`` (its noise a ``SlotStreams``) in one
+    window of the cached driver: ``SYNC_EVERY``-iteration horizons, at
+    most ⌈``max_iters``/``SYNC_EVERY``⌉, until every row has converged.
+    Returns a carry of its own (the driver's buffers serve the next
+    solve)."""
+    drv = graph_driver(sde, score_fn, carry, config, max_sync_iters=SYNC_EVERY,
+                       max_horizons=-(-config.max_iters // SYNC_EVERY))
+    driver_window(drv)
+    return copy.deepcopy(drv.carry)
+
+
 def finalize(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
              denoise: bool = True, precision="fp32",
              conditioner: Optional[Conditioner] = None) -> SolveResult:
@@ -957,8 +1117,15 @@ def adaptive(sde: SDE, score_fn: Callable, x_init: Tensor,
 
     Runs on ``device`` (``cuda`` unless the caller passes ``"cpu"``);
     ``x_init`` is moved there. ``generator`` (on the same device) feeds
-    the noise draws unless ``noise_fn`` is given. ``cond`` is the
-    payload of ``cfg.conditioner`` (DESIGN.md §9). ``atol``/``rtol``/
+    the noise draws unless ``noise_fn`` is given.
+
+    The loop the solve runs is chosen by the noise source and the mesh
+    (``graphable``). A ``SlotStreams`` generator without ``noise_fn`` and
+    ``sharding`` is the graphed solve (module docstring): on the card one
+    WHILE-node launch of the cached driver (``graph_driver``) and one
+    host read, bitwise the host-driven chain on the same streams. The
+    other sources stay on ``solve_chunk``'s host-driven groups, one host
+    read a group. ``cond`` is the payload of ``cfg.conditioner`` (DESIGN.md §9). ``atol``/``rtol``/
     ``h0`` install per-sample tolerances and initial steps (DESIGN.md
     §14). ``sharding`` (a batch ``RowSharding`` of a mesh, normally from
     ``sample(mesh=)``) makes the solve data-parallel: the arguments are
@@ -971,8 +1138,11 @@ def adaptive(sde: SDE, score_fn: Callable, x_init: Tensor,
     cfg = resolve_config(config, overrides)
     carry = init_carry(sde, x_init.to(dev), generator, config=cfg, cond=cond,
                        atol=atol, rtol=rtol, h0=h0, sharding=sharding)
-    carry = solve_chunk(sde, score_fn, carry, max_sync_iters=cfg.max_iters,
-                        config=cfg, noise_fn=noise_fn, sharding=sharding)
+    if graphable(generator, noise_fn, sharding):
+        carry = solve_graphed(sde, score_fn, carry, config=cfg)
+    else:
+        carry = solve_chunk(sde, score_fn, carry, max_sync_iters=cfg.max_iters,
+                            config=cfg, noise_fn=noise_fn, sharding=sharding)
     return finalize(sde, score_fn, carry, denoise=denoise,
                     precision=cfg.precision, conditioner=cfg.conditioner)
 

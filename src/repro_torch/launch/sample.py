@@ -10,6 +10,13 @@ counts:
 
   PYTHONPATH=src python -m repro_torch.launch.sample --arch highres_dit --fused --flash
 
+On the card the Algorithm-1 families solve through one captured CUDA
+graph (``core.solvers.adaptive.graph_driver``). The launcher solves once
+a process, so its adaptive wall includes the capture and its warm-up
+iteration: at HIGHRES_DIT that first call is slower than the host-driven
+chain, and the graph pays off only for a caller that solves again at
+the same key (``PERF.md`` §5 has the break-even).
+
 A fresh DiT returns exactly 0 (its adaLN and output projections start at
 zero), so ``--liven-seed`` gives those leaves random values first; the
 launcher's default livens with seed 0, and ``--liven-seed -1`` keeps the
@@ -66,7 +73,7 @@ import torch
 
 from repro_torch.configs.diffusion import ARCHS
 from repro_torch.core.precision import PRESETS, resolve_policy
-from repro_torch.core.sampling import gather_result, sample
+from repro_torch.core.sampling import STREAM_SOLVERS, gather_result, sample
 from repro_torch.core.sde import VESDE, VPSDE, bcast
 from repro_torch.core.solvers import adaptive as ad
 from repro_torch.core.solvers.adaptive import AdaptiveConfig, capture_horizon, solve_chunk
@@ -85,8 +92,9 @@ from repro_torch.parallel.pipeline import pipeline_forward, stage_layers
 from repro_torch.parallel.sharding import ParamSharding, batch_sharding, tree_map_with_path
 
 
-#: the solvers that run Algorithm 1's body and take its configuration
-ADAPTIVE_FAMILY = ("adaptive", "momentum", "heun")
+#: the solvers that run Algorithm 1's body and take its configuration (the
+#: ones ``sample`` gives its streams)
+ADAPTIVE_FAMILY = STREAM_SOLVERS
 #: the dry run's meshes: one card, the reference's one- and two-pod meshes
 DRYRUN_MESHES = ("1card", "1pod", "2pod")
 #: the pipelined forward's microbatches in the dry run (the reference's default)

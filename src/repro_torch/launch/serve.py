@@ -66,6 +66,7 @@ import json
 import os
 import pathlib
 import time
+from typing import Callable
 
 import torch
 
@@ -81,7 +82,7 @@ Tensor = torch.Tensor
 
 def serve_batch(cfg: ModelConfig, params, prompts: Tensor, *, gen_len: int = 32,
                 cache_len: int | None = None, cross_embeds: Tensor | None = None,
-                device="cuda", mesh=None) -> Tensor:
+                device="cuda", mesh=None, stats: dict | None = None) -> Tensor:
     """prompts (B, P) int, or (B, P, K) with K codebooks → the generated
     tokens (B, gen_len) or (B, gen_len, K) int32: the first from the last
     prompt position, then greedy. The attention layers' caches hold
@@ -89,21 +90,38 @@ def serve_batch(cfg: ModelConfig, params, prompts: Tensor, *, gen_len: int = 32,
     most its window). ``cross_embeds`` (B, num_patches, vision_dim) feed
     every step's cross-attention layers.
 
+    On the card every step replays one CUDA graph of the serve step,
+    captured at the call's first step (``launch.steps.GraphedServeStep``);
+    ``stats`` (a dict) then receives its ``captures`` and ``build_s``.
+
     ``mesh``: a collective (every rank calls it with the same prompts);
     ``params`` is the rank's shard, the decode state is laid out by
     ``init_decode_state(mesh=)``, and every rank returns every row's
     tokens: the reference's ``serve_batch`` under an ambient mesh with
-    parameters placed by ``param_shardings``, made explicit."""
+    parameters placed by ``param_shardings``, made explicit. Its steps
+    are eager (``make_serve_step``)."""
     dev = resolve_device(device if mesh is None else mesh.device)
     B, P = prompts.shape[:2]
     state = init_decode_state(cfg, B, cache_len or (P + gen_len), device=dev, mesh=mesh)
     step = make_serve_step(cfg, device=dev, mesh=mesh)
-    prompts = prompts.to(dev)
-    extra = {} if cross_embeds is None else {"cross_embeds": cross_embeds.to(dev)}
+    toks = greedy_decode(step, params, prompts.to(dev), state, gen_len=gen_len,
+                         cross_embeds=None if cross_embeds is None else cross_embeds.to(dev))
+    if stats is not None:
+        stats.update(captures=getattr(step, "captures", 0),
+                     build_s=getattr(step, "build_s", 0.0))
+    return toks
 
-    # prefill by replay (exact; the fused prefill is make_prefill_step)
+
+def greedy_decode(step: Callable, params, prompts: Tensor, state, *, gen_len: int,
+                  cross_embeds: Tensor | None = None) -> Tensor:
+    """``serve_batch``'s loop on a given serve step and decode state (both
+    on the prompts' device): the prompts replayed token by token (exact
+    and state-consistent, as the reference does; the fused prefill is
+    ``make_prefill_step``), then ``gen_len`` − 1 greedy steps. The state
+    is written in place; returns the generated tokens."""
+    extra = {} if cross_embeds is None else {"cross_embeds": cross_embeds}
     next_tok = None
-    for i in range(P):
+    for i in range(prompts.shape[1]):
         next_tok, state = step(params, {"tokens": prompts[:, i:i + 1], **extra}, state)
 
     out = [next_tok]
@@ -385,9 +403,10 @@ def main(argv=None) -> dict:
     if cfg.vision_dim:
         cross = torch.randn((args.batch, cfg.num_patches, cfg.vision_dim), generator=g,
                             device=dev).to(getattr(torch, cfg.dtype))
+    stats = {}
     t0 = time.perf_counter()
     toks = serve_batch(cfg, params, prompts, gen_len=args.gen_len, cross_embeds=cross,
-                       device=dev)
+                       device=dev, stats=stats)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -396,10 +415,12 @@ def main(argv=None) -> dict:
            "prompt_len": args.prompt_len, "gen_len": args.gen_len,
            "wall_s": dt, "ms_per_step": dt / n_steps * 1e3,
            "tokens_per_s": args.batch * args.gen_len / dt,
+           "graph_captures": stats["captures"], "graph_build_s": stats["build_s"],
            "tokens": toks.tolist()}
     print(f"{cfg.name} on {dev}: generated {tuple(toks.shape)} in {dt:.2f} s "
           f"({rec['ms_per_step']:.1f} ms per step of {args.batch}, "
-          f"{rec['tokens_per_s']:.1f} new tokens/s)")
+          f"{rec['tokens_per_s']:.1f} new tokens/s; {stats['captures']} CUDA graph "
+          f"captured in {stats['build_s']:.3f} s)")
     print("sample:", toks[0, :16].tolist())
     return rec
 

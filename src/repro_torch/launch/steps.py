@@ -7,7 +7,10 @@ loss, its gradients by autograd, one ``optim.AdamW`` update (in place).
 ``make_prefill_step`` returns f(params, batch) → next tokens (B, 1) int32
 ((B, 1, K) with K codebooks): the full-sequence forward with the head on
 the last position only. ``make_serve_step`` returns f(params, batch,
-state) → (next tokens (B, 1[, K]) int32, state'), greedy. ``batch`` is a
+state) → (next tokens (B, 1[, K]) int32, state'), greedy; on the card
+(without a mesh) a ``GraphedServeStep``, the decode step and its argmax
+captured once as a CUDA graph and replayed every later call (the
+reference's ``jax.jit(make_serve_step(cfg))``). ``batch`` is a
 dict with ``"tokens"`` and, as the model needs, ``"cross_embeds"`` (the
 image embeddings of the cross-attention layers) and, for continuous
 batching, ``"start_pos"`` (B,), as in the reference. The prefill and
@@ -45,6 +48,8 @@ moment blocks and the global metrics, plus ``clip_scale``.
 from __future__ import annotations
 
 import math
+import copy
+import time
 from typing import Callable, Dict, Optional
 
 import torch
@@ -217,25 +222,100 @@ def _gather(tokens: Tensor, mesh, rows) -> Tensor:
 
 def make_serve_step(cfg: ModelConfig, *, device="cuda", mesh=None,
                     shardings=None) -> Callable:
-    """One greedy decode step (reference :64): f(params, batch, state) →
-    (next tokens (B, 1[, K]) int32, state'). With ``mesh`` the rank's
-    shard and state; every row's tokens returned (module docstring).
-    ``shardings`` lays the shard out (default ``model_shardings``; the
-    dry run passes ``param_shardings`` with ``physical_experts``, or
-    ZeRO-3's, whose data-cut leaves are gathered where they are used)."""
+    """One greedy decode step (reference :64): f(params, batch, state,
+    moe_routing=None) → (next tokens (B, 1[, K]) int32, state'), the
+    state written in place (``models.decode_step``). With ``mesh`` the
+    rank's shard and state; every row's tokens returned (module
+    docstring). ``shardings`` lays the shard out (default
+    ``model_shardings``; the dry run passes ``param_shardings`` with
+    ``physical_experts``, or ZeRO-3's, whose data-cut leaves are gathered
+    where they are used). ``moe_routing`` is ``decode_step``'s.
+
+    On the card without a mesh the step is a ``GraphedServeStep`` over
+    this eager one (its ``eager``). Under ``mesh`` it stays eager: the
+    collectives of a gloo mesh cannot be captured, and NCCL's were
+    checked inside a graph at world 1 only. On the CPU (and on meta
+    tensors) it is the eager function."""
     dev = resolve_device(device if mesh is None else mesh.device)
     pin_full_fp32_math()
 
     @torch.no_grad()
-    def serve_step(params, batch: Batch, state):
+    def serve_step(params, batch: Batch, state, moe_routing: Optional[list] = None):
         local, rows = _rows(batch, mesh, dev)
         logits, state = decode_step(params, local["tokens"], state, cfg,
                                     cross_embeds=local.get("cross_embeds"),
-                                    start_pos=local.get("start_pos"), mesh=mesh, rows=rows,
-                                    shardings=shardings)
+                                    start_pos=local.get("start_pos"), moe_routing=moe_routing,
+                                    mesh=mesh, rows=rows, shardings=shardings)
         return _gather(torch.argmax(logits, dim=-1).to(torch.int32), mesh, rows), state
 
+    if dev.type == "cuda" and mesh is None:
+        return GraphedServeStep(serve_step, dev)
     return serve_step
+
+
+class GraphedServeStep:
+    """A serve step captured as one CUDA graph: ``eager`` (the decode step
+    and its argmax) recorded once per (params, state, the batch's leaf
+    shapes and float dtypes), then replayed by every call with that key.
+
+    The batch's ``tokens``, ``start_pos`` and ``cross_embeds`` are copied
+    into static input buffers before each replay; the tokens come back
+    from a static output, copied out. The state is the caller's and is
+    written in place by the graph, so its tensors must stay where they
+    are (``decode_step`` keeps them). Lazy library state is made by one
+    eager step on a copy of the state first, on a side stream: the eager
+    step writes a cache slot and advances ``length``, and a graph built
+    after it on the real state would start one token late. A new key
+    drops the old graph and captures again. ``moe_routing`` (a Python list
+    the graph cannot append to) raises ``ValueError``: routing records
+    come from ``eager``.
+
+    ``captures`` counts the graphs captured and ``build_s`` the host
+    seconds the warm-up, the capture and the instantiation took.
+    """
+
+    def __init__(self, eager: Callable, device: torch.device):
+        self.eager = eager
+        self.device = device
+        self.captures = 0
+        self.build_s = 0.0
+        self._key = self._graph = self._inputs = self._tokens = self._held = None
+
+    def __call__(self, params, batch: Batch, state, moe_routing: Optional[list] = None):
+        if moe_routing is not None:
+            raise ValueError("a graphed serve step cannot record moe_routing (a Python list "
+                             "a CUDA graph cannot append to); run the step's eager function "
+                             "(GraphedServeStep.eager)")
+        batch = {k: v for k, v in batch.items() if v is not None}
+        # integer inputs of any width share a graph: they are cast into the
+        # static buffer (the prompts' int64 and the sampled int32 tokens)
+        key = (id(params), id(state),
+               tuple((k, tuple(v.shape), v.dtype if v.dtype.is_floating_point else "int")
+                     for k, v in sorted(batch.items())))
+        if key != self._key:
+            self._capture(params, batch, state, key)
+        for k, buf in self._inputs.items():
+            buf.copy_(batch[k])
+        self._graph.replay()
+        return self._tokens.clone(), state
+
+    def _capture(self, params, batch: Batch, state, key) -> None:
+        t0 = time.perf_counter()
+        self._key = self._graph = self._inputs = self._tokens = self._held = None
+        dev = self.device
+        inputs = {k: v.to(dev).clone() for k, v in batch.items()}
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.eager(params, inputs, copy.deepcopy(state))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            tokens, _ = self.eager(params, inputs, state)
+        self._graph, self._inputs, self._tokens = graph, inputs, tokens
+        self._key, self._held = key, (params, state)  # the ids in the key stay theirs
+        self.captures += 1
+        self.build_s += time.perf_counter() - t0
 
 
 def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = True,

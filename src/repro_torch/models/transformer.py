@@ -823,9 +823,12 @@ def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: Mode
     """One decode step. tokens (B, 1) or (B, 1, K) → (logits (B, 1, V) or
     (B, 1, K, V), state'). ``cross_embeds`` as in ``forward``.
 
-    The attention layers' caches are written in place (state' holds the
-    same cache tensors), the Mamba2 states are new tensors: pass each
-    state to one step. ``start_pos`` (B,), on the state's device, hides
+    The state is written in place and state' is ``state``, holding the
+    same tensors: the attention layers' caches at their ring slot, each
+    Mamba2 layer's conv and SSM state into its view of the stacked state
+    (bitwise the values a new state would hold), so a captured CUDA
+    graph of the step can replay it (``launch.steps.make_serve_step``).
+    ``start_pos`` (B,), on the state's device, hides
     from each batch lane the cache positions before its own request
     (continuous batching). An "E" layer routes the step's B tokens as one
     group, so every lane (a free batcher slot too) takes capacity, and
@@ -849,7 +852,6 @@ def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: Mode
     zero3 = [None if f is None else _layer_inputs(params["blocks"][f"p{i}"], f,
                                                   cfg.num_repeats, mesh)
              for i, f in enumerate(fsdp)]
-    new = {f"p{i}": [] for i in range(len(cfg.mixer_pattern))}
     for r in range(cfg.num_repeats):
         for i, mix in enumerate(cfg.mixer_pattern):
             ctx = ctxs[i]
@@ -862,7 +864,8 @@ def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: Mode
             st = _layer(state[f"p{i}"], r)
             if mix == "M":
                 y, s_new = mamba_decode(bp["mixer"], h, cfg, st, **kw)
-                new[f"p{i}"].append(s_new)
+                st.conv.copy_(s_new.conv)  # layer r's views of the stacked state
+                st.ssm.copy_(s_new.ssm)
             elif mix == "X":  # stateless
                 y, _ = attention_decode(bp["mixer"], h, cfg, mix, None, cross_kv=cross_embeds,
                                         **kw)
@@ -870,5 +873,4 @@ def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: Mode
                 y, _ = attention_decode(bp["mixer"], h, cfg, mix, st, start_pos=start_pos, **kw)
             x, _ = _mlp_residual(bp, x + y, cfg, i, moe_routing, ctx)  # aux discarded
     x = apply_norm(x, cfg.norm_type, params["final_norm"])
-    out = {k: _stack(v) if v else state[k] for k, v in new.items()}
-    return lm_logits(params, x, cfg, **_head_kw(shards, _head_name(cfg), mesh)), out
+    return lm_logits(params, x, cfg, **_head_kw(shards, _head_name(cfg), mesh)), state

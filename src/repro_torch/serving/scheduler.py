@@ -221,7 +221,12 @@ class ContinuousBatcher:
     (every step advances every slot's position) must stay below it for
     the global layers, as in the reference. With "E" layers a request's
     tokens depend on its seatmates (and on free slots' token 0) through
-    the experts' capacity, as in the reference."""
+    the experts' capacity, as in the reference.
+
+    On the card every step replays one CUDA graph of the serve step,
+    captured at the first step (``launch.steps.GraphedServeStep``; the
+    decode state stays in place across steps): ``captures`` and
+    ``build_s`` report it (0 on the CPU, where the step is eager)."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  cache_len: int = 256, device="cuda"):
@@ -289,6 +294,16 @@ class ContinuousBatcher:
             self._next_input[i] = 0
         else:
             self._next_input[i] = sampled
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs the serve step captured (one a batcher on the card)."""
+        return getattr(self.step_fn, "captures", 0)
+
+    @property
+    def build_s(self) -> float:
+        """Host seconds the serve step's capture took."""
+        return getattr(self.step_fn, "build_s", 0.0)
 
     @property
     def wasted_step_fraction(self) -> float:

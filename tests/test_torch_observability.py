@@ -3,9 +3,9 @@
 the telemetry leaf of the port's Algorithm-1 carry.
 
 Mirrors the rows of ``tests/test_observability.py`` that the port's
-slice holds: telemetry off ≡ on bitwise (the adaptive family at sync
-horizons 1 and 8 and device-resident; the momentum and Heun families'
-rows are not mirrored yet, ROADMAP A item 5), the ring against a host-replayed oracle, its
+slice holds: telemetry off ≡ on bitwise (the adaptive, momentum and
+Heun families at sync horizons 1 and 8 and device-resident), the ring
+against a host-replayed oracle, its
 wraparound and chunk-boundary invariance, request ids through
 compaction, the mixed-wave trace reconciliation and report (host-driven
 and device-resident), the registry, the tracer, and the quality gauges.
@@ -80,6 +80,22 @@ def parts():
     return sde, cfg, make_sample_step(sde, cfg, forward_fn=lambda p, x, t: fwd(x, t))
 
 
+#: the zoo's families routed through the Algorithm-1 body (DESIGN.md §11),
+#: the reference's ``FAMILIES`` rows besides the adaptive one
+ZOO_FAMILIES = {"momentum": dict(momentum=0.3), "heun": dict(probability_flow=True)}
+
+
+@pytest.fixture(scope="module")
+def zoo_parts():
+    sde = VPSDE()
+    fwd = tan.gaussian_noise_pred(sde, MU, S0)
+    out = {}
+    for name, over in ZOO_FAMILIES.items():
+        cfg = dataclasses.replace(AdaptiveConfig(eps_rel=0.05), **over)
+        out[name] = (sde, cfg, make_sample_step(sde, cfg, forward_fn=lambda p, x, t: fwd(x, t)))
+    return out
+
+
 def _serve(parts, n_req=N_REQ, tiers=None, **kw):
     sde, cfg, step = parts
     b = DiffusionBatcher(sde, step, None, (D,), slots=4, cfg=cfg, device="cpu", **kw)
@@ -100,8 +116,20 @@ def test_telemetry_off_on_bitwise_identical(parts, mode):
     """Recording never feeds back: a telemetry-on drain is sample-, NFE-
     and accept/reject-identical to the off drain, adds no host transfer
     or solver sync, and its ring head equals the folded iteration count."""
-    b_off, off = _serve(parts, **MODES[mode])
-    b_on, on = _serve(parts, telemetry=256, **MODES[mode])
+    _off_on_identical(parts, mode)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("family", list(ZOO_FAMILIES))
+def test_telemetry_off_on_bitwise_identical_zoo(zoo_parts, family, mode):
+    """The same for the momentum and Heun families: their bodies record
+    into the ring without feeding back either."""
+    _off_on_identical(zoo_parts[family], mode, solver=family)
+
+
+def _off_on_identical(parts, mode, **kw):
+    b_off, off = _serve(parts, **MODES[mode], **kw)
+    b_on, on = _serve(parts, telemetry=256, **MODES[mode], **kw)
     for uid in off:
         np.testing.assert_array_equal(off[uid].result, on[uid].result)
         for name in ("nfe", "accepted", "rejected"):
