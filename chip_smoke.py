@@ -80,19 +80,21 @@ Phases; any failure exits non-zero before the result line is printed:
              just after; every kernel must have run. Then one DiT forward
              and one Algorithm-1 iteration with the kernels, against the
              same weights on the plain paths. Then the graphed solve
-             (``graphed_vs_host``): ``sample()`` three times (the first
-             call captures the cached driver's horizon, the others
-             replay it, the last with CUDA events around the WHILE-node
-             window) against the host-driven ``solve_chunk`` chain on the
-             same streams: x, nfe, accepted, rejected, iterations and the
-             telemetry ring bitwise, one host read a solve, one capture
-             then none, the replay's K1/K3/K6/P1 launches the chain's
-             (the first call's plus one warm-up body iteration); the
-             walls of the first call, a replay and the chain, and the
-             window share from the events: the window's elapsed time
-             on the device over the call's wall (elapsed, not busy:
-             CUPTI cannot trace the WHILE node, so gaps inside the
-             window are not seen).
+             (``graphed_vs_host``): ``sample()`` four times at a new key
+             under the one-shot rule (the first call runs the host-driven
+             chain and records the key, the second captures the cached
+             driver's horizon, the others replay it, the last with CUDA
+             events around the WHILE-node window) against the
+             host-driven ``solve_chunk`` chain on the same streams: x,
+             nfe, accepted, rejected, iterations and the telemetry ring
+             bitwise, the chain's host reads on the first call and one
+             read a graphed solve, captures 0, 1, 0, the replay's
+             K1/K3/K6/P1 launches the chain's (the second call's plus
+             one warm-up body iteration); the walls of each call and
+             the chain, and the window share from the events: the
+             window's elapsed time on the device over the call's wall
+             (elapsed, not busy: CUPTI cannot trace the WHILE node, so
+             gaps inside the window are not seen).
 4. plan    — the second main path, ``repro_torch.planning.plan``: the
              temporal UNet TRAJ_UNET (attention, flash, fused GroupNorm →
              SiLU; weights from seed 0, zero-init leaves livened), VP SDE,
@@ -112,9 +114,23 @@ Phases; any failure exits non-zero before the result line is printed:
              DDIM at n_steps = round(phase 3's adaptive mean NFE) and PC
              at half that (two evaluations a step); K5 counts set to 0
              before each solve and read after, and they must equal the
-             steps exactly. Then the Table-2 analog at its full size
+             steps exactly (each run builds its own net, so its solve is
+             its key's first: host-driven, no capture). Then each
+             baseline graphed (``graphed_baseline``, GRAPHED_BASELINES:
+             EM-60, DDIM-60, PC-30, PC-HMC-21 (L = 2) and the ODE at rtol = atol
+             = 1e-3 capped at 40 attempts, from the same weights): four
+             ``sample()`` calls at a new key, x and nfe bitwise and
+             iterations equal on each, captures 0, 1, 0, one host read a
+             graphed solve, the replay's K5/K3/P1 launches the
+             host-driven loop's and the capturing call's those plus one
+             step's (one attempt's); Algorithm 2 graphed at (4096, 2)
+             with g = 0.2·x (``forward_graphed``: bitwise, captures 0, 1,
+             0, one window and one read a graphed solve). Then the
+             Table-2 analog at its full size
              (``repro_torch.benchmarks.table2_highdim``: D 3072, N 256, VE
-             σ_max 30, every row), and EM-1000 and PC-500 on the
+             σ_max 30, every row, each row's key warmed up by two cheap
+             solves first), every timed row at 0 captures, 1 host read
+             and K5 exactly its steps, and EM-1000 and PC-500 on the
              closed-form Gaussian score, VP and VE, against the gates of
              the reference's conformance table (W2 < 0.08 for EM, < 0.25
              for the PC family).
@@ -196,10 +212,11 @@ Phases; any failure exits non-zero before the result line is printed:
              host-driven and device-resident, every delivery bitwise its
              batch-1 solve, Heun's captured horizon without P1. Then
              phase 3's graphed gates on ``sample(method="momentum")`` and
-             ``sample(method="heun")``. (A first call at a new key
-             captures its graph, and the capture's warm-up runs one body
-             iteration eagerly: every exact launch gate of a graphed solve
-             adds ``adaptive.captures``' rise, here and in 6b, 7c, 9a.)
+             ``sample(method="heun")``. (A first call at a new key runs
+             host-driven and a second captures its graph, whose warm-up
+             runs one body iteration eagerly: every exact launch gate of a
+             graphed solve adds ``adaptive.captures``' rise, here and in
+             6b, 7c, 9a.)
 6e. plan service — ``launch.plan.serve_planning`` at the reference's
              defaults and its steering gate (bin 2 above bin 4); the
              receding-horizon planner at TRAJ_UNET's width (transition 24,
@@ -230,9 +247,13 @@ Phases; any failure exits non-zero before the result line is printed:
              pair is printed, not gated: the reference misses the rule
              there itself); (c) adaptive at eps_rel 0.05 at most 500 NFE;
              (d) each adaptive row's mean NFE within NFE_BAND of the
-             reference's CPU run (REF_TABLE1_NFE). Last, K1 timed at
-             (4096, 2) (K5 there is timed in phase 6), the device idle share of one Table-1 EM-1000 solve
-             (VP, N 4096; torch.profiler) and the phase's wall time.
+             reference's CPU run (REF_TABLE1_NFE); every timed row a
+             replay (``common.warm_up`` solves its key twice first): 0
+             captures, 1 host read. Last, K1 timed at (4096, 2) (K5
+             there is timed in phase 6), one Table-1 EM-1000 solve (VP,
+             N 4096) graphed (wall, driver window by CUDA events) and
+             host-driven (wall, device busy time and idle share by
+             torch.profiler), and the phase's wall time.
 7. lm      — the third main path, last, after the DiT and UNet memory is
              freed: mamba2-2.7b at full width (2.83 B parameters, fp32,
              weights from a generator seeded 0). ``make_prefill_step``
@@ -675,6 +696,14 @@ TRAIN_MESH_TIMEOUT_S = 360
 #: the same inputs, so the same loss up to this relative difference
 REMAT_LOSS_RTOL = 1e-6
 
+#: phase 4b's graphed baselines from HIGHRES_DIT (batch 8): (name, method,
+#: kwargs), each about 60 evaluations (VP grids of more than β_max = 20
+#: steps: below it the discrete β_i passes 1 and the PC predictor is NaN);
+#: the ODE loosened and capped so that its four solves stay a few seconds
+GRAPHED_BASELINES = (("EM-60", "em", dict(n_steps=60)), ("DDIM-60", "ddim", dict(n_steps=60)),
+                     ("PC-30", "pc", dict(n_steps=30)),
+                     ("PC-HMC-21", "pc_hmc", dict(n_steps=21, hmc_leapfrog=2)),
+                     ("ODE", "ode", dict(rtol=1e-3, atol=1e-3, max_iters=40)))
 #: phase 9: the bf16 presets the port runs end to end, the NFE they may
 #: spend against fp32's (the reference's precision gate), the bf16 LM
 #: bound's constant (4 standard deviations of the largest of V logits'
@@ -698,8 +727,22 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+#: (name, seconds) of every phase that ended, in order
+PHASE_SECONDS: list = []
+_current_phase: list = []
+
+
+def phase(name: str | None) -> None:
+    """Start phase ``name``, ending the one before: its seconds are printed
+    and kept in ``PHASE_SECONDS``."""
+    now = time.perf_counter()
+    if _current_phase:
+        prev, t0 = _current_phase.pop()
+        PHASE_SECONDS.append((prev, now - t0))
+        print(f"  ({now - t0:.1f} s)", flush=True)
+    if name is not None:
+        _current_phase.append((name, now))
+        print(f"== {name}", flush=True)
 
 
 def held_below_1gib(dev, what: str) -> None:
@@ -1923,23 +1966,26 @@ def host_chain(sde, score, shape, seed: int, cfg, dev, cond=None) -> tuple:
 
 def graphed_vs_host(label: str, card: str, call, host) -> dict:
     """Phases 3, 4, 6d: ``call()`` (an entry point of the graphed solve:
-    ``sample()`` or ``plan()``, its config with a GRAPH_RING ring) three
-    times against ``host()`` (``host_chain`` on the same streams and
-    config) once, each with the counts at 0. The first call captures the
-    cached driver's horizon, the second replays it, the third replays it
-    with CUDA events around the driver's window (the window share: the
-    window's elapsed device time over the call's wall; elapsed, not busy,
-    since CUPTI cannot trace a WHILE node). Gates: x, nfe, accepted, rejected,
-    iterations and the ring bitwise the host chain's; one host read a
-    graphed solve (``adaptive.host_syncs``); one capture on the first
-    call, none after; the replay's K1, K3, K6 and P1 launches the host
-    chain's, the first call's those plus one body iteration's (the
+    ``sample()`` or ``plan()``, its config with a GRAPH_RING ring, at a key
+    no solve has used yet) four times against ``host()`` (``host_chain``
+    on the same streams and config) once, each with the counts at 0. The
+    one-shot rule: the first call runs the host-driven chain and records
+    the key, the second captures the cached driver's horizon, the third
+    replays it, the fourth replays it with CUDA events around the driver's
+    window (the window share: the window's elapsed device time over the
+    call's wall; elapsed, not busy, since CUPTI cannot trace a WHILE
+    node). Gates: x, nfe, accepted, rejected, iterations (and the ring of
+    the replay) bitwise the host chain's on every call; the first call's
+    host reads, launches and P2 the chain's and no capture; one host read
+    a graphed solve (``adaptive.host_syncs``); one capture on the second
+    call, none on the others; the replay's K1, K3, K6 and P1 launches the
+    host chain's, the second call's those plus one body iteration's (the
     capture's warm-up)."""
     from repro_torch.core.solvers import adaptive as ad
     from repro_torch.kernels.graph_loop import ops as loop_ops
 
     runs = {}
-    for name, fn in (("first", call), ("replay", call), ("host", host)):
+    for name, fn in (("first", call), ("second", call), ("replay", call), ("host", host)):
         zero_kernel_counts()
         c0, s0, p0 = ad.captures, ad.host_syncs, loop_ops.launches
         torch.cuda.synchronize()
@@ -1955,26 +2001,15 @@ def graphed_vs_host(label: str, card: str, call, host) -> dict:
                           launches=kernel_counts(), p2=loop_ops.launches - p0,
                           syncs=ad.host_syncs - s0, captures=ad.captures - c0)
     # the device's share of a replayed call: events around the driver's window
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    window = drv.window
-
-    def timed_window():
-        e0.record()
-        state = window()
-        e1.record()
-        return state
-
-    drv.window = timed_window
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    from repro_torch.benchmarks.kernel_times import window_events
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with window_events() as spans:
         call()
-        torch.cuda.synchronize()
-        window_wall = time.perf_counter() - t0
-    finally:
-        del drv.window
-    window_ms = e0.elapsed_time(e1)
-    first, replay, hostr = runs["first"], runs["replay"], runs["host"]
+    torch.cuda.synchronize()
+    window_wall = time.perf_counter() - t0
+    window_ms = sum(e0.elapsed_time(e1) for e0, e1 in spans)
+    first, second, replay, hostr = (runs[k] for k in ("first", "second", "replay", "host"))
     names = {"solver_step": "solver_step", "flash_attention": "flash_attention",
              "groupnorm_silu": "groupnorm_silu", "philox": "philox_normal"}
     per_horizon = {names[getattr(m, "__name__", "").split(".")[-2]]: n
@@ -1982,49 +2017,178 @@ def graphed_vs_host(label: str, card: str, call, host) -> dict:
                    if c == "launches" and getattr(m, "__name__", "").split(".")[-2] in names}
     warm = {k: hostr["launches"][k] + per_horizon.get(k, 0) // drv_horizon(drv)
             for k in hostr["launches"]}
-    same = {k: all(torch.equal(getattr(r["res"], f), getattr(hostr["res"], f))
-                   for f in GRAPH_FIELDS) for k, r in (("first", first), ("replay", replay))}
+    same = {k: all(torch.equal(getattr(runs[k]["res"], f), getattr(hostr["res"], f))
+                   for f in GRAPH_FIELDS) for k in ("first", "second", "replay")}
     ring = all(torch.equal(getattr(replay["ring"], f.name), getattr(hostr["ring"], f.name))
                for f in dataclasses.fields(hostr["ring"]))
     its = int(hostr["res"].iterations)
-    print(f"  [{card}] {label} graphed: first call {first['wall_s']:.3f} s (capture included), "
-          f"replayed {replay['wall_s']:.3f} s, host-driven {hostr['wall_s']:.3f} s "
+    print(f"  [{card}] {label} graphed: first call {first['wall_s']:.3f} s (host-driven, the "
+          f"one-shot rule), second {second['wall_s']:.3f} s (capture included), replayed "
+          f"{replay['wall_s']:.3f} s, host-driven chain {hostr['wall_s']:.3f} s "
           f"({hostr['wall_s'] / replay['wall_s']:.2f}x); {its} iterations; bitwise the host "
-          f"chain: first {same['first']}, replayed {same['replay']}, ring {ring}; host reads "
-          f"{first['syncs']}, {replay['syncs']} (host-driven {hostr['syncs']}); captures "
-          f"{first['captures']}, {replay['captures']} (build {drv.build_s:.3f} s); launches "
-          f"replayed {replay['launches']} "
-          f"(host-driven {hostr['launches']}; first {first['launches']}, want {warm}), P2 "
+          f"chain: first {same['first']}, second {same['second']}, replayed {same['replay']}, "
+          f"ring {ring}; host reads {first['syncs']}, {second['syncs']}, {replay['syncs']} "
+          f"(host-driven {hostr['syncs']}); captures {first['captures']}, "
+          f"{second['captures']}, {replay['captures']} (build {drv.build_s:.3f} s); launches "
+          f"replayed {replay['launches']} (host-driven {hostr['launches']}; first "
+          f"{first['launches']}; second {second['launches']}, want {warm}), P2 "
           f"{replay['p2']} (the horizons + 1; host-driven {hostr['p2']}); the "
           f"driver's window {window_ms:.1f} ms elapsed on the device of a "
           f"{window_wall * 1e3:.1f} ms call (window share {window_ms / (window_wall * 1e3):.2f}, "
           f"CUDA events)")
-    if not (same["first"] and same["replay"] and ring):
+    if not all(same.values()) or not ring:
         fail(f"{label}: the graphed solve is not bitwise the host-driven chain")
-    if first["syncs"] != 1 or replay["syncs"] != 1:
-        fail(f"{label}: {first['syncs']}, {replay['syncs']} host reads a graphed solve, not 1")
-    if first["captures"] != 1 or replay["captures"] != 0:
-        fail(f"{label}: captures {first['captures']}, {replay['captures']}, not 1 then 0")
+    if second["syncs"] != 1 or replay["syncs"] != 1 or first["syncs"] != hostr["syncs"]:
+        fail(f"{label}: host reads {first['syncs']}, {second['syncs']}, {replay['syncs']}; "
+             f"want the chain's {hostr['syncs']}, then 1 a graphed solve")
+    if (first["captures"], second["captures"], replay["captures"]) != (0, 1, 0):
+        fail(f"{label}: captures {first['captures']}, {second['captures']}, "
+             f"{replay['captures']}, not 0, 1, 0")
     horizons = -(-its // ad.SYNC_EVERY)
-    if replay["p2"] != horizons + 1 or hostr["p2"] != 0:
+    if replay["p2"] != horizons + 1 or hostr["p2"] != 0 or first["p2"] != 0:
         fail(f"{label}: P2 ran {replay['p2']} times in the replayed solve (want the "
-             f"{horizons} horizons + 1), {hostr['p2']} in the host-driven one")
-    if replay["launches"] != hostr["launches"] or first["launches"] != warm:
-        fail(f"{label}: launches replayed {replay['launches']}, first {first['launches']}; "
-             f"the host chain's {hostr['launches']}, plus the warm-up {warm}")
-    return {"first_s": first["wall_s"], "replay_s": replay["wall_s"], "host_s": hostr["wall_s"],
+             f"{horizons} horizons + 1), {first['p2']} and {hostr['p2']} host-driven")
+    if (replay["launches"] != hostr["launches"] or first["launches"] != hostr["launches"]
+            or second["launches"] != warm):
+        fail(f"{label}: launches first {first['launches']}, second {second['launches']}, "
+             f"replayed {replay['launches']}; the host chain's {hostr['launches']}, plus the "
+             f"warm-up {warm}")
+    return {"first_s": first["wall_s"], "second_s": second["wall_s"],
+            "replay_s": replay["wall_s"], "host_s": hostr["wall_s"],
             "iterations": its, "mean_nfe": float(hostr["res"].mean_nfe),
             "launches": replay["launches"], "first_launches": first["launches"],
-            "horizon_cond": replay["p2"],
+            "second_launches": second["launches"], "horizon_cond": replay["p2"],
             "host_reads": replay["syncs"], "host_driven_reads": hostr["syncs"],
             "build_s": drv.build_s, "window_ms": window_ms, "window_call_s": window_wall,
             "window_share": window_ms / (window_wall * 1e3)}
 
 
 def drv_horizon(drv) -> int:
-    """The iterations of a cached driver's captured horizon."""
+    """The iterations of a cached Algorithm-1 driver's captured horizon."""
     from repro_torch.core.solvers import adaptive as ad
-    return next(k[3] for k, d in ad._drivers.items() if d is drv)
+    return next(k.static[1] for k, d in ad._drivers.items() if d is drv)
+
+
+def graphed_baseline(label: str, card: str, solve, per_draw: int = 1) -> dict:
+    """Phase 4b: a fixed-grid baseline or the ODE (``solve()``, a
+    ``sample()`` call at a key no solve has used yet) four times, each
+    with the counts at 0: the first runs the host-driven loop (the
+    one-shot rule), the second captures the cached driver, the third and
+    fourth replay it (the fourth with CUDA events around the driver's
+    window: the window share). Gates: x and nfe bitwise and iterations
+    equal on every call; captures 0, 1, 0; one host read a graphed solve;
+    the replay's K5, K3 and P1 launches the host-driven loop's, the
+    second call's those plus one horizon iteration (the capture's
+    warm-up: one grid step, or one RK45 attempt of a horizon of
+    SYNC_EVERY)."""
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.kernels.graph_loop import ops as loop_ops
+    from repro_torch.kernels.solver_step import ops as step_ops
+    from repro_torch.benchmarks.kernel_times import window_events
+
+    runs = []
+    for _ in range(3):
+        zero_kernel_counts()
+        step_ops.em_launches = 0
+        c0, s0, w0, p0 = ad.captures, ad.host_syncs, loop_ops.windows, loop_ops.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        runs.append(dict(res=res, wall_s=time.perf_counter() - t0,
+                         launches={**kernel_counts(), "em_step": step_ops.em_launches},
+                         captures=ad.captures - c0, syncs=ad.host_syncs - s0,
+                         windows=loop_ops.windows - w0, p2=loop_ops.launches - p0))
+    drv = next(reversed(ad._drivers.values()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with window_events() as spans:
+        solve()
+    torch.cuda.synchronize()
+    window_wall = time.perf_counter() - t0
+    window_ms = sum(e0.elapsed_time(e1) for e0, e1 in spans)
+    host, second, replay = runs
+    horizon = ad.SYNC_EVERY if drv.max_horizons != ad.UNBOUNDED else 1
+    names = {"solver_step": "em_step", "flash_attention": "flash_attention",
+             "philox": "philox_normal"}
+    recorded = {names[m.__name__.split(".")[-2]] if c == "launches" else "em_step": n
+                for (m, c), n in drv.graph.recorded.items()
+                if c == "em_launches" or (c == "launches"
+                                          and m.__name__.split(".")[-2] in ("flash_attention",
+                                                                            "philox"))}
+    warm = {k: host["launches"][k] + recorded.get(k, 0) // horizon for k in host["launches"]}
+    same = [all(torch.equal(getattr(r["res"], f), getattr(host["res"], f)) for f in ("x", "nfe"))
+            and int(r["res"].iterations) == int(host["res"].iterations) for r in runs]
+    print(f"  [{card}] {label}: host-driven {host['wall_s']:.3f} s, captured "
+          f"{second['wall_s']:.3f} s (build {drv.build_s:.3f} s), replayed "
+          f"{replay['wall_s']:.3f} s ({host['wall_s'] / replay['wall_s']:.2f}x); "
+          f"{int(host['res'].iterations)} iterations, mean NFE "
+          f"{float(host['res'].mean_nfe):.0f}; bitwise {same}; captures "
+          f"{[r['captures'] for r in runs]}; host reads {[r['syncs'] for r in runs]}; "
+          f"windows {[r['windows'] for r in runs]}; P2 {[r['p2'] for r in runs]}; launches "
+          f"host-driven {host['launches']}, "
+          f"replayed {replay['launches']}, second {second['launches']} (want {warm}); window "
+          f"{window_ms:.1f} ms of a {window_wall * 1e3:.1f} ms call (share "
+          f"{window_ms / (window_wall * 1e3):.2f})")
+    if not all(same) or not torch.isfinite(host["res"].x).all():
+        fail(f"{label}: a graphed solve is not bitwise the host-driven loop ({same}) or "
+             f"the samples are not finite")
+    if [r["captures"] for r in runs] != [0, 1, 0] or second["syncs"] != replay["syncs"] != 1:
+        fail(f"{label}: captures {[r['captures'] for r in runs]}, host reads "
+             f"{[r['syncs'] for r in runs]}; want 0, 1, 0 and one read a graphed solve")
+    if replay["launches"] != host["launches"] or second["launches"] != warm:
+        fail(f"{label}: launches replayed {replay['launches']}, second {second['launches']}; "
+             f"the host-driven loop's {host['launches']}, plus the warm-up {warm}")
+    return {"host_s": host["wall_s"], "second_s": second["wall_s"],
+            "replay_s": replay["wall_s"], "build_s": drv.build_s,
+            "iterations": int(host["res"].iterations),
+            "mean_nfe": float(host["res"].mean_nfe), "launches": replay["launches"],
+            "horizon_cond": replay["p2"],
+            "host_reads": replay["syncs"], "host_driven_reads": host["syncs"],
+            "window_ms": window_ms, "window_call_s": window_wall,
+            "window_share": window_ms / (window_wall * 1e3)}
+
+
+def forward_graphed(dev, card: str) -> dict:
+    """Phase 4b's Algorithm 2 (``adaptive_forward``) on the card at a
+    (4096, 2) state with a state-dependent g (0.2·x, the Itô s = ±1 from
+    the streams): three solves on one set of per-row streams, captures 0,
+    1, 0, the graphed solves bitwise the host-driven first, one host read
+    and one driver window each; E x(1) within 2 % of e^0.05."""
+    from repro_torch.core import ForwardAdaptiveConfig, adaptive_forward
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.core.solvers.base import SlotStreams
+    from repro_torch.kernels.graph_loop import ops as loop_ops
+
+    st = SlotStreams.of(list(range(4096)), 0, dev)
+    f, g = (lambda x, t: 0.05 * x), (lambda x, t: 0.2 * x)
+    cfg = ForwardAdaptiveConfig(eps_abs=1e-3, eps_rel=0.02, h_init=0.1)
+    runs = []
+    for _ in range(3):
+        c0, s0, w0 = ad.captures, ad.host_syncs, loop_ops.windows
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = adaptive_forward(f, g, torch.ones(4096, 2, device=dev), 0.0, 1.0, st,
+                               config=cfg, device=dev)
+        torch.cuda.synchronize()
+        runs.append(dict(res=res, wall_s=time.perf_counter() - t0, captures=ad.captures - c0,
+                         syncs=ad.host_syncs - s0, windows=loop_ops.windows - w0))
+    host = runs[0]["res"]
+    same = [all(torch.equal(getattr(r["res"], k), getattr(host, k))
+                for k in ("x", "nfe", "accepted", "rejected", "iterations")) for r in runs]
+    mean = float(host.x.mean())
+    print(f"  [{card}] Algorithm 2 at (4096, 2), g = 0.2·x: {int(host.iterations)} iterations, "
+          f"walls {[round(r['wall_s'], 3) for r in runs]} s (host-driven, captured, replayed); "
+          f"bitwise {same}; captures {[r['captures'] for r in runs]}; host reads "
+          f"{[r['syncs'] for r in runs]}; windows {[r['windows'] for r in runs]}; E x(1) "
+          f"{mean:.4f} (e^0.05 = {math.exp(0.05):.4f})")
+    if (not all(same) or [r["captures"] for r in runs] != [0, 1, 0]
+            or [r["syncs"] for r in runs[1:]] != [1, 1] or [r["windows"] for r in runs] != [0, 1, 1]
+            or abs(mean - math.exp(0.05)) > 0.02 * math.exp(0.05)):
+        fail("Algorithm 2 graphed on the card is not its host-driven solve")
+    return {"host_s": runs[0]["wall_s"], "second_s": runs[1]["wall_s"],
+            "replay_s": runs[2]["wall_s"], "iterations": int(host.iterations),
+            "host_driven_reads": runs[0]["syncs"], "host_reads": runs[2]["syncs"]}
 
 
 def captured_warmups(c0: int) -> int:
@@ -2332,19 +2496,24 @@ def train_and_tables(dev, card: str) -> dict:
                 print(f"  {line}")
                 continue
             k1, k5 = r["launches"]["solver_step"], r["launches"]["em_step"]
-            print(f"  {line};iterations={r['iterations']};w2g={r['w2g']:.4f};K1={k1};K5={k5}")
+            print(f"  {line};iterations={r['iterations']};w2g={r['w2g']:.4f};K1={k1};K5={k5};"
+                  f"captures={r['captures']};host_reads={r['host_reads']}")
+            if r["captures"] or r["host_reads"] != 1:
+                fail(f"{r['name']}: the timed row captured {r['captures']} graphs and read "
+                     f"the host {r['host_reads']} times (want a replay: 0 and 1)")
             finite = r["finite"] and all(math.isfinite(r[f])
                                          for f in ("us", "nfe", "frechet", "sw2", "w2g"))
             if not finite:
                 fail(f"gate (a): {r['name']} is not finite")
-            want_k5 = {"em": r["n_steps"], "pc": 2 * (r["n_steps"] or 0)}.get(r["method"], 0)
+            want_k5 = {"em": r["n_steps"], "pc": 2 * (r["n_steps"] or 0),
+                       "pc_hmc": r["n_steps"]}.get(r["method"], 0)
             if k5 != want_k5:
                 fail(f"{r['name']}: {k5} K5 launches, want exactly {want_k5}")
             if r["method"] == "adaptive" and r["fused"]:
                 # one launch an iteration, in whole groups of SYNC_EVERY (the
-                # last group's iterations after convergence change nothing),
-                # plus one a capture's warm-up
-                want_k1 = SYNC_EVERY * -(-r["iterations"] // SYNC_EVERY) + r["captures"]
+                # last group's iterations after convergence change nothing);
+                # a timed row replays, so no capture's warm-up adds one
+                want_k1 = SYNC_EVERY * -(-r["iterations"] // SYNC_EVERY)
                 if k1 != want_k1:
                     fail(f"{r['name']}: {k1} K1 launches, want {want_k1} for "
                          f"{r['iterations']} iterations")
@@ -2393,14 +2562,20 @@ def train_and_tables(dev, card: str) -> dict:
     # the device idle share of one Table-1 EM-1000 row (VP, N 4096)
     from repro_torch.benchmarks import kernel_times
     idle = kernel_times.table1_em_idle(dev)
-    print(f"  [{card}] Table 1 EM-1000 at N 4096 (VP): wall {idle['wall_ms']:.1f} ms, device "
-          f"busy {idle['busy_ms']:.2f} ms (K5 {idle['em_step_ms']:.3f} ms), idle share "
-          f"{idle['idle_share']:.3f}")
+    print(f"  [{card}] Table 1 EM-1000 at N 4096 (VP): graphed wall "
+          f"{idle['graphed_wall_ms']:.1f} ms, its driver window {idle['window_ms']:.1f} ms on "
+          f"the device (CUDA events; window share {idle['window_share']:.3f}); host-driven "
+          f"wall {idle['wall_ms']:.1f} ms, device busy {idle['busy_ms']:.2f} ms (K5 "
+          f"{idle['em_step_ms']:.3f} ms; torch.profiler), idle share {idle['idle_share']:.3f}; "
+          f"graphed wall / busy {idle['graphed_wall_ms'] / idle['busy_ms']:.2f}")
+    captures = {t: [r["captures"] for r in rows if "captures" in r] for t, rows in tables.items()}
+    print(f"  captures in the timed rows: {captures}")
     wall = time.perf_counter() - t_phase
     print(f"  [{card}] train and tables: {wall:.1f} s; K1 launches over the tables' adaptive "
           f"rows {k1_total}, K5 launches over their EM and PC rows {k5_total}")
     return {"dit_launches": dit_launches, "dit_iterations": dit_iters,
             "k1_tables": k1_total, "k5_tables": k5_total, "gate_b": gate_b,
+            "captures": captures,
             "k1_t1": dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound),
             "em1000_idle": idle}
 
@@ -2417,18 +2592,25 @@ def check_sample_chunked(dev, sde, score_fn) -> None:
 
     for method, kw in (("em", dict(n_steps=100)),
                        ("adaptive", dict(eps_rel=0.05, use_fused_kernel=True))):
-        # the chunks share one key: the first sample() captures, the rest
-        # replay; a capture's warm-up adds one K1 launch, taken off both sides
+        # the chunks share one key: the first sample() runs host-driven, the
+        # second captures, the rest replay; a capture's warm-up adds one
+        # launch (K5 for EM's one step, K1 for Algorithm 1's one iteration),
+        # taken off both sides
+        def counts(c0):
+            warm = captured_warmups(c0)
+            return (step_ops.launches - (warm if method == "adaptive" else 0),
+                    step_ops.em_launches - (warm if method == "em" else 0))
+
         step_ops.launches = step_ops.em_launches = 0
         c0 = ad.captures
         x, mean_nfe = sample_chunked(sde, score_fn, 4096, (2,), seed=3, chunk=1024,
                                      method=method, device=dev, **kw)
-        got = (step_ops.launches - captured_warmups(c0), step_ops.em_launches)
+        got = counts(c0)
         step_ops.launches = step_ops.em_launches = 0
         c0 = ad.captures
         parts = [sample(sde, score_fn, (1024, 2), seed=s, method=method, device=dev, **kw)
                  for s in chunk_seeds(3, 4)]
-        want = (step_ops.launches - captured_warmups(c0), step_ops.em_launches)
+        want = counts(c0)
         same = np.array_equal(x, np.concatenate([p.x.cpu().numpy() for p in parts]))
         print(f"  sample_chunked {method} N 4096 in chunks of 1024: mean NFE {mean_nfe:.2f}, "
               f"launches (K1, K5) {got}, the four chunks' own solves {want}, the same bits "
@@ -5126,6 +5308,13 @@ def main() -> None:
         run_train_mesh(dev, card)
         return
 
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+
     # ---------------------------------------------------------- 2. kernels
     phase("kernels vs plain versions")
     B, D = 8, HIGHRES_DIT.image_size ** 2 * HIGHRES_DIT.channels
@@ -5502,8 +5691,10 @@ def main() -> None:
                                  max_iters=MAIN_MAX_ITERS)
     print(f"  TRAJ_UNET {tu.param_count(unet):,} parameters; plans {PLAN_BATCH} x "
           f"{pcfg.sample_shape}, CFG {PLAN_CFG} over {2 * PLAN_BATCH} rows")
-    # a first, cold call (allocator, cuDNN's first use of each conv shape,
-    # the graph's capture), then the measured call with the counts at 0
+    # a first, cold call (allocator, cuDNN's first use of each conv shape;
+    # the key's first solve, so host-driven: the one-shot wall a planning
+    # process pays), then the measured call (the key's second: it captures)
+    # with the counts at 0
     t0 = time.perf_counter()
     cold = plan(sde, plan_score, obs, pcfg=pcfg, returns=bins, config=plan_cfg, device=dev)
     torch.cuda.synchronize()
@@ -5521,7 +5712,8 @@ def main() -> None:
     print(f"  iterations {p_iters}, mean NFE {float(pres.mean_nfe):.2f}, "
           f"accepted {int(pres.accepted.sum())}, rejected {int(pres.rejected.sum())}, "
           f"wall {plan_wall:.3f} s ({plan_wall / max(p_iters, 1) * 1e3:.2f} ms per iteration); "
-          f"the cold first call {cold_wall:.3f} s; the two calls bitwise equal: "
+          f"the cold first call {cold_wall:.3f} s (host-driven: the one-shot rule); the "
+          f"measured call captured the graph; the two calls bitwise equal: "
           f"{torch.equal(cold.x, pres.x) and torch.equal(cold.nfe, pres.nfe)}")
     print(f"  launches in the planning path: {plan_launches}")
     if min(plan_launches.values()) <= 0:
@@ -5623,21 +5815,40 @@ def main() -> None:
         k5_launches[method] = counts["em_step"]
         del brec, res
 
-    # the Table-2 analog at its full size, every row on the card
-    step_ops.em_launches = 0
+    # each baseline graphed against its host-driven loop on the same streams
+    # (the one-shot rule: the first solve at a key host-driven, the second
+    # captures, the third replays), then Algorithm 2
+    cfg_b, model_b, score_b = launcher.build_score(
+        "highres_dit", flash=True, precision="fp32", seed=0, liven_seed=0, device=dev)
+    bshape = (B, cfg_b.image_size, cfg_b.image_size, cfg_b.channels)
+    graphed_baselines = {}
+    for name, method, kw in GRAPHED_BASELINES:
+        graphed_baselines[name] = graphed_baseline(
+            f"HIGHRES_DIT {name}", card,
+            lambda: sample(VPSDE(), score_b, bshape, seed=0, method=method, device=dev, **kw))
+    del model_b, score_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    graphed_baselines["algorithm2"] = forward_graphed(dev, card)
+
+    # the Table-2 analog at its full size, every row on the card, each row's
+    # key warmed up first (two cheap solves: host-driven, then the capture)
     t0 = time.perf_counter()
     t2_rows = table2_highdim.run(dev)
     t2_wall = time.perf_counter() - t0
     for r in t2_rows:
-        print("  " + table2_highdim.format_row(r) + f";iterations={r['iterations']}")
-    # 2 (the warm-up EM), PC-1000 (two per step), EM-2000, each matched EM
-    k5_t2 = 2 + 2 * 1000 + 2000 + sum(int(r["nfe"]) - 1 for r in t2_rows
-                                      if "em-match" in r["name"])
-    print(f"  Table 2 on the card: {len(t2_rows)} rows in {t2_wall:.1f} s, K5 launches "
-          f"{step_ops.em_launches} (want {k5_t2})")
-    if (not all(r["finite"] for r in t2_rows) or step_ops.em_launches != k5_t2
+        print("  " + table2_highdim.format_row(r) + f";iterations={r['iterations']};"
+              f"captures={r['captures']};host_reads={r['host_reads']};K5={r['em_step']}")
+    want_k5 = lambda r: {"pc": 2 * 1000, "em": int(r["nfe"]) - 1}.get(r["method"], 0)
+    k5_t2 = sum(r["em_step"] for r in t2_rows)
+    print(f"  Table 2 on the card: {len(t2_rows)} rows in {t2_wall:.1f} s, K5 launches over "
+          f"its timed rows {k5_t2} (want {sum(want_k5(r) for r in t2_rows)}), captures "
+          f"{[r['captures'] for r in t2_rows]}, host reads {[r['host_reads'] for r in t2_rows]}")
+    if (not all(r["finite"] for r in t2_rows) or any(r["em_step"] != want_k5(r) for r in t2_rows)
             or t2_rows[0]["nfe"] != 2001 or t2_rows[1]["nfe"] != 2001):
         fail("the Table-2 analog on the card")
+    if any(r["captures"] or r["host_reads"] != 1 for r in t2_rows):
+        fail("a timed Table-2 row captured a graph or read the host more than once")
 
     # conformance through K5 on the closed-form Gaussian score, each solver
     # against its gate in the conformance table (analysis.solver_select.ZOO):
@@ -5685,12 +5896,6 @@ def main() -> None:
 
     # ----------------------------------------------------------- 6. timing
     phase("timing at the main path's shape (CUDA graphs and events)")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
 
     sets = []
     for _ in range(4):
@@ -6005,6 +6210,11 @@ def main() -> None:
               f"{k} {v['first_s']:.3f}, {v['replay_s']:.3f}, {v['host_s']:.3f}; "
               f"{v['host_reads']} vs {v['host_driven_reads']}; {v['window_share']:.2f}"
               for k, v in graphed_all.items()))
+    print(f"graphed baselines [{card}] (s: host-driven, captured, replayed; host reads "
+          f"host-driven / graphed): " + "; ".join(
+              f"{k} {v['host_s']:.3f}, {v['second_s']:.3f}, {v['replay_s']:.3f}; "
+              f"{v['host_driven_reads']} / {v['host_reads']}"
+              for k, v in graphed_baselines.items()))
     print(f"graphed decode [{card}] (ms a step graphed / eager; graphed elapsed ms (events); "
           f"busy ms graphed / eager (profiler); build s): " + "; ".join(
               f"{k} {v['graphed_ms_per_step']:.2f} / {v['eager_ms_per_step']:.2f}; "
@@ -6114,6 +6324,11 @@ def main() -> None:
          "trained_dit_100m": {"launches": tt["dit_launches"]["flash_attention"],
                               "iterations": tt["dit_iterations"]},
          "beyond_65535_heads": streams["k3_big"],
+         "graphed_baselines": {"launched_as": "the DiT's attention inside the WHILE node of "
+                                              "each graphed baseline from HIGHRES_DIT: a "
+                                              "replayed solve's launches (phase 4b)",
+                               **{k: v["launches"]["flash_attention"]
+                                  for k, v in graphed_baselines.items() if "launches" in v}},
          "device_resident": device_resident_launches("flash_attention"),
          "mesh_serve": {"launched_as": "the DiT's attention in the tiered HIGHRES_DIT serve on "
                                        "a world-1 NCCL mesh, host-driven then device-resident "
@@ -6250,6 +6465,12 @@ def main() -> None:
          "mesh": {"launched_as": "EM-59 from HIGHRES_DIT under mesh= on a world-1 NCCL mesh "
                                  "(phase 8)",
                   "launches": k4["mesh"]["k5"], "bitwise_equal": k4["mesh"]["em"]["bitwise_equal"]},
+         "graphed_baselines": {"launched_as": "em_step inside the WHILE node of EM-60, PC-30 "
+                                              "and PC-HMC-21 from HIGHRES_DIT: a replayed "
+                                              "solve's launches, the host-driven loop's "
+                                              "(phase 4b)",
+                               **{k: v["launches"]["em_step"]
+                                  for k, v in graphed_baselines.items() if "launches" in v}},
          "zoo_race": {"launched_as": "em_step on the EM, PC and PC-HMC rows of the solver "
                                      "selection race (phase 6d)",
                       **{k: v["launches"]["em_step"] for k, v in zoo["race"].items()
@@ -6327,6 +6548,11 @@ def main() -> None:
                                         "then the graphed solve's draws (phases 3, 4, 6d; "
                                         "Heun draws none)",
                          **{k: v["launches"]["philox_normal"] for k, v in graphed_all.items()}},
+         "graphed_baselines": {"launched_as": "the baselines' per-row noise (EM, PC, PC-HMC "
+                                              "from HIGHRES_DIT) in a replayed graphed solve, "
+                                              "the prior included (phase 4b)",
+                               **{k: v["launches"]["philox_normal"]
+                                  for k, v in graphed_baselines.items() if "launches" in v}},
          "device_resident": device_resident_launches("philox_normal"),
          "plan_service": {"launches": psrv["closed_loop"]["launches"]["philox_normal"],
                           "device_resident": psrv["device_resident_launches"]["philox_normal"]},
@@ -6349,6 +6575,11 @@ def main() -> None:
                                           "solve: the horizons + 1 a replayed solve (phases "
                                           "3, 4, 6d)",
                            **{k: v["horizon_cond"] for k, v in graphed_all.items()}},
+         "graphed_baselines": {"launched_as": "the WHILE node's condition of each graphed "
+                                              "baseline from HIGHRES_DIT: one a step + 1 (the "
+                                              "grids), the horizons + 1 (the ODE) (phase 4b)",
+                               **{k: v["horizon_cond"]
+                                  for k, v in graphed_baselines.items() if "horizon_cond" in v}},
          "cuda_versions": dsrv["cuda_versions"],
          "serve": dsrv["rec"], "sync_check": dsrv["sync_check"],
          "plan_service": {"launches": psrv["device_resident_launches"]["horizon_cond"],
@@ -6374,6 +6605,8 @@ def main() -> None:
           f"{lm_mesh['meta_s']['world2']:.1f} + {train_mesh['meta_s']['world2']:.1f} s a rank "
           f"at world 2 (gloo); phase 10 {lm_mesh['phase_s']:.1f} s, phase 11 "
           f"{train_mesh['phase_s']:.1f} s")
+    phase(None)
+    print("phase seconds: " + "; ".join(f"{name[:48]} {s:.1f}" for name, s in PHASE_SECONDS))
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s to the result lines")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -32,6 +32,7 @@ from repro_torch.core.losses import dsm_loss
 from repro_torch.core.precision import pin_full_fp32_math
 from repro_torch.core.sampling import sample
 from repro_torch.core.sde import SDE, VESDE, VPSDE, bcast
+from repro_torch.core.solvers.adaptive import ADAPTIVE_FAMILY
 from repro_torch.data.images import GMM2D
 from repro_torch.device import resolve_device
 from repro_torch.models.score_unet import MLPScore, init_mlp_score
@@ -204,8 +205,9 @@ def gmm_data(n: int, seed: int) -> np.ndarray:
 def timed(fn: Callable, *args, repeats: int = 1) -> Tuple[float, object]:
     """µs per call of ``fn(*args)`` over ``repeats`` calls, synchronised on
     the card around the timed calls. Eager PyTorch has no compile for a
-    first call to absorb; the tables make one warm-up solve each before
-    their rows instead (allocator, first launches)."""
+    first call to absorb; the tables warm each row's graph key up before
+    timing it instead (``warm_up``: allocator, first launches, the
+    capture)."""
     cuda = torch.cuda.is_initialized()
     if cuda:
         torch.cuda.synchronize()
@@ -225,27 +227,54 @@ def emit(name: str, us_per_call: float, derived: str) -> None:
     print(csv_row(name, us_per_call, derived))
 
 
-def warm_up(sde: SDE, score_fn: Callable, shape, device) -> None:
-    """One two-step EM solve: the allocator's and the launches' first use."""
-    sample(sde, score_fn, shape, seed=0, method="em", n_steps=2, device=device)
+def warm_kwargs(method: str, solver_kwargs: dict) -> dict:
+    """``solver_kwargs`` with the per-solve values the graph key leaves out
+    (``adaptive.cached_driver``) set cheap: a two-step grid, loose
+    tolerances. A solve with them reaches the same cached driver as one
+    with ``solver_kwargs``."""
+    kw = dict(solver_kwargs)
+    if "n_steps" in kw:
+        kw["n_steps"] = 2
+    if method == "ode":
+        kw.update(rtol=1e-2, atol=1e-2)
+    elif method in ADAPTIVE_FAMILY:  # Algorithm 1's tolerances are per-solve values
+        if kw.get("config") is not None:
+            kw["config"] = dataclasses.replace(kw["config"], eps_rel=0.5)
+        else:
+            kw["eps_rel"] = 0.5
+    return kw
+
+
+def warm_up(sde: SDE, score_fn: Callable, shape, device, method: str,
+            **solver_kwargs) -> None:
+    """Two cheap solves (``warm_kwargs``) at the graph key of a row of
+    ``method`` with ``solver_kwargs``: under the one-shot rule the first
+    runs host-driven (the allocator's and the launches' first use) and
+    the second captures, so the row's timed solve replays a graph (or
+    runs on the CPU's plain driver) and captures nothing."""
+    kw = warm_kwargs(method, solver_kwargs)
+    for _ in range(2):
+        sample(sde, score_fn, shape, seed=0, method=method, device=device, **kw)
 
 
 def solve_row(name: str, sde: SDE, score_fn: Callable, shape, *, seed: int, device,
               data: np.ndarray, method: str, **solver_kwargs) -> dict:
-    """One timed ``sample`` call and its row: mean NFE, iterations,
-    accept/reject totals and rate, the Fréchet distance, sliced W2 and
-    ``w2_gaussianized`` against ``data``, finiteness, whether the fused
-    solver step was asked for (``fused``), and the solver-step kernels'
-    launches in this solve (both counts set to 0 just before it and read
-    just after; 0 on the CPU, where the wrappers take their plain
-    versions), with ``captures``, the CUDA graphs the solve captured (the
-    graphed solve's first call at a key, ``adaptive.graph_driver``; its
-    warm-up runs one body iteration eagerly)."""
+    """One timed ``sample`` call and its row, after ``warm_up`` at its key:
+    mean NFE, iterations, accept/reject totals and rate, the Fréchet
+    distance, sliced W2 and ``w2_gaussianized`` against ``data``,
+    finiteness, whether the fused solver step was asked for (``fused``),
+    and the solver-step kernels' launches in this solve (both counts set
+    to 0 just before it and read just after; 0 on the CPU, where the
+    wrappers take their plain versions), with ``captures``, the CUDA
+    graphs the timed solve captured (0 after the warm-up), and
+    ``host_reads``, its device→host reads (``adaptive.host_syncs``: one a
+    graphed solve)."""
     from repro_torch.core.solvers import adaptive as ad
     from repro_torch.kernels.solver_step import ops as step_ops
 
+    warm_up(sde, score_fn, shape, device, method, **solver_kwargs)
     step_ops.launches = step_ops.em_launches = 0
-    c0 = ad.captures
+    c0, r0 = ad.captures, ad.host_syncs
     us, res = timed(lambda: sample(sde, score_fn, shape, seed=seed, method=method,
                                    device=device, **solver_kwargs))
     launches = {"solver_step": step_ops.launches, "em_step": step_ops.em_launches}
@@ -259,5 +288,5 @@ def solve_row(name: str, sde: SDE, score_fn: Callable, shape, *, seed: int, devi
                 rej=rej / max(acc + rej, 1), frechet=frechet_gaussian(x, data),
                 sw2=sliced_wasserstein(x, data), w2g=w2_gaussianized(x, data),
                 finite=bool(np.isfinite(x).all()), launches=launches,
-                captures=ad.captures - c0,
+                captures=ad.captures - c0, host_reads=ad.host_syncs - r0,
                 n_steps=solver_kwargs.get("n_steps"))

@@ -21,10 +21,11 @@ through sets that stay in the 50 MB L2 where the path finds them there:
   jamba-v0.1-52b's "M" layers (``JAMBA_SSD_SHAPE``, d_state 16) beside
   its plain ``ssd_chunked``.
 
-Last it trains Table 1's VP ``TOY_MLP`` (600 steps) and gives the
-device idle share of one EM-1000 solve at N 4096: 1 − (device busy time
-of a profiled solve, torch.profiler) / (wall time of an unprofiled
-one).
+Last it trains Table 1's VP ``TOY_MLP`` (600 steps) and times one
+EM-1000 solve at N 4096 both ways (``table1_em_idle``): graphed, its
+wall and its driver window's device span (CUDA events); host-driven,
+its wall and the device idle share 1 − (device busy time of a profiled
+solve, torch.profiler) / (wall time of an unprofiled one).
 
 It calls only the wrappers' public functions, so it times any checkout
 of the port: run this file by path with ``PYTHONPATH`` at that
@@ -42,6 +43,7 @@ and the card tests' one-kernel-a-call checks.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -256,34 +258,71 @@ def ssd_times(dev, gen, shape) -> dict:
             "ranges": ssd_ops.ranges_for(sets[0][0])}
 
 
+@contextlib.contextmanager
+def window_events():
+    """CUDA events around every driver window launched inside the block
+    (``adaptive.HorizonDriver.window``): yields the list of (start, end)
+    pairs. The profiler cannot trace a WHILE node, so a graphed solve's
+    device span is read this way."""
+    from repro_torch.core.solvers import adaptive as ad
+
+    spans, real = [], ad.HorizonDriver.window
+
+    def timed(self):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state = real(self)
+        e1.record()
+        spans.append((e0, e1))
+        return state
+
+    ad.HorizonDriver.window = timed
+    try:
+        yield spans
+    finally:
+        ad.HorizonDriver.window = real
+
+
 def table1_em_idle(dev, n_steps: int = 1000) -> dict:
-    """The device idle share of one Table-1 EM solve (VP, N 4096, the
-    600-step TOY_MLP, ``n_steps`` K5 launches): the wall of an unprofiled
-    solve, the device busy time of a profiled one, and K5's part of it."""
+    """Table 1's EM row (VP, N 4096, the 600-step TOY_MLP, ``n_steps`` K5
+    launches) graphed and host-driven. Graphed: the wall of a replayed
+    solve (the key's first two solves run before it: the host-driven
+    first and the capture) and the device span of its driver window
+    (``window_events``; None where the solve ran no window). Host-driven:
+    the wall of the chain (a fresh wrapper of the score is a new key, so
+    its one solve is the key's first) and the device busy time of a
+    profiled one, with K5's part and the idle share 1 − busy / wall."""
     import time
 
     from repro_torch.benchmarks.common import trained_mlp_score
     from repro_torch.core.sampling import sample
 
     sde, score_fn = trained_mlp_score("vp", steps=600, device=dev)
-    run = lambda: sample(sde, score_fn, (4096, 2), seed=42, method="em", n_steps=n_steps,
-                         device=dev)
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        run()
+
+    def run(score):
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample(sde, score, (4096, 2), seed=42, method="em", n_steps=n_steps, device=dev)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(score_fn)
+    run(score_fn)
+    with window_events() as spans:
+        graphed = run(score_fn)
+    window = sum(e0.elapsed_time(e1) for e0, e1 in spans) if spans else None
+    host = run(lambda x, t: score_fn(x, t))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(lambda x, t: score_fn(x, t))
     busy = em = 0.0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             busy += e.device_time_total
             em += e.device_time_total if "em_step_kernel" in e.name else 0.0
-    return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "em_step_ms": em / 1e3,
-            "idle_share": 1 - busy / 1e3 / (wall * 1e3)}
+    return {"graphed_wall_ms": graphed * 1e3, "window_ms": window,
+            "window_share": None if window is None else window / (graphed * 1e3),
+            "wall_ms": host * 1e3, "busy_ms": busy / 1e3, "em_step_ms": em / 1e3,
+            "idle_share": 1 - busy / 1e3 / (host * 1e3)}
 
 
 def card() -> str:

@@ -23,7 +23,7 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.benchmarks.common import (
-    emit, gmm_data, solve_row, trained_mlp_score, warm_up,
+    emit, gmm_data, solve_row, trained_mlp_score,
 )
 from repro_torch.device import resolve_device
 
@@ -37,7 +37,6 @@ def run(process: str, device="cuda", *, n: int = N_SAMPLES, steps: int = 600,
     dev = resolve_device(device)
     sde, score_fn = trained_mlp_score(process, steps=steps, device=dev)
     data = gmm_data(n, 7)
-    warm_up(sde, score_fn, (n, 2), dev)
     rows = []
 
     def bench(name, method, **kw):

@@ -14,12 +14,15 @@ solver at ε_rel ∈ {0.01, 0.02, 0.05, 0.10}, and EM at each adaptive
 row's NFE. Columns: mean NFE, the Fréchet distance on the first 8
 coordinates against N reference draws, the mean absolute error of the
 per-coordinate means and standard deviations, and the wall seconds of
-the solve (synchronised).
+the solve (synchronised), with the solve's CUDA-graph captures (0: each
+row's key is warmed up first, ``common.warm_up``), host reads and K5
+launches.
 
 μ and s come from a ``torch.Generator`` seeded 0 (the reference draws
-them from ``PRNGKey(0)``), and the solves and the reference draws from
-generators seeded 3 and 11: the numbers are the port's own, comparable
-with the reference's only in what they show, not digit for digit.
+them from ``PRNGKey(0)``), the solves from ``sample``'s streams of seed
+3 and the reference draws from a generator seeded 11: the numbers are
+the port's own, comparable with the reference's only in what they show,
+not digit for digit.
 
   python -m repro_torch.benchmarks.table2_highdim [--device cpu]
 """
@@ -32,10 +35,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.benchmarks.common import frechet_gaussian
+from repro_torch.benchmarks.common import frechet_gaussian, warm_up
 from repro_torch.core.sampling import sample
 from repro_torch.core.sde import VESDE
+from repro_torch.core.solvers import adaptive as ad
 from repro_torch.device import resolve_device
+from repro_torch.kernels.solver_step import ops as step_ops
 
 D = 3072
 N = 256
@@ -68,19 +73,23 @@ def run(device="cuda", *, n: int = N, d: int = D) -> list:
     data = reference(torch.Generator(device=dev).manual_seed(11), n).cpu().numpy()
 
     def solve(method, **kw):
+        warm_up(sde, score, (n, d), dev, method, **kw)  # the row's key: first use, capture
+        step_ops.em_launches = 0
+        c0, r0 = ad.captures, ad.host_syncs
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         res = sample(sde, score, (n, d), seed=3, method=method, device=dev, **kw)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        return res, time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        return res, wall, dict(captures=ad.captures - c0, host_reads=ad.host_syncs - r0,
+                               em_step=step_ops.em_launches)
 
-    solve("em", n_steps=2)  # first use of the device: allocator, launches
     rows = []
 
     def bench(name, method, **kw):
-        res, wall = solve(method, **kw)
+        res, wall, books = solve(method, **kw)
         x = res.x.cpu().numpy().astype(np.float64)
         rows.append({
             "name": f"table2/ve-d{d}/{name}", "method": method,
@@ -88,7 +97,7 @@ def run(device="cuda", *, n: int = N, d: int = D) -> list:
             "frechet8": frechet_gaussian(x[:, :8], data[:, :8]),
             "mean_err": float(np.abs(x.mean(0) - data.mean(0)).mean()),
             "std_err": float(np.abs(x.std(0) - data.std(0)).mean()),
-            "wall_s": wall, "finite": bool(np.isfinite(x).all()),
+            "wall_s": wall, "finite": bool(np.isfinite(x).all()), **books,
         })
         return rows[-1]["nfe"]
 

@@ -26,7 +26,7 @@ import argparse
 import dataclasses
 
 from repro_torch.benchmarks.common import (
-    emit, gmm_data, solve_row, trained_mlp_score, warm_up,
+    emit, gmm_data, solve_row, trained_mlp_score,
 )
 from repro_torch.core.solvers.adaptive import AdaptiveConfig
 from repro_torch.device import resolve_device
@@ -54,7 +54,6 @@ def run(device="cuda", *, n: int = N, steps: int = 600) -> list:
     dev = resolve_device(device)
     sde, score_fn = trained_mlp_score("vp", steps=steps, device=dev)
     data = gmm_data(n, 13)
-    warm_up(sde, score_fn, (n, 2), dev)
     rows = [solve_row(f"table3/vp/{name}", sde, score_fn, (n, 2), seed=5, device=dev,
                       data=data, method="adaptive", config=fused(cfg))
             for name, cfg in VARIANTS.items()]

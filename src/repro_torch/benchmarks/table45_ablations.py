@@ -18,7 +18,7 @@ import argparse
 import dataclasses
 
 from repro_torch.benchmarks.common import (
-    emit, gmm_data, solve_row, trained_mlp_score, warm_up,
+    emit, gmm_data, solve_row, trained_mlp_score,
 )
 from repro_torch.benchmarks.table3_offtheshelf import fused
 from repro_torch.core.solvers.adaptive import AdaptiveConfig
@@ -48,7 +48,6 @@ def run(device="cuda", *, n: int = N, steps: int = 600) -> list:
     for process in ("vp", "ve"):
         sde, score_fn = trained_mlp_score(process, steps=steps, device=dev)
         data = gmm_data(n, 17)
-        warm_up(sde, score_fn, (n, 2), dev)
         for name, mods in VARIANTS.items():
             cfg = fused(dataclasses.replace(BASE, **mods))
             rows.append(solve_row(f"table45/{process}/{name}", sde, score_fn, (n, 2),

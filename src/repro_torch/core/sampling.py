@@ -6,17 +6,18 @@
 registered solver (``adaptive``, ``momentum``, ``heun``, ``em``, ``pc``,
 ``pc_hmc``, ``ddim``, ``ode``). Its noise is per-row Philox streams
 (``seed_streams``): row i's stream seed is ``chunk_seeds(seed, B)[i]``
-(``numpy.random.SeedSequence(seed)``), and every method draws its prior
-from the streams at counter 0, so one seed gives every method the same
-prior (the reference's ``k_prior`` split). The Algorithm-1 families
-(``STREAM_SOLVERS``) then draw their noise from the same streams from
-counter 1, which makes a row of ``sample(seed=s)`` bitwise a solo
-``adaptive()`` on that row's stream, and lets their solve run as one
-captured CUDA graph (``core.solvers.adaptive``'s graphed solve); the
-fixed-grid baselines draw theirs from a ``torch.Generator`` seeded
-``seed``. A ``noise_fn`` in the solver's keywords replaces the solver's
-draws (the prior stays the streams'). ``solve_in_chunks`` is the
-resumable form (DESIGN.md §7): the same adaptive solve as a chain of
+(``numpy.random.SeedSequence(seed)``). Every method draws its prior from
+the streams at counter 0, so one seed gives every method the same prior
+(the reference's ``k_prior`` split), and its noise from the same streams
+from counter 1. A row of ``sample(seed=s)`` is then bitwise a solo solve
+on that row's stream for the Algorithm-1 families and the fixed-grid
+baselines (not for the ODE, whose error is batch-global), and every
+solve can run as one captured CUDA graph (the solver's graphed loop,
+``core.solvers.adaptive.graphable``). A ``noise_fn`` in the solver's
+keywords replaces the solver's draws (the prior stays the streams'); a
+``torch.Generator`` reaches a solver only from a caller who passes one
+to it. ``solve_in_chunks`` is the resumable form (DESIGN.md §7): the
+same adaptive solve as a chain of
 chunks of ``max_sync_iters`` iterations with a host read between them,
 bitwise equal to ``sample(method="adaptive")`` for the same seed.
 ``sample_chunked`` draws many samples as a chain of ``sample`` calls
@@ -24,11 +25,12 @@ and hands them back as host numpy. The first two take the optional
 condition payload ``cond`` of ``AdaptiveConfig.conditioner`` (DESIGN.md
 §9), which rides in the carry through every chunk.
 
-Both run their graphed solves through the solver's bounded graph cache
-(``core.solvers.adaptive.graph_driver``, the reference's
-``_chunk_jit``/``_finalize_jit``): a repeated solve at the same key
-copies its fresh carry into a cached driver's captured buffers and
-launches it, capturing nothing.
+Both run their graphed solves through the solvers' bounded graph cache
+(``core.solvers.adaptive.cached_driver``, the reference's
+``_chunk_jit``/``_finalize_jit``) under its one-shot rule: a key's first
+solve runs host-driven and records the key, the second captures, and a
+later solve at the same key copies its fresh carry into the cached
+driver's captured buffers and launches it, capturing nothing.
 
 Under ``mesh=`` (a ``repro_torch.parallel.Mesh`` over
 ``torch.distributed``, DESIGN.md §3) both are data-parallel and
@@ -65,15 +67,6 @@ from repro_torch.parallel.sharding import sample_state_shardings
 Tensor = torch.Tensor
 
 
-#: the solvers that draw their noise from ``sample``'s streams (the
-#: Algorithm-1 families); the rest take a ``torch.Generator``
-STREAM_SOLVERS = ("adaptive", "momentum", "heun")
-
-
-def _generator(seed: int, dev: torch.device) -> torch.Generator:
-    return torch.Generator(device=dev).manual_seed(seed)
-
-
 def seed_streams(seed: int, batch: int, device="cuda") -> streams.SlotStreams:
     """``sample``'s per-row streams at counter 0 on ``device`` (``cuda``
     unless the caller passes ``"cpu"``): row i's seed is
@@ -98,11 +91,12 @@ def sample(sde: SDE, score_fn: Callable, shape, *, seed: int = 0,
     per-sample payload of the conditioner in the solver's config (with a
     ``ClassifierFree`` conditioner the score is ``s(x, t, y)``).
 
-    The prior is the streams' draw at counter 0 (``seed_streams``) for
-    every method; the ``STREAM_SOLVERS`` draw their noise from the same
-    streams (graphed, unless the solver's keywords hold a ``noise_fn``
-    or ``mesh`` is given: then host-driven), the others from a
-    ``torch.Generator`` seeded ``seed`` (module docstring).
+    The prior is the streams' draw at counter 0 (``seed_streams``) and
+    every method's noise comes from the same streams from counter 1
+    (module docstring). The solve is graphed unless the solver's
+    keywords hold a ``noise_fn`` or ``mesh`` is given (then
+    host-driven), and a key's first solve is host-driven too (the
+    one-shot rule).
 
     ``mesh`` shards the batch over the mesh's data axes for every
     solver: the result holds this rank's rows (``gather_result`` collects
@@ -112,14 +106,13 @@ def sample(sde: SDE, score_fn: Callable, shape, *, seed: int = 0,
     dev = resolve_device(device)
     st = seed_streams(seed, shape[0], dev)
     x_init = sde.prior_sample(shape, st)
-    gen = st.advanced(1) if method in STREAM_SOLVERS else _generator(seed, dev)
     solver = get_solver(method)
     if cond is not None:
         solver_kwargs["cond"] = cond
     sharding = _state_sharding(mesh, shape, dev)
     if sharding is not None:
         solver_kwargs["sharding"] = sharding
-    return solver(sde, score_fn, x_init, gen, denoise=denoise, device=dev,
+    return solver(sde, score_fn, x_init, st.advanced(1), denoise=denoise, device=dev,
                   **solver_kwargs)
 
 
@@ -163,9 +156,11 @@ def solve_in_chunks(sde: SDE, score_fn: Callable, shape, *, max_sync_iters: int,
     sharding = _state_sharding(mesh, shape, dev)
     carry = init_carry(sde, sde.prior_sample(shape, st), st.advanced(1), config=cfg,
                        cond=cond, sharding=sharding)
+    drv = None
     if chunk_fn is None and graphable(carry.generator, noise_fn, sharding):
         drv = graph_driver(sde, score_fn, carry, cfg, max_sync_iters=max_sync_iters,
                            max_horizons=1)
+    if drv is not None:
         while cfg.max_iters > 0:
             horizons, active, iters = driver_window(drv)
             if not horizons:  # every row had converged before the chunk

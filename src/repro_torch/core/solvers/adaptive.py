@@ -60,20 +60,27 @@ no ring and the body records nothing; on, recording reads values the
 body computed anyway, so the solve's bits are the same either way.
 
 The graphed whole solve (the reference's ``lax.while_loop``): given a
-``SlotStreams``, no ``noise_fn`` and no mesh, ``adaptive`` runs its solve
-through a ``HorizonDriver`` that ``wait_all`` waits on every row, with one
+``SlotStreams``, no ``noise_fn`` and no mesh (``graphable``, the one
+rule every solver asks), ``adaptive`` runs its solve through a
+``HorizonDriver`` that ``wait_all`` waits on every row, with one
 ``SYNC_EVERY`` group as its horizon and ⌈``max_iters``/``SYNC_EVERY``⌉
 horizons at most: on the card one WHILE-node graph launch (P2 its
 condition) and one host read a solve, on the CPU the plain driver over
 ``solve_chunk``'s groups. The groups are ``solve_chunk``'s and an
 iteration with no active sample changes no leaf, so the result is the
-host-driven chain's bit for bit. The drivers live in a bounded cache
-(``graph_driver``) keyed as the reference keys its jit, so a repeated
-solve copies its fresh carry into the captured buffers and replays them.
+host-driven chain's bit for bit. The drivers live in one bounded cache
+(``cached_driver``) that every graphed family shares (Algorithm 1's,
+the fixed-grid baselines' in ``grid.py``, the RK45's, Algorithm 2's),
+keyed by structure (``GraphKey``), so a repeated solve copies its fresh
+carry, per-solve values included, into the captured buffers and replays
+them. Its one-shot rule: a key's first solve runs the host-driven loop
+and records the key, the second captures, so a process that solves once
+at a key pays no capture.
 
-``host_syncs`` counts the solver's device→host reads (``sync_state``'s,
-and the graphed solve's one read a window), so the serving loop can
-report the solver's syncs beside its own.
+``host_syncs`` counts the solvers' device→host reads (``sync_state``'s,
+the RK45's and Algorithm 2's group reads, and a graphed solve's one read
+a window: ``host_read``), so the serving loop and the tables can report
+the solver's syncs beside their own.
 
 Conditioning (DESIGN.md §9): ``AdaptiveConfig.conditioner`` is the
 static half, ``SolverCarry.cond`` the per-sample payload. The score is
@@ -127,7 +134,8 @@ tensors over gloo raises. On the CPU the plain driver all-reduces over
 gloo after every horizon.
 
 Algorithm 2 (``adaptive_forward``, paper App. C) is at the end: the
-forward-time solver for a general diffusion with x-dependent g.
+forward-time solver for a general diffusion with x-dependent g, graphed
+as Algorithm 1 is on per-row streams.
 
 The solver zoo's two families (DESIGN.md §11) are this body with one
 field set. ``AdaptiveConfig.momentum`` = β adds β·v, v = x − x_prev the
@@ -147,10 +155,11 @@ import collections
 import copy
 import dataclasses
 import functools
+import gc
 import inspect
 import time
 import weakref
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -182,6 +191,11 @@ SYNC_EVERY = 8
 
 #: ``sync_state`` device→host reads since the count was last set to 0
 host_syncs = 0
+
+#: the solvers that run this body and take its configuration (eps_rel,
+#: max_iters, the fused step, precision): ``adaptive``, ``momentum.py``,
+#: ``heun.py``
+ADAPTIVE_FAMILY = ("adaptive", "momentum", "heun")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,6 +330,11 @@ class SolverCarry:
     @property
     def batch(self) -> int:
         return self.x.shape[0]
+
+
+def _eps_abs(sde: SDE, cfg: AdaptiveConfig) -> float:
+    """The absolute tolerance of ``cfg`` (None: the SDE's)."""
+    return float(sde.abs_tolerance if cfg.eps_abs is None else cfg.eps_abs)
 
 
 def _per_sample(v, batch: int, device) -> Tensor:
@@ -583,9 +602,7 @@ def sync_state(carry: SolverCarry, sharding=None):
 def _sync(carry: SolverCarry, sharding):
     """``sync_state`` plus this rank's own iteration count, read in the same
     transfer."""
-    global host_syncs
-    vals = sync_flags(carry, sharding).tolist()
-    host_syncs += 1
+    vals = host_read(sync_flags(carry, sharding))
     return not vals[0], int(vals[1]), int(vals[-1])
 
 
@@ -625,8 +642,7 @@ def solve_chunk(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
     group catches up (``_catch_up``).
     """
     cfg = resolve_config(config, overrides)
-    eps_abs = float(sde.abs_tolerance if cfg.eps_abs is None else cfg.eps_abs)
-    body = _make_body(sde, score_fn, cfg, eps_abs, _pick_step_math(cfg, sharding),
+    body = _make_body(sde, score_fn, cfg, _eps_abs(sde, cfg), _pick_step_math(cfg, sharding),
                       noise_fn, sharding)
     done, iters = sync_state(carry, sharding)
     start = iters
@@ -690,30 +706,54 @@ def copy_carry_(dst: SolverCarry, src: SolverCarry) -> None:
             a.copy_(b)
 
 
+def capture_graph(carry, run: Callable, warm: Callable) -> torch.cuda.CUDAGraph:
+    """Record ``run(carry) -> carry`` as one CUDA graph over ``carry``'s
+    buffers (``keep_graph=True``: the raw graph is kept for a parent graph
+    to hold, ``kernels.graph_loop``); its last nodes ``copy_`` the new
+    leaves into ``carry``'s buffers (``copy_carry_``). Lazy library state
+    (cuBLAS handles, kernel attributes) is made first by ``warm`` on a
+    copy of the carry, on a side stream (one iteration of the loop
+    ``run`` unrolls: its launches are real and counted). ``carry`` must
+    own its buffers (``own_buffers``) and keep them, and ``run`` may read
+    no tensor it did not make under the capture besides the carry's (the
+    graph keeps neither ``run`` nor what it closes over, so that a cached
+    graph holds no score function). ``graph.recorded``
+    is {(wrapper module, its launch counter): its kernel calls in the
+    graph} (``graph_loop.ops.captured_calls``): what one replay launches,
+    which the driver charges to the wrappers' launch counts."""
+    dev = carry.x.device
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.no_grad():
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm(copy.deepcopy(carry))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = loop_ops.captured_calls()
+        with torch.cuda.graph(graph):
+            copy_carry_(carry, run(carry))
+    graph.recorded = {k: n - before[k] for k, n in loop_ops.captured_calls().items()}
+    return graph
+
+
 def capture_horizon(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
                     sync_horizon: int, config: AdaptiveConfig | None = None,
                     sharding=None, flags: Optional["MeshFlags"] = None,
                     **overrides) -> torch.cuda.CUDAGraph:
     """Record ``sync_horizon`` Algorithm-1 iterations as one CUDA graph over
-    ``carry``'s buffers (``keep_graph=True``: the raw graph is kept for a
-    parent graph to hold, ``kernels.graph_loop``).
+    ``carry``'s buffers (``capture_graph``).
 
     The graph copies ``carry.iterations`` into its own ``start`` first and
     runs each iteration under ``limits=(start, sync_horizon)``, so the
     bounds ``solve_chunk`` checks on the host are part of the mask and the
-    graph reads nothing back; its last nodes ``copy_`` the new leaves into
-    ``carry``'s buffers. A replay is therefore one ``solve_chunk(...,
+    graph reads nothing back. A replay is therefore one ``solve_chunk(...,
     max_sync_iters=sync_horizon)`` on the carry, bit for bit where the
     same kernels run (an iteration past the bounds changes nothing).
     ``carry`` must own its buffers (``own_buffers``) and keep them: the
     caller writes new requests into them in place. Its noise must come
     from a ``SlotStreams``: a graph cannot call Python sources, and a
-    shared generator's state would be frozen into it. Lazy library state (cuBLAS handles,
-    kernel attributes) is made first by one iteration on a copy of the
-    carry, on a side stream. ``graph.recorded`` is {(wrapper module, its
-    launch counter): its kernel calls in the horizon}
-    (``graph_loop.ops.captured_calls``): what one replay launches, which
-    the driver charges to the wrappers' launch counts.
+    shared generator's state would be frozen into it. The warm-up is one
+    body iteration.
 
     Under a mesh the carry holds this rank's rows of ``sharding`` (the
     fused step is K4's), and ``flags`` (``MeshFlags``) appends the mesh's
@@ -724,33 +764,29 @@ def capture_horizon(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
     if not isinstance(carry.generator, SlotStreams):
         raise ValueError("a captured horizon draws its noise from SlotStreams: a CUDA "
                          "graph cannot call per-slot Python sources or a generator")
-    eps_abs = float(sde.abs_tolerance if cfg.eps_abs is None else cfg.eps_abs)
-    body = _make_body(sde, score_fn, cfg, eps_abs, _pick_step_math(cfg, sharding),
+    return capture_graph(carry, *_horizon(sde, score_fn, cfg, sync_horizon, sharding, flags))
+
+
+def _horizon(sde: SDE, score_fn: Callable, cfg: AdaptiveConfig, sync_horizon: int,
+             sharding=None, flags: Optional["MeshFlags"] = None) -> tuple:
+    """(run, warm) of ``capture_horizon``: ``run`` copies the carry's
+    iterations into its own ``start`` (made under the capture, in the
+    graph's pool) and runs ``sync_horizon`` masked iterations (then
+    ``flags.update``), in place; ``warm`` one body iteration."""
+    body = _make_body(sde, score_fn, cfg, _eps_abs(sde, cfg), _pick_step_math(cfg, sharding),
                       sharding=sharding)
-    dev = carry.x.device
-    start = torch.zeros((), dtype=torch.int32, device=dev)
-    limits = (start, int(sync_horizon))
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.no_grad():
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            warm = copy.deepcopy(carry)
-            body(warm, limits)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        del warm
-        before = loop_ops.captured_calls()
-        with torch.cuda.graph(graph):
-            start.copy_(carry.iterations)
-            c = carry
-            for _ in range(int(sync_horizon)):
-                c = body(c, limits)
-            copy_carry_(carry, c)
-            if flags is not None:
-                flags.update(carry)
-    graph.horizon_start = start  # read by the graph: lives as long as it
-    graph.recorded = {k: n - before[k] for k, n in loop_ops.captured_calls().items()}
-    return graph
+
+    def run(c: SolverCarry) -> SolverCarry:
+        limits = (c.iterations.clone(), int(sync_horizon))
+        out = c
+        for _ in range(int(sync_horizon)):
+            out = body(out, limits)
+        copy_carry_(c, out)
+        if flags is not None:
+            flags.update(c)
+        return c
+
+    return run, lambda c: body(c, (c.iterations.clone(), int(sync_horizon)))
 
 
 def mesh_capturable(group) -> bool:
@@ -942,21 +978,51 @@ def solve_horizons(sde: SDE, score_fn: Callable, carry: SolverCarry, occupied: T
 #: drivers the graph cache keeps at once (the reference's
 #: ``lru_cache(maxsize=8)``)
 GRAPH_CACHE_SIZE = 8
-_drivers: "collections.OrderedDict[tuple, HorizonDriver]" = collections.OrderedDict()
+#: keys whose first solve ran host-driven that the cache remembers at once
+#: (the one-shot rule, ``cached_driver``)
+SEEN_SIZE = 64
+#: ``max_horizons`` of a driver whose condition alone ends its window (a
+#: fixed grid's, whose ``done`` rises after its last step)
+UNBOUNDED = 2 ** 31 - 1
+
+
+class GraphKey(NamedTuple):
+    """What a cached driver is keyed by: structure, not per-solve values.
+    ``family`` names the solver loop, ``fns`` the identities of the
+    functions the graph calls (a bound method by its object and function),
+    ``static`` the family's settings that shape the graph (its config with
+    the per-solve values taken out, the horizon), ``max_horizons`` the
+    horizons a window may run, ``signature`` the carry's leaf shapes and
+    dtypes (``_signature``)."""
+
+    family: str
+    sde: Any
+    fns: tuple
+    static: tuple
+    max_horizons: int
+    signature: tuple
+
+
+_drivers: "collections.OrderedDict[GraphKey, HorizonDriver]" = collections.OrderedDict()
+_seen: "collections.OrderedDict[GraphKey, tuple]" = collections.OrderedDict()
 #: horizon graphs the cache's drivers captured since the count was last set to 0
 captures = 0
 
 
-def graphable(generator, noise_fn: Callable | None = None, sharding=None) -> bool:
-    """Whether a solve runs graphed (the one rule ``adaptive`` and
-    ``core.sampling`` choose by): its noise a ``SlotStreams``, no
-    ``noise_fn`` and no mesh. A ``noise_fn`` or a list of per-slot
-    sources is Python a graph cannot call; a ``torch.Generator``'s
-    Philox offset is set by the host at each launch, so every body
-    iteration inside one WHILE-node launch would draw the same noise;
-    ``sharding`` keeps the mesh's all-reduce on the host (gloo
-    collectives cannot be captured)."""
-    return noise_fn is None and sharding is None and isinstance(generator, SlotStreams)
+def graphable(generator, noise_fn: Callable | None = None, sharding=None, *,
+              draws: bool = True) -> bool:
+    """Whether a solve may run graphed (the one rule every solver asks):
+    no ``noise_fn``, no mesh, and, for a solver that ``draws`` noise, a
+    ``SlotStreams``. A ``noise_fn`` or a list of per-slot sources is
+    Python a graph cannot call; a ``torch.Generator``'s Philox offset is
+    set by the host at each launch, so every body iteration inside one
+    WHILE-node launch would draw the same noise; ``sharding`` keeps the
+    mesh's all-reduce on the host (gloo collectives cannot be captured).
+    A deterministic solver (``ddim``, ``ode``: ``draws=False``) needs no
+    streams."""
+    if noise_fn is not None or sharding is not None:
+        return False
+    return not draws or isinstance(generator, SlotStreams)
 
 
 def _anchor(fn: Callable) -> tuple:
@@ -969,112 +1035,190 @@ def _anchor(fn: Callable) -> tuple:
 
 
 def _forget(ident: tuple) -> None:
-    """Drop the drivers of a score function that was collected."""
-    for key in list(_drivers):
-        if key[1] == ident:
-            _drivers.pop(key, None)
+    """Drop the drivers and the records of a function that was collected.
+    The collector stays off while the tables are read: a collection there
+    could run another function's callback, which would change them under
+    the read."""
+    tables = [t for t in (_drivers, _seen) if t]  # None at interpreter exit, or empty
+    if not tables:
+        return
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for table in tables:
+            for key in [k for k in table if ident in k.fns]:
+                table.pop(key, None)
+    finally:
+        if enabled:
+            gc.enable()
 
 
-def _signature(carry: SolverCarry) -> tuple:
+def _signature(carry) -> tuple:
     """The carry's structure: the device, the payload's names, and each
     field's tensor leaves as (shape, dtype), None for an empty field."""
     leaves = tuple(
         None if getattr(carry, f.name) is None else
         tuple((tuple(t.shape), t.dtype) for t in _tensor_leaves(getattr(carry, f.name)))
         for f in dataclasses.fields(carry))
-    cond = None if carry.cond is None else tuple(sorted(carry.cond))
-    return (str(carry.x.device), cond) + leaves
+    cond = getattr(carry, "cond", None)
+    return (str(carry.x.device), None if cond is None else tuple(sorted(cond))) + leaves
 
 
-def graph_driver(sde: SDE, score_fn: Callable, carry: SolverCarry, config: AdaptiveConfig, *,
-                 max_sync_iters: int, max_horizons: int) -> HorizonDriver:
-    """The cached driver of ``max_sync_iters``-iteration horizons, at most
-    ``max_horizons`` a window, waiting on every row, with ``carry``
-    copied into its buffers. Built on a miss: on the card the horizon is
-    captured (``capture_horizon``) and counted in ``captures``; on the
-    CPU the horizon is ``solve_chunk``.
+def cached_driver(family: str, sde, fns: tuple, static: tuple, carry,
+                  make_horizon: Callable, *, max_horizons: int) -> Optional[HorizonDriver]:
+    """The cached driver of ``family``'s horizon, at most ``max_horizons`` a
+    window, waiting on every row of ``carry.done``, with ``carry`` copied
+    into its buffers; None where the solve is to run host-driven.
+
+    ``make_horizon(*fns) -> (run, warm)`` builds the horizon on the live
+    functions: ``run(carry) -> carry`` the horizon, ``warm(carry)`` one
+    iteration of it (the capture's warm-up). On the card ``run`` is
+    captured (``capture_graph``) and counted in ``captures``; on the CPU
+    it is the plain driver's unit. ``carry`` needs the leaves ``x``,
+    ``done`` and ``iterations``.
+
+    The one-shot rule: a key's first solve is host-driven (None) and
+    records the key, its second builds the driver (on the card: one
+    capture), later solves replay it. A process that solves once at a key
+    (the ``launch.sample`` CLI, a table row) pays no capture, and since
+    the graph is bitwise the host-driven chain, the result does not
+    depend on which solve ran which way.
 
     The cache is the reference's ``_chunk_jit``/``_finalize_jit``: at
     most ``GRAPH_CACHE_SIZE`` drivers, least recently used out first,
-    keyed as the reference keys its jit, (sde, score_fn, config,
-    ``max_sync_iters``, sharding), the score function by identity (a
-    bound method by its object and function), with the horizons a window may run and
-    the carry's leaf shapes and dtypes added (the sharding part is always
-    None: the graphed paths take no mesh). A hit copies the fresh carry
-    (prior, t, h, stream seeds, payload) into the driver's captured
-    buffers and captures nothing.
-
-    The cache holds ``score_fn`` (a bound method's object) weakly: once
-    it is collected its drivers, their graphs and their pools go with it,
-    so a dropped model leaves nothing on the card. A score function that
-    takes no weak reference gets a driver that is not cached. A cached
-    graph replays what it captured, so a score function whose behaviour
+    keyed by a ``GraphKey``, each function by identity. A hit copies the
+    fresh carry (prior, per-solve values, stream seeds, payload) into the
+    driver's captured buffers and captures nothing. The records and the
+    drivers hold ``fns`` (a bound method's object) weakly: once one is
+    collected its drivers, their graphs and their pools go with it, so a
+    dropped model leaves nothing on the card. A function that takes no
+    weak reference is never recorded: its solves all run host-driven. A
+    cached graph replays what it captured, so a function whose behaviour
     follows Python state (a flag on its model, a swapped module) must be
     a new function, or the cache cleared (``clear_graph_cache``), when
     that state changes."""
     global captures
-    obj, func = _anchor(score_fn)
-    ident = (id(obj), func)  # identity, not equality: a score net may define __eq__
-    key = (sde, ident, config, int(max_sync_iters), int(max_horizons), None,
-           _signature(carry))
+    anchors = [_anchor(f) for f in fns]
+    idents = tuple((id(obj), func) for obj, func in anchors)  # identity: a net may define __eq__
+    key = GraphKey(family, sde, idents, tuple(static), int(max_horizons), _signature(carry))
     drv = _drivers.get(key)
     if drv is not None:
         _drivers.move_to_end(key)
         copy_carry_(drv.carry, carry)
         return drv
-    try:  # the driver keeps no strong reference to the score function
-        anchor = weakref.ref(obj, lambda _, ident=ident: _forget(ident))
-    except TypeError:  # takes no weak reference: solved by a driver that is not cached
-        anchor = None
-    if anchor is None:
-        score = lambda: score_fn
-    elif func is None:
-        score = anchor
-    else:
-        score = lambda: func.__get__(anchor())
+    try:  # neither the record nor the driver keeps a strong reference to fns
+        refs = tuple(weakref.ref(obj, lambda _, ident=ident: _forget(ident))
+                     for (obj, _), ident in zip(anchors, idents))
+    except TypeError:  # takes no weak reference: never recorded, always host-driven
+        return None
+    if key not in _seen:  # the key's first solve
+        _seen[key] = refs
+        while len(_seen) > SEEN_SIZE:
+            _seen.popitem(last=False)
+        return None
+    _seen.move_to_end(key)
+    funcs = tuple(func for _, func in anchors)
+    del anchors, fns  # the unit below must not hold the functions
+
+    def live() -> tuple:
+        return tuple(ref() if func is None else func.__get__(ref())
+                     for ref, func in zip(refs, funcs))
+
     if carry.x.device.type == "cuda":
-        unit = lambda c: capture_horizon(sde, score(), c, sync_horizon=max_sync_iters,
-                                         config=config)
+        unit = lambda c: capture_graph(c, *make_horizon(*live()))
     else:
-        unit = lambda c: solve_chunk(sde, score(), c, max_sync_iters=max_sync_iters,
-                                     config=config)
-    occupied = torch.ones(carry.batch, dtype=torch.bool, device=carry.x.device)
+        unit = lambda c: make_horizon(*live())[0](c)
+    occupied = torch.ones(carry.done.shape[0], dtype=torch.bool, device=carry.x.device)
     drv = HorizonDriver(copy.deepcopy(carry), occupied, unit, max_horizons=max_horizons,
                         wait_all=True)
     captures += drv.captures
-    if anchor is not None:
-        drv.anchor = anchor  # lives as long as the entry: its callback drops the entry
-        _drivers[key] = drv
-        while len(_drivers) > GRAPH_CACHE_SIZE:
-            _drivers.popitem(last=False)
+    drv.anchor = refs  # lives as long as the entry: their callbacks drop it
+    _drivers[key] = drv
+    while len(_drivers) > GRAPH_CACHE_SIZE:
+        _drivers.popitem(last=False)
     return drv
 
 
 def clear_graph_cache() -> None:
-    """Drop every cached driver (and the graphs and buffers it holds)."""
+    """Drop every cached driver (and the graphs and buffers it holds) and
+    every record of a key's first solve."""
     _drivers.clear()
+    _seen.clear()
+
+
+def host_read(flags: Tensor) -> list:
+    """``flags.tolist()``, counted in ``host_syncs``: the solvers'
+    device→host reads."""
+    global host_syncs
+    host_syncs += 1
+    return flags.tolist()
 
 
 def driver_window(drv: HorizonDriver) -> tuple:
     """One driver window and its one host read: (horizons run, some row
     still active, iterations), the window's launches charged."""
-    global host_syncs
     drv.window()
-    vals = torch.cat([drv.state, sync_flags(drv.carry)]).tolist()
-    host_syncs += 1
+    vals = host_read(torch.cat([drv.state, sync_flags(drv.carry)]))
     drv.account(vals[1])
     return vals[1], bool(vals[2]), vals[3]
 
 
+def solve_cached(family: str, sde, fns: tuple, static: tuple, carry, make_horizon: Callable,
+                 *, max_horizons: int, host: Callable):
+    """The whole solve of ``carry`` in one window of the cached driver
+    (``cached_driver``), or ``host(carry) -> carry``, the host-driven
+    chain, where the one-shot rule says so. Returns a carry of its own
+    (the driver's buffers serve the next solve)."""
+    drv = cached_driver(family, sde, fns, static, carry, make_horizon,
+                        max_horizons=max_horizons)
+    if drv is None:
+        return host(carry)
+    driver_window(drv)
+    return copy.deepcopy(drv.carry)
+
+
+def graph_driver(sde: SDE, score_fn: Callable, carry: SolverCarry, config: AdaptiveConfig, *,
+                 max_sync_iters: int, max_horizons: int) -> Optional[HorizonDriver]:
+    """Algorithm 1's cached driver (``cached_driver``): ``max_sync_iters``
+    iterations a horizon (on the card ``capture_horizon``, on the CPU
+    ``solve_chunk``), at most ``max_horizons`` a window, or None where
+    the one-shot rule runs the solve host-driven. The key holds the
+    config without its tolerances: ``eps_rel`` and ``eps_abs`` go into
+    the carry as its per-sample ``rtol``/``atol`` leaves (where the
+    caller set none), which the body reads in place of the config's and
+    which round as the config's floats do, so solves that differ only in
+    their tolerances share a driver."""
+    if carry.atol is None:
+        carry = dataclasses.replace(
+            carry, atol=_per_sample(_eps_abs(sde, config), carry.batch, carry.x.device),
+            rtol=_per_sample(config.eps_rel, carry.batch, carry.x.device))
+    static = (dataclasses.replace(config, eps_rel=None, eps_abs=None), int(max_sync_iters))
+
+    dev = carry.x.device
+
+    def make_horizon(score):
+        if dev.type != "cuda":
+            run = lambda c: solve_chunk(sde, score, c, max_sync_iters=max_sync_iters,
+                                        config=config)
+            return run, None
+        return _horizon(sde, score, config, max_sync_iters)
+
+    return cached_driver("adaptive", sde, (score_fn,), static, carry, make_horizon,
+                         max_horizons=max_horizons)
+
+
 def solve_graphed(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
                   config: AdaptiveConfig) -> SolverCarry:
-    """The whole solve of ``carry`` (its noise a ``SlotStreams``) in one
-    window of the cached driver: ``SYNC_EVERY``-iteration horizons, at
-    most ⌈``max_iters``/``SYNC_EVERY``⌉, until every row has converged.
-    Returns a carry of its own (the driver's buffers serve the next
-    solve)."""
+    """The whole solve of ``carry`` (its noise a ``SlotStreams``): one window
+    of the cached driver, ``SYNC_EVERY``-iteration horizons, at most
+    ⌈``max_iters``/``SYNC_EVERY``⌉, until every row has converged; or, at
+    a key's first solve, the host-driven ``solve_chunk`` chain. Returns a
+    carry of its own (the driver's buffers serve the next solve)."""
     drv = graph_driver(sde, score_fn, carry, config, max_sync_iters=SYNC_EVERY,
                        max_horizons=-(-config.max_iters // SYNC_EVERY))
+    if drv is None:
+        return solve_chunk(sde, score_fn, carry, max_sync_iters=config.max_iters,
+                           config=config)
     driver_window(drv)
     return copy.deepcopy(drv.carry)
 
@@ -1163,59 +1307,58 @@ class ForwardAdaptiveConfig:
     stratonovich: bool = False  # True (or a state-independent g) → s = 0
 
 
-def _forward_draw(generator: torch.Generator, x: Tensor):
-    """z ~ N(0, I) of x's shape, then s ~ U{−1, +1} per sample (fp32)."""
+@dataclasses.dataclass
+class ForwardCarry:
+    """State of an Algorithm-2 solve between iterations: x, x_prev, the
+    kept (z, s) draw, t and h as ``SolverCarry``'s; done: (B,) bool, t at
+    its end; iterations 0-d int32; generator: a ``SlotStreams`` (the
+    graphed path) or the host-driven path's ``torch.Generator``."""
+
+    x: Tensor
+    x_prev: Tensor
+    t: Tensor
+    h: Tensor
+    z: Tensor
+    s: Tensor
+    nfe: Tensor
+    accepted: Tensor
+    rejected: Tensor
+    iterations: Tensor
+    done: Tensor
+    generator: Any = None
+
+
+def _forward_draw(generator, x: Tensor, offset: int = 0):
+    """(z, s): z ~ N(0, I) of x's shape, then s ~ U{−1, +1} per sample
+    (fp32). From a ``torch.Generator``: z, then s from ``randint``. From a
+    ``SlotStreams``: z is row i's draw at counter + ``offset`` and s the
+    sign of its one-normal draw at counter + ``offset`` + 1 (P1, two
+    launches), the per-row form of the reference's
+    ``jax.random.rademacher``."""
+    if isinstance(generator, SlotStreams):
+        z = generator.draw(x.shape[1:], offset)
+        n = generator.draw((1,), offset + 1)[:, 0]
+        return z, torch.where(n < 0, -1.0, 1.0)
     z = torch.randn(x.shape, generator=generator, dtype=torch.float32, device=x.device)
     s = torch.randint(0, 2, (x.shape[0],), generator=generator, device=x.device)
     return z, (2 * s - 1).to(torch.float32)
 
 
-def adaptive_forward(drift_fn: Callable, diffusion_fn: Callable, x0: Tensor,
-                     t_begin: float, t_end: float,
-                     generator: Optional[torch.Generator] = None, *,
-                     config: ForwardAdaptiveConfig | None = None,
-                     noise_fn: Callable | None = None, device="cuda") -> SolveResult:
-    """Algorithm 2 (paper App. C): the forward-time adaptive solver for a
-    general diffusion dx = f(x, t) dt + g(x, t) dw, x (B, ...) fp32.
+#: counters an Algorithm-2 draw takes from a ``SlotStreams``: z, then s
+FORWARD_DRAWS = 2
 
-    As Algorithm 1 but forward in time; g may depend on x, which the Itô
-    correction s ~ U{−1, +1} per sample (Roberts 2012) handles, unless
-    ``stratonovich`` (s = 0); and the Gaussian z is kept across
-    rejections, so a rejection does not bias the driving noise (only an
-    accepted sample gets a fresh z and s).
 
-    Noise: one (z, s) draw before the loop and one every iteration, from
-    ``generator`` (on ``device``) or from ``noise_fn(x) -> (z, s)``, the
-    seam through which tests pass the reference's draws. Iterations run
-    in groups of ``SYNC_EVERY`` between host syncs, as in ``solve_chunk``;
-    an iteration after every sample finished changes nothing, and
-    ``iterations`` counts those in which a sample was active, which is
-    the reference's count.
-    """
-    dev = resolve_device(device)
-    check_noise_source(generator, noise_fn, dev, "adaptive_forward")
-    cfg = config or ForwardAdaptiveConfig()
-    draw = noise_fn or (lambda x: _forward_draw(generator, x))
-
-    def noise(x):
-        z, s = draw(x)
-        z, s = z.to(device=dev, dtype=torch.float32), s.to(device=dev, dtype=torch.float32)
-        return z, (torch.zeros_like(s) if cfg.stratonovich else s)
-
-    x = x0.to(device=dev, dtype=torch.float32)
-    batch = x.shape[0]
-    t = torch.full((batch,), float(t_begin), dtype=torch.float32, device=dev)
-    h = torch.clamp(torch.full((batch,), cfg.h_init, dtype=torch.float32, device=dev),
-                    max=t_end - t_begin)
+def _forward_body(drift_fn: Callable, diffusion_fn: Callable, t_end: float,
+                  cfg: ForwardAdaptiveConfig, noise: Callable) -> Callable:
+    """One Algorithm-2 iteration, ``body(carry) -> carry``, masked: a sample
+    is active while t < t_end and ``iterations < cfg.max_iters``, and an
+    iteration with no active sample changes no leaf (the stream counters
+    move by ``FORWARD_DRAWS`` only in an iteration with one)."""
     end = t_end - 1e-12
-    z, s = noise(x)
-    x_prev = x
-    zeros = torch.zeros((batch,), dtype=torch.int32, device=dev)
-    nfe, acc, rej = zeros, zeros, zeros
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
 
-    def body(x, x_prev, t, h, z, s, nfe, acc, rej, iters):
-        active = t < end
+    def body(c: ForwardCarry) -> ForwardCarry:
+        x, x_prev, t, h, z, s = c.x, c.x_prev, c.t, c.h, c.z, c.s
+        active = (t < end) & (c.iterations < cfg.max_iters)
         h_c = torch.where(active, torch.minimum(h, t_end - t), 0.0)
         hb, sq, se = bcast(h_c, x), bcast(torch.sqrt(h_c), x), bcast(s, x)
         g1, f1 = diffusion_fn(x, t), drift_fn(x, t)
@@ -1229,26 +1372,109 @@ def adaptive_forward(drift_fn: Callable, diffusion_fn: Callable, x0: Tensor,
         accept = (err <= 1.0) & active
         acc_e = bcast(accept, x)
         t_new = torch.where(accept, t + h_c, t)
-        z_fresh, s_fresh = noise(x)  # drawn every iteration, kept only on accept
+        z_fresh, s_fresh = noise(c.generator, x)  # drawn every iteration, kept only on accept
         remaining = torch.clamp(t_end - t_new, min=0.0)
         h_new = next_step_size(h, err, remaining, safety=cfg.safety,
                                r_exponent=cfg.r_exponent)
-        return (torch.where(acc_e, x_high, x), torch.where(acc_e, x_prime, x_prev),
-                t_new, torch.where(active, h_new, h),
-                torch.where(acc_e, z_fresh, z), torch.where(accept, s_fresh, s),
-                nfe + torch.where(active, 2, 0).to(torch.int32),
-                acc + accept.to(torch.int32),
-                rej + (~accept & active).to(torch.int32),
-                iters + active.any().to(torch.int32))
+        any_active = active.any()
+        gen = c.generator
+        if isinstance(gen, SlotStreams):
+            gen = gen.advanced(any_active.to(torch.int64) * FORWARD_DRAWS)
+        return ForwardCarry(
+            x=torch.where(acc_e, x_high, x), x_prev=torch.where(acc_e, x_prime, x_prev),
+            t=t_new, h=torch.where(active, h_new, h),
+            z=torch.where(acc_e, z_fresh, z), s=torch.where(accept, s_fresh, s),
+            nfe=c.nfe + torch.where(active, 2, 0).to(torch.int32),
+            accepted=c.accepted + accept.to(torch.int32),
+            rejected=c.rejected + (~accept & active).to(torch.int32),
+            iterations=c.iterations + any_active.to(torch.int32),
+            done=~(t_new < end), generator=gen)
 
-    state = (x, x_prev, t, h, z, s, nfe, acc, rej, iters)
-    with torch.no_grad():
+    return body
+
+
+def adaptive_forward(drift_fn: Callable, diffusion_fn: Callable, x0: Tensor,
+                     t_begin: float, t_end: float, generator=None, *,
+                     config: ForwardAdaptiveConfig | None = None,
+                     noise_fn: Callable | None = None, device="cuda") -> SolveResult:
+    """Algorithm 2 (paper App. C): the forward-time adaptive solver for a
+    general diffusion dx = f(x, t) dt + g(x, t) dw, x (B, ...) fp32.
+
+    As Algorithm 1 but forward in time; g may depend on x, which the Itô
+    correction s ~ U{−1, +1} per sample (Roberts 2012) handles, unless
+    ``stratonovich`` (s = 0); and the Gaussian z is kept across
+    rejections, so a rejection does not bias the driving noise (only an
+    accepted sample gets a fresh z and s).
+
+    Noise: one (z, s) draw before the loop and one every iteration, from
+    ``generator`` (a ``torch.Generator`` or a ``SlotStreams`` on
+    ``device``, ``_forward_draw``) or from ``noise_fn(x) -> (z, s)``, the
+    seam through which tests pass the reference's draws. A stream's
+    counter moves by ``FORWARD_DRAWS`` a draw: the first draw is at its
+    counter, and an iteration in which some sample is active moves it on.
+
+    The loop is chosen as Algorithm 1's (``graphable``): with a
+    ``SlotStreams`` and no ``noise_fn`` the solve is one window of a
+    cached driver (``solve_cached``: on the card one WHILE-node launch of
+    ``SYNC_EVERY``-iteration horizons and one host read; a key's first
+    solve host-driven), keyed by ``drift_fn``, ``diffusion_fn``, the
+    config, ``t_end`` and the state's shape. Otherwise iterations run in
+    groups of ``SYNC_EVERY`` between host reads. Either way an iteration
+    after every sample finished changes nothing, the groups are the same,
+    and ``iterations`` counts those in which a sample was active, which
+    is the reference's count: the graphed solve is the host-driven one
+    bit for bit.
+    """
+    dev = resolve_device(device)
+    check_noise_source(generator, noise_fn, dev, "adaptive_forward")
+    cfg = config or ForwardAdaptiveConfig()
+    t_end = float(t_end)
+
+    def noise(gen, x):
+        z, s = noise_fn(x) if noise_fn is not None else _forward_draw(gen, x)
+        z, s = z.to(device=dev, dtype=torch.float32), s.to(device=dev, dtype=torch.float32)
+        return z, (torch.zeros_like(s) if cfg.stratonovich else s)
+
+    x = x0.to(device=dev, dtype=torch.float32)
+    batch = x.shape[0]
+    t = torch.full((batch,), float(t_begin), dtype=torch.float32, device=dev)
+    h = torch.clamp(torch.full((batch,), cfg.h_init, dtype=torch.float32, device=dev),
+                    max=t_end - t_begin)
+    z, s = noise(generator, x)
+    if isinstance(generator, SlotStreams):
+        generator = generator.advanced(FORWARD_DRAWS)
+    zeros = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    carry = ForwardCarry(x=x, x_prev=x, t=t, h=h, z=z, s=s, nfe=zeros, accepted=zeros,
+                         rejected=zeros, iterations=torch.zeros((), dtype=torch.int32,
+                                                                device=dev),
+                         done=~(t < t_end - 1e-12), generator=generator)
+
+    def host(c: ForwardCarry) -> ForwardCarry:
+        body = _forward_body(drift_fn, diffusion_fn, t_end, cfg, noise)
         while True:
-            flags = torch.stack([(state[2] < end).any().to(torch.int32), state[9]])
-            active, n_iters = flags.tolist()
+            active, n_iters = host_read(torch.stack([(~c.done).any().to(torch.int32),
+                                                     c.iterations]))
             if not active or n_iters >= cfg.max_iters:
-                break
+                return c
             for _ in range(min(SYNC_EVERY, cfg.max_iters - n_iters)):
-                state = body(*state)
-    x, _, _, _, _, _, nfe, acc, rej, iters = state
-    return SolveResult(x=x, nfe=nfe, iterations=iters, accepted=acc, rejected=rej)
+                c = body(c)
+
+    def make_horizon(drift, diffusion):
+        body = _forward_body(drift, diffusion, t_end, cfg, noise)
+
+        def run(c: ForwardCarry) -> ForwardCarry:
+            for _ in range(SYNC_EVERY):
+                c = body(c)
+            return c
+
+        return run, body
+
+    with torch.no_grad():
+        if graphable(generator, noise_fn):
+            carry = solve_cached("forward", None, (drift_fn, diffusion_fn), (cfg, t_end),
+                                 carry, make_horizon,
+                                 max_horizons=-(-cfg.max_iters // SYNC_EVERY), host=host)
+        else:
+            carry = host(carry)
+    return SolveResult(x=carry.x, nfe=carry.nfe, iterations=carry.iterations,
+                       accepted=carry.accepted, rejected=carry.rejected)

@@ -12,7 +12,10 @@ noise through it, since JAX's threefry and torch's generators never give
 the same numbers. Solvers that draw nothing ignore it.
 
 ``SlotStreams`` (``core/streams.py``) is the port of the reference's
-(B, 2) per-slot keys, the third form of ``draw_noise``'s generator.
+(B, 2) per-slot keys, the third form of ``draw_noise``'s generator and
+the one ``sample`` hands every solver: a solve whose noise is a
+``SlotStreams`` (or that draws none), with no ``noise_fn`` and no mesh,
+can run as one captured CUDA graph (``adaptive.graphable``).
 """
 
 from __future__ import annotations

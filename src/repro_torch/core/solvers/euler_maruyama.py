@@ -22,6 +22,8 @@ from typing import Callable
 import torch
 
 from repro_torch.core.sde import SDE
+from repro_torch.core.solvers import grid
+from repro_torch.core.solvers.adaptive import graphable
 from repro_torch.core.solvers.base import (
     SolveResult, check_noise_source, draw_noise, fixed_grid_result, fma32,
     local_state, register_solver, tweedie_tail,
@@ -55,30 +57,41 @@ def k5(x: Tensor, score: Tensor, z: Tensor, c0: Tensor, c1: Tensor,
 
 @register_solver("em", nfe_per_iter=1)
 def euler_maruyama(sde: SDE, score_fn: Callable, x_init: Tensor,
-                   generator: torch.Generator | None = None, *,
-                   n_steps: int = 1000, denoise: bool = True,
+                   generator=None, *, n_steps: int = 1000, denoise: bool = True,
                    noise_fn: Callable | None = None,
                    device="cuda", sharding=None) -> SolveResult:
     """``n_steps`` reverse EM steps from T to t_eps on ``device``: one
     score evaluation and one K5 launch per step. Noise: one draw per step,
-    from ``generator`` or ``noise_fn`` (under a mesh the whole batch's,
-    cut to this rank's rows of ``sharding``)."""
+    from ``generator`` (a ``SlotStreams``, the row's stream one counter a
+    step; a ``torch.Generator``; per-slot sources) or ``noise_fn`` (under
+    a mesh the whole batch's, cut to this rank's rows of ``sharding``).
+    With a ``SlotStreams``, no ``noise_fn`` and no mesh the grid runs as
+    one captured CUDA graph (``grid.run_grid``), bitwise the host-driven
+    loop."""
     dev = resolve_device(device)
     check_noise_source(generator, noise_fn, dev, "em")
     x = local_state(x_init, dev, sharding)
     batch = x.shape[0]
-    h = torch.tensor((sde.T - sde.t_eps) / n_steps, dtype=torch.float32, device=dev)
-    sqrt_h = torch.sqrt(h)
-    grid = em_times(sde, n_steps, dev)[:, None].expand(n_steps, batch).contiguous()
-    with torch.no_grad():
-        for i in range(n_steps):
-            t = grid[i]
-            z = draw_noise(generator, noise_fn, x, sharding)
-            score = score_fn(x, t)
+
+    def make_step(score):
+        T, _ = grid.ends(sde)
+
+        def step(c: grid.GridCarry) -> grid.GridCarry:
+            t = grid.em_time(c, T).expand(batch).contiguous()
+            z = draw_noise(c.generator, noise_fn, c.x, sharding)
+            s = score(c.x, t)
             g = sde.diffusion(t)
-            x = k5(x, score, z, 1.0 - h * sde.drift_coeff(t), h * g * g, sqrt_h * g)
-        res = fixed_grid_result(x, n_steps, 1)
+            x = k5(c.x, s, z, 1.0 - c.h * sde.drift_coeff(t), c.h * g * g, c.sqrt_h * g)
+            return grid.advance(c, x, 1)
+
+        return step
+
+    carry = grid.init_grid(sde, x, n_steps, generator, sharding)
+    carry = grid.run_grid("em", sde, score_fn, carry, n_steps, make_step,
+                          graphed=graphable(generator, noise_fn, sharding))
+    with torch.no_grad():
+        res = fixed_grid_result(carry.x, n_steps, 1)
         if denoise:
-            res.x = tweedie_tail(sde, score_fn, x)
+            res.x = tweedie_tail(sde, score_fn, carry.x)
             res.nfe = res.nfe + 1
     return res

@@ -36,6 +36,8 @@ from typing import Callable
 import torch
 
 from repro_torch.core.sde import SDE, VESDE, bcast
+from repro_torch.core.solvers import grid
+from repro_torch.core.solvers.adaptive import graphable
 from repro_torch.core.solvers.base import (
     SolveResult, check_noise_source, draw_noise, fixed_grid_result, fma32,
     local_state, register_solver, tweedie_tail,
@@ -81,8 +83,7 @@ def _pc_nfe_per_iter(corrector_steps: int = 1, corrector: str = "langevin",
 
 @register_solver("pc", nfe_per_iter=_pc_nfe_per_iter)
 def predictor_corrector(sde: SDE, score_fn: Callable, x_init: Tensor,
-                        generator: torch.Generator | None = None, *,
-                        n_steps: int = 1000, corrector_steps: int = 1,
+                        generator=None, *, n_steps: int = 1000, corrector_steps: int = 1,
                         snr: float | None = None, denoise: bool = True,
                         corrector: str = "langevin", hmc_leapfrog: int = 3,
                         noise_fn: Callable | None = None,
@@ -90,7 +91,13 @@ def predictor_corrector(sde: SDE, score_fn: Callable, x_init: Tensor,
     """``n_steps`` grid steps on ``device``, each ``corrector_steps``
     corrector passes then one ancestral predictor step. Under a mesh
     (``sharding``) the rank solves its rows: the draws are the whole
-    batch's cut to them, and the Langevin step size is per row."""
+    batch's cut to them (a ``SlotStreams``: the rank's rows of the
+    streams), and the Langevin step size is per row. A step's draws come
+    from a ``SlotStreams`` at fixed offsets: corrector pass k at the
+    row's counter + k, the predictor at + ``corrector_steps``, and the
+    counter moves on by ``corrector_steps`` + 1. With a ``SlotStreams``,
+    no ``noise_fn`` and no mesh the grid runs as one captured CUDA graph
+    (``grid.run_grid``), bitwise the host-driven loop."""
     dev = resolve_device(device)
     check_noise_source(generator, noise_fn, dev, "pc")
     x = local_state(x_init, dev, sharding)
@@ -98,27 +105,24 @@ def predictor_corrector(sde: SDE, score_fn: Callable, x_init: Tensor,
     is_ve = isinstance(sde, VESDE)
     if snr is None:
         snr = 0.16 if is_ve else 0.01
-    grid = linspace_f32(sde.T, sde.t_eps, n_steps + 1, dev)
-    grid = grid[:, None].expand(n_steps + 1, batch).contiguous()
-    ones = torch.ones((batch,), dtype=torch.float32, device=dev)
-    draw = lambda v: draw_noise(generator, noise_fn, v, sharding)
+    span = sde.T - sde.t_eps
 
-    def step_size(t, z, score):
+    def step_size(t, z, score, nf):
         """snr-derived Langevin step ε = 2 α (r ‖z‖/‖s‖)², shape (B,)."""
-        alpha = torch.ones_like(t) if is_ve else 1.0 - sde.beta(t) / n_steps
+        alpha = torch.ones_like(t) if is_ve else 1.0 - sde.beta(t) / nf
         q = snr * _norm(z) / torch.clamp(_norm(score), min=1e-12)
         return 2.0 * alpha * q ** 2
 
-    def langevin(x, t):
-        z = draw(x)
+    def langevin(score_fn, gen, x, t, nf, k):
+        z = draw_noise(gen, noise_fn, x, sharding, k)
         score = score_fn(x, t)
-        step = step_size(t, z, score)
-        return k5(x, score, z, ones, step, torch.sqrt(2.0 * step))
+        step = step_size(t, z, score, nf)
+        return k5(x, score, z, torch.ones_like(step), step, torch.sqrt(2.0 * step))
 
-    def hmc(x, t):
-        p = draw(x)
+    def hmc(score_fn, gen, x, t, nf, k):
+        p = draw_noise(gen, noise_fn, x, sharding, k)
         score = score_fn(x, t)
-        step = step_size(t, p, score)
+        step = step_size(t, p, score, nf)
         eps = bcast(torch.sqrt(2.0 * step) / hmc_leapfrog, x)
         p = p + 0.5 * eps * score
         for leap in range(hmc_leapfrog):
@@ -132,23 +136,38 @@ def predictor_corrector(sde: SDE, score_fn: Callable, x_init: Tensor,
         raise ValueError(f"unknown corrector {corrector!r}; have {sorted(correctors)}")
     corrector_fn, evals_per_corrector = correctors[corrector]
 
-    with torch.no_grad():
-        for i in range(n_steps):
-            t, t_next = grid[i], grid[i + 1]
-            for _ in range(corrector_steps):
-                x = corrector_fn(x, t)
-            z = draw(x)
-            score = score_fn(x, t)
+    def make_step(score):
+        a, b = grid.ends(sde)
+
+        def step(c: grid.GridCarry) -> grid.GridCarry:
+            i = c.iterations
+            t = grid.linspace_point(c, i, a, b).expand(batch).contiguous()
+            nf = c.n_steps.to(torch.float32)
+            x = c.x
+            for k in range(corrector_steps):
+                x = corrector_fn(score, c.generator, x, t, nf, k)
+            z = draw_noise(c.generator, noise_fn, x, sharding, corrector_steps)
+            s = score(x, t)
             if is_ve:
+                t_next = grid.linspace_point(c, i + 1, a, b).expand(batch)
                 s_t, s_n = sde.sigma(t), sde.sigma(t_next)
                 var = torch.clamp(s_t * s_t - s_n * s_n, min=0.0)
-                x = k5(x, score, z, ones, var, torch.sqrt(var))
+                x = k5(x, s, z, torch.ones_like(var), var, torch.sqrt(var))
             else:
-                beta = sde.beta(t) * (sde.T - sde.t_eps) / n_steps  # discrete β_i
-                x = k5(x, score, z, 2.0 - torch.sqrt(1.0 - beta), beta, torch.sqrt(beta))
-        res = fixed_grid_result(x, n_steps, 1 + corrector_steps * evals_per_corrector)
+                beta = sde.beta(t) * span / nf  # discrete β_i
+                x = k5(x, s, z, 2.0 - torch.sqrt(1.0 - beta), beta, torch.sqrt(beta))
+            return grid.advance(c, x, corrector_steps + 1)
+
+        return step
+
+    carry = grid.init_grid(sde, x, n_steps, generator, sharding)
+    carry = grid.run_grid("pc", sde, score_fn, carry, n_steps, make_step,
+                          static=(corrector, corrector_steps, hmc_leapfrog, snr),
+                          graphed=graphable(generator, noise_fn, sharding))
+    with torch.no_grad():
+        res = fixed_grid_result(carry.x, n_steps, 1 + corrector_steps * evals_per_corrector)
         if denoise:
-            res.x = tweedie_tail(sde, score_fn, x)
+            res.x = tweedie_tail(sde, score_fn, carry.x)
             res.nfe = res.nfe + 1
     return res
 
@@ -161,7 +180,7 @@ def _pc_hmc_nfe_per_iter(corrector_steps: int = 1, hmc_leapfrog: int = 3,
 
 @register_solver("pc_hmc", nfe_per_iter=_pc_hmc_nfe_per_iter)
 def predictor_corrector_hmc(sde: SDE, score_fn: Callable, x_init: Tensor,
-                            generator: torch.Generator | None = None, *,
+                            generator=None, *,
                             n_steps: int = 1000, corrector_steps: int = 1,
                             snr: float | None = None, denoise: bool = True,
                             hmc_leapfrog: int = 3,

@@ -8,13 +8,21 @@ last stage of an accepted step as the next step's first, so an attempt
 costs 6 evaluations after one seeding evaluation.
 
 The reference runs a device-side ``lax.while_loop``. Here the attempts
-run in masked groups of ``SYNC_EVERY`` with one host sync per group, as
-in ``adaptive.solve_chunk``: an attempt made once s has reached the span
-(or the attempt budget is spent) changes nothing, and ``iterations`` and
-``nfe`` count only the attempts made while s < span, so both equal the
-reference's. s and h stay fp32 tensors, and the tableau is kept as the
-reference keeps it (``_C``, ``_B5``, ``_B4`` fp32 arrays, ``_A`` Python
-floats), so the step sizes and accept decisions round as there.
+run in masked groups of ``SYNC_EVERY``: an attempt made once s has
+reached the span (or the attempt budget is spent) changes nothing, and
+``iterations`` and ``nfe`` count only the attempts made while s < span,
+so both equal the reference's. Host-driven, one host read follows each
+group. Graphed (no ``noise_fn``, no mesh; ``adaptive.graphable``), a
+group is the horizon of a cached driver (``adaptive.solve_cached``):
+on the card one WHILE-node launch whose condition (P2) is s < span, at
+most ⌈``max_iters``/``SYNC_EVERY``⌉ horizons, and one host read a
+solve; a key's first solve is host-driven (the one-shot rule). The
+groups and the attempt are the same on both paths, so the graphed solve
+is the host-driven one bit for bit. The tolerances and h_init are the
+carry's buffers, so one graph serves every tolerance. s and h stay fp32
+tensors, and the tableau is kept as the reference keeps it (``_C``,
+``_B5``, ``_B4`` fp32 arrays, ``_A`` Python floats), so the step sizes
+and accept decisions round as there.
 
 The error is the reference's whole-batch RMS of the scaled residual
 (``probability_flow.py:81`` there), summed in two stages: each row's sum
@@ -27,13 +35,14 @@ accept/reject and step size as the unsharded solve.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.sde import SDE
-from repro_torch.core.solvers.adaptive import SYNC_EVERY
+from repro_torch.core.solvers.adaptive import SYNC_EVERY, graphable, host_read, solve_cached
 from repro_torch.core.solvers.base import (
     SolveResult, local_state, register_solver, tweedie_tail,
 )
@@ -57,79 +66,133 @@ _B4 = torch.tensor([5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200,
                     187 / 2100, 1 / 40])
 
 
+@dataclasses.dataclass
+class OdeCarry:
+    """State of the RK45 between attempts: x (B, ...), s = T − t and h
+    (0-d fp32), nfe and iterations (0-d int32), k1 the FSAL stage (x's
+    shape), done (1,) bool (s has reached the span: the driver's
+    condition, one virtual slot), and the per-solve tolerances rtol and
+    atol (0-d fp32 buffers)."""
+
+    x: Tensor
+    s: Tensor
+    h: Tensor
+    nfe: Tensor
+    iterations: Tensor
+    k1: Tensor
+    done: Tensor
+    rtol: Tensor
+    atol: Tensor
+
+
 @register_solver("ode", nfe_per_iter=6)
 def probability_flow_rk45(sde: SDE, score_fn: Callable, x_init: Tensor,
-                          generator: torch.Generator | None = None, *,
-                          rtol: float = 1e-5, atol: float = 1e-5,
+                          generator=None, *, rtol: float = 1e-5, atol: float = 1e-5,
                           h_init: float = 0.01, max_iters: int = 100_000,
                           denoise: bool = True, noise_fn: Callable | None = None,
                           device="cuda", sharding=None) -> SolveResult:
     """Integrate the probability-flow ODE from T to t_eps on ``device``.
-    Deterministic: ``generator`` and ``noise_fn`` are accepted for a
-    uniform API and not used. Under a mesh (``sharding``) the rank
-    integrates its rows with the batch-global error (module docstring)."""
-    del generator, noise_fn
+    Deterministic: ``generator`` is accepted for a uniform API and not
+    used. Under a mesh (``sharding``) the rank integrates its rows with
+    the batch-global error (module docstring). With no ``noise_fn`` and
+    no mesh the attempts run as one captured CUDA graph (module
+    docstring), bitwise the host-driven groups."""
+    del generator
     dev = resolve_device(device)
     x = local_state(x_init, dev, sharding)
     batch = x.shape[0]
     sharded = sharding is not None and not sharding.replicated
     n_total = x_init.numel()
     f32 = dict(dtype=torch.float32, device=dev)
-    C, B5, B4 = (a.to(dev) for a in (_C, _B5, _B4))
-    T = torch.tensor(sde.T, **f32)
     span = sde.T - sde.t_eps
-    span32 = torch.tensor(span, **f32)
-    stop32 = torch.tensor(span - 1e-12, **f32)
 
-    def f(x: Tensor, t: Tensor) -> Tensor:
-        """Reverse-time ODE drift as dx/ds with s = T − t (s runs up)."""
-        tt = t.expand(batch).contiguous()
-        return -sde.ode_drift(x, tt, score_fn(x, tt))
+    # the tableau's fp32 values and the ends as Python floats: each rounds
+    # to the same fp32 scalar in the arithmetic, and a captured attempt
+    # holds no tensor made outside its capture
+    C, B5, B4 = (a.tolist() for a in (_C, _B5, _B4))
+    T, span32, stop32 = (float(torch.tensor(v, dtype=torch.float32))
+                         for v in (sde.T, span, span - 1e-12))
 
-    def global_sum_sq(r: Tensor) -> Tensor:
-        """Σ r² over the whole batch: per row, then over the rows."""
-        rows = torch.sum((r * r).reshape(batch, -1), dim=1)
-        if sharded:
-            full = rows.new_zeros(sharding.batch)
-            full[sharding.rows] = rows
-            dist.all_reduce(full, op=dist.ReduceOp.SUM, group=sharding.mesh.group())
-            rows = full
-        return torch.sum(rows)
+    def make_attempt(score_fn):
 
-    def attempt(x, s, h, nfe, iters, k1):
-        active = (s < stop32) & (iters < max_iters)
-        h = torch.minimum(h, span32 - s)
-        ks = [k1]
-        for i in range(1, 7):
-            xi = x
-            for j, a in enumerate(_A[i]):
-                xi = xi + h * a * ks[j]
-            ks.append(f(xi, T - (s + C[i] * h)))
-        x5 = x4 = x
-        for i in range(7):
-            x5 = x5 + h * B5[i] * ks[i]
-            x4 = x4 + h * B4[i] * ks[i]
-        scale = atol + rtol * torch.maximum(torch.abs(x), torch.abs(x5))
-        err = torch.sqrt(global_sum_sq((x5 - x4) / scale) / n_total)  # global norm
-        accept = (err <= 1.0) & active
-        factor = torch.clamp(0.9 * err ** (-0.2), 0.2, 10.0)
-        step = active.to(torch.int32)
-        return (torch.where(accept, x5, x), torch.where(accept, s + h, s),
-                torch.where(active, h * factor, h), nfe + 6 * step, iters + step,
-                torch.where(accept, ks[6], k1))  # FSAL: k7 is the next k1
+        def f(x: Tensor, t: Tensor) -> Tensor:
+            """Reverse-time ODE drift as dx/ds with s = T − t (s runs up)."""
+            tt = t.expand(batch).contiguous()
+            return -sde.ode_drift(x, tt, score_fn(x, tt))
 
-    with torch.no_grad():
-        state = (x, torch.zeros((), **f32), torch.tensor(h_init, **f32),
-                 torch.ones((), dtype=torch.int32, device=dev),
-                 torch.zeros((), dtype=torch.int32, device=dev), f(x, T))
+        def global_sum_sq(r: Tensor) -> Tensor:
+            """Σ r² over the whole batch: per row, then over the rows."""
+            rows = torch.sum((r * r).reshape(batch, -1), dim=1)
+            if sharded:
+                full = rows.new_zeros(sharding.batch)
+                full[sharding.rows] = rows
+                dist.all_reduce(full, op=dist.ReduceOp.SUM, group=sharding.mesh.group())
+                rows = full
+            return torch.sum(rows)
+
+        def attempt(c: OdeCarry) -> OdeCarry:
+            x, s, k1 = c.x, c.s, c.k1
+            active = (s < stop32) & (c.iterations < max_iters)
+            h = torch.minimum(c.h, span32 - s)
+            ks = [k1]
+            for i in range(1, 7):
+                xi = x
+                for j, a in enumerate(_A[i]):
+                    xi = xi + h * a * ks[j]
+                ks.append(f(xi, T - (s + C[i] * h)))
+            x5 = x4 = x
+            for i in range(7):
+                x5 = x5 + h * B5[i] * ks[i]
+                x4 = x4 + h * B4[i] * ks[i]
+            scale = c.atol + c.rtol * torch.maximum(torch.abs(x), torch.abs(x5))
+            err = torch.sqrt(global_sum_sq((x5 - x4) / scale) / n_total)  # global norm
+            accept = (err <= 1.0) & active
+            factor = torch.clamp(0.9 * err ** (-0.2), 0.2, 10.0)
+            step = active.to(torch.int32)
+            s_new = torch.where(accept, s + h, s)
+            return dataclasses.replace(
+                c, x=torch.where(accept, x5, x), s=s_new, h=torch.where(active, h * factor, h),
+                nfe=c.nfe + 6 * step, iterations=c.iterations + step,
+                k1=torch.where(accept, ks[6], k1),  # FSAL: k7 is the next k1
+                done=~(s_new < stop32).reshape(1))
+
+        return attempt, f
+
+    def host(c: OdeCarry) -> OdeCarry:
+        attempt, _ = make_attempt(score_fn)
         running, done_iters = True, 0
         while running and done_iters < max_iters:
             for _ in range(min(SYNC_EVERY, max_iters - done_iters)):
-                state = attempt(*state)
-            _, s, _, _, iters, _ = state
-            flags = torch.stack([(s < stop32).to(torch.int32), iters]).tolist()
-            running, done_iters = bool(flags[0]), flags[1]  # one host sync
-        x, _, _, nfe, iters, _ = state
+                c = attempt(c)
+            flags = torch.stack([(~c.done).to(torch.int32)[0], c.iterations])
+            running, done_iters = host_read(flags)  # one host sync
+        return c
+
+    def make_horizon(score):
+        attempt, _ = make_attempt(score)
+
+        def run(c: OdeCarry) -> OdeCarry:
+            for _ in range(SYNC_EVERY):
+                c = attempt(c)
+            return c
+
+        return run, attempt
+
+    with torch.no_grad():
+        _, f = make_attempt(score_fn)
+        carry = OdeCarry(
+            x=x, s=torch.zeros((), **f32), h=torch.tensor(h_init, **f32),
+            nfe=torch.ones((), dtype=torch.int32, device=dev),
+            iterations=torch.zeros((), dtype=torch.int32, device=dev),
+            k1=f(x, torch.full((), T, **f32)),
+            done=torch.zeros((1,), dtype=torch.bool, device=dev),
+            rtol=torch.tensor(rtol, **f32), atol=torch.tensor(atol, **f32))
+        if graphable(None, noise_fn, sharding, draws=False):
+            carry = solve_cached("ode", sde, (score_fn,), (max_iters,), carry, make_horizon,
+                                 max_horizons=-(-max_iters // SYNC_EVERY), host=host)
+        else:
+            carry = host(carry)
+        x, nfe, iters = carry.x, carry.nfe, carry.iterations
         if denoise:
             x = tweedie_tail(sde, score_fn, x)
             nfe = nfe + 1

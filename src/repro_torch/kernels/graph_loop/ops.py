@@ -17,7 +17,7 @@ at exit and the horizons run, the one thing the host reads.
 ``horizons + 1`` a driver window. A graph's kernels run where the host
 cannot count them, so ``WhileDriver.account`` charges a window once the
 caller has read its state: P2's executions, and for each wrapper the
-horizon runs (K1/K2, K4, K3, K6, P1) its calls recorded into the horizon
+horizon runs (K1/K2, K4, K5, K3, K6, P1) its calls recorded into the horizon
 at capture (``captured_calls``) times the horizons run. ``windows`` counts
 parent-graph launches.
 Conditional nodes need CUDA 12.3 or later in the toolkit the library was
@@ -77,11 +77,13 @@ def cuda_versions() -> tuple:
 
 def captured_calls() -> dict:
     """{(wrapper module, its launch counter): the calls recorded into CUDA
-    graphs so far}, for the wrappers a captured horizon runs: K1/K2 and K4
-    (the sharded step, ``sharded_launches``), K3, K6 and P1. The
-    difference across a capture is what one replay launches."""
+    graphs so far}, for the wrappers a captured horizon runs: K1/K2, K4
+    (the sharded step, ``sharded_launches``), K5 (``em_launches``, the
+    fixed-grid baselines), K3, K6 and P1. The difference across a capture
+    is what one replay launches."""
     return {(step_ops, "launches"): step_ops.captured,
             (step_ops, "sharded_launches"): step_ops.captured_sharded,
+            (step_ops, "em_launches"): step_ops.captured_em,
             (flash_ops, "launches"): flash_ops.captured,
             (gn_ops, "launches"): gn_ops.captured,
             (philox_ops, "launches"): philox_ops.captured}

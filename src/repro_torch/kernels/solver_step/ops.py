@@ -35,11 +35,11 @@ neither kernel has a backward). ``em_launches``
 counts K5's launches, ``launches`` those of K1/K2, ``sharded_launches``
 those of K4 (the same kernel, launched by ``sharded_error_step``); a
 call of K5 is one kernel launch, and so is a call of K1/K2/K4 up to
-65,535 rows (above that, one launch a range of rows). A K1/K2/K4 call
-made while the stream is captured into a CUDA graph launches nothing:
-it counts in ``captured`` (K4's in ``captured_sharded``), and whoever
-replays the graph charges ``launches`` (``sharded_launches``) with its
-replays (``graph_loop.ops.WhileDriver``).
+65,535 rows (above that, one launch a range of rows). A call made while
+the stream is captured into a CUDA graph launches nothing: it counts in
+``captured`` (K4's in ``captured_sharded``, K5's in ``captured_em``),
+and whoever replays the graph charges ``launches`` (``sharded_launches``,
+``em_launches``) with its replays (``graph_loop.ops.WhileDriver``).
 ``kernel_config``
 fixes K1's tiling (from D alone), its ranges of rows (from B) and its
 load width (from the alignment), ``em_kernel_config`` K5's grid and load
@@ -69,6 +69,8 @@ sharded_launches = 0
 captured = 0
 #: K4 kernels recorded into CUDA graphs under capture (not launched)
 captured_sharded = 0
+#: K5 kernels recorded into CUDA graphs under capture (not launched)
+captured_em = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: rows one K1/K2/K4 launch takes (its rows sit on ``gridDim.y``)
@@ -294,7 +296,7 @@ def _declare(lib):
 
 
 def _launch_em(x, s, z, c0, c1, c2):
-    global em_launches
+    global em_launches, captured_em
     states = (x, s, z)
     refuse_autograd("em_step", *states, c0, c1, c2)
     if not all(a.is_contiguous() for a in states + (c0, c1, c2)):
@@ -314,7 +316,10 @@ def _launch_em(x, s, z, c0, c1, c2):
                                 int(cfg["evict_first"]), _DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"em_step kernel launch failed: CUDA error {rc}")
-    em_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured_em += 1
+    else:
+        em_launches += 1
     return out
 
 

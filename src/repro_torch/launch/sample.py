@@ -10,12 +10,11 @@ counts:
 
   PYTHONPATH=src python -m repro_torch.launch.sample --arch highres_dit --fused --flash
 
-On the card the Algorithm-1 families solve through one captured CUDA
-graph (``core.solvers.adaptive.graph_driver``). The launcher solves once
-a process, so its adaptive wall includes the capture and its warm-up
-iteration: at HIGHRES_DIT that first call is slower than the host-driven
-chain, and the graph pays off only for a caller that solves again at
-the same key (``PERF.md`` §5 has the break-even).
+On the card every solver can run as one captured CUDA graph
+(``core.solvers.adaptive.cached_driver``), but a key's first solve runs
+the host-driven chain (the one-shot rule): the launcher solves once a
+key (each run builds its own score network), so it never captures and
+pays no capture in its wall.
 
 A fresh DiT returns exactly 0 (its adaLN and output projections start at
 zero), so ``--liven-seed`` gives those leaves random values first; the
@@ -73,10 +72,12 @@ import torch
 
 from repro_torch.configs.diffusion import ARCHS
 from repro_torch.core.precision import PRESETS, resolve_policy
-from repro_torch.core.sampling import STREAM_SOLVERS, gather_result, sample
+from repro_torch.core.sampling import gather_result, sample
 from repro_torch.core.sde import VESDE, VPSDE, bcast
 from repro_torch.core.solvers import adaptive as ad
-from repro_torch.core.solvers.adaptive import AdaptiveConfig, capture_horizon, solve_chunk
+from repro_torch.core.solvers.adaptive import (
+    ADAPTIVE_FAMILY, AdaptiveConfig, capture_horizon, solve_chunk,
+)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.solver_step import ops as step_ops
@@ -92,9 +93,6 @@ from repro_torch.parallel.pipeline import pipeline_forward, stage_layers
 from repro_torch.parallel.sharding import ParamSharding, batch_sharding, tree_map_with_path
 
 
-#: the solvers that run Algorithm 1's body and take its configuration (the
-#: ones ``sample`` gives its streams)
-ADAPTIVE_FAMILY = STREAM_SOLVERS
 #: the dry run's meshes: one card, the reference's one- and two-pod meshes
 DRYRUN_MESHES = ("1card", "1pod", "2pod")
 #: the pipelined forward's microbatches in the dry run (the reference's default)

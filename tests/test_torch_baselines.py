@@ -308,10 +308,8 @@ def test_stochastic_solvers_need_a_noise_source(method):
 
 @pytest.mark.parametrize("method", ["adaptive", "em", "pc", "pc_hmc", "ddim", "ode"])
 def test_sample_runs_every_method_from_one_generator(method):
-    """``sample(method=m)`` on the CPU: the prior comes from the seed's
-    per-row streams and every noise draw from those streams (the
-    Algorithm-1 families) or a generator seeded with the seed (the
-    baselines), so the seed fixes the result."""
+    """``sample(method=m)`` on the CPU: the prior and every noise draw come
+    from the seed's per-row streams, so the seed fixes the result."""
     ts = tsde.VPSDE()
     kw = {"adaptive": dict(eps_rel=0.05), "ode": {}}.get(method, dict(n_steps=30))
     runs = [sample(ts, tan.gaussian_score(ts), (8, 5), seed=s, method=method,

@@ -714,8 +714,11 @@ def test_em_step_in_a_cuda_graph_matches_eager(cuda, shape):
         step_ops.em_step(x, s, z, *cs)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    launched, captured = step_ops.em_launches, step_ops.captured_em
     with torch.cuda.graph(graph):
         outs = [step_ops.em_step(x, s, z, *cs) for _ in range(3)]
+    # a call under capture launches nothing: it counts as captured
+    assert (step_ops.em_launches, step_ops.captured_em) == (launched, captured + 3)
     for _ in range(3):
         graph.replay()
         torch.cuda.synchronize()
@@ -962,10 +965,10 @@ def test_dit_training_step_on_card(cuda):
 def test_sample_chunked_on_card_is_the_chunks_bitwise(cuda):
     """The pinned, side-stream copies give each chunk's bits, and launch
     no kernel of their own (K5 once a step, K1 once an iteration). The
-    chunks share one key of the graph cache: the first solve captures it
-    and the rest replay, and a capture's warm-up runs one body iteration
-    eagerly (K1 once), so the captures' rise is taken off each side (EM
-    captures nothing)."""
+    chunks share one key of the graph cache: the first solve runs
+    host-driven, the second captures and the rest replay, and a capture's
+    warm-up runs one iteration eagerly (K1 once; K5 once for EM's one
+    step), so the captures' rise is taken off each side."""
     from repro_torch.core.sampling import chunk_seeds, sample, sample_chunked
     from repro_torch.core.solvers import adaptive as ad
 
@@ -1153,8 +1156,8 @@ def test_graphed_horizon_counts_the_kernels_its_replays_launch(cuda):
     step_ops.launches = ph.launches = 0
     graph = b._device_driver().graph
     assert graph.recorded == {(step_ops, "launches"): 2, (step_ops, "sharded_launches"): 0,
-                              (flash_ops, "launches"): 0, (gn_ops, "launches"): 0,
-                              (ph, "launches"): 2}
+                              (step_ops, "em_launches"): 0, (flash_ops, "launches"): 0,
+                              (gn_ops, "launches"): 0, (ph, "launches"): 2}
     assert (step_ops.launches, ph.launches) == (1, 1)
     b.run_to_completion()
     assert step_ops.launches == 1 + 2 * b.device_horizons
@@ -1270,3 +1273,84 @@ def test_zoo_family_graphed_horizon_bitwise_eager(cuda, family):
         eager = step(None, eager, max_sync_iters=4)
     for a, b in zip(ad._tensor_leaves(graphed), ad._tensor_leaves(eager)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("method,kw,k5", [
+    ("em", dict(n_steps=30), 30), ("pc", dict(n_steps=25), 50),
+    ("pc_hmc", dict(n_steps=25), 25), ("ddim", dict(n_steps=30), 0),
+    ("ode", dict(rtol=1e-3, atol=1e-3), 0)])
+def test_graphed_baselines_on_card_are_the_host_chain(cuda, method, kw, k5):
+    """Three solves at one key on per-row streams: the first runs the
+    host-driven loop and captures nothing, the second captures, the third
+    replays; both graphed solves are the first bit for bit, read the host
+    once, and the replay launches the host chain's K5 count (the second
+    adds one step's warm-up)."""
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.core.solvers.base import SlotStreams
+
+    sde = VPSDE()
+    score = tan.gaussian_score(sde)
+    st = SlotStreams.of(list(range(64)), 1, cuda)
+    x0 = sde.prior_sample((64, 24), SlotStreams.of(list(range(64)), 0, cuda))
+    runs = []
+    for _ in range(3):
+        step_ops.em_launches = 0
+        c0, r0 = ad.captures, ad.host_syncs
+        res = get_solver(method)(sde, score, x0, st, device=cuda, **kw)
+        torch.cuda.synchronize()
+        runs.append((res, ad.captures - c0, ad.host_syncs - r0, step_ops.em_launches))
+    (host, *_), graphed, replay = runs
+    assert [r[1] for r in runs] == [0, 1, 0]
+    assert graphed[2] == replay[2] == 1
+    assert runs[0][3] == replay[3] == k5
+    for res, *_ in (graphed, replay):
+        for f in ("x", "nfe", "iterations"):
+            assert torch.equal(getattr(res, f), getattr(host, f)), f
+
+
+def test_adaptive_forward_graphed_on_card_is_the_host_chain(cuda):
+    """Algorithm 2 on per-row streams with a state-dependent g: the
+    second solve captures, and both graphed solves are the host-driven
+    first bit for bit, one host read each."""
+    from repro_torch.core import ForwardAdaptiveConfig, adaptive_forward
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.core.solvers.base import SlotStreams
+
+    st = SlotStreams.of(list(range(4096)), 0, cuda)
+    f, g = (lambda x, t: 0.05 * x), (lambda x, t: 0.2 * x)
+    cfg = ForwardAdaptiveConfig(eps_abs=1e-3, eps_rel=0.02, h_init=0.1)
+    runs = []
+    for _ in range(3):
+        c0, r0 = ad.captures, ad.host_syncs
+        res = adaptive_forward(f, g, torch.ones(4096, 2, device=cuda), 0.0, 1.0, st,
+                               config=cfg, device=cuda)
+        torch.cuda.synchronize()
+        runs.append((res, ad.captures - c0, ad.host_syncs - r0))
+    assert [r[1] for r in runs] == [0, 1, 0]
+    assert runs[1][2] == runs[2][2] == 1
+    for res, *_ in runs[1:]:
+        for fld in ("x", "nfe", "accepted", "rejected", "iterations"):
+            assert torch.equal(getattr(res, fld), getattr(runs[0][0], fld)), fld
+    assert float(runs[0][0].x.mean()) == pytest.approx(float(np.exp(0.05)), rel=0.02)
+
+
+@pytest.mark.parametrize("method,kw", [("em", dict(n_steps=25)), ("ode", dict(rtol=1e-3)),
+                                       ("adaptive", dict(eps_rel=0.1))])
+def test_captured_driver_holds_no_score_function(cuda, method, kw):
+    """A cached driver's graph holds neither its score function nor the
+    closures around it: once the score is collected its driver goes."""
+    import gc
+
+    from repro_torch.core.sampling import sample
+    from repro_torch.core.solvers import adaptive as ad
+
+    sde = VPSDE()
+    inner = tan.gaussian_score(sde)
+    score = lambda x, t: inner(x, t)
+    n = len(ad._drivers)
+    for _ in range(2):
+        sample(sde, score, (16, 8), seed=0, method=method, device=cuda, **kw)
+    assert len(ad._drivers) == n + 1
+    del score
+    gc.collect()
+    assert len(ad._drivers) == n

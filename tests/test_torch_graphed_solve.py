@@ -6,8 +6,10 @@ at counter 0 and the Algorithm-1 families' noise from the same streams,
 so row i is a solo ``adaptive()`` on row i's stream; the families' solve
 runs through the cached ``HorizonDriver`` (on the CPU its plain loop,
 ``kernels.graph_loop.ref``, over ``solve_chunk``'s groups), bitwise the
-host-driven ``solve_chunk`` chain on the same streams. The card's WHILE
-node and its one host read a solve are gated in ``chip_smoke.py``.
+host-driven ``solve_chunk`` chain on the same streams. Under the one-shot
+rule a key's first solve is that host-driven chain and records the key,
+the second builds the driver, later ones reuse it. The card's WHILE node
+and its one host read a solve are gated in ``chip_smoke.py``.
 """
 
 import dataclasses
@@ -129,10 +131,15 @@ def test_sample_runs_through_the_plain_driver(monkeypatch):
 
     monkeypatch.setattr(loop_ref, "solve_horizons", spy)
     ts = tsde.VPSDE()
-    res = sample(ts, tan.gaussian_score(ts, MU, S0), (4, 3), seed=1, device="cpu",
-                 eps_rel=0.05, max_iters=500)
+    score = tan.gaussian_score(ts, MU, S0)
+    run = lambda: sample(ts, score, (4, 3), seed=1, device="cpu", eps_rel=0.05,
+                         max_iters=500)
+    first = run()  # the key's first solve: the host-driven chain
+    assert calls == []
+    res = run()
     assert calls == [(True, True, -(-500 // ad.SYNC_EVERY))]
     assert int(res.iterations) > ad.SYNC_EVERY
+    _assert_same(first, res)
 
 
 @pytest.mark.parametrize("max_iters", [5, 8, 13])
@@ -141,7 +148,9 @@ def test_sample_stops_at_max_iters_as_the_chain(max_iters):
     stops the graphed solve where the chain stops."""
     ts = tsde.VPSDE()
     score = tan.gaussian_score(ts, MU, S0)
+    sample(ts, score, (4, 3), seed=2, device="cpu", eps_rel=0.05, max_iters=max_iters)
     res = sample(ts, score, (4, 3), seed=2, device="cpu", eps_rel=0.05, max_iters=max_iters)
+    assert len(ad._drivers) == 1
     want, carry = _host_chain(ts, score, (4, 3), 2,
                               ad.AdaptiveConfig(eps_rel=0.05, max_iters=max_iters))
     _assert_same(res, want)
@@ -154,7 +163,9 @@ def test_telemetry_ring_is_the_chains():
     cfg = ad.AdaptiveConfig(eps_rel=0.05, telemetry_capacity=64)
     st = seed_streams(4, 3, "cpu")
     carry = ad.init_carry(ts, ts.prior_sample((3, 2), st), st.advanced(1), config=cfg)
+    ad.solve_graphed(ts, score, carry, config=cfg)  # the first: host-driven
     got = ad.solve_graphed(ts, score, carry, config=cfg)
+    assert len(ad._drivers) == 1
     _, want = _host_chain(ts, score, (3, 2), 4, cfg)
     for f in dataclasses.fields(got.telemetry):
         assert torch.equal(getattr(got.telemetry, f.name), getattr(want.telemetry, f.name)), f
@@ -165,19 +176,25 @@ def test_telemetry_ring_is_the_chains():
 def test_solve_in_chunks_replays_one_chunk_a_sync(horizon):
     ts = tsde.VPSDE()
     score = tan.gaussian_score(ts, MU, S0)
-    seen = []
-    got = solve_in_chunks(ts, score, (5, 3), max_sync_iters=horizon, seed=9, device="cpu",
-                          eps_rel=0.05, on_sync=lambda c: seen.append(int(c.iterations)))
-    _assert_same(got, sample(ts, score, (5, 3), seed=9, device="cpu", eps_rel=0.05))
-    its = int(got.iterations)
-    assert seen == [min(horizon * (k + 1), its) for k in range(-(-its // horizon))]
+    want = sample(ts, score, (5, 3), seed=9, device="cpu", eps_rel=0.05)
+    its = int(want.iterations)
+    for run in range(2):  # the host-driven chain, then the driver's
+        seen = []
+        got = solve_in_chunks(ts, score, (5, 3), max_sync_iters=horizon, seed=9,
+                              device="cpu", eps_rel=0.05,
+                              on_sync=lambda c: seen.append(int(c.iterations)))
+        _assert_same(got, want)
+        assert seen == [min(horizon * (k + 1), its) for k in range(-(-its // horizon))]
+        assert len(ad._drivers) == run
     key = next(iter(ad._drivers))
-    assert key[3:5] == (horizon, 1)
+    assert (key.static[1], key.max_horizons) == (horizon, 1)
 
 
 def test_cache_hit_reuses_the_driver_and_copies_the_new_carry():
     ts = tsde.VPSDE()
     score = tan.gaussian_score(ts, MU, S0)
+    sample(ts, score, (4, 3), seed=1, device="cpu", eps_rel=0.05)
+    assert not ad._drivers  # the key's first solve ran host-driven
     a = sample(ts, score, (4, 3), seed=1, device="cpu", eps_rel=0.05)
     assert len(ad._drivers) == 1
     drv = next(iter(ad._drivers.values()))
@@ -196,12 +213,16 @@ def test_cache_hit_reuses_the_driver_and_copies_the_new_carry():
 def test_cache_key_is_sde_score_config_horizon_and_carry_structure():
     ts, te = tsde.VPSDE(), tsde.VESDE(sigma_max=10.0)
     score = tan.gaussian_score(ts, MU, S0)
-    run = lambda sde=ts, sc=score, shape=(4, 3), **kw: sample(
-        sde, sc, shape, seed=0, device="cpu", **{"eps_rel": 0.3, **kw})
+
+    def run(sde=ts, sc=score, shape=(4, 3), **kw):  # twice: the second builds the driver
+        for _ in range(2):
+            sample(sde, sc, shape, seed=0, device="cpu", **{"eps_rel": 0.3, **kw})
+
     run()
     run()  # the same key: no new driver
+    run(eps_rel=0.2, eps_abs=0.01)  # the tolerances are per-solve values: the same key
     assert len(ad._drivers) == 1
-    run(eps_rel=0.2)  # config
+    run(safety=0.8)  # config
     run(shape=(4, 5))  # state shape
     score_ve, other = tan.gaussian_score(te, MU, S0), tan.gaussian_score(ts, MU, S0)
     run(sde=te, sc=score_ve)  # sde and score
@@ -209,25 +230,28 @@ def test_cache_key_is_sde_score_config_horizon_and_carry_structure():
     run(telemetry_capacity=8)  # carry structure
     assert len(ad._drivers) == 6
     keys = list(ad._drivers)
-    assert all(k[5] is None for k in keys)  # no sharding on the graphed path
-    assert len({k[6] for k in keys}) == 3  # (4, 3), (4, 5), the ring
+    assert all(k.family == "adaptive" and k.static[0].eps_rel is None for k in keys)
+    assert len({k.signature for k in keys}) == 3  # (4, 3), (4, 5), the ring
 
 
 def test_cache_holds_eight_and_evicts_the_least_recently_used():
     ts = tsde.VPSDE()
     score = tan.gaussian_score(ts, MU, S0)
-    run = lambda e: sample(ts, score, (2, 3), seed=0, device="cpu", eps_rel=e)
-    eps = [0.3 + 0.01 * i for i in range(ad.GRAPH_CACHE_SIZE)]
-    for e in eps:
-        run(e)
+    run = lambda th: sample(ts, score, (2, 3), seed=0, device="cpu", eps_rel=0.3, safety=th)
+    thetas = [0.8 + 0.01 * i for i in range(ad.GRAPH_CACHE_SIZE)]
+    for th in thetas:
+        run(th)
+        run(th)  # the key's second solve builds its driver
     first = next(iter(ad._drivers.values()))
-    run(eps[0])  # a hit moves it to the end
+    run(thetas[0])  # a hit moves it to the end
     assert list(ad._drivers.values())[-1] is first
     assert len(ad._drivers) == ad.GRAPH_CACHE_SIZE == 8
-    run(0.9)  # a ninth key evicts the least recently used: eps[1]'s
+    run(0.95)
+    assert len(ad._drivers) == 8  # a ninth key's first solve builds nothing
+    run(0.95)  # its second evicts the least recently used: thetas[1]'s
     assert len(ad._drivers) == 8
-    cfgs = [k[2].eps_rel for k in ad._drivers]
-    assert eps[1] not in cfgs and eps[0] in cfgs and 0.9 in cfgs
+    cfgs = [k.static[0].safety for k in ad._drivers]
+    assert thetas[1] not in cfgs and thetas[0] in cfgs and 0.95 in cfgs
 
 
 def test_dropping_the_score_function_drops_its_drivers():
@@ -235,13 +259,14 @@ def test_dropping_the_score_function_drops_its_drivers():
     drivers (their graphs and pools on the card) go with it."""
     ts = tsde.VPSDE()
     score, kept = tan.gaussian_score(ts, MU, S0), tan.gaussian_score(ts, MU, S0)
-    for sc in (score, kept):
-        sample(ts, sc, (3, 2), seed=0, device="cpu", eps_rel=0.3)
-    sample(ts, score, (3, 4), seed=0, device="cpu", eps_rel=0.3)
-    assert len(ad._drivers) == 3
+    for sc in (score, kept, score):
+        for _ in range(2):
+            sample(ts, sc, (3, 2 if sc is kept else 4), seed=0, device="cpu", eps_rel=0.3)
+    sample(ts, score, (3, 6), seed=0, device="cpu", eps_rel=0.3)  # recorded, no driver
+    assert len(ad._drivers) == 2 and len(ad._seen) == 3
     del score, sc
     gc.collect()
-    assert len(ad._drivers) == 1
+    assert len(ad._drivers) == 1 and len(ad._seen) == 1
     sample(ts, kept, (3, 2), seed=1, device="cpu", eps_rel=0.3)
     assert len(ad._drivers) == 1  # the survivor's driver still hits
 
@@ -259,6 +284,7 @@ def test_bound_method_score_hits_while_its_object_lives():
             return self.fn(x, t)
 
     net = Net()
+    sample(ts, net.score, (3, 2), seed=4, device="cpu", eps_rel=0.3)
     a = sample(ts, net.score, (3, 2), seed=4, device="cpu", eps_rel=0.3)
     drv = next(iter(ad._drivers.values()))
     b = sample(ts, net.score, (3, 2), seed=4, device="cpu", eps_rel=0.3)
@@ -287,6 +313,8 @@ def test_score_object_with_eq_is_keyed_by_identity():
     assert len(ad._drivers) == 1
     _assert_same(first, again)
     sample(ts, twin, (3, 2), seed=1, device="cpu", eps_rel=0.3)
+    assert len(ad._drivers) == 1 and len(ad._seen) == 2  # the twin's first solve
+    sample(ts, twin, (3, 2), seed=1, device="cpu", eps_rel=0.3)
     assert len(ad._drivers) == 2
 
 
@@ -304,7 +332,8 @@ def test_score_without_a_weak_reference_is_solved_uncached():
 
     score = Slotted()
     res = sample(ts, score, (4, 3), seed=2, device="cpu", eps_rel=0.05)
-    assert not ad._drivers
+    res = sample(ts, score, (4, 3), seed=2, device="cpu", eps_rel=0.05)
+    assert not ad._drivers and not ad._seen  # never recorded: always host-driven
     want, _ = _host_chain(ts, score, (4, 3), 2, ad.AdaptiveConfig(eps_rel=0.05))
     _assert_same(res, want)
 
@@ -335,18 +364,24 @@ def test_noise_fn_keeps_the_host_driven_loop(method):
 
 
 def test_fixed_grid_noise_comes_from_a_generator_seeded_seed():
-    """EM's noise: a ``torch.Generator`` seeded ``seed``, after the
-    streams' prior."""
+    """EM's noise: the seed's per-row streams from counter 1, after their
+    prior at counter 0 (every method draws from the streams now; a
+    ``torch.Generator`` reaches a solver only from a caller who passes
+    one)."""
     ts = tsde.VPSDE()
     score = tan.gaussian_score(ts, MU, S0)
     from repro_torch.core.solvers import get_solver
 
     got = sample(ts, score, (3, 4), seed=6, method="em", device="cpu", n_steps=5)
-    x0 = ts.prior_sample((3, 4), seed_streams(6, 3, "cpu"))
-    want = get_solver("em")(ts, score, x0, torch.Generator().manual_seed(6), device="cpu",
-                            n_steps=5)
+    st = seed_streams(6, 3, "cpu")
+    x0 = ts.prior_sample((3, 4), st)
+    want = get_solver("em")(ts, score, x0, st.advanced(1), device="cpu", n_steps=5)
     assert torch.equal(got.x, want.x)
-    assert not ad._drivers
+    other = get_solver("em")(ts, score, x0, torch.Generator().manual_seed(6), device="cpu",
+                             n_steps=5)
+    assert not torch.equal(got.x, other.x)
+    # sample() and the direct call share one key: the second built its driver
+    assert len(ad._drivers) == len(ad._seen) == 1
 
 
 def test_host_syncs_count_the_window_read():
@@ -355,6 +390,9 @@ def test_host_syncs_count_the_window_read():
     cfg = ad.AdaptiveConfig(eps_rel=0.05)
     st = seed_streams(0, 3, "cpu")
     carry = ad.init_carry(ts, ts.prior_sample((3, 2), st), st.advanced(1), config=cfg)
+    before = ad.host_syncs
+    first = ad.solve_graphed(ts, score, carry, config=cfg)  # host-driven: one read a group
+    assert ad.host_syncs - before == -(-int(first.iterations) // ad.SYNC_EVERY) + 1
     before = ad.host_syncs
     out = ad.solve_graphed(ts, score, carry, config=cfg)
     # on the CPU each horizon is a solve_chunk (its entry and its group's
