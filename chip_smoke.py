@@ -262,12 +262,16 @@ Phases; any failure exits non-zero before the result line is printed:
              just before and read just after: one launch per layer), its
              last-position logits against the plain ``ssd_chunked`` path;
              ``launch.serve.serve_batch`` for 4 requests, prompt 16, gen
-             16, whose first tokens must equal ``make_prefill_step``'s on
+             16, called three times at one key (the pooled decode state
+             and step: eager, a capture, a replay; captures 0, 1, 0 and
+             the tokens the same bits; the third call timed), whose first
+             tokens must equal ``make_prefill_step``'s on
              the same prompts (the chunked scan against the recurrence),
              logits close; prefill and decode times, the decode's device
              idle share and K7's share of a prefill's device time
-             (torch.profiler). Every LM phase's ``serve_batch`` decodes
-             through the graphed serve step, and ``decode_gate`` holds it
+             (torch.profiler). Every LM phase's timed ``serve_batch`` call
+             replays the graphed serve step (two warm-up calls at its key
+             before it: eager, then the capture), and ``decode_gate`` holds it
              against its eager step (7, 7b, 7d's deepseek and jamba, 7e's
              llama period and musicgen): tokens and the final decode
              state bitwise, each state in place, one capture; ms a step
@@ -404,15 +408,31 @@ Phases; any failure exits non-zero before the result line is printed:
              model's with its blocks run microbatch by microbatch, K3 48
              launches at world 1 and 24 a rank at world 2, the stage
              handoffs booked; at world 1 an adaptive solve through
-             ``make_sample_step(forward_fn=pipelined)``, finite, converged,
-             within 4 NFE of the unpipelined solve, K1 and K3 launched;
-             and its tensor-parallel forward at mesh 1x1 (bitwise) and 1x2
-             (6 of 12 heads a rank; within 1e-4·(1 + max) of the unsharded
-             forward), K3 12 launches a rank, its collectives by kind, and
-             the same forward counted on meta tensors for that rank
-             (``collectives.counting``) equal to those books. K3 is timed
-             at their shapes, (2, 12, 256, 64) and (8, 6, 256, 64), beside
-             its plain version, SDPA and the 3xTF32 bound.
+             ``make_sample_step(forward_fn=pipelined)`` as ``sample(mesh=)``,
+             finite, converged, within 4 NFE of the unpipelined solve, K4
+             and K3 launched, and graphed (below); and its tensor-parallel
+             forward at mesh 1x1 (bitwise) and 1x2 (6 of 12 heads a rank;
+             within 1e-4·(1 + max) of the unsharded forward), K3 12
+             launches a rank, its collectives by kind, and the same
+             forward counted on meta tensors for that rank
+             (``collectives.counting``) equal to those books, and at world
+             1 a solve through it as check 7's. K3 is timed at their
+             shapes, (2, 12, 256, 64) and (8, 6, 256, 64), beside its plain
+             version, SDPA and the 3xTF32 bound. Check 9 (the graphed
+             sharded solves): HIGHRES_DIT's ``sample(mesh=)`` adaptive at
+             eps_rel 0.05, EM-60, PC-30 and the ODE at rtol 1e-3, each
+             called three times under the one-shot rule. World 1 (NCCL):
+             the first host-driven, the second captures (the flags'
+             all-reduce, the RK45's error sum in the graph), the third
+             replays; each graphed call bitwise the first (x, nfe,
+             accepted, rejected, iterations), drivers built and captures
+             0, 1, 0, at most 2 host reads (the branch's agreement and the
+             window), the replay's K4, K3, K5 and P1 launches the first
+             call's and P2 once a horizon plus one; the walls (host-driven,
+             capturing, replayed) and each call's device span over its
+             wall. Checks 7 and 8's world-1 solves are gated the same way.
+             World 2 (gloo): the adaptive solve twice, host-driven (gloo
+             collectives cannot be captured), its record saying so.
 9. precision — the precision seams in bf16 at full width, after the LM
              phases have freed their memory (< 1 GiB held at its start and
              before each LM): (a) HIGHRES_DIT, batch 8, phase 3's seeded
@@ -468,7 +488,13 @@ Phases; any failure exits non-zero before the result line is printed:
              (b), (c) and (d) every rank's count of the dry run's prefill
              and decode step (``specs.build_dryrun`` on meta tensors for
              its coordinate, ``sharded_selftest.meta_books``) equal to the
-             real run's books, call for call and byte for byte.
+             real run's books, call for call and byte for byte. In (b)
+             each model's serve step under the mesh
+             (``make_serve_step(mesh=)``: a ``GraphedServeStep`` on NCCL)
+             against its eager step over the decode's steps
+             (``sharded_selftest.graphed_decode``): tokens and state
+             bitwise, one capture, a replayed step's books equal to the
+             dry run's meta count, ms a step of each.
              ``--only-lm-mesh`` runs the build and this phase alone and
              prints no result line.
 11. training mesh — LM training under a ("data", "model") mesh (fp32,
@@ -479,7 +505,7 @@ Phases; any failure exits non-zero before the result line is printed:
              mesh: every loss and the final parameters bitwise; (b) world
              2 over gloo, both ranks on this card, one spawn
              (``sharded_selftest --train-plan``, ``train_mesh_plan``):
-             musicgen-medium at 24 layers on 1×2 "tp" and "tp" with remat
+             musicgen-medium at 12 layers on 1×2 "tp" and "tp" with remat
              "full", at 4 layers on 2×1 data parallel, "fsdp" and "zero1",
              3 steps each; gemma3-12b's 6-layer period, mamba2-2.7b's first 8
              layers and deepseek-moe-16b's first 4 one step each at 1×2;
@@ -684,8 +710,10 @@ TRAIN_MESH_ARCH, TRAIN_MESH_STEPS, TRAIN_MESH_SHAPE, TRAIN_MESH_LR = (
 #: a world-2 run is staged through the host by gloo (0.74-0.83 GB/s a rank in
 #: phase 10) and every unsharded record through host memory, so the phase's
 #: wall grows with depth: at 48 and 12 layers it took 157-243 s of the script's
-#: 1200 (whole runs 884-1091 s)
-TRAIN_MESH_TP_LAYERS, TRAIN_MESH_DATA_LAYERS = 24, 4
+#: 1200 (whole runs 884-1091 s), at 24 and 4 120.5 s of a 901 s run (the
+#: 24-layer "tp" runs 27.3 and 12.7 s of it, their unsharded record 7.3 s), so
+#: the "tp" runs are cut to 12 layers to make room for phases 8 and 10's graphs
+TRAIN_MESH_TP_LAYERS, TRAIN_MESH_DATA_LAYERS = 12, 4
 #: phase 11's other mixers at full width, one step at 1×2: (arch, layers); gemma3's
 #: one period of 5 "L" and an "A", mamba2's first 8 "M" layers, deepseek's first 4
 #: ("A" + "E", 64 experts, 32 a rank)
@@ -2199,10 +2227,6 @@ def captured_warmups(c0: int) -> int:
     return ad.captures - c0
 
 
-def tensor_leaves(tree) -> list:
-    return [t for t in torch.utils._pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
-
-
 #: the decode gates' prompt and generated tokens (fewer than the serves':
 #: the eager comparison is the slow side)
 DECODE_GATE_TOKENS = (8, 8)
@@ -2220,7 +2244,7 @@ def decode_gate(label: str, card: str, cfg, params, prompts, dev, cross=None) ->
     each, the profiled device busy time (torch.profiler, which traces the
     kernels of a plain graph's replays) and the idle share against the
     unprofiled wall."""
-    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.launch.serve import greedy_decode, state_tensors
     from repro_torch.launch.steps import GraphedServeStep, make_serve_step
     from repro_torch.models import init_decode_state
 
@@ -2233,16 +2257,17 @@ def decode_gate(label: str, card: str, cfg, params, prompts, dev, cross=None) ->
     runs = {}
     for name, fn in (("graphed", step), ("eager", step.eager)):
         state = init_decode_state(cfg, R, P + gen_len, device=dev)
-        ptrs = [t.data_ptr() for t in tensor_leaves(state)]
+        ptrs = [t.data_ptr() for t in state_tensors(state)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks = greedy_decode(fn, params, prompts, state, gen_len=gen_len, cross_embeds=cross)
         torch.cuda.synchronize()
         runs[name] = (toks, state, time.perf_counter() - t0,
-                      [t.data_ptr() for t in tensor_leaves(state)] == ptrs)
+                      [t.data_ptr() for t in state_tensors(state)] == ptrs)
     (tg, sg, wg, ig), (te, se, we, ie) = runs["graphed"], runs["eager"]
     same_tokens = torch.equal(tg, te)
-    same_state = all(torch.equal(a, b) for a, b in zip(tensor_leaves(sg), tensor_leaves(se)))
+    same_state = bool(state_tensors(sg)) and all(
+        torch.equal(a, b) for a, b in zip(state_tensors(sg), state_tensors(se)))
     extra = {} if cross is None else {"cross_embeds": cross}
 
     def loop(fn, state, n=LM_IDLE_STEPS):
@@ -2722,16 +2747,29 @@ def run_lm(dev) -> dict:
     fp32_logits = fast.cpu()  # phase 9e holds the bf16 prefill against these
     del fast, plain
 
-    # serving: 4 requests, prompt 16, gen 16 (prefill by replay, then greedy)
+    # serving: 4 requests, prompt 16, gen 16 (prefill by replay, then greedy),
+    # three calls at one key: eager, a capture, a replay (the one-shot rule;
+    # the decode state and the step kept across calls)
     B, P, G = LM_SERVE
     sprompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
-    serve_batch(cfg, params, sprompts[:, :2], gen_len=2, device=dev)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    toks = serve_batch(cfg, params, sprompts, gen_len=G, device=dev)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
+    calls = []
+    for _ in range(3):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = serve_batch(cfg, params, sprompts, gen_len=G, device=dev, stats=stats)
+        torch.cuda.synchronize()
+        calls.append((toks, time.perf_counter() - t0, stats))
+    serve_s = calls[2][1]
     step_ms = serve_s / (P + G - 1) * 1e3
+    captures = [c[2]["captures"] for c in calls]
+    same = all(torch.equal(c[0], toks) for c in calls)
+    print(f"  serve_batch three calls at one key: captures {captures} (build "
+          f"{calls[1][2]['build_s']:.3f} s), graphed {[c[2]['graphed'] for c in calls]}, tokens "
+          f"bitwise {same}; walls {', '.join(f'{c[1]:.3f}' for c in calls)} s (eager, capturing, "
+          f"replayed)")
+    if captures != [0, 1, 0] or not same:
+        fail(f"serve_batch across calls: captures {captures}, tokens bitwise {same}")
     first = make_prefill_step(cfg, device=dev)(params, {"tokens": sprompts})
     print(f"  serve_batch {B} requests, prompt {P}, gen {G}: {serve_s:.3f} s, {step_ms:.2f} ms "
           f"per decode step of {B} ({B * 1e3 / step_ms:.1f} tokens/s); tokens finite "
@@ -2760,7 +2798,8 @@ def run_lm(dev) -> dict:
     return {"k7_launches": k7_launches, "k7_cuda_kernels_per_call": k7_kernels / k7_calls,
             "fp32_logits": fp32_logits, "prefill_s": prefill_s,
             "prefill_device_ms": total_us / 1e3, "serve_ms_per_step": step_ms,
-            "decode": decode}
+            "decode": decode, "serve_calls_s": [c[1] for c in calls],
+            "serve_captures": captures}
 
 
 def top2_gap(logits) -> float:
@@ -2907,7 +2946,8 @@ def run_attention_lm(dev, card: str) -> dict:
     # serve_batch: 4 requests, prompt 16, gen 16 (prefill by replay, then greedy)
     R, P, G = GEMMA_SERVE
     sprompts = torch.randint(0, cfg.vocab_size, (R, P), generator=g, device=dev)
-    serve_batch(cfg, params, sprompts[:, :2], gen_len=2, device=dev)  # warm-up
+    for _ in range(2):  # warm-up at the timed call's key: eager, then its capture
+        serve_batch(cfg, params, sprompts[:, :2], gen_len=2, cache_len=P + G, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = serve_batch(cfg, params, sprompts, gen_len=G, device=dev)
@@ -3311,7 +3351,8 @@ def moe_serve(cfg, params, gen, dev, card: str) -> dict:
 
     R, P, G = MOE_SERVE
     prompts = torch.randint(0, cfg.vocab_size, (R, P), generator=gen, device=dev)
-    serve_batch(cfg, params, prompts[:, :2], gen_len=2, device=dev)  # warm-up
+    for _ in range(2):  # warm-up at the timed call's key: eager, then its capture
+        serve_batch(cfg, params, prompts[:, :2], gen_len=2, cache_len=P + G, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = serve_batch(cfg, params, prompts, gen_len=G, device=dev)
@@ -3577,9 +3618,12 @@ def lm_serve(cfg, params, prompts, cross, dev, card: str) -> dict:
     from repro_torch.launch.serve import serve_batch
 
     R, P, G = VLM_AUDIO_SERVE
-    serve_batch(cfg, params, prompts[:, :2], gen_len=2, cross_embeds=cross, device=dev)
-    torch.cuda.synchronize()
     stats = {}
+    for _ in range(2):  # warm-up at the timed call's key: eager, then its capture
+        serve_batch(cfg, params, prompts[:, :2], gen_len=2, cache_len=P + G,
+                    cross_embeds=cross, device=dev, stats=stats)
+    build_s = stats["build_s"]
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = serve_batch(cfg, params, prompts, gen_len=G, cross_embeds=cross, device=dev,
                        stats=stats)
@@ -3590,12 +3634,13 @@ def lm_serve(cfg, params, prompts, cross, dev, card: str) -> dict:
     if tuple(toks.shape) != want or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         fail(f"{cfg.name}: serve_batch gave {tuple(toks.shape)} (want {want}) or tokens out "
              f"of range")
-    print(f"  [{card}] serve_batch {R} requests, prompt {P}, gen {G}: {wall:.3f} s (its capture "
-          f"{stats['build_s']:.3f} s included), {step_ms:.2f} ms per decode step of {R}; first "
-          f"tokens {toks[:, 0].tolist()}")
+    print(f"  [{card}] serve_batch {R} requests, prompt {P}, gen {G}: {wall:.3f} s replayed "
+          f"(graphed {stats['graphed']}, captures {stats['captures']}; the warm-up's capture "
+          f"{build_s:.3f} s), {step_ms:.2f} ms per decode step of {R}; first tokens "
+          f"{toks[:, 0].tolist()}")
     decode = decode_gate(cfg.name if cross is None else f"{cfg.name}'s period", card, cfg,
                          params, prompts, dev, cross=cross)
-    return {"serve_s": wall, "serve_ms_per_step": step_ms, "serve_build_s": stats["build_s"],
+    return {"serve_s": wall, "serve_ms_per_step": step_ms, "serve_build_s": build_s,
             "decode_device_ms_per_step": decode["decode_device_ms_per_step"],
             "decode_idle_share": decode["decode_idle_share"],
             "decode_ops_per_step": decode["decode_ops_per_step"], "decode": decode}
@@ -3851,6 +3896,7 @@ def run_sharded(dev, card: str, main_wall_s: float) -> dict:
           f"measured here.")
     mesh = mesh_serving(runs, card)
     dit_mesh = dit_mesh_checks(runs, card)
+    graphed = graphed_mesh_checks(runs, card)
     dit_mesh["k3"] = k3_mesh_times(dev, gen, card)
 
     # timings, each beside the card's name and power limit
@@ -3886,7 +3932,7 @@ def run_sharded(dev, card: str, main_wall_s: float) -> dict:
           f"sharded {walls(two['sharded_walls_s'])} s")
     return {"launches": launches["sharded_solver_step"], "max_abs_err": err[(torch.float32, 2)],
             "times": t, "all_reduce_9_us": ar["event_us"], "runs": runs, "mesh": mesh,
-            "dit_mesh": dit_mesh}
+            "dit_mesh": dit_mesh, "graphed": graphed}
 
 
 def dit_mesh_checks(runs: dict, card: str) -> dict:
@@ -3924,15 +3970,19 @@ def dit_mesh_checks(runs: dict, card: str) -> dict:
                 fail(f"check 8 at world {world}: out of bound, meta count unequal, or K3 "
                      f"launched {p['k3_launches']} times")
     sol = runs[1]["pipeline"][0]["solve"]
-    print(f"  [{card}] check 7's solve through make_sample_step(forward_fn=pipelined), world 1: "
-          f"{sol['iterations']} iterations, mean NFE {sol['mean_nfe']:.2f} against "
-          f"{sol['unsharded_mean_nfe']:.2f} unpipelined (max diff {sol['max_nfe_diff']}, slack "
-          f"{NFE_SLACK}), converged {sol['converged']}/8, finite {sol['finite']}; K1 "
-          f"{sol['k1_launches']}, K3 {sol['k3_launches']}; {sol['wall_s']:.3f} s against "
-          f"{sol['unsharded_wall_s']:.3f} s")
-    if not (sol["finite"] and sol["converged"] == 8 and sol["max_nfe_diff"] <= NFE_SLACK
-            and sol["k1_launches"] > 0 and sol["k3_launches"] > 0):
-        fail("check 7's pipelined solve missed convergence, finiteness, the NFE slack or a kernel")
+    for check, s in (("7", sol), ("8", runs[1]["tensor_parallel"][0]["solve"])):
+        fwd = "pipelined" if check == "7" else "tensor-parallel"
+        print(f"  [{card}] check {check}'s solve, sample(mesh=) through the {fwd} forward, "
+              f"world 1: {s['iterations']} iterations, mean NFE {s['mean_nfe']:.2f} against "
+              f"{s['unsharded_mean_nfe']:.2f} unsharded (max diff {s['max_nfe_diff']}, slack "
+              f"{NFE_SLACK}), converged {s['converged']}/8, finite {s['finite']}; K4 "
+              f"{s['k4_launches']}, K3 {s['k3_launches']}; unsharded "
+              f"{s['unsharded_wall_s']:.3f} s; "
+              + graphed_text(s["calls"]))
+        if not (s["finite"] and s["converged"] == 8 and s["max_nfe_diff"] <= NFE_SLACK
+                and s["k4_launches"] > 0 and s["k3_launches"] > 0 and s["graphed_ok"]):
+            fail(f"check {check}'s solve missed convergence, finiteness, the NFE slack, a kernel "
+                 f"or the graphed gates (captures 0, 1, 0, bitwise, reads, launches)")
     added = {w: sum(p["seconds"] for p in (runs[w]["pipeline"][0], runs[w]["tensor_parallel"][0]))
              for w in runs}
     print(f"  checks 7 and 8 took {added[1]:.1f} s in the world-1 selftest and {added[2]:.1f} s in "
@@ -3940,8 +3990,44 @@ def dit_mesh_checks(runs: dict, card: str) -> dict:
     return {"pipeline": {w: [p["k3_launches"] for p in runs[w]["pipeline"]] for w in runs},
             "tensor_parallel": {w: [p["k3_launches"] for p in runs[w]["tensor_parallel"]]
                                 for w in runs},
-            "solve": sol, "seconds": added,
+            "solve": sol, "tp_solve": runs[1]["tensor_parallel"][0]["solve"], "seconds": added,
             "books": {w: runs[w]["tensor_parallel"][0]["books"] for w in runs}}
+
+
+def graphed_text(rec: dict) -> str:
+    """One line of a ``sharded_selftest.graphed_calls`` record."""
+    return (f"drivers built {rec['builds']}, captures {rec['captures']}, bitwise the first "
+            f"{rec['bitwise']}, host reads "
+            f"{rec['host_reads']}, walls {', '.join(f'{w:.3f}' for w in rec['walls_s'])} s "
+            f"(host-driven, capturing, replayed), window share (CUDA events) "
+            f"{', '.join('-' if v is None else f'{v:.2f}' for v in rec['window_share'])}; launches "
+            f"host-driven {rec['launches'][0]}, replayed {rec['launches'][-1]}")
+
+
+def graphed_mesh_checks(runs: dict, card: str) -> dict:
+    """Phase 8's check 9, read from both worlds' JSON: every sharded solve
+    graphed on the world-1 NCCL mesh (the selftest's gates: captures 0, 1,
+    0, bitwise the host-driven first call, at most 2 host reads a graphed
+    call, the replay's K4/K3/K5/P1 launches the first call's, P2 once a
+    horizon plus one), and host-driven on the world-2 gloo mesh."""
+    from repro_torch.launch.sharded_selftest import graphed_ok
+
+    one, two = runs[1]["graphed"][0], runs[2]["graphed"]
+    for method in ("adaptive", "em", "pc", "ode"):
+        rec = one[method]
+        print(f"  [{card}] check 9, world 1 (NCCL) {method}: {rec['iterations']} iterations, "
+              f"{rec['horizons']} horizons; " + graphed_text(rec))
+        if not (one["graphed"] and graphed_ok(rec, rec["horizons"])):
+            fail(f"check 9: the graphed {method} under the world-1 NCCL mesh missed a gate")
+    for r, g in enumerate(two):
+        rec = g["adaptive"]
+        print(f"  [{card}] check 9, world 2 (gloo) rank {r}: graphed {g['graphed']} (gloo "
+              f"collectives cannot be captured): adaptive {rec['builds']} drivers built, bitwise "
+              f"{rec['bitwise']}, host reads {rec['host_reads']}, walls "
+              f"{', '.join(f'{w:.3f}' for w in rec['walls_s'])} s")
+        if g["graphed"] or not rec["ok"]:
+            fail("check 9: the world-2 gloo mesh did not stay host-driven")
+    return {"world1": one, "world2": two}
 
 
 def k3_mesh_times(dev, gen, card: str) -> dict:
@@ -4706,7 +4792,8 @@ def bf16_lm(dev, card: str, arch: str, prompts_shape, fp32: dict) -> dict:
 
     R, P, G = LM_SERVE
     sprompts = torch.randint(0, cfg.vocab_size, (R, P), generator=g, device=dev)
-    serve_batch(cfg, params, sprompts[:, :2], gen_len=2, device=dev)  # warm-up
+    for _ in range(2):  # warm-up at the timed call's key: eager, then its capture
+        serve_batch(cfg, params, sprompts[:, :2], gen_len=2, cache_len=P + G, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = serve_batch(cfg, params, sprompts, gen_len=G, device=dev)
@@ -4920,17 +5007,20 @@ def meta_gate(runs: list, world: int, backend: str, what: str) -> float:
     return max(per_rank or [0.0])
 
 
-def lm_mesh_plan(runs, mesh, records: dict, out_dir: str, *, flash: bool = True) -> list:
+def lm_mesh_plan(runs, mesh, records: dict, out_dir: str, *, flash: bool = True,
+                 graphed: bool = False) -> list:
     """The selftest's ``--lm-plan`` for ``runs`` on ``mesh``, each compared
     with its unsharded record and writing rank 0's record; ``flash``
-    keeps the runs' second decode with ``decode_flash_shard="model"``."""
+    keeps the runs' second decode with ``decode_flash_shard="model"``;
+    ``graphed`` adds the serve step under the mesh graphed against its
+    eager step (``sharded_selftest.graphed_decode``)."""
     plan = []
     for arch, layers, prefill, decode, also_flash in runs:
         key = (arch, layers)
         plan.append(dict(arch=arch, layers=layers, mesh=list(mesh), prefill=list(prefill),
                          decode=list(decode), record=records[key],
                          out=os.path.join(out_dir, f"{arch}-{layers}-{mesh[0]}x{mesh[1]}.pt"),
-                         also_flash=flash and also_flash, tol=LM_LOGIT_TOL))
+                         also_flash=flash and also_flash, tol=LM_LOGIT_TOL, graphed=graphed))
     return plan
 
 
@@ -5032,7 +5122,8 @@ def run_lm_mesh(dev, card: str) -> dict:
     held_below_1gib(dev, "the spawns")
 
     one = run_world1(st.run_lm, lm_mesh_plan(LM_MESH_RUNS, (1, 1), records, out_dir,
-                                             flash=False), "LM selftest")
+                                             flash=False, graphed=True), "LM selftest")
+    graphed = {}
     for r in one["lm"]:
         c = r["compare"]
         print(f"  world 1 (NCCL) {r['arch']}: bitwise {c['bitwise']}, prefill err "
@@ -5040,12 +5131,23 @@ def run_lm_mesh(dev, card: str) -> dict:
               f"{c['decode_logits']['max_abs_err']:.3e}, launches {r['ranks'][0]['prefill_counts']}")
         if not c["bitwise"]:
             fail(f"world 1: {r['arch']} under the (1, 1) mesh is not the unsharded record bitwise")
+        g = r["graphed_decode"][0]
+        graphed[r["arch"]] = g
+        print(f"  [{card}] world 1 (NCCL) {r['arch']} serve step under the mesh, graphed "
+              f"{g['graphed']}: tokens bitwise the eager step {g.get('tokens_bitwise')}, state "
+              f"bitwise {g.get('state_bitwise')}, captures {g.get('captures')} (build "
+              f"{g.get('build_s', 0.0):.3f} s), a replay's books = the dry run's meta count "
+              f"{g.get('meta_equal')}; {g.get('graphed_ms_per_step', 0.0):.2f} ms a step graphed, "
+              f"{g.get('eager_ms_per_step', 0.0):.2f} ms eager")
+        if not (g["graphed"] and g["tokens_bitwise"] and g["state_bitwise"]
+                and g["captures"] == 1 and g["meta_equal"]):
+            fail(f"world 1: {r['arch']}'s graphed serve step under the mesh missed a gate")
     meta1 = meta_gate(one["lm"], 1, "nccl", "LM")
     plan2 = (lm_mesh_plan(LM_MESH_RUNS, (1, 2), records, out_dir)
              + lm_mesh_plan((LM_ROWS_RUN,), (2, 1), records, out_dir))
     held_below_1gib(dev, "the world-2 spawn")
     two = run_lm_selftest(2, "gloo", plan2, out_dir)
-    out = {"world1": one, "world2": two, "unsharded": {}}
+    out = {"world1": one, "world2": two, "unsharded": {}, "graphed_decode": graphed}
     for r in two["lm"]:
         arch, key = r["arch"], (r["arch"], r["layers"])
         label = f"world 2 (gloo) {arch} mesh {tuple(r['mesh'])}" + (
@@ -6222,6 +6324,17 @@ def main() -> None:
               f"{busy_text(v['graphed_busy_ms_per_step'])} / "
               f"{v['decode_device_ms_per_step']:.2f}; {v['build_s']:.3f}"
               for k, v in decodes.items()))
+    mesh_solves = {**{m: k4["graphed"]["world1"][m] for m in ("adaptive", "em", "pc", "ode")},
+                   "pipeline": k4["dit_mesh"]["solve"]["calls"],
+                   "tp": k4["dit_mesh"]["tp_solve"]["calls"]}
+    print(f"graphed under a mesh [{card}] (world 1, NCCL; s: host-driven, capturing, "
+          f"replayed; host reads; window share replayed): " + "; ".join(
+              f"{k} {', '.join(f'{w:.3f}' for w in v['walls_s'])}; {v['host_reads']}; "
+              f"{v['window_share'][-1]:.2f}" for k, v in mesh_solves.items()))
+    print(f"graphed decode under a mesh [{card}] (world 1, NCCL; ms a step graphed / eager; "
+          f"build s): " + "; ".join(
+              f"{k} {v['graphed_ms_per_step']:.2f} / {v['eager_ms_per_step']:.2f}; "
+              f"{v['build_s']:.3f}" for k, v in lm_mesh["graphed_decode"].items()))
 
     def device_resident_launches(name):
         """A kernel's launches in phase 6c's device-resident drain."""
@@ -6268,11 +6381,6 @@ def main() -> None:
                                          "(phase 7c), 8·⌈iterations/8⌉",
                           **dlm_rec},
          "ptxas": [r for r in small_ptxas if r["kernel"].startswith("error_step")],
-         "dit_pipeline_solve": {"launched_as": "error_step in every iteration of phase 8's "
-                                               "check 7 solve through the pipelined HIGHRES_DIT "
-                                               "forward (world 1, NCCL)",
-                                "launches": k4["dit_mesh"]["solve"]["k1_launches"],
-                                "iterations": k4["dit_mesh"]["solve"]["iterations"]},
          "precision": {"launched_as": "error_step in every iteration of HIGHRES_DIT's "
                                       "adaptive solve under bf16 (fp32 state) and bf16_full "
                                       "(bf16 state), 8·⌈iterations/8⌉ (phase 9a)",
@@ -6609,6 +6717,22 @@ def main() -> None:
     print("phase seconds: " + "; ".join(f"{name[:48]} {s:.1f}" for name, s in PHASE_SECONDS))
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s to the result lines")
     print(card)
+    # the graphed sharded solves of phase 8 (check 9, checks 7 and 8's solves),
+    # world 1 over NCCL: each kernel's launches in the replayed call
+    graphed_solves = {**{m: k4["graphed"]["world1"][m] for m in ("adaptive", "em", "pc", "ode")},
+                      "pipeline_solve": k4["dit_mesh"]["solve"]["calls"],
+                      "tp_solve": k4["dit_mesh"]["tp_solve"]["calls"]}
+    for entry in kernels:
+        key = {"sharded_solver_step": "K4", "flash_attention": "K3", "em_step": "K5",
+               "philox_normal": "P1", "horizon_cond": "P2"}.get(entry["name"])
+        if key is not None:
+            entry["graphed_mesh"] = {
+                "launched_as": "the replayed call of phase 8's graphed sharded solves of "
+                               "HIGHRES_DIT under sample(mesh=) (world 1, NCCL; checks 7, 8, 9), "
+                               "each the host-driven call's launches",
+                **{name: rec["launches"][-1][key] for name, rec in graphed_solves.items()},
+                "host_driven": {name: rec["launches"][0][key]
+                                for name, rec in graphed_solves.items()}}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

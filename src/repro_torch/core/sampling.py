@@ -33,16 +33,19 @@ later solve at the same key copies its fresh carry into the cached
 driver's captured buffers and launches it, capturing nothing.
 
 Under ``mesh=`` (a ``repro_torch.parallel.Mesh`` over
-``torch.distributed``, DESIGN.md §3) both are data-parallel and
-host-driven (the mesh's loop control is a collective on the host; gloo
-collectives cannot be captured): every rank draws the global prior from
-the same streams, the batch shards over the mesh's data axes
-(``sample_state_shardings``; an indivisible batch replicates), every
-registered solver runs on this rank's rows (the adaptive families on
-the rank's rows of the streams, the fixed-grid baselines with the
-global draws cut to the rank's rows, the ODE with its batch-global
-error all-reduced), and the result holds those rows.
-``gather_result`` assembles the whole batch.
+``torch.distributed``, DESIGN.md §3) both are data-parallel: every rank
+draws the global prior from the same streams, the batch shards over the
+mesh's data axes (``sample_state_shardings``; an indivisible batch
+replicates), every registered solver runs on this rank's rows (the
+adaptive families and the fixed-grid baselines on the rank's rows of
+the streams, the ODE with its batch-global error all-reduced), and the
+result holds those rows. ``gather_result`` assembles the whole batch
+(a host collective after the solve). The solves are graphed through the
+same cache on the card on an NCCL mesh, whose collectives the graph
+captures (the mesh's flags of Algorithm 1's horizon, the RK45's error
+sum), and on the CPU's plain driver under any backend; the ranks agree
+on the one-shot rule's branch before each solve. On the card a gloo
+mesh stays host-driven: gloo collectives cannot be captured.
 """
 
 from __future__ import annotations
@@ -94,8 +97,8 @@ def sample(sde: SDE, score_fn: Callable, shape, *, seed: int = 0,
     The prior is the streams' draw at counter 0 (``seed_streams``) and
     every method's noise comes from the same streams from counter 1
     (module docstring). The solve is graphed unless the solver's
-    keywords hold a ``noise_fn`` or ``mesh`` is given (then
-    host-driven), and a key's first solve is host-driven too (the
+    keywords hold a ``noise_fn`` or ``mesh`` is a gloo mesh on the card
+    (then host-driven), and a key's first solve is host-driven too (the
     one-shot rule).
 
     ``mesh`` shards the batch over the mesh's data axes for every
@@ -143,8 +146,10 @@ def solve_in_chunks(sde: SDE, score_fn: Callable, shape, *, max_sync_iters: int,
     A chunk is one window of the cached driver whose horizon is
     ``max_sync_iters`` iterations (``graph_driver``): on the card one
     replay of a captured graph a sync, captured once a key; on the CPU a
-    ``solve_chunk`` call. With ``noise_fn`` (Python a graph cannot
-    call), ``mesh`` (a collective on the host) or ``chunk_fn`` the chain
+    ``solve_chunk`` call (under ``mesh`` the masked horizon the card
+    captures, ended by the mesh's flags). With ``noise_fn`` (Python a
+    graph cannot call), a gloo ``mesh`` on the card (a collective a graph
+    cannot capture) or ``chunk_fn`` the chain
     is host-driven: ``chunk_fn`` is a prebuilt ``carry -> carry`` chunk
     that replaces the default ``solve_chunk`` call (``max_sync_iters``
     and ``noise_fn`` then belong to it), the reference's seam for a
@@ -159,7 +164,7 @@ def solve_in_chunks(sde: SDE, score_fn: Callable, shape, *, max_sync_iters: int,
     drv = None
     if chunk_fn is None and graphable(carry.generator, noise_fn, sharding):
         drv = graph_driver(sde, score_fn, carry, cfg, max_sync_iters=max_sync_iters,
-                           max_horizons=1)
+                           max_horizons=1, sharding=sharding)
     if drv is not None:
         while cfg.max_iters > 0:
             horizons, active, iters = driver_window(drv)

@@ -60,13 +60,15 @@ no ring and the body records nothing; on, recording reads values the
 body computed anyway, so the solve's bits are the same either way.
 
 The graphed whole solve (the reference's ``lax.while_loop``): given a
-``SlotStreams``, no ``noise_fn`` and no mesh (``graphable``, the one
-rule every solver asks), ``adaptive`` runs its solve through a
+``SlotStreams`` and no ``noise_fn``, and under a mesh on the card an
+NCCL mesh (``graphable``, the one rule every solver asks), ``adaptive``
+runs its solve through a
 ``HorizonDriver`` that ``wait_all`` waits on every row, with one
 ``SYNC_EVERY`` group as its horizon and ⌈``max_iters``/``SYNC_EVERY``⌉
 horizons at most: on the card one WHILE-node graph launch (P2 its
 condition) and one host read a solve, on the CPU the plain driver over
-``solve_chunk``'s groups. The groups are ``solve_chunk``'s and an
+``solve_chunk``'s groups (under a mesh over the masked horizon the card
+captures). The groups are ``solve_chunk``'s and an
 iteration with no active sample changes no leaf, so the result is the
 host-driven chain's bit for bit. The drivers live in one bounded cache
 (``cached_driver``) that every graphed family shares (Algorithm 1's,
@@ -75,12 +77,17 @@ keyed by structure (``GraphKey``), so a repeated solve copies its fresh
 carry, per-solve values included, into the captured buffers and replays
 them. Its one-shot rule: a key's first solve runs the host-driven loop
 and records the key, the second captures, so a process that solves once
-at a key pays no capture.
+at a key pays no capture. Under a mesh the ranks agree on the rule's
+branch before each solve (``agree_branch``), and the horizon of an
+Algorithm-1 family ends in the mesh's flags (``MeshFlags``), as the
+device-resident serve's does; the fixed grids' and the RK45's conditions
+are the same on every rank by construction and need no flags.
 
 ``host_syncs`` counts the solvers' device→host reads (``sync_state``'s,
-the RK45's and Algorithm 2's group reads, and a graphed solve's one read
-a window: ``host_read``), so the serving loop and the tables can report
-the solver's syncs beside their own.
+the RK45's and Algorithm 2's group reads, a graphed solve's one read a
+window, and under a mesh the branch's agreement: ``host_read``), so the
+serving loop and the tables can report the solver's syncs beside their
+own.
 
 Conditioning (DESIGN.md §9): ``AdaptiveConfig.conditioner`` is the
 static half, ``SolverCarry.cond`` the per-sample payload. The score is
@@ -131,7 +138,9 @@ the horizon's graph, inside the WHILE node's body ahead of P2, which
 then reads the agreed flags as a batch of two virtual slots; gloo
 collectives cannot be captured, so a device-resident server on CUDA
 tensors over gloo raises. On the CPU the plain driver all-reduces over
-gloo after every horizon.
+gloo after every horizon. A graphed solve under a mesh (``sample(mesh=)``,
+every solver's ``sharding``) runs through the same flags; on a gloo mesh
+on the card it stays host-driven (``graphable``).
 
 Algorithm 2 (``adaptive_forward``, paper App. C) is at the end: the
 forward-time solver for a general diffusion with x-dependent g, graphed
@@ -180,6 +189,7 @@ from repro_torch.kernels.graph_loop.ref import events_pending  # noqa: F401  (th
 from repro_torch.observability.telemetry import (
     StepTelemetry, init_telemetry, record_step,
 )
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.collectives import all_max
 
 Tensor = torch.Tensor
@@ -711,16 +721,20 @@ def capture_graph(carry, run: Callable, warm: Callable) -> torch.cuda.CUDAGraph:
     buffers (``keep_graph=True``: the raw graph is kept for a parent graph
     to hold, ``kernels.graph_loop``); its last nodes ``copy_`` the new
     leaves into ``carry``'s buffers (``copy_carry_``). Lazy library state
-    (cuBLAS handles, kernel attributes) is made first by ``warm`` on a
-    copy of the carry, on a side stream (one iteration of the loop
-    ``run`` unrolls: its launches are real and counted). ``carry`` must
+    (cuBLAS handles, kernel attributes, NCCL communicators and any
+    subgroup ``collectives.axes_group`` makes) is made first by ``warm``
+    on a copy of the carry, on a side stream (one iteration of the loop
+    ``run`` unrolls: its launches and collectives are real and counted),
+    so that nothing of the kind is made inside the graph. ``carry`` must
     own its buffers (``own_buffers``) and keep them, and ``run`` may read
     no tensor it did not make under the capture besides the carry's (the
     graph keeps neither ``run`` nor what it closes over, so that a cached
     graph holds no score function). ``graph.recorded``
     is {(wrapper module, its launch counter): its kernel calls in the
-    graph} (``graph_loop.ops.captured_calls``): what one replay launches,
-    which the driver charges to the wrappers' launch counts."""
+    graph} (``graph_loop.ops.captured_calls``) and ``graph.books`` its
+    collectives (``collectives.captured_since``): what one replay
+    launches and runs, which the driver charges to the wrappers' launch
+    counts and to the collectives' books."""
     dev = carry.x.device
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.no_grad():
@@ -729,10 +743,11 @@ def capture_graph(carry, run: Callable, warm: Callable) -> torch.cuda.CUDAGraph:
         with torch.cuda.stream(side):
             warm(copy.deepcopy(carry))
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = loop_ops.captured_calls()
+        before, books = loop_ops.captured_calls(), coll.captured_books()
         with torch.cuda.graph(graph):
             copy_carry_(carry, run(carry))
     graph.recorded = {k: n - before[k] for k, n in loop_ops.captured_calls().items()}
+    graph.books = coll.captured_since(books)
     return graph
 
 
@@ -764,15 +779,16 @@ def capture_horizon(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
     if not isinstance(carry.generator, SlotStreams):
         raise ValueError("a captured horizon draws its noise from SlotStreams: a CUDA "
                          "graph cannot call per-slot Python sources or a generator")
-    return capture_graph(carry, *_horizon(sde, score_fn, cfg, sync_horizon, sharding, flags))
+    run, warm = _horizon(sde, score_fn, cfg, sync_horizon, sharding)
+    return capture_graph(carry, run if flags is None else _then_update(run, flags), warm)
 
 
 def _horizon(sde: SDE, score_fn: Callable, cfg: AdaptiveConfig, sync_horizon: int,
-             sharding=None, flags: Optional["MeshFlags"] = None) -> tuple:
+             sharding=None) -> tuple:
     """(run, warm) of ``capture_horizon``: ``run`` copies the carry's
     iterations into its own ``start`` (made under the capture, in the
-    graph's pool) and runs ``sync_horizon`` masked iterations (then
-    ``flags.update``), in place; ``warm`` one body iteration."""
+    graph's pool) and runs ``sync_horizon`` masked iterations, in place;
+    ``warm`` one body iteration."""
     body = _make_body(sde, score_fn, cfg, _eps_abs(sde, cfg), _pick_step_math(cfg, sharding),
                       sharding=sharding)
 
@@ -782,8 +798,6 @@ def _horizon(sde: SDE, score_fn: Callable, cfg: AdaptiveConfig, sync_horizon: in
         for _ in range(int(sync_horizon)):
             out = body(out, limits)
         copy_carry_(c, out)
-        if flags is not None:
-            flags.update(c)
         return c
 
     return run, lambda c: body(c, (c.iterations.clone(), int(sync_horizon)))
@@ -929,9 +943,13 @@ class HorizonDriver:
     def account(self, horizons: int) -> None:
         """On the card, charge a window's kernel launches (``horizons``
         read from its state) to the wrappers' counts
-        (``WhileDriver.account``); the CPU launches nothing."""
+        (``WhileDriver.account``) and the collectives the horizon's
+        capture booked to the books (``collectives.charge``), once a
+        horizon run; the CPU launches nothing and books its calls as it
+        makes them."""
         if self.driver is not None:
             self.driver.account(horizons)
+            coll.charge(self.graph.books, horizons)
 
 
 def solve_horizons(sde: SDE, score_fn: Callable, carry: SolverCarry, occupied: Tensor, *,
@@ -993,7 +1011,9 @@ class GraphKey(NamedTuple):
     ``static`` the family's settings that shape the graph (its config with
     the per-solve values taken out, the horizon), ``max_horizons`` the
     horizons a window may run, ``signature`` the carry's leaf shapes and
-    dtypes (``_signature``)."""
+    dtypes (``_signature``), ``mesh`` the mesh and the rows a rank solves
+    (``_mesh_key``; None unsharded), ``state`` what each function's
+    ``graph_state()`` returned (None for one without it)."""
 
     family: str
     sde: Any
@@ -1001,26 +1021,37 @@ class GraphKey(NamedTuple):
     static: tuple
     max_horizons: int
     signature: tuple
+    mesh: Optional[tuple]
+    state: tuple
 
 
 _drivers: "collections.OrderedDict[GraphKey, HorizonDriver]" = collections.OrderedDict()
 _seen: "collections.OrderedDict[GraphKey, tuple]" = collections.OrderedDict()
 #: horizon graphs the cache's drivers captured since the count was last set to 0
 captures = 0
+#: drivers the cache built since the count was last set to 0 (on the card one
+#: capture each, on the CPU none)
+builds = 0
 
 
 def graphable(generator, noise_fn: Callable | None = None, sharding=None, *,
               draws: bool = True) -> bool:
     """Whether a solve may run graphed (the one rule every solver asks):
-    no ``noise_fn``, no mesh, and, for a solver that ``draws`` noise, a
-    ``SlotStreams``. A ``noise_fn`` or a list of per-slot sources is
-    Python a graph cannot call; a ``torch.Generator``'s Philox offset is
-    set by the host at each launch, so every body iteration inside one
-    WHILE-node launch would draw the same noise; ``sharding`` keeps the
-    mesh's all-reduce on the host (gloo collectives cannot be captured).
-    A deterministic solver (``ddim``, ``ode``: ``draws=False``) needs no
-    streams."""
-    if noise_fn is not None or sharding is not None:
+    no ``noise_fn``; for a solver that ``draws`` noise, a ``SlotStreams``;
+    and under a mesh (``sharding``) on the card, an NCCL mesh. A
+    ``noise_fn`` or a list of per-slot sources is Python a graph cannot
+    call; a ``torch.Generator``'s Philox offset is set by the host at each
+    launch, so every body iteration inside one WHILE-node launch would
+    draw the same noise. A graphed solve under a mesh captures the mesh's
+    collectives (the flags' all-reduce, the RK45's error sum), and gloo
+    collectives cannot be captured: on the card a gloo mesh runs the
+    host-driven loop by this rule, not as a fallback. On the CPU the
+    cached plain driver runs under any backend. A deterministic solver
+    (``ddim``, ``ode``: ``draws=False``) needs no streams."""
+    if noise_fn is not None:
+        return False
+    if (sharding is not None and sharding.mesh.device.type == "cuda"
+            and not mesh_capturable(sharding.mesh.group())):
         return False
     return not draws or isinstance(generator, SlotStreams)
 
@@ -1064,8 +1095,54 @@ def _signature(carry) -> tuple:
     return (str(carry.x.device), None if cond is None else tuple(sorted(cond))) + leaves
 
 
+def _mesh_key(sharding) -> Optional[tuple]:
+    """A sharded solve's mesh in its ``GraphKey``: the mesh's identity
+    (``Mesh.key``) and the rows of ``sharding`` the rank solves; None
+    unsharded."""
+    if sharding is None:
+        return None
+    rows = sharding.rows
+    return sharding.mesh.key() + (sharding.axes, sharding.batch, rows.start, rows.stop)
+
+
+def _graph_state(fns: tuple) -> tuple:
+    """Each function's ``graph_state()`` (the port's score closures carry
+    their net's, ``models.layers.graph_state``), None for one without it."""
+    return tuple(None if getattr(f, "graph_state", None) is None else f.graph_state()
+                 for f in fns)
+
+
+#: the one-shot rule's branches, in the order the mesh's agreement takes
+#: the least: the host-driven loop, a capture, a replay
+HOST, CAPTURE, REPLAY = 0, 1, 2
+
+
+def agree_branch(branch: int, mesh, device) -> int:
+    """The one-shot rule's branch the whole ``mesh`` takes: the
+    least of every rank's ``branch``, by one all-reduce (MAX of its
+    negation, booked as loop control) and one host read (``host_syncs``).
+    A rank's cache can differ from another's (an eviction, a collected
+    function, a cleared cache), and a rank that replays or captures while
+    another runs host-driven would wait in a collective forever."""
+    t = torch.full((1,), -int(branch), dtype=torch.int32, device=device)
+    all_max(t, mesh)
+    return -int(host_read(t)[0])
+
+
+def _then_update(run: Callable, flags: "MeshFlags") -> Callable:
+    """``run`` followed by the mesh's agreement on its flags, in place."""
+
+    def horizon(c):
+        copy_carry_(c, run(c))
+        flags.update(c)
+        return c
+
+    return horizon
+
+
 def cached_driver(family: str, sde, fns: tuple, static: tuple, carry,
-                  make_horizon: Callable, *, max_horizons: int) -> Optional[HorizonDriver]:
+                  make_horizon: Callable, *, max_horizons: int, sharding=None,
+                  flags: Optional[Callable] = None) -> Optional[HorizonDriver]:
     """The cached driver of ``family``'s horizon, at most ``max_horizons`` a
     window, waiting on every row of ``carry.done``, with ``carry`` copied
     into its buffers; None where the solve is to run host-driven.
@@ -1084,39 +1161,66 @@ def cached_driver(family: str, sde, fns: tuple, static: tuple, carry,
     the graph is bitwise the host-driven chain, the result does not
     depend on which solve ran which way.
 
+    Under a mesh (``sharding``: ``carry`` holds this rank's rows) the key
+    holds the mesh (``_mesh_key``), and every rank takes the branch the
+    mesh agrees on (``agree_branch``: the least of host-driven, capture,
+    replay): a rank holding a driver where the mesh agreed to capture
+    drops it and captures again, and where the mesh agreed on the
+    host-driven loop a rank keeps the driver it holds. ``flags(occupied)
+    -> MeshFlags`` makes the mesh's flags of a horizon whose rows can
+    finish at other iterations on other ranks (Algorithm 1's families):
+    the horizon then ends in their all-reduce, captured with it on the
+    card, and the window's condition reads the whole mesh's rows. A
+    family whose condition is the same on every rank by construction
+    (the fixed grids' step, the RK45's s) passes none.
+
     The cache is the reference's ``_chunk_jit``/``_finalize_jit``: at
     most ``GRAPH_CACHE_SIZE`` drivers, least recently used out first,
-    keyed by a ``GraphKey``, each function by identity. A hit copies the
-    fresh carry (prior, per-solve values, stream seeds, payload) into the
-    driver's captured buffers and captures nothing. The records and the
-    drivers hold ``fns`` (a bound method's object) weakly: once one is
-    collected its drivers, their graphs and their pools go with it, so a
-    dropped model leaves nothing on the card. A function that takes no
-    weak reference is never recorded: its solves all run host-driven. A
-    cached graph replays what it captured, so a function whose behaviour
-    follows Python state (a flag on its model, a swapped module) must be
-    a new function, or the cache cleared (``clear_graph_cache``), when
-    that state changes."""
-    global captures
+    keyed by a ``GraphKey``, each function by identity and by the value
+    of its ``graph_state()``, where it has one: the port's score closures
+    carry their net's config, ``training`` flag and every parameter's and
+    buffer's (data_ptr, shape, dtype), so a flipped ``use_flash``, a
+    ``cast_params`` or a parameter bound to a new tensor is a new key,
+    and an in-place optimizer step is not. A hit copies the fresh carry
+    (prior, per-solve values, stream seeds, payload) into the driver's
+    captured buffers and captures nothing. The records and the drivers
+    hold ``fns`` (a bound method's object) weakly: once one is collected
+    its drivers, their graphs and their pools go with it, so a dropped
+    model leaves nothing on the card. A function that takes no weak
+    reference is never recorded: its solves all run host-driven. A cached
+    graph replays what it captured: a function without ``graph_state``
+    whose behaviour follows Python state (a flag on its model, a swapped
+    module) is keyed by its identity alone, so it must be a new function,
+    or the cache cleared (``clear_graph_cache``), when that state
+    changes."""
+    global captures, builds
     anchors = [_anchor(f) for f in fns]
     idents = tuple((id(obj), func) for obj, func in anchors)  # identity: a net may define __eq__
-    key = GraphKey(family, sde, idents, tuple(static), int(max_horizons), _signature(carry))
+    key = GraphKey(family, sde, idents, tuple(static), int(max_horizons), _signature(carry),
+                   _mesh_key(sharding), _graph_state(fns))
     drv = _drivers.get(key)
-    if drv is not None:
-        _drivers.move_to_end(key)
-        copy_carry_(drv.carry, carry)
-        return drv
     try:  # neither the record nor the driver keeps a strong reference to fns
         refs = tuple(weakref.ref(obj, lambda _, ident=ident: _forget(ident))
                      for (obj, _), ident in zip(anchors, idents))
     except TypeError:  # takes no weak reference: never recorded, always host-driven
+        refs = None
+    branch = (REPLAY if drv is not None else
+              CAPTURE if refs is not None and key in _seen else HOST)
+    if sharding is not None:
+        branch = agree_branch(branch, sharding.mesh, carry.x.device)
+    if branch == REPLAY:
+        _drivers.move_to_end(key)
+        copy_carry_(drv.carry, carry)
+        return drv
+    if branch == HOST:
+        if refs is not None and key not in _seen:  # the key's first solve
+            _seen[key] = refs
+            while len(_seen) > SEEN_SIZE:
+                _seen.popitem(last=False)
         return None
-    if key not in _seen:  # the key's first solve
-        _seen[key] = refs
-        while len(_seen) > SEEN_SIZE:
-            _seen.popitem(last=False)
-        return None
-    _seen.move_to_end(key)
+    _drivers.pop(key, None)  # a driver the mesh agreed not to replay
+    if key in _seen:
+        _seen.move_to_end(key)
     funcs = tuple(func for _, func in anchors)
     del anchors, fns  # the unit below must not hold the functions
 
@@ -1124,14 +1228,20 @@ def cached_driver(family: str, sde, fns: tuple, static: tuple, carry,
         return tuple(ref() if func is None else func.__get__(ref())
                      for ref, func in zip(refs, funcs))
 
-    if carry.x.device.type == "cuda":
-        unit = lambda c: capture_graph(c, *make_horizon(*live()))
-    else:
-        unit = lambda c: make_horizon(*live())[0](c)
     occupied = torch.ones(carry.done.shape[0], dtype=torch.bool, device=carry.x.device)
+    mesh_flags = None if flags is None else flags(occupied)
+    if carry.x.device.type == "cuda":
+        def unit(c):
+            run, warm = make_horizon(*live())
+            if mesh_flags is not None:
+                run = _then_update(run, mesh_flags)
+            return capture_graph(c, run, warm)
+    else:  # the plain driver reads the flags after every horizon (``HorizonDriver``)
+        unit = lambda c: make_horizon(*live())[0](c)
     drv = HorizonDriver(copy.deepcopy(carry), occupied, unit, max_horizons=max_horizons,
-                        wait_all=True)
+                        wait_all=True, flags=mesh_flags)
     captures += drv.captures
+    builds += 1
     drv.anchor = refs  # lives as long as the entry: their callbacks drop it
     _drivers[key] = drv
     while len(_drivers) > GRAPH_CACHE_SIZE:
@@ -1156,21 +1266,28 @@ def host_read(flags: Tensor) -> list:
 
 def driver_window(drv: HorizonDriver) -> tuple:
     """One driver window and its one host read: (horizons run, some row
-    still active, iterations), the window's launches charged."""
+    still active, iterations), the window's launches charged. Under a
+    mesh with flags the activity is the whole mesh's (the flags' last
+    agreement), so every rank reads the same."""
     drv.window()
-    vals = host_read(torch.cat([drv.state, sync_flags(drv.carry)]))
+    c = drv.carry
+    active = ((~c.done).any().to(torch.int32).reshape(1) if drv.flags is None
+              else drv.flags.buf[:1])
+    vals = host_read(torch.cat([drv.state, active, c.iterations.reshape(1)]))
     drv.account(vals[1])
     return vals[1], bool(vals[2]), vals[3]
 
 
 def solve_cached(family: str, sde, fns: tuple, static: tuple, carry, make_horizon: Callable,
-                 *, max_horizons: int, host: Callable):
+                 *, max_horizons: int, host: Callable, sharding=None):
     """The whole solve of ``carry`` in one window of the cached driver
     (``cached_driver``), or ``host(carry) -> carry``, the host-driven
     chain, where the one-shot rule says so. Returns a carry of its own
-    (the driver's buffers serve the next solve)."""
+    (the driver's buffers serve the next solve). ``sharding``: the mesh
+    the solve's rows lie on, whose condition is the same on every rank
+    (the fixed grids', the RK45's)."""
     drv = cached_driver(family, sde, fns, static, carry, make_horizon,
-                        max_horizons=max_horizons)
+                        max_horizons=max_horizons, sharding=sharding)
     if drv is None:
         return host(carry)
     driver_window(drv)
@@ -1178,7 +1295,8 @@ def solve_cached(family: str, sde, fns: tuple, static: tuple, carry, make_horizo
 
 
 def graph_driver(sde: SDE, score_fn: Callable, carry: SolverCarry, config: AdaptiveConfig, *,
-                 max_sync_iters: int, max_horizons: int) -> Optional[HorizonDriver]:
+                 max_sync_iters: int, max_horizons: int,
+                 sharding=None) -> Optional[HorizonDriver]:
     """Algorithm 1's cached driver (``cached_driver``): ``max_sync_iters``
     iterations a horizon (on the card ``capture_horizon``, on the CPU
     ``solve_chunk``), at most ``max_horizons`` a window, or None where
@@ -1187,7 +1305,15 @@ def graph_driver(sde: SDE, score_fn: Callable, carry: SolverCarry, config: Adapt
     the carry as its per-sample ``rtol``/``atol`` leaves (where the
     caller set none), which the body reads in place of the config's and
     which round as the config's floats do, so solves that differ only in
-    their tolerances share a driver."""
+    their tolerances share a driver.
+
+    Under a mesh (``sharding``, the carry this rank's rows) the horizon is
+    the masked ``max_sync_iters`` iterations on both devices, ended by
+    the mesh's flags (``MeshFlags``: the all-reduce of [a row running,
+    iterations] and a lagging rank's catch-up), which the host-driven
+    chain makes after each group of ``SYNC_EVERY``: an iteration with no
+    active row changes nothing and the catch-up of a lag is the sum of
+    its parts, so the window is the chain bit for bit."""
     if carry.atol is None:
         carry = dataclasses.replace(
             carry, atol=_per_sample(_eps_abs(sde, config), carry.batch, carry.x.device),
@@ -1197,28 +1323,33 @@ def graph_driver(sde: SDE, score_fn: Callable, carry: SolverCarry, config: Adapt
     dev = carry.x.device
 
     def make_horizon(score):
-        if dev.type != "cuda":
+        if dev.type != "cuda" and sharding is None:
             run = lambda c: solve_chunk(sde, score, c, max_sync_iters=max_sync_iters,
                                         config=config)
             return run, None
-        return _horizon(sde, score, config, max_sync_iters)
+        return _horizon(sde, score, config, max_sync_iters, sharding)
 
+    flags = None
+    if sharding is not None:
+        flags = lambda occupied: MeshFlags(sharding, occupied, horizon=max_sync_iters,
+                                           draws=draws_per_iteration(config))
     return cached_driver("adaptive", sde, (score_fn,), static, carry, make_horizon,
-                         max_horizons=max_horizons)
+                         max_horizons=max_horizons, sharding=sharding, flags=flags)
 
 
 def solve_graphed(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
-                  config: AdaptiveConfig) -> SolverCarry:
+                  config: AdaptiveConfig, sharding=None) -> SolverCarry:
     """The whole solve of ``carry`` (its noise a ``SlotStreams``): one window
     of the cached driver, ``SYNC_EVERY``-iteration horizons, at most
-    ⌈``max_iters``/``SYNC_EVERY``⌉, until every row has converged; or, at
-    a key's first solve, the host-driven ``solve_chunk`` chain. Returns a
-    carry of its own (the driver's buffers serve the next solve)."""
+    ⌈``max_iters``/``SYNC_EVERY``⌉, until every row (under a mesh, every
+    rank's) has converged; or, at a key's first solve, the host-driven
+    ``solve_chunk`` chain. Returns a carry of its own (the driver's
+    buffers serve the next solve)."""
     drv = graph_driver(sde, score_fn, carry, config, max_sync_iters=SYNC_EVERY,
-                       max_horizons=-(-config.max_iters // SYNC_EVERY))
+                       max_horizons=-(-config.max_iters // SYNC_EVERY), sharding=sharding)
     if drv is None:
         return solve_chunk(sde, score_fn, carry, max_sync_iters=config.max_iters,
-                           config=config)
+                           config=config, sharding=sharding)
     driver_window(drv)
     return copy.deepcopy(drv.carry)
 
@@ -1264,14 +1395,15 @@ def adaptive(sde: SDE, score_fn: Callable, x_init: Tensor,
     the noise draws unless ``noise_fn`` is given.
 
     The loop the solve runs is chosen by the noise source and the mesh
-    (``graphable``). A ``SlotStreams`` generator without ``noise_fn`` and
-    ``sharding`` is the graphed solve (module docstring): on the card one
-    WHILE-node launch of the cached driver (``graph_driver``) and one
-    host read, bitwise the host-driven chain on the same streams. The
-    other sources stay on ``solve_chunk``'s host-driven groups, one host
-    read a group. ``cond`` is the payload of ``cfg.conditioner`` (DESIGN.md §9). ``atol``/``rtol``/
-    ``h0`` install per-sample tolerances and initial steps (DESIGN.md
-    §14). ``sharding`` (a batch ``RowSharding`` of a mesh, normally from
+    (``graphable``). A ``SlotStreams`` generator without ``noise_fn`` is
+    the graphed solve (module docstring): on the card one WHILE-node
+    launch of the cached driver (``graph_driver``) and one host read
+    (under a mesh two: the branch's agreement and the window), bitwise
+    the host-driven chain on the same streams. The other sources, and a
+    gloo mesh on the card, stay on ``solve_chunk``'s host-driven groups,
+    one host read a group. ``cond`` is the payload of
+    ``cfg.conditioner`` (DESIGN.md §9). ``atol``/``rtol``/``h0`` install
+    per-sample tolerances and initial steps (DESIGN.md §14). ``sharding`` (a batch ``RowSharding`` of a mesh, normally from
     ``sample(mesh=)``) makes the solve data-parallel: the arguments are
     global, and the result holds this rank's rows, with the global
     ``iterations`` (see the module docstring for when it is bitwise the
@@ -1283,7 +1415,7 @@ def adaptive(sde: SDE, score_fn: Callable, x_init: Tensor,
     carry = init_carry(sde, x_init.to(dev), generator, config=cfg, cond=cond,
                        atol=atol, rtol=rtol, h0=h0, sharding=sharding)
     if graphable(generator, noise_fn, sharding):
-        carry = solve_graphed(sde, score_fn, carry, config=cfg)
+        carry = solve_graphed(sde, score_fn, carry, config=cfg, sharding=sharding)
     else:
         carry = solve_chunk(sde, score_fn, carry, max_sync_iters=cfg.max_iters,
                             config=cfg, noise_fn=noise_fn, sharding=sharding)

@@ -38,8 +38,9 @@ def ddim(sde: VPSDE, score_fn: Callable, x_init: Tensor, generator=None, *,
     """``n_steps`` deterministic DDIM steps on ``device``; draws nothing
     (``generator`` and ``noise_fn`` are accepted for a uniform API).
     Under a mesh (``sharding``) the rank steps its rows. With no
-    ``noise_fn`` and no mesh the grid runs as one captured CUDA graph
-    (``grid.run_grid``), bitwise the host-driven loop."""
+    ``noise_fn`` (under a mesh on the card, an NCCL mesh: ``graphable``)
+    the grid runs as one captured CUDA graph (``grid.run_grid``), bitwise
+    the host-driven loop."""
     if not isinstance(sde, VPSDE):
         raise TypeError("DDIM is defined only for VP diffusions (paper Sec. 4)")
     del eta
@@ -70,7 +71,8 @@ def ddim(sde: VPSDE, score_fn: Callable, x_init: Tensor, generator=None, *,
 
     carry = grid.init_grid(sde, x, n_steps)
     carry = grid.run_grid("ddim", sde, score_fn, carry, n_steps, make_step,
-                          graphed=graphable(generator, noise_fn, sharding, draws=False))
+                          graphed=graphable(generator, noise_fn, sharding, draws=False),
+                          sharding=sharding)
     with torch.no_grad():
         res = fixed_grid_result(carry.x, n_steps, 1)
         if denoise:

@@ -65,9 +65,9 @@ def euler_maruyama(sde: SDE, score_fn: Callable, x_init: Tensor,
     from ``generator`` (a ``SlotStreams``, the row's stream one counter a
     step; a ``torch.Generator``; per-slot sources) or ``noise_fn`` (under
     a mesh the whole batch's, cut to this rank's rows of ``sharding``).
-    With a ``SlotStreams``, no ``noise_fn`` and no mesh the grid runs as
-    one captured CUDA graph (``grid.run_grid``), bitwise the host-driven
-    loop."""
+    With a ``SlotStreams`` and no ``noise_fn`` (under a mesh on the card,
+    an NCCL mesh: ``graphable``) the grid runs as one captured CUDA graph
+    (``grid.run_grid``), bitwise the host-driven loop."""
     dev = resolve_device(device)
     check_noise_source(generator, noise_fn, dev, "em")
     x = local_state(x_init, dev, sharding)
@@ -88,7 +88,7 @@ def euler_maruyama(sde: SDE, score_fn: Callable, x_init: Tensor,
 
     carry = grid.init_grid(sde, x, n_steps, generator, sharding)
     carry = grid.run_grid("em", sde, score_fn, carry, n_steps, make_step,
-                          graphed=graphable(generator, noise_fn, sharding))
+                          graphed=graphable(generator, noise_fn, sharding), sharding=sharding)
     with torch.no_grad():
         res = fixed_grid_result(carry.x, n_steps, 1)
         if denoise:

@@ -11,8 +11,9 @@ double to fp32 (``euler_maruyama.em_times``), and the linspace point
 reference's grid.
 
 ``run_grid`` picks the loop. Host-driven: ``n_steps`` calls of the step
-and no host read. Graphed (``adaptive.graphable``: no ``noise_fn``, no
-mesh, and the noise a ``SlotStreams`` for a solver that draws): one
+and no host read. Graphed (``adaptive.graphable``: no ``noise_fn``, the
+noise a ``SlotStreams`` for a solver that draws, and under a mesh on the
+card an NCCL mesh): one
 window of the cached driver (``adaptive.solve_cached``), whose horizon is
 one step and whose condition (P2 on the card) is ``step < n_steps``, so
 no step past the grid runs a score evaluation and the window launches
@@ -20,6 +21,13 @@ exactly the host-driven run's kernels; one host read a solve. A key's
 first solve is host-driven (the one-shot rule). The step is the same
 function on both paths, so the graphed solve is the host-driven one bit
 for bit.
+
+Under a mesh (``sharding``) each rank steps its rows, and the step
+counter, hence the condition, is the same on every rank by construction:
+the window needs no flags, and a step adds no collective to the books
+(a draw comes from the rank's rows of the streams). Before each solve
+the ranks agree on the one-shot rule's branch
+(``adaptive.agree_branch``), one all-reduce and one host read.
 """
 
 from __future__ import annotations
@@ -121,12 +129,13 @@ def advance(c: GridCarry, x: Tensor, draws: int) -> GridCarry:
 
 
 def run_grid(family: str, sde: SDE, score_fn: Callable, carry: GridCarry, n_steps: int,
-             make_step: Callable, *, static: tuple = (), graphed: bool) -> GridCarry:
+             make_step: Callable, *, static: tuple = (), graphed: bool,
+             sharding=None) -> GridCarry:
     """``n_steps`` steps of ``make_step(score_fn)``, a ``GridCarry -> GridCarry``
     step, from ``carry``: host-driven, or with ``graphed`` one window of the
     cached driver keyed by ``family``, ``sde``, ``score_fn``, ``static``
-    (the solver's settings that shape the step) and the carry's
-    structure (module docstring)."""
+    (the solver's settings that shape the step), the carry's structure
+    and the mesh of ``sharding`` (module docstring)."""
 
     def host(c: GridCarry) -> GridCarry:
         step = make_step(score_fn)
@@ -143,4 +152,4 @@ def run_grid(family: str, sde: SDE, score_fn: Callable, carry: GridCarry, n_step
             return step, step  # one step a horizon; the warm-up is a step
 
         return ad.solve_cached(family, sde, (score_fn,), static, carry, make_horizon,
-                               max_horizons=ad.UNBOUNDED, host=host)
+                               max_horizons=ad.UNBOUNDED, host=host, sharding=sharding)

@@ -95,8 +95,9 @@ def predictor_corrector(sde: SDE, score_fn: Callable, x_init: Tensor,
     streams), and the Langevin step size is per row. A step's draws come
     from a ``SlotStreams`` at fixed offsets: corrector pass k at the
     row's counter + k, the predictor at + ``corrector_steps``, and the
-    counter moves on by ``corrector_steps`` + 1. With a ``SlotStreams``,
-    no ``noise_fn`` and no mesh the grid runs as one captured CUDA graph
+    counter moves on by ``corrector_steps`` + 1. With a ``SlotStreams``
+    and no ``noise_fn`` (under a mesh on the card, an NCCL mesh:
+    ``graphable``) the grid runs as one captured CUDA graph
     (``grid.run_grid``), bitwise the host-driven loop."""
     dev = resolve_device(device)
     check_noise_source(generator, noise_fn, dev, "pc")
@@ -163,7 +164,7 @@ def predictor_corrector(sde: SDE, score_fn: Callable, x_init: Tensor,
     carry = grid.init_grid(sde, x, n_steps, generator, sharding)
     carry = grid.run_grid("pc", sde, score_fn, carry, n_steps, make_step,
                           static=(corrector, corrector_steps, hmc_leapfrog, snr),
-                          graphed=graphable(generator, noise_fn, sharding))
+                          graphed=graphable(generator, noise_fn, sharding), sharding=sharding)
     with torch.no_grad():
         res = fixed_grid_result(carry.x, n_steps, 1 + corrector_steps * evals_per_corrector)
         if denoise:

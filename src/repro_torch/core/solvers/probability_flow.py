@@ -12,8 +12,9 @@ run in masked groups of ``SYNC_EVERY``: an attempt made once s has
 reached the span (or the attempt budget is spent) changes nothing, and
 ``iterations`` and ``nfe`` count only the attempts made while s < span,
 so both equal the reference's. Host-driven, one host read follows each
-group. Graphed (no ``noise_fn``, no mesh; ``adaptive.graphable``), a
-group is the horizon of a cached driver (``adaptive.solve_cached``):
+group. Graphed (no ``noise_fn``, and under a mesh on the card an NCCL
+mesh; ``adaptive.graphable``), a group is the horizon of a cached
+driver (``adaptive.solve_cached``):
 on the card one WHILE-node launch whose condition (P2) is s < span, at
 most ⌈``max_iters``/``SYNC_EVERY``⌉ horizons, and one host read a
 solve; a key's first solve is host-driven (the one-shot rule). The
@@ -30,7 +31,10 @@ of squares, then the (B,) row sums. Under a mesh (``sharding``) each rank
 holds its rows' sums in a zero-filled (B,) vector, and one
 ``all_reduce(SUM)`` of that vector (adding zeros is exact) gives every
 rank the unsharded row sums bit for bit, so every rank takes the same
-accept/reject and step size as the unsharded solve.
+accept/reject and step size as the unsharded solve. s, and with it the
+graphed window's condition, is then the same on every rank by
+construction (no flags); on NCCL the all-reduce is captured with the
+attempt, one an attempt as on the host-driven path.
 """
 
 from __future__ import annotations
@@ -94,9 +98,10 @@ def probability_flow_rk45(sde: SDE, score_fn: Callable, x_init: Tensor,
     """Integrate the probability-flow ODE from T to t_eps on ``device``.
     Deterministic: ``generator`` is accepted for a uniform API and not
     used. Under a mesh (``sharding``) the rank integrates its rows with
-    the batch-global error (module docstring). With no ``noise_fn`` and
-    no mesh the attempts run as one captured CUDA graph (module
-    docstring), bitwise the host-driven groups."""
+    the batch-global error (module docstring). With no ``noise_fn``
+    (under a mesh on the card, an NCCL mesh: ``graphable``) the attempts
+    run as one captured CUDA graph (module docstring), bitwise the
+    host-driven groups."""
     del generator
     dev = resolve_device(device)
     x = local_state(x_init, dev, sharding)
@@ -189,7 +194,8 @@ def probability_flow_rk45(sde: SDE, score_fn: Callable, x_init: Tensor,
             rtol=torch.tensor(rtol, **f32), atol=torch.tensor(atol, **f32))
         if graphable(None, noise_fn, sharding, draws=False):
             carry = solve_cached("ode", sde, (score_fn,), (max_iters,), carry, make_horizon,
-                                 max_horizons=-(-max_iters // SYNC_EVERY), host=host)
+                                 max_horizons=-(-max_iters // SYNC_EVERY), host=host,
+                                 sharding=sharding)
         else:
             carry = host(carry)
         x, nfe, iters = carry.x, carry.nfe, carry.iterations

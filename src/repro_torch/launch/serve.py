@@ -61,11 +61,13 @@ counterpart: a rank is a process.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
 import pathlib
 import time
+import weakref
 from typing import Callable
 
 import torch
@@ -73,9 +75,11 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.precision import PRESETS
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import make_serve_step
+from repro_torch.core.solvers.adaptive import CAPTURE, HOST, REPLAY, agree_branch
+from repro_torch.launch.steps import GraphedServeStep, make_serve_step
 from repro_torch.models import init_decode_state, init_model
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.tree import leaves
 
 Tensor = torch.Tensor
 
@@ -90,26 +94,115 @@ def serve_batch(cfg: ModelConfig, params, prompts: Tensor, *, gen_len: int = 32,
     most its window). ``cross_embeds`` (B, num_patches, vision_dim) feed
     every step's cross-attention layers.
 
-    On the card every step replays one CUDA graph of the serve step,
-    captured at the call's first step (``launch.steps.GraphedServeStep``);
-    ``stats`` (a dict) then receives its ``captures`` and ``build_s``.
+    Calls keep their decode state and serve step across calls
+    (``_pooled``): a pool of ``SERVE_POOL_SIZE`` entries, least recently
+    used out first, keyed by (cfg, B, cache length, device, mesh, the
+    parameters' leaves), each state reset in place before a call
+    (``reset_decode_state_``: bitwise ``init_decode_state``'s values). On
+    the card (under a mesh, an NCCL mesh) the step is a
+    ``launch.steps.GraphedServeStep`` under the solvers' one-shot rule:
+    a key's first call decodes with the eager step, its second captures
+    the step once, later calls replay it. Under a mesh the ranks agree on
+    that branch first (``adaptive.agree_branch``). ``stats`` (a dict)
+    receives the call's ``captures``, ``build_s`` and ``graphed`` (the
+    steps ran as graph replays). An entry holds each parameter leaf
+    weakly and goes when one is collected: a model its caller dropped
+    leaves nothing on the card, and no graph replays over freed weights.
 
     ``mesh``: a collective (every rank calls it with the same prompts);
     ``params`` is the rank's shard, the decode state is laid out by
     ``init_decode_state(mesh=)``, and every rank returns every row's
     tokens: the reference's ``serve_batch`` under an ambient mesh with
-    parameters placed by ``param_shardings``, made explicit. Its steps
-    are eager (``make_serve_step``)."""
+    parameters placed by ``param_shardings``, made explicit."""
     dev = resolve_device(device if mesh is None else mesh.device)
     B, P = prompts.shape[:2]
-    state = init_decode_state(cfg, B, cache_len or (P + gen_len), device=dev, mesh=mesh)
-    step = make_serve_step(cfg, device=dev, mesh=mesh)
-    toks = greedy_decode(step, params, prompts.to(dev), state, gen_len=gen_len,
+    entry, fresh = _pooled(cfg, params, B, cache_len or (P + gen_len), dev, mesh)
+    if not fresh:
+        reset_decode_state_(entry.state)
+    step = entry.step
+    graphed = isinstance(step, GraphedServeStep)
+    branch = HOST
+    if graphed:
+        branch = HOST if fresh else REPLAY if step.captures else CAPTURE
+        if mesh is not None:
+            branch = agree_branch(branch, mesh, dev)
+        if branch == CAPTURE:
+            step.reset()  # a rank that holds a graph the mesh agreed not to replay
+    captures, build_s = getattr(step, "captures", 0), getattr(step, "build_s", 0.0)
+    toks = greedy_decode(step.eager if branch == HOST and graphed else step, params,
+                         prompts.to(dev), entry.state, gen_len=gen_len,
                          cross_embeds=None if cross_embeds is None else cross_embeds.to(dev))
     if stats is not None:
-        stats.update(captures=getattr(step, "captures", 0),
-                     build_s=getattr(step, "build_s", 0.0))
+        stats.update(captures=getattr(step, "captures", 0) - captures,
+                     build_s=getattr(step, "build_s", 0.0) - build_s,
+                     graphed=graphed and branch != HOST)
     return toks
+
+
+#: decode states (and their serve steps) ``serve_batch`` keeps across calls
+SERVE_POOL_SIZE = 4
+
+
+@dataclasses.dataclass
+class _PoolEntry:
+    state: dict
+    step: Callable
+    #: weak references to the parameter leaves, whose callbacks drop the entry
+    anchor: tuple = ()
+
+
+_pool: "collections.OrderedDict[tuple, _PoolEntry]" = collections.OrderedDict()
+
+
+def _pooled(cfg: ModelConfig, params, batch: int, cache_len: int, dev, mesh) -> tuple:
+    """(``serve_batch``'s pool entry for these arguments, whether it was
+    made now). A new entry holds a fresh ``init_decode_state`` and a
+    ``make_serve_step``."""
+    flat = leaves(params)
+    key = (cfg, batch, int(cache_len), str(dev), None if mesh is None else mesh.key(),
+           tuple(id(p) for p in flat))
+    entry = _pool.get(key)
+    if entry is not None:
+        _pool.move_to_end(key)
+        return entry, False
+    entry = _PoolEntry(state=init_decode_state(cfg, batch, cache_len, device=dev, mesh=mesh),
+                       step=make_serve_step(cfg, device=dev, mesh=mesh))
+    entry.anchor = tuple(weakref.ref(p, lambda _, key=key: _pool and _pool.pop(key, None))
+                         for p in flat)
+    _pool[key] = entry
+    while len(_pool) > SERVE_POOL_SIZE:
+        _pool.popitem(last=False)
+    return entry, True
+
+
+def clear_serve_pool() -> None:
+    """Drop every pooled decode state and serve step."""
+    _pool.clear()
+
+
+def state_tensors(state) -> list:
+    """Every tensor of a decode state, in its order (the caches'
+    dataclasses walked field by field; a ``sharding`` is no state)."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, dict):
+        return [t for v in state.values() for t in state_tensors(v)]
+    if dataclasses.is_dataclass(state):
+        return [t for f in dataclasses.fields(state) if f.name != "sharding"
+                for t in state_tensors(getattr(state, f.name))]
+    return []
+
+
+def reset_decode_state_(state) -> None:
+    """A used decode state back to ``init_decode_state``'s values, in place:
+    every cache's ``pos`` to −1, every other tensor to 0 (a cache's
+    ``sharding`` is left as it is)."""
+    for name, v in (state.items() if isinstance(state, dict) else
+                    ((f.name, getattr(state, f.name)) for f in dataclasses.fields(state))):
+        if isinstance(v, torch.Tensor):
+            v.fill_(-1 if name == "pos" else 0)
+        elif isinstance(v, dict) or (dataclasses.is_dataclass(v) and name != "sharding"):
+            reset_decode_state_(v)
 
 
 def greedy_decode(step: Callable, params, prompts: Tensor, state, *, gen_len: int,

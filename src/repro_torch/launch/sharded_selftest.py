@@ -63,15 +63,31 @@ the multi-rank path end to end:
      microbatch; K3's launches, the stage handoffs and the broadcast are
      counted. At world 1, one adaptive solve through
      ``make_sample_step(forward_fn=pipelined)`` (VP, eps_rel 0.05, fused
-     step): every sample finite and converged, NFE within ``NFE_SLACK``
-     of the same solve through the unsharded forward, K1 and K3 launched;
+     step) as ``sample(mesh=)`` on that mesh, called three times
+     (``graphed_calls``): every sample finite and converged, NFE within
+     ``NFE_SLACK`` of ``sample`` through the unsharded forward, K4 and K3
+     launched; on an NCCL mesh graphed (captures 0, 1, 0), each call
+     bitwise the first, host-driven one;
   8. with ``--arch``, the tensor-parallel forward of that DiT on the
      ``("data", "model")`` mesh of (world/2, 2) (1 × 1 at world 1): bitwise
      the unsharded forward at world 1, within ``TP_TOL``·(1 + max|out|)
      of it otherwise; the collectives of the forward by kind (the books);
      and the forward counted on meta tensors for the same rank of the
      same mesh without process groups (``collectives.counting``) equal to
-     those books, call for call and byte for byte.
+     those books, call for call and byte for byte. At world 1 an
+     adaptive solve through that forward, called three times as check 7's;
+  9. with ``--arch``, the graphed sharded solves (``check_graphed``):
+     ``sample(mesh=)`` of that DiT (batch 8, VP, fused step, flash
+     attention) adaptive at eps_rel 0.05, EM at ``GRAPHED_STEPS["em"]``
+     steps, PC at ``GRAPHED_STEPS["pc"]``, the ODE at rtol 1e-3, each
+     called three times under the one-shot rule: on an NCCL mesh the
+     first runs the host-driven sharded loop, the second captures, the
+     third replays, each graphed call bitwise the first (x, nfe, accepted,
+     rejected, iterations) with at most 2 host reads, the replay's K4,
+     K3, K5 and P1 launches the first call's and P2 once a horizon plus
+     one. A gloo mesh on the card cannot be captured: there the adaptive
+     solve runs twice, host-driven, and the record says so
+     (``graphed: false``).
 
 On the card one ``all_reduce`` of 9 floats is timed.
 
@@ -99,8 +115,11 @@ except where the record's top-2 gap is within that bound, and every
 rank's residual and tokens the same bits. ``--lm-plan FILE`` runs a JSON
 list of such runs (keys as the flags: arch, reduced, mesh, flash_decode,
 prefill, decode, record, out; and layers, a depth cut; tol, the bound;
-also_flash, a second decode with the lever) in one spawn, building and
-freeing the models in turn.
+also_flash, a second decode with the lever; graphed, the serve step
+under the mesh against its eager step, ``graphed_decode``: on an NCCL
+mesh graphed, tokens and state bitwise, one capture, a replay's books
+the dry run's meta count) in one spawn, building and freeing the models
+in turn.
 
 ``--train-plan FILE`` runs a JSON list of LM training runs under a mesh
 (keys: arch, reduced, layers, mesh, layout ("tp", "fsdp", "zero1";
@@ -138,6 +157,7 @@ Prints one JSON line with the results; exits non-zero on any failure.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -167,6 +187,8 @@ EM_STEPS = 59
 #: the tiered serve of check 6: chip_smoke.py phase 6a's
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_HORIZON = 8, 16, 4
 SERVE_TIERS = ("draft", "standard", "high_fidelity")
+#: check 9's fixed grids: steps of EM and of PC
+GRAPHED_STEPS = {"em": 60, "pc": 30}
 #: checks 7 and 8: the DiT's batch and the pipeline's microbatches
 PIPE_BATCH, PIPE_MICROBATCHES = 8, 4
 #: check 8: the tensor-parallel forward against the unsharded one, times
@@ -579,32 +601,12 @@ def microbatched_forward(model, x, t, microbatches: int, policy=None):
     return model.head(h, temb, cw)
 
 
-def _solve_steps(step, model, sde, cfg, dev, max_sync_iters: int = 8):
-    """An adaptive solve chained through ``step`` (``make_sample_step``)
-    from a prior and noise drawn from seed 0, then the Tweedie denoise."""
-    from repro_torch.core.solvers import adaptive as ad
-
-    gen = torch.Generator(device=dev).manual_seed(0)
-    shape = (PIPE_BATCH, model.cfg.image_size, model.cfg.image_size, model.cfg.channels)
-    carry = ad.init_carry(sde, sde.prior_sample(shape, gen), gen, config=cfg)
-    while True:
-        done, iters = ad.sync_state(carry)
-        if done or iters >= cfg.max_iters:
-            break
-        carry = step(model, carry, max_sync_iters=max_sync_iters)
-    return ad.finalize(sde, step.score_of(model), carry, precision=cfg.precision)
-
-
 def check_pipeline(dev, arch: str, world: int) -> dict:
     """Check 7: the pipelined forward of ``arch`` over "pod" against the
     whole model's blocks run microbatch by microbatch; at world 1 a solve
-    through it."""
-    from repro_torch.core.sde import VPSDE
-    from repro_torch.core.solvers.adaptive import AdaptiveConfig
+    through it (``_mesh_solve``)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.solver_step import ops as step_ops
-    from repro_torch.launch.sample import (
-        _converged, _dit_param_shardings, make_pipelined_dit_forward, make_sample_step)
+    from repro_torch.launch.sample import _dit_param_shardings, make_pipelined_dit_forward
     from repro_torch.models.dit import shard_dit
     from repro_torch.parallel import collectives as coll
     from repro_torch.parallel import init_mesh
@@ -630,25 +632,154 @@ def check_pipeline(dev, arch: str, world: int) -> dict:
            "broadcasts": list(books.get("stage_broadcast", (0, 0))),
            "wall_s": got_s, "microbatched_wall_s": want_s}
     if world == 1:
-        sde = VPSDE()
-        cfg = AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True, max_iters=400)
-        with torch.no_grad():
-            ref, ref_s = _timed(lambda: _solve_steps(make_sample_step(sde, cfg), full, sde,
-                                                     cfg, dev), dev)
-            step_ops.launches = flash_ops.launches = 0
-            res, res_s = _timed(lambda: _solve_steps(
-                make_sample_step(sde, cfg, forward_fn=fwd), model, sde, cfg, dev), dev)
-        out["solve"] = {
-            "k1_launches": step_ops.launches, "k3_launches": flash_ops.launches,
+        out["solve"] = _mesh_solve(dev, mesh, full, model, fwd)
+    del full, model
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _launch_counts() -> dict:
+    """The kernel wrappers' launch counts a graphed solve charges."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.graph_loop import ops as loop_ops
+    from repro_torch.kernels.philox import ops as philox_ops
+    from repro_torch.kernels.solver_step import ops as step_ops
+
+    return {"K1": step_ops.launches, "K4": step_ops.sharded_launches,
+            "K3": flash_ops.launches, "K5": step_ops.em_launches,
+            "P1": philox_ops.launches, "P2": loop_ops.launches}
+
+
+def graphed_calls(solve, dev, n: int = 3) -> dict:
+    """``solve()`` (a ``SolveResult``) called ``n`` times: each call's
+    drivers built and captures (``adaptive.builds``, ``adaptive.captures``:
+    on the CPU no capture), host reads (``adaptive.host_syncs``),
+    kernel launches (``_launch_counts``) and wall, on the card its window
+    share (the elapsed device time of its driver windows, CUDA events
+    around each, over its wall; None for a host-driven call: the
+    profiler cannot trace a WHILE node), and whether each
+    later call is the first bit for bit (x, nfe, accepted, rejected,
+    iterations). Returns those lists, the first call's iterations, mean
+    NFE, convergence and finiteness, and the first result."""
+    from repro_torch.core.solvers import adaptive as ad
+
+    from repro_torch.benchmarks.kernel_times import window_events
+
+    out = {"builds": [], "captures": [], "host_reads": [], "launches": [], "walls_s": [],
+           "window_share": [], "bitwise": []}
+    first = None
+    for _ in range(n):
+        b0, c0, r0, l0 = ad.builds, ad.captures, ad.host_syncs, _launch_counts()
+        _sync(dev)
+        with (window_events() if dev.type == "cuda" else contextlib.nullcontext([])) as spans:
+            t0 = time.perf_counter()
+            res = solve()
+            _sync(dev)
+            wall = time.perf_counter() - t0
+        out["walls_s"].append(wall)
+        out["window_share"].append(sum(e0.elapsed_time(e1) for e0, e1 in spans) / 1e3 / wall
+                                   if spans else None)
+        out["builds"].append(ad.builds - b0)
+        out["captures"].append(ad.captures - c0)
+        out["host_reads"].append(ad.host_syncs - r0)
+        out["launches"].append({k: v - l0[k] for k, v in _launch_counts().items()})
+        if first is None:
+            first = res
+        out["bitwise"].append(all(torch.equal(getattr(res, f), getattr(first, f))
+                                  for f in ("x", "nfe", "accepted", "rejected", "iterations")))
+    out.update(iterations=int(first.iterations), mean_nfe=float(first.nfe.float().mean()),
+               finite=bool(torch.isfinite(first.x).all()), result=first)
+    return out
+
+
+def graphed_ok(rec: dict, horizons: int) -> bool:
+    """A ``graphed_calls`` record of three calls on a capturable mesh:
+    drivers built 0, 1, 0 (on the card each a capture), every call the
+    first bit for bit, at most 2 host reads a graphed call, and on the
+    card the replay's K4, K3, K5 and P1 launches the first call's and P2
+    ``horizons`` + 1."""
+    ok = rec["builds"] == [0, 1, 0] and all(rec["bitwise"])
+    ok &= all(n <= 2 for n in rec["host_reads"][1:])
+    host, replay = rec["launches"][0], rec["launches"][2]
+    if any(host.values()):  # the card's counts (the CPU launches nothing)
+        ok &= rec["captures"] == rec["builds"]
+        ok &= all(replay[k] == host[k] for k in ("K4", "K3", "K5", "P1"))
+        ok &= replay["P2"] == horizons + 1
+    return bool(ok)
+
+
+def solve_horizons_of(method: str, rec: dict) -> int:
+    """The horizons a graphed solve of ``method`` runs: one a step of a
+    fixed grid, one a group of ``SYNC_EVERY`` iterations otherwise."""
+    from repro_torch.core.solvers.adaptive import SYNC_EVERY
+
+    if method in GRAPHED_STEPS:
+        return GRAPHED_STEPS[method]
+    return -(-rec["iterations"] // SYNC_EVERY)
+
+
+def check_graphed(mesh, dev, arch: str) -> dict:
+    """Check 9: ``sample(mesh=)`` of ``arch`` (seed-0 weights, livened;
+    batch 8, VP, fp32) adaptive, EM, PC and the ODE, three calls each
+    (``graphed_calls``; module docstring). On a gloo mesh on the card the
+    adaptive solve alone, twice, host-driven."""
+    from repro_torch.core.sampling import sample
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.launch.sample import build_score
+
+    t0 = time.perf_counter()
+    net, _, score = build_score(arch, flash=True, precision="fp32", seed=0, liven_seed=0,
+                                device=dev)
+    shape = (PIPE_BATCH, net.image_size, net.image_size, net.channels)
+    graphed = dev.type == "cpu" or ad.mesh_capturable(mesh.group())
+    solves = (("adaptive", dict(eps_rel=0.05, use_fused_kernel=True, max_iters=400)),
+              ("em", dict(n_steps=GRAPHED_STEPS["em"])), ("pc", dict(n_steps=GRAPHED_STEPS["pc"])),
+              ("ode", dict(rtol=1e-3, atol=1e-3)))
+    out = {"graphed": graphed}
+    for method, kw in (solves if graphed else solves[:1]):
+        rec = graphed_calls(lambda: sample(VPSDE(), score, shape, seed=0, method=method,
+                                           device=dev, mesh=mesh, **kw), dev,
+                            n=3 if graphed else 2)
+        del rec["result"]
+        rec["horizons"] = solve_horizons_of(method, rec)
+        rec["ok"] = graphed_ok(rec, rec["horizons"]) if graphed else (
+            rec["builds"] == [0, 0] and all(rec["bitwise"]))
+        out[method] = rec
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_solve(dev, mesh, full, model, forward_fn=None) -> dict:
+    """Checks 7 and 8 at world 1: an adaptive solve (VP, eps_rel 0.05,
+    fused step) through ``forward_fn`` on ``model`` as ``sample(mesh=)``,
+    three calls (``graphed_calls``), against ``sample`` through the
+    unsharded ``full`` model."""
+    from repro_torch.core.sampling import sample
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.core.solvers.adaptive import AdaptiveConfig
+    from repro_torch.launch.sample import _converged, make_sample_step
+
+    sde = VPSDE()
+    cfg = AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True, max_iters=400)
+    shape = (PIPE_BATCH, full.cfg.image_size, full.cfg.image_size, full.cfg.channels)
+    score = make_sample_step(sde, cfg, forward_fn=forward_fn).score_of(model)
+    with torch.no_grad():
+        ref, ref_s = _timed(lambda: sample(sde, make_sample_step(sde, cfg).score_of(full),
+                                           shape, seed=0, device=dev, config=cfg), dev)
+        calls = graphed_calls(lambda: sample(sde, score, shape, seed=0, device=dev, mesh=mesh,
+                                             config=cfg), dev)
+    res = calls.pop("result")
+    host = calls["launches"][0]
+    calls["horizons"] = solve_horizons_of("adaptive", calls)
+    return {"k1_launches": host["K1"], "k4_launches": host["K4"], "k3_launches": host["K3"],
             "iterations": int(res.iterations), "mean_nfe": float(res.nfe.float().mean()),
             "unsharded_mean_nfe": float(ref.nfe.float().mean()),
             "max_nfe_diff": int((res.nfe - ref.nfe).abs().max()),
             "finite": bool(torch.isfinite(res.x).all()),
             "converged": _converged(res, cfg.max_iters),
-            "wall_s": res_s, "unsharded_wall_s": ref_s}
-    del full, model
-    out["seconds"] = time.perf_counter() - t0
-    return out
+            "wall_s": calls["walls_s"][0], "unsharded_wall_s": ref_s, "calls": calls,
+            "graphed_ok": graphed_ok(calls, calls["horizons"])}
 
 
 def check_tensor_parallel(mesh, dev, arch: str) -> dict:
@@ -693,6 +824,9 @@ def check_tensor_parallel(mesh, dev, arch: str) -> dict:
            "port_kinds": {k: {"calls": v[0], "mb": v[1] / 1e6} for k, v in books.items()},
            "meta_equal": counted_ops == ops and counted == books,
            "wall_s": got_s, "unsharded_wall_s": want_s}
+    if mesh.size == 1:
+        out["solve"] = _mesh_solve(dev, mesh, full, model,
+                                   lambda m, x, t: m(x, t, mesh=mesh))
     del full, model
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -942,6 +1076,50 @@ def compare_lm(got: dict, want: dict, tol: float = LM_TOL) -> dict:
     return out
 
 
+def graphed_decode(cfg, params, inputs: dict, steps: int, dev, mesh, want_books: dict) -> dict:
+    """The serve step under ``mesh`` (``make_serve_step(mesh=)``: on an NCCL
+    mesh a ``GraphedServeStep``) against its eager step, each ``steps``
+    greedy steps from ``inputs``' first tokens on a fresh decode state
+    (a cache of twice the steps, the dry run's): the tokens and the final
+    state bitwise, one capture, the books of a replayed step (the third)
+    equal to ``want_books`` (the dry run's decode step counted on meta
+    tensors), and ms a step of each after the first. A mesh whose step
+    stays eager (gloo) gives ``graphed: false``."""
+    from repro_torch.launch.serve import state_tensors
+    from repro_torch.launch.steps import GraphedServeStep, make_serve_step
+    from repro_torch.models import transformer as tr
+
+    step = make_serve_step(cfg, device=dev, mesh=mesh)
+    if not isinstance(step, GraphedServeStep):
+        return {"graphed": False}
+    first = inputs["first"].to(dev)
+    cross = inputs.get("cross_decode")
+    extra = {} if cross is None else {"cross_embeds": cross.to(dev)}
+    runs = {}
+    for name, fn in (("graphed", step), ("eager", step.eager)):
+        state = tr.init_decode_state(cfg, first.shape[0], 2 * steps, device=dev, mesh=mesh)
+        tok, toks, books = first, [], None
+        for i in range(steps):
+            if i == 1:
+                _sync(dev)
+                t0 = time.perf_counter()
+            if i == 2:
+                _zero_counters()
+            tok, state = fn(params, {"tokens": tok, **extra}, state)
+            if i == 2:
+                books = _books()
+            toks.append(tok)
+        _sync(dev)
+        runs[name] = (torch.cat(toks, 1), state_tensors(state), books,
+                      (time.perf_counter() - t0) * 1e3 / (steps - 1))
+    (tg, sg, bg, mg), (te, se, be, me) = runs["graphed"], runs["eager"]
+    return {"graphed": True, "tokens_bitwise": bool(torch.equal(tg, te)),
+            "state_bitwise": bool(sg) and all(torch.equal(a, b) for a, b in zip(sg, se)),
+            "captures": step.captures, "build_s": step.build_s,
+            "meta_equal": bg == want_books, "eager_books_equal": be == want_books,
+            "graphed_ms_per_step": mg, "eager_ms_per_step": me}
+
+
 def check_lm(mesh, dev, run: dict) -> list:
     """One LM run on this rank (the keys of ``--lm-plan``; ``also_flash``
     decodes the same shard a second time with ``decode_flash_shard=
@@ -981,6 +1159,8 @@ def check_lm(mesh, dev, run: dict) -> list:
             meta["prefill"] = meta_books(run_cfg, mesh, InputShape("prefill", S_p, B_p,
                                                                    "prefill"))
         meta_equal = {k: m["books"] == rec[f"{k}_books"] for k, m in meta.items()}
+        graphed = (graphed_decode(run_cfg, params, inputs, steps, dev, mesh,
+                                  meta["decode"]["books"]) if run.get("graphed") else None)
         if prefill is None:
             prefill = {k: rec[k] for k in ("prefill_s", "prefill_counts", "prefill_logits",
                                            "residual", "routing", "prefill_books")}
@@ -995,6 +1175,8 @@ def check_lm(mesh, dev, run: dict) -> list:
                "meta_s": sum(m["seconds"] for m in meta.values()),
                "residual": rec["residual"], "choices": rec["decode_choices"],
                "prefill_tokens": rec["prefill_logits"].argmax(-1), "out": None}
+        if graphed is not None:
+            out["graphed_decode"] = graphed
         if dev.type == "cuda":
             out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
             out["build_peak_gib"] = build_peak
@@ -1068,6 +1250,12 @@ def run_lm(world: int, plan: list, *, device: str = "cuda", backend: str | None 
         # every rank's meta count equals its books, each step
         rec["meta_equal"] = all(all(p["meta_equal"].values()) for p in per)
         ok &= rec["meta_equal"]
+        if "graphed_decode" in per[0]:  # graphed where the mesh is NCCL's
+            rec["graphed_decode"] = [p["graphed_decode"] for p in per]
+            want_graphed = device == "cuda" and backend == "nccl"
+            ok &= all(g["graphed"] == want_graphed and (not want_graphed or (
+                g["tokens_bitwise"] and g["state_bitwise"] and g["captures"] == 1
+                and g["meta_equal"])) for g in rec["graphed_decode"])
         if device == "cuda":  # the kernels ran on every rank, every layer
             cfg = lm_config(run["arch"], layers=run.get("layers"),
                             reduced=run.get("reduced", False))
@@ -1473,6 +1661,7 @@ def _rank_main(rank: int, world: int, port: int, out_dir: str, opts: dict) -> No
             res["arch_serve"] = check_arch_serve(mesh1d, dev, opts["arch"])
             res["pipeline"] = check_pipeline(dev, opts["arch"], world)
             res["tensor_parallel"] = check_tensor_parallel(mesh2d, dev, opts["arch"])
+            res["graphed"] = check_graphed(mesh1d, dev, opts["arch"])
         if dev.type == "cuda":
             res["all_reduce_9"] = time_all_reduce(dev)
         put_result(out_dir, rank, res)
@@ -1481,8 +1670,8 @@ def _rank_main(rank: int, world: int, port: int, out_dir: str, opts: dict) -> No
 
 
 def _gate_dit_mesh(results: dict, ranks: list, world: int, device: str) -> bool:
-    """Checks 7 and 8 into ``results`` (every rank's), and whether they
-    passed: on the card also K3 (and in the solve K1) launched, K3 once a
+    """Checks 7, 8 and 9 into ``results`` (every rank's), and whether they
+    passed: on the card also K3 (and in the solves K4) launched, K3 once a
     layer a microbatch a stage and once a layer in the TP forward."""
     pipe = [r["pipeline"] for r in ranks]
     tp = [r["tensor_parallel"] for r in ranks]
@@ -1491,9 +1680,9 @@ def _gate_dit_mesh(results: dict, ranks: list, world: int, device: str) -> bool:
     ok &= all(p["handoffs"][0] == (PIPE_MICROBATCHES if p["stage"] < world - 1 else 0)
               for p in pipe)
     if world == 1:
-        sol = pipe[0]["solve"]
-        ok &= (sol["finite"] and sol["converged"] == PIPE_BATCH
-               and sol["max_nfe_diff"] <= NFE_SLACK)
+        for sol in (pipe[0]["solve"], tp[0]["solve"]):
+            ok &= (sol["finite"] and sol["converged"] == PIPE_BATCH
+                   and sol["max_nfe_diff"] <= NFE_SLACK and sol["graphed_ok"])
         ok &= all(p["bitwise_equal"] for p in tp)
     ok &= all(p["within_bound"] and p["meta_equal"] for p in tp)
     if device == "cuda":
@@ -1502,7 +1691,12 @@ def _gate_dit_mesh(results: dict, ranks: list, world: int, device: str) -> bool:
         for p in tp:
             ok &= p["k3_launches"] == p["layers"]
         if world == 1:
-            ok &= pipe[0]["solve"]["k1_launches"] > 0 and pipe[0]["solve"]["k3_launches"] > 0
+            for sol in (pipe[0]["solve"], tp[0]["solve"]):
+                ok &= sol["k4_launches"] > 0 and sol["k3_launches"] > 0
+    graphed = [r["graphed"] for r in ranks]
+    results["graphed"] = graphed
+    ok &= all(g[m]["ok"] for g in graphed for m in g
+              if isinstance(g[m], dict) and "ok" in g[m])
     return bool(ok)
 
 

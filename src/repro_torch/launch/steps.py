@@ -18,6 +18,8 @@ serve steps run without autograd, every step in the config's dtype
 (``ModelConfig.dtype``; fp32 products with TF32 off), on ``device``: the
 card unless the caller asks for the CPU (or, for the dry run's meta
 tensors, ``"meta"``); they raise at construction when no card is there.
+Under an NCCL mesh on the card the serve step is graphed too, its
+collectives captured; on a gloo mesh it stays eager.
 
 ``make_prefill_step(mesh=)`` and ``make_serve_step(mesh=)`` run under a
 ``("data", "model")`` mesh (on ``mesh.device``) with the rank's
@@ -47,16 +49,19 @@ moment blocks and the global metrics, plus ``clip_scale``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-import copy
 import time
+import weakref
 from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch.core.precision import pin_full_fp32_math
+from repro_torch.core.solvers.adaptive import mesh_capturable
 from repro_torch.data.tokens import lm_loss
 from repro_torch.device import resolve_device
+from repro_torch.kernels.graph_loop import ops as loop_ops
 from repro_torch.models import decode_step, forward
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamW
@@ -231,10 +236,11 @@ def make_serve_step(cfg: ModelConfig, *, device="cuda", mesh=None,
     ``physical_experts``, or ZeRO-3's, whose data-cut leaves are gathered
     where they are used). ``moe_routing`` is ``decode_step``'s.
 
-    On the card without a mesh the step is a ``GraphedServeStep`` over
-    this eager one (its ``eager``). Under ``mesh`` it stays eager: the
-    collectives of a gloo mesh cannot be captured, and NCCL's were
-    checked inside a graph at world 1 only. On the CPU (and on meta
+    On the card the step is a ``GraphedServeStep`` over this eager one
+    (its ``eager``), under ``mesh`` too where the mesh is NCCL's: the
+    graph captures its collectives (the tokens' gather over "data", the
+    model axis's sums, ``flash_decode``'s). On a gloo mesh it stays
+    eager: gloo collectives cannot be captured. On the CPU (and on meta
     tensors) it is the eager function."""
     dev = resolve_device(device if mesh is None else mesh.device)
     pin_full_fp32_math()
@@ -248,15 +254,33 @@ def make_serve_step(cfg: ModelConfig, *, device="cuda", mesh=None,
                                     mesh=mesh, rows=rows, shardings=shardings)
         return _gather(torch.argmax(logits, dim=-1).to(torch.int32), mesh, rows), state
 
-    if dev.type == "cuda" and mesh is None:
-        return GraphedServeStep(serve_step, dev)
+    if dev.type == "cuda" and (mesh is None or mesh_capturable(mesh.group())):
+        return GraphedServeStep(serve_step, dev, mesh=mesh)
     return serve_step
+
+
+def _clone_state(v):
+    """A copy of a decode state's tensors (dicts, lists and the caches'
+    dataclasses rebuilt around them); every other leaf, such as a
+    cache's ``sharding`` over the mesh's process groups, is shared."""
+    if isinstance(v, Tensor):
+        return v.clone()
+    if isinstance(v, dict):
+        return {k: _clone_state(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_clone_state(x) for x in v)
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return dataclasses.replace(v, **{
+            f.name: _clone_state(getattr(v, f.name)) for f in dataclasses.fields(v)
+            if isinstance(getattr(v, f.name), (Tensor, dict, list, tuple))})
+    return v
 
 
 class GraphedServeStep:
     """A serve step captured as one CUDA graph: ``eager`` (the decode step
-    and its argmax) recorded once per (params, state, the batch's leaf
-    shapes and float dtypes), then replayed by every call with that key.
+    and its argmax) recorded once per (the parameters' leaves, the state,
+    the mesh, the batch's leaf shapes and float dtypes), then replayed by
+    every call with that key.
 
     The batch's ``tokens``, ``start_pos`` and ``cross_embeds`` are copied
     into static input buffers before each replay; the tokens come back
@@ -265,21 +289,36 @@ class GraphedServeStep:
     are (``decode_step`` keeps them). Lazy library state is made by one
     eager step on a copy of the state first, on a side stream: the eager
     step writes a cache slot and advances ``length``, and a graph built
-    after it on the real state would start one token late. A new key
-    drops the old graph and captures again. ``moe_routing`` (a Python list
-    the graph cannot append to) raises ``ValueError``: routing records
-    come from ``eager``.
+    after it on the real state would start one token late. Under a mesh
+    (``mesh``, NCCL's) that step runs the same collectives on every rank,
+    so every communicator and subgroup exists before the capture. A new
+    key drops the old graph and captures again. ``moe_routing`` (a Python
+    list the graph cannot append to) raises ``ValueError``: routing
+    records come from ``eager``.
+
+    The parameters are held weakly (each leaf): a graph never replays
+    over weights that were freed (a dead leaf is a new key), and the step
+    keeps no model alive. A replay launches what the capture recorded:
+    the kernel wrappers' calls (``graph_loop.ops.captured_calls``) and
+    the collectives (``collectives.captured_since``) are charged to their
+    counts and books once a replay, as if the step had run eagerly.
 
     ``captures`` counts the graphs captured and ``build_s`` the host
     seconds the warm-up, the capture and the instantiation took.
     """
 
-    def __init__(self, eager: Callable, device: torch.device):
+    def __init__(self, eager: Callable, device: torch.device, mesh=None):
         self.eager = eager
         self.device = device
+        self.mesh = mesh
         self.captures = 0
         self.build_s = 0.0
+        self.reset()
+
+    def reset(self) -> None:
+        """Drop the graph: the next call captures."""
         self._key = self._graph = self._inputs = self._tokens = self._held = None
+        self._refs, self._books, self._recorded = (), None, {}
 
     def __call__(self, params, batch: Batch, state, moe_routing: Optional[list] = None):
         if moe_routing is not None:
@@ -287,33 +326,43 @@ class GraphedServeStep:
                              "a CUDA graph cannot append to); run the step's eager function "
                              "(GraphedServeStep.eager)")
         batch = {k: v for k, v in batch.items() if v is not None}
+        flat = leaves(params)
         # integer inputs of any width share a graph: they are cast into the
         # static buffer (the prompts' int64 and the sampled int32 tokens)
-        key = (id(params), id(state),
+        key = (tuple(id(p) for p in flat), id(state),
+               None if self.mesh is None else self.mesh.key(),
                tuple((k, tuple(v.shape), v.dtype if v.dtype.is_floating_point else "int")
                      for k, v in sorted(batch.items())))
-        if key != self._key:
-            self._capture(params, batch, state, key)
+        if key != self._key or not all(r() is not None for r in self._refs):
+            self._capture(params, batch, state, key, flat)
         for k, buf in self._inputs.items():
             buf.copy_(batch[k])
         self._graph.replay()
+        coll.charge(self._books)
+        for (module, counter), calls in self._recorded.items():
+            setattr(module, counter, getattr(module, counter) + calls)
         return self._tokens.clone(), state
 
-    def _capture(self, params, batch: Batch, state, key) -> None:
+    def _capture(self, params, batch: Batch, state, key, flat) -> None:
         t0 = time.perf_counter()
-        self._key = self._graph = self._inputs = self._tokens = self._held = None
+        self.reset()
         dev = self.device
         inputs = {k: v.to(dev).clone() for k, v in batch.items()}
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self.eager(params, inputs, copy.deepcopy(state))
+            self.eager(params, inputs, _clone_state(state))
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        calls, books = loop_ops.captured_calls(), coll.captured_books()
         with torch.cuda.graph(graph):
             tokens, _ = self.eager(params, inputs, state)
+        self._recorded = {k: n - calls[k] for k, n in loop_ops.captured_calls().items()
+                          if n != calls[k]}
+        self._books = coll.captured_since(books)
         self._graph, self._inputs, self._tokens = graph, inputs, tokens
-        self._key, self._held = key, (params, state)  # the ids in the key stay theirs
+        # the ids in the key stay the leaves' while these live
+        self._key, self._held, self._refs = key, state, tuple(weakref.ref(p) for p in flat)
         self.captures += 1
         self.build_s += time.perf_counter() - t0
 

@@ -35,6 +35,7 @@ from repro_torch.core.solvers import get_solver
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import _ref_attention, init_attention
 from repro_torch.models.config import ModelConfig
+from repro_torch.models import layers
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, dense_init, init_mlp, init_norm, timestep_embedding)
 from repro_torch.models.transformer import _copy_tree, _layer, _stack
@@ -156,11 +157,20 @@ def round_to_tokens(params, x0_hat: Tensor) -> Tensor:
     return torch.argmax(sims, dim=-1).to(torch.int32)
 
 
+def graph_state(params, cfg: DiffusionLMConfig) -> tuple:
+    """What a cached graph of the net's forward depends on:
+    ``layers.graph_state`` of its parameter tree under ``cfg``."""
+    return layers.graph_state(params, cfg)
+
+
 def make_score_fn(params, cfg: DiffusionLMConfig, sde):
+    """s(x, t) = −net(x, t)/std(t); the score carries the net's
+    ``graph_state``, which keys the solvers' graph cache on it."""
     def score(x: Tensor, t: Tensor) -> Tensor:
         _, std = sde.marginal(t)
         return -diffusion_lm_forward(params, x, t, cfg) / std.reshape(-1, 1, 1)
 
+    score.graph_state = lambda: graph_state(params, cfg)
     return score
 
 

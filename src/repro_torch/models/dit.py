@@ -55,6 +55,7 @@ from torch import nn
 
 from repro_torch.core.sde import bcast
 from repro_torch.models.attention import attention
+from repro_torch.models import layers
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, dense_init, timestep_embedding, to_tensor,
 )
@@ -263,6 +264,11 @@ class DiT(nn.Module):
         h = apply_norm(h, "layernorm_np") * (1 + s) + b
         return self._unpatchify(h @ cw(self.patch_out))
 
+    def graph_state(self) -> tuple:
+        """``layers.graph_state``: what a cached graph of this net's forward
+        depends on (the config, ``training``, each weight's buffer)."""
+        return layers.graph_state(self)
+
     def forward(self, x: Tensor, t: Tensor, y: Optional[Tensor] = None,
                 policy=None, mesh=None) -> Tensor:
         """The network's output. ``mesh``: the rank's blocks under the
@@ -392,7 +398,8 @@ def make_score_fn(model: DiT, sde, policy=None):
     weights is kept), x is cast
     to ``policy.compute`` on entry, the division by std runs in fp32, and
     the score is returned in ``policy.state``. With a class-conditional
-    config the score takes an optional ``y``.
+    config the score takes an optional ``y``. The score carries the net's
+    ``graph_state``, which keys the solvers' graph cache on it.
     """
     if policy is not None:
         policy.cast_params(model)
@@ -405,6 +412,7 @@ def make_score_fn(model: DiT, sde, policy=None):
         s = -out.to(torch.float32) / bcast(std, x)
         return s if policy is None else policy.to_state(s)
 
+    score.graph_state = model.graph_state
     return score
 
 

@@ -18,6 +18,25 @@ import torch.nn.functional as F
 Tensor = torch.Tensor
 
 
+def graph_state(net, cfg=None) -> tuple:
+    """What a cached CUDA graph of ``net``'s forward depends on besides its
+    inputs (``core.solvers.adaptive.GraphKey``): the config (``cfg``, by
+    default ``net.cfg``), for an ``nn.Module`` its ``training`` flag, and
+    every parameter's and buffer's (data_ptr, shape, dtype), in order; for
+    a tree of tensors (the language models' parameters) every leaf's. An
+    in-place update of the weights keeps it; a flipped flag in the config
+    (``use_flash``), a cast (``cast_params``) or a parameter bound to a
+    new tensor changes it."""
+    if isinstance(net, torch.nn.Module):
+        cfg = net.cfg if cfg is None else cfg
+        leaves = [t for _, t in net.named_parameters()] + [t for _, t in net.named_buffers()]
+        head = (cfg, net.training)
+    else:
+        leaves = [t for t in torch.utils._pytree.tree_leaves(net) if isinstance(t, Tensor)]
+        head = (cfg,)
+    return head + (tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in leaves),)
+
+
 def to_tensor(a) -> Tensor:
     """A parameter leaf from the reference (numpy, including ml_dtypes
     bfloat16, which numpy cannot name) or torch → a torch tensor."""

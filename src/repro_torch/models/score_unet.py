@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.sde import bcast
-from repro_torch.models.layers import dense_init, timestep_embedding, to_tensor
+from repro_torch.models.layers import dense_init, graph_state, timestep_embedding, to_tensor
 
 Tensor = torch.Tensor
 
@@ -79,6 +79,10 @@ class MLPScore(nn.Module):
         self.b = nn.ParameterList(
             nn.Parameter(torch.zeros(sizes[i + 1], dtype=dtype, device=device))
             for i in range(len(sizes) - 1))
+
+    def graph_state(self) -> tuple:
+        """``layers.graph_state`` of this net."""
+        return graph_state(self)
 
     def forward(self, x: Tensor, t: Tensor, policy=None) -> Tensor:
         temb = timestep_embedding(t, self.cfg.t_dim)
@@ -225,6 +229,10 @@ class UNet(nn.Module):
         self.gn_out_b = z(cin)
         self.conv_out = z(3, 3, cin, cfg.channels)
 
+    def graph_state(self) -> tuple:
+        """``layers.graph_state`` of this net."""
+        return graph_state(self)
+
     def forward(self, x: Tensor, t: Tensor, policy=None) -> Tensor:
         cfg = self.cfg
         f32 = lambda w: w.to(torch.float32)
@@ -338,7 +346,9 @@ def make_score_fn(model: nn.Module, sde, policy=None):
 
     With ``policy`` the module's parameters are cast in place to
     ``policy.param`` by ``policy.cast_params``, x to ``policy.compute`` on entry; the division by
-    std runs in fp32 and the score is returned in ``policy.state``.
+    std runs in fp32 and the score is returned in ``policy.state``. The
+    score carries the net's ``graph_state`` (``layers.graph_state``),
+    which keys the solvers' graph cache on it.
     """
     if policy is not None:
         policy.cast_params(model)
@@ -352,6 +362,7 @@ def make_score_fn(model: nn.Module, sde, policy=None):
         s = -out.to(torch.float32) / bcast(std, x)
         return s if policy is None else policy.to_state(s)
 
+    score.graph_state = lambda: graph_state(model)
     return score
 
 

@@ -48,7 +48,7 @@ from torch import nn
 from repro_torch.core.precision import resolve_policy
 from repro_torch.core.sde import bcast
 from repro_torch.models.attention import attention
-from repro_torch.models.layers import dense_init, timestep_embedding, to_tensor
+from repro_torch.models.layers import dense_init, graph_state, timestep_embedding, to_tensor
 
 Tensor = torch.Tensor
 
@@ -243,6 +243,10 @@ class TemporalUNet(ParamTree):
         # convolutions run in full fp32 on the card, as the reference's do
         resolve_policy(None)
 
+    def graph_state(self) -> tuple:
+        """``layers.graph_state`` of this net."""
+        return graph_state(self)
+
     def forward(self, x: Tensor, t: Tensor, y: Optional[Tensor] = None,
                 policy=None) -> Tensor:
         cfg = self.cfg
@@ -371,7 +375,9 @@ def make_score_fn(model: TemporalUNet, sde, policy=None):
 
     With ``policy`` the module's parameters are cast in place to
     ``policy.param`` by ``policy.cast_params``, x goes to ``policy.compute``, the division by std
-    runs in fp32, and the score comes back in ``policy.state``.
+    runs in fp32, and the score comes back in ``policy.state``. The score
+    carries the net's ``graph_state``, which keys the solvers' graph cache
+    on it.
     """
     if policy is not None:
         policy.cast_params(model)
@@ -384,6 +390,7 @@ def make_score_fn(model: TemporalUNet, sde, policy=None):
         s = -out.to(torch.float32) / bcast(std, x)
         return s if policy is None else policy.to_state(s)
 
+    score.graph_state = model.graph_state
     return score
 
 

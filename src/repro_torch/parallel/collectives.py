@@ -39,7 +39,11 @@ remat's recompute, backward, the data-axis kinds, the loop control, the
 pipeline's), and ``ops`` by the reference's five op kinds
 (``repro/analysis/hlo.py:23-24``) with the bytes of each call's result
 on this rank, as the reference counts an HLO result shape
-(``hlo.py:36-64``). ``counting()`` is the dry runs' mode: inside it a
+(``hlo.py:36-64``). A call made while its stream is captured into a
+CUDA graph is booked in ``captured`` instead, since it runs only when
+the graph is replayed: the code that replays a graph charges the books
+its capture made (``captured_since``, ``charge``) once a replay, as the
+kernel wrappers' launch counts are charged. ``counting()`` is the dry runs' mode: inside it a
 collective on meta tensors over a ``Mesh`` without process groups books
 its call as a real one would and returns a meta tensor of its result's
 shape, so one rank of a 256- or 512-device mesh can be counted on one
@@ -258,20 +262,66 @@ def _count(t: Tensor, kind: Optional[str] = None, op: str = "all-reduce",
            out_numel: Optional[int] = None) -> str:
     """Book one call on ``t`` (the tensor this rank puts in) as ``kind``,
     and as the reference's ``op`` with a result of ``out_numel`` elements
-    (``t``'s by default); returns "op (kind)"."""
+    (``t``'s by default); returns "op (kind)". A call made while ``t``'s
+    stream is captured into a CUDA graph runs nothing yet: it is booked in
+    ``captured`` instead, and whoever replays the graph charges it
+    (``charge``)."""
     global calls, nbytes
     if kind is None:  # a forward collective; inside a backward pass, remat's recompute
         kind = "recompute" if torch._C._current_graph_task_id() != -1 else "forward"
     size = t.numel() * t.element_size()
+    out = (t.numel() if out_numel is None else out_numel) * t.element_size()
+    if t.is_cuda and torch.cuda.is_current_stream_capturing():
+        _book(captured["by_kind"], kind, 1, size)
+        _book(captured["ops"], op, 1, out)
+        return f"{op} ({kind})"
     calls += 1
     nbytes += size
-    c = by_kind.setdefault(kind, [0, 0])
-    c[0] += 1
-    c[1] += size
-    o = ops.setdefault(op, [0, 0])
-    o[0] += 1
-    o[1] += (t.numel() if out_numel is None else out_numel) * t.element_size()
+    _book(by_kind, kind, 1, size)
+    _book(ops, op, 1, out)
     return f"{op} ({kind})"
+
+
+def _book(table: dict, name: str, n: int, size: int) -> None:
+    c = table.setdefault(name, [0, 0])
+    c[0] += n
+    c[1] += size
+
+
+#: the calls booked while a CUDA graph was captured, by the port's kinds
+#: and by the reference's op kinds, as ``by_kind`` and ``ops`` book them;
+#: never set to 0: the difference across a capture (``captured_since``)
+#: is what one replay of that graph runs
+captured: dict = {"by_kind": {}, "ops": {}}
+
+
+def captured_books() -> dict:
+    """A copy of ``captured``, to take a capture's books from
+    (``captured_since``)."""
+    return {k: {n: list(v) for n, v in t.items()} for k, t in captured.items()}
+
+
+def captured_since(before: dict) -> dict:
+    """The calls booked in ``captured`` since ``before``
+    (``captured_books``): one replay's books of the graph captured in
+    between."""
+    return {k: {n: [c - before[k].get(n, (0, 0))[0], b - before[k].get(n, (0, 0))[1]]
+                for n, (c, b) in t.items() if c != before[k].get(n, (0, 0))[0]}
+            for k, t in captured.items()}
+
+
+def charge(books: dict, times: int = 1) -> None:
+    """Book ``times`` replays of a graph whose capture booked ``books``
+    (``captured_since``): the collectives a replay runs, which Python
+    does not call."""
+    global calls, nbytes
+    times = int(times)
+    for name, (c, b) in books["by_kind"].items():
+        calls += c * times
+        nbytes += b * times
+        _book(by_kind, name, c * times, b * times)
+    for name, (c, b) in books["ops"].items():
+        _book(ops, name, c * times, b * times)
 
 
 #: the process groups spanning several (not all) axes of a mesh, by mesh

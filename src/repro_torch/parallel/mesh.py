@@ -77,6 +77,15 @@ class Mesh:
             return dist.group.WORLD
         return self.device_mesh.get_group(axis)
 
+    def key(self) -> tuple:
+        """The mesh's identity where a cached CUDA graph is keyed on it: the
+        axes, sizes, this rank's coordinate, and the whole mesh's process
+        group (by identity) and backend. Raises on a mesh without a
+        ``DeviceMesh``."""
+        group = self.group()
+        return (self.axis_names, self.sizes, self.coordinate, id(group),
+                dist.get_backend(group))
+
     def ranks(self) -> list:
         """Global rank at each mesh position, as a nested list shaped like
         the mesh."""

@@ -1354,3 +1354,101 @@ def test_captured_driver_holds_no_score_function(cuda, method, kw):
     del score
     gc.collect()
     assert len(ad._drivers) == n
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("adaptive", dict(eps_rel=0.05, use_fused_kernel=True)), ("em", dict(n_steps=30))])
+def test_graphed_sample_under_an_nccl_mesh_is_the_host_chain(cuda, one_rank_mesh, method, kw):
+    """``sample(mesh=)`` on a one-rank NCCL mesh, three calls at one key:
+    the first runs the host-driven sharded loop and captures nothing, the
+    second captures (the mesh's flags' all-reduce inside the horizon for
+    Algorithm 1), the third replays; both graphed calls are the first bit
+    for bit and read the host at most twice (the branch's agreement and
+    the window), and the replay launches the host-driven call's K4 and
+    K5, with P2 once a horizon plus one."""
+    from repro_torch.core.sampling import sample
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.kernels.graph_loop import ops as loop_ops
+
+    sde = VPSDE()
+    score = tan.gaussian_score(sde)
+    runs = []
+    for _ in range(3):
+        step_ops.em_launches = step_ops.sharded_launches = loop_ops.launches = 0
+        c0, r0 = ad.captures, ad.host_syncs
+        res = sample(sde, score, (64, 24), seed=4, method=method, device=cuda,
+                     mesh=one_rank_mesh, **kw)
+        torch.cuda.synchronize()
+        runs.append((res, ad.captures - c0, ad.host_syncs - r0,
+                     (step_ops.sharded_launches, step_ops.em_launches), loop_ops.launches))
+    (host, *_), graphed, replay = runs
+    assert [r[1] for r in runs] == [0, 1, 0]
+    assert graphed[2] <= 2 and replay[2] <= 2
+    assert replay[3] == runs[0][3] and sum(runs[0][3]) > 0
+    horizons = (-(-int(host.iterations) // ad.SYNC_EVERY) if method == "adaptive"
+                else kw["n_steps"])
+    assert replay[4] == horizons + 1
+    for res, *_ in (graphed, replay):
+        for f in ("x", "nfe", "accepted", "rejected", "iterations"):
+            assert torch.equal(getattr(res, f), getattr(host, f)), f
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "gemma3-12b"])
+def test_graphed_decode_under_an_nccl_mesh_is_the_eager_step(cuda, one_rank_mesh, arch):
+    """The serve step under a one-rank NCCL mesh is graphed: its tokens and
+    final state are the eager step's bit for bit, one capture, and a
+    replay charges the books one eager step makes (the tokens' gather)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import state_tensors
+    from repro_torch.launch.steps import GraphedServeStep, make_serve_step
+    from repro_torch.models import init_decode_state, init_model
+    from repro_torch.parallel import collectives as coll
+
+    cfg = get_config(arch).scaled_down()
+    params = init_model(cfg, 0, device=cuda, mesh=one_rank_mesh)
+    step = make_serve_step(cfg, mesh=one_rank_mesh)
+    assert isinstance(step, GraphedServeStep)
+    tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=torch.Generator().manual_seed(0))
+    out, books = {}, {}
+    for name, fn in (("graphed", step), ("eager", step.eager)):
+        state = init_decode_state(cfg, 4, 16, device=cuda, mesh=one_rank_mesh)
+        t, toks = tok.to(cuda), []
+        for i in range(6):
+            if i == 4:
+                coll.reset()
+            t, state = fn(params, {"tokens": t}, state)
+            if i == 4:
+                books[name] = coll.books()
+            toks.append(t)
+        out[name] = (torch.cat(toks, 1), state_tensors(state))
+    assert step.captures == 1
+    assert torch.equal(out["graphed"][0], out["eager"][0])
+    assert all(torch.equal(a, b) for a, b in zip(out["graphed"][1], out["eager"][1]))
+    assert books["graphed"] == books["eager"] and books["eager"]["counts"]
+
+
+def test_serve_batch_captures_once_across_calls(cuda):
+    """Three ``serve_batch`` calls at one key: eager, then a capture, then
+    a replay (captures 0, 1, 0), every call's tokens the same bits, and
+    the pooled state gone with its model."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model
+
+    cfg = get_config("gemma3-12b").scaled_down()
+    params = init_model(cfg, 0, device=cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 6), generator=torch.Generator().manual_seed(1))
+    stats, toks = [], []
+    for _ in range(3):
+        stats.append({})
+        toks.append(serve.serve_batch(cfg, params, prompts, gen_len=5, device=cuda,
+                                      stats=stats[-1]))
+    assert [s["captures"] for s in stats] == [0, 1, 0]
+    assert [s["graphed"] for s in stats] == [False, True, True]
+    assert all(torch.equal(t, toks[0]) for t in toks)
+    n = len(serve._pool)
+    del params
+    gc.collect()
+    assert len(serve._pool) == n - 1

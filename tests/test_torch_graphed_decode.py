@@ -83,7 +83,8 @@ def test_greedy_decode_is_serve_batch(arch):
     stats = {}
     toks = serve_batch(cfg, params, prompts, gen_len=3, cross_embeds=cross, device="cpu",
                        stats=stats)
-    assert stats == {"captures": 0, "build_s": 0.0}  # the CPU's step is eager
+    # the CPU's step is eager
+    assert stats == {"captures": 0, "build_s": 0.0, "graphed": False}
     step = make_serve_step(cfg, device="cpu")
     assert not isinstance(step, GraphedServeStep)
     state = init_decode_state(cfg, prompts.shape[0], prompts.shape[1] + 3, device="cpu")

@@ -14,6 +14,7 @@ and its one host read a solve are gated in ``chip_smoke.py``.
 
 import dataclasses
 import gc
+import types
 
 import numpy as np
 import pytest
@@ -342,12 +343,24 @@ def test_score_without_a_weak_reference_is_solved_uncached():
     ("streams", None, None, True),
     ("streams", lambda x: x, None, False),
     ("streams", None, "mesh", False),
+    ("streams", None, "nccl_mesh", True),
+    ("streams", None, "cpu_mesh", True),
     ("generator", None, None, False),
+    ("generator", None, "cpu_mesh", False),
     ("per_slot", None, None, False),
 ])
-def test_graphable_is_the_one_rule(source, noise_fn, sharding, want):
+def test_graphable_is_the_one_rule(source, noise_fn, sharding, want, monkeypatch):
+    """"mesh" is a gloo mesh on the card (its collectives cannot be
+    captured: host-driven), "nccl_mesh" an NCCL one on the card,
+    "cpu_mesh" a mesh on the CPU (the plain driver, any backend)."""
     gen = {"streams": seed_streams(0, 2, "cpu"), "generator": torch.Generator(),
            "per_slot": [torch.Generator(), torch.Generator()]}[source]
+    if sharding is not None:
+        backend = {"mesh": "gloo", "nccl_mesh": "nccl", "cpu_mesh": "gloo"}[sharding]
+        device = torch.device("cpu" if sharding == "cpu_mesh" else "cuda")
+        mesh = types.SimpleNamespace(device=device, group=lambda: backend)
+        monkeypatch.setattr(ad.dist, "get_backend", lambda group: group)
+        sharding = types.SimpleNamespace(mesh=mesh)
     assert ad.graphable(gen, noise_fn, sharding) is want
 
 
