@@ -483,7 +483,10 @@ Phases; any failure exits non-zero before the result line is printed:
              top-2 gap, deepseek's prefill by ``hold_moe_logits``; K3 and
              K7 launched on every rank once a layer (gemma3 48, deepseek 4,
              llama 4, mamba2 K7 64); every rank's residual and tokens the
-             same bits; the walls, collectives and bytes a prefill and a
+             same bits; every greedy pick over the rank's vocab columns
+             (``collectives.vocab_parallel_argmax``, the steps' pick at
+             1×2) bitwise the argmax of the gathered logits; the walls,
+             collectives and bytes a prefill and a
              decode step, and the peaks a rank printed with the card; in
              (b), (c) and (d) every rank's count of the dry run's prefill
              and decode step (``specs.build_dryrun`` on meta tensors for
@@ -518,8 +521,13 @@ Phases; any failure exits non-zero before the result line is printed:
              peak a rank below data parallelism's, K3 and K7 launched 0
              times, every rank's count of the dry run's train step of its
              layout on meta tensors equal to its first step's books ((a)
-             has no collective to compare); the walls, peaks, collectives
-             and MB a step by kind printed with the card.
+             has no collective to compare); at 1×2 the loss is the
+             vocab-parallel cross-entropy
+             (``collectives.vocab_parallel_cross_entropy``) and the first
+             step books no all-gather (the logits are never gathered), its
+             peak a rank printed beside the peak when they were
+             (``TRAIN_MESH_GATHER_PEAK_GIB``); the walls, peaks,
+             collectives and MB a step by kind printed with the card.
              ``--only-train-mesh`` runs the build
              and this phase alone and prints no result line.
 
@@ -720,6 +728,15 @@ TRAIN_MESH_TP_LAYERS, TRAIN_MESH_DATA_LAYERS = 12, 4
 TRAIN_MESH_MIXERS = (("gemma3-12b", 6), ("mamba2-2.7b", 8), ("deepseek-moe-16b", 4))
 #: seconds each phase-11 selftest may take
 TRAIN_MESH_TIMEOUT_S = 360
+#: the peak allocated GiB a rank of phase 11's 1×2 runs (arch, layers, remat)
+#: when the train step still gathered the logits over "model" (the version
+#: of this script before the vocab-parallel loss, on an H100 80GB HBM3 at
+#: 700 W), printed beside the vocab-parallel loss's peak
+TRAIN_MESH_GATHER_PEAK_GIB = {("musicgen-medium", 12, "none"): 3.43,
+                              ("musicgen-medium", 12, "full"): 2.98,
+                              ("gemma3-12b", 6, "none"): 25.22,
+                              ("mamba2-2.7b", 8, "none"): 6.53,
+                              ("deepseek-moe-16b", 4, "none"): 21.7}
 #: one train step under remat "full" against "none": the same products on
 #: the same inputs, so the same loss up to this relative difference
 REMAT_LOSS_RTOL = 1e-6
@@ -5126,7 +5143,8 @@ def run_lm_mesh(dev, card: str) -> dict:
     graphed = {}
     for r in one["lm"]:
         c = r["compare"]
-        print(f"  world 1 (NCCL) {r['arch']}: bitwise {c['bitwise']}, prefill err "
+        print(f"  world 1 (NCCL) {r['arch']}: bitwise {c['bitwise']}, picks the argmax "
+              f"{r['pick_bitwise']}, prefill err "
               f"{c['prefill_logits']['max_abs_err']:.3e}, decode err "
               f"{c['decode_logits']['max_abs_err']:.3e}, launches {r['ranks'][0]['prefill_counts']}")
         if not c["bitwise"]:
@@ -5160,7 +5178,8 @@ def run_lm_mesh(dev, card: str) -> dict:
               f"{c['prefill_logits']['bound']:.3e}), decode err "
               f"{c['decode_logits']['max_abs_err']:.3e} (bound {c['decode_logits']['bound']:.3e}); "
               f"tokens differing {c['token_mismatches']} beyond the top-2 gap, "
-              f"{c['token_mismatches_near_tie']} at near ties; ranks agree {r['ranks_agree']}")
+              f"{c['token_mismatches_near_tie']} at near ties; ranks agree {r['ranks_agree']}; "
+              f"every pick over the vocab columns the gathered argmax {r['pick_bitwise']}")
         print(f"  [{card}] {label}: prefill {[round(p['prefill_s'], 3) for p in ranks]} s a rank "
               f"(unsharded {unsharded[key]['prefill_s']:.3f} s, both cold), decode "
               f"{[round(p['decode_s'], 3) for p in ranks]} s (unsharded "
@@ -5172,6 +5191,8 @@ def run_lm_mesh(dev, card: str) -> dict:
               f"serving, {[round(p['build_peak_gib'], 2) for p in ranks]} GiB building")
         if not r["ranks_agree"]:
             fail(f"{label}: the ranks' residuals or tokens differ")
+        if not r["pick_bitwise"]:
+            fail(f"{label}: a vocab-parallel pick is not the gathered logits' argmax")
         if arch == "deepseek-moe-16b":
             got = torch.load(r["out"])
             want = unsharded[key]["record"]
@@ -5265,9 +5286,11 @@ def run_train_mesh(dev, card: str) -> dict:
     port's, every step's loss within 1e-5 relative, the clip scale the same
     bits on every rank; remat "full" the same bits as "tp" with a lower
     peak; fsdp's and zero1's peak a rank below plain data parallelism's;
-    K3 and K7 launched 0 times. Prints the walls (first and steady), peaks
-    against the unsharded run's, collectives and MB a step by kind, and
-    the errors, each beside the card."""
+    K3 and K7 launched 0 times; at 1×2 (the vocab-parallel loss) no
+    all-gather booked by the first step. Prints the walls (first and
+    steady), peaks against the unsharded run's (and at 1×2 against the
+    gathered loss's, ``TRAIN_MESH_GATHER_PEAK_GIB``), collectives and MB a
+    step by kind, and the errors, each beside the card."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -5320,6 +5343,15 @@ def run_train_mesh(dev, card: str) -> dict:
               f"{per_step_counts(ranks[0]['counts'])}")
         if not run["ok"]:
             fail(f"{label}: {[{k: p.get(k) for k in ('hold', 'loss_rel', 'first', 'same_bits')} for p in ranks]}")
+        if run["mesh"] == [1, 2]:  # the head cut over "model": the vocab-parallel loss
+            was = TRAIN_MESH_GATHER_PEAK_GIB.get((run["arch"], run["layers"], run["remat"]))
+            print(f"  [{card}] {label}: the first step's books by op kind "
+                  f"{[p['ops'] for p in ranks]}; peak {[p['peak_gib'] for p in ranks]} GiB "
+                  f"({[int(p['peak_gib'] * 2**30) for p in ranks]} B) a rank with the "
+                  f"vocab-parallel loss, {was} GiB when the logits were gathered")
+            if any("all-gather" in p["ops"] for p in ranks):
+                fail(f"{label}: the train step booked an all-gather (the logits' gather over "
+                     f"\"model\" is gone with the vocab-parallel loss)")
     dp, fsdp, zero1 = runs[2], runs[3], runs[4]
     for name, z in (("fsdp", fsdp), ("zero1", zero1)):
         for a, b in zip(z["ranks"], dp["ranks"]):

@@ -105,11 +105,13 @@ logits, every decode step's logits, the tokens, the MoE routing) to
 step (``specs.build_dryrun``, ``meta_books``) on meta tensors for its
 coordinate of a mesh of the same shape without process groups
 (``collectives.counting``): the counts must equal the real run's books
-(the prefill and the first decode step, each with its tokens gathered
-to every rank as the dry run's steps return them), call for call and
-byte for byte, by the reference's op kinds and by the port's
-(``meta_equal``). Given ``--lm-record`` (an unsharded record from
-``lm_record``) the run feeds that record's tokens (teacher forcing) and
+(the prefill and the first decode step, each with its tokens picked
+over the rank's vocab columns and gathered to every rank as the dry
+run's steps return them), call for call and byte for byte, by the
+reference's op kinds and by the port's (``meta_equal``); every pick is
+bitwise ``torch.argmax`` of the gathered logits (``pick_bitwise``).
+Given ``--lm-record`` (an unsharded record from ``lm_record``) the run
+feeds that record's tokens (teacher forcing) and
 compares: logits within ``LM_TOL``·max|logit|, greedy tokens equal
 except where the record's top-2 gap is within that bound, and every
 rank's residual and tokens the same bits. ``--lm-plan FILE`` runs a JSON
@@ -139,7 +141,10 @@ gradient block and new block against the record's (the CPU tests'
 bounds: 2e-4·(1 + max|g|); the update 2e-4·(1 + max|update|) where
 |g|·clip > ``WELL_CONDITIONED``, else 2·lr), every step's loss (within
 ``TRAIN_LOSS_RTOL``), its wall, the collectives and bytes of each step
-by kind, the peak (the card) and the run's wall (``run_s``). Each rank
+by kind, the first step's books by the reference's op kinds (``ops``:
+where the head is cut over "model" no all-gather of the logits, the
+loss being the vocab-parallel cross-entropy), the peak (the card) and
+the run's wall (``run_s``). Each rank
 counts the dry run's train step of its layout on meta tensors for its
 coordinate (``meta_books``), which must equal the first step's books
 (``meta_equal``). The result line adds the cross-rank checks: every
@@ -954,14 +959,18 @@ def lm_record(cfg, params, inputs: dict, decode_steps: int, dev, *, mesh=None,
     and ``decode_logits`` (steps, B_d, …) of every row on CPU,
     ``decode_tokens`` fed and ``decode_choices`` taken, the MoE routing of
     the prefill, the residual the final norm read, walls, and the
-    counters (K3/K7 launches and LM collectives of the prefill, the
-    collectives of a mean decode step), and the books (``_books``) of the
-    prefill and of the first decode step, each with its tokens gathered
-    to every rank as ``make_prefill_step`` and ``make_serve_step`` return
-    them (the books of the dry run's steps; the logits' gather for the
-    record comes after). ``prefill=False`` decodes only."""
+    counters (K3/K7 launches and LM collectives of the prefill with its
+    pick, the collectives of a mean decode step), and the books
+    (``_books``) of the prefill and of the first decode step, each with
+    its tokens picked over the rank's vocab columns and gathered to every
+    rank as ``make_prefill_step`` and ``make_serve_step`` do (the books
+    of the dry run's steps; the logits' gathers for the record, over the
+    vocab and the rows, come after), and ``pick_bitwise``: every pick
+    bitwise ``torch.argmax`` of the gathered logits. ``prefill=False``
+    decodes only."""
+    from repro_torch.launch.steps import greedy_tokens
     from repro_torch.models import transformer as tr
-    from repro_torch.parallel.collectives import gather_rows
+    from repro_torch.parallel.collectives import all_gather_dim, gather_rows
     from repro_torch.parallel.sharding import batch_sharding
 
     def cut(t, rows):
@@ -970,9 +979,12 @@ def lm_record(cfg, params, inputs: dict, decode_steps: int, dev, *, mesh=None,
     def whole(t, rows):
         return t if rows is None else gather_rows(t.contiguous(), mesh, rows)
 
-    rec = {}
+    def vocab(lg, v0):  # the rank's vocab columns (ids from v0) gathered
+        return lg if v0 is None else all_gather_dim(lg, -1, mesh, backward="own")
+
+    rec = {"pick_bitwise": True}
     if prefill:
-        rec.update(_lm_prefill(cfg, params, inputs, dev, mesh, cut, whole))
+        rec.update(_lm_prefill(cfg, params, inputs, dev, mesh, cut, whole, vocab))
 
     first = inputs["first"]
     B = first.shape[0]
@@ -987,14 +999,17 @@ def lm_record(cfg, params, inputs: dict, decode_steps: int, dev, *, mesh=None,
     with torch.no_grad():
         for t in range(decode_steps):
             fed.append(tok)
-            lg, state = tr.decode_step(
+            (lg, v0), state = tr.decode_step(
                 params, cut(tok, rows_d).to(dev), state, cfg,
                 cross_embeds=None if cross_d is None else cut(cross_d, rows_d).to(dev),
-                mesh=mesh, rows=rows_d)
+                mesh=mesh, rows=rows_d, vocab_local=True)
             # the serve step's tokens (B, 1[, K]), every row
-            choice = whole(torch.argmax(lg, dim=-1).to(torch.int32), rows_d)
+            pick = greedy_tokens(lg, v0, mesh)
+            choice = whole(pick.to(torch.int32), rows_d)
             if t == 0:
                 rec["decode_books"] = _books()
+            lg = vocab(lg, v0)
+            rec["pick_bitwise"] &= bool(torch.equal(pick, torch.argmax(lg, dim=-1)))
             choice = choice[:, 0].to(torch.int64).cpu()
             lg = whole(lg[:, 0], rows_d).float()
             choices.append(choice)
@@ -1011,8 +1026,9 @@ def lm_record(cfg, params, inputs: dict, decode_steps: int, dev, *, mesh=None,
     return rec
 
 
-def _lm_prefill(cfg, params, inputs, dev, mesh, cut, whole) -> dict:
+def _lm_prefill(cfg, params, inputs, dev, mesh, cut, whole, vocab) -> dict:
     """``lm_record``'s prefill."""
+    from repro_torch.launch.steps import greedy_tokens
     from repro_torch.models import transformer as tr
     from repro_torch.parallel.sharding import batch_sharding
 
@@ -1025,15 +1041,19 @@ def _lm_prefill(cfg, params, inputs, dev, mesh, cut, whole) -> dict:
     _zero_counters()
     t0 = time.perf_counter()
     with torch.no_grad():
-        logits, _ = tr.forward(params, cut(prompts, rows).to(dev), cfg,
-                               cross_embeds=None if cross is None else cut(cross, rows).to(dev),
-                               last_logits_only=True, mesh=mesh, rows=rows,
-                               moe_routing=routing, residual=residual)
+        (logits, v0), _ = tr.forward(
+            params, cut(prompts, rows).to(dev), cfg,
+            cross_embeds=None if cross is None else cut(cross, rows).to(dev),
+            last_logits_only=True, mesh=mesh, rows=rows, moe_routing=routing,
+            residual=residual, vocab_local=True)
+        pick = greedy_tokens(logits[:, -1:], v0, mesh)
     _sync(dev)
     rec = {"prefill_s": time.perf_counter() - t0, "prefill_counts": _counters()}
     # the prefill step's tokens, every row, as make_prefill_step returns them
-    whole(torch.argmax(logits[:, -1:], dim=-1).to(torch.int32), rows)
+    whole(pick.to(torch.int32), rows)
     rec["prefill_books"] = _books()
+    logits = vocab(logits, v0)
+    rec["pick_bitwise"] = bool(torch.equal(pick, torch.argmax(logits[:, -1:], dim=-1)))
     rec["prefill_logits"] = whole(logits[:, -1], rows).float().cpu()
     rec["residual"] = residual[0].cpu()
     rec["routing"] = None if routing is None else [
@@ -1171,7 +1191,7 @@ def check_lm(mesh, dev, run: dict) -> list:
                "prefill_counts": rec["prefill_counts"],
                "decode_step_counts": rec["decode_step_counts"],
                "params_local": sum(t.numel() for t in leaves(params)),
-               "meta_equal": meta_equal,
+               "meta_equal": meta_equal, "pick_bitwise": rec["pick_bitwise"],
                "meta_s": sum(m["seconds"] for m in meta.values()),
                "residual": rec["residual"], "choices": rec["decode_choices"],
                "prefill_tokens": rec["prefill_logits"].argmax(-1), "out": None}
@@ -1247,6 +1267,9 @@ def run_lm(world: int, plan: list, *, device: str = "cuda", backend: str | None 
             ok &= rec["compare"]["ok"] and (world > 1 or run["flash_decode"]
                                             or rec["compare"]["bitwise"])
         ok &= bool(same)
+        # every greedy pick over the vocab columns is the gathered argmax
+        rec["pick_bitwise"] = all(p["pick_bitwise"] for p in per)
+        ok &= rec["pick_bitwise"]
         # every rank's meta count equals its books, each step
         rec["meta_equal"] = all(all(p["meta_equal"].values()) for p in per)
         ok &= rec["meta_equal"]
@@ -1520,7 +1543,7 @@ def check_train(mesh, dev, run: dict, index: int) -> dict:
     meta = meta_books(cfg, mesh, InputShape("train", run["seq"], run["batch"], "train"),
                       fsdp=layout.name == "fsdp", zero1=layout.name == "zero1",
                       remat=run.get("remat", "none"))
-    out.update(meta_equal=meta["books"] == books, meta_s=meta["seconds"])
+    out.update(meta_equal=meta["books"] == books, meta_s=meta["seconds"], ops=books["ops"])
     if want is not None:
         out["loss_rel"] = [abs(a - b) / abs(b) for a, b in zip(out["losses"], want["losses"])]
         out["first"] = {"ce_err": abs(out["ce"] - want["ce"]),

@@ -27,7 +27,9 @@ parameter shard (``init_model(mesh=)``/``shard_params``) and, for
 serving, its decode state (``init_decode_state(mesh=)``): every rank
 calls the step with the whole batch, keeps its rows
 (``parallel.sharding.batch_sharding``: rows over "data" when they
-divide), and returns the tokens of every row (gathered over "data").
+divide), picks its rows' tokens over its vocab columns where the head
+is cut over "model" (``greedy_tokens``: no rank gathers the logits), and
+returns the tokens of every row (gathered over "data").
 
 ``make_train_step(mesh=, shardings=)`` is the reference's train step
 under its shardings (reference :25-56 under ``jit`` with
@@ -37,9 +39,13 @@ an explicit collective: the rank takes its shard laid out by
 default the tensor-parallel layout of ``init_model(mesh=)``), every rank
 is called with the whole batch and keeps its rows (which must split
 evenly over the data axes), the forward's collectives carry their
-backward passes, each rank's objective is (ce_rows + aux) / n_data (the
-mean of equal row blocks' means is the batch's mean, and an "E" layer's
-aux, the same on every data rank, is counted once by the sum), the
+backward passes, ce_rows is the vocab-parallel cross-entropy over the
+rank's vocab columns where the head is cut over "model"
+(``collectives.vocab_parallel_cross_entropy``: GSPMD's loss on the
+sharded vocabulary, no gather of the logits), each rank's objective is
+(ce_rows + aux) / n_data (the mean of equal row blocks' means is the
+batch's mean, and an "E" layer's aux, the same on every data rank, is
+counted once by the sum), the
 gradients of the leaves the data axes do not cut are summed over them
 (one all-reduce a leaf; ZeRO-3's leaves arrive reduce-scattered), and
 ``AdamW.update`` clips by the norm over the mesh and updates the rank's
@@ -88,17 +94,36 @@ def make_loss_fn(cfg: ModelConfig, *, remat: str = "none", use_flash: bool = Fal
     SSD paths by default, as the reference's (no kernel has a backward:
     on the card ``use_flash=True`` or ``use_kernel_ssd=True`` under grad
     raises, ``kernels/autograd.py``). With ``mesh`` the batch is the
-    rank's rows (``rows``, their ``RowSharding``) and ce their mean."""
+    rank's rows (``rows``, their ``RowSharding``) and ce their mean; a
+    vocab-sharded head leaves each rank its vocab columns, and ce is
+    ``collectives.vocab_parallel_cross_entropy`` over them (the same bits
+    on every model rank), as the reference's GSPMD keeps the loss on the
+    sharded vocabulary."""
 
     def loss_fn(params, batch: Batch, rows=None):
         tokens = batch["tokens"]
-        logits, aux = forward(params, tokens, cfg, cross_embeds=batch.get("cross_embeds"),
-                              use_flash=use_flash, use_kernel_ssd=use_kernel_ssd,
-                              remat=remat, mesh=mesh, rows=rows, shardings=shardings)
-        ce = lm_loss(logits, tokens)
+        (logits, first), aux = forward(
+            params, tokens, cfg, cross_embeds=batch.get("cross_embeds"), use_flash=use_flash,
+            use_kernel_ssd=use_kernel_ssd, remat=remat, mesh=mesh, rows=rows,
+            shardings=shardings, vocab_local=True)
+        if first is None:  # the rank holds every vocab column
+            ce = lm_loss(logits, tokens)
+        else:
+            ce = coll.vocab_parallel_cross_entropy(logits[:, :-1], tokens[:, 1:], first, mesh)
         return ce + aux, ce, aux
 
     return loss_fn
+
+
+def greedy_tokens(logits: Tensor, first: Optional[int], mesh=None) -> Tensor:
+    """The greedy pick (int64 ids) over the last dimension of ``forward``'s
+    or ``decode_step``'s ``vocab_local`` logits: ``torch.argmax`` where
+    the rank holds every column (``first`` None), else
+    ``collectives.vocab_parallel_argmax`` over "model" (bitwise the
+    argmax of the gathered logits)."""
+    if first is None:
+        return torch.argmax(logits, dim=-1)
+    return coll.vocab_parallel_argmax(logits, first, mesh)
 
 
 def make_train_step(cfg: ModelConfig, optimizer: AdamW, *, remat: str = "none",
@@ -230,7 +255,8 @@ def make_serve_step(cfg: ModelConfig, *, device="cuda", mesh=None,
     """One greedy decode step (reference :64): f(params, batch, state,
     moe_routing=None) → (next tokens (B, 1[, K]) int32, state'), the
     state written in place (``models.decode_step``). With ``mesh`` the
-    rank's shard and state; every row's tokens returned (module
+    rank's shard and state, the tokens picked over the rank's vocab
+    columns (``greedy_tokens``); every row's tokens returned (module
     docstring). ``shardings`` lays the shard out (default
     ``model_shardings``; the dry run passes ``param_shardings`` with
     ``physical_experts``, or ZeRO-3's, whose data-cut leaves are gathered
@@ -239,20 +265,20 @@ def make_serve_step(cfg: ModelConfig, *, device="cuda", mesh=None,
     On the card the step is a ``GraphedServeStep`` over this eager one
     (its ``eager``), under ``mesh`` too where the mesh is NCCL's: the
     graph captures its collectives (the tokens' gather over "data", the
-    model axis's sums, ``flash_decode``'s). On a gloo mesh it stays
-    eager: gloo collectives cannot be captured. On the CPU (and on meta
-    tensors) it is the eager function."""
+    model axis's sums, ``flash_decode``'s, the vocab pick's gather). On a
+    gloo mesh it stays eager: gloo collectives cannot be captured. On the
+    CPU (and on meta tensors) it is the eager function."""
     dev = resolve_device(device if mesh is None else mesh.device)
     pin_full_fp32_math()
 
     @torch.no_grad()
     def serve_step(params, batch: Batch, state, moe_routing: Optional[list] = None):
         local, rows = _rows(batch, mesh, dev)
-        logits, state = decode_step(params, local["tokens"], state, cfg,
-                                    cross_embeds=local.get("cross_embeds"),
-                                    start_pos=local.get("start_pos"), moe_routing=moe_routing,
-                                    mesh=mesh, rows=rows, shardings=shardings)
-        return _gather(torch.argmax(logits, dim=-1).to(torch.int32), mesh, rows), state
+        (logits, first), state = decode_step(
+            params, local["tokens"], state, cfg, cross_embeds=local.get("cross_embeds"),
+            start_pos=local.get("start_pos"), moe_routing=moe_routing, mesh=mesh, rows=rows,
+            shardings=shardings, vocab_local=True)
+        return _gather(greedy_tokens(logits, first, mesh).to(torch.int32), mesh, rows), state
 
     if dev.type == "cuda" and (mesh is None or mesh_capturable(mesh.group())):
         return GraphedServeStep(serve_step, dev, mesh=mesh)
@@ -376,7 +402,8 @@ def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = True,
     plain path), ``use_kernel_ssd`` (the default) every Mamba2 layer's
     scan through ``kernels.ssd.ops`` (K7 on the card); ``False`` takes the
     plain path. With ``mesh`` K3 and K7 run on the rank's heads and rows,
-    the head gathers the vocab of the last position only, and every row's
+    the head computes the rank's vocab columns of the last position only
+    and the token is picked over them (``greedy_tokens``), and every row's
     token is returned; ``shardings`` as ``make_serve_step``'s."""
     dev = resolve_device(device if mesh is None else mesh.device)
     pin_full_fp32_math()
@@ -384,12 +411,13 @@ def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = True,
     @torch.no_grad()
     def prefill_step(params, batch: Batch):
         local, rows = _rows(batch, mesh, dev)
-        logits, _ = forward(params, local["tokens"], cfg,
-                            cross_embeds=local.get("cross_embeds"),
-                            use_kernel_ssd=use_kernel_ssd, use_flash=use_flash,
-                            last_logits_only=last_logits_only, mesh=mesh, rows=rows,
-                            shardings=shardings)
+        (logits, first), _ = forward(params, local["tokens"], cfg,
+                                     cross_embeds=local.get("cross_embeds"),
+                                     use_kernel_ssd=use_kernel_ssd, use_flash=use_flash,
+                                     last_logits_only=last_logits_only, mesh=mesh, rows=rows,
+                                     shardings=shardings, vocab_local=True)
         # the next token after the last position of every sequence
-        return _gather(torch.argmax(logits[:, -1:], dim=-1).to(torch.int32), mesh, rows)
+        tokens = greedy_tokens(logits[:, -1:], first, mesh)
+        return _gather(tokens.to(torch.int32), mesh, rows)
 
     return prefill_step

@@ -34,7 +34,8 @@ collectives GSPMD inserts for the reference: the embedding looks up the
 ids of the rank's vocab slice (zeros elsewhere) and all-reduces; the
 mixers and MLPs run the rank's heads, experts or F slice and all-reduce
 their partial sums over "model", so the residual is the same bits on
-every model rank; the head gathers the vocab. Batch rows split over
+every model rank; the head gathers the vocab, or (``vocab_local``, the
+steps' path) leaves each rank its vocab columns. Batch rows split over
 "data" as the caller cuts them. The levers: ``attn_q_seq_shard``
 (``models/attention.py``), ``residual_seq_shard`` (the residual held
 split over the sequence between the sublayers: each partial sum is
@@ -429,26 +430,37 @@ def embed_tokens(params: Params, tokens: Tensor, cfg: ModelConfig, *,
 
 
 def lm_logits(params: Params, x: Tensor, cfg: ModelConfig, *,
-              shard: Optional[ParamSharding] = None, mesh=None) -> Tensor:
+              shard: Optional[ParamSharding] = None, mesh=None, vocab_local: bool = False):
     """x (B, S, E) → logits (B, S, V), or (B, S, K, V) with K codebooks;
     through the embedding when it is tied as the head (reference :116).
     A vocab-sharded head (``shard``: the head's, or the tied embedding's
     sharding) computes the rank's vocab columns and gathers the vocab
-    over "model"."""
+    over "model". ``vocab_local`` returns (logits, first) instead: the
+    rank's columns, ids [first, first + V/n), ungathered, as the
+    reference's GSPMD leaves them; first is None where the rank computes
+    every column (no mesh, one rank of "model", or a head whose vocab
+    does not divide "model" and stays replicated)."""
     K = cfg.num_codebooks
     vocab_dim = (1 if K > 1 else 0) if cfg.tie_embeddings else (2 if K > 1 else 1)
     if _vocab_split(shard, vocab_dim, mesh):
         # enter: the head's input meets the rank's vocab columns; after the
-        # gather every rank computes the same loss ("own")
+        # gather every rank computes the same loss ("own"); a vocab-local
+        # loss's backward gives each rank its columns' gradient alone
         x = coll.enter_model_region(x, mesh)
-        return coll.all_gather_dim(lm_logits(params, x, cfg), -1, mesh, backward="own")
+        local = lm_logits(params, x, cfg)
+        if vocab_local:
+            return local, model_rank(mesh)[1] * local.shape[-1]
+        return coll.all_gather_dim(local, -1, mesh, backward="own")
     if cfg.tie_embeddings:
         if cfg.num_codebooks > 1:
-            return torch.einsum("bse,kve->bskv", x, params["embed"])
-        return torch.einsum("bse,ve->bsv", x, params["embed"])
-    if cfg.num_codebooks > 1:
-        return torch.einsum("bse,kev->bskv", x, params["lm_head"])
-    return x @ params["lm_head"]
+            out = torch.einsum("bse,kve->bskv", x, params["embed"])
+        else:
+            out = torch.einsum("bse,ve->bsv", x, params["embed"])
+    elif cfg.num_codebooks > 1:
+        out = torch.einsum("bse,kev->bskv", x, params["lm_head"])
+    else:
+        out = x @ params["lm_head"]
+    return (out, None) if vocab_local else out
 
 
 # --------------------------------------------------------------------------
@@ -670,7 +682,7 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
             remat: str = "none", last_logits_only: bool = False,
             moe_routing: Optional[list] = None, mesh=None,
             rows=None, residual: Optional[list] = None,
-            shardings=None) -> Tuple[Tensor, Tensor]:
+            shardings=None, vocab_local: bool = False) -> Tuple[Any, Tensor]:
     """tokens (B, S) or, with K codebooks, (B, S, K) → (logits (B, S or 1,
     V) or (B, S or 1, K, V), the "E" layers' aux loss summed over the
     layers in order, fp32; 0 without "E" layers). ``cross_embeds`` (B,
@@ -701,7 +713,10 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
     GSPMD (its routing groups span the batch). Under autograd the
     collectives carry their backward passes (``parallel/collectives.py``),
     and ``remat`` recomputes a layer's collectives with it, in the same
-    order on every rank."""
+    order on every rank. ``vocab_local``: the logits are ``lm_logits``'s
+    (logits, first), the rank's vocab columns ungathered (the train,
+    prefill and serve steps take them into the vocab-parallel loss and
+    pick)."""
     _check_config(cfg)
     check_levers(cfg, mesh)
     if "X" in cfg.mixer_pattern and cross_embeds is None:
@@ -742,7 +757,8 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
     if residual is not None:
         residual.append(x)
     x = apply_norm(x, cfg.norm_type, params["final_norm"])
-    return lm_logits(params, x, cfg, **_head_kw(shards, _head_name(cfg), mesh)), aux
+    return lm_logits(params, x, cfg, vocab_local=vocab_local,
+                     **_head_kw(shards, _head_name(cfg), mesh)), aux
 
 
 def _head_name(cfg: ModelConfig) -> str:
@@ -818,8 +834,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
 
 def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: ModelConfig, *,
                 cross_embeds: Optional[Tensor] = None, start_pos: Optional[Tensor] = None,
-                moe_routing: Optional[list] = None, mesh=None, rows=None, shardings=None
-                ) -> Tuple[Tensor, Dict[str, Any]]:
+                moe_routing: Optional[list] = None, mesh=None, rows=None, shardings=None,
+                vocab_local: bool = False) -> Tuple[Any, Dict[str, Any]]:
     """One decode step. tokens (B, 1) or (B, 1, K) → (logits (B, 1, V) or
     (B, 1, K, V), state'). ``cross_embeds`` as in ``forward``.
 
@@ -834,7 +850,8 @@ def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: Mode
     group, so every lane (a free batcher slot too) takes capacity, and
     its aux loss is discarded, as in the reference; ``moe_routing`` as in
     ``forward``. ``mesh``, ``rows`` and ``shardings``: the rank's shard,
-    rows and state (``init_decode_state(mesh=)``), as in ``forward``."""
+    rows and state (``init_decode_state(mesh=)``), and ``vocab_local``,
+    as in ``forward``."""
     _check_config(cfg)
     check_levers(cfg, mesh)
     shards = None if mesh is None else (
@@ -873,4 +890,5 @@ def decode_step(params: Params, tokens: Tensor, state: Dict[str, Any], cfg: Mode
                 y, _ = attention_decode(bp["mixer"], h, cfg, mix, st, start_pos=start_pos, **kw)
             x, _ = _mlp_residual(bp, x + y, cfg, i, moe_routing, ctx)  # aux discarded
     x = apply_norm(x, cfg.norm_type, params["final_norm"])
-    return lm_logits(params, x, cfg, **_head_kw(shards, _head_name(cfg), mesh)), state
+    return lm_logits(params, x, cfg, vocab_local=vocab_local,
+                     **_head_kw(shards, _head_name(cfg), mesh)), state

@@ -9,7 +9,9 @@ a mesh, the collectives GSPMD inserts for the reference's forward and
 train steps: the sum of partial products over an axis
 (``all_reduce_sum``), the gather of a dimension (``all_gather_dim``),
 the reduce-scatter of a dimension (``reduce_scatter_dim``), and their
-backward passes.
+backward passes; and on the head's output, left cut over the vocabulary
+as GSPMD leaves it, the loss (``vocab_parallel_cross_entropy``) and the
+greedy pick (``vocab_parallel_argmax``).
 
 Every collective runs over a group of the port's ``Mesh``
 (``torch.distributed``: NCCL on the card, gloo on the CPU, or gloo on the
@@ -547,6 +549,89 @@ def all_gather_dim(t: Tensor, dim: int, mesh: Mesh, axes: Union[str, Sequence[st
     if _grad_on(t):
         return _AllGather.apply(t, dim, mesh, axes, backward)
     return _gather(t, dim, mesh, axes, None)
+
+
+def _max_(t: Tensor, mesh: Mesh, axes) -> Tensor:
+    """All-reduce (maximum) of the contiguous ``t`` over ``axes``, in place;
+    booked as a forward "all-reduce"."""
+    _count(t)
+    if _counted(t, mesh):
+        return t
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=axes_group(mesh, axes))
+    return t
+
+
+# The LM head's output stays cut over the vocabulary (the reference's
+# GSPMD keeps it so): a rank holds the logits of its V/n columns, the
+# loss and the greedy pick combine the ranks' partial results over
+# "model", and no rank builds the (rows, S, V) logits.
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, targets, first, mesh, axis):
+        Vl = logits.shape[-1]
+        m = _max_(logits.amax(dim=-1).contiguous(), mesh, (axis,))
+        e = torch.exp(logits - m[..., None])
+        local = targets.long() - first
+        inside = (local >= 0) & (local < Vl)
+        idx = local.clamp(0, Vl - 1)
+        own = torch.gather(logits, -1, idx[..., None])[..., 0].masked_fill(~inside, 0.0)
+        # Σexp and the target's logit (one rank holds it; the others add 0)
+        sums = _sum_(torch.stack([e.sum(dim=-1), own]), mesh, (axis,), None)
+        nll = torch.log(sums[0]) + m - sums[1]
+        ctx.save_for_backward(e.div_(sums[0][..., None]), idx, inside)
+        ctx.n = nll.numel()
+        return torch.mean(nll)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, inside = ctx.saved_tensors
+        grad = p.scatter_add(-1, idx[..., None], -inside.to(p.dtype)[..., None])
+        return grad.mul_(g / ctx.n), None, None, None, None
+
+
+def vocab_parallel_cross_entropy(logits: Tensor, targets: Tensor, first: int, mesh: Mesh,
+                                 axis: str = "model") -> Tensor:
+    """The mean cross-entropy of ``targets`` (..., an integer id a
+    position) under logits cut over the vocabulary across ``axis``
+    (Megatron's ``vocab_parallel_cross_entropy``): ``logits`` (..., V/n)
+    are this rank's columns, ids [first, first + V/n), cast to fp32 here.
+    The mean is over every position, as ``data.tokens.lm_loss`` takes it
+    (reference ``repro/data/tokens.py:92-98``): the caller passes the
+    predicting positions and the next tokens.
+
+    Forward: one all-reduce MAX of the row maxima, then one all-reduce SUM
+    of Σexp(l − max) and the target's logit packed together, so nll = log
+    Σ + max − l_target; every rank of ``axis`` gets the same bits, and the
+    sums run in the backend's fixed order (no atomics), so a second call
+    gives them again. Backward: (softmax − onehot)·g / N on the rank's
+    columns, with no collective (the head's input gradient is summed by
+    the ``enter_model_region`` before the head)."""
+    return _VocabParallelCE.apply(logits.to(torch.float32), targets, first, mesh, axis)
+
+
+def vocab_parallel_argmax(logits: Tensor, first: int, mesh: Mesh,
+                          axis: str = "model") -> Tensor:
+    """The greedy pick over logits cut over the vocabulary across
+    ``axis``: ``logits`` (..., V/n) are this rank's columns, ids [first,
+    first + V/n). Returns the global ids (...) int64, bitwise
+    ``torch.argmax`` of the gathered logits: each rank takes its first
+    local maximum and its id, one all-gather over ``axis`` collects the
+    (value, id) pairs, and the largest value wins, among equal values the
+    lowest id (the lowest rank's: the ranks' ids rise with the rank),
+    which is ``torch.argmax``'s rule. The pairs travel in fp32 (fp64 for
+    fp64 logits), which holds every bf16/fp32 value and every id below
+    2^24 exactly."""
+    dtype = torch.promote_types(logits.dtype, torch.float32)
+    if logits.shape[-1] * mesh.shape[axis] > 2 ** 24:
+        dtype = torch.float64
+    loc = torch.argmax(logits, dim=-1)
+    val = torch.gather(logits, -1, loc[..., None])[..., 0]
+    pairs = torch.stack([val.to(dtype), (loc + first).to(dtype)], dim=-1)
+    every = _gather(pairs[None], 0, mesh, (axis,), None)  # (n, ..., 2)
+    win = torch.argmax(every[..., 0], dim=0)
+    return torch.gather(every[..., 1], 0, win[None])[0].long()
 
 
 def gather_whole(t: Tensor, sharding) -> Tensor:

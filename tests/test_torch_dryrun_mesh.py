@@ -25,9 +25,12 @@
 * The mirrors of ``tests/test_dryrun_integration.py``'s two slow tests:
   qwen1.5-0.5b ``train_4k`` at 1pod on 256 devices, its FLOPs a rank
   within 10 % of the reference's committed record (XLA's ``flops`` also
-  counts elementwise work, the port's products only); ``decode_32k`` at
-  2pod on 512 devices with the reference's 49 all-reduces (its record's
-  ``counts_r2`` of 5 at two layers is 1 + 2·2, so 1 + 2·24 at 24).
+  counts elementwise work, the port's products only), with the record's
+  op kinds (all-reduces only: the loss runs on the vocab-sharded logits)
+  and no tensor above the rank's fp32 logits; ``decode_32k`` at 2pod on
+  512 devices with the reference's 49 all-reduces (its record's
+  ``counts_r2`` of 5 at two layers is 1 + 2·2, so 1 + 2·24 at 24) and its
+  two all-gathers (the tokens, and the vocab pick's (value, id) pairs).
 * Every one of the 12 mesh variants of ``launch/perf.py`` on a scaled-down
   granite at 1pod, appended after its shape's baseline: "fsdp" holds
   fewer parameter bytes a rank, "zero1" fewer moment bytes, the
@@ -243,6 +246,11 @@ def test_qwen_train_4k_1pod_against_the_reference_record():
     assert rec["collectives"]["total_bytes"] > 0
     assert rec["cost"]["flops"] == pytest.approx(want["cost"]["flops"], rel=0.10)
     assert rec["rank"]["rows"] == 16 and rec["rank"]["layers"] == [0, 24]
+    # the loss on the vocab-sharded logits, as GSPMD keeps it: the
+    # reference's op kinds (all-reduces only, no gather of the logits), and
+    # no tensor above the rank's (16, 4096, 151936 / 16) fp32 logits
+    assert set(rec["collectives"]["bytes_by_kind"]) == set(want["collectives"]["bytes_by_kind"])
+    assert rec["memory"]["largest_tensor"]["bytes"] <= 16 * 4096 * (151936 // 16) * 4
 
 
 def test_qwen_decode_32k_2pod_books_the_reference_all_reduces():
@@ -252,6 +260,12 @@ def test_qwen_decode_32k_2pod_books_the_reference_all_reduces():
     assert rec["collectives"]["counts"]["all-reduce"] == 1 + 2 * 24 == 49
     assert want["collectives"]["counts_r2"]["all-reduce"] == 1 + 2 * 2
     assert rec["rank"]["rows"] == 128 // 32
+    # the reference's two gathers: the tokens (128 int32) and the vocab
+    # pick's (value, id) pairs in fp32 over 16 model ranks (4 rows), never
+    # the logits
+    assert rec["collectives"]["counts"]["all-gather"] == \
+        want["collectives"]["counts_r2"]["all-gather"] == 2
+    assert rec["collectives"]["bytes_by_kind"]["all-gather"] == 128 * 4 + 16 * 4 * 2 * 4
 
 
 def test_counting_lists_the_gathers_results():
@@ -270,11 +284,15 @@ def test_counting_lists_the_gathers_results():
 
 def test_largest_tensor_names_a_counted_gather():
     """A rank's largest tensor made by a counted collective is named by
-    its op and kind: qwen1.5-0.5b's long_500k decode step, whose largest
-    tensor is the head's vocab gather of one row."""
-    rec = dryrun.run_one("qwen1.5-0.5b", "long_500k", mesh="1pod", save=False, verbose=False)
-    assert rec["memory"]["largest_tensor"] == {"bytes": 151936 * 2, "op": "all-gather (forward)",
-                                               "shape": [1, 1, 151936]}
+    its op and kind: qwen1.5-0.5b's long_500k decode step under ZeRO-3,
+    whose largest tensor is the gather of the rank's vocab block of the
+    embedding over the data axes. (The head's logits are no longer
+    gathered: the step picks its token over the rank's vocab columns.)"""
+    rec = dryrun.run_one("qwen1.5-0.5b", "long_500k", mesh="1pod", fsdp=True, save=False,
+                         verbose=False)
+    assert rec["memory"]["largest_tensor"] == {"bytes": 151936 // 16 * 1024 * 2,
+                                               "op": "all-gather (fsdp_gather)",
+                                               "shape": [151936 // 16, 1024]}
 
 
 #: (config, prefill length): "A" over heads that split over 16 ranks and

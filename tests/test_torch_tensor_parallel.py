@@ -389,7 +389,9 @@ def test_lm_selftest_against_unsharded_record(tmp_path):
     then the flash-decode lever, then (2, 1)) against an unsharded record
     made here by ``lm_record``: the comparison passes, every rank agrees,
     and the prefill's collectives are one embedding all-reduce, two a
-    layer and the head's gather."""
+    layer and the vocab pick's gather of (value, id) pairs (the head's
+    logits stay cut over the vocabulary), each pick bitwise the gathered
+    argmax."""
     from repro_torch.launch import sharded_selftest as st
 
     cfg = st.lm_config("gemma3-12b", reduced=True)
@@ -404,6 +406,7 @@ def test_lm_selftest_against_unsharded_record(tmp_path):
     assert res["ok"], res
     one = res["lm"][0]
     assert one["ranks_agree"] and one["compare"]["token_mismatches"] == 0
+    assert one["pick_bitwise"]
     assert [r["prefill_counts"]["collectives"] for r in one["ranks"]] == [
         2 + 2 * cfg.num_layers] * 2
     rows = torch.load(str(tmp_path / "rows.pt"))
