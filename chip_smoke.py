@@ -95,6 +95,35 @@ Phases; any failure exits non-zero before the result line is printed:
              window's elapsed time on the device over the call's wall
              (elapsed, not busy: CUPTI cannot trace the WHILE node, so
              gaps inside the window are not seen).
+3b. guided — controlled generation from HIGHRES_DIT (``run_guided``;
+             the same seeded, livened weights, flash, fused step, fp32,
+             batch 8, eps_rel 0.05): classifier-free guidance at scale
+             GUIDED_CFG on the net made class-conditional (labels cycling
+             0..9, one forward over 16 rows an evaluation) and inpainting
+             of the launcher's checkerboard (``launch.sample.guidance``),
+             each through ``sample()`` with its conditioner and payload in
+             phase 3's graphed gates (``graphed_vs_host``: the first call
+             host-driven, the second captures, the replay bitwise the
+             host-driven chain, ring included); then a replay with another
+             payload (labels shifted by 5; the complementary mask with the
+             observed values negated): bitwise a host-driven solve with
+             that payload, no capture, one host read, and not the first
+             payload's sample (a payload baked into the capture would
+             replay it); observed pixels exactly the observed values on
+             both payloads; a replayed call's launches K1 one a body
+             iteration, K3 num_layers·(2·body iterations + 1), P1 1 +
+             draws·body iterations (1 CFG, 2 inpainting), P2 the horizons
+             + 1. Then ``launch.serve.serve_diffusion`` with each
+             conditioner (GUIDED_SERVE_SLOTS slots, GUIDED_SERVE_REQUESTS
+             requests, horizon SERVE_HORIZON) host-driven and
+             device-resident: the two drains bitwise, the host-driven one
+             K1 one and K3 2·num_layers a body iteration, observed pixels
+             exact, and GUIDED_SOLO requests each bitwise its solo run
+             (``uids=[u]``). K3 at CFG's (16, 12, 256, 64) (phase 2 holds
+             it against its plain version) timed beside its plain version,
+             SDPA and its 3xTF32 bound.
+             ``--only-guided`` runs the build and this phase alone and
+             prints no result line.
 4. plan    — the second main path, ``repro_torch.planning.plan``: the
              temporal UNet TRAJ_UNET (attention, flash, fused GroupNorm →
              SiLU; weights from seed 0, zero-init leaves livened), VP SDE,
@@ -466,11 +495,12 @@ Phases; any failure exits non-zero before the result line is printed:
              plain path's dense count beside it, each line with the card's
              name and power limit; a share above 1.05 fails.
 10. LM mesh — the language models served under a ("data", "model")
-             mesh (fp32, TF32 off, seed 0; ``run_lm_mesh``): gemma3-12b
-             whole (prefill (1, 4096), 16 greedy decode steps of 4),
-             mamba2-2.7b whole ((4, 2048), 16 × 4), deepseek-moe-16b's
-             first 4 layers and llama-3.2-vision-90b's 5-layer period
-             ((1, 4096), 8 × 4): (a) each unsharded here, its record
+             mesh (fp32, TF32 off, seed 0; ``run_lm_mesh``): gemma3-12b's
+             6-layer period (5 "L" + 1 "A"; prefill (1, 4096), 16 greedy
+             decode steps of 4), mamba2-2.7b's first 8 layers ((4, 2048),
+             16 × 4), deepseek-moe-16b's first 2 layers and
+             llama-3.2-vision-90b's 5-layer period ((1, 4096), 8 × 4); the
+             depths of LM_MESH_RUNS: (a) each unsharded here, its record
              written, the model freed before any spawn; (b) world 1 over
              NCCL in this process (``run_world1``), mesh 1×1, every record
              bitwise the unsharded one; (c)
@@ -481,8 +511,8 @@ Phases; any failure exits non-zero before the result line is printed:
              within LM_LOGIT_TOL·max|logit| of the unsharded run's (teacher
              forced on its tokens), greedy tokens equal except below the
              top-2 gap, deepseek's prefill by ``hold_moe_logits``; K3 and
-             K7 launched on every rank once a layer (gemma3 48, deepseek 4,
-             llama 4, mamba2 K7 64); every rank's residual and tokens the
+             K7 launched on every rank once a layer (gemma3 6, deepseek 2,
+             llama 4, mamba2 K7 8); every rank's residual and tokens the
              same bits; every greedy pick over the rank's vocab columns
              (``collectives.vocab_parallel_argmax``, the steps' pick at
              1×2) bitwise the argmax of the gathered logits; the walls,
@@ -503,15 +533,15 @@ Phases; any failure exits non-zero before the result line is printed:
 11. training mesh — LM training under a ("data", "model") mesh (fp32,
              TF32 off, seed 0, the plain attention and SSD, AdamW at
              phase 7e's lr 3e-4; ``run_train_mesh``): (a) world 1 over
-             NCCL in this process, mesh 1×1, musicgen-medium whole,
+             NCCL in this process, mesh 1×1, musicgen-medium at 6 layers,
              ``train_loop`` 3 steps of 2 × 512 unsharded and under the
              mesh: every loss and the final parameters bitwise; (b) world
              2 over gloo, both ranks on this card, one spawn
              (``sharded_selftest --train-plan``, ``train_mesh_plan``):
-             musicgen-medium at 12 layers on 1×2 "tp" and "tp" with remat
-             "full", at 4 layers on 2×1 data parallel, "fsdp" and "zero1",
+             musicgen-medium at 6 layers on 1×2 "tp" and "tp" with remat
+             "full", at 2 layers on 2×1 data parallel, "fsdp" and "zero1",
              3 steps each; gemma3-12b's 6-layer period, mamba2-2.7b's first 8
-             layers and deepseek-moe-16b's first 4 one step each at 1×2;
+             layers and deepseek-moe-16b's first 2 one step each at 1×2;
              each rank trains the unsharded port first, the ranks at once,
              as the record: every gradient and new block
              within the CPU tests' bounds (2e-4·(1 + max|g|); the update's,
@@ -586,10 +616,16 @@ SSD_WORK_CHUNK = 64
 SSD_TOL = 6e-4
 #: phase 10, the LMs under a ("data", "model") mesh: (arch, layers (None: all), prefill
 #: (B, S), decode (B, steps)); each also decoded with decode_flash_shard="model"
-#: where the last field is set
-LM_MESH_RUNS = (("gemma3-12b", None, (1, 4096), (4, 16), True),
-                ("mamba2-2.7b", None, (4, 2048), (4, 16), False),
-                ("deepseek-moe-16b", 4, (1, 4096), (4, 8), False),
+#: where the last field is set. gemma3-12b runs one period (5 "L" + 1 "A") and
+#: mamba2-2.7b its first 8 layers: whole (48 and 64 layers) the phase took
+#: 130.9-148.3 s of a 946.5 s run (an H100 80GB HBM3 at 700 W), 101.6 s of it
+#: the world-2 gloo spawn
+#: (gemma3's 1x2 prefill 10.7 s and flash-decode 14.8 s a rank, each collective
+#: staged through the host), so the depth is cut to make room for phase 3b, and
+#: deepseek-moe-16b's from 4 layers to 2 ("A" + "E" each)
+LM_MESH_RUNS = (("gemma3-12b", 6, (1, 4096), (4, 16), True),
+                ("mamba2-2.7b", 8, (4, 2048), (4, 16), False),
+                ("deepseek-moe-16b", 2, (1, 4096), (4, 8), False),
                 ("llama-3.2-vision-90b", 5, (1, 4096), (4, 8), False))
 #: phase 10 (d): gemma3-12b with the rows split over "data", mesh (2, 1), cut to 12
 #: layers (two whole replicas, 2 x 51 GB, do not fit one card)
@@ -720,26 +756,36 @@ TRAIN_MESH_ARCH, TRAIN_MESH_STEPS, TRAIN_MESH_SHAPE, TRAIN_MESH_LR = (
 #: wall grows with depth: at 48 and 12 layers it took 157-243 s of the script's
 #: 1200 (whole runs 884-1091 s), at 24 and 4 120.5 s of a 901 s run (the
 #: 24-layer "tp" runs 27.3 and 12.7 s of it, their unsharded record 7.3 s), so
-#: the "tp" runs are cut to 12 layers to make room for phases 8 and 10's graphs
-TRAIN_MESH_TP_LAYERS, TRAIN_MESH_DATA_LAYERS = 12, 4
+#: the "tp" runs were cut to 12 layers to make room for phases 8 and 10's graphs;
+#: at 12 layers they took 19.4 and 6.9 s of a 100.5 s phase (the same card), and
+#: they are cut to 6 to make room for phase 3b, the 2×1 runs from 4 layers (4.5-8.1
+#: s each) to 2, and the world-1 train_loop from all 48 layers to the "tp" depth
+TRAIN_MESH_TP_LAYERS, TRAIN_MESH_DATA_LAYERS = 6, 2
 #: phase 11's other mixers at full width, one step at 1×2: (arch, layers); gemma3's
-#: one period of 5 "L" and an "A", mamba2's first 8 "M" layers, deepseek's first 4
-#: ("A" + "E", 64 experts, 32 a rank)
-TRAIN_MESH_MIXERS = (("gemma3-12b", 6), ("mamba2-2.7b", 8), ("deepseek-moe-16b", 4))
+#: one period of 5 "L" and an "A", mamba2's first 8 "M" layers, deepseek's first 2
+#: ("A" + "E", 64 experts, 32 a rank; at 4 layers its run took 12.9 s, 6.6 s of it
+#: each rank's unsharded record)
+TRAIN_MESH_MIXERS = (("gemma3-12b", 6), ("mamba2-2.7b", 8), ("deepseek-moe-16b", 2))
 #: seconds each phase-11 selftest may take
 TRAIN_MESH_TIMEOUT_S = 360
 #: the peak allocated GiB a rank of phase 11's 1×2 runs (arch, layers, remat)
 #: when the train step still gathered the logits over "model" (the version
 #: of this script before the vocab-parallel loss, on an H100 80GB HBM3 at
-#: 700 W), printed beside the vocab-parallel loss's peak
-TRAIN_MESH_GATHER_PEAK_GIB = {("musicgen-medium", 12, "none"): 3.43,
-                              ("musicgen-medium", 12, "full"): 2.98,
-                              ("gemma3-12b", 6, "none"): 25.22,
-                              ("mamba2-2.7b", 8, "none"): 6.53,
-                              ("deepseek-moe-16b", 4, "none"): 21.7}
+#: 700 W), printed beside the vocab-parallel loss's peak, for the runs whose
+#: depth has one
+TRAIN_MESH_GATHER_PEAK_GIB = {("gemma3-12b", 6, "none"): 25.22,
+                              ("mamba2-2.7b", 8, "none"): 6.53}
 #: one train step under remat "full" against "none": the same products on
 #: the same inputs, so the same loss up to this relative difference
 REMAT_LOSS_RTOL = 1e-6
+
+#: phase 3b, controlled generation from HIGHRES_DIT: the classifier-free
+#: guidance scale; the served drains' slots and requests, and the requests
+#: also served alone (GUIDED_SOLO)
+GUIDED_CFG = 1.5
+GUIDED_SERVE_SLOTS, GUIDED_SERVE_REQUESTS, GUIDED_SOLO = 8, 12, (0, 5, 11)
+#: K3's shape in CFG's forward of HIGHRES_DIT at batch 8, (2·8, Hq, Hkv, S, Dh)
+CFG_ATTN = (16, 12, 12, 256, 64)
 
 #: phase 4b's graphed baselines from HIGHRES_DIT (batch 8): (name, method,
 #: kwargs), each about 60 evaluations (VP grids of more than β_max = 20
@@ -2105,13 +2151,180 @@ def graphed_vs_host(label: str, card: str, call, host) -> dict:
             "second_launches": second["launches"], "horizon_cond": replay["p2"],
             "host_reads": replay["syncs"], "host_driven_reads": hostr["syncs"],
             "build_s": drv.build_s, "window_ms": window_ms, "window_call_s": window_wall,
-            "window_share": window_ms / (window_wall * 1e3)}
+            "window_share": window_ms / (window_wall * 1e3), "result": replay["res"]}
+
+
+def guided_launches(guided: dict, kernel: str, what: str) -> dict:
+    """A kernel's launches in phase 3b: a replayed graphed call of each
+    conditioner, the host-driven one, and each served drain."""
+    return {"launched_as": what + ": a replayed graphed call, the host-driven chain, the "
+                                  "served drains (host-driven, device-resident)",
+            **{k: guided[k]["graphed"]["launches"][kernel] for k in ("cfg", "inpaint")},
+            "host_driven": {k: guided[k]["graphed"]["first_launches"][kernel]
+                            for k in ("cfg", "inpaint")},
+            "served": {k: {d: v["launches"][kernel] for d, v in guided[k]["served"].items()}
+                       for k in ("cfg", "inpaint")}}
 
 
 def drv_horizon(drv) -> int:
     """The iterations of a cached Algorithm-1 driver's captured horizon."""
     from repro_torch.core.solvers import adaptive as ad
     return next(k.static[1] for k, d in ad._drivers.items() if d is drv)
+
+
+def run_guided(dev, card: str) -> dict:
+    """Phase 3b: controlled generation from HIGHRES_DIT (module docstring):
+    CFG and inpainting through ``sample()`` graphed against the
+    host-driven chain, a replay with another payload, the launch counts,
+    then ``serve_diffusion`` with each conditioner on both drivers and
+    solo runs, and K3 at CFG's shape timed. Returns the numbers of the
+    kernels line."""
+    from repro_torch.configs.diffusion import HIGHRES_DIT
+    from repro_torch.core.sampling import sample
+    from repro_torch.core.sde import VPSDE
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.launch import sample as launcher
+    from repro_torch.launch.serve import serve_diffusion
+    from repro_torch.models.dit import make_score_fn
+
+    t_phase = time.perf_counter()
+    sde, B = VPSDE(), 8
+    out = {}
+    for kind in ("cfg", "inpaint"):
+        guide = dict(cfg_scale=GUIDED_CFG) if kind == "cfg" else dict(inpaint=True)
+        net = dataclasses.replace(HIGHRES_DIT, use_flash=True, num_classes=(
+            launcher.DEMO_CLASSES if kind == "cfg" else 0))
+        model = launcher.seeded_dit(net, seed=0, liven_seed=0, device=dev)
+        score = make_score_fn(model, sde)
+        conditioner, cond, name = launcher.guidance(B, net, **guide)
+        if kind == "cfg":
+            other = {"label": (cond["label"] + 5) % launcher.DEMO_CLASSES}
+        else:
+            other = {"mask": 1.0 - cond["mask"], "observed": -cond["observed"]}
+        gcfg = ad.AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True, max_iters=MAIN_MAX_ITERS,
+                                 telemetry_capacity=GRAPH_RING, conditioner=conditioner)
+        shape = (B, net.image_size, net.image_size, net.channels)
+        call = lambda c=cond: sample(sde, score, shape, seed=0, config=gcfg, cond=c, device=dev)
+        host = lambda c=cond: host_chain(sde, score, shape, 0, gcfg, dev, cond=c)
+        g = graphed_vs_host(f"HIGHRES_DIT {name}", card, call, host)
+        # the counts of a replayed call: K1 one a body iteration (whole groups
+        # of SYNC_EVERY), K3 a forward's layers for each of 2 a body iteration
+        # and the denoise (CFG: one forward over 2B rows), P1 the prior and
+        # the draws of each body iteration
+        its = g["iterations"]
+        body = ad.SYNC_EVERY * -(-its // ad.SYNC_EVERY)
+        draws = ad.draws_per_iteration(gcfg)
+        want = {"solver_step": body, "flash_attention": net.num_layers * (2 * body + 1),
+                "groupnorm_silu": 0, "philox_normal": 1 + draws * body}
+        print(f"  [{card}] {name}: {its} iterations, {body} body iterations; a replayed call's "
+              f"launches {g['launches']} (want {want}), P2 {g['horizon_cond']} (the "
+              f"{-(-its // ad.SYNC_EVERY)} horizons + 1); mean NFE {g['mean_nfe']:.2f}; "
+              f"replayed {g['replay_s']:.3f} s, host-driven {g['host_s']:.3f} s")
+        if g["launches"] != want:
+            fail(f"{name}: a replayed call launched {g['launches']}, want {want}")
+        # the cached driver fed another payload: a replay reads the payload
+        # from the driver's buffers, so its sample is the host-driven
+        # solve's with that payload, not the first payload's
+        zero_kernel_counts()
+        c0, s0 = ad.captures, ad.host_syncs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        swapped = call(other)
+        torch.cuda.synchronize()
+        swap_s = time.perf_counter() - t0
+        swap = dict(captures=ad.captures - c0, syncs=ad.host_syncs - s0,
+                    launches=kernel_counts())
+        host_other, _ = host(other)
+        same = all(torch.equal(getattr(swapped, f), getattr(host_other, f))
+                   for f in GRAPH_FIELDS)
+        moved = not torch.equal(swapped.x, g["result"].x)
+        exact = {}
+        if kind == "inpaint":
+            for label, res, c in (("first", g["result"], cond), ("other", swapped, other)):
+                m = c["mask"].to(dev) > 0
+                exact[label] = bool(torch.equal(res.x[m], c["observed"].to(dev)[m]))
+        print(f"  [{card}] {name} replayed with another payload: {swap_s:.3f} s, bitwise the "
+              f"host-driven solve with it {same}, another sample than the first payload's "
+              f"{moved}; captures {swap['captures']}, host reads {swap['syncs']}, launches "
+              f"{swap['launches']}" + (f"; observed pixels exact {exact}" if exact else ""))
+        if not same or not moved:
+            fail(f"{name}: a replay with another payload is not the host-driven solve with it")
+        if swap["captures"] != 0 or swap["syncs"] != 1:
+            fail(f"{name}: the payload swap captured {swap['captures']} graphs and read the "
+                 f"host {swap['syncs']} times (want a replay: 0 and 1)")
+        if exact and not all(exact.values()):
+            fail(f"{name}: observed pixels are not the observed values exactly")
+        del model, score, swapped, host_other
+        gc.collect()
+
+        # served: both drivers, then GUIDED_SOLO requests each alone
+        served = {}
+        for resident in (False, True):
+            zero_kernel_counts()
+            rec = serve_diffusion(slots=GUIDED_SERVE_SLOTS, requests=GUIDED_SERVE_REQUESTS,
+                                  arch="highres_dit", sync_horizon=SERVE_HORIZON,
+                                  device_resident=resident, device=dev, **guide)
+            served["device_resident" if resident else "host"] = dict(
+                rec=rec, launches=kernel_counts())
+            gc.collect()
+        hrec, drec = served["host"]["rec"], served["device_resident"]["rec"]
+        done, ddone = hrec["delivered"], drec["delivered"]
+        body_s = SERVE_HORIZON * hrec["horizon_windows"]
+        got = served["host"]["launches"]
+        want_s = {"solver_step": body_s, "flash_attention": 2 * net.num_layers * body_s}
+        resident_same = sorted(done) == sorted(ddone) and all(
+            np.array_equal(done[u].result, ddone[u].result) and done[u].nfe == ddone[u].nfe
+            for u in done)
+        exact_s = all(np.array_equal(r.result[np.asarray(r.cond["mask"]) > 0],
+                                     np.asarray(r.cond["observed"])[np.asarray(r.cond["mask"]) > 0])
+                      for r in done.values()) if kind == "inpaint" else None
+        finite = all(np.isfinite(r.result).all() and r.result.shape == shape[1:]
+                     for r in done.values())
+        solo = {}
+        for u in GUIDED_SOLO:
+            one = serve_diffusion(slots=GUIDED_SERVE_SLOTS, requests=GUIDED_SERVE_REQUESTS,
+                                  arch="highres_dit", sync_horizon=SERVE_HORIZON, uids=[u],
+                                  device=dev, **guide)["delivered"]
+            solo[u] = (np.array_equal(one[u].result, done[u].result)
+                       and one[u].nfe == done[u].nfe)
+            gc.collect()
+        print(f"  [{card}] {name} served ({GUIDED_SERVE_SLOTS} slots, "
+              f"{GUIDED_SERVE_REQUESTS} requests, horizon {SERVE_HORIZON}): host-driven "
+              f"{hrec['wall_s']:.3f} s ({hrec['completed']} delivered, mean NFE "
+              f"{hrec['mean_nfe']:.2f}, {body_s} body iterations, host transfers "
+              f"{hrec['host_transfers']}), device-resident {drec['wall_s']:.3f} s (host "
+              f"transfers {drec['host_transfers']}, windows {drec['horizon_windows']}); "
+              f"launches host-driven {got} (want K1 {want_s['solver_step']}, K3 "
+              f"{want_s['flash_attention']}; P1 {got['philox_normal']}: {draws} a body "
+              f"iteration and one an admission round), device-resident "
+              f"{served['device_resident']['launches']}; device-resident bitwise the "
+              f"host-driven drain {resident_same}; finite at {shape[1:]} {finite}; "
+              + (f"observed pixels exact {exact_s}; " if exact_s is not None else "")
+              + f"solo runs bitwise the drain's {solo}")
+        if {k: got[k] for k in want_s} != want_s:
+            fail(f"{name} served: launches {got}, want {want_s}")
+        if not draws * body_s < got["philox_normal"] <= draws * body_s + GUIDED_SERVE_REQUESTS:
+            fail(f"{name} served: {got['philox_normal']} P1 launches, not {draws} a body "
+                 f"iteration plus at most one an admission")
+        if not (resident_same and finite and all(solo.values()) and exact_s is not False
+                and hrec["completed"] == GUIDED_SERVE_REQUESTS):
+            fail(f"{name} served: a request differs between the drivers or from its solo run, "
+                 f"is not finite, or misses its observed pixels")
+        g = {k: v for k, v in g.items() if k != "result"}
+        out[kind] = {"graphed": g, "body_iterations": body, "swap_s": swap_s,
+                     "served": {k: {"wall_s": v["rec"]["wall_s"],
+                                    "mean_nfe": v["rec"]["mean_nfe"],
+                                    "host_transfers": v["rec"]["host_transfers"],
+                                    "windows": v["rec"]["horizon_windows"],
+                                    "launches": v["launches"]} for k, v in served.items()}}
+        del served, done, ddone, hrec, drec
+        gc.collect()
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out["k3"] = k3_times(dev, gen, card, {"cfg": CFG_ATTN})["cfg"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  [{card}] guided phase {out['phase_s']:.1f} s")
+    return out
 
 
 def graphed_baseline(label: str, card: str, solve, per_draw: int = 1) -> dict:
@@ -4048,14 +4261,20 @@ def graphed_mesh_checks(runs: dict, card: str) -> dict:
 
 
 def k3_mesh_times(dev, gen, card: str) -> dict:
-    """K3 at checks 7 and 8's shapes, fp32, non-causal: device ms beside its
-    plain version, SDPA and the 3xTF32 bound (3 x 4·B·H·S²·D at 495
-    TFLOP/s, or the bytes at 3.35 TB/s if larger)."""
+    """K3 at checks 7 and 8's shapes (``k3_times``)."""
+    return k3_times(dev, gen, card, {"pipeline": PIPE_ATTN, "tensor_parallel": TP_ATTN})
+
+
+def k3_times(dev, gen, card: str, shapes: dict) -> dict:
+    """K3 at each of ``shapes`` ({name: (B, Hq, Hkv, S, D)}), fp32,
+    non-causal: device ms beside its plain version, SDPA and the 3xTF32
+    bound (3 x 4·B·H·S²·D at 495 TFLOP/s, or the bytes at 3.35 TB/s if
+    larger)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
 
     out = {}
-    for name, (b, h, _, s, dh) in (("pipeline", PIPE_ATTN), ("tensor_parallel", TP_ATTN)):
+    for name, (b, h, _, s, dh) in shapes.items():
         sets = [tuple(torch.randn(b, h, s, dh, generator=gen, device=dev) for _ in range(3))
                 for _ in range(4)]
         ms = device_ms(lambda q, k, v: flash_ops.attention(q, k, v, causal=False), sets)
@@ -5277,8 +5496,8 @@ def per_step_counts(counts: list) -> str:
 def run_train_mesh(dev, card: str) -> dict:
     """Phase 11: LM training under a ("data", "model") mesh (fp32, TF32 off,
     seeded weights, the plain attention and SSD: no kernel has a backward).
-    (a) World 1 over NCCL in this process, mesh 1×1: musicgen-medium
-    whole, ``train_loop``
+    (a) World 1 over NCCL in this process, mesh 1×1: musicgen-medium at
+    ``TRAIN_MESH_TP_LAYERS`` layers, ``train_loop``
     for ``TRAIN_MESH_STEPS`` steps of ``TRAIN_MESH_SHAPE`` unsharded and
     under the mesh, every loss and the final parameters bitwise. (b) World
     2 over gloo, both ranks on this card (``train_mesh_plan``): every
@@ -5300,10 +5519,12 @@ def run_train_mesh(dev, card: str) -> dict:
     from repro_torch.launch import sharded_selftest as st
 
     one = run_world1(st.run_train, [dict(arch=TRAIN_MESH_ARCH, kind="train_loop", mesh=[1, 1],
-                                         steps=TRAIN_MESH_STEPS, batch=B, seq=S,
-                                         lr=TRAIN_MESH_LR)], "training selftest")
+                                         layers=TRAIN_MESH_TP_LAYERS, steps=TRAIN_MESH_STEPS,
+                                         batch=B, seq=S, lr=TRAIN_MESH_LR)],
+                     "training selftest")
     r = one["train"][0]
-    print(f"  [{card}] world 1 (NCCL) {TRAIN_MESH_ARCH} train_loop mesh 1x1, {TRAIN_MESH_STEPS} "
+    print(f"  [{card}] world 1 (NCCL) {TRAIN_MESH_ARCH} ({r['layers']} layers) train_loop mesh "
+          f"1x1, {TRAIN_MESH_STEPS} "
           f"steps of {B} x {S}: losses {r['losses']} (unsharded {r['plain_losses']}), losses "
           f"bitwise {r['losses_bitwise']}, parameters bitwise {r['params_bitwise']} (max abs "
           f"err {r['max_abs_err']:.3e}); step walls {[round(t, 3) for t in r['step_s']]} s "
@@ -5348,7 +5569,9 @@ def run_train_mesh(dev, card: str) -> dict:
             print(f"  [{card}] {label}: the first step's books by op kind "
                   f"{[p['ops'] for p in ranks]}; peak {[p['peak_gib'] for p in ranks]} GiB "
                   f"({[int(p['peak_gib'] * 2**30) for p in ranks]} B) a rank with the "
-                  f"vocab-parallel loss, {was} GiB when the logits were gathered")
+                  f"vocab-parallel loss, "
+                  + ("not measured at this depth" if was is None else f"{was} GiB")
+                  + " when the logits were gathered")
             if any("all-gather" in p["ops"] for p in ranks):
                 fail(f"{label}: the train step booked an all-gather (the logits' gather over "
                      f"\"model\" is gone with the vocab-parallel loss)")
@@ -5418,6 +5641,7 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     only_lm_mesh = "--only-lm-mesh" in sys.argv[1:]
     only_train_mesh = "--only-train-mesh" in sys.argv[1:]
+    only_guided = "--only-guided" in sys.argv[1:]
 
     # ------------------------------------------------------------ 1. build
     phase("build")
@@ -5440,6 +5664,14 @@ def main() -> None:
                               text=True).stdout.strip()
         phase("LM training under a (data, model) mesh (only this phase)")
         run_train_mesh(dev, card)
+        return
+    if only_guided:  # the same for phase 3b
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True).stdout.strip()
+        phase("controlled generation from HIGHRES_DIT (only this phase)")
+        run_guided(dev, card)
+        phase(None)
         return
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5499,6 +5731,7 @@ def main() -> None:
             (*plan_attn, False, None, None, torch.float32),
             (*plan_attn, False, None, None, torch.bfloat16),
             (*served_attn, False, None, None, torch.float32),
+            (*CFG_ATTN, False, None, None, torch.float32),  # phase 3b's CFG forward
             (*PIPE_ATTN, False, None, None, torch.float32),  # phase 8's check 7
             (*TP_ATTN, False, None, None, torch.float32),  # phase 8's check 8
             (2, 4, 2, 200, 32, True, 64, None, torch.float32),
@@ -5806,6 +6039,11 @@ def main() -> None:
     print(f"  graph drivers cached: {cached} with the net, {len(ad._drivers)} after dropping it")
     if len(ad._drivers) != cached - 1:
         fail("dropping the score net did not drop its cached graph driver")
+
+    # ------------------------------------------------------------ 3b. guided
+    phase("controlled generation from HIGHRES_DIT: classifier-free guidance and inpainting, "
+          "graphed and served (K1, K3, P1, P2)")
+    guided = run_guided(dev, card)
 
     # ------------------------------------------------------------- 4. plan
     phase("main path: guided planning through TRAJ_UNET with all three kernels")
@@ -6344,6 +6582,13 @@ def main() -> None:
               f"{k} {v['first_s']:.3f}, {v['replay_s']:.3f}, {v['host_s']:.3f}; "
               f"{v['host_reads']} vs {v['host_driven_reads']}; {v['window_share']:.2f}"
               for k, v in graphed_all.items()))
+    print(f"graphed guided solves [{card}] (s: first call, replayed, host-driven, replayed "
+          f"with another payload; iterations; reads; window share): " + "; ".join(
+              f"{k} {v['graphed']['first_s']:.3f}, {v['graphed']['replay_s']:.3f}, "
+              f"{v['graphed']['host_s']:.3f}, {v['swap_s']:.3f}; {v['graphed']['iterations']}; "
+              f"{v['graphed']['host_reads']} vs {v['graphed']['host_driven_reads']}; "
+              f"{v['graphed']['window_share']:.2f}" for k, v in guided.items()
+              if k in ("cfg", "inpaint")))
     print(f"graphed baselines [{card}] (s: host-driven, captured, replayed; host reads "
           f"host-driven / graphed): " + "; ".join(
               f"{k} {v['host_s']:.3f}, {v['second_s']:.3f}, {v['replay_s']:.3f}; "
@@ -6399,6 +6644,8 @@ def main() -> None:
          "trained_dit_100m": {"launches": tt["dit_launches"]["solver_step"],
                               "iterations": tt["dit_iterations"]},
          "beyond_65535_rows": streams["k1_big"],
+         "guided": guided_launches(guided, "solver_step", "error_step in every iteration of "
+                                   "phase 3b's controlled generation from HIGHRES_DIT"),
          "zoo": {"launched_as": "error_step in every iteration of momentum and Heun "
                                 "(phase 6d): from HIGHRES_DIT, in the selection race, served",
                  **{m: zoo["dit"][m]["launches"]["solver_step"] for m in ("momentum", "heun")},
@@ -6464,6 +6711,14 @@ def main() -> None:
          "trained_dit_100m": {"launches": tt["dit_launches"]["flash_attention"],
                               "iterations": tt["dit_iterations"]},
          "beyond_65535_heads": streams["k3_big"],
+         "guided": {**guided_launches(guided, "flash_attention",
+                                      "the DiT's attention in phase 3b's controlled generation "
+                                      "from HIGHRES_DIT (CFG: one forward over 2B = 16 rows "
+                                      "an evaluation)"),
+                    "cfg_shape": {"shape": list(CFG_ATTN),
+                                  "max_abs_err": attn_err[(*CFG_ATTN, torch.float32, False, None)],
+                                  **{k: guided["k3"][k] for k in (
+                                      "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}},
          "graphed_baselines": {"launched_as": "the DiT's attention inside the WHILE node of "
                                               "each graphed baseline from HIGHRES_DIT: a "
                                               "replayed solve's launches (phase 4b)",
@@ -6486,9 +6741,10 @@ def main() -> None:
                           "device_resident":
                               psrv["device_resident_launches"]["flash_attention"]},
          "lm_mesh": {"launched_as": "every 'A'/'L' layer of the phase-10 prefills on each "
-                                    "rank's heads under a (data, model) mesh: gemma3-12b "
-                                    "(8 of 16 query heads, 4 of 8 KV heads at mesh 1x2), "
-                                    "deepseek-moe-16b's 4 layers (8 of 16), "
+                                    "rank's heads under a (data, model) mesh: gemma3-12b's "
+                                    "6-layer period (8 of 16 query heads, 4 of 8 KV heads at "
+                                    "mesh 1x2), "
+                                    "deepseek-moe-16b's 2 layers (8 of 16), "
                                     "llama-3.2-vision-90b's period (32 of 64, 4 of 8)",
                      "launches_per_rank": lm_mesh_launches(lm_mesh, "K3")},
          "train_mesh": train_mesh_launches(train_mesh, "K3"),
@@ -6620,8 +6876,9 @@ def main() -> None:
          "source": "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd/kernel.py:82",
          "launches": lm["k7_launches"],
-         "lm_mesh": {"launched_as": "every layer of mamba2-2.7b's (4, 2048) prefill on each "
-                                    "rank's heads (40 of 80 at mesh 1x2; phase 10)",
+         "lm_mesh": {"launched_as": "every layer of mamba2-2.7b's first 8 in its (4, 2048) "
+                                    "prefill on each rank's heads (40 of 80 at mesh 1x2; "
+                                    "phase 10)",
                      "launches_per_rank": lm_mesh_launches(lm_mesh, "K7")},
          "train_mesh": train_mesh_launches(train_mesh, "K7"),
          "max_abs_err": ssd_err[SSD_SHAPES[0]],
@@ -6688,6 +6945,10 @@ def main() -> None:
                                         "then the graphed solve's draws (phases 3, 4, 6d; "
                                         "Heun draws none)",
                          **{k: v["launches"]["philox_normal"] for k, v in graphed_all.items()}},
+         "guided": guided_launches(guided, "philox_normal",
+                                   "sample()'s per-row streams in phase 3b: the prior, then z "
+                                   "an iteration (CFG) or z and the projection's draw "
+                                   "(inpainting)"),
          "graphed_baselines": {"launched_as": "the baselines' per-row noise (EM, PC, PC-HMC "
                                               "from HIGHRES_DIT) in a replayed graphed solve, "
                                               "the prior included (phase 4b)",
@@ -6715,6 +6976,9 @@ def main() -> None:
                                           "solve: the horizons + 1 a replayed solve (phases "
                                           "3, 4, 6d)",
                            **{k: v["horizon_cond"] for k, v in graphed_all.items()}},
+         "guided": {"launched_as": "the WHILE node's condition of phase 3b's graphed guided "
+                                   "solves: the horizons + 1 a replayed call",
+                    **{k: guided[k]["graphed"]["horizon_cond"] for k in ("cfg", "inpaint")}},
          "graphed_baselines": {"launched_as": "the WHILE node's condition of each graphed "
                                               "baseline from HIGHRES_DIT: one a step + 1 (the "
                                               "grids), the horizons + 1 (the ODE) (phase 4b)",

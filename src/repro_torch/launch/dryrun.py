@@ -48,6 +48,7 @@ scanned loops (its ``dryrun.py:78-121``) has no counterpart.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out /tmp/dryrun
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out /tmp/dryrun --skip-existing
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 1pod --out /tmp/dryrun
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod --out /tmp/dryrun
 """
@@ -373,6 +374,8 @@ def main(argv=None) -> None:
                         help="one card, or one rank of the reference's 1pod (16, 16) mesh")
     meshes.add_argument("--multi-pod", action="store_true",
                         help="one rank of the 2pod (2, 16, 16) mesh")
+    ap.add_argument("--skip-existing", action="store_true",
+                    help="skip a combination whose record is already in --out")
     args = ap.parse_args(argv)
     if not args.all and not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
@@ -381,6 +384,10 @@ def main(argv=None) -> None:
               else [(args.arch, args.shape)])
     failures = []
     for arch, shape in combos:
+        if args.skip_existing and os.path.exists(
+                os.path.join(args.out, f"{arch}_{shape}_{mesh}.json")):
+            print(f"[{arch} × {shape} × {mesh}] cached, skipping")
+            continue
         try:
             run_one(arch, shape, mesh=mesh, remat=args.remat, dtype=args.dtype,
                     out_dir=args.out)

@@ -10,6 +10,23 @@ counts:
 
   PYTHONPATH=src python -m repro_torch.launch.sample --arch highres_dit --fused --flash
 
+``--cfg-scale S`` and ``--inpaint`` are the reference's controlled
+generation demos (``demo_cfg``, ``demo_inpaint``; DESIGN.md §9), one
+adaptive solve each of the ``--arch`` DiT: classifier-free guidance at
+scale S on the net made class-conditional (``DEMO_CLASSES`` classes,
+labels cycling 0..9; one forward over 2B rows an evaluation), or
+inpainting of the reference's checkerboard (``checkerboard``: observed
+pixels projected after every accepted step, pinned exactly at delivery).
+``--cfg-scale`` wins over ``--inpaint``, as in the reference. Their
+record adds the conditioner, the observed-pixel residual and P1's
+launches (inpainting draws twice an iteration). They run on one device,
+as the reference's demos do: under ``torchrun`` they are refused.
+``demo_cfg`` and ``demo_inpaint`` run them on the reference demos' 16 px,
+2-layer net (``DEMO_DIT``).
+
+  PYTHONPATH=src python -m repro_torch.launch.sample --arch highres_dit --fused --flash --cfg-scale 1.5
+  PYTHONPATH=src python -m repro_torch.launch.sample --device cpu --inpaint
+
 On the card every solver can run as one captured CUDA graph
 (``core.solvers.adaptive.cached_driver``), but a key's first solve runs
 the host-driven chain (the one-shot rule): the launcher solves once a
@@ -71,6 +88,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.diffusion import ARCHS
+from repro_torch.core.guidance import class_conditional, inpaint as make_inpaint
 from repro_torch.core.precision import PRESETS, resolve_policy
 from repro_torch.core.sampling import gather_result, sample
 from repro_torch.core.sde import VESDE, VPSDE, bcast
@@ -78,8 +96,10 @@ from repro_torch.core.solvers import adaptive as ad
 from repro_torch.core.solvers.adaptive import (
     ADAPTIVE_FAMILY, AdaptiveConfig, capture_horizon, solve_chunk,
 )
+from repro_torch.core.solvers.predictor_corrector import linspace_f32
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.philox import ops as philox_ops
 from repro_torch.kernels.solver_step import ops as step_ops
 from repro_torch.launch.dryrun import OUT_DIR as DRYRUN_DIR, count
 from repro_torch.launch.mesh import make_production_mesh
@@ -97,6 +117,10 @@ from repro_torch.parallel.sharding import ParamSharding, batch_sharding, tree_ma
 DRYRUN_MESHES = ("1card", "1pod", "2pod")
 #: the pipelined forward's microbatches in the dry run (the reference's default)
 PIPELINE_MICROBATCHES = 4
+#: the reference demos' network (``demo``, ``demo_cfg``, ``demo_inpaint``): 16 px, 2 layers
+DEMO_DIT = DiTConfig(image_size=16, patch=4, d_model=96, num_layers=2, num_heads=4, d_ff=256)
+#: the classes of the class-conditional net of ``--cfg-scale`` (the reference's 10)
+DEMO_CLASSES = 10
 
 
 def _dit_param_shardings(model, mesh: Mesh, pipeline_axis: Optional[str] = None):
@@ -137,16 +161,21 @@ def _dit_param_shardings(model, mesh: Mesh, pipeline_axis: Optional[str] = None)
     return tree_map_with_path(fn, dit_param_shapes(cfg))
 
 
-def build_score(arch: str, *, flash: bool, precision: str, seed: int,
-                liven_seed: int, device) -> tuple:
-    """(cfg, model, score_fn) for ``arch`` on ``device``: weights drawn
-    from ``seed``; the zero-init leaves livened from ``liven_seed`` unless
-    it is negative."""
+def seeded_dit(net: DiTConfig, *, seed: int, liven_seed: int, device) -> DiT:
+    """A DiT of ``net`` on ``device``: weights drawn from ``seed``, the
+    zero-init leaves livened from ``liven_seed`` unless it is negative."""
     dev = resolve_device(device)
-    cfg = dataclasses.replace(ARCHS[arch], use_flash=flash)
-    model = init_dit(cfg, torch.Generator(device=dev).manual_seed(seed))
+    model = init_dit(net, torch.Generator(device=dev).manual_seed(seed))
     if liven_seed >= 0:
         liven_zero_init(model, torch.Generator(device=dev).manual_seed(liven_seed))
+    return model
+
+
+def build_score(arch: str, *, flash: bool, precision: str, seed: int,
+                liven_seed: int, device) -> tuple:
+    """(cfg, model, score_fn) for ``arch`` on ``device`` (``seeded_dit``)."""
+    cfg = dataclasses.replace(ARCHS[arch], use_flash=flash)
+    model = seeded_dit(cfg, seed=seed, liven_seed=liven_seed, device=device)
     policy = resolve_policy(precision)
     return cfg, model, make_score_fn(model, VPSDE(), policy=policy)
 
@@ -260,6 +289,7 @@ def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
         eps_rel: float = 0.05, max_iters: int = 100_000, flash: bool = False,
         fused: bool = False, seed: int = 0, liven_seed: int = 0,
         device="cuda", method: str = "adaptive", mesh=None,
+        cfg_scale: Optional[float] = None, inpaint: bool = False,
         **solver_kwargs) -> dict:
     """One sample with ``method``; returns the record the launcher prints.
 
@@ -270,22 +300,87 @@ def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
     solve is data-parallel (a collective: every rank calls ``run``); the
     wall time is this rank's, and the record describes the whole batch,
     gathered from every rank after the timed solve.
+
+    ``cfg_scale`` (classifier-free guidance on the net made
+    class-conditional) or ``inpaint`` (the reference's checkerboard) runs
+    the controlled generation demo (``guidance``) on ``arch``: an
+    Algorithm-1 family on one device only.
     """
     dev = resolve_device(device)
-    cfg, model, score = build_score(arch, flash=flash, precision=precision,
-                                    seed=seed, liven_seed=liven_seed, device=dev)
+    net = dataclasses.replace(ARCHS[arch], use_flash=flash,
+                              num_classes=DEMO_CLASSES if cfg_scale is not None else 0)
+    model = seeded_dit(net, seed=seed, liven_seed=liven_seed, device=dev)
+    return solve_record(model, arch, batch=batch, precision=precision, eps_rel=eps_rel,
+                        max_iters=max_iters, fused=fused, seed=seed, device=dev,
+                        method=method, mesh=mesh, cfg_scale=cfg_scale, inpaint=inpaint,
+                        **solver_kwargs)
+
+
+def checkerboard(batch: int, image_size: int, channels: int) -> tuple:
+    """The reference demo's inpainting payload (``demo_inpaint``): the mask
+    of the 4×4 squares whose block row and block column sum to an even
+    number, over every channel and sample, and ``observed`` running from
+    −0.5 to 0.5 down the rows (``jnp.linspace``'s points:
+    ``linspace_f32``); both (batch, image_size, image_size, channels)
+    fp32."""
+    idx = torch.arange(image_size)
+    yy, xx = torch.meshgrid(idx, idx, indexing="ij")
+    shape = (batch, image_size, image_size, channels)
+    mask = ((yy // 4 + xx // 4) % 2 == 0)[None, :, :, None].expand(shape)
+    observed = linspace_f32(-0.5, 0.5, image_size)[None, :, None, None].expand(shape)
+    return mask.to(torch.float32), observed.contiguous()
+
+
+def guidance(batch: int, net: DiTConfig, *, cfg_scale: Optional[float] = None,
+             inpaint: bool = False) -> tuple:
+    """(conditioner, payload, name) of the launcher's controlled generation
+    on ``batch`` samples of ``net``: classifier-free guidance at
+    ``cfg_scale`` with labels ``arange(batch) % DEMO_CLASSES``
+    (``class_conditional``), or inpainting of the ``checkerboard``
+    (``inpaint``; one of the two), or (None, None, "none")."""
+    if cfg_scale is not None and inpaint:
+        raise ValueError("one conditioner a run: cfg_scale or inpaint")
+    if cfg_scale is not None:
+        return (*class_conditional(torch.arange(batch) % DEMO_CLASSES, cfg_scale),
+                f"cfg:{float(cfg_scale)}")
+    if inpaint:
+        return (*make_inpaint(*checkerboard(batch, net.image_size, net.channels)), "inpaint")
+    return None, None, "none"
+
+
+def solve_record(model: DiT, arch: str, *, batch: int, precision: str, eps_rel: float,
+                 max_iters: int, fused: bool, seed: int, device, method: str = "adaptive",
+                 mesh=None, cfg_scale: Optional[float] = None, inpaint: bool = False,
+                 prior=None, noise_fn=None, **solver_kwargs) -> dict:
+    """``run``'s timed solve and record on ``model`` (``arch`` names it in
+    the record). ``prior`` and ``noise_fn`` replace the per-row streams'
+    prior and noise (the adaptive solve on the host-driven chain): the
+    tests hand in the reference's own draws through them."""
+    dev = resolve_device(device)
+    cfg = model.cfg
     shape = (batch, cfg.image_size, cfg.image_size, cfg.channels)
+    conditioner, cond, name = guidance(batch, cfg, cfg_scale=cfg_scale, inpaint=inpaint)
+    if conditioner is not None and (method not in ADAPTIVE_FAMILY or mesh is not None):
+        raise ValueError("controlled generation runs an Algorithm-1 family on one device "
+                         f"(method {method!r}, mesh {mesh})")
     if method in ADAPTIVE_FAMILY:
         solver_kwargs = dict(eps_rel=eps_rel, max_iters=max_iters,
                              use_fused_kernel=fused, precision=precision,
                              **solver_kwargs)
+    if conditioner is not None:
+        solver_kwargs.update(conditioner=conditioner, cond=cond)
+    score = make_score_fn(model, VPSDE(), policy=resolve_policy(precision))
     before = (step_ops.launches, step_ops.em_launches, flash_ops.launches,
-              step_ops.sharded_launches)
+              step_ops.sharded_launches, philox_ops.launches)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    res = sample(VPSDE(), score, shape, seed=seed, device=dev, method=method,
-                 mesh=mesh, **solver_kwargs)
+    if prior is None and noise_fn is None:
+        res = sample(VPSDE(), score, shape, seed=seed, device=dev, method=method,
+                     mesh=mesh, **solver_kwargs)
+    else:
+        res = ad.adaptive(VPSDE(), score, prior, noise_fn=noise_fn, device=dev,
+                          **solver_kwargs)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -295,7 +390,7 @@ def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
                 "sharded_solver_step": step_ops.sharded_launches - before[3]}
     if mesh is not None:
         res = gather_result(res, mesh, batch)
-    return {
+    rec = {
         "arch": arch, "method": method, "params": param_count(model),
         "batch": batch, "precision": precision,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
@@ -309,6 +404,42 @@ def run(arch: str = "cifar_dit", *, batch: int = 8, precision: str = "fp32",
         "ranks": 1 if mesh is None else mesh.size,
         "result": res,
     }
+    if conditioner is not None:
+        launches["philox_normal"] = philox_ops.launches - before[4]
+        rec["conditioner"] = name
+        rec["observed_residual"] = (None if "mask" not in cond else float(
+            ((res.x - cond["observed"].to(dev)) * cond["mask"].to(dev)).abs().max()))
+    return rec
+
+
+def demo_cfg(scale: float, precision: str = "fp32", **kw) -> dict:
+    """The reference's ``demo_cfg``: classifier-free guidance at ``scale``
+    on ``DEMO_DIT`` made class-conditional (``DEMO_CLASSES`` classes,
+    labels cycling 0..9), one adaptive solve of 8 samples at eps_rel 0.05;
+    ``_demo``'s keywords."""
+    return _demo(dataclasses.replace(DEMO_DIT, num_classes=DEMO_CLASSES), precision,
+                 cfg_scale=scale, **kw)
+
+
+def demo_inpaint(precision: str = "fp32", **kw) -> dict:
+    """The reference's ``demo_inpaint``: the ``checkerboard`` inpainted on
+    ``DEMO_DIT``, one adaptive solve of 8 samples at eps_rel 0.05; the
+    record's ``observed_residual`` is exactly 0 (``finalize_project``)."""
+    return _demo(DEMO_DIT, precision, inpaint=True, **kw)
+
+
+def _demo(net: DiTConfig, precision: str, *, device="cuda", fused: bool = False,
+          model: Optional[DiT] = None, prior=None, noise_fn=None, **guide) -> dict:
+    """A guided demo's solve of 8 samples and its record (``solve_record``),
+    printed: on ``model``, or on ``net`` made from seed 0 and livened
+    (``seeded_dit``)."""
+    if model is None:
+        model = seeded_dit(net, seed=0, liven_seed=0, device=device)
+    rec = solve_record(model, "demo_dit", batch=8, precision=precision, eps_rel=0.05,
+                       max_iters=100_000, fused=fused, seed=0, device=device,
+                       prior=prior, noise_fn=noise_fn, **guide)
+    print(json.dumps({k: v for k, v in rec.items() if k != "result"}))
+    return rec
 
 
 def _precision_record(policy, param_bytes: int, state_x) -> dict:
@@ -530,17 +661,33 @@ def main(argv=None) -> list:
     ap.add_argument("--loop-devices", type=int, default=64,
                     help="ranks of the ('data',) mesh of --dryrun-loop")
     ap.add_argument("--out", default=DRYRUN_DIR, help="the dry run's record directory")
+    ap.add_argument("--cfg-scale", type=float, default=None,
+                    help="classifier-free guidance at this scale on the --arch DiT made "
+                         "class-conditional, one adaptive solve (DESIGN.md §9)")
+    ap.add_argument("--inpaint", action="store_true",
+                    help="checkerboard inpainting on the --arch DiT, one adaptive solve "
+                         "(post-accept projection, DESIGN.md §9)")
     args = ap.parse_args(argv)
-    if args.dryrun_loop:
-        return [dryrun_loop(args.batch or 256, args.precision, devices=args.loop_devices,
-                            out_dir=args.out)]
     if args.dryrun or args.multi_pod or args.pipeline or args.mesh != "1card":
         return [dryrun(args.batch or 512, args.precision, arch=args.arch or "highres_dit",
                        mesh="2pod" if args.multi_pod else args.mesh,
                        pipeline=args.pipeline, out_dir=args.out)]
+    if args.dryrun_loop:
+        return [dryrun_loop(args.batch or 256, args.precision, devices=args.loop_devices,
+                            out_dir=args.out)]
     args.arch, args.batch = args.arch or "cifar_dit", args.batch or 8
     mesh, device = None, args.device
     methods = (("adaptive", {}), ("em", dict(n_steps=100)))
+    guide = {}
+    if args.cfg_scale is not None:  # the reference's precedence: guidance, then inpainting
+        guide = dict(cfg_scale=args.cfg_scale)
+    elif args.inpaint:
+        guide = dict(inpaint=True)
+    if guide:
+        methods = methods[:1]
+        if "WORLD_SIZE" in os.environ:
+            ap.error("--cfg-scale and --inpaint run on one device, as the reference's "
+                     "demos do: not under torchrun")
     if "WORLD_SIZE" in os.environ:
         mesh = torchrun_mesh(args.device)
         device = mesh.device
@@ -549,7 +696,7 @@ def main(argv=None) -> list:
         rec = run(args.arch, batch=args.batch, precision=args.precision,
                   eps_rel=args.eps_rel, max_iters=args.max_iters, flash=args.flash,
                   fused=args.fused, seed=args.seed, liven_seed=args.liven_seed,
-                  device=device, method=method, mesh=mesh, **kw)
+                  device=device, method=method, mesh=mesh, **guide, **kw)
         if mesh is None or mesh.coordinate == (0, 0):
             print(json.dumps({k: v for k, v in rec.items() if k != "result"}))
         recs.append(rec)

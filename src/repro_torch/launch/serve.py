@@ -231,7 +231,7 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
                     device_resident: bool = False, tier: str | None = None,
                     deadline_ms: float | None = None, telemetry: int = 0,
                     metrics_out: str | None = None, trace_out: str | None = None,
-                    device="cuda", mesh=None) -> dict:
+                    device="cuda", mesh=None, uids=None) -> dict:
     """Continuous-batching diffusion serving on ``device``; returns (and
     prints) the reference's record: throughput, mean NFE, the wasted-NFE
     fraction, host transfers, per-class stats.
@@ -251,6 +251,11 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
     data-parallel (``DiffusionBatcher(mesh=)``, a collective: every rank
     calls this with the same arguments); the record is the same on every
     rank, the files are written and the summary printed by rank 0 only.
+    ``uids`` names the requests served (default ``range(requests)``): a
+    request's seed and payload follow its uid whatever it is served with,
+    so ``uids=[u]`` is u's solo run. The record's ``delivered`` holds the
+    delivered ``ImageRequest``s by uid (samples, payloads, NFE), which the
+    reference's record does not.
     """
     from repro_torch.configs.diffusion import ARCHS
     from repro_torch.core.guidance import ClassifierFree, Inpaint
@@ -321,7 +326,8 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
             return {"label": uid % num_classes}
         return None
 
-    for uid in range(requests):
+    uids = range(requests) if uids is None else list(uids)
+    for uid in uids:
         b.submit(ImageRequest(uid=uid, seed=uid, cond=request_cond(uid),
                               tier=request_tier(uid), deadline_ms=deadline_ms))
     if dev.type == "cuda":
@@ -362,6 +368,7 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
         "solver_syncs": b.solver_syncs,
         "passenger_nfe_fraction": b.passenger_nfe_fraction,
         "wall_s": dt,
+        "delivered": done,
     }
     trace = b.trace_record() if trace_out else None  # a collective under a mesh
     if not lead:
@@ -380,7 +387,7 @@ def serve_diffusion(*, slots: int, requests: int, image_size: int = 8,
         print(f"trace -> {path}")
     print(f"diffusion serve[{policy.name}, {rec['conditioner']}] on {rec['device']}"
           f"{f' × {b.n_devices} ranks' if mesh is not None else ''}: "
-          f"{rec['completed']}/{requests} requests in {dt:.2f} s "
+          f"{rec['completed']}/{len(uids)} requests in {dt:.2f} s "
           f"({rec['samples_per_sec']:.2f} samples/s), {slots} slots, horizon "
           f"{sync_horizon}, mean NFE {rec['mean_nfe']:.1f}, wasted NFE "
           f"{rec['wasted_nfe_fraction']:.1%}, host transfers/request "

@@ -1452,3 +1452,62 @@ def test_serve_batch_captures_once_across_calls(cuda):
     del params
     gc.collect()
     assert len(serve._pool) == n - 1
+
+
+@pytest.mark.parametrize("kind", ["cfg", "inpaint"])
+def test_guided_graphed_solve_on_card_is_the_host_chain(cuda, kind):
+    """Classifier-free guidance and inpainting from a small livened DiT
+    through ``sample()`` on per-row streams: the first call runs
+    host-driven, the second captures, the third replays, both graphed
+    calls bitwise the first with one host read each; a replay with another
+    payload captures nothing and is bitwise the host-driven chain with that
+    payload, not the first payload's sample (the payload is read from the
+    driver's buffers, not baked into the capture); inpainted samples hold
+    their observed pixels exactly."""
+    from repro_torch.core.sampling import sample, seed_streams
+    from repro_torch.core.solvers import adaptive as ad
+    from repro_torch.launch import sample as launcher
+
+    net = dataclasses.replace(launcher.DEMO_DIT, use_flash=True,
+                              num_classes=launcher.DEMO_CLASSES if kind == "cfg" else 0)
+    model = launcher.seeded_dit(net, seed=0, liven_seed=1, device=cuda)
+    sde = VPSDE()
+    score = tdit.make_score_fn(model, sde)
+    guide = dict(cfg_scale=1.5) if kind == "cfg" else dict(inpaint=True)
+    conditioner, cond, _ = launcher.guidance(8, net, **guide)
+    other = ({"label": (cond["label"] + 5) % launcher.DEMO_CLASSES} if kind == "cfg"
+             else {"mask": 1.0 - cond["mask"], "observed": -cond["observed"]})
+    acfg = AdaptiveConfig(eps_rel=0.05, use_fused_kernel=True, conditioner=conditioner)
+    shape = (8, 16, 16, 3)
+
+    def solve(c):
+        c0, r0 = ad.captures, ad.host_syncs
+        res = sample(sde, score, shape, seed=3, config=acfg, cond=c, device=cuda)
+        torch.cuda.synchronize()
+        return res, ad.captures - c0, ad.host_syncs - r0
+
+    def host_chain(c):
+        st = seed_streams(3, shape[0], cuda)
+        carry = ad.init_carry(sde, sde.prior_sample(shape, st), st.advanced(1), config=acfg,
+                              cond=c)
+        carry = ad.solve_chunk(sde, score, carry, max_sync_iters=acfg.max_iters, config=acfg)
+        return ad.finalize(sde, score, carry, precision=acfg.precision, conditioner=conditioner)
+
+    fields = ("x", "nfe", "accepted", "rejected", "iterations")
+    runs = [solve(cond) for _ in range(3)]
+    assert [r[1] for r in runs] == [0, 1, 0]
+    assert runs[1][2] == runs[2][2] == 1
+    for res, *_ in runs[1:]:
+        for f in fields:
+            assert torch.equal(getattr(res, f), getattr(runs[0][0], f)), f
+    swapped, captures, reads = solve(other)
+    assert (captures, reads) == (0, 1)
+    want = host_chain(other)
+    for f in fields:
+        assert torch.equal(getattr(swapped, f), getattr(want, f)), f
+    assert not torch.equal(swapped.x, runs[0][0].x)
+    assert torch.isfinite(swapped.x).all()
+    if kind == "inpaint":
+        for res, c in ((runs[2][0], cond), (swapped, other)):
+            m = c["mask"].to(cuda) > 0
+            assert torch.equal(res.x[m], c["observed"].to(cuda)[m])
