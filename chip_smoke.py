@@ -66,7 +66,10 @@ Phases; any failure exits non-zero before the result line is printed:
              states of phases 6d and 6e: the words
              exactly, z within 2e-6·(1 + |z|) of ``ref.py``, an idle row
              0, permuted rows bitwise; P2 (``horizon_cond``) on
-             hand-built masks, exactly; K1 at (70,000, 2) and K3 at
+             hand-built masks against ``ref.horizon_cond``, exactly,
+             the same state on a second call (a horizon ending by its
+             length, every row done, the budget spent mid-horizon,
+             wait_all and compaction, an idle slot); K1 at (70,000, 2) and K3 at
              (17,500, 4, 8, 32), past one launch's 65,535 rows of
              gridDim.y (two launches each), against their plain
              versions; and the autograd guard: under grad mode K1, K5,
@@ -89,8 +92,10 @@ Phases; any failure exits non-zero before the result line is printed:
              nfe, accepted, rejected, iterations and the telemetry ring
              bitwise, the chain's host reads on the first call and one
              read a graphed solve, captures 0, 1, 0, the replay's
-             K1/K3/K6/P1 launches the chain's (the second call's plus
-             one warm-up body iteration); the walls of each call and
+             K1/K3/K6/P1 launches exactly the iterations' (the chain's
+             less its last group's masked tail; the second call's plus
+             one warm-up body iteration), P2 the iterations + 1 (a
+             condition after every iteration); the walls of each call and
              the chain, and the window share from the events: the
              window's elapsed time on the device over the call's wall
              (elapsed, not busy: CUPTI cannot trace the WHILE node, so
@@ -112,8 +117,9 @@ Phases; any failure exits non-zero before the result line is printed:
              replay it); observed pixels exactly the observed values on
              both payloads; a replayed call's launches K1 one a body
              iteration, K3 num_layers·(2·body iterations + 1), P1 1 +
-             draws·body iterations (1 CFG, 2 inpainting), P2 the horizons
-             + 1. Then ``launch.serve.serve_diffusion`` with each
+             draws·body iterations (1 CFG, 2 inpainting), the body
+             iterations exactly the iterations, P2 the iterations + 1.
+             Then ``launch.serve.serve_diffusion`` with each
              conditioner (GUIDED_SERVE_SLOTS slots, GUIDED_SERVE_REQUESTS
              requests, horizon SERVE_HORIZON) host-driven and
              device-resident: the two drains bitwise, the host-driven one
@@ -151,8 +157,11 @@ Phases; any failure exits non-zero before the result line is printed:
              ``sample()`` calls at a new key, x and nfe bitwise and
              iterations equal on each, captures 0, 1, 0, one host read a
              graphed solve, the replay's K5/K3/P1 launches the
-             host-driven loop's and the capturing call's those plus one
-             step's (one attempt's); Algorithm 2 graphed at (4096, 2)
+             host-driven loop's less its masked tail (a grid has none;
+             the ODE's host-driven groups of SYNC_EVERY attempts do: its
+             replay's K3 is exactly 12·(6·attempts + 2)), P2 one a unit
+             + 1, and the capturing call's the replay's plus one step's
+             (one attempt's); Algorithm 2 graphed at (4096, 2)
              with g = 0.2·x (``forward_graphed``: bitwise, captures 0, 1,
              0, one window and one read a graphed solve). Then the
              Table-2 analog at its full size
@@ -210,8 +219,9 @@ Phases; any failure exits non-zero before the result line is printed:
              solver syncs, the device idle share (torch.profiler), K2's
              time at (8, 196,608) with the tiers' ε per row.
 6c. device — the device-resident serve loop on the same setup: a
-             CUDA-graph WHILE node a driver window around the horizon
-             captured once per server (P1, P2, K2, K3). Bitwise the
+             CUDA-graph WHILE node a driver window around one body
+             iteration captured once per server, P2 after each (P1, P2,
+             K2, K3). Bitwise the
              host-driven serve, with compaction on and off; fewer host
              reads; ≥ 5× fewer device→host reads a request on the
              reference's bench workload at sync horizon 2; no
@@ -220,12 +230,13 @@ Phases; any failure exits non-zero before the result line is printed:
              after every second step) bitwise the drain in both modes.
              K2, K3, P1 and P2 counts set to 0 just before the first
              device-resident drain and read just after: the captured
-             horizon holds K2 once, K3 24 times and P1 once a body
-             iteration, and each count is exactly that times the
-             horizons the device ran (the driver charges them when the
-             host reads the window's flag) plus the eager calls (the
+             unit holds K2 once, K3 24 times and P1 once (one body
+             iteration), the driver runs exactly the iterations with a
+             sample active, and each count is exactly the unit's times
+             the units the device ran (the driver charges them when the
+             host reads the window's state) plus the eager calls (the
              capture's warm-up iteration, P1 once an admission); P2 once
-             a horizon and once a window. Printed: walls, reads, windows,
+             a unit and once a window. Printed: walls, reads, windows,
              the share of the wall outside the solver windows in both
              modes (CUDA events around each window or chunk), the
              host-driven idle share (torch.profiler, whose CUPTI tracing
@@ -239,7 +250,7 @@ Phases; any failure exits non-zero before the result line is printed:
              score, VP and VE, with exact K1/K5 launches, momentum and Heun
              under their W2 gates, the selection report; each family served
              host-driven and device-resident, every delivery bitwise its
-             batch-1 solve, Heun's captured horizon without P1. Then
+             batch-1 solve, Heun's captured unit without P1. Then
              phase 3's graphed gates on ``sample(method="momentum")`` and
              ``sample(method="heun")``. (A first call at a new key runs
              host-driven and a second captures its graph, whose warm-up
@@ -265,8 +276,10 @@ Phases; any failure exits non-zero before the result line is printed:
              4–5 (``repro_torch.benchmarks``), every row printed with its
              launches: K5 exactly one a step on EM rows and two on PC rows,
              0 on DDIM, ODE and adaptive rows, K1 exactly one an iteration
-             in whole groups of SYNC_EVERY (≥ the iterations) on the fused
-             (ℓ2) adaptive rows and 0 elsewhere; ``sample_chunked`` at
+             (the timed row replays its graph, so exactly the
+             iterations: no masked group tail) on the fused (ℓ2)
+             adaptive rows and 0 elsewhere, each row's replayed and
+             host-driven walls; ``sample_chunked`` at
              N 4096 in chunks of 1024 with exactly its chunks' launches
              and bits. Gates: (a) every row
              finite; (b) the reference's end-to-end rule
@@ -330,7 +343,8 @@ Phases; any failure exits non-zero before the result line is printed:
              width (16 layers, d_model 2048, vocab 50,304; embed_dim 64;
              seeded, ``out_proj`` livened), VP, batch 4 × 64 tokens,
              adaptive at eps_rel 0.05 with the fused step: K1 counts set to
-             0 just before and read just after, exactly 8·⌈iterations/8⌉;
+             0 just before and read just after, exactly 8·⌈iterations/8⌉
+             host-driven (the iterations graphed, + a capture's warm-up);
              nfe = 2·(accepted + rejected) + 1, the sample finite, the
              tokens in range; then K1 timed at the solve's state (4, 4096)
              beside its bytes bound and its plain version.
@@ -462,12 +476,17 @@ Phases; any failure exits non-zero before the result line is printed:
              wall. Checks 7 and 8's world-1 solves are gated the same way.
              World 2 (gloo): the adaptive solve twice, host-driven (gloo
              collectives cannot be captured), its record saying so.
+             Last, in process, the agreement that ends a horizon under a
+             world-1 NCCL mesh (``MeshFlags.update``, captured and
+             replayed, eager, and its all-reduce alone) timed with CUDA
+             events (``benchmarks.loop_condition.mesh_flags_times``).
 9. precision — the precision seams in bf16 at full width, after the LM
              phases have freed their memory (< 1 GiB held at its start and
              before each LM): (a) HIGHRES_DIT, batch 8, phase 3's seeded
              weights, through ``launch.sample.run`` under ``bf16`` and
              ``bf16_full``: finite, delivered in fp32, mean NFE ≤ 1.25×
-             phase 3's, K1 8·⌈iterations/8⌉ (bf16 state under
+             phase 3's, K1 8·⌈iterations/8⌉ host-driven, the iterations
+             graphed (bf16 state under
              ``bf16_full``) and K3 12 a forward, TF32 off, the carry's x, t,
              h dtypes; a forward's device time under each preset and fp32;
              (b) the reference's analytic precision gate on the port's RNG
@@ -685,10 +704,20 @@ P1_SHAPES = ((8, 196_608), (64, 736), (4096, 2), (5, 7), (8, 3072), (16, 768), (
 #: rounds of two 32-bit multiplies, their high halves, three xors and two
 #: key adds) and half of a Box–Muller pair (log, sqrt, sin, cos, four products)
 P1_OPS_PER_ELEMENT = 32
-#: P2's hand-built (occupied, done) masks in phase 2
+#: P2's hand-built (occupied, done) masks in phase 2: rows running, one
+#: occupied row done (an event under compaction), every row done, no slot
+#: occupied, a running row beside idle slots (unoccupied, done), and an
+#: idle slot not done (the inner condition reads every row)
 P2_MASKS = (([1, 1, 0, 1], [0, 0, 1, 0]), ([1, 1, 0, 1], [1, 0, 1, 0]),
             ([1, 1, 0, 1], [1, 1, 1, 1]), ([0, 0, 0, 0], [1, 1, 1, 1]),
-            ([1, 0, 0, 0, 0, 0, 0, 0], [0, 1, 1, 1, 1, 1, 1, 1]))
+            ([1, 0, 0, 0, 0, 0, 0, 0], [0, 1, 1, 1, 1, 1, 1, 1]),
+            ([1, 1, 0, 0], [1, 1, 0, 1]))
+#: P2's hand-built loop state in phase 2: the carry's iterations (below,
+#: then at the budget: spent mid-horizon), the units a horizon holds, the
+#: budget and the horizons a window may run, and the evaluations in a row
+#: (the first before any unit, then one after each of four units: the
+#: horizon ends by its length after two)
+P2_ITERATIONS, P2_HORIZON, P2_MAX_ITERS, P2_MAX_HORIZONS, P2_STEPS = (0, 3), 2, 3, 3, 5
 #: K1 and K3 past one launch's 65,535 rows (gridDim.y): B 70,000 of
 #: Table 1's width; B·Hq 70,000
 K1_BIG, K3_BIG = (70_000, 2), (17_500, 4, 8, 32)
@@ -1458,22 +1487,47 @@ def check_streams_and_grids(dev, gen) -> dict:
         if not ok:
             fail("philox_normal disagrees with its plain version")
         p1_err[(b, d)] = (z - want).abs().max().item()
-    p2_err = 0
-    state, plain = (torch.zeros(2, dtype=torch.int32, device=dev) for _ in range(2))
+    p2_err, p2_again, p2_cases, seen = 0, True, 0, set()
+    n_state = len(loop_ops.STATE)
     for occ, done in P2_MASKS:
         o = torch.tensor(occ, dtype=torch.bool, device=dev)
         dn = torch.tensor(done, dtype=torch.bool, device=dev)
         for wait_all in (False, True):
-            for first in (True, False, False):
-                loop_ops.horizon_cond(o, dn, state, wait_all=wait_all, max_horizons=2,
-                                      first=first)
-                loop_ref.horizon_cond(o, dn, plain, wait_all=wait_all, max_horizons=2,
-                                      first=first)
-                p2_err = max(p2_err, (state - plain).abs().max().item())
-    print(f"  horizon_cond on {len(P2_MASKS)} hand-built masks, both event forms: max |state - "
-          f"plain| {p2_err} {'ok' if p2_err == 0 else 'FAIL'}")
-    if p2_err:
-        fail("horizon_cond disagrees with its plain version")
+            for its in P2_ITERATIONS:
+                it = torch.full((), its, dtype=torch.int32, device=dev)
+                state = torch.zeros(n_state, dtype=torch.int32, device=dev)
+                plain = torch.zeros(n_state, dtype=torch.int32, device=dev)
+                kw = dict(wait_all=wait_all, horizon=P2_HORIZON, max_iters=P2_MAX_ITERS,
+                          max_horizons=P2_MAX_HORIZONS)
+                for k in range(P2_STEPS):
+                    before = state.clone()
+                    loop_ops.horizon_cond(o, dn, it, state, first=k == 0, **kw)
+                    again = before.clone()  # a second call on the same state
+                    loop_ops.horizon_cond(o, dn, it, again, first=k == 0, **kw)
+                    go = loop_ref.horizon_cond(o, dn, it, plain, first=k == 0, **kw)
+                    p2_err = max(p2_err, (state - plain).abs().max().item())
+                    p2_again &= torch.equal(again, state)
+                    p2_cases += 1
+                    s_ = state.tolist()
+                    if not go and s_[1] == P2_MAX_HORIZONS and its >= P2_MAX_ITERS:
+                        seen.add("budget spent: empty horizons to max_horizons")
+                    if go and k > 1 and s_[2] == 0:
+                        seen.add("a horizon ended by its length")
+                    if not go and not any(a and not b for a, b in zip(occ, done)) and any(occ):
+                        seen.add("every occupied row done")
+                    if s_[0] and not wait_all:
+                        seen.add("an event (compaction)")
+                    if s_[0] and wait_all:
+                        seen.add("an event (wait_all)")
+                    if go and not any(a and not b for a, b in zip(occ, done)):
+                        seen.add("an idle slot not done runs the inner condition")
+    print(f"  horizon_cond on {len(P2_MASKS)} hand-built masks x both event forms x "
+          f"iterations {P2_ITERATIONS} (budget {P2_MAX_ITERS}, horizon {P2_HORIZON}, "
+          f"{P2_MAX_HORIZONS} horizons), {p2_cases} evaluations: max |state - plain| {p2_err}, "
+          f"the same state on a second call {p2_again}; cases seen {sorted(seen)} "
+          f"{'ok' if p2_err == 0 and p2_again and len(seen) == 6 else 'FAIL'}")
+    if p2_err or not p2_again or len(seen) != 6:
+        fail("horizon_cond disagrees with its plain version, or a hand-built case is missing")
 
     b, d = K1_BIG
     states = [torch.randn(b, d, generator=gen, device=dev) for _ in range(5)]
@@ -1533,11 +1587,13 @@ def run_device_serve(dev, card: str, floor_ms: float) -> dict:
     device_serving``, D 2) ≥ 5× fewer device→host reads a request at sync
     horizon 2; under ``torch.cuda.set_sync_debug_mode("warn")`` no
     synchronising call inside any driver window (a read of the flag, the
-    control, warns); one horizon capture per server; the ring reconciles
-    with the per-request counts; the captured horizon holds K2 once, K3
-    2·num_layers times and P1 once a body iteration, and the drain's
-    launches are exactly those times the horizons the device ran, plus the
-    capture's eager warm-up iteration and P1 once an admission. A second
+    control, warns); one unit capture per server; the ring reconciles
+    with the per-request counts; the captured unit, one body iteration,
+    holds K2 once, K3 2·num_layers times and P1 once, the driver runs
+    exactly the iterations with a sample active (no masked iteration),
+    and the drain's launches are exactly the unit's times the units the
+    device ran, plus the capture's eager warm-up iteration and P1 once an
+    admission; P2 once a unit and once a window. A second
     run admits 4 requests, then 2 after every second ``step()``, 16 in
     all, in both modes: every sample bitwise the drain's. Prints wall,
     requests/s, host transfers, windows, events, admission-only visits
@@ -1565,7 +1621,7 @@ def run_device_serve(dev, card: str, floor_ms: float) -> dict:
     from repro_torch.models.dit import init_dit, liven_zero_init
     from repro_torch.observability.telemetry import telemetry_history
     from repro_torch.observability.tracing import StageTracer
-    from repro_torch.serving.diffusion_server import DiffusionBatcher, ImageRequest
+    from repro_torch.serving.diffusion_server import MAX_HORIZONS, DiffusionBatcher, ImageRequest
     from repro_torch.serving.scheduler import EdfPriorityAdmission
 
     t_phase = time.perf_counter()
@@ -1635,7 +1691,7 @@ def run_device_serve(dev, card: str, floor_ms: float) -> dict:
                 b.passenger_nfe_fraction)
 
     def describe(tag, b, wall, span=None):
-        body = (b.device_horizons if b.device_resident else b.horizon_windows) * H
+        body = b.device_units if b.device_resident else b.horizon_windows * H
         if b.device_resident:
             mode = (f"{b.horizon_windows} driver windows, {b.event_visits} events, "
                     f"{b.admission_visits} admission-only visits, {b.device_horizons} horizons, "
@@ -1700,29 +1756,33 @@ def run_device_serve(dev, card: str, floor_ms: float) -> dict:
     reads = lambda b: b.host_transfers + b.solver_syncs
     if not reads(b_dev) < reads(b_host):
         fail("device-resident serve reads the host no less than the host-driven serve")
-    # the device-resident drain's launches: what the captured horizon
-    # holds, times the horizons the device ran, plus the eager calls
+    # the device-resident drain's launches: what the captured unit (one body
+    # iteration) holds, times the units the device ran, plus the eager calls
     names = {step_ops: "solver_step", flash_ops: "flash_attention", ph: "philox_normal"}
     recorded = {names[m]: n for (m, c), n in b_dev._driver.graph.recorded.items()
                 if m in names and c == "launches"}
-    per_iter = {k: v / H for k, v in recorded.items()}
-    eager = {k: launches[k] - recorded[k] * b_dev.device_horizons for k in recorded}
+    per_iter = dict(recorded)
+    eager = {k: launches[k] - recorded[k] * b_dev.device_units for k in recorded}
     admits = b_dev.tracer.stage_histograms()["serve/admission"]["count"]
     want_iter = {"solver_step": 1, "flash_attention": 2 * net.num_layers, "philox_normal": 1}
     want_eager = dict(want_iter, philox_normal=1 + admits)
     launches["per_body_iteration_in_graph"] = per_iter
     launches["eager"] = eager
-    print(f"  device-resident drain launches {launches}: the captured horizon holds "
-          f"{recorded} ({per_iter} a body iteration; want {want_iter}), replayed "
-          f"{b_dev.device_horizons} times; eager {eager} (want the capture's warm-up "
-          f"iteration {want_iter} and P1 once an admission, {admits}: {want_eager}); P2 "
-          f"one a horizon and one a window")
+    print(f"  device-resident drain launches {launches}: the captured unit holds "
+          f"{recorded} (one body iteration; want {want_iter}), replayed "
+          f"{b_dev.device_units} times ({b_dev.total_iterations} iterations with a sample "
+          f"active, in {b_dev.device_horizons} horizons); eager {eager} (want the capture's "
+          f"warm-up iteration {want_iter} and P1 once an admission, {admits}: {want_eager}); "
+          f"P2 one a unit and one a window")
     if per_iter != want_iter or eager != want_eager:
         fail(f"device-resident drain launched {launches}, not {want_iter} a body iteration "
              f"in the graph and {want_eager} eagerly")
+    if b_dev.device_units != b_dev.total_iterations:
+        fail(f"the device-resident driver ran {b_dev.device_units} units for "
+             f"{b_dev.total_iterations} iterations with a sample active")
     if launches["windows"] != b_dev.horizon_windows or \
-            launches["horizon_cond"] != b_dev.device_horizons + b_dev.horizon_windows:
-        fail(f"P2 launches {launches} do not match the driver's windows and horizons")
+            launches["horizon_cond"] != b_dev.device_units + b_dev.horizon_windows:
+        fail(f"P2 launches {launches} do not match the driver's windows and units")
     hist = telemetry_history(b_dev._carry.telemetry)
     active = hist["t"] > np.float32(sde.t_eps + 1e-12)
     ring = (int(hist["accept"].sum()), int((active & ~hist["accept"]).sum()))
@@ -1848,13 +1908,16 @@ def run_device_serve(dev, card: str, floor_ms: float) -> dict:
     p1_bound = max(p1_bytes / HBM_BYTES_PER_S, p1_ops / FP32_FLOPS) * 1e3
     occ = torch.ones(B, dtype=torch.bool, device=dev)
     dn = torch.zeros(B, dtype=torch.bool, device=dev)
-    st = torch.zeros(2, dtype=torch.int32, device=dev)
-    p2 = lambda o, d_, s: loop_ops.horizon_cond(o, d_, s, wait_all=False, max_horizons=32,
-                                                first=False)
-    p2_ms = device_ms(p2, [(occ, dn, st)])
-    p2_plain = timed_ms(lambda o, d_, s: loop_ref.horizon_cond(
-        o, d_, s, wait_all=False, max_horizons=32, first=False), [(occ, dn, st)], 50)
-    p2_bytes, p2_ops = 2 * B + 8, 3 * B
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    st = torch.zeros(len(loop_ops.STATE), dtype=torch.int32, device=dev)
+    p2_kw = dict(wait_all=False, horizon=H, max_iters=cfg.max_iters,
+                 max_horizons=MAX_HORIZONS, first=False)
+    p2 = lambda o, d_, i, s: loop_ops.horizon_cond(o, d_, i, s, **p2_kw)
+    p2_ms = device_ms(p2, [(occ, dn, it, st)])
+    p2_plain = timed_ms(lambda o, d_, i, s: loop_ref.horizon_cond(o, d_, i, s, **p2_kw),
+                        [(occ, dn, it, st)], 50)
+    # the masks and the counter read, the state read and written
+    p2_bytes, p2_ops = 2 * B + 4 + 2 * 4 * len(loop_ops.STATE), 4 * B
     p2_bound = max(p2_bytes / HBM_BYTES_PER_S, p2_ops / FP32_FLOPS) * 1e3
     print(f"  [{card}] philox_normal ({B}, {D}): {p1_ms * 1e3:.2f} us on the device, bound "
           f"{p1_bound * 1e3:.2f} us ({p1_bytes / 1e6:.2f} MB written); plain {p1_plain * 1e3:.1f} "
@@ -2069,9 +2132,12 @@ def graphed_vs_host(label: str, card: str, call, host) -> dict:
     the replay) bitwise the host chain's on every call; the first call's
     host reads, launches and P2 the chain's and no capture; one host read
     a graphed solve (``adaptive.host_syncs``); one capture on the second
-    call, none on the others; the replay's K1, K3, K6 and P1 launches the
-    host chain's, the second call's those plus one body iteration's (the
-    capture's warm-up)."""
+    call, none on the others; the replay's K1, K3, K6 and P1 launches
+    exactly the iterations' (the captured unit, one body iteration, times
+    the iterations: no iteration after the last sample converged), the
+    host chain's those plus its masked tail (whole groups of SYNC_EVERY),
+    the second call's the replay's plus one body iteration's (the
+    capture's warm-up); P2 the iterations + 1."""
     from repro_torch.core.solvers import adaptive as ad
     from repro_torch.kernels.graph_loop import ops as loop_ops
 
@@ -2103,16 +2169,18 @@ def graphed_vs_host(label: str, card: str, call, host) -> dict:
     first, second, replay, hostr = (runs[k] for k in ("first", "second", "replay", "host"))
     names = {"solver_step": "solver_step", "flash_attention": "flash_attention",
              "groupnorm_silu": "groupnorm_silu", "philox": "philox_normal"}
-    per_horizon = {names[getattr(m, "__name__", "").split(".")[-2]]: n
-                   for (m, c), n in drv.graph.recorded.items()
-                   if c == "launches" and getattr(m, "__name__", "").split(".")[-2] in names}
-    warm = {k: hostr["launches"][k] + per_horizon.get(k, 0) // drv_horizon(drv)
-            for k in hostr["launches"]}
+    per_iter = {names[getattr(m, "__name__", "").split(".")[-2]]: n
+                for (m, c), n in drv.graph.recorded.items()
+                if c == "launches" and getattr(m, "__name__", "").split(".")[-2] in names}
     same = {k: all(torch.equal(getattr(runs[k]["res"], f), getattr(hostr["res"], f))
                    for f in GRAPH_FIELDS) for k in ("first", "second", "replay")}
     ring = all(torch.equal(getattr(replay["ring"], f.name), getattr(hostr["ring"], f.name))
                for f in dataclasses.fields(hostr["ring"]))
     its = int(hostr["res"].iterations)
+    masked = ad.SYNC_EVERY * -(-its // ad.SYNC_EVERY) - its  # the host chain's group tail
+    want_replay = {k: hostr["launches"][k] - per_iter.get(k, 0) * masked
+                   for k in hostr["launches"]}
+    warm = {k: want_replay[k] + per_iter.get(k, 0) for k in want_replay}
     print(f"  [{card}] {label} graphed: first call {first['wall_s']:.3f} s (host-driven, the "
           f"one-shot rule), second {second['wall_s']:.3f} s (capture included), replayed "
           f"{replay['wall_s']:.3f} s, host-driven chain {hostr['wall_s']:.3f} s "
@@ -2121,9 +2189,10 @@ def graphed_vs_host(label: str, card: str, call, host) -> dict:
           f"ring {ring}; host reads {first['syncs']}, {second['syncs']}, {replay['syncs']} "
           f"(host-driven {hostr['syncs']}); captures {first['captures']}, "
           f"{second['captures']}, {replay['captures']} (build {drv.build_s:.3f} s); launches "
-          f"replayed {replay['launches']} (host-driven {hostr['launches']}; first "
-          f"{first['launches']}; second {second['launches']}, want {warm}), P2 "
-          f"{replay['p2']} (the horizons + 1; host-driven {hostr['p2']}); the "
+          f"replayed {replay['launches']} (want {want_replay}: {per_iter} an iteration; "
+          f"host-driven {hostr['launches']}, {masked} masked iterations in its last group; "
+          f"first {first['launches']}; second {second['launches']}, want {warm}), P2 "
+          f"{replay['p2']} (the iterations + 1; host-driven {hostr['p2']}); the "
           f"driver's window {window_ms:.1f} ms elapsed on the device of a "
           f"{window_wall * 1e3:.1f} ms call (window share {window_ms / (window_wall * 1e3):.2f}, "
           f"CUDA events)")
@@ -2135,15 +2204,14 @@ def graphed_vs_host(label: str, card: str, call, host) -> dict:
     if (first["captures"], second["captures"], replay["captures"]) != (0, 1, 0):
         fail(f"{label}: captures {first['captures']}, {second['captures']}, "
              f"{replay['captures']}, not 0, 1, 0")
-    horizons = -(-its // ad.SYNC_EVERY)
-    if replay["p2"] != horizons + 1 or hostr["p2"] != 0 or first["p2"] != 0:
+    if replay["p2"] != its + 1 or hostr["p2"] != 0 or first["p2"] != 0:
         fail(f"{label}: P2 ran {replay['p2']} times in the replayed solve (want the "
-             f"{horizons} horizons + 1), {first['p2']} and {hostr['p2']} host-driven")
-    if (replay["launches"] != hostr["launches"] or first["launches"] != hostr["launches"]
+             f"{its} iterations + 1), {first['p2']} and {hostr['p2']} host-driven")
+    if (replay["launches"] != want_replay or first["launches"] != hostr["launches"]
             or second["launches"] != warm):
         fail(f"{label}: launches first {first['launches']}, second {second['launches']}, "
-             f"replayed {replay['launches']}; the host chain's {hostr['launches']}, plus the "
-             f"warm-up {warm}")
+             f"replayed {replay['launches']}; want the host chain's {hostr['launches']}, "
+             f"the iterations' {want_replay}, plus the warm-up {warm}")
     return {"first_s": first["wall_s"], "second_s": second["wall_s"],
             "replay_s": replay["wall_s"], "host_s": hostr["wall_s"],
             "iterations": its, "mean_nfe": float(hostr["res"].mean_nfe),
@@ -2164,12 +2232,6 @@ def guided_launches(guided: dict, kernel: str, what: str) -> dict:
                             for k in ("cfg", "inpaint")},
             "served": {k: {d: v["launches"][kernel] for d, v in guided[k]["served"].items()}
                        for k in ("cfg", "inpaint")}}
-
-
-def drv_horizon(drv) -> int:
-    """The iterations of a cached Algorithm-1 driver's captured horizon."""
-    from repro_torch.core.solvers import adaptive as ad
-    return next(k.static[1] for k, d in ad._drivers.items() if d is drv)
 
 
 def run_guided(dev, card: str) -> dict:
@@ -2207,18 +2269,19 @@ def run_guided(dev, card: str) -> dict:
         call = lambda c=cond: sample(sde, score, shape, seed=0, config=gcfg, cond=c, device=dev)
         host = lambda c=cond: host_chain(sde, score, shape, 0, gcfg, dev, cond=c)
         g = graphed_vs_host(f"HIGHRES_DIT {name}", card, call, host)
-        # the counts of a replayed call: K1 one a body iteration (whole groups
-        # of SYNC_EVERY), K3 a forward's layers for each of 2 a body iteration
-        # and the denoise (CFG: one forward over 2B rows), P1 the prior and
-        # the draws of each body iteration
+        # the counts of a replayed call: K1 one an iteration (no masked
+        # iteration after the last sample converged), K3 a forward's layers
+        # for each of 2 an iteration and the denoise (CFG: one forward over
+        # 2B rows), P1 the prior and the draws of each iteration
         its = g["iterations"]
-        body = ad.SYNC_EVERY * -(-its // ad.SYNC_EVERY)
+        body = its
         draws = ad.draws_per_iteration(gcfg)
         want = {"solver_step": body, "flash_attention": net.num_layers * (2 * body + 1),
                 "groupnorm_silu": 0, "philox_normal": 1 + draws * body}
-        print(f"  [{card}] {name}: {its} iterations, {body} body iterations; a replayed call's "
+        print(f"  [{card}] {name}: {its} iterations, {body} body iterations replayed "
+              f"(host-driven {ad.SYNC_EVERY * -(-its // ad.SYNC_EVERY)}); a replayed call's "
               f"launches {g['launches']} (want {want}), P2 {g['horizon_cond']} (the "
-              f"{-(-its // ad.SYNC_EVERY)} horizons + 1); mean NFE {g['mean_nfe']:.2f}; "
+              f"{its} iterations + 1); mean NFE {g['mean_nfe']:.2f}; "
               f"replayed {g['replay_s']:.3f} s, host-driven {g['host_s']:.3f} s")
         if g["launches"] != want:
             fail(f"{name}: a replayed call launched {g['launches']}, want {want}")
@@ -2335,10 +2398,13 @@ def graphed_baseline(label: str, card: str, solve, per_draw: int = 1) -> dict:
     fourth replay it (the fourth with CUDA events around the driver's
     window: the window share). Gates: x and nfe bitwise and iterations
     equal on every call; captures 0, 1, 0; one host read a graphed solve;
-    the replay's K5, K3 and P1 launches the host-driven loop's, the
-    second call's those plus one horizon iteration (the capture's
-    warm-up: one grid step, or one RK45 attempt of a horizon of
-    SYNC_EVERY)."""
+    the replay's K5, K3 and P1 launches the host-driven loop's less its
+    masked tail (none on a grid; the ODE's last group of SYNC_EVERY
+    attempts past the last, six forwards each: the replay's K3 is
+    12·(6·attempts + 2)), the second call's the replay's plus one unit
+    (the capture's warm-up: one grid step or one RK45 attempt); P2 one a
+    unit + 1."""
+    from repro_torch.configs.diffusion import HIGHRES_DIT
     from repro_torch.core.solvers import adaptive as ad
     from repro_torch.kernels.graph_loop import ops as loop_ops
     from repro_torch.kernels.solver_step import ops as step_ops
@@ -2366,7 +2432,11 @@ def graphed_baseline(label: str, card: str, solve, per_draw: int = 1) -> dict:
     window_wall = time.perf_counter() - t0
     window_ms = sum(e0.elapsed_time(e1) for e0, e1 in spans)
     host, second, replay = runs
-    horizon = ad.SYNC_EVERY if drv.max_horizons != ad.UNBOUNDED else 1
+    its = int(host["res"].iterations)
+    # the host-driven ODE runs whole groups of SYNC_EVERY attempts; a grid
+    # runs its steps, a unit each, on both paths
+    ode = drv.max_horizons != ad.UNBOUNDED
+    masked = ad.SYNC_EVERY * -(-its // ad.SYNC_EVERY) - its if ode else 0
     names = {"solver_step": "em_step", "flash_attention": "flash_attention",
              "philox": "philox_normal"}
     recorded = {names[m.__name__.split(".")[-2]] if c == "launches" else "em_step": n
@@ -2374,7 +2444,11 @@ def graphed_baseline(label: str, card: str, solve, per_draw: int = 1) -> dict:
                 if c == "em_launches" or (c == "launches"
                                           and m.__name__.split(".")[-2] in ("flash_attention",
                                                                             "philox"))}
-    warm = {k: host["launches"][k] + recorded.get(k, 0) // horizon for k in host["launches"]}
+    want_replay = {k: host["launches"][k] - recorded.get(k, 0) * masked
+                   for k in host["launches"]}
+    warm = {k: want_replay[k] + recorded.get(k, 0) for k in host["launches"]}
+    if ode:  # the acceptance form: 6 forwards an attempt, the FSAL seed and the denoise
+        want_replay["flash_attention"] = HIGHRES_DIT.num_layers * (6 * its + 2)
     same = [all(torch.equal(getattr(r["res"], f), getattr(host["res"], f)) for f in ("x", "nfe"))
             and int(r["res"].iterations) == int(host["res"].iterations) for r in runs]
     print(f"  [{card}] {label}: host-driven {host['wall_s']:.3f} s, captured "
@@ -2383,9 +2457,10 @@ def graphed_baseline(label: str, card: str, solve, per_draw: int = 1) -> dict:
           f"{int(host['res'].iterations)} iterations, mean NFE "
           f"{float(host['res'].mean_nfe):.0f}; bitwise {same}; captures "
           f"{[r['captures'] for r in runs]}; host reads {[r['syncs'] for r in runs]}; "
-          f"windows {[r['windows'] for r in runs]}; P2 {[r['p2'] for r in runs]}; launches "
-          f"host-driven {host['launches']}, "
-          f"replayed {replay['launches']}, second {second['launches']} (want {warm}); window "
+          f"windows {[r['windows'] for r in runs]}; P2 {[r['p2'] for r in runs]} (want "
+          f"{its + 1} replayed); launches host-driven {host['launches']} ({masked} masked "
+          f"units), replayed {replay['launches']} (want {want_replay}), second "
+          f"{second['launches']} (want {warm}); window "
           f"{window_ms:.1f} ms of a {window_wall * 1e3:.1f} ms call (share "
           f"{window_ms / (window_wall * 1e3):.2f})")
     if not all(same) or not torch.isfinite(host["res"].x).all():
@@ -2394,9 +2469,12 @@ def graphed_baseline(label: str, card: str, solve, per_draw: int = 1) -> dict:
     if [r["captures"] for r in runs] != [0, 1, 0] or second["syncs"] != replay["syncs"] != 1:
         fail(f"{label}: captures {[r['captures'] for r in runs]}, host reads "
              f"{[r['syncs'] for r in runs]}; want 0, 1, 0 and one read a graphed solve")
-    if replay["launches"] != host["launches"] or second["launches"] != warm:
-        fail(f"{label}: launches replayed {replay['launches']}, second {second['launches']}; "
-             f"the host-driven loop's {host['launches']}, plus the warm-up {warm}")
+    if (replay["launches"] != want_replay or second["launches"] != warm
+            or replay["p2"] != its + 1):
+        fail(f"{label}: launches replayed {replay['launches']}, second {second['launches']}, "
+             f"P2 {replay['p2']}; want {want_replay} (the host-driven loop's "
+             f"{host['launches']} less {masked} masked units), plus the warm-up {warm}, and "
+             f"P2 {its + 1}")
     return {"host_s": host["wall_s"], "second_s": second["wall_s"],
             "replay_s": replay["wall_s"], "build_s": drv.build_s,
             "iterations": int(host["res"].iterations),
@@ -2447,6 +2525,19 @@ def forward_graphed(dev, card: str) -> dict:
     return {"host_s": runs[0]["wall_s"], "second_s": runs[1]["wall_s"],
             "replay_s": runs[2]["wall_s"], "iterations": int(host.iterations),
             "host_driven_reads": runs[0]["syncs"], "host_reads": runs[2]["syncs"]}
+
+
+def body_iterations(iters: int, reads: int, c0: int) -> int:
+    """The body iterations one Algorithm-1 solve of ``iters`` iterations
+    ran, K1 once each, given the host reads it made since
+    ``adaptive.host_syncs`` read ``reads`` before it and the captures since
+    ``adaptive.captures`` read ``c0``: a graphed solve (one read) runs its
+    iterations and no more, the host-driven chain (a read before it and one
+    a group) whole groups of SYNC_EVERY; a capture's warm-up adds one."""
+    from repro_torch.core.solvers import adaptive as ad
+    graphed = ad.host_syncs - reads == 1
+    return (iters if graphed else ad.SYNC_EVERY * -(-iters // ad.SYNC_EVERY)) \
+        + captured_warmups(c0)
 
 
 def captured_warmups(c0: int) -> int:
@@ -2674,7 +2765,7 @@ def train_and_tables(dev, card: str) -> dict:
     from repro_torch.benchmarks import table45_ablations as t45
     from repro_torch.core.sampling import sample
     from repro_torch.core.sde import VPSDE
-    from repro_torch.core.solvers.adaptive import SYNC_EVERY
+    from repro_torch.benchmarks import loop_condition
     from repro_torch.examples import train_diffusion
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.solver_step import ops as step_ops
@@ -2765,10 +2856,11 @@ def train_and_tables(dev, card: str) -> dict:
             if k5 != want_k5:
                 fail(f"{r['name']}: {k5} K5 launches, want exactly {want_k5}")
             if r["method"] == "adaptive" and r["fused"]:
-                # one launch an iteration, in whole groups of SYNC_EVERY (the
-                # last group's iterations after convergence change nothing);
-                # a timed row replays, so no capture's warm-up adds one
-                want_k1 = SYNC_EVERY * -(-r["iterations"] // SYNC_EVERY)
+                # one launch an iteration: a timed row replays its graph,
+                # which stops at the last iteration with a sample active (the
+                # host-driven chain's whole groups of SYNC_EVERY would add the
+                # last group's tail), and no capture's warm-up adds one
+                want_k1 = r["iterations"]
                 if k1 != want_k1:
                     fail(f"{r['name']}: {k1} K1 launches, want {want_k1} for "
                          f"{r['iterations']} iterations")
@@ -2795,6 +2887,17 @@ def train_and_tables(dev, card: str) -> dict:
                   f"run {ref_nfe:.2f}, within {NFE_BAND:.0%}: {ok}")
             if not ok:
                 fail(f"gate (d): {process} eps_rel {eps} mean NFE {got} outside the band")
+    # Table 1's adaptive rows again: the replayed graph against the
+    # host-driven chain on the same streams, both timed
+    t1_walls = loop_condition.table1_adaptive_walls(dev)
+    for w in t1_walls:
+        print(f"  [{card}] {w['name']}: replayed {w['replay_us']:.1f} us, host-driven chain "
+              f"{w['host_us']:.1f} us ({w['host_us'] / w['replay_us']:.2f}x); "
+              f"{w['iterations']} iterations; K1 replayed {w['k1_replay']}, host-driven "
+              f"{w['k1_host']}; bitwise {w['bitwise']}")
+        if not w["bitwise"] or w["k1_replay"] != w["iterations"]:
+            fail(f"{w['name']}: the replayed row is not the host-driven chain bitwise, or K1 "
+                 f"ran {w['k1_replay']} times for {w['iterations']} iterations")
     gate_b = e2e_rule(dev)
     check_sample_chunked(dev, *bench.trained_mlp_score("vp", 600, 0, dev))
 
@@ -2830,6 +2933,7 @@ def train_and_tables(dev, card: str) -> dict:
           f"rows {k1_total}, K5 launches over their EM and PC rows {k5_total}")
     return {"dit_launches": dit_launches, "dit_iterations": dit_iters,
             "k1_tables": k1_total, "k5_tables": k5_total, "gate_b": gate_b,
+            "table1_walls": t1_walls,
             "captures": captures,
             "k1_t1": dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound),
             "em1000_idle": idle}
@@ -2839,8 +2943,10 @@ def check_sample_chunked(dev, sde, score_fn) -> None:
     """``sample_chunked`` at Table 1's size, N 4096 in chunks of 1024,
     from the VP TOY_MLP: each chunk's bits are those of a ``sample`` call
     with its seed, and the launches are exactly theirs (K5 one an EM
-    step; K1 the same count as the chunks' own solves): the pinned
-    copies on the side stream add none."""
+    step; K1 the count of the chunks' own solves, which replay, plus the
+    masked tail of ``sample_chunked``'s first chunk, which runs
+    host-driven in whole groups of SYNC_EVERY): the pinned copies on the
+    side stream add none."""
     from repro_torch.core.solvers import adaptive as ad
     from repro_torch.core.sampling import chunk_seeds, sample, sample_chunked
     from repro_torch.kernels.solver_step import ops as step_ops
@@ -2865,11 +2971,14 @@ def check_sample_chunked(dev, sde, score_fn) -> None:
         c0 = ad.captures
         parts = [sample(sde, score_fn, (1024, 2), seed=s, method=method, device=dev, **kw)
                  for s in chunk_seeds(3, 4)]
-        want = counts(c0)
+        its = int(parts[0].iterations)
+        tail = ad.SYNC_EVERY * -(-its // ad.SYNC_EVERY) - its if method == "adaptive" else 0
+        k1, k5 = counts(c0)
+        want = (k1 + tail, k5)
         same = np.array_equal(x, np.concatenate([p.x.cpu().numpy() for p in parts]))
         print(f"  sample_chunked {method} N 4096 in chunks of 1024: mean NFE {mean_nfe:.2f}, "
-              f"launches (K1, K5) {got}, the four chunks' own solves {want}, the same bits "
-              f"{same}")
+              f"launches (K1, K5) {got}, the four chunks' own solves {(k1, k5)} + the first "
+              f"chunk's host-driven tail {tail} = {want}, the same bits {same}")
         if got != want or not same or (method == "em" and got != (0, 400)):
             fail(f"sample_chunked ({method}) launched {got}, its chunks {want}; bits {same}")
 
@@ -3293,7 +3402,7 @@ def run_diffusion_lm(dev) -> dict:
               max_iters=MAIN_MAX_ITERS)
     dlm.generate(params, cfg, sde, B, S, seed=1, **{**kw, "max_iters": 8})  # warm-up
     step_ops.launches = 0
-    c0 = ad.captures
+    c0, r0 = ad.captures, ad.host_syncs
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks, res = dlm.generate(params, cfg, sde, B, S, seed=0, **kw)
@@ -3301,14 +3410,16 @@ def run_diffusion_lm(dev) -> dict:
     wall = time.perf_counter() - t0
     k1 = step_ops.launches
     iters = int(res.iterations)
-    # generate() makes its score function anew: its graph is captured, and
-    # the capture's warm-up runs one body iteration
-    want = 8 * -(-iters // 8) + captured_warmups(c0)
+    # generate() makes its score function anew, a new key: host-driven, in
+    # whole groups of SYNC_EVERY (graphed, the iterations and a capture's
+    # warm-up)
+    want = body_iterations(iters, r0, c0)
     nfe, acc, rej = res.nfe, res.accepted, res.rejected
     print(f"  generate: {iters} iterations, mean NFE {float(res.mean_nfe):.2f}, accepted "
           f"{int(acc.sum())}, rejected {int(rej.sum())}, wall {wall:.3f} s "
           f"({wall / (2 * iters) * 1e3:.2f} ms a batch forward, two an iteration); K1 launches "
-          f"{k1} (want 8·⌈iterations/8⌉ + the capture's warm-up = {want}); tokens "
+          f"{k1} (want {want}: 8·⌈iterations/8⌉ host-driven, the iterations graphed, + a "
+          f"capture's warm-up); tokens "
           f"{tuple(toks.shape)}, first row "
           f"{toks[0, :12].tolist()}")
     if k1 != want:
@@ -4362,8 +4473,9 @@ def run_zoo(dev, card: str, adaptive_rec: dict) -> dict:
     HIGHRES_DIT (phase 3's seeded, livened weights, batch 8, eps_rel 0.05,
     fused step, flash attention, fp32): finite, converged, nfe = 2·(accepted
     + rejected) + 1 per sample, and exactly K1 once and K3 2·num_layers
-    times a body iteration (whole groups of SYNC_EVERY) plus num_layers for
-    the denoise, K5 never. Then the selection race: every ``ZOO`` row on
+    times a body iteration (``body_iterations``: the iterations graphed,
+    whole groups of SYNC_EVERY host-driven) plus num_layers for the
+    denoise, K5 never. Then the selection race: every ``ZOO`` row on
     the closed-form Gaussian score, VP and VE (DDIM on VP), each row's K1
     and K5 launches exactly its rule (K1 one a body iteration on the
     Algorithm-1 families, K5 one a step on EM, two on PC, one on PC-HMC),
@@ -4393,20 +4505,19 @@ def run_zoo(dev, card: str, adaptive_rec: dict) -> dict:
 
     t_phase = time.perf_counter()
     L = HIGHRES_DIT.num_layers
-    groups = lambda iters: ad.SYNC_EVERY * math.ceil(iters / ad.SYNC_EVERY)
     out = {"dit": {}, "race": {}, "served": {}}
     print(f"  adaptive (phase 3): {adaptive_rec['iterations']} iterations, mean NFE "
           f"{adaptive_rec['mean_nfe']:.2f}, {adaptive_rec['wall_s']:.3f} s")
     for method in ("momentum", "heun"):
         step_ops.launches = step_ops.em_launches = flash_ops.launches = 0
-        c0 = ad.captures
+        c0, r0 = ad.captures, ad.host_syncs
         rec = launcher.run("highres_dit", batch=8, precision="fp32", eps_rel=0.05,
                            max_iters=MAIN_MAX_ITERS, flash=True, fused=True, seed=0,
                            liven_seed=0, device=dev, method=method)
         got = {"solver_step": step_ops.launches, "flash_attention": flash_ops.launches,
                "em_step": step_ops.em_launches}
         res, iters = rec["result"], rec["iterations"]
-        body = groups(iters) + captured_warmups(c0)  # a fresh score: one capture
+        body = body_iterations(iters, r0, c0)
         want = {"solver_step": body, "flash_attention": 2 * L * body + L, "em_step": 0}
         rule = bool(torch.equal(res.nfe, 2 * (res.accepted + res.rejected) + 1))
         print(f"  [{card}] {method} from HIGHRES_DIT: {iters} iterations, mean NFE "
@@ -4450,7 +4561,7 @@ def run_zoo(dev, card: str, adaptive_rec: dict) -> dict:
                 continue
             kw = {"use_fused_kernel": True} if solver in launcher.ADAPTIVE_FAMILY else {}
             step_ops.launches = step_ops.em_launches = 0
-            c0 = ad.captures
+            c0, r0 = ad.captures, ad.host_syncs
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             row = solver_select.conformance_row(solver, sde_name, sde_c, device=dev, **kw)
@@ -4458,7 +4569,7 @@ def run_zoo(dev, card: str, adaptive_rec: dict) -> dict:
             row["wall_s"] = time.perf_counter() - t0
             row["launches"] = {"solver_step": step_ops.launches, "em_step": step_ops.em_launches}
             n = spec["kwargs"].get("n_steps", 0)
-            want = {"solver_step": groups(row["iterations"]) + captured_warmups(c0) if kw else 0,
+            want = {"solver_step": body_iterations(row["iterations"], r0, c0) if kw else 0,
                     "em_step": {"em": n, "pc": 2 * n, "pc_hmc": n}.get(solver, 0)}
             print(f"  [{card}] {sde_name} {solver:8s}: W2 {row['w2']:.4f} (gate {row['tol']}), "
                   f"mean NFE {row['mean_nfe']:.1f}, {row['wall_s']:.3f} s, launches "
@@ -4507,18 +4618,21 @@ def run_zoo(dev, card: str, adaptive_rec: dict) -> dict:
             for u in host)
         recorded = {getattr(m, "__name__", str(m)).split(".")[-2]: n
                     for (m, c), n in bd._driver.graph.recorded.items() if c == "launches"}
-        want_p1 = SERVE_HORIZON if family == "momentum" else 0
+        want_p1 = 1 if family == "momentum" else 0  # the unit: one body iteration
         print(f"  [{card}] {family} served ({ZOO_SERVE_REQUESTS} requests, {ZOO_SERVE_SLOTS} "
               f"slots, D {ZOO_SERVE_D}): nfe_per_iter {bh.nfe_per_iter}, wasted NFE "
               f"{bh.wasted_nfe_fraction:.4f}; host-driven {wall_h:.3f} s, "
               f"{bh.host_transfers + bh.solver_syncs} reads; device-resident {wall_d:.3f} s, "
               f"{bd.host_transfers + bd.solver_syncs} reads; every delivery bitwise its solo "
               f"adaptive() {solo_ok}; device-resident bitwise host-driven {same}; the "
-              f"captured horizon holds {recorded} (P1 want {want_p1})")
+              f"captured unit (one body iteration) holds {recorded} (P1 want {want_p1}); "
+              f"{bd.device_units} units for {bd.total_iterations} iterations")
         if not (solo_ok and same and len(host) == ZOO_SERVE_REQUESTS):
             fail(f"{family} served: solo {solo_ok}, device-resident = host-driven {same}")
-        if recorded["philox"] != want_p1 or recorded["solver_step"] != SERVE_HORIZON:
-            fail(f"{family}'s captured horizon holds {recorded}")
+        if (recorded["philox"] != want_p1 or recorded["solver_step"] != 1
+                or bd.device_units != bd.total_iterations):
+            fail(f"{family}'s captured unit holds {recorded}, or its driver ran "
+                 f"{bd.device_units} units for {bd.total_iterations} iterations")
         out["served"][family] = dict(host_wall_s=wall_h, device_wall_s=wall_d,
                                      host_reads=bh.host_transfers + bh.solver_syncs,
                                      device_reads=bd.host_transfers + bd.solver_syncs,
@@ -4547,8 +4661,9 @@ def run_plan_service(dev, card: str) -> dict:
     fresh host-driven and a device-resident ``DiffusionBatcher`` with the
     same cfg and conditioner, in turns (host, device, device, host): every
     delivery bitwise the planner's, with its NFE, and the device-resident
-    launches exactly the captured horizon's times the horizons run plus
-    the eager calls. Printed: plans/s, mean NFE, reads, windows, the share
+    launches exactly the captured unit's (one body iteration) times the
+    units run, which are the iterations with a plan active, plus the eager
+    calls, and P2 one a unit and one a window. Printed: plans/s, mean NFE, reads, windows, the share
     of the wall outside the solver windows (CUDA events) in both modes, the
     host-driven idle share (torch.profiler). Returns the numbers for the
     kernels line."""
@@ -4708,17 +4823,21 @@ def run_plan_service(dev, card: str) -> dict:
              ph: "philox_normal"}
     recorded = {names[m]: n for (m, c), n in bd._driver.graph.recorded.items()
                 if c == "launches"}
-    per_iter = {k: v / H for k, v in recorded.items()}
-    eager = {k: dev_launches[k] - recorded[k] * bd.device_horizons for k in recorded}
+    per_iter = dict(recorded)  # the captured unit: one body iteration
+    eager = {k: dev_launches[k] - recorded[k] * bd.device_units for k in recorded}
     admits = bd.tracer.stage_histograms()["serve/admission"]["count"]
     want_iter = {"solver_step": 1, "flash_attention": 2, "groupnorm_silu": 2 * per_forward,
                  "philox_normal": 2}
     want_eager = dict(want_iter, philox_normal=2 + admits)
-    print(f"  device-resident launches {dev_launches}: the captured horizon holds {per_iter} "
-          f"a body iteration (want {want_iter}), replayed {bd.device_horizons} times; eager "
-          f"{eager} (want {want_eager}: the capture's warm-up iteration and P1 once an "
-          f"admission)")
-    if per_iter != want_iter or eager != want_eager:
+    print(f"  device-resident launches {dev_launches}: the captured unit holds {per_iter} "
+          f"(one body iteration; want {want_iter}), replayed {bd.device_units} times "
+          f"({bd.total_iterations} iterations with a sample active, {bd.device_horizons} "
+          f"horizons); eager {eager} (want {want_eager}: the capture's warm-up iteration and "
+          f"P1 once an admission); P2 {dev_launches['horizon_cond']} (want "
+          f"{bd.device_units + bd.horizon_windows}: one a unit and one a window)")
+    if (per_iter != want_iter or eager != want_eager
+            or bd.device_units != bd.total_iterations
+            or dev_launches["horizon_cond"] != bd.device_units + bd.horizon_windows):
         fail(f"device-resident planning launched {dev_launches}")
     if bd.graph_captures != 1:
         fail(f"the device-resident planning server captured {bd.graph_captures} horizons")
@@ -4757,7 +4876,8 @@ def precision_dit(dev, card: str, fp32_rec: dict) -> dict:
     weights, through ``launch.sample.run(precision=…)`` under ``bf16`` and
     ``bf16_full``, beside phase 3's fp32 record. Gates: finite, delivered
     in fp32, mean NFE ≤ PRECISION_NFE_RATIO × fp32's, K1 exactly one
-    launch a body iteration (8·⌈iterations/8⌉) and K3 12 a forward (one a
+    launch a body iteration (``body_iterations``: the iterations graphed,
+    8·⌈iterations/8⌉ host-driven) and K3 12 a forward (one a
     layer: 2 a body iteration and the denoise), TF32 off after each policy
     is built. Then a forward at batch 8 under each preset and fp32 as
     replayed CUDA graphs, for phase 9f's shares."""
@@ -4776,7 +4896,7 @@ def precision_dit(dev, card: str, fp32_rec: dict) -> dict:
     for preset in PRESETS_BF16:
         step_ops.launches = 0
         flash_ops.launches = 0
-        c0 = ad.captures
+        c0, r0 = ad.captures, ad.host_syncs
         rec = launcher.run("highres_dit", batch=B, precision=preset, eps_rel=0.05,
                            max_iters=MAIN_MAX_ITERS, flash=True, fused=True, seed=0,
                            liven_seed=0, device=dev)
@@ -4784,8 +4904,7 @@ def precision_dit(dev, card: str, fp32_rec: dict) -> dict:
         if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
             fail(f"TF32 is on after building the {preset} policy")
         res, iters = rec["result"], rec["iterations"]
-        # whole groups of SYNC_EVERY, plus the capture's warm-up iteration
-        body = ad.SYNC_EVERY * -(-iters // ad.SYNC_EVERY) + captured_warmups(c0)
+        body = body_iterations(iters, r0, c0)
         forwards = 2 * body + 1
         want = {"solver_step": body, "flash_attention": HIGHRES_DIT.num_layers * forwards}
         carry = ad.init_carry(VPSDE(), torch.zeros(B, 4, device=dev), None, precision=preset)
@@ -6551,6 +6670,18 @@ def main() -> None:
     # ------------------------------------------------------------- 8. sharded
     phase("sharded sampling: K4 and sample(mesh=) over torch.distributed")
     k4 = run_sharded(dev, card, rec["wall_s"])
+    # the agreement that ends a horizon under a mesh (one a horizon: a
+    # condition after every iteration there would be a collective each)
+    from repro_torch.benchmarks import loop_condition
+    mesh_flags = loop_condition.mesh_flags_times(dev)
+    print(f"  [{card}] world-1 NCCL mesh, MeshFlags.update on {mesh_flags['slots']} slots "
+          f"(the all-reduce of 3 int32 and the catch-up): captured and replayed "
+          f"{mesh_flags['captured_update_ms'] * 1e3:.2f} us, eager "
+          f"{mesh_flags['eager_update_ms'] * 1e3:.2f} us, the captured all-reduce alone "
+          f"{mesh_flags['captured_all_reduce_ms'] * 1e3:.2f} us (CUDA events, "
+          f"{mesh_flags['reps']} calls); the captured graphs hold "
+          f"{mesh_flags['update_nodes']} and {mesh_flags['all_reduce_nodes']} nodes (an "
+          f"in-place all-reduce at world 1 may enqueue none)")
 
     # ----------------------------------------------------------- 9. precision
     phase("precision: HIGHRES_DIT under bf16 and bf16_full (K1, K3), the precision gate, the "
@@ -6963,8 +7094,8 @@ def main() -> None:
          "max_abs_err_by_shape": {f"{b}x{d}": e for (b, d), e in streams["p1_err"].items()}},
         {"name": "horizon_cond", "route": "cuda",
          "source": "src/repro_torch/kernels/graph_loop/csrc/while_driver.cu",
-         "replaces": "none: the lax.while_loop condition of solve_horizons, "
-                     "src/repro/core/solvers/adaptive.py:672",
+         "replaces": "none: the lax.while_loop conditions of solve_chunk and solve_horizons, "
+                     "src/repro/core/solvers/adaptive.py:640-648, :709-721",
          "launches": dsrv["launches"]["horizon_cond"],
          "max_abs_err": float(streams["p2_err"]),
          "ms": dsrv["p2"]["ms"], "plain_ms": dsrv["p2"]["plain_ms"],
@@ -6973,18 +7104,19 @@ def main() -> None:
          "launch_floor_ms": floor_ms,
          "driver_windows": dsrv["launches"]["windows"],
          "graphed_solve": {"launched_as": "the WHILE node's condition of sample()'s graphed "
-                                          "solve: the horizons + 1 a replayed solve (phases "
-                                          "3, 4, 6d)",
+                                          "solve, after every iteration: the iterations + 1 "
+                                          "a replayed solve (phases 3, 4, 6d)",
                            **{k: v["horizon_cond"] for k, v in graphed_all.items()}},
          "guided": {"launched_as": "the WHILE node's condition of phase 3b's graphed guided "
-                                   "solves: the horizons + 1 a replayed call",
+                                   "solves: the iterations + 1 a replayed call",
                     **{k: guided[k]["graphed"]["horizon_cond"] for k in ("cfg", "inpaint")}},
          "graphed_baselines": {"launched_as": "the WHILE node's condition of each graphed "
                                               "baseline from HIGHRES_DIT: one a step + 1 (the "
-                                              "grids), the horizons + 1 (the ODE) (phase 4b)",
+                                              "grids), one an attempt + 1 (the ODE) (phase 4b)",
                                **{k: v["horizon_cond"]
                                   for k, v in graphed_baselines.items() if "horizon_cond" in v}},
          "cuda_versions": dsrv["cuda_versions"],
+         "mesh_horizon_agreement": mesh_flags,
          "serve": dsrv["rec"], "sync_check": dsrv["sync_check"],
          "plan_service": {"launches": psrv["device_resident_launches"]["horizon_cond"],
                           "first_round": psrv["first_round"]},
@@ -7010,6 +7142,17 @@ def main() -> None:
           f"at world 2 (gloo); phase 10 {lm_mesh['phase_s']:.1f} s, phase 11 "
           f"{train_mesh['phase_s']:.1f} s")
     phase(None)
+    ode = graphed_baselines["ODE"]
+    print(f"loop condition walls [{card}]: HIGHRES_DIT adaptive replayed "
+          f"{graphed['adaptive']['replay_s']:.3f} s, host-driven {graphed['adaptive']['host_s']:.3f} "
+          f"s ({graphed['adaptive']['iterations']} iterations); ODE replayed "
+          f"{ode['replay_s']:.3f} s, host-driven {ode['host_s']:.3f} s ({ode['iterations']} "
+          f"attempts); Table 1's adaptive rows replayed / host-driven us: "
+          + ", ".join(f"{w['name'].split('/', 1)[1]} {w['replay_us']:.0f} / {w['host_us']:.0f}"
+                      for w in tt["table1_walls"])
+          + f"; world-1 mesh horizon agreement captured "
+          f"{mesh_flags['captured_update_ms'] * 1e3:.2f} us, eager "
+          f"{mesh_flags['eager_update_ms'] * 1e3:.2f} us")
     print("phase seconds: " + "; ".join(f"{name[:48]} {s:.1f}" for name, s in PHASE_SECONDS))
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s to the result lines")
     print(card)

@@ -129,6 +129,8 @@ def graph_nodes(graph) -> dict:
     g = ctypes.c_void_p(graph.raw_cuda_graph())
     count = ctypes.c_size_t(0)
     call("cuGraphGetNodes", g, None, ctypes.byref(count))
+    if not count.value:  # an empty graph: the driver refuses a second call
+        return {}
     nodes = (ctypes.c_void_p * count.value)()
     call("cuGraphGetNodes", g, nodes, ctypes.byref(count))
     held = {}

@@ -8,13 +8,18 @@ batched forward pass, and finished samples ride along with frozen state
 
 The reference keeps the whole loop on the device in a
 ``lax.while_loop`` whose condition ``any(t > t_eps)`` is evaluated
-there. A plain Python loop would read that condition back to the host
-every iteration. ``solve_chunk`` instead runs ``SYNC_EVERY`` masked
-iterations between host syncs and reads one small tensor at each sync.
-An iteration after every sample has converged changes nothing
-(``iterations`` grows by ``any(active)``, so it still equals the
-reference's count within ``max_iters``), which makes chained chunks
-bitwise equal to one monolithic solve.
+there after every iteration. The graphed solves do the same: their
+loop is a CUDA-graph WHILE node whose body is one iteration and whose
+condition, P2 (``kernels.graph_loop``), evaluates the reference's
+condition after each one (below). The host-driven chain, a plain Python
+loop, would read that condition back to the host every iteration, so
+``solve_chunk`` instead runs ``SYNC_EVERY`` masked iterations between
+host syncs and reads one small tensor at each sync. An iteration after
+every sample has converged changes nothing (``iterations`` grows by
+``any(active)``, so it still equals the reference's count within
+``max_iters``), which makes chained chunks bitwise equal to one
+monolithic solve, and to the graphed solve, which runs no such
+iteration.
 
 The arithmetic after the two score evaluations has two implementations:
 ``_step_math_jnp`` (plain torch; the name keeps the reference's) and
@@ -39,18 +44,23 @@ advanced by one draw an iteration in which some sample was active (two
 with a projecting conditioner). The serving loop moves a stream with its
 row through every compaction permutation.
 
-The graphed sync horizon (the device-resident serve loop, DESIGN.md
-§12): ``capture_horizon`` records ``sync_horizon`` iterations of the body
-as one CUDA graph over one set of static carry buffers, with no host
-read inside. The bounds ``solve_chunk`` checks on the host (some sample
-active, ``iterations − start < sync_horizon``, ``iterations <
-cfg.max_iters``) become part of the body's mask on the device, and an
-iteration outside them changes nothing. ``events_pending`` (on the
-carry's ``done`` and the occupancy mask; ``kernels.graph_loop.ref``) and
-``solve_horizons`` are the reference's device-side serving event flag and
-multi-horizon driver: on the card the driver is a CUDA-graph WHILE node
-around the captured horizon (``kernels.graph_loop``), on the CPU the
-plain loop over ``solve_chunk``.
+The device-resident driver (the serve loop, DESIGN.md §12, and every
+graphed solve): ``HorizonDriver`` runs a unit of the loop inside a
+CUDA-graph WHILE node whose condition is P2, on one set of static carry
+buffers, with no host read inside. The unit is one Algorithm-1
+iteration (``capture_iteration``), unmasked: P2 runs it only while
+``solve_chunk``'s bounds hold (some sample active, fewer than the
+horizon's iterations in this horizon, ``iterations < cfg.max_iters``),
+and at a horizon's end evaluates ``solve_horizons``' condition on
+``events_pending`` (the carry's ``done`` and the occupancy mask;
+``kernels.graph_loop.ref``), so a window stops at the iteration where
+the reference's nested ``lax.while_loop``s stop and serving events are
+still seen at horizon ends only. On the CPU the plain loop
+(``kernels.graph_loop.ref.solve_horizons``) runs the same unit and the
+same conditions. Under a mesh the unit stays ``capture_horizon``'s
+masked group of a horizon's iterations, ended by the mesh's agreement
+(``MeshFlags``), one unit a horizon: a condition between two iterations
+there would be a collective an iteration.
 
 Telemetry (DESIGN.md §15): ``AdaptiveConfig.telemetry_capacity`` > 0
 (or ``init_carry(telemetry=N)``) attaches a ``StepTelemetry`` ring, and
@@ -62,15 +72,17 @@ body computed anyway, so the solve's bits are the same either way.
 The graphed whole solve (the reference's ``lax.while_loop``): given a
 ``SlotStreams`` and no ``noise_fn``, and under a mesh on the card an
 NCCL mesh (``graphable``, the one rule every solver asks), ``adaptive``
-runs its solve through a
-``HorizonDriver`` that ``wait_all`` waits on every row, with one
-``SYNC_EVERY`` group as its horizon and ⌈``max_iters``/``SYNC_EVERY``⌉
-horizons at most: on the card one WHILE-node graph launch (P2 its
-condition) and one host read a solve, on the CPU the plain driver over
-``solve_chunk``'s groups (under a mesh over the masked horizon the card
-captures). The groups are ``solve_chunk``'s and an
-iteration with no active sample changes no leaf, so the result is the
-host-driven chain's bit for bit. The drivers live in one bounded cache
+runs its solve through a ``HorizonDriver`` that ``wait_all`` waits on
+every row, as the reference's ``adaptive`` is one ``solve_chunk`` of
+``max_iters`` iterations: one horizon of at most ``max_iters``
+iterations, each its own unit, on the card one WHILE-node graph launch
+(P2 its condition, evaluated after every iteration) and one host read a
+solve, on the CPU the plain driver over the same iterations. Under a
+mesh the unit is the masked ``SYNC_EVERY`` group ended by the mesh's
+flags, one a horizon, ⌈``max_iters``/``SYNC_EVERY``⌉ horizons at most.
+An iteration with no active sample changes no leaf, so the result is
+the host-driven chain's bit for bit, and a graphed solve runs exactly
+the iterations the reference runs. The drivers live in one bounded cache
 (``cached_driver``) that every graphed family shares (Algorithm 1's,
 the fixed-grid baselines' in ``grid.py``, the RK45's, Algorithm 2's),
 keyed by structure (``GraphKey``), so a repeated solve copies its fresh
@@ -194,10 +206,16 @@ from repro_torch.parallel.collectives import all_max
 
 Tensor = torch.Tensor
 
-#: masked iterations ``solve_chunk`` runs between two host syncs. At most
-#: SYNC_EVERY − 1 of them run after the last sample converged, and those
-#: change nothing.
+#: masked iterations the host-driven ``solve_chunk`` runs between two host
+#: syncs, and the masked group a graphed horizon under a mesh captures. At
+#: most SYNC_EVERY − 1 of them run after the last sample converged, and
+#: those change nothing. A graphed solve without a mesh runs none of them.
 SYNC_EVERY = 8
+
+#: a driver's bound that never binds: the ``max_horizons`` of a window its
+#: ``done`` alone ends (a fixed grid's, whose ``done`` rises after its last
+#: step), the ``max_iters`` of a loop without an iteration budget
+UNBOUNDED = 2 ** 31 - 1
 
 #: ``sync_state`` device→host reads since the count was last set to 0
 host_syncs = 0
@@ -751,19 +769,46 @@ def capture_graph(carry, run: Callable, warm: Callable) -> torch.cuda.CUDAGraph:
     return graph
 
 
+def capture_iteration(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
+                      config: AdaptiveConfig | None = None,
+                      **overrides) -> torch.cuda.CUDAGraph:
+    """Record one unmasked Algorithm-1 iteration as a CUDA graph over
+    ``carry``'s buffers (``capture_graph``): the unit of an unsharded
+    device-resident driver, which replays it only while ``solve_chunk``'s
+    condition holds, so no iteration runs after the last sample converged.
+    ``carry`` must own its buffers (``own_buffers``) and keep them, and its
+    noise must come from a ``SlotStreams`` (``capture_horizon``). The
+    warm-up is one body iteration."""
+    cfg = resolve_config(config, overrides)
+    if not isinstance(carry.generator, SlotStreams):
+        raise ValueError("a captured iteration draws its noise from SlotStreams: a CUDA "
+                         "graph cannot call per-slot Python sources or a generator")
+    return capture_graph(carry, *_iteration(sde, score_fn, cfg))
+
+
+def _iteration(sde: SDE, score_fn: Callable, cfg: AdaptiveConfig) -> tuple:
+    """(run, warm) of ``capture_iteration``: both one unmasked body
+    iteration (on the CPU ``run`` is the plain driver's unit)."""
+    body = _make_body(sde, score_fn, cfg, _eps_abs(sde, cfg), _pick_step_math(cfg, None))
+    return body, body
+
+
 def capture_horizon(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
                     sync_horizon: int, config: AdaptiveConfig | None = None,
                     sharding=None, flags: Optional["MeshFlags"] = None,
                     **overrides) -> torch.cuda.CUDAGraph:
-    """Record ``sync_horizon`` Algorithm-1 iterations as one CUDA graph over
-    ``carry``'s buffers (``capture_graph``).
+    """Record ``sync_horizon`` masked Algorithm-1 iterations as one CUDA
+    graph over ``carry``'s buffers (``capture_graph``): the unit of a
+    device-resident driver under a mesh, one a horizon, whose iterations
+    cannot each end in a condition without a collective each.
 
     The graph copies ``carry.iterations`` into its own ``start`` first and
     runs each iteration under ``limits=(start, sync_horizon)``, so the
     bounds ``solve_chunk`` checks on the host are part of the mask and the
     graph reads nothing back. A replay is therefore one ``solve_chunk(...,
     max_sync_iters=sync_horizon)`` on the carry, bit for bit where the
-    same kernels run (an iteration past the bounds changes nothing).
+    same kernels run (an iteration past the bounds changes nothing, but
+    runs its score evaluations).
     ``carry`` must own its buffers (``own_buffers``) and keep them: the
     caller writes new requests into them in place. Its noise must come
     from a ``SlotStreams``: a graph cannot call Python sources, and a
@@ -859,46 +904,76 @@ class MeshFlags:
         return self.occupied_v, self.done_v
 
 
+def horizon_unit(sde: SDE, score_fn: Callable, cfg: AdaptiveConfig, *, sync_horizon: int,
+                 device, sharding=None, flags: Optional["MeshFlags"] = None) -> tuple:
+    """(unit, horizon): the unit of a device-resident Algorithm-1 driver
+    (``HorizonDriver``'s) and the units a ``sync_horizon`` horizon holds.
+    Unsharded the unit is one iteration, ``sync_horizon`` of them a
+    horizon: on the card ``capture_iteration``, on the CPU the eager body.
+    Under a mesh (``sharding`` and its ``flags``) it is the masked
+    ``sync_horizon`` group, one a horizon: on the card
+    ``capture_horizon(flags=)``, on the CPU a sharded ``solve_chunk`` (the
+    plain driver reads the flags after it)."""
+    dev = torch.device(device)
+    if sharding is None:
+        if dev.type == "cuda":
+            return (lambda c: capture_iteration(sde, score_fn, c, config=cfg)), sync_horizon
+        return _iteration(sde, score_fn, cfg)[0], sync_horizon
+    if dev.type == "cuda":
+        return (lambda c: capture_horizon(sde, score_fn, c, sync_horizon=sync_horizon,
+                                          config=cfg, sharding=sharding, flags=flags)), 1
+    return (lambda c: solve_chunk(sde, score_fn, c, max_sync_iters=sync_horizon, config=cfg,
+                                  sharding=sharding)), 1
+
+
 class HorizonDriver:
-    """The device-resident multi-horizon driver of one carry kept in place
-    (``solve_horizons``'s loop, built once and run every window).
+    """The device-resident driver of one carry kept in place: the
+    reference's ``solve_horizons`` over ``solve_chunk`` chunks, built once
+    and run every window, one ``unit`` of the loop at a time.
 
     ``unit`` is the one callable the carry's device uses. On the card,
-    ``unit(carry)`` captures one sync horizon over the carry's buffers,
-    which become static (``capture_horizon``, returning the graph), and a
-    WHILE node replays it until an event is pending or ``max_horizons``
-    ran (``kernels.graph_loop.ops.WhileDriver``, P2 its condition); CUDA
-    12.3 or later is needed in the toolkit and the driver, and an older
-    one raises naming both. On the CPU, ``unit(carry) -> carry`` runs one
-    horizon (one ``solve_chunk``) in the plain loop
-    (``kernels.graph_loop.ref``) and the result is copied into the same
-    buffers, so a window leaves the carry's tensors where they were
-    either way. ``window()`` returns ``state``, a (2,) int32 on the
-    device: the event flag at exit and the horizons run, which the caller
-    reads once and hands to ``account``.
+    ``unit(carry)`` captures one unit over the carry's buffers, which
+    become static (``capture_iteration``, ``capture_horizon`` or
+    ``capture_graph``, returning the graph), and a WHILE node replays it
+    while P2 (``kernels.graph_loop.ops.WhileDriver``) says so: inside a
+    horizon of at most ``horizon`` units while some row of the carry is
+    not done and its ``iterations`` are below ``max_iters``, and from one
+    horizon to the next until an event is pending, no occupied row runs,
+    or ``max_horizons`` ran. CUDA 12.3 or later is needed in the toolkit
+    and the driver, and an older one raises naming both. On the CPU,
+    ``unit(carry) -> carry`` runs one unit in the plain loop
+    (``kernels.graph_loop.ref``) under the same conditions, and the result
+    is copied into the same buffers, so a window leaves the carry's
+    tensors where they were either way. ``window()`` returns ``state``, a
+    (4,) int32 on the device (``graph_loop.ops.STATE``): the event flag at
+    exit, the horizons run, 0, and the units run, which the caller reads
+    once and hands (the units) to ``account``.
 
-    Under a mesh ``flags`` (``MeshFlags``) makes the condition global: on
-    the card the unit must capture ``flags.update`` at the end of its
-    horizon (``capture_horizon(flags=)``), the WHILE node's P2 reads the
-    agreed virtual slots, and each window first runs ``flags.update``
-    once eagerly (no host read) for the condition it starts from; on the
-    CPU the plain loop reads ``flags.masks`` after every horizon. On CUDA
+    Under a mesh ``flags`` (``MeshFlags``) makes the condition global: the
+    unit is a horizon's masked group (``horizon`` 1) and on the card must
+    capture ``flags.update`` at its end (``capture_horizon(flags=)``), the
+    WHILE node's P2 reads the agreed virtual slots and the agreed
+    ``iterations``, and each window first runs ``flags.update`` once
+    eagerly (no host read) for the condition it starts from; on the CPU
+    the plain loop reads ``flags.masks`` after every unit. On CUDA
     tensors the mesh must be NCCL's: a gloo collective cannot be
     captured, so a gloo mesh raises here rather than fall back to a
     host-driven loop.
     """
 
     def __init__(self, carry: SolverCarry, occupied: Tensor, unit: Callable, *,
-                 max_horizons: int, wait_all: bool = False,
+                 horizon: int, max_iters: int, max_horizons: int, wait_all: bool = False,
                  flags: Optional[MeshFlags] = None):
         self.carry = own_buffers(carry)
         self.occupied = occupied
         self.unit = unit
         self.max_horizons = int(max_horizons)
+        self.horizon = int(horizon)
+        self.max_iters = int(max_iters)
         self.wait_all = bool(wait_all)
         self.flags = flags
         dev = carry.x.device
-        self.state = torch.zeros(2, dtype=torch.int32, device=dev)
+        self.state = torch.zeros(len(loop_ops.STATE), dtype=torch.int32, device=dev)
         self.graph = self.driver = None
         t0 = time.perf_counter()
         if dev.type == "cuda":
@@ -914,11 +989,12 @@ class HorizonDriver:
                 flags.update(self.carry)  # makes NCCL's communicator before the capture
                 occ, done = flags.occupied_v, flags.done_v
             self.graph = unit(self.carry)
-            self.driver = loop_ops.WhileDriver(self.graph, occ, done, self.state,
-                                               recorded=self.graph.recorded,
+            self.driver = loop_ops.WhileDriver(self.graph, occ, done, self.carry.iterations,
+                                               self.state, recorded=self.graph.recorded,
+                                               horizon=self.horizon, max_iters=self.max_iters,
                                                max_horizons=self.max_horizons,
                                                wait_all=self.wait_all)
-        #: horizon graphs captured (one a driver, none on the CPU)
+        #: unit graphs captured (one a driver, none on the CPU)
         self.captures = int(self.graph is not None)
         #: host seconds the capture (its warm-up iteration included) and
         #: the driver graph's instantiation took
@@ -932,24 +1008,24 @@ class HorizonDriver:
             self.driver.launch()
             return self.state
         with torch.no_grad():
-            out, event, n = loop_ref.solve_horizons(
-                self.unit, self.carry, self.occupied,
-                max_horizons=self.max_horizons, wait_all=self.wait_all,
+            out, event, n, units = loop_ref.solve_horizons(
+                self.unit, self.carry, self.occupied, horizon=self.horizon,
+                max_iters=self.max_iters, max_horizons=self.max_horizons,
+                wait_all=self.wait_all,
                 masks=None if self.flags is None else self.flags.masks)
             copy_carry_(self.carry, out)
-        self.state.copy_(torch.tensor([int(event), n], dtype=torch.int32))
+        self.state.copy_(torch.tensor([int(event), n, 0, units], dtype=torch.int32))
         return self.state
 
-    def account(self, horizons: int) -> None:
-        """On the card, charge a window's kernel launches (``horizons``
-        read from its state) to the wrappers' counts
-        (``WhileDriver.account``) and the collectives the horizon's
-        capture booked to the books (``collectives.charge``), once a
-        horizon run; the CPU launches nothing and books its calls as it
-        makes them."""
+    def account(self, units: int) -> None:
+        """On the card, charge a window's kernel launches (``units`` read
+        from its state) to the wrappers' counts (``WhileDriver.account``)
+        and the collectives the unit's capture booked to the books
+        (``collectives.charge``), once a unit run; the CPU launches nothing
+        and books its calls as it makes them."""
         if self.driver is not None:
-            self.driver.account(horizons)
-            coll.charge(self.graph.books, horizons)
+            self.driver.account(units)
+            coll.charge(self.graph.books, units)
 
 
 def solve_horizons(sde: SDE, score_fn: Callable, carry: SolverCarry, occupied: Tensor, *,
@@ -961,11 +1037,13 @@ def solve_horizons(sde: SDE, score_fn: Callable, carry: SolverCarry, occupied: T
     occupied sample converged, or ``max_horizons`` chunks ran. Returns
     ``(carry, events)``, the flag a 0-d bool on the device.
 
-    Each horizon is the unit the host-driven serve loop runs a sync, so
-    the result is the chained chunks' bit for bit. On the card this call
-    captures a horizon and runs one window of a ``HorizonDriver`` (the
+    Each horizon is the chunk the host-driven serve loop runs a sync, so
+    the result is the chained chunks' bit for bit; inside it the
+    iterations stop where ``solve_chunk``'s condition fails, as the
+    reference's do. On the card this call captures the unit
+    (``horizon_unit``) and runs one window of a ``HorizonDriver`` (the
     serve loop keeps its driver across windows instead). On the CPU it is
-    the plain loop over ``solve_chunk``. Either way the carry's buffers
+    the plain loop over the same unit. Either way the carry's buffers
     are written in place, as the reference donates its carry: a tensor
     the carry shares with the caller (``init_carry``'s ``x_init``) is
     overwritten. Under a mesh (``sharding``) ``carry`` and ``occupied``
@@ -977,14 +1055,10 @@ def solve_horizons(sde: SDE, score_fn: Callable, carry: SolverCarry, occupied: T
     if sharding is not None:
         flags = MeshFlags(sharding, occupied, horizon=sync_horizon,
                           draws=draws_per_iteration(cfg))
-    if carry.x.device.type == "cuda":
-        unit = lambda c: capture_horizon(sde, score_fn, c, sync_horizon=sync_horizon,
-                                         config=cfg, sharding=sharding, flags=flags)
-    else:
-        unit = lambda c: solve_chunk(sde, score_fn, c, max_sync_iters=sync_horizon,
-                                     config=cfg, sharding=sharding)
-    drv = HorizonDriver(carry, occupied, unit, max_horizons=max_horizons, wait_all=wait_all,
-                        flags=flags)
+    unit, horizon = horizon_unit(sde, score_fn, cfg, sync_horizon=sync_horizon,
+                                 device=carry.x.device, sharding=sharding, flags=flags)
+    drv = HorizonDriver(carry, occupied, unit, max_horizons=max_horizons, horizon=horizon,
+                        max_iters=cfg.max_iters, wait_all=wait_all, flags=flags)
     state = drv.window()
     return drv.carry, state[0].to(torch.bool)
 
@@ -999,9 +1073,6 @@ GRAPH_CACHE_SIZE = 8
 #: keys whose first solve ran host-driven that the cache remembers at once
 #: (the one-shot rule, ``cached_driver``)
 SEEN_SIZE = 64
-#: ``max_horizons`` of a driver whose condition alone ends its window (a
-#: fixed grid's, whose ``done`` rises after its last step)
-UNBOUNDED = 2 ** 31 - 1
 
 
 class GraphKey(NamedTuple):
@@ -1141,14 +1212,18 @@ def _then_update(run: Callable, flags: "MeshFlags") -> Callable:
 
 
 def cached_driver(family: str, sde, fns: tuple, static: tuple, carry,
-                  make_horizon: Callable, *, max_horizons: int, sharding=None,
+                  make_horizon: Callable, *, max_horizons: int, horizon: int = 1,
+                  max_iters: int = UNBOUNDED, sharding=None,
                   flags: Optional[Callable] = None) -> Optional[HorizonDriver]:
-    """The cached driver of ``family``'s horizon, at most ``max_horizons`` a
-    window, waiting on every row of ``carry.done``, with ``carry`` copied
-    into its buffers; None where the solve is to run host-driven.
+    """The cached driver of ``family``'s unit, ``horizon`` units a horizon
+    and at most ``max_horizons`` horizons a window while ``carry.iterations``
+    stays below ``max_iters`` (``HorizonDriver``), waiting on every row of
+    ``carry.done``, with ``carry`` copied into its buffers; None where the
+    solve is to run host-driven. ``static`` must settle ``horizon`` and
+    ``max_iters``: the parent graph holds them.
 
-    ``make_horizon(*fns) -> (run, warm)`` builds the horizon on the live
-    functions: ``run(carry) -> carry`` the horizon, ``warm(carry)`` one
+    ``make_horizon(*fns) -> (run, warm)`` builds the unit on the live
+    functions: ``run(carry) -> carry`` the unit, ``warm(carry)`` one
     iteration of it (the capture's warm-up). On the card ``run`` is
     captured (``capture_graph``) and counted in ``captures``; on the CPU
     it is the plain driver's unit. ``carry`` needs the leaves ``x``,
@@ -1239,7 +1314,7 @@ def cached_driver(family: str, sde, fns: tuple, static: tuple, carry,
     else:  # the plain driver reads the flags after every horizon (``HorizonDriver``)
         unit = lambda c: make_horizon(*live())[0](c)
     drv = HorizonDriver(copy.deepcopy(carry), occupied, unit, max_horizons=max_horizons,
-                        wait_all=True, flags=mesh_flags)
+                        horizon=horizon, max_iters=max_iters, wait_all=True, flags=mesh_flags)
     captures += drv.captures
     builds += 1
     drv.anchor = refs  # lives as long as the entry: their callbacks drop it
@@ -1266,28 +1341,32 @@ def host_read(flags: Tensor) -> list:
 
 def driver_window(drv: HorizonDriver) -> tuple:
     """One driver window and its one host read: (horizons run, some row
-    still active, iterations), the window's launches charged. Under a
-    mesh with flags the activity is the whole mesh's (the flags' last
-    agreement), so every rank reads the same."""
+    still active, iterations), the window's launches charged (its units
+    run). Under a mesh with flags the activity is the whole mesh's (the
+    flags' last agreement), so every rank reads the same."""
     drv.window()
     c = drv.carry
     active = ((~c.done).any().to(torch.int32).reshape(1) if drv.flags is None
               else drv.flags.buf[:1])
-    vals = host_read(torch.cat([drv.state, active, c.iterations.reshape(1)]))
-    drv.account(vals[1])
-    return vals[1], bool(vals[2]), vals[3]
+    event, horizons, _, units, active, iters = host_read(
+        torch.cat([drv.state, active, c.iterations.reshape(1)]))
+    drv.account(units)
+    return horizons, bool(active), iters
 
 
 def solve_cached(family: str, sde, fns: tuple, static: tuple, carry, make_horizon: Callable,
-                 *, max_horizons: int, host: Callable, sharding=None):
+                 *, max_horizons: int, host: Callable, horizon: int = 1,
+                 max_iters: int = UNBOUNDED, sharding=None):
     """The whole solve of ``carry`` in one window of the cached driver
-    (``cached_driver``), or ``host(carry) -> carry``, the host-driven
-    chain, where the one-shot rule says so. Returns a carry of its own
-    (the driver's buffers serve the next solve). ``sharding``: the mesh
-    the solve's rows lie on, whose condition is the same on every rank
-    (the fixed grids', the RK45's)."""
+    (``cached_driver``: ``horizon``, ``max_iters`` and ``max_horizons``
+    its bounds), or ``host(carry) -> carry``, the host-driven chain, where
+    the one-shot rule says so. Returns a carry of its own (the driver's
+    buffers serve the next solve). ``sharding``: the mesh the solve's rows
+    lie on, whose condition is the same on every rank (the fixed grids',
+    the RK45's)."""
     drv = cached_driver(family, sde, fns, static, carry, make_horizon,
-                        max_horizons=max_horizons, sharding=sharding)
+                        max_horizons=max_horizons, horizon=horizon, max_iters=max_iters,
+                        sharding=sharding)
     if drv is None:
         return host(carry)
     driver_window(drv)
@@ -1297,36 +1376,36 @@ def solve_cached(family: str, sde, fns: tuple, static: tuple, carry, make_horizo
 def graph_driver(sde: SDE, score_fn: Callable, carry: SolverCarry, config: AdaptiveConfig, *,
                  max_sync_iters: int, max_horizons: int,
                  sharding=None) -> Optional[HorizonDriver]:
-    """Algorithm 1's cached driver (``cached_driver``): ``max_sync_iters``
-    iterations a horizon (on the card ``capture_horizon``, on the CPU
-    ``solve_chunk``), at most ``max_horizons`` a window, or None where
-    the one-shot rule runs the solve host-driven. The key holds the
+    """Algorithm 1's cached driver (``cached_driver``): horizons of at most
+    ``max_sync_iters`` iterations, each its own unit (on the card
+    ``capture_iteration``'s graph, on the CPU the eager body; P2 ends a
+    horizon where ``solve_chunk``'s condition fails), at most
+    ``max_horizons`` a window, or None where the one-shot rule runs the
+    solve host-driven. The key holds the
     config without its tolerances: ``eps_rel`` and ``eps_abs`` go into
     the carry as its per-sample ``rtol``/``atol`` leaves (where the
     caller set none), which the body reads in place of the config's and
     which round as the config's floats do, so solves that differ only in
     their tolerances share a driver.
 
-    Under a mesh (``sharding``, the carry this rank's rows) the horizon is
-    the masked ``max_sync_iters`` iterations on both devices, ended by
-    the mesh's flags (``MeshFlags``: the all-reduce of [a row running,
-    iterations] and a lagging rank's catch-up), which the host-driven
-    chain makes after each group of ``SYNC_EVERY``: an iteration with no
-    active row changes nothing and the catch-up of a lag is the sum of
-    its parts, so the window is the chain bit for bit."""
+    Under a mesh (``sharding``, the carry this rank's rows) the unit is
+    the masked ``max_sync_iters`` iterations on both devices, one a
+    horizon, ended by the mesh's flags (``MeshFlags``: the all-reduce of
+    [a row running, iterations] and a lagging rank's catch-up), which the
+    host-driven chain makes after each group of ``SYNC_EVERY``: an
+    iteration with no active row changes nothing and the catch-up of a
+    lag is the sum of its parts, so the window is the chain bit for
+    bit."""
     if carry.atol is None:
         carry = dataclasses.replace(
             carry, atol=_per_sample(_eps_abs(sde, config), carry.batch, carry.x.device),
             rtol=_per_sample(config.eps_rel, carry.batch, carry.x.device))
     static = (dataclasses.replace(config, eps_rel=None, eps_abs=None), int(max_sync_iters))
 
-    dev = carry.x.device
 
     def make_horizon(score):
-        if dev.type != "cuda" and sharding is None:
-            run = lambda c: solve_chunk(sde, score, c, max_sync_iters=max_sync_iters,
-                                        config=config)
-            return run, None
+        if sharding is None:
+            return _iteration(sde, score, config)
         return _horizon(sde, score, config, max_sync_iters, sharding)
 
     flags = None
@@ -1334,19 +1413,27 @@ def graph_driver(sde: SDE, score_fn: Callable, carry: SolverCarry, config: Adapt
         flags = lambda occupied: MeshFlags(sharding, occupied, horizon=max_sync_iters,
                                            draws=draws_per_iteration(config))
     return cached_driver("adaptive", sde, (score_fn,), static, carry, make_horizon,
-                         max_horizons=max_horizons, sharding=sharding, flags=flags)
+                         max_horizons=max_horizons,
+                         horizon=max_sync_iters if sharding is None else 1,
+                         max_iters=config.max_iters, sharding=sharding, flags=flags)
 
 
 def solve_graphed(sde: SDE, score_fn: Callable, carry: SolverCarry, *,
                   config: AdaptiveConfig, sharding=None) -> SolverCarry:
     """The whole solve of ``carry`` (its noise a ``SlotStreams``): one window
-    of the cached driver, ``SYNC_EVERY``-iteration horizons, at most
-    ⌈``max_iters``/``SYNC_EVERY``⌉, until every row (under a mesh, every
-    rank's) has converged; or, at a key's first solve, the host-driven
-    ``solve_chunk`` chain. Returns a carry of its own (the driver's
-    buffers serve the next solve)."""
-    drv = graph_driver(sde, score_fn, carry, config, max_sync_iters=SYNC_EVERY,
-                       max_horizons=-(-config.max_iters // SYNC_EVERY), sharding=sharding)
+    of the cached driver until every row (under a mesh, every rank's) has
+    converged or ``max_iters`` iterations ran; or, at a key's first solve,
+    the host-driven ``solve_chunk`` chain. Unsharded the window is the
+    reference's one ``solve_chunk`` of ``max_iters`` iterations, its
+    condition checked after every iteration; under a mesh it is
+    ``SYNC_EVERY``-iteration masked groups, at most
+    ⌈``max_iters``/``SYNC_EVERY``⌉. Returns a carry of its own (the
+    driver's buffers serve the next solve)."""
+    budget = max(config.max_iters, 1)  # a parent graph holds a horizon of one unit or more
+    group, horizons = ((budget, 1) if sharding is None
+                       else (SYNC_EVERY, -(-budget // SYNC_EVERY)))
+    drv = graph_driver(sde, score_fn, carry, config, max_sync_iters=group,
+                       max_horizons=horizons, sharding=sharding)
     if drv is None:
         return solve_chunk(sde, score_fn, carry, max_sync_iters=config.max_iters,
                            config=config, sharding=sharding)
@@ -1547,15 +1634,16 @@ def adaptive_forward(drift_fn: Callable, diffusion_fn: Callable, x0: Tensor,
 
     The loop is chosen as Algorithm 1's (``graphable``): with a
     ``SlotStreams`` and no ``noise_fn`` the solve is one window of a
-    cached driver (``solve_cached``: on the card one WHILE-node launch of
-    ``SYNC_EVERY``-iteration horizons and one host read; a key's first
-    solve host-driven), keyed by ``drift_fn``, ``diffusion_fn``, the
-    config, ``t_end`` and the state's shape. Otherwise iterations run in
-    groups of ``SYNC_EVERY`` between host reads. Either way an iteration
-    after every sample finished changes nothing, the groups are the same,
-    and ``iterations`` counts those in which a sample was active, which
-    is the reference's count: the graphed solve is the host-driven one
-    bit for bit.
+    cached driver (``solve_cached``: on the card one WHILE-node launch
+    whose body is one iteration and whose condition, the reference's
+    ``any(t < t_end) ∧ iterations < max_iters``, P2 evaluates after every
+    one; one host read; a key's first solve host-driven), keyed by
+    ``drift_fn``, ``diffusion_fn``, the config, ``t_end`` and the state's
+    shape. Otherwise iterations run in groups of ``SYNC_EVERY`` between
+    host reads. An iteration after every sample finished changes
+    nothing, and ``iterations`` counts those in which a sample was
+    active, which is the reference's count: the graphed solve is the
+    host-driven one bit for bit, without the host groups' masked tail.
     """
     dev = resolve_device(device)
     check_noise_source(generator, noise_fn, dev, "adaptive_forward")
@@ -1593,19 +1681,14 @@ def adaptive_forward(drift_fn: Callable, diffusion_fn: Callable, x0: Tensor,
 
     def make_horizon(drift, diffusion):
         body = _forward_body(drift, diffusion, t_end, cfg, noise)
-
-        def run(c: ForwardCarry) -> ForwardCarry:
-            for _ in range(SYNC_EVERY):
-                c = body(c)
-            return c
-
-        return run, body
+        return body, body  # one step a unit; the warm-up is a step
 
     with torch.no_grad():
         if graphable(generator, noise_fn):
+            budget = max(cfg.max_iters, 1)
             carry = solve_cached("forward", None, (drift_fn, diffusion_fn), (cfg, t_end),
-                                 carry, make_horizon,
-                                 max_horizons=-(-cfg.max_iters // SYNC_EVERY), host=host)
+                                 carry, make_horizon, max_horizons=1, horizon=budget,
+                                 max_iters=cfg.max_iters, host=host)
         else:
             carry = host(carry)
     return SolveResult(x=carry.x, nfe=carry.nfe, iterations=carry.iterations,

@@ -7,19 +7,22 @@ flattened batch, as scipy's, so the NFE is batch-global; FSAL reuses the
 last stage of an accepted step as the next step's first, so an attempt
 costs 6 evaluations after one seeding evaluation.
 
-The reference runs a device-side ``lax.while_loop``. Here the attempts
-run in masked groups of ``SYNC_EVERY``: an attempt made once s has
-reached the span (or the attempt budget is spent) changes nothing, and
+The reference runs a device-side ``lax.while_loop`` whose condition,
+s < span ∧ iterations < max_iters, it checks after every attempt.
+Graphed (no ``noise_fn``, and under a mesh on the card an NCCL mesh;
+``adaptive.graphable``), the solve is one window of a cached driver
+(``adaptive.solve_cached``): on the card one WHILE-node launch whose
+body is one attempt and whose condition (P2) is the reference's, checked
+after every attempt, and one host read a solve; a key's first solve is
+host-driven (the one-shot rule). Host-driven, the attempts run in
+masked groups of ``SYNC_EVERY`` with one host read after each: an
+attempt made once s has reached the span (or the attempt budget is
+spent) changes nothing, though it runs its six score evaluations, and
 ``iterations`` and ``nfe`` count only the attempts made while s < span,
-so both equal the reference's. Host-driven, one host read follows each
-group. Graphed (no ``noise_fn``, and under a mesh on the card an NCCL
-mesh; ``adaptive.graphable``), a group is the horizon of a cached
-driver (``adaptive.solve_cached``):
-on the card one WHILE-node launch whose condition (P2) is s < span, at
-most ⌈``max_iters``/``SYNC_EVERY``⌉ horizons, and one host read a
-solve; a key's first solve is host-driven (the one-shot rule). The
-groups and the attempt are the same on both paths, so the graphed solve
-is the host-driven one bit for bit. The tolerances and h_init are the
+so both equal the reference's on both paths and the graphed solve is
+the host-driven one bit for bit. Under a mesh the graphed unit stays
+the masked group, one a horizon, at most ⌈``max_iters``/``SYNC_EVERY``⌉.
+The tolerances and h_init are the
 carry's buffers, so one graph serves every tolerance. s and h stay fp32
 tensors, and the tableau is kept as the reference keeps it (``_C``,
 ``_B5``, ``_B4`` fp32 arrays, ``_A`` Python floats), so the step sizes
@@ -175,6 +178,8 @@ def probability_flow_rk45(sde: SDE, score_fn: Callable, x_init: Tensor,
 
     def make_horizon(score):
         attempt, _ = make_attempt(score)
+        if sharding is None:
+            return attempt, attempt  # one attempt a unit; the warm-up is an attempt
 
         def run(c: OdeCarry) -> OdeCarry:
             for _ in range(SYNC_EVERY):
@@ -193,9 +198,12 @@ def probability_flow_rk45(sde: SDE, score_fn: Callable, x_init: Tensor,
             done=torch.zeros((1,), dtype=torch.bool, device=dev),
             rtol=torch.tensor(rtol, **f32), atol=torch.tensor(atol, **f32))
         if graphable(None, noise_fn, sharding, draws=False):
+            budget = max(max_iters, 1)
+            horizon, horizons = ((budget, 1) if sharding is None
+                                 else (1, -(-budget // SYNC_EVERY)))
             carry = solve_cached("ode", sde, (score_fn,), (max_iters,), carry, make_horizon,
-                                 max_horizons=-(-max_iters // SYNC_EVERY), host=host,
-                                 sharding=sharding)
+                                 max_horizons=horizons, horizon=horizon, max_iters=max_iters,
+                                 host=host, sharding=sharding)
         else:
             carry = host(carry)
         x, nfe, iters = carry.x, carry.nfe, carry.iterations

@@ -94,7 +94,7 @@ from repro_torch.core.sampling import gather_result, sample
 from repro_torch.core.sde import VESDE, VPSDE, bcast
 from repro_torch.core.solvers import adaptive as ad
 from repro_torch.core.solvers.adaptive import (
-    ADAPTIVE_FAMILY, AdaptiveConfig, capture_horizon, solve_chunk,
+    ADAPTIVE_FAMILY, AdaptiveConfig, capture_horizon, horizon_unit, solve_chunk,
 )
 from repro_torch.core.solvers.predictor_corrector import linspace_f32
 from repro_torch.device import resolve_device
@@ -188,12 +188,15 @@ def make_sample_step(sde, cfg: AdaptiveConfig, forward_fn=None):
     port's ``solve_chunk``, so serving runs the very body ``adaptive()``
     runs (fused kernel, per-slot noise streams, NFE accounting, the
     telemetry ring) and chained chunks give the monolithic solve's bits.
-    This is the unit the serving loop repeats between its syncs.
-    ``step.capture_horizon(params, carry, sync_horizon)`` hands the
-    device-resident driver the same unit as a CUDA graph over ``carry``'s
-    buffers (``adaptive.capture_horizon``). Under a mesh both take the
-    slots' ``sharding`` (the carry is this rank's rows), and the capture
-    the driver's ``flags`` (``adaptive.MeshFlags``).
+    This is the chunk the serving loop repeats between its syncs.
+    ``step.horizon_unit(params, sync_horizon, device)`` hands the
+    device-resident driver its unit and the units a horizon holds
+    (``adaptive.horizon_unit``: one iteration, on the card captured over
+    the carry's buffers; under a mesh the masked chunk,
+    ``step.capture_horizon(params, carry, sync_horizon)``, a CUDA graph of
+    ``sync_horizon`` masked iterations). Under a mesh they take the
+    slots' ``sharding`` (the carry is this rank's rows), and the unit the
+    driver's ``flags`` (``adaptive.MeshFlags``).
 
     ``forward_fn(params, x, t[, y])`` predicts noise: score = −out/std,
     with the division in fp32. The default is the DiT forward,
@@ -226,8 +229,13 @@ def make_sample_step(sde, cfg: AdaptiveConfig, forward_fn=None):
         return capture_horizon(sde, score_of(params), carry, sync_horizon=sync_horizon,
                                config=cfg, sharding=sharding, flags=flags)
 
+    def unit(params, sync_horizon, device, sharding=None, flags=None):
+        return horizon_unit(sde, score_of(params), cfg, sync_horizon=sync_horizon,
+                            device=device, sharding=sharding, flags=flags)
+
     sample_step.score_of = score_of
     sample_step.capture_horizon = capture
+    sample_step.horizon_unit = unit
     return sample_step
 
 

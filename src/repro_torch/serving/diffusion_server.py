@@ -39,11 +39,16 @@ Device-resident hot path (DESIGN.md §12; ``device_resident=True``): the
 per-horizon polling loop moves to the device. A driver
 (``adaptive.HorizonDriver``) chains sync-horizon chunks until a serving
 event (a pending delivery) fires or ``MAX_HORIZONS`` ran, and the host
-reads one (2,) int32 a window: the event flag and the horizons run. On
-the card the driver is one CUDA graph: the horizon captured once per
-server over the carry's static buffers, inside a WHILE node whose
-condition is the P2 kernel (``kernels.graph_loop``). On the CPU it is
-the plain loop over ``solve_chunk``. Only when the flag is set does the
+reads one (4,) int32 a window: the event flag, the horizons and the
+units run. On the card the driver is one CUDA graph: one Algorithm-1
+iteration captured once per server over the carry's static buffers,
+inside a WHILE node whose condition is the P2 kernel
+(``kernels.graph_loop``), which ends a chunk where the reference's
+``solve_chunk`` stops (every sample converged, the horizon's iterations
+run, the budget spent) and checks for an event only at a chunk's end,
+so retirement keeps the horizon's granularity. On the CPU it is the
+plain loop over the same iteration and conditions. Only when the flag
+is set does the
 host pull the (B,) bookkeeping and the retired rows and write the
 permutation and the admissions into the same buffers in place
 (``_process_events``), so host↔device traffic is O(delivered requests),
@@ -67,7 +72,8 @@ that a decision or a book depends on (submission stamps and deadlines,
 EDF admission's ``now``, delivery) is rank 0's reading, broadcast over a
 host (gloo) group, so the ranks seat the same requests. The
 device-resident driver agrees on its event flag after every horizon
-(``adaptive.MeshFlags``): on the card the NCCL all-reduce is captured
+(``adaptive.MeshFlags``), and its unit is then the masked sync-horizon
+chunk, one a horizon: on the card the NCCL all-reduce is captured
 inside the WHILE node's body, and a gloo mesh on CUDA tensors raises.
 """
 
@@ -212,8 +218,11 @@ class DiffusionBatcher:
     ``device_resident=True`` (DESIGN.md §12) replaces the per-horizon
     host round trip with the device-resident driver: up to
     ``MAX_HORIZONS`` sync-horizon chunks a host visit, one read a window
-    (module docstring). ``graph_captures`` counts the horizon graphs the
-    server captured (one on the card, at its first window).
+    (module docstring), each chunk's iterations stopping where every
+    sample converged. ``graph_captures`` counts the unit graphs the
+    server captured (one on the card, at its first window);
+    ``device_horizons`` and ``device_units`` the chunks and the units
+    (iterations; under a mesh, chunks) its driver ran.
 
     ``solver``/``solver_kwargs`` name the solver family ``sample_step``
     runs, so that the waste books convert loop iterations to issued score
@@ -235,7 +244,7 @@ class DiffusionBatcher:
     per data index. A mesh server is a collective: every rank of the mesh
     builds it, submits the same requests in the same order and drives it
     the same way; ``sample_step`` must take ``sharding=`` (and its
-    ``capture_horizon`` ``sharding=`` and ``flags=``), as
+    ``horizon_unit`` ``sharding=`` and ``flags=``), as
     ``launch.sample.make_sample_step``'s does.
     """
 
@@ -346,6 +355,9 @@ class DiffusionBatcher:
         self.horizon_windows = 0
         #: sync horizons the device-resident driver ran, over all windows
         self.device_horizons = 0
+        #: units the device-resident driver ran, over all windows: body
+        #: iterations (under a mesh, masked sync-horizon chunks, one a horizon)
+        self.device_units = 0
         #: device-resident host visits: at an event (delivery pulls) and
         #: admission-only (newcomers into free slots, one pull)
         self.event_visits = 0
@@ -714,22 +726,19 @@ class DiffusionBatcher:
 
     def _device_driver(self) -> HorizonDriver:
         """The device-resident driver, built at the first window: on the
-        card it captures the horizon over the carry's buffers (once per
-        server) and builds the WHILE-node graph around it."""
+        card it captures its unit over the carry's buffers (once per
+        server; one iteration, under a mesh the masked sync-horizon chunk)
+        and builds the WHILE-node graph around it."""
         if self._driver is None:
-            step, params, h = self.sample_step, self.params, self.sync_horizon
-            kw, flags = self._shard_kw(), None
+            h, flags = self.sync_horizon, None
             if self._sharding is not None:
                 flags = ad.MeshFlags(self._sharding, self._occupied, horizon=h,
                                      draws=ad.draws_per_iteration(self.cfg))
-            if self.device.type == "cuda":
-                if flags is not None:
-                    kw["flags"] = flags
-                unit = lambda c: step.capture_horizon(params, c, h, **kw)
-            else:
-                unit = lambda c: step(params, c, max_sync_iters=h, **kw)
+            unit, horizon = self.sample_step.horizon_unit(self.params, h, self.device,
+                                                          flags=flags, **self._shard_kw())
             self._driver = HorizonDriver(self._carry, self._occupied, unit,
-                                         max_horizons=MAX_HORIZONS,
+                                         max_horizons=MAX_HORIZONS, horizon=horizon,
+                                         max_iters=self.cfg.max_iters,
                                          wait_all=not self.compaction, flags=flags)
             self._carry = self._driver.carry
         return self._driver
@@ -771,7 +780,8 @@ class DiffusionBatcher:
 
     def _device_step(self) -> int:
         """One device-resident window: at most MAX_HORIZONS · sync_horizon
-        iterations a host visit, one read of the (event, horizons) flag."""
+        iterations a host visit, one read of the driver's state (the event
+        flag, the horizons and the units run)."""
         occupied = [r is not None for r in self._slot_req]
         if self.queue and not all(occupied) and (self.compaction or not any(occupied)):
             # admission is host knowledge (queue and occupancy): seat the
@@ -788,11 +798,12 @@ class DiffusionBatcher:
             driver = self._device_driver()
             syncs = ad.host_syncs
             state = driver.window()
-            event, horizons = self._d2h(state)
+            event, horizons, _, units = self._d2h(state)
             self._c_syncs.inc(ad.host_syncs - syncs)
         self.horizon_windows += 1
         self.device_horizons += int(horizons)
-        driver.account(int(horizons))
+        self.device_units += int(units)
+        driver.account(int(units))
         if event:
             self._process_events()
         return busy

@@ -237,14 +237,17 @@ def test_events_pending_and_horizon_cond_match_reference(occ, done, wait_all):
     jc.done = jnp.asarray(done, bool)
     want = bool(jevents(jc, jnp.asarray(occ, bool), wait_all=wait_all))
     assert bool(ad.events_pending(d, o, wait_all=wait_all)) == want
-    state = torch.zeros(2, dtype=torch.int32)
+    # one unit a horizon (a mesh's or a grid's driver): P2 after a unit
+    # ends the horizon and decides on solve_horizons' condition alone
+    state = torch.zeros(4, dtype=torch.int32)
+    its = torch.zeros((), dtype=torch.int32)
     running = any(a and not b for a, b in zip(occ, done))
+    kw = dict(wait_all=wait_all, horizon=1, max_iters=100, max_horizons=2)
     for first, n in ((True, 0), (False, 1), (False, 2)):
         before = state.clone()
-        loop_ops.horizon_cond(o, d, state, wait_all=wait_all, max_horizons=2, first=first)
-        assert state.tolist() == [int(want), n]
-        go = loop_ref.horizon_cond(o, d, before, wait_all=wait_all, max_horizons=2,
-                                   first=first)
+        loop_ops.horizon_cond(o, d, its, state, first=first, **kw)
+        assert state.tolist() == [int(want), n, 0, n]
+        go = loop_ref.horizon_cond(o, d, its, before, first=first, **kw)
         assert go == (running and not want and n < 2)
 
 

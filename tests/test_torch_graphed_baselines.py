@@ -198,8 +198,8 @@ def test_grid_window_runs_one_step_a_horizon(monkeypatch):
     calls, evals = [], []
     real = loop_ref.solve_horizons
 
-    def spy(horizon, carry, occupied, **kw):
-        out = real(horizon, carry, occupied, **kw)
+    def spy(unit, carry, occupied, **kw):
+        out = real(unit, carry, occupied, **kw)
         calls.append((tuple(occupied.shape), kw["max_horizons"], out[2]))
         return out
 

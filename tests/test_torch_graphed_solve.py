@@ -5,8 +5,9 @@ the CPU.
 at counter 0 and the Algorithm-1 families' noise from the same streams,
 so row i is a solo ``adaptive()`` on row i's stream; the families' solve
 runs through the cached ``HorizonDriver`` (on the CPU its plain loop,
-``kernels.graph_loop.ref``, over ``solve_chunk``'s groups), bitwise the
-host-driven ``solve_chunk`` chain on the same streams. Under the one-shot
+``kernels.graph_loop.ref``, one body iteration a unit under P2's
+conditions), bitwise the host-driven ``solve_chunk`` chain on the same
+streams. Under the one-shot
 rule a key's first solve is that host-driven chain and records the key,
 the second builds the driver, later ones reuse it. The card's WHILE node
 and its one host read a solve are gated in ``chip_smoke.py``.
@@ -121,14 +122,17 @@ def test_sample_is_the_solve_chunk_chain(method, denoise):
 
 def test_sample_runs_through_the_plain_driver(monkeypatch):
     """On the CPU the graphed solve is ``graph_loop.ref.solve_horizons``
-    over ``SYNC_EVERY``-iteration horizons, every row occupied, waiting
-    on all of them."""
+    over one horizon of ``max_iters`` one-iteration units (the reference's
+    one ``solve_chunk`` of ``max_iters``), every row occupied, waiting on
+    all of them, stopping at the last iteration with a row active."""
     calls = []
     real = loop_ref.solve_horizons
 
-    def spy(horizon, carry, occupied, **kw):
-        calls.append((bool(occupied.all()), kw["wait_all"], kw["max_horizons"]))
-        return real(horizon, carry, occupied, **kw)
+    def spy(unit, carry, occupied, **kw):
+        out = real(unit, carry, occupied, **kw)
+        calls.append((bool(occupied.all()), kw["wait_all"], kw["horizon"], kw["max_iters"],
+                      kw["max_horizons"], out[2], out[3]))
+        return out
 
     monkeypatch.setattr(loop_ref, "solve_horizons", spy)
     ts = tsde.VPSDE()
@@ -138,20 +142,23 @@ def test_sample_runs_through_the_plain_driver(monkeypatch):
     first = run()  # the key's first solve: the host-driven chain
     assert calls == []
     res = run()
-    assert calls == [(True, True, -(-500 // ad.SYNC_EVERY))]
-    assert int(res.iterations) > ad.SYNC_EVERY
+    its = int(res.iterations)
+    assert calls == [(True, True, 500, 500, 1, 1, its)]
+    assert its > ad.SYNC_EVERY
     _assert_same(first, res)
 
 
 @pytest.mark.parametrize("max_iters", [5, 8, 13])
 def test_sample_stops_at_max_iters_as_the_chain(max_iters):
-    """The solve's budget sits in the body's mask: a cap inside a horizon
-    stops the graphed solve where the chain stops."""
+    """The solve's budget is P2's: a cap inside a horizon stops the graphed
+    solve where the chain stops, its score called 2·max_iters + 1 times."""
     ts = tsde.VPSDE()
-    score = tan.gaussian_score(ts, MU, S0)
+    inner, calls = tan.gaussian_score(ts, MU, S0), []
+    score = lambda x, t: calls.append(1) or inner(x, t)
     sample(ts, score, (4, 3), seed=2, device="cpu", eps_rel=0.05, max_iters=max_iters)
+    del calls[:]
     res = sample(ts, score, (4, 3), seed=2, device="cpu", eps_rel=0.05, max_iters=max_iters)
-    assert len(ad._drivers) == 1
+    assert len(ad._drivers) == 1 and len(calls) == 2 * max_iters + 1
     want, carry = _host_chain(ts, score, (4, 3), 2,
                               ad.AdaptiveConfig(eps_rel=0.05, max_iters=max_iters))
     _assert_same(res, want)
@@ -408,8 +415,7 @@ def test_host_syncs_count_the_window_read():
     assert ad.host_syncs - before == -(-int(first.iterations) // ad.SYNC_EVERY) + 1
     before = ad.host_syncs
     out = ad.solve_graphed(ts, score, carry, config=cfg)
-    # on the CPU each horizon is a solve_chunk (its entry and its group's
-    # reads), plus the window's one read
-    horizons = -(-int(out.iterations) // ad.SYNC_EVERY)
-    assert ad.host_syncs - before == 2 * horizons + 1
+    # on the CPU the unit is one body iteration, which reads nothing: the
+    # window's one read, as on the card
+    assert ad.host_syncs - before == 1
     assert np.all(out.done.numpy())
